@@ -1,26 +1,49 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (vision_ft_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
+
+With --profile, phase 6 also traces two train steps with torch.profiler
+(device activity only) and prints the device time of a step by kind of
+kernel and the share of an untraced step in which the card is idle.
 
 Phases, each printing its own lines; any failure exits non-zero:
 
 0. device: needs torch.cuda; prints the card's name and power limit and
    sets fp32 matmuls and convolutions to full fp32 (no TF32).
-1. build: compiles the CUDA kernel with nvcc (sm_90a) and the Triton
-   kernel, from the sources in this checkout.
-2. kernel B, BSHD flash attention, against its plain PyTorch version in
-   bf16 at the SDXL self-attention shapes (aligned and ragged).
+1. build: compiles the CUDA kernels with nvcc (sm_90a, one nvcc per source,
+   started together) and the Triton kernel, from the sources in this
+   checkout.
+2. kernel B, BSHD flash attention forward, against its plain PyTorch
+   version in bf16 at the SDXL self-attention shapes of the requests
+   (aligned and ragged, batch 2) and of the train step (batch 4).
 3. kernel A, fused LayerNorm, the same way.
 4. SDXL generate() at full width (default DenoiserConfig, SDXL CLIP and
    VAE configs, bf16, seeded random weights made on the card, a small
    synthetic CLIP vocab): three requests, then checks of the outputs and
    of the kernels' launch counts against the module tree.
+5. kernel C, the BSHD flash attention backward (a dk/dv kernel and a dq
+   kernel), against the plain backward at the train step's shapes; the
+   forward's lse, which the backward reads, against the plain one too.
+6. SDXL LoRA train steps at full width on the same model: rank-16 LoRA on
+   the attention and feed-forward layers, gradient checkpointing, AdamW
+   with global-norm clipping, batch 4 at 1024 px with cached latents and
+   text. Checks the metrics, the adapters, the frozen base, the launch
+   counts of both checkpointing modes, a second seeded run, and one step
+   against the same step with the kernels' plain versions swapped in.
 
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}. There is no CPU path.
+Every kernel's record carries its time, its plain version's, the bound
+(the larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s bf16, or
+67 TFLOP/s for the fp32 LayerNorm arithmetic, from this run's shapes) and
+the time of the one PyTorch call that computes the same function, where
+there is one (never used by the port). The line before the last is the
+kernels' JSON record; the last line is {"ok": true, "device": {...}}.
+There is no CPU path.
 """
 
+import argparse
+import contextlib
+import functools
 import json
 import statistics
 import subprocess
@@ -36,14 +59,39 @@ import torch
 # cast), a few bf16 ulps (2**-8 relative each)
 ATTN_TOL = 2e-2
 LN_TOL = 2e-2
+# the backward kernels and the plain backward round P and dS to bf16 at the
+# same points and accumulate in fp32; they differ in the exp (exp2 with
+# log2 e folded in), in summation order and in each output's bf16 rounding
+ATTN_BWD_TOL = 2e-2
+# one whole train step, kernels against their plain versions, bf16, random
+# weights: every one of 70 attentions and 210 LayerNorms differs by a few
+# bf16 ulps, and the UNet in between carries those differences on, the
+# gradients more than the loss (measured on an H100: 1e-5 relative on the
+# loss, 2e-3 on the gradient norm)
+STEP_LOSS_TOL = 1e-2
+STEP_GRAD_NORM_TOL = 5e-2
 
-ATTN_SHAPES = [  # (B, S, H*D, H): SDXL 1024x1024 and the ragged 832x1216 bucket
+ATTN_SHAPES = [  # (B, S, H*D, H): SDXL 1024x1024 and the ragged 832x1216 bucket at the
+    # requests' CFG batch 2, then 1024x1024 at the train step's batch 4
     (2, 4096, 640, 10), (2, 1024, 1280, 20), (2, 3952, 640, 10), (2, 988, 1280, 20),
+    (4, 4096, 640, 10), (4, 1024, 1280, 20),
 ]
-LN_SHAPES = [  # (rows, C, beta): UNet 640/1280, CLIP-L 768 and bigG 1280 at B*77
+ATTN_BWD_SHAPES = [  # the train step's batch 4 at 1024 px; the ragged bucket at batch 2
+    (4, 4096, 640, 10), (4, 1024, 1280, 20), (2, 3952, 640, 10), (2, 988, 1280, 20),
+]
+LN_SHAPES = [  # (rows, C, beta): UNet 640/1280 at batch 2, CLIP-L 768 and bigG 1280 at
+    # B*77, then the UNet's at the train step's batch 4
     (8192, 640, True), (2048, 1280, True), (154, 768, True), (154, 1280, False),
+    (16384, 640, True), (4096, 1280, True),
 ]
 STEPS = 8
+TRAIN_BATCH, TRAIN_RES, TRAIN_WARMUP, TRAIN_TIMED = 4, 1024, 2, 3
+LORA_TARGETS = ["attn1", "attn2", ".ff."]
+
+# NVIDIA H100 SXM data sheet, dense rates
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 
 
 def phase(name: str) -> None:
@@ -65,6 +113,12 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return statistics.median(times)
 
 
+def bound(nbytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS):
+    """(least milliseconds the card could take, what binds it)."""
+    by_bytes, by_flops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / peak_flops * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_flops else (by_flops, "operations")
+
+
 def compare(name, kernel, plain, tol):
     """Errors of ``kernel()`` against ``plain()``, in fp32; fails past tol."""
     out, ref = kernel().float(), plain().float()
@@ -76,6 +130,11 @@ def compare(name, kernel, plain, tol):
     if rel_err > tol:
         raise AssertionError(f"{name}: max abs err {abs_err:.3e}, rel {rel_err:.3e} > {tol}")
     return abs_err, rel_err
+
+
+def sdpa_heads(t, h):
+    """(B, S, H*D) -> (B, H, S, D) view, the layout of PyTorch's own attention."""
+    return t.unflatten(-1, (h, t.shape[-1] // h)).transpose(1, 2)
 
 
 def write_vocab(path: Path) -> None:
@@ -95,7 +154,101 @@ def write_vocab(path: Path) -> None:
     (path / "merges.txt").write_text("\n".join(merges) + "\n")
 
 
+@contextlib.contextmanager
+def plain_versions():
+    """Inside, the three kernel wrappers' CUDA paths are their plain PyTorch
+    versions: a swap made in this process only, for the comparison of a
+    whole train step. The package has no such switch."""
+    import vision_ft_tpu_torch.ops.flash_attention as flash
+    import vision_ft_tpu_torch.ops.layer_norm as ln
+
+    def forward(q, k, v, num_heads, scale, return_lse):
+        if return_lse:
+            return flash.flash_attention_bshd_reference(q, k, v, num_heads, scale, return_lse=True)
+        return flash.flash_attention_bshd_reference(q, k, v, num_heads, scale), None
+
+    def backward(q, k, v, out, lse, dout, num_heads, scale=None):
+        return flash.flash_attention_bshd_backward_reference(
+            q, k, v, out, lse, dout, num_heads, scale
+        )
+
+    saved = (flash._forward, flash.flash_attention_bshd_backward, ln._forward)
+    flash._forward, flash.flash_attention_bshd_backward = forward, backward
+    ln._forward = ln.layer_norm_reference
+    try:
+        yield
+    finally:
+        flash._forward, flash.flash_attention_bshd_backward, ln._forward = saved
+
+
+# kernel-name fragments -> kind, first match wins (torch.profiler's names)
+KERNEL_KINDS = [
+    ("flash_bwd_dkv_bshd", "kernel C dk/dv"), ("flash_bwd_dq_bshd", "kernel C dq"),
+    ("flash_fwd_bshd", "kernel B"), ("layer_norm_fwd", "kernel A"),
+    ("multi_tensor", "optimizer / clipping (foreach)"),
+    ("nvjet", "matmul (cuBLAS)"), ("gemm", "matmul (cuBLAS)"), ("gemv", "matmul (cuBLAS)"),
+    ("cutlass", "matmul (cuBLAS)"), ("xmma", "matmul (cuBLAS)"), ("splitK", "matmul (cuBLAS)"),
+    ("conv", "conv (cuDNN)"), ("cudnn", "conv (cuDNN)"), ("nchw", "conv (cuDNN)"),
+    ("nhwc", "conv (cuDNN)"), ("dgrad", "conv (cuDNN)"), ("wgrad", "conv (cuDNN)"),
+    ("group_norm", "group_norm"), ("GroupNorm", "group_norm"), ("RowwiseMoments", "group_norm"),
+    ("softmax", "softmax"),
+    ("reduce", "reduction (PyTorch)"),
+    ("elementwise", "elementwise / copy (PyTorch)"), ("Memcpy", "elementwise / copy (PyTorch)"),
+    ("Memset", "elementwise / copy (PyTorch)"), ("copy", "elementwise / copy (PyTorch)"),
+    ("CatArray", "elementwise / copy (PyTorch)"), ("upsample", "elementwise / copy (PyTorch)"),
+]
+
+
+def profile_window(run_step):
+    """Trace one train step (device activity only): ms by kind, kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run_step()
+        torch.cuda.synchronize()
+    kinds, kernels = {}, []
+    for event in prof.key_averages():
+        device_us = getattr(event, "self_device_time_total", None)
+        if device_us is None:  # the attribute's name in older PyTorch
+            device_us = event.self_cuda_time_total
+        if device_us <= 0:
+            continue
+        kind = next((k for frag, k in KERNEL_KINDS if frag in event.key), "other")
+        kernels.append((device_us / 1e3, event.count, kind, event.key))
+        total, count = kinds.get(kind, (0.0, 0))
+        kinds[kind] = (total + device_us / 1e3, count + event.count)
+    return kinds, kernels
+
+
+def profile_steps(run_step, unprofiled_ms: float) -> None:
+    """Trace two train steps, one window each, and print the second's device
+    time by kind of kernel and the card's idle share of a step of
+    ``unprofiled_ms``. The profiler can lose events under load: the two
+    windows must agree, or the run fails."""
+    (first, _), (kinds, kernels) = profile_window(run_step), profile_window(run_step)
+    busy_first = sum(t for t, _ in first.values())
+    busy_ms = sum(t for t, _ in kinds.values())
+    launches = sum(n for _, n in kinds.values())
+    print(f"profile of a train step: {busy_ms:.1f} ms of kernel time in {launches} launches "
+          f"({busy_first:.1f} ms in {sum(n for _, n in first.values())} the step before); "
+          f"an unprofiled step takes {unprofiled_ms:.1f} ms: the card is idle "
+          f"{100 * (1 - busy_ms / unprofiled_ms):.1f}% of it")
+    if busy_ms <= 0 or abs(busy_ms - busy_first) > 0.05 * busy_ms:
+        raise AssertionError("torch.profiler lost events: two traced steps disagree")
+    for kind, (ms, count) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {kind:32s} {ms:8.2f} ms/step {100 * ms / busy_ms:5.1f}% {count:8d} launches/step")
+    print("the 12 kernels with the most device time:")
+    for ms, count, kind, name in sorted(kernels, reverse=True)[:12]:
+        print(f"  {ms:8.2f} ms/step {count:6d} launches/step [{kind}] {name[:100]}")
+
+
 def main() -> None:
+    args = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    args.add_argument("--profile", action="store_true",
+                      help="also trace two train steps and print device time by kind of kernel")
+    options = args.parse_args()
+
     phase("0 device")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda is not available; this script needs a GPU")
@@ -119,13 +272,30 @@ def main() -> None:
                          f"{vision_ft_tpu_torch.__file__}, not from {checkout}")
     from vision_ft_tpu_torch.ops import _build
     from vision_ft_tpu_torch.ops.flash_attention import (
-        flash_attention_bshd, flash_attention_bshd_reference,
+        flash_attention_bshd, flash_attention_bshd_backward,
+        flash_attention_bshd_backward_reference, flash_attention_bshd_delta,
+        flash_attention_bshd_dkv, flash_attention_bshd_dq, flash_attention_bshd_reference,
     )
     from vision_ft_tpu_torch.ops.layer_norm import layer_norm, layer_norm_reference
 
+    wrappers = {
+        "flash_attention_bshd": flash_attention_bshd,
+        "flash_attention_bshd_dkv": flash_attention_bshd_dkv,
+        "flash_attention_bshd_dq": flash_attention_bshd_dq,
+        "layer_norm": layer_norm,
+    }
+
+    def reset_launches():
+        for wrapper in wrappers.values():
+            wrapper.launches = 0
+
+    def read_launches():
+        return {name: wrapper.launches for name, wrapper in wrappers.items()}
+
     phase("1 build")
     start = time.perf_counter()
-    _build.cuda_library("flash_attention_bshd")
+    cuda_sources = ["flash_attention_bshd", "flash_attention_bshd_bwd"]
+    _build.build_cuda_libraries(cuda_sources)
     nvcc_s = time.perf_counter() - start
     start = time.perf_counter()
     for c, beta in sorted({(c, beta) for _, c, beta in LN_SHAPES}):
@@ -133,14 +303,14 @@ def main() -> None:
         layer_norm(torch.ones(4, c, device=device, dtype=torch.bfloat16), w, w if beta else None)
     torch.cuda.synchronize()
     triton_s = time.perf_counter() - start
-    print(f"nvcc flash_attention_bshd.cu: {nvcc_s:.2f} s; "
+    print(f"nvcc {', '.join(n + '.cu' for n in cuda_sources)} (in parallel): {nvcc_s:.2f} s; "
           f"triton layer_norm (load + first launches): {triton_s:.2f} s")
 
     records = {}
     gen = torch.Generator(device=device).manual_seed(0)
 
-    phase("2 kernel B: BSHD flash attention vs plain (bf16)")
-    errs, times = [], []
+    phase("2 kernel B: BSHD flash attention forward vs plain (bf16)")
+    errs, rows = [], []
     for b, s, inner, h in ATTN_SHAPES:
         q, k, v = (torch.randn(b, s, inner, device=device, generator=gen).bfloat16() for _ in "qkv")
         abs_err, rel_err = compare(
@@ -150,39 +320,51 @@ def main() -> None:
         )
         ms = cuda_ms(lambda: flash_attention_bshd(q, k, v, h))
         plain_ms = cuda_ms(lambda: flash_attention_bshd_reference(q, k, v, h), iters=5)
-        tflops = 4 * b * s * s * inner / ms / 1e9
+        heads = [sdpa_heads(t, h) for t in (q, k, v)]
+        library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(*heads))
+        flops = 4 * b * s * s * inner
+        bound_ms, bound_by = bound(4 * b * s * inner * 2, flops)
         print(f"B={b} S={s} H={h} D={inner // h}: max abs err {abs_err:.3e} rel {rel_err:.3e} "
-              f"(tol {ATTN_TOL}); kernel {ms:.3f} ms ({tflops:.1f} TFLOP/s), plain {plain_ms:.3f} ms")
+              f"(tol {ATTN_TOL}); kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+              f"plain {plain_ms:.3f} ms, SDPA {library_ms:.3f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by})")
         errs.append(abs_err)
-        times.append((ms, plain_ms))
+        rows.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=library_ms))
     records["flash_attention_bshd"] = dict(
         route="cuda", source="vision_ft_tpu_torch/csrc/flash_attention_bshd.cu",
         replaces="vision_ft_tpu/ops/pallas/flash_attention.py:663",
-        max_abs_err=max(errs), ms=times[0][0], plain_ms=times[0][1],
+        max_abs_err=max(errs), **rows[0],
     )
-    del q, k, v
+    del q, k, v, heads
 
     phase("3 kernel A: fused LayerNorm vs plain (bf16)")
-    errs, times = [], []
-    for rows, c, beta in LN_SHAPES:
-        x = (torch.randn(rows, c, device=device, generator=gen) * 2 + 0.3).bfloat16()
+    errs, rows = [], []
+    for n_rows, c, beta in LN_SHAPES:
+        x = (torch.randn(n_rows, c, device=device, generator=gen) * 2 + 0.3).bfloat16()
         w = (1 + 0.2 * torch.randn(c, device=device, generator=gen)).bfloat16()
         bias = (0.2 * torch.randn(c, device=device, generator=gen)).bfloat16() if beta else None
         abs_err, rel_err = compare(
-            f"layer_norm {(rows, c, beta)}",
+            f"layer_norm {(n_rows, c, beta)}",
             lambda: layer_norm(x, w, bias), lambda: layer_norm_reference(x, w, bias), LN_TOL,
         )
         ms = cuda_ms(lambda: layer_norm(x, w, bias), iters=50)
         plain_ms = cuda_ms(lambda: layer_norm_reference(x, w, bias), iters=50)
-        gbs = 2 * x.numel() * 2 / ms / 1e6
-        print(f"rows={rows} C={c} beta={beta}: max abs err {abs_err:.3e} rel {rel_err:.3e} "
-              f"(tol {LN_TOL}); kernel {ms:.4f} ms ({gbs:.0f} GB/s), plain {plain_ms:.4f} ms")
+        library_ms = cuda_ms(lambda: torch.nn.functional.layer_norm(x, (c,), w, bias), iters=50)
+        nbytes = 2 * x.numel() * 2 + (2 if beta else 1) * c * 2
+        # mean, variance, normalize, affine: about 8 fp32 operations an element
+        bound_ms, bound_by = bound(nbytes, 8 * x.numel(), PEAK_FP32_FLOPS)
+        print(f"rows={n_rows} C={c} beta={beta}: max abs err {abs_err:.3e} rel {rel_err:.3e} "
+              f"(tol {LN_TOL}); kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s), "
+              f"plain {plain_ms:.4f} ms, F.layer_norm {library_ms:.4f} ms, "
+              f"bound {bound_ms:.5f} ms ({bound_by})")
         errs.append(abs_err)
-        times.append((ms, plain_ms))
+        rows.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=library_ms))
     records["layer_norm"] = dict(
         route="triton", source="vision_ft_tpu_torch/csrc/layer_norm.py",
         replaces="vision_ft_tpu/ops/pallas/layer_norm.py:22",
-        max_abs_err=max(errs), ms=times[0][0], plain_ms=times[0][1],
+        max_abs_err=max(errs), **rows[0],
     )
 
     phase("4 SDXL generate() at full width, bf16, seeded random weights")
@@ -223,8 +405,7 @@ def main() -> None:
     ]
     requests.append(("c", requests[0][1]))  # (a) again, same seed
 
-    flash_attention_bshd.launches = 0
-    layer_norm.launches = 0
+    reset_launches()
     results = {}
     unet_forwards = 0
     for name, kwargs in requests:
@@ -246,8 +427,7 @@ def main() -> None:
         if any(a.std() == 0 for a in arrays):
             raise AssertionError(f"request {name}: constant image")
         results[name] = (latents, arrays)
-    launches = {"flash_attention_bshd": flash_attention_bshd.launches,
-                "layer_norm": layer_norm.launches}
+    generate_launches = read_launches()
 
     same = torch.equal(results["a"][0], results["c"][0]) and all(
         np.array_equal(x, y) for x, y in zip(results["a"][1], results["c"][1]))
@@ -255,12 +435,14 @@ def main() -> None:
         raise AssertionError("request c (a repeated, same seed) differs from a")
     print("request c == request a, bit for bit")
     want = {"flash_attention_bshd": unet_attn * unet_forwards,
+            "flash_attention_bshd_dkv": 0, "flash_attention_bshd_dq": 0,
             "layer_norm": unet_ln * unet_forwards + clip_ln * len(requests)}
     print(f"module tree: {unet_attn} UNet self-attentions, {unet_ln} UNet LayerNorms, "
           f"{clip_ln} CLIP LayerNorms; {unet_forwards} UNet forwards; "
-          f"launches {launches}, expected {want}")
-    if launches != want:
-        raise AssertionError(f"launch counts {launches} != {want}")
+          f"launches {generate_launches}, expected {want}")
+    if generate_launches != want:
+        raise AssertionError(f"launch counts {generate_launches} != {want}")
+    del results
 
     # the UNet step alone: one CFG forward (batch 2) at 1024x1024
     b = 2
@@ -275,11 +457,236 @@ def main() -> None:
         unet_ms = cuda_ms(lambda: model.denoiser(*args), warmup=2, iters=5)
     print(f"UNet CFG forward at 1024x1024 (batch {b}): {unet_ms:.1f} ms")
 
-    for name in records:
-        records[name]["launches"] = launches[name]
-    kernels = [{"name": n, **{k: r[k] for k in ("route", "source", "replaces", "launches",
-                                                 "max_abs_err", "ms", "plain_ms")}}
-               for n, r in records.items()]
+    phase("5 kernel C: BSHD flash attention backward (dk/dv kernel, dq kernel) vs plain (bf16)")
+    errs, rows = {"dkv": [], "dq": []}, {"dkv": [], "dq": []}
+    for b, s, inner, h in ATTN_BWD_SHAPES:
+        q, k, v, dout = (
+            torch.randn(b, s, inner, device=device, generator=gen).bfloat16() for _ in range(4)
+        )
+        out, lse = flash_attention_bshd(q, k, v, h, return_lse=True)
+        ref_out, ref_lse = flash_attention_bshd_reference(q, k, v, h, return_lse=True)
+        compare(f"attention forward {(b, s, inner, h)} out", lambda: out, lambda: ref_out, ATTN_TOL)
+        lse_err = compare(f"attention forward {(b, s, inner, h)} lse",
+                          lambda: lse, lambda: ref_lse, ATTN_TOL)
+        del ref_out, ref_lse
+        delta = flash_attention_bshd_delta(out, dout, h)
+        ref_dq, ref_dk, ref_dv = flash_attention_bshd_backward_reference(q, k, v, out, lse, dout, h)
+        dk, dv = flash_attention_bshd_dkv(q, k, v, dout, lse, delta, h)
+        dq = flash_attention_bshd_dq(q, k, v, dout, lse, delta, h)
+        err = {}
+        for name, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+            err[name] = compare(f"attention backward {(b, s, inner, h)} {name}",
+                                lambda: got, lambda: ref, ATTN_BWD_TOL)
+        del ref_dq, ref_dk, ref_dv, dq, dk, dv
+        dkv_ms = cuda_ms(lambda: flash_attention_bshd_dkv(q, k, v, dout, lse, delta, h))
+        dq_ms = cuda_ms(lambda: flash_attention_bshd_dq(q, k, v, dout, lse, delta, h))
+        whole_ms = cuda_ms(lambda: flash_attention_bshd_backward(q, k, v, out, lse, dout, h))
+        plain_ms = cuda_ms(
+            lambda: flash_attention_bshd_backward_reference(q, k, v, out, lse, dout, h),
+            warmup=1, iters=3,
+        )
+        # yardstick only: PyTorch's own attention, forward, backward alone
+        # (the one PyTorch call that computes dq, dk and dv) and both
+        leaves = [sdpa_heads(t, h).detach().requires_grad_() for t in (q, k, v)]
+        dout_heads = sdpa_heads(dout, h)
+
+        def sdpa_both():
+            o = torch.nn.functional.scaled_dot_product_attention(*leaves)
+            return torch.autograd.grad(o, leaves, dout_heads)
+
+        sdpa_fwd_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(*leaves))
+        sdpa_both_ms = cuda_ms(sdpa_both)
+        sdpa_out = torch.nn.functional.scaled_dot_product_attention(*leaves)
+        sdpa_bwd_ms = cuda_ms(
+            lambda: torch.autograd.grad(sdpa_out, leaves, dout_heads, retain_graph=True)
+        )
+        tensor_bytes, stat_bytes = b * s * inner * 2, b * h * s * 4
+        # dk/dv need S^T, dP^T, dV, dK: 4 products; dq needs S, dP, dQ: 3
+        dkv_bound = bound(6 * tensor_bytes + 2 * stat_bytes, 8 * b * s * s * inner)
+        dq_bound = bound(5 * tensor_bytes + 2 * stat_bytes, 6 * b * s * s * inner)
+        print(f"B={b} S={s} H={h} D={inner // h}: "
+              + ", ".join(f"{n} max abs err {a:.3e} rel {r:.3e}" for n, (a, r) in err.items())
+              + f" (tol {ATTN_BWD_TOL}), forward lse max abs err {lse_err[0]:.3e}"
+              f"; dk/dv kernel {dkv_ms:.3f} ms, dq kernel {dq_ms:.3f} ms, "
+              f"whole backward {whole_ms:.3f} ms "
+              f"({10 * b * s * s * inner / whole_ms / 1e9:.1f} TFLOP/s of 10*B*S^2*H*D), "
+              f"plain {plain_ms:.3f} ms; SDPA forward {sdpa_fwd_ms:.3f} ms, "
+              f"backward {sdpa_bwd_ms:.3f} ms, forward + backward {sdpa_both_ms:.3f} ms; bounds dk/dv {dkv_bound[0]:.4f} ms "
+              f"({dkv_bound[1]}), dq {dq_bound[0]:.4f} ms ({dq_bound[1]})")
+        errs["dkv"].append(max(err["dk"][0], err["dv"][0]))
+        errs["dq"].append(err["dq"][0])
+        # the plain backward and PyTorch's own attention backward compute
+        # dq, dk and dv in one pass: their times stand beside both kernels
+        rows["dkv"].append(dict(ms=dkv_ms, plain_ms=plain_ms, bound_ms=dkv_bound[0],
+                                bound_by=dkv_bound[1], library_ms=sdpa_bwd_ms))
+        rows["dq"].append(dict(ms=dq_ms, plain_ms=plain_ms, bound_ms=dq_bound[0],
+                               bound_by=dq_bound[1], library_ms=sdpa_bwd_ms))
+        del q, k, v, dout, out, lse, delta, leaves, dout_heads, sdpa_out
+    for which, line in (("dkv", 826), ("dq", 937)):
+        records[f"flash_attention_bshd_{which}"] = dict(
+            route="cuda", source="vision_ft_tpu_torch/csrc/flash_attention_bshd_bwd.cu",
+            replaces=f"vision_ft_tpu/ops/pallas/flash_attention.py:{line}",
+            max_abs_err=max(errs[which]), **rows[which][0],
+        )
+
+    phase(f"6 SDXL LoRA train steps at full width, bf16, batch {TRAIN_BATCH} at {TRAIN_RES} px")
+    from vision_ft_tpu_torch.models.sdxl import train_text_to_image
+    from vision_ft_tpu_torch.modules import peft
+    from vision_ft_tpu_torch.nn import set_remat_saves
+    from vision_ft_tpu_torch.training import (
+        get_optimizer, get_schedule, init_train_state, make_train_step,
+    )
+    from vision_ft_tpu_torch.training.optimizer import global_norm
+
+    lora = peft.LoRAConfig(rank=16, alpha=8.0, dtype="bfloat16")
+    model.denoiser.set_gradient_checkpointing(True)
+    optimizer = get_optimizer(
+        "torch.optim.AdamW", get_schedule("constant", 1e-4, 1000), max_grad_norm=1.0
+    )
+    loss_fn = functools.partial(train_text_to_image.loss_fn, model)
+    step = make_train_step(loss_fn, optimizer)
+
+    def make_batch(batch_size, seed):
+        g = torch.Generator(device=device).manual_seed(seed)
+        side = TRAIN_RES // 8
+        return {
+            "cached_latents": torch.randn(batch_size, side, side, 4, device=device, generator=g).bfloat16(),
+            "cached_context": torch.randn(batch_size, 225 + 2, 2048, device=device, generator=g).bfloat16(),
+            "cached_pooled": torch.randn(batch_size, 1280, device=device, generator=g).bfloat16(),
+            "original_size": torch.full((batch_size, 2), float(TRAIN_RES), device=device),
+            "target_size": torch.full((batch_size, 2), float(TRAIN_RES), device=device),
+            "crop_coords_top_left": torch.zeros(batch_size, 2, device=device),
+        }
+
+    def fresh_state():
+        """Adapters re-made from their seed (zero delta), a new optimizer."""
+        peft.replace_to_peft_layer(
+            model.denoiser, LORA_TARGETS, [], lora, torch.Generator(device=device).manual_seed(1)
+        )
+        trainable, frozen = peft.split_peft_params(model.denoiser)
+        return init_train_state(optimizer, trainable), frozen
+
+    def run_steps(state, count, seed):
+        g = torch.Generator(device=device).manual_seed(seed)
+        out = []
+        for _ in range(count):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            state, metrics = step(state, batch, g)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - start, metrics["train/loss"].item(),
+                        metrics["train/grad_norm"].item()))
+        return state, out
+
+    batch = make_batch(TRAIN_BATCH, seed=7)
+    state, frozen = fresh_state()
+    n_lora = sum(p.numel() for p in state.trainable.values())
+    # kept on the host, so that the peak below is the train step's own
+    base_before = {k: v.detach().cpu() for k, v in frozen.items()}
+    print(f"LoRA rank {lora.rank} alpha {lora.alpha} on {LORA_TARGETS}: {n_lora / 1e6:.1f} M "
+          f"trainable parameters in {len(state.trainable)} tensors; base frozen, "
+          f"{sum(v.numel() for v in frozen.values()) / 1e9:.3f} B")
+
+    total = TRAIN_WARMUP + TRAIN_TIMED
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    state, first_run = run_steps(state, total, seed=11)
+    train_launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    for i, (seconds, loss, norm) in enumerate(first_run):
+        print(f"step {i + 1}: loss {loss:.6f} grad_norm {norm:.6f} {seconds * 1e3:.1f} ms"
+              + (" (warm-up)" if i < TRAIN_WARMUP else ""))
+        if not (np.isfinite(loss) and np.isfinite(norm) and norm > 0):
+            raise AssertionError(f"train step {i + 1}: loss {loss}, grad_norm {norm}")
+    step_ms = statistics.median(t for t, _, _ in first_run[TRAIN_WARMUP:]) * 1e3
+    print(f"train step (remat saves: kernel): {step_ms:.1f} ms/step, "
+          f"{TRAIN_BATCH / step_ms * 1e3:.3f} images/s, peak {peak_gib:.2f} GiB")
+    ups = [p for k, p in state.trainable.items() if k.endswith("lora_up.weight")]
+    if not all(p.any() for p in ups):
+        raise AssertionError("a lora_up is still zero after the train steps")
+    # every layer list that holds a transformer is recomputed once in the
+    # backward: the LayerNorm kernel runs twice a step; the flash forward
+    # once, since the checkpoint keeps its (out, lse)
+    want = {"flash_attention_bshd": unet_attn * total,
+            "flash_attention_bshd_dkv": unet_attn * total,
+            "flash_attention_bshd_dq": unet_attn * total,
+            "layer_norm": 2 * unet_ln * total}
+    print(f"launches over {total} steps {train_launches}, expected {want}")
+    if train_launches != want:
+        raise AssertionError(f"train launch counts {train_launches} != {want}")
+
+    if options.profile:
+        profile_steps(lambda: run_steps(state, 1, seed=14), step_ms)
+
+    # the other checkpointing mode: nothing kept, so the forward kernel runs
+    # again in the recomputation
+    set_remat_saves("none")
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    state, none_run = run_steps(state, 2, seed=12)
+    set_remat_saves("kernel")
+    none_launches = read_launches()
+    want_none = {**{k: v // total * 2 for k, v in want.items()},
+                 "flash_attention_bshd": 2 * unet_attn * 2}
+    print(f"train step (remat saves: none): {none_run[-1][0] * 1e3:.1f} ms/step, "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"launches over 2 steps {none_launches}, expected {want_none}")
+    if none_launches != want_none:
+        raise AssertionError(f"train launch counts (none) {none_launches} != {want_none}")
+
+    changed = [k for k, v in frozen.items() if not torch.equal(v.cpu(), base_before[k])]
+    with_grad = [k for k, v in frozen.items() if v.grad is not None or v.requires_grad]
+    others = [p for part in (model.text_encoder, model.vae) for p in part.parameters()]
+    if changed or with_grad or any(p.grad is not None for p in others):
+        raise AssertionError(f"frozen tensors changed {changed[:3]} or got a gradient {with_grad[:3]}")
+    print(f"{len(frozen)} base tensors bit-identical to before, none with a gradient")
+    del base_before
+
+    # a second seeded run from the same start
+    state, _ = fresh_state()
+    state, second_run = run_steps(state, total, seed=11)
+    diffs = [abs(a[1] - b[1]) for a, b in zip(first_run, second_run)]
+    identical = all(a[1:] == b[1:] for a, b in zip(first_run, second_run))
+    print(f"second seeded run: losses and gradient norms "
+          f"{'bit-identical' if identical else 'differ'}, max |loss difference| {max(diffs):.3e}")
+    if not identical:  # no atomics in any kernel of the path: runs must repeat exactly
+        raise AssertionError("two seeded runs of the train steps differ")
+
+    # one step at batch 1: kernels against their plain versions, same
+    # adapters (as trained above), same batch, same draws
+    small = make_batch(1, seed=8)
+    params = list(state.trainable.values())
+
+    def loss_and_norm():
+        loss, _ = loss_fn(small, torch.Generator(device=device).manual_seed(13))
+        norm = global_norm(torch.autograd.grad(loss, params))
+        return loss.item(), norm.item()
+
+    reset_launches()
+    kernel_loss, kernel_norm = loss_and_norm()
+    used = read_launches()
+    with plain_versions():
+        plain_loss, plain_norm = loss_and_norm()
+    if read_launches() != used or min(used.values()) == 0:
+        raise AssertionError(f"the plain step launched a kernel, or the kernel step none: {used}")
+    loss_rel = abs(kernel_loss - plain_loss) / abs(plain_loss)
+    norm_rel = abs(kernel_norm - plain_norm) / abs(plain_norm)
+    print(f"batch-1 step, kernels vs plain versions: loss {kernel_loss:.6f} vs {plain_loss:.6f} "
+          f"(rel {loss_rel:.3e}, tol {STEP_LOSS_TOL}); grad_norm {kernel_norm:.6f} vs "
+          f"{plain_norm:.6f} (rel {norm_rel:.3e}, tol {STEP_GRAD_NORM_TOL})")
+    if not (loss_rel <= STEP_LOSS_TOL and norm_rel <= STEP_GRAD_NORM_TOL):
+        raise AssertionError("the kernel step and the plain step disagree")
+
+    kernels = []
+    for name, record in records.items():
+        launches = {"generate": generate_launches[name], "train": train_launches[name]}
+        kernels.append({
+            "name": name,
+            **{k: record[k] for k in ("route", "source", "replaces")},
+            "launches": sum(launches.values()), "launches_by_path": launches,
+            **{k: record[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")},
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,10 @@ import torch
 
 from vision_ft_tpu_torch.ops.flash_attention import (
     flash_attention_bshd,
+    flash_attention_bshd_backward,
+    flash_attention_bshd_dkv,
+    flash_attention_bshd_dq,
+    flash_attention_bshd_backward_reference,
     flash_attention_bshd_reference,
 )
 from vision_ft_tpu_torch.ops.layer_norm import layer_norm, layer_norm_reference
@@ -28,6 +32,11 @@ def cuda():
 # bf16 rounding of the output, so a few bf16 ulps of O(1) outputs
 BF16_ATTN_TOL = 2e-2
 BF16_LN_TOL = 2e-2
+# The backward kernels and the plain backward round P and dS to bf16 at
+# the same points and accumulate in fp32; they differ in the exp (exp2 with
+# log2 e folded in), in summation order and in the bf16 rounding of each
+# output: a few bf16 ulps (2**-8 each) of the output's largest value
+BF16_ATTN_BWD_TOL = 2e-2
 
 
 @pytest.mark.cuda
@@ -49,6 +58,76 @@ def test_bshd_kernel_matches_plain_on_card(cuda, b, s, sk, h, d):
         "bqhd,bkhd->bhqk", q.float().unflatten(-1, (h, d)), k.float().unflatten(-1, (h, d))
     )
     torch.testing.assert_close(lse, torch.logsumexp(scores * d**-0.5, -1), atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,s,sk,h,d",
+    [
+        (4, 4096, 4096, 10, 64),  # SDXL 1024 px, stage 1
+        (4, 1024, 1024, 20, 64),  # SDXL 1024 px, stage 2
+        (2, 3952, 3952, 10, 64),  # 832x1216 bucket: ragged tiles
+        (2, 988, 988, 20, 64),
+        (1, 130, 333, 3, 64),     # odd head count, sq != sk, both ragged
+        (1, 1, 256, 2, 64),       # a single q row
+        (1, 200, 264, 2, 128),    # the other head dim
+    ],
+)
+def test_bshd_backward_kernels_match_plain_on_card(cuda, b, s, sk, h, d):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v, dout = (
+        torch.randn(b, n, h * d, device=cuda, generator=g).bfloat16() for n in (s, sk, sk, s)
+    )
+    out, lse = flash_attention_bshd(q, k, v, h, return_lse=True)
+    before = (flash_attention_bshd_dkv.launches, flash_attention_bshd_dq.launches)
+    got = flash_attention_bshd_backward(q, k, v, out, lse, dout, h)
+    torch.cuda.synchronize()
+    assert (flash_attention_bshd_dkv.launches, flash_attention_bshd_dq.launches) == (
+        before[0] + 1, before[1] + 1
+    )
+    want = flash_attention_bshd_backward_reference(q, k, v, out, lse, dout, h)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert x.shape == y.shape and x.dtype == y.dtype and torch.isfinite(x).all(), name
+        err = (x.float() - y.float()).abs().max().item()
+        assert err <= BF16_ATTN_BWD_TOL * y.float().abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+def test_bshd_autograd_runs_the_kernels_on_card(cuda):
+    """autograd through the wrapper: the backward kernels run once each, on
+    a gradient that arrives non-contiguous, and agree with autograd through
+    the plain forward."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    b, s, h, d = 2, 520, 4, 64
+    leaves = [
+        torch.randn(b, s, h * d, device=cuda, generator=g).bfloat16().requires_grad_()
+        for _ in range(3)
+    ]
+    weight = torch.randn(s, b, h * d, device=cuda, generator=g).bfloat16().transpose(0, 1)
+    wrappers = (flash_attention_bshd, flash_attention_bshd_dkv, flash_attention_bshd_dq)
+    before = [w.launches for w in wrappers]
+    got = torch.autograd.grad((flash_attention_bshd(*leaves, h) * weight).sum(), leaves)
+    assert [w.launches for w in wrappers] == [n + 1 for n in before]
+    want = torch.autograd.grad(
+        (flash_attention_bshd_reference(*leaves, h) * weight).sum(), leaves
+    )
+    for x, y in zip(got, want):
+        err = (x.float() - y.float()).abs().max().item()
+        assert err <= BF16_ATTN_BWD_TOL * y.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_backward_rejects_what_it_cannot_take(cuda):
+    q = torch.zeros(1, 256, 128, device=cuda, dtype=torch.bfloat16)
+    out, lse = flash_attention_bshd(q, q, q, 2, return_lse=True)
+    with pytest.raises(ValueError):
+        flash_attention_bshd_backward(q, q, q, out, lse.double(), q, 2)
+    with pytest.raises(ValueError):
+        flash_attention_bshd_backward(q, q, q, out, lse[:, :, :-1], q, 2)
+    with pytest.raises(ValueError):
+        flash_attention_bshd_backward(q, q, q, out, lse, q.float(), 2)
+    with pytest.raises(ValueError):
+        flash_attention_bshd_backward(q, q, q, out[:, :-8], lse, q, 2)
 
 
 @pytest.mark.cuda

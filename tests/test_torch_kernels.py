@@ -1,15 +1,19 @@
-"""The port's two kernel modules: BSHD flash attention and fused LayerNorm.
+"""The port's two kernel modules: BSHD flash attention and fused LayerNorm,
+forward and backward.
 
 On the CPU the wrappers return their plain PyTorch versions, which are
-held here against the JAX package: the BSHD plain version against the
-Pallas kernel run in interpret mode (as tests/ops/test_flash_attention.py
-runs it), the LayerNorm plain version against vision_ft_tpu.nn.LayerNorm,
-whose CPU formula is the kernel's formula.
+held here against the JAX package: the BSHD plain versions against the
+Pallas kernels run in interpret mode (as tests/ops/test_flash_attention.py
+runs them; the backward through jax.grad), the LayerNorm plain version
+against vision_ft_tpu.nn.LayerNorm, whose CPU formula is the kernel's
+formula, and the LayerNorm backward against the JAX package's
+_layer_norm_bwd.
 
 The kernels themselves are held against the plain versions on the card
 by tests/test_torch_cuda_kernels.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,13 +22,24 @@ import torch
 import vision_ft_tpu.nn as jnn
 from vision_ft_tpu.ops.attention import attention_heads_packed as jax_attention_heads_packed
 from vision_ft_tpu.ops.pallas.flash_attention import flash_attention_bshd as jax_flash_bshd
+from vision_ft_tpu.ops.pallas.layer_norm import _layer_norm_bwd as jax_layer_norm_bwd
 
+import vision_ft_tpu_torch.ops.flash_attention as flash_module
+from vision_ft_tpu_torch.nn import remat_layer, set_remat_saves
 from vision_ft_tpu_torch.ops.attention import attention_heads_packed
 from vision_ft_tpu_torch.ops.flash_attention import (
     flash_attention_bshd,
+    flash_attention_bshd_backward,
+    flash_attention_bshd_dkv,
+    flash_attention_bshd_dq,
+    flash_attention_bshd_backward_reference,
     flash_attention_bshd_reference,
 )
-from vision_ft_tpu_torch.ops.layer_norm import layer_norm, layer_norm_reference
+from vision_ft_tpu_torch.ops.layer_norm import (
+    layer_norm,
+    layer_norm_backward,
+    layer_norm_reference,
+)
 
 # fp32 attention on the CPU: the Pallas interpret run takes an online
 # softmax over 128-key blocks, the plain version one softmax over all
@@ -98,3 +113,148 @@ def test_layer_norm_plain_matches_jax(rows, c, bias):
     before = layer_norm.launches
     torch.testing.assert_close(layer_norm(torch.from_numpy(x), weight, beta), plain, rtol=0, atol=0)
     assert layer_norm.launches == before
+
+
+@pytest.mark.parametrize(
+    "b,sq,sk,h,d",
+    [
+        (1, 256, 256, 2, 64),  # aligned
+        (2, 200, 200, 4, 64),  # ragged self-attention lengths
+        (1, 130, 130, 2, 64),
+        (1, 200, 300, 2, 64),  # ragged, sq != sk
+    ],
+)
+def test_bshd_plain_backward_matches_jax_kernel(b, sq, sk, h, d):
+    """The plain backward (fed the plain forward's out and lse) against
+    jax.grad through the Pallas kernels in interpret mode, and against
+    torch autograd through the plain forward; the wrapper's autograd
+    function takes the plain versions on the CPU and launches nothing."""
+    q, k, v = _rand(0, (b, sq, h * d)), _rand(1, (b, sk, h * d)), _rand(2, (b, sk, h * d))
+    dout = _rand(3, (b, sq, h * d))
+    scale = d**-0.5
+
+    def jax_loss(q, k, v):
+        out = jax_flash_bshd(q, k, v, h, scale=scale, interpret=True)
+        return jnp.sum(out * jnp.asarray(dout))
+
+    want = jax.grad(jax_loss, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    tdout = torch.from_numpy(dout)
+    with torch.no_grad():
+        out, lse = flash_attention_bshd_reference(*leaves, h, scale, return_lse=True)
+        plain = flash_attention_bshd_backward_reference(*leaves, out, lse, tdout, h, scale)
+    through_plain_forward = torch.autograd.grad(
+        (flash_attention_bshd_reference(*leaves, h, scale) * tdout).sum(), leaves
+    )
+    wrappers = (flash_attention_bshd, flash_attention_bshd_dkv, flash_attention_bshd_dq)
+    before = [w.launches for w in wrappers]
+    through_wrapper = torch.autograd.grad(
+        (flash_attention_bshd(*leaves, h, scale) * tdout).sum(), leaves
+    )
+    assert [w.launches for w in wrappers] == before
+    for name, got, auto, wrapped, ref in zip(
+        ("dq", "dk", "dv"), plain, through_plain_forward, through_wrapper, want
+    ):
+        np.testing.assert_allclose(
+            got.numpy(), np.asarray(ref), atol=ATTN_TOL, rtol=ATTN_TOL, err_msg=name
+        )
+        np.testing.assert_allclose(
+            got.numpy(), auto.numpy(), atol=ATTN_TOL, rtol=ATTN_TOL, err_msg=name
+        )
+        torch.testing.assert_close(wrapped, got, rtol=0, atol=0)
+
+
+def test_bshd_lse_on_the_cpu():
+    q, k, v = (torch.from_numpy(_rand(i, (2, 130, 128))) for i in range(3))
+    out, lse = flash_attention_bshd(q, k, v, 2, return_lse=True)
+    torch.testing.assert_close(out, flash_attention_bshd(q, k, v, 2), rtol=0, atol=0)
+    scores = torch.einsum(
+        "bqhd,bkhd->bhqk", q.unflatten(-1, (2, 64)), k.unflatten(-1, (2, 64))
+    ) * 64**-0.5
+    assert lse.shape == (2, 2, 130) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, torch.logsumexp(scores, -1), atol=1e-5, rtol=1e-5)
+    dq, dk, dv = flash_attention_bshd_backward(q, k, v, out, lse, torch.ones_like(out), 2)
+    assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
+
+
+@pytest.mark.parametrize("mode,forwards", [("kernel", 1), ("none", 2)])
+def test_remat_keeps_or_reruns_the_flash_forward(monkeypatch, mode, forwards):
+    """A checkpointed region runs the attention forward once with the
+    "kernel" saves and twice with none; the gradients do not change."""
+    calls = []
+    forward = flash_module._forward
+    monkeypatch.setattr(
+        flash_module, "_forward", lambda *a, **kw: calls.append(1) or forward(*a, **kw)
+    )
+    leaves = [torch.from_numpy(_rand(i, (1, 130, 128))).requires_grad_() for i in range(3)]
+
+    def region(q, k, v):
+        first = flash_attention_bshd(q * 1.5, k, v, 2)
+        return flash_attention_bshd(first, k * 0.5, v, 2).sin()
+
+    want = torch.autograd.grad(region(*leaves).sum(), leaves)
+    calls.clear()
+    set_remat_saves(mode)
+    try:
+        loss = remat_layer(region)(*leaves).sum()
+        got = torch.autograd.grad(loss, leaves, retain_graph=True)
+        assert len(calls) == 2 * forwards
+        again = torch.autograd.grad(loss, leaves)  # a second walk recomputes again
+    finally:
+        set_remat_saves("kernel")
+    assert len(calls) == 2 * forwards + 2 * (forwards - 1)
+    for g, a, w in zip(got, again, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
+
+
+def test_remat_activations_mode_is_not_ported():
+    from vision_ft_tpu_torch.nn.core import run_remat_stack, set_remat_group
+
+    with pytest.raises(NotImplementedError):
+        set_remat_saves("activations")
+    with pytest.raises(NotImplementedError):
+        set_remat_group(2)
+    with pytest.raises(NotImplementedError):
+        run_remat_stack(None, [], [], None, True)
+    with pytest.raises(ValueError):
+        set_remat_saves("everything")
+
+
+@pytest.mark.parametrize("shape,c,bias", [((6, 11), 640, True), ((154,), 768, True), ((9,), 1280, False)])
+def test_layer_norm_backward_matches_jax(shape, c, bias):
+    rng = np.random.default_rng(7)
+    x = (rng.standard_normal((*shape, c)) * 2 + 0.3).astype(np.float32)
+    dy = rng.standard_normal((*shape, c)).astype(np.float32)
+    gamma = rng.normal(1, 0.2, (c,)).astype(np.float32)
+    beta = rng.normal(0, 0.2, (c,)).astype(np.float32) if bias else None
+    want = jax_layer_norm_bwd(
+        1e-5,
+        (jnp.asarray(x), jnp.asarray(gamma), None if beta is None else jnp.asarray(beta)),
+        jnp.asarray(dy),
+    )
+    tx, tgamma = torch.from_numpy(x).requires_grad_(), torch.from_numpy(gamma).requires_grad_()
+    tbeta = torch.from_numpy(beta).requires_grad_() if bias else None
+    got = layer_norm_backward(tx, tgamma, tbeta, torch.from_numpy(dy), 1e-5)
+    leaves = (tx, tgamma, tbeta) if bias else (tx, tgamma)
+    through_wrapper = torch.autograd.grad(
+        (layer_norm(tx, tgamma, tbeta, 1e-5) * torch.from_numpy(dy)).sum(), leaves
+    )
+    assert (got[2] is None) == (want[2] is None) == (not bias)
+    for name, g, w, auto in zip(("dx", "dgamma", "dbeta"), got, want, through_wrapper):
+        # dgamma/dbeta sum up to 154 rows of O(1) terms in another order
+        np.testing.assert_allclose(
+            g.detach().numpy(), np.asarray(w), atol=FP32_TOL, rtol=FP32_TOL, err_msg=name
+        )
+        torch.testing.assert_close(auto, g.detach(), rtol=0, atol=0)
+
+
+def test_layer_norm_backward_skips_a_frozen_affine():
+    x = torch.from_numpy(_rand(8, (5, 256))).requires_grad_()
+    weight, bias = torch.ones(256), torch.zeros(256)
+    dx, dgamma, dbeta = layer_norm_backward(x, weight, bias, torch.ones(5, 256), affine_grads=False)
+    assert dgamma is None and dbeta is None and dx.shape == x.shape
+    (auto,) = torch.autograd.grad(layer_norm(x, weight, bias).square().sum(), x)
+    (plain,) = torch.autograd.grad(layer_norm_reference(x, weight, bias).square().sum(), x)
+    torch.testing.assert_close(auto, plain, atol=FP32_TOL, rtol=FP32_TOL)

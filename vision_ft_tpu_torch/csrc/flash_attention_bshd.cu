@@ -36,60 +36,11 @@
 // V-ones row sum, the 8-sublane lse broadcast and the VFT_FLASH_* levers.
 // Left for later work: cp.async/TMA double buffering, wgmma, ldmatrix.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_attention_bshd.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;  // bf16 elements of padding per shared row
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a(16x16, row) * b(16x8, col), bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Stage rows [row0, row0 + 64) of one head (D columns) into shared memory,
-// zero-filling rows at or past `rows`. TRANSPOSE stores dst[d][row].
-template <int D, bool TRANSPOSE, int LD>
-__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           long long row_stride, int row0, int rows) {
-  constexpr int kVecPerRow = D / 8;
-  for (int i = threadIdx.x; i < kBlockK * kVecPerRow; i += kThreads) {
-    const int r = i / kVecPerRow;
-    const int c = (i % kVecPerRow) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < rows) {
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride + c);
-    }
-    if (TRANSPOSE) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) dst[(c + j) * LD + r] = e[j];
-    } else {
-      *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-    }
-  }
-}
+using namespace bshd;
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -117,19 +68,10 @@ flash_fwd_bshd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   const __nv_bfloat16* vh = v + b * v_sb + (long long)h * D;
 
   // q tile -> shared (through the K buffer) -> A fragments in registers
-  stage_tile<D, false, kLdK>(sK, qh, q_ss, q0, sq);
+  stage_tile<D, true, false, kLdK, 0>(sK, nullptr, qh, q_ss, q0, sq);
   __syncthreads();
   uint32_t qf[D / 16][4];
-  {
-    const __nv_bfloat16* base = sK + (warp * 16 + g) * kLdK + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      qf[kk][0] = lds32(base + kk * 16);
-      qf[kk][1] = lds32(base + 8 * kLdK + kk * 16);
-      qf[kk][2] = lds32(base + kk * 16 + 8);
-      qf[kk][3] = lds32(base + 8 * kLdK + kk * 16 + 8);
-    }
-  }
+  load_a_fragments<D, kLdK>(qf, sK, warp, g, t);
 
   float acc[D / 8][4];
 #pragma unroll
@@ -141,8 +83,8 @@ flash_fwd_bshd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   for (int kt = 0; kt < num_kt; ++kt) {
     const int k0 = kt * kBlockK;
     __syncthreads();  // every warp is done with the previous tile
-    stage_tile<D, false, kLdK>(sK, kh, k_ss, k0, sk);
-    stage_tile<D, true, kLdV>(sVt, vh, v_ss, k0, sk);
+    stage_tile<D, true, false, kLdK, 0>(sK, nullptr, kh, k_ss, k0, sk);
+    stage_tile<D, false, true, 0, kLdV>(nullptr, sVt, vh, v_ss, k0, sk);
     __syncthreads();
 
     // S = Q K^T for this warp's 16 rows x 64 keys

@@ -1,4 +1,4 @@
-"""SDXL UNet denoiser, forward only (``vision_ft_tpu/models/sdxl/denoiser.py``
+"""SDXL UNet denoiser (``vision_ft_tpu/models/sdxl/denoiser.py``
 counterpart).
 
 Activations are NHWC end to end, as in the JAX package: latents
@@ -8,10 +8,14 @@ keys, including the ``.blocks.`` segment of the UNet stacks, e.g.
 ``input_blocks.blocks.4.1.transformer_blocks.0.attn1.to_q.weight``.
 
 Kernels on this path: the 70 self-attentions of an SDXL UNet go through
-the BSHD flash kernel and its 210 transformer LayerNorms through the
-fused LayerNorm kernel, for bf16 CUDA tensors (``ops/attention.py``,
-``nn/core.py``). Not ported yet: DeepCache (``deepcache_forward``),
-gradient checkpointing and the adapter hooks.
+the BSHD flash kernels (forward, and backward when training) and its 210
+transformer LayerNorms through the fused LayerNorm kernel, for bf16 CUDA
+tensors (``ops/attention.py``, ``nn/core.py``). With
+``set_gradient_checkpointing(True)`` every layer list is a checkpointed
+region (``nn.core.remat_layer``). LoRA / LoHa adapters live on the
+``Linear`` / ``Conv2d`` layers (``modules/peft``). Not ported yet:
+DeepCache (``deepcache_forward``) and the positional adapter hooks
+(``cross_attention_kwargs``).
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...modules.timestep.embedding import get_timestep_embedding
-from ...nn import Conv2d, GroupNorm, LayerNorm, Linear
+from ...nn import Conv2d, GroupNorm, LayerNorm, Linear, remat_layer, save_name
 from ...ops.attention import AttentionImplementation, attention_heads_packed
 from .config import DenoiserConfig
 
@@ -98,7 +102,8 @@ class FeedForward(nn.ModuleDict):
         h, gate = self["net"]["0"]["proj"](x).chunk(2, dim=-1)
         # the JAX rule: tanh-approximate GELU on bf16, exact (erf) on fp32
         approximate = "tanh" if gate.dtype == torch.bfloat16 else "none"
-        return self["net"]["2"](h * F.gelu(gate, approximate=approximate))
+        h = save_name(h * F.gelu(gate, approximate=approximate), "ff_inner")
+        return self["net"]["2"](h)
 
 
 class TransformerBlock(nn.ModuleDict):
@@ -124,8 +129,8 @@ class TransformerBlock(nn.ModuleDict):
         )
 
     def forward(self, x, context):
-        x = x + self["attn1"](self["norm1"](x))
-        x = x + self["attn2"](self["norm2"](x), context)
+        x = save_name(x + self["attn1"](self["norm1"](x)), "res_stream")
+        x = save_name(x + self["attn2"](self["norm2"](x), context), "res_stream")
         return x + self["ff"](self["norm3"](x))
 
 
@@ -190,7 +195,7 @@ class ResidualBlock(nn.ModuleDict):
 
     def forward(self, x, emb):
         h = self["in_layers"]["2"](F.silu(self["in_layers"]["0"](x)))
-        h = h + self["emb_layers"]["1"](F.silu(emb))[:, None, None, :]
+        h = save_name(h + self["emb_layers"]["1"](F.silu(emb))[:, None, None, :], "conv_out")
         h = self["out_layers"]["3"](F.silu(self["out_layers"]["0"](h)))
         if "skip_connection" in self:
             x = self["skip_connection"](x)
@@ -282,15 +287,20 @@ def _build_up_blocks(config: DenoiserConfig, time_embed_dim: int):
     return lists
 
 
-def _run_layer_list(kinds, modules, x, context, global_cond):
-    for kind, module in zip(kinds, modules):
-        if kind == "res":
-            x = module(x, global_cond)
-        elif kind == "st":
-            x = module(x, context)
-        else:  # conv / down / up
-            x = module(x)
-    return x
+def _run_layer_list(kinds, modules, x, context, global_cond, checkpointed=False):
+    def run(x, context, global_cond):
+        for kind, module in zip(kinds, modules):
+            if kind == "res":
+                x = module(x, global_cond)
+            elif kind == "st":
+                x = module(x, context)
+            else:  # conv / down / up
+                x = module(x)
+        return x
+
+    if checkpointed:
+        run = remat_layer(run)
+    return run(x, context, global_cond)
 
 
 class _BlockStack(nn.Module):
@@ -324,6 +334,7 @@ class UNet(nn.Module):
         self.hidden_dim = config.hidden_dim
         self.time_embed_dim = config.hidden_dim * 4
         self.additional_cond_dim = config.additional_condition_dim
+        self.gradient_checkpointing = False
 
         self.time_embed = MLPEmbedder(config.hidden_dim, self.time_embed_dim)
         self.label_emb = nn.ModuleDict(
@@ -387,19 +398,25 @@ class UNet(nn.Module):
             crop_coords_top_left, latents.dtype,
         )
         context = encoder_hidden_states
+        remat = self.gradient_checkpointing and torch.is_grad_enabled()
         h = latents
         skips = []
         for kinds, modules in zip(self.input_blocks.kinds, self.input_blocks.blocks):
-            h = _run_layer_list(kinds, modules, h, context, global_cond)
+            h = _run_layer_list(kinds, modules, h, context, global_cond, remat)
             skips.append(h)
         h = _run_layer_list(
-            self.middle_block.kinds, self.middle_block.blocks, h, context, global_cond
+            self.middle_block.kinds, self.middle_block.blocks, h, context, global_cond, remat
         )
         for kinds, modules in zip(self.output_blocks.kinds, self.output_blocks.blocks):
             h = torch.cat([h, skips.pop()], dim=-1)
-            h = _run_layer_list(kinds, modules, h, context, global_cond)
+            h = _run_layer_list(kinds, modules, h, context, global_cond, remat)
         h = F.silu(self.out["0"](h))
         return self.out["2"](h)
+
+    def set_gradient_checkpointing(self, enabled: bool) -> None:
+        """Checkpoint every layer list (``nn.core.remat_layer``) whenever a
+        forward runs with gradients enabled."""
+        self.gradient_checkpointing = enabled
 
 
 class Denoiser(UNet):

@@ -1,5 +1,17 @@
-from .convert import load_flat_params
-from .core import Conv2d, Embedding, GroupNorm, LayerNorm, Linear, init_parameters_
+from .convert import load_flat_params, load_peft_state
+from .core import (
+    Conv2d,
+    Embedding,
+    GroupNorm,
+    LayerNorm,
+    Linear,
+    init_parameters_,
+    peft_enabled,
+    remat_layer,
+    save_name,
+    set_peft_enabled,
+    set_remat_saves,
+)
 
 __all__ = [
     "Conv2d",
@@ -9,4 +21,10 @@ __all__ = [
     "Linear",
     "init_parameters_",
     "load_flat_params",
+    "load_peft_state",
+    "peft_enabled",
+    "remat_layer",
+    "save_name",
+    "set_peft_enabled",
+    "set_remat_saves",
 ]

@@ -1,13 +1,19 @@
 """Layer set of the port (``vision_ft_tpu/nn/core.py`` counterpart).
 
-Dense paths only: no LoRA/LoHa deltas, no quantized weight subtrees, no
-remat names. Parameter names and shapes are the JAX package's, so a
-module's ``state_dict()`` keys equal ``nn.core.flatten_params`` of the
-JAX module's params:
+Dense weights with optional LoRA / LoHa adapters, and the gradient
+checkpointing helpers (``remat_layer``, ``set_remat_saves``, ``save_name``).
+No quantized weight subtrees yet. Parameter names and shapes are the JAX
+package's, so a module's ``state_dict()`` keys equal
+``nn.core.flatten_params`` of the JAX module's params:
 
   - Linear weight: (out_features, in_features) (+ bias (out,))
   - Conv2d weight: (out_ch, in_ch, kh, kw) (OIHW)
   - norm scales/offsets: ``weight``/``bias``
+  - adapters on a Linear or Conv2d (kohya layout): ``lora_down.weight``,
+    ``lora_up.weight`` (+ ``lora_up.bias``) and the ``alpha`` buffer, or
+    ``hada_w1_a`` / ``hada_w1_b`` / ``hada_w2_a`` / ``hada_w2_b`` and
+    ``alpha``. ``modules/peft`` attaches them; the layers apply them when
+    present and enabled (``set_peft_enabled``).
 
 Layout: ``Conv2d`` and ``GroupNorm`` take and return NHWC activations,
 like the JAX package. Inside, the NHWC tensor is handed to PyTorch as an
@@ -21,13 +27,225 @@ distributions are the JAX package's.
 from __future__ import annotations
 
 import math
-from typing import Optional
+import os
+from typing import Callable, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint, noop_context_fn
 
+from ..ops import flash_attention
 from ..ops.layer_norm import layer_norm, layer_norm_reference
+
+ADAPTER_LEAF_NAMES = (
+    "lora_down",
+    "lora_up",
+    "alpha",
+    "hada_w1_a",
+    "hada_w1_b",
+    "hada_w2_a",
+    "hada_w2_b",
+)
+_HADA_NAMES = ADAPTER_LEAF_NAMES[3:]
+
+# -- gradient checkpointing ---------------------------------------------------
+
+REMAT_SAVE_MODES = ("activations", "kernel", "none")
+_remat_saves = "kernel"
+
+
+def set_remat_saves(mode: str) -> None:
+    """What :func:`remat_layer` keeps across the forward/backward boundary
+    besides a region's inputs: "kernel" keeps the flash attention forward's
+    (out, lse), so the recomputation does not launch that kernel again;
+    "none" keeps nothing (full recomputation). Results are the same in
+    every mode; memory and launches differ.
+
+    The JAX package's third mode, "activations" (also keep q/k/v and the
+    tensors tagged by :func:`save_name`), is not ported: eager PyTorch
+    cannot skip the producers of a kept tensor during recomputation without
+    a copy of it or a hand-written backward for each producer."""
+    global _remat_saves
+    if mode not in REMAT_SAVE_MODES:
+        raise ValueError(f"unknown remat_saves mode: {mode!r}")
+    if mode == "activations":
+        raise NotImplementedError(
+            'remat_saves="activations" (keeping q/k/v, ff_inner, res_stream and '
+            'conv_out) is not ported; use "kernel" or "none"'
+        )
+    _remat_saves = mode
+
+
+def save_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """Tag ``x`` as a tensor that a :func:`remat_layer` policy may keep
+    (the JAX ``checkpoint_name``). It returns ``x`` itself, never a copy.
+    The tags mark the JAX package's save points ("ff_inner", "res_stream",
+    "conv_out"); the ported modes "kernel" and "none" keep none of them."""
+    return x
+
+
+def remat_layer(fn: Callable) -> Callable:
+    """Gradient-checkpoint ``fn``: its intermediates are dropped after the
+    forward and recomputed before the backward. In the "kernel" mode the
+    flash attention (out, lse) of the region are kept, so the forward
+    attention kernel runs once; the recomputed q, k and v feed its
+    backward. ``fn`` takes and returns tensors (or None)."""
+
+    def run(*args):
+        context_fn = (
+            flash_attention.kernel_saves if _remat_saves == "kernel"
+            else noop_context_fn
+        )
+        # no dropout or other random op inside the port's layers: the RNG
+        # state need not be carried to the recomputation
+        return checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False, context_fn=context_fn
+        )
+
+    return run
+
+
+def set_remat_group(group: int) -> None:
+    """Checkpointing uniform layer stacks in groups of layers (the DiT
+    families' knob; the SDXL UNet has no caller)."""
+    raise NotImplementedError("set_remat_group / run_remat_stack are not ported")
+
+
+def run_remat_stack(apply_fn, layers, params_list, carry, enabled: bool):
+    raise NotImplementedError("set_remat_group / run_remat_stack are not ported")
+
+
+# -- adapters -----------------------------------------------------------------
+
+_peft_enabled = True
+
+
+def set_peft_enabled(enabled: bool) -> None:
+    """Global toggle for adapter application: with it off, a layer that
+    carries an adapter computes its base output only."""
+    global _peft_enabled
+    _peft_enabled = enabled
+
+
+def peft_enabled() -> bool:
+    return _peft_enabled
+
+
+class AdapterWeights(nn.Module):
+    """Holder of one adapter matrix (keys ``weight`` and, optionally,
+    ``bias``): the ``lora_down`` / ``lora_up`` children of an adapted layer.
+    It is not a layer: the adapted layer applies it."""
+
+    def __init__(self, weight: torch.Tensor, bias: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.weight = nn.Parameter(weight)
+        self.bias = nn.Parameter(bias) if bias is not None else None
+
+
+def is_adapter_key(key: str) -> bool:
+    return any(part in ADAPTER_LEAF_NAMES for part in key.split("."))
+
+
+def attach_adapter(layer: nn.Module, tensors: Mapping[str, torch.Tensor]) -> None:
+    """Put adapter tensors, keyed relative to the layer (``lora_down.weight``,
+    ``lora_up.weight``, ``lora_up.bias``, ``alpha``, ``hada_*``), on a
+    ``Linear`` or ``Conv2d``, replacing any adapter it had. ``alpha``
+    becomes a buffer, the rest parameters."""
+    if not isinstance(layer, (Linear, Conv2d)):
+        raise TypeError(f"adapters go on Linear or Conv2d, not {type(layer).__name__}")
+    known = {"lora_down.weight", "lora_up.weight", "lora_up.bias", "alpha", *_HADA_NAMES}
+    unknown = sorted(set(tensors) - known)
+    if unknown:
+        raise KeyError(f"not adapter tensors: {unknown}")
+    lora = "lora_down.weight" in tensors and "lora_up.weight" in tensors
+    loha = all(name in tensors for name in _HADA_NAMES)
+    if lora == loha or "alpha" not in tensors:
+        raise KeyError(f"need alpha and either lora_down/lora_up or hada_* tensors, got {sorted(tensors)}")
+    if loha and not isinstance(layer, Linear):
+        raise TypeError("LoHa adapters go on Linear layers only")
+    for name in ("lora_down", "lora_up", "alpha", *_HADA_NAMES):
+        layer._modules.pop(name, None)
+        layer._parameters.pop(name, None)
+        layer._buffers.pop(name, None)
+    if lora:
+        layer.lora_down = AdapterWeights(tensors["lora_down.weight"])
+        layer.lora_up = AdapterWeights(tensors["lora_up.weight"], tensors.get("lora_up.bias"))
+    else:
+        for name in _HADA_NAMES:
+            layer.register_parameter(name, nn.Parameter(tensors[name]))
+    layer.register_buffer("alpha", tensors["alpha"])
+
+
+def attach_adapters_from_state(module: nn.Module, flat: Mapping[str, torch.Tensor]) -> None:
+    """Attach the adapters found in a flat state dict (full keys) to the
+    layers of ``module`` they name, each on its layer's device unless that
+    is the meta device. Raises ``KeyError`` where an adapter key has no
+    Linear/Conv2d under it."""
+    layers = dict(module.named_modules())
+    grouped: dict[str, dict[str, torch.Tensor]] = {}
+    for key, value in flat.items():
+        if not is_adapter_key(key):
+            continue
+        parts = key.split(".")
+        cut = next(i for i, part in enumerate(parts) if part in ADAPTER_LEAF_NAMES)
+        root, leaf = ".".join(parts[:cut]), ".".join(parts[cut:])
+        if not isinstance(layers.get(root), (Linear, Conv2d)):
+            raise KeyError(f"adapter weight {key!r} has no base layer {root!r}")
+        weight = layers[root].weight
+        value = torch.as_tensor(value)
+        grouped.setdefault(root, {})[leaf] = value if weight.is_meta else value.to(weight.device)
+    for root, tensors in grouped.items():
+        attach_adapter(layers[root], tensors)
+
+
+def _adapter_scale(layer: nn.Module, rank: int, dtype: torch.dtype) -> float:
+    """alpha / rank rounded to ``dtype``, as a host number: a 0-dim tensor
+    as the factor sends every adapted layer's delta through PyTorch's
+    unvectorized broadcasting kernel. The buffer is read once, and again
+    when it has been replaced or written to."""
+    alpha = layer.alpha
+    version = 0 if alpha.is_inference() else alpha._version
+    cached = layer.__dict__.get("_adapter_scale_cache")
+    if cached is None or cached[0] is not alpha or cached[1:3] != (version, dtype):
+        value = (alpha.detach().float() / rank).to(dtype).item()
+        cached = layer.__dict__["_adapter_scale_cache"] = (alpha, version, dtype, value)
+    return cached[3]
+
+
+def _linear_adapter_delta(layer: "Linear", x: torch.Tensor) -> Optional[torch.Tensor]:
+    """LoRA / LoHa delta of an adapted Linear, or None."""
+    if not _peft_enabled:
+        return None
+    if "lora_down" in layer._modules:
+        if os.environ.get("VFT_LORA_CONCAT", "0") == "1":
+            raise NotImplementedError(
+                "VFT_LORA_CONCAT=1 (_lora_concat_dot, LoRA folded into the base matmul) is not ported"
+            )
+        down_w, up = layer.lora_down.weight, layer.lora_up
+        h = F.linear(F.linear(x, down_w.to(x.dtype)), up.weight.to(x.dtype))
+        if up.bias is not None:
+            h = h + up.bias.to(x.dtype)
+        return h * _adapter_scale(layer, down_w.shape[0], x.dtype)
+    if "hada_w1_a" in layer._parameters:
+        w1 = layer.hada_w1_a.float() @ layer.hada_w1_b.float()
+        w2 = layer.hada_w2_a.float() @ layer.hada_w2_b.float()
+        weight = (w1 * w2).to(x.dtype)  # (in, out)
+        return (x @ weight) * _adapter_scale(layer, layer.hada_w1_a.shape[1], x.dtype)
+    return None
+
+
+def _conv_adapter_delta(layer: "Conv2d", x_nchw: torch.Tensor) -> Optional[torch.Tensor]:
+    """LoRA delta of an adapted Conv2d (kohya conv-LoRA: down = a conv of
+    the layer's own geometry to rank channels, up = a 1x1 conv), or None.
+    Takes and returns the NCHW view the layer hands to PyTorch."""
+    if not _peft_enabled or "lora_down" not in layer._modules:
+        return None
+    down_w, up = layer.lora_down.weight.to(x_nchw.dtype), layer.lora_up
+    h = F.conv2d(x_nchw, down_w, None, stride=layer.stride, padding=layer.padding)
+    h = F.conv2d(h, up.weight.to(x_nchw.dtype), None if up.bias is None else up.bias.to(x_nchw.dtype))
+    return h * _adapter_scale(layer, down_w.shape[0], x_nchw.dtype)
+
 
 
 class Linear(nn.Module):
@@ -46,7 +264,9 @@ class Linear(nn.Module):
             self.bias.uniform_(-bound, bound, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        y = F.linear(x, self.weight, self.bias)
+        delta = _linear_adapter_delta(self, x)
+        return y if delta is None else y + delta
 
 
 class Conv2d(nn.Module):
@@ -80,10 +300,11 @@ class Conv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # (B, H, W, C) -> NCHW view with channels-last strides -> NHWC
-        y = F.conv2d(
-            x.permute(0, 3, 1, 2), self.weight, self.bias,
-            stride=self.stride, padding=self.padding,
-        )
+        x = x.permute(0, 3, 1, 2)
+        y = F.conv2d(x, self.weight, self.bias, stride=self.stride, padding=self.padding)
+        delta = _conv_adapter_delta(self, x)
+        if delta is not None:
+            y = y + delta
         return y.permute(0, 2, 3, 1)
 
 
@@ -171,12 +392,13 @@ _LEAVES = (Linear, Conv2d, LayerNorm, GroupNorm, Embedding)
 def init_parameters_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random init in place, on the device and in the dtype the module's
     parameters already have. Every parameter of the port belongs to one
-    of the leaf layers above; a parameter that does not is an error."""
+    of the leaf layers above; a parameter that does not is an error.
+    Adapters on a layer are left as they are."""
     covered = set()
     for m in module.modules():
         if isinstance(m, _LEAVES):
             m.reset_parameters(generator)
-            covered.update(id(p) for p in m.parameters(recurse=False))
+            covered.update(id(p) for p in m.parameters(recurse=True))
     stray = [n for n, p in module.named_parameters() if id(p) not in covered]
     if stray:
         raise TypeError(f"parameters outside the port's leaf layers: {stray[:5]}")

@@ -5,9 +5,10 @@ Two routes, both at first use and from the package's own sources only:
 - CUDA C++ (``csrc/<name>.cu``): ``nvcc`` compiles the file into a shared
   library with a plain C interface, for ``sm_90a``, and ``ctypes`` loads
   it. The library lands in ``vision_ft_tpu_torch/_build/`` under a name
-  that carries a hash of the source and flags, so an edited source is
-  rebuilt; it is written to a temporary name and renamed, so two
-  processes that build at once never load half a file.
+  that carries a hash of the source, the shared ``csrc/*.cuh`` headers and
+  the flags, so an edited source is rebuilt; it is written to a temporary
+  name and renamed, so two processes that build at once never load half a
+  file. ``build_cuda_libraries`` compiles several sources at once.
 - Triton (``csrc/<name>.py``): the module is loaded from its file. It
   sits outside the package's import graph because it imports ``triton``
   at the top, and importing the package must work where Triton is
@@ -28,6 +29,7 @@ import subprocess
 import sys
 from pathlib import Path
 from types import ModuleType
+from typing import Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -50,23 +52,53 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _target(name: str) -> tuple[Path, Path]:
+    """(source, library) of ``csrc/<name>.cu``; the library's name hashes
+    the source, the shared headers (``csrc/*.cuh``) and the flags."""
+    source = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return source, BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def _start_nvcc(source: Path, target: Path) -> tuple[subprocess.Popen, Path]:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    return proc, tmp
+
+
+def _finish_nvcc(proc: subprocess.Popen, tmp: Path, source: Path, target: Path) -> None:
+    _, stderr = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source}:\n{stderr}")
+    os.replace(tmp, target)
+
+
+def build_cuda_libraries(names: Sequence[str]) -> None:
+    """Compile every ``csrc/<name>.cu`` that is not built yet, one ``nvcc``
+    per source, all started together."""
+    running = []
+    for name in names:
+        source, target = _target(name)
+        if name not in _cuda_libs and not target.exists():
+            running.append((*_start_nvcc(source, target), source, target))
+    for job in running:
+        _finish_nvcc(*job)
+
+
 def cuda_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` (once per source version) and load it."""
     if name in _cuda_libs:
         return _cuda_libs[name]
-    source = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    target = BUILD_DIR / f"{name}-{digest[:16]}.so"
+    source, target = _target(name)
     if not target.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
-        os.replace(tmp, target)
+        _finish_nvcc(*_start_nvcc(source, target), source, target)
     lib = ctypes.CDLL(str(target))
     _cuda_libs[name] = lib
     return lib

@@ -1,20 +1,36 @@
-"""BSHD flash attention forward: wrapper and plain version.
+"""BSHD flash attention, forward and backward: wrappers and plain versions.
 
 Counterpart of ``vision_ft_tpu/ops/pallas/flash_attention.py::
-flash_attention_bshd`` (forward). The kernel is the CUDA C++ source
-``csrc/flash_attention_bshd.cu``, built for ``sm_90a`` by
-``ops/_build.py`` and bound with ``ctypes``.
+flash_attention_bshd`` and its custom VJP. The kernels are CUDA C++,
+``csrc/flash_attention_bshd.cu`` (forward) and
+``csrc/flash_attention_bshd_bwd.cu`` (backward: a dk/dv kernel and a dq
+kernel), built for ``sm_90a`` by ``ops/_build.py`` and bound with
+``ctypes``.
 
 Layout: q (B, Sq, H*D), k and v (B, Sk, H*D), heads packed along the
 last axis (head h is columns [h*D, (h+1)*D)); the output has q's shape
-and dtype.
+and dtype; lse is the fp32 natural log-sum-exp of the scaled scores,
+(B, H, Sq).
 
-- :func:`flash_attention_bshd_reference` is the plain PyTorch version:
-  the heads are split by views and the JAX package's plain attention
-  formula (fp32 scores, softmax, weights cast to v's dtype) runs on them.
-- :func:`flash_attention_bshd` is the wrapper. For a CPU tensor it
-  returns the plain version. For a CUDA tensor it launches the kernel or
-  raises; it counts its launches in ``flash_attention_bshd.launches``.
+- :func:`flash_attention_bshd_reference` and
+  :func:`flash_attention_bshd_backward_reference` are the plain PyTorch
+  versions: the heads are split by views and the kernels' arithmetic is
+  repeated step by step, with the same casts.
+- :func:`flash_attention_bshd` is the forward kernel's wrapper,
+  :func:`flash_attention_bshd_dkv` and :func:`flash_attention_bshd_dq` are
+  the two backward kernels' wrappers. For CPU tensors they return the
+  plain versions. For CUDA tensors they launch their kernel or raise.
+  Each counts its launches in its ``launches`` attribute.
+- :func:`flash_attention_bshd_backward` is the whole backward: delta =
+  rowsum(dO * O) per head in plain PyTorch (as the JAX package computes it
+  outside its kernels), then the two kernels.
+- When gradients are wanted, :func:`flash_attention_bshd` goes through a
+  ``torch.autograd.Function`` that keeps (q, k, v, out, lse) and whose
+  backward is :func:`flash_attention_bshd_backward`.
+- :func:`kernel_saves` is what gradient checkpointing (``nn.core.
+  remat_layer``) uses to keep (out, lse) of every call in a region, so
+  that the recomputation before the backward does not launch the forward
+  kernel again.
 """
 
 from __future__ import annotations
@@ -30,25 +46,68 @@ from . import _build
 SUPPORTED_HEAD_DIMS = (64, 128)
 
 
+def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, S, H*D) -> (B, H, S, D), a view."""
+    b, s, inner = t.shape
+    return t.reshape(b, s, num_heads, inner // num_heads).transpose(1, 2)
+
+
+def _packed(t: torch.Tensor) -> torch.Tensor:
+    """(B, H, S, D) -> (B, S, H*D)."""
+    b, h, s, d = t.shape
+    return t.transpose(1, 2).reshape(b, s, h * d)
+
+
 def flash_attention_bshd_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
-    scale: Optional[float] = None,
-) -> torch.Tensor:
+    scale: Optional[float] = None, return_lse: bool = False,
+):
     from .attention import plain_attention
 
-    b, sq, inner = q.shape
-    d = inner // num_heads
+    d = q.shape[-1] // num_heads
     scale = d**-0.5 if scale is None else scale
+    qh, kh, vh = (_heads(t, num_heads) for t in (q, k, v))
+    out = _packed(plain_attention(qh, kh, vh, None, scale, False))
+    if not return_lse:
+        return out
+    scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
+    return out, torch.logsumexp(scores, dim=-1)
 
-    def heads(t):
-        return t.reshape(b, t.shape[1], num_heads, d).transpose(1, 2)
 
-    out = plain_attention(heads(q), heads(k), heads(v), None, scale, False)
-    return out.transpose(1, 2).reshape(b, sq, inner)
+def flash_attention_bshd_delta(out: torch.Tensor, dout: torch.Tensor, num_heads: int):
+    """delta = rowsum(dO * O) over each head's columns, fp32 (B, H, Sq)."""
+    b, sq, inner = out.shape
+    prod = dout.float() * out.float()
+    return prod.view(b, sq, num_heads, inner // num_heads).sum(dim=-1).permute(0, 2, 1).contiguous()
+
+
+def _backward_reference(q, k, v, lse, delta, dout, num_heads, scale):
+    d = q.shape[-1] // num_heads
+    scale = d**-0.5 if scale is None else scale
+    dtype = q.dtype
+    qh, kh, vh, doh = (_heads(t, num_heads).float() for t in (q, k, v, dout))
+    p = torch.exp(torch.matmul(qh, kh.transpose(-1, -2)) * scale - lse.unsqueeze(-1))
+    dv = torch.matmul(p.to(dtype).float().transpose(-1, -2), doh)
+    dp = torch.matmul(doh, vh.transpose(-1, -2))
+    ds = (p * (dp - delta.unsqueeze(-1)) * scale).to(dtype).float()
+    dk = torch.matmul(ds.transpose(-1, -2), qh)
+    dq = torch.matmul(ds, kh)
+    return _packed(dq).to(q.dtype), _packed(dk).to(k.dtype), _packed(dv).to(v.dtype)
+
+
+def flash_attention_bshd_backward_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, dout: torch.Tensor, num_heads: int, scale: Optional[float] = None,
+):
+    """(dq, dk, dv) by the backward kernels' arithmetic: P recomputed as
+    exp(S - lse) in fp32, P and dS rounded to the inputs' dtype before their
+    products, fp32 accumulation, outputs in the inputs' dtypes."""
+    delta = flash_attention_bshd_delta(out, dout, num_heads)
+    return _backward_reference(q, k, v, lse, delta, dout, num_heads, scale)
 
 
 @functools.cache
-def _kernel():
+def _forward_kernel():
     fn = _build.cuda_library("flash_attention_bshd").flash_attention_bshd_fwd
     fn.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 8
@@ -58,19 +117,37 @@ def _kernel():
     return fn
 
 
+@functools.cache
+def _backward_kernels():
+    lib = _build.cuda_library("flash_attention_bshd_bwd")
+    dkv, dq = lib.flash_attention_bshd_bwd_dkv, lib.flash_attention_bshd_bwd_dq
+    dkv.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
+        + [ctypes.c_float, ctypes.c_void_p]
+    )
+    dq.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 10
+        + [ctypes.c_float, ctypes.c_void_p]
+    )
+    dkv.restype = dq.restype = ctypes.c_int
+    return dkv, dq
+
+
 def supports(num_heads: int, head_dim: int) -> bool:
-    """Whether the kernel takes this head layout."""
+    """Whether the kernels take this head layout."""
     return num_heads > 0 and head_dim in SUPPORTED_HEAD_DIMS
 
 
-def _check(q, k, v, num_heads) -> int:
+def _check(q, k, v, num_heads, **more) -> int:
+    """Raise on what the kernels do not take; ``more`` are further bf16
+    tensors of q's shape (out, dout). Returns the head dim."""
     b, sq, inner = q.shape
     if inner % num_heads or not supports(num_heads, inner // num_heads):
         raise ValueError(
             f"flash_attention_bshd kernel takes head dims {SUPPORTED_HEAD_DIMS}, "
             f"got {inner} columns over {num_heads} heads"
         )
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in (("q", q), ("k", k), ("v", v), *more.items()):
         if not t.is_cuda or t.device != q.device or t.dtype != torch.bfloat16:
             raise ValueError(f"{name} must be bf16 on {q.device}, got {t.dtype} on {t.device}")
         if t.ndim != 3 or t.shape[0] != b or t.shape[2] != inner:
@@ -80,27 +157,19 @@ def _check(q, k, v, num_heads) -> int:
             raise ValueError(f"{name} needs a contiguous last axis and 16-byte aligned rows")
     if k.shape[1] != v.shape[1] or min(sq, k.shape[1]) < 1:
         raise ValueError(f"need sq >= 1 and one k/v length >= 1, got {sq}, {k.shape[1]}, {v.shape[1]}")
+    if any(t.shape[1] != sq for t in more.values()):
+        raise ValueError(f"{sorted(more)} must have q's length {sq}")
     if max(q.shape[1], k.shape[1]) >= 2**31 or b >= 2**16 or num_heads >= 2**16:
         raise ValueError("shape beyond the kernel's grid or int32 row index")
     return inner // num_heads
 
 
-def flash_attention_bshd(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    num_heads: int,
-    scale: Optional[float] = None,
-    return_lse: bool = False,
-):
-    """softmax(q k^T * scale) v per head over heads-packed tensors.
-
-    With ``return_lse`` (CUDA only) also returns the fp32 log-sum-exp of
-    the scaled scores as (B, H, Sq), for a later backward."""
+def _forward(q, k, v, num_heads, scale, return_lse):
+    """(out, lse or None): the kernel for CUDA tensors, else the plain version."""
     if not q.is_cuda:
         if return_lse:
-            raise ValueError("return_lse is produced by the CUDA kernel only")
-        return flash_attention_bshd_reference(q, k, v, num_heads, scale)
+            return flash_attention_bshd_reference(q, k, v, num_heads, scale, return_lse=True)
+        return flash_attention_bshd_reference(q, k, v, num_heads, scale), None
     d = _check(q, k, v, num_heads)
     scale = d**-0.5 if scale is None else scale
     b, sq, _ = q.shape
@@ -109,7 +178,7 @@ def flash_attention_bshd(
         torch.empty((b, num_heads, sq), device=q.device, dtype=torch.float32)
         if return_lse else None
     )
-    kernel = _kernel()
+    kernel = _forward_kernel()
     with torch.cuda.device(q.device):
         err = kernel(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -122,6 +191,162 @@ def flash_attention_bshd(
     if err != 0:
         raise RuntimeError(f"flash_attention_bshd launch failed: CUDA error {err}")
     flash_attention_bshd.launches += 1
+    return out, lse
+
+
+def _check_backward(q, k, v, dout, lse, delta, num_heads) -> int:
+    d = _check(q, k, v, num_heads, dout=dout)
+    want = (q.shape[0], num_heads, q.shape[1])
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != want or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous fp32 {want}, got {t.dtype} {tuple(t.shape)}")
+        if t.device != q.device:
+            raise ValueError(f"{name} must be on {q.device}, got {t.device}")
+    return d
+
+
+def _launch(which, kernel, outputs, q, k, v, dout, lse, delta, num_heads, d, scale):
+    b, sq, _ = q.shape
+    with torch.cuda.device(q.device):
+        err = kernel(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), *(t.data_ptr() for t in outputs),
+            b, sq, k.shape[1], num_heads, d,
+            *(stride for t in (q, k, v, dout, *outputs) for stride in (t.stride(0), t.stride(1))),
+            float(d**-0.5 if scale is None else scale),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bshd {which} launch failed: CUDA error {err}")
+
+
+def flash_attention_bshd_dkv(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+    delta: torch.Tensor, num_heads: int, scale: Optional[float] = None,
+):
+    """(dk, dv) of the attention from q, k, v, the output's gradient
+    (contiguous), lse and delta."""
+    if not q.is_cuda:
+        return _backward_reference(q, k, v, lse, delta, dout, num_heads, scale)[1:]
+    d = _check_backward(q, k, v, dout, lse, delta, num_heads)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    _launch("dk/dv", _backward_kernels()[0], (dk, dv), q, k, v, dout, lse, delta, num_heads, d, scale)
+    flash_attention_bshd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_attention_bshd_dq(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+    delta: torch.Tensor, num_heads: int, scale: Optional[float] = None,
+):
+    """dq of the attention from the same inputs as :func:`flash_attention_bshd_dkv`."""
+    if not q.is_cuda:
+        return _backward_reference(q, k, v, lse, delta, dout, num_heads, scale)[0]
+    d = _check_backward(q, k, v, dout, lse, delta, num_heads)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    _launch("dq", _backward_kernels()[1], (dq,), q, k, v, dout, lse, delta, num_heads, d, scale)
+    flash_attention_bshd_dq.launches += 1
+    return dq
+
+
+flash_attention_bshd_dkv.launches = 0
+flash_attention_bshd_dq.launches = 0
+
+
+def flash_attention_bshd_backward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, dout: torch.Tensor, num_heads: int, scale: Optional[float] = None,
+):
+    """(dq, dk, dv) of :func:`flash_attention_bshd` from its inputs, its
+    output, its lse and the output's gradient (any layout: it is made
+    contiguous here)."""
+    dout = dout.contiguous()
+    if q.is_cuda:
+        _check(q, k, v, num_heads, out=out, dout=dout)
+    delta = flash_attention_bshd_delta(out, dout, num_heads)
+    dk, dv = flash_attention_bshd_dkv(q, k, v, dout, lse, delta, num_heads, scale)
+    dq = flash_attention_bshd_dq(q, k, v, dout, lse, delta, num_heads, scale)
+    return dq, dk, dv
+
+
+class _KernelSaves:
+    """What gradient checkpointing keeps of the forward kernel in one
+    region: a context manager that is the current one while the region
+    runs, in mode "record" (the first forward appends each call's
+    (out, lse)) or "replay" (the recomputation reads them back in order).
+    It can be entered again: a graph walked twice is recomputed twice."""
+
+    current: Optional["_KernelSaves"] = None
+
+    def __init__(self, mode: str, saves: list):
+        self.mode, self.saves, self.position = mode, saves, 0
+
+    def __enter__(self):
+        self.previous, self.position = _KernelSaves.current, 0
+        _KernelSaves.current = self
+        return self
+
+    def __exit__(self, *exc):
+        _KernelSaves.current = self.previous
+        return False
+
+
+def kernel_saves():
+    """Two context managers for one checkpointed region, ``(forward,
+    recompute)``. Under ``forward`` every differentiable
+    :func:`flash_attention_bshd` call records its (out, lse), detached;
+    under ``recompute`` the calls, made again in the same order, take them
+    back instead of launching the forward kernel, while the backward still
+    sees the recomputed q, k and v."""
+    saves: list = []
+    return _KernelSaves("record", saves), _KernelSaves("replay", saves)
+
+
+class _FlashAttentionBSHD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads, scale, saved):
+        if saved is None:
+            out, lse = _forward(q, k, v, num_heads, scale, return_lse=True)
+        else:
+            out, lse = saved[0].detach(), saved[1].detach()
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bshd_backward(
+            q, k, v, out, lse, dout, ctx.num_heads, ctx.scale
+        )
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_bshd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    num_heads: int,
+    scale: Optional[float] = None,
+    return_lse: bool = False,
+):
+    """softmax(q k^T * scale) v per head over heads-packed tensors.
+
+    With ``return_lse`` also returns the fp32 log-sum-exp of the scaled
+    scores as (B, H, Sq). Differentiable in q, k and v."""
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
+        out, lse = _forward(q, k, v, num_heads, scale, return_lse)
+        return (out, lse) if return_lse else out
+    saved = None
+    region = _KernelSaves.current
+    if region is not None and region.mode == "replay":
+        saved = region.saves[region.position]
+        region.position += 1
+    out, lse = _FlashAttentionBSHD.apply(q, k, v, num_heads, scale, saved)
+    if region is not None and region.mode == "record":
+        region.saves.append((out.detach(), lse))
     return (out, lse) if return_lse else out
 
 

@@ -1,15 +1,21 @@
-"""Fused LayerNorm forward: wrapper and plain version.
+"""Fused LayerNorm: wrapper, plain version and backward.
 
 Counterpart of ``vision_ft_tpu/ops/pallas/layer_norm.py::layer_norm_tpu``
-(forward only; the port has no training path yet). The kernel is the
-Triton source ``csrc/layer_norm.py``.
+and its custom VJP. The forward kernel is the Triton source
+``csrc/layer_norm.py``; the backward is, as in the JAX package, a plain
+formula outside any kernel.
 
 - :func:`layer_norm_reference` is the plain PyTorch formula, the JAX
   ``nn.LayerNorm`` formula (fp32 mean and variance, ``rsqrt(var + eps)``,
   x gamma (+ beta), cast back).
-- :func:`layer_norm` is the wrapper. For a CPU tensor it returns the
+- :func:`layer_norm_backward` is the JAX ``_layer_norm_bwd`` formula: fp32,
+  from (x, gamma, beta) only (the statistics are recomputed), dgamma and
+  dbeta summed over all leading axes.
+- :func:`layer_norm` is the wrapper. For a CPU tensor its forward is the
   plain version. For a CUDA tensor it launches the kernel or raises; it
-  counts its launches in ``layer_norm.launches``.
+  counts its launches in ``layer_norm.launches``. When gradients are
+  wanted it goes through a ``torch.autograd.Function`` that keeps
+  (x, gamma, beta) and whose backward is :func:`layer_norm_backward`.
 
 Layout: x is (..., C), normalized over the last axis; gamma and beta (C,).
 """
@@ -56,14 +62,35 @@ def _check(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]) 
             raise ValueError(f"layer_norm kernel needs contiguous ({c},) affine on {x.device}")
 
 
-def layer_norm(
+def layer_norm_backward(
     x: torch.Tensor,
     weight: torch.Tensor,
-    bias: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor],
+    dy: torch.Tensor,
     eps: float = 1e-5,
-) -> torch.Tensor:
-    """LayerNorm over the last axis of ``x`` (bf16 on the card) with
-    affine ``weight`` (required) and optional ``bias``; returns x's dtype."""
+    affine_grads: bool = True,
+):
+    """(dx, dgamma, dbeta) of LayerNorm over the last axis; dbeta is None
+    without a bias, and both are None when ``affine_grads`` is off (a frozen
+    affine). fp32 inside, each result in its input's dtype."""
+    xf = x.float()
+    g = dy.float()
+    centered = xf - xf.mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(centered.square().mean(dim=-1, keepdim=True) + eps)
+    xhat = centered * rstd
+    gg = g * weight.float()
+    dx = rstd * (
+        gg - gg.mean(dim=-1, keepdim=True) - xhat * (gg * xhat).mean(dim=-1, keepdim=True)
+    )
+    if not affine_grads:
+        return dx.to(x.dtype), None, None
+    c = x.shape[-1]
+    dgamma = (g * xhat).reshape(-1, c).sum(dim=0).to(weight.dtype)
+    dbeta = None if bias is None else g.reshape(-1, c).sum(dim=0).to(bias.dtype)
+    return dx.to(x.dtype), dgamma, dbeta
+
+
+def _forward(x, weight, bias, eps):
     if not x.is_cuda:
         return layer_norm_reference(x, weight, bias, eps)
     _check(x, weight, bias)
@@ -82,6 +109,37 @@ def layer_norm(
         )
         layer_norm.launches += 1
     return y
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.eps = eps
+        return _forward(x, weight, bias, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, bias = ctx.saved_tensors
+        dx, dgamma, dbeta = layer_norm_backward(
+            x, weight, bias, dy, ctx.eps, affine_grads=any(ctx.needs_input_grad[1:3])
+        )
+        return dx, dgamma, dbeta, None
+
+
+def layer_norm(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """LayerNorm over the last axis of ``x`` (bf16 on the card) with
+    affine ``weight`` (required) and optional ``bias``; returns x's dtype.
+    Differentiable in x, weight and bias."""
+    tensors = (x, weight) if bias is None else (x, weight, bias)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _LayerNorm.apply(x, weight, bias, eps)
+    return _forward(x, weight, bias, eps)
 
 
 layer_norm.launches = 0

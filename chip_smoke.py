@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py [--profile]
 
-With --profile, phase 6 also traces two train steps with torch.profiler
-(device activity only) and prints the device time of a step by kind of
-kernel and the share of an untraced step in which the card is idle.
+With --profile, phases 6 and 8 also trace two train steps with
+torch.profiler (device activity only) and print the device time of a step
+by kind of kernel and the share of an untraced step in which the card is
+idle, and phase 8 the host's cost of one Linear call, dense and on each
+NF4 route.
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -31,6 +33,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    text. Checks the metrics, the adapters, the frozen base, the launch
    counts of both checkpointing modes, a second seeded run, and one step
    against the same step with the kernels' plain versions swapped in.
+
+7. kernel D, the packed 4-bit (NF4 / FP4) matmul: its forward and its dx
+   kernel against their plain versions at the SDXL layers' shapes, in the
+   split and the bnb byte layout, with real codes of seeded weights.
+8. SDXL NF4 QLoRA: the same denoiser, its 700 attention and feed-forward
+   Linears quantized to NF4 on the card, then LoRA train steps as in phase
+   6 on the "fused" route (the kernels), with the checks of phase 6 and
+   the quantized leaves bit-identical afterwards; then the same steps on
+   the "stream" and "dequant" routes, timed.
+9. one 1024 px CFG request through generate() with the NF4 denoiser.
 
 Every kernel's record carries its time, its plain version's, the bound
 (the larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s bf16, or
@@ -84,6 +96,22 @@ LN_SHAPES = [  # (rows, C, beta): UNet 640/1280 at batch 2, CLIP-L 768 and bigG 
     (8192, 640, True), (2048, 1280, True), (154, 768, True), (154, 1280, False),
     (16384, 640, True), (4096, 1280, True),
 ]
+# the 4-bit matmul kernels and their plain versions dequantize to the same
+# bf16 weight and accumulate in fp32: they differ in the order of the fp32
+# sums and so in the output's one bf16 rounding; relative to the output's
+# largest value, the JAX package's own tolerances for the kernels replaced
+NF4_FWD_TOL = 2e-2
+NF4_DX_TOL = 3e-2
+NF4_SHAPES = [  # (M, N, K) of the quantized Linears: the train step's batch 4 at 1024 px
+    # (1280-wide stage, 640-wide stage, text keys 4 x 227), then the request's CFG batch 2
+    (4096, 1280, 1280), (4096, 10240, 1280), (4096, 1280, 5120), (908, 1280, 2048),
+    (16384, 640, 640), (16384, 5120, 640), (16384, 640, 2560), (908, 640, 2048),
+    (2048, 1280, 1280), (154, 1280, 2048),
+]
+NF4_WARMUP, NF4_TIMED, NF4_ROUTE_STEPS = 1, 3, 3
+# NF4 rounds a weight to one of 16 levels of its block's absmax: the widest
+# gap (0.723 to 1.0) bounds the error by 0.139 absmax
+NF4_MAX_ERR = 0.17
 STEPS = 8
 TRAIN_BATCH, TRAIN_RES, TRAIN_WARMUP, TRAIN_TIMED = 4, 1024, 2, 3
 LORA_TARGETS = ["attn1", "attn2", ".ff."]
@@ -156,11 +184,12 @@ def write_vocab(path: Path) -> None:
 
 @contextlib.contextmanager
 def plain_versions():
-    """Inside, the three kernel wrappers' CUDA paths are their plain PyTorch
+    """Inside, the kernel wrappers' CUDA paths are their plain PyTorch
     versions: a swap made in this process only, for the comparison of a
     whole train step. The package has no such switch."""
     import vision_ft_tpu_torch.ops.flash_attention as flash
     import vision_ft_tpu_torch.ops.layer_norm as ln
+    import vision_ft_tpu_torch.ops.nf4_matmul as nf4
 
     def forward(q, k, v, num_heads, scale, return_lse):
         if return_lse:
@@ -173,18 +202,23 @@ def plain_versions():
         )
 
     saved = (flash._forward, flash.flash_attention_bshd_backward, ln._forward)
+    saved_nf4 = (nf4.nf4_matmul_forward, nf4.nf4_matmul_dx)
     flash._forward, flash.flash_attention_bshd_backward = forward, backward
     ln._forward = ln.layer_norm_reference
+    nf4.nf4_matmul_forward, nf4.nf4_matmul_dx = nf4.nf4_matmul_reference, nf4.nf4_matmul_dx_reference
     try:
         yield
     finally:
         flash._forward, flash.flash_attention_bshd_backward, ln._forward = saved
+        nf4.nf4_matmul_forward, nf4.nf4_matmul_dx = saved_nf4
 
 
 # kernel-name fragments -> kind, first match wins (torch.profiler's names)
 KERNEL_KINDS = [
     ("flash_bwd_dkv_bshd", "kernel C dk/dv"), ("flash_bwd_dq_bshd", "kernel C dq"),
     ("flash_fwd_bshd", "kernel B"), ("layer_norm_fwd", "kernel A"),
+    ("nf4_matmul_kernel<true>", "kernel D dx"), ("nf4_matmul_kernelILb1", "kernel D dx"),
+    ("nf4_matmul_kernel<false>", "kernel D forward"), ("nf4_matmul_kernelILb0", "kernel D forward"),
     ("multi_tensor", "optimizer / clipping (foreach)"),
     ("nvjet", "matmul (cuBLAS)"), ("gemm", "matmul (cuBLAS)"), ("gemv", "matmul (cuBLAS)"),
     ("cutlass", "matmul (cuBLAS)"), ("xmma", "matmul (cuBLAS)"), ("splitK", "matmul (cuBLAS)"),
@@ -243,6 +277,44 @@ def profile_steps(run_step, unprofiled_ms: float) -> None:
         print(f"  {ms:8.2f} ms/step {count:6d} launches/step [{kind}] {name[:100]}")
 
 
+def linear_host_cost(device) -> None:
+    """Host microseconds per call of one 1280 x 1280 Linear at 128 rows,
+    where the card is never the limit: dense bf16, and NF4 on each route;
+    forward alone and forward + backward to the input."""
+    import vision_ft_tpu_torch.nn as tnn
+    from vision_ft_tpu_torch.modules import quant
+
+    g = torch.Generator(device=device).manual_seed(0)
+    layers = torch.nn.ModuleDict({name: tnn.Linear(1280, 1280) for name in ("dense", "nf4")})
+    tnn.init_parameters_(layers.to_empty(device=device).to(torch.bfloat16), g)
+    quant.quantize_params(layers, "bnb_nf4", ["nf4"])
+    x = torch.randn(128, 1280, device=device, generator=g).bfloat16()
+    x_grad = x.clone().requires_grad_()
+
+    def per_call(fn, calls=1000):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host = time.perf_counter() - start
+        torch.cuda.synchronize()
+        return host / calls * 1e6
+
+    print("host cost of one Linear call (1280 x 1280, 128 rows; forward, forward + backward):")
+    for name, route in (("dense", None), ("nf4", "fused"), ("nf4", "stream"), ("nf4", "dequant")):
+        layer = layers[name]
+        tnn.set_nf4_route(route or "fused")
+        try:
+            with torch.no_grad():
+                forward_us = per_call(lambda: layer(x))
+            both_us = per_call(lambda: torch.autograd.grad(layer(x_grad).sum(), x_grad))
+        finally:
+            tnn.set_nf4_route("fused")
+        print(f"  {name + (' ' + route if route else ''):12s} {forward_us:7.1f} us, {both_us:7.1f} us")
+
+
 def main() -> None:
     args = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     args.add_argument("--profile", action="store_true",
@@ -277,8 +349,14 @@ def main() -> None:
         flash_attention_bshd_dkv, flash_attention_bshd_dq, flash_attention_bshd_reference,
     )
     from vision_ft_tpu_torch.ops.layer_norm import layer_norm, layer_norm_reference
+    from vision_ft_tpu_torch.ops.nf4_matmul import (
+        nf4_matmul_dx, nf4_matmul_dx_reference, nf4_matmul_forward, nf4_matmul_reference,
+        to_split_layout,
+    )
 
     wrappers = {
+        "nf4_matmul_forward": nf4_matmul_forward,
+        "nf4_matmul_dx": nf4_matmul_dx,
         "flash_attention_bshd": flash_attention_bshd,
         "flash_attention_bshd_dkv": flash_attention_bshd_dkv,
         "flash_attention_bshd_dq": flash_attention_bshd_dq,
@@ -294,7 +372,7 @@ def main() -> None:
 
     phase("1 build")
     start = time.perf_counter()
-    cuda_sources = ["flash_attention_bshd", "flash_attention_bshd_bwd"]
+    cuda_sources = ["flash_attention_bshd", "flash_attention_bshd_bwd", "nf4_matmul"]
     _build.build_cuda_libraries(cuda_sources)
     nvcc_s = time.perf_counter() - start
     start = time.perf_counter()
@@ -427,6 +505,7 @@ def main() -> None:
         if any(a.std() == 0 for a in arrays):
             raise AssertionError(f"request {name}: constant image")
         results[name] = (latents, arrays)
+    bf16_request = (seconds, torch.cuda.max_memory_allocated() / 2**30)  # (c): (a), warm
     generate_launches = read_launches()
 
     same = torch.equal(results["a"][0], results["c"][0]) and all(
@@ -436,7 +515,8 @@ def main() -> None:
     print("request c == request a, bit for bit")
     want = {"flash_attention_bshd": unet_attn * unet_forwards,
             "flash_attention_bshd_dkv": 0, "flash_attention_bshd_dq": 0,
-            "layer_norm": unet_ln * unet_forwards + clip_ln * len(requests)}
+            "layer_norm": unet_ln * unet_forwards + clip_ln * len(requests),
+            "nf4_matmul_forward": 0, "nf4_matmul_dx": 0}
     print(f"module tree: {unet_attn} UNet self-attentions, {unet_ln} UNet LayerNorms, "
           f"{clip_ln} CLIP LayerNorms; {unet_forwards} UNet forwards; "
           f"launches {generate_launches}, expected {want}")
@@ -610,7 +690,8 @@ def main() -> None:
     want = {"flash_attention_bshd": unet_attn * total,
             "flash_attention_bshd_dkv": unet_attn * total,
             "flash_attention_bshd_dq": unet_attn * total,
-            "layer_norm": 2 * unet_ln * total}
+            "layer_norm": 2 * unet_ln * total,
+            "nf4_matmul_forward": 0, "nf4_matmul_dx": 0}
     print(f"launches over {total} steps {train_launches}, expected {want}")
     if train_launches != want:
         raise AssertionError(f"train launch counts {train_launches} != {want}")
@@ -667,7 +748,8 @@ def main() -> None:
     used = read_launches()
     with plain_versions():
         plain_loss, plain_norm = loss_and_norm()
-    if read_launches() != used or min(used.values()) == 0:
+    on_path = [n for name, n in used.items() if not name.startswith("nf4_")]  # a dense base
+    if read_launches() != used or min(on_path) == 0:
         raise AssertionError(f"the plain step launched a kernel, or the kernel step none: {used}")
     loss_rel = abs(kernel_loss - plain_loss) / abs(plain_loss)
     norm_rel = abs(kernel_norm - plain_norm) / abs(plain_norm)
@@ -677,9 +759,266 @@ def main() -> None:
     if not (loss_rel <= STEP_LOSS_TOL and norm_rel <= STEP_GRAD_NORM_TOL):
         raise AssertionError("the kernel step and the plain step disagree")
 
+    phase("7 kernel D: packed 4-bit matmul, forward and dx kernels vs plain (bf16)")
+    from vision_ft_tpu_torch.modules import quant
+    from vision_ft_tpu_torch.modules.quant.nf4 import quantize_4bit
+
+    def nf4_case(m, n, k, quant_type, split, timed):
+        """Both kernels against their plain versions on one quantized
+        weight; with ``timed`` also the times and bounds, as a record row
+        per kernel."""
+        w = torch.randn(n, k, device=device, generator=gen) * 0.02
+        packed, state = quantize_4bit(w, quant_type)
+        code, absmax = state["quant_map"], state["absmax"]
+        packed = to_split_layout(packed, (n, k)) if split else packed.reshape(n, k // 2)
+        x = torch.randn(m, k, device=device, generator=gen).bfloat16()
+        dy = torch.randn(m, n, device=device, generator=gen).bfloat16()
+        args = (packed, code, absmax, (n, k), 64, split)
+        what = f"{quant_type} {'split' if split else 'bnb'} (M={m}, N={n}, K={k})"
+        fwd_err = compare(f"4-bit matmul forward {what}", lambda: nf4_matmul_forward(x, *args),
+                          lambda: nf4_matmul_reference(x, *args), NF4_FWD_TOL)
+        dx_err = compare(f"4-bit matmul dx {what}", lambda: nf4_matmul_dx(dy, *args),
+                         lambda: nf4_matmul_dx_reference(dy, *args), NF4_DX_TOL)
+        line = (f"{what}: forward max abs err {fwd_err[0]:.3e} rel {fwd_err[1]:.3e} "
+                f"(tol {NF4_FWD_TOL}), dx {dx_err[0]:.3e} rel {dx_err[1]:.3e} (tol {NF4_DX_TOL})")
+        if not timed:
+            print(line)
+            return fwd_err[0], dx_err[0], None, None
+        fwd_ms = cuda_ms(lambda: nf4_matmul_forward(x, *args))
+        dx_ms = cuda_ms(lambda: nf4_matmul_dx(dy, *args))
+        fwd_plain = cuda_ms(lambda: nf4_matmul_reference(x, *args), warmup=1, iters=5)
+        dx_plain = cuda_ms(lambda: nf4_matmul_dx_reference(dy, *args), warmup=1, iters=5)
+        # yardstick only: one cuBLAS call on a bf16 weight dequantized
+        # beforehand; it does less work (no dequantization)
+        dense = quant.nf4.dequantize_4bit(packed, code, absmax, (n, k), 64, torch.bfloat16, split)
+        fwd_lib = cuda_ms(lambda: torch.nn.functional.linear(x, dense))
+        dx_lib = cuda_ms(lambda: torch.matmul(dy, dense))
+        same = (torch.equal(nf4_matmul_forward(x, *args), torch.nn.functional.linear(x, dense)),
+                torch.equal(nf4_matmul_dx(dy, *args), torch.matmul(dy, dense)))
+        weight_bytes = packed.numel() + absmax.numel() * 4 + code.numel() * 4
+        flops = 2 * m * n * k
+        fwd_bound = bound(x.numel() * 2 + weight_bytes + m * n * 2, flops)
+        dx_bound = bound(dy.numel() * 2 + weight_bytes + m * k * 2, flops)
+        print(line + f"; forward kernel {fwd_ms:.3f} ms ({flops / fwd_ms / 1e9:.1f} TFLOP/s), plain "
+              f"{fwd_plain:.3f} ms, F.linear on a bf16 weight {fwd_lib:.3f} ms, bound "
+              f"{fwd_bound[0]:.4f} ms ({fwd_bound[1]}); dx kernel {dx_ms:.3f} ms "
+              f"({flops / dx_ms / 1e9:.1f} TFLOP/s), plain {dx_plain:.3f} ms, matmul on a bf16 "
+              f"weight {dx_lib:.3f} ms, bound {dx_bound[0]:.4f} ms ({dx_bound[1]}); "
+              f"bit-identical to those cuBLAS calls: forward {same[0]}, dx {same[1]}")
+        return (fwd_err[0], dx_err[0],
+                dict(ms=fwd_ms, plain_ms=fwd_plain, bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
+                     library_ms=fwd_lib),
+                dict(ms=dx_ms, plain_ms=dx_plain, bound_ms=dx_bound[0], bound_by=dx_bound[1],
+                     library_ms=dx_lib))
+
+    fwd_errs, dx_errs, fwd_rows, dx_rows = [], [], [], []
+    for m, n, k in NF4_SHAPES:
+        # the split layout is the one the quantized model holds: it is timed
+        for split in (True, False):
+            fwd_err, dx_err, fwd_row, dx_row = nf4_case(m, n, k, "nf4", split, timed=split)
+            fwd_errs.append(fwd_err)
+            dx_errs.append(dx_err)
+            if split:
+                fwd_rows.append(fwd_row)
+                dx_rows.append(dx_row)
+    for split in (True, False):  # the other codebook, through the same kernels
+        fwd_err, dx_err, _, _ = nf4_case(908, 640, 2048, "fp4", split, timed=False)
+        fwd_errs.append(fwd_err)
+        dx_errs.append(dx_err)
+    records["nf4_matmul_forward"] = dict(
+        route="cuda", source="vision_ft_tpu_torch/csrc/nf4_matmul.cu",
+        replaces="vision_ft_tpu/ops/pallas/nf4_matmul.py:189",
+        max_abs_err=max(fwd_errs), **fwd_rows[0],
+    )
+    records["nf4_matmul_dx"] = dict(
+        route="cuda", source="vision_ft_tpu_torch/csrc/nf4_matmul.cu",
+        replaces="vision_ft_tpu/ops/pallas/nf4_matmul.py:214",
+        max_abs_err=max(dx_errs), **dx_rows[0],
+    )
+
+    phase(f"8 SDXL NF4 QLoRA train steps at full width, batch {TRAIN_BATCH} at {TRAIN_RES} px")
+    from vision_ft_tpu_torch.nn import Linear, set_nf4_route
+
+    del state, frozen, params
+    layers = dict(model.denoiser.named_modules())
+    targeted = [n for n, m in layers.items() if isinstance(m, Linear)
+                and any(t in n for t in LORA_TARGETS)]
+    dense_bytes = sum(layers[n].weight.numel() * 2 for n in targeted)
+    probes = {n: layers[n].weight.detach().float().clone()
+              for n in (targeted[0], targeted[len(targeted) // 2], targeted[-1])}
+    torch.cuda.synchronize()
+    before_gib = torch.cuda.memory_allocated() / 2**30
+    start = time.perf_counter()
+    quant.quantize_params(model.denoiser, "bnb_nf4", LORA_TARGETS)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - start
+    quantized = [n for n in targeted if layers[n].is_quantized]
+    leaves = {f"{n}.weight.{leaf}": t for n in quantized
+              for leaf, t in layers[n].weight.named_buffers()}
+    packed_bytes = sum(t.numel() * t.element_size() for t in leaves.values())
+    ratio = packed_bytes / dense_bytes
+    print(f"quantized {len(quantized)} of {len(targeted)} targeted Linears to NF4 on the card in "
+          f"{quantize_s:.2f} s: {dense_bytes / 1e9:.3f} GB of bf16 weights -> {packed_bytes / 1e9:.3f} "
+          f"GB of leaves (ratio {ratio:.4f}); allocated {before_gib:.2f} -> "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    if len(quantized) != len(targeted) or not 0.28 <= ratio <= 0.30:
+        raise AssertionError("not every targeted layer was quantized, or not to 4 bits + absmax")
+    for name, dense in probes.items():
+        layer = layers[name]
+        back = quant.dequantize_weight(layer.weight, torch.float32,
+                                       (layer.out_features, layer.in_features))
+        err = (back - dense).abs()
+        worst, mean = (err.max() / dense.abs().max()).item(), (err.mean() / dense.abs().mean()).item()
+        print(f"  {name}: dequantized vs bf16 weight, max err {worst:.3f} of the largest weight, "
+              f"mean err {mean:.3f} of the mean")
+        if not (worst <= NF4_MAX_ERR and mean <= NF4_MAX_ERR):
+            raise AssertionError(f"{name}: dequantized weight is beyond NF4 noise")
+    del probes
+    # a layer's dx kernel runs where its input needs a gradient: not for
+    # the text keys and values (their input is the cached context), and not
+    # for q, k, v of the first transformer block (no adapter upstream)
+    first_block = quantized[0].rsplit(".attn1.", 1)[0]
+    no_dx = [n for n in quantized if n.endswith(("attn2.to_k", "attn2.to_v"))
+             or (n.startswith(first_block + ".attn1.") and n.endswith(("to_q", "to_k", "to_v")))]
+    n_q, n_dx = len(quantized), len(quantized) - len(no_dx)
+    leaves_before = {k: v.detach().cpu() for k, v in leaves.items()}
+
+    def nf4_want(steps, flash_forwards=1):
+        """The quantized layers launch their forward kernel in the forward
+        and again in the recomputation, whatever the checkpoint keeps."""
+        return {"flash_attention_bshd": flash_forwards * unet_attn * steps,
+                "flash_attention_bshd_dkv": unet_attn * steps,
+                "flash_attention_bshd_dq": unet_attn * steps,
+                "layer_norm": 2 * unet_ln * steps,
+                "nf4_matmul_forward": 2 * n_q * steps, "nf4_matmul_dx": n_dx * steps}
+
+    def check_run(name, run):
+        for i, (seconds, loss, norm) in enumerate(run):
+            print(f"{name} step {i + 1}: loss {loss:.6f} grad_norm {norm:.6f} {seconds * 1e3:.1f} ms"
+                  + (" (warm-up)" if i < NF4_WARMUP else ""))
+            if not (np.isfinite(loss) and np.isfinite(norm) and norm > 0):
+                raise AssertionError(f"{name} train step {i + 1}: loss {loss}, grad_norm {norm}")
+        return statistics.median(t for t, _, _ in run[NF4_WARMUP:]) * 1e3
+
+    total = NF4_WARMUP + NF4_TIMED
+    state, frozen = fresh_state()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    state, fused_run = run_steps(state, total, seed=21)
+    nf4_train_launches = read_launches()
+    fused_gib = torch.cuda.max_memory_allocated() / 2**30
+    fused_ms = check_run("fused", fused_run)
+    print(f"NF4 train step (route fused): {fused_ms:.1f} ms/step, "
+          f"{TRAIN_BATCH / fused_ms * 1e3:.3f} images/s, peak {fused_gib:.2f} GiB")
+    if not all(p.any() for k, p in state.trainable.items() if k.endswith("lora_up.weight")):
+        raise AssertionError("a lora_up is still zero after the NF4 train steps")
+    print(f"{n_q} quantized layers, {n_dx} with an input that needs a gradient; launches over "
+          f"{total} steps {nf4_train_launches}, expected {nf4_want(total)}")
+    if nf4_train_launches != nf4_want(total):
+        raise AssertionError(f"NF4 train launch counts {nf4_train_launches} != {nf4_want(total)}")
+
+    if options.profile:
+        profile_steps(lambda: run_steps(state, 1, seed=24), fused_ms)
+        linear_host_cost(device)
+
+    set_remat_saves("none")
+    reset_launches()
+    state, _ = run_steps(state, 1, seed=22)
+    set_remat_saves("kernel")
+    if read_launches() != nf4_want(1, flash_forwards=2):
+        raise AssertionError(f"NF4 launch counts (remat saves: none) {read_launches()} != "
+                             f"{nf4_want(1, flash_forwards=2)}")
+    print(f"remat saves none: launches over 1 step {read_launches()}, as expected")
+
+    state, _ = fresh_state()
+    state, second_run = run_steps(state, total, seed=21)
+    if not all(a[1:] == b[1:] for a, b in zip(fused_run, second_run)):
+        raise AssertionError("two seeded runs of the NF4 train steps differ")
+    print("second seeded run: losses and gradient norms bit-identical")
+
+    # the other two routes: the same steps from the same start, timed
+    route_rows = {"fused": (fused_ms, fused_gib)}
+    for route in ("stream", "dequant"):
+        set_nf4_route(route)
+        try:
+            state, _ = fresh_state()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            state, run = run_steps(state, NF4_ROUTE_STEPS, seed=21)
+            launches = read_launches()
+        finally:
+            set_nf4_route("fused")
+        route_rows[route] = (check_run(route, run), torch.cuda.max_memory_allocated() / 2**30)
+        worst = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(run, fused_run))
+        # "stream" keeps the dx kernel in its backward; "dequant" runs no kernel of these
+        want_route = {**nf4_want(NF4_ROUTE_STEPS), "nf4_matmul_forward": 0,
+                      "nf4_matmul_dx": n_dx * NF4_ROUTE_STEPS if route == "stream" else 0}
+        print(f"NF4 train step (route {route}): {route_rows[route][0]:.1f} ms/step, peak "
+              f"{route_rows[route][1]:.2f} GiB; losses within {worst:.3e} of the fused route's "
+              f"(tol {STEP_LOSS_TOL}); launches {launches}")
+        if worst > STEP_LOSS_TOL or launches != want_route:
+            raise AssertionError(f"route {route}: losses off by {worst}, or launches != {want_route}")
+    print("routes (ms/step, peak GiB): "
+          + ", ".join(f"{r} {ms:.1f} / {gib:.2f}" for r, (ms, gib) in route_rows.items()))
+
+    changed = [k for k, v in leaves.items() if not torch.equal(v.cpu(), leaves_before[k])]
+    with_grad = [k for k, v in frozen.items() if v.grad is not None or v.requires_grad]
+    if changed or with_grad:
+        raise AssertionError(f"quantized leaves changed {changed[:3]} or frozen tensors got a "
+                             f"gradient {with_grad[:3]}")
+    print(f"{len(leaves)} quantized leaves bit-identical to before, none of {len(frozen)} frozen "
+          f"tensors with a gradient")
+    del leaves_before
+
+    params = list(state.trainable.values())
+    reset_launches()
+    kernel_loss, kernel_norm = loss_and_norm()
+    used = read_launches()
+    with plain_versions():
+        plain_loss, plain_norm = loss_and_norm()
+    if read_launches() != used or min(used.values()) == 0:
+        raise AssertionError(f"the plain step launched a kernel, or the kernel step none: {used}")
+    loss_rel = abs(kernel_loss - plain_loss) / abs(plain_loss)
+    norm_rel = abs(kernel_norm - plain_norm) / abs(plain_norm)
+    print(f"batch-1 NF4 step, kernels vs plain versions: loss {kernel_loss:.6f} vs {plain_loss:.6f} "
+          f"(rel {loss_rel:.3e}, tol {STEP_LOSS_TOL}); grad_norm {kernel_norm:.6f} vs "
+          f"{plain_norm:.6f} (rel {norm_rel:.3e}, tol {STEP_GRAD_NORM_TOL})")
+    if not (loss_rel <= STEP_LOSS_TOL and norm_rel <= STEP_GRAD_NORM_TOL):
+        raise AssertionError("the NF4 kernel step and the plain step disagree")
+
+    phase("9 SDXL generate() with the NF4 denoiser")
+    del state, params
+    kwargs = requests[0][1]
+    nf4_request = []
+    with peft.while_peft_disabled():  # the quantized base alone, as the bf16 requests ran
+        for attempt in ("cold", "warm"):
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            images = model.generate(num_inference_steps=STEPS, **kwargs)
+            torch.cuda.synchronize()
+            nf4_request.append(time.perf_counter() - start)
+            nf4_generate_launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    steps = len(model.scheduler.get_timesteps(STEPS))
+    array = np.asarray(images[0])
+    print(f"NF4 request: {images[0].size}, {steps} steps, {nf4_request[0]:.3f} s cold, "
+          f"{nf4_request[1]:.3f} s warm, peak {peak_gib:.2f} GiB (bf16 base: "
+          f"{bf16_request[0]:.3f} s warm, peak {bf16_request[1]:.2f} GiB)")
+    if not torch.isfinite(model.last_latents).all() or array.std() == 0:
+        raise AssertionError("NF4 request: latents not finite, or a constant image")
+    want = {"flash_attention_bshd": unet_attn * steps, "flash_attention_bshd_dkv": 0,
+            "flash_attention_bshd_dq": 0, "layer_norm": unet_ln * steps + clip_ln,
+            "nf4_matmul_forward": n_q * steps, "nf4_matmul_dx": 0}
+    print(f"launches of the warm request {nf4_generate_launches}, expected {want}")
+    if nf4_generate_launches != want:
+        raise AssertionError(f"NF4 request launch counts {nf4_generate_launches} != {want}")
+
     kernels = []
     for name, record in records.items():
-        launches = {"generate": generate_launches[name], "train": train_launches[name]}
+        launches = {"generate": generate_launches[name], "train": train_launches[name],
+                    "nf4_train": nf4_train_launches[name], "nf4_generate": nf4_generate_launches[name]}
         kernels.append({
             "name": name,
             **{k: record[k] for k in ("route", "source", "replaces")},

@@ -16,6 +16,8 @@ from vision_ft_tpu_torch.ops.flash_attention import (
     flash_attention_bshd_backward_reference,
     flash_attention_bshd_reference,
 )
+from vision_ft_tpu_torch.modules.quant.nf4 import quantize_4bit
+from vision_ft_tpu_torch.ops import nf4_matmul as nf4
 from vision_ft_tpu_torch.ops.layer_norm import layer_norm, layer_norm_reference
 
 
@@ -37,6 +39,12 @@ BF16_LN_TOL = 2e-2
 # log2 e folded in), in summation order and in the bf16 rounding of each
 # output: a few bf16 ulps (2**-8 each) of the output's largest value
 BF16_ATTN_BWD_TOL = 2e-2
+# The 4-bit matmul kernels and their plain versions dequantize to the same
+# bf16 weight and accumulate in fp32; they differ in the order of the fp32
+# sums and so in the output's one bf16 rounding. Relative to the output's
+# largest value: forward 2e-2, dx 3e-2 (the JAX package's own tolerances
+# for the kernels these replace)
+NF4_FWD_TOL, NF4_DX_TOL = 2e-2, 3e-2
 
 
 @pytest.mark.cuda
@@ -159,3 +167,105 @@ def test_layer_norm_kernel_matches_plain_on_card(cuda, rows, c, bias):
     assert layer_norm.launches == before + 1
     plain = layer_norm_reference(x, weight, beta)
     torch.testing.assert_close(out.float(), plain.float(), atol=BF16_LN_TOL, rtol=BF16_LN_TOL)
+
+
+def _nf4_weight(cuda, n, k, quant_type, split, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    w = torch.randn(n, k, device=cuda, generator=g) * 0.02
+    packed, state = quantize_4bit(w, quant_type)
+    if split:
+        packed = nf4.to_split_layout(packed, (n, k))
+    return packed, state["quant_map"], state["absmax"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [False, True], ids=["bnb", "split"])
+@pytest.mark.parametrize(
+    "m,k,n,quant_type",
+    [
+        (4096, 1280, 1280, "nf4"),  # aligned
+        (2048, 640, 5120, "nf4"),   # aligned, k % 256 != 0
+        (908, 2048, 640, "nf4"),    # ragged m (4 x 227 text keys)
+        (154, 2048, 1280, "fp4"),   # ragged m (2 x 77), the other codebook
+        (1, 128, 128, "nf4"),       # a single row, a single tile
+    ],
+)
+def test_nf4_matmul_kernels_match_plain_on_card(cuda, m, k, n, quant_type, split):
+    packed, code, absmax = _nf4_weight(cuda, n, k, quant_type, split)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(m, k, device=cuda, generator=g).bfloat16()
+    dy = torch.randn(m, n, device=cuda, generator=g).bfloat16()
+    before = (nf4.nf4_matmul_forward.launches, nf4.nf4_matmul_dx.launches)
+    y = nf4.nf4_matmul_forward(x, packed, code, absmax, (n, k), 64, split)
+    dx = nf4.nf4_matmul_dx(dy, packed, code, absmax, (n, k), 64, split)
+    torch.cuda.synchronize()
+    assert (nf4.nf4_matmul_forward.launches, nf4.nf4_matmul_dx.launches) == (
+        before[0] + 1, before[1] + 1
+    )
+    want_y = nf4.nf4_matmul_reference(x, packed, code, absmax, (n, k), 64, split)
+    want_dx = nf4.nf4_matmul_dx_reference(dy, packed, code, absmax, (n, k), 64, split)
+    for name, got, want, tol in (("y", y, want_y, NF4_FWD_TOL), ("dx", dx, want_dx, NF4_DX_TOL)):
+        assert got.shape == want.shape and got.dtype == torch.bfloat16, name
+        assert torch.isfinite(got).all(), name
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol * want.float().abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+def test_nf4_matmul_autograd_runs_the_kernels_on_card(cuda):
+    """autograd through the wrapper on a 3-D, non-contiguous input: one
+    forward and one dx launch, gradients close to the plain versions'."""
+    n, k = 640, 2048
+    packed, code, absmax = _nf4_weight(cuda, n, k, "nf4", True, seed=2)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(227, 4, k, device=cuda, generator=g).bfloat16().transpose(0, 1).requires_grad_()
+    weight = torch.randn(4, 227, n, device=cuda, generator=g).bfloat16()
+    wrappers = (nf4.nf4_matmul_forward, nf4.nf4_matmul_dx)
+    before = [w.launches for w in wrappers]
+    y = nf4.nf4_matmul(x, packed, code, absmax, (n, k), split=True)
+    got, = torch.autograd.grad((y * weight).sum(), x)
+    assert [w.launches for w in wrappers] == [b + 1 for b in before]
+    want_y = nf4.nf4_matmul_reference(x, packed, code, absmax, (n, k), split=True)
+    want, = torch.autograd.grad((want_y * weight).sum(), x)
+    for a, b, tol in ((y, want_y, NF4_FWD_TOL), (got, want, NF4_DX_TOL)):
+        assert a.shape == b.shape
+        assert (a.float() - b.float()).abs().max().item() <= tol * b.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_nf4_matmul_kernels_reject_what_they_cannot_take(cuda):
+    n, k = 128, 256
+    packed, code, absmax = _nf4_weight(cuda, n, k, "nf4", False)
+    x = torch.zeros(8, k, device=cuda, dtype=torch.bfloat16)
+    args = (packed, code, absmax, (n, k))
+    with pytest.raises(ValueError):
+        nf4.nf4_matmul_forward(x.float(), *args)  # wrong dtype
+    with pytest.raises(ValueError):
+        nf4.nf4_matmul_forward(x, packed.cpu(), code, absmax, (n, k))  # CPU / CUDA mix
+    with pytest.raises(ValueError):
+        nf4.nf4_matmul_dx(x[:, :n].cpu().cuda().float(), *args)
+    with pytest.raises(ValueError):
+        nf4.nf4_matmul_forward(x[:, :192].contiguous(), packed[: 128 * 96], code,
+                               absmax[: 128 * 3], (128, 192))  # k % 128 != 0
+    with pytest.raises(ValueError):
+        nf4.nf4_matmul_forward(x, packed[: 96 * 128], code, absmax[: 96 * 4], (96, k))  # n % 128
+    with pytest.raises(ValueError):
+        nf4.nf4_matmul_forward(x, packed, code, absmax[::2].contiguous(), (n, k), 128)  # blocksize
+    with pytest.raises(ValueError):
+        nf4.nf4_matmul_forward(x, packed, code, absmax[:-1], (n, k))  # a short absmax
+
+
+@pytest.mark.cuda
+def test_w8a8_linear_is_exact_on_card(cuda):
+    """The int8 x int8 -> int32 product on the card (``torch._int_mm`` where
+    it takes the shape, else fp64) equals the CPU's int32 matmul."""
+    from vision_ft_tpu_torch.nn.core import _w8a8_linear
+
+    g = torch.Generator().manual_seed(0)
+    for rows, k, n in [(64, 640, 1280), (8, 640, 1280), (40, 100, 36), (17, 2048, 640)]:
+        x = torch.randn(rows, k, generator=g)
+        data = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+        scale = torch.rand(n, 1, generator=g) + 0.5
+        want = _w8a8_linear(x, data, scale)
+        got = _w8a8_linear(x.to(cuda), data.to(cuda), scale.to(cuda))
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=0)

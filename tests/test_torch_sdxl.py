@@ -132,7 +132,7 @@ def models():
     jax_model.load_state_dict({k: jnp.asarray(v) for k, v in flat.items()})
     config, kwargs = _tiny_kwargs("torch")
     port = SDXLModel(config, **kwargs)
-    port.load_state_dict(flat)
+    port.load_state_dict(flat, device="cpu")
     return jax_model, port
 
 

@@ -28,7 +28,7 @@ import torch
 from PIL import Image
 from torch import nn
 
-from ...nn import init_parameters_, load_flat_params
+from ...nn import Conv2d, Linear, init_parameters_, load_flat_params, weight_device
 from ...utils import tensor as tensor_utils
 from ...utils.dtype import str_to_dtype
 from ..autoencoder import AutoencoderKL
@@ -71,7 +71,8 @@ class SDXLModel:
 
     @property
     def device(self) -> torch.device:
-        return next(self.denoiser.parameters()).device
+        first = next(m for m in self.denoiser.modules() if isinstance(m, (Linear, Conv2d)))
+        return weight_device(first)
 
     # -- parameters ------------------------------------------------------------
 
@@ -83,12 +84,17 @@ class SDXLModel:
     ) -> None:
         """Seeded random weights, made on ``device`` (default: the
         generator's) in ``dtype`` (default: the config's), never through
-        the host."""
+        the host. A model that holds weights already is moved, not emptied:
+        its quantized weights keep their leaves and their dtypes, its dense
+        ones are drawn again."""
         self.dtype = dtype or self.dtype
         device = generator.device if device is None else torch.device(device)
         for part in self._parts().values():
             part.to(dtype=self.dtype)
-            part.to_empty(device=device)
+            if any(t.is_meta for t in (*part.parameters(), *part.buffers())):
+                part.to_empty(device=device)
+            else:
+                part.to(device)
             init_parameters_(part, generator)
             part.eval()
 
@@ -97,7 +103,11 @@ class SDXLModel:
     ) -> None:
         """Load a flat internal-key state dict (``denoiser.*``, ``vae.*``,
         ``text_encoder.*``, as the JAX ``SDXLModel.load_state_dict`` takes
-        it), strict on keys and shapes, in this model's dtype."""
+        it), strict on keys and shapes, in this model's dtype (the leaves of
+        quantized weights in their own), onto ``device``: the card unless
+        the caller names another (``"cpu"``); without a card the default
+        raises."""
+        device = torch.device("cuda" if device is None else device)
         unknown = [k for k in flat if k.split(".", 1)[0] not in _PARTS]
         if unknown:
             raise KeyError(f"keys outside {_PARTS}: {unknown[:5]}")
@@ -107,8 +117,7 @@ class SDXLModel:
             load_flat_params(
                 part, {k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)}
             )
-            if device is not None:
-                part.to(device)
+            part.to(device)
             part.eval()
 
     # -- latents / images --------------------------------------------------------

@@ -30,6 +30,7 @@ from ...nn.core import (
     attach_adapters_from_state,
     is_adapter_key,
     set_peft_enabled,
+    weight_device,
 )
 from ...utils.dtype import str_to_dtype
 from ...utils.state_dict import RegexMatch, get_target_keys
@@ -106,7 +107,9 @@ def replace_to_peft_layer(
         warnings.warn("PEFT targeting matched no layers — check include_keys")
     for target in targets:
         layer = layers[target]
-        device = generator.device if layer.weight.is_meta else layer.weight.device
+        device = weight_device(layer)
+        if device.type == "meta":
+            device = generator.device
         # LoHa is for Linear layers; a targeted conv gets conv LoRA
         init = _init_loha if config.type == "loha" and isinstance(layer, Linear) else _init_lora
         attach_adapter(layer, init(layer, config, dtype, device, generator))

@@ -10,7 +10,13 @@ reinterpreted bit for bit).
 
 Adapter keys (``lora_down.weight``, ``lora_up.weight``, ``alpha``,
 ``hada_*``) are accepted too: the adapters they describe are attached to
-the module's layers first. ``load_peft_state`` takes the JAX package's
+the module's layers first. So are the leaves of quantized weights
+(``X.weight.packed``, ``.absmax``, ``.code``, ``._meta``, ``.split``,
+``.data``, ``.scale``, ``.SCB``, ``.shift``, ``.w8a8``, or an fp8
+``X.weight``): the ``Linear`` they name gets a quantized weight, and every
+leaf keeps the dtype it comes in (``ml_dtypes`` fp8 arrays are
+reinterpreted bit for bit, like bfloat16).
+``load_peft_state`` takes the JAX package's
 ``(trainable, frozen)`` split, flattened, and also carries the split over
 as ``requires_grad``.
 """
@@ -24,17 +30,80 @@ import numpy as np
 import torch
 from torch import nn
 
-from .core import attach_adapters_from_state, is_adapter_key
+from .core import FP8_DTYPES, Linear, attach_adapters_from_state, is_adapter_key, weight_device
 
 # leaves of a quantized weight subtree (modules/quant of the JAX package)
-_QUANT_KEY = re.compile(r"(^|\.)weight\.(packed|data|_meta|absmax|code|scale|split)$")
+_QUANT_KEY = re.compile(
+    r"^(?:(.*)\.)?weight\.(packed|data|_meta|absmax|code|scale|split|SCB|shift|w8a8)$"
+)
+_BIT_VIEWS = {
+    "bfloat16": (np.uint16, torch.bfloat16),
+    "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+    "float8_e5m2": (np.uint8, torch.float8_e5m2),
+}
 
 
 def _to_tensor(value) -> torch.Tensor:
+    if isinstance(value, torch.Tensor):
+        return value.detach().clone()
     arr = np.array(value)  # a writable copy: JAX hands out read-only buffers
-    if arr.dtype.name == "bfloat16":
-        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    if arr.dtype.name in _BIT_VIEWS:
+        bits, dtype = _BIT_VIEWS[arr.dtype.name]
+        return torch.from_numpy(arr.view(bits)).view(dtype)
     return torch.from_numpy(arr)
+
+
+def _install_quantized_weights(module: nn.Module, flat: Mapping[str, torch.Tensor]) -> set[str]:
+    """Give every ``Linear`` that ``flat`` holds quantized leaves or an fp8
+    weight for a quantized weight made of them, on the layer's device (the
+    CPU for a layer on the meta device). Returns the keys it took."""
+    layers = dict(module.named_modules())
+    grouped: dict[str, dict[str, torch.Tensor]] = {}
+    for key, value in flat.items():
+        match = _QUANT_KEY.match(key)
+        if match:
+            grouped.setdefault(match.group(1) or "", {})[match.group(2)] = value
+        elif key.endswith("weight") and value.dtype in FP8_DTYPES:
+            grouped[key[: -len("weight")].rstrip(".")] = value
+    taken = set()
+    for root, quantized in grouped.items():
+        layer = layers.get(root)
+        if not isinstance(layer, Linear):
+            raise KeyError(f"quantized weight of {root!r} has no Linear to go on")
+        device = weight_device(layer)
+        device = "cpu" if device.type == "meta" else device
+        shape = (layer.out_features, layer.in_features)
+        numel = shape[0] * shape[1]
+        if isinstance(quantized, torch.Tensor):
+            sized = tuple(quantized.shape) == shape
+        else:
+            if "packed" in quantized:
+                needed, optional = {"packed", "absmax", "code", "_meta"}, {"split"}
+            elif "SCB" in quantized:
+                needed, optional = {"data", "SCB"}, set()
+            else:
+                needed, optional = {"data", "scale"}, {"shift", "w8a8"}
+            missing = sorted(needed - set(quantized))
+            unexpected = sorted(set(quantized) - needed - optional)
+            if missing or unexpected:
+                raise KeyError(
+                    f"{root}.weight: missing keys {missing}, unexpected keys {unexpected} "
+                    "among the leaves of a quantized weight"
+                )
+            if "packed" in quantized:
+                # exactly the codes, or bnb's flat padding to a 64-element block
+                sized = quantized["packed"].numel() in ((numel + 1) // 2, -(-numel // 64) * 32)
+            else:
+                sized = quantized["data"].numel() == (numel // 2 if "shift" in quantized else numel)
+        if not sized:
+            raise ValueError(f"{root}: quantized weight does not match the layer's shape {shape}")
+        if isinstance(quantized, torch.Tensor):
+            layer.set_quantized_weight(quantized.to(device))
+            taken.add(f"{root}.weight" if root else "weight")
+        else:
+            layer.set_quantized_weight({k: v.to(device) for k, v in quantized.items()})
+            taken.update(f"{root}.weight.{k}" if root else f"weight.{k}" for k in quantized)
+    return taken
 
 
 @torch.no_grad()
@@ -48,15 +117,13 @@ def load_flat_params(
     the parameter it replaces, or on the CPU where that parameter is on
     the meta device.
     """
-    quantized = [k for k in flat if _QUANT_KEY.search(k)]
-    if quantized:
-        raise NotImplementedError(
-            f"quantized weight subtrees (NF4, fp8, int8_w8a8) are not ported: {quantized[0]}"
-        )
+    flat = {k: _to_tensor(v) for k, v in flat.items()}
     own = module.state_dict(keep_vars=True)
-    adapters = {k: _to_tensor(v) for k, v in flat.items() if is_adapter_key(k) and k not in own}
+    adapters = {k: v for k, v in flat.items() if is_adapter_key(k) and k not in own}
     if adapters:
         attach_adapters_from_state(module, adapters)
+    quantized = _install_quantized_weights(module, flat)
+    if adapters or quantized:
         own = module.state_dict(keep_vars=True)
     missing = sorted(set(own) - set(flat))
     unexpected = sorted(set(flat) - set(own))
@@ -68,15 +135,15 @@ def load_flat_params(
     tensors = {}
     for key in own.keys() & flat.keys():
         target = own[key]
-        value = _to_tensor(flat[key])
+        value = flat[key]
         if tuple(value.shape) != tuple(target.shape):
             raise ValueError(
                 f"{key}: shape {tuple(value.shape)} does not match {tuple(target.shape)}"
             )
         device = "cpu" if target.is_meta else target.device
-        # a new adapter keeps the dtype it comes in; everything else takes
-        # the dtype of the parameter it replaces
-        dtype = value.dtype if key in adapters else target.dtype
+        # a new adapter and a quantized leaf keep the dtype they come in;
+        # everything else takes the dtype of the parameter it replaces
+        dtype = value.dtype if key in adapters or key in quantized else target.dtype
         tensors[key] = value.to(device=device, dtype=dtype)
     module.load_state_dict(tensors, strict=strict, assign=True)
     return module

@@ -1,12 +1,18 @@
 """Layer set of the port (``vision_ft_tpu/nn/core.py`` counterpart).
 
-Dense weights with optional LoRA / LoHa adapters, and the gradient
-checkpointing helpers (``remat_layer``, ``set_remat_saves``, ``save_name``).
-No quantized weight subtrees yet. Parameter names and shapes are the JAX
-package's, so a module's ``state_dict()`` keys equal
-``nn.core.flatten_params`` of the JAX module's params:
+Dense or quantized weights with optional LoRA / LoHa adapters, and the
+gradient checkpointing helpers (``remat_layer``, ``set_remat_saves``,
+``save_name``). Parameter names and shapes are the JAX package's, so a
+module's ``state_dict()`` keys equal ``nn.core.flatten_params`` of the JAX
+module's params:
 
-  - Linear weight: (out_features, in_features) (+ bias (out,))
+  - Linear weight: (out_features, in_features) (+ bias (out,)); a
+    quantized weight (``modules/quant``) is a child module ``weight``
+    (:class:`QuantizedWeight`) whose buffers are the leaves ``packed`` /
+    ``absmax`` / ``code`` / ``_meta`` / ``split`` (4-bit) or ``data`` /
+    ``scale`` / ``SCB`` / ``shift`` / ``w8a8`` (int8, int4), or a tensor
+    of an fp8 dtype. :func:`set_nf4_route` picks how a packed 4-bit weight
+    is multiplied.
   - Conv2d weight: (out_ch, in_ch, kh, kw) (OIHW)
   - norm scales/offsets: ``weight``/``bias``
   - adapters on a Linear or Conv2d (kohya layout): ``lora_down.weight``,
@@ -106,6 +112,101 @@ def remat_layer(fn: Callable) -> Callable:
     return run
 
 
+# -- quantized weights --------------------------------------------------------
+
+FP8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
+NF4_ROUTES = ("fused", "stream", "dequant")
+_nf4_route = "fused"
+
+
+def set_nf4_route(route: str) -> None:
+    """How a ``Linear`` multiplies by a packed 4-bit (NF4 / FP4) weight:
+
+    - "fused" (default): the hand-written kernels of ``ops/nf4_matmul.py``;
+      the weight stays packed in device memory, forward and backward.
+    - "stream": ``ops/nf4_stream.py``, plain dequantization one panel of
+      output rows at a time (split-layout weights only); its backward is
+      the fused dx kernel where that takes the shape.
+    - "dequant": plain dequantization of the whole weight into a matmul;
+      the weight is dequantized again in the backward, not kept.
+
+    A route takes a layer only where its shape contract holds (and, for
+    the kernels on the card, only bf16 inputs); every other case takes
+    "dequant". Results agree within rounding; time and memory differ."""
+    global _nf4_route
+    if route not in NF4_ROUTES:
+        raise ValueError(f"unknown nf4 route: {route!r}")
+    _nf4_route = route
+
+
+def nf4_route() -> str:
+    return _nf4_route
+
+
+class QuantizedWeight(nn.Module):
+    """Holder of the leaves of one quantized weight, as buffers: the
+    ``weight`` child of a quantized ``Linear``. Every leaf keeps its own
+    dtype (uint8 codes, fp32 scales and codebook, int8 data) whatever
+    dtype the model around it is cast to; device moves apply as usual."""
+
+    def __init__(self, leaves: Mapping[str, torch.Tensor]):
+        super().__init__()
+        for name, leaf in leaves.items():
+            self.register_buffer(name, leaf)
+
+    def _apply(self, fn, recurse=True):
+        for name, leaf in self._buffers.items():
+            moved = fn(leaf)
+            self._buffers[name] = moved if moved.dtype == leaf.dtype else leaf.to(moved.device)
+        return self
+
+    @property
+    def device(self) -> torch.device:
+        return next(iter(self._buffers.values())).device
+
+
+def weight_device(layer: nn.Module) -> torch.device:
+    """The device of a layer's weight, dense or quantized (the meta device
+    for a weight that is not materialized yet)."""
+    return layer.weight.device
+
+
+class _DequantLinear(torch.autograd.Function):
+    """x @ W^T for a weight that ``dequantize()`` rebuilds: the backward
+    calls it again, so no dense copy of the weight lives from the forward
+    to the backward. Differentiable in x only (the base is frozen)."""
+
+    @staticmethod
+    def forward(ctx, x, dequantize):
+        ctx.dequantize = dequantize
+        return F.linear(x, dequantize(x.dtype))
+
+    @staticmethod
+    def backward(ctx, dy):
+        return torch.matmul(dy, ctx.dequantize(dy.dtype)), None
+
+
+def _w8a8_linear(x: torch.Tensor, data: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int8_w8a8: dynamic per-token symmetric int8 activations, an exact
+    s8 x s8 -> s32 product, fp32 rescale (weight scale per output channel,
+    (O, 1)). On the CPU the product is an int32 matmul; on the card
+    ``torch._int_mm`` where it takes the shape (more than 16 rows, k and n
+    multiples of 8), else an fp64 matmul, which is exact for these sums."""
+    xf = x.float()
+    x_scale = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+    x_q = torch.round(xf / x_scale).clamp(-127, 127).to(torch.int8)
+    rows = x_q.reshape(-1, x_q.shape[-1])
+    n, k = data.shape
+    if not x.is_cuda:
+        y = torch.matmul(rows.int(), data.int().t())
+    elif rows.shape[0] > 16 and k % 8 == 0 and n % 8 == 0:
+        y = torch._int_mm(rows.contiguous(), data.t())
+    else:
+        y = torch.matmul(rows.double(), data.double().t())
+    y = y.reshape(*x.shape[:-1], n)
+    return (y.float() * (x_scale * scale[:, 0])).to(x.dtype)
+
+
 def set_remat_group(group: int) -> None:
     """Checkpointing uniform layer stacks in groups of layers (the DiT
     families' knob; the SDXL UNet has no caller)."""
@@ -192,9 +293,9 @@ def attach_adapters_from_state(module: nn.Module, flat: Mapping[str, torch.Tenso
         root, leaf = ".".join(parts[:cut]), ".".join(parts[cut:])
         if not isinstance(layers.get(root), (Linear, Conv2d)):
             raise KeyError(f"adapter weight {key!r} has no base layer {root!r}")
-        weight = layers[root].weight
+        device = weight_device(layers[root])
         value = torch.as_tensor(value)
-        grouped.setdefault(root, {})[leaf] = value if weight.is_meta else value.to(weight.device)
+        grouped.setdefault(root, {})[leaf] = value if device.type == "meta" else value.to(device)
     for root, tensors in grouped.items():
         attach_adapter(layers[root], tensors)
 
@@ -257,14 +358,86 @@ class Linear(nn.Module):
         self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        # torch nn.Linear default: U(-1/sqrt(in), 1/sqrt(in)), as the JAX init
+        # torch nn.Linear default: U(-1/sqrt(in), 1/sqrt(in)), as the JAX init;
+        # a quantized weight is left as it is
         bound = 1.0 / math.sqrt(self.in_features)
-        self.weight.uniform_(-bound, bound, generator=generator)
+        if not self.is_quantized:
+            self.weight.uniform_(-bound, bound, generator=generator)
         if self.bias is not None:
             self.bias.uniform_(-bound, bound, generator=generator)
 
+    @property
+    def is_quantized(self) -> bool:
+        weight = self.weight
+        return isinstance(weight, QuantizedWeight) or weight.dtype in FP8_DTYPES
+
+    def set_quantized_weight(self, quantized) -> None:
+        """Replace the weight by quantized leaves (a mapping of tensors, as
+        ``modules.quant.quantize_weight`` returns it) or an fp8 tensor."""
+        if isinstance(quantized, Mapping):
+            self._parameters.pop("weight", None)
+            self._modules.pop("weight", None)
+            self.weight = QuantizedWeight(quantized)
+        elif quantized.dtype in FP8_DTYPES:
+            self._modules.pop("weight", None)
+            self.weight = nn.Parameter(quantized, requires_grad=False)
+        else:
+            raise TypeError(f"not a quantized weight: {quantized.dtype}")
+
+    def _apply(self, fn, recurse=True):
+        # an fp8 weight keeps its dtype when the model around it is cast
+        weight = self._parameters.get("weight")
+        kept = weight.data if weight is not None and weight.dtype in FP8_DTYPES else None
+        super()._apply(fn, recurse)
+        if kept is not None and self.weight.dtype != kept.dtype:
+            self.weight = nn.Parameter(kept.to(self.weight.device), requires_grad=False)
+        return self
+
+    def _quantized_matmul(self, x: torch.Tensor) -> torch.Tensor:
+        """x @ W^T for a quantized weight, without bias or adapter, in the
+        JAX ``Linear``'s order of branches: w8a8, then for a packed 4-bit
+        weight the route of :func:`set_nf4_route` where its contract holds,
+        then plain dequantization into a matmul."""
+        from ..modules.quant.functional import dequantize_weight
+
+        w = self.weight
+
+        shape = (self.out_features, self.in_features)
+        leaves = w._buffers if isinstance(w, QuantizedWeight) else {}
+        if "w8a8" in leaves:
+            return _w8a8_linear(x, leaves["data"], leaves["scale"])
+        if "packed" in leaves and _nf4_route != "dequant":
+            from ..modules.quant.nf4 import infer_blocksize
+            from ..ops import nf4_matmul, nf4_stream
+
+            n, k = shape
+            blocksize = infer_blocksize(n * k, leaves["absmax"].shape[0])
+            args = (x, leaves["packed"], leaves["code"], leaves["absmax"], shape, blocksize)
+            # the kernels take bf16 on the card; on the CPU the wrappers
+            # take their plain versions for any dtype
+            kernel_input = not x.is_cuda or x.dtype == torch.bfloat16
+            if _nf4_route == "stream" and "split" in leaves and nf4_stream.supports(n, k, blocksize):
+                return nf4_stream.nf4_stream_matmul(*args)
+            if (
+                _nf4_route == "fused" and kernel_input
+                and nf4_matmul.supports(x.numel() // k, k, n, blocksize)
+            ):
+                return nf4_matmul.nf4_matmul(*args, split="split" in leaves)
+
+        def dequantize(dtype):
+            return dequantize_weight(w, dtype=dtype, shape=shape)
+
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _DequantLinear.apply(x, dequantize)
+        return F.linear(x, dequantize(x.dtype))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.linear(x, self.weight, self.bias)
+        if self.is_quantized:
+            y = self._quantized_matmul(x)
+            if self.bias is not None:
+                y = y + self.bias.to(y.dtype)
+        else:
+            y = F.linear(x, self.weight, self.bias)
         delta = _linear_adapter_delta(self, x)
         return y if delta is None else y + delta
 
@@ -393,7 +566,7 @@ def init_parameters_(module: nn.Module, generator: torch.Generator) -> nn.Module
     """Random init in place, on the device and in the dtype the module's
     parameters already have. Every parameter of the port belongs to one
     of the leaf layers above; a parameter that does not is an error.
-    Adapters on a layer are left as they are."""
+    Adapters on a layer and quantized weights are left as they are."""
     covered = set()
     for m in module.modules():
         if isinstance(m, _LEAVES):

@@ -6,8 +6,8 @@
 With --profile, phases 6 and 8 also trace two train steps with
 torch.profiler (device activity only) and print the device time of a step
 by kind of kernel and the share of an untraced step in which the card is
-idle, and phase 8 the host's cost of one Linear call, dense and on each
-NF4 route.
+idle, phase 8 the host's cost of one Linear call, dense and on each NF4
+route, and phase 12 the same breakdown of one Lumina2 denoise step.
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -44,6 +44,24 @@ Phases, each printing its own lines; any failure exits non-zero:
    the "stream" and "dequant" routes, timed.
 9. one 1024 px CFG request through generate() with the NF4 denoiser.
 
+10. kernel E, the key-masked flash attention forward over (B, H, S, D),
+    against its plain version (out and lse) at the Lumina2 shapes: 24 heads
+    over 8 kv heads, head dim 96, joint length 4352 with the caption hole
+    masked, the refiners' 4096 (all-ones mask) and 256, no mask, causal,
+    ragged lengths, head dims 64 and 128.
+11. kernel F, the fused gated MLP, against its plain version at the
+    NextDiT's (rows, 2304, 9216) SwiGLU shapes, a ragged row count, biases
+    with both gelus, and SDXL's GeGLU (16384, 640, 2560).
+12. Lumina2 generate() at full width and depth (NextDiT 2B, Gemma-2-2B,
+    the 16-channel VAE; bf16, seeded random weights made on the card, a
+    synthetic SentencePiece vocab): a 1024 px CFG request cold and warm
+    (bit-identical), two prompts of different lengths at 832x1216, a request
+    with CFG truncation, one with DeepCache, the warm request again with
+    the fused feed-forward switched off (set_fused_ff("off")); launch
+    counts of kernels E and F against the module tree; a depth-reduced
+    request with the kernels against the same request on their plain
+    versions.
+
 Every kernel's record carries its time, its plain version's, the bound
 (the larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s bf16, or
 67 TFLOP/s for the fp32 LayerNorm arithmetic, from this run's shapes) and
@@ -56,6 +74,7 @@ There is no CPU path.
 import argparse
 import contextlib
 import functools
+import gc
 import json
 import statistics
 import subprocess
@@ -112,6 +131,44 @@ NF4_WARMUP, NF4_TIMED, NF4_ROUTE_STEPS = 1, 3, 3
 # NF4 rounds a weight to one of 16 levels of its block's absmax: the widest
 # gap (0.723 to 1.0) bounds the error by 0.139 absmax
 NF4_MAX_ERR = 0.17
+# kernel E and its plain version take fp32 scores from the same bf16
+# products and round the weights to bf16 before P V (the kernel before the
+# normalization, the plain version after); kernel F and its plain version
+# sum the same bf16 products in fp32 in another order and round the gated
+# product and the output to bf16: a few bf16 ulps of the output's largest
+# value; lse is fp32 on both sides
+MASKED_ATTN_TOL = 2e-2
+MASKED_LSE_TOL = 1e-4
+FUSED_MLP_TOL = 2e-2
+# a depth-reduced Lumina2 request (2 + 2 refiner blocks and 4 main blocks, 4
+# steps, CFG 4), kernels against plain versions, bf16, random weights: every
+# block's few-ulp differences are carried on, and guidance multiplies the
+# difference of two forwards by 4; relative to the latents' largest value.
+# The full request with the fused feed-forward kernel against the same
+# request with it off is held to the same limit.
+LUMINA_REQUEST_TOL = 3e-2
+MASKED_ATTN_SHAPES = [  # (B, H, Hkv, Sq, Sk, D, mask, causal); the first is the main stack's
+    (2, 24, 8, 4352, 4352, 96, "hole", False),  # 1024 px, CFG: [caption 256 | image 4096]
+    (2, 24, 8, 4096, 4096, 96, "ones", False),  # noise refiner
+    (2, 24, 8, 256, 256, 96, "hole", False),    # context refiner
+    (4, 24, 8, 4208, 4208, 96, "hole", False),  # two prompts at 832x1216, CFG: ragged tiles
+    (4, 24, 8, 3952, 3952, 96, "ones", False),
+    (2, 24, 8, 4352, 4352, 96, None, False),
+    (2, 24, 8, 4352, 4352, 96, "hole", True),
+    (1, 24, 8, 300, 1000, 96, "hole", False),   # ragged, sq != sk
+    (2, 10, 10, 1000, 1000, 64, None, False),
+    (1, 8, 4, 1024, 1024, 128, "hole", False),
+]
+FUSED_MLP_SHAPES = [  # (M, C, inner, act, biases); the first is the main stack's
+    (8704, 2304, 9216, "silu", False),   # 2 x 4352 joint tokens
+    (8192, 2304, 9216, "silu", False),   # noise refiner
+    (512, 2304, 9216, "silu", False),    # context refiner
+    (16832, 2304, 9216, "silu", False),  # two prompts at 832x1216, CFG
+    (1001, 2304, 9216, "gelu", True),    # ragged rows, biases
+    (1001, 1280, 5120, "gelu_tanh", True),
+]
+GEGLU_SHAPE = (16384, 640, 2560)  # SDXL's first stage at 1024 px, batch 4
+LUMINA_KERNELS = ("flash_attention_masked", "gated_mlp")
 STEPS = 8
 TRAIN_BATCH, TRAIN_RES, TRAIN_WARMUP, TRAIN_TIMED = 4, 1024, 2, 3
 LORA_TARGETS = ["attn1", "attn2", ".ff."]
@@ -188,6 +245,7 @@ def plain_versions():
     versions: a swap made in this process only, for the comparison of a
     whole train step. The package has no such switch."""
     import vision_ft_tpu_torch.ops.flash_attention as flash
+    import vision_ft_tpu_torch.ops.fused_mlp as mlp
     import vision_ft_tpu_torch.ops.layer_norm as ln
     import vision_ft_tpu_torch.ops.nf4_matmul as nf4
 
@@ -201,9 +259,14 @@ def plain_versions():
             q, k, v, out, lse, dout, num_heads, scale
         )
 
+    def mlp_forward(x2, w_act, b_act, w_gate, b_gate, w_down, b_down, act):
+        return mlp.gated_mlp_reference(x2, w_act, w_gate, w_down, b_act, b_gate, b_down, act)
+
     saved = (flash._forward, flash.flash_attention_bshd_backward, ln._forward)
     saved_nf4 = (nf4.nf4_matmul_forward, nf4.nf4_matmul_dx)
+    saved_lumina = (flash._masked_forward, mlp._forward)
     flash._forward, flash.flash_attention_bshd_backward = forward, backward
+    flash._masked_forward, mlp._forward = flash.flash_attention_reference, mlp_forward
     ln._forward = ln.layer_norm_reference
     nf4.nf4_matmul_forward, nf4.nf4_matmul_dx = nf4.nf4_matmul_reference, nf4.nf4_matmul_dx_reference
     try:
@@ -211,10 +274,12 @@ def plain_versions():
     finally:
         flash._forward, flash.flash_attention_bshd_backward, ln._forward = saved
         nf4.nf4_matmul_forward, nf4.nf4_matmul_dx = saved_nf4
+        flash._masked_forward, mlp._forward = saved_lumina
 
 
 # kernel-name fragments -> kind, first match wins (torch.profiler's names)
 KERNEL_KINDS = [
+    ("flash_fwd_masked", "kernel E"), ("fused_gated_mlp", "kernel F"),
     ("flash_bwd_dkv_bshd", "kernel C dk/dv"), ("flash_bwd_dq_bshd", "kernel C dq"),
     ("flash_fwd_bshd", "kernel B"), ("layer_norm_fwd", "kernel A"),
     ("nf4_matmul_kernel<true>", "kernel D dx"), ("nf4_matmul_kernelILb1", "kernel D dx"),
@@ -255,8 +320,8 @@ def profile_window(run_step):
     return kinds, kernels
 
 
-def profile_steps(run_step, unprofiled_ms: float) -> None:
-    """Trace two train steps, one window each, and print the second's device
+def profile_steps(run_step, unprofiled_ms: float, what: str = "train step") -> None:
+    """Trace two steps, one window each, and print the second's device
     time by kind of kernel and the card's idle share of a step of
     ``unprofiled_ms``. The profiler can lose events under load: the two
     windows must agree, or the run fails."""
@@ -264,7 +329,7 @@ def profile_steps(run_step, unprofiled_ms: float) -> None:
     busy_first = sum(t for t, _ in first.values())
     busy_ms = sum(t for t, _ in kinds.values())
     launches = sum(n for _, n in kinds.values())
-    print(f"profile of a train step: {busy_ms:.1f} ms of kernel time in {launches} launches "
+    print(f"profile of a {what}: {busy_ms:.1f} ms of kernel time in {launches} launches "
           f"({busy_first:.1f} ms in {sum(n for _, n in first.values())} the step before); "
           f"an unprofiled step takes {unprofiled_ms:.1f} ms: the card is idle "
           f"{100 * (1 - busy_ms / unprofiled_ms):.1f}% of it")
@@ -347,6 +412,10 @@ def main() -> None:
         flash_attention_bshd, flash_attention_bshd_backward,
         flash_attention_bshd_backward_reference, flash_attention_bshd_delta,
         flash_attention_bshd_dkv, flash_attention_bshd_dq, flash_attention_bshd_reference,
+        flash_attention_masked, flash_attention_reference,
+    )
+    from vision_ft_tpu_torch.ops.fused_mlp import (
+        gated_mlp, gated_mlp_reference, geglu_mlp, set_fused_ff,
     )
     from vision_ft_tpu_torch.ops.layer_norm import layer_norm, layer_norm_reference
     from vision_ft_tpu_torch.ops.nf4_matmul import (
@@ -361,7 +430,10 @@ def main() -> None:
         "flash_attention_bshd_dkv": flash_attention_bshd_dkv,
         "flash_attention_bshd_dq": flash_attention_bshd_dq,
         "layer_norm": layer_norm,
+        "flash_attention_masked": flash_attention_masked,
+        "gated_mlp": gated_mlp,
     }
+    no_lumina = {name: 0 for name in LUMINA_KERNELS}  # the SDXL paths launch neither
 
     def reset_launches():
         for wrapper in wrappers.values():
@@ -372,7 +444,8 @@ def main() -> None:
 
     phase("1 build")
     start = time.perf_counter()
-    cuda_sources = ["flash_attention_bshd", "flash_attention_bshd_bwd", "nf4_matmul"]
+    cuda_sources = ["flash_attention_bshd", "flash_attention_bshd_bwd", "nf4_matmul",
+                    "flash_attention_masked", "fused_mlp"]
     _build.build_cuda_libraries(cuda_sources)
     nvcc_s = time.perf_counter() - start
     start = time.perf_counter()
@@ -516,7 +589,7 @@ def main() -> None:
     want = {"flash_attention_bshd": unet_attn * unet_forwards,
             "flash_attention_bshd_dkv": 0, "flash_attention_bshd_dq": 0,
             "layer_norm": unet_ln * unet_forwards + clip_ln * len(requests),
-            "nf4_matmul_forward": 0, "nf4_matmul_dx": 0}
+            "nf4_matmul_forward": 0, "nf4_matmul_dx": 0, **no_lumina}
     print(f"module tree: {unet_attn} UNet self-attentions, {unet_ln} UNet LayerNorms, "
           f"{clip_ln} CLIP LayerNorms; {unet_forwards} UNet forwards; "
           f"launches {generate_launches}, expected {want}")
@@ -691,7 +764,7 @@ def main() -> None:
             "flash_attention_bshd_dkv": unet_attn * total,
             "flash_attention_bshd_dq": unet_attn * total,
             "layer_norm": 2 * unet_ln * total,
-            "nf4_matmul_forward": 0, "nf4_matmul_dx": 0}
+            "nf4_matmul_forward": 0, "nf4_matmul_dx": 0, **no_lumina}
     print(f"launches over {total} steps {train_launches}, expected {want}")
     if train_launches != want:
         raise AssertionError(f"train launch counts {train_launches} != {want}")
@@ -748,7 +821,8 @@ def main() -> None:
     used = read_launches()
     with plain_versions():
         plain_loss, plain_norm = loss_and_norm()
-    on_path = [n for name, n in used.items() if not name.startswith("nf4_")]  # a dense base
+    on_path = [n for name, n in used.items()  # a dense base, an SDXL step
+               if not name.startswith("nf4_") and name not in LUMINA_KERNELS]
     if read_launches() != used or min(on_path) == 0:
         raise AssertionError(f"the plain step launched a kernel, or the kernel step none: {used}")
     loss_rel = abs(kernel_loss - plain_loss) / abs(plain_loss)
@@ -890,7 +964,7 @@ def main() -> None:
                 "flash_attention_bshd_dkv": unet_attn * steps,
                 "flash_attention_bshd_dq": unet_attn * steps,
                 "layer_norm": 2 * unet_ln * steps,
-                "nf4_matmul_forward": 2 * n_q * steps, "nf4_matmul_dx": n_dx * steps}
+                "nf4_matmul_forward": 2 * n_q * steps, "nf4_matmul_dx": n_dx * steps, **no_lumina}
 
     def check_run(name, run):
         for i, (seconds, loss, norm) in enumerate(run):
@@ -976,7 +1050,7 @@ def main() -> None:
     used = read_launches()
     with plain_versions():
         plain_loss, plain_norm = loss_and_norm()
-    if read_launches() != used or min(used.values()) == 0:
+    if read_launches() != used or min(n for name, n in used.items() if name not in LUMINA_KERNELS) == 0:
         raise AssertionError(f"the plain step launched a kernel, or the kernel step none: {used}")
     loss_rel = abs(kernel_loss - plain_loss) / abs(plain_loss)
     norm_rel = abs(kernel_norm - plain_norm) / abs(plain_norm)
@@ -1010,15 +1084,344 @@ def main() -> None:
         raise AssertionError("NF4 request: latents not finite, or a constant image")
     want = {"flash_attention_bshd": unet_attn * steps, "flash_attention_bshd_dkv": 0,
             "flash_attention_bshd_dq": 0, "layer_norm": unet_ln * steps + clip_ln,
-            "nf4_matmul_forward": n_q * steps, "nf4_matmul_dx": 0}
+            "nf4_matmul_forward": n_q * steps, "nf4_matmul_dx": 0, **no_lumina}
     print(f"launches of the warm request {nf4_generate_launches}, expected {want}")
     if nf4_generate_launches != want:
         raise AssertionError(f"NF4 request launch counts {nf4_generate_launches} != {want}")
 
+
+    # the SDXL model leaves the card before the Lumina2 phases
+    for part in model._parts().values():
+        part.to("meta")
+    del images, batch, small, frozen, leaves, others, ups, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"SDXL model released: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated "
+          f"(counted in the peaks below)")
+
+    phase("10 kernel E: key-masked flash attention forward over (B, H, S, D) vs plain (bf16)")
+
+    def attention_mask(kind, b, sk):
+        """hole: [caption 256, right padded to another length per sample | image]."""
+        if kind is None:
+            return None
+        mask = torch.ones(b, sk, dtype=torch.bool, device=device)
+        if kind == "hole":
+            for i in range(b):
+                mask[i, 9 + 31 * i:min(256, sk // 2)] = False
+        return mask
+
+    def sdpa_call(q, k, v, mask, causal):
+        """PyTorch's own attention on the same tensors: grouped heads by
+        ``enable_gqa`` where this PyTorch has it, else on k and v repeated
+        beforehand (outside the timed call)."""
+        attn_mask = None if mask is None else mask[:, None, None, :]
+        if causal and attn_mask is not None:
+            attn_mask = attn_mask & torch.ones(
+                q.shape[2], k.shape[2], dtype=torch.bool, device=device).tril()
+            causal = False
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        try:
+            sdpa(q[:, :, :8], k[:, :, :8], v[:, :, :8], enable_gqa=True)
+            return lambda: sdpa(q, k, v, attn_mask=attn_mask, is_causal=causal, enable_gqa=True)
+        except TypeError:
+            rep = q.shape[1] // k.shape[1]
+            kr, vr = k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1)
+            return lambda: sdpa(q, kr, vr, attn_mask=attn_mask, is_causal=causal)
+
+    errs, rows = [], []
+    for b, h, hk, sq, sk, d, kind, causal in MASKED_ATTN_SHAPES:
+        # (B, S, heads, D) memory seen as (B, H, S, D), as the NextDiT hands it over
+        q = torch.randn(b, sq, h, d, device=device, generator=gen).bfloat16().transpose(1, 2)
+        k, v = (torch.randn(b, sk, hk, d, device=device, generator=gen).bfloat16().transpose(1, 2)
+                for _ in "kv")
+        mask = attention_mask(kind, b, sk)
+        what = f"attention B={b} H={h}/{hk} Sq={sq} Sk={sk} D={d} mask={kind} causal={causal}"
+        out, lse = flash_attention_masked(q, k, v, mask, None, causal, return_lse=True)
+        ref, ref_lse = flash_attention_reference(q, k, v, mask, None, causal, return_lse=True)
+        abs_err, rel_err = compare(what + " out", lambda: out, lambda: ref, MASKED_ATTN_TOL)
+        lse_err = compare(what + " lse", lambda: lse, lambda: ref_lse, MASKED_LSE_TOL)
+        if out.stride() != q.stride():
+            raise AssertionError(f"{what}: the output does not keep q's memory layout")
+        del ref, ref_lse
+        ms = cuda_ms(lambda: flash_attention_masked(q, k, v, mask, None, causal))
+        plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, v, mask, None, causal),
+                           warmup=1, iters=3)
+        library_ms = cuda_ms(sdpa_call(q, k, v, mask, causal))
+        # the work these inputs need: the score pairs the masks leave
+        keys = float(b * sk if mask is None else mask.sum().item())
+        pairs = keys * sq * (0.5 + 0.5 / sq if causal else 1.0)
+        flops = 4 * h * d * pairs
+        nbytes = 2 * (2 * b * h * sq * d + 2 * b * hk * sk * d) + (0 if mask is None else b * sk)
+        bound_ms, bound_by = bound(nbytes, flops)
+        print(f"{what}: max abs err {abs_err:.3e} rel {rel_err:.3e} (tol {MASKED_ATTN_TOL}), lse rel "
+              f"{lse_err[1]:.3e} (tol {MASKED_LSE_TOL}); kernel {ms:.3f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, SDPA {library_ms:.3f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by})")
+        errs.append(abs_err)
+        rows.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=library_ms))
+        del q, k, v, out, lse
+    # a query row with every key masked: the kernel's rule, the mean of v
+    q, k, v = (torch.randn(1, 2, 320, 96, device=device, generator=gen).bfloat16() for _ in "qkv")
+    nothing = torch.zeros(1, 320, dtype=torch.bool, device=device)
+    out = flash_attention_masked(q, k, v, nothing)
+    compare("attention with every key masked", lambda: out,
+            lambda: v.float().mean(dim=2, keepdim=True).expand_as(v), MASKED_ATTN_TOL)
+    print("every key masked: the output is the mean of v, as in the kernel replaced")
+    records["flash_attention_masked"] = dict(
+        route="cuda", source="vision_ft_tpu_torch/csrc/flash_attention_masked.cu",
+        replaces="vision_ft_tpu/ops/pallas/flash_attention.py:83",
+        max_abs_err=max(errs), **rows[0],
+    )
+    del q, k, v, out
+
+    phase("11 kernel F: fused gated MLP vs plain (bf16)")
+
+    def mlp_case(what, x, weights, biases, act, kernel):
+        wa, wg, wd = weights
+        ba, bg, bd = biases
+        m, c, inner = x.shape[0], x.shape[1], wd.shape[1]
+        abs_err, rel_err = compare(
+            what, kernel, lambda: gated_mlp_reference(x, wa, wg, wd, ba, bg, bd, act), FUSED_MLP_TOL)
+        if not torch.equal(kernel(), kernel()):
+            raise AssertionError(f"{what}: two launches differ")
+        ms = cuda_ms(kernel, warmup=2, iters=10)
+        plain_ms = cuda_ms(lambda: gated_mlp_reference(x, wa, wg, wd, ba, bg, bd, act),
+                           warmup=1, iters=3)
+        linear = torch.nn.functional.linear
+        activation = {"silu": torch.nn.functional.silu,
+                      "gelu": torch.nn.functional.gelu,
+                      "gelu_tanh": lambda t: torch.nn.functional.gelu(t, approximate="tanh")}[act]
+        library_ms = cuda_ms(
+            lambda: linear(activation(linear(x, wa, ba)) * linear(x, wg, bg), wd, bd), iters=10)
+        flops = 6 * m * c * inner
+        nbytes = 2 * (2 * m * c + 3 * c * inner) + sum(0 if t is None else 2 * t.numel() for t in biases)
+        bound_ms, bound_by = bound(nbytes, flops)
+        print(f"{what}: max abs err {abs_err:.3e} rel {rel_err:.3e} (tol {FUSED_MLP_TOL}), reruns "
+              f"bit-identical; kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+              f"{plain_ms:.3f} ms, three F.linear + gate {library_ms:.3f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by})")
+        return abs_err, dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=library_ms)
+
+    def mlp_tensors(m, c, inner, with_biases, fused=False):
+        x = torch.randn(m, c, device=device, generator=gen).bfloat16()
+        up = torch.randn((2 if fused else 1) * inner, c, device=device, generator=gen)
+        wa = (up * c**-0.5).bfloat16()
+        wg = wa if fused else (torch.randn(inner, c, device=device, generator=gen) * c**-0.5).bfloat16()
+        wd = (torch.randn(c, inner, device=device, generator=gen) * inner**-0.5).bfloat16()
+        biases = [(0.1 * torch.randn(n, device=device, generator=gen)).bfloat16() if with_biases
+                  else None for n in (wa.shape[0], inner, c)]
+        return x, wa, wg, wd, biases
+
+    errs, rows = [], []
+    for m, c, inner, act, with_biases in FUSED_MLP_SHAPES:
+        x, wa, wg, wd, biases = mlp_tensors(m, c, inner, with_biases)
+        err, row = mlp_case(
+            f"gated_mlp M={m} C={c} inner={inner} {act} biases={with_biases}", x, (wa, wg, wd),
+            biases, act, lambda: gated_mlp(x, wa, wg, wd, *biases, act=act))
+        errs.append(err)
+        rows.append(row)
+    m, c, inner = GEGLU_SHAPE
+    x, w1, _, w2, (b1, _, b2) = mlp_tensors(m, c, inner, True, fused=True)
+    err, _ = mlp_case(
+        f"geglu_mlp M={m} C={c} inner={inner} (one fused up-projection, read by halves)", x,
+        (w1[inner:], w1[:inner], w2), (b1[inner:], b1[:inner], b2), "gelu_tanh",
+        lambda: geglu_mlp(x, w1, b1, w2, b2))
+    errs.append(err)
+    records["gated_mlp"] = dict(
+        route="cuda", source="vision_ft_tpu_torch/csrc/fused_mlp.cu",
+        replaces="vision_ft_tpu/ops/pallas/fused_mlp.py:63",
+        max_abs_err=max(errs), **rows[0],
+    )
+    del x, wa, wg, wd, w1, w2, b1, b2, biases
+
+    phase("12 Lumina2 generate() at full width and depth, bf16, seeded random weights")
+    from vision_ft_tpu_torch.models.lumina2.config import Lumina2Config
+    from vision_ft_tpu_torch.models.lumina2.pipeline import Lumina2
+    from vision_ft_tpu_torch.models.text_encoders.sentencepiece import (
+        SentencePieceModel, SentencePieceTokenizer, serialize_model,
+    )
+
+    class LuminaModel(Lumina2):
+        """Keeps the last latents generate() decoded, for the checks."""
+
+        def decode_image(self, latents):
+            self.last_latents = latents.clone()
+            return super().decode_image(latents)
+
+    # a small unigram SentencePiece vocab: specials, the byte pieces, a few
+    # words and the letters; Gemma's template prepends <bos>
+    words = ("a photo of cat sitting on the sofa red car road house in mountains blurry").split()
+    pieces = [("<pad>", 0.0, 3), ("<eos>", 0.0, 3), ("<bos>", 0.0, 3), ("<unk>", 0.0, 2)]
+    pieces += [(f"<0x{i:02X}>", 0.0, 6) for i in range(256)]
+    pieces += [("▁" + w, -1.0 - 0.1 * i, 1) for i, w in enumerate(dict.fromkeys(words))]
+    pieces += [(ch, -5.0, 1) for ch in "abcdefghijklmnopqrstuvwxyz▁"]
+    vocab = serialize_model(pieces, unk_id=3, bos_id=2, eos_id=1, pad_id=0)
+    tokenizer = SentencePieceTokenizer(SentencePieceModel.from_bytes(vocab), template="bos")
+
+    torch.cuda.reset_peak_memory_stats()
+    lumina = LuminaModel(Lumina2Config(checkpoint_path="", dtype="bfloat16"), tokenizer=tokenizer)
+    start = time.perf_counter()
+    lumina.init_params(torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    counts = [sum(p.numel() for p in part.parameters()) for part in
+              (lumina.denoiser, lumina.text_encoder, lumina.vae)]
+    print(f"init on the card: {time.perf_counter() - start:.1f} s; NextDiT {counts[0] / 1e9:.3f} B, "
+          f"Gemma-2 {counts[1] / 1e9:.3f} B, VAE {counts[2] / 1e6:.1f} M parameters; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    config = lumina.denoiser.config
+    head_dim = config.hidden_dim // config.num_heads
+    print(f"NextDiT: hidden {config.hidden_dim}, {config.depth} + {config.refiner_depth} + "
+          f"{config.refiner_depth} blocks, {config.num_heads} heads over {config.num_kv_heads} kv "
+          f"heads, head dim {head_dim}, SwiGLU inner "
+          f"{lumina.denoiser.layers['0']['feed_forward']['w2'].in_features}")
+
+    def want_blocks(steps, trunc=0.0, interval=None, cache_depth=None, cfg=True):
+        """Transformer blocks one request runs, from the module tree and
+        generate()'s caching rules: each launches kernel E and kernel F once."""
+        depth, refiner = len(lumina.denoiser.layers), len(lumina.denoiser.noise_refiner)
+        shallow = cache_depth if cache_depth is not None else max(1, depth // 4)
+        blocks, was_cfg, have_captions, have_delta = 0, None, False, False
+        for i in range(steps):
+            cfg_step = cfg and (i + 1) / steps > trunc
+            if was_cfg is not None and was_cfg != cfg_step:
+                have_captions = have_delta = False
+            blocks += refiner + (0 if have_captions else len(lumina.denoiser.context_refiner))
+            if interval and i % interval != 0 and have_delta:
+                blocks += shallow
+            else:
+                blocks += depth
+                have_delta = bool(interval)
+            was_cfg, have_captions = cfg_step, True
+        return blocks
+
+    def lumina_request(name, expected_blocks, **kwargs):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        images = lumina.generate(**kwargs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = read_launches()
+        latents, arrays = lumina.last_latents, [np.asarray(im) for im in images]
+        print(f"request {name}: {len(images)} image(s) {images[0].size}, "
+              f"{kwargs['num_inference_steps']} steps, {seconds:.3f} s, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches kernel E "
+              f"{launches['flash_attention_masked']}, kernel F {launches['gated_mlp']}, expected "
+              f"{expected_blocks} of each")
+        if not torch.isfinite(latents).all() or any(a.std() == 0 for a in arrays):
+            raise AssertionError(f"request {name}: latents not finite, or a constant image")
+        if images[0].size != (kwargs["width"], kwargs["height"]) or latents.shape[1:] != (
+                kwargs["height"] // 8, kwargs["width"] // 8, 16):
+            raise AssertionError(f"request {name}: wrong size {images[0].size}, {latents.shape}")
+        want = {name: 0 for name in wrappers}
+        want.update({"flash_attention_masked": expected_blocks[0], "gated_mlp": expected_blocks[1]})
+        if launches != want:
+            raise AssertionError(f"request {name}: launch counts {launches} != {want}")
+        return seconds, latents, arrays, launches
+
+    base = dict(prompt="a photo of a cat sitting on the sofa", negative_prompt="blurry",
+                width=1024, height=1024, cfg_scale=4.0, seed=1234, num_inference_steps=STEPS)
+    both = lambda n: (n, n)  # noqa: E731
+    lumina_launches = {name: 0 for name in wrappers}
+    runs = {}
+    for name, expected_blocks, kwargs in (
+        ("a (cold)", both(want_blocks(STEPS)), base),
+        ("a (warm)", both(want_blocks(STEPS)), base),
+        ("b (two prompts, 832x1216)", both(want_blocks(STEPS)),
+         dict(base, prompt=["a red car on the road", "a house in the mountains in a photo of a cat"],
+              negative_prompt=None, width=832, height=1216, seed=99)),
+        ("c (cfg_truncation_ratio 0.5)", both(want_blocks(STEPS, trunc=0.5)),
+         dict(base, cfg_truncation_ratio=0.5)),
+        ("d (deep_cache_interval 2)", both(want_blocks(STEPS, interval=2)),
+         dict(base, deep_cache_interval=2)),
+    ):
+        runs[name] = lumina_request(name, expected_blocks, **kwargs)
+        for kernel, n in runs[name][3].items():
+            lumina_launches[kernel] += n
+    same = torch.equal(runs["a (cold)"][1], runs["a (warm)"][1]) and all(
+        np.array_equal(x, y) for x, y in zip(runs["a (cold)"][2], runs["a (warm)"][2]))
+    if not same:
+        raise AssertionError("the warm request (the cold one repeated, same seed) differs from it")
+    print("request a warm == request a cold, bit for bit")
+    for name in ("c (cfg_truncation_ratio 0.5)", "d (deep_cache_interval 2)"):
+        if torch.equal(runs[name][1], runs["a (warm)"][1]):
+            raise AssertionError(f"request {name} equals request a: the option did nothing")
+    depth, refiner = len(lumina.denoiser.layers), len(lumina.denoiser.noise_refiner)
+    print(f"module tree: {depth} main blocks, {refiner} noise refiner and "
+          f"{len(lumina.denoiser.context_refiner)} context refiner blocks, one kernel E and one "
+          f"kernel F launch each: {depth + refiner} a step, {len(lumina.denoiser.context_refiner)} "
+          f"more when the caption cache is empty")
+
+    # the same warm request with the fused feed-forward off: three cuBLAS
+    # calls and the gate in its place, kernel E as before
+    set_fused_ff("off")
+    try:
+        off = lumina_request('a (warm, set_fused_ff("off"))', (want_blocks(STEPS), 0), **base)
+    finally:
+        set_fused_ff("auto")
+    scale = runs["a (warm)"][1].float().abs().max().item()
+    drift = (off[1].float() - runs["a (warm)"][1].float()).abs().max().item() / scale
+    print(f'request a warm: {runs["a (warm)"][0]:.3f} s with the fused feed-forward kernel ("auto"), '
+          f'{off[0]:.3f} s with it off; the latents differ by {drift:.3e} of their largest value '
+          f"(kernel F keeps h and g in fp32 where three bf16 Linears round them; "
+          f"tol {LUMINA_REQUEST_TOL})")
+    if drift > LUMINA_REQUEST_TOL:
+        raise AssertionError('the "auto" request and the "off" request disagree')
+
+    # one denoise step alone: CFG forward (batch 2) at 1024 px, captions cached
+    g12 = torch.Generator(device=device).manual_seed(5)
+    step_latents = torch.randn(1, 128, 128, 16, device=device, generator=g12).bfloat16()
+    captions = torch.randn(2, 256, config.caption_dim, device=device, generator=g12).bfloat16()
+    caption_mask = torch.zeros(2, 256, dtype=torch.int32, device=device)
+    caption_mask[0, :11], caption_mask[1, :2] = 1, 1
+
+    def denoise_step(cached=None):
+        with torch.inference_mode():
+            return lumina._denoise_step(
+                step_latents, 0.5, 0.7, 0.6, captions, caption_mask, cached, 4.0, 1.0,
+                do_cfg=True, use_cache=cached is not None)
+
+    refined = denoise_step()[1]
+    step_ms = {}
+    for mode in ("auto", "off"):
+        set_fused_ff(mode)
+        try:
+            step_ms[mode] = cuda_ms(lambda: denoise_step(refined), warmup=1, iters=3)
+        finally:
+            set_fused_ff("auto")
+    print(f"one CFG denoise step at 1024 px (batch 2, 4352 joint tokens, captions cached): "
+          f"{step_ms['auto']:.1f} ms; {step_ms['off']:.1f} ms with the fused feed-forward off")
+    if options.profile:
+        profile_steps(lambda: denoise_step(refined), step_ms["auto"], "Lumina2 denoise step")
+
+    # a depth-reduced request, the kernels against their plain versions
+    # (swapped in by this script's hook, not by a fallback): the first 4 main
+    # blocks and both refiners, 4 steps
+    full_layers = lumina.denoiser.layers
+    lumina.denoiser.layers = torch.nn.ModuleDict({str(i): full_layers[str(i)] for i in range(4)})
+    try:
+        reduced = dict(base, num_inference_steps=4)
+        kernel_run = lumina_request("reduced (4 main blocks, kernels)", both(want_blocks(4)), **reduced)
+        with plain_versions():
+            plain_run = lumina_request("reduced (4 main blocks, plain versions)", (0, 0), **reduced)
+    finally:
+        lumina.denoiser.layers = full_layers
+    scale = plain_run[1].float().abs().max().item()
+    request_err = (kernel_run[1].float() - plain_run[1].float()).abs().max().item() / scale
+    print(f"reduced request, kernels vs plain versions: latents differ by {request_err:.3e} of "
+          f"their largest value (tol {LUMINA_REQUEST_TOL})")
+    if request_err > LUMINA_REQUEST_TOL:
+        raise AssertionError("the kernel request and the plain request disagree")
+
     kernels = []
     for name, record in records.items():
         launches = {"generate": generate_launches[name], "train": train_launches[name],
-                    "nf4_train": nf4_train_launches[name], "nf4_generate": nf4_generate_launches[name]}
+                    "nf4_train": nf4_train_launches[name], "nf4_generate": nf4_generate_launches[name],
+                    "lumina2_generate": lumina_launches[name]}
         kernels.append({
             "name": name,
             **{k: record[k] for k in ("route", "source", "replaces")},

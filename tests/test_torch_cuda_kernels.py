@@ -15,7 +15,11 @@ from vision_ft_tpu_torch.ops.flash_attention import (
     flash_attention_bshd_dq,
     flash_attention_bshd_backward_reference,
     flash_attention_bshd_reference,
+    flash_attention,
+    flash_attention_masked,
+    flash_attention_reference,
 )
+from vision_ft_tpu_torch.ops.fused_mlp import gated_mlp, gated_mlp_reference, geglu_mlp
 from vision_ft_tpu_torch.modules.quant.nf4 import quantize_4bit
 from vision_ft_tpu_torch.ops import nf4_matmul as nf4
 from vision_ft_tpu_torch.ops.layer_norm import layer_norm, layer_norm_reference
@@ -45,6 +49,12 @@ BF16_ATTN_BWD_TOL = 2e-2
 # largest value: forward 2e-2, dx 3e-2 (the JAX package's own tolerances
 # for the kernels these replace)
 NF4_FWD_TOL, NF4_DX_TOL = 2e-2, 3e-2
+# The key-masked attention kernel and the fused gated MLP kernel against
+# their plain versions: the same bf16 products summed in fp32 in another
+# order, the softmax weights (the gated product) and the output rounded to
+# bf16 on both sides: a few bf16 ulps of the output's largest value
+BF16_MASKED_ATTN_TOL = 2e-2
+BF16_FUSED_MLP_TOL = 2e-2
 
 
 @pytest.mark.cuda
@@ -269,3 +279,221 @@ def test_w8a8_linear_is_exact_on_card(cuda):
         want = _w8a8_linear(x, data, scale)
         got = _w8a8_linear(x.to(cuda), data.to(cuda), scale.to(cuda))
         torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=0)
+
+
+def _key_mask(cuda, kind, b, sk):
+    if kind is None:
+        return None
+    mask = torch.ones(b, sk, dtype=torch.bool, device=cuda)
+    if kind == "hole":
+        for i in range(b):
+            mask[i, 5 + 17 * i:min(256, sk // 2)] = False
+    return mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,h,hk,sq,sk,d,kind,causal",
+    [
+        (2, 24, 8, 4352, 4352, 96, "hole", False),  # the NextDiT's main stack at 1024 px
+        (2, 24, 8, 4096, 4096, 96, "ones", False),  # noise refiner
+        (2, 24, 8, 256, 256, 96, "hole", False),    # context refiner
+        (1, 6, 2, 300, 1000, 96, "hole", False),    # ragged, sq != sk
+        (1, 6, 6, 520, 520, 96, None, True),        # causal
+        (1, 4, 2, 333, 333, 64, "hole", True),      # causal and masked, ragged
+        (1, 4, 1, 1, 256, 128, None, False),        # a single q row, one kv head
+    ],
+)
+def test_masked_kernel_matches_plain_on_card(cuda, b, h, hk, sq, sk, d, kind, causal):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    # (B, S, heads, D) memory seen as (B, H, S, D); v a slice of a wider buffer
+    q = torch.randn(b, sq, h, d, device=cuda, generator=g).bfloat16().transpose(1, 2)
+    k = torch.randn(b, sk, hk, d, device=cuda, generator=g).bfloat16().transpose(1, 2)
+    wide = torch.randn(b, sk, 2 * hk * d, device=cuda, generator=g).bfloat16()
+    v = wide[..., hk * d:].unflatten(-1, (hk, d)).transpose(1, 2)
+    mask = _key_mask(cuda, kind, b, sk)
+    before = flash_attention_masked.launches
+    out, lse = flash_attention_masked(q, k, v, mask, None, causal, return_lse=True)
+    torch.cuda.synchronize()
+    assert flash_attention_masked.launches == before + 1
+    assert out.shape == q.shape and out.stride() == q.stride() and out.dtype == torch.bfloat16
+    want, want_lse = flash_attention_reference(q, k, v, mask, None, causal, return_lse=True)
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= BF16_MASKED_ATTN_TOL * want.float().abs().max().item()
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-4)
+    # the routing sends the same call to the kernel
+    routed = flash_attention(q, k, v, None if mask is None else mask[:, None, None, :], None, causal)
+    assert flash_attention_masked.launches == before + 2
+    assert torch.equal(routed, out)
+
+
+@pytest.mark.cuda
+def test_masked_kernel_gives_the_mean_of_v_for_a_fully_masked_row_on_card(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn(2, 2, 320, 96, device=cuda, generator=g).bfloat16() for _ in range(3))
+    mask = torch.ones(2, 320, dtype=torch.bool, device=cuda)
+    mask[1] = False
+    out, lse = flash_attention_masked(q, k, v, mask, return_lse=True)
+    mean_v = v[1].float().mean(dim=1, keepdim=True).expand_as(v[1])
+    assert (out[1].float() - mean_v).abs().max().item() <= BF16_MASKED_ATTN_TOL
+    assert (lse[1] < -0.99e30).all() and torch.isfinite(lse).all()
+
+
+@pytest.mark.cuda
+def test_routing_keeps_off_the_masked_kernel_what_it_does_not_take_on_card(cuda):
+    """Short keys and a full mask take the plain formula (the JAX package's
+    gate); what passes the gate and the kernel does not take (fp32, a head
+    dim outside the kernel's, a call that wants gradients) raises, through
+    the routing as through the wrapper."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn(1, 4, 300, 96, device=cuda, generator=g).bfloat16()
+    full = torch.rand(1, 1, 300, 300, device=cuda, generator=g) > 0.3
+    leaf = q.clone().requires_grad_()
+    before = flash_attention_masked.launches
+    flash_attention(q[:, :, :77], q[:, :, :77], q[:, :, :77])              # sk < 256
+    flash_attention(q, q, q, mask=full)                                    # not a key mask
+    flash_attention(leaf, q, q, mask=full).sum().backward()                # plain route keeps gradients
+    assert leaf.grad is not None
+    for entry in (flash_attention, flash_attention_masked):
+        for bad in (
+            lambda: entry(q.float(), q.float(), q.float()),
+            lambda: entry(q[..., :48], q[..., :48], q[..., :48]),
+            lambda: entry(q, q[:, :3], q[:, :3]),
+            lambda: entry(q, q[:, :, :299], q[:, :, :299], is_causal=True),
+            lambda: entry(q[..., 1:65], q[..., 1:65], q[..., 1:65]),  # unaligned rows
+        ):
+            with pytest.raises(ValueError):
+                bad()
+        with pytest.raises(NotImplementedError, match="Lumina2 train step"):
+            entry(leaf, q, q)
+        with torch.no_grad():
+            entry(leaf, q, q)  # no gradient wanted: the kernel takes it
+    with pytest.raises(ValueError):
+        flash_attention_masked(q, q, q, torch.ones(1, 300, device=cuda))
+    assert flash_attention_masked.launches == before + 2
+
+
+def _mlp_tensors(cuda, m, c, inner, biases, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(m, c, device=cuda, generator=g).bfloat16()
+    wa, wg = ((torch.randn(inner, c, device=cuda, generator=g) * c**-0.5).bfloat16() for _ in "ag")
+    wd = (torch.randn(c, inner, device=cuda, generator=g) * inner**-0.5).bfloat16()
+    bs = [(0.1 * torch.randn(n, device=cuda, generator=g)).bfloat16() if biases else None
+          for n in (inner, inner, c)]
+    return x, wa, wg, wd, bs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "m,c,inner,act,biases",
+    [
+        (8704, 2304, 9216, "silu", False),    # the NextDiT's main stack at 1024 px, CFG
+        (512, 2304, 9216, "silu", False),     # context refiner
+        (1001, 2304, 9216, "gelu", True),     # ragged rows, biases
+        (333, 1280, 5120, "gelu_tanh", True),
+        (100, 3072, 8192, "silu", True),      # wider than one block's 2304 columns: two splits
+        (33, 3712, 512, "silu", False),       # the widest c the x tile's shared memory takes
+        (1, 128, 256, "silu", False),         # the smallest shape, a single row
+    ],
+)
+def test_fused_mlp_kernel_matches_plain_on_card(cuda, m, c, inner, act, biases):
+    x, wa, wg, wd, bs = _mlp_tensors(cuda, m, c, inner, biases)
+    before = gated_mlp.launches
+    out = gated_mlp(x, wa, wg, wd, *bs, act=act)
+    again = gated_mlp(x, wa, wg, wd, *bs, act=act)
+    torch.cuda.synchronize()
+    assert gated_mlp.launches == before + 2
+    assert out.shape == x.shape and out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    assert torch.equal(out, again)  # no atomics: a fixed summation order
+    want = gated_mlp_reference(x, wa, wg, wd, *bs, act=act)
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= BF16_FUSED_MLP_TOL * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_geglu_kernel_reads_the_fused_weight_in_place_on_card(cuda):
+    m, c, inner = 16384, 640, 2560
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(4, m // 4, c, device=cuda, generator=g).bfloat16()
+    w1 = (torch.randn(2 * inner, c, device=cuda, generator=g) * c**-0.5).bfloat16()
+    b1 = (0.1 * torch.randn(2 * inner, device=cuda, generator=g)).bfloat16()
+    w2 = (torch.randn(c, inner, device=cuda, generator=g) * inner**-0.5).bfloat16()
+    b2 = (0.1 * torch.randn(c, device=cuda, generator=g)).bfloat16()
+    before = gated_mlp.launches
+    out = geglu_mlp(x, w1, b1, w2, b2)
+    assert gated_mlp.launches == before + 1 and out.shape == x.shape
+    hidden = torch.nn.functional.linear(x.float(), w1.float(), b1.float())
+    gated = (hidden[..., :inner] * torch.nn.functional.gelu(hidden[..., inner:], approximate="tanh"))
+    want = torch.nn.functional.linear(gated.bfloat16().float(), w2.float(), b2.float())
+    err = (out.float() - want).abs().max().item()
+    assert err <= BF16_FUSED_MLP_TOL * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_fused_mlp_autograd_runs_the_kernel_forward_and_the_plain_backward_on_card(cuda):
+    x, wa, wg, wd, _ = _mlp_tensors(cuda, 300, 256, 512, False, seed=4)
+    leaves = [t.clone().requires_grad_() for t in (x, wa, wg, wd)]
+    before = gated_mlp.launches
+    out = gated_mlp(*leaves)
+    got = torch.autograd.grad(out.float().square().sum(), leaves)
+    assert gated_mlp.launches == before + 1
+    plain = [t.clone().requires_grad_() for t in (x, wa, wg, wd)]
+    px, pa, pg, pd = plain
+    ref = torch.nn.functional.linear(
+        torch.nn.functional.silu(torch.nn.functional.linear(px, pa)) * torch.nn.functional.linear(px, pg), pd)
+    want = torch.autograd.grad(ref.float().square().sum(), plain)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert (a.float() - b.float()).abs().max().item() <= 5e-2 * b.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_fused_mlp_kernel_rejects_what_it_cannot_take_on_card(cuda):
+    x, wa, wg, wd, _ = _mlp_tensors(cuda, 8, 256, 512, False, seed=5)
+    for bad in (
+        lambda: gated_mlp(x.float(), wa.float(), wg.float(), wd.float()),          # dtype
+        lambda: gated_mlp(x, wa.cpu(), wg, wd),                                    # CPU / CUDA mix
+        lambda: gated_mlp(x[:, :192].contiguous(), wa[:, :192].contiguous(),
+                          wg[:, :192].contiguous(), wd[:192].contiguous()),        # c % 128
+        lambda: gated_mlp(x, wa[:384], wg[:384], wd[:, :384].contiguous()),        # inner % 256
+        lambda: gated_mlp(x, wa.t().contiguous().t(), wg, wd),                     # strides
+        lambda: gated_mlp(x, wa, wg, wd, b_act=torch.zeros(3, device=cuda)),       # bias shape
+        lambda: gated_mlp(x, wa, wg, wd, act="relu"),
+    ):
+        with pytest.raises(ValueError):
+            bad()
+
+
+@pytest.mark.cuda
+def test_lumina2_block_runs_both_kernels_under_the_gate_on_card(cuda):
+    """One NextDiT block at full width: kernel E and kernel F launch once
+    each under the default gate, kernel F not at all with the fused
+    feed-forward off, and both routes agree."""
+    from vision_ft_tpu_torch.models.lumina2.denoiser import TransformerBlock
+    from vision_ft_tpu_torch.nn import init_parameters_
+    from vision_ft_tpu_torch.ops.fused_mlp import set_fused_ff
+
+    with torch.device("meta"):
+        block = TransformerBlock(2304, 24, 8)
+    block = block.to(torch.bfloat16).to_empty(device=cuda)
+    init_parameters_(block, torch.Generator(device=cuda).manual_seed(0))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(2, 512, 2304, device=cuda, generator=g).bfloat16()
+    angles = torch.rand(2, 512, 48, device=cuda, generator=g) * 6.28
+    freqs = torch.stack([angles.cos(), angles.sin()], dim=-1)
+    t_emb = torch.randn(2, 1024, device=cuda, generator=g).bfloat16()
+    mask = torch.ones(2, 512, dtype=torch.bool, device=cuda)
+    mask[1, 40:256] = False
+    before = (flash_attention_masked.launches, gated_mlp.launches)
+    with torch.no_grad():
+        fused = block(x, freqs, t_emb, mask)
+        assert (flash_attention_masked.launches, gated_mlp.launches) == (before[0] + 1, before[1] + 1)
+        set_fused_ff("off")
+        try:
+            plain = block(x, freqs, t_emb, mask)
+        finally:
+            set_fused_ff("auto")
+    assert (flash_attention_masked.launches, gated_mlp.launches) == (before[0] + 2, before[1] + 1)
+    assert torch.isfinite(fused).all()
+    err = (fused.float() - plain.float()).abs().max().item()
+    assert err <= 5e-2 * plain.float().abs().max().item()

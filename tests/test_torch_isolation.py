@@ -3,11 +3,14 @@
 Both run in subprocesses, so this process's imports do not matter.
 """
 
+import ast
 import os
 import shutil
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -34,7 +37,44 @@ def _run(args, cwd):
 def test_port_imports_without_jax():
     proc = _run(["-c", IMPORT_ALL], REPO)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 44  # every module of the generate, train and quantization slices
+    # every module of the SDXL generate, train and quantization slices and of the Lumina2 slice
+    assert int(proc.stdout.strip()) >= 57
+
+
+PORT_SOURCES = sorted((REPO / "vision_ft_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+LUMINA2_MODULES = [
+    "ops/fused_mlp.py", "modules/patch.py", "models/text_encoders/gemma2.py",
+    "models/text_encoders/sentencepiece.py", "models/text_encoders/auto_tokenizer.py",
+    "models/lumina2/config.py", "models/lumina2/scheduler.py", "models/lumina2/vae.py",
+    "models/lumina2/util.py", "models/lumina2/text_encoder.py", "models/lumina2/denoiser.py",
+    "models/lumina2/pipeline.py",
+]
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_no_source_of_the_port_imports_jax_or_the_jax_package():
+    """Every import statement of the port and of chip_smoke.py, also those
+    inside functions, which importing the modules would not run."""
+    assert all((REPO / "vision_ft_tpu_torch" / name) in PORT_SOURCES for name in LUMINA2_MODULES)
+    for path in PORT_SOURCES:
+        bad = _imported_roots(path) & {"jax", "jaxlib", "flax", "optax", "vision_ft_tpu"}
+        assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
+
+
+@pytest.mark.parametrize("name", LUMINA2_MODULES)
+def test_lumina2_module_reads_no_environment_variable(name):
+    """The JAX package's VFT_* levers are setters in the port."""
+    text = (REPO / "vision_ft_tpu_torch" / name).read_text()
+    assert "os.environ" not in text and "getenv" not in text
 
 
 def test_chip_smoke_fails_without_a_gpu(tmp_path):

@@ -1,9 +1,9 @@
-"""KL autoencoder (SD/SDXL VAE), ``vision_ft_tpu/models/autoencoder/kl.py``
-counterpart, diffusers key layout.
+"""KL autoencoder (SD/SDXL VAE and the 16-channel Flux VAE),
+``vision_ft_tpu/models/autoencoder/kl.py`` counterpart, diffusers key layout.
 
 The whole module tree is ported, so that the JAX package's parameters
 load with strict keys; of the entry points only ``decode`` is (the
-SDXL generate path). All tensors are NHWC; latents (B, H/8, W/8, C).
+SDXL and Lumina2 generate paths). All tensors are NHWC; latents (B, H/8, W/8, C).
 The mid-block attention is single-head over HW tokens and runs the
 plain formula ("xla" backend, as in the JAX package). Not ported yet:
 ``encode`` / ``DiagonalGaussian`` and ``tiled_decode``.
@@ -37,6 +37,11 @@ class AutoencoderKLConfig:
     mid_block_add_attention: bool = True
 
 
+# the 16-channel Flux VAE (Lumina2): a shift factor, no quant convs
+FLUX_VAE_CONFIG = AutoencoderKLConfig(
+    latent_channels=16, scaling_factor=0.3611, shift_factor=0.1159,
+    use_quant_conv=False,
+)
 SDXL_VAE_CONFIG = AutoencoderKLConfig()
 
 

@@ -1,0 +1,262 @@
+"""Lumina2 text-to-image pipeline (``vision_ft_tpu/models/lumina2/
+pipeline.py`` counterpart): ``Lumina2.generate()`` with renorm CFG, CFG
+truncation, refined-caption caching and optional DeepCache delta caching
+(``deep_cache_interval``; see ``NextDiT.deepcache_forward``).
+
+``generate()`` encodes the prompts with Gemma-2, runs the flow-match Euler
+loop over the NextDiT (one latent resolution per call; NHWC latents) and
+decodes the latents with the 16-channel KL-VAE into PIL images.
+
+The modules are built on the meta device and materialized by
+``init_params`` (seeded random weights, on the device, in the target
+dtype) or ``load_state_dict`` (the JAX package's flat parameters).
+
+Not ported yet: single-file checkpoint I/O (``_from_checkpoint``,
+``state_dict``), offloading, the continuous-batching slot step, image
+encode.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from PIL import Image
+from torch import nn
+
+from ...nn import init_parameters_, load_flat_params
+from ...utils import tensor as tensor_utils
+from ...utils.dtype import str_to_dtype
+from ..autoencoder import AutoencoderKL
+from .config import Lumina2Config
+from .denoiser import Denoiser
+from .scheduler import Scheduler
+from .text_encoder import DEFAULT_MAX_TOKEN_LENGTH, TextEncoder
+from .vae import DEFAULT_VAE_CONFIG
+
+_PARTS = ("denoiser", "vae", "text_encoder")
+
+
+class Lumina2:
+    denoiser_class: type[Denoiser] = Denoiser
+
+    def __init__(
+        self,
+        config: Lumina2Config,
+        tokenizer=None,
+        vae_config=None,
+        text_encoder_config=None,
+    ):
+        self.config = config
+        self.dtype = str_to_dtype(config.dtype)
+        if tokenizer is None:
+            from ..text_encoders.auto_tokenizer import maybe_auto_tokenizer
+
+            tokenizer = maybe_auto_tokenizer(config, family="gemma")
+        with torch.device("meta"):
+            self.denoiser = self.denoiser_class(config.denoiser)
+            self.vae = AutoencoderKL(vae_config or DEFAULT_VAE_CONFIG)
+            self.text_encoder = TextEncoder(config=text_encoder_config, tokenizer=tokenizer)
+        self.scheduler = Scheduler()
+
+    @classmethod
+    def from_config(cls, config: Lumina2Config, **kwargs) -> "Lumina2":
+        return cls(config, **kwargs)
+
+    def _parts(self) -> dict[str, nn.Module]:
+        return {name: getattr(self, name) for name in _PARTS}
+
+    @property
+    def device(self) -> torch.device:
+        return self.denoiser.x_embedder.weight.device
+
+    # -- parameters ------------------------------------------------------------
+
+    def init_params(
+        self,
+        generator: torch.Generator,
+        dtype: Optional[torch.dtype] = None,
+        device: Optional[torch.device] = None,
+    ) -> None:
+        """Seeded random weights, made on ``device`` (default: the
+        generator's) in ``dtype`` (default: the config's), never through
+        the host."""
+        self.dtype = dtype or self.dtype
+        device = generator.device if device is None else torch.device(device)
+        for part in self._parts().values():
+            part.to(dtype=self.dtype)
+            if any(t.is_meta for t in (*part.parameters(), *part.buffers())):
+                part.to_empty(device=device)
+            else:
+                part.to(device)
+            init_parameters_(part, generator)
+            part.eval()
+
+    def load_state_dict(
+        self, flat: dict[str, np.ndarray], device: Optional[torch.device] = None
+    ) -> None:
+        """Load a flat internal-key state dict (``denoiser.*``, ``vae.*``,
+        ``text_encoder.*``, as the JAX ``Lumina2.load_state_dict`` takes
+        it), strict on keys and shapes, in this model's dtype, onto
+        ``device``: the card unless the caller names another (``"cpu"``);
+        without a card the default raises."""
+        device = torch.device("cuda" if device is None else device)
+        unknown = [k for k in flat if k.split(".", 1)[0] not in _PARTS]
+        if unknown:
+            raise KeyError(f"keys outside {_PARTS}: {unknown[:5]}")
+        for name, part in self._parts().items():
+            prefix = name + "."
+            part.to(dtype=self.dtype)
+            load_flat_params(
+                part, {k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)}
+            )
+            part.to(device)
+            part.eval()
+
+    # -- latents / images --------------------------------------------------------
+
+    def prepare_latents(
+        self, batch_size: int, height: int, width: int, seed: Optional[int] = None
+    ) -> torch.Tensor:
+        ratio = int(self.vae.compression_ratio)
+        shape = (batch_size, height // ratio, width // ratio, self.denoiser.config.in_channels)
+        return tensor_utils.incremental_seed_randn(shape, seed, self.dtype, self.device)
+
+    def decode_image(self, latents: torch.Tensor) -> list[Image.Image]:
+        z = latents / self.vae.scaling_factor + self.vae.shift_factor
+        return tensor_utils.tensor_to_images(self.vae.decode(z))
+
+    # -- one CFG step ------------------------------------------------------------
+
+    def _denoise_step(
+        self,
+        latents,
+        timestep,
+        sigma,
+        next_sigma,
+        caption_features,
+        caption_mask,
+        cached_features,
+        cfg_scale,
+        renorm_cfg_scale,
+        cached_delta=None,
+        do_cfg: bool = False,
+        use_cache: bool = False,
+        deep_cache: bool = False,
+        refresh: bool = True,
+        cache_depth: Optional[int] = None,
+    ):
+        """One flow-match Euler step. Returns (latents, refined captions)
+        and, with ``deep_cache``, the delta. The guidance arithmetic runs in
+        fp32, as the JAX package's does (its fp32 scalars promote it)."""
+        batch = latents.shape[0]
+        latents_input = torch.cat([latents, latents]) if do_cfg else latents
+        t = torch.full(
+            (latents_input.shape[0],), float(timestep), dtype=torch.float32, device=latents.device
+        )
+        cached = cached_features if use_cache else None
+        if deep_cache:
+            velocity, _mask, refined, delta = self.denoiser.deepcache_forward(
+                latents_input, caption_features, t, caption_mask,
+                cached_caption_features=cached, cached_delta=cached_delta,
+                refresh=refresh, cache_depth=cache_depth,
+            )
+        else:
+            velocity, _mask, refined = self.denoiser(
+                latents_input, caption_features, t, caption_mask,
+                cached_caption_features=cached,
+            )
+            delta = None
+        velocity = velocity.float()
+        if do_cfg:
+            positive, negative = velocity[:batch], velocity[batch:]
+            new_velocity = negative + float(cfg_scale) * (positive - negative)
+            # renorm CFG: the norm runs over NHWC axis 2 (the W axis)
+            if renorm_cfg_scale > 0.0:
+                positive_norm = torch.linalg.vector_norm(positive, dim=2, keepdim=True)
+                new_norm = torch.linalg.vector_norm(new_velocity, dim=2, keepdim=True)
+                scale = positive_norm * float(renorm_cfg_scale) / new_norm.clamp_min(1e-12)
+                new_velocity = new_velocity * scale
+            velocity = new_velocity
+        new_latents = latents.float() + velocity * (float(sigma) - float(next_sigma))
+        new_latents = new_latents.to(latents.dtype)
+        if deep_cache:
+            return new_latents, refined, delta
+        return new_latents, refined
+
+    # -- generate --------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def generate(
+        self,
+        prompt,
+        negative_prompt=None,
+        width: int = 768,
+        height: int = 768,
+        num_inference_steps: int = 25,
+        cfg_scale: float = 5.0,
+        renorm_cfg_scale: float = 1.0,
+        cfg_truncation_ratio: float = 0.0,
+        max_token_length: int = DEFAULT_MAX_TOKEN_LENGTH,
+        seed: Optional[int] = None,
+        do_offloading: bool = False,
+        deep_cache_interval: Optional[int] = None,
+        deep_cache_depth: Optional[int] = None,
+    ) -> list[Image.Image]:
+        if do_offloading:
+            raise NotImplementedError("offloading is not ported yet")
+        do_cfg = cfg_scale > 1.0
+        timesteps = self.scheduler.get_timesteps(num_inference_steps)
+        sigmas = self.scheduler.get_sigmas(num_inference_steps)
+        prompts = list(prompt) if isinstance(prompt, (list, tuple)) else [prompt]
+
+        encoder_output = self.text_encoder.encode_prompts(
+            prompts, negative_prompt, use_negative_prompts=do_cfg,
+            max_token_length=max_token_length,
+        )
+        latents = self.prepare_latents(len(prompts), height, width, seed=seed)
+
+        cached_features = None
+        cached_was_cfg = None
+        cached_delta = None
+        for i, t in enumerate(timesteps):
+            current_step_ratio = (i + 1) / num_inference_steps
+            do_cfg_step = do_cfg and current_step_ratio > cfg_truncation_ratio
+
+            if do_cfg_step:
+                caption_features = torch.cat(
+                    [encoder_output.positive_embeddings, encoder_output.negative_embeddings]
+                ).to(self.dtype)
+                caption_mask = torch.cat(
+                    [encoder_output.positive_attention_mask, encoder_output.negative_attention_mask]
+                )
+            else:
+                caption_features = encoder_output.positive_embeddings.to(self.dtype)
+                caption_mask = encoder_output.positive_attention_mask
+
+            # drop the caches when the CFG batch size changes
+            if cached_was_cfg is not None and cached_was_cfg != do_cfg_step:
+                cached_features = None
+                cached_delta = None
+            use_cache = cached_features is not None
+
+            step_args = (
+                latents, t, sigmas[i], sigmas[i + 1], caption_features, caption_mask,
+                cached_features, cfg_scale, renorm_cfg_scale,
+            )
+            if deep_cache_interval:
+                refresh = (i % deep_cache_interval == 0) or cached_delta is None
+                latents, refined, cached_delta = self._denoise_step(
+                    *step_args, None if refresh else cached_delta, do_cfg=do_cfg_step,
+                    use_cache=use_cache, deep_cache=True, refresh=refresh,
+                    cache_depth=deep_cache_depth,
+                )
+            else:
+                latents, refined = self._denoise_step(
+                    *step_args, do_cfg=do_cfg_step, use_cache=use_cache
+                )
+            cached_features = refined
+            cached_was_cfg = do_cfg_step
+
+        return self.decode_image(latents)

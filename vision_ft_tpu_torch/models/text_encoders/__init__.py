@@ -1,4 +1,12 @@
 from .clip import CLIPTextConfig, CLIPTextModel, CLIPTextModelWithProjection
+from .gemma2 import Gemma2Config, Gemma2Model
 from .tokenizer import CLIPTokenizer
 
-__all__ = ["CLIPTextConfig", "CLIPTextModel", "CLIPTextModelWithProjection", "CLIPTokenizer"]
+__all__ = [
+    "CLIPTextConfig",
+    "CLIPTextModel",
+    "CLIPTextModelWithProjection",
+    "CLIPTokenizer",
+    "Gemma2Config",
+    "Gemma2Model",
+]

@@ -14,7 +14,7 @@ module's params:
     of an fp8 dtype. :func:`set_nf4_route` picks how a packed 4-bit weight
     is multiplied.
   - Conv2d weight: (out_ch, in_ch, kh, kw) (OIHW)
-  - norm scales/offsets: ``weight``/``bias``
+  - norm scales/offsets: ``weight``/``bias`` (``RMSNorm``: ``weight`` only)
   - adapters on a Linear or Conv2d (kohya layout): ``lora_down.weight``,
     ``lora_up.weight`` (+ ``lora_up.bias``) and the ``alpha`` buffer, or
     ``hada_w1_a`` / ``hada_w1_b`` / ``hada_w2_a`` / ``hada_w2_b`` and
@@ -207,14 +207,21 @@ def _w8a8_linear(x: torch.Tensor, data: torch.Tensor, scale: torch.Tensor) -> to
     return (y.float() * (x_scale * scale[:, 0])).to(x.dtype)
 
 
+_REMAT_STACK_NOT_PORTED = (
+    "set_remat_group / run_remat_stack (checkpointing a uniform layer stack in groups) "
+    "are not ported yet: they belong to the Lumina2 train step, with the (B, H, S, D) "
+    "flash attention backward"
+)
+
+
 def set_remat_group(group: int) -> None:
     """Checkpointing uniform layer stacks in groups of layers (the DiT
     families' knob; the SDXL UNet has no caller)."""
-    raise NotImplementedError("set_remat_group / run_remat_stack are not ported")
+    raise NotImplementedError(_REMAT_STACK_NOT_PORTED)
 
 
 def run_remat_stack(apply_fn, layers, params_list, carry, enabled: bool):
-    raise NotImplementedError("set_remat_group / run_remat_stack are not ported")
+    raise NotImplementedError(_REMAT_STACK_NOT_PORTED)
 
 
 # -- adapters -----------------------------------------------------------------
@@ -519,6 +526,28 @@ class LayerNorm(nn.Module):
         return layer_norm_reference(x, self.weight, self.bias, self.eps)
 
 
+class RMSNorm(nn.Module):
+    """RMSNorm over the last axis, computed in fp32, with an optional
+    scale (key ``weight``)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, elementwise_affine: bool = True):
+        super().__init__()
+        self.dim = dim
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(dim)) if elementwise_affine else None
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        if self.weight is not None:
+            nn.init.ones_(self.weight)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x.float()
+        h = h * torch.rsqrt(h.square().mean(dim=-1, keepdim=True) + self.eps)
+        if self.weight is not None:
+            h = h * self.weight.float()
+        return h.to(x.dtype)
+
+
 class GroupNorm(nn.Module):
     """GroupNorm over NHWC activations (statistics in fp32)."""
 
@@ -558,7 +587,7 @@ class Embedding(nn.Module):
         return F.embedding(ids, self.weight)
 
 
-_LEAVES = (Linear, Conv2d, LayerNorm, GroupNorm, Embedding)
+_LEAVES = (Linear, Conv2d, LayerNorm, RMSNorm, GroupNorm, Embedding)
 
 
 @torch.no_grad()

@@ -9,12 +9,16 @@ Which path runs:
   kernel (``ops/flash_attention.py``) on a flash backend when there is no
   mask, no causal masking, sk >= 256 and a head dim the kernel takes; the
   SDXL UNet self-attentions are such calls. Everything else splits the
-  heads with views and runs the plain formula.
-- :func:`scaled_dot_product_attention` runs the plain formula for every
-  backend. The JAX package's BHSD and short-key Pallas kernels are not
-  ported yet (ROADMAP.md), and on the SDXL generate path every call here
-  has sk < 256 (77-key cross attention, CLIP) or the "xla" backend (VAE),
-  where the JAX package runs plain XLA too.
+  heads with views and goes through :func:`scaled_dot_product_attention`.
+- :func:`scaled_dot_product_attention` sends a flash backend to
+  ``ops.flash_attention.flash_attention``: on the card, sk >= 256 with no
+  mask or a boolean key mask goes to the key-masked (B, H, S, D) kernel
+  (the Lumina2 NextDiT blocks are such calls); shorter keys (77-key cross
+  attention, CLIP), other masks and CPU tensors take the plain formula,
+  as does the "xla" backend (VAE). k and v may carry fewer heads than q
+  (grouped-query attention): the kernel maps the heads itself, the plain
+  formula repeats them. The JAX package's short-key Pallas kernel is not
+  ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from typing import Literal, Optional
 
 import torch
 
-from .flash_attention import flash_attention_bshd, supports
+from .flash_attention import _expand_kv_heads, flash_attention, flash_attention_bshd, supports
 
 AttentionImplementation = Literal[
     "xla",
@@ -79,11 +83,15 @@ def scaled_dot_product_attention(
     is_causal: bool = False,
 ) -> torch.Tensor:
     """Attention over (B, H, S, D). ``mask``: bool (True = attend) or
-    additive float, broadcastable to (B, H, Sq, Sk)."""
+    additive float, broadcastable to (B, H, Sq, Sk). k and v have q's
+    head count or a divisor of it."""
     _check_backend(backend)
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    return plain_attention(q, k, v, mask, scale, is_causal)
+    if backend in _FLASH_BACKENDS:
+        return flash_attention(q, k, v, mask=mask, scale=scale, is_causal=is_causal)
+    h = q.shape[1]
+    return plain_attention(q, _expand_kv_heads(k, h), _expand_kv_heads(v, h), mask, scale, is_causal)
 
 
 def attention_heads_packed(
@@ -116,5 +124,8 @@ def attention_heads_packed(
     def heads(t):
         return t.reshape(b, t.shape[1], num_heads, d).transpose(1, 2)
 
-    out = plain_attention(heads(q), heads(k), heads(v), mask, scale, is_causal)
+    out = scaled_dot_product_attention(
+        heads(q), heads(k), heads(v), mask=mask, scale=scale, backend=backend,
+        is_causal=is_causal,
+    )
     return out.transpose(1, 2).reshape(b, s, inner)

@@ -1,13 +1,20 @@
-"""BSHD flash attention, forward and backward: wrappers and plain versions.
+"""Flash attention: wrappers, plain versions and the (B, H, S, D) routing.
 
-Counterpart of ``vision_ft_tpu/ops/pallas/flash_attention.py::
-flash_attention_bshd`` and its custom VJP. The kernels are CUDA C++,
-``csrc/flash_attention_bshd.cu`` (forward) and
-``csrc/flash_attention_bshd_bwd.cu`` (backward: a dk/dv kernel and a dq
-kernel), built for ``sm_90a`` by ``ops/_build.py`` and bound with
-``ctypes``.
+Counterpart of ``vision_ft_tpu/ops/pallas/flash_attention.py`` (the
+kernels' entries) and ``vision_ft_tpu/ops/flash_attention.py`` (the
+routing). The kernels are CUDA C++, built for ``sm_90a`` by
+``ops/_build.py`` and bound with ``ctypes``:
 
-Layout: q (B, Sq, H*D), k and v (B, Sk, H*D), heads packed along the
+- ``csrc/flash_attention_bshd.cu`` (forward) and
+  ``csrc/flash_attention_bshd_bwd.cu`` (backward: a dk/dv kernel and a dq
+  kernel) over heads-packed tensors, head dims 64 and 128, no mask: the
+  JAX ``flash_attention_bshd`` and its custom VJP;
+- ``csrc/flash_attention_masked.cu``, the forward over (B, H, S, D) with an
+  optional (B, Sk) key mask, causal masking and grouped-query heads, head
+  dims 64, 96 and 128: the JAX ``flash_attention_tpu`` forward. Its
+  backward is not ported yet.
+
+BSHD layout: q (B, Sq, H*D), k and v (B, Sk, H*D), heads packed along the
 last axis (head h is columns [h*D, (h+1)*D)); the output has q's shape
 and dtype; lse is the fp32 natural log-sum-exp of the scaled scores,
 (B, H, Sq).
@@ -31,6 +38,10 @@ and dtype; lse is the fp32 natural log-sum-exp of the scaled scores,
   remat_layer``) uses to keep (out, lse) of every call in a region, so
   that the recomputation before the backward does not launch the forward
   kernel again.
+- :func:`flash_attention_masked` is the key-masked (B, H, S, D) forward
+  kernel's wrapper and :func:`flash_attention_reference` its plain version;
+  :func:`flash_attention` is the routing between that kernel and the plain
+  formula of ``ops/attention.py``.
 """
 
 from __future__ import annotations
@@ -43,7 +54,10 @@ import torch
 
 from . import _build
 
-SUPPORTED_HEAD_DIMS = (64, 128)
+# head dims each kernel is built for
+BSHD_HEAD_DIMS = (64, 128)        # forward and backward over heads-packed tensors
+MASKED_HEAD_DIMS = (64, 96, 128)  # key-masked forward over (B, H, S, D)
+NEG_INF = -1e30  # the finite score of a masked key, as in the JAX package's kernel
 
 
 def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -134,8 +148,8 @@ def _backward_kernels():
 
 
 def supports(num_heads: int, head_dim: int) -> bool:
-    """Whether the kernels take this head layout."""
-    return num_heads > 0 and head_dim in SUPPORTED_HEAD_DIMS
+    """Whether the BSHD kernels (forward and backward) take this head layout."""
+    return num_heads > 0 and head_dim in BSHD_HEAD_DIMS
 
 
 def _check(q, k, v, num_heads, **more) -> int:
@@ -144,7 +158,7 @@ def _check(q, k, v, num_heads, **more) -> int:
     b, sq, inner = q.shape
     if inner % num_heads or not supports(num_heads, inner // num_heads):
         raise ValueError(
-            f"flash_attention_bshd kernel takes head dims {SUPPORTED_HEAD_DIMS}, "
+            f"flash_attention_bshd kernel takes head dims {BSHD_HEAD_DIMS}, "
             f"got {inner} columns over {num_heads} heads"
         )
     for name, t in (("q", q), ("k", k), ("v", v), *more.items()):
@@ -351,3 +365,174 @@ def flash_attention_bshd(
 
 
 flash_attention_bshd.launches = 0
+
+
+# -- key-masked forward over (B, H, S, D) ----------------------------------------
+
+
+def _expand_kv_heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, Hkv, S, D) -> (B, H, S, D): kv head j serves query heads
+    [j * r, (j + 1) * r), as ``repeat`` along the head axis does."""
+    if t.shape[1] == num_heads:
+        return t
+    if num_heads % t.shape[1]:
+        raise ValueError(f"{t.shape[1]} k/v heads do not divide {num_heads} query heads")
+    return t.repeat_interleave(num_heads // t.shape[1], dim=1)
+
+
+def flash_attention_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None, is_causal: bool = False, return_lse: bool = False,
+):
+    """The plain version of :func:`flash_attention_masked`, with the
+    kernel's masked-row rule: a masked or causally excluded key scores a
+    finite -1e30, so a query row with no key left gives the mean of v (and
+    an lse of about -1e30), not 0."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    scale = d**-0.5 if scale is None else scale
+    k, v = _expand_kv_heads(k, h), _expand_kv_heads(v, h)
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if key_mask is not None:
+        scores = scores.masked_fill(~key_mask.bool().reshape(b, 1, 1, sk), NEG_INF)
+    if is_causal:
+        keep = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~keep, NEG_INF)
+    out = torch.matmul(torch.softmax(scores, dim=-1).to(v.dtype), v)
+    if not return_lse:
+        return out
+    return out, torch.logsumexp(scores, dim=-1)
+
+
+@functools.cache
+def _masked_kernel():
+    fn = _build.cuda_library("flash_attention_masked").flash_attention_masked_fwd
+    fn.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
+        + [ctypes.c_float, ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_masked(q, k, v, key_mask) -> None:
+    """Raise on what the key-masked kernel does not take."""
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError("q, k and v must be (B, H, S, D)")
+    b, h, sq, d = q.shape
+    if d not in MASKED_HEAD_DIMS:
+        raise ValueError(
+            f"flash_attention_masked kernel takes head dims {MASKED_HEAD_DIMS}, got {d}"
+        )
+    hk, sk = k.shape[1], k.shape[2]
+    if k.shape != (b, hk, sk, d) or v.shape != k.shape or hk < 1 or h % hk:
+        raise ValueError(
+            f"k and v must be (B, Hkv, Sk, D) with Hkv dividing {h}, got {tuple(k.shape)}, "
+            f"{tuple(v.shape)} for q {tuple(q.shape)}"
+        )
+    if min(sq, sk) < 1 or max(sq, sk) >= 2**31 or b >= 2**16 or h >= 2**16:
+        raise ValueError("shape beyond the kernel's grid or int32 row index")
+    if key_mask is not None and (
+        key_mask.shape != (b, sk) or key_mask.dtype != torch.bool or key_mask.device != q.device
+    ):
+        raise ValueError(f"key_mask must be bool (B, Sk) = {(b, sk)} on {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda or t.device != q.device or t.dtype != torch.bfloat16:
+            raise ValueError(f"{name} must be bf16 on {q.device}, got {t.dtype} on {t.device}")
+        # 16-byte vector loads: unit last stride, 8-element batch, head and row strides
+        if t.stride(3) != 1 or any(t.stride(i) % 8 for i in range(3)) or t.data_ptr() % 16:
+            raise ValueError(f"{name} needs a contiguous last axis and 16-byte aligned rows")
+
+
+def _masked_forward(q, k, v, key_mask, scale, is_causal, return_lse):
+    """The kernel for CUDA tensors, else the plain version."""
+    if not q.is_cuda:
+        return flash_attention_reference(q, k, v, key_mask, scale, is_causal, return_lse)
+    _check_masked(q, k, v, key_mask)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention_masked is forward only: the (B, H, S, D) backward kernels "
+            "(_bwd_dq_kernel, _bwd_dkv_kernel of the JAX package) are ported with the "
+            "Lumina2 train step"
+        )
+    b, h, sq, d = q.shape
+    scale = d**-0.5 if scale is None else scale
+    mask = None if key_mask is None else key_mask.contiguous()
+    out = torch.empty_like(q)  # q's strides where q is dense: (B, S, H, D) memory stays so
+    lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32) if return_lse else None
+    with torch.cuda.device(q.device):
+        err = _masked_kernel()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            b, sq, k.shape[2], h, k.shape[1], d, int(is_causal),
+            *(t.stride(i) for t in (q, k, v, out) for i in range(3)),
+            float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_masked launch failed: CUDA error {err}")
+    flash_attention_masked.launches += 1
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_masked(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None, is_causal: bool = False, return_lse: bool = False,
+):
+    """softmax(q k^T * scale + mask [causal]) v over q (B, H, Sq, D) and
+    k, v (B, Hkv, Sk, D), Hkv a divisor of H (query head h reads kv head
+    h // (H // Hkv); nothing is repeated in memory). ``key_mask``: bool
+    (B, Sk), True = attend. Any batch, head and row strides with a
+    contiguous last axis are read in place; the output has q's shape and,
+    where q is dense, q's strides. With ``return_lse`` also the fp32
+    log-sum-exp of the scores, (B, H, Sq).
+
+    Masked-row rule (the kernel's, not ``plain_attention``'s): masked keys
+    score a finite -1e30, so a query row with every key masked gives the
+    mean of v. Causal masking is key position <= query position with no
+    Sk - Sq offset, so it is taken at sq == sk only. Forward only: CUDA
+    tensors that want a gradient raise ``NotImplementedError`` until the
+    backward kernels are ported. Other head dims than ``MASKED_HEAD_DIMS``,
+    other dtypes than bf16 and unaligned rows raise ``ValueError``."""
+    if is_causal and q.shape[2] != k.shape[2]:
+        raise ValueError(f"causal attention needs sq == sk here, got {q.shape[2]} and {k.shape[2]}")
+    return _masked_forward(q, k, v, key_mask, scale, is_causal, return_lse)
+
+
+flash_attention_masked.launches = 0
+
+
+def _as_key_mask(mask: Optional[torch.Tensor], b: int, sk: int) -> Optional[torch.Tensor]:
+    """Reduce a mask the kernel takes to (B, Sk) bool; None for any other."""
+    if mask is None or mask.dtype != torch.bool:
+        return None  # additive float masks take the plain formula
+    shape = tuple(mask.shape)
+    if shape == (b, sk) or shape == (sk,):
+        return mask.reshape(-1, sk).expand(b, sk)
+    if len(shape) == 4 and shape[0] in (1, b) and shape[1] == 1 and shape[2] == 1:
+        return mask.reshape(shape[0], sk).expand(b, sk)
+    return None
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None, is_causal: bool = False,
+) -> torch.Tensor:
+    """Flash attention over (B, H, S, D), k and v with H heads or a divisor
+    of H. The JAX package's rule with ``is_cuda`` for its TPU check: on
+    the card, sk >= 256 and no mask or a boolean (B, Sk) / (B, 1, 1, Sk) key
+    mask go to the key-masked kernel, which raises on what it does not
+    take (see :func:`flash_attention_masked`); every other call, and every
+    CPU call, takes ``ops.attention.plain_attention``."""
+    from .attention import plain_attention
+
+    b, h, _, d = q.shape
+    sk = k.shape[2]
+    scale = d**-0.5 if scale is None else scale
+    if q.is_cuda and sk >= 256:
+        key_mask = _as_key_mask(mask, b, sk)
+        if mask is None or key_mask is not None:
+            return flash_attention_masked(q, k, v, key_mask, scale, is_causal)
+    return plain_attention(
+        q, _expand_kv_heads(k, h), _expand_kv_heads(v, h), mask, scale, is_causal
+    )

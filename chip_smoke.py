@@ -7,7 +7,8 @@ With --profile, phases 6 and 8 also trace two train steps with
 torch.profiler (device activity only) and print the device time of a step
 by kind of kernel and the share of an untraced step in which the card is
 idle, phase 8 the host's cost of one Linear call, dense and on each NF4
-route, and phase 12 the same breakdown of one Lumina2 denoise step.
+route, phase 12 the same breakdown of one Lumina2 denoise step and phase
+14 of one Lumina2 train step.
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -61,6 +62,21 @@ Phases, each printing its own lines; any failure exits non-zero:
     counts of kernels E and F against the module tree; a depth-reduced
     request with the kernels against the same request on their plain
     versions.
+13. kernel G, the key-masked flash attention backward (a dk/dv kernel that
+    sums over the query heads of each kv head, and a dq kernel), against the
+    plain backward at the Lumina2 train step's shapes (batch 4: the main
+    stack's 4352 with the caption hole, the noise refiner's 4096, the
+    context refiner's 256, the low-res main stack's 512), causal, head dims
+    64 and 128, Sq != Sk; reruns bit-identical; SDPA's backward beside it.
+14. Lumina2 LoRA train steps at full width and depth on the same model:
+    rank-16 LoRA on qkv, out, w1, w2, w3, gradient checkpointing, AdamW
+    with clipping, batch 4 of 1024 px images and four captions of different
+    lengths through the whole loss_fn (Gemma-2 and VAE encode every step,
+    uniform timesteps, the low-res loss). Checks the losses, the launch
+    counts in both checkpointing modes, the adapters, the frozen base, a
+    second seeded run, gradients bit-identical across remat modes and
+    groups, and a depth-reduced step against the plain versions; first, one
+    step with LoRA on the attention only, where kernel F runs forward.
 
 Every kernel's record carries its time, its plain version's, the bound
 (the larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s bf16, or
@@ -147,6 +163,24 @@ FUSED_MLP_TOL = 2e-2
 # The full request with the fused feed-forward kernel against the same
 # request with it off is held to the same limit.
 LUMINA_REQUEST_TOL = 3e-2
+# kernel G and the plain backward round P and dS to bf16 at the same points
+# and accumulate in fp32; they differ in the exp (exp2 with log2 e folded
+# in), in summation order (dk and dv also sum the 3 query heads of a kv
+# head) and in each output's bf16 rounding: kernel C's limit, relative to
+# the output's largest value
+MASKED_BWD_TOL = 2e-2
+MASKED_BWD_SHAPES = [  # (B, H, Hkv, Sq, Sk, D, mask, causal); the first is the main stack's
+    (4, 24, 8, 4352, 4352, 96, "hole", False),  # the train step at 1024 px: [caption 256 | image 4096]
+    (4, 24, 8, 4096, 4096, 96, "ones", False),  # noise refiner
+    (4, 24, 8, 256, 256, 96, "hole", False),    # context refiner
+    (4, 24, 8, 512, 512, 96, "hole", False),    # low-res main stack: [caption 256 | image 256]
+    (2, 24, 8, 4352, 4352, 96, "hole", True),   # causal + hole
+    (2, 10, 10, 1000, 1000, 64, None, False),   # D 64, H = Hkv
+    (1, 8, 4, 1024, 1024, 128, "hole", False),  # D 128
+    (1, 24, 8, 300, 1000, 96, "hole", False),   # ragged, Sq != Sk
+]
+LUMINA_LORA_TARGETS = ["qkv", ".out", "w1", "w2", "w3"]
+LUMINA_TRAIN_WARMUP, LUMINA_TRAIN_TIMED = 2, 5
 MASKED_ATTN_SHAPES = [  # (B, H, Hkv, Sq, Sk, D, mask, causal); the first is the main stack's
     (2, 24, 8, 4352, 4352, 96, "hole", False),  # 1024 px, CFG: [caption 256 | image 4096]
     (2, 24, 8, 4096, 4096, 96, "ones", False),  # noise refiner
@@ -168,7 +202,8 @@ FUSED_MLP_SHAPES = [  # (M, C, inner, act, biases); the first is the main stack'
     (1001, 1280, 5120, "gelu_tanh", True),
 ]
 GEGLU_SHAPE = (16384, 640, 2560)  # SDXL's first stage at 1024 px, batch 4
-LUMINA_KERNELS = ("flash_attention_masked", "gated_mlp")
+LUMINA_KERNELS = ("flash_attention_masked", "gated_mlp", "flash_attention_masked_dkv",
+                  "flash_attention_masked_dq")
 STEPS = 8
 TRAIN_BATCH, TRAIN_RES, TRAIN_WARMUP, TRAIN_TIMED = 4, 1024, 2, 3
 LORA_TARGETS = ["attn1", "attn2", ".ff."]
@@ -264,9 +299,10 @@ def plain_versions():
 
     saved = (flash._forward, flash.flash_attention_bshd_backward, ln._forward)
     saved_nf4 = (nf4.nf4_matmul_forward, nf4.nf4_matmul_dx)
-    saved_lumina = (flash._masked_forward, mlp._forward)
+    saved_lumina = (flash._masked_forward, mlp._forward, flash.flash_attention_masked_backward)
     flash._forward, flash.flash_attention_bshd_backward = forward, backward
     flash._masked_forward, mlp._forward = flash.flash_attention_reference, mlp_forward
+    flash.flash_attention_masked_backward = flash.flash_attention_masked_backward_reference
     ln._forward = ln.layer_norm_reference
     nf4.nf4_matmul_forward, nf4.nf4_matmul_dx = nf4.nf4_matmul_reference, nf4.nf4_matmul_dx_reference
     try:
@@ -274,11 +310,12 @@ def plain_versions():
     finally:
         flash._forward, flash.flash_attention_bshd_backward, ln._forward = saved
         nf4.nf4_matmul_forward, nf4.nf4_matmul_dx = saved_nf4
-        flash._masked_forward, mlp._forward = saved_lumina
+        flash._masked_forward, mlp._forward, flash.flash_attention_masked_backward = saved_lumina
 
 
 # kernel-name fragments -> kind, first match wins (torch.profiler's names)
 KERNEL_KINDS = [
+    ("flash_bwd_dkv_masked", "kernel G dk/dv"), ("flash_bwd_dq_masked", "kernel G dq"),
     ("flash_fwd_masked", "kernel E"), ("fused_gated_mlp", "kernel F"),
     ("flash_bwd_dkv_bshd", "kernel C dk/dv"), ("flash_bwd_dq_bshd", "kernel C dq"),
     ("flash_fwd_bshd", "kernel B"), ("layer_norm_fwd", "kernel A"),
@@ -412,7 +449,9 @@ def main() -> None:
         flash_attention_bshd, flash_attention_bshd_backward,
         flash_attention_bshd_backward_reference, flash_attention_bshd_delta,
         flash_attention_bshd_dkv, flash_attention_bshd_dq, flash_attention_bshd_reference,
-        flash_attention_masked, flash_attention_reference,
+        flash_attention_masked, flash_attention_masked_backward,
+        flash_attention_masked_backward_reference, flash_attention_masked_delta,
+        flash_attention_masked_dkv, flash_attention_masked_dq, flash_attention_reference,
     )
     from vision_ft_tpu_torch.ops.fused_mlp import (
         gated_mlp, gated_mlp_reference, geglu_mlp, set_fused_ff,
@@ -432,8 +471,10 @@ def main() -> None:
         "layer_norm": layer_norm,
         "flash_attention_masked": flash_attention_masked,
         "gated_mlp": gated_mlp,
+        "flash_attention_masked_dkv": flash_attention_masked_dkv,
+        "flash_attention_masked_dq": flash_attention_masked_dq,
     }
-    no_lumina = {name: 0 for name in LUMINA_KERNELS}  # the SDXL paths launch neither
+    no_lumina = {name: 0 for name in LUMINA_KERNELS}  # the SDXL paths launch none of them
 
     def reset_launches():
         for wrapper in wrappers.values():
@@ -445,7 +486,7 @@ def main() -> None:
     phase("1 build")
     start = time.perf_counter()
     cuda_sources = ["flash_attention_bshd", "flash_attention_bshd_bwd", "nf4_matmul",
-                    "flash_attention_masked", "fused_mlp"]
+                    "flash_attention_masked", "fused_mlp", "flash_attention_masked_bwd"]
     _build.build_cuda_libraries(cuda_sources)
     nvcc_s = time.perf_counter() - start
     start = time.perf_counter()
@@ -1417,11 +1458,269 @@ def main() -> None:
     if request_err > LUMINA_REQUEST_TOL:
         raise AssertionError("the kernel request and the plain request disagree")
 
+    phase("13 kernel G: key-masked flash attention backward (dk/dv kernel, dq kernel) vs plain (bf16)")
+    errs, rows = {"dkv": [], "dq": []}, {"dkv": [], "dq": []}
+    for b, h, hk, sq, sk, d, kind, causal in MASKED_BWD_SHAPES:
+        # (B, S, heads, D) memory seen as (B, H, S, D), v a slice of a wider buffer, as
+        # the NextDiT's fused qkv projection hands them over
+        q = torch.randn(b, sq, h, d, device=device, generator=gen).bfloat16().transpose(1, 2)
+        k = torch.randn(b, sk, hk, d, device=device, generator=gen).bfloat16().transpose(1, 2)
+        wide = torch.randn(b, sk, 2 * hk * d, device=device, generator=gen).bfloat16()
+        v = wide[..., hk * d:].unflatten(-1, (hk, d)).transpose(1, 2)
+        dout = torch.randn(b, sq, h, d, device=device, generator=gen).bfloat16().transpose(1, 2)
+        mask = attention_mask(kind, b, sk)
+        what = f"attention backward B={b} H={h}/{hk} Sq={sq} Sk={sk} D={d} mask={kind} causal={causal}"
+        out, lse = flash_attention_masked(q, k, v, mask, None, causal, return_lse=True)
+        delta = flash_attention_masked_delta(out, dout)
+        dk, dv = flash_attention_masked_dkv(q, k, v, mask, dout, lse, delta, None, causal)
+        dq = flash_attention_masked_dq(q, k, v, mask, dout, lse, delta, None, causal)
+        rerun = flash_attention_masked_backward(q, k, v, mask, out, lse, dout, None, causal)
+        if not all(torch.equal(x, y) for x, y in zip((dq, dk, dv), rerun)):
+            raise AssertionError(f"{what}: two launches differ")
+        refs = flash_attention_masked_backward_reference(q, k, v, mask, out, lse, dout, None, causal)
+        err = {name: compare(f"{what} {name}", lambda: got, lambda: ref, MASKED_BWD_TOL)
+               for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs)}
+        del refs, rerun, dq, dk, dv
+        dkv_ms = cuda_ms(lambda: flash_attention_masked_dkv(q, k, v, mask, dout, lse, delta, None, causal))
+        dq_ms = cuda_ms(lambda: flash_attention_masked_dq(q, k, v, mask, dout, lse, delta, None, causal))
+        whole_ms = cuda_ms(
+            lambda: flash_attention_masked_backward(q, k, v, mask, out, lse, dout, None, causal))
+        plain_ms = cuda_ms(
+            lambda: flash_attention_masked_backward_reference(q, k, v, mask, out, lse, dout, None, causal),
+            warmup=1, iters=3)
+        # yardstick only: PyTorch's own attention with the mask and grouped heads,
+        # its backward alone (dq, dk and dv in one call)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        sdpa_out = sdpa_call(*leaves, mask, causal)()
+        library_ms = cuda_ms(lambda: torch.autograd.grad(sdpa_out, leaves, dout, retain_graph=True))
+        del sdpa_out, leaves
+        keys = float(b * sk if mask is None else mask.sum().item())
+        pairs = keys * sq * (0.5 + 0.5 / sq if causal else 1.0)
+        qo_bytes, kv_bytes = 2 * b * h * sq * d, 2 * b * hk * sk * d
+        read = 2 * qo_bytes + 2 * kv_bytes + 2 * 4 * b * h * sq + (0 if mask is None else b * sk)
+        # dk/dv: S^T, dP^T, dV, dK; dq: S, dP, dQ (2 operations a multiply-add)
+        dkv_bound = bound(read + 2 * kv_bytes, 8 * h * d * pairs)
+        dq_bound = bound(read + qo_bytes, 6 * h * d * pairs)
+        print(f"{what}: " + ", ".join(f"{n} max abs err {a:.3e} rel {r:.3e}" for n, (a, r) in err.items())
+              + f" (tol {MASKED_BWD_TOL}), reruns bit-identical; dk/dv kernel {dkv_ms:.3f} ms "
+              f"({8 * h * d * pairs / dkv_ms / 1e9:.1f} TFLOP/s), dq kernel {dq_ms:.3f} ms "
+              f"({6 * h * d * pairs / dq_ms / 1e9:.1f} TFLOP/s), whole backward {whole_ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, SDPA backward {library_ms:.3f} ms; bounds dk/dv "
+              f"{dkv_bound[0]:.4f} ms ({dkv_bound[1]}), dq {dq_bound[0]:.4f} ms ({dq_bound[1]})")
+        errs["dkv"].append(max(err["dk"][0], err["dv"][0]))
+        errs["dq"].append(err["dq"][0])
+        # the plain backward and SDPA's backward compute dq, dk and dv in one
+        # pass: their times stand beside both kernels
+        rows["dkv"].append(dict(ms=dkv_ms, plain_ms=plain_ms, bound_ms=dkv_bound[0],
+                                bound_by=dkv_bound[1], library_ms=library_ms))
+        rows["dq"].append(dict(ms=dq_ms, plain_ms=plain_ms, bound_ms=dq_bound[0],
+                               bound_by=dq_bound[1], library_ms=library_ms))
+        del q, k, v, wide, dout, out, lse, delta
+    for which, line in (("dkv", 262), ("dq", 215)):
+        records[f"flash_attention_masked_{which}"] = dict(
+            route="cuda", source="vision_ft_tpu_torch/csrc/flash_attention_masked_bwd.cu",
+            replaces=f"vision_ft_tpu/ops/pallas/flash_attention.py:{line}",
+            max_abs_err=max(errs[which]), **rows[which][0],
+        )
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(f"14 Lumina2 LoRA train steps at full width and depth, bf16, batch {TRAIN_BATCH} at "
+          f"{TRAIN_RES} px")
+    from vision_ft_tpu_torch.models.lumina2 import train_text_to_image as lumina_train
+    from vision_ft_tpu_torch.nn import set_remat_group
+
+    lumina_lora = peft.LoRAConfig(rank=16, alpha=8.0, dtype="bfloat16")
+    lumina.denoiser.set_gradient_checkpointing(True)
+    lumina_optimizer = get_optimizer(
+        "torch.optim.AdamW", get_schedule("constant", 1e-4, 1000), max_grad_norm=1.0
+    )
+    lumina_loss_fn = functools.partial(lumina_train.loss_fn, lumina)
+    lumina_step = make_train_step(lumina_loss_fn, lumina_optimizer)
+    captions = ["a cat", "a photo of a red car on the road",
+                "a house in the mountains in a photo of a cat sitting on the sofa",
+                "blurry photo of the sofa"]
+
+    def lumina_batch(batch_size, seed):
+        g = torch.Generator(device=device).manual_seed(seed)
+        ids, mask = lumina.text_encoder.tokenize(captions[:batch_size], 256)
+        return {
+            "pixel_values": torch.rand(batch_size, TRAIN_RES, TRAIN_RES, 3, device=device,
+                                       generator=g) * 2 - 1,
+            "input_ids": torch.from_numpy(ids).to(device),
+            "attention_mask": torch.from_numpy(mask).to(device),
+        }
+
+    def lumina_state():
+        """Adapters re-made from their seed (zero delta), a new optimizer."""
+        peft.replace_to_peft_layer(lumina.denoiser, LUMINA_LORA_TARGETS, [], lumina_lora,
+                                   torch.Generator(device=device).manual_seed(1))
+        trainable, frozen = peft.split_peft_params(lumina.denoiser)
+        return init_train_state(lumina_optimizer, trainable), frozen
+
+    def lumina_steps(state, count, seed, batch):
+        g = torch.Generator(device=device).manual_seed(seed)
+        out = []
+        for _ in range(count):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            state, metrics = lumina_step(state, batch, g)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - start, metrics["train/loss"].item(),
+                        metrics["train/grad_norm"].item(), metrics["train/lowres_loss"].item()))
+        return state, out
+
+    train_batch = lumina_batch(TRAIN_BATCH, seed=31)
+    print(f"captions of {train_batch['attention_mask'].sum(dim=1).tolist()} tokens of 256")
+    attentions = len(lumina.denoiser.layers) + 2 * len(lumina.denoiser.noise_refiner)
+
+    # LoRA on the attention only: the feed-forwards keep kernel F (forward, in
+    # the first pass and again in the recomputation; its backward is plain)
+    peft.replace_to_peft_layer(lumina.denoiser, ["attention"], [], lumina_lora,
+                               torch.Generator(device=device).manual_seed(2))
+    state = init_train_state(lumina_optimizer, peft.split_peft_params(lumina.denoiser)[0])
+    reset_launches()
+    state, attention_only = lumina_steps(state, 1, 40, train_batch)
+    launches = read_launches()
+    want = {name: 0 for name in wrappers}
+    want.update({"flash_attention_masked": 2 * attentions, "flash_attention_masked_dkv": 2 * attentions,
+                 "flash_attention_masked_dq": 2 * attentions, "gated_mlp": 4 * attentions})
+    print(f"one step with LoRA on the attention only ({len(state.trainable) // 2} layers): loss "
+          f"{attention_only[0][1]:.6f}, {attention_only[0][0] * 1e3:.1f} ms (cold); launches "
+          f"{launches}, expected {want}")
+    if not np.isfinite(attention_only[0][1]) or launches != want:
+        raise AssertionError("the attention-only LoRA step: loss not finite or launches off")
+
+    state, frozen = lumina_state()
+    n_lora = sum(p.numel() for p in state.trainable.values())
+    adapted = len(state.trainable) // 2
+    base_before = {k: v.detach().cpu() for k, v in frozen.items()}  # on the host: not in the peak
+    print(f"LoRA rank {lumina_lora.rank} alpha {lumina_lora.alpha} on {LUMINA_LORA_TARGETS}: "
+          f"{adapted} layers, {n_lora / 1e6:.1f} M trainable parameters; base frozen, "
+          f"{sum(v.numel() for v in frozen.values()) / 1e9:.3f} B")
+    if adapted != 5 * attentions:
+        raise AssertionError(f"LoRA found {adapted} layers, not 5 in each of {attentions} blocks")
+
+    total = LUMINA_TRAIN_WARMUP + LUMINA_TRAIN_TIMED
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    state, lumina_run = lumina_steps(state, total, 41, train_batch)
+    lumina_train_launches = read_launches()
+    lumina_peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, (seconds, loss, norm, low) in enumerate(lumina_run):
+        print(f"step {i + 1}: loss {loss:.6f} (low-res {low:.6f}) grad_norm {norm:.6f} "
+              f"{seconds * 1e3:.1f} ms" + (" (warm-up)" if i < LUMINA_TRAIN_WARMUP else ""))
+        if not (np.isfinite(loss) and np.isfinite(norm) and norm > 0):
+            raise AssertionError(f"Lumina2 train step {i + 1}: loss {loss}, grad_norm {norm}")
+    lumina_step_ms = statistics.median(t for t, *_ in lumina_run[LUMINA_TRAIN_WARMUP:]) * 1e3
+    print(f"Lumina2 train step (remat saves: kernel): {lumina_step_ms:.1f} ms/step, "
+          f"{TRAIN_BATCH / lumina_step_ms * 1e3:.3f} images/s, peak {lumina_peak:.2f} GiB")
+    if not all(p.any() for k, p in state.trainable.items() if k.endswith("lora_up.weight")):
+        raise AssertionError("a lora_up is still zero after the Lumina2 train steps")
+    # every attention of the high-res and the low-res pass passes the sk >= 256
+    # gate and wants gradients; the checkpoint keeps (out, lse), so kernel E runs
+    # once; kernel F stays off (LoRA on w1, w2, w3)
+    want = {name: 0 for name in wrappers}
+    want.update({"flash_attention_masked": 2 * attentions * total,
+                 "flash_attention_masked_dkv": 2 * attentions * total,
+                 "flash_attention_masked_dq": 2 * attentions * total})
+    print(f"launches over {total} steps {lumina_train_launches}, expected {want}")
+    if lumina_train_launches != want:
+        raise AssertionError(f"Lumina2 train launch counts {lumina_train_launches} != {want}")
+    if options.profile:
+        profile_steps(lambda: lumina_steps(state, 1, 44, train_batch), lumina_step_ms,
+                      "Lumina2 train step")
+
+    set_remat_saves("none")
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        state, none_run = lumina_steps(state, 1, 42, train_batch)
+    finally:
+        set_remat_saves("kernel")
+    none_launches = read_launches()
+    want_none = {**{k: v // total for k, v in want.items()},
+                 "flash_attention_masked": 4 * attentions}
+    print(f"Lumina2 train step (remat saves: none): {none_run[0][0] * 1e3:.1f} ms, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {none_launches}, "
+          f"expected {want_none}")
+    if none_launches != want_none:
+        raise AssertionError(f"Lumina2 launch counts (none) {none_launches} != {want_none}")
+
+    changed = [k for k, v in frozen.items() if not torch.equal(v.cpu(), base_before[k])]
+    with_grad = [k for k, v in frozen.items() if v.grad is not None or v.requires_grad]
+    others = [p for part in (lumina.text_encoder, lumina.vae) for p in part.parameters()]
+    if changed or with_grad or any(p.grad is not None for p in others):
+        raise AssertionError(f"frozen tensors changed {changed[:3]} or got a gradient {with_grad[:3]}")
+    print(f"{len(frozen)} base tensors bit-identical to before, none with a gradient; Gemma-2 and "
+          f"the VAE without gradients")
+    del base_before
+
+    state, second = lumina_state()
+    state, second_run = lumina_steps(state, 2, 41, train_batch)
+    if not all(a[1:] == b[1:] for a, b in zip(lumina_run, second_run)):
+        raise AssertionError("two seeded runs of the Lumina2 train steps differ")
+    print("second seeded run: losses and gradient norms of the first 2 steps bit-identical")
+
+    # the gradients of one loss, in both remat modes and in groups of 1 and 2
+    params = list(state.trainable.values())
+
+    def lumina_grads(batch, seed=43):
+        loss, _ = lumina_loss_fn(batch, torch.Generator(device=device).manual_seed(seed))
+        return loss.item(), torch.autograd.grad(loss, params)
+
+    _, want_grads = lumina_grads(train_batch)
+    for group, mode in ((1, "none"), (2, "kernel")):
+        set_remat_group(group)
+        set_remat_saves(mode)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            _, got = lumina_grads(train_batch)
+        finally:
+            set_remat_group(1)
+            set_remat_saves("kernel")
+        if not all(torch.equal(a, b) for a, b in zip(got, want_grads)):
+            raise AssertionError(f"gradients with remat group {group}, saves {mode} differ")
+        print(f"gradients with remat group {group}, saves {mode}: bit-identical to group 1, saves "
+              f"kernel (peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+    del got, want_grads
+
+    # a depth-reduced step (the first 4 main blocks and both refiners) with the
+    # kernels against the same step on their plain versions, swapped in by this
+    # script's hook: same adapters, batch, draws
+    small = lumina_batch(2, seed=32)
+    full_layers = lumina.denoiser.layers
+    lumina.denoiser.layers = torch.nn.ModuleDict({str(i): full_layers[str(i)] for i in range(4)})
+    params = [p for k, p in state.trainable.items()
+              if not k.startswith("layers.") or int(k.split(".")[1]) < 4]
+    try:
+        reset_launches()
+        kernel_loss, kernel_grads = lumina_grads(small)
+        used = read_launches()
+        with plain_versions():
+            plain_loss, plain_grads = lumina_grads(small)
+    finally:
+        lumina.denoiser.layers = full_layers
+    kernel_norm, plain_norm = global_norm(kernel_grads).item(), global_norm(plain_grads).item()
+    if read_launches() != used or min(used[n] for n in LUMINA_KERNELS if n != "gated_mlp") == 0:
+        raise AssertionError(f"the plain step launched a kernel, or the kernel step none: {used}")
+    loss_rel = abs(kernel_loss - plain_loss) / abs(plain_loss)
+    norm_rel = abs(kernel_norm - plain_norm) / abs(plain_norm)
+    print(f"depth-reduced step (4 main blocks, batch 2), kernels vs plain versions: loss "
+          f"{kernel_loss:.6f} vs {plain_loss:.6f} (rel {loss_rel:.3e}, tol {STEP_LOSS_TOL}); "
+          f"grad_norm {kernel_norm:.6f} vs {plain_norm:.6f} (rel {norm_rel:.3e}, tol "
+          f"{STEP_GRAD_NORM_TOL})")
+    if not (loss_rel <= STEP_LOSS_TOL and norm_rel <= STEP_GRAD_NORM_TOL):
+        raise AssertionError("the Lumina2 kernel step and the plain step disagree")
+    del kernel_grads, plain_grads, params, state, frozen, second
+
     kernels = []
     for name, record in records.items():
         launches = {"generate": generate_launches[name], "train": train_launches[name],
                     "nf4_train": nf4_train_launches[name], "nf4_generate": nf4_generate_launches[name],
-                    "lumina2_generate": lumina_launches[name]}
+                    "lumina2_generate": lumina_launches[name],
+                    "lumina2_train": lumina_train_launches[name]}
         kernels.append({
             "name": name,
             **{k: record[k] for k in ("route", "source", "replaces")},

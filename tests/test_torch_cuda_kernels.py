@@ -17,6 +17,11 @@ from vision_ft_tpu_torch.ops.flash_attention import (
     flash_attention_bshd_reference,
     flash_attention,
     flash_attention_masked,
+    flash_attention_masked_backward,
+    flash_attention_masked_backward_reference,
+    flash_attention_masked_delta,
+    flash_attention_masked_dkv,
+    flash_attention_masked_dq,
     flash_attention_reference,
 )
 from vision_ft_tpu_torch.ops.fused_mlp import gated_mlp, gated_mlp_reference, geglu_mlp
@@ -55,6 +60,11 @@ NF4_FWD_TOL, NF4_DX_TOL = 2e-2, 3e-2
 # bf16 on both sides: a few bf16 ulps of the output's largest value
 BF16_MASKED_ATTN_TOL = 2e-2
 BF16_FUSED_MLP_TOL = 2e-2
+# The key-masked backward kernels and the plain backward round P and dS to
+# bf16 at the same points and accumulate in fp32; they differ in the exp
+# (exp2 with log2 e folded in), in summation order (dk and dv sum up to 3
+# query heads more) and in each output's bf16 rounding: kernel C's limit
+BF16_MASKED_BWD_TOL = 2e-2
 
 
 @pytest.mark.cuda
@@ -343,8 +353,9 @@ def test_masked_kernel_gives_the_mean_of_v_for_a_fully_masked_row_on_card(cuda):
 def test_routing_keeps_off_the_masked_kernel_what_it_does_not_take_on_card(cuda):
     """Short keys and a full mask take the plain formula (the JAX package's
     gate); what passes the gate and the kernel does not take (fp32, a head
-    dim outside the kernel's, a call that wants gradients) raises, through
-    the routing as through the wrapper."""
+    dim outside the kernel's, unaligned rows) raises, through the routing as
+    through the wrapper; a call that wants gradients runs the backward
+    kernels."""
     g = torch.Generator(device=cuda).manual_seed(2)
     q = torch.randn(1, 4, 300, 96, device=cuda, generator=g).bfloat16()
     full = torch.rand(1, 1, 300, 300, device=cuda, generator=g) > 0.3
@@ -364,13 +375,119 @@ def test_routing_keeps_off_the_masked_kernel_what_it_does_not_take_on_card(cuda)
         ):
             with pytest.raises(ValueError):
                 bad()
-        with pytest.raises(NotImplementedError, match="Lumina2 train step"):
-            entry(leaf, q, q)
+        grads_before = (flash_attention_masked_dkv.launches, flash_attention_masked_dq.launches)
+        leaf.grad = None
+        entry(leaf, q, q).float().sum().backward()  # a gradient wanted: kernel E, then kernel G
+        assert leaf.grad is not None and torch.isfinite(leaf.grad).all()
+        assert (flash_attention_masked_dkv.launches, flash_attention_masked_dq.launches) == (
+            grads_before[0] + 1, grads_before[1] + 1)
         with torch.no_grad():
-            entry(leaf, q, q)  # no gradient wanted: the kernel takes it
+            entry(leaf, q, q)  # no gradient wanted: the forward kernel alone
     with pytest.raises(ValueError):
         flash_attention_masked(q, q, q, torch.ones(1, 300, device=cuda))
-    assert flash_attention_masked.launches == before + 2
+    assert flash_attention_masked.launches == before + 4
+
+
+def _masked_bwd_inputs(cuda, b, h, hk, sq, sk, d, kind, causal, seed=0):
+    """q, k, v in the NextDiT's memory layouts (v a slice of a wider
+    buffer), the mask, the forward's out and lse, and dO."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(b, sq, h, d, device=cuda, generator=g).bfloat16().transpose(1, 2)
+    k = torch.randn(b, sk, hk, d, device=cuda, generator=g).bfloat16().transpose(1, 2)
+    wide = torch.randn(b, sk, 2 * hk * d, device=cuda, generator=g).bfloat16()
+    v = wide[..., hk * d:].unflatten(-1, (hk, d)).transpose(1, 2)
+    if kind == "empty_row":
+        mask = torch.ones(b, sk, dtype=torch.bool, device=cuda)
+        mask[-1] = False
+    else:
+        mask = _key_mask(cuda, kind, b, sk)
+    out, lse = flash_attention_masked(q, k, v, mask, None, causal, return_lse=True)
+    dout = torch.randn(b, sq, h, d, device=cuda, generator=g).bfloat16().transpose(1, 2)
+    return q, k, v, mask, out, lse, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,h,hk,sq,sk,d,kind,causal",
+    [
+        (1, 24, 8, 4352, 4352, 96, "hole", False),  # the NextDiT's main stack at 1024 px
+        (1, 24, 8, 4096, 4096, 96, "ones", False),  # noise refiner
+        (2, 24, 8, 256, 256, 96, "hole", False),    # context refiner
+        (1, 6, 2, 300, 1000, 96, "hole", False),    # ragged, sq != sk
+        (1, 6, 6, 520, 520, 96, None, True),        # causal
+        (1, 4, 2, 333, 333, 64, "hole", True),      # causal and masked, ragged
+        (1, 4, 1, 200, 256, 128, None, False),      # one kv head, head dim 128
+        (2, 4, 4, 320, 320, 64, "empty_row", False),  # a batch entry with every key masked
+    ],
+)
+def test_masked_backward_kernels_match_plain_on_card(cuda, b, h, hk, sq, sk, d, kind, causal):
+    q, k, v, mask, out, lse, dout = _masked_bwd_inputs(cuda, b, h, hk, sq, sk, d, kind, causal)
+    delta = flash_attention_masked_delta(out, dout)
+    before = (flash_attention_masked_dkv.launches, flash_attention_masked_dq.launches)
+    dk, dv = flash_attention_masked_dkv(q, k, v, mask, dout, lse, delta, None, causal)
+    dq = flash_attention_masked_dq(q, k, v, mask, dout, lse, delta, None, causal)
+    again = flash_attention_masked_backward(q, k, v, mask, out, lse, dout, None, causal)
+    torch.cuda.synchronize()
+    assert (flash_attention_masked_dkv.launches, flash_attention_masked_dq.launches) == (
+        before[0] + 2, before[1] + 2)
+    for got, rerun in zip((dq, dk, dv), again):
+        assert torch.equal(got, rerun)  # no atomics: a fixed summation order
+    assert dq.shape == q.shape and dq.stride() == q.stride() and dk.stride() == k.stride()
+    assert dk.shape == dv.shape == k.shape and dv.dtype == torch.bfloat16
+    want = flash_attention_masked_backward_reference(q, k, v, mask, out, lse, dout, None, causal)
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert torch.isfinite(got).all(), name
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= BF16_MASKED_BWD_TOL * ref.float().abs().max().item(), name
+
+
+@pytest.mark.cuda
+def test_masked_autograd_runs_the_backward_kernels_on_card(cuda):
+    """Gradients wanted: kernel E forward, kernel G backward, through the
+    wrapper and the routing alike; the lse's gradient shifts delta."""
+    q, k, v, mask, _, _, dout = _masked_bwd_inputs(cuda, 2, 6, 2, 512, 512, 96, "hole", False, seed=1)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    dlse = torch.randn(2, 6, 512, device=cuda)
+    counts = lambda: (flash_attention_masked.launches, flash_attention_masked_dkv.launches,  # noqa: E731
+                      flash_attention_masked_dq.launches)
+    before = counts()
+    out, lse = flash_attention_masked(*leaves, mask, return_lse=True)
+    got = torch.autograd.grad((out.float() * dout.float()).sum() + (lse * dlse).sum(), leaves)
+    routed = torch.autograd.grad(
+        (flash_attention(*leaves, mask[:, None, None, :]).float() * dout.float()).sum(), leaves)
+    assert counts() == (before[0] + 2, before[1] + 2, before[2] + 2)
+    with torch.no_grad():
+        want = flash_attention_masked_backward_reference(q, k, v, mask, out, lse, dout, dlse=dlse)
+        want_routed = flash_attention_masked_backward(q, k, v, mask, out, lse, dout)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= BF16_MASKED_BWD_TOL * w.float().abs().max().item(), name
+    for g, w in zip(routed, want_routed):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_masked_backward_rejects_what_it_cannot_take_on_card(cuda):
+    q, k, v, mask, out, lse, dout = _masked_bwd_inputs(cuda, 1, 4, 2, 256, 256, 96, "hole", False)
+    delta = flash_attention_masked_delta(out, dout)
+    for bad in (
+        lambda: flash_attention_masked_dq(q.float(), k.float(), v.float(), mask, dout.float(), lse, delta),
+        lambda: flash_attention_masked_dq(q, k, v, mask, dout, lse.double(), delta),
+        lambda: flash_attention_masked_dq(q, k, v, mask, dout, lse, delta[:, :, :-1]),
+        lambda: flash_attention_masked_dkv(q, k, v, mask, dout[:, :, :-1], lse, delta),
+        lambda: flash_attention_masked_dkv(q[..., :48], k[..., :48], v[..., :48], mask, dout[..., :48],
+                                           lse, delta),
+        lambda: flash_attention_masked_dkv(q, k, v, mask.float(), dout, lse, delta),
+    ):
+        with pytest.raises(ValueError):
+            bad()
+    # a dO the kernels cannot read in place is copied first, not refused
+    odd = torch.empty(1, 4, 256, 104, device=cuda, dtype=torch.bfloat16)[..., 1:97]
+    odd.copy_(dout)
+    for got, want in zip(flash_attention_masked_backward(q, k, v, mask, out, lse, odd),
+                         flash_attention_masked_backward(q, k, v, mask, out, lse, dout)):
+        assert torch.equal(got, want)
 
 
 def _mlp_tensors(cuda, m, c, inner, biases, seed=0):

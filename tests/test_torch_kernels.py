@@ -210,14 +210,16 @@ def test_remat_keeps_or_reruns_the_flash_forward(monkeypatch, mode, forwards):
 
 
 def test_remat_activations_mode_is_not_ported():
-    from vision_ft_tpu_torch.nn.core import run_remat_stack, set_remat_group
+    """"activations" stays unported; the remat groups are ported (held
+    against the JAX package in tests/test_torch_lumina2_train.py)."""
+    from vision_ft_tpu_torch.nn.core import remat_group, run_remat_stack, set_remat_group
 
     with pytest.raises(NotImplementedError):
         set_remat_saves("activations")
-    with pytest.raises(NotImplementedError):
-        set_remat_group(2)
-    with pytest.raises(NotImplementedError):
-        run_remat_stack(None, [], [], None, True)
+    with pytest.raises(ValueError):
+        set_remat_group(0)
+    assert remat_group() == 1
+    assert run_remat_stack(lambda layer, c: c * layer, [2.0, 3.0], torch.ones(2), False).tolist() == [6, 6]
     with pytest.raises(ValueError):
         set_remat_saves("everything")
 

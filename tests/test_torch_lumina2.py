@@ -193,13 +193,23 @@ def test_deepcache_forward_rejects_bad_arguments(denoisers):
 
 
 def test_unported_denoiser_options_raise_by_name(denoisers):
+    """set_pipeline stays unported; gradient checkpointing is ported (held
+    against the JAX package in tests/test_torch_lumina2_train.py) and leaves
+    a forward without gradients as it was."""
     model = denoisers[2]
-    with pytest.raises(NotImplementedError, match="train step"):
-        model.set_gradient_checkpointing(True)
     with pytest.raises(NotImplementedError, match="set_pipeline"):
         model.set_pipeline(object(), 2)
-    model.set_gradient_checkpointing(False)
     model.set_pipeline(None, 1)
+    args = [torch.from_numpy(a) for a in _inputs((6, 3))]
+    with torch.no_grad():
+        want, _, _ = model(*args)
+        model.set_gradient_checkpointing(True)
+        try:
+            assert model.gradient_checkpointing
+            got, _, _ = model(*args)
+        finally:
+            model.set_gradient_checkpointing(False)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("steps", [4, 8, 25])

@@ -2,16 +2,17 @@
 ``vision_ft_tpu/models/autoencoder/kl.py`` counterpart, diffusers key layout.
 
 The whole module tree is ported, so that the JAX package's parameters
-load with strict keys; of the entry points only ``decode`` is (the
-SDXL and Lumina2 generate paths). All tensors are NHWC; latents (B, H/8, W/8, C).
-The mid-block attention is single-head over HW tokens and runs the
-plain formula ("xla" backend, as in the JAX package). Not ported yet:
-``encode`` / ``DiagonalGaussian`` and ``tiled_decode``.
+load with strict keys, with ``encode`` (the Lumina2 train step's, into a
+``DiagonalGaussian``) and ``decode`` (the generate paths). All tensors are
+NHWC; latents (B, H/8, W/8, C). The mid-block attention is single-head over
+HW tokens and runs the plain formula ("xla" backend, as in the JAX
+package). Not ported yet: ``tiled_decode``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -111,10 +112,14 @@ class MidBlock(nn.ModuleDict):
 
 
 class Downsampler(nn.ModuleDict):
-    """Stride-2 conv (diffusers pads it (0,1)x(0,1)); parameters only."""
+    """Stride-2 conv with diffusers' asymmetric (0,1)x(0,1) padding."""
 
     def __init__(self, channels: int):
         super().__init__({"conv": Conv2d(channels, channels, 3, stride=2, padding=0)})
+
+    def forward(self, x):
+        # NHWC: one zero column on the right of W, one zero row below H
+        return self["conv"](F.pad(x, (0, 0, 0, 1, 0, 1)))
 
 
 class Upsampler(nn.ModuleDict):
@@ -127,8 +132,7 @@ class Upsampler(nn.ModuleDict):
 
 
 class Encoder(nn.Module):
-    """The encoder's parameters, for strict key loading; its forward
-    (image encode) is not ported yet."""
+    """Image (B, H, W, 3) -> moments (B, H/8, W/8, 2 * latent_channels)."""
 
     def __init__(self, config: AutoencoderKLConfig):
         super().__init__()
@@ -154,6 +158,16 @@ class Encoder(nn.Module):
         self.mid_block = MidBlock(chs[-1], g, config.mid_block_add_attention)
         self.conv_norm_out = GroupNorm(g, chs[-1], eps=1e-6)
         self.conv_out = Conv2d(chs[-1], 2 * config.latent_channels, 3, padding=1)
+
+    def forward(self, x):
+        h = self.conv_in(x)
+        for block in self.down_blocks.values():
+            for resnet in block["resnets"].values():
+                h = resnet(h)
+            if "downsamplers" in block:
+                h = block["downsamplers"]["0"](h)
+        h = self.mid_block(h)
+        return self.conv_out(F.silu(self.conv_norm_out(h)))
 
 
 class Decoder(nn.Module):
@@ -192,6 +206,32 @@ class Decoder(nn.Module):
         return self.conv_out(F.silu(self.conv_norm_out(h)))
 
 
+class DiagonalGaussian:
+    """diffusers' DiagonalGaussianDistribution over NHWC moments."""
+
+    def __init__(self, moments: torch.Tensor):
+        mean, logvar = moments.chunk(2, dim=-1)
+        self.mean = mean
+        self.logvar = logvar.clamp(-30.0, 20.0)
+        self.std = torch.exp(0.5 * self.logvar)
+
+    def sample(
+        self, generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """mean + std * noise: unit normal noise drawn from ``generator`` in
+        the mean's dtype (the JAX package's draw), or the ``noise`` given."""
+        if noise is None:
+            if generator is None:
+                raise ValueError("sample needs a generator or the noise")
+            noise = torch.randn(
+                self.mean.shape, generator=generator, dtype=self.mean.dtype, device=generator.device
+            )
+        return self.mean + self.std * noise.to(self.mean.device, self.mean.dtype)
+
+    def mode(self) -> torch.Tensor:
+        return self.mean
+
+
 class AutoencoderKL(nn.Module):
     """Full VAE; keys ``encoder.*``, ``decoder.*`` (+ the quant convs)."""
 
@@ -210,6 +250,13 @@ class AutoencoderKL(nn.Module):
         else:
             self.quant_conv = None
             self.post_quant_conv = None
+
+    def encode(self, x: torch.Tensor) -> DiagonalGaussian:
+        """Image (B, H, W, 3) in [-1, 1] -> the latent distribution."""
+        moments = self.encoder(x)
+        if self.quant_conv is not None:
+            moments = self.quant_conv(moments)
+        return DiagonalGaussian(moments)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """Latents (B, h, w, C) -> image (B, 8h, 8w, 3), NHWC."""

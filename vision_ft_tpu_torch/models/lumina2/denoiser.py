@@ -22,10 +22,11 @@ counterpart).
   the JAX package.
 
 Returns (velocity NHWC, caption_mask, refined_caption_features), so that
-the pipeline can cache the refined captions across steps. The kernels'
-paths are forward only: ``set_gradient_checkpointing`` (the train step,
-with ``run_remat_stack``) and ``set_pipeline`` (GPipe over a mesh) are not
-ported yet.
+the pipeline can cache the refined captions across steps. With
+``set_gradient_checkpointing(True)`` a forward that runs with gradients
+checkpoints each refiner block (``nn.core.remat_layer``) and the main stack
+in groups of ``nn.core.remat_group()`` blocks (``run_remat_stack``), as the
+JAX package does. ``set_pipeline`` (GPipe over a mesh) is not ported.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ from torch import nn
 
 from ...modules.patch import unpatchify
 from ...modules.timestep.embedding import get_timestep_embedding
-from ...nn import LayerNorm, Linear, RMSNorm, save_name
+from ...nn import LayerNorm, Linear, RMSNorm, remat_layer, run_remat_stack, save_name
 from ...ops.attention import scaled_dot_product_attention
 from ...ops.fused_mlp import fused_ff_enabled, gated_mlp, supported
 from .config import DenoiserConfig
@@ -252,6 +253,7 @@ class NextDiT(nn.Module):
         self.layers = _blocks(config.depth, config)
         self.norm_final = RMSNorm(hd, eps=config.norm_eps)  # never applied
         self.final_layer = FinalLayer(hd, config.patch_size, self.out_channels)
+        self.gradient_checkpointing = False
 
         # per-axis RoPE tables (axes_len, d/2, 2) cos/sin, fp32, on the host;
         # copied to each device they are asked for once
@@ -268,11 +270,12 @@ class NextDiT(nn.Module):
         return np.stack([np.cos(angles), np.sin(angles)], axis=-1).astype(np.float32)
 
     def set_gradient_checkpointing(self, value: bool):
-        if value:
-            raise NotImplementedError(
-                "gradient checkpointing of the NextDiT (run_remat_stack) is not ported yet: "
-                "it belongs to the Lumina2 train step"
-            )
+        """Checkpoint the refiner blocks one by one and the main stack in
+        groups whenever a forward runs with gradients enabled."""
+        self.gradient_checkpointing = value
+
+    def _remat(self) -> bool:
+        return self.gradient_checkpointing and torch.is_grad_enabled()
 
     def set_pipeline(self, mesh, num_microbatches: int, axis: str = "pipe"):
         if mesh is not None:
@@ -337,13 +340,15 @@ class NextDiT(nn.Module):
         else:
             caption_tokens = self.cap_embedder["1"](self.cap_embedder["0"](caption_features))
             for layer in self.context_refiner.values():
-                caption_tokens = layer(caption_tokens, cap_freqs, mask=caption_mask)
+                fn = lambda c, layer=layer: layer(c, cap_freqs, mask=caption_mask)  # noqa: E731
+                caption_tokens = (remat_layer(fn) if self._remat() else fn)(caption_tokens)
 
         # 4. refine image features
         image_tokens = self.x_embedder(_patchify_nhwc(latents, p))
         image_mask = torch.ones(b, num_patches, dtype=torch.bool, device=latents.device)
         for layer in self.noise_refiner.values():
-            image_tokens = layer(image_tokens, img_freqs, t_emb, image_mask)
+            fn = lambda x, layer=layer: layer(x, img_freqs, t_emb, image_mask)  # noqa: E731
+            image_tokens = (remat_layer(fn) if self._remat() else fn)(image_tokens)
 
         # 5. joint sequence [caption | image], the padding holes masked
         context = torch.cat([caption_tokens, image_tokens], dim=1)
@@ -352,11 +357,15 @@ class NextDiT(nn.Module):
                 cap_len, hp, wp)
 
     def _run_main_layers(self, context, joint_freqs, t_emb, joint_mask, start=0, end=None):
-        """Main layers [start, end)."""
+        """Main layers [start, end), checkpointed in groups of
+        ``nn.core.remat_group()`` layers."""
         end = len(self.layers) if end is None else end
-        for i in range(start, end):
-            context = self.layers[str(i)](context, joint_freqs, t_emb, joint_mask)
-        return context
+        return run_remat_stack(
+            lambda layer, c: layer(c, joint_freqs, t_emb, joint_mask),
+            [self.layers[str(i)] for i in range(start, end)],
+            context,
+            self._remat(),
+        )
 
     def _finish(self, context, t_emb, cap_len, hp, wp):
         """Final layer + unpatchify (steps 7-8)."""

@@ -11,9 +11,9 @@ The modules are built on the meta device and materialized by
 ``init_params`` (seeded random weights, on the device, in the target
 dtype) or ``load_state_dict`` (the JAX package's flat parameters).
 
-Not ported yet: single-file checkpoint I/O (``_from_checkpoint``,
-``state_dict``), offloading, the continuous-batching slot step, image
-encode.
+``encode_image`` is the VAE encode of the train step's latents. Not ported
+yet: single-file checkpoint I/O (``_from_checkpoint``, ``state_dict``),
+offloading, the continuous-batching slot step.
 """
 
 from __future__ import annotations
@@ -122,6 +122,18 @@ class Lumina2:
         ratio = int(self.vae.compression_ratio)
         shape = (batch_size, height // ratio, width // ratio, self.denoiser.config.in_channels)
         return tensor_utils.incremental_seed_randn(shape, seed, self.dtype, self.device)
+
+    def encode_image(self, image, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """A PIL image, a list of them or an NHWC tensor in [-1, 1] -> scaled
+        latents: a sample of the VAE's distribution drawn from ``generator``,
+        or its mode without one."""
+        if isinstance(image, Image.Image):
+            image = tensor_utils.images_to_tensor([image])
+        elif isinstance(image, (list, tuple)):
+            image = tensor_utils.images_to_tensor(list(image))
+        dist = self.vae.encode(image.to(self.device, self.dtype))
+        z = dist.sample(generator) if generator is not None else dist.mode()
+        return (z - self.vae.shift_factor) * self.vae.scaling_factor
 
     def decode_image(self, latents: torch.Tensor) -> list[Image.Image]:
         z = latents / self.vae.scaling_factor + self.vae.shift_factor

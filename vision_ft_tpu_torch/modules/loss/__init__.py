@@ -1,3 +1,3 @@
-from . import diffusion
+from . import diffusion, flow_match
 
-__all__ = ["diffusion"]
+__all__ = ["diffusion", "flow_match"]

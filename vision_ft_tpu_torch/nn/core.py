@@ -112,6 +112,48 @@ def remat_layer(fn: Callable) -> Callable:
     return run
 
 
+_remat_group = 1
+
+
+def set_remat_group(group: int) -> None:
+    """Checkpoint uniform layer stacks (:func:`run_remat_stack`) in groups
+    of ``group`` layers instead of one region per layer. The recomputation
+    is the same either way (every layer once); what changes is memory: one
+    saved boundary stream per group instead of per layer, against a
+    backward working set of ``group`` layers' intermediates."""
+    global _remat_group
+    if group < 1:
+        raise ValueError(f"remat group must be >= 1, got {group}")
+    _remat_group = group
+
+
+def remat_group() -> int:
+    return _remat_group
+
+
+def run_remat_stack(apply_fn: Callable, layers, carry, enabled: bool):
+    """Run a uniform layer stack ``carry = apply_fn(layer, carry)``,
+    checkpointed (:func:`remat_layer`) in groups of :func:`remat_group`
+    layers when ``enabled``. With group 1 it is one region per layer. The
+    JAX package's ``params_list`` argument has no counterpart: a layer
+    holds its parameters."""
+    layers = list(layers)
+    if not enabled:
+        for layer in layers:
+            carry = apply_fn(layer, carry)
+        return carry
+    g = _remat_group
+    for i in range(0, len(layers), g):
+
+        def chunk(c, _sub=tuple(layers[i:i + g])):
+            for layer in _sub:
+                c = apply_fn(layer, c)
+            return c
+
+        carry = remat_layer(chunk)(carry)
+    return carry
+
+
 # -- quantized weights --------------------------------------------------------
 
 FP8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
@@ -205,23 +247,6 @@ def _w8a8_linear(x: torch.Tensor, data: torch.Tensor, scale: torch.Tensor) -> to
         y = torch.matmul(rows.double(), data.double().t())
     y = y.reshape(*x.shape[:-1], n)
     return (y.float() * (x_scale * scale[:, 0])).to(x.dtype)
-
-
-_REMAT_STACK_NOT_PORTED = (
-    "set_remat_group / run_remat_stack (checkpointing a uniform layer stack in groups) "
-    "are not ported yet: they belong to the Lumina2 train step, with the (B, H, S, D) "
-    "flash attention backward"
-)
-
-
-def set_remat_group(group: int) -> None:
-    """Checkpointing uniform layer stacks in groups of layers (the DiT
-    families' knob; the SDXL UNet has no caller)."""
-    raise NotImplementedError(_REMAT_STACK_NOT_PORTED)
-
-
-def run_remat_stack(apply_fn, layers, params_list, carry, enabled: bool):
-    raise NotImplementedError(_REMAT_STACK_NOT_PORTED)
 
 
 # -- adapters -----------------------------------------------------------------

@@ -9,10 +9,12 @@ routing). The kernels are CUDA C++, built for ``sm_90a`` by
   ``csrc/flash_attention_bshd_bwd.cu`` (backward: a dk/dv kernel and a dq
   kernel) over heads-packed tensors, head dims 64 and 128, no mask: the
   JAX ``flash_attention_bshd`` and its custom VJP;
-- ``csrc/flash_attention_masked.cu``, the forward over (B, H, S, D) with an
-  optional (B, Sk) key mask, causal masking and grouped-query heads, head
-  dims 64, 96 and 128: the JAX ``flash_attention_tpu`` forward. Its
-  backward is not ported yet.
+- ``csrc/flash_attention_masked.cu`` (forward) and
+  ``csrc/flash_attention_masked_bwd.cu`` (backward: a dk/dv kernel that
+  sums over the query heads of each kv head, and a dq kernel) over
+  (B, H, S, D) with an optional (B, Sk) key mask, causal masking and
+  grouped-query heads, head dims 64, 96 and 128: the JAX
+  ``flash_attention_tpu`` and its custom VJP.
 
 BSHD layout: q (B, Sq, H*D), k and v (B, Sk, H*D), heads packed along the
 last axis (head h is columns [h*D, (h+1)*D)); the output has q's shape
@@ -40,8 +42,14 @@ and dtype; lse is the fp32 natural log-sum-exp of the scaled scores,
   kernel again.
 - :func:`flash_attention_masked` is the key-masked (B, H, S, D) forward
   kernel's wrapper and :func:`flash_attention_reference` its plain version;
-  :func:`flash_attention` is the routing between that kernel and the plain
-  formula of ``ops/attention.py``.
+  :func:`flash_attention_masked_dkv` and :func:`flash_attention_masked_dq`
+  wrap its backward kernels, :func:`flash_attention_masked_backward` is the
+  whole backward (plain delta, then the two kernels) and
+  :func:`flash_attention_masked_backward_reference` its plain version. With
+  gradients wanted, :func:`flash_attention_masked` goes through an autograd
+  function that keeps (q, k, v, mask, out, lse), and :func:`kernel_saves`
+  covers its calls too. :func:`flash_attention` is the routing between
+  that kernel and the plain formula of ``ops/attention.py``.
 """
 
 from __future__ import annotations
@@ -208,14 +216,19 @@ def _forward(q, k, v, num_heads, scale, return_lse):
     return out, lse
 
 
+def _check_row_stats(want: tuple, device: torch.device, **stats) -> None:
+    """Raise unless each of ``stats`` (lse, delta) is contiguous fp32 of
+    shape (B, H, Sq) = ``want`` on ``device``."""
+    for name, t in stats.items():
+        if tuple(t.shape) != want or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous fp32 {want}, got {t.dtype} {tuple(t.shape)}")
+        if t.device != device:
+            raise ValueError(f"{name} must be on {device}, got {t.device}")
+
+
 def _check_backward(q, k, v, dout, lse, delta, num_heads) -> int:
     d = _check(q, k, v, num_heads, dout=dout)
-    want = (q.shape[0], num_heads, q.shape[1])
-    for name, t in (("lse", lse), ("delta", delta)):
-        if t.shape != want or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous fp32 {want}, got {t.dtype} {tuple(t.shape)}")
-        if t.device != q.device:
-            raise ValueError(f"{name} must be on {q.device}, got {t.device}")
+    _check_row_stats((q.shape[0], num_heads, q.shape[1]), q.device, lse=lse, delta=delta)
     return d
 
 
@@ -309,12 +322,24 @@ class _KernelSaves:
 def kernel_saves():
     """Two context managers for one checkpointed region, ``(forward,
     recompute)``. Under ``forward`` every differentiable
-    :func:`flash_attention_bshd` call records its (out, lse), detached;
+    :func:`flash_attention_bshd` and :func:`flash_attention_masked` call
+    records its (out, lse), detached;
     under ``recompute`` the calls, made again in the same order, take them
     back instead of launching the forward kernel, while the backward still
     sees the recomputed q, k and v."""
     saves: list = []
     return _KernelSaves("record", saves), _KernelSaves("replay", saves)
+
+
+def _replayed_saves():
+    """(region, saved (out, lse) or None) of the checkpointed region that
+    is current, for a differentiable flash attention call."""
+    region = _KernelSaves.current
+    if region is None or region.mode != "replay":
+        return region, None
+    saved = region.saves[region.position]
+    region.position += 1
+    return region, saved
 
 
 class _FlashAttentionBSHD(torch.autograd.Function):
@@ -353,11 +378,7 @@ def flash_attention_bshd(
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
         out, lse = _forward(q, k, v, num_heads, scale, return_lse)
         return (out, lse) if return_lse else out
-    saved = None
-    region = _KernelSaves.current
-    if region is not None and region.mode == "replay":
-        saved = region.saves[region.position]
-        region.position += 1
+    region, saved = _replayed_saves()
     out, lse = _FlashAttentionBSHD.apply(q, k, v, num_heads, scale, saved)
     if region is not None and region.mode == "record":
         region.saves.append((out.detach(), lse))
@@ -367,7 +388,7 @@ def flash_attention_bshd(
 flash_attention_bshd.launches = 0
 
 
-# -- key-masked forward over (B, H, S, D) ----------------------------------------
+# -- key-masked attention over (B, H, S, D): forward and backward --------------------
 
 
 def _expand_kv_heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -380,6 +401,18 @@ def _expand_kv_heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
     return t.repeat_interleave(num_heads // t.shape[1], dim=1)
 
 
+def _masked_scores(scores: torch.Tensor, key_mask, is_causal: bool) -> torch.Tensor:
+    """The kernels' masking of fp32 scores (B, H, Sq, Sk), in place: a
+    masked or causally excluded key scores a finite -1e30."""
+    b, _, sq, sk = scores.shape
+    if key_mask is not None:
+        scores.masked_fill_(~key_mask.bool().reshape(b, 1, 1, sk), NEG_INF)
+    if is_causal:
+        keep = torch.ones(sq, sk, dtype=torch.bool, device=scores.device).tril()
+        scores.masked_fill_(~keep, NEG_INF)
+    return scores
+
+
 def flash_attention_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: Optional[torch.Tensor] = None,
     scale: Optional[float] = None, is_causal: bool = False, return_lse: bool = False,
@@ -388,20 +421,64 @@ def flash_attention_reference(
     kernel's masked-row rule: a masked or causally excluded key scores a
     finite -1e30, so a query row with no key left gives the mean of v (and
     an lse of about -1e30), not 0."""
-    b, h, sq, d = q.shape
-    sk = k.shape[2]
+    h, d = q.shape[1], q.shape[3]
     scale = d**-0.5 if scale is None else scale
     k, v = _expand_kv_heads(k, h), _expand_kv_heads(v, h)
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    if key_mask is not None:
-        scores = scores.masked_fill(~key_mask.bool().reshape(b, 1, 1, sk), NEG_INF)
-    if is_causal:
-        keep = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril()
-        scores = scores.masked_fill(~keep, NEG_INF)
+    scores = _masked_scores(
+        torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale, key_mask, is_causal
+    )
     out = torch.matmul(torch.softmax(scores, dim=-1).to(v.dtype), v)
     if not return_lse:
         return out
     return out, torch.logsumexp(scores, dim=-1)
+
+
+def flash_attention_masked_delta(
+    out: torch.Tensor, dout: torch.Tensor, dlse: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """delta = rowsum(dO * O) - dlse, fp32 contiguous (B, H, Sq). ``dlse``,
+    the gradient of the returned lse, shifts delta: d lse / d s = p, so it
+    adds p * dlse to dS, the JAX package's ``g_lse`` term."""
+    delta = (dout.float() * out.float()).sum(dim=-1)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    return delta.contiguous()
+
+
+def _masked_backward_reference(q, k, v, key_mask, lse, delta, dout, scale, is_causal):
+    b, h, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    scale = d**-0.5 if scale is None else scale
+    dtype = q.dtype
+    qf, dof = q.float(), dout.float()
+    kf, vf = _expand_kv_heads(k, h).float(), _expand_kv_heads(v, h).float()
+    scores = _masked_scores(torch.matmul(qf, kf.transpose(-1, -2)).mul_(scale), key_mask, is_causal)
+    p = scores.sub_(lse.unsqueeze(-1)).exp_()
+    dv = torch.matmul(p.to(dtype).float().transpose(-1, -2), dof)
+    ds = torch.matmul(dof, vf.transpose(-1, -2)).sub_(delta.unsqueeze(-1)).mul_(p).mul_(scale)
+    del p
+    ds = ds.to(dtype).float()
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    # the query heads of a kv head sum into its gradient, in fp32
+    dk = dk.view(b, hk, h // hk, sk, d).sum(dim=2)
+    dv = dv.view(b, hk, h // hk, sk, d).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_masked_backward_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: Optional[torch.Tensor],
+    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, scale: Optional[float] = None,
+    is_causal: bool = False, dlse: Optional[torch.Tensor] = None,
+):
+    """(dq, dk, dv) by the backward kernels' arithmetic: P recomputed as
+    exp(S + mask - lse) in fp32 (so a row with every key masked, lse -1e30,
+    gets P = 1 on each key, as in the TPU kernel), P and dS rounded to the
+    inputs' dtype before their products, fp32 accumulation, dk and dv
+    summed over the query heads of each kv head, outputs in the inputs'
+    dtypes."""
+    delta = flash_attention_masked_delta(out, dout, dlse)
+    return _masked_backward_reference(q, k, v, key_mask, lse, delta, dout, scale, is_causal)
 
 
 @functools.cache
@@ -415,8 +492,31 @@ def _masked_kernel():
     return fn
 
 
-def _check_masked(q, k, v, key_mask) -> None:
-    """Raise on what the key-masked kernel does not take."""
+@functools.cache
+def _masked_backward_kernels():
+    lib = _build.cuda_library("flash_attention_masked_bwd")
+    dkv, dq = lib.flash_attention_masked_bwd_dkv, lib.flash_attention_masked_bwd_dq
+    dkv.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 18
+        + [ctypes.c_float, ctypes.c_void_p]
+    )
+    dq.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 15
+        + [ctypes.c_float, ctypes.c_void_p]
+    )
+    dkv.restype = dq.restype = ctypes.c_int
+    return dkv, dq
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """16-byte vector loads: unit last stride, 8-element batch, head and row
+    strides, a 16-byte aligned start."""
+    return t.stride(3) == 1 and not any(t.stride(i) % 8 for i in range(3)) and t.data_ptr() % 16 == 0
+
+
+def _check_masked(q, k, v, key_mask, **more) -> None:
+    """Raise on what the key-masked kernels do not take; ``more`` are
+    further bf16 tensors of q's shape (dout)."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("q, k and v must be (B, H, S, D)")
     b, h, sq, d = q.shape
@@ -436,12 +536,13 @@ def _check_masked(q, k, v, key_mask) -> None:
         key_mask.shape != (b, sk) or key_mask.dtype != torch.bool or key_mask.device != q.device
     ):
         raise ValueError(f"key_mask must be bool (B, Sk) = {(b, sk)} on {q.device}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in (("q", q), ("k", k), ("v", v), *more.items()):
         if not t.is_cuda or t.device != q.device or t.dtype != torch.bfloat16:
             raise ValueError(f"{name} must be bf16 on {q.device}, got {t.dtype} on {t.device}")
-        # 16-byte vector loads: unit last stride, 8-element batch, head and row strides
-        if t.stride(3) != 1 or any(t.stride(i) % 8 for i in range(3)) or t.data_ptr() % 16:
+        if not _aligned(t):
             raise ValueError(f"{name} needs a contiguous last axis and 16-byte aligned rows")
+    if any(t.shape != q.shape for t in more.values()):
+        raise ValueError(f"{sorted(more)} must have q's shape {tuple(q.shape)}")
 
 
 def _masked_forward(q, k, v, key_mask, scale, is_causal, return_lse):
@@ -449,12 +550,6 @@ def _masked_forward(q, k, v, key_mask, scale, is_causal, return_lse):
     if not q.is_cuda:
         return flash_attention_reference(q, k, v, key_mask, scale, is_causal, return_lse)
     _check_masked(q, k, v, key_mask)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention_masked is forward only: the (B, H, S, D) backward kernels "
-            "(_bwd_dq_kernel, _bwd_dkv_kernel of the JAX package) are ported with the "
-            "Lumina2 train step"
-        )
     b, h, sq, d = q.shape
     scale = d**-0.5 if scale is None else scale
     mask = None if key_mask is None else key_mask.contiguous()
@@ -475,6 +570,107 @@ def _masked_forward(q, k, v, key_mask, scale, is_causal, return_lse):
     return (out, lse) if return_lse else out
 
 
+def _check_masked_backward(q, k, v, key_mask, dout, lse, delta) -> None:
+    _check_masked(q, k, v, key_mask, dout=dout)
+    _check_row_stats(tuple(q.shape[:3]), q.device, lse=lse, delta=delta)
+
+
+def _launch_masked(which, kernel, outputs, q, k, v, key_mask, dout, lse, delta, scale, is_causal):
+    b, h, sq, d = q.shape
+    mask = None if key_mask is None else key_mask.contiguous()
+    with torch.cuda.device(q.device):
+        err = kernel(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outputs),
+            b, sq, k.shape[2], h, k.shape[1], d, int(is_causal),
+            *(t.stride(i) for t in (q, k, v, dout, *outputs) for i in range(3)),
+            float(d**-0.5 if scale is None else scale),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_masked {which} launch failed: CUDA error {err}")
+
+
+def flash_attention_masked_dkv(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: Optional[torch.Tensor],
+    dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor, scale: Optional[float] = None,
+    is_causal: bool = False,
+):
+    """(dk, dv) of :func:`flash_attention_masked` from q, k, v, the key
+    mask, the output's gradient, lse and delta (B, H, Sq); each kv head's
+    gradient sums over its query heads. Both keep k's strides where k is
+    dense."""
+    if not q.is_cuda:
+        return _masked_backward_reference(q, k, v, key_mask, lse, delta, dout, scale, is_causal)[1:]
+    _check_masked_backward(q, k, v, key_mask, dout, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_masked("dk/dv", _masked_backward_kernels()[0], (dk, dv), q, k, v, key_mask, dout,
+                   lse, delta, scale, is_causal)
+    flash_attention_masked_dkv.launches += 1
+    return dk, dv
+
+
+def flash_attention_masked_dq(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: Optional[torch.Tensor],
+    dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor, scale: Optional[float] = None,
+    is_causal: bool = False,
+):
+    """dq of :func:`flash_attention_masked` from the same inputs as
+    :func:`flash_attention_masked_dkv`, in q's strides where q is dense."""
+    if not q.is_cuda:
+        return _masked_backward_reference(q, k, v, key_mask, lse, delta, dout, scale, is_causal)[0]
+    _check_masked_backward(q, k, v, key_mask, dout, lse, delta)
+    dq = torch.empty_like(q)
+    _launch_masked("dq", _masked_backward_kernels()[1], (dq,), q, k, v, key_mask, dout,
+                   lse, delta, scale, is_causal)
+    flash_attention_masked_dq.launches += 1
+    return dq
+
+
+flash_attention_masked_dkv.launches = 0
+flash_attention_masked_dq.launches = 0
+
+
+def flash_attention_masked_backward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: Optional[torch.Tensor],
+    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, scale: Optional[float] = None,
+    is_causal: bool = False, dlse: Optional[torch.Tensor] = None,
+):
+    """(dq, dk, dv) of :func:`flash_attention_masked` from its inputs, its
+    output and lse, the output's gradient (any layout: copied only where
+    the kernels cannot read it in place) and, optionally, the lse's
+    gradient. Plain delta, then the dk/dv kernel and the dq kernel."""
+    if q.is_cuda and not _aligned(dout):
+        dout = dout.contiguous()
+    delta = flash_attention_masked_delta(out, dout, dlse)
+    dk, dv = flash_attention_masked_dkv(q, k, v, key_mask, dout, lse, delta, scale, is_causal)
+    dq = flash_attention_masked_dq(q, k, v, key_mask, dout, lse, delta, scale, is_causal)
+    return dq, dk, dv
+
+
+class _FlashAttentionMasked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, scale, is_causal, saved):
+        if saved is None:
+            out, lse = _masked_forward(q, k, v, key_mask, scale, is_causal, return_lse=True)
+        else:
+            out, lse = saved[0].detach(), saved[1].detach()
+        ctx.save_for_backward(q, k, v, key_mask, out, lse)
+        ctx.scale, ctx.is_causal = scale, is_causal
+        ctx.set_materialize_grads(False)  # an unused lse brings no gradient
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, key_mask, out, lse = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros_like(out)
+        dq, dk, dv = flash_attention_masked_backward(
+            q, k, v, key_mask, out, lse, dout, ctx.scale, ctx.is_causal, dlse
+        )
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention_masked(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: Optional[torch.Tensor] = None,
     scale: Optional[float] = None, is_causal: bool = False, return_lse: bool = False,
@@ -490,13 +686,20 @@ def flash_attention_masked(
     Masked-row rule (the kernel's, not ``plain_attention``'s): masked keys
     score a finite -1e30, so a query row with every key masked gives the
     mean of v. Causal masking is key position <= query position with no
-    Sk - Sq offset, so it is taken at sq == sk only. Forward only: CUDA
-    tensors that want a gradient raise ``NotImplementedError`` until the
-    backward kernels are ported. Other head dims than ``MASKED_HEAD_DIMS``,
-    other dtypes than bf16 and unaligned rows raise ``ValueError``."""
+    Sk - Sq offset, so it is taken at sq == sk only. Differentiable in q, k
+    and v (and through the returned lse): on the card the backward is the
+    two kernels of :func:`flash_attention_masked_backward`. Other head dims
+    than ``MASKED_HEAD_DIMS``, other dtypes than bf16 and unaligned rows
+    raise ``ValueError`` on the card."""
     if is_causal and q.shape[2] != k.shape[2]:
         raise ValueError(f"causal attention needs sq == sk here, got {q.shape[2]} and {k.shape[2]}")
-    return _masked_forward(q, k, v, key_mask, scale, is_causal, return_lse)
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
+        return _masked_forward(q, k, v, key_mask, scale, is_causal, return_lse)
+    region, saved = _replayed_saves()
+    out, lse = _FlashAttentionMasked.apply(q, k, v, key_mask, scale, is_causal, saved)
+    if region is not None and region.mode == "record":
+        region.saves.append((out.detach(), lse.detach()))
+    return (out, lse) if return_lse else out
 
 
 flash_attention_masked.launches = 0

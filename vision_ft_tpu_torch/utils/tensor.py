@@ -38,6 +38,17 @@ def incremental_seed_randn(
     return torch.stack(samples).to(dtype)
 
 
+def image_to_tensor(image: Image.Image, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """PIL image -> HWC float in [-1, 1]."""
+    arr = np.asarray(image.convert("RGB"), dtype=np.float32) / 127.5 - 1.0
+    return torch.from_numpy(arr).to(dtype)
+
+
+def images_to_tensor(images: list[Image.Image], dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """PIL images of one size -> NHWC float in [-1, 1]."""
+    return torch.stack([image_to_tensor(im, dtype) for im in images])
+
+
 def tensor_to_images(tensor: torch.Tensor) -> list[Image.Image]:
     """NHWC float in [-1, 1] -> PIL images."""
     arr = tensor.clamp(-1.0, 1.0).float().cpu().numpy()

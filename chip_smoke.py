@@ -78,6 +78,27 @@ Phases, each printing its own lines; any failure exits non-zero:
     groups, and a depth-reduced step against the plain versions; first, one
     step with LoRA on the attention only, where kernel F runs forward.
 
+15. kernels H and I, the short-K attention forward and its backward (SDXL's
+    cross-attention, the whole 77- to 192-key context on chip), against
+    their plain versions at the requests', the ragged buckets' and the
+    train step's shapes (77 and 152 keys), at 192 keys, head dim 128 and
+    with a batch entry of zero q rows; reruns bit-identical; SDPA's forward
+    and backward beside them.
+16. SDXL requests with the switches on, the SDXL model made again on the
+    card: the 1024 px request with set_flash_shortk(True) (kernel H in
+    every cross-attention) and with set_fused_ff("on") (kernel F in every
+    feed-forward), each against the default route's latents, with launch
+    counts.
+17. the Trainer path at full SDXL width: a seeded bf16 checkpoint written
+    with the port's state_dict() to safetensors, 8 seeded images in two
+    buckets, configs/sdxl/text_to_image_lora.yml with 75-token prompts,
+    batch 2, one epoch, a 1-prompt preview, through the train script's
+    registrations with the short-K kernels on (cached latents and text,
+    schedule-free RAdam, LoRA on attn1/attn2/ff). Checks the losses, the
+    frozen base against the file, the adapters, the saved LoRA file's keys,
+    the preview image, the launch counts of a step in both checkpointing
+    modes, and one step's loss against the same step with the kernels off.
+
 Every kernel's record carries its time, its plain version's, the bound
 (the larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s bf16, or
 67 TFLOP/s for the fp32 LayerNorm arithmetic, from this run's shapes) and
@@ -92,6 +113,7 @@ import contextlib
 import functools
 import gc
 import json
+import shutil
 import statistics
 import subprocess
 import tempfile
@@ -100,6 +122,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from PIL import Image
 
 # max |kernel - plain| / max |plain|, bf16 outputs at O(1) scale: both
 # versions round to bf16 at other places (online rescaling, the output
@@ -202,6 +225,28 @@ FUSED_MLP_SHAPES = [  # (M, C, inner, act, biases); the first is the main stack'
     (1001, 1280, 5120, "gelu_tanh", True),
 ]
 GEGLU_SHAPE = (16384, 640, 2560)  # SDXL's first stage at 1024 px, batch 4
+SHORTK_KERNELS = ("flash_attention_shortk", "flash_attention_shortk_bwd")
+# kernels H and I against their plain versions: the forward rounds P to
+# bf16 before P V and normalizes after, as kernel E; the backward rounds P
+# and dS to bf16 where the plain backward does and sums dk and dv over q in
+# another order (per block, then in split order): relative to the output's
+# largest value, kernel E's limit and 3e-2 for the gradients
+SHORTK_TOL, SHORTK_BWD_TOL = 2e-2, 3e-2
+SHORTK_SHAPES = [  # (B, H, Sq, Sk, D, zero_batch): the request's two stages at 1024 px
+    (2, 10, 4096, 77, 64, False), (2, 20, 1024, 77, 64, False),
+    (2, 10, 3952, 77, 64, False), (2, 20, 988, 77, 64, False),    # ragged: 832x1216
+    (4, 10, 4096, 77, 64, False), (4, 20, 1024, 77, 64, False),   # the batch-4 train step
+    (4, 10, 4096, 152, 64, False), (4, 20, 1024, 152, 64, False),  # 150-token prompts
+    (2, 10, 1024, 192, 64, False), (2, 8, 1024, 77, 128, False),  # SHORTK_MAX keys, D 128
+    (2, 10, 1024, 77, 64, True),                                  # a batch entry of zero q rows
+]
+SHORTK_TRAIN_SHAPE = 4  # the index of the train step's shape, kernel I's record
+# the 1024 px request with the short-K kernels (or the fused feed-forward)
+# against the default route: every one of 70 attentions (feed-forwards)
+# differs by a few bf16 ulps and 8 steps with guidance 5 carry them on;
+# relative to the latents' largest value, the limit of the Lumina2 requests
+ROUTE_REQUEST_TOL = 3e-2
+TRAINER_IMAGES = [(1024, 1024)] * 4 + [(832, 1216)] * 4  # (width, height)
 LUMINA_KERNELS = ("flash_attention_masked", "gated_mlp", "flash_attention_masked_dkv",
                   "flash_attention_masked_dq")
 STEPS = 8
@@ -258,14 +303,14 @@ def sdpa_heads(t, h):
 
 
 def write_vocab(path: Path) -> None:
-    """A small CLIP BPE vocab: the 26 letters (with and without the
-    end-of-word mark), a few merges, and bos/eos at CLIP's own ids, so
+    """A small CLIP BPE vocab: the 26 letters and the comma (with and
+    without the end-of-word mark), a few merges, and bos/eos at CLIP's own ids, so
     that the towers' pooled token (id vocab_size - 1) is the real eos."""
     vocab = {}
     for ch in "abcdefghijklmnopqrstuvwxyz":
         vocab[ch] = len(vocab)
         vocab[ch + "</w>"] = len(vocab)
-    for token in ("th", "the</w>", "ca", "cat</w>", "on</w>", "of</w>"):
+    for token in ("th", "the</w>", "ca", "cat</w>", "on</w>", "of</w>", ",", ",</w>"):
         vocab[token] = len(vocab)
     vocab["<|startoftext|>"] = 49406
     vocab["<|endoftext|>"] = 49407
@@ -299,7 +344,17 @@ def plain_versions():
 
     saved = (flash._forward, flash.flash_attention_bshd_backward, ln._forward)
     saved_nf4 = (nf4.nf4_matmul_forward, nf4.nf4_matmul_dx)
+    def shortk_forward(q, k, v, scale, return_lse):
+        if return_lse:
+            return flash.flash_attention_shortk_reference(q, k, v, scale, return_lse=True)
+        return flash.flash_attention_shortk_reference(q, k, v, scale), None
+
+    def shortk_backward(q, k, v, out, lse, dout, scale=None):
+        return flash.flash_attention_shortk_backward_reference(q, k, v, out, lse, dout, scale)
+
     saved_lumina = (flash._masked_forward, mlp._forward, flash.flash_attention_masked_backward)
+    saved_shortk = (flash._shortk_forward, flash.flash_attention_shortk_backward)
+    flash._shortk_forward, flash.flash_attention_shortk_backward = shortk_forward, shortk_backward
     flash._forward, flash.flash_attention_bshd_backward = forward, backward
     flash._masked_forward, mlp._forward = flash.flash_attention_reference, mlp_forward
     flash.flash_attention_masked_backward = flash.flash_attention_masked_backward_reference
@@ -311,12 +366,14 @@ def plain_versions():
         flash._forward, flash.flash_attention_bshd_backward, ln._forward = saved
         nf4.nf4_matmul_forward, nf4.nf4_matmul_dx = saved_nf4
         flash._masked_forward, mlp._forward, flash.flash_attention_masked_backward = saved_lumina
+        flash._shortk_forward, flash.flash_attention_shortk_backward = saved_shortk
 
 
 # kernel-name fragments -> kind, first match wins (torch.profiler's names)
 KERNEL_KINDS = [
     ("flash_bwd_dkv_masked", "kernel G dk/dv"), ("flash_bwd_dq_masked", "kernel G dq"),
     ("flash_fwd_masked", "kernel E"), ("fused_gated_mlp", "kernel F"),
+    ("shortk_fwd", "kernel H"), ("shortk_bwd", "kernel I"),
     ("flash_bwd_dkv_bshd", "kernel C dk/dv"), ("flash_bwd_dq_bshd", "kernel C dq"),
     ("flash_fwd_bshd", "kernel B"), ("layer_norm_fwd", "kernel A"),
     ("nf4_matmul_kernel<true>", "kernel D dx"), ("nf4_matmul_kernelILb1", "kernel D dx"),
@@ -452,6 +509,8 @@ def main() -> None:
         flash_attention_masked, flash_attention_masked_backward,
         flash_attention_masked_backward_reference, flash_attention_masked_delta,
         flash_attention_masked_dkv, flash_attention_masked_dq, flash_attention_reference,
+        flash_attention_shortk, flash_attention_shortk_backward_reference,
+        flash_attention_shortk_bwd, flash_attention_shortk_reference, set_flash_shortk,
     )
     from vision_ft_tpu_torch.ops.fused_mlp import (
         gated_mlp, gated_mlp_reference, geglu_mlp, set_fused_ff,
@@ -473,8 +532,12 @@ def main() -> None:
         "gated_mlp": gated_mlp,
         "flash_attention_masked_dkv": flash_attention_masked_dkv,
         "flash_attention_masked_dq": flash_attention_masked_dq,
+        "flash_attention_shortk": flash_attention_shortk,
+        "flash_attention_shortk_bwd": flash_attention_shortk_bwd,
     }
-    no_lumina = {name: 0 for name in LUMINA_KERNELS}  # the SDXL paths launch none of them
+    # the SDXL paths of phases 4-9 launch none of them (the short-K kernels
+    # are off there, as by default)
+    no_lumina = {name: 0 for name in (*LUMINA_KERNELS, *SHORTK_KERNELS)}
 
     def reset_launches():
         for wrapper in wrappers.values():
@@ -486,7 +549,8 @@ def main() -> None:
     phase("1 build")
     start = time.perf_counter()
     cuda_sources = ["flash_attention_bshd", "flash_attention_bshd_bwd", "nf4_matmul",
-                    "flash_attention_masked", "fused_mlp", "flash_attention_masked_bwd"]
+                    "flash_attention_masked", "fused_mlp", "flash_attention_masked_bwd",
+                    "flash_attention_shortk"]
     _build.build_cuda_libraries(cuda_sources)
     nvcc_s = time.perf_counter() - start
     start = time.perf_counter()
@@ -863,7 +927,7 @@ def main() -> None:
     with plain_versions():
         plain_loss, plain_norm = loss_and_norm()
     on_path = [n for name, n in used.items()  # a dense base, an SDXL step
-               if not name.startswith("nf4_") and name not in LUMINA_KERNELS]
+               if not name.startswith("nf4_") and name not in (*LUMINA_KERNELS, *SHORTK_KERNELS)]
     if read_launches() != used or min(on_path) == 0:
         raise AssertionError(f"the plain step launched a kernel, or the kernel step none: {used}")
     loss_rel = abs(kernel_loss - plain_loss) / abs(plain_loss)
@@ -1091,7 +1155,8 @@ def main() -> None:
     used = read_launches()
     with plain_versions():
         plain_loss, plain_norm = loss_and_norm()
-    if read_launches() != used or min(n for name, n in used.items() if name not in LUMINA_KERNELS) == 0:
+    if read_launches() != used or min(
+            n for name, n in used.items() if name not in (*LUMINA_KERNELS, *SHORTK_KERNELS)) == 0:
         raise AssertionError(f"the plain step launched a kernel, or the kernel step none: {used}")
     loss_rel = abs(kernel_loss - plain_loss) / abs(plain_loss)
     norm_rel = abs(kernel_norm - plain_norm) / abs(plain_norm)
@@ -1715,12 +1780,311 @@ def main() -> None:
         raise AssertionError("the Lumina2 kernel step and the plain step disagree")
     del kernel_grads, plain_grads, params, state, frozen, second
 
+    # the Lumina2 model leaves the card before the SDXL phases 15-17
+    for part in (lumina.denoiser, lumina.text_encoder, lumina.vae):
+        part.to("meta")
+    del small, train_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("15 kernels H and I: short-K attention forward and backward vs plain (bf16)")
+    from vision_ft_tpu_torch.ops.flash_attention import (
+        _masked_backward_reference, flash_attention_masked_delta as shortk_delta,
+    )
+
+    h_errs, i_errs, h_rows, i_rows = [], [], [], []
+    for b, h, sq, sk, d, zero_batch in SHORTK_SHAPES:
+        # SDXL's layout: (B, H, S, D) views of (B, S, H*D) projections
+        heads = lambda t: t.view(b, t.shape[1], h, d).transpose(1, 2)  # noqa: E731
+        q = torch.randn(b, sq, h * d, device=device, generator=gen).bfloat16()
+        if zero_batch:
+            q[-1] = 0
+        k, v = (torch.randn(b, sk, h * d, device=device, generator=gen).bfloat16() for _ in "kv")
+        dout = torch.randn(b, sq, h * d, device=device, generator=gen).bfloat16()
+        q, k, v, dout = (heads(t) for t in (q, k, v, dout))
+        out, lse = flash_attention_shortk(q, k, v, return_lse=True)
+        fwd_err = compare(f"short-K forward {(b, h, sq, sk, d)}", lambda: out,
+                          lambda: flash_attention_shortk_reference(q, k, v), SHORTK_TOL)
+        delta = shortk_delta(out, dout)
+        grads = flash_attention_shortk_bwd(q, k, v, dout, lse, delta)
+        again = (flash_attention_shortk(q, k, v), *flash_attention_shortk_bwd(q, k, v, dout, lse, delta))
+        if not all(torch.equal(a, b_) for a, b_ in zip((out, *grads), again)):
+            raise AssertionError(f"short-K {(b, h, sq, sk, d)}: a rerun differs")
+        want = flash_attention_shortk_backward_reference(q, k, v, out, lse, dout)
+        bwd_err = {n: compare(f"short-K backward {(b, h, sq, sk, d)} {n}", lambda: g_,
+                              lambda: w_, SHORTK_BWD_TOL)
+                   for n, g_, w_ in zip(("dq", "dk", "dv"), grads, want)}
+        del want
+        fwd_ms = cuda_ms(lambda: flash_attention_shortk(q, k, v, return_lse=True))
+        bwd_ms = cuda_ms(lambda: flash_attention_shortk_bwd(q, k, v, dout, lse, delta))
+        plain_fwd_ms = cuda_ms(lambda: flash_attention_shortk_reference(q, k, v, return_lse=True),
+                               iters=5)
+        plain_bwd_ms = cuda_ms(
+            lambda: _masked_backward_reference(q, k, v, None, lse, delta, dout, None, False), iters=5)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        sdpa_fwd_ms = cuda_ms(lambda: sdpa(q, k, v))
+        sdpa_out = sdpa(*leaves)
+        sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(sdpa_out, leaves, dout, retain_graph=True))
+        q_bytes, k_bytes, row_bytes = b * h * sq * d * 2, b * h * sk * d * 2, b * h * sq * 4
+        fwd_bound = bound(2 * q_bytes + 2 * k_bytes + row_bytes, 4 * b * h * sq * sk * d)
+        # S, dP, dV, dK, dQ: 5 products; q, dO, dq, k, v, dk, dv, lse, delta
+        bwd_bound = bound(3 * q_bytes + 4 * k_bytes + 2 * row_bytes, 10 * b * h * sq * sk * d)
+        print(f"B={b} H={h} Sq={sq} Sk={sk} D={d}{' zero q batch' if zero_batch else ''}: forward "
+              f"max abs err {fwd_err[0]:.3e} rel {fwd_err[1]:.3e} (tol {SHORTK_TOL}), "
+              + ", ".join(f"{n} {a:.3e} rel {r:.3e}" for n, (a, r) in bwd_err.items())
+              + f" (tol {SHORTK_BWD_TOL}), reruns bit-identical; kernel H {fwd_ms:.4f} ms (plain "
+              f"{plain_fwd_ms:.3f}, bound {fwd_bound[0]:.4f} {fwd_bound[1]}, SDPA {sdpa_fwd_ms:.4f}), "
+              f"kernel I {bwd_ms:.4f} ms (plain {plain_bwd_ms:.3f}, bound {bwd_bound[0]:.4f} "
+              f"{bwd_bound[1]}, SDPA backward {sdpa_bwd_ms:.4f})")
+        h_errs.append(fwd_err[0])
+        i_errs.append(max(a for a, _ in bwd_err.values()))
+        h_rows.append(dict(ms=fwd_ms, plain_ms=plain_fwd_ms, bound_ms=fwd_bound[0],
+                           bound_by=fwd_bound[1], library_ms=sdpa_fwd_ms))
+        i_rows.append(dict(ms=bwd_ms, plain_ms=plain_bwd_ms, bound_ms=bwd_bound[0],
+                           bound_by=bwd_bound[1], library_ms=sdpa_bwd_ms))
+        del q, k, v, dout, out, lse, delta, grads, again, leaves, sdpa_out
+    # kernel H's record at the request's first shape, kernel I's at the train step's
+    records["flash_attention_shortk"] = dict(
+        route="cuda", source="vision_ft_tpu_torch/csrc/flash_attention_shortk.cu",
+        replaces="vision_ft_tpu/ops/pallas/flash_attention.py:1226",
+        max_abs_err=max(h_errs), **h_rows[0])
+    records["flash_attention_shortk_bwd"] = dict(
+        route="cuda", source="vision_ft_tpu_torch/csrc/flash_attention_shortk.cu",
+        replaces="vision_ft_tpu/ops/pallas/flash_attention.py:1256",
+        max_abs_err=max(i_errs), **i_rows[SHORTK_TRAIN_SHAPE])
+
+    phase("16 SDXL requests with the short-K kernels and the fused feed-forward on")
+    from vision_ft_tpu_torch.models.sdxl.denoiser import CrossAttention, FeedForward
+
+    with tempfile.TemporaryDirectory() as vocab_dir:
+        write_vocab(Path(vocab_dir))
+        tokenizer = CLIPTokenizer.from_pretrained_dir(vocab_dir)
+        model = Model(SDXLConfig(checkpoint_path="", dtype="bfloat16"), tokenizer=tokenizer)
+    model.init_params(torch.Generator(device=device).manual_seed(0))
+    cross = sum(isinstance(m, CrossAttention) and not isinstance(m, SelfAttention)
+                for m in model.denoiser.modules())
+    ffs = sum(isinstance(m, FeedForward) for m in model.denoiser.modules())
+    kwargs = requests[0][1]
+    steps = len(model.scheduler.get_timesteps(STEPS))
+
+    def routed_request(label):
+        reset_launches()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        model.generate(num_inference_steps=STEPS, **kwargs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        return model.last_latents.float(), read_launches(), seconds
+
+    routed_request("warm-up")  # the model was just made: a first request allocates
+    base_latents, base_launches, base_s = routed_request("default")
+    route_launches = {}
+    for label, switch_on, switch_off, kernel in (
+        ("short-K", lambda: set_flash_shortk(True), lambda: set_flash_shortk(False),
+         "flash_attention_shortk"),
+        ("fused feed-forward", lambda: set_fused_ff("on"), lambda: set_fused_ff("auto"),
+         "gated_mlp"),
+    ):
+        switch_on()
+        try:
+            latents, launches, seconds = routed_request(label)
+        finally:
+            switch_off()
+        route_launches[kernel] = launches
+        err = (latents - base_latents).abs().max().item() / base_latents.abs().max().item()
+        want = {**base_launches, kernel: (cross if kernel == "flash_attention_shortk" else ffs) * steps}
+        print(f"1024 px request, {label} on: {seconds:.3f} s (default route {base_s:.3f} s); "
+              f"latents vs the default route rel {err:.3e} (tol {ROUTE_REQUEST_TOL}); "
+              f"{kernel} launches {launches[kernel]} ({cross if kernel.endswith('shortk') else ffs} a "
+              f"CFG forward x {steps} steps), kernel I {launches['flash_attention_shortk_bwd']}")
+        if not torch.isfinite(latents).all() or err > ROUTE_REQUEST_TOL:
+            raise AssertionError(f"request with {label} on: latents off by {err:.3e}")
+        if launches != want:
+            raise AssertionError(f"request with {label} on: launch counts {launches} != {want}")
+    del base_latents, latents
+
+    phase("17 the Trainer at full SDXL width: checkpoint, datasets, LoRA, saving, preview")
+    import yaml
+
+    from vision_ft_tpu_torch.config import TrainConfig
+    from vision_ft_tpu_torch.models.sdxl.util import convert_to_comfy_key
+    from vision_ft_tpu_torch.train.sdxl.text_to_image import build_trainer
+    from vision_ft_tpu_torch.utils import safetensors as st
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_trainer_"))
+    try:
+        write_vocab(work)
+        images_dir = work / "images"
+        images_dir.mkdir()
+        img_rng = np.random.default_rng(0)
+        for i, (w, h) in enumerate(TRAINER_IMAGES):
+            smooth = img_rng.integers(0, 255, (h // 32, w // 32, 3), dtype=np.uint8)
+            Image.fromarray(smooth).resize((w, h), Image.BILINEAR).save(images_dir / f"{i}.png")
+            (images_dir / f"{i}.txt").write_text(  # the synthetic vocab's letters and commas
+                f"a photo of the cat, {'abcdefgh'[i] * 3}, on the sofa")
+        ckpt = work / "sdxl.safetensors"
+        start = time.perf_counter()
+        st.save_file(model.state_dict(), ckpt)
+        write_s = time.perf_counter() - start
+        for part in model._parts().values():  # the Trainer loads its own model from the file
+            part.to("meta")
+        gc.collect()
+        torch.cuda.empty_cache()
+        (work / "preview.yml").write_text(yaml.safe_dump([dict(
+            prompt="a photo of the cat on the sofa", negative_prompt="blurry", height=1024,
+            width=1024, cfg_scale=5.0, num_steps=STEPS, seed=0)]))
+        raw = yaml.safe_load(Path("configs/sdxl/text_to_image_lora.yml").read_text())
+        raw["model"].update(checkpoint_path=str(ckpt), max_token_length=75,
+                            tokenizer_path=str(work))
+        raw["dataset"].update(folder=str(images_dir), num_repeats=1, batch_size=2)
+        raw["num_train_epochs"] = 1
+        raw["saving"]["callbacks"][0]["save_dir"] = str(work / "lora")
+        raw["preview"]["callbacks"][0]["save_dir"] = str(work / "preview")
+        raw["preview"]["data"]["path"] = str(work / "preview.yml")
+        raw["trainer"]["mesh"] = {"data": 1, "fsdp": 1, "tensor": 1}
+        config = TrainConfig.model_validate(raw, strict=True)
+        print(f"checkpoint {ckpt.stat().st_size / 1e9:.3f} GB written in {write_s:.1f} s; config "
+              f"{config.optimizer.name} {config.optimizer.args}, LoRA {config.peft.config.rank} on "
+              f"{config.peft.include_keys}, batch {config.dataset['batch_size']}, "
+              f"{config.model.get('max_token_length')} tokens, cached latents and text")
+
+        set_flash_shortk(True)
+        trainer = build_trainer(config)
+        step_log = []  # (seconds, loss, launches) per step, read around the step alone
+        load_s = []
+        setup_model = trainer.model.setup_model
+
+        def timed_setup():
+            start = time.perf_counter()
+            setup_model()
+            torch.cuda.synchronize()
+            load_s.append(time.perf_counter() - start)
+
+        trainer.model.setup_model = timed_setup
+        prepare_optimizer = trainer.prepare_optimizer
+
+        def prepare_and_time():
+            prepare_optimizer()
+            inner = trainer._step
+
+            def timed(state, batch, generator):
+                torch.cuda.synchronize()
+                before = read_launches()
+                start = time.perf_counter()
+                state, metrics = inner(state, batch, generator)
+                loss = metrics["train/loss"].item()
+                torch.cuda.synchronize()
+                after = read_launches()
+                step_log.append((time.perf_counter() - start, loss,
+                                 {k: after[k] - before[k] for k in after}, batch))
+                return state, metrics
+
+            trainer._step = timed
+
+        trainer.prepare_optimizer = prepare_and_time
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        reset_launches()
+        trainer.train()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - start
+        trainer_launches = read_launches()  # the whole run, with its preview, for the record
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        losses = [loss for _, loss, _, _ in step_log]
+        step_ms = statistics.median(t for t, _, _, _ in step_log[1:]) * 1e3
+        print(f"trainer.train(): {run_s:.1f} s with the checkpoint load {load_s[0]:.1f} s; "
+              f"{len(step_log)} steps, losses {[round(x, 6) for x in losses]}; "
+              f"{step_ms:.1f} ms/step (median after the first, host clock, synchronized), "
+              f"{config.dataset['batch_size'] / step_ms * 1e3:.3f} images/s, peak {peak_gib:.2f} GiB")
+        if len(step_log) != len(TRAINER_IMAGES) // 2 or not all(np.isfinite(losses)):
+            raise AssertionError(f"trainer steps: {losses}")
+
+        sdxl = trainer.model.model
+        unet = trainer.model.model.denoiser
+        unet_ln = sum(isinstance(m, LayerNorm) for m in unet.modules())
+        want_step = {name: 0 for name in wrappers}
+        want_step.update({
+            "flash_attention_shortk": cross, "flash_attention_shortk_bwd": cross,
+            "flash_attention_bshd": unet_attn, "flash_attention_bshd_dkv": unet_attn,
+            "flash_attention_bshd_dq": unet_attn, "layer_norm": 2 * unet_ln})
+        for i, (_, _, launches, _) in enumerate(step_log):
+            if launches != want_step:
+                raise AssertionError(f"trainer step {i + 1}: launches {launches} != {want_step}")
+        print(f"launches every step {want_step}, as expected")
+
+        # the frozen base against the file, tensor for tensor
+        live = sdxl.state_dict()
+        from_file = st.load_file(ckpt)
+        changed = [k for k, v in from_file.items()
+                   if not torch.equal(live[k].cpu(), v.to(live[k].dtype))]
+        if changed:
+            raise AssertionError(f"frozen tensors changed: {changed[:3]}")
+        print(f"{len(from_file)} base tensors bit-identical to the checkpoint file")
+        del from_file, live
+
+        saved = sorted((work / "lora").glob("*.safetensors"))
+        lora_state = st.load_file(saved[-1]) if saved else {}
+        adapters = {k for k, _ in trainer.model.get_params().named_parameters()
+                    if "lora_" in k} | {k for k, _ in trainer.model.get_params().named_buffers()
+                                        if k.endswith(".alpha")}
+        want_keys = {convert_to_comfy_key(k) for k in adapters}
+        if len(saved) != 1 or set(lora_state) != want_keys or len(want_keys) != 3 * 10 * unet_attn:
+            raise AssertionError(f"saved LoRA files {saved}: {len(lora_state)} keys, expected "
+                                 f"{len(want_keys)}")
+        ups = [v for k, v in lora_state.items() if k.endswith("lora_up.weight")]
+        if not any(bool(u.float().abs().max() > 0) for u in ups):
+            raise AssertionError("the saved lora_up weights are all zero: nothing trained")
+        print(f"saved {saved[-1].name}: {len(lora_state)} keys (lora_down, lora_up, alpha of "
+              f"{len(lora_state) // 3} Linears, ComfyUI names), lora_up moved off zero")
+
+        previews = sorted((work / "preview").glob("*"))
+        if len(previews) != 1 or Image.open(previews[0]).size != (1024, 1024):
+            raise AssertionError(f"preview images {previews}")
+        print(f"preview {previews[0].name}: {Image.open(previews[0]).size}")
+
+        # one more step of the last batch with nothing kept by the checkpoints
+        *_, last_batch = step_log[-1]
+        set_remat_saves("none")
+        try:
+            trainer.state, _ = trainer._step(
+                trainer.state, last_batch, torch.Generator(device=device).manual_seed(5))
+        finally:
+            set_remat_saves("kernel")
+        none_launches = step_log[-1][2]
+        want_none = {**want_step, "flash_attention_shortk": 2 * cross,
+                     "flash_attention_bshd": 2 * unet_attn}
+        print(f"a step with remat saves none: launches {none_launches}, expected {want_none}")
+        if none_launches != want_none:
+            raise AssertionError(f"trainer step (none): launches {none_launches} != {want_none}")
+
+        # the same step's loss with the short-K kernels off (the plain formula)
+        def step_loss():
+            with torch.no_grad():
+                loss, _ = trainer.model.loss_fn(last_batch, torch.Generator(device=device).manual_seed(6))
+            return loss.item()
+
+        on_loss = step_loss()
+        set_flash_shortk(False)
+        off_loss = step_loss()
+        rel = abs(on_loss - off_loss) / abs(off_loss)
+        print(f"one step's loss, short-K kernels on vs off: {on_loss:.6f} vs {off_loss:.6f} "
+              f"(rel {rel:.3e}, tol {STEP_LOSS_TOL})")
+        if rel > STEP_LOSS_TOL:
+            raise AssertionError("the trainer's loss with the short-K kernels disagrees")
+    finally:
+        set_flash_shortk(False)
+        shutil.rmtree(work, ignore_errors=True)
+
     kernels = []
     for name, record in records.items():
         launches = {"generate": generate_launches[name], "train": train_launches[name],
                     "nf4_train": nf4_train_launches[name], "nf4_generate": nf4_generate_launches[name],
                     "lumina2_generate": lumina_launches[name],
-                    "lumina2_train": lumina_train_launches[name]}
+                    "lumina2_train": lumina_train_launches[name],
+                    "sdxl_shortk_generate": route_launches["flash_attention_shortk"][name],
+                    "sdxl_fused_ff_generate": route_launches["gated_mlp"][name],
+                    "trainer": trainer_launches[name]}
         kernels.append({
             "name": name,
             **{k: record[k] for k in ("route", "source", "replaces")},

@@ -23,6 +23,12 @@ from vision_ft_tpu_torch.ops.flash_attention import (
     flash_attention_masked_dkv,
     flash_attention_masked_dq,
     flash_attention_reference,
+    flash_attention_shortk,
+    flash_attention_shortk_backward,
+    flash_attention_shortk_backward_reference,
+    flash_attention_shortk_bwd,
+    flash_attention_shortk_reference,
+    set_flash_shortk,
 )
 from vision_ft_tpu_torch.ops.fused_mlp import gated_mlp, gated_mlp_reference, geglu_mlp
 from vision_ft_tpu_torch.modules.quant.nf4 import quantize_4bit
@@ -65,6 +71,11 @@ BF16_FUSED_MLP_TOL = 2e-2
 # (exp2 with log2 e folded in), in summation order (dk and dv sum up to 3
 # query heads more) and in each output's bf16 rounding: kernel C's limit
 BF16_MASKED_BWD_TOL = 2e-2
+# The short-K kernels against their plain versions: the forward as kernel
+# E (2e-2 of the output's largest value); the backward rounds P and dS to
+# bf16 where the plain backward does and sums dk and dv over q in another
+# order (partials per block, then in split order): 3e-2
+BF16_SHORTK_TOL, BF16_SHORTK_BWD_TOL = 2e-2, 3e-2
 
 
 @pytest.mark.cuda
@@ -614,3 +625,102 @@ def test_lumina2_block_runs_both_kernels_under_the_gate_on_card(cuda):
     assert torch.isfinite(fused).all()
     err = (fused.float() - plain.float()).abs().max().item()
     assert err <= 5e-2 * plain.float().abs().max().item()
+
+
+def _shortk_inputs(cuda, b, h, sq, sk, d, zero_batch=False, seed=0):
+    """q, k, v as SDXL's cross-attention hands them over: (B, H, S, D) views
+    of the (B, S, H*D) projections; with ``zero_batch`` the last batch entry's
+    q rows are zeros, as padding would be."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(b, sq, h * d, device=cuda, generator=g).bfloat16()
+    if zero_batch:
+        q[-1] = 0
+    k, v = (torch.randn(b, sk, h * d, device=cuda, generator=g).bfloat16() for _ in range(2))
+    heads = lambda t: t.view(b, t.shape[1], h, d).transpose(1, 2)  # noqa: E731
+    dout = torch.randn(b, sq, h * d, device=cuda, generator=g).bfloat16()
+    return heads(q), heads(k), heads(v), heads(dout)
+
+
+SHORTK_SHAPES = [
+    (2, 10, 4096, 77, 64, False),   # the 1024 px request's 640-wide stage
+    (2, 20, 1024, 77, 64, False),   # and its 1280-wide stage
+    (2, 10, 3952, 77, 64, False),   # ragged: 832x1216
+    (2, 20, 988, 152, 64, False),   # ragged, 150-token prompts
+    (4, 10, 4096, 152, 64, False),  # the batch-4 train step
+    (1, 4, 300, 192, 64, False),    # SHORTK_MAX keys
+    (1, 4, 300, 5, 128, False),     # head dim 128, few keys
+    (2, 4, 200, 77, 64, True),      # a batch entry of zero (padding) q rows
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,sq,sk,d,zero_batch", SHORTK_SHAPES)
+def test_shortk_kernels_match_plain_on_card(cuda, b, h, sq, sk, d, zero_batch):
+    q, k, v, dout = _shortk_inputs(cuda, b, h, sq, sk, d, zero_batch)
+    before = (flash_attention_shortk.launches, flash_attention_shortk_bwd.launches)
+    out, lse = flash_attention_shortk(q, k, v, return_lse=True)
+    grads = flash_attention_shortk_backward(q, k, v, out, lse, dout)
+    again = flash_attention_shortk_backward(q, k, v, out, lse, dout)
+    out2 = flash_attention_shortk(q, k, v)
+    torch.cuda.synchronize()
+    assert (flash_attention_shortk.launches, flash_attention_shortk_bwd.launches) == (
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(out, out2)
+    for got, rerun in zip(grads, again):
+        assert torch.equal(got, rerun)  # no atomics: partials summed in a fixed order
+    assert out.stride() == q.stride() and grads[0].stride() == q.stride()
+    assert grads[1].stride() == k.stride() and grads[2].stride() == v.stride()
+    want, want_lse = flash_attention_shortk_reference(q, k, v, return_lse=True)
+    assert (out.float() - want.float()).abs().max().item() <= (
+        BF16_SHORTK_TOL * want.float().abs().max().item())
+    assert (lse - want_lse).abs().max().item() <= 1e-3 * want_lse.abs().max().item() + 1e-3
+    want_grads = flash_attention_shortk_backward_reference(q, k, v, out, lse, dout)
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, want_grads):
+        assert torch.isfinite(got).all(), name
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= BF16_SHORTK_BWD_TOL * ref.float().abs().max().item(), name
+
+
+@pytest.mark.cuda
+def test_shortk_routing_and_autograd_on_card(cuda):
+    """With the switch on, a 77-key call without mask takes kernel H forward
+    and kernel I backward through the routing; a mask, causal masking or
+    193 keys keep the plain formula; off, nothing launches."""
+    q, k, v, dout = _shortk_inputs(cuda, 2, 4, 256, 77, 64, seed=1)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    counts = lambda: (flash_attention_shortk.launches, flash_attention_shortk_bwd.launches)  # noqa: E731
+    before = counts()
+    flash_attention(q, k, v)
+    assert counts() == before
+    set_flash_shortk(True)
+    try:
+        got = torch.autograd.grad((flash_attention(*leaves).float() * dout.float()).sum(), leaves)
+        assert counts() == (before[0] + 1, before[1] + 1)
+        flash_attention(q, k, v, mask=torch.ones(2, 1, 1, 77, dtype=torch.bool, device=cuda))
+        q2, k2, v2, _ = _shortk_inputs(cuda, 1, 2, 64, 193, 64)
+        flash_attention(q2, k2, v2)
+        flash_attention(q[..., :77, :], k, v, is_causal=True)
+        assert counts() == (before[0] + 1, before[1] + 1)
+    finally:
+        set_flash_shortk(False)
+    with torch.no_grad():
+        out, lse = flash_attention_shortk(q, k, v, return_lse=True)
+        want = flash_attention_shortk_backward(q, k, v, out, lse, dout)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_shortk_kernels_reject_what_they_cannot_take_on_card(cuda):
+    q, k, v, dout = _shortk_inputs(cuda, 1, 2, 64, 77, 64)
+    q96 = torch.randn(1, 2, 64, 96, device=cuda).bfloat16()
+    k96 = torch.randn(1, 2, 77, 96, device=cuda).bfloat16()
+    lse = torch.zeros(1, 2, 64, device=cuda)
+    for bad in (
+        lambda: flash_attention_shortk(q96, k96, k96),                    # head dim 96
+        lambda: flash_attention_shortk(q.float(), k.float(), v.float()),  # fp32
+        lambda: flash_attention_shortk(q, *_shortk_inputs(cuda, 1, 2, 64, 193, 64)[1:3]),
+        lambda: flash_attention_shortk_bwd(q96, k96, k96, q96, lse, lse),
+    ):
+        with pytest.raises(ValueError):
+            bad()

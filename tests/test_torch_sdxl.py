@@ -334,3 +334,82 @@ def test_init_params_on_a_generator():
     assert not any(p.is_meta for p in model.denoiser.parameters())
     images = model.generate("a cat", width=64, height=64, num_inference_steps=2, seed=1)
     assert np.isfinite(np.asarray(images[0], np.float32)).all()
+
+
+def _feed_forward_pair(c=128, seed=0):
+    """The SDXL FeedForward at (c, 4c) in both packages, the same numpy weights."""
+    from vision_ft_tpu.models.sdxl.denoiser import FeedForward as JaxFeedForward
+
+    from vision_ft_tpu_torch.models.sdxl.denoiser import FeedForward
+
+    jax_ff = JaxFeedForward(c)
+    flat = _random_params(jax.eval_shape(jax_ff.init, jax.random.key(0)), seed)
+    with torch.device("meta"):
+        ff = FeedForward(c)
+    return jax_ff, jnn.unflatten_params({k: jnp.asarray(v) for k, v in flat.items()}), \
+        tnn.load_flat_params(ff, flat)
+
+
+@pytest.mark.parametrize("adapter", [False, True], ids=["dense", "lora"])
+def test_feed_forward_takes_the_fused_route_under_its_gate(monkeypatch, adapter):
+    """The JAX _fused_ff_applies route of the SDXL FeedForward: with the
+    fused feed-forward gate open (on the card set_fused_ff("on") and bf16
+    CUDA activations; here the gate is opened for CPU tensors), a dense
+    GeGLU with biases goes to geglu_mlp (its plain version on the CPU) and
+    matches the JAX package's geglu_mlp kernel (interpret mode) within fp32
+    rounding (2e-5 on O(1) values); a LoRA on the layer keeps the plain
+    route, as in the JAX package."""
+    from vision_ft_tpu.ops.pallas import fused_mlp as jax_fused
+
+    import vision_ft_tpu_torch.models.sdxl.denoiser as denoiser_module
+    from vision_ft_tpu_torch.modules import peft
+    from vision_ft_tpu_torch.ops import fused_mlp
+
+    jax_ff, params, ff = _feed_forward_pair()
+    if adapter:
+        peft.replace_to_peft_layer(ff, ["net"], [], peft.LoRAConfig(rank=2, dtype="float32"),
+                                   torch.Generator().manual_seed(0))
+    calls = []
+    geglu = denoiser_module.geglu_mlp
+    monkeypatch.setattr(denoiser_module, "geglu_mlp", lambda *a: calls.append(1) or geglu(*a))
+    # the gate as on the card, minus its device and dtype checks
+    monkeypatch.setattr(
+        denoiser_module, "fused_ff_enabled",
+        lambda x, *layers, inner=None: fused_mlp.fused_ff() == "on" and all(
+            not layer.is_quantized and "lora_down" not in layer._modules for layer in layers),
+    )
+    x = np.random.default_rng(1).standard_normal((2, 24, 128)).astype(np.float32)
+    with torch.no_grad():
+        plain = ff(torch.from_numpy(x))
+        fused_mlp.set_fused_ff("on")
+        try:
+            routed = ff(torch.from_numpy(x))
+        finally:
+            fused_mlp.set_fused_ff("auto")
+    assert len(calls) == (0 if adapter else 1)
+    if adapter:
+        assert torch.equal(routed, plain)
+        return
+    net = params["net"]
+    want = jax_fused.geglu_mlp(
+        jnp.asarray(x), net["0"]["proj"]["weight"], net["0"]["proj"]["bias"],
+        net["2"]["weight"], net["2"]["bias"], interpret=True,
+    )
+    np.testing.assert_allclose(routed.numpy(), np.asarray(want), atol=2e-5)
+    # the plain route is the JAX FeedForward's own (exact gelu in fp32)
+    np.testing.assert_allclose(plain.numpy(), np.asarray(jax_ff(params, jnp.asarray(x))), atol=2e-5)
+
+
+def test_feed_forward_gate_stays_shut_on_the_cpu_and_in_auto():
+    """Off the card, and at SDXL widths under "auto", the plain route."""
+    from vision_ft_tpu_torch.ops import fused_mlp
+
+    _, _, ff = _feed_forward_pair()
+    layers = (ff["net"]["0"]["proj"], ff["net"]["2"])
+    x = torch.zeros(1, 4, 128, dtype=torch.bfloat16)
+    assert not fused_mlp.fused_ff_enabled(x, *layers, inner=512)
+    fused_mlp.set_fused_ff("on")
+    try:
+        assert not fused_mlp.fused_ff_enabled(x, *layers, inner=512)  # a CPU tensor
+    finally:
+        fused_mlp.set_fused_ff("auto")

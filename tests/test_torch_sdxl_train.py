@@ -221,8 +221,9 @@ def test_loss_fn_draws_from_the_generator_and_needs_cached_latents():
     noise = torch.randn(batch["cached_latents"].shape, generator=gen)
     by_hand = train_text_to_image.loss_with_draws(model, batch, timesteps, noise)
     assert by_hand.item() == loss.item()
+    # without cached latents the loss encodes the batch's pixel values
     del batch["cached_latents"]
-    with pytest.raises(NotImplementedError, match="encode"):
+    with pytest.raises(KeyError, match="pixel_values"):
         train_text_to_image.loss_fn(model, batch, torch.Generator().manual_seed(3))
 
 

@@ -119,7 +119,7 @@ def test_optimizers_with_clipping_match_optax(name, args, clip):
 
 @pytest.mark.parametrize(
     "name",
-    ["bitsandbytes.optim.AdamW8bit", "schedulefree.RAdamScheduleFree", "torch.optim.Adafactor",
+    ["bitsandbytes.optim.AdamW8bit", "schedulefree.SGDScheduleFree", "torch.optim.Adafactor",
      "optax.lion"],
 )
 def test_unported_optimizers_raise_by_name(name):
@@ -133,8 +133,11 @@ def test_unknown_optimizer_and_schedule_free_helpers():
     assert is_schedule_free("schedulefree.AdamWScheduleFree") and not is_schedule_free("adamw")
     params = object()
     assert eval_params("adamw", None, params) is params
-    with pytest.raises(NotImplementedError):
-        eval_params("schedulefree.AdamWScheduleFree", None, params)
+    # schedule-free: before the first update x is y itself (z starts at y)
+    p = torch.nn.Parameter(torch.ones(2))
+    state = get_optimizer("schedulefree.AdamWScheduleFree", 1e-3).init([p])
+    x = eval_params("schedulefree.AdamWScheduleFree", state, {"p": p})["p"]
+    assert torch.equal(x, p.detach()) and x is not p
 
 
 def test_alphas_cumprod_matches_jax():

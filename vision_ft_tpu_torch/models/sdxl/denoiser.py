@@ -10,7 +10,10 @@ keys, including the ``.blocks.`` segment of the UNet stacks, e.g.
 Kernels on this path: the 70 self-attentions of an SDXL UNet go through
 the BSHD flash kernels (forward, and backward when training) and its 210
 transformer LayerNorms through the fused LayerNorm kernel, for bf16 CUDA
-tensors (``ops/attention.py``, ``nn/core.py``). With
+tensors (``ops/attention.py``, ``nn/core.py``); with
+``ops.flash_attention.set_flash_shortk(True)`` its 70 cross-attentions go
+through the short-K kernels, and with ``ops.fused_mlp.set_fused_ff("on")``
+its 70 dense GeGLU feed-forwards through the fused gated-MLP kernel. With
 ``set_gradient_checkpointing(True)`` every layer list is a checkpointed
 region (``nn.core.remat_layer``). LoRA / LoHa adapters live on the
 ``Linear`` / ``Conv2d`` layers (``modules/peft``). Not ported yet:
@@ -27,6 +30,7 @@ from torch import nn
 from ...modules.timestep.embedding import get_timestep_embedding
 from ...nn import Conv2d, GroupNorm, LayerNorm, Linear, remat_layer, save_name
 from ...ops.attention import AttentionImplementation, attention_heads_packed
+from ...ops.fused_mlp import fused_ff_enabled, geglu_mlp, supported
 from .config import DenoiserConfig
 
 
@@ -99,11 +103,22 @@ class FeedForward(nn.ModuleDict):
         )
 
     def forward(self, x):
-        h, gate = self["net"]["0"]["proj"](x).chunk(2, dim=-1)
+        proj, out = self["net"]["0"]["proj"], self["net"]["2"]
+        c, inner = out.out_features, out.in_features
+        if (
+            proj.bias is not None
+            and out.bias is not None
+            and fused_ff_enabled(x, proj, out, inner=inner)
+            and x.shape[-1] == c
+            and supported(c, inner)
+        ):
+            # the JAX _fused_ff_applies: a plain dense bf16 GeGLU with biases
+            return geglu_mlp(x, proj.weight, proj.bias, out.weight, out.bias)
+        h, gate = proj(x).chunk(2, dim=-1)
         # the JAX rule: tanh-approximate GELU on bf16, exact (erf) on fp32
         approximate = "tanh" if gate.dtype == torch.bfloat16 else "none"
         h = save_name(h * F.gelu(gate, approximate=approximate), "ff_inner")
-        return self["net"]["2"](h)
+        return out(h)
 
 
 class TransformerBlock(nn.ModuleDict):

@@ -7,20 +7,25 @@ KL-VAE into PIL images. Latents are NHWC, as in the JAX package.
 
 The modules are built on the meta device and materialized by
 ``init_params`` (seeded random weights, on the device, in the target
-dtype) or ``load_state_dict`` (the JAX package's flat parameters).
+dtype), ``load_state_dict`` (the JAX package's flat parameters) or
+``from_checkpoint`` (an sgm single-file safetensors checkpoint, the JAX
+package's ``state_dict()`` layout: its keys converted, the OpenCLIP
+tower's fused qkv split, the VAE's 1x1-conv attention weights reshaped to
+linears and prequantized bnb/quanto weights grouped into quantized
+leaves). ``state_dict()`` writes that layout back.
 
 The JAX ``lax.scan`` loop is a Python loop here (``_denoise_loop``), which
 takes its initial latents and per-step ancestral noise as tensors;
 ``generate()`` draws them from generators seeded as the JAX package seeds
 its own (step i: ``seed + 7919 * (i + 1)``, sample j: ``+ j``).
 
-Not ported yet: sgm single-file checkpoint I/O, DeepCache, offloading,
-tiled decode (>= 1536 px), the continuous-batching slot step, image
-encode.
+Not ported yet: DeepCache, offloading, tiled decode (>= 1536 px), the
+continuous-batching slot step.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Optional, Sequence
 
 import numpy as np
@@ -29,8 +34,13 @@ from PIL import Image
 from torch import nn
 
 from ...nn import Conv2d, Linear, init_parameters_, load_flat_params, weight_device
+from ...utils import safetensors as st
 from ...utils import tensor as tensor_utils
 from ...utils.dtype import str_to_dtype
+from ...utils.state_dict import (
+    convert_open_clip_to_transformers,
+    convert_transformers_to_open_clip,
+)
 from ..autoencoder import AutoencoderKL
 from ..autoencoder.kl import SDXL_VAE_CONFIG
 from ..text_encoders import CLIPTokenizer
@@ -38,8 +48,10 @@ from .config import SDXLConfig
 from .denoiser import Denoiser
 from .scheduler import Scheduler
 from .text_encoder import TextEncoder
+from .util import convert_from_original_key, convert_to_original_key
 
 _PARTS = ("denoiser", "vae", "text_encoder")
+_VAE_ATTN_WEIGHT = re.compile(r"vae\..*\.to_(q|k|v|out)\.(\d+\.)?weight$")
 
 
 class SDXLModel:
@@ -68,6 +80,12 @@ class SDXLModel:
 
     def _parts(self) -> dict[str, nn.Module]:
         return {name: getattr(self, name) for name in _PARTS}
+
+    def as_module(self) -> nn.ModuleDict:
+        """The three parts as one module (the same modules, not copies),
+        keyed ``denoiser.*``, ``vae.*``, ``text_encoder.*`` as the JAX
+        package's flattened params."""
+        return nn.ModuleDict(self._parts())
 
     @property
     def device(self) -> torch.device:
@@ -119,6 +137,61 @@ class SDXLModel:
             )
             part.to(device)
             part.eval()
+
+    # -- checkpoint I/O ------------------------------------------------------------
+
+    def _from_checkpoint(self, device: Optional[torch.device] = None) -> None:
+        """Load ``config.checkpoint_path`` (sgm single-file layout) in this
+        model's dtype onto ``device`` (default: the card)."""
+        from ...modules.quant import convert_prequantized_state_dict
+
+        state_dict = st.load_file(self.config.checkpoint_path, dtype=self.dtype)
+        state_dict = {convert_from_original_key(k): v for k, v in state_dict.items()}
+        # OpenCLIP -> transformers for text_encoder_2 (the qkv split)
+        te2 = convert_open_clip_to_transformers(
+            {k: v for k, v in state_dict.items() if "text_encoder_2." in k}
+        )
+        state_dict = {
+            **{k: v for k, v in state_dict.items() if "text_encoder_2." not in k},
+            **te2,
+        }
+        # HF bookkeeping keys, if present
+        state_dict = {k: v for k, v in state_dict.items() if ".embeddings.position_ids" not in k}
+        # sgm stores the VAE attention as 1x1 convs; the modules use linears
+        state_dict = {
+            k: (v[:, :, 0, 0] if _VAE_ATTN_WEIGHT.search(k) and v.ndim == 4 else v)
+            for k, v in state_dict.items()
+        }
+        state_dict = convert_prequantized_state_dict(state_dict)
+        self.load_state_dict(state_dict, device=device)
+
+    @classmethod
+    def from_checkpoint(
+        cls, config: SDXLConfig, tokenizer=None, device: Optional[torch.device] = None
+    ) -> "SDXLModel":
+        model = cls(config, tokenizer=tokenizer)
+        model._from_checkpoint(device)
+        return model
+
+    def state_dict(self) -> dict[str, torch.Tensor]:
+        """Flat dict in the sgm single-file key layout, the tensors as the
+        modules hold them (on their device)."""
+        flat = {
+            f"{name}.{k}": v for name, part in self._parts().items()
+            for k, v in part.state_dict().items()
+        }
+        te2 = convert_transformers_to_open_clip(
+            {k: v for k, v in flat.items() if k.startswith("text_encoder.text_encoder_2.")}
+        )
+        flat = {
+            **{k: v for k, v in flat.items() if not k.startswith("text_encoder.text_encoder_2.")},
+            **te2,
+        }
+        flat = {
+            k: (v[:, :, None, None] if _VAE_ATTN_WEIGHT.search(k) and v.ndim == 2 else v)
+            for k, v in flat.items()
+        }
+        return {convert_to_original_key(k): v for k, v in flat.items()}
 
     # -- latents / images --------------------------------------------------------
 

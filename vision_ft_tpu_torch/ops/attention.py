@@ -13,12 +13,13 @@ Which path runs:
 - :func:`scaled_dot_product_attention` sends a flash backend to
   ``ops.flash_attention.flash_attention``: on the card, sk >= 256 with no
   mask or a boolean key mask goes to the key-masked (B, H, S, D) kernel
-  (the Lumina2 NextDiT blocks are such calls); shorter keys (77-key cross
-  attention, CLIP), other masks and CPU tensors take the plain formula,
-  as does the "xla" backend (VAE). k and v may carry fewer heads than q
-  (grouped-query attention): the kernel maps the heads itself, the plain
-  formula repeats them. The JAX package's short-key Pallas kernel is not
-  ported yet (ROADMAP.md).
+  (the Lumina2 NextDiT blocks are such calls); with
+  ``ops.flash_attention.set_flash_shortk(True)``, at most 192 keys with no
+  mask and no causal masking go to the short-K kernels (SDXL's 77-key
+  cross-attention); other shorter keys (CLIP), other masks and CPU tensors
+  take the plain formula, as does the "xla" backend (VAE). k and v may
+  carry fewer heads than q (grouped-query attention): the kernel maps the
+  heads itself, the plain formula repeats them.
 """
 
 from __future__ import annotations

@@ -48,8 +48,20 @@ and dtype; lse is the fp32 natural log-sum-exp of the scaled scores,
   :func:`flash_attention_masked_backward_reference` its plain version. With
   gradients wanted, :func:`flash_attention_masked` goes through an autograd
   function that keeps (q, k, v, mask, out, lse), and :func:`kernel_saves`
-  covers its calls too. :func:`flash_attention` is the routing between
-  that kernel and the plain formula of ``ops/attention.py``.
+  covers its calls too.
+- :func:`flash_attention_shortk` is the short-K forward kernel's wrapper
+  (keys <= ``SHORTK_MAX``, the whole key context on chip; SDXL's
+  cross-attention) and :func:`flash_attention_shortk_reference` its plain
+  version; :func:`flash_attention_shortk_bwd` wraps its backward kernel,
+  :func:`flash_attention_shortk_backward` is the whole backward (plain
+  delta, then the kernel) and :func:`flash_attention_shortk_backward_reference`
+  its plain version (``csrc/flash_attention_shortk.cu``: the JAX
+  ``flash_attention_shortk`` and its custom VJP). With gradients wanted,
+  :func:`flash_attention_shortk` goes through an autograd function that
+  keeps (q, k, v, out, lse), and :func:`kernel_saves` covers its calls too.
+- :func:`flash_attention` is the routing between these kernels and the
+  plain formula of ``ops/attention.py``; :func:`set_flash_shortk` opens the
+  short-K route, as ``VFT_FLASH_SHORTK=1`` does in the JAX package.
 """
 
 from __future__ import annotations
@@ -65,6 +77,8 @@ from . import _build
 # head dims each kernel is built for
 BSHD_HEAD_DIMS = (64, 128)        # forward and backward over heads-packed tensors
 MASKED_HEAD_DIMS = (64, 96, 128)  # key-masked forward over (B, H, S, D)
+SHORTK_HEAD_DIMS = (64, 128)      # short-K forward and backward over (B, H, S, D)
+SHORTK_MAX = 192  # the most keys the short-K kernels hold on chip, as in the JAX package
 NEG_INF = -1e30  # the finite score of a masked key, as in the JAX package's kernel
 
 
@@ -322,8 +336,8 @@ class _KernelSaves:
 def kernel_saves():
     """Two context managers for one checkpointed region, ``(forward,
     recompute)``. Under ``forward`` every differentiable
-    :func:`flash_attention_bshd` and :func:`flash_attention_masked` call
-    records its (out, lse), detached;
+    :func:`flash_attention_bshd`, :func:`flash_attention_masked` and
+    :func:`flash_attention_shortk` call records its (out, lse), detached;
     under ``recompute`` the calls, made again in the same order, take them
     back instead of launching the forward kernel, while the backward still
     sees the recomputed q, k and v."""
@@ -705,6 +719,215 @@ def flash_attention_masked(
 flash_attention_masked.launches = 0
 
 
+# -- short-K attention over (B, H, S, D): forward and backward -----------------------
+
+_flash_shortk = False
+
+
+def set_flash_shortk(enabled: bool) -> None:
+    """Whether :func:`flash_attention` sends calls with at most
+    ``SHORTK_MAX`` keys, no mask and no causal masking to the short-K
+    kernels on the card (SDXL's cross-attention): off by default, as
+    ``VFT_FLASH_SHORTK`` is in the JAX package."""
+    global _flash_shortk
+    _flash_shortk = bool(enabled)
+
+
+def flash_attention_shortk_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None,
+    return_lse: bool = False,
+):
+    """The plain version of :func:`flash_attention_shortk`: fp32 scores,
+    softmax, the weights rounded to v's dtype before P V; with
+    ``return_lse`` also the fp32 log-sum-exp of the scores (B, H, Sq)."""
+    return flash_attention_reference(q, k, v, None, scale, False, return_lse)
+
+
+def flash_attention_shortk_backward_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+    dout: torch.Tensor, scale: Optional[float] = None,
+):
+    """(dq, dk, dv) by the backward kernel's arithmetic: P recomputed as
+    exp(S - lse) in fp32, P and dS rounded to the inputs' dtype before their
+    products, fp32 accumulation, outputs in the inputs' dtypes."""
+    return flash_attention_masked_backward_reference(q, k, v, None, out, lse, dout, scale)
+
+
+def _shortk_padded(sk: int) -> int:
+    """The key count the kernels are built for: sk rounded up to 32."""
+    return max(32, -(-sk // 32) * 32)
+
+
+def _shortk_splits(b: int, h: int, sq: int) -> int:
+    """How many blocks share a (batch, head)'s q rows in the backward: about
+    two blocks an SM over 132 SMs, at most one per 32-row tile. A function of
+    the shape alone, so reruns sum the partials in the same order."""
+    return max(1, min(-(-sq // 32), -(-264 // (b * h))))
+
+
+@functools.cache
+def _shortk_kernels():
+    lib = _build.cuda_library("flash_attention_shortk")
+    fwd, bwd = lib.flash_attention_shortk_fwd, lib.flash_attention_shortk_bwd
+    fwd.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
+        + [ctypes.c_float, ctypes.c_void_p]
+    )
+    bwd.argtypes = (
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 21
+        + [ctypes.c_float, ctypes.c_void_p]
+    )
+    fwd.restype = bwd.restype = ctypes.c_int
+    return fwd, bwd
+
+
+def _check_shortk(q, k, v, **more) -> None:
+    """Raise on what the short-K kernels do not take; ``more`` are further
+    bf16 tensors of q's shape (dout)."""
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError("q, k and v must be (B, H, S, D)")
+    b, h, sq, d = q.shape
+    if d not in SHORTK_HEAD_DIMS:
+        raise ValueError(f"flash_attention_shortk kernels take head dims {SHORTK_HEAD_DIMS}, got {d}")
+    sk = k.shape[2]
+    if k.shape != (b, h, sk, d) or v.shape != k.shape:
+        raise ValueError(
+            f"k and v must be (B, H, Sk, D) = {(b, h, sk, d)}, got {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    if not 1 <= sk <= SHORTK_MAX:
+        raise ValueError(f"flash_attention_shortk takes 1 to {SHORTK_MAX} keys, got {sk}")
+    if sq < 1 or sq >= 2**31 or b >= 2**16 or h >= 2**16:
+        raise ValueError("shape beyond the kernels' grid or int32 row index")
+    for name, t in (("q", q), ("k", k), ("v", v), *more.items()):
+        if not t.is_cuda or t.device != q.device or t.dtype != torch.bfloat16:
+            raise ValueError(f"{name} must be bf16 on {q.device}, got {t.dtype} on {t.device}")
+        if not _aligned(t):
+            raise ValueError(f"{name} needs a contiguous last axis and 16-byte aligned rows")
+    if any(t.shape != q.shape for t in more.values()):
+        raise ValueError(f"{sorted(more)} must have q's shape {tuple(q.shape)}")
+
+
+def _shortk_forward(q, k, v, scale, return_lse):
+    """(out, lse or None): kernel H for CUDA tensors, else the plain version."""
+    if not q.is_cuda:
+        if return_lse:
+            return flash_attention_shortk_reference(q, k, v, scale, return_lse=True)
+        return flash_attention_shortk_reference(q, k, v, scale), None
+    _check_shortk(q, k, v)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    scale = d**-0.5 if scale is None else scale
+    out = torch.empty_like(q)  # q's strides where q is dense: (B, S, H, D) memory stays so
+    lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32) if return_lse else None
+    with torch.cuda.device(q.device):
+        err = _shortk_kernels()[0](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            b, sq, sk, _shortk_padded(sk), h, d,
+            *(t.stride(i) for t in (q, k, v, out) for i in range(3)),
+            float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_shortk launch failed: CUDA error {err}")
+    flash_attention_shortk.launches += 1
+    return out, lse
+
+
+def flash_attention_shortk_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+    delta: torch.Tensor, scale: Optional[float] = None,
+):
+    """(dq, dk, dv) of :func:`flash_attention_shortk` from q, k, v, the
+    output's gradient, lse and delta (B, H, Sq): kernel I (its main kernel
+    and the reduction of its partial dk and dv) for CUDA tensors, else the
+    plain version. Each output keeps its input's strides where the input
+    is dense."""
+    if not q.is_cuda:
+        return _masked_backward_reference(q, k, v, None, lse, delta, dout, scale, False)
+    _check_shortk(q, k, v, dout=dout)
+    b, h, sq, d = q.shape
+    _check_row_stats((b, h, sq), q.device, lse=lse, delta=delta)
+    sk, skp = k.shape[2], _shortk_padded(k.shape[2])
+    splits = _shortk_splits(b, h, sq)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    parts = torch.empty((2, splits, b * h, skp, d), device=q.device, dtype=torch.float32)
+    with torch.cuda.device(q.device):
+        err = _shortk_kernels()[1](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            parts[0].data_ptr(), parts[1].data_ptr(),
+            b, sq, sk, skp, h, d, splits,
+            *(t.stride(i) for t in (q, k, v, dout, dq, dk, dv) for i in range(3)),
+            float(d**-0.5 if scale is None else scale),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_shortk backward launch failed: CUDA error {err}")
+    flash_attention_shortk_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_shortk_bwd.launches = 0
+
+
+def flash_attention_shortk_backward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+    dout: torch.Tensor, scale: Optional[float] = None,
+):
+    """(dq, dk, dv) of :func:`flash_attention_shortk` from its inputs, its
+    output and lse and the output's gradient (any layout: copied only where
+    the kernel cannot read it in place). Plain delta, then kernel I."""
+    if q.is_cuda and not _aligned(dout):
+        dout = dout.contiguous()
+    delta = flash_attention_masked_delta(out, dout)
+    return flash_attention_shortk_bwd(q, k, v, dout, lse, delta, scale)
+
+
+class _FlashAttentionShortK(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale, saved):
+        if saved is None:
+            out, lse = _shortk_forward(q, k, v, scale, return_lse=True)
+        else:
+            out, lse = saved[0].detach(), saved[1].detach()
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_shortk_backward(q, k, v, out, lse, dout, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_shortk(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None,
+    return_lse: bool = False,
+):
+    """softmax(q k^T * scale) v over q (B, H, Sq, D) and k, v (B, H, Sk, D)
+    with Sk <= ``SHORTK_MAX``, no mask and no causal masking: the whole key
+    context is held on chip (kernel H). Any batch, head and row strides with
+    a contiguous last axis are read in place; the output has q's shape and,
+    where q is dense, q's strides. With ``return_lse`` also the fp32
+    log-sum-exp of the scores, (B, H, Sq). Differentiable in q, k and v: on
+    the card the backward is kernel I (:func:`flash_attention_shortk_bwd`).
+    Other head dims than ``SHORTK_HEAD_DIMS``, more keys, other dtypes than
+    bf16 and unaligned rows raise ``ValueError`` on the card."""
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
+        out, lse = _shortk_forward(q, k, v, scale, return_lse)
+        return (out, lse) if return_lse else out
+    region, saved = _replayed_saves()
+    out, lse = _FlashAttentionShortK.apply(q, k, v, scale, saved)
+    if region is not None and region.mode == "record":
+        region.saves.append((out.detach(), lse))
+    return (out, lse) if return_lse else out
+
+
+flash_attention_shortk.launches = 0
+
+
 def _as_key_mask(mask: Optional[torch.Tensor], b: int, sk: int) -> Optional[torch.Tensor]:
     """Reduce a mask the kernel takes to (B, Sk) bool; None for any other."""
     if mask is None or mask.dtype != torch.bool:
@@ -725,8 +948,11 @@ def flash_attention(
     of H. The JAX package's rule with ``is_cuda`` for its TPU check: on
     the card, sk >= 256 and no mask or a boolean (B, Sk) / (B, 1, 1, Sk) key
     mask go to the key-masked kernel, which raises on what it does not
-    take (see :func:`flash_attention_masked`); every other call, and every
-    CPU call, takes ``ops.attention.plain_attention``."""
+    take (see :func:`flash_attention_masked`); with :func:`set_flash_shortk`
+    on, sk <= ``SHORTK_MAX`` with no mask and no causal masking goes to the
+    short-K kernels, which raise likewise (see :func:`flash_attention_shortk`);
+    every other call, and every CPU call, takes
+    ``ops.attention.plain_attention``."""
     from .attention import plain_attention
 
     b, h, _, d = q.shape
@@ -736,6 +962,8 @@ def flash_attention(
         key_mask = _as_key_mask(mask, b, sk)
         if mask is None or key_mask is not None:
             return flash_attention_masked(q, k, v, key_mask, scale, is_causal)
+    if q.is_cuda and _flash_shortk and sk <= SHORTK_MAX and mask is None and not is_causal:
+        return flash_attention_shortk(q, _expand_kv_heads(k, h), _expand_kv_heads(v, h), scale)
     return plain_attention(
         q, _expand_kv_heads(k, h), _expand_kv_heads(v, h), mask, scale, is_causal
     )

@@ -8,9 +8,11 @@ over its model, and the step is eager: backward over the trainable
 parameters only, global gradient norm, clipping, schedule, optimizer step.
 
 With ``grad_accum > 1`` every batch leaf carries a leading
-(grad_accum, micro_batch, ...) axis; the microbatches run one after the
-other, each with its own draws from the generator, their gradients summed
-in fp32 buffers and scaled by 1/grad_accum once.
+(grad_accum, micro_batch, ...) axis, or the batch is a
+:class:`Microbatches` of ``grad_accum`` batches (which may differ in
+shape, as the Trainer's aspect-ratio buckets do); the microbatches run one
+after the other, each with its own draws from the generator, their
+gradients summed in fp32 buffers and scaled by 1/grad_accum once.
 
 Not ported: the ``mesh`` argument (SPMD sharding of the step) raises
 ``NotImplementedError``; buffer donation has no counterpart (parameters
@@ -42,7 +44,13 @@ def init_train_state(
     return TrainState(trainable, optimizer.init(trainable.values()), 0)
 
 
+class Microbatches(tuple):
+    """The ``grad_accum`` microbatches of one step, each a whole batch."""
+
+
 def _microbatch(batch: Any, index: int) -> Any:
+    if isinstance(batch, Microbatches):
+        return batch[index]
     if isinstance(batch, Mapping):
         return {k: _microbatch(v, index) for k, v in batch.items()}
     if isinstance(batch, (list, tuple)):

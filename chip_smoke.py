@@ -15,8 +15,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 0. device: needs torch.cuda; prints the card's name and power limit and
    sets fp32 matmuls and convolutions to full fp32 (no TF32).
 1. build: compiles the CUDA kernels with nvcc (sm_90a, one nvcc per source,
-   started together) and the Triton kernel, from the sources in this
-   checkout.
+   started together) and the Triton kernels (LayerNorm, GroupNorm), from
+   the sources in this checkout.
 2. kernel B, BSHD flash attention forward, against its plain PyTorch
    version in bf16 at the SDXL self-attention shapes of the requests
    (aligned and ragged, batch 2) and of the train step (batch 4).
@@ -98,13 +98,28 @@ Phases, each printing its own lines; any failure exits non-zero:
     frozen base against the file, the adapters, the saved LoRA file's keys,
     the preview image, the launch counts of a step in both checkpointing
     modes, and one step's loss against the same step with the kernels off.
+18. kernels J, K and L, which no model path calls (as in the JAX package),
+    through their own entry points: J, the fused GroupNorm(+SiLU), and K,
+    the 3x3 conv, against their plain versions at the SDXL UNet's widths
+    (1024 px, batch 2 and 4, the up-block concat) and the VAE decoder's (1024
+    px), with F.group_norm (+ F.silu) and cuDNN beside them; their gradients
+    through the autograd.Functions against autograd of the plain forward and
+    of F.conv2d; one SDXL resnet body (GN + SiLU -> conv -> GN + SiLU -> conv
+    + residual, forward and backward) through the ops, with the launch
+    counts of that path and of the probe's cases, against the same path on
+    the plain versions and against nn.core's modules; one call of J and one
+    of K traced by torch.profiler (the card's time by kernel); then L, the
+    ragged-tile probe, as a user runs it (its own process, `partial_blocks:
+    true`), and its copy kernel timed against Tensor.copy_. Every model path
+    above launches J, K and L 0 times.
 
 Every kernel's record carries its time, its plain version's, the bound
 (the larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s bf16, or
-67 TFLOP/s for the fp32 LayerNorm arithmetic, from this run's shapes) and
-the time of the one PyTorch call that computes the same function, where
-there is one (never used by the port). The line before the last is the
-kernels' JSON record; the last line is {"ok": true, "device": {...}}.
+67 TFLOP/s for the fp32 LayerNorm, GroupNorm and probe arithmetic, from
+this run's shapes) and the time of the one PyTorch call that computes the
+same function, where there is one (never used by the port). The line
+before the last is the kernels' JSON record; the last line is {"ok": true,
+"device": {...}}.
 There is no CPU path.
 """
 
@@ -116,12 +131,14 @@ import json
 import shutil
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from PIL import Image
 
 # max |kernel - plain| / max |plain|, bf16 outputs at O(1) scale: both
@@ -249,6 +266,32 @@ ROUTE_REQUEST_TOL = 3e-2
 TRAINER_IMAGES = [(1024, 1024)] * 4 + [(832, 1216)] * 4  # (width, height)
 LUMINA_KERNELS = ("flash_attention_masked", "gated_mlp", "flash_attention_masked_dkv",
                   "flash_attention_masked_dq")
+# kernels J, K and L: no model path calls them (as in the JAX package); phase 18
+# drives them through their own entry points
+OPS_KERNELS = ("group_norm", "conv3x3", "partial_block_copy", "partial_block_lastaxis")
+# (shape, eps) at 32 groups: the SDXL UNet's GroupNorms at 1024 px for the CFG
+# request (batch 2, with the up-block concat's 2560) and the train step
+# (batch 4), the VAE decoder's at 1024 px (batch 1, eps 1e-6), and a rank-3 case
+GN_SHAPES = [((2, 128, 128, 320), 1e-5), ((2, 64, 64, 640), 1e-5), ((2, 32, 32, 1280), 1e-5),
+             ((2, 32, 32, 2560), 1e-5), ((4, 128, 128, 320), 1e-5),
+             ((1, 128, 128, 512), 1e-6), ((1, 256, 256, 512), 1e-6),
+             ((1, 512, 512, 256), 1e-6), ((1, 1024, 1024, 128), 1e-6), ((2, 4096, 640), 1e-5)]
+# (x shape, CO): the same UNet and VAE stages' 3x3 convs
+CONV_SHAPES = [((2, 128, 128, 320), 320), ((2, 64, 64, 640), 640), ((2, 32, 32, 1280), 1280),
+               ((2, 32, 32, 2560), 1280), ((4, 128, 128, 320), 320),
+               ((1, 128, 128, 512), 512), ((1, 256, 256, 512), 512),
+               ((1, 512, 512, 256), 256), ((1, 1024, 1024, 128), 128)]
+RESNET_SHAPE = (2, 64, 64, 640)  # one SDXL resnet body at the request's second stage
+# kernels J and K against their plain versions: the same fp32 arithmetic
+# summed in another order, the output rounded once to bf16 on both sides:
+# a bf16 ulp or two of the output's largest value, under the JAX conv
+# test's 2e-2; their gradients (plain formulas on both sides) the same
+GN_TOL = CONV_TOL = GN_GRAD_TOL = CONV_GRAD_TOL = 2e-2
+# the resnet body through the ops against nn.core's GroupNorm + F.silu +
+# Conv2d: GroupNorm's statistics by another formula (E[x^2] - mean^2
+# against PyTorch's), two bf16 convs and a residual carry a few bf16 ulps
+# on; relative to the largest value, the limits of a whole step
+RESNET_TOL, RESNET_GRAD_TOL = 3e-2, 5e-2
 STEPS = 8
 TRAIN_BATCH, TRAIN_RES, TRAIN_WARMUP, TRAIN_TIMED = 4, 1024, 2, 3
 LORA_TARGETS = ["attn1", "attn2", ".ff."]
@@ -328,6 +371,9 @@ def plain_versions():
     import vision_ft_tpu_torch.ops.fused_mlp as mlp
     import vision_ft_tpu_torch.ops.layer_norm as ln
     import vision_ft_tpu_torch.ops.nf4_matmul as nf4
+    import vision_ft_tpu_torch.ops.conv3x3 as conv
+    import vision_ft_tpu_torch.ops.group_norm as gn
+    from vision_ft_tpu_torch.tools import partial_block_probe as probe
 
     def forward(q, k, v, num_heads, scale, return_lse):
         if return_lse:
@@ -354,6 +400,10 @@ def plain_versions():
 
     saved_lumina = (flash._masked_forward, mlp._forward, flash.flash_attention_masked_backward)
     saved_shortk = (flash._shortk_forward, flash.flash_attention_shortk_backward)
+    saved_ops = (gn._forward, conv._forward, probe.partial_block_copy, probe.partial_block_lastaxis)
+    gn._forward, conv._forward = gn.group_norm_reference, conv.conv3x3_reference
+    probe.partial_block_copy = probe.partial_block_copy_reference
+    probe.partial_block_lastaxis = probe.partial_block_lastaxis_reference
     flash._shortk_forward, flash.flash_attention_shortk_backward = shortk_forward, shortk_backward
     flash._forward, flash.flash_attention_bshd_backward = forward, backward
     flash._masked_forward, mlp._forward = flash.flash_attention_reference, mlp_forward
@@ -367,10 +417,14 @@ def plain_versions():
         nf4.nf4_matmul_forward, nf4.nf4_matmul_dx = saved_nf4
         flash._masked_forward, mlp._forward, flash.flash_attention_masked_backward = saved_lumina
         flash._shortk_forward, flash.flash_attention_shortk_backward = saved_shortk
+        gn._forward, conv._forward, probe.partial_block_copy, probe.partial_block_lastaxis = saved_ops
 
 
 # kernel-name fragments -> kind, first match wins (torch.profiler's names)
 KERNEL_KINDS = [
+    ("group_norm_stats", "kernel J stats"), ("group_norm_apply", "kernel J normalize"),
+    ("conv3x3_igemm", "kernel K"), ("partial_block_copy", "kernel L copy"),
+    ("partial_block_lastaxis", "kernel L last axis"),
     ("flash_bwd_dkv_masked", "kernel G dk/dv"), ("flash_bwd_dq_masked", "kernel G dq"),
     ("flash_fwd_masked", "kernel E"), ("fused_gated_mlp", "kernel F"),
     ("shortk_fwd", "kernel H"), ("shortk_bwd", "kernel I"),
@@ -515,11 +569,16 @@ def main() -> None:
     from vision_ft_tpu_torch.ops.fused_mlp import (
         gated_mlp, gated_mlp_reference, geglu_mlp, set_fused_ff,
     )
+    from vision_ft_tpu_torch.ops.conv3x3 import (
+        conv3x3, conv3x3_forward, conv3x3_reference, repack_weight,
+    )
+    from vision_ft_tpu_torch.ops.group_norm import group_norm, group_norm_reference
     from vision_ft_tpu_torch.ops.layer_norm import layer_norm, layer_norm_reference
     from vision_ft_tpu_torch.ops.nf4_matmul import (
         nf4_matmul_dx, nf4_matmul_dx_reference, nf4_matmul_forward, nf4_matmul_reference,
         to_split_layout,
     )
+    from vision_ft_tpu_torch.tools import partial_block_probe as probe
 
     wrappers = {
         "nf4_matmul_forward": nf4_matmul_forward,
@@ -534,10 +593,14 @@ def main() -> None:
         "flash_attention_masked_dq": flash_attention_masked_dq,
         "flash_attention_shortk": flash_attention_shortk,
         "flash_attention_shortk_bwd": flash_attention_shortk_bwd,
+        "group_norm": group_norm,
+        "conv3x3": conv3x3,
+        "partial_block_copy": probe.partial_block_copy,
+        "partial_block_lastaxis": probe.partial_block_lastaxis,
     }
     # the SDXL paths of phases 4-9 launch none of them (the short-K kernels
-    # are off there, as by default)
-    no_lumina = {name: 0 for name in (*LUMINA_KERNELS, *SHORTK_KERNELS)}
+    # are off there, as by default; kernels J, K and L have no model caller)
+    no_lumina = {name: 0 for name in (*LUMINA_KERNELS, *SHORTK_KERNELS, *OPS_KERNELS)}
 
     def reset_launches():
         for wrapper in wrappers.values():
@@ -550,17 +613,21 @@ def main() -> None:
     start = time.perf_counter()
     cuda_sources = ["flash_attention_bshd", "flash_attention_bshd_bwd", "nf4_matmul",
                     "flash_attention_masked", "fused_mlp", "flash_attention_masked_bwd",
-                    "flash_attention_shortk"]
+                    "flash_attention_shortk", "conv3x3", "partial_block_probe"]
     _build.build_cuda_libraries(cuda_sources)
     nvcc_s = time.perf_counter() - start
     start = time.perf_counter()
     for c, beta in sorted({(c, beta) for _, c, beta in LN_SHAPES}):
         w = torch.ones(c, device=device, dtype=torch.bfloat16)
         layer_norm(torch.ones(4, c, device=device, dtype=torch.bfloat16), w, w if beta else None)
+    for c, act in sorted({(shape[-1], act) for shape, _ in GN_SHAPES for act in ("", "silu")}):
+        w = torch.ones(c, device=device, dtype=torch.bfloat16)
+        group_norm(torch.ones(1, 64, c, device=device, dtype=torch.bfloat16), w, w, 32, 1e-5,
+                   act or None)
     torch.cuda.synchronize()
     triton_s = time.perf_counter() - start
     print(f"nvcc {', '.join(n + '.cu' for n in cuda_sources)} (in parallel): {nvcc_s:.2f} s; "
-          f"triton layer_norm (load + first launches): {triton_s:.2f} s")
+          f"triton layer_norm and group_norm (load + first launches): {triton_s:.2f} s")
 
     records = {}
     gen = torch.Generator(device=device).manual_seed(0)
@@ -927,7 +994,8 @@ def main() -> None:
     with plain_versions():
         plain_loss, plain_norm = loss_and_norm()
     on_path = [n for name, n in used.items()  # a dense base, an SDXL step
-               if not name.startswith("nf4_") and name not in (*LUMINA_KERNELS, *SHORTK_KERNELS)]
+               if not name.startswith("nf4_")
+               and name not in (*LUMINA_KERNELS, *SHORTK_KERNELS, *OPS_KERNELS)]
     if read_launches() != used or min(on_path) == 0:
         raise AssertionError(f"the plain step launched a kernel, or the kernel step none: {used}")
     loss_rel = abs(kernel_loss - plain_loss) / abs(plain_loss)
@@ -1155,8 +1223,9 @@ def main() -> None:
     used = read_launches()
     with plain_versions():
         plain_loss, plain_norm = loss_and_norm()
-    if read_launches() != used or min(
-            n for name, n in used.items() if name not in (*LUMINA_KERNELS, *SHORTK_KERNELS)) == 0:
+    if read_launches() != used or min(n for name, n in used.items()
+                                      if name not in (*LUMINA_KERNELS, *SHORTK_KERNELS,
+                                                      *OPS_KERNELS)) == 0:
         raise AssertionError(f"the plain step launched a kernel, or the kernel step none: {used}")
     loss_rel = abs(kernel_loss - plain_loss) / abs(plain_loss)
     norm_rel = abs(kernel_norm - plain_norm) / abs(plain_norm)
@@ -2075,6 +2144,272 @@ def main() -> None:
     finally:
         set_flash_shortk(False)
         shutil.rmtree(work, ignore_errors=True)
+    del trainer, sdxl, unet
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("18 kernels J, K, L: GroupNorm(+SiLU), 3x3 conv and the ragged-tile probe vs plain (bf16)")
+    from vision_ft_tpu_torch.nn import Conv2d, GroupNorm
+
+    def nchw(t):
+        """(B, ..., C) -> (B, C, ...): the view PyTorch's NCHW ops take."""
+        return t.movedim(-1, 1)
+
+    def assert_reruns(name, fn):
+        if not torch.equal(fn(), fn()):
+            raise AssertionError(f"{name}: a rerun differs")
+
+    errs, rows = [], []
+    for shape, eps in GN_SHAPES:
+        c = shape[-1]
+        x = (torch.randn(shape, device=device, generator=gen) * 2 + 0.3).bfloat16()
+        gamma = (1 + 0.2 * torch.randn(c, device=device, generator=gen)).bfloat16()
+        beta = (0.2 * torch.randn(c, device=device, generator=gen)).bfloat16()
+        for act in (None, "silu"):
+            kernel = functools.partial(group_norm, x, gamma, beta, 32, eps, act)
+            plain = functools.partial(group_norm_reference, x, gamma, beta, 32, eps, act)
+
+            def library(act=act):
+                y = F.group_norm(nchw(x), 32, gamma, beta, eps)
+                return F.silu(y) if act else y
+
+            abs_err, rel_err = compare(f"group_norm {shape} {act}", kernel, plain, GN_TOL)
+            assert_reruns(f"group_norm {shape} {act}", kernel)
+            ms = cuda_ms(kernel, iters=50)
+            plain_ms = cuda_ms(plain, iters=5)
+            library_ms = cuda_ms(library, iters=50)
+            nbytes = 2 * x.numel() * 2 + 2 * c * 2
+            # sum and square (3), normalize and affine (4), SiLU (4): fp32
+            bound_ms, bound_by = bound(nbytes, (11 if act else 7) * x.numel(), PEAK_FP32_FLOPS)
+            print(f"{shape} eps {eps} {act or 'no act'}: max abs err {abs_err:.3e} rel "
+                  f"{rel_err:.3e} (tol {GN_TOL}), reruns bit-identical; kernel J {ms:.4f} ms "
+                  f"({nbytes / ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} ms, F.group_norm"
+                  f"{' + F.silu' if act else ''} {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
+                  f"({bound_by})")
+            errs.append(abs_err)
+            rows.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=library_ms))
+    del x
+    # the record: the UNet's GroupNorm + SiLU at the request's first stage
+    records["group_norm"] = dict(
+        route="triton", source="vision_ft_tpu_torch/csrc/group_norm.py",
+        replaces="vision_ft_tpu/ops/pallas/group_norm.py:33", max_abs_err=max(errs), **rows[1])
+
+    # dx, dgamma, dbeta through the autograd.Function against autograd of the plain forward
+    x = (torch.randn(RESNET_SHAPE, device=device, generator=gen) * 2 + 0.3).bfloat16()
+    dy = torch.randn(RESNET_SHAPE, device=device, generator=gen).bfloat16()
+    gamma = (1 + 0.2 * torch.randn(x.shape[-1], device=device, generator=gen)).bfloat16()
+    beta = (0.2 * torch.randn(x.shape[-1], device=device, generator=gen)).bfloat16()
+
+    def gn_grads(fn):
+        leaves = [t.detach().requires_grad_() for t in (x, gamma, beta)]
+        return torch.autograd.grad(fn(*leaves, 32, 1e-5, "silu"), leaves, dy)
+
+    want = gn_grads(group_norm_reference)
+    got = gn_grads(group_norm)
+    gn_grad_err = {n: compare(f"group_norm gradient {n}", lambda: g_, lambda: w_, GN_GRAD_TOL)
+                   for n, g_, w_ in zip(("dx", "dgamma", "dbeta"), got, want)}
+    print(f"{RESNET_SHAPE} silu, through the autograd.Function vs autograd of the plain forward: "
+          + ", ".join(f"{n} {a:.3e} rel {r:.3e}" for n, (a, r) in gn_grad_err.items())
+          + f" (tol {GN_GRAD_TOL})")
+
+    errs, rows = [], []
+    for shape, co in CONV_SHAPES:
+        c = shape[-1]
+        x = torch.randn(shape, device=device, generator=gen).bfloat16()
+        w = (torch.randn(co, c, 3, 3, device=device, generator=gen) / (3 * c**0.5)).bfloat16()
+        packed = repack_weight(w, torch.bfloat16)
+        x_cl, w_cl = nchw(x), w.contiguous(memory_format=torch.channels_last)
+        abs_err, rel_err = compare(f"conv3x3 {shape} -> {co}", lambda: conv3x3(x, w),
+                                   lambda: conv3x3_reference(x, w), CONV_TOL)
+        assert_reruns(f"conv3x3 {shape} -> {co}", lambda: conv3x3(x, w))
+        ms = cuda_ms(lambda: conv3x3_forward(x, packed))
+        repack_ms = cuda_ms(lambda: repack_weight(w, torch.bfloat16))
+        plain_ms = cuda_ms(lambda: conv3x3_reference(x, w), iters=5)
+        library_ms = cuda_ms(lambda: F.conv2d(x_cl, w_cl, padding=1))
+        flops = 2 * x.numel() // c * co * 9 * c
+        nbytes = (x.numel() + w.numel() + x.numel() // c * co) * 2
+        bound_ms, bound_by = bound(nbytes, flops)
+        print(f"{shape} -> {co}: max abs err {abs_err:.3e} rel {rel_err:.3e} (tol {CONV_TOL}), "
+              f"reruns bit-identical; kernel K {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s) "
+              f"+ weight repack {repack_ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN (channels-last "
+              f"bf16) {library_ms:.4f} ms ({flops / library_ms / 1e9:.1f} TFLOP/s), bound "
+              f"{bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.1f} GFLOP)")
+        errs.append(abs_err)
+        rows.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=library_ms))
+    del x, w, packed, x_cl, w_cl
+    records["conv3x3"] = dict(
+        route="cuda", source="vision_ft_tpu_torch/csrc/conv3x3.cu",
+        replaces="vision_ft_tpu/ops/pallas/conv3x3.py:31", max_abs_err=max(errs), **rows[1])
+
+    # dx and dw through the autograd.Function against autograd of F.conv2d
+    c = RESNET_SHAPE[-1]
+    x = torch.randn(RESNET_SHAPE, device=device, generator=gen).bfloat16()
+    w = (torch.randn(c, c, 3, 3, device=device, generator=gen) / (3 * c**0.5)).bfloat16()
+
+    def conv_grads(fn):
+        leaves = [t.detach().requires_grad_() for t in (x, w)]
+        return torch.autograd.grad(fn(*leaves), leaves, dy)
+
+    got = conv_grads(conv3x3)
+    want = conv_grads(lambda x_, w_: F.conv2d(nchw(x_), w_, padding=1).movedim(1, -1))
+    conv_grad_err = {n: compare(f"conv3x3 gradient {n}", lambda: g_, lambda: w_, CONV_GRAD_TOL)
+                     for n, g_, w_ in zip(("dx", "dw"), got, want)}
+    print(f"{RESNET_SHAPE} -> {c}, through the autograd.Function vs autograd of F.conv2d: "
+          + ", ".join(f"{n} {a:.3e} rel {r:.3e}" for n, (a, r) in conv_grad_err.items())
+          + f" (tol {CONV_GRAD_TOL})")
+    del got, want
+
+    # one SDXL resnet body, GN + SiLU -> conv -> GN + SiLU -> conv + residual, forward and
+    # backward, through the ops and through nn.core's modules with the same weights
+    core = torch.nn.ModuleList([GroupNorm(32, c), Conv2d(c, c, 3, padding=1, bias=False),
+                                GroupNorm(32, c), Conv2d(c, c, 3, padding=1, bias=False)])
+    core = core.to(device=device, dtype=torch.bfloat16)
+    with torch.no_grad():
+        for i, module in enumerate(core):
+            if isinstance(module, GroupNorm):
+                module.weight.copy_(1 + 0.2 * torch.randn(c, device=device, generator=gen))
+                module.bias.copy_(0.2 * torch.randn(c, device=device, generator=gen))
+            else:
+                module.weight.copy_(torch.randn(c, c, 3, 3, device=device, generator=gen)
+                                    / (3 * c**0.5))
+    gn1, conv1, gn2, conv2 = core
+    x_leaf = x.detach().requires_grad_()
+
+    def ops_body():
+        h = group_norm(x_leaf, gn1.weight, gn1.bias, 32, gn1.eps, "silu")
+        h = group_norm(conv3x3(h, conv1.weight), gn2.weight, gn2.bias, 32, gn2.eps, "silu")
+        return x_leaf + conv3x3(h, conv2.weight)
+
+    def core_body():
+        return x_leaf + conv2(F.silu(gn2(conv1(F.silu(gn1(x_leaf))))))
+
+    leaves = [x_leaf, *core.parameters()]
+
+    def fwd_bwd(body):
+        out = body()
+        return (out.detach(), *torch.autograd.grad(out, leaves, dy))
+
+    # the phase's path, counted: the body through the ops, forward and backward, then the
+    # probe's cases in this process
+    reset_launches()
+    ops_out = fwd_bwd(ops_body)
+    in_process = probe.run("cuda")
+    torch.cuda.synchronize()
+    ops_launches = read_launches()
+    want = {name: 0 for name in wrappers}
+    want.update({"group_norm": 2, "conv3x3": 2, "partial_block_copy": 3,
+                 "partial_block_lastaxis": 1})
+    print(f"the ops' path: launches {ops_launches}, expected {want}")
+    if ops_launches != want or not in_process["partial_blocks"]:
+        raise AssertionError(f"the ops' path: launches {ops_launches} != {want}, "
+                             f"or the probe failed in process: {in_process}")
+    names = ("out", "dx", "gn1.weight", "gn1.bias", "conv1.weight", "gn2.weight", "gn2.bias",
+             "conv2.weight")
+
+    def body_errors(label, got, want):
+        return [compare(f"resnet body {label} {n}", lambda: a, lambda: b_,
+                        RESNET_TOL if n == "out" else RESNET_GRAD_TOL)
+                for n, a, b_ in zip(names, got, want)]
+
+    # the same path on the kernels' plain versions: no launch, the same values
+    with plain_versions():
+        plain_out = fwd_bwd(ops_body)
+        plain_probe = probe.run("cuda")
+    torch.cuda.synchronize()
+    if read_launches() != ops_launches or not plain_probe["partial_blocks"]:
+        raise AssertionError(f"the plain path launched a kernel, or its probe failed: {plain_probe}")
+    plain_err = body_errors("kernels vs plain", ops_out, plain_out)
+    print(f"the same path on the plain versions: no launch, the probe's cases pass; resnet body "
+          f"output rel {plain_err[0][1]:.3e} (tol {RESNET_TOL}), gradients rel up to "
+          f"{max(r for _, r in plain_err[1:]):.3e} (tol {RESNET_GRAD_TOL})")
+    core_out = fwd_bwd(core_body)
+    body_err = body_errors("ops vs nn.core", ops_out, core_out)
+    del ops_out, core_out, plain_out
+    with torch.no_grad():
+        ops_fwd_ms, core_fwd_ms = cuda_ms(ops_body), cuda_ms(core_body)
+    ops_ms, core_ms = (cuda_ms(lambda: fwd_bwd(b), iters=10) for b in (ops_body, core_body))
+    print(f"resnet body {RESNET_SHAPE}, ops vs nn.core (GroupNorm + F.silu + Conv2d): output rel "
+          f"{body_err[0][1]:.3e} (tol {RESNET_TOL}), gradients rel up to "
+          f"{max(r for _, r in body_err[1:]):.3e} (tol {RESNET_GRAD_TOL}); forward "
+          f"{ops_fwd_ms:.3f} vs {core_fwd_ms:.3f} ms, forward + backward {ops_ms:.3f} vs "
+          f"{core_ms:.3f} ms (measured only: nothing is wired in)")
+    del core, leaves, x_leaf, x, w, dy
+
+    # one call of kernel J and one of K at their records' shapes, traced: the card's time
+    # by kernel beside the CUDA-event times above, which count the host's launches too
+    x = torch.randn(GN_SHAPES[0][0], device=device, generator=gen).bfloat16()
+    affine = torch.ones(x.shape[-1], device=device, dtype=torch.bfloat16)
+    shape, co = CONV_SHAPES[1]
+    x2 = torch.randn(shape, device=device, generator=gen).bfloat16()
+    w = (torch.randn(co, shape[-1], 3, 3, device=device, generator=gen)
+         / (3 * shape[-1] ** 0.5)).bfloat16()
+    for label, call in (
+        (f"group_norm + SiLU {tuple(x.shape)}",
+         lambda: group_norm(x, affine, affine, 32, 1e-5, "silu")),
+        (f"conv3x3 {shape} -> {co} (with the weight repack)", lambda: conv3x3(x2, w)),
+    ):
+        call()
+        kinds, _ = profile_window(call)
+        print(f"one {label} call, device time by kind (torch.profiler): "
+              + ", ".join(f"{kind} {ms:.4f} ms in {n}" for kind, (ms, n) in sorted(kinds.items()))
+              + f"; {sum(ms for ms, _ in kinds.values()):.4f} ms in all")
+    del x, x2, w
+
+    # kernel L: the probe tool as a user runs it, in its own process
+    proc = subprocess.run([sys.executable, "-m", "vision_ft_tpu_torch.tools.partial_block_probe"],
+                          cwd=checkout, capture_output=True, text=True, timeout=600)
+    print(f"python -m vision_ft_tpu_torch.tools.partial_block_probe (exit {proc.returncode}): "
+          f"{proc.stdout.strip()}")
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines or not json.loads(lines[-1])["partial_blocks"]:
+        raise AssertionError(f"the probe did not pass: {proc.stderr[-2000:]}")
+
+    s, c, block = 4360, 256, 512
+    x = torch.randn(s, c, device=device, generator=gen).bfloat16()
+    out = torch.full((s + block, c), probe.SENTINEL, device=device, dtype=torch.bfloat16)
+    assert_reruns("partial_block_copy", lambda: probe.partial_block_copy(x, block, out))
+    copy_err = (out[:s].float() - x.float()).abs().max().item()
+    if copy_err != 0 or not (out[s:] == probe.SENTINEL).all():
+        raise AssertionError(f"partial_block_copy: max abs err {copy_err}, or a write past S")
+    ms = cuda_ms(lambda: probe.partial_block_copy(x, block, out), iters=50)
+    plain_ms = cuda_ms(lambda: probe.partial_block_copy_reference(x, block, out), iters=20)
+    library_ms = cuda_ms(lambda: out[:s].copy_(x), iters=50)
+    bound_ms, bound_by = bound(2 * x.numel() * 2, 0)
+    print(f"copy ({s}, {c}) bf16 in blocks of {block} rows: exact, nothing past S, reruns "
+          f"bit-identical; kernel L {ms:.4f} ms, plain {plain_ms:.4f} ms, Tensor.copy_ "
+          f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    records["partial_block_copy"] = dict(
+        route="cuda", source="vision_ft_tpu_torch/csrc/partial_block_probe.cu",
+        replaces="tools/bench/partial_block_probe.py:25", max_abs_err=copy_err, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+    s = 4352
+    x = torch.randn(8, s, device=device, generator=gen)
+    out = torch.full((8 * s + block,), probe.SENTINEL, device=device)
+    assert_reruns("partial_block_lastaxis", lambda: probe.partial_block_lastaxis(x, block, out))
+    last_err = (out[: 8 * s].view(8, s) - (x * 2 + 1)).abs().max().item()
+    if last_err > 1e-6 or not (out[8 * s:] == probe.SENTINEL).all():
+        raise AssertionError(f"partial_block_lastaxis: max abs err {last_err}, or a write past S")
+    ms = cuda_ms(lambda: probe.partial_block_lastaxis(x, block, out), iters=50)
+    plain_ms = cuda_ms(lambda: probe.partial_block_lastaxis_reference(x, block, out), iters=20)
+    # one PyTorch call computes x * 2 + 1 into the same output: one + 2 * x
+    one = torch.ones((), device=device)
+    library_out = out[: 8 * s].view(8, s)
+    library_ms = cuda_ms(lambda: torch.add(one, x, alpha=2, out=library_out), iters=50)
+    if not torch.equal(library_out, x * 2 + 1):
+        raise AssertionError("torch.add(1, x, alpha=2) does not give x * 2 + 1")
+    bound_ms, bound_by = bound(2 * x.numel() * 4, 2 * x.numel(), PEAK_FP32_FLOPS)
+    print(f"x * 2 + 1 over (8, {s}) fp32 in blocks of {block} columns: max abs err "
+          f"{last_err:.3e}, nothing past S, reruns bit-identical; kernel L {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, torch.add(1, x, alpha=2) {library_ms:.4f} ms, bound "
+          f"{bound_ms:.6f} ms ({bound_by})")
+    records["partial_block_lastaxis"] = dict(
+        route="cuda", source="vision_ft_tpu_torch/csrc/partial_block_probe.cu",
+        replaces="tools/bench/partial_block_probe.py:31", max_abs_err=last_err, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    del x, out, one, library_out
 
     kernels = []
     for name, record in records.items():
@@ -2084,7 +2419,8 @@ def main() -> None:
                     "lumina2_train": lumina_train_launches[name],
                     "sdxl_shortk_generate": route_launches["flash_attention_shortk"][name],
                     "sdxl_fused_ff_generate": route_launches["gated_mlp"][name],
-                    "trainer": trainer_launches[name]}
+                    "trainer": trainer_launches[name],
+                    "ops_resnet_body_and_probe": ops_launches[name]}
         kernels.append({
             "name": name,
             **{k: record[k] for k in ("route", "source", "replaces")},

@@ -34,6 +34,9 @@ from vision_ft_tpu_torch.ops.fused_mlp import gated_mlp, gated_mlp_reference, ge
 from vision_ft_tpu_torch.modules.quant.nf4 import quantize_4bit
 from vision_ft_tpu_torch.ops import nf4_matmul as nf4
 from vision_ft_tpu_torch.ops.layer_norm import layer_norm, layer_norm_reference
+from vision_ft_tpu_torch.ops.group_norm import group_norm, group_norm_backward, group_norm_reference
+from vision_ft_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_backward, conv3x3_reference
+from vision_ft_tpu_torch.tools import partial_block_probe as probe
 
 
 @pytest.fixture
@@ -76,6 +79,12 @@ BF16_MASKED_BWD_TOL = 2e-2
 # bf16 where the plain backward does and sums dk and dv over q in another
 # order (partials per block, then in split order): 3e-2
 BF16_SHORTK_TOL, BF16_SHORTK_BWD_TOL = 2e-2, 3e-2
+# GroupNorm (kernel J) and the 3x3 conv (kernel K) against their plain
+# versions: the same fp32 arithmetic summed in another order (partial sums
+# in split order; taps and channels in K steps), the output rounded once
+# to bf16 on both sides: a bf16 ulp or two of the output's largest value,
+# under the JAX conv test's 2e-2; fp32 GroupNorm to fp32 rounding
+BF16_GN_TOL, FP32_GN_TOL, BF16_CONV_TOL = 2e-2, 1e-5, 2e-2
 
 
 @pytest.mark.cuda
@@ -721,6 +730,165 @@ def test_shortk_kernels_reject_what_they_cannot_take_on_card(cuda):
         lambda: flash_attention_shortk(q.float(), k.float(), v.float()),  # fp32
         lambda: flash_attention_shortk(q, *_shortk_inputs(cuda, 1, 2, 64, 193, 64)[1:3]),
         lambda: flash_attention_shortk_bwd(q96, k96, k96, q96, lse, lse),
+    ):
+        with pytest.raises(ValueError):
+            bad()
+
+
+def _rel_err(got, want):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def _gn_inputs(cuda, shape, dtype, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    c = shape[-1]
+    x = (torch.randn(shape, device=cuda, generator=g) * 2 + 0.5).to(dtype)
+    gamma = (1 + 0.1 * torch.randn(c, device=cuda, generator=g)).to(dtype)
+    beta = (0.1 * torch.randn(c, device=cuda, generator=g)).to(dtype)
+    return x, gamma, beta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", [None, "silu"])
+@pytest.mark.parametrize("shape,groups,dtype", [
+    ((2, 8, 8, 320), 32, torch.bfloat16),
+    ((1, 24, 96), 32, torch.bfloat16),  # S = 24 < a row step, C = 96 in 32-wide blocks
+    ((3, 5, 8, 48), 16, torch.bfloat16),  # S = 40, odd H
+    ((2, 1, 8, 24), 8, torch.bfloat16),  # C = 24: a masked 32-wide channel block
+    ((2, 16, 16, 64), 32, torch.float32),
+    ((1, 4096, 128), 32, torch.bfloat16),  # several parts of S
+])
+def test_group_norm_kernel_matches_plain_on_card(cuda, shape, groups, dtype, act):
+    x, gamma, beta = _gn_inputs(cuda, shape, dtype)
+    before = group_norm.launches
+    got = group_norm(x, gamma, beta, groups, 1e-5, act)
+    assert group_norm.launches == before + 1
+    assert got.shape == x.shape and got.dtype == dtype
+    want = group_norm_reference(x, gamma, beta, groups, 1e-5, act)
+    tol = BF16_GN_TOL if dtype == torch.bfloat16 else FP32_GN_TOL
+    assert _rel_err(got, want) < tol
+    assert torch.equal(got, group_norm(x, gamma, beta, groups, 1e-5, act))  # reruns
+
+
+@pytest.mark.cuda
+def test_group_norm_autograd_runs_the_kernels_and_the_plain_backward_on_card(cuda):
+    x, gamma, beta = _gn_inputs(cuda, (2, 8, 8, 64), torch.bfloat16)
+    dy = torch.randn_like(x)
+    leaves = [t.clone().requires_grad_() for t in (x, gamma, beta)]
+    before = group_norm.launches
+    out = group_norm(*leaves, 8, 1e-6, "silu")
+    assert group_norm.launches == before + 1
+    out.backward(dy)
+    want = group_norm_backward(x, gamma, beta, dy, 8, 1e-6, "silu")
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w)
+
+
+@pytest.mark.cuda
+def test_group_norm_kernels_reject_what_they_cannot_take_on_card(cuda):
+    x, gamma, beta = _gn_inputs(cuda, (2, 8, 8, 64), torch.bfloat16)
+    for bad in (
+        lambda: group_norm(x.half(), gamma, beta, 8, 1e-5),  # fp16
+        lambda: group_norm(x.transpose(1, 2), gamma, beta, 8, 1e-5),  # not contiguous
+        lambda: group_norm(x[:, :3, :4].contiguous(), gamma, beta, 8, 1e-5),  # S = 12
+        lambda: group_norm(x, gamma, beta, 7, 1e-5),  # C % groups
+        lambda: group_norm(x.reshape(128, 64), gamma, beta, 8, 1e-5),  # rank 2
+        lambda: group_norm(x, gamma, beta, 8, 1e-5, "gelu"),
+        lambda: group_norm(x, gamma[:32], beta, 8, 1e-5),
+    ):
+        with pytest.raises(ValueError):
+            bad()
+
+
+def _conv_inputs(cuda, shape, co, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(shape, device=cuda, generator=g).bfloat16()
+    w = (torch.randn(co, shape[-1], 3, 3, device=cuda, generator=g)
+         / (3 * shape[-1] ** 0.5)).bfloat16()
+    return x, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,co", [
+    ((1, 9, 9, 16), 32),  # odd H and W, C at the 16-wide step's minimum
+    ((2, 5, 1, 32), 16),  # W = 1
+    ((1, 1, 1, 16), 8),  # one pixel
+    ((2, 33, 17, 48), 24),  # C = 48: the second half of a 32-channel step is past C
+    ((2, 64, 64, 64), 136),  # pixel tiles over two image rows; CO past one 128 tile
+    ((1, 3, 130, 16), 8),  # a tile that ends inside a row
+    ((2, 16, 16, 320), 320),  # SDXL's first-stage widths
+])
+def test_conv3x3_kernel_matches_plain_on_card(cuda, shape, co):
+    x, w = _conv_inputs(cuda, shape, co)
+    before = conv3x3.launches
+    got = conv3x3(x, w)
+    assert conv3x3.launches == before + 1
+    assert got.shape == (*shape[:3], co) and got.dtype == torch.bfloat16
+    assert _rel_err(got, conv3x3_reference(x, w)) < BF16_CONV_TOL
+    assert torch.equal(got, conv3x3(x, w))  # reruns
+
+
+@pytest.mark.cuda
+def test_conv3x3_autograd_runs_the_kernel_and_the_plain_backward_on_card(cuda):
+    x, w = _conv_inputs(cuda, (2, 9, 7, 32), 16)
+    dy = torch.randn(2, 9, 7, 16, device=cuda).bfloat16()
+    xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before = conv3x3.launches
+    conv3x3(xl, wl).backward(dy)
+    assert conv3x3.launches == before + 1
+    dx, dw = conv3x3_backward(x, w, dy)
+    assert torch.equal(xl.grad, dx) and torch.equal(wl.grad, dw)
+
+
+@pytest.mark.cuda
+def test_conv3x3_kernel_rejects_what_it_cannot_take_on_card(cuda):
+    x, w = _conv_inputs(cuda, (1, 8, 8, 32), 16)
+    for bad in (
+        lambda: conv3x3(x.float(), w),  # fp32
+        lambda: conv3x3(x.transpose(1, 2), w),  # not contiguous
+        lambda: conv3x3(x[..., :8].contiguous(), w[:, :8]),  # C = 8
+        lambda: conv3x3(x, w[:12]),  # CO = 12
+        lambda: conv3x3(x, w[:, :16]),  # w's C is not x's
+    ):
+        with pytest.raises(ValueError):
+            bad()
+
+
+@pytest.mark.cuda
+def test_partial_block_probe_passes_on_card(cuda):
+    before = (probe.partial_block_copy.launches, probe.partial_block_lastaxis.launches)
+    result = probe.run("cuda")
+    assert result["partial_blocks"], result
+    assert (probe.partial_block_copy.launches, probe.partial_block_lastaxis.launches) == (
+        before[0] + 3, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,block", [(1, 512), (513, 512), (7, 2), (100, 64)])
+def test_partial_block_kernels_mask_ragged_tiles_on_card(cuda, s, block):
+    x = torch.randn(s, 8, device=cuda).bfloat16()  # 16 bytes a row
+    out = torch.full((s + block, 8), probe.SENTINEL, device=cuda, dtype=torch.bfloat16)
+    overhang = probe.partial_block_copy(x, block, out)
+    assert torch.equal(out[:s], x) and (out[s:] == probe.SENTINEL).all()
+    assert int(overhang.sum()) == 0
+    y = torch.randn(3, s, device=cuda)  # columns: element-granular, any S
+    out = torch.full((3 * s + block,), probe.SENTINEL, device=cuda)
+    overhang = probe.partial_block_lastaxis(y, block, out)
+    assert torch.equal(out[: 3 * s].view(3, s), y * 2 + 1)
+    assert (out[3 * s:] == probe.SENTINEL).all() and int(overhang.sum()) == 0
+
+
+@pytest.mark.cuda
+def test_partial_block_kernels_reject_what_they_cannot_take_on_card(cuda):
+    x = torch.randn(16, 8, device=cuda)
+    out = torch.empty(16 * 8 + 64, device=cuda)
+    for bad in (
+        lambda: probe.partial_block_copy(x[:, :3].contiguous(), 4, out),  # 12 bytes a row
+        lambda: probe.partial_block_copy(x, 4, out[:8]),  # out too short
+        lambda: probe.partial_block_lastaxis(x.bfloat16(), 4, out.bfloat16()),  # not fp32
+        lambda: probe.partial_block_lastaxis(x, 4096, out),  # a tile past 48 KB
     ):
         with pytest.raises(ValueError):
             bad()

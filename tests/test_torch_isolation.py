@@ -38,8 +38,9 @@ def test_port_imports_without_jax():
     proc = _run(["-c", IMPORT_ALL], REPO)
     assert proc.returncode == 0, proc.stderr
     # every module of the SDXL generate, train and quantization slices, of the Lumina2
-    # generate and train slices and of the SDXL Trainer slice
-    assert int(proc.stdout.strip()) >= 91
+    # generate and train slices, of the SDXL Trainer slice, and the GroupNorm and 3x3
+    # conv ops with the ragged-tile probe tool
+    assert int(proc.stdout.strip()) >= 95
 
 
 PORT_SOURCES = sorted((REPO / "vision_ft_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -51,6 +52,12 @@ LUMINA2_MODULES = [
     "models/lumina2/pipeline.py", "models/lumina2/train_text_to_image.py",
     "modules/loss/flow_match.py", "models/autoencoder/kl.py",
     "ops/flash_attention.py",
+]
+# the modules of the last three kernels: the GroupNorm and 3x3 conv ops, their
+# sources and the ragged-tile probe
+OPS_SOURCES = [
+    "ops/group_norm.py", "ops/conv3x3.py", "csrc/group_norm.py", "tools/__init__.py",
+    "tools/partial_block_probe.py",
 ]
 
 
@@ -67,13 +74,14 @@ def _imported_roots(path: Path) -> set[str]:
 def test_no_source_of_the_port_imports_jax_or_the_jax_package():
     """Every import statement of the port and of chip_smoke.py, also those
     inside functions, which importing the modules would not run."""
-    assert all((REPO / "vision_ft_tpu_torch" / name) in PORT_SOURCES for name in LUMINA2_MODULES)
+    assert all((REPO / "vision_ft_tpu_torch" / name) in PORT_SOURCES
+               for name in LUMINA2_MODULES + OPS_SOURCES)
     for path in PORT_SOURCES:
         bad = _imported_roots(path) & {"jax", "jaxlib", "flax", "optax", "vision_ft_tpu"}
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
 
 
-@pytest.mark.parametrize("name", LUMINA2_MODULES)
+@pytest.mark.parametrize("name", LUMINA2_MODULES + OPS_SOURCES)
 def test_lumina2_module_reads_no_environment_variable(name):
     """The JAX package's VFT_* levers are setters in the port."""
     text = (REPO / "vision_ft_tpu_torch" / name).read_text()

@@ -1,0 +1,112 @@
+"""The port's ragged-tile probe (``vision_ft_tpu_torch.tools.partial_block_probe``)
+against the JAX package's ``tools/bench/partial_block_probe.py``, whose
+Pallas kernels run on the CPU under ``force_tpu_interpret_mode()``. On the
+CPU the port's wrappers take their plain versions; kernel L itself runs in
+``tests/test_torch_cuda_kernels.py`` and ``chip_smoke.py`` on the card.
+"""
+
+import contextlib
+import io
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from tools.bench import partial_block_probe as jax_probe
+
+from vision_ft_tpu_torch.tools import partial_block_probe as probe
+
+
+@pytest.fixture(scope="module")
+def jax_result():
+    out = io.StringIO()
+    with pltpu.force_tpu_interpret_mode(), contextlib.redirect_stdout(out):
+        jax_probe.main()
+    return json.loads(out.getvalue())
+
+
+def test_cpu_line_has_the_jax_tools_cases_and_keys(jax_result, capsys):
+    assert probe.main(["--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 1
+    port = json.loads(lines[0])
+    assert list(port) == list(jax_result) == ["partial_blocks", "cases"]
+    assert port["partial_blocks"] is True and jax_result["partial_blocks"] is True
+    assert len(port["cases"]) == len(jax_result["cases"]) == 4
+    for ours, theirs in zip(port["cases"], jax_result["cases"]):
+        assert list(ours) == list(theirs) and ours == theirs
+
+
+def test_a_failed_case_makes_the_line_false_and_carries_its_error(capsys):
+    """Here there is no card: every case fails on the device move, and the
+    tool exits non-zero."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the cases would run")
+    assert probe.main([]) == 1
+    result = json.loads(capsys.readouterr().out)
+    assert result["partial_blocks"] is False
+    assert all(not c["ok"] and c["error"] for c in result["cases"])
+
+
+def _jax_tool_inputs():
+    """The JAX tool's four inputs, drawn as its ``main()`` draws them."""
+    rng = np.random.default_rng(0)
+    return [
+        (jnp.asarray(rng.standard_normal((4360, 256)), jnp.float32), 512),
+        (jnp.asarray(rng.standard_normal((4360, 256)), jnp.bfloat16), 512),
+        (jnp.asarray(rng.standard_normal((1219, 256)), jnp.bfloat16), 512),
+        (jnp.asarray(np.random.default_rng(1).standard_normal((8, 4352)), jnp.float32), 512),
+    ]
+
+
+def _to_torch(x):
+    t = torch.from_numpy(np.array(x, np.float32))
+    return t.bfloat16() if x.dtype == jnp.bfloat16 else t
+
+
+@pytest.mark.parametrize("case", range(4), ids=["f32", "bf16", "bf16-odd", "f32-lastaxis"])
+def test_plain_outputs_equal_the_interpreted_pallas_calls(case):
+    """The port's plain copy and ``x * 2 + 1`` on the JAX tool's inputs
+    equal its interpreted ``pallas_call`` outputs value for value."""
+    x, block = _jax_tool_inputs()[case]
+    lastaxis = case == 3
+    index = (lambda i: (0, i)) if lastaxis else (lambda i: (i, 0))
+    spec = pl.BlockSpec((8, block) if lastaxis else (block, x.shape[1]), index)
+    with pltpu.force_tpu_interpret_mode():
+        want = pl.pallas_call(
+            jax_probe._lastaxis_kernel if lastaxis else jax_probe._kernel,
+            grid=(-(-x.shape[lastaxis] // block),), in_specs=[spec], out_specs=spec,
+            out_shape=jax.ShapeDtypeStruct(x.shape, x.dtype),
+        )(x)
+    x_port = _to_torch(x)
+    tail = block if lastaxis else block * x.shape[1]
+    out = torch.full((x_port.numel() + tail,), probe.SENTINEL, dtype=x_port.dtype)
+    run = probe.partial_block_lastaxis if lastaxis else probe.partial_block_copy
+    assert int(run(x_port, block, out).sum()) == 0
+    assert torch.equal(out[: x_port.numel()].view(x_port.shape), _to_torch(want))
+    assert (out[x_port.numel():] == probe.SENTINEL).all()
+
+
+@pytest.mark.parametrize("s,block", [(10, 4), (8, 4), (3, 8)])
+def test_plain_copy_writes_nothing_past_s(s, block):
+    x = torch.arange(s * 8, dtype=torch.float32).reshape(s, 8) + 1
+    out = torch.full((s + block, 8), probe.SENTINEL)
+    overhang = probe.partial_block_copy(x, block, out)
+    assert torch.equal(out[:s], x)
+    assert (out[s:] == probe.SENTINEL).all()
+    assert overhang.shape == (-(-s // block),) and int(overhang.sum()) == 0
+
+
+@pytest.mark.parametrize("s,block", [(10, 4), (3, 8)])
+def test_plain_lastaxis_writes_nothing_past_s(s, block):
+    x = torch.linspace(-1, 1, 2 * s).reshape(2, s)
+    out = torch.full((2 * s + block,), probe.SENTINEL)
+    overhang = probe.partial_block_lastaxis(x, block, out)
+    assert torch.equal(out[: 2 * s].view(2, s), x * 2 + 1)
+    assert (out[2 * s:] == probe.SENTINEL).all()
+    assert overhang.shape == (-(-s // block),) and int(overhang.sum()) == 0

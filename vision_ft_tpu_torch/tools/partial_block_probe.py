@@ -1,0 +1,204 @@
+"""Probe: does a tile whose last block overhangs the array read zeros and
+write nothing past the end?
+
+Counterpart of ``tools/bench/partial_block_probe.py``, with its four cases,
+keys and block sizes. There the question was whether the TPU compiler
+takes grid blocks that do not divide the array; on Hopper it is how a
+kernel masks a ragged tile. Kernel L (``csrc/partial_block_probe.cu``)
+copies (S, C) rows in blocks of 512 rows, loading rows past S as zeros
+(cp.async with source size 0) and storing only rows below S; and computes
+``x * 2 + 1`` over (8, S) in blocks of 512 columns (8.5 blocks at
+S = 4352). Each case writes into a buffer longer than its output, filled
+with a sentinel, and holds the output against its input, the tail against
+the sentinel and the overhang's staged values against zero. Run:
+
+    python -m vision_ft_tpu_torch.tools.partial_block_probe [--device cpu]
+
+Prints one JSON line ``{"partial_blocks": true/false, "cases": [...]}``
+and exits 0 only when every case passed. On the CPU the wrappers take
+their plain versions; on the card they launch kernel L or raise. Any
+failure of a case, a build or a launch included, makes ``partial_blocks``
+false and carries its error, as in the JAX tool.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import functools
+import json
+import sys
+
+import numpy as np
+import torch
+
+from ..ops import _build
+
+SENTINEL = 1000.0  # the tail's fill: exact in fp32 and bf16, far from N(0, 1) draws
+_CHUNK_BYTES = 32768  # the copy kernel's shared-memory tile
+
+
+@functools.cache
+def _kernels():
+    lib = _build.cuda_library("partial_block_probe")
+    for fn in (lib.partial_block_copy, lib.partial_block_lastaxis):
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
+    return lib.partial_block_copy, lib.partial_block_lastaxis
+
+
+def _blocks(n: int, block: int) -> int:
+    return -(-n // block)
+
+
+def _check_out(x: torch.Tensor, out: torch.Tensor) -> None:
+    if (out.dtype != x.dtype or out.device != x.device or not out.is_contiguous()
+            or out.numel() < x.numel()):
+        raise ValueError(f"out must be a contiguous {x.dtype} buffer on {x.device} of at least "
+                         f"{x.numel()} elements")
+
+
+def _nonzero_words(staged: torch.Tensor) -> int:
+    """Nonzero 16-byte words among staged values (the copy kernel's count)."""
+    raw = staged.contiguous().reshape(-1).view(torch.uint8)
+    raw = torch.nn.functional.pad(raw, (0, -raw.numel() % 16)).reshape(-1, 16)
+    return int(raw.ne(0).any(1).sum())
+
+
+def partial_block_copy_reference(x, block_rows: int, out):
+    """Plain version of :func:`partial_block_copy`: zero-padded tiles of
+    ``block_rows`` rows, the rows below S written to ``out``."""
+    s = x.shape[0]
+    blocks = _blocks(s, block_rows)
+    tiles = x.new_zeros((blocks * block_rows, *x.shape[1:]))
+    tiles[:s] = x
+    out.view(-1)[: x.numel()] = tiles[:s].reshape(-1)
+    overhang = torch.zeros(blocks, dtype=torch.int32, device=x.device)
+    overhang[-1] = _nonzero_words(tiles[s:])
+    return overhang
+
+
+def partial_block_copy(x: torch.Tensor, block_rows: int, out: torch.Tensor) -> torch.Tensor:
+    """Copy x (S, C) into the first S rows of ``out`` (a contiguous buffer of
+    at least x.numel() elements) in blocks of ``block_rows`` rows; return
+    each block's count of nonzero 16-byte words staged past S (int32)."""
+    if not x.is_cuda:
+        return partial_block_copy_reference(x, block_rows, out)
+    _check_out(x, out)
+    row_bytes = x[0].numel() * x.element_size() if x.ndim == 2 else 0
+    if (x.ndim != 2 or not x.is_contiguous() or row_bytes % 16 or not 0 < row_bytes <= _CHUNK_BYTES
+            or block_rows < 1 or x.data_ptr() % 16 or out.data_ptr() % 16):
+        raise ValueError(f"partial_block_copy takes a contiguous 16-byte aligned (S, C) tensor "
+                         f"with 16 to {_CHUNK_BYTES} bytes a row, got {tuple(x.shape)} {x.dtype}")
+    overhang = torch.empty(_blocks(x.shape[0], block_rows), dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _kernels()[0](x.data_ptr(), out.data_ptr(), x.shape[0], row_bytes, block_rows,
+                            overhang.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"partial_block_copy launch failed: CUDA error {err}")
+    partial_block_copy.launches += 1
+    return overhang
+
+
+def partial_block_lastaxis_reference(x, block_cols: int, out):
+    """Plain version of :func:`partial_block_lastaxis`."""
+    rows, cols = x.shape
+    blocks = _blocks(cols, block_cols)
+    tiles = x.new_zeros((rows, blocks * block_cols))
+    tiles[:, :cols] = x
+    out.view(-1)[: x.numel()] = (tiles[:, :cols] * 2.0 + 1.0).reshape(-1)
+    overhang = torch.zeros(blocks, dtype=torch.int32, device=x.device)
+    overhang[-1] = int(tiles[:, cols:].ne(0).sum())
+    return overhang
+
+
+def partial_block_lastaxis(x: torch.Tensor, block_cols: int, out: torch.Tensor) -> torch.Tensor:
+    """``x * 2 + 1`` of fp32 x (R, S) into the first R * S elements of
+    ``out``, in blocks of ``block_cols`` columns; return each block's count
+    of nonzero values staged past S (int32)."""
+    if not x.is_cuda:
+        return partial_block_lastaxis_reference(x, block_cols, out)
+    _check_out(x, out)
+    if (x.ndim != 2 or x.dtype != torch.float32 or not x.is_contiguous() or x.numel() == 0
+            or block_cols < 1 or x.shape[0] * block_cols * 4 > 48 * 1024):
+        raise ValueError(f"partial_block_lastaxis takes a contiguous fp32 (R, S) tensor with "
+                         f"R * block_cols * 4 <= 48 KB, got {tuple(x.shape)} {x.dtype}")
+    overhang = torch.empty(_blocks(x.shape[1], block_cols), dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _kernels()[1](x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], block_cols,
+                            overhang.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"partial_block_lastaxis launch failed: CUDA error {err}")
+    partial_block_lastaxis.launches += 1
+    return overhang
+
+
+partial_block_copy.launches = 0
+partial_block_lastaxis.launches = 0
+
+
+def _error(exc: Exception) -> str:
+    return f"{type(exc).__name__}: {exc}"[:160]
+
+
+def _case(x_np, block_rows, dtype_name, device):
+    s, c = x_np.shape
+    try:
+        dtype = torch.float32 if dtype_name == "f32" else torch.bfloat16
+        x = torch.from_numpy(x_np).to(dtype).to(device)
+        out = torch.full((s + block_rows, c), SENTINEL, dtype=dtype, device=device)
+        overhang = partial_block_copy(x, block_rows, out)
+        ok = bool(torch.equal(out[:s], x)
+                  and torch.equal(out[s:], torch.full_like(out[s:], SENTINEL))
+                  and int(overhang.sum()) == 0)
+        err = None
+    except Exception as exc:  # a build, a launch or a check refused
+        ok, err = False, _error(exc)
+    return {"dtype": dtype_name, "shape": [s, c], "block_rows": block_rows,
+            "ok": ok, "error": err}
+
+
+def _case_lastaxis(s, block_cols, device):
+    """The ragged block on the last axis: the (b*h, 8, sq) lse layout of
+    the flash kernels when sq % block_q != 0."""
+    x_np = np.random.default_rng(1).standard_normal((8, s))
+    try:
+        x = torch.from_numpy(x_np).float().to(device)
+        out = torch.full((8 * s + block_cols,), SENTINEL, device=device)
+        overhang = partial_block_lastaxis(x, block_cols, out)
+        ok = bool(torch.allclose(out[: 8 * s].view(8, s), x * 2.0 + 1.0, atol=1e-6, rtol=0)
+                  and torch.equal(out[8 * s:], torch.full_like(out[8 * s:], SENTINEL))
+                  and int(overhang.sum()) == 0)
+        err = None
+    except Exception as exc:
+        ok, err = False, _error(exc)
+    return {"dtype": "f32-lastaxis", "shape": [8, s], "block_cols": block_cols,
+            "ok": ok, "error": err}
+
+
+def run(device="cuda") -> dict:
+    """The four cases on ``device``: {"partial_blocks": bool, "cases": [...]}."""
+    rng = np.random.default_rng(0)
+    cases = [
+        # f32, remainder 264 rows (8-aligned): the Lumina2-style q axis
+        _case(rng.standard_normal((4360, 256)), 512, "f32", device),
+        # bf16, remainder 264 (8-aligned, not 16-aligned): AuraFlow's S = 4360
+        _case(rng.standard_normal((4360, 256)), 512, "bf16", device),
+        # bf16, an odd remainder
+        _case(rng.standard_normal((1219, 256)), 512, "bf16-odd", device),
+        _case_lastaxis(4352, 512, device),
+    ]
+    return {"partial_blocks": all(c["ok"] for c in cases), "cases": cases}
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (kernel L, the default) or cpu (the plain versions)")
+    result = run(parser.parse_args(argv).device)
+    print(json.dumps(result))
+    return 0 if result["partial_blocks"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -50,9 +50,14 @@ Phases, each printing its own lines; any failure exits non-zero:
     over 8 kv heads, head dim 96, joint length 4352 with the caption hole
     masked, the refiners' 4096 (all-ones mask) and 256, no mask, causal,
     ragged lengths, head dims 64 and 128.
-11. kernel F, the fused gated MLP, against its plain version at the
+11. kernel F, the fused gated MLP, and its two kernels alone, F-up (the
+    up-projections with the gate in the epilogue) and F-down (the
+    down-projection, split over inner at few rows) on F-up's own output,
+    each against its plain version, reruns bit-identical, beside two
+    F.linear + gate, one F.linear and three F.linear + gate, at the
     NextDiT's (rows, 2304, 9216) SwiGLU shapes, a ragged row count, biases
-    with both gelus, and SDXL's GeGLU (16384, 640, 2560).
+    with both gelus, C = 4096 at 64 rows, and SDXL's GeGLU (16384, 640,
+    2560).
 12. Lumina2 generate() at full width and depth (NextDiT 2B, Gemma-2-2B,
     the 16-channel VAE; bf16, seeded random weights made on the card, a
     synthetic SentencePiece vocab): a 1024 px CFG request cold and warm
@@ -76,7 +81,9 @@ Phases, each printing its own lines; any failure exits non-zero:
     counts in both checkpointing modes, the adapters, the frozen base, a
     second seeded run, gradients bit-identical across remat modes and
     groups, and a depth-reduced step against the plain versions; first, one
-    step with LoRA on the attention only, where kernel F runs forward.
+    step with LoRA on the attention only, where kernel F runs forward, with
+    its launch counts, then the same step warm with the fused feed-forward
+    "auto" and "off".
 
 15. kernels H and I, the short-K attention forward and its backward (SDXL's
     cross-attention, the whole 77- to 192-key context on chip), against
@@ -110,8 +117,9 @@ Phases, each printing its own lines; any failure exits non-zero:
     the plain versions and against nn.core's modules; one call of J and one
     of K traced by torch.profiler (the card's time by kernel); then L, the
     ragged-tile probe, as a user runs it (its own process, `partial_blocks:
-    true`), and its copy kernel timed against Tensor.copy_. Every model path
-    above launches J, K and L 0 times.
+    true`, with its TMA case: the 128-byte swizzled tensor maps kernel F
+    reads and writes through), and its copy kernels timed against
+    Tensor.copy_. Every model path above launches J, K and L 0 times.
 
 Every kernel's record carries its time, its plain version's, the bound
 (the larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s bf16, or
@@ -240,6 +248,7 @@ FUSED_MLP_SHAPES = [  # (M, C, inner, act, biases); the first is the main stack'
     (16832, 2304, 9216, "silu", False),  # two prompts at 832x1216, CFG
     (1001, 2304, 9216, "gelu", True),    # ragged rows, biases
     (1001, 1280, 5120, "gelu_tanh", True),
+    (64, 4096, 8192, "silu", True),      # wider than the 3712 the first design took; F-down split
 ]
 GEGLU_SHAPE = (16384, 640, 2560)  # SDXL's first stage at 1024 px, batch 4
 SHORTK_KERNELS = ("flash_attention_shortk", "flash_attention_shortk_bwd")
@@ -268,7 +277,8 @@ LUMINA_KERNELS = ("flash_attention_masked", "gated_mlp", "flash_attention_masked
                   "flash_attention_masked_dq")
 # kernels J, K and L: no model path calls them (as in the JAX package); phase 18
 # drives them through their own entry points
-OPS_KERNELS = ("group_norm", "conv3x3", "partial_block_copy", "partial_block_lastaxis")
+OPS_KERNELS = ("group_norm", "conv3x3", "partial_block_copy", "partial_block_lastaxis",
+               "partial_block_tma")
 # (shape, eps) at 32 groups: the SDXL UNet's GroupNorms at 1024 px for the CFG
 # request (batch 2, with the up-block concat's 2560) and the train step
 # (batch 4), the VAE decoder's at 1024 px (batch 1, eps 1e-6), and a rank-3 case
@@ -400,10 +410,12 @@ def plain_versions():
 
     saved_lumina = (flash._masked_forward, mlp._forward, flash.flash_attention_masked_backward)
     saved_shortk = (flash._shortk_forward, flash.flash_attention_shortk_backward)
-    saved_ops = (gn._forward, conv._forward, probe.partial_block_copy, probe.partial_block_lastaxis)
+    saved_ops = (gn._forward, conv._forward, probe.partial_block_copy, probe.partial_block_lastaxis,
+                 probe.partial_block_tma)
     gn._forward, conv._forward = gn.group_norm_reference, conv.conv3x3_reference
     probe.partial_block_copy = probe.partial_block_copy_reference
     probe.partial_block_lastaxis = probe.partial_block_lastaxis_reference
+    probe.partial_block_tma = probe.partial_block_tma_reference
     flash._shortk_forward, flash.flash_attention_shortk_backward = shortk_forward, shortk_backward
     flash._forward, flash.flash_attention_bshd_backward = forward, backward
     flash._masked_forward, mlp._forward = flash.flash_attention_reference, mlp_forward
@@ -417,16 +429,18 @@ def plain_versions():
         nf4.nf4_matmul_forward, nf4.nf4_matmul_dx = saved_nf4
         flash._masked_forward, mlp._forward, flash.flash_attention_masked_backward = saved_lumina
         flash._shortk_forward, flash.flash_attention_shortk_backward = saved_shortk
-        gn._forward, conv._forward, probe.partial_block_copy, probe.partial_block_lastaxis = saved_ops
+        (gn._forward, conv._forward, probe.partial_block_copy, probe.partial_block_lastaxis,
+         probe.partial_block_tma) = saved_ops
 
 
 # kernel-name fragments -> kind, first match wins (torch.profiler's names)
 KERNEL_KINDS = [
     ("group_norm_stats", "kernel J stats"), ("group_norm_apply", "kernel J normalize"),
     ("conv3x3_igemm", "kernel K"), ("partial_block_copy", "kernel L copy"),
-    ("partial_block_lastaxis", "kernel L last axis"),
+    ("partial_block_lastaxis", "kernel L last axis"), ("partial_block_tma", "kernel L TMA"),
     ("flash_bwd_dkv_masked", "kernel G dk/dv"), ("flash_bwd_dq_masked", "kernel G dq"),
-    ("flash_fwd_masked", "kernel E"), ("fused_gated_mlp", "kernel F"),
+    ("flash_fwd_masked", "kernel E"), ("gated_up_kernel", "kernel F up"),
+    ("gated_down_kernel", "kernel F down"), ("gated_down_split_sum", "kernel F split sum"),
     ("shortk_fwd", "kernel H"), ("shortk_bwd", "kernel I"),
     ("flash_bwd_dkv_bshd", "kernel C dk/dv"), ("flash_bwd_dq_bshd", "kernel C dq"),
     ("flash_fwd_bshd", "kernel B"), ("layer_norm_fwd", "kernel A"),
@@ -567,7 +581,8 @@ def main() -> None:
         flash_attention_shortk_bwd, flash_attention_shortk_reference, set_flash_shortk,
     )
     from vision_ft_tpu_torch.ops.fused_mlp import (
-        gated_mlp, gated_mlp_reference, geglu_mlp, set_fused_ff,
+        gated_down, gated_down_reference, gated_mlp, gated_mlp_reference, gated_up,
+        gated_up_reference, geglu_mlp, set_fused_ff,
     )
     from vision_ft_tpu_torch.ops.conv3x3 import (
         conv3x3, conv3x3_forward, conv3x3_reference, repack_weight,
@@ -597,6 +612,7 @@ def main() -> None:
         "conv3x3": conv3x3,
         "partial_block_copy": probe.partial_block_copy,
         "partial_block_lastaxis": probe.partial_block_lastaxis,
+        "partial_block_tma": probe.partial_block_tma,
     }
     # the SDXL paths of phases 4-9 launch none of them (the short-K kernels
     # are off there, as by default; kernels J, K and L have no model caller)
@@ -1351,34 +1367,49 @@ def main() -> None:
     )
     del q, k, v, out
 
-    phase("11 kernel F: fused gated MLP vs plain (bf16)")
+    phase("11 kernel F: fused gated MLP, its parts F-up and F-down, vs plain (bf16)")
+    activations = {"silu": F.silu, "gelu": F.gelu,
+                   "gelu_tanh": lambda t: F.gelu(t, approximate="tanh")}
 
-    def mlp_case(what, x, weights, biases, act, kernel):
-        wa, wg, wd = weights
-        ba, bg, bd = biases
-        m, c, inner = x.shape[0], x.shape[1], wd.shape[1]
-        abs_err, rel_err = compare(
-            what, kernel, lambda: gated_mlp_reference(x, wa, wg, wd, ba, bg, bd, act), FUSED_MLP_TOL)
+    def mlp_case(what, kernel, plain, library, flops, nbytes, library_name):
+        """Errors, reruns and times of one kernel F call (or part) against its
+        plain version, with the one library call that computes the same."""
+        abs_err, rel_err = compare(what, kernel, plain, FUSED_MLP_TOL)
         if not torch.equal(kernel(), kernel()):
             raise AssertionError(f"{what}: two launches differ")
         ms = cuda_ms(kernel, warmup=2, iters=10)
-        plain_ms = cuda_ms(lambda: gated_mlp_reference(x, wa, wg, wd, ba, bg, bd, act),
-                           warmup=1, iters=3)
-        linear = torch.nn.functional.linear
-        activation = {"silu": torch.nn.functional.silu,
-                      "gelu": torch.nn.functional.gelu,
-                      "gelu_tanh": lambda t: torch.nn.functional.gelu(t, approximate="tanh")}[act]
-        library_ms = cuda_ms(
-            lambda: linear(activation(linear(x, wa, ba)) * linear(x, wg, bg), wd, bd), iters=10)
-        flops = 6 * m * c * inner
-        nbytes = 2 * (2 * m * c + 3 * c * inner) + sum(0 if t is None else 2 * t.numel() for t in biases)
+        plain_ms = cuda_ms(plain, warmup=1, iters=3)
+        library_ms = cuda_ms(library, iters=10)
         bound_ms, bound_by = bound(nbytes, flops)
         print(f"{what}: max abs err {abs_err:.3e} rel {rel_err:.3e} (tol {FUSED_MLP_TOL}), reruns "
-              f"bit-identical; kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
-              f"{plain_ms:.3f} ms, three F.linear + gate {library_ms:.3f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by})")
+              f"bit-identical; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+              f"{plain_ms:.3f} ms, {library_name} {library_ms:.4f} ms (kernel / library "
+              f"{ms / library_ms:.2f}), bound {bound_ms:.4f} ms ({bound_by})")
         return abs_err, dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                             library_ms=library_ms)
+                             library_ms=library_ms, tflops=flops / ms / 1e9)
+
+    def mlp_parts(label, x, wa, wg, wd, ba, bg, bd, act, whole):
+        """F-up, F-down on F-up's own output, then the whole call: (errors, rows)."""
+        m, c, inner = x.shape[0], x.shape[1], wd.shape[1]
+        act_fn = activations[act]
+        nb = lambda *ts: sum(0 if t is None else 2 * t.numel() for t in ts)  # noqa: E731
+        a = gated_up(x, wa, wg, ba, bg, act)
+        up = mlp_case(
+            f"F-up {label}", lambda: gated_up(x, wa, wg, ba, bg, act),
+            lambda: gated_up_reference(x, wa, wg, ba, bg, act),
+            lambda: act_fn(F.linear(x, wa, ba)) * F.linear(x, wg, bg), 4 * m * c * inner,
+            2 * (m * c + 2 * c * inner + m * inner) + nb(ba, bg), "two F.linear + gate")
+        down = mlp_case(
+            f"F-down {label}", lambda: gated_down(a, wd, bd),
+            lambda: gated_down_reference(a, wd, bd), lambda: F.linear(a, wd, bd),
+            2 * m * c * inner, 2 * (m * inner + c * inner + m * c) + nb(bd), "one F.linear")
+        full = mlp_case(
+            f"kernel F {label}", whole,
+            lambda: gated_mlp_reference(x, wa, wg, wd, ba, bg, bd, act),
+            lambda: F.linear(act_fn(F.linear(x, wa, ba)) * F.linear(x, wg, bg), wd, bd),
+            6 * m * c * inner, 2 * (2 * m * c + 3 * c * inner) + nb(ba, bg, bd),
+            "three F.linear + gate")
+        return up, down, full
 
     def mlp_tensors(m, c, inner, with_biases, fused=False):
         x = torch.randn(m, c, device=device, generator=gen).bfloat16()
@@ -1390,27 +1421,32 @@ def main() -> None:
                   else None for n in (wa.shape[0], inner, c)]
         return x, wa, wg, wd, biases
 
-    errs, rows = [], []
+    results = []
     for m, c, inner, act, with_biases in FUSED_MLP_SHAPES:
-        x, wa, wg, wd, biases = mlp_tensors(m, c, inner, with_biases)
-        err, row = mlp_case(
-            f"gated_mlp M={m} C={c} inner={inner} {act} biases={with_biases}", x, (wa, wg, wd),
-            biases, act, lambda: gated_mlp(x, wa, wg, wd, *biases, act=act))
-        errs.append(err)
-        rows.append(row)
+        x, wa, wg, wd, (ba, bg, bd) = mlp_tensors(m, c, inner, with_biases)
+        results.append(mlp_parts(
+            f"M={m} C={c} inner={inner} {act} biases={with_biases}", x, wa, wg, wd, ba, bg, bd,
+            act, lambda: gated_mlp(x, wa, wg, wd, ba, bg, bd, act=act)))
     m, c, inner = GEGLU_SHAPE
     x, w1, _, w2, (b1, _, b2) = mlp_tensors(m, c, inner, True, fused=True)
-    err, _ = mlp_case(
-        f"geglu_mlp M={m} C={c} inner={inner} (one fused up-projection, read by halves)", x,
-        (w1[inner:], w1[:inner], w2), (b1[inner:], b1[:inner], b2), "gelu_tanh",
-        lambda: geglu_mlp(x, w1, b1, w2, b2))
-    errs.append(err)
+    results.append(mlp_parts(
+        f"GeGLU M={m} C={c} inner={inner} (one fused up-projection, read by halves)", x,
+        w1[inner:], w1[:inner], w2, b1[inner:], b1[:inner], b2, "gelu_tanh",
+        lambda: geglu_mlp(x, w1, b1, w2, b2)))
+    main_up, main_down, main_full = results[0]
+    print(f"the main stack: kernel F {main_full[1]['ms']:.4f} ms ({main_full[1]['tflops']:.1f} "
+          f"TFLOP/s) = F-up {main_up[1]['ms']:.4f} + F-down {main_down[1]['ms']:.4f}; three "
+          f"F.linear + gate {main_full[1]['library_ms']:.4f} ms: the kernel takes "
+          f"{main_full[1]['ms'] / main_full[1]['library_ms']:.3f}x the library's time")
     records["gated_mlp"] = dict(
         route="cuda", source="vision_ft_tpu_torch/csrc/fused_mlp.cu",
         replaces="vision_ft_tpu/ops/pallas/fused_mlp.py:63",
-        max_abs_err=max(errs), **rows[0],
+        max_abs_err=max(full[0] for _, _, full in results), **main_full[1],
+        parts={name: dict(kernel=kernel, max_abs_err=max(r[i][0] for r in results), **row[1])
+               for i, (name, kernel, row) in enumerate((
+                   ("up", "gated_up_kernel", main_up), ("down", "gated_down_kernel", main_down)))},
     )
-    del x, wa, wg, wd, w1, w2, b1, b2, biases
+    del x, wa, wg, wd, w1, w2, b1, b2, ba, bg, bd
 
     phase("12 Lumina2 generate() at full width and depth, bf16, seeded random weights")
     from vision_ft_tpu_torch.models.lumina2.config import Lumina2Config
@@ -1724,6 +1760,21 @@ def main() -> None:
           f"{launches}, expected {want}")
     if not np.isfinite(attention_only[0][1]) or launches != want:
         raise AssertionError("the attention-only LoRA step: loss not finite or launches off")
+    # the same step warm, with kernel F ("auto") and with three cuBLAS calls in
+    # its place ("off"): three pairs, the modes alternating so that neither
+    # gets the host's better moments, the same statistics for both
+    step_s = {"auto": [], "off": []}
+    for mode in ("auto", "off", "off", "auto", "auto", "off"):
+        set_fused_ff(mode)
+        try:
+            state, timed = lumina_steps(state, 1, 41, train_batch)
+        finally:
+            set_fused_ff("auto")
+        step_s[mode].append(timed[0][0] * 1e3)
+    print("the attention-only LoRA step warm, ms: " + "; ".join(
+        f"{label} median {statistics.median(ms):.1f} (min {min(ms):.1f}, max {max(ms):.1f}, "
+        f"runs {', '.join(f'{t:.1f}' for t in ms)})"
+        for label, ms in (('"auto" (kernel F)', step_s["auto"]), ('"off"', step_s["off"]))))
 
     state, frozen = lumina_state()
     n_lora = sum(p.numel() for p in state.trainable.values())
@@ -2300,7 +2351,7 @@ def main() -> None:
     ops_launches = read_launches()
     want = {name: 0 for name in wrappers}
     want.update({"group_norm": 2, "conv3x3": 2, "partial_block_copy": 3,
-                 "partial_block_lastaxis": 1})
+                 "partial_block_lastaxis": 1, "partial_block_tma": 1})
     print(f"the ops' path: launches {ops_launches}, expected {want}")
     if ops_launches != want or not in_process["partial_blocks"]:
         raise AssertionError(f"the ops' path: launches {ops_launches} != {want}, "
@@ -2385,6 +2436,27 @@ def main() -> None:
         replaces="tools/bench/partial_block_probe.py:25", max_abs_err=copy_err, ms=ms,
         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
+    # the TMA case: (128, 64) boxes of 128-byte swizzled tensor maps, kernel F's mode
+    s, c = 4360, 256
+    x = torch.randn(s, c, device=device, generator=gen).bfloat16()
+    out = torch.full((s + probe.TMA_BOX[0], c), probe.SENTINEL, device=device, dtype=torch.bfloat16)
+    assert_reruns("partial_block_tma", lambda: probe.partial_block_tma(x, out))
+    tma_err = (out[:s].float() - x.float()).abs().max().item()
+    if tma_err != 0 or not (out[s:] == probe.SENTINEL).all():
+        raise AssertionError(f"partial_block_tma: max abs err {tma_err}, or a write past S")
+    ms = cuda_ms(lambda: probe.partial_block_tma(x, out), iters=50)
+    plain_ms = cuda_ms(lambda: probe.partial_block_tma_reference(x, out), iters=20)
+    library_ms = cuda_ms(lambda: out[:s].copy_(x), iters=50)
+    bound_ms, bound_by = bound(2 * x.numel() * 2, 0)
+    print(f"TMA copy ({s}, {c}) bf16 in (128, 64) boxes, 128-byte swizzle: exact, zeros staged "
+          f"past S, every element where the swizzle formula puts it, nothing past S, reruns "
+          f"bit-identical; kernel L {ms:.4f} ms, plain {plain_ms:.4f} ms, Tensor.copy_ "
+          f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    records["partial_block_tma"] = dict(
+        route="cuda", source="vision_ft_tpu_torch/csrc/partial_block_probe.cu",
+        replaces="tools/bench/partial_block_probe.py:25", max_abs_err=tma_err, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
     s = 4352
     x = torch.randn(8, s, device=device, generator=gen)
     out = torch.full((8 * s + block,), probe.SENTINEL, device=device)
@@ -2427,6 +2499,7 @@ def main() -> None:
             "launches": sum(launches.values()), "launches_by_path": launches,
             **{k: record[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                       "library_ms")},
+            **({"parts": record["parts"]} if "parts" in record else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -30,7 +30,10 @@ from vision_ft_tpu_torch.ops.flash_attention import (
     flash_attention_shortk_reference,
     set_flash_shortk,
 )
-from vision_ft_tpu_torch.ops.fused_mlp import gated_mlp, gated_mlp_reference, geglu_mlp
+from vision_ft_tpu_torch.ops.fused_mlp import (
+    down_splits, gated_down, gated_down_reference, gated_mlp, gated_mlp_reference, gated_up,
+    gated_up_reference, geglu_mlp,
+)
 from vision_ft_tpu_torch.modules.quant.nf4 import quantize_4bit
 from vision_ft_tpu_torch.ops import nf4_matmul as nf4
 from vision_ft_tpu_torch.ops.layer_norm import layer_norm, layer_norm_reference
@@ -528,8 +531,10 @@ def _mlp_tensors(cuda, m, c, inner, biases, seed=0):
         (512, 2304, 9216, "silu", False),     # context refiner
         (1001, 2304, 9216, "gelu", True),     # ragged rows, biases
         (333, 1280, 5120, "gelu_tanh", True),
-        (100, 3072, 8192, "silu", True),      # wider than one block's 2304 columns: two splits
-        (33, 3712, 512, "silu", False),       # the widest c the x tile's shared memory takes
+        (100, 3072, 8192, "silu", True),      # 12 output tiles of 256: F-down split in 8
+        (33, 4096, 512, "silu", False),       # wider than the 3712 the first design's x tile took
+        (64, 4096, 8192, "silu", True),       # half a row tile; F-down split in 8
+        (129, 2304, 9216, "gelu", False),     # one row into a second row tile
         (1, 128, 256, "silu", False),         # the smallest shape, a single row
     ],
 )
@@ -545,6 +550,50 @@ def test_fused_mlp_kernel_matches_plain_on_card(cuda, m, c, inner, act, biases):
     want = gated_mlp_reference(x, wa, wg, wd, *bs, act=act)
     err = (out.float() - want.float()).abs().max().item()
     assert err <= BF16_FUSED_MLP_TOL * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "m,c,inner,act,biases",
+    [
+        (1001, 2304, 9216, "gelu", True),     # ragged rows, biases
+        (512, 2304, 9216, "silu", False),     # context refiner: F-down split in 3
+        (300, 640, 2560, "gelu_tanh", True),  # 128-wide F-down tiles
+    ],
+)
+def test_fused_mlp_parts_match_plain_on_card(cuda, m, c, inner, act, biases):
+    """F-up against its plain version, F-down against its plain version on
+    F-up's own output; each counts its own launches, not the whole call's."""
+    x, wa, wg, wd, (ba, bg, bd) = _mlp_tensors(cuda, m, c, inner, biases, seed=6)
+    before = (gated_up.launches, gated_down.launches, gated_mlp.launches)
+    a = gated_up(x, wa, wg, ba, bg, act)
+    out = gated_down(a, wd, bd)
+    torch.cuda.synchronize()
+    assert (gated_up.launches, gated_down.launches, gated_mlp.launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    assert a.shape == (m, inner) and a.dtype == torch.bfloat16
+    for got, want in ((a, gated_up_reference(x, wa, wg, ba, bg, act)),
+                      (out, gated_down_reference(a, wd, bd))):
+        assert torch.isfinite(got).all()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= BF16_FUSED_MLP_TOL * want.float().abs().max().item()
+    # the whole call runs the same two kernels on the same inputs
+    assert torch.equal(gated_mlp(x, wa, wg, wd, ba, bg, bd, act=act), out)
+
+
+@pytest.mark.cuda
+def test_fused_mlp_split_path_reruns_bit_identical_on_card(cuda):
+    """At the context refiner's 512 rows F-down sums fp32 partials of inner
+    in split order: two launches give the same bits, and the same bits as
+    the split path's parts."""
+    m, c, inner = 512, 2304, 9216
+    assert down_splits(m, c, inner, torch.cuda.get_device_properties(cuda).multi_processor_count) > 1
+    x, wa, wg, wd, _ = _mlp_tensors(cuda, m, c, inner, False, seed=7)
+    first = gated_mlp(x, wa, wg, wd)
+    second = gated_mlp(x, wa, wg, wd)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(gated_down(gated_up(x, wa, wg), wd), first)
 
 
 @pytest.mark.cuda
@@ -858,11 +907,25 @@ def test_conv3x3_kernel_rejects_what_it_cannot_take_on_card(cuda):
 
 @pytest.mark.cuda
 def test_partial_block_probe_passes_on_card(cuda):
-    before = (probe.partial_block_copy.launches, probe.partial_block_lastaxis.launches)
+    kernels = (probe.partial_block_copy, probe.partial_block_lastaxis, probe.partial_block_tma)
+    before = tuple(k.launches for k in kernels)
     result = probe.run("cuda")
     assert result["partial_blocks"], result
-    assert (probe.partial_block_copy.launches, probe.partial_block_lastaxis.launches) == (
-        before[0] + 3, before[1] + 1)
+    assert tuple(k.launches for k in kernels) == (before[0] + 3, before[1] + 1, before[2] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,c", [(1, 64), (8, 128), (127, 256), (128, 64), (129, 192), (4360, 256)])
+def test_partial_block_tma_zero_fills_and_clips_on_card(cuda, s, c):
+    """TMA with 128-byte swizzle, kernel F's mode: boxes past S stage
+    zeros, stores through a map of S rows write nothing past S, and every
+    element sits where the swizzle formula puts it."""
+    x = torch.randn(s, c, device=cuda).bfloat16()
+    out = torch.full((s + probe.TMA_BOX[0], c), probe.SENTINEL, device=cuda, dtype=torch.bfloat16)
+    counts = probe.partial_block_tma(x, out)
+    torch.cuda.synchronize()
+    assert torch.equal(out[:s], x) and (out[s:] == probe.SENTINEL).all()
+    assert counts.shape == (-(-s // 128) * (c // 64), 2) and int(counts.sum()) == 0
 
 
 @pytest.mark.cuda
@@ -889,6 +952,8 @@ def test_partial_block_kernels_reject_what_they_cannot_take_on_card(cuda):
         lambda: probe.partial_block_copy(x, 4, out[:8]),  # out too short
         lambda: probe.partial_block_lastaxis(x.bfloat16(), 4, out.bfloat16()),  # not fp32
         lambda: probe.partial_block_lastaxis(x, 4096, out),  # a tile past 48 KB
+        lambda: probe.partial_block_tma(x.bfloat16(), out.bfloat16()),  # C = 8: not whole boxes
+        lambda: probe.partial_block_tma(x.repeat(1, 8), out.repeat(8)),  # fp32
     ):
         with pytest.raises(ValueError):
             bad()

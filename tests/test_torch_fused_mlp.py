@@ -3,10 +3,12 @@
 On a CPU tensor the wrappers return the plain PyTorch version, held here
 against the JAX package's Pallas kernel run in interpret mode
 (``gated_mlp`` / ``geglu_mlp(..., interpret=True)``) and its ``_gated_ref``;
-the autograd function against ``jax.grad`` through the JAX package's
-``custom_vjp``; the gate (``supported``, ``fused_ff_enabled``,
-``set_fused_ff``) case by case. The kernel itself is held against the plain
-version on the card by tests/test_torch_cuda_kernels.py.
+the plain versions of kernel F's two parts (F-up, F-down) composed against
+the whole call and the JAX kernel; the autograd function against
+``jax.grad`` through the JAX package's ``custom_vjp``; the gate
+(``supported``, ``fused_ff_enabled``, ``set_fused_ff``) and F-down's split
+rule case by case. The kernels themselves are held against the plain
+versions on the card by tests/test_torch_cuda_kernels.py.
 """
 
 import types
@@ -23,9 +25,14 @@ import vision_ft_tpu_torch.nn as tnn
 from vision_ft_tpu_torch.modules import peft, quant
 from vision_ft_tpu_torch.ops import fused_mlp
 from vision_ft_tpu_torch.ops.fused_mlp import (
+    down_splits,
     fused_ff_enabled,
+    gated_down,
+    gated_down_reference,
     gated_mlp,
     gated_mlp_reference,
+    gated_up,
+    gated_up_reference,
     geglu_mlp,
     set_fused_ff,
     supported,
@@ -79,6 +86,68 @@ def test_gated_mlp_plain_matches_jax_kernel(act, biases, m):
     got = gated_mlp(_t(x), _t(wa), _t(wg), _t(wd), _t(ba), _t(bg), _t(bd), act)
     torch.testing.assert_close(got, plain, rtol=0, atol=0)
     assert gated_mlp.launches == before
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu_tanh", "gelu"])
+@pytest.mark.parametrize("biases", [True, False], ids=["biases", "no_biases"])
+def test_up_then_down_is_the_whole_call(act, biases):
+    """Kernel F's two parts, F-up then F-down, as plain versions: their
+    composition is the whole call's plain version bit for bit, and the JAX
+    package's interpreted kernel within FP32_TOL, at a ragged row count. On
+    CPU tensors the parts' wrappers are their plain versions."""
+    x, wa, wg, wd, ba, bg, bd = _weights(7, 45, 128, 512, biases)
+    a = gated_up_reference(_t(x), _t(wa), _t(wg), _t(ba), _t(bg), act)
+    assert a.shape == (45, 512) and a.dtype == torch.float32
+    composed = gated_down_reference(a, _t(wd), _t(bd))
+    whole = gated_mlp_reference(_t(x), _t(wa), _t(wg), _t(wd), _t(ba), _t(bg), _t(bd), act)
+    assert torch.equal(composed, whole)
+    want = jax_fused.gated_mlp(
+        _j(x), _j(wa), _j(wg), _j(wd), _j(ba), _j(bg), _j(bd), act=act, interpret=True
+    )
+    _close(composed.numpy(), want)
+    before = (gated_up.launches, gated_down.launches)
+    assert torch.equal(gated_up(_t(x), _t(wa), _t(wg), _t(ba), _t(bg), act), a)
+    assert torch.equal(gated_down(a, _t(wd), _t(bd)), composed)
+    assert (gated_up.launches, gated_down.launches) == before
+
+
+def test_up_then_down_is_geglu():
+    """GeGLU's halves through F-up's plain version (linear stream from the
+    second half, gelu gate from the first), then F-down's, against the JAX
+    package's interpreted ``geglu_mlp``."""
+    rng = np.random.default_rng(8)
+    c, inner = 128, 256
+    x = rng.standard_normal((61, c)).astype(np.float32)
+    w1 = (rng.standard_normal((2 * inner, c)) * c**-0.5).astype(np.float32)
+    b1 = (rng.standard_normal(2 * inner) * 0.1).astype(np.float32)
+    w2 = (rng.standard_normal((c, inner)) * inner**-0.5).astype(np.float32)
+    b2 = (rng.standard_normal(c) * 0.1).astype(np.float32)
+    tw1, tb1 = _t(w1), _t(b1)
+    a = gated_up_reference(_t(x), tw1[inner:], tw1[:inner], tb1[inner:], tb1[:inner], "gelu_tanh")
+    got = gated_down_reference(a, _t(w2), _t(b2))
+    assert torch.equal(got, geglu_mlp(_t(x), tw1, tb1, _t(w2), _t(b2)))
+    _close(got.numpy(), jax_fused.geglu_mlp(_j(x), _j(w1), _j(b1), _j(w2), _j(b2), interpret=True))
+
+
+@pytest.mark.parametrize(
+    "m,c,inner,sms,want",
+    [
+        (8704, 2304, 9216, 132, 1),   # the main stack: 612 output tiles fill the card
+        (512, 2304, 9216, 132, 3),    # the context refiner: 36 tiles, 3 parts of 48 K tiles
+        (1001, 1280, 5120, 132, 3),   # 40 tiles of 128 x 256
+        (1001, 640, 2560, 132, 2),    # C % 256 != 0: 128-wide tiles, 40 of them; 2 parts of 20
+        (64, 4096, 8192, 132, 8),     # 16 tiles, 8 parts of 16 K tiles
+        (1, 128, 256, 132, 1),        # 4 K tiles: too shallow to split
+        (512, 2304, 9216, 16, 1),     # a card with fewer SMs than tiles
+    ],
+)
+def test_down_splits(m, c, inner, sms, want):
+    """F-down splits inner only where its output tiles leave SMs idle, and
+    never below 16 K tiles a part."""
+    assert down_splits(m, c, inner, sms) == want
+    tiles = -(-m // 128) * (c // (256 if c % 256 == 0 else 128))
+    assert want == 1 or want * tiles <= sms
+    assert want == 1 or inner // 64 // want >= 16
 
 
 def test_gated_mlp_keeps_leading_axes():
@@ -164,15 +233,13 @@ def test_geglu_gradient_reaches_both_halves_and_skips_frozen_weights():
     [
         (2304, 9216, True), (640, 2560, True), (1280, 5120, True), (3072, 8192, True),
         (128, 256, True), (2304 + 64, 9216, False), (2304, 9216 + 128, False), (100, 256, False),
-        (3712, 8192, True), (3840, 8192, False),
+        (3712, 8192, True), (3840, 8192, True),
     ],
 )
 def test_supported(c, inner, want):
-    """The JAX package's rule, and the port's cap on c (the x tile must fit
-    in shared memory)."""
+    """The JAX package's rule, exactly: kernel F has no cap on c."""
     assert supported(c, inner) is want
-    if c <= fused_mlp.MAX_C:
-        assert jax_fused.supported(c, inner) is want
+    assert jax_fused.supported(c, inner) is want
 
 
 def test_unknown_activation_raises():

@@ -31,15 +31,18 @@ def jax_result():
 
 
 def test_cpu_line_has_the_jax_tools_cases_and_keys(jax_result, capsys):
+    """The JAX tool's four cases, case for case, then the port's TMA case."""
     assert probe.main(["--device", "cpu"]) == 0
     lines = capsys.readouterr().out.splitlines()
     assert len(lines) == 1
     port = json.loads(lines[0])
     assert list(port) == list(jax_result) == ["partial_blocks", "cases"]
     assert port["partial_blocks"] is True and jax_result["partial_blocks"] is True
-    assert len(port["cases"]) == len(jax_result["cases"]) == 4
+    assert len(jax_result["cases"]) == 4 and len(port["cases"]) == 5
     for ours, theirs in zip(port["cases"], jax_result["cases"]):
         assert list(ours) == list(theirs) and ours == theirs
+    assert port["cases"][4] == {"dtype": "bf16-tma", "shape": [4360, 256], "box": [128, 64],
+                                "swizzle": "128B", "ok": True, "error": None}
 
 
 def test_a_failed_case_makes_the_line_false_and_carries_its_error(capsys):
@@ -110,3 +113,16 @@ def test_plain_lastaxis_writes_nothing_past_s(s, block):
     assert torch.equal(out[: 2 * s].view(2, s), x * 2 + 1)
     assert (out[2 * s:] == probe.SENTINEL).all()
     assert overhang.shape == (-(-s // block),) and int(overhang.sum()) == 0
+
+
+@pytest.mark.parametrize("s,c", [(4360, 256), (8, 64), (128, 128), (129, 192)])
+def test_plain_tma_case_writes_nothing_past_s(s, c):
+    """The TMA case's plain version: (128, 64) boxes, zeros staged past S,
+    the copy exact, the tail untouched, one pair of counts per box."""
+    x = torch.randn(s, c, generator=torch.Generator().manual_seed(s)).bfloat16()
+    out = torch.full((s + probe.TMA_BOX[0], c), probe.SENTINEL, dtype=torch.bfloat16)
+    counts = probe.partial_block_tma(x, out)
+    assert torch.equal(out[:s], x)
+    assert (out[s:] == probe.SENTINEL).all()
+    assert counts.shape == (-(-s // 128) * (c // 64), 2) and int(counts.sum()) == 0
+    assert probe.partial_block_tma.launches == 0

@@ -1,80 +1,59 @@
-// Fused gated MLP (GeGLU / SwiGLU feed-forward) for Hopper (sm_90a), CUDA C++.
+// Fused gated MLP (GeGLU / SwiGLU feed-forward) for Hopper (sm_90a), CUDA C++:
+// kernel F, two TMA + wgmma GEMMs.
 //
-// Replaces vision_ft_tpu/ops/pallas/fused_mlp.py::_gated_kernel (launched by
-// _gated_fwd_kernel_call, entries gated_mlp and geglu_mlp).
+// Replaces vision_ft_tpu/ops/pallas/fused_mlp.py::_gated_kernel (:63,
+// launched by _gated_fwd_kernel_call, entries gated_mlp and geglu_mlp).
 //
 // Computes out = (act(x Wa^T + ba) * (x Wg^T + bg)) Wd^T + bd for x (M, C),
 // Wa and Wg (inner, C), Wd (C, inner), all bf16 in torch (out, in) layout;
 // biases fp32 or absent. Both up-projections accumulate in fp32, the gated
-// product is rounded to bf16 before the down-projection (as the kernel it
-// replaces does), the down-projection accumulates in fp32 and the output is
-// bf16. The (M, inner) intermediates never reach device memory.
+// product is rounded to bf16 before the down-projection (where the kernel
+// it replaces rounds it, fused_mlp.py:84), the down-projection accumulates
+// in fp32 and the output is bf16.
 //
-// The TPU kernel keeps a (256, C) fp32 accumulator and the x tile in 16 MB
-// of VMEM and walks the inner chunks in its sequential grid axis. An SM has
-// 256 KB of registers and 227 KB of shared memory, so here:
-//   - One block of 8 warps owns 16 rows of x and (up to) 2304 output columns.
-//     Its 16 x C_blk fp32 accumulator lives in registers (warp w holds the
-//     8-column tiles w, w + 8, w + 16, ...: 144 registers a thread at 2304),
-//     its x tile (16 x C bf16) in shared memory for the whole kernel.
-//   - A loop over 64-column chunks of inner replaces the sequential grid
-//     axis. Per chunk: h and g (16 x 64 each; warp w computes columns
-//     [8w, 8w + 8) of both, so the gate is warp-local) from x and the
-//     chunk's rows of Wa and Wg; a = act(h + ba) * (g + bg) -> bf16 -> shared
-//     memory; then acc += a Wd[:, chunk]^T.
-//   - The weights stream through a 3-stage cp.async ring of ~36 KB slabs:
-//     18 slabs of (64 Wa rows + 64 Wg rows) x 128 contraction columns, then
-//     9 slabs of 256 Wd rows x 64 chunk columns (at C = 2304). One
-//     __syncthreads a slab; bf16 mma.sync m16n8k16, fp32 accumulate.
-//   - C wider than 2304 is split over blockIdx.y; each split recomputes the
-//     up-projections. Ragged M is masked: rows at or past M are staged as
-//     zeros and never written.
+// What bounds it on an H100: operations, 6 M C inner (1.11 TFLOP at the
+// NextDiT's main stack, M = 8704: 1.121 ms at 989 TFLOP/s).
+//
+// The TPU kernel keeps a (256, C) fp32 output accumulator in VMEM across
+// its sequential inner-chunk axis. At C = 2304 a row tile big enough to
+// reuse the weights (128 rows) needs 1.18 MB of accumulator, and an SM has
+// 256 KB of registers and 227 KB of shared memory. So the gated product
+// `a` (M, inner) makes one round trip through device memory, bf16 (321 MB
+// written and read at the main stack, 0.096 ms at 3.35 TB/s, at most 9% of
+// the bound), and the work is two TN GEMMs, both operands K-major:
+//   - F-up (gated_up_kernel): a = bf16(act(x Wa^T + ba) * (x Wg^T + bg)).
+//     A tile of 128 rows x 128 inner columns. A stage holds x's 128 rows and
+//     the tile's 128 Wa rows stacked over the same 128 Wg rows (three TMA
+//     boxes, 64 deep in C); one wgmma m64n256k16 a warpgroup computes both
+//     projections, h in accumulator columns 0-127 and g in 128-255. Column
+//     j and column j + 128 sit in the same thread, so the gate needs no
+//     exchange: the epilogue adds the biases, applies the activation in fp32,
+//     rounds to bf16 and stores through shared memory with TMA.
+//   - F-down (gated_down_kernel): out = bf16(a Wd^T + bd), tiles of 128 x
+//     256 (128 x 128 where C / 256 is not whole), K = inner.
+//   - Both: the hopper_gemm.cuh main loop, a producer thread keeping a ring
+//     of 4 stages of TMA loads (128-byte swizzle) in flight for two consumer
+//     warpgroups (64 rows each), registers moved to them with setmaxnreg.
+//     Ragged M: TMA reads rows past M as zeros and drops their stores.
+//   - Few tiles (the context refiner's 512 rows: 36 F-down tiles on 132
+//     SMs): F-down splits inner into `splits` parts; each writes an fp32
+//     partial and gated_down_split_sum_kernel adds them in split order.
 //   - No atomics and a fixed summation order: reruns are bit-identical.
-//
-// What bounds it on an H100: operations (6*M*C*inner against each weight
-// read once). What this design pays: with 16 rows a block, every block
-// streams all of Wa, Wg and Wd through L2 (M/16 times the weights' bytes),
-// and each weight fragment feeds one mma, so L2 bandwidth, not the tensor
-// cores, sets its speed. Sharing one weight stream between more rows needs
-// the accumulator split over a thread-block cluster (distributed shared
-// memory for the chunk's `a`), wgmma and TMA: later work.
+// GeGLU's Wa and Wg are the two halves of one (2 inner, C) weight: their
+// tensor maps start at the halves' row offsets inside it; nothing is copied.
 
-#include "flash_attention_bshd.cuh"
+#include "hopper_gemm.cuh"
+
+#include <math.h>
 
 namespace {
 
-using bshd::lds32;
-using bshd::mma_16816;
-using bshd::pack_bf16x2;
+using namespace hopper;
 
-constexpr int kRows = 16;
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kChunk = 64;    // inner columns a chunk
-constexpr int kSlabK = 128;   // contraction columns of an up-projection slab
-constexpr int kSlabN = 256;   // output columns of a down-projection slab
-constexpr int kStages = 3;
-constexpr int kPad = 8;       // bf16 elements of padding per shared row
-constexpr int kLdUp = kSlabK + kPad;    // 68 words: conflict-free fragment loads
-constexpr int kLdDown = kChunk + kPad;  // 36 words
-constexpr int kLdA = kChunk + kPad;
-constexpr int kUpElems = 2 * kChunk * kLdUp;
-constexpr int kDownElems = kSlabN * kLdDown;
-constexpr int kStageElems = kUpElems > kDownElems ? kUpElems : kDownElems;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+constexpr int kUpN = 128;  // inner columns of an F-up tile
+constexpr int kUpGroupM = 16;  // F-up row tiles that walk the inner tiles together (L2 reuse)
+constexpr int kSmemBytes = 1024 + Ring<256>::kBytes + 2 * 2 * kEpiTileBytes +
+                           2 * kStages * sizeof(uint64_t);
 
 __device__ __forceinline__ float activate(float h, int act) {
   if (act == 0) return h / (1.f + expf(-h));  // silu
@@ -84,257 +63,312 @@ __device__ __forceinline__ float activate(float h, int act) {
   return 0.5f * h * (1.f + erff(h * 0.7071067811865476f));  // gelu, exact
 }
 
-// The weight stream of one block: slab s of chunk j is up-projection slab s
-// (s < up_slabs) or down-projection slab s - up_slabs. Every thread starts
-// its share of the next slab's 16-byte copies into the ring.
-struct Producer {
-  const __nv_bfloat16* wa;
-  const __nv_bfloat16* wg;
-  const __nv_bfloat16* wd;
-  __nv_bfloat16* ring;
-  int c, inner, col0, col_end, up_slabs, slabs_per_chunk, num_chunks;
-  int chunk, slab, started;
+// Element i of an fp32 bias vector, or 0 where it is absent.
+__device__ __forceinline__ float bias_at(const float* bias, int i) {
+  return bias == nullptr ? 0.f : bias[i];
+}
 
-  __device__ __forceinline__ void load_next() {
-    if (chunk < num_chunks) {
-      __nv_bfloat16* dst = ring + (started % kStages) * kStageElems;
-      if (slab < up_slabs) {
-        // rows 0..63: Wa rows of the chunk, rows 64..127: Wg rows; 16 vectors a row
-#pragma unroll
-        for (int i = 0; i < 2 * kChunk * (kSlabK / 8) / kThreads; ++i) {
-          const int idx = threadIdx.x + i * kThreads;
-          const int row = idx / (kSlabK / 8);
-          const int vec = idx % (kSlabK / 8);
-          const __nv_bfloat16* w = row < kChunk ? wa : wg;
-          const long long src_row = (long long)chunk * kChunk + (row % kChunk);
-          cp_async16(dst + row * kLdUp + vec * 8, w + src_row * c + slab * kSlabK + vec * 8);
-        }
-      } else {
-        const int n0 = col0 + (slab - up_slabs) * kSlabN;
-#pragma unroll
-        for (int i = 0; i < kSlabN * (kChunk / 8) / kThreads; ++i) {
-          const int idx = threadIdx.x + i * kThreads;
-          const int row = idx / (kChunk / 8);
-          const int vec = idx % (kChunk / 8);
-          if (n0 + row < col_end) {
-            cp_async16(dst + row * kLdDown + vec * 8,
-                       wd + (long long)(n0 + row) * inner + chunk * kChunk + vec * 8);
-          }
-        }
-      }
-      if (++slab == slabs_per_chunk) {
-        slab = 0;
-        ++chunk;
-      }
-    }
-    cp_async_commit();  // an empty group past the end keeps the wait counts uniform
-    ++started;
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The shared memory of both kernels: the ring (B tiles of up to 256 rows),
+// two 64 x 64 output boxes per consumer warpgroup, the barriers.
+struct Layout {
+  uint8_t* ring;
+  uint8_t* epi;  // warpgroup w's boxes: epi + w * 2 * kEpiTileBytes
+  uint64_t* full;
+  uint64_t* empty;
+  __device__ __forceinline__ explicit Layout(uint8_t* raw) {
+    ring = align_1024(raw);
+    epi = ring + Ring<256>::kBytes;
+    full = reinterpret_cast<uint64_t*>(epi + 2 * 2 * kEpiTileBytes);
+    empty = full + kStages;
   }
 };
 
-// NT: 8-column output tiles a warp holds; the block covers up to NT * 64
-// output columns, [col0, col_end).
-template <int NT>
+// F-up: tile (m0, n0) of a = bf16(act(x Wa^T + ba) * (x Wg^T + bg)).
 __global__ void __launch_bounds__(kThreads, 1)
-fused_gated_mlp_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wa,
-                       const float* __restrict__ ba, const __nv_bfloat16* __restrict__ wg,
-                       const float* __restrict__ bg, const __nv_bfloat16* __restrict__ wd,
-                       const float* __restrict__ bd, __nv_bfloat16* __restrict__ out, int m,
-                       int c, int inner, int cols_per_block, int act) {
-  static_assert(NT % 4 == 0, "a down-projection slab is four tiles a warp");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ldx = c + kPad;
-  __nv_bfloat16* sX = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sA = sX + kRows * ldx;
-  __nv_bfloat16* ring = sA + kRows * kLdA;
+gated_up_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_wa,
+                const __grid_constant__ CUtensorMap map_wg, const __grid_constant__ CUtensorMap map_a,
+                const float* __restrict__ ba, const float* __restrict__ bg, int m, int c,
+                int inner, int act) {
+  extern __shared__ uint8_t smem_raw[];
+  const Layout smem(smem_raw);
+  // tiles in groups of kUpGroupM row tiles: the group walks the inner tiles,
+  // so its x rows and the current weight rows stay in L2
+  const int num_m = (m + kBM - 1) / kBM;
+  const int num_n = inner / kUpN;
+  const int per_group = kUpGroupM * num_n;
+  const int group = blockIdx.x / per_group;
+  const int first_m = group * kUpGroupM;
+  const int group_rows = min(num_m - first_m, kUpGroupM);
+  const int in_group = blockIdx.x % per_group;
+  const int m0 = (first_m + in_group % group_rows) * kBM;
+  const int n0 = (in_group / group_rows) * kUpN;
 
-  const int m0 = blockIdx.x * kRows;
-  const int col0 = blockIdx.y * cols_per_block;
-  const int col_end = min(c, col0 + cols_per_block);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
+  init_ring_barriers(smem.full, smem.empty);
+  __syncthreads();
 
-  Producer producer;
-  producer.wa = wa;
-  producer.wg = wg;
-  producer.wd = wd;
-  producer.ring = ring;
-  producer.c = c;
-  producer.inner = inner;
-  producer.col0 = col0;
-  producer.col_end = col_end;
-  producer.up_slabs = c / kSlabK;
-  producer.slabs_per_chunk = producer.up_slabs + (col_end - col0 + kSlabN - 1) / kSlabN;
-  producer.num_chunks = inner / kChunk;
-  producer.chunk = producer.slab = producer.started = 0;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) producer.load_next();
-
-  // x tile -> shared, rows at or past m as zeros
-  const int vec_per_row = c / 8;
-  for (int idx = threadIdx.x; idx < kRows * vec_per_row; idx += kThreads) {
-    const int row = idx / vec_per_row;
-    const int vec = idx % vec_per_row;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (m0 + row < m) {
-      val = *reinterpret_cast<const uint4*>(x + (long long)(m0 + row) * c + vec * 8);
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      produce<kUpN, kUpN>(smem.ring, smem.full, smem.empty, &map_x, m0, &map_wa, n0, &map_wg, n0,
+                          0, c / kBK);
     }
-    *reinterpret_cast<uint4*>(sX + row * ldx + vec * 8) = val;
-  }
+  } else {
+    setmaxnreg_inc<232>();
+    float acc[128];
+    consume<256>(acc, smem.ring, smem.full, smem.empty, wg, c / kBK);
 
-  float acc[NT][4];
+    // epilogue: h in acc[0, 64), g in acc[64, 128), same (row, column)
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int r = (t / 32) * 16 + lane / 4;  // rows r and r + 8 of this warpgroup's 64
+    uint8_t* boxes = smem.epi + wg * 2 * kEpiTileBytes;
 #pragma unroll
-  for (int a = 0; a < NT; ++a) acc[a][0] = acc[a][1] = acc[a][2] = acc[a][3] = 0.f;
-
-  int consumed = 0;  // slabs computed so far: the next one sits in stage consumed % kStages
-  const int up_slabs = producer.up_slabs;
-  const int num_chunks = producer.num_chunks;
-  for (int chunk = 0; chunk < num_chunks; ++chunk) {
-    // up-projections: h = x Wa[chunk]^T and g = x Wg[chunk]^T, columns [8w, 8w + 8)
-    float hacc[4] = {0.f, 0.f, 0.f, 0.f};
-    float gacc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int ks = 0; ks < up_slabs; ++ks) {
-      cp_async_wait<kStages - 2>();
-      __syncthreads();  // the slab has landed; every warp is done with the stage refilled next
-      producer.load_next();
-      const __nv_bfloat16* sW = ring + (consumed % kStages) * kStageElems;
-      ++consumed;
-      const __nv_bfloat16* xa = sX + g * ldx + ks * kSlabK + 2 * t;
-      const __nv_bfloat16* wa_s = sW + (warp * 8 + g) * kLdUp + 2 * t;
-      const __nv_bfloat16* wg_s = wa_s + kChunk * kLdUp;
+    for (int q = 0; q < 2; ++q) {  // 64-column halves of the tile
+      uint8_t* box = boxes + q * kEpiTileBytes;
 #pragma unroll
-      for (int kk = 0; kk < kSlabK / 16; ++kk) {
-        uint32_t a[4];
-        a[0] = lds32(xa + kk * 16);
-        a[1] = lds32(xa + 8 * ldx + kk * 16);
-        a[2] = lds32(xa + kk * 16 + 8);
-        a[3] = lds32(xa + 8 * ldx + kk * 16 + 8);
-        mma_16816(hacc, a, lds32(wa_s + kk * 16), lds32(wa_s + kk * 16 + 8));
-        mma_16816(gacc, a, lds32(wg_s + kk * 16), lds32(wg_s + kk * 16 + 8));
+      for (int jj = 0; jj < 8; ++jj) {
+        const int j = q * 8 + jj;
+        const int col = n0 + j * 8 + 2 * (lane % 4);
+        const float ba0 = bias_at(ba, col);
+        const float ba1 = bias_at(ba, col + 1);
+        const float bg0 = bias_at(bg, col);
+        const float bg1 = bias_at(bg, col + 1);
+        *reinterpret_cast<uint32_t*>(box + sw128_offset(r, jj, lane % 4)) =
+            pack_bf16x2(activate(acc[4 * j] + ba0, act) * (acc[64 + 4 * j] + bg0),
+                        activate(acc[4 * j + 1] + ba1, act) * (acc[64 + 4 * j + 1] + bg1));
+        *reinterpret_cast<uint32_t*>(box + sw128_offset(r + 8, jj, lane % 4)) =
+            pack_bf16x2(activate(acc[4 * j + 2] + ba0, act) * (acc[64 + 4 * j + 2] + bg0),
+                        activate(acc[4 * j + 3] + ba1, act) * (acc[64 + 4 * j + 3] + bg1));
+      }
+      fence_async_shared();
+      named_barrier_sync(1 + wg, 128);
+      if (t == 0 && m0 + 64 * wg < m) {
+        tma_store_2d(&map_a, box, n0 + 64 * q, m0 + 64 * wg);
+        tma_store_commit();
       }
     }
+    if (t == 0) tma_store_wait<0>();
+  }
+}
 
-    // gate: a = act(h + ba) * (g + bg), rounded to bf16, into shared memory
-    {
-      const int col = chunk * kChunk + warp * 8 + 2 * t;
-      const float ba0 = ba == nullptr ? 0.f : ba[col];
-      const float ba1 = ba == nullptr ? 0.f : ba[col + 1];
-      const float bg0 = bg == nullptr ? 0.f : bg[col];
-      const float bg1 = bg == nullptr ? 0.f : bg[col + 1];
-      __nv_bfloat16* dst = sA + g * kLdA + warp * 8 + 2 * t;
-      *reinterpret_cast<uint32_t*>(dst) = pack_bf16x2(
-          activate(hacc[0] + ba0, act) * (gacc[0] + bg0),
-          activate(hacc[1] + ba1, act) * (gacc[1] + bg1));
-      *reinterpret_cast<uint32_t*>(dst + 8 * kLdA) = pack_bf16x2(
-          activate(hacc[2] + ba0, act) * (gacc[2] + bg0),
-          activate(hacc[3] + ba1, act) * (gacc[3] + bg1));
+// F-down: tile (m0, n0) of out = bf16(a Wd^T + bd), or with SPLIT the fp32
+// partial of inner slices [k_begin, k_end) for split blockIdx.y.
+template <int BN, bool SPLIT>
+__global__ void __launch_bounds__(kThreads, 1)
+gated_down_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_wd,
+                  const __grid_constant__ CUtensorMap map_out,
+                  const float* __restrict__ bd,
+                  float* __restrict__ partial, int m, int c, int inner, int splits) {
+  extern __shared__ uint8_t smem_raw[];
+  const Layout smem(smem_raw);
+  // consecutive blocks share a's rows: the row tile's output tiles together
+  const int num_n = c / BN;
+  const int m0 = (blockIdx.x / num_n) * kBM;
+  const int n0 = (blockIdx.x % num_n) * BN;
+  const int slices = inner / kBK;
+  const int k_begin = (int)((long long)blockIdx.y * slices / splits);
+  const int k_end = (int)((long long)(blockIdx.y + 1) * slices / splits);
+
+  init_ring_barriers(smem.full, smem.empty);
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      produce<BN, 0>(smem.ring, smem.full, smem.empty, &map_a, m0, &map_wd, n0, nullptr, 0,
+                     k_begin, k_end);
     }
+  } else {
+    setmaxnreg_inc<232>();
+    float acc[BN / 2];
+    consume<BN>(acc, smem.ring, smem.full, smem.empty, wg, k_end - k_begin);
 
-    // down-projection: acc += a Wd[:, chunk]^T, 256 output columns a slab;
-    // tile i of slab ns (columns ns*256 + i*64 + 8w ...) is acc[ns*4 + i]
-    uint32_t af[kChunk / 16][4];
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int r = (t / 32) * 16 + lane / 4;
+    if constexpr (SPLIT) {
+      float* dst = partial + (long long)blockIdx.y * m * c;
+      const int row_lo = m0 + 64 * wg + r;
 #pragma unroll
-    for (int ns = 0; ns < NT / 4; ++ns) {
-      if (col0 + ns * kSlabN < col_end) {
-        cp_async_wait<kStages - 2>();
-        __syncthreads();  // for ns == 0 also: every warp's part of `a` is written
-        producer.load_next();
-        const __nv_bfloat16* sW = ring + (consumed % kStages) * kStageElems;
-        ++consumed;
-        if (ns == 0) {
-          const __nv_bfloat16* ab = sA + g * kLdA + 2 * t;
-#pragma unroll
-          for (int kk = 0; kk < kChunk / 16; ++kk) {
-            af[kk][0] = lds32(ab + kk * 16);
-            af[kk][1] = lds32(ab + 8 * kLdA + kk * 16);
-            af[kk][2] = lds32(ab + kk * 16 + 8);
-            af[kk][3] = lds32(ab + 8 * kLdA + kk * 16 + 8);
-          }
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + j * 8 + 2 * (lane % 4);
+        if (row_lo < m) {
+          *reinterpret_cast<float2*>(dst + (long long)row_lo * c + col) =
+              make_float2(acc[4 * j], acc[4 * j + 1]);
         }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          if (col0 + ns * kSlabN + i * 64 + warp * 8 < col_end) {
-            const __nv_bfloat16* wb = sW + (i * 64 + warp * 8 + g) * kLdDown + 2 * t;
-#pragma unroll
-            for (int kk = 0; kk < kChunk / 16; ++kk) {
-              mma_16816(acc[ns * 4 + i], af[kk], lds32(wb + kk * 16), lds32(wb + kk * 16 + 8));
-            }
-          }
+        if (row_lo + 8 < m) {
+          *reinterpret_cast<float2*>(dst + (long long)(row_lo + 8) * c + col) =
+              make_float2(acc[4 * j + 2], acc[4 * j + 3]);
         }
       }
-    }
-  }
-  cp_async_wait<0>();
-
-  // out = acc + bd, bf16
-  const int row_lo = m0 + g;
-  const int row_hi = row_lo + 8;
+    } else {
+      uint8_t* boxes = smem.epi + wg * 2 * kEpiTileBytes;
+      const bool stores = m0 + 64 * wg < m;
 #pragma unroll
-  for (int a = 0; a < NT; ++a) {
-    const int col = col0 + (a / 4) * kSlabN + (a % 4) * 64 + warp * 8 + 2 * t;
-    if (col < col_end) {
-      const float b0 = bd == nullptr ? 0.f : bd[col];
-      const float b1 = bd == nullptr ? 0.f : bd[col + 1];
-      if (row_lo < m) {
-        *reinterpret_cast<uint32_t*>(out + (long long)row_lo * c + col) =
-            pack_bf16x2(acc[a][0] + b0, acc[a][1] + b1);
+      for (int q = 0; q < BN / 64; ++q) {  // 64-column boxes, two buffers in turn
+        uint8_t* box = boxes + (q % 2) * kEpiTileBytes;
+        if (q >= 2) {
+          if (t == 0) tma_store_wait_read<1>();  // box q - 2 has left this buffer
+          named_barrier_sync(1 + wg, 128);
+        }
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int j = q * 8 + jj;
+          const int col = n0 + j * 8 + 2 * (lane % 4);
+          const float b0 = bias_at(bd, col);
+          const float b1 = bias_at(bd, col + 1);
+          *reinterpret_cast<uint32_t*>(box + sw128_offset(r, jj, lane % 4)) =
+              pack_bf16x2(acc[4 * j] + b0, acc[4 * j + 1] + b1);
+          *reinterpret_cast<uint32_t*>(box + sw128_offset(r + 8, jj, lane % 4)) =
+              pack_bf16x2(acc[4 * j + 2] + b0, acc[4 * j + 3] + b1);
+        }
+        fence_async_shared();
+        named_barrier_sync(1 + wg, 128);
+        if (t == 0 && stores) {
+          tma_store_2d(&map_out, box, n0 + 64 * q, m0 + 64 * wg);
+          tma_store_commit();
+        }
       }
-      if (row_hi < m) {
-        *reinterpret_cast<uint32_t*>(out + (long long)row_hi * c + col) =
-            pack_bf16x2(acc[a][2] + b0, acc[a][3] + b1);
-      }
+      if (t == 0) tma_store_wait<0>();
     }
   }
 }
 
-template <int NT>
-int launch(const __nv_bfloat16* x, const __nv_bfloat16* wa, const float* ba,
-           const __nv_bfloat16* wg, const float* bg, const __nv_bfloat16* wd, const float* bd,
-           __nv_bfloat16* out, int m, int c, int inner, int act, cudaStream_t stream) {
-  const int capacity = NT * 64;
-  const int splits = (c + capacity - 1) / capacity;
-  const int cols_per_block = ((c + splits - 1) / splits + 63) / 64 * 64;
-  const size_t smem =
-      sizeof(__nv_bfloat16) * (size_t)(kRows * (c + kPad) + kRows * kLdA + kStages * kStageElems);
-  if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);  // 227 KB a block
-  cudaError_t err = cudaFuncSetAttribute(fused_gated_mlp_kernel<NT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((m + kRows - 1) / kRows, splits);
-  fused_gated_mlp_kernel<NT><<<grid, kThreads, smem, stream>>>(x, wa, ba, wg, bg, wd, bd, out, m,
-                                                               c, inner, cols_per_block, act);
+// out = bf16(partial[0] + partial[1] + ... + bd), the partials in split order.
+__global__ void __launch_bounds__(256)
+gated_down_split_sum_kernel(const float4* __restrict__ partial, const float* __restrict__ bd,
+                            uint2* __restrict__ out,
+                            int m, int c, int splits) {
+  const long long quads = (long long)m * c / 4;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < quads;
+       i += (long long)gridDim.x * blockDim.x) {
+    float4 sum = partial[i];
+    for (int s = 1; s < splits; ++s) {
+      const float4 p = partial[s * quads + i];
+      sum.x += p.x;
+      sum.y += p.y;
+      sum.z += p.z;
+      sum.w += p.w;
+    }
+    const int col = (int)((i * 4) % c);
+    sum.x += bias_at(bd, col);
+    sum.y += bias_at(bd, col + 1);
+    sum.z += bias_at(bd, col + 2);
+    sum.w += bias_at(bd, col + 3);
+    out[i] = make_uint2(pack_bf16x2(sum.x, sum.y), pack_bf16x2(sum.z, sum.w));
+  }
+}
+
+// Lets KERNEL use kSmemBytes of dynamic shared memory: once per device.
+template <auto KERNEL>
+int prepare() {
+  static bool done[64] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess && (device >= 64 || !done[device])) {
+    err = cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (err == cudaSuccess && device < 64) done[device] = true;
+  }
+  return static_cast<int>(err);
+}
+
+int launch_up(const void* x, const void* wa, const float* ba, const void* wg, const float* bg,
+              void* a, int m, int c, int inner, int act, cudaStream_t stream) {
+  CUtensorMap map_x, map_wa, map_wg, map_a;
+  int err = make_map_2d(&map_x, x, m, c, kBM);
+  if (!err) err = make_map_2d(&map_wa, wa, inner, c, kUpN);
+  if (!err) err = make_map_2d(&map_wg, wg, inner, c, kUpN);
+  if (!err) err = make_map_2d(&map_a, a, m, inner, 64);
+  if (!err) err = prepare<gated_up_kernel>();
+  if (err) return err;
+  const int tiles = (m + kBM - 1) / kBM * (inner / kUpN);
+  gated_up_kernel<<<tiles, kThreads, kSmemBytes, stream>>>(map_x, map_wa, map_wg, map_a, ba, bg,
+                                                           m, c, inner, act);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int BN>
+int launch_down_bn(const CUtensorMap& map_a, const void* wd, const float* bd, void* out,
+                   float* partial, int m, int c, int inner, int splits, cudaStream_t stream) {
+  CUtensorMap map_wd, map_out;
+  int err = make_map_2d(&map_wd, wd, c, inner, BN);
+  if (!err) err = make_map_2d(&map_out, out, m, c, 64);
+  if (err) return err;
+  const dim3 grid((m + kBM - 1) / kBM * (c / BN), splits);
+  if (splits == 1) {
+    if ((err = prepare<gated_down_kernel<BN, false>>())) return err;
+    gated_down_kernel<BN, false><<<grid, kThreads, kSmemBytes, stream>>>(
+        map_a, map_wd, map_out, bd, nullptr, m, c, inner, 1);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if ((err = prepare<gated_down_kernel<BN, true>>())) return err;
+  gated_down_kernel<BN, true><<<grid, kThreads, kSmemBytes, stream>>>(
+      map_a, map_wd, map_out, nullptr, partial, m, c, inner, splits);
+  if ((err = static_cast<int>(cudaGetLastError()))) return err;
+  const long long quads = (long long)m * c / 4;
+  const int blocks = (int)((quads + 255) / 256 < 1056 ? (quads + 255) / 256 : 1056);
+  gated_down_split_sum_kernel<<<blocks, 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(partial), bd, static_cast<uint2*>(out), m, c, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_down(const void* a, const void* wd, const float* bd, void* out, float* partial, int m,
+                int c, int inner, int splits, cudaStream_t stream) {
+  CUtensorMap map_a;
+  const int err = make_map_2d(&map_a, a, m, inner, kBM);
+  if (err) return err;
+  if (c % 256 == 0) return launch_down_bn<256>(map_a, wd, bd, out, partial, m, c, inner, splits, stream);
+  return launch_down_bn<128>(map_a, wd, bd, out, partial, m, c, inner, splits, stream);
+}
+
+bool valid(int m, int c, int inner) {
+  return m >= 1 && c >= 128 && c % 128 == 0 && inner >= 256 && inner % 256 == 0;
 }
 
 }  // namespace
 
-// C entry, bound with ctypes. x (m, c), out (m, c), wa and wg (inner, c) and
-// wd (c, inner) are contiguous bf16 with 16-byte aligned bases; wa and wg may
-// point into one fused (2 * inner, c) weight. ba, bg (inner) and bd (c) are
-// fp32 or null. c % 128 == 0, inner % 64 == 0, and the x tile must fit
-// shared memory beside the ring (c <= 3712): the wrapper checks.
-// act: 0 silu, 1 gelu (tanh), 2 gelu (erf). Launches on `stream` and returns
-// cudaGetLastError().
-extern "C" int fused_gated_mlp_fwd(const void* x, const void* wa, const void* ba, const void* wg,
-                                   const void* bg, const void* wd, const void* bd, void* out,
-                                   int m, int c, int inner, int act, void* stream) {
-  if (m < 1 || c < kSlabK || c % kSlabK != 0 || inner < kChunk || inner % kChunk != 0 ||
-      act < 0 || act > 2) {
+// C entries, bound with ctypes. Tensors are contiguous bf16 with 16-byte
+// aligned bases; biases are null or contiguous fp32: x (m, c), wa and wg
+// (inner, c) (they may be the halves of one (2 inner, c) weight), a
+// (m, inner), wd (c, inner), out (m, c); partial: (splits, m, c) fp32 when
+// splits > 1, else unused. c % 128 == 0 and inner % 256 == 0 (the JAX
+// package's rule; the wrapper checks). act: 0 silu, 1 gelu (tanh), 2 gelu
+// (erf). Each launches on `stream` and returns the first error, or 0.
+
+// F-up alone: a = bf16(act(x wa^T + ba) * (x wg^T + bg)).
+extern "C" int fused_gated_mlp_up(const void* x, const void* wa, const void* ba, const void* wg,
+                                  const void* bg, void* a, int m, int c, int inner, int act,
+                                  void* stream) {
+  if (!valid(m, c, inner) || act < 0 || act > 2) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_up(x, wa, static_cast<const float*>(ba), wg, static_cast<const float*>(bg), a, m,
+                   c, inner, act, static_cast<cudaStream_t>(stream));
+}
+
+// F-down alone (and the split sum): out = bf16(a wd^T + bd).
+extern "C" int fused_gated_mlp_down(const void* a, int m, int c, int inner, const void* wd,
+                                    const void* bd, void* out, void* partial, int splits,
+                                    void* stream) {
+  if (!valid(m, c, inner) || splits < 1 || splits > inner / kBK || (splits > 1 && !partial)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* wab = static_cast<const __nv_bfloat16*>(wa);
-  const auto* wgb = static_cast<const __nv_bfloat16*>(wg);
-  const auto* wdb = static_cast<const __nv_bfloat16*>(wd);
-  const auto* bab = static_cast<const float*>(ba);
-  const auto* bgb = static_cast<const float*>(bg);
-  const auto* bdb = static_cast<const float*>(bd);
-  auto* ob = static_cast<__nv_bfloat16*>(out);
-  if (c <= 20 * 64) {
-    return launch<20>(xb, wab, bab, wgb, bgb, wdb, bdb, ob, m, c, inner, act, s);
-  }
-  return launch<36>(xb, wab, bab, wgb, bgb, wdb, bdb, ob, m, c, inner, act, s);
+  return launch_down(a, wd, static_cast<const float*>(bd), out, static_cast<float*>(partial), m, c,
+                     inner, splits, static_cast<cudaStream_t>(stream));
+}
+
+// The whole feed-forward: F-up into a, then F-down (and the split sum). The
+// arguments are F-up's, then F-down's past (a, m, c, inner).
+extern "C" int fused_gated_mlp_fwd(const void* x, const void* wa, const void* ba, const void* wg,
+                                   const void* bg, void* a, int m, int c, int inner, int act,
+                                   const void* wd, const void* bd, void* out, void* partial,
+                                   int splits, void* stream) {
+  const int err = fused_gated_mlp_up(x, wa, ba, wg, bg, a, m, c, inner, act, stream);
+  if (err) return err;
+  return fused_gated_mlp_down(a, m, c, inner, wd, bd, out, partial, splits, stream);
 }

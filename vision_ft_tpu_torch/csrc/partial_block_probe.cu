@@ -23,11 +23,18 @@
 //     (i + 1) * block_cols) of an (rows, S) fp32 matrix, stages them with
 //     4-byte cp.async (element-granular: any S), zero past S, stores
 //     x * 2 + 1 below S and counts the nonzero staged values past S.
+//   - partial_block_tma_kernel: the question for TMA, which kernel F relies
+//     on. Block (i, j) loads box (rows [128 i, 128 i + 128), columns
+//     [64 j, 64 j + 64)) of an (S, C) bf16 matrix through a 2-D tensor map
+//     with 128-byte swizzle (the mode of kernel F's operands), counts the
+//     nonzero 16-byte words staged for rows past S and the valid elements
+//     not where the swizzle formula of hopper_gemm.cuh puts them (read back
+//     against x in device memory), and stores the box back with TMA through
+//     a map of S rows over a longer buffer.
 // Contract (the wrapper checks it): row_bytes % 16 == 0, row_bytes <= 32768,
-// contiguous 16-byte aligned tensors.
+// contiguous 16-byte aligned tensors; for the TMA case C % 64 == 0.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper_gemm.cuh"
 
 namespace {
 
@@ -110,6 +117,61 @@ partial_block_lastaxis_kernel(const float* __restrict__ x, float* __restrict__ y
   if (threadIdx.x == 0) overhang[blockIdx.x] = total;
 }
 
+constexpr int kTmaRows = 128;
+constexpr int kTmaCols = 64;
+constexpr int kTmaBoxBytes = kTmaRows * kTmaCols * 2;
+
+__global__ void __launch_bounds__(128)
+partial_block_tma_kernel(const __grid_constant__ CUtensorMap map_x,
+                         const __grid_constant__ CUtensorMap map_y,
+                         const __nv_bfloat16* __restrict__ x, int rows, int cols,
+                         int* __restrict__ counts) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* box = hopper::align_1024(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(box + kTmaBoxBytes);
+  const int row0 = blockIdx.x * kTmaRows;
+  const int col0 = blockIdx.y * kTmaCols;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bar, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    hopper::mbar_arrive_expect_tx(bar, kTmaBoxBytes);
+    hopper::tma_load_2d(box, &map_x, bar, col0, row0);
+  }
+  hopper::mbar_wait(bar, 0);
+  int nonzero = 0;
+  int misplaced = 0;
+  for (int v = threadIdx.x; v < kTmaRows * (kTmaCols / 8); v += blockDim.x) {
+    const int r = v / (kTmaCols / 8);
+    const int chunk = v % (kTmaCols / 8);
+    // a swizzled row keeps its 128 bytes: only the 16-byte chunks move
+    const uint4 word = *reinterpret_cast<const uint4*>(box + r * 128 + chunk * 16);
+    if (row0 + r >= rows) {
+      nonzero += (word.x | word.y | word.z | word.w) != 0u;
+    } else {
+      const __nv_bfloat16* src = x + (long long)(row0 + r) * cols + col0 + chunk * 8;
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const uint32_t staged =
+            *reinterpret_cast<const uint32_t*>(box + hopper::sw128_offset(r, chunk, p));
+        misplaced += staged != *reinterpret_cast<const uint32_t*>(src + 2 * p);
+      }
+    }
+  }
+  const int total_nonzero = __syncthreads_count(nonzero);
+  const int total_misplaced = __syncthreads_count(misplaced);
+  if (threadIdx.x == 0) {
+    const int block = blockIdx.x * gridDim.y + blockIdx.y;
+    counts[2 * block] = total_nonzero;
+    counts[2 * block + 1] = total_misplaced;
+    hopper::tma_store_2d(&map_y, box, col0, row0);  // the box as TMA wrote it: no fence needed
+    hopper::tma_store_commit();
+    hopper::tma_store_wait<0>();
+  }
+}
+
 }  // namespace
 
 // C entries, bound with ctypes. Launch on `stream`, return cudaGetLastError().
@@ -140,5 +202,25 @@ extern "C" int partial_block_lastaxis(const void* x, void* y, int rows, int cols
                                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(y), rows, cols, block_cols,
       static_cast<int*>(overhang));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x: (rows, cols) bf16, cols % 64 == 0, contiguous, 16-byte aligned; y: a
+// buffer of at least rows * cols bf16 whose first rows * cols are written;
+// counts: 2 * ceil(rows / 128) * (cols / 64) int32 (per box: nonzero words
+// past rows, valid pairs off the swizzle's place).
+extern "C" int partial_block_tma(const void* x, void* y, int rows, int cols, void* counts,
+                                 void* stream) {
+  if (rows < 1 || cols < kTmaCols || cols % kTmaCols != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap map_x, map_y;
+  int err = hopper::make_map_2d(&map_x, x, rows, cols, kTmaRows);
+  if (!err) err = hopper::make_map_2d(&map_y, y, rows, cols, kTmaRows);
+  if (err) return err;
+  const dim3 grid((rows + kTmaRows - 1) / kTmaRows, cols / kTmaCols);
+  const size_t smem = 1024 + kTmaBoxBytes + sizeof(uint64_t);
+  partial_block_tma_kernel<<<grid, 128, smem, static_cast<cudaStream_t>(stream)>>>(
+      map_x, map_y, static_cast<const __nv_bfloat16*>(x), rows, cols, static_cast<int*>(counts));
   return static_cast<int>(cudaGetLastError());
 }

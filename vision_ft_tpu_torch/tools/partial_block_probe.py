@@ -2,7 +2,7 @@
 write nothing past the end?
 
 Counterpart of ``tools/bench/partial_block_probe.py``, with its four cases,
-keys and block sizes. There the question was whether the TPU compiler
+keys and block sizes, and a fifth case of the port's own. There the question was whether the TPU compiler
 takes grid blocks that do not divide the array; on Hopper it is how a
 kernel masks a ragged tile. Kernel L (``csrc/partial_block_probe.cu``)
 copies (S, C) rows in blocks of 512 rows, loading rows past S as zeros
@@ -10,7 +10,14 @@ copies (S, C) rows in blocks of 512 rows, loading rows past S as zeros
 ``x * 2 + 1`` over (8, S) in blocks of 512 columns (8.5 blocks at
 S = 4352). Each case writes into a buffer longer than its output, filled
 with a sentinel, and holds the output against its input, the tail against
-the sentinel and the overhang's staged values against zero. Run:
+the sentinel and the overhang's staged values against zero. A fifth case
+asks the question for TMA, which kernel F's loads and stores rely on: a
+2-D tensor map over (4360, 256) bf16 with (128, 64) boxes and 128-byte
+swizzle (kernel F's mode) loads every box, the last one holding 8 valid
+rows, and stores it back through a map of 4360 rows over a longer
+sentinel-filled buffer; rows past S must arrive as zeros, nothing past S
+may be written, the copy must be exact and every staged element must sit
+where the swizzle formula of ``csrc/hopper_gemm.cuh`` puts it. Run:
 
     python -m vision_ft_tpu_torch.tools.partial_block_probe [--device cpu]
 
@@ -36,6 +43,7 @@ from ..ops import _build
 
 SENTINEL = 1000.0  # the tail's fill: exact in fp32 and bf16, far from N(0, 1) draws
 _CHUNK_BYTES = 32768  # the copy kernel's shared-memory tile
+TMA_BOX = (128, 64)  # rows, bf16 columns (128 bytes: one swizzle row) of the TMA case's boxes
 
 
 @functools.cache
@@ -44,7 +52,9 @@ def _kernels():
     for fn in (lib.partial_block_copy, lib.partial_block_lastaxis):
         fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
-    return lib.partial_block_copy, lib.partial_block_lastaxis
+    lib.partial_block_tma.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+    lib.partial_block_tma.restype = ctypes.c_int
+    return lib.partial_block_copy, lib.partial_block_lastaxis, lib.partial_block_tma
 
 
 def _blocks(n: int, block: int) -> int:
@@ -133,8 +143,50 @@ def partial_block_lastaxis(x: torch.Tensor, block_cols: int, out: torch.Tensor) 
     return overhang
 
 
+def partial_block_tma_reference(x, out):
+    """Plain version of :func:`partial_block_tma`: zero-padded (128, 64)
+    boxes, the rows below S written to ``out``."""
+    s, c = x.shape
+    rows, cols = TMA_BOX
+    row_blocks = _blocks(s, rows)
+    tiles = x.new_zeros((row_blocks * rows, c))
+    tiles[:s] = x
+    out.view(-1)[: x.numel()] = tiles[:s].reshape(-1)
+    counts = torch.zeros(row_blocks, c // cols, 2, dtype=torch.int32, device=x.device)
+    for j in range(c // cols):
+        counts[-1, j, 0] = _nonzero_words(tiles[s:, j * cols:(j + 1) * cols])
+    return counts.reshape(-1, 2)
+
+
+def partial_block_tma(x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """Copy bf16 x (S, C), C % 64 == 0, into the first S rows of ``out``
+    through shared memory, in (128, 64) boxes of 2-D tensor maps with
+    128-byte swizzle (TMA load, TMA store through a map of S rows). Returns
+    (boxes, 2) int32: per box, the threads that saw a nonzero 16-byte word
+    staged past S, and those that found a valid element off the place the
+    swizzle formula gives."""
+    if not x.is_cuda:
+        return partial_block_tma_reference(x, out)
+    _check_out(x, out)
+    if (x.ndim != 2 or x.dtype != torch.bfloat16 or not x.is_contiguous() or x.shape[0] < 1
+            or x.shape[1] < TMA_BOX[1] or x.shape[1] % TMA_BOX[1] or x.data_ptr() % 16
+            or out.data_ptr() % 16):
+        raise ValueError(f"partial_block_tma takes a contiguous 16-byte aligned bf16 (S, C) tensor "
+                         f"with C % {TMA_BOX[1]} == 0, got {tuple(x.shape)} {x.dtype}")
+    boxes = _blocks(x.shape[0], TMA_BOX[0]) * (x.shape[1] // TMA_BOX[1])
+    counts = torch.empty(boxes, 2, dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _kernels()[2](x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], counts.data_ptr(),
+                            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"partial_block_tma launch failed: CUDA error {err}")
+    partial_block_tma.launches += 1
+    return counts
+
+
 partial_block_copy.launches = 0
 partial_block_lastaxis.launches = 0
+partial_block_tma.launches = 0
 
 
 def _error(exc: Exception) -> str:
@@ -176,8 +228,27 @@ def _case_lastaxis(s, block_cols, device):
             "ok": ok, "error": err}
 
 
+def _case_tma(x_np, device):
+    """The TMA case: (128, 64) boxes of a 128-byte swizzled 2-D tensor map,
+    the last row of boxes holding S % 128 valid rows."""
+    s, c = x_np.shape
+    try:
+        x = torch.from_numpy(x_np).to(torch.bfloat16).to(device)
+        out = torch.full((s + TMA_BOX[0], c), SENTINEL, dtype=torch.bfloat16, device=device)
+        counts = partial_block_tma(x, out)
+        ok = bool(torch.equal(out[:s], x)
+                  and torch.equal(out[s:], torch.full_like(out[s:], SENTINEL))
+                  and int(counts.sum()) == 0)
+        err = None
+    except Exception as exc:
+        ok, err = False, _error(exc)
+    return {"dtype": "bf16-tma", "shape": [s, c], "box": list(TMA_BOX), "swizzle": "128B",
+            "ok": ok, "error": err}
+
+
 def run(device="cuda") -> dict:
-    """The four cases on ``device``: {"partial_blocks": bool, "cases": [...]}."""
+    """The JAX tool's four cases and the TMA case on ``device``:
+    {"partial_blocks": bool, "cases": [...]}."""
     rng = np.random.default_rng(0)
     cases = [
         # f32, remainder 264 rows (8-aligned): the Lumina2-style q axis
@@ -187,6 +258,8 @@ def run(device="cuda") -> dict:
         # bf16, an odd remainder
         _case(rng.standard_normal((1219, 256)), 512, "bf16-odd", device),
         _case_lastaxis(4352, 512, device),
+        # TMA, 4360 = 34 * 128 + 8: the last boxes hold 8 valid rows
+        _case_tma(np.random.default_rng(2).standard_normal((4360, 256)), device),
     ]
     return {"partial_blocks": all(c["ok"] for c in cases), "cases": cases}
 

@@ -350,6 +350,14 @@ def compare(name, kernel, plain, tol):
     return abs_err, rel_err
 
 
+def assert_reruns(name, fn):
+    """Fails unless two calls of ``fn`` give the same bits (a tensor or a tuple of them)."""
+    first, second = fn(), fn()
+    pairs = zip(first, second) if isinstance(first, tuple) else [(first, second)]
+    if not all(torch.equal(x, y) for x, y in pairs):
+        raise AssertionError(f"{name}: a rerun differs")
+
+
 def sdpa_heads(t, h):
     """(B, S, H*D) -> (B, H, S, D) view, the layout of PyTorch's own attention."""
     return t.unflatten(-1, (h, t.shape[-1] // h)).transpose(1, 2)
@@ -819,6 +827,10 @@ def main() -> None:
             err[name] = compare(f"attention backward {(b, s, inner, h)} {name}",
                                 lambda: got, lambda: ref, ATTN_BWD_TOL)
         del ref_dq, ref_dk, ref_dv, dq, dk, dv
+        assert_reruns(f"dk/dv kernel {(b, s, inner, h)}",
+                      lambda: flash_attention_bshd_dkv(q, k, v, dout, lse, delta, h))
+        assert_reruns(f"dq kernel {(b, s, inner, h)}",
+                      lambda: flash_attention_bshd_dq(q, k, v, dout, lse, delta, h))
         dkv_ms = cuda_ms(lambda: flash_attention_bshd_dkv(q, k, v, dout, lse, delta, h))
         dq_ms = cuda_ms(lambda: flash_attention_bshd_dq(q, k, v, dout, lse, delta, h))
         whole_ms = cuda_ms(lambda: flash_attention_bshd_backward(q, k, v, out, lse, dout, h))
@@ -848,12 +860,15 @@ def main() -> None:
         print(f"B={b} S={s} H={h} D={inner // h}: "
               + ", ".join(f"{n} max abs err {a:.3e} rel {r:.3e}" for n, (a, r) in err.items())
               + f" (tol {ATTN_BWD_TOL}), forward lse max abs err {lse_err[0]:.3e}"
-              f"; dk/dv kernel {dkv_ms:.3f} ms, dq kernel {dq_ms:.3f} ms, "
-              f"whole backward {whole_ms:.3f} ms "
-              f"({10 * b * s * s * inner / whole_ms / 1e9:.1f} TFLOP/s of 10*B*S^2*H*D), "
-              f"plain {plain_ms:.3f} ms; SDPA forward {sdpa_fwd_ms:.3f} ms, "
-              f"backward {sdpa_bwd_ms:.3f} ms, forward + backward {sdpa_both_ms:.3f} ms; bounds dk/dv {dkv_bound[0]:.4f} ms "
-              f"({dkv_bound[1]}), dq {dq_bound[0]:.4f} ms ({dq_bound[1]})")
+              f", reruns bit-identical; dk/dv kernel {dkv_ms:.4f} ms "
+              f"({8 * b * s * s * inner / dkv_ms / 1e9:.1f} TFLOP/s of 8*B*S^2*H*D), dq kernel "
+              f"{dq_ms:.4f} ms ({6 * b * s * s * inner / dq_ms / 1e9:.1f} TFLOP/s of 6*B*S^2*H*D), "
+              f"whole backward {whole_ms:.4f} ms "
+              f"({14 * b * s * s * inner / whole_ms / 1e9:.1f} TFLOP/s of 14*B*S^2*H*D, "
+              f"{whole_ms / sdpa_bwd_ms:.2f}x SDPA's backward), "
+              f"plain {plain_ms:.3f} ms; SDPA forward {sdpa_fwd_ms:.4f} ms, "
+              f"backward {sdpa_bwd_ms:.4f} ms, forward + backward {sdpa_both_ms:.4f} ms; bounds dk/dv "
+              f"{dkv_bound[0]:.4f} ms ({dkv_bound[1]}), dq {dq_bound[0]:.4f} ms ({dq_bound[1]})")
         errs["dkv"].append(max(err["dk"][0], err["dv"][0]))
         errs["dq"].append(err["dq"][0])
         # the plain backward and PyTorch's own attention backward compute
@@ -2205,10 +2220,6 @@ def main() -> None:
     def nchw(t):
         """(B, ..., C) -> (B, C, ...): the view PyTorch's NCHW ops take."""
         return t.movedim(-1, 1)
-
-    def assert_reruns(name, fn):
-        if not torch.equal(fn(), fn()):
-            raise AssertionError(f"{name}: a rerun differs")
 
     errs, rows = [], []
     for shape, eps in GN_SHAPES:

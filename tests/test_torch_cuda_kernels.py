@@ -5,6 +5,8 @@ The file imports no JAX, so it runs where only the port is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 """
 
+import ctypes
+
 import pytest
 import torch
 
@@ -14,6 +16,7 @@ from vision_ft_tpu_torch.ops.flash_attention import (
     flash_attention_bshd_dkv,
     flash_attention_bshd_dq,
     flash_attention_bshd_backward_reference,
+    flash_attention_bshd_delta,
     flash_attention_bshd_reference,
     flash_attention,
     flash_attention_masked,
@@ -35,7 +38,7 @@ from vision_ft_tpu_torch.ops.fused_mlp import (
     gated_up_reference, geglu_mlp,
 )
 from vision_ft_tpu_torch.modules.quant.nf4 import quantize_4bit
-from vision_ft_tpu_torch.ops import nf4_matmul as nf4
+from vision_ft_tpu_torch.ops import _build, nf4_matmul as nf4
 from vision_ft_tpu_torch.ops.layer_norm import layer_norm, layer_norm_reference
 from vision_ft_tpu_torch.ops.group_norm import group_norm, group_norm_backward, group_norm_reference
 from vision_ft_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_backward, conv3x3_reference
@@ -111,24 +114,9 @@ def test_bshd_kernel_matches_plain_on_card(cuda, b, s, sk, h, d):
     torch.testing.assert_close(lse, torch.logsumexp(scores * d**-0.5, -1), atol=1e-3, rtol=1e-4)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize(
-    "b,s,sk,h,d",
-    [
-        (4, 4096, 4096, 10, 64),  # SDXL 1024 px, stage 1
-        (4, 1024, 1024, 20, 64),  # SDXL 1024 px, stage 2
-        (2, 3952, 3952, 10, 64),  # 832x1216 bucket: ragged tiles
-        (2, 988, 988, 20, 64),
-        (1, 130, 333, 3, 64),     # odd head count, sq != sk, both ragged
-        (1, 1, 256, 2, 64),       # a single q row
-        (1, 200, 264, 2, 128),    # the other head dim
-    ],
-)
-def test_bshd_backward_kernels_match_plain_on_card(cuda, b, s, sk, h, d):
-    g = torch.Generator(device=cuda).manual_seed(1)
-    q, k, v, dout = (
-        torch.randn(b, n, h * d, device=cuda, generator=g).bfloat16() for n in (s, sk, sk, s)
-    )
+def _check_bshd_backward(q, k, v, dout, h):
+    """Both backward kernels once each on (q, k, v, dout), against the plain
+    backward."""
     out, lse = flash_attention_bshd(q, k, v, h, return_lse=True)
     before = (flash_attention_bshd_dkv.launches, flash_attention_bshd_dq.launches)
     got = flash_attention_bshd_backward(q, k, v, out, lse, dout, h)
@@ -141,6 +129,91 @@ def test_bshd_backward_kernels_match_plain_on_card(cuda, b, s, sk, h, d):
         assert x.shape == y.shape and x.dtype == y.dtype and torch.isfinite(x).all(), name
         err = (x.float() - y.float()).abs().max().item()
         assert err <= BF16_ATTN_BWD_TOL * y.float().abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,s,sk,h,d",
+    [
+        (4, 4096, 4096, 10, 64),  # SDXL 1024 px, stage 1
+        (4, 1024, 1024, 20, 64),  # SDXL 1024 px, stage 2
+        (2, 3952, 3952, 10, 64),  # 832x1216 bucket: ragged tiles
+        (2, 988, 988, 20, 64),
+        (1, 130, 333, 3, 64),     # odd head count, sq != sk, both ragged
+        (1, 1, 256, 2, 64),       # a single q row
+        (1, 200, 264, 2, 128),    # the other head dim
+        (1, 100, 129, 2, 64),     # one key in the last 128-key tile
+        (2, 70, 200, 2, 64),      # a nearly empty last key tile
+        (1, 65, 256, 2, 64),      # one row in the last 64-row q tile
+        (2, 127, 190, 2, 64),     # one row short of a 128-row q tile
+        (3, 333, 333, 3, 64),     # each batch's last tiles border the next batch's rows
+        (2, 120, 333, 2, 128),    # the other head dim at a ragged sk
+    ],
+)
+def test_bshd_backward_kernels_match_plain_on_card(cuda, b, s, sk, h, d):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v, dout = (
+        torch.randn(b, n, h * d, device=cuda, generator=g).bfloat16() for n in (s, sk, sk, s)
+    )
+    _check_bshd_backward(q, k, v, dout, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_bshd_backward_kernels_take_strided_views_on_card(cuda, d):
+    """q, k and v as column slices of one wider (B, S, 3 H*D) tensor: rows
+    3 H*D apart, read through the tensor maps' row strides in place."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    b, s, h = 2, 333, 3
+    qkv = torch.randn(b, s, 3 * h * d, device=cuda, generator=g).bfloat16()
+    q, k, v = qkv.split(h * d, dim=-1)
+    assert q.stride(1) == 3 * h * d and not q.is_contiguous()
+    dout = torch.randn(b, s, h * d, device=cuda, generator=g).bfloat16()
+    _check_bshd_backward(q, k, v, dout, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d", [(4, 1024, 20, 64), (2, 333, 2, 128)])
+def test_bshd_backward_kernels_rerun_bit_identical_on_card(cuda, b, s, h, d):
+    """No atomics and a fixed order of sums: a rerun gives the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v, dout = (torch.randn(b, s, h * d, device=cuda, generator=g).bfloat16() for _ in range(4))
+    out, lse = flash_attention_bshd(q, k, v, h, return_lse=True)
+    args = (q, k, v, dout, lse, flash_attention_bshd_delta(out, dout, h), h)
+    first, again = ((*flash_attention_bshd_dkv(*args), flash_attention_bshd_dq(*args))
+                    for _ in range(2))
+    for name, x, y in zip(("dk", "dv", "dq"), first, again):
+        assert torch.equal(x, y), name
+
+
+def _wgmma_forms_probe(a, b, n, register_a):
+    fn = _build.cuda_library("flash_attention_bshd_bwd").hopper_wgmma_forms_probe
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    d = torch.empty(64, n, device=a.device, dtype=torch.float32)
+    err = fn(a.data_ptr(), b.data_ptr(), d.data_ptr(), n, int(register_a),
+             torch.cuda.current_stream(a.device).cuda_stream)
+    assert err == 0, f"CUDA error {err}"
+    torch.cuda.synchronize()
+    return d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,register_a", [(64, True), (128, True), (64, False)],
+                         ids=["rs-n64-mn-major", "rs-n128-mn-major", "ss-n64-k-major"])
+def test_hopper_wgmma_forms_one_tile_on_card(cuda, n, register_a):
+    """Each wgmma form kernel C takes from hopper_gemm.cuh on one 64 x n
+    product: a 3-D tensor map's TMA load, A from registers through
+    acc_to_a_fragments with B read MN-major (desc_sw128_mn, trans-b; at n =
+    128 across two boxes, the leading byte offset), and the shared-memory
+    m64n64k16 with both operands K-major. Small integers: every product and
+    sum is exact in fp32, so the result must equal the float64 product."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.randint(-3, 4, (64, 64), device=cuda, generator=g).bfloat16()
+    b = torch.randint(-3, 4, (64, n) if register_a else (n, 64), device=cuda, generator=g).bfloat16()
+    got = _wgmma_forms_probe(a, b, n, register_a)
+    want = a.double() @ (b.double() if register_a else b.double().t())
+    assert torch.equal(got.double(), want)
 
 
 @pytest.mark.cuda

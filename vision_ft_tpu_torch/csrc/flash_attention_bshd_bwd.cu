@@ -1,12 +1,14 @@
-// BSHD flash attention backward for Hopper (sm_90a), CUDA C++.
+// BSHD flash attention backward for Hopper (sm_90a), CUDA C++: kernel C, a
+// dk/dv kernel and a dq kernel, both TMA + wgmma.
 //
 // Replaces vision_ft_tpu/ops/pallas/flash_attention.py::_bwd_dkvq_kernel_bshd
 // and ::_bwd_dq_kernel_bshd (launched by _flash_bwd_bshd, the backward of
 // flash_attention_bshd).
 //
 // Computes, per batch b and head h, from q, k, v, dO (bf16, heads-packed
-// (B, S, H*D)), lse (the forward's natural log-sum-exp of the scaled
-// scores) and delta = rowsum(dO * O) (both fp32, (B, H, Sq)):
+// (B, S, H*D), rows and batches at any 16-byte strides), lse (the forward's
+// natural log-sum-exp of the scaled scores) and delta = rowsum(dO * O)
+// (both fp32, (B, H, Sq)):
 //     P  = exp(Q K^T * scale - lse)                  (recomputed, fp32)
 //     dV = bf16(P)^T dO
 //     dP = dO V^T
@@ -14,323 +16,568 @@
 //     dK = dS^T Q,   dQ = dS K
 // with fp32 accumulators, each output written once as bf16.
 //
-// What bounds it on an H100: the tensor cores. Five S x S x D products per
-// head (seven here, see below) against 8*S*D bytes of q/k/v/dO/dq/dk/dv
-// traffic; the S x S matrices P and dS are what a naive version would move,
-// and they never leave the registers.
+// What bounds it on an H100: the tensor cores. The TPU kernel's grid walks
+// in order and carries dq across steps; blocks on a GPU share nothing, so
+// the work is two kernels that each own their outputs outright (no atomics,
+// reruns bit-identical), and S and dP are computed in both: 8 B S^2 H D
+// operations for dk/dv (S^T, dP^T, dV, dK) and 6 B S^2 H D for dq (S, dP,
+// dQ). At (B, S, H*D) = (4, 4096, 640) that is 0.3474 + 0.2606 ms at 989
+// TFLOP/s; the bytes (each tensor read once, each gradient written once, 13
+// MB a tensor) take 0.03 ms. P and dS never leave the registers.
 //
-// Design. The TPU kernel walks its grid in order and keeps a dq
-// accumulator on chip across grid steps; thread blocks on a GPU run in no
-// order and share nothing, so the work is split into two kernels, each of
-// which owns its outputs outright (deterministic, no atomics), at the cost
-// of recomputing S and dP in both:
-//   - dkv kernel: one block of 4 warps per (batch, head, 64-key tile), each
-//     warp owns 16 keys, and a loop walks the 64-row q tiles. It computes
-//     the TRANSPOSED tiles S^T = K Q^T and dP^T = V dO^T, so that P^T and
-//     dS^T come out of the mma accumulators already laid out as the A
-//     operand of dV += P^T dO and dK += dS^T Q; lse and delta are then
-//     per-column values, staged in shared memory. The K and V fragments
-//     stay in registers for the whole loop. Q and dO tiles are staged both
-//     row-major (B operand of the transposed score products) and
-//     transposed (B operand of the accumulating products).
-//   - dq kernel: one block per (batch, head, 64-row q tile), each warp owns
-//     16 q rows, and a loop walks the 64-key tiles: S = Q K^T, dP = dO V^T,
-//     dQ += dS K, with the Q and dO fragments, lse and delta in registers.
-//   - exp runs as exp2 with log2(e) folded into the scale and into lse as
-//     it is staged; lse itself is the natural logarithm, as stored.
-//   - Ragged lengths are masked in the kernels: keys at or past sk get
-//     p = 0 and their dk/dv rows are never written; q rows at or past sq
-//     get p = 0, are staged as zeros and their lse/delta are never read.
-// Left for later work: one fused pass with fp32 atomics on dq, cp.async/TMA
-// double buffering, wgmma, ldmatrix.
+// Design: the warp-specialized pattern of hopper_gemm.cuh. A block of 384
+// threads: consumer warpgroups 0 and 1 issue wgmma, one warp of warpgroup 2
+// produces with TMA; setmaxnreg moves registers to the consumers.
+//   - dk/dv kernel: one block per (128-key tile, head, batch); each consumer
+//     warpgroup owns 64 keys. The producer loads the K and V tiles once and
+//     streams a ring of kRingStages stages, each a 64-row Q tile, the same
+//     rows of dO and those rows' lse (times log2 e) and delta. Per stage a
+//     warpgroup computes the TRANSPOSED tiles S^T = K Q^T and dP^T = V dO^T
+//     (wgmma m64n64k16, both operands K-major in D), P^T = exp2(S^T scale
+//     log2 e - lse) with lse per column, dS^T = P^T (dP^T - delta) scale;
+//     then dV += bf16(P^T) dO and dK += bf16(dS^T) Q take A from registers
+//     (the accumulators rounded in place into A fragments) and read the same
+//     dO and Q tiles MN-major through the transpose bit. Each Q and dO tile
+//     lands in shared memory once, by TMA. The dK and dV accumulators (64 x
+//     D fp32 per warpgroup) stay in registers to the end.
+//   - dq kernel: one block per (128-row q tile, head, batch); each consumer
+//     warpgroup owns 64 rows. Q and dO are loaded once, lse and delta sit in
+//     registers, and the ring streams 64-key K and V tiles: S = Q K^T, dP =
+//     dO V^T (K-major), dQ += bf16(dS) K (A from registers, K read MN-major).
+//   - Per stage a warpgroup issues S, then dP, and computes P while dP is in
+//     flight; the two warpgroups' wgmma and exp2 interleave on the SM. The
+//     dk/dv producer loads each stage's lse and delta one stage ahead.
+//     (Keeping a stage's accumulating products in flight while the next
+//     stage's S and dP are issued made ptxas serialize the wgmma: slower.)
+//   - Ragged lengths: 3-D tensor maps (H*D, S, B) over each tensor, so a
+//     tile that overhangs a batch's last row reads zeros, never the next
+//     batch's rows. q rows past sq get lse = +inf (P = 0); keys past sk in
+//     the dq kernel's last tile get P = 0; in the dk/dv kernel they only
+//     reach their own dk/dv rows, which are never stored. Stores are plain
+//     bf16 pair stores guarded by the row count.
+//   - D = 128 is two 64-column boxes a row (128-byte swizzle holds 64 bf16):
+//     the K-major descriptors step to the second box after 4 K steps, and
+//     the MN-major ones span both boxes through their leading byte offset.
+//   - exp runs as ex2.approx with log2(e) folded into the scale and into lse.
+// Left for later work: persistent blocks, TMA stores of the gradients; at
+// D = 128 the dk/dv consumers need more than their 232 registers (two 64 x
+// 128 accumulators), so ptxas spills there and serializes the wgmma.
+//
+// hopper_wgmma_forms_probe (a test entry, on no model path) holds each
+// wgmma form this file takes from hopper_gemm.cuh to one 64 x N product.
 
-#include "flash_attention_bshd.cuh"
+#include "hopper_gemm.cuh"
+
+#include <math.h>
 
 namespace {
 
-using namespace bshd;
+using namespace hopper;
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kBlockRows = 128;   // keys (dk/dv) or q rows (dq) a block owns
+constexpr int kStepRows = 64;     // q rows (dk/dv) or keys (dq) of a streamed tile
+constexpr int kRingStages = 3;
+constexpr int kBoxBytes = 64 * 128;  // 64 rows of one 64-column box
+constexpr int kProducerThread = 256;  // lane 0 of the producer warp
 
-// Shared memory of the two kernels, in bytes (dynamic: past 48 KB at D=128).
-template <int D>
-constexpr int dkv_smem_bytes() {
-  return (2 * kBlockQ * (D + kPad) + 2 * D * (kBlockQ + kPad)) * 2 + 2 * kBlockQ * 4;
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
+
+// Shared memory of both kernels: two resident tensors of 128 rows x D (K
+// and V, or Q and dO), each D / 64 boxes of 128 rows; the ring, a stage
+// holding two tensors of 64 rows x D (Q and dO, or K and V), each D / 64
+// boxes of 64 rows; per stage 64 lse and 64 delta values (dk/dv kernel); the
+// barriers.
 template <int D>
-constexpr int dq_smem_bytes() {
-  return (2 * kBlockK * (D + kPad) + D * (kBlockK + kPad)) * 2;
+struct Smem {
+  static constexpr int kBoxes = D / 64;
+  static constexpr int kResidentBytes = kBlockRows * D * 2;
+  static constexpr int kStreamBytes = kStepRows * D * 2;
+  static constexpr int kStageBytes = 2 * kStreamBytes;
+  static constexpr int kBytes = 1024 + 2 * kResidentBytes + kRingStages * kStageBytes +
+                                kRingStages * 2 * kStepRows * 4 + (2 * kRingStages + 1) * 8;
+  uint8_t* resident[2];
+  uint8_t* ring;
+  float* stats;
+  uint64_t* full;
+  uint64_t* empty;
+  uint64_t* loaded;  // the resident tensors
+  __device__ __forceinline__ explicit Smem(uint8_t* raw) {
+    resident[0] = align_1024(raw);
+    resident[1] = resident[0] + kResidentBytes;
+    ring = resident[1] + kResidentBytes;
+    stats = reinterpret_cast<float*>(ring + kRingStages * kStageBytes);
+    full = reinterpret_cast<uint64_t*>(stats + kRingStages * 2 * kStepRows);
+    empty = full + kRingStages;
+    loaded = empty + kRingStages;
+  }
+  __device__ __forceinline__ uint8_t* stage(int s) const { return ring + s * kStageBytes; }
+};
+
+// Thread 0: full[s] takes `full_arrivals` arrivals plus the stage's bytes,
+// empty[s] one arrival per consumer warp, `loaded` one plus the bytes.
+template <int D>
+__device__ __forceinline__ void init_barriers(const Smem<D>& sm, uint32_t full_arrivals) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRingStages; ++s) {
+      mbar_init(&sm.full[s], full_arrivals);
+      mbar_init(&sm.empty[s], kConsumerWarps);
+    }
+    mbar_init(sm.loaded, 1);
+    fence_barrier_init();
+  }
+}
+
+// Producer lane 0: the rows [row0, row0 + 128) of head h, batch b of two
+// tensors into the resident buffers.
+template <int D>
+__device__ __forceinline__ void load_resident(const Smem<D>& sm, const CUtensorMap* map0,
+                                              const CUtensorMap* map1, int row0, int h, int b) {
+  mbar_arrive_expect_tx(sm.loaded, 2 * Smem<D>::kResidentBytes);
+#pragma unroll
+  for (int box = 0; box < Smem<D>::kBoxes; ++box) {
+    tma_load_3d(sm.resident[0] + box * 2 * kBoxBytes, map0, sm.loaded, h * D + 64 * box, row0, b);
+    tma_load_3d(sm.resident[1] + box * 2 * kBoxBytes, map1, sm.loaded, h * D + 64 * box, row0, b);
+  }
+}
+
+// Producer lane 0: rows [row0, row0 + 64) of head h, batch b of two tensors
+// into stage s, completing full[s]; arrives on full[s] with the bytes.
+template <int D>
+__device__ __forceinline__ void load_stage(const Smem<D>& sm, int s, const CUtensorMap* map0,
+                                           const CUtensorMap* map1, int row0, int h, int b) {
+  uint8_t* dst = sm.stage(s);
+  mbar_arrive_expect_tx(&sm.full[s], Smem<D>::kStageBytes);
+#pragma unroll
+  for (int box = 0; box < Smem<D>::kBoxes; ++box) {
+    tma_load_3d(dst + box * kBoxBytes, map0, &sm.full[s], h * D + 64 * box, row0, b);
+    tma_load_3d(dst + Smem<D>::kStreamBytes + box * kBoxBytes, map1, &sm.full[s],
+                h * D + 64 * box, row0, b);
+  }
+}
+
+// Producer lane: lse and delta of rows `row` and `row + 32` into v (lse,
+// lse, delta, delta); +inf and 0 past sq.
+__device__ __forceinline__ void load_stats(float (&v)[4], const float* lse_h,
+                                           const float* delta_h, int row, int sq) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    v[i] = INFINITY;
+    v[2 + i] = 0.f;
+    if (row + 32 * i < sq) {
+      v[i] = lse_h[row + 32 * i];
+      v[2 + i] = delta_h[row + 32 * i];
+    }
+  }
+}
+
+// Descriptor steps over D for K step kk (16 columns): within a box 32 bytes,
+// then the next box (resident boxes hold 128 rows, streamed ones 64).
+__device__ __forceinline__ uint64_t resident_k_step(int kk) {
+  return (kk / 4) * (2 * kBoxBytes >> 4) + 2 * (kk % 4);
+}
+__device__ __forceinline__ uint64_t stream_k_step(int kk) {
+  return (kk / 4) * (kBoxBytes >> 4) + 2 * (kk % 4);
+}
+
+// x (64 x 64, fp32) = A B^T over D for this warpgroup's 64 resident rows (A)
+// and a streamed 64-row tile (B), both K-major; committed as one group.
+template <int D>
+__device__ __forceinline__ void scores(float (&x)[32], uint64_t desc_a, uint64_t desc_b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    wgmma_m64n64k16(x, desc_a + resident_k_step(kk), desc_b + stream_k_step(kk), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// acc (64 x D) += A (64 x 64, four A fragments) times the streamed 64-row
+// tile at `tile`, read MN-major.
+template <int D>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 2], const uint32_t (&a)[4][4],
+                                           const uint8_t* tile) {
+  const uint64_t desc = desc_sw128_mn(tile, kBoxBytes);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(acc, a[kk], desc + 128 * kk, 1);
+}
+
+// Stores rows `row` and `row + 8` (those below `rows`) of a 64 x D
+// accumulator slice this thread holds, as bf16 pairs from column 2 (lane % 4).
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long long row_stride,
+                                           const float (&acc)[D / 2], int row, int rows) {
+  __nv_bfloat16* lo = dst + (long long)row * row_stride;
+  __nv_bfloat16* hi = lo + 8 * row_stride;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    if (row < rows) {
+      *reinterpret_cast<uint32_t*>(lo + 8 * j) = pack_bf16x2(acc[4 * j], acc[4 * j + 1]);
+    }
+    if (row + 8 < rows) {
+      *reinterpret_cast<uint32_t*>(hi + 8 * j) = pack_bf16x2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_bshd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v,
-                          const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                          const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-                          __nv_bfloat16* __restrict__ dv, int sq, int sk, int num_heads,
-                          long long q_sb, long long q_ss, long long k_sb, long long k_ss,
-                          long long v_sb, long long v_ss, long long do_sb, long long do_ss,
-                          long long dk_sb, long long dk_ss, long long dv_sb, long long dv_ss,
-                          float scale) {
-  constexpr int kLdR = D + kPad;        // row-major tiles: [row][d]
-  constexpr int kLdT = kBlockQ + kPad;  // transposed tiles: [d][row]
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sdO = sQ + kBlockQ * kLdR;
-  __nv_bfloat16* sQt = sdO + kBlockQ * kLdR;
-  __nv_bfloat16* sdOt = sQt + D * kLdT;
-  float* sLse = reinterpret_cast<float*>(sdOt + D * kLdT);  // log2 domain
-  float* sDelta = sLse + kBlockQ;
-
-  const int k0 = blockIdx.x * kBlockK;
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_bshd_kernel(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const __grid_constant__ CUtensorMap map_do,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int sq,
+                          int sk, int num_heads, long long dk_sb, long long dk_ss,
+                          long long dv_sb, long long dv_ss, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  const Smem<D> sm(smem_raw);
+  const int k0 = blockIdx.x * kBlockRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
+  const int num_qt = (sq + kStepRows - 1) / kStepRows;
 
-  const __nv_bfloat16* qh = q + b * q_sb + (long long)h * D;
-  const __nv_bfloat16* kh = k + b * k_sb + (long long)h * D;
-  const __nv_bfloat16* vh = v + b * v_sb + (long long)h * D;
-  const __nv_bfloat16* doh = dout + b * do_sb + (long long)h * D;
-  const float* lse_h = lse + ((long long)b * num_heads + h) * sq;
-  const float* delta_h = delta + ((long long)b * num_heads + h) * sq;
-  const float scale_log2 = scale * kLog2e;
-
-  // this block's K and V tiles -> shared (through the Q and dO buffers) ->
-  // A fragments in registers for the whole loop
-  stage_tile<D, true, false, kLdR, 0>(sQ, nullptr, kh, k_ss, k0, sk);
-  stage_tile<D, true, false, kLdR, 0>(sdO, nullptr, vh, v_ss, k0, sk);
+  init_barriers(sm, 32);  // the producer warp's 32 lanes write a stage's lse and delta
   __syncthreads();
-  uint32_t kf[D / 16][4], vf[D / 16][4];
-  load_a_fragments<D, kLdR>(kf, sQ, warp, g, t);
-  load_a_fragments<D, kLdR>(vf, sdO, warp, g, t);
 
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    dk_acc[n][0] = dk_acc[n][1] = dk_acc[n][2] = dk_acc[n][3] = 0.f;
-    dv_acc[n][0] = dv_acc[n][1] = dv_acc[n][2] = dv_acc[n][3] = 0.f;
-  }
-
-  const int num_qt = (sq + kBlockQ - 1) / kBlockQ;
-  for (int qt = 0; qt < num_qt; ++qt) {
-    const int q0 = qt * kBlockQ;
-    __syncthreads();  // every warp is done with the previous tile
-    stage_tile<D, true, true, kLdR, kLdT>(sQ, sQt, qh, q_ss, q0, sq);
-    stage_tile<D, true, true, kLdR, kLdT>(sdO, sdOt, doh, do_ss, q0, sq);
-    if (threadIdx.x < kBlockQ) {
-      const int row = q0 + threadIdx.x;
-      sLse[threadIdx.x] = row < sq ? lse_h[row] * kLog2e : 0.f;
-      sDelta[threadIdx.x] = row < sq ? delta_h[row] : 0.f;
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x < kProducerThread + 32) {
+      const int lane = threadIdx.x - kProducerThread;
+      const float* lse_h = lse + ((long long)b * num_heads + h) * sq;
+      const float* delta_h = delta + ((long long)b * num_heads + h) * sq;
+      if (lane == 0) load_resident(sm, &map_k, &map_v, k0, h, b);
+      // a stage's lse and delta are loaded one stage ahead, so that their
+      // latency passes while the producer waits for a free stage
+      float next[4];
+      load_stats(next, lse_h, delta_h, lane, sq);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int qt = 0; qt < num_qt; ++qt) {
+        mbar_wait(&sm.empty[stage], phase ^ 1u);
+        float* stats = sm.stats + stage * 2 * kStepRows;
+        stats[lane] = next[0] * kLog2e;  // +inf past sq: P = 0 there
+        stats[lane + 32] = next[1] * kLog2e;
+        stats[kStepRows + lane] = next[2];
+        stats[kStepRows + lane + 32] = next[3];
+        if (qt + 1 < num_qt) load_stats(next, lse_h, delta_h, (qt + 1) * kStepRows + lane, sq);
+        if (lane == 0) {
+          load_stage(sm, stage, &map_q, &map_do, qt * kStepRows, h, b);
+        } else {
+          mbar_arrive(&sm.full[stage]);
+        }
+        if (++stage == kRingStages) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
     }
-    __syncthreads();
+  } else {
+    setmaxnreg_inc<232>();
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const float scale_log2 = scale * kLog2e;
+    float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    // this warpgroup's 64 keys of the resident K and V
+    const uint64_t desc_k = desc_sw128(sm.resident[0] + wg * kBoxBytes);
+    const uint64_t desc_v = desc_sw128(sm.resident[1] + wg * kBoxBytes);
+    mbar_wait(sm.loaded, 0);
 
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x 64 q rows
-    float s[kBlockQ / 8][4], dp[kBlockQ / 8][4];
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int qt = 0; qt < num_qt; ++qt) {
+      mbar_wait(&sm.full[stage], phase);
+      const uint8_t* tile_q = sm.stage(stage);
+      const uint8_t* tile_do = tile_q + Smem<D>::kStreamBytes;
+      const float* stats = sm.stats + stage * 2 * kStepRows;
+
+      float s[32], dp[32], p[32], ds[32];
+      wgmma_fence();
+      scores<D>(s, desc_k, desc_sw128(tile_q));   // S^T = K Q^T
+      scores<D>(dp, desc_v, desc_sw128(tile_do));  // dP^T = V dO^T
+      wgmma_wait<1>();  // S^T
+      fence_operands(s);
+      // columns are q rows: lse and delta per column, cols 8j + 2 (lane % 4) + {0, 1}
 #pragma unroll
-    for (int j = 0; j < kBlockQ / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-      const __nv_bfloat16* qb = sQ + (j * 8 + g) * kLdR + 2 * t;
-      const __nv_bfloat16* dob = sdO + (j * 8 + g) * kLdR + 2 * t;
+      for (int j = 0; j < 8; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(stats + 8 * j + 2 * (lane % 4));
+        p[4 * j] = exp2_approx(fmaf(s[4 * j], scale_log2, -l.x));
+        p[4 * j + 1] = exp2_approx(fmaf(s[4 * j + 1], scale_log2, -l.y));
+        p[4 * j + 2] = exp2_approx(fmaf(s[4 * j + 2], scale_log2, -l.x));
+        p[4 * j + 3] = exp2_approx(fmaf(s[4 * j + 3], scale_log2, -l.y));
+      }
+      wgmma_wait<0>();
+      fence_operands(dp);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        mma_16816(s[j], kf[kk], lds32(qb + kk * 16), lds32(qb + kk * 16 + 8));
-        mma_16816(dp[j], vf[kk], lds32(dob + kk * 16), lds32(dob + kk * 16 + 8));
+      for (int j = 0; j < 8; ++j) {
+        const float2 dl =
+            *reinterpret_cast<const float2*>(stats + kStepRows + 8 * j + 2 * (lane % 4));
+        ds[4 * j] = p[4 * j] * (dp[4 * j] - dl.x) * scale;
+        ds[4 * j + 1] = p[4 * j + 1] * (dp[4 * j + 1] - dl.y) * scale;
+        ds[4 * j + 2] = p[4 * j + 2] * (dp[4 * j + 2] - dl.x) * scale;
+        ds[4 * j + 3] = p[4 * j + 3] * (dp[4 * j + 3] - dl.y) * scale;
+      }
+      uint32_t p_frag[4][4], ds_frag[4][4];
+      acc_to_a_fragments<64>(p_frag, p);
+      acc_to_a_fragments<64>(ds_frag, ds);
+
+      wgmma_fence();
+      accumulate<D>(dv_acc, p_frag, tile_do);  // dV += P^T dO
+      accumulate<D>(dk_acc, ds_frag, tile_q);  // dK += dS^T Q
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(dv_acc);
+      fence_operands(dk_acc);
+      if (lane == 0) mbar_arrive(&sm.empty[stage]);
+      if (++stage == kRingStages) {
+        stage = 0;
+        phase ^= 1u;
       }
     }
 
-    // P^T = exp(S^T * scale - lse[q]) (0 on padded q rows),
-    // dS^T = P^T * (dP^T - delta[q]) * scale; columns are q rows here
-#pragma unroll
-    for (int j = 0; j < kBlockQ / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + 2 * t + (e & 1);
-        const float p = q0 + col < sq ? exp2f(s[j][e] * scale_log2 - sLse[col]) : 0.f;
-        s[j][e] = p;
-        dp[j][e] = p * (dp[j][e] - sDelta[col]) * scale;
-      }
-    }
-
-    // dV += P^T dO and dK += dS^T Q: the accumulators of q tiles 2kk and
-    // 2kk+1 are the A fragment of one 16-row step
-#pragma unroll
-    for (int kk = 0; kk < kBlockQ / 16; ++kk) {
-      uint32_t pf[4], dsf[4];
-      pf[0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
-      pf[1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
-      pf[2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pf[3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      dsf[0] = pack_bf16x2(dp[2 * kk][0], dp[2 * kk][1]);
-      dsf[1] = pack_bf16x2(dp[2 * kk][2], dp[2 * kk][3]);
-      dsf[2] = pack_bf16x2(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
-      dsf[3] = pack_bf16x2(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const __nv_bfloat16* dob = sdOt + (n * 8 + g) * kLdT + kk * 16 + 2 * t;
-        const __nv_bfloat16* qb = sQt + (n * 8 + g) * kLdT + kk * 16 + 2 * t;
-        mma_16816(dv_acc[n], pf, lds32(dob), lds32(dob + 8));
-        mma_16816(dk_acc[n], dsf, lds32(qb), lds32(qb + 8));
-      }
-    }
-  }
-
-  const int key_lo = k0 + warp * 16 + g;
-  const int key_hi = key_lo + 8;
-  __nv_bfloat16* dkh = dk + b * dk_sb + (long long)h * D + 2 * t;
-  __nv_bfloat16* dvh = dv + b * dv_sb + (long long)h * D + 2 * t;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    if (key_lo < sk) {
-      *reinterpret_cast<uint32_t*>(dkh + (long long)key_lo * dk_ss + n * 8) =
-          pack_bf16x2(dk_acc[n][0], dk_acc[n][1]);
-      *reinterpret_cast<uint32_t*>(dvh + (long long)key_lo * dv_ss + n * 8) =
-          pack_bf16x2(dv_acc[n][0], dv_acc[n][1]);
-    }
-    if (key_hi < sk) {
-      *reinterpret_cast<uint32_t*>(dkh + (long long)key_hi * dk_ss + n * 8) =
-          pack_bf16x2(dk_acc[n][2], dk_acc[n][3]);
-      *reinterpret_cast<uint32_t*>(dvh + (long long)key_hi * dv_ss + n * 8) =
-          pack_bf16x2(dv_acc[n][2], dv_acc[n][3]);
-    }
+    const int key = k0 + 64 * wg + 16 * (t / 32) + lane / 4;
+    const int col = h * D + 2 * (lane % 4);
+    store_rows<D>(dk + b * dk_sb + col, dk_ss, dk_acc, key, sk);
+    store_rows<D>(dv + b * dv_sb + col, dv_ss, dv_acc, key, sk);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_bshd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                         const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int sq,
-                         int sk, int num_heads, long long q_sb, long long q_ss, long long k_sb,
-                         long long k_ss, long long v_sb, long long v_ss, long long do_sb,
-                         long long do_ss, long long dq_sb, long long dq_ss, float scale) {
-  constexpr int kLdR = D + kPad;        // sK[key][d], sV[key][d]
-  constexpr int kLdT = kBlockK + kPad;  // sKt[d][key]
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sV = sK + kBlockK * kLdR;
-  __nv_bfloat16* sKt = sV + kBlockK * kLdR;
-
-  const int q0 = blockIdx.x * kBlockQ;
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_bshd_kernel(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         const __grid_constant__ CUtensorMap map_do,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dq, int sq, int sk, int num_heads,
+                         long long dq_sb, long long dq_ss, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  const Smem<D> sm(smem_raw);
+  const int q0 = blockIdx.x * kBlockRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
+  const int num_kt = (sk + kStepRows - 1) / kStepRows;
 
-  const __nv_bfloat16* qh = q + b * q_sb + (long long)h * D;
-  const __nv_bfloat16* kh = k + b * k_sb + (long long)h * D;
-  const __nv_bfloat16* vh = v + b * v_sb + (long long)h * D;
-  const __nv_bfloat16* doh = dout + b * do_sb + (long long)h * D;
-  const float* lse_h = lse + ((long long)b * num_heads + h) * sq;
-  const float* delta_h = delta + ((long long)b * num_heads + h) * sq;
-  const float scale_log2 = scale * kLog2e;
-
-  // this block's Q and dO tiles -> shared (through the K and V buffers) ->
-  // A fragments in registers for the whole loop
-  stage_tile<D, true, false, kLdR, 0>(sK, nullptr, qh, q_ss, q0, sq);
-  stage_tile<D, true, false, kLdR, 0>(sV, nullptr, doh, do_ss, q0, sq);
+  init_barriers(sm, 1);
   __syncthreads();
-  uint32_t qf[D / 16][4], dof[D / 16][4];
-  load_a_fragments<D, kLdR>(qf, sK, warp, g, t);
-  load_a_fragments<D, kLdR>(dof, sV, warp, g, t);
 
-  const int row_lo = q0 + warp * 16 + g;
-  const int row_hi = row_lo + 8;
-  const float lse_lo = row_lo < sq ? lse_h[row_lo] * kLog2e : 0.f;  // log2 domain
-  const float lse_hi = row_hi < sq ? lse_h[row_hi] * kLog2e : 0.f;
-  const float delta_lo = row_lo < sq ? delta_h[row_lo] : 0.f;
-  const float delta_hi = row_hi < sq ? delta_h[row_hi] : 0.f;
-
-  float dq_acc[D / 8][4];
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == kProducerThread) {
+      load_resident(sm, &map_q, &map_do, q0, h, b);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kt = 0; kt < num_kt; ++kt) {
+        mbar_wait(&sm.empty[stage], phase ^ 1u);
+        load_stage(sm, stage, &map_k, &map_v, kt * kStepRows, h, b);
+        if (++stage == kRingStages) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const float scale_log2 = scale * kLog2e;
+    // this thread's q rows: row and row + 8; P = 0 past sq (lse = +inf)
+    const int row = q0 + 64 * wg + 16 * (t / 32) + lane / 4;
+    const float* lse_h = lse + ((long long)b * num_heads + h) * sq;
+    const float* delta_h = delta + ((long long)b * num_heads + h) * sq;
+    const float lse_lo = row < sq ? lse_h[row] * kLog2e : INFINITY;
+    const float lse_hi = row + 8 < sq ? lse_h[row + 8] * kLog2e : INFINITY;
+    const float delta_lo = row < sq ? delta_h[row] : 0.f;
+    const float delta_hi = row + 8 < sq ? delta_h[row + 8] : 0.f;
+    float dq_acc[D / 2];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) dq_acc[n][0] = dq_acc[n][1] = dq_acc[n][2] = dq_acc[n][3] = 0.f;
+    for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+    const uint64_t desc_q = desc_sw128(sm.resident[0] + wg * kBoxBytes);
+    const uint64_t desc_do = desc_sw128(sm.resident[1] + wg * kBoxBytes);
+    mbar_wait(sm.loaded, 0);
 
-  const int num_kt = (sk + kBlockK - 1) / kBlockK;
-  for (int kt = 0; kt < num_kt; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();  // every warp is done with the previous tile
-    stage_tile<D, true, true, kLdR, kLdT>(sK, sKt, kh, k_ss, k0, sk);
-    stage_tile<D, true, false, kLdR, 0>(sV, nullptr, vh, v_ss, k0, sk);
-    __syncthreads();
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int kt = 0; kt < num_kt; ++kt) {
+      mbar_wait(&sm.full[stage], phase);
+      const uint8_t* tile_k = sm.stage(stage);
+      const uint8_t* tile_v = tile_k + Smem<D>::kStreamBytes;
 
-    // S = Q K^T and dP = dO V^T for this warp's 16 q rows x 64 keys
-    float s[kBlockK / 8][4], dp[kBlockK / 8][4];
+      float s[32], dp[32], p[32], ds[32];
+      wgmma_fence();
+      scores<D>(s, desc_q, desc_sw128(tile_k));   // S = Q K^T
+      scores<D>(dp, desc_do, desc_sw128(tile_v));  // dP = dO V^T
+      wgmma_wait<1>();  // S
+      fence_operands(s);
+      const int k0 = kt * kStepRows;
+      const bool ragged = k0 + kStepRows > sk;
 #pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-      const __nv_bfloat16* kb = sK + (j * 8 + g) * kLdR + 2 * t;
-      const __nv_bfloat16* vb = sV + (j * 8 + g) * kLdR + 2 * t;
+      for (int j = 0; j < 8; ++j) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        mma_16816(s[j], qf[kk], lds32(kb + kk * 16), lds32(kb + kk * 16 + 8));
-        mma_16816(dp[j], dof[kk], lds32(vb + kk * 16), lds32(vb + kk * 16 + 8));
+        for (int e = 0; e < 4; ++e) {
+          const float x = exp2_approx(fmaf(s[4 * j + e], scale_log2, e < 2 ? -lse_lo : -lse_hi));
+          p[4 * j + e] = ragged && k0 + 8 * j + 2 * (lane % 4) + (e & 1) >= sk ? 0.f : x;
+        }
+      }
+      wgmma_wait<0>();
+      fence_operands(dp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ds[4 * j + e] = p[4 * j + e] * (dp[4 * j + e] - (e < 2 ? delta_lo : delta_hi)) * scale;
+        }
+      }
+      uint32_t ds_frag[4][4];
+      acc_to_a_fragments<64>(ds_frag, ds);
+
+      wgmma_fence();
+      accumulate<D>(dq_acc, ds_frag, tile_k);  // dQ += dS K
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(dq_acc);
+      if (lane == 0) mbar_arrive(&sm.empty[stage]);
+      if (++stage == kRingStages) {
+        stage = 0;
+        phase ^= 1u;
       }
     }
 
-    // P = exp(S * scale - lse[q]) (0 on padded keys), dS = P (dP - delta[q]) scale
-#pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool valid = k0 + j * 8 + 2 * t + (e & 1) < sk;
-        const float row_lse = e < 2 ? lse_lo : lse_hi;
-        const float row_delta = e < 2 ? delta_lo : delta_hi;
-        const float p = valid ? exp2f(s[j][e] * scale_log2 - row_lse) : 0.f;
-        dp[j][e] = p * (dp[j][e] - row_delta) * scale;
-      }
-    }
-
-    // dQ += dS K
-#pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      uint32_t dsf[4];
-      dsf[0] = pack_bf16x2(dp[2 * kk][0], dp[2 * kk][1]);
-      dsf[1] = pack_bf16x2(dp[2 * kk][2], dp[2 * kk][3]);
-      dsf[2] = pack_bf16x2(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
-      dsf[3] = pack_bf16x2(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const __nv_bfloat16* kb = sKt + (n * 8 + g) * kLdT + kk * 16 + 2 * t;
-        mma_16816(dq_acc[n], dsf, lds32(kb), lds32(kb + 8));
-      }
-    }
-  }
-
-  __nv_bfloat16* dqh = dq + b * dq_sb + (long long)h * D + 2 * t;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    if (row_lo < sq) {
-      *reinterpret_cast<uint32_t*>(dqh + (long long)row_lo * dq_ss + n * 8) =
-          pack_bf16x2(dq_acc[n][0], dq_acc[n][1]);
-    }
-    if (row_hi < sq) {
-      *reinterpret_cast<uint32_t*>(dqh + (long long)row_hi * dq_ss + n * 8) =
-          pack_bf16x2(dq_acc[n][2], dq_acc[n][3]);
-    }
+    store_rows<D>(dq + b * dq_sb + h * D + 2 * (lane % 4), dq_ss, dq_acc, row, sq);
   }
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+// Lets KERNEL use `bytes` of dynamic shared memory: once per device.
+template <auto KERNEL>
+int prepare(int bytes) {
+  static bool done[64] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess && (device >= 64 || !done[device])) {
+    err = cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess && device < 64) done[device] = true;
+  }
+  return static_cast<int>(err);
+}
+
+// The four tensor maps of one launch: q and dO over sq rows in boxes of
+// q_box rows, k and v over sk rows in boxes of k_box rows.
+struct Maps {
+  CUtensorMap q, k, v, dout;
+};
+
+int make_maps(Maps* maps, const void* q, const void* k, const void* v, const void* dout,
+              int batch, int sq, int sk, int cols, long long q_sb, long long q_ss,
+              long long k_sb, long long k_ss, long long v_sb, long long v_ss, long long do_sb,
+              long long do_ss, uint32_t q_box, uint32_t k_box) {
+  int err = make_map_3d(&maps->q, q, batch, sq, cols, q_sb, q_ss, q_box);
+  if (!err) err = make_map_3d(&maps->k, k, batch, sk, cols, k_sb, k_ss, k_box);
+  if (!err) err = make_map_3d(&maps->v, v, batch, sk, cols, v_sb, v_ss, k_box);
+  if (!err) err = make_map_3d(&maps->dout, dout, batch, sq, cols, do_sb, do_ss, q_box);
+  return err;
+}
+
+template <int D>
+int launch_dkv(const Maps& maps, const float* lse, const float* delta, __nv_bfloat16* dk,
+               __nv_bfloat16* dv, int batch, int sq, int sk, int num_heads, long long dk_sb,
+               long long dk_ss, long long dv_sb, long long dv_ss, float scale,
+               cudaStream_t stream) {
+  const int err = prepare<flash_bwd_dkv_bshd_kernel<D>>(Smem<D>::kBytes);
+  if (err) return err;
+  const dim3 grid((sk + kBlockRows - 1) / kBlockRows, num_heads, batch);
+  flash_bwd_dkv_bshd_kernel<D><<<grid, kThreads, Smem<D>::kBytes, stream>>>(
+      maps.q, maps.k, maps.v, maps.dout, lse, delta, dk, dv, sq, sk, num_heads, dk_sb, dk_ss,
+      dv_sb, dv_ss, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dq(const Maps& maps, const float* lse, const float* delta, __nv_bfloat16* dq,
+              int batch, int sq, int sk, int num_heads, long long dq_sb, long long dq_ss,
+              float scale, cudaStream_t stream) {
+  const int err = prepare<flash_bwd_dq_bshd_kernel<D>>(Smem<D>::kBytes);
+  if (err) return err;
+  const dim3 grid((sq + kBlockRows - 1) / kBlockRows, num_heads, batch);
+  flash_bwd_dq_bshd_kernel<D><<<grid, kThreads, Smem<D>::kBytes, stream>>>(
+      maps.q, maps.k, maps.v, maps.dout, lse, delta, dq, sq, sk, num_heads, dq_sb, dq_ss, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The probe: one warpgroup, d (64 x N, fp32) = a b. REGISTER_A: a (64 x 64)
+// read from device memory into accumulator layout, rounded by
+// acc_to_a_fragments into register A fragments, b (64 x N, N contiguous)
+// loaded by TMA through a 3-D map and read MN-major (wgmma_rs, trans-b).
+// Otherwise (N = 64): a (64 x 64) and b^T (N x 64) both K-major by TMA, the
+// shared-memory wgmma_m64n64k16 (d = a b^T).
+template <int N, bool REGISTER_A>
+__global__ void __launch_bounds__(128)
+hopper_wgmma_forms_probe_kernel(const __grid_constant__ CUtensorMap map_a,
+                                const __grid_constant__ CUtensorMap map_b,
+                                const __nv_bfloat16* __restrict__ a, float* __restrict__ d) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* tile_a = align_1024(smem_raw);
+  uint8_t* tile_b = tile_a + kBoxBytes;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(tile_b + 2 * kBoxBytes);
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(bar, (REGISTER_A ? 0 : kBoxBytes) + N / 64 * kBoxBytes);
+    if (!REGISTER_A) tma_load_3d(tile_a, &map_a, bar, 0, 0, 0);
+    for (int box = 0; box < N / 64; ++box) tma_load_3d(tile_b + box * kBoxBytes, &map_b, bar, 64 * box, 0, 0);
+  }
+  mbar_wait(bar, 0);
+  const int lane = threadIdx.x % 32;
+  const int row = 16 * (threadIdx.x / 32) + lane / 4;
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  if constexpr (REGISTER_A) {
+    float a_acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = row + 8 * ((i % 4) / 2);
+      const int c = 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+      a_acc[i] = __bfloat162float(a[r * 64 + c]);
+    }
+    uint32_t frag[4][4];
+    acc_to_a_fragments<64>(frag, a_acc);
+    wgmma_fence();
+    accumulate<N>(acc, frag, tile_b);
+  } else {
+    static_assert(REGISTER_A || N == 64, "the shared-memory form is m64n64k16");
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_m64n64k16(acc, desc_sw128(tile_a) + 2 * kk, desc_sw128(tile_b) + 2 * kk, 1);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_operands(acc);
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    d[(row + 8 * ((i % 4) / 2)) * N + 8 * (i / 4) + 2 * (lane % 4) + (i % 2)] = acc[i];
+  }
 }
 
 }  // namespace
 
 // C entries, bound with ctypes. Strides are in elements; the last dimension
-// of every bf16 tensor is contiguous and every row and head offset is
-// 16-byte aligned (the wrapper checks both); lse and delta are contiguous
-// fp32 (B, H, Sq). Each launches on `stream` and returns cudaGetLastError().
+// of every bf16 tensor is contiguous and every row and batch stride and
+// base is 16-byte aligned (the wrapper checks all three); lse and delta
+// are contiguous fp32 (B, H, Sq). Each launches on `stream` and returns the
+// first error: of the tensor maps' encoding, of the shared-memory
+// attribute, or cudaGetLastError() after the launch.
 
 extern "C" int flash_attention_bshd_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,
@@ -338,36 +585,22 @@ extern "C" int flash_attention_bshd_bwd_dkv(
     long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb, long long v_ss,
     long long do_sb, long long do_ss, long long dk_sb, long long dk_ss, long long dv_sb,
     long long dv_ss, float scale, void* stream) {
-  const dim3 grid((sk + kBlockK - 1) / kBlockK, num_heads, batch);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* qb = static_cast<const __nv_bfloat16*>(q);
-  const auto* kb = static_cast<const __nv_bfloat16*>(k);
-  const auto* vb = static_cast<const __nv_bfloat16*>(v);
-  const auto* dob = static_cast<const __nv_bfloat16*>(dout);
+  if (head_dim != 64 && head_dim != 128) return static_cast<int>(cudaErrorInvalidValue);
+  Maps maps;
+  const int err = make_maps(&maps, q, k, v, dout, batch, sq, sk, num_heads * head_dim, q_sb,
+                            q_ss, k_sb, k_ss, v_sb, v_ss, do_sb, do_ss, kStepRows, kBlockRows);
+  if (err) return err;
   const auto* lb = static_cast<const float*>(lse);
   const auto* db = static_cast<const float*>(delta);
   auto* dkb = static_cast<__nv_bfloat16*>(dk);
   auto* dvb = static_cast<__nv_bfloat16*>(dv);
-  cudaError_t err = cudaSuccess;
-  switch (head_dim) {
-    case 64:
-      err = allow_smem(flash_bwd_dkv_bshd_kernel<64>, dkv_smem_bytes<64>());
-      if (err != cudaSuccess) return static_cast<int>(err);
-      flash_bwd_dkv_bshd_kernel<64><<<grid, kThreads, dkv_smem_bytes<64>(), s>>>(
-          qb, kb, vb, dob, lb, db, dkb, dvb, sq, sk, num_heads, q_sb, q_ss, k_sb, k_ss, v_sb,
-          v_ss, do_sb, do_ss, dk_sb, dk_ss, dv_sb, dv_ss, scale);
-      break;
-    case 128:
-      err = allow_smem(flash_bwd_dkv_bshd_kernel<128>, dkv_smem_bytes<128>());
-      if (err != cudaSuccess) return static_cast<int>(err);
-      flash_bwd_dkv_bshd_kernel<128><<<grid, kThreads, dkv_smem_bytes<128>(), s>>>(
-          qb, kb, vb, dob, lb, db, dkb, dvb, sq, sk, num_heads, q_sb, q_ss, k_sb, k_ss, v_sb,
-          v_ss, do_sb, do_ss, dk_sb, dk_ss, dv_sb, dv_ss, scale);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 64) {
+    return launch_dkv<64>(maps, lb, db, dkb, dvb, batch, sq, sk, num_heads, dk_sb, dk_ss, dv_sb,
+                          dv_ss, scale, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch_dkv<128>(maps, lb, db, dkb, dvb, batch, sq, sk, num_heads, dk_sb, dk_ss, dv_sb,
+                         dv_ss, scale, s);
 }
 
 extern "C" int flash_attention_bshd_bwd_dq(
@@ -376,33 +609,41 @@ extern "C" int flash_attention_bshd_bwd_dq(
     long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb, long long v_ss,
     long long do_sb, long long do_ss, long long dq_sb, long long dq_ss, float scale,
     void* stream) {
-  const dim3 grid((sq + kBlockQ - 1) / kBlockQ, num_heads, batch);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* qb = static_cast<const __nv_bfloat16*>(q);
-  const auto* kb = static_cast<const __nv_bfloat16*>(k);
-  const auto* vb = static_cast<const __nv_bfloat16*>(v);
-  const auto* dob = static_cast<const __nv_bfloat16*>(dout);
+  if (head_dim != 64 && head_dim != 128) return static_cast<int>(cudaErrorInvalidValue);
+  Maps maps;
+  const int err = make_maps(&maps, q, k, v, dout, batch, sq, sk, num_heads * head_dim, q_sb,
+                            q_ss, k_sb, k_ss, v_sb, v_ss, do_sb, do_ss, kBlockRows, kStepRows);
+  if (err) return err;
   const auto* lb = static_cast<const float*>(lse);
   const auto* db = static_cast<const float*>(delta);
   auto* dqb = static_cast<__nv_bfloat16*>(dq);
-  cudaError_t err = cudaSuccess;
-  switch (head_dim) {
-    case 64:
-      err = allow_smem(flash_bwd_dq_bshd_kernel<64>, dq_smem_bytes<64>());
-      if (err != cudaSuccess) return static_cast<int>(err);
-      flash_bwd_dq_bshd_kernel<64><<<grid, kThreads, dq_smem_bytes<64>(), s>>>(
-          qb, kb, vb, dob, lb, db, dqb, sq, sk, num_heads, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
-          do_sb, do_ss, dq_sb, dq_ss, scale);
-      break;
-    case 128:
-      err = allow_smem(flash_bwd_dq_bshd_kernel<128>, dq_smem_bytes<128>());
-      if (err != cudaSuccess) return static_cast<int>(err);
-      flash_bwd_dq_bshd_kernel<128><<<grid, kThreads, dq_smem_bytes<128>(), s>>>(
-          qb, kb, vb, dob, lb, db, dqb, sq, sk, num_heads, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
-          do_sb, do_ss, dq_sb, dq_ss, scale);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 64) {
+    return launch_dq<64>(maps, lb, db, dqb, batch, sq, sk, num_heads, dq_sb, dq_ss, scale, s);
+  }
+  return launch_dq<128>(maps, lb, db, dqb, batch, sq, sk, num_heads, dq_sb, dq_ss, scale, s);
+}
+
+// The probe (a test entry): a (64, 64) and b bf16, contiguous, 16-byte
+// aligned; d (64, n) fp32. register_a: b is (64, n), n = 64 or 128, d = a b;
+// else b is (64, 64) and d = a b^T.
+extern "C" int hopper_wgmma_forms_probe(const void* a, const void* b, void* d, int n,
+                                        int register_a, void* stream) {
+  if (register_a ? (n != 64 && n != 128) : n != 64) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map_a, map_b;
+  int err = make_map_3d(&map_a, a, 1, 64, 64, 64 * 64, 64, 64);
+  if (!err) err = make_map_3d(&map_b, b, 1, 64, n, 64LL * n, n, 64);
+  if (err) return err;
+  const size_t smem = 1024 + 3 * kBoxBytes + sizeof(uint64_t);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* ab = static_cast<const __nv_bfloat16*>(a);
+  auto* df = static_cast<float*>(d);
+  if (!register_a) {
+    hopper_wgmma_forms_probe_kernel<64, false><<<1, 128, smem, s>>>(map_a, map_b, ab, df);
+  } else if (n == 64) {
+    hopper_wgmma_forms_probe_kernel<64, true><<<1, 128, smem, s>>>(map_a, map_b, ab, df);
+  } else {
+    hopper_wgmma_forms_probe_kernel<128, true><<<1, 128, smem, s>>>(map_a, map_b, ab, df);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -68,11 +68,6 @@ __device__ __forceinline__ float bias_at(const float* bias, int i) {
   return bias == nullptr ? 0.f : bias[i];
 }
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // The shared memory of both kernels: the ring (B tiles of up to 256 rows),
 // two 64 x 64 output boxes per consumer warpgroup, the barriers.
 struct Layout {

@@ -1,6 +1,11 @@
 // Shared pieces of the port's Hopper (sm_90a) GEMM pipelines: TMA tensor maps
-// (host), mbarriers, TMA loads and stores, wgmma descriptors and
-// instructions, and a warp-specialized TN main loop.
+// (host; 2-D, and 3-D for a batch of strided matrices), mbarriers, TMA loads
+// and stores, wgmma descriptors (K-major, and MN-major for a B operand read
+// through the transpose bit) and instructions (A from shared memory, or A
+// from registers: an fp32 accumulator rounded into bf16 A fragments), and
+// a warp-specialized TN main loop. csrc/flash_attention_bshd_bwd.cu uses
+// the 3-D maps, the MN-major descriptor and the register-A forms, and holds
+// each to one 64 x N product on the card (hopper_wgmma_forms_probe).
 //
 // The main loop's shape (used by csrc/fused_mlp.cu):
 //   - one block of 384 threads: warpgroups 0 and 1 consume (wgmma), one
@@ -81,6 +86,29 @@ inline int make_map_2d(CUtensorMap* map, const void* base, uint64_t rows, uint64
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
+// A 3-D tensor map over `batches` matrices of `rows` x `cols` bf16, whose
+// rows are `row_stride` and matrices `batch_stride` elements apart (both
+// multiples of 8; columns contiguous), e.g. one (B, S, H*D) tensor or a
+// strided view of a wider one. Boxes of 64 columns x box_rows rows of one
+// matrix, 128-byte swizzle. A box that overhangs a matrix's last row reads
+// zeros there, never the next matrix's rows; stores drop them. Returns 0 or
+// a cudaError_t.
+inline int make_map_3d(CUtensorMap* map, const void* base, uint64_t batches, uint64_t rows,
+                       uint64_t cols, uint64_t batch_stride, uint64_t row_stride,
+                       uint32_t box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {cols, rows, batches};
+  const cuuint64_t strides[2] = {row_stride * 2, batch_stride * 2};
+  const cuuint32_t box[3] = {64, box_rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
+      elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
 // ---------------------------------------------------------------- device
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -149,6 +177,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// One box of a 3-D tensor map at (column c0, row c1, matrix c2).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // One box from shared memory to (column c0, row c1) of a 2-D tensor map.
 __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
                                              int c1) {
@@ -198,6 +236,37 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 __device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
   const uint64_t addr = smem_u32(tile);
   return ((addr & 0x3FFFFull) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// wgmma descriptor of an MN-major B tile (K rows x N columns, N contiguous)
+// written by TMA with 128-byte swizzle as boxes of 64 columns: a swizzle
+// atom is 8 K rows x 64 N columns (1024 bytes). SBO steps 8 K rows (1024
+// bytes); LBO steps 64 N columns, i.e. to the next box, `box_bytes` apart.
+// The K step of 16 rows (2048 bytes) adds 128 to the descriptor.
+__device__ __forceinline__ uint64_t desc_sw128_mn(const void* tile, uint32_t box_bytes) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFFull) >> 4) | (static_cast<uint64_t>(box_bytes >> 4) << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A 64 x N fp32 accumulator (wgmma's layout: d[4j + e] at row 16 warp +
+// lane / 4 + 8 (e >= 2), column 8j + 2 (lane % 4) + (e & 1)) rounded to bf16
+// as N / 16 A fragments of a following wgmma whose K runs over those N
+// columns: fragment kk holds columns [16 kk, 16 kk + 16), as four registers
+// (row, columns 2c..), (row + 8, 2c..), (row, 2c + 8..), (row + 8, 2c + 8..).
+template <int N>
+__device__ __forceinline__ void acc_to_a_fragments(uint32_t (&a)[N / 16][4],
+                                                   const float (&d)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16x2(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+  }
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -295,6 +364,94 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 64, fp32, wgmma's accumulator layout) = A (64 x 16) B^T (64 x 16) + (scale_d ? d : 0),
+// A and B bf16, K-major in shared memory, read through descriptors.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 64, fp32) = A (64 x 16) B (16 x 64) + (scale_d ? d : 0), A bf16 in
+// four registers a thread (an A fragment, see acc_to_a_fragments), B bf16
+// MN-major in shared memory through desc_sw128_mn (the transpose bit set).
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 128, fp32) = A (64 x 16) B (16 x 128) + (scale_d ? d : 0), A bf16 in
+// four registers a thread (an A fragment, see acc_to_a_fragments), B bf16
+// MN-major in shared memory through desc_sw128_mn (the transpose bit set).
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// wgmma_m64nNk16_rs at N = 64 or 128.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b,
+                                         int scale_d) {
+  static_assert(N == 64 || N == 128, "register-A wgmma widths of the port: 64 and 128");
+  if constexpr (N == 64) {
+    wgmma_m64n64k16_rs(d, a, desc_b, scale_d);
+  } else {
+    wgmma_m64n128k16_rs(d, a, desc_b, scale_d);
+  }
 }
 
 template <int N>

@@ -188,7 +188,8 @@ def _check(q, k, v, num_heads, **more) -> int:
             raise ValueError(f"{name} must be bf16 on {q.device}, got {t.dtype} on {t.device}")
         if t.ndim != 3 or t.shape[0] != b or t.shape[2] != inner:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected (B, S, {inner})")
-        # 16-byte vector loads: unit last stride, 8-element row strides
+        # 16-byte vector loads and TMA tensor maps: unit last stride, 8-element
+        # row and batch strides, a 16-byte aligned base
         if t.stride(2) != 1 or t.stride(1) % 8 or t.stride(0) % 8 or t.data_ptr() % 16:
             raise ValueError(f"{name} needs a contiguous last axis and 16-byte aligned rows")
     if k.shape[1] != v.shape[1] or min(sq, k.shape[1]) < 1:

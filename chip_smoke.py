@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (vision_ft_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--kernel-d]
 
 With --profile, phases 6 and 8 also trace two train steps with
 torch.profiler (device activity only) and print the device time of a step
 by kind of kernel and the share of an untraced step in which the card is
 idle, phase 8 the host's cost of one Linear call, dense and on each NF4
 route, phase 12 the same breakdown of one Lumina2 denoise step and phase
-14 of one Lumina2 train step.
+14 of one Lumina2 train step. With --kernel-d, only phases 0, 7 and the
+build of kernel D's library run (no ok line).
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -37,7 +38,10 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 7. kernel D, the packed 4-bit (NF4 / FP4) matmul: its forward and its dx
    kernel against their plain versions at the SDXL layers' shapes, in the
-   split and the bnb byte layout, with real codes of seeded weights.
+   split and the bnb byte layout, with real codes of seeded weights; each
+   reruns bit-identical; TFLOP/s and the ratio to cuBLAS on a dequantized
+   bf16 weight beside each time, and the time a call over 10 calls back to
+   back (the host's launch cost hidden) beside cuBLAS's.
 8. SDXL NF4 QLoRA: the same denoiser, its 700 attention and feed-forward
    Linears quantized to NF4 on the card, then LoRA train steps as in phase
    6 on the "fused" route (the kernels), with the checks of phase 6 and
@@ -331,6 +335,23 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return statistics.median(times)
 
 
+def burst_ms(fn, calls: int = 10, iters: int = 10) -> float:
+    """Median milliseconds a call of ``fn()`` over ``calls`` calls issued
+    back to back between two CUDA events: the card's rate once the host's
+    launch cost overlaps the previous call."""
+    fn()
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
 def bound(nbytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS):
     """(least milliseconds the card could take, what binds it)."""
     by_bytes, by_flops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / peak_flops * 1e3
@@ -452,8 +473,9 @@ KERNEL_KINDS = [
     ("shortk_fwd", "kernel H"), ("shortk_bwd", "kernel I"),
     ("flash_bwd_dkv_bshd", "kernel C dk/dv"), ("flash_bwd_dq_bshd", "kernel C dq"),
     ("flash_fwd_bshd", "kernel B"), ("layer_norm_fwd", "kernel A"),
-    ("nf4_matmul_kernel<true>", "kernel D dx"), ("nf4_matmul_kernelILb1", "kernel D dx"),
-    ("nf4_matmul_kernel<false>", "kernel D forward"), ("nf4_matmul_kernelILb0", "kernel D forward"),
+    ("nf4_matmul_kernel<true", "kernel D dx"), ("nf4_matmul_kernelILb1", "kernel D dx"),
+    ("nf4_matmul_kernel<false", "kernel D forward"), ("nf4_matmul_kernelILb0", "kernel D forward"),
+    ("nf4_split_sum", "kernel D split sum"),
     ("multi_tensor", "optimizer / clipping (foreach)"),
     ("nvjet", "matmul (cuBLAS)"), ("gemm", "matmul (cuBLAS)"), ("gemv", "matmul (cuBLAS)"),
     ("cutlass", "matmul (cuBLAS)"), ("xmma", "matmul (cuBLAS)"), ("splitK", "matmul (cuBLAS)"),
@@ -490,11 +512,12 @@ def profile_window(run_step):
     return kinds, kernels
 
 
-def profile_steps(run_step, unprofiled_ms: float, what: str = "train step") -> None:
+def profile_steps(run_step, unprofiled_ms: float, what: str = "train step") -> dict:
     """Trace two steps, one window each, and print the second's device
     time by kind of kernel and the card's idle share of a step of
-    ``unprofiled_ms``. The profiler can lose events under load: the two
-    windows must agree, or the run fails."""
+    ``unprofiled_ms``; returns that step's {kind: (ms, launches)}. The
+    profiler can lose events under load: the two windows must agree, or
+    the run fails."""
     (first, _), (kinds, kernels) = profile_window(run_step), profile_window(run_step)
     busy_first = sum(t for t, _ in first.values())
     busy_ms = sum(t for t, _ in kinds.values())
@@ -510,6 +533,7 @@ def profile_steps(run_step, unprofiled_ms: float, what: str = "train step") -> N
     print("the 12 kernels with the most device time:")
     for ms, count, kind, name in sorted(kernels, reverse=True)[:12]:
         print(f"  {ms:8.2f} ms/step {count:6d} launches/step [{kind}] {name[:100]}")
+    return kinds
 
 
 def linear_host_cost(device) -> None:
@@ -550,10 +574,116 @@ def linear_host_cost(device) -> None:
         print(f"  {name + (' ' + route if route else ''):12s} {forward_us:7.1f} us, {both_us:7.1f} us")
 
 
+def kernel_d_phase(device, gen) -> dict:
+    """Phase 7: kernel D's forward and dx against their plain versions at
+    NF4_SHAPES in both byte layouts and, at (908, 640, 2048), with the FP4
+    codebook; every case reruns bit-identical. The split layout (the one
+    the quantized model holds) is timed: kernel, plain version, bound and
+    the cuBLAS call on a bf16 weight dequantized beforehand. Returns the
+    two kernels' records (the first shape's times)."""
+    from vision_ft_tpu_torch.modules import quant
+    from vision_ft_tpu_torch.modules.quant.nf4 import quantize_4bit
+    from vision_ft_tpu_torch.ops.nf4_matmul import (
+        nf4_matmul_dx, nf4_matmul_dx_reference, nf4_matmul_forward, nf4_matmul_reference,
+        to_split_layout,
+    )
+
+    def nf4_case(m, n, k, quant_type, split, timed):
+        """Both kernels against their plain versions on one quantized
+        weight, and each run twice for the same bits; with ``timed`` also
+        the times and bounds, as a record row per kernel."""
+        w = torch.randn(n, k, device=device, generator=gen) * 0.02
+        packed, state = quantize_4bit(w, quant_type)
+        code, absmax = state["quant_map"], state["absmax"]
+        packed = to_split_layout(packed, (n, k)) if split else packed.reshape(n, k // 2)
+        x = torch.randn(m, k, device=device, generator=gen).bfloat16()
+        dy = torch.randn(m, n, device=device, generator=gen).bfloat16()
+        args = (packed, code, absmax, (n, k), 64, split)
+        what = f"{quant_type} {'split' if split else 'bnb'} (M={m}, N={n}, K={k})"
+        fwd_err = compare(f"4-bit matmul forward {what}", lambda: nf4_matmul_forward(x, *args),
+                          lambda: nf4_matmul_reference(x, *args), NF4_FWD_TOL)
+        dx_err = compare(f"4-bit matmul dx {what}", lambda: nf4_matmul_dx(dy, *args),
+                         lambda: nf4_matmul_dx_reference(dy, *args), NF4_DX_TOL)
+        assert_reruns(f"4-bit matmul forward {what}", lambda: nf4_matmul_forward(x, *args))
+        assert_reruns(f"4-bit matmul dx {what}", lambda: nf4_matmul_dx(dy, *args))
+        line = (f"{what}: forward max abs err {fwd_err[0]:.3e} rel {fwd_err[1]:.3e} "
+                f"(tol {NF4_FWD_TOL}), dx {dx_err[0]:.3e} rel {dx_err[1]:.3e} (tol {NF4_DX_TOL}); "
+                f"both rerun bit-identical")
+        if not timed:
+            print(line)
+            return fwd_err[0], dx_err[0], None, None
+        fwd_ms = cuda_ms(lambda: nf4_matmul_forward(x, *args))
+        dx_ms = cuda_ms(lambda: nf4_matmul_dx(dy, *args))
+        fwd_plain = cuda_ms(lambda: nf4_matmul_reference(x, *args), warmup=1, iters=5)
+        dx_plain = cuda_ms(lambda: nf4_matmul_dx_reference(dy, *args), warmup=1, iters=5)
+        # yardstick only: one cuBLAS call on a bf16 weight dequantized
+        # beforehand; it does less work (no dequantization)
+        dense = quant.nf4.dequantize_4bit(packed, code, absmax, (n, k), 64, torch.bfloat16, split)
+        fwd_lib = cuda_ms(lambda: torch.nn.functional.linear(x, dense))
+        dx_lib = cuda_ms(lambda: torch.matmul(dy, dense))
+        burst = (burst_ms(lambda: nf4_matmul_forward(x, *args)),
+                 burst_ms(lambda: torch.nn.functional.linear(x, dense)),
+                 burst_ms(lambda: nf4_matmul_dx(dy, *args)),
+                 burst_ms(lambda: torch.matmul(dy, dense)))
+        same = (torch.equal(nf4_matmul_forward(x, *args), torch.nn.functional.linear(x, dense)),
+                torch.equal(nf4_matmul_dx(dy, *args), torch.matmul(dy, dense)))
+        weight_bytes = packed.numel() + absmax.numel() * 4 + code.numel() * 4
+        flops = 2 * m * n * k
+        fwd_bound = bound(x.numel() * 2 + weight_bytes + m * n * 2, flops)
+        dx_bound = bound(dy.numel() * 2 + weight_bytes + m * k * 2, flops)
+        print(line + f"; forward kernel {fwd_ms:.4f} ms ({flops / fwd_ms / 1e9:.1f} TFLOP/s, "
+              f"{fwd_ms / fwd_lib:.2f}x cuBLAS), plain {fwd_plain:.3f} ms, F.linear on a bf16 "
+              f"weight {fwd_lib:.4f} ms ({flops / fwd_lib / 1e9:.1f} TFLOP/s), bound "
+              f"{fwd_bound[0]:.4f} ms ({fwd_bound[1]}); dx kernel {dx_ms:.4f} ms "
+              f"({flops / dx_ms / 1e9:.1f} TFLOP/s, {dx_ms / dx_lib:.2f}x cuBLAS), plain "
+              f"{dx_plain:.3f} ms, matmul on a bf16 weight {dx_lib:.4f} ms "
+              f"({flops / dx_lib / 1e9:.1f} TFLOP/s), bound {dx_bound[0]:.4f} ms ({dx_bound[1]}); "
+              f"10 calls back to back, ms a call: forward {burst[0]:.4f} "
+              f"({flops / burst[0] / 1e9:.1f} TFLOP/s) vs F.linear {burst[1]:.4f}, "
+              f"dx {burst[2]:.4f} "
+              f"({flops / burst[2] / 1e9:.1f} TFLOP/s) vs matmul {burst[3]:.4f}; "
+              f"bit-identical to those cuBLAS calls: forward {same[0]}, dx {same[1]}")
+        return (fwd_err[0], dx_err[0],
+                dict(ms=fwd_ms, plain_ms=fwd_plain, bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
+                     library_ms=fwd_lib),
+                dict(ms=dx_ms, plain_ms=dx_plain, bound_ms=dx_bound[0], bound_by=dx_bound[1],
+                     library_ms=dx_lib))
+
+    fwd_errs, dx_errs, fwd_rows, dx_rows = [], [], [], []
+    for m, n, k in NF4_SHAPES:
+        # the split layout is the one the quantized model holds: it is timed
+        for split in (True, False):
+            fwd_err, dx_err, fwd_row, dx_row = nf4_case(m, n, k, "nf4", split, timed=split)
+            fwd_errs.append(fwd_err)
+            dx_errs.append(dx_err)
+            if split:
+                fwd_rows.append(fwd_row)
+                dx_rows.append(dx_row)
+    for split in (True, False):  # the other codebook, through the same kernels
+        fwd_err, dx_err, _, _ = nf4_case(908, 640, 2048, "fp4", split, timed=False)
+        fwd_errs.append(fwd_err)
+        dx_errs.append(dx_err)
+    return {
+        "nf4_matmul_forward": dict(
+            route="cuda", source="vision_ft_tpu_torch/csrc/nf4_matmul.cu",
+            replaces="vision_ft_tpu/ops/pallas/nf4_matmul.py:189",
+            max_abs_err=max(fwd_errs), **fwd_rows[0],
+        ),
+        "nf4_matmul_dx": dict(
+            route="cuda", source="vision_ft_tpu_torch/csrc/nf4_matmul.cu",
+            replaces="vision_ft_tpu/ops/pallas/nf4_matmul.py:214",
+            max_abs_err=max(dx_errs), **dx_rows[0],
+        ),
+    }
+
+
 def main() -> None:
     args = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     args.add_argument("--profile", action="store_true",
                       help="also trace two train steps and print device time by kind of kernel")
+    args.add_argument("--kernel-d", action="store_true",
+                      help="run phase 7 alone (kernel D vs plain, timed) after building its "
+                           "library; prints its records, not the ok line")
     options = args.parse_args()
 
     phase("0 device")
@@ -597,10 +727,7 @@ def main() -> None:
     )
     from vision_ft_tpu_torch.ops.group_norm import group_norm, group_norm_reference
     from vision_ft_tpu_torch.ops.layer_norm import layer_norm, layer_norm_reference
-    from vision_ft_tpu_torch.ops.nf4_matmul import (
-        nf4_matmul_dx, nf4_matmul_dx_reference, nf4_matmul_forward, nf4_matmul_reference,
-        to_split_layout,
-    )
+    from vision_ft_tpu_torch.ops.nf4_matmul import nf4_matmul_dx, nf4_matmul_forward
     from vision_ft_tpu_torch.tools import partial_block_probe as probe
 
     wrappers = {
@@ -632,6 +759,14 @@ def main() -> None:
 
     def read_launches():
         return {name: wrapper.launches for name, wrapper in wrappers.items()}
+
+    if options.kernel_d:
+        phase("1 build (kernel D's library only)")
+        _build.build_cuda_libraries(["nf4_matmul"])
+        phase("7 kernel D: packed 4-bit matmul, forward and dx kernels vs plain (bf16)")
+        records = kernel_d_phase(device, torch.Generator(device=device).manual_seed(0))
+        print(json.dumps({"kernel_d": records}))
+        return
 
     phase("1 build")
     start = time.perf_counter()
@@ -1039,80 +1174,8 @@ def main() -> None:
 
     phase("7 kernel D: packed 4-bit matmul, forward and dx kernels vs plain (bf16)")
     from vision_ft_tpu_torch.modules import quant
-    from vision_ft_tpu_torch.modules.quant.nf4 import quantize_4bit
 
-    def nf4_case(m, n, k, quant_type, split, timed):
-        """Both kernels against their plain versions on one quantized
-        weight; with ``timed`` also the times and bounds, as a record row
-        per kernel."""
-        w = torch.randn(n, k, device=device, generator=gen) * 0.02
-        packed, state = quantize_4bit(w, quant_type)
-        code, absmax = state["quant_map"], state["absmax"]
-        packed = to_split_layout(packed, (n, k)) if split else packed.reshape(n, k // 2)
-        x = torch.randn(m, k, device=device, generator=gen).bfloat16()
-        dy = torch.randn(m, n, device=device, generator=gen).bfloat16()
-        args = (packed, code, absmax, (n, k), 64, split)
-        what = f"{quant_type} {'split' if split else 'bnb'} (M={m}, N={n}, K={k})"
-        fwd_err = compare(f"4-bit matmul forward {what}", lambda: nf4_matmul_forward(x, *args),
-                          lambda: nf4_matmul_reference(x, *args), NF4_FWD_TOL)
-        dx_err = compare(f"4-bit matmul dx {what}", lambda: nf4_matmul_dx(dy, *args),
-                         lambda: nf4_matmul_dx_reference(dy, *args), NF4_DX_TOL)
-        line = (f"{what}: forward max abs err {fwd_err[0]:.3e} rel {fwd_err[1]:.3e} "
-                f"(tol {NF4_FWD_TOL}), dx {dx_err[0]:.3e} rel {dx_err[1]:.3e} (tol {NF4_DX_TOL})")
-        if not timed:
-            print(line)
-            return fwd_err[0], dx_err[0], None, None
-        fwd_ms = cuda_ms(lambda: nf4_matmul_forward(x, *args))
-        dx_ms = cuda_ms(lambda: nf4_matmul_dx(dy, *args))
-        fwd_plain = cuda_ms(lambda: nf4_matmul_reference(x, *args), warmup=1, iters=5)
-        dx_plain = cuda_ms(lambda: nf4_matmul_dx_reference(dy, *args), warmup=1, iters=5)
-        # yardstick only: one cuBLAS call on a bf16 weight dequantized
-        # beforehand; it does less work (no dequantization)
-        dense = quant.nf4.dequantize_4bit(packed, code, absmax, (n, k), 64, torch.bfloat16, split)
-        fwd_lib = cuda_ms(lambda: torch.nn.functional.linear(x, dense))
-        dx_lib = cuda_ms(lambda: torch.matmul(dy, dense))
-        same = (torch.equal(nf4_matmul_forward(x, *args), torch.nn.functional.linear(x, dense)),
-                torch.equal(nf4_matmul_dx(dy, *args), torch.matmul(dy, dense)))
-        weight_bytes = packed.numel() + absmax.numel() * 4 + code.numel() * 4
-        flops = 2 * m * n * k
-        fwd_bound = bound(x.numel() * 2 + weight_bytes + m * n * 2, flops)
-        dx_bound = bound(dy.numel() * 2 + weight_bytes + m * k * 2, flops)
-        print(line + f"; forward kernel {fwd_ms:.3f} ms ({flops / fwd_ms / 1e9:.1f} TFLOP/s), plain "
-              f"{fwd_plain:.3f} ms, F.linear on a bf16 weight {fwd_lib:.3f} ms, bound "
-              f"{fwd_bound[0]:.4f} ms ({fwd_bound[1]}); dx kernel {dx_ms:.3f} ms "
-              f"({flops / dx_ms / 1e9:.1f} TFLOP/s), plain {dx_plain:.3f} ms, matmul on a bf16 "
-              f"weight {dx_lib:.3f} ms, bound {dx_bound[0]:.4f} ms ({dx_bound[1]}); "
-              f"bit-identical to those cuBLAS calls: forward {same[0]}, dx {same[1]}")
-        return (fwd_err[0], dx_err[0],
-                dict(ms=fwd_ms, plain_ms=fwd_plain, bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
-                     library_ms=fwd_lib),
-                dict(ms=dx_ms, plain_ms=dx_plain, bound_ms=dx_bound[0], bound_by=dx_bound[1],
-                     library_ms=dx_lib))
-
-    fwd_errs, dx_errs, fwd_rows, dx_rows = [], [], [], []
-    for m, n, k in NF4_SHAPES:
-        # the split layout is the one the quantized model holds: it is timed
-        for split in (True, False):
-            fwd_err, dx_err, fwd_row, dx_row = nf4_case(m, n, k, "nf4", split, timed=split)
-            fwd_errs.append(fwd_err)
-            dx_errs.append(dx_err)
-            if split:
-                fwd_rows.append(fwd_row)
-                dx_rows.append(dx_row)
-    for split in (True, False):  # the other codebook, through the same kernels
-        fwd_err, dx_err, _, _ = nf4_case(908, 640, 2048, "fp4", split, timed=False)
-        fwd_errs.append(fwd_err)
-        dx_errs.append(dx_err)
-    records["nf4_matmul_forward"] = dict(
-        route="cuda", source="vision_ft_tpu_torch/csrc/nf4_matmul.cu",
-        replaces="vision_ft_tpu/ops/pallas/nf4_matmul.py:189",
-        max_abs_err=max(fwd_errs), **fwd_rows[0],
-    )
-    records["nf4_matmul_dx"] = dict(
-        route="cuda", source="vision_ft_tpu_torch/csrc/nf4_matmul.cu",
-        replaces="vision_ft_tpu/ops/pallas/nf4_matmul.py:214",
-        max_abs_err=max(dx_errs), **dx_rows[0],
-    )
+    records.update(kernel_d_phase(device, gen))
 
     phase(f"8 SDXL NF4 QLoRA train steps at full width, batch {TRAIN_BATCH} at {TRAIN_RES} px")
     from vision_ft_tpu_torch.nn import Linear, set_nf4_route
@@ -1196,7 +1259,12 @@ def main() -> None:
         raise AssertionError(f"NF4 train launch counts {nf4_train_launches} != {nf4_want(total)}")
 
     if options.profile:
-        profile_steps(lambda: run_steps(state, 1, seed=24), fused_ms)
+        kinds = profile_steps(lambda: run_steps(state, 1, seed=24), fused_ms)
+        kernel_d = {kind: kinds.get(kind, (0.0, 0)) for kind in
+                    ("kernel D forward", "kernel D dx", "kernel D split sum")}
+        print("kernel D in the traced NF4 step: "
+              + ", ".join(f"{kind[9:]} {ms:.2f} ms in {n} launches" for kind, (ms, n) in kernel_d.items())
+              + f"; {sum(ms for ms, _ in kernel_d.values()):.2f} ms in all")
         linear_host_cost(device)
 
     set_remat_saves("none")

@@ -302,8 +302,14 @@ def _nf4_weight(cuda, n, k, quant_type, split, seed=0):
         (4096, 1280, 1280, "nf4"),  # aligned
         (2048, 640, 5120, "nf4"),   # aligned, k % 256 != 0
         (908, 2048, 640, "nf4"),    # ragged m (4 x 227 text keys)
-        (154, 2048, 1280, "fp4"),   # ragged m (2 x 77), the other codebook
+        (154, 2048, 1280, "fp4"),   # ragged m (2 x 77), the other codebook; contraction split
         (1, 128, 128, "nf4"),       # a single row, a single tile
+        (300, 1280, 1280, "nf4"),   # ragged m: 2 tiles and 44 rows
+        (4097, 640, 1280, "fp4"),   # one row past 32 tiles
+        (2048, 640, 640, "nf4"),    # n = k = 640: a split-layout dx tile spans both nibble planes
+        (64, 640, 2560, "nf4"),     # few rows: dx split in 5 over n
+        (4100, 1280, 10240, "nf4"), # forward on 256-row items, the last one ragged
+        (2100, 5120, 640, "fp4"),   # dx on 256-row items, the last one ragged
     ],
 )
 def test_nf4_matmul_kernels_match_plain_on_card(cuda, m, k, n, quant_type, split):
@@ -325,6 +331,46 @@ def test_nf4_matmul_kernels_match_plain_on_card(cuda, m, k, n, quant_type, split
         assert torch.isfinite(got).all(), name
         err = (got.float() - want.float()).abs().max().item()
         assert err <= tol * want.float().abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [False, True], ids=["bnb", "split"])
+@pytest.mark.parametrize("m,k,n", [(300, 1280, 1280), (154, 2048, 1280), (4100, 1280, 10240)],
+                         ids=["whole", "parts", "256-row"])
+def test_nf4_matmul_kernels_rerun_bit_identical_on_card(cuda, m, k, n, split):
+    """No atomics and a fixed order of the fp32 sums, also where the
+    contraction is split into parts and on 256-row items: two calls give
+    the same bits."""
+    packed, code, absmax = _nf4_weight(cuda, n, k, "nf4", split, seed=4)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(m, k, device=cuda, generator=g).bfloat16()
+    dy = torch.randn(m, n, device=cuda, generator=g).bfloat16()
+    args = (packed, code, absmax, (n, k), 64, split)
+    for fn, a in ((nf4.nf4_matmul_forward, x), (nf4.nf4_matmul_dx, dy)):
+        first, again = fn(a, *args), fn(a, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again), fn.__name__
+
+
+@pytest.mark.cuda
+def test_nf4_wgmma_mn_form_one_tile_on_card(cuda):
+    """The wgmma form kernel D's dx takes from hopper_gemm.cuh on one 64 x
+    128 product: A (64 x 64) K-major and B (64 x 128, 128 contiguous) read
+    MN-major through the transpose bit, both from shared memory
+    (wgmma_m64n128k16_mn, desc_sw128_mn over two 64-column boxes). Small
+    integers: every product and sum is exact in fp32, so the result must
+    equal the float64 product."""
+    fn = _build.cuda_library("nf4_matmul").nf4_wgmma_mn_probe
+    fn.argtypes = [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    g = torch.Generator(device=cuda).manual_seed(7)
+    a = torch.randint(-3, 4, (64, 64), device=cuda, generator=g).bfloat16()
+    b = torch.randint(-3, 4, (64, 128), device=cuda, generator=g).bfloat16()
+    d = torch.empty(64, 128, device=cuda, dtype=torch.float32)
+    err = fn(a.data_ptr(), b.data_ptr(), d.data_ptr(), torch.cuda.current_stream(cuda).cuda_stream)
+    assert err == 0, f"CUDA error {err}"
+    torch.cuda.synchronize()
+    assert torch.equal(d.double(), a.double() @ b.double())
 
 
 @pytest.mark.cuda

@@ -149,6 +149,31 @@ def test_supports_contains_the_jax_contract():
     assert not fused.supports(0, 256, 128, 64)
 
 
+@pytest.mark.parametrize(
+    "m,k,n,dx,sms,want",
+    [
+        (4096, 1280, 1280, False, 132, 1),   # 320 tiles fill the card
+        (908, 2048, 1280, False, 132, 1),    # 80 tiles: two parts would leave SMs idle
+        (908, 2048, 640, False, 132, 3),     # 40 tiles, 16 steps
+        (154, 2048, 1280, False, 132, 4),    # 20 tiles, 16 steps: 4 a part at least
+        (154, 2048, 1280, True, 132, 2),     # dx: 32 tiles, 10 steps of 128 W rows
+        (64, 640, 640, True, 132, 1),        # 5 steps: too shallow to split
+        (64, 640, 2560, True, 132, 5),       # dx: 5 tiles, 20 steps
+        (154, 2048, 1280, False, 16, 1),     # a card with fewer SMs than tiles
+    ],
+)
+def test_contraction_splits(m, k, n, dx, sms, want):
+    """The kernels split the contraction only where their output tiles
+    leave SMs idle, and never below MIN_SPLIT_STAGES steps a part."""
+    stages = fused.contraction_stages(k, n, dx)
+    assert stages == (n if dx else k) // 128
+    p = k if dx else n
+    assert fused.contraction_splits(m, p, stages, sms) == want
+    tiles = -(-m // 128) * (p // 128)
+    assert want == 1 or want * tiles <= sms
+    assert want == 1 or stages // want >= fused.MIN_SPLIT_STAGES
+
+
 @pytest.mark.parametrize("split", [False, True], ids=["bnb", "split"])
 @pytest.mark.parametrize("m,k,n", SHAPES)
 def test_nf4_matmul_and_gradient_match_the_pallas_kernels(m, k, n, split):

@@ -1,9 +1,9 @@
 """Packed 4-bit (NF4 / FP4) matmul, forward and dx: wrappers and plain versions.
 
 Counterpart of ``vision_ft_tpu/ops/pallas/nf4_matmul.py``. The kernels are
-CUDA C++, ``csrc/nf4_matmul.cu`` (one template, a forward and a dx
-instance), built for ``sm_90a`` by ``ops/_build.py`` and bound with
-``ctypes``.
+CUDA C++, ``csrc/nf4_matmul.cu`` (one TMA + wgmma template whose B tile a
+warpgroup dequantizes into shared memory: a forward and a dx instance),
+built for ``sm_90a`` by ``ops/_build.py`` and bound with ``ctypes``.
 
 ``y = x @ dequant(W)^T`` with W (n, k) stored as ``packed`` ((n*k/2, 1) or
 (n, k/2) uint8 codes), ``absmax`` (one fp32 scale per ``blocksize``
@@ -19,7 +19,10 @@ columns j and k/2+j), which the JAX package's device trees carry.
   wrappers over 2-D inputs. For CPU tensors they return the plain versions.
   For CUDA tensors they launch their kernel or raise (bf16 and a shape
   :func:`supports` accepts, or a ``ValueError``). Each counts its launches
-  in its ``launches`` attribute.
+  in its ``launches`` attribute. Where the output has too few 128 x 128
+  tiles to fill the card, the kernel splits the contraction
+  (:func:`contraction_splits`) into fp32 partials that a second launch of
+  the same C call sums in split order.
 - :func:`nf4_matmul` takes ``x`` of any leading shape and is differentiable
   in ``x`` only: the quantized base is frozen, so ``packed``, ``absmax`` and
   ``code`` get no gradient.
@@ -75,6 +78,25 @@ def supports(m: int, k: int, n: int, blocksize: int) -> bool:
     return k % 128 == 0 and n % 128 == 0 and blocksize == 64 and m >= 1
 
 
+TILE = 128  # output rows and columns of a kernel work item
+MIN_SPLIT_STAGES = 4  # contraction stages a part keeps at least
+
+
+def contraction_stages(k: int, n: int, dx: bool) -> int:
+    """Contraction steps of one output tile: 128 columns of k a step
+    forward (64 packed bytes of each W row), 128 rows of W a step for dx."""
+    return (n if dx else k) // 128
+
+
+def contraction_splits(m: int, p: int, stages: int, sms: int) -> int:
+    """Parts the kernels cut the contraction into for an (m, p) output of
+    ``stages`` steps: enough that the (row tile, column tile, part) items
+    fill ``sms`` SMs, each part at least MIN_SPLIT_STAGES steps deep; 1
+    where the tiles alone fill the card."""
+    tiles = -(-m // TILE) * (p // TILE)
+    return max(1, min(sms // tiles, stages // MIN_SPLIT_STAGES))
+
+
 def _weight(packed, code, absmax, shape, blocksize, dtype, split):
     dtype = dtype if dtype in (torch.bfloat16, torch.float16) else torch.float32
     return dequantize_4bit(packed, code, absmax, shape, blocksize, dtype, split)
@@ -95,11 +117,21 @@ def nf4_matmul_dx_reference(dy, packed, code, absmax, shape, blocksize: int = 64
 
 @functools.cache
 def _kernels():
+    """The C entries: (forward, dx) and their split-contraction forms."""
     lib = _build.cuda_library("nf4_matmul")
     for fn in (lib.nf4_matmul_fwd, lib.nf4_matmul_dx):
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return lib.nf4_matmul_fwd, lib.nf4_matmul_dx
+    for fn in (lib.nf4_matmul_fwd_split, lib.nf4_matmul_dx_split):
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return ((lib.nf4_matmul_fwd, lib.nf4_matmul_dx),
+            (lib.nf4_matmul_fwd_split, lib.nf4_matmul_dx_split))
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(name, a, packed, code, absmax, shape, blocksize, width):
@@ -129,18 +161,23 @@ def _check(name, a, packed, code, absmax, shape, blocksize, width):
             )
         if t.data_ptr() % 16:
             raise ValueError(f"{label} must be 16-byte aligned")
-    if a.shape[0] > 65535 * 128:
-        raise ValueError("more rows than the kernel's grid takes")
 
 
 def _launch(which, index, a, packed, code, absmax, shape, split, out):
+    """Launch the forward (index 0) or dx (1) kernel into ``out``, split
+    over the contraction where :func:`contraction_splits` says."""
     n, k = shape
+    m, dx = a.shape[0], index == 1
+    splits = contraction_splits(m, out.shape[1], contraction_stages(k, n, dx), _sm_count(a.device))
+    tensors = [a.data_ptr(), packed.data_ptr(), absmax.data_ptr(), code.data_ptr(), out.data_ptr()]
     with torch.cuda.device(a.device):
-        err = _kernels()[index](
-            a.data_ptr(), packed.data_ptr(), absmax.data_ptr(), code.data_ptr(), out.data_ptr(),
-            a.shape[0], n, k, int(bool(split)),
-            torch.cuda.current_stream(a.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        if splits == 1:
+            err = _kernels()[0][index](*tensors, m, n, k, int(bool(split)), stream)
+        else:
+            partial = torch.empty(splits, *out.shape, device=a.device, dtype=torch.float32)
+            err = _kernels()[1][index](*tensors, partial.data_ptr(), splits, m, n, k,
+                                       int(bool(split)), stream)
     if err != 0:
         raise RuntimeError(f"nf4_matmul {which} launch failed: CUDA error {err}")
 

@@ -7,8 +7,10 @@ With --profile, phases 6 and 8 also trace two train steps with
 torch.profiler (device activity only) and print the device time of a step
 by kind of kernel and the share of an untraced step in which the card is
 idle, phase 8 the host's cost of one Linear call, dense and on each NF4
-route, phase 12 the same breakdown of one Lumina2 denoise step and phase
-14 of one Lumina2 train step. With --kernel-d, only phases 0, 7 and the
+route, phase 4 the same breakdown of the warm SDXL request (c) (kernel B's
+device ms on its own line), phase 12 of one Lumina2 denoise step and phase
+14 of one Lumina2 train step (kernel G's and E's device ms on their own
+lines). With --kernel-d, only phases 0, 7 and the
 build of kernel D's library run (no ok line).
 
 Phases, each printing its own lines; any failure exits non-zero:
@@ -20,7 +22,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    the sources in this checkout.
 2. kernel B, BSHD flash attention forward, against its plain PyTorch
    version in bf16 at the SDXL self-attention shapes of the requests
-   (aligned and ragged, batch 2) and of the train step (batch 4).
+   (aligned and ragged, batch 2) and of the train step (batch 4); reruns
+   bit-identical; TFLOP/s, share of the bound, the time a call over 10
+   calls back to back and the ratio to SDPA beside each time.
 3. kernel A, fused LayerNorm, the same way.
 4. SDXL generate() at full width (default DenoiserConfig, SDXL CLIP and
    VAE configs, bf16, seeded random weights made on the card, a small
@@ -76,7 +80,8 @@ Phases, each printing its own lines; any failure exits non-zero:
     plain backward at the Lumina2 train step's shapes (batch 4: the main
     stack's 4352 with the caption hole, the noise refiner's 4096, the
     context refiner's 256, the low-res main stack's 512), causal, head dims
-    64 and 128, Sq != Sk; reruns bit-identical; SDPA's backward beside it.
+    64 and 128, Sq != Sk; reruns bit-identical; each kernel's TFLOP/s and
+    share of its bound, and the whole backward against SDPA's backward.
 14. Lumina2 LoRA train steps at full width and depth on the same model:
     rank-16 LoRA on qkv, out, w1, w2, w3, gradient checkpointing, AdamW
     with clipping, batch 4 of 1024 px images and four captions of different
@@ -536,6 +541,13 @@ def profile_steps(run_step, unprofiled_ms: float, what: str = "train step") -> d
     return kinds
 
 
+def print_kernel_ms(kinds: dict, names, what: str) -> None:
+    """One line per kind of kernel in ``names``: its device ms in a traced ``what``."""
+    for name in names:
+        ms, count = kinds.get(name, (0.0, 0))
+        print(f"{name} in the traced {what}: {ms:.2f} ms in {count} launches")
+
+
 def linear_host_cost(device) -> None:
     """Host microseconds per call of one 1280 x 1280 Linear at 128 rows,
     where the card is never the limit: dense bf16, and NF4 on each route;
@@ -801,14 +813,22 @@ def main() -> None:
             lambda: flash_attention_bshd_reference(q, k, v, h), ATTN_TOL,
         )
         ms = cuda_ms(lambda: flash_attention_bshd(q, k, v, h))
+        back_to_back_ms = burst_ms(lambda: flash_attention_bshd(q, k, v, h))
         plain_ms = cuda_ms(lambda: flash_attention_bshd_reference(q, k, v, h), iters=5)
         heads = [sdpa_heads(t, h) for t in (q, k, v)]
         library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(*heads))
+        library_burst_ms = burst_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(*heads))
         flops = 4 * b * s * s * inner
         bound_ms, bound_by = bound(4 * b * s * inner * 2, flops)
+        assert_reruns(f"attention {(b, s, inner, h)}",
+                      lambda: flash_attention_bshd(q, k, v, h, return_lse=True))
         print(f"B={b} S={s} H={h} D={inner // h}: max abs err {abs_err:.3e} rel {rel_err:.3e} "
-              f"(tol {ATTN_TOL}); kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-              f"plain {plain_ms:.3f} ms, SDPA {library_ms:.3f} ms, "
+              f"(tol {ATTN_TOL}), reruns bit-identical; kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of the bound; "
+              f"{back_to_back_ms:.4f} ms a call over 10 back to back), "
+              f"plain {plain_ms:.3f} ms, SDPA {library_ms:.4f} ms (kernel {ms / library_ms:.2f}x; "
+              f"{library_burst_ms:.4f} ms back to back), "
               f"bound {bound_ms:.4f} ms ({bound_by})")
         errs.append(abs_err)
         rows.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -940,6 +960,10 @@ def main() -> None:
     with torch.inference_mode():
         unet_ms = cuda_ms(lambda: model.denoiser(*args), warmup=2, iters=5)
     print(f"UNet CFG forward at 1024x1024 (batch {b}): {unet_ms:.1f} ms")
+    if options.profile:
+        kinds = profile_steps(lambda: model.generate(num_inference_steps=STEPS, **requests[0][1]),
+                              bf16_request[0] * 1e3, "SDXL request (c)")
+        print_kernel_ms(kinds, ["kernel B"], "SDXL request (c)")
 
     phase("5 kernel C: BSHD flash attention backward (dk/dv kernel, dq kernel) vs plain (bf16)")
     errs, rows = {"dkv": [], "dq": []}, {"dkv": [], "dq": []}
@@ -1755,10 +1779,14 @@ def main() -> None:
         dkv_bound = bound(read + 2 * kv_bytes, 8 * h * d * pairs)
         dq_bound = bound(read + qo_bytes, 6 * h * d * pairs)
         print(f"{what}: " + ", ".join(f"{n} max abs err {a:.3e} rel {r:.3e}" for n, (a, r) in err.items())
-              + f" (tol {MASKED_BWD_TOL}), reruns bit-identical; dk/dv kernel {dkv_ms:.3f} ms "
-              f"({8 * h * d * pairs / dkv_ms / 1e9:.1f} TFLOP/s), dq kernel {dq_ms:.3f} ms "
-              f"({6 * h * d * pairs / dq_ms / 1e9:.1f} TFLOP/s), whole backward {whole_ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms, SDPA backward {library_ms:.3f} ms; bounds dk/dv "
+              + f" (tol {MASKED_BWD_TOL}), reruns bit-identical; dk/dv kernel {dkv_ms:.4f} ms "
+              f"({8 * h * d * pairs / dkv_ms / 1e9:.1f} TFLOP/s, "
+              f"{100 * dkv_bound[0] / dkv_ms:.1f}% of its bound), dq kernel {dq_ms:.4f} ms "
+              f"({6 * h * d * pairs / dq_ms / 1e9:.1f} TFLOP/s, {100 * dq_bound[0] / dq_ms:.1f}% of "
+              f"its bound), both {dkv_ms + dq_ms:.4f} ms "
+              f"({100 * (dkv_bound[0] + dq_bound[0]) / (dkv_ms + dq_ms):.1f}% of the bounds' sum), "
+              f"whole backward {whole_ms:.4f} ms ({whole_ms / library_ms:.2f}x SDPA's backward), "
+              f"plain {plain_ms:.3f} ms, SDPA backward {library_ms:.4f} ms; bounds dk/dv "
               f"{dkv_bound[0]:.4f} ms ({dkv_bound[1]}), dq {dq_bound[0]:.4f} ms ({dq_bound[1]})")
         errs["dkv"].append(max(err["dk"][0], err["dv"][0]))
         errs["dq"].append(err["dq"][0])
@@ -1897,8 +1925,9 @@ def main() -> None:
     if lumina_train_launches != want:
         raise AssertionError(f"Lumina2 train launch counts {lumina_train_launches} != {want}")
     if options.profile:
-        profile_steps(lambda: lumina_steps(state, 1, 44, train_batch), lumina_step_ms,
-                      "Lumina2 train step")
+        kinds = profile_steps(lambda: lumina_steps(state, 1, 44, train_batch), lumina_step_ms,
+                              "Lumina2 train step")
+        print_kernel_ms(kinds, ["kernel G dk/dv", "kernel G dq", "kernel E"], "Lumina2 train step")
 
     set_remat_saves("none")
     reset_launches()

@@ -96,7 +96,12 @@ BF16_GN_TOL, FP32_GN_TOL, BF16_CONV_TOL = 2e-2, 1e-5, 2e-2
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "b,s,sk,h,d",
-    [(2, 4096, 4096, 10, 64), (2, 988, 988, 20, 64), (1, 300, 77 * 4, 2, 128), (1, 1, 256, 2, 64)],
+    [
+        (2, 4096, 4096, 10, 64), (2, 988, 988, 20, 64), (1, 300, 77 * 4, 2, 128), (1, 1, 256, 2, 64),
+        (2, 333, 200, 3, 64),     # ragged sk < sq: keys past sk in the one 128-key tile
+        (2, 520, 1000, 2, 128),   # the other head dim, ragged 64-key tiles
+        (1, 129, 129, 2, 64),     # one row in the last 128-row q tile, one key in the last key tile
+    ],
 )
 def test_bshd_kernel_matches_plain_on_card(cuda, b, s, sk, h, d):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -112,6 +117,47 @@ def test_bshd_kernel_matches_plain_on_card(cuda, b, s, sk, h, d):
         "bqhd,bkhd->bhqk", q.float().unflatten(-1, (h, d)), k.float().unflatten(-1, (h, d))
     )
     torch.testing.assert_close(lse, torch.logsumexp(scores * d**-0.5, -1), atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_bshd_kernel_takes_strided_views_on_card(cuda, d):
+    """q, k and v as column slices of one wider (B, S, 3 H*D) tensor, its
+    batches padded apart: rows 3 H*D apart, read in place through the
+    tensor maps' row and batch strides."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    b, s, h = 2, 333, 3
+    qkv = torch.randn(b, s + 5, 3 * h * d, device=cuda, generator=g).bfloat16()[:, :s]
+    q, k, v = qkv.split(h * d, dim=-1)
+    assert q.stride(1) == 3 * h * d and q.stride(0) == (s + 5) * 3 * h * d
+    out, lse = flash_attention_bshd(q, k, v, h, return_lse=True)
+    want = flash_attention_bshd_reference(q.contiguous(), k.contiguous(), v.contiguous(), h)
+    torch.testing.assert_close(out.float(), want.float(), atol=BF16_ATTN_TOL, rtol=BF16_ATTN_TOL)
+    again, again_lse = flash_attention_bshd(q.contiguous(), k.contiguous(), v.contiguous(), h,
+                                            return_lse=True)
+    assert torch.equal(out, again) and torch.equal(lse, again_lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,sk,h,d", [(2, 4096, 4096, 10, 64), (1, 300, 520, 2, 128)])
+def test_bshd_kernel_reruns_bit_identical_on_card(cuda, b, s, sk, h, d):
+    """A fixed order of sums: a rerun gives the same bits, out and lse."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn(b, n, h * d, device=cuda, generator=g).bfloat16() for n in (s, sk, sk))
+    first, again = (flash_attention_bshd(q, k, v, h, return_lse=True) for _ in range(2))
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [-0.125, 0.0])
+def test_bshd_kernel_rejects_nonpositive_scale_on_card(cuda, scale):
+    """The kernel takes its running max on the raw scores, the max of the
+    scaled ones only for scale > 0: anything else raises, launching nothing."""
+    q = torch.randn(1, 128, 64, device=cuda).bfloat16()
+    before = flash_attention_bshd.launches
+    with pytest.raises(ValueError, match="scale > 0"):
+        flash_attention_bshd(q, q, q, 1, scale=scale)
+    assert flash_attention_bshd.launches == before
 
 
 def _check_bshd_backward(q, k, v, dout, h):
@@ -199,14 +245,17 @@ def _wgmma_forms_probe(a, b, n, register_a):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,register_a", [(64, True), (128, True), (64, False)],
-                         ids=["rs-n64-mn-major", "rs-n128-mn-major", "ss-n64-k-major"])
+@pytest.mark.parametrize("n,register_a", [(64, True), (96, True), (128, True), (64, False)],
+                         ids=["rs-n64-mn-major", "rs-n96-mn-major", "rs-n128-mn-major",
+                              "ss-n64-k-major"])
 def test_hopper_wgmma_forms_one_tile_on_card(cuda, n, register_a):
-    """Each wgmma form kernel C takes from hopper_gemm.cuh on one 64 x n
-    product: a 3-D tensor map's TMA load, A from registers through
+    """Each wgmma form kernels C and G take from hopper_gemm.cuh on one 64 x
+    n product: a 3-D tensor map's TMA load, A from registers through
     acc_to_a_fragments with B read MN-major (desc_sw128_mn, trans-b; at n =
-    128 across two boxes, the leading byte offset), and the shared-memory
-    m64n64k16 with both operands K-major. Small integers: every product and
+    128 across two boxes, the leading byte offset; at n = 96, kernel G's
+    head dim, the first half of the second box, whose last 32 columns TMA
+    filled with zeros), and the shared-memory m64n64k16 with both operands
+    K-major. Small integers: every product and
     sum is exact in fp32, so the result must equal the float64 product."""
     g = torch.Generator(device=cuda).manual_seed(5)
     a = torch.randint(-3, 4, (64, 64), device=cuda, generator=g).bfloat16()
@@ -541,6 +590,10 @@ def _masked_bwd_inputs(cuda, b, h, hk, sq, sk, d, kind, causal, seed=0):
     if kind == "empty_row":
         mask = torch.ones(b, sk, dtype=torch.bool, device=cuda)
         mask[-1] = False
+    elif kind == "wide_hole":  # whole 64- and 128-key tiles masked, and partial ones
+        mask = torch.ones(b, sk, dtype=torch.bool, device=cuda)
+        for i in range(b):
+            mask[i, 40 + 7 * i:min(sk, 340)] = False
     else:
         mask = _key_mask(cuda, kind, b, sk)
     out, lse = flash_attention_masked(q, k, v, mask, None, causal, return_lse=True)
@@ -560,6 +613,13 @@ def _masked_bwd_inputs(cuda, b, h, hk, sq, sk, d, kind, causal, seed=0):
         (1, 4, 2, 333, 333, 64, "hole", True),      # causal and masked, ragged
         (1, 4, 1, 200, 256, 128, None, False),      # one kv head, head dim 128
         (2, 4, 4, 320, 320, 64, "empty_row", False),  # a batch entry with every key masked
+        # ragged Sq and Sk (no multiple of 64 or 128) at each head dim and GQA
+        # repeats of 1, 3 and 4; holes over whole key tiles and partial ones
+        (1, 6, 2, 333, 461, 96, "wide_hole", False),   # repeats 3, key block [128, 256) masked whole
+        (2, 8, 2, 450, 200, 96, "wide_hole", False),   # repeats 4, sq > sk, the ragged last block masked whole
+        (2, 4, 1, 197, 331, 64, "wide_hole", False),   # repeats 4, D 64
+        (1, 3, 3, 129, 383, 128, "wide_hole", False),  # repeats 1, D 128
+        (2, 6, 2, 300, 300, 96, "wide_hole", True),    # causal + a hole over whole tiles: nothing skipped
     ],
 )
 def test_masked_backward_kernels_match_plain_on_card(cuda, b, h, hk, sq, sk, d, kind, causal):

@@ -1,4 +1,5 @@
-// BSHD flash attention forward for Hopper (sm_90a), CUDA C++.
+// BSHD flash attention forward for Hopper (sm_90a), CUDA C++: kernel B, a
+// warp-specialized TMA + wgmma kernel on hopper_gemm.cuh.
 //
 // Replaces vision_ft_tpu/ops/pallas/flash_attention.py::_fwd_kernel_bshd
 // (launched by _flash_fwd_bshd, entry flash_attention_bshd).
@@ -6,222 +7,307 @@
 // Computes, per batch b and head h, out = softmax(q k^T * scale) v, and
 // optionally lse = log(sum(exp(q k^T * scale))) in fp32 as (B, H, Sq),
 // straight from heads-packed (B, S, H*D) tensors: head h is the columns
-// [h*D, (h+1)*D) of each row, addressed through the row strides, so no
-// head transpose ever touches device memory. bf16 in and out; the running
-// max, running sum and output accumulator are fp32.
+// [h*D, (h+1)*D) of each row, addressed through the tensor maps' row and
+// batch strides, so no head transpose ever touches device memory. bf16 in
+// and out; the running max, running sum and output accumulator are fp32.
 //
-// What bounds it on an H100: the tensor cores. For SDXL self-attention
-// (D = 64, Sq = Sk = 1024 or 4096) the two matmuls do 4*Sq*Sk*D flops per
-// head against 4*S*D bytes of q/k/v/out traffic, hundreds of flops per
-// byte, above the card's balance point; the score matrix is the traffic a
-// naive kernel would add, and this kernel never writes it.
+// What bounds it on an H100: the tensor cores, with the exponentials close
+// behind. The two products do 4 Sq Sk D operations per head against 4 S D
+// bytes of q/k/v/out traffic, hundreds of operations per byte; at D = 64
+// the Sq Sk exponentials (16 a clock per SM) take as long as the products
+// at the tensor peak, so the softmax has to overlap the other warpgroup's
+// wgmma. The score matrix never leaves the registers.
 //
-// Design:
-//   - One thread block of 4 warps owns one (batch, head, 64-row q tile);
-//     each warp owns 16 q rows. A loop over 64-key tiles inside the block
-//     replaces the TPU kernel's sequential grid axis.
-//   - Q·K^T and P·V run on the tensor cores with bf16 mma.sync m16n8k16
-//     and fp32 accumulators. The q fragments stay in registers for the
-//     whole loop; the P fragments are built from the score accumulators
-//     in registers (FA2 layout), so P never leaves the warp.
-//   - K tiles are staged row-major and V tiles transposed in shared
-//     memory, so every mma operand is one 32-bit shared load.
-//   - Online softmax in the exp2 domain (scale folded with log2 e); each
-//     thread keeps partial row sums and the quad reduces them once at the
-//     end.
-//   - Ragged lengths are masked in the kernel: keys at or past sk score
-//     -inf (p = 0) and their V rows are staged as zeros, never read from
-//     memory; q rows at or past sq are neither read nor written.
+// Design (kernel C's dq kernel, flash_attention_bshd_bwd.cu, as a forward):
+//   - One block of 384 threads per (128-row q tile, head, batch): consumer
+//     warpgroups 0 and 1 own 64 q rows each; one thread of warpgroup 2
+//     produces with TMA; setmaxnreg moves registers to the consumers.
+//   - Q is loaded once by TMA through a 3-D map over (H*D, S, B); a ring of
+//     kStages stages streams K and V tiles of KN keys (KN = 128 at D = 64,
+//     64 at D = 128, where a 128-key ring would not fit shared memory).
+//   - S = Q K^T by wgmma m64nKNk16, both operands K-major; the online
+//     softmax runs on the accumulator in the exp2 domain (the row max taken
+//     on raw scores, scale * log2 e folded into one FMA before ex2.approx:
+//     so scale > 0, which the wrapper checks);
+//     O += P V takes P as register A fragments (acc_to_a_fragments) and
+//     reads V MN-major through the transpose bit. Per tile a warpgroup
+//     issues P V and, behind it, the next tile's S, then releases the stage
+//     once P V has completed; the two warpgroups' wgmma and exponentials
+//     interleave on the SM.
+//   - Ragged lengths: the 3-D maps zero-fill a tile that overhangs a
+//     batch's last row; keys at or past sk score -inf in the last tile, q
+//     rows at or past sq are never stored. The epilogue normalizes and
+//     stores O as bf16 pairs guarded by the row count, and lse (natural
+//     log) when asked: kernel C reads it.
 // Not carried over from the TPU kernel: lane-aligned two-head groups, the
 // V-ones row sum, the 8-sublane lse broadcast and the VFT_FLASH_* levers.
-// Left for later work: cp.async/TMA double buffering, wgmma, ldmatrix.
+// Tried and dropped (verdicts in PERF.md): 64-key tiles at D = 64, 2
+// stages, the next tile's softmax overlapped with this tile's P V inside a
+// warpgroup (with or without the wgmma on divergent paths that ptxas
+// serializes), a named-barrier ping-pong between the warpgroups, rescaling
+// O only where a row's max moved.
+// Left for later work: at D = 64 the Sq Sk exponentials alone (16 a clock
+// per SM) match the products' time at the tensor peak: moving some of them
+// to FMA polynomials; a persistent grid (the 1024-row shapes make 2.4
+// waves); the host's cost of a call (three tensor maps, the wrapper).
 
-#include "flash_attention_bshd.cuh"
+#include "hopper_gemm.cuh"
+
+#include <math.h>
 
 namespace {
 
-using namespace bshd;
+using namespace hopper;
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_bshd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                      float* __restrict__ lse, int sq, int sk, int num_heads,
-                      long long q_sb, long long q_ss, long long k_sb, long long k_ss,
-                      long long v_sb, long long v_ss, long long o_sb, long long o_ss,
-                      float scale_log2) {
-  constexpr int kLdK = D + kPad;        // sK[key][d]
-  constexpr int kLdV = kBlockK + kPad;  // sVt[d][key]
-  __shared__ __align__(16) __nv_bfloat16 sK[kBlockK * kLdK];
-  __shared__ __align__(16) __nv_bfloat16 sVt[D * kLdV];
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kBlockRows = 128;  // q rows a block owns, 64 per consumer warpgroup
+constexpr int kStages = 4;
+constexpr int kProducerThread = 256;  // lane 0 of warpgroup 2
 
-  const int q0 = blockIdx.x * kBlockQ;
+// Shared memory: Q (D / 64 boxes of 128 rows x 128 bytes), the ring (a
+// stage: K, then V, each D / 64 boxes of KN rows), the barriers.
+template <int D, int KN>
+struct Smem {
+  static constexpr int kBoxes = D / 64;
+  static constexpr int kQBytes = kBlockRows * D * 2;
+  static constexpr int kTileBytes = KN * D * 2;
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kBytes = 1024 + kQBytes + kStages * kStageBytes + (2 * kStages + 1) * 8;
+  uint8_t* q;
+  uint8_t* ring;
+  uint64_t* full;
+  uint64_t* empty;
+  uint64_t* loaded;  // Q
+  __device__ __forceinline__ explicit Smem(uint8_t* raw) {
+    q = align_1024(raw);
+    ring = q + kQBytes;
+    full = reinterpret_cast<uint64_t*>(ring + kStages * kStageBytes);
+    empty = full + kStages;
+    loaded = empty + kStages;
+  }
+  __device__ __forceinline__ uint8_t* stage(int s) const { return ring + s * kStageBytes; }
+};
+
+template <int D, int KN>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_bshd_kernel(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ o,
+                      float* __restrict__ lse, int sq, int sk, int num_heads, long long o_sb,
+                      long long o_ss, float scale_log2) {
+  using S = Smem<D, KN>;
+  extern __shared__ uint8_t smem_raw[];
+  const S sm(smem_raw);
+  const int q0 = blockIdx.x * kBlockRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;  // row within the 8-row mma group
-  const int t = lane % 4;  // column pair within the quad
+  const int num_kt = (sk + KN - 1) / KN;
 
-  const __nv_bfloat16* qh = q + b * q_sb + (long long)h * D;
-  const __nv_bfloat16* kh = k + b * k_sb + (long long)h * D;
-  const __nv_bfloat16* vh = v + b * v_sb + (long long)h * D;
-
-  // q tile -> shared (through the K buffer) -> A fragments in registers
-  stage_tile<D, true, false, kLdK, 0>(sK, nullptr, qh, q_ss, q0, sq);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kConsumerWarps);
+    }
+    mbar_init(sm.loaded, 1);
+    fence_barrier_init();
+  }
   __syncthreads();
-  uint32_t qf[D / 16][4];
-  load_a_fragments<D, kLdK>(qf, sK, warp, g, t);
 
-  float acc[D / 8][4];
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == kProducerThread) {
+      mbar_arrive_expect_tx(sm.loaded, S::kQBytes);
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m_lo = -INFINITY, m_hi = -INFINITY;  // rows g and g + 8, log2 domain
-  float l_lo = 0.f, l_hi = 0.f;              // this thread's partial row sums
-
-  const int num_kt = (sk + kBlockK - 1) / kBlockK;
-  for (int kt = 0; kt < num_kt; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();  // every warp is done with the previous tile
-    stage_tile<D, true, false, kLdK, 0>(sK, nullptr, kh, k_ss, k0, sk);
-    stage_tile<D, false, true, 0, kLdV>(nullptr, sVt, vh, v_ss, k0, sk);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float s[kBlockK / 8][4];
+      for (int box = 0; box < S::kBoxes; ++box) {
+        tma_load_3d(sm.q + box * kBlockRows * 128, &map_q, sm.loaded, h * D + 64 * box, q0, b);
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kt = 0; kt < num_kt; ++kt) {
+        mbar_wait(&sm.empty[stage], phase ^ 1u);
+        uint8_t* dst = sm.stage(stage);
+        mbar_arrive_expect_tx(&sm.full[stage], S::kStageBytes);
 #pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const __nv_bfloat16* kb = sK + (j * 8 + g) * kLdK + 2 * t;
+        for (int box = 0; box < S::kBoxes; ++box) {
+          tma_load_3d(dst + box * KN * 128, &map_k, &sm.full[stage], h * D + 64 * box, kt * KN, b);
+          tma_load_3d(dst + S::kTileBytes + box * KN * 128, &map_v, &sm.full[stage],
+                      h * D + 64 * box, kt * KN, b);
+        }
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    float o_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
+    // this thread's rows: row and row + 8 ("lo", "hi"); m is the raw
+    // scores' running max, l this thread's partial running sum
+    float m_lo = -INFINITY, m_hi = -INFINITY;
+    float l_lo = 0.f, l_hi = 0.f;
+    const uint64_t desc_q = desc_sw128(sm.q + wg * 64 * 128);
+    mbar_wait(sm.loaded, 0);
+
+    // S = Q K^T of the stage's K tile into s, committed as one group
+    float s[KN / 2];
+    auto issue_scores = [&](int st) {
+      const uint64_t desc_k = desc_sw128(sm.stage(st));
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        mma_16816(s[j], qf[kk], lds32(kb + kk * 16), lds32(kb + kk * 16 + 8));
+        wgmma_ss<KN>(s, desc_q + k_major_step<kBlockRows>(kk), desc_k + k_major_step<KN>(kk),
+                     kk > 0);
+      }
+      wgmma_commit();
+    };
+    // per tile: the softmax of S, O += P V issued, the next tile's S issued
+    // behind it; the stage is released once P V has completed
+    int stage = 0;
+    uint32_t phase = 0;
+    mbar_wait(&sm.full[0], 0);
+    wgmma_fence();
+    issue_scores(0);
+    wgmma_wait<0>();
+    fence_operands(s);
+    for (int kt = 0; kt < num_kt; ++kt) {
+      // keys at or past sk (zero-filled rows of the last tile) score -inf
+      const int k0 = kt * KN;
+      if (k0 + KN > sk) {
+#pragma unroll
+        for (int i = 0; i < KN / 2; ++i) {
+          if (k0 + 8 * (i / 4) + 2 * (lane % 4) + (i & 1) >= sk) s[i] = -INFINITY;
+        }
+      }
+      float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+      for (int j = 0; j < KN / 8; ++j) {
+        mx_lo = fmaxf(mx_lo, fmaxf(s[4 * j], s[4 * j + 1]));
+        mx_hi = fmaxf(mx_hi, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
+      // finite: key k0 < sk is in every tile; 0 on the first tile (m = -inf)
+      const float alpha_lo = ex2_approx((m_lo - mx_lo) * scale_log2);
+      const float alpha_hi = ex2_approx((m_hi - mx_hi) * scale_log2);
+      m_lo = mx_lo;
+      m_hi = mx_hi;
+      const float mb_lo = m_lo * scale_log2, mb_hi = m_hi * scale_log2;
+      float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+      for (int j = 0; j < KN / 8; ++j) {
+        s[4 * j] = ex2_approx(fmaf(s[4 * j], scale_log2, -mb_lo));
+        s[4 * j + 1] = ex2_approx(fmaf(s[4 * j + 1], scale_log2, -mb_lo));
+        s[4 * j + 2] = ex2_approx(fmaf(s[4 * j + 2], scale_log2, -mb_hi));
+        s[4 * j + 3] = ex2_approx(fmaf(s[4 * j + 3], scale_log2, -mb_hi));
+        sum_lo += s[4 * j] + s[4 * j + 1];
+        sum_hi += s[4 * j + 2] + s[4 * j + 3];
+      }
+      l_lo = l_lo * alpha_lo + sum_lo;
+      l_hi = l_hi * alpha_hi + sum_hi;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o_acc[i] *= (i % 4 < 2) ? alpha_lo : alpha_hi;
+      uint32_t p_frag[KN / 16][4];
+      acc_to_a_fragments<KN>(p_frag, s);
+      wgmma_fence();
+      mma_rs_mn<D, KN / 16>(o_acc, p_frag, sm.stage(stage) + S::kTileBytes, KN * 128);  // O += P V
+      wgmma_commit();
+      const int current = stage;
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1u;
+      }
+      if (kt + 1 < num_kt) {
+        mbar_wait(&sm.full[stage], phase);
+        issue_scores(stage);
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();
+      }
+      fence_operands(o_acc);
+      if (lane == 0) mbar_arrive(&sm.empty[current]);
+      wgmma_wait<0>();
+      fence_operands(s);
+    }
+
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
+    const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f);
+    const float inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
+    const int row = q0 + 64 * wg + 16 * (t / 32) + lane / 4;
+    __nv_bfloat16* lo = o + b * o_sb + (long long)row * o_ss + h * D + 2 * (lane % 4);
+    __nv_bfloat16* hi = lo + 8 * o_ss;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      if (row < sq) {
+        *reinterpret_cast<uint32_t*>(lo + 8 * j) =
+            pack_bf16x2(o_acc[4 * j] * inv_lo, o_acc[4 * j + 1] * inv_lo);
+      }
+      if (row + 8 < sq) {
+        *reinterpret_cast<uint32_t*>(hi + 8 * j) =
+            pack_bf16x2(o_acc[4 * j + 2] * inv_hi, o_acc[4 * j + 3] * inv_hi);
       }
     }
-
-    // scale, mask ragged keys, running max
-    float mx_lo = -INFINITY, mx_hi = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
-      const int key = k0 + j * 8 + 2 * t;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool valid = key + (e & 1) < sk;
-        s[j][e] = valid ? s[j][e] * scale_log2 : -INFINITY;
-      }
-      mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
-    }
-    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
-    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
-    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
-    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
-    const float mn_lo = fmaxf(m_lo, mx_lo);  // finite: key k0 is always valid
-    const float mn_hi = fmaxf(m_hi, mx_hi);
-    const float alpha_lo = exp2f(m_lo - mn_lo);
-    const float alpha_hi = exp2f(m_hi - mn_hi);
-    m_lo = mn_lo;
-    m_hi = mn_hi;
-
-    float sum_lo = 0.f, sum_hi = 0.f;
-#pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
-      s[j][0] = exp2f(s[j][0] - mn_lo);
-      s[j][1] = exp2f(s[j][1] - mn_lo);
-      s[j][2] = exp2f(s[j][2] - mn_hi);
-      s[j][3] = exp2f(s[j][3] - mn_hi);
-      sum_lo += s[j][0] + s[j][1];
-      sum_hi += s[j][2] + s[j][3];
-    }
-    l_lo = l_lo * alpha_lo + sum_lo;
-    l_hi = l_hi * alpha_hi + sum_hi;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= alpha_lo;
-      acc[n][1] *= alpha_lo;
-      acc[n][2] *= alpha_hi;
-      acc[n][3] *= alpha_hi;
-    }
-
-    // O += P V: the score accumulators of key tiles 2kk and 2kk+1 are the
-    // A fragment of one 16-key step
-#pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      uint32_t pf[4];
-      pf[0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
-      pf[1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
-      pf[2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pf[3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const __nv_bfloat16* vb = sVt + (n * 8 + g) * kLdV + kk * 16 + 2 * t;
-        mma_16816(acc[n], pf, lds32(vb), lds32(vb + 8));
-      }
+    if (lse != nullptr && lane % 4 == 0) {
+      const float ln2 = 0.69314718055994531f;
+      float* lh = lse + ((long long)b * num_heads + h) * sq;
+      if (row < sq) lh[row] = (m_lo * scale_log2 + log2f(fmaxf(l_lo, 1e-30f))) * ln2;
+      if (row + 8 < sq) lh[row + 8] = (m_hi * scale_log2 + log2f(fmaxf(l_hi, 1e-30f))) * ln2;
     }
   }
+}
 
-  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
-  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
-  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
-  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
-  const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f);
-  const float inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
-
-  const int row_lo = q0 + warp * 16 + g;
-  const int row_hi = row_lo + 8;
-  __nv_bfloat16* oh = o + b * o_sb + (long long)h * D + 2 * t;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    if (row_lo < sq) {
-      *reinterpret_cast<uint32_t*>(oh + (long long)row_lo * o_ss + n * 8) =
-          pack_bf16x2(acc[n][0] * inv_lo, acc[n][1] * inv_lo);
-    }
-    if (row_hi < sq) {
-      *reinterpret_cast<uint32_t*>(oh + (long long)row_hi * o_ss + n * 8) =
-          pack_bf16x2(acc[n][2] * inv_hi, acc[n][3] * inv_hi);
-    }
-  }
-  if (lse != nullptr && t == 0) {
-    const float ln2 = 0.69314718055994531f;
-    float* lh = lse + ((long long)b * num_heads + h) * sq;
-    if (row_lo < sq) lh[row_lo] = (m_lo + log2f(fmaxf(l_lo, 1e-30f))) * ln2;
-    if (row_hi < sq) lh[row_hi] = (m_hi + log2f(fmaxf(l_hi, 1e-30f))) * ln2;
-  }
+template <int D, int KN>
+int launch(const void* q, const void* k, const void* v, __nv_bfloat16* o, float* lse, int batch,
+           int sq, int sk, int num_heads, long long q_sb, long long q_ss, long long k_sb,
+           long long k_ss, long long v_sb, long long v_ss, long long o_sb, long long o_ss,
+           float scale_log2, cudaStream_t stream) {
+  const uint64_t cols = static_cast<uint64_t>(num_heads) * D;
+  CUtensorMap map_q, map_k, map_v;
+  int err = make_map_3d(&map_q, q, batch, sq, cols, q_sb, q_ss, kBlockRows);
+  if (!err) err = make_map_3d(&map_k, k, batch, sk, cols, k_sb, k_ss, KN);
+  if (!err) err = make_map_3d(&map_v, v, batch, sk, cols, v_sb, v_ss, KN);
+  if (!err) err = allow_dynamic_smem<flash_fwd_bshd_kernel<D, KN>>(Smem<D, KN>::kBytes);
+  if (err) return err;
+  const dim3 grid((sq + kBlockRows - 1) / kBlockRows, num_heads, batch);
+  flash_fwd_bshd_kernel<D, KN><<<grid, kThreads, Smem<D, KN>::kBytes, stream>>>(
+      map_q, map_k, map_v, o, lse, sq, sk, num_heads, o_sb, o_ss, scale_log2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // C entry, bound with ctypes. Strides are in elements; the last dimension
-// is contiguous and every row and head offset is 16-byte aligned (the
-// wrapper checks both). `lse` may be null. Launches on `stream` and
-// returns cudaGetLastError().
+// is contiguous and every row and batch stride and base is 16-byte aligned
+// (the wrapper checks all three). `lse` may be null. Launches on `stream`
+// and returns the first error: of the tensor maps' encoding, of the
+// shared-memory attribute, or cudaGetLastError() after the launch.
 extern "C" int flash_attention_bshd_fwd(const void* q, const void* k, const void* v, void* o,
                                         void* lse, int batch, int sq, int sk, int num_heads,
                                         int head_dim, long long q_sb, long long q_ss,
                                         long long k_sb, long long k_ss, long long v_sb,
                                         long long v_ss, long long o_sb, long long o_ss,
                                         float scale, void* stream) {
-  const dim3 grid((sq + kBlockQ - 1) / kBlockQ, num_heads, batch);
-  const float scale_log2 = scale * 1.4426950408889634f;
+  const float scale_log2 = scale * kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* qb = static_cast<const __nv_bfloat16*>(q);
-  const auto* kb = static_cast<const __nv_bfloat16*>(k);
-  const auto* vb = static_cast<const __nv_bfloat16*>(v);
   auto* ob = static_cast<__nv_bfloat16*>(o);
   auto* lb = static_cast<float*>(lse);
   switch (head_dim) {
     case 64:
-      flash_fwd_bshd_kernel<64><<<grid, kThreads, 0, s>>>(
-          qb, kb, vb, ob, lb, sq, sk, num_heads, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb,
-          o_ss, scale_log2);
-      break;
+      return launch<64, 128>(q, k, v, ob, lb, batch, sq, sk, num_heads, q_sb, q_ss, k_sb, k_ss,
+                             v_sb, v_ss, o_sb, o_ss, scale_log2, s);
     case 128:
-      flash_fwd_bshd_kernel<128><<<grid, kThreads, 0, s>>>(
-          qb, kb, vb, ob, lb, sq, sk, num_heads, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb,
-          o_ss, scale_log2);
-      break;
+      return launch<128, 64>(q, k, v, ob, lb, batch, sq, sk, num_heads, q_sb, q_ss, k_sb, k_ss,
+                             v_sb, v_ss, o_sb, o_ss, scale_log2, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

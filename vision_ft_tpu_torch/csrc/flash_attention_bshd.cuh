@@ -1,7 +1,7 @@
-// Shared device helpers of the BSHD flash attention kernels (forward:
-// flash_attention_bshd.cu, backward: flash_attention_bshd_bwd.cu): tile
-// sizes, the bf16 mma.sync wrapper and the shared-memory staging of one
-// head's 64-row tile out of a heads-packed (B, S, H*D) tensor.
+// Shared device helpers of the mma.sync attention kernels (kernel E,
+// flash_attention_masked.cu; kernels H and I, flash_attention_shortk.cu):
+// tile sizes, the bf16 mma.sync wrapper and the shared-memory staging of
+// one head's 64-row tile out of a strided tensor.
 
 #pragma once
 

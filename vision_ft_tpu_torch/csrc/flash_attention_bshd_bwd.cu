@@ -60,8 +60,10 @@
 //     the MN-major ones span both boxes through their leading byte offset.
 //   - exp runs as ex2.approx with log2(e) folded into the scale and into lse.
 // Left for later work: persistent blocks, TMA stores of the gradients; at
-// D = 128 the dk/dv consumers need more than their 232 registers (two 64 x
-// 128 accumulators), so ptxas spills there and serializes the wgmma.
+// D = 128 the dk/dv consumers need more than the 168 registers a thread of
+// a 384-thread block is compiled for (two 64 x 128 accumulators; ptxas does
+// not grow them for setmaxnreg), so ptxas spills there and serializes the
+// wgmma (kernel G's D > 64 path shows one way round it).
 //
 // hopper_wgmma_forms_probe (a test entry, on no model path) holds each
 // wgmma form this file takes from hopper_gemm.cuh to one 64 x N product.
@@ -80,12 +82,6 @@ constexpr int kStepRows = 64;     // q rows (dk/dv) or keys (dq) of a streamed t
 constexpr int kRingStages = 3;
 constexpr int kBoxBytes = 64 * 128;  // 64 rows of one 64-column box
 constexpr int kProducerThread = 256;  // lane 0 of the producer warp
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // Shared memory of both kernels: two resident tensors of 128 rows x D (K
 // and V, or Q and dO), each D / 64 boxes of 128 rows; the ring, a stage
@@ -175,52 +171,16 @@ __device__ __forceinline__ void load_stats(float (&v)[4], const float* lse_h,
   }
 }
 
-// Descriptor steps over D for K step kk (16 columns): within a box 32 bytes,
-// then the next box (resident boxes hold 128 rows, streamed ones 64).
-__device__ __forceinline__ uint64_t resident_k_step(int kk) {
-  return (kk / 4) * (2 * kBoxBytes >> 4) + 2 * (kk % 4);
-}
-__device__ __forceinline__ uint64_t stream_k_step(int kk) {
-  return (kk / 4) * (kBoxBytes >> 4) + 2 * (kk % 4);
-}
-
 // x (64 x 64, fp32) = A B^T over D for this warpgroup's 64 resident rows (A)
 // and a streamed 64-row tile (B), both K-major; committed as one group.
 template <int D>
 __device__ __forceinline__ void scores(float (&x)[32], uint64_t desc_a, uint64_t desc_b) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    wgmma_m64n64k16(x, desc_a + resident_k_step(kk), desc_b + stream_k_step(kk), kk > 0);
+    wgmma_m64n64k16(x, desc_a + k_major_step<kBlockRows>(kk), desc_b + k_major_step<kStepRows>(kk),
+                    kk > 0);
   }
   wgmma_commit();
-}
-
-// acc (64 x D) += A (64 x 64, four A fragments) times the streamed 64-row
-// tile at `tile`, read MN-major.
-template <int D>
-__device__ __forceinline__ void accumulate(float (&acc)[D / 2], const uint32_t (&a)[4][4],
-                                           const uint8_t* tile) {
-  const uint64_t desc = desc_sw128_mn(tile, kBoxBytes);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(acc, a[kk], desc + 128 * kk, 1);
-}
-
-// Stores rows `row` and `row + 8` (those below `rows`) of a 64 x D
-// accumulator slice this thread holds, as bf16 pairs from column 2 (lane % 4).
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long long row_stride,
-                                           const float (&acc)[D / 2], int row, int rows) {
-  __nv_bfloat16* lo = dst + (long long)row * row_stride;
-  __nv_bfloat16* hi = lo + 8 * row_stride;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    if (row < rows) {
-      *reinterpret_cast<uint32_t*>(lo + 8 * j) = pack_bf16x2(acc[4 * j], acc[4 * j + 1]);
-    }
-    if (row + 8 < rows) {
-      *reinterpret_cast<uint32_t*>(hi + 8 * j) = pack_bf16x2(acc[4 * j + 2], acc[4 * j + 3]);
-    }
-  }
 }
 
 template <int D>
@@ -307,10 +267,10 @@ flash_bwd_dkv_bshd_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const float2 l = *reinterpret_cast<const float2*>(stats + 8 * j + 2 * (lane % 4));
-        p[4 * j] = exp2_approx(fmaf(s[4 * j], scale_log2, -l.x));
-        p[4 * j + 1] = exp2_approx(fmaf(s[4 * j + 1], scale_log2, -l.y));
-        p[4 * j + 2] = exp2_approx(fmaf(s[4 * j + 2], scale_log2, -l.x));
-        p[4 * j + 3] = exp2_approx(fmaf(s[4 * j + 3], scale_log2, -l.y));
+        p[4 * j] = ex2_approx(fmaf(s[4 * j], scale_log2, -l.x));
+        p[4 * j + 1] = ex2_approx(fmaf(s[4 * j + 1], scale_log2, -l.y));
+        p[4 * j + 2] = ex2_approx(fmaf(s[4 * j + 2], scale_log2, -l.x));
+        p[4 * j + 3] = ex2_approx(fmaf(s[4 * j + 3], scale_log2, -l.y));
       }
       wgmma_wait<0>();
       fence_operands(dp);
@@ -328,8 +288,8 @@ flash_bwd_dkv_bshd_kernel(const __grid_constant__ CUtensorMap map_q,
       acc_to_a_fragments<64>(ds_frag, ds);
 
       wgmma_fence();
-      accumulate<D>(dv_acc, p_frag, tile_do);  // dV += P^T dO
-      accumulate<D>(dk_acc, ds_frag, tile_q);  // dK += dS^T Q
+      mma_rs_mn<D, 4>(dv_acc, p_frag, tile_do, kBoxBytes);  // dV += P^T dO
+      mma_rs_mn<D, 4>(dk_acc, ds_frag, tile_q, kBoxBytes);  // dK += dS^T Q
       wgmma_commit();
       wgmma_wait<0>();
       fence_operands(dv_acc);
@@ -343,8 +303,8 @@ flash_bwd_dkv_bshd_kernel(const __grid_constant__ CUtensorMap map_q,
 
     const int key = k0 + 64 * wg + 16 * (t / 32) + lane / 4;
     const int col = h * D + 2 * (lane % 4);
-    store_rows<D>(dk + b * dk_sb + col, dk_ss, dk_acc, key, sk);
-    store_rows<D>(dv + b * dv_sb + col, dv_ss, dv_acc, key, sk);
+    store_acc_rows<D>(dk + b * dk_sb + col, dk_ss, dk_acc, key, sk);
+    store_acc_rows<D>(dv + b * dv_sb + col, dv_ss, dv_acc, key, sk);
   }
 }
 
@@ -422,7 +382,7 @@ flash_bwd_dq_bshd_kernel(const __grid_constant__ CUtensorMap map_q,
       for (int j = 0; j < 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float x = exp2_approx(fmaf(s[4 * j + e], scale_log2, e < 2 ? -lse_lo : -lse_hi));
+          const float x = ex2_approx(fmaf(s[4 * j + e], scale_log2, e < 2 ? -lse_lo : -lse_hi));
           p[4 * j + e] = ragged && k0 + 8 * j + 2 * (lane % 4) + (e & 1) >= sk ? 0.f : x;
         }
       }
@@ -439,7 +399,7 @@ flash_bwd_dq_bshd_kernel(const __grid_constant__ CUtensorMap map_q,
       acc_to_a_fragments<64>(ds_frag, ds);
 
       wgmma_fence();
-      accumulate<D>(dq_acc, ds_frag, tile_k);  // dQ += dS K
+      mma_rs_mn<D, 4>(dq_acc, ds_frag, tile_k, kBoxBytes);  // dQ += dS K
       wgmma_commit();
       wgmma_wait<0>();
       fence_operands(dq_acc);
@@ -450,21 +410,8 @@ flash_bwd_dq_bshd_kernel(const __grid_constant__ CUtensorMap map_q,
       }
     }
 
-    store_rows<D>(dq + b * dq_sb + h * D + 2 * (lane % 4), dq_ss, dq_acc, row, sq);
+    store_acc_rows<D>(dq + b * dq_sb + h * D + 2 * (lane % 4), dq_ss, dq_acc, row, sq);
   }
-}
-
-// Lets KERNEL use `bytes` of dynamic shared memory: once per device.
-template <auto KERNEL>
-int prepare(int bytes) {
-  static bool done[64] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess && (device >= 64 || !done[device])) {
-    err = cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err == cudaSuccess && device < 64) done[device] = true;
-  }
-  return static_cast<int>(err);
 }
 
 // The four tensor maps of one launch: q and dO over sq rows in boxes of
@@ -489,7 +436,7 @@ int launch_dkv(const Maps& maps, const float* lse, const float* delta, __nv_bflo
                __nv_bfloat16* dv, int batch, int sq, int sk, int num_heads, long long dk_sb,
                long long dk_ss, long long dv_sb, long long dv_ss, float scale,
                cudaStream_t stream) {
-  const int err = prepare<flash_bwd_dkv_bshd_kernel<D>>(Smem<D>::kBytes);
+  const int err = allow_dynamic_smem<flash_bwd_dkv_bshd_kernel<D>>(Smem<D>::kBytes);
   if (err) return err;
   const dim3 grid((sk + kBlockRows - 1) / kBlockRows, num_heads, batch);
   flash_bwd_dkv_bshd_kernel<D><<<grid, kThreads, Smem<D>::kBytes, stream>>>(
@@ -502,7 +449,7 @@ template <int D>
 int launch_dq(const Maps& maps, const float* lse, const float* delta, __nv_bfloat16* dq,
               int batch, int sq, int sk, int num_heads, long long dq_sb, long long dq_ss,
               float scale, cudaStream_t stream) {
-  const int err = prepare<flash_bwd_dq_bshd_kernel<D>>(Smem<D>::kBytes);
+  const int err = allow_dynamic_smem<flash_bwd_dq_bshd_kernel<D>>(Smem<D>::kBytes);
   if (err) return err;
   const dim3 grid((sq + kBlockRows - 1) / kBlockRows, num_heads, batch);
   flash_bwd_dq_bshd_kernel<D><<<grid, kThreads, Smem<D>::kBytes, stream>>>(
@@ -513,7 +460,9 @@ int launch_dq(const Maps& maps, const float* lse, const float* delta, __nv_bfloa
 // The probe: one warpgroup, d (64 x N, fp32) = a b. REGISTER_A: a (64 x 64)
 // read from device memory into accumulator layout, rounded by
 // acc_to_a_fragments into register A fragments, b (64 x N, N contiguous)
-// loaded by TMA through a 3-D map and read MN-major (wgmma_rs, trans-b).
+// loaded by TMA through a 3-D map and read MN-major (wgmma_rs, trans-b; at
+// N = 96 the second box's last 32 columns are TMA's zeros, as kernel G's
+// head dim 96 has them).
 // Otherwise (N = 64): a (64 x 64) and b^T (N x 64) both K-major by TMA, the
 // shared-memory wgmma_m64n64k16 (d = a b^T).
 template <int N, bool REGISTER_A>
@@ -531,9 +480,10 @@ hopper_wgmma_forms_probe_kernel(const __grid_constant__ CUtensorMap map_a,
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    mbar_arrive_expect_tx(bar, (REGISTER_A ? 0 : kBoxBytes) + N / 64 * kBoxBytes);
+    constexpr int kBoxesB = (N + 63) / 64;
+    mbar_arrive_expect_tx(bar, (REGISTER_A ? 0 : kBoxBytes) + kBoxesB * kBoxBytes);
     if (!REGISTER_A) tma_load_3d(tile_a, &map_a, bar, 0, 0, 0);
-    for (int box = 0; box < N / 64; ++box) tma_load_3d(tile_b + box * kBoxBytes, &map_b, bar, 64 * box, 0, 0);
+    for (int box = 0; box < kBoxesB; ++box) tma_load_3d(tile_b + box * kBoxBytes, &map_b, bar, 64 * box, 0, 0);
   }
   mbar_wait(bar, 0);
   const int lane = threadIdx.x % 32;
@@ -552,7 +502,7 @@ hopper_wgmma_forms_probe_kernel(const __grid_constant__ CUtensorMap map_a,
     uint32_t frag[4][4];
     acc_to_a_fragments<64>(frag, a_acc);
     wgmma_fence();
-    accumulate<N>(acc, frag, tile_b);
+    mma_rs_mn<N, 4>(acc, frag, tile_b, kBoxBytes);
   } else {
     static_assert(REGISTER_A || N == 64, "the shared-memory form is m64n64k16");
     wgmma_fence();
@@ -625,11 +575,13 @@ extern "C" int flash_attention_bshd_bwd_dq(
 }
 
 // The probe (a test entry): a (64, 64) and b bf16, contiguous, 16-byte
-// aligned; d (64, n) fp32. register_a: b is (64, n), n = 64 or 128, d = a b;
-// else b is (64, 64) and d = a b^T.
+// aligned; d (64, n) fp32. register_a: b is (64, n), n = 64, 96 or 128,
+// d = a b; else b is (64, 64) and d = a b^T.
 extern "C" int hopper_wgmma_forms_probe(const void* a, const void* b, void* d, int n,
                                         int register_a, void* stream) {
-  if (register_a ? (n != 64 && n != 128) : n != 64) return static_cast<int>(cudaErrorInvalidValue);
+  if (register_a ? (n != 64 && n != 96 && n != 128) : n != 64) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   CUtensorMap map_a, map_b;
   int err = make_map_3d(&map_a, a, 1, 64, 64, 64 * 64, 64, 64);
   if (!err) err = make_map_3d(&map_b, b, 1, 64, n, 64LL * n, n, 64);
@@ -642,6 +594,8 @@ extern "C" int hopper_wgmma_forms_probe(const void* a, const void* b, void* d, i
     hopper_wgmma_forms_probe_kernel<64, false><<<1, 128, smem, s>>>(map_a, map_b, ab, df);
   } else if (n == 64) {
     hopper_wgmma_forms_probe_kernel<64, true><<<1, 128, smem, s>>>(map_a, map_b, ab, df);
+  } else if (n == 96) {
+    hopper_wgmma_forms_probe_kernel<96, true><<<1, 128, smem, s>>>(map_a, map_b, ab, df);
   } else {
     hopper_wgmma_forms_probe_kernel<128, true><<<1, 128, smem, s>>>(map_a, map_b, ab, df);
   }

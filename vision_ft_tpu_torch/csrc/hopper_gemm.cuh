@@ -1,14 +1,17 @@
 // Shared pieces of the port's Hopper (sm_90a) GEMM pipelines: TMA tensor maps
-// (host; 2-D, and 3-D for a batch of strided matrices), mbarriers, TMA loads
-// and stores, wgmma descriptors (K-major, and MN-major for a B operand read
-// through the transpose bit) and instructions (A from shared memory, or A
-// from registers: an fp32 accumulator rounded into bf16 A fragments), and
-// a warp-specialized TN main loop. csrc/flash_attention_bshd_bwd.cu uses
-// the 3-D maps, the MN-major descriptor and the register-A forms, and holds
-// each to one 64 x N product on the card (hopper_wgmma_forms_probe);
-// csrc/nf4_matmul.cu uses the shared-memory-A form with an MN-major B
-// (wgmma_m64n128k16_mn, held to one product by nf4_wgmma_mn_probe) and
-// sw128_offset for B tiles written with st.shared.
+// (host; 2-D, 3-D for a batch of strided matrices, 4-D for a strided
+// (B, H, S, C) view), mbarriers, TMA loads and stores, wgmma descriptors
+// (K-major, and MN-major for a B operand read through the transpose bit)
+// and instructions (A from shared memory, or A from registers: an fp32
+// accumulator rounded into bf16 A fragments, at N = 64, 96 and 128), and a
+// warp-specialized TN main loop. The attention kernels B, C and G
+// (csrc/flash_attention_bshd.cu, _bshd_bwd.cu, _masked_bwd.cu) use the 3-D
+// or 4-D maps, the MN-major descriptor and the register-A forms;
+// csrc/flash_attention_bshd_bwd.cu holds each of those forms to one 64 x N
+// product on the card (hopper_wgmma_forms_probe); csrc/nf4_matmul.cu uses
+// the shared-memory-A form with an MN-major B (wgmma_m64n128k16_mn, held to
+// one product by nf4_wgmma_mn_probe) and sw128_offset for B tiles written
+// with st.shared.
 //
 // The main loop's shape (used by csrc/fused_mlp.cu):
 //   - one block of 384 threads: warpgroups 0 and 1 consume (wgmma), one
@@ -112,6 +115,44 @@ inline int make_map_3d(CUtensorMap* map, const void* base, uint64_t batches, uin
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
+// A 4-D tensor map over a bf16 (B, H, S, C) tensor whose batches, heads and
+// rows are `batch_stride`, `head_stride` and `row_stride` elements apart
+// (multiples of 8, in any order; columns contiguous), e.g. one head-split
+// view of a fused (B, S, 3, H, C) projection. Boxes of 64 columns x
+// box_rows rows of one (batch, head) matrix, 128-byte swizzle. A box that
+// overhangs the matrix's last row or column reads zeros there (at C = 96,
+// the second box's last 32 columns), never the neighbours' elements; stores
+// drop them. Coordinates: (column, row, head, batch). Returns 0 or a
+// cudaError_t.
+inline int make_map_4d(CUtensorMap* map, const void* base, uint64_t batches, uint64_t heads,
+                       uint64_t rows, uint64_t cols, uint64_t batch_stride, uint64_t head_stride,
+                       uint64_t row_stride, uint32_t box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {cols, rows, heads, batches};
+  const cuuint64_t strides[3] = {row_stride * 2, head_stride * 2, batch_stride * 2};
+  const cuuint32_t box[4] = {64, box_rows, 1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+      elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Lets KERNEL use `bytes` of dynamic shared memory: once per device.
+template <auto KERNEL>
+int allow_dynamic_smem(int bytes) {
+  static bool done[64] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess && (device >= 64 || !done[device])) {
+    err = cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess && device < 64) done[device] = true;
+  }
+  return static_cast<int>(err);
+}
+
 // ---------------------------------------------------------------- device
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -188,6 +229,25 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// One box of a 4-D tensor map at (column c0, row c1, head c2, batch c3).
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// 2^x by the special function unit (ex2.approx, denormals flushed): exactly
+// 1 at x = 0 and 0 at x = -inf.
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // One box from shared memory to (column c0, row c1) of a 2-D tensor map.
@@ -269,6 +329,25 @@ __device__ __forceinline__ void acc_to_a_fragments(uint32_t (&a)[N / 16][4],
   for (int kk = 0; kk < N / 16; ++kk) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16x2(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+  }
+}
+
+// Stores rows `row` and `row + 8` (those below `rows`) of a 64 x N fp32
+// accumulator slice this thread holds (wgmma's layout), as bf16 pairs from
+// column 2 (lane % 4) of `dst`.
+template <int N>
+__device__ __forceinline__ void store_acc_rows(__nv_bfloat16* dst, long long row_stride,
+                                               const float (&acc)[N / 2], int row, int rows) {
+  __nv_bfloat16* lo = dst + (long long)row * row_stride;
+  __nv_bfloat16* hi = lo + 8 * row_stride;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    if (row < rows) {
+      *reinterpret_cast<uint32_t*>(lo + 8 * j) = pack_bf16x2(acc[4 * j], acc[4 * j + 1]);
+    }
+    if (row + 8 < rows) {
+      *reinterpret_cast<uint32_t*>(hi + 8 * j) = pack_bf16x2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
   }
 }
 
@@ -476,16 +555,78 @@ __device__ __forceinline__ void wgmma_m64n128k16_mn(float (&d)[64], uint64_t des
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// wgmma_m64nNk16_rs at N = 64 or 128.
+// d (64 x 96, fp32) = A (64 x 16) B (16 x 96) + (scale_d ? d : 0), A bf16 in
+// four registers a thread, B bf16 MN-major through desc_sw128_mn: columns
+// 0-63 from the first 64-column box, 64-95 from the first half of the
+// second (a head dim of 96 in two boxes whose last 32 columns TMA filled
+// with zeros; they are never read).
+__device__ __forceinline__ void wgmma_m64n96k16_rs(float (&d)[48], const uint32_t (&a)[4],
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// wgmma_m64nNk16_rs at N = 64, 96 or 128.
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b,
                                          int scale_d) {
-  static_assert(N == 64 || N == 128, "register-A wgmma widths of the port: 64 and 128");
+  static_assert(N == 64 || N == 96 || N == 128, "register-A wgmma widths of the port: 64, 96, 128");
   if constexpr (N == 64) {
     wgmma_m64n64k16_rs(d, a, desc_b, scale_d);
+  } else if constexpr (N == 96) {
+    wgmma_m64n96k16_rs(d, a, desc_b, scale_d);
   } else {
     wgmma_m64n128k16_rs(d, a, desc_b, scale_d);
   }
+}
+
+// wgmma_m64nNk16 (both operands K-major in shared memory) at N = 64 or 128.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  static_assert(N == 64 || N == 128, "shared-memory wgmma widths of the attention kernels: 64, 128");
+  if constexpr (N == 64) {
+    wgmma_m64n64k16(d, desc_a, desc_b, scale_d);
+  } else {
+    wgmma_m64n128k16(d, desc_a, desc_b, scale_d);
+  }
+}
+
+// The descriptor step of K step kk (16 bf16 columns) through a K-major tile
+// of `rows` rows stored as 64-column boxes of rows x 128 bytes: 32 bytes
+// within a box, then the next box.
+template <int ROWS>
+__device__ __forceinline__ uint64_t k_major_step(int kk) {
+  return (kk / 4) * (ROWS * 128 >> 4) + 2 * (kk % 4);
+}
+
+// acc (64 x N) += A (64 x 16 KSTEPS, register fragments) times a bf16 tile
+// of 16 KSTEPS rows x N columns read MN-major, stored as 64-column boxes of
+// `box_bytes` (its rows x 128 bytes); one wgmma per K step of 16 rows.
+template <int N, int KSTEPS>
+__device__ __forceinline__ void mma_rs_mn(float (&acc)[N / 2], const uint32_t (&a)[KSTEPS][4],
+                                          const uint8_t* tile, uint32_t box_bytes) {
+  const uint64_t desc = desc_sw128_mn(tile, box_bytes);
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) wgmma_rs<N>(acc, a[kk], desc + 128 * kk, 1);
 }
 
 template <int N>

@@ -209,6 +209,10 @@ def _forward(q, k, v, num_heads, scale, return_lse):
         return flash_attention_bshd_reference(q, k, v, num_heads, scale), None
     d = _check(q, k, v, num_heads)
     scale = d**-0.5 if scale is None else scale
+    # the kernel's running max is taken on the raw scores q k^T: the max of
+    # the scaled scores only where scale > 0
+    if not scale > 0:
+        raise ValueError(f"flash_attention_bshd kernel takes a scale > 0, got {scale}")
     b, sq, _ = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = (
@@ -389,7 +393,8 @@ def flash_attention_bshd(
     """softmax(q k^T * scale) v per head over heads-packed tensors.
 
     With ``return_lse`` also returns the fp32 log-sum-exp of the scaled
-    scores as (B, H, Sq). Differentiable in q, k and v."""
+    scores as (B, H, Sq). Differentiable in q, k and v. On the card the
+    kernel takes scale > 0."""
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
         out, lse = _forward(q, k, v, num_heads, scale, return_lse)
         return (out, lse) if return_lse else out
@@ -524,8 +529,9 @@ def _masked_backward_kernels():
 
 
 def _aligned(t: torch.Tensor) -> bool:
-    """16-byte vector loads: unit last stride, 8-element batch, head and row
-    strides, a 16-byte aligned start."""
+    """16-byte vector loads (kernel E) and TMA tensor maps (kernel G): unit
+    last stride, 8-element batch, head and row strides, a 16-byte aligned
+    start."""
     return t.stride(3) == 1 and not any(t.stride(i) % 8 for i in range(3)) and t.data_ptr() % 16 == 0
 
 

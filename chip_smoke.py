@@ -57,7 +57,10 @@ Phases, each printing its own lines; any failure exits non-zero:
     against its plain version (out and lse) at the Lumina2 shapes: 24 heads
     over 8 kv heads, head dim 96, joint length 4352 with the caption hole
     masked, the refiners' 4096 (all-ones mask) and 256, no mask, causal,
-    ragged lengths, head dims 64 and 128.
+    ragged lengths, head dims 64 and 128; reruns bit-identical, TFLOP/s,
+    share of the bound, the time a call over 10 back to back beside SDPA's;
+    a batch entry that keeps no key (the mean of v) beside one whose key
+    tiles masked whole the kernel skips.
 11. kernel F, the fused gated MLP, and its two kernels alone, F-up (the
     up-projections with the gate in the epilogue) and F-down (the
     down-projection, split over inner at few rows) on F-up's own output,
@@ -117,8 +120,10 @@ Phases, each printing its own lines; any failure exits non-zero:
 18. kernels J, K and L, which no model path calls (as in the JAX package),
     through their own entry points: J, the fused GroupNorm(+SiLU), and K,
     the 3x3 conv, against their plain versions at the SDXL UNet's widths
-    (1024 px, batch 2 and 4, the up-block concat) and the VAE decoder's (1024
-    px), with F.group_norm (+ F.silu) and cuDNN beside them; their gradients
+    (1024 px, batch 2 and 4, the up-block concat; K also at the 832x1216
+    bucket's ragged widths, on its split path at the 32 x 32 stages, and at
+    C = 16 and 48) and the VAE decoder's (1024 px), with F.group_norm
+    (+ F.silu) and cuDNN beside them; their gradients
     through the autograd.Functions against autograd of the plain forward and
     of F.conv2d; one SDXL resnet body (GN + SiLU -> conv -> GN + SiLU -> conv
     + residual, forward and backward) through the ops, with the launch
@@ -295,11 +300,15 @@ GN_SHAPES = [((2, 128, 128, 320), 1e-5), ((2, 64, 64, 640), 1e-5), ((2, 32, 32, 
              ((2, 32, 32, 2560), 1e-5), ((4, 128, 128, 320), 1e-5),
              ((1, 128, 128, 512), 1e-6), ((1, 256, 256, 512), 1e-6),
              ((1, 512, 512, 256), 1e-6), ((1, 1024, 1024, 128), 1e-6), ((2, 4096, 640), 1e-5)]
-# (x shape, CO): the same UNet and VAE stages' 3x3 convs
+# (x shape, CO): the same UNet and VAE stages' 3x3 convs, the UNet's at the 832x1216
+# bucket (ragged pixel boxes), the 16-channel VAE's conv_in (C = 16), a C = 48 case and
+# a 640-channel conv at 32 x 32 (64 tiles: kernel K's split path)
 CONV_SHAPES = [((2, 128, 128, 320), 320), ((2, 64, 64, 640), 640), ((2, 32, 32, 1280), 1280),
                ((2, 32, 32, 2560), 1280), ((4, 128, 128, 320), 320),
                ((1, 128, 128, 512), 512), ((1, 256, 256, 512), 512),
-               ((1, 512, 512, 256), 256), ((1, 1024, 1024, 128), 128)]
+               ((1, 512, 512, 256), 256), ((1, 1024, 1024, 128), 128),
+               ((2, 104, 152, 320), 320), ((2, 52, 76, 640), 640), ((2, 26, 38, 1280), 1280),
+               ((1, 128, 128, 16), 512), ((2, 96, 96, 48), 96), ((2, 32, 32, 640), 640)]
 RESNET_SHAPE = (2, 64, 64, 640)  # one SDXL resnet body at the request's second stage
 # kernels J and K against their plain versions: the same fp32 arithmetic
 # summed in another order, the output rounded once to bf16 on both sides:
@@ -735,7 +744,7 @@ def main() -> None:
         gated_up_reference, geglu_mlp, set_fused_ff,
     )
     from vision_ft_tpu_torch.ops.conv3x3 import (
-        conv3x3, conv3x3_forward, conv3x3_reference, repack_weight,
+        conv3x3, conv3x3_forward, conv3x3_reference, conv_plan, repack_weight,
     )
     from vision_ft_tpu_torch.ops.group_norm import group_norm, group_norm_reference
     from vision_ft_tpu_torch.ops.layer_norm import layer_norm, layer_norm_reference
@@ -1442,10 +1451,14 @@ def main() -> None:
         if out.stride() != q.stride():
             raise AssertionError(f"{what}: the output does not keep q's memory layout")
         del ref, ref_lse
+        assert_reruns(what, lambda: flash_attention_masked(q, k, v, mask, None, causal,
+                                                           return_lse=True))
         ms = cuda_ms(lambda: flash_attention_masked(q, k, v, mask, None, causal))
+        back_to_back_ms = burst_ms(lambda: flash_attention_masked(q, k, v, mask, None, causal))
         plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, v, mask, None, causal),
                            warmup=1, iters=3)
         library_ms = cuda_ms(sdpa_call(q, k, v, mask, causal))
+        library_burst_ms = burst_ms(sdpa_call(q, k, v, mask, causal))
         # the work these inputs need: the score pairs the masks leave
         keys = float(b * sk if mask is None else mask.sum().item())
         pairs = keys * sq * (0.5 + 0.5 / sq if causal else 1.0)
@@ -1453,20 +1466,34 @@ def main() -> None:
         nbytes = 2 * (2 * b * h * sq * d + 2 * b * hk * sk * d) + (0 if mask is None else b * sk)
         bound_ms, bound_by = bound(nbytes, flops)
         print(f"{what}: max abs err {abs_err:.3e} rel {rel_err:.3e} (tol {MASKED_ATTN_TOL}), lse rel "
-              f"{lse_err[1]:.3e} (tol {MASKED_LSE_TOL}); kernel {ms:.3f} ms "
-              f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, SDPA {library_ms:.3f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by})")
+              f"{lse_err[1]:.3e} (tol {MASKED_LSE_TOL}), reruns bit-identical; kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of the bound; "
+              f"{back_to_back_ms:.4f} ms a call over 10 back to back), plain {plain_ms:.3f} ms, "
+              f"SDPA {library_ms:.4f} ms (kernel {ms / library_ms:.2f}x; {library_burst_ms:.4f} ms "
+              f"back to back), bound {bound_ms:.4f} ms ({bound_by})")
         errs.append(abs_err)
         rows.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                          library_ms=library_ms))
         del q, k, v, out, lse
-    # a query row with every key masked: the kernel's rule, the mean of v
-    q, k, v = (torch.randn(1, 2, 320, 96, device=device, generator=gen).bfloat16() for _ in "qkv")
-    nothing = torch.zeros(1, 320, dtype=torch.bool, device=device)
-    out = flash_attention_masked(q, k, v, nothing)
-    compare("attention with every key masked", lambda: out,
-            lambda: v.float().mean(dim=2, keepdim=True).expand_as(v), MASKED_ATTN_TOL)
-    print("every key masked: the output is the mean of v, as in the kernel replaced")
+    # a query row with every key masked: the kernel's rule, the mean of v; beside it a batch
+    # entry that keeps some keys, whose key tiles masked whole the kernel skips
+    q, k, v = (torch.randn(2, 24, 4352, 96, device=device, generator=gen).bfloat16()
+               for _ in "qkv")
+    k, v = k[:, :8], v[:, :8]
+    some = torch.zeros(2, 4352, dtype=torch.bool, device=device)
+    some[0, :40] = True
+    some[0, 2304:] = True
+    out = flash_attention_masked(q, k, v, some)
+    compare("attention, batch entry 1 with every key masked", lambda: out[1],
+            lambda: v[1].float().mean(dim=1, keepdim=True).repeat_interleave(3, dim=0)
+            .expand_as(out[1]), MASKED_ATTN_TOL)
+    compare("attention, batch entry 0 with key tiles masked whole", lambda: out[0],
+            lambda: flash_attention_reference(q[:1], k[:1], v[:1], some[:1])[0], MASKED_ATTN_TOL)
+    assert_reruns("attention, one batch entry keeps no key",
+                  lambda: flash_attention_masked(q, k, v, some))
+    print("B=2 H=24/8 S=4352 D=96, entry 1 with every key masked: the mean of v, as in the "
+          "kernel replaced; entry 0 keeping keys [0, 40) and [2304, 4352): the plain version's "
+          "result; reruns bit-identical")
     records["flash_attention_masked"] = dict(
         route="cuda", source="vision_ft_tpu_torch/csrc/flash_attention_masked.cu",
         replaces="vision_ft_tpu/ops/pallas/flash_attention.py:83",
@@ -2383,16 +2410,24 @@ def main() -> None:
                                    lambda: conv3x3_reference(x, w), CONV_TOL)
         assert_reruns(f"conv3x3 {shape} -> {co}", lambda: conv3x3(x, w))
         ms = cuda_ms(lambda: conv3x3_forward(x, packed))
+        back_to_back_ms = burst_ms(lambda: conv3x3_forward(x, packed))
         repack_ms = cuda_ms(lambda: repack_weight(w, torch.bfloat16))
         plain_ms = cuda_ms(lambda: conv3x3_reference(x, w), iters=5)
         library_ms = cuda_ms(lambda: F.conv2d(x_cl, w_cl, padding=1))
+        library_burst_ms = burst_ms(lambda: F.conv2d(x_cl, w_cl, padding=1))
         flops = 2 * x.numel() // c * co * 9 * c
         nbytes = (x.numel() + w.numel() + x.numel() // c * co) * 2
         bound_ms, bound_by = bound(nbytes, flops)
-        print(f"{shape} -> {co}: max abs err {abs_err:.3e} rel {rel_err:.3e} (tol {CONV_TOL}), "
-              f"reruns bit-identical; kernel K {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s) "
-              f"+ weight repack {repack_ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN (channels-last "
-              f"bf16) {library_ms:.4f} ms ({flops / library_ms / 1e9:.1f} TFLOP/s), bound "
+        box_w, tile_n, splits = conv_plan(
+            shape, co, torch.cuda.get_device_properties(device).multi_processor_count)
+        print(f"{shape} -> {co} ({box_w} x {128 // box_w} pixel boxes, {tile_n}-channel tiles, "
+              f"K in {splits} part{'s' if splits > 1 else ''}): max abs err {abs_err:.3e} rel "
+              f"{rel_err:.3e} (tol {CONV_TOL}), reruns bit-identical; kernel K {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of the bound; "
+              f"{back_to_back_ms:.4f} ms a call over 10 back to back) + weight repack "
+              f"{repack_ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN (channels-last bf16) "
+              f"{library_ms:.4f} ms ({flops / library_ms / 1e9:.1f} TFLOP/s; kernel "
+              f"{ms / library_ms:.2f}x; {library_burst_ms:.4f} ms back to back), bound "
               f"{bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.1f} GFLOP)")
         errs.append(abs_err)
         rows.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,

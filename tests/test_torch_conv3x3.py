@@ -16,10 +16,14 @@ from vision_ft_tpu.ops.pallas.conv3x3 import conv3x3_supported as jax_supported
 from vision_ft_tpu.ops.pallas.conv3x3 import conv3x3_tpu
 
 from vision_ft_tpu_torch.ops.conv3x3 import (
+    MAX_SPLITS,
     conv3x3,
     conv3x3_backward,
     conv3x3_reference,
     conv3x3_supported,
+    conv_plan,
+    conv_splits,
+    pixel_box,
     repack_weight,
 )
 
@@ -121,3 +125,55 @@ def test_ops_package_exports_the_wrappers_and_keeps_the_modules(module, export):
     assert isinstance(getattr(ops, module), types.ModuleType) and getattr(ops, module) is mod
     assert getattr(ops, export) is getattr(mod, module)
     assert export in ops.__all__
+
+
+@pytest.mark.parametrize("height,width,box_w", [
+    (128, 128, 128), (64, 64, 64), (32, 32, 32),  # SDXL's square stages: whole rows
+    (1024, 1024, 128), (9, 9, 16),
+    (104, 152, 32), (52, 76, 16), (26, 38, 8),  # the 832x1216 bucket's latents
+    (1, 1, 128), (130, 3, 8),
+])
+def test_pixel_box_covers_the_image_in_the_fewest_tiles(height, width, box_w):
+    assert pixel_box(height, width) == box_w
+
+    def tiles(bw):
+        return -(-width // bw) * -(-height // (128 // bw))
+    assert all(tiles(box_w) <= tiles(bw) for bw in (128, 64, 32, 16, 8))
+
+
+@pytest.mark.parametrize("tiles,steps,splits", [
+    (80, 360, 3),  # SDXL's up-block concat (2, 32, 32, 2560) -> 1280: 0.6 waves unsplit
+    (80, 180, 3),  # (2, 32, 32, 1280) -> 1280
+    (160, 360, 4), (160, 180, 3),  # the same at 128-channel tiles: 1.2 waves unsplit
+    (320, 90, 1),  # (2, 64, 64, 640) -> 640
+    (768, 45, 1), (8192, 18, 1),  # the first stage, the VAE's last
+    (200, 180, 1),  # three parts would tie
+    (1, 9, 1), (2, 9, 1),  # a tile or two: the partials' cost outweighs the waves
+    (1, 360, MAX_SPLITS),
+])
+def test_conv_splits_cuts_k_only_where_the_tiles_fill_the_card_badly(tiles, steps, splits):
+    assert conv_splits(tiles, steps, 132) == splits
+    assert 1 <= conv_splits(tiles, 2, 132) <= 2
+
+
+@pytest.mark.parametrize("x_shape,co,plan", [
+    ((2, 64, 64, 640), 640, (64, 160, 1)),  # 256 tiles of 160 channels: 2 waves, 320 of 128: 3
+    ((2, 128, 128, 320), 320, (128, 160, 1)),
+    ((2, 32, 32, 1280), 1280, (32, 160, 1)),  # 128 tiles of 160 fill the card unsplit
+    ((2, 32, 32, 2560), 1280, (32, 160, 1)),
+    ((2, 32, 32, 640), 640, (32, 160, 2)),  # 64 tiles: K in two parts
+    ((1, 1024, 1024, 128), 128, (128, 128, 1)),
+    ((1, 256, 256, 512), 512, (128, 256, 1)),
+    ((2, 26, 38, 1280), 1280, (8, 256, 1)),  # the 832x1216 bucket's third stage
+    ((2, 52, 76, 640), 640, (16, 128, 1)),  # 350 tiles of 128 fill 3 waves better than 280 of 160
+    ((2, 104, 152, 320), 320, (32, 160, 1)),
+    ((2, 96, 96, 48), 96, (32, 128, 1)),  # CO divides by no wider tile
+    ((1, 9, 9, 16), 32, (16, 128, 1)),
+])
+def test_conv_plan_picks_the_box_the_channel_tile_and_the_parts(x_shape, co, plan):
+    assert conv_plan(x_shape, co, 132) == plan
+    box_w, tile_n, splits = plan
+    b, h, w, c = x_shape
+    tiles = b * -(-w // box_w) * -(-h // (128 // box_w)) * -(-co // tile_n)
+    assert box_w == pixel_box(h, w) and (tile_n == 128 or co % tile_n == 0)
+    assert splits == conv_splits(tiles, 9 * -(-c // 64), 132)

@@ -41,6 +41,7 @@ from vision_ft_tpu_torch.modules.quant.nf4 import quantize_4bit
 from vision_ft_tpu_torch.ops import _build, nf4_matmul as nf4
 from vision_ft_tpu_torch.ops.layer_norm import layer_norm, layer_norm_reference
 from vision_ft_tpu_torch.ops.group_norm import group_norm, group_norm_backward, group_norm_reference
+from vision_ft_tpu_torch.ops import conv3x3 as conv3x3_module
 from vision_ft_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_backward, conv3x3_reference
 from vision_ft_tpu_torch.tools import partial_block_probe as probe
 
@@ -579,6 +580,75 @@ def test_routing_keeps_off_the_masked_kernel_what_it_does_not_take_on_card(cuda)
     assert flash_attention_masked.launches == before + 4
 
 
+def _tile_mask(cuda, kind, b, sk):
+    """wide_hole: keys [40 + 7 i, 340) of batch entry i masked, whole 64- and
+    128-key tiles and partial ones; empty_entry: the same, and the last
+    batch entry keeps no key."""
+    mask = torch.ones(b, sk, dtype=torch.bool, device=cuda)
+    for i in range(b):
+        mask[i, 40 + 7 * i:min(sk, 340)] = False
+    if kind == "empty_entry":
+        mask[-1] = False
+    return mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,h,hk,sq,sk,d,kind,causal",
+    [
+        (2, 6, 2, 333, 461, 96, "wide_hole", False),    # Sq != Sk, ragged tails
+        (2, 6, 2, 461, 461, 96, "empty_entry", False),  # entry 1 keeps no key: no skip there
+        (2, 4, 4, 300, 700, 64, "wide_hole", False),    # 128-key tiles
+        (2, 4, 1, 129, 383, 128, "empty_entry", False),
+        (2, 6, 2, 300, 300, 96, "wide_hole", True),     # causal: nothing skipped
+        (1, 24, 8, 4352, 4352, 96, "wide_hole", False),  # the main stack's widths
+    ],
+)
+def test_masked_kernel_skips_whole_masked_key_tiles_on_card(cuda, b, h, hk, sq, sk, d, kind,
+                                                            causal):
+    """Key tiles masked whole are skipped where the batch entry keeps a key
+    and nothing is causally masked; the result is the plain version's either
+    way, and reruns give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(b, sq, h, d, device=cuda, generator=g).bfloat16().transpose(1, 2)
+    k, v = (torch.randn(b, sk, hk, d, device=cuda, generator=g).bfloat16().transpose(1, 2)
+            for _ in "kv")
+    mask = _tile_mask(cuda, kind, b, sk)
+    out, lse = flash_attention_masked(q, k, v, mask, None, causal, return_lse=True)
+    again = flash_attention_masked(q, k, v, mask, None, causal, return_lse=True)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    want, want_lse = flash_attention_reference(q, k, v, mask, None, causal, return_lse=True)
+    assert _rel_err(out, want) <= BF16_MASKED_ATTN_TOL
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 96, 128])
+def test_masked_fully_masked_row_and_its_gradient_on_card(cuda, d):
+    """A batch entry that keeps no key gives the mean of v and an lse of
+    about -1e30; kernel G, reading that lse, spreads its gradient over all
+    keys as the plain backward does, beside an entry whose whole key tiles
+    are skipped."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn(2, 4, 400, d, device=cuda, generator=g).bfloat16() for _ in "qkv")
+    mask = _tile_mask(cuda, "empty_entry", 2, 400)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (flash_attention_masked.launches, flash_attention_masked_dq.launches)
+    out, lse = flash_attention_masked(*leaves, mask, return_lse=True)
+    mean_v = v[1].float().mean(dim=1, keepdim=True).expand_as(v[1])
+    assert (out[1].float() - mean_v).abs().max().item() <= BF16_MASKED_ATTN_TOL
+    assert (lse[1] < -0.99e30).all() and torch.isfinite(lse).all()
+    dout = torch.randn(2, 4, 400, d, device=cuda, generator=g).bfloat16()
+    got = torch.autograd.grad(out, leaves, dout)
+    assert (flash_attention_masked.launches, flash_attention_masked_dq.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = flash_attention_masked_backward_reference(q, k, v, mask, out.detach(), lse.detach(),
+                                                     dout)
+    for name, got_, want_ in zip(("dq", "dk", "dv"), got, want):
+        assert _rel_err(got_, want_) <= BF16_MASKED_BWD_TOL, name
+        assert _rel_err(got_[1], want_[1]) <= BF16_MASKED_BWD_TOL, name
+
+
 def _masked_bwd_inputs(cuda, b, h, hk, sq, sk, d, kind, causal, seed=0):
     """q, k, v in the NextDiT's memory layouts (v a slice of a wider
     buffer), the mask, the forward's out and lse, and dO."""
@@ -1043,7 +1113,7 @@ def _conv_inputs(cuda, shape, co, seed=0):
     ((1, 9, 9, 16), 32),  # odd H and W, C at the 16-wide step's minimum
     ((2, 5, 1, 32), 16),  # W = 1
     ((1, 1, 1, 16), 8),  # one pixel
-    ((2, 33, 17, 48), 24),  # C = 48: the second half of a 32-channel step is past C
+    ((2, 33, 17, 48), 24),  # C = 48: the last 16 channels of a 64-channel step are TMA's zeros
     ((2, 64, 64, 64), 136),  # pixel tiles over two image rows; CO past one 128 tile
     ((1, 3, 130, 16), 8),  # a tile that ends inside a row
     ((2, 16, 16, 320), 320),  # SDXL's first-stage widths
@@ -1056,6 +1126,27 @@ def test_conv3x3_kernel_matches_plain_on_card(cuda, shape, co):
     assert got.shape == (*shape[:3], co) and got.dtype == torch.bfloat16
     assert _rel_err(got, conv3x3_reference(x, w)) < BF16_CONV_TOL
     assert torch.equal(got, conv3x3(x, w))  # reruns
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,co,split", [
+    ((2, 26, 38, 1280), 1280, False),  # the 832x1216 bucket's third stage: 8 x 16 boxes
+    ((2, 52, 76, 640), 640, False),  # its second stage: 16 x 8 boxes
+    ((2, 104, 152, 320), 320, False),  # its first stage: 32 x 4 boxes, 160-channel tiles
+    ((1, 7, 150, 64), 72, False),  # 32 x 4 boxes overhang W and H; CO inside one tile
+    ((2, 32, 32, 640), 640, True),  # 64 tiles of 160 channels: K in parts, fp32 partials
+    ((1, 16, 16, 1280), 1280, True),
+    ((2, 32, 32, 1280), 1280, False),  # 128 tiles of 160 channels
+    ((2, 32, 32, 2560), 1280, False),
+])
+def test_conv3x3_kernel_ragged_and_split_paths_on_card(cuda, shape, co, split):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert (conv3x3_module.conv_plan(shape, co, sms)[2] > 1) is split
+    x, w = _conv_inputs(cuda, shape, co, seed=1)
+    got = conv3x3(x, w)
+    assert got.shape == (*shape[:3], co)
+    assert _rel_err(got, conv3x3_reference(x, w)) < BF16_CONV_TOL
+    assert torch.equal(got, conv3x3(x, w))  # reruns: partials summed in split order
 
 
 @pytest.mark.cuda

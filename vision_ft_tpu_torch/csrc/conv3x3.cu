@@ -1,4 +1,6 @@
-// 3x3, stride-1, pad-1 NHWC convolution for Hopper (sm_90a), CUDA C++ (kernel K).
+// 3x3, stride-1, pad-1 NHWC convolution for Hopper (sm_90a), CUDA C++: kernel
+// K, an implicit GEMM on hopper_gemm.cuh's warp-specialized TMA + wgmma
+// main loop.
 //
 // Replaces vision_ft_tpu/ops/pallas/conv3x3.py::_kernel (launched by
 // _conv3x3_fwd, entry conv3x3_tpu; its backward is the plain conv's, here
@@ -15,230 +17,291 @@
 // (2, 64, 64, 640) -> 640, 60.4 GFLOP on 28 MB, some 2,000 operations a
 // byte against the card's ~295.
 //
-// Design:
-//   - One block of 8 warps owns a 128-pixel x 128-channel output tile and
-//     loops over K in steps of 32: tap by tap, 32 input channels at a time.
-//     The TPU kernel's VMEM row block with its three shifted views becomes
-//     this loop; no padded copy and no shifted views are made.
-//   - Each step stages the 128 x 32 input tile (the tap's shifted pixels)
-//     and the 128 x 32 weight tile in shared memory with cp.async, four
-//     stages in flight. A pixel whose tap falls outside the image is a
-//     zero-filled load (cp.async with source size 0): the padding is
-//     decided per pixel from its own (h, w), so a tile that spans several
-//     image rows never reads a neighbouring row, and odd H and W need
-//     nothing else. Channels at or past C read as zeros too.
-//   - Warps multiply 64 x 32 sub-tiles with ldmatrix + mma.sync m16n8k16
-//     bf16 into fp32 register accumulators (64 a thread), the scheme of
-//     kernels B-E, and store bf16 pairs, masking pixels past B*H*W and
-//     channels past CO.
-//   - No atomics: a block owns its outputs, and runs are bit-identical.
-// Shape contract (the wrapper checks it): C % 16 == 0, CO % 8 == 0,
-// 1 <= B*H*W <= 65535 * 128, contiguous 16-byte aligned tensors.
-// Left for later work: wgmma, TMA (whose out-of-bounds fill would take the
-// padding), a persistent schedule, split-K for the small-M stages.
+// Design (kernel F's TN main loop, csrc/fused_mlp.cu):
+//   - One block of 384 threads owns a tile of 128 output pixels x BN output
+//     channels: consumer warpgroups 0 and 1 take 64 pixels each (wgmma
+//     m64nBNk16, the accumulator in registers), one producer thread keeps a
+//     ring of 4 stages of TMA loads in flight; setmaxnreg moves registers to
+//     the consumers. BN is the wrapper's choice: 256 where it divides CO
+//     (SDXL's 1280, the VAE's 512 and 256), else 160 (SDXL's 320 and 640),
+//     else 128. A wider tile reads its A tile once for more products, and
+//     160 leaves no idle channels at 320 and 640.
+//   - The pixels of a tile are a box of box_w x box_h (128 in all: 128 x 1
+//     to 8 x 16, the wrapper's choice by W and H) of one image. K runs over
+//     9 taps x ceil(C / 64) steps of 64 channels. The A tile of a step is one
+//     TMA box of a 4-D map over x's (C, W, H, B) at (c0, x0 + kx - 1,
+//     y0 + ky - 1, b): 128 K-major rows of 128 bytes in the swizzle wgmma
+//     reads. TMA's zeros at coordinates outside the image (negative ones
+//     too) are the padding, and past C the channels a step does not have.
+//     No padded copy and no shifted views are made; the TPU kernel's VMEM
+//     row block with its three shifted views becomes this loop.
+//   - The B tile is one or two TMA boxes of the (CO, 3, 3, C) weight seen as
+//     a 4-D map over (C, 9, CO, 1): 64 channels x 1 tap x 128 or 160 output
+//     channels, zeros past C and past CO.
+//   - The epilogue rounds each warpgroup's 64 x BN accumulator to bf16 in
+//     64-channel swizzled boxes (at BN = 160 the last box 32 channels,
+//     unswizzled) and stores them through 4-D maps over y, in boxes of the
+//     warpgroup's half of the pixel box; TMA drops what overhangs W, H or
+//     CO, so ragged widths need nothing else.
+//   - Few tiles (SDXL's 32 x 32 stages at batch 2: 80 tiles on 132 SMs):
+//     the wrapper splits K into `splits` parts; each writes an fp32 partial
+//     and conv3x3_split_sum_kernel adds them in split order.
+//   - No atomics and a fixed summation order: reruns are bit-identical.
+// Shape contract (the wrapper checks it): C % 16 == 0, CO % 8 == 0, at
+// least one pixel, contiguous 16-byte aligned tensors.
+// Tried and dropped (verdicts in PERF.md): 6 stages at BN = 128, 256-wide
+// tiles where CO % 256 != 0. Left for later work: a persistent schedule
+// (the VAE's 128-channel stages run 18 K steps a tile), channel steps
+// narrower than 64 for C = 16 and 48.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper_gemm.cuh"
 
 namespace {
 
-constexpr int kTileM = 128;  // output pixels a block
-constexpr int kTileN = 128;  // output channels a block
-constexpr int kStepK = 32;   // input channels a step (of one tap)
-constexpr int kStages = 4;
-constexpr int kWarps = 8;    // 2 along M x 4 along N: a warp owns 64 x 32
-constexpr int kThreads = kWarps * 32;
-constexpr int kLd = kStepK + 8;  // bf16 a shared row: 80 bytes, ldmatrix conflict-free
-constexpr int kStageElems = (kTileM + kTileN) * kLd;
-constexpr int kSmemBytes = kStages * kStageElems * 2;  // 81,920
+using namespace hopper;
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// Weight rows (output channels) a TMA box of B: 160 for 160-channel tiles,
+// else 128 (a 256-channel tile is two boxes).
+template <int BN>
+__host__ __device__ constexpr int w_box_rows() {
+  return BN == 160 ? 160 : 128;
 }
 
-// 16 bytes from global to shared; `bytes` 0 fills the 16 with zeros and reads nothing.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int bytes) {
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(bytes));
+template <int BN>
+constexpr int smem_bytes() {
+  return 1024 + Ring<BN>::kBytes + 2 * 2 * kEpiTileBytes + 2 * kStages * sizeof(uint64_t);
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* smem) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d += a(16x16, row) * b(16x8, col), bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__global__ void __launch_bounds__(kThreads)
-conv3x3_igemm_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                     __nv_bfloat16* __restrict__ y, int batch, int height, int width, int c,
-                     int co) {
-  extern __shared__ __align__(16) __nv_bfloat16 smem[];
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int n0 = blockIdx.x * kTileN;
-  const long long m0 = (long long)blockIdx.y * kTileM;
-  const long long pixels = (long long)batch * height * width;
-  const int chunks = (c + kStepK - 1) / kStepK;  // channel steps a tap
-  const int steps = 9 * chunks;
-
-  // This thread stages rows (tid / 4) and (tid / 4 + 64) of both tiles, 16
-  // bytes (8 channels) at column (tid % 4) * 8 of the step. Its pixels'
-  // (h, w) and centre addresses are fixed for the whole loop.
-  const int vec = (tid % 4) * 8;
-  int pix_h[2], pix_w[2];
-  bool pix_ok[2];
-  const __nv_bfloat16* pix_src[2];
-  const __nv_bfloat16* w_src[2];
-  bool co_ok[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = tid / 4 + i * 64;
-    const long long m = m0 + r;
-    pix_ok[i] = m < pixels;
-    const long long mm = pix_ok[i] ? m : 0;
-    const int hw = (int)(mm % ((long long)height * width));
-    pix_h[i] = hw / width;
-    pix_w[i] = hw % width;
-    pix_src[i] = x + mm * c + vec;
-    co_ok[i] = n0 + r < co;
-    w_src[i] = w + (long long)(co_ok[i] ? n0 + r : 0) * 9 * c + vec;
+// The shared memory: the ring, two 64 x 64 output boxes per consumer
+// warpgroup, the barriers.
+template <int BN>
+struct Layout {
+  uint8_t* ring;
+  uint8_t* epi;  // warpgroup w's boxes: epi + w * 2 * kEpiTileBytes
+  uint64_t* full;
+  uint64_t* empty;
+  __device__ __forceinline__ explicit Layout(uint8_t* raw) {
+    ring = align_1024(raw);
+    epi = ring + Ring<BN>::kBytes;
+    full = reinterpret_cast<uint64_t*>(epi + 2 * 2 * kEpiTileBytes);
+    empty = full + kStages;
   }
+};
 
-  auto load_step = [&](int stage, int step) {
-    const int tap = step / chunks;
-    const int c0 = (step % chunks) * kStepK;
-    const int dy = tap / 3 - 1;
-    const int dx = tap % 3 - 1;
-    const bool c_ok = c0 + vec < c;
-    __nv_bfloat16* sa = smem + stage * kStageElems;
-    __nv_bfloat16* sb = sa + kTileM * kLd;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = tid / 4 + i * 64;
-      const int ih = pix_h[i] + dy;
-      const int iw = pix_w[i] + dx;
-      const bool ok = pix_ok[i] && c_ok && ih >= 0 && ih < height && iw >= 0 && iw < width;
-      const __nv_bfloat16* src = ok ? pix_src[i] + ((long long)dy * width + dx) * c + c0 : x;
-      cp_async16(sa + r * kLd + vec, src, ok ? 16 : 0);
-      const bool wok = co_ok[i] && c_ok;
-      cp_async16(sb + r * kLd + vec, wok ? w_src[i] + tap * c + c0 : w, wok ? 16 : 0);
-    }
-  };
+// Tile (pixel box, channel tile of BN) of y, or with SPLIT the fp32 partial
+// of K steps [k_begin, k_end) for split blockIdx.y.
+template <int BN, bool SPLIT>
+__global__ void __launch_bounds__(kThreads, 1)
+conv3x3_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
+               const __grid_constant__ CUtensorMap map_y,
+               const __grid_constant__ CUtensorMap map_y32, float* __restrict__ partial,
+               int batch, int height, int width, int c, int co, int box_w, int box_h,
+               int tiles_x, int tiles_y, int splits) {
+  using R = Ring<BN>;
+  extern __shared__ uint8_t smem_raw[];
+  const Layout<BN> smem(smem_raw);
+  // consecutive blocks share the pixel box: its channel tiles together
+  const int num_n = (co + BN - 1) / BN;
+  const int box = blockIdx.x / num_n;
+  const int n0 = (blockIdx.x % num_n) * BN;
+  const int img = box / (tiles_x * tiles_y);
+  const int x0 = (box % tiles_x) * box_w;
+  const int y0 = (box / tiles_x % tiles_y) * box_h;
+  const int chunks = (c + kBK - 1) / kBK;
+  const int slices = 9 * chunks;
+  const int k_begin = (int)((long long)blockIdx.y * slices / splits);
+  const int k_end = (int)((long long)(blockIdx.y + 1) * slices / splits);
 
-  const int warp_m = (warp / 4) * 64;
-  const int warp_n = (warp % 4) * 32;
-  float acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-      acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0.f;
+  init_ring_barriers(smem.full, smem.empty);
+  __syncthreads();
 
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int k = k_begin; k < k_end; ++k) {
+        const int tap = k / chunks;
+        const int c0 = (k % chunks) * kBK;
+        mbar_wait(&smem.empty[stage], phase ^ 1u);
+        uint8_t* dst = smem.ring + stage * R::kStageBytes;
+        mbar_arrive_expect_tx(&smem.full[stage], R::kStageBytes);
+        tma_load_4d(dst, &map_x, &smem.full[stage], c0, x0 + tap % 3 - 1, y0 + tap / 3 - 1, img);
+        constexpr int kRows = w_box_rows<BN>();
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < steps) load_step(s, s);
-    cp_async_commit();  // empty groups past the end keep the wait counts uniform
-  }
-
-  // ldmatrix row addresses: A rows (lane % 16) at column (lane / 16) * 8;
-  // B rows (lane % 8) + (lane / 16) * 8 at column ((lane / 8) % 2) * 8, so
-  // that registers 0, 1 are b0, b1 of one 8-channel group and 2, 3 of the next
-  const int a_row = lane % 16, a_col = (lane / 16) * 8;
-  const int b_row = lane % 8 + (lane / 16) * 8, b_col = ((lane / 8) % 2) * 8;
-
-  for (int step = 0; step < steps; ++step) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // this step's tiles have landed; every warp is done with step - 1's stage
-    const int next = step + kStages - 1;
-    if (next < steps) load_step(next % kStages, next);
-    cp_async_commit();
-
-    const __nv_bfloat16* sa = smem + (step % kStages) * kStageElems;
-    const __nv_bfloat16* sb = sa + kTileM * kLd;
-#pragma unroll
-    for (int kk = 0; kk < kStepK; kk += 16) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        ldmatrix_x4(af[mi], sa + (warp_m + mi * 16 + a_row) * kLd + kk + a_col);
-      }
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, sb + (warp_n + nj * 16 + b_row) * kLd + kk + b_col);
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          mma_16816(acc[mi][2 * nj], af[mi], bf[0], bf[1]);
-          mma_16816(acc[mi][2 * nj + 1], af[mi], bf[2], bf[3]);
+        for (int part = 0; part < BN / kRows; ++part) {
+          tma_load_4d(dst + kATileBytes + part * kRows * kBK * 2, &map_w, &smem.full[stage], c0,
+                      tap, n0 + kRows * part, 0);
+        }
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1u;
         }
       }
     }
-  }
-  cp_async_wait<0>();
+  } else {
+    setmaxnreg_inc<232>();
+    float acc[BN / 2];
+    consume<BN>(acc, smem.ring, smem.full, smem.empty, wg, k_end - k_begin);
 
-  const int g = lane / 4;  // row within the 8-row mma group
-  const int t = lane % 4;  // column pair within the quad
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int r = (t / 32) * 16 + lane / 4;  // rows r and r + 8 of this warpgroup's 64
+    if constexpr (SPLIT) {
+      float* dst = partial + (long long)blockIdx.y * batch * height * width * co;
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-    const long long row_lo = m0 + warp_m + mi * 16 + g;
-    const long long row_hi = row_lo + 8;
+      for (int half = 0; half < 2; ++half) {
+        const int m = 64 * wg + r + 8 * half;  // pixel (m / box_w, m % box_w) of the box
+        const int px = x0 + m % box_w;
+        const int py = y0 + m / box_w;
+        if (px >= width || py >= height) continue;
+        float* out = dst + (((long long)img * height + py) * width + px) * co;
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int col = n0 + warp_n + ni * 8 + 2 * t;
-      if (col >= co) continue;
-      if (row_lo < pixels) {
-        *reinterpret_cast<uint32_t*>(y + row_lo * co + col) =
-            pack_bf16x2(acc[mi][ni][0], acc[mi][ni][1]);
+        for (int j = 0; j < BN / 8; ++j) {
+          const int col = n0 + j * 8 + 2 * (lane % 4);
+          if (col < co) {
+            *reinterpret_cast<float2*>(out + col) =
+                make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+          }
+        }
       }
-      if (row_hi < pixels) {
-        *reinterpret_cast<uint32_t*>(y + row_hi * co + col) =
-            pack_bf16x2(acc[mi][ni][2], acc[mi][ni][3]);
+    } else {
+      // this warpgroup's 64 pixels: half the box's columns (box_h = 1) or
+      // half its rows
+      const int sx = box_h == 1 ? x0 + 64 * wg : x0;
+      const int sy = box_h == 1 ? y0 : y0 + wg * (box_h / 2);
+      const bool stores = sx < width && sy < height;
+      uint8_t* boxes = smem.epi + wg * 2 * kEpiTileBytes;
+      // 64-channel boxes (128-byte swizzle), then at BN = 160 one of 32
+      // channels (64-byte rows, no swizzle); two buffers in turn
+#pragma unroll
+      for (int q = 0; q < (BN + 63) / 64; ++q) {
+        constexpr int kFull = BN / 64;
+        uint8_t* out = boxes + (q % 2) * kEpiTileBytes;
+        if (q >= 2) {
+          if (t == 0) tma_store_wait_read<1>();  // box q - 2 has left this buffer
+          named_barrier_sync(1 + wg, 128);
+        }
+#pragma unroll
+        for (int jj = 0; jj < (q < kFull ? 8 : 4); ++jj) {
+          const int j = q * 8 + jj;
+          const int lo =
+              q < kFull ? sw128_offset(r, jj, lane % 4) : r * 64 + jj * 16 + 4 * (lane % 4);
+          const int hi = q < kFull ? sw128_offset(r + 8, jj, lane % 4) : lo + 8 * 64;
+          *reinterpret_cast<uint32_t*>(out + lo) = pack_bf16x2(acc[4 * j], acc[4 * j + 1]);
+          *reinterpret_cast<uint32_t*>(out + hi) = pack_bf16x2(acc[4 * j + 2], acc[4 * j + 3]);
+        }
+        fence_async_shared();
+        named_barrier_sync(1 + wg, 128);
+        if (t == 0 && stores && n0 + 64 * q < co) {
+          tma_store_4d(q < kFull ? &map_y : &map_y32, out, n0 + 64 * q, sx, sy, img);
+        }
+        if (t == 0) tma_store_commit();
       }
+      if (t == 0) tma_store_wait<0>();
     }
   }
+}
+
+// y = bf16(partial[0] + partial[1] + ...), the partials in split order.
+__global__ void __launch_bounds__(256)
+conv3x3_split_sum_kernel(const float4* __restrict__ partial, uint2* __restrict__ y,
+                         long long quads, int splits) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < quads;
+       i += (long long)gridDim.x * blockDim.x) {
+    float4 sum = partial[i];
+    for (int s = 1; s < splits; ++s) {
+      const float4 p = partial[s * quads + i];
+      sum.x += p.x;
+      sum.y += p.y;
+      sum.z += p.z;
+      sum.w += p.w;
+    }
+    y[i] = make_uint2(pack_bf16x2(sum.x, sum.y), pack_bf16x2(sum.z, sum.w));
+  }
+}
+
+template <int BN, bool SPLIT>
+int launch(const CUtensorMap& map_x, const CUtensorMap& map_w, const CUtensorMap& map_y,
+           const CUtensorMap& map_y32, float* partial, int batch, int height, int width, int c,
+           int co, int box_w, int box_h, int splits, cudaStream_t stream) {
+  constexpr int kBytes = smem_bytes<BN>();
+  const int err = allow_dynamic_smem<conv3x3_kernel<BN, SPLIT>>(kBytes);
+  if (err) return err;
+  const int tiles_x = (width + box_w - 1) / box_w;
+  const int tiles_y = (height + box_h - 1) / box_h;
+  const long long blocks = (long long)batch * tiles_x * tiles_y * ((co + BN - 1) / BN);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks), splits);
+  conv3x3_kernel<BN, SPLIT><<<grid, kThreads, kBytes, stream>>>(
+      map_x, map_w, map_y, map_y32, partial, batch, height, width, c, co, box_w, box_h, tiles_x,
+      tiles_y, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The weight's and y's tensor maps for BN-channel tiles, then the launch.
+template <int BN>
+int launch_bn(const CUtensorMap& map_x, const void* w, void* y, float* partial, int batch,
+              int height, int width, int c, int co, int box_w, int box_h, int splits,
+              cudaStream_t stream) {
+  CUtensorMap map_w, map_y, map_y32;
+  // the weight as 1 image of co rows x 9 taps: a box is w_box_rows output channels of one tap
+  int err = make_map_nhwc(&map_w, w, 1, co, 9, c, 1, w_box_rows<BN>());
+  // a consumer warpgroup's half of the pixel box, 64 and 32 channels
+  const uint32_t half_w = box_h == 1 ? box_w / 2 : box_w;
+  const uint32_t half_h = box_h == 1 ? 1 : box_h / 2;
+  if (!err) err = make_map_nhwc(&map_y, y, batch, height, width, co, half_w, half_h);
+  if (!err) err = make_map_nhwc(&map_y32, y, batch, height, width, co, half_w, half_h, 32);
+  if (err) return err;
+  if (splits == 1) {
+    return launch<BN, false>(map_x, map_w, map_y, map_y32, nullptr, batch, height, width, c, co,
+                             box_w, box_h, 1, stream);
+  }
+  return launch<BN, true>(map_x, map_w, map_y, map_y32, partial, batch, height, width, c, co,
+                          box_w, box_h, splits, stream);
 }
 
 }  // namespace
 
 // C entry, bound with ctypes. x (batch, height, width, c), w (co, 3, 3, c),
-// y (batch, height, width, co): bf16, contiguous, 16-byte aligned. Launch on
-// `stream` and return cudaGetLastError().
-extern "C" int conv3x3_fwd(const void* x, const void* w, void* y, int batch, int height,
-                           int width, int c, int co, void* stream) {
+// y (batch, height, width, co): bf16, contiguous, 16-byte aligned. box_w is
+// the pixel box's width (8, 16, 32, 64 or 128; its height 128 / box_w),
+// tile_n the output channels a block (128, 160 or 256). splits >= 1 parts
+// of K; with more than one, partial is fp32 (splits, batch, height, width,
+// co). Launches on `stream` and returns the first error: of the tensor
+// maps' encoding, of the shared-memory attribute, or cudaGetLastError()
+// after each launch.
+extern "C" int conv3x3_fwd(const void* x, const void* w, void* y, void* partial, int batch,
+                           int height, int width, int c, int co, int box_w, int tile_n,
+                           int splits, void* stream) {
   const long long pixels = (long long)batch * height * width;
-  if (pixels < 1 || c < 16 || c % 16 != 0 || co < 8 || co % 8 != 0 ||
-      (pixels + kTileM - 1) / kTileM > 65535) {
+  const bool box_ok = box_w == 8 || box_w == 16 || box_w == 32 || box_w == 64 || box_w == 128;
+  if (pixels < 1 || c < 16 || c % 16 != 0 || co < 8 || co % 8 != 0 || !box_ok ||
+      (tile_n != 128 && tile_n != 160 && tile_n != 256) || splits < 1 ||
+      splits > 9 * ((c + kBK - 1) / kBK) || splits > 65535 || (splits > 1 && partial == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaFuncSetAttribute(conv3x3_igemm_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((co + kTileN - 1) / kTileN, (unsigned)((pixels + kTileM - 1) / kTileM));
-  conv3x3_igemm_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<__nv_bfloat16*>(y), batch, height, width, c, co);
+  const int box_h = 128 / box_w;
+  CUtensorMap map_x;
+  int err = make_map_nhwc(&map_x, x, batch, height, width, c, box_w, box_h);
+  if (err) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* part = static_cast<float*>(partial);
+  switch (tile_n) {
+    case 256:
+      err = launch_bn<256>(map_x, w, y, part, batch, height, width, c, co, box_w, box_h, splits, s);
+      break;
+    case 160:
+      err = launch_bn<160>(map_x, w, y, part, batch, height, width, c, co, box_w, box_h, splits, s);
+      break;
+    default:
+      err = launch_bn<128>(map_x, w, y, part, batch, height, width, c, co, box_w, box_h, splits, s);
+  }
+  if (err || splits == 1) return err;
+  const long long quads = pixels * co / 4;
+  const int blocks = (int)((quads + 255) / 256 < 1056 ? (quads + 255) / 256 : 1056);
+  conv3x3_split_sum_kernel<<<blocks, 256, 0, s>>>(reinterpret_cast<const float4*>(part),
+                                                  static_cast<uint2*>(y), quads, splits);
   return static_cast<int>(cudaGetLastError());
 }

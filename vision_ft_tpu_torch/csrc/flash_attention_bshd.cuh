@@ -1,7 +1,7 @@
-// Shared device helpers of the mma.sync attention kernels (kernel E,
-// flash_attention_masked.cu; kernels H and I, flash_attention_shortk.cu):
-// tile sizes, the bf16 mma.sync wrapper and the shared-memory staging of
-// one head's 64-row tile out of a strided tensor.
+// Device helpers of the mma.sync attention kernels H and I
+// (flash_attention_shortk.cu, their one user): tile sizes, the bf16
+// mma.sync wrapper and the shared-memory staging of one head's 64-row tile
+// out of a strided tensor.
 
 #pragma once
 

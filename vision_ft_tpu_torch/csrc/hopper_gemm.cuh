@@ -1,12 +1,15 @@
 // Shared pieces of the port's Hopper (sm_90a) GEMM pipelines: TMA tensor maps
 // (host; 2-D, 3-D for a batch of strided matrices, 4-D for a strided
-// (B, H, S, C) view), mbarriers, TMA loads and stores, wgmma descriptors
+// (B, H, S, C) view, 4-D for an NHWC image in boxes of pixels over two
+// spatial axes), mbarriers, TMA loads and stores, wgmma descriptors
 // (K-major, and MN-major for a B operand read through the transpose bit)
 // and instructions (A from shared memory, or A from registers: an fp32
 // accumulator rounded into bf16 A fragments, at N = 64, 96 and 128), and a
-// warp-specialized TN main loop. The attention kernels B, C and G
-// (csrc/flash_attention_bshd.cu, _bshd_bwd.cu, _masked_bwd.cu) use the 3-D
-// or 4-D maps, the MN-major descriptor and the register-A forms;
+// warp-specialized TN main loop. The attention kernels B, C, E and G
+// (csrc/flash_attention_bshd.cu, _bshd_bwd.cu, _masked.cu, _masked_bwd.cu)
+// use the 3-D or 4-D maps, the MN-major descriptor and the register-A forms;
+// the 3x3 conv (csrc/conv3x3.cu) the image maps, the TN main loop's
+// consumer and a 4-D TMA store;
 // csrc/flash_attention_bshd_bwd.cu holds each of those forms to one 64 x N
 // product on the card (hopper_wgmma_forms_probe); csrc/nf4_matmul.cu uses
 // the shared-memory-A form with an MN-major B (wgmma_m64n128k16_mn, held to
@@ -140,6 +143,29 @@ inline int make_map_4d(CUtensorMap* map, const void* base, uint64_t batches, uin
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
+// A 4-D tensor map over a contiguous bf16 NHWC tensor (n, h, w, c), c a
+// multiple of 8. A box is 64 channels x box_w x box_h pixels of one image:
+// box_w * box_h rows of 128 bytes, row (y, x) at y * box_w + x, 128-byte
+// swizzle (with box_c = 32: rows of 64 bytes, no swizzle). Loads read zeros
+// at coordinates outside the tensor, negative ones included (a 3x3 conv's
+// padding) and channels at or past c; stores drop them. Coordinates:
+// (channel, x, y, image). Returns 0 or a cudaError_t.
+inline int make_map_nhwc(CUtensorMap* map, const void* base, uint64_t n, uint64_t h, uint64_t w,
+                         uint64_t c, uint32_t box_w, uint32_t box_h, uint32_t box_c = 64) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {c, w, h, n};
+  const cuuint64_t strides[3] = {c * 2, w * c * 2, h * w * c * 2};
+  const cuuint32_t box[4] = {box_c, box_w, box_h, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+      elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      box_c == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
 // Lets KERNEL use `bytes` of dynamic shared memory: once per device.
 template <auto KERNEL>
 int allow_dynamic_smem(int bytes) {
@@ -257,6 +283,16 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void*
                    reinterpret_cast<uint64_t>(map)),
                "r"(smem_u32(src)), "r"(c0), "r"(c1)
                : "memory");
+}
+
+// One box from shared memory to (c0, c1, c2, c3) of a 4-D tensor map.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
 }
 
 __device__ __forceinline__ void tma_store_commit() {
@@ -415,6 +451,40 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 160, fp32, wgmma's accumulator layout) = A (64 x 16) B^T (160 x 16) + (scale_d ? d : 0),
+// A and B bf16, K-major in shared memory, read through descriptors.
+__device__ __forceinline__ void wgmma_m64n160k16(float (&d)[80], uint64_t desc_a, uint64_t desc_b,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79}, "
+      "%80, %81, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
@@ -631,9 +701,11 @@ __device__ __forceinline__ void mma_rs_mn(float (&acc)[N / 2], const uint32_t (&
 
 template <int N>
 __device__ __forceinline__ void wgmma_k16(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b) {
-  static_assert(N == 128 || N == 256, "wgmma widths of the port: 128 and 256");
+  static_assert(N == 128 || N == 160 || N == 256, "wgmma widths of the port: 128, 160 and 256");
   if constexpr (N == 256) {
     wgmma_m64n256k16(d, desc_a, desc_b, 1);
+  } else if constexpr (N == 160) {
+    wgmma_m64n160k16(d, desc_a, desc_b, 1);
   } else {
     wgmma_m64n128k16(d, desc_a, desc_b, 1);
   }

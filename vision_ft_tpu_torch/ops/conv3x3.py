@@ -4,14 +4,18 @@ Counterpart of ``vision_ft_tpu/ops/pallas/conv3x3.py::conv3x3_tpu``, its
 custom VJP and its gate ``conv3x3_supported``. As there, the op is
 available and no model path calls it: ``nn.core.Conv2d`` keeps its own
 route. The forward kernel is CUDA C++, ``csrc/conv3x3.cu`` (an implicit
-GEMM), built for ``sm_90a`` by ``ops/_build.py`` and bound with
-``ctypes``; the backward is, as in the JAX package, the plain conv's.
+GEMM on TMA and wgmma), built for ``sm_90a`` by ``ops/_build.py`` and
+bound with ``ctypes``; the backward is, as in the JAX package, the plain
+conv's.
 
 - :func:`conv3x3_reference` is the plain PyTorch version: ``F.conv2d`` on
   NCHW views, no bias, the output in x's dtype.
 - :func:`conv3x3_backward` gives (dx, dw) through the plain conv, as the
   JAX ``_bwd`` does through ``_xla_conv``.
-- :func:`conv3x3_supported` states what the kernel takes.
+- :func:`conv3x3_supported` states what the kernel takes;
+  :func:`conv_plan` is the launch's shape (pixel box, channel tile, parts
+  of K), from :func:`pixel_box` and :func:`conv_splits`: pure functions of
+  the shape and the card's SM count.
 - :func:`conv3x3` is the wrapper. For a CPU tensor its forward is the
   plain version. For a CUDA tensor it launches the kernel or raises
   ``ValueError`` (not bf16, not contiguous, a shape the gate rejects); it
@@ -34,14 +38,26 @@ import torch.nn.functional as F
 
 from . import _build
 
-_TILE = 128  # output pixels and output channels a block of the kernel owns
+_TILE = 128  # output pixels a block of the kernel owns, and its narrowest channel tile
 _MAX_GRID_Y = 65535
+BOX_WIDTHS = (128, 64, 32, 16, 8)  # pixel boxes of a tile: box_w x (128 // box_w)
+# output channels a block, and the rate of a K step of a tile per output
+# channel against the 128-wide tile's (measured on an H100: a wider tile
+# reads its A tile once for more products)
+TILE_RATES = {256: 1.2, 160: 1.17, 128: 1.0}
+STEP_C = 64  # channels a K step of one tap
+MAX_SPLITS = 8
+# conv_splits' cost model, in units of one K step of one block: each part's
+# fp32 partial of a tile is written and read back (about a tenth of a
+# step's time on the card), and the sum is one more launch
+SPLIT_TILE_COST, SPLIT_LAUNCH_COST = 0.1, 10.0
 
 
 def conv3x3_supported(x_shape, co: int) -> bool:
-    """What kernel K takes: x (B, H, W, C) with C % 16 == 0 (its 16-wide
-    contraction step; channels are never read past C), CO % 8 == 0, at
-    least one pixel, and at most 65535 * 128 output pixels (its grid).
+    """What kernel K takes: x (B, H, W, C) with C % 16 == 0 (32-byte pixel
+    rows for its tensor maps; channels past C are read as TMA's zeros),
+    CO % 8 == 0, at least one pixel, and at most 65535 * 128 output pixels
+    (the first design's grid, a limit kept so that the gate is unchanged).
 
     The JAX gate (``_pick_blocks``) asks instead whether a block of rows
     and the weights fit the TPU's VMEM: it takes channel counts this
@@ -55,6 +71,55 @@ def conv3x3_supported(x_shape, co: int) -> bool:
     pixels = b * h * w
     return (c > 0 and c % 16 == 0 and co > 0 and co % 8 == 0
             and 0 < pixels <= _MAX_GRID_Y * _TILE)
+
+
+def pixel_box(height: int, width: int) -> int:
+    """The width of a tile's pixel box (its height is 128 // width): the
+    box of ``BOX_WIDTHS`` whose tiles cover an H x W image in the fewest,
+    the wider on a tie. SDXL's square stages take whole rows (128 x 1 at
+    W = 128); the 832 x 1216 bucket's 104 x 152 latents 32 x 4 boxes."""
+    def tiles(box_w):
+        return -(-width // box_w) * -(-height // (_TILE // box_w))
+    return min(BOX_WIDTHS, key=lambda box_w: (tiles(box_w), -box_w))
+
+
+def _cost(tiles: int, steps: int, splits: int, sms: int) -> float:
+    """Waves of blocks times K steps a part, plus the partials' round trip
+    and the sum's launch when K is cut: in K steps of one block."""
+    waves = -(-tiles * splits // sms) * -(-steps // splits)
+    if splits == 1:
+        return waves
+    return waves + SPLIT_LAUNCH_COST + SPLIT_TILE_COST * splits * tiles
+
+
+def conv_splits(tiles: int, steps: int, sms: int) -> int:
+    """Parts the kernel cuts its ``steps`` K steps (9 taps x ceil(C / 64))
+    into when its ``tiles`` (pixel box, channel tile) blocks fill ``sms``
+    SMs badly: the count, at most ``MAX_SPLITS`` and no more than there are
+    steps, of least cost (:func:`_cost`); 1 on a tie."""
+    return min(range(1, min(MAX_SPLITS, steps) + 1),
+               key=lambda splits: (_cost(tiles, steps, splits, sms), splits))
+
+
+@functools.lru_cache(maxsize=256)
+def conv_plan(x_shape, co: int, sms: int) -> tuple[int, int, int]:
+    """(box_w, tile_n, splits) of kernel K's launch for x (B, H, W, C) ->
+    CO on ``sms`` SMs: the pixel box's width (:func:`pixel_box`), the output
+    channels a block (128, or a width of ``TILE_RATES`` that divides CO)
+    and the parts of K (:func:`conv_splits`), the tile width of least cost
+    per unit of its rate (the narrower on a tie)."""
+    b, h, w, c = x_shape
+    box_w = pixel_box(h, w)
+    steps = 9 * -(-c // STEP_C)
+    plans = []
+    for tile_n, rate in TILE_RATES.items():
+        if co % tile_n and tile_n != _TILE:
+            continue
+        tiles = b * -(-w // box_w) * -(-h // (_TILE // box_w)) * -(-co // tile_n)
+        splits = conv_splits(tiles, steps, sms)
+        plans.append((_cost(tiles, steps, splits, sms) * tile_n / rate, tile_n, splits))
+    _, tile_n, splits = min(plans)
+    return box_w, tile_n, splits
 
 
 def conv3x3_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -80,7 +145,7 @@ def repack_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 @functools.cache
 def _kernel():
     fn = _build.cuda_library("conv3x3").conv3x3_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -110,9 +175,14 @@ def conv3x3_forward(x: torch.Tensor, w_packed: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"conv3x3 kernel takes a contiguous (CO, 3, 3, {c}) {x.dtype} weight, "
                          f"got {w_packed.dtype} {tuple(w_packed.shape)}")
     y = torch.empty((b, h, width, co), device=x.device, dtype=x.dtype)
+    box_w, tile_n, splits = conv_plan(
+        tuple(x.shape), co, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    partial = (torch.empty((splits, b, h, width, co), device=x.device, dtype=torch.float32)
+               if splits > 1 else None)
     with torch.cuda.device(x.device):
-        err = _kernel()(x.data_ptr(), w_packed.data_ptr(), y.data_ptr(), b, h, width, c, co,
-                        torch.cuda.current_stream(x.device).cuda_stream)
+        err = _kernel()(x.data_ptr(), w_packed.data_ptr(), y.data_ptr(),
+                        None if partial is None else partial.data_ptr(), b, h, width, c, co,
+                        box_w, tile_n, splits, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"conv3x3 launch failed: CUDA error {err}")
     conv3x3.launches += 1

@@ -529,7 +529,7 @@ def _masked_backward_kernels():
 
 
 def _aligned(t: torch.Tensor) -> bool:
-    """16-byte vector loads (kernel E) and TMA tensor maps (kernel G): unit
+    """The TMA tensor maps of kernels E and G: unit
     last stride, 8-element batch, head and row strides, a 16-byte aligned
     start."""
     return t.stride(3) == 1 and not any(t.stride(i) % 8 for i in range(3)) and t.data_ptr() % 16 == 0

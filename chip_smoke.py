@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (vision_ft_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--profile] [--kernel-d]
+    python3 chip_smoke.py [--profile] [--kernel-d] [--trace-kernels]
 
 With --profile, phases 6 and 8 also trace two train steps with
 torch.profiler (device activity only) and print the device time of a step
@@ -10,16 +10,20 @@ idle, phase 8 the host's cost of one Linear call, dense and on each NF4
 route, phase 4 the same breakdown of the warm SDXL request (c) (kernel B's
 device ms on its own line), phase 12 of one Lumina2 denoise step and phase
 14 of one Lumina2 train step (kernel G's and E's device ms on their own
-lines). With --kernel-d, only phases 0, 7 and the
-build of kernel D's library run (no ok line).
+lines), phase 16 of the 1024 px request with the short-K kernels (kernel
+H's device ms on its own line). With --kernel-d, only phases 0, 7 and the
+build of kernel D's library run (no ok line). With --trace-kernels, only
+phase 0 and the trace of phase 18 run: 10 calls each of kernels H, J and K
+and of H's and J's library calls under torch.profiler, printed as one JSON
+line (no ok line); phase 18 runs it so, in a process of its own.
 
 Phases, each printing its own lines; any failure exits non-zero:
 
 0. device: needs torch.cuda; prints the card's name and power limit and
    sets fp32 matmuls and convolutions to full fp32 (no TF32).
 1. build: compiles the CUDA kernels with nvcc (sm_90a, one nvcc per source,
-   started together) and the Triton kernels (LayerNorm, GroupNorm), from
-   the sources in this checkout.
+   started together) and the Triton kernel (LayerNorm), from the sources in
+   this checkout.
 2. kernel B, BSHD flash attention forward, against its plain PyTorch
    version in bf16 at the SDXL self-attention shapes of the requests
    (aligned and ragged, batch 2) and of the train step (batch 4); reruns
@@ -102,7 +106,8 @@ Phases, each printing its own lines; any failure exits non-zero:
     their plain versions at the requests', the ragged buckets' and the
     train step's shapes (77 and 152 keys), at 192 keys, head dim 128 and
     with a batch entry of zero q rows; reruns bit-identical; SDPA's forward
-    and backward beside them.
+    and backward beside them, H's and SDPA's time a call over 10 calls back
+    to back, H's TFLOP/s and GB/s and its share of the bound.
 16. SDXL requests with the switches on, the SDXL model made again on the
     card: the 1024 px request with set_flash_shortk(True) (kernel H in
     every cross-attention) and with set_fused_ff("on") (kernel F in every
@@ -128,8 +133,11 @@ Phases, each printing its own lines; any failure exits non-zero:
     of F.conv2d; one SDXL resnet body (GN + SiLU -> conv -> GN + SiLU -> conv
     + residual, forward and backward) through the ops, with the launch
     counts of that path and of the probe's cases, against the same path on
-    the plain versions and against nn.core's modules; one call of J and one
-    of K traced by torch.profiler (the card's time by kernel); then L, the
+    the plain versions and against nn.core's modules; J's launches a call
+    (one); 10 calls each of H, J and K and of SDPA and F.group_norm +
+    F.silu traced by torch.profiler in a process of its own (the card's
+    time a call by kernel; each kernel must show one launch a call); then
+    L, the
     ragged-tile probe, as a user runs it (its own process, `partial_blocks:
     true`, with its TMA case: the 128-byte swizzled tensor maps kernel F
     reads and writes through), and its copy kernels timed against
@@ -478,8 +486,9 @@ def plain_versions():
 
 # kernel-name fragments -> kind, first match wins (torch.profiler's names)
 KERNEL_KINDS = [
-    ("group_norm_stats", "kernel J stats"), ("group_norm_apply", "kernel J normalize"),
-    ("conv3x3_igemm", "kernel K"), ("partial_block_copy", "kernel L copy"),
+    ("gn_fused_kernel", "kernel J"),
+    ("conv3x3_split_sum", "kernel K split sum"), ("conv3x3_kernel", "kernel K"),
+    ("partial_block_copy", "kernel L copy"),
     ("partial_block_lastaxis", "kernel L last axis"), ("partial_block_tma", "kernel L TMA"),
     ("flash_bwd_dkv_masked", "kernel G dk/dv"), ("flash_bwd_dq_masked", "kernel G dq"),
     ("flash_fwd_masked", "kernel E"), ("gated_up_kernel", "kernel F up"),
@@ -493,6 +502,8 @@ KERNEL_KINDS = [
     ("multi_tensor", "optimizer / clipping (foreach)"),
     ("nvjet", "matmul (cuBLAS)"), ("gemm", "matmul (cuBLAS)"), ("gemv", "matmul (cuBLAS)"),
     ("cutlass", "matmul (cuBLAS)"), ("xmma", "matmul (cuBLAS)"), ("splitK", "matmul (cuBLAS)"),
+    ("sdpa", "attention (SDPA)"), ("pytorch_flash", "attention (SDPA)"),
+    ("fmha", "attention (SDPA)"),
     ("conv", "conv (cuDNN)"), ("cudnn", "conv (cuDNN)"), ("nchw", "conv (cuDNN)"),
     ("nhwc", "conv (cuDNN)"), ("dgrad", "conv (cuDNN)"), ("wgrad", "conv (cuDNN)"),
     ("group_norm", "group_norm"), ("GroupNorm", "group_norm"), ("RowwiseMoments", "group_norm"),
@@ -593,6 +604,47 @@ def linear_host_cost(device) -> None:
         finally:
             tnn.set_nf4_route("fused")
         print(f"  {name + (' ' + route if route else ''):12s} {forward_us:7.1f} us, {both_us:7.1f} us")
+
+
+def trace_kernels(device, gen) -> dict:
+    """10 calls each of kernel H at its record's shape, of J (+ SiLU) and K
+    at theirs, and of SDPA and F.group_norm + F.silu on the same inputs,
+    each traced by torch.profiler: {label: {"kinds": {kind: [ms, launches]},
+    "kernel": the kind that must show one launch a call, or None, "counted":
+    the wrapper's launch count over the 10 calls}}."""
+    from vision_ft_tpu_torch.ops.conv3x3 import conv3x3
+    from vision_ft_tpu_torch.ops.flash_attention import flash_attention_shortk
+    from vision_ft_tpu_torch.ops.group_norm import group_norm
+
+    b, h, sq, sk, d, _ = SHORTK_SHAPES[0]
+    q, k, v = (torch.randn(b, s_, h * d, device=device, generator=gen).bfloat16()
+               .view(b, s_, h, d).transpose(1, 2) for s_ in (sq, sk, sk))
+    x = torch.randn(GN_SHAPES[0][0], device=device, generator=gen).bfloat16()
+    affine = torch.ones(x.shape[-1], device=device, dtype=torch.bfloat16)
+    shape, co = CONV_SHAPES[1]
+    x2 = torch.randn(shape, device=device, generator=gen).bfloat16()
+    w = (torch.randn(co, shape[-1], 3, 3, device=device, generator=gen)
+         / (3 * shape[-1] ** 0.5)).bfloat16()
+    cases = [
+        (f"kernel H {(b, h, sq, sk, d)}", flash_attention_shortk,
+         lambda: flash_attention_shortk(q, k, v, return_lse=True), "kernel H"),
+        (f"SDPA {(b, h, sq, sk, d)}", None,
+         lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), None),
+        (f"group_norm + SiLU {tuple(x.shape)}", group_norm,
+         lambda: group_norm(x, affine, affine, 32, 1e-5, "silu"), "kernel J"),
+        (f"F.group_norm + F.silu {tuple(x.shape)}", None,
+         lambda: F.silu(F.group_norm(x.movedim(-1, 1), 32, affine, affine, 1e-5)), None),
+        (f"conv3x3 {shape} -> {co} (with the weight repack)", conv3x3,
+         lambda: conv3x3(x2, w), "kernel K"),
+    ]
+    traces = {}
+    for label, wrapper, call, kernel in cases:
+        call()
+        before = wrapper.launches if wrapper else 0
+        kinds, _ = profile_window(lambda: [call() for _ in range(10)])
+        traces[label] = dict(kinds=kinds, kernel=kernel,
+                             counted=wrapper.launches - before if wrapper else None)
+    return traces
 
 
 def kernel_d_phase(device, gen) -> dict:
@@ -705,6 +757,9 @@ def main() -> None:
     args.add_argument("--kernel-d", action="store_true",
                       help="run phase 7 alone (kernel D vs plain, timed) after building its "
                            "library; prints its records, not the ok line")
+    args.add_argument("--trace-kernels", action="store_true",
+                      help="trace 10 calls each of kernels H, J, K and of H's and J's library "
+                           "calls in this process alone; prints one JSON line, not the ok line")
     options = args.parse_args()
 
     phase("0 device")
@@ -746,7 +801,7 @@ def main() -> None:
     from vision_ft_tpu_torch.ops.conv3x3 import (
         conv3x3, conv3x3_forward, conv3x3_reference, conv_plan, repack_weight,
     )
-    from vision_ft_tpu_torch.ops.group_norm import group_norm, group_norm_reference
+    from vision_ft_tpu_torch.ops.group_norm import gn_plan, group_norm, group_norm_reference
     from vision_ft_tpu_torch.ops.layer_norm import layer_norm, layer_norm_reference
     from vision_ft_tpu_torch.ops.nf4_matmul import nf4_matmul_dx, nf4_matmul_forward
     from vision_ft_tpu_torch.tools import partial_block_probe as probe
@@ -781,6 +836,11 @@ def main() -> None:
     def read_launches():
         return {name: wrapper.launches for name, wrapper in wrappers.items()}
 
+    if options.trace_kernels:
+        _build.build_cuda_libraries(["flash_attention_shortk", "group_norm", "conv3x3"])
+        print(json.dumps({"traces": trace_kernels(device, torch.Generator(device=device).manual_seed(0))}))
+        return
+
     if options.kernel_d:
         phase("1 build (kernel D's library only)")
         _build.build_cuda_libraries(["nf4_matmul"])
@@ -793,21 +853,17 @@ def main() -> None:
     start = time.perf_counter()
     cuda_sources = ["flash_attention_bshd", "flash_attention_bshd_bwd", "nf4_matmul",
                     "flash_attention_masked", "fused_mlp", "flash_attention_masked_bwd",
-                    "flash_attention_shortk", "conv3x3", "partial_block_probe"]
+                    "flash_attention_shortk", "group_norm", "conv3x3", "partial_block_probe"]
     _build.build_cuda_libraries(cuda_sources)
     nvcc_s = time.perf_counter() - start
     start = time.perf_counter()
     for c, beta in sorted({(c, beta) for _, c, beta in LN_SHAPES}):
         w = torch.ones(c, device=device, dtype=torch.bfloat16)
         layer_norm(torch.ones(4, c, device=device, dtype=torch.bfloat16), w, w if beta else None)
-    for c, act in sorted({(shape[-1], act) for shape, _ in GN_SHAPES for act in ("", "silu")}):
-        w = torch.ones(c, device=device, dtype=torch.bfloat16)
-        group_norm(torch.ones(1, 64, c, device=device, dtype=torch.bfloat16), w, w, 32, 1e-5,
-                   act or None)
     torch.cuda.synchronize()
     triton_s = time.perf_counter() - start
     print(f"nvcc {', '.join(n + '.cu' for n in cuda_sources)} (in parallel): {nvcc_s:.2f} s; "
-          f"triton layer_norm and group_norm (load + first launches): {triton_s:.2f} s")
+          f"triton layer_norm (load + first launches): {triton_s:.2f} s")
 
     records = {}
     gen = torch.Generator(device=device).manual_seed(0)
@@ -2083,17 +2139,24 @@ def main() -> None:
         sdpa = torch.nn.functional.scaled_dot_product_attention
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         sdpa_fwd_ms = cuda_ms(lambda: sdpa(q, k, v))
+        fwd_burst_ms = burst_ms(lambda: flash_attention_shortk(q, k, v, return_lse=True))
+        sdpa_burst_ms = burst_ms(lambda: sdpa(q, k, v))
         sdpa_out = sdpa(*leaves)
         sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(sdpa_out, leaves, dout, retain_graph=True))
         q_bytes, k_bytes, row_bytes = b * h * sq * d * 2, b * h * sk * d * 2, b * h * sq * 4
-        fwd_bound = bound(2 * q_bytes + 2 * k_bytes + row_bytes, 4 * b * h * sq * sk * d)
+        fwd_bytes, fwd_flops = 2 * q_bytes + 2 * k_bytes + row_bytes, 4 * b * h * sq * sk * d
+        fwd_bound = bound(fwd_bytes, fwd_flops)
         # S, dP, dV, dK, dQ: 5 products; q, dO, dq, k, v, dk, dv, lse, delta
         bwd_bound = bound(3 * q_bytes + 4 * k_bytes + 2 * row_bytes, 10 * b * h * sq * sk * d)
         print(f"B={b} H={h} Sq={sq} Sk={sk} D={d}{' zero q batch' if zero_batch else ''}: forward "
               f"max abs err {fwd_err[0]:.3e} rel {fwd_err[1]:.3e} (tol {SHORTK_TOL}), "
               + ", ".join(f"{n} {a:.3e} rel {r:.3e}" for n, (a, r) in bwd_err.items())
-              + f" (tol {SHORTK_BWD_TOL}), reruns bit-identical; kernel H {fwd_ms:.4f} ms (plain "
-              f"{plain_fwd_ms:.3f}, bound {fwd_bound[0]:.4f} {fwd_bound[1]}, SDPA {sdpa_fwd_ms:.4f}), "
+              + f" (tol {SHORTK_BWD_TOL}), reruns bit-identical; kernel H {fwd_ms:.4f} ms "
+              f"({fwd_flops / fwd_ms / 1e9:.1f} TFLOP/s, {fwd_bytes / fwd_ms / 1e6:.0f} GB/s, "
+              f"{100 * fwd_bound[0] / fwd_ms:.1f}% of the bound; {fwd_burst_ms:.4f} ms a call over "
+              f"10 back to back, {100 * fwd_bound[0] / fwd_burst_ms:.1f}%) (plain "
+              f"{plain_fwd_ms:.3f}, bound {fwd_bound[0]:.4f} {fwd_bound[1]}, SDPA {sdpa_fwd_ms:.4f}, "
+              f"{sdpa_burst_ms:.4f} back to back), "
               f"kernel I {bwd_ms:.4f} ms (plain {plain_bwd_ms:.3f}, bound {bwd_bound[0]:.4f} "
               f"{bwd_bound[1]}, SDPA backward {sdpa_bwd_ms:.4f})")
         h_errs.append(fwd_err[0])
@@ -2161,6 +2224,14 @@ def main() -> None:
             raise AssertionError(f"request with {label} on: latents off by {err:.3e}")
         if launches != want:
             raise AssertionError(f"request with {label} on: launch counts {launches} != {want}")
+        if options.profile and kernel == "flash_attention_shortk":
+            set_flash_shortk(True)
+            try:
+                kinds = profile_steps(lambda: model.generate(num_inference_steps=STEPS, **kwargs),
+                                      seconds * 1e3, "1024 px request with the short-K kernels")
+            finally:
+                set_flash_shortk(False)
+            print_kernel_ms(kinds, ["kernel H"], "1024 px request with the short-K kernels")
     del base_latents, latents
 
     phase("17 the Trainer at full SDXL width: checkpoint, datasets, LoRA, saving, preview")
@@ -2359,26 +2430,37 @@ def main() -> None:
                 y = F.group_norm(nchw(x), 32, gamma, beta, eps)
                 return F.silu(y) if act else y
 
+            before = group_norm.launches
             abs_err, rel_err = compare(f"group_norm {shape} {act}", kernel, plain, GN_TOL)
+            if group_norm.launches != before + 1:
+                raise AssertionError(f"group_norm {shape}: {group_norm.launches - before} "
+                                     f"launches a call, not one")
             assert_reruns(f"group_norm {shape} {act}", kernel)
             ms = cuda_ms(kernel, iters=50)
+            back_to_back_ms = burst_ms(kernel)
             plain_ms = cuda_ms(plain, iters=5)
             library_ms = cuda_ms(library, iters=50)
+            library_burst_ms = burst_ms(library)
             nbytes = 2 * x.numel() * 2 + 2 * c * 2
             # sum and square (3), normalize and affine (4), SiLU (4): fp32
             bound_ms, bound_by = bound(nbytes, (11 if act else 7) * x.numel(), PEAK_FP32_FLOPS)
-            print(f"{shape} eps {eps} {act or 'no act'}: max abs err {abs_err:.3e} rel "
-                  f"{rel_err:.3e} (tol {GN_TOL}), reruns bit-identical; kernel J {ms:.4f} ms "
-                  f"({nbytes / ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} ms, F.group_norm"
-                  f"{' + F.silu' if act else ''} {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
-                  f"({bound_by})")
+            plan = gn_plan(shape[0], x.numel() // (shape[0] * c), c, 32, 2,
+                           torch.cuda.get_device_properties(device).multi_processor_count)
+            print(f"{shape} eps {eps} {act or 'no act'} ({plan.blocks} blocks of "
+                  f"{plan.rows} rows): max abs err {abs_err:.3e} rel {rel_err:.3e} (tol "
+                  f"{GN_TOL}), one launch a call, reruns bit-identical; kernel J {ms:.4f} ms "
+                  f"({nbytes / ms / 1e6:.0f} GB/s, {100 * bound_ms / ms:.1f}% of the bound; "
+                  f"{back_to_back_ms:.4f} ms a call over 10 back to back, "
+                  f"{100 * bound_ms / back_to_back_ms:.1f}%), plain {plain_ms:.4f} ms, "
+                  f"F.group_norm{' + F.silu' if act else ''} {library_ms:.4f} ms "
+                  f"({library_burst_ms:.4f} back to back), bound {bound_ms:.5f} ms ({bound_by})")
             errs.append(abs_err)
             rows.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                              library_ms=library_ms))
     del x
     # the record: the UNet's GroupNorm + SiLU at the request's first stage
     records["group_norm"] = dict(
-        route="triton", source="vision_ft_tpu_torch/csrc/group_norm.py",
+        route="cuda", source="vision_ft_tpu_torch/csrc/group_norm.cu",
         replaces="vision_ft_tpu/ops/pallas/group_norm.py:33", max_abs_err=max(errs), **rows[1])
 
     # dx, dgamma, dbeta through the autograd.Function against autograd of the plain forward
@@ -2531,25 +2613,27 @@ def main() -> None:
           f"{core_ms:.3f} ms (measured only: nothing is wired in)")
     del core, leaves, x_leaf, x, w, dy
 
-    # one call of kernel J and one of K at their records' shapes, traced: the card's time
-    # by kernel beside the CUDA-event times above, which count the host's launches too
-    x = torch.randn(GN_SHAPES[0][0], device=device, generator=gen).bfloat16()
-    affine = torch.ones(x.shape[-1], device=device, dtype=torch.bfloat16)
-    shape, co = CONV_SHAPES[1]
-    x2 = torch.randn(shape, device=device, generator=gen).bfloat16()
-    w = (torch.randn(co, shape[-1], 3, 3, device=device, generator=gen)
-         / (3 * shape[-1] ** 0.5)).bfloat16()
-    for label, call in (
-        (f"group_norm + SiLU {tuple(x.shape)}",
-         lambda: group_norm(x, affine, affine, 32, 1e-5, "silu")),
-        (f"conv3x3 {shape} -> {co} (with the weight repack)", lambda: conv3x3(x2, w)),
-    ):
-        call()
-        kinds, _ = profile_window(call)
-        print(f"one {label} call, device time by kind (torch.profiler): "
-              + ", ".join(f"{kind} {ms:.4f} ms in {n}" for kind, (ms, n) in sorted(kinds.items()))
-              + f"; {sum(ms for ms, _ in kinds.values()):.4f} ms in all")
-    del x, x2, w
+    # kernels H, J and K traced over 10 calls in a process of their own (the profiler
+    # has shown nothing at all late in a long run): the card's time a call by kernel
+    # beside the CUDA-event times above, which count the host's launches too
+    proc = subprocess.run([sys.executable, str(checkout / "chip_smoke.py"), "--trace-kernels"],
+                          cwd=checkout, capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"chip_smoke.py --trace-kernels failed (exit {proc.returncode}): "
+                             f"{proc.stderr[-2000:]}")
+    for label, trace in json.loads(lines[-1])["traces"].items():
+        kinds, only = trace["kinds"], trace["kernel"]
+        print(f"{label}, 10 calls traced in a fresh process, device time by kind "
+              f"(torch.profiler): "
+              + ", ".join(f"{kind} {ms / n:.4f} ms a launch in {n}"
+                          for kind, (ms, n) in sorted(kinds.items()))
+              + f"; {sum(ms for ms, _ in kinds.values()) / 10:.4f} ms a call in all"
+              + (f"; counted launches {trace['counted']}" if only else ""))
+        if only and (not 9 <= kinds.get(only, (0, 0))[1] <= 10 or trace["counted"] != 10):
+            # the profiler may miss the first launch of a window, never more
+            raise AssertionError(f"{label}: {kinds} in 10 calls ({trace['counted']} counted), "
+                                 f"not one launch of {only} a call")
 
     # kernel L: the probe tool as a user runs it, in its own process
     proc = subprocess.run([sys.executable, "-m", "vision_ft_tpu_torch.tools.partial_block_probe"],

@@ -40,7 +40,10 @@ from vision_ft_tpu_torch.ops.fused_mlp import (
 from vision_ft_tpu_torch.modules.quant.nf4 import quantize_4bit
 from vision_ft_tpu_torch.ops import _build, nf4_matmul as nf4
 from vision_ft_tpu_torch.ops.layer_norm import layer_norm, layer_norm_reference
-from vision_ft_tpu_torch.ops.group_norm import group_norm, group_norm_backward, group_norm_reference
+from vision_ft_tpu_torch.ops import group_norm as group_norm_module
+from vision_ft_tpu_torch.ops.group_norm import (
+    gn_plan, group_norm, group_norm_backward, group_norm_reference,
+)
 from vision_ft_tpu_torch.ops import conv3x3 as conv3x3_module
 from vision_ft_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_backward, conv3x3_reference
 from vision_ft_tpu_torch.tools import partial_block_probe as probe
@@ -246,17 +249,22 @@ def _wgmma_forms_probe(a, b, n, register_a):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,register_a", [(64, True), (96, True), (128, True), (64, False)],
-                         ids=["rs-n64-mn-major", "rs-n96-mn-major", "rs-n128-mn-major",
-                              "ss-n64-k-major"])
+@pytest.mark.parametrize(
+    "n,register_a",
+    [(64, True), (96, True), (128, True), (64, False), (80, False), (96, False), (128, False),
+     (160, False), (192, False)],
+    ids=["rs-n64-mn-major", "rs-n96-mn-major", "rs-n128-mn-major", "ss-n64-k-major",
+         "ss-n80-k-major", "ss-n96-k-major", "ss-n128-k-major", "ss-n160-k-major",
+         "ss-n192-k-major"])
 def test_hopper_wgmma_forms_one_tile_on_card(cuda, n, register_a):
-    """Each wgmma form kernels C and G take from hopper_gemm.cuh on one 64 x
-    n product: a 3-D tensor map's TMA load, A from registers through
+    """Each wgmma form kernels C, G and H take from hopper_gemm.cuh on one
+    64 x n product: a 3-D tensor map's TMA load, A from registers through
     acc_to_a_fragments with B read MN-major (desc_sw128_mn, trans-b; at n =
     128 across two boxes, the leading byte offset; at n = 96, kernel G's
     head dim, the first half of the second box, whose last 32 columns TMA
-    filled with zeros), and the shared-memory m64n64k16 with both operands
-    K-major. Small integers: every product and
+    filled with zeros), and the shared-memory m64nNk16 with both operands
+    K-major, B one box of n rows (kernel H's scores over 64 to 192 padded
+    keys: 80 for SDXL's 77). Small integers: every product and
     sum is exact in fp32, so the result must equal the float64 product."""
     g = torch.Generator(device=cuda).manual_seed(5)
     a = torch.randint(-3, 4, (64, 64), device=cuda, generator=g).bfloat16()
@@ -957,6 +965,13 @@ SHORTK_SHAPES = [
     (1, 4, 300, 192, 64, False),    # SHORTK_MAX keys
     (1, 4, 300, 5, 128, False),     # head dim 128, few keys
     (2, 4, 200, 77, 64, True),      # a batch entry of zero (padding) q rows
+    (1, 2, 1, 1, 64, False),        # one q row, one key: 2 work items, fewer than the SMs
+    (1, 3, 63, 33, 64, False),      # 33 keys: 31 pad keys in a 64-key box
+    (2, 2, 65, 96, 64, False),      # 96 keys, no pad key
+    (1, 4, 129, 97, 128, False),    # one row in the last tile; 97 keys at head dim 128
+    (2, 5, 3952, 160, 64, False),   # 160 keys, no pad; 620 items over the SMs
+    (1, 3, 200, 191, 128, False),   # 191 keys at head dim 128
+    (2, 8, 1024, 192, 128, False),  # SHORTK_MAX keys at head dim 128: one K/V buffer
 ]
 
 
@@ -986,6 +1001,57 @@ def test_shortk_kernels_match_plain_on_card(cuda, b, h, sq, sk, d, zero_batch):
         assert torch.isfinite(got).all(), name
         err = (got.float() - ref.float()).abs().max().item()
         assert err <= BF16_SHORTK_BWD_TOL * ref.float().abs().max().item(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_shortk_kernel_reads_views_of_one_fused_tensor_on_card(cuda, d):
+    """Kernel H reads q, k and v as strided views of one (B, S, 3*H*D)
+    tensor in place, writes out in q's memory order ((B, S, H, D) dense) and
+    reruns bit-identical."""
+    b, h, s = 2, 3, 300
+    g = torch.Generator(device=cuda).manual_seed(4)
+    fused = torch.randn(b, s, 3 * h * d, device=cuda, generator=g).bfloat16()
+    q, k, v = (t.view(b, s, h, d).transpose(1, 2) for t in fused.chunk(3, -1))
+    k, v = k[:, :, :77], v[:, :, :77]  # 77 keys: the first rows of the same tensor
+    assert not q.is_contiguous() and q.stride() == (s * 3 * h * d, d, 3 * h * d, 1)
+    before = flash_attention_shortk.launches
+    out = flash_attention_shortk(q, k, v)
+    assert flash_attention_shortk.launches == before + 1
+    assert out.stride() == torch.empty_like(q).stride() == (s * h * d, d, h * d, 1)
+    assert torch.equal(out, flash_attention_shortk(q, k, v))
+    want = flash_attention_shortk_reference(q.contiguous(), k.contiguous(), v.contiguous())
+    assert (out.float() - want.float()).abs().max().item() <= (
+        BF16_SHORTK_TOL * want.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sk,d", [(77, 64), (152, 64), (40, 128)])
+def test_shortk_lse_feeds_kernel_i_on_card(cuda, sk, d):
+    """Kernel H's lse (natural log, (B, H, Sq)) is the plain version's, and
+    kernel I's gradients from it are those from the plain lse."""
+    q, k, v, dout = _shortk_inputs(cuda, 2, 4, 1000, sk, d, seed=6)
+    out, lse = flash_attention_shortk(q, k, v, return_lse=True)
+    want_out, want_lse = flash_attention_shortk_reference(q, k, v, return_lse=True)
+    assert lse.shape == (2, 4, 1000) and lse.dtype == torch.float32 and lse.is_contiguous()
+    assert (lse - want_lse).abs().max().item() <= 1e-3 * want_lse.abs().max().item() + 1e-3
+    got = flash_attention_shortk_backward(q, k, v, out, lse, dout)
+    want = flash_attention_shortk_backward(q, k, v, out, want_lse, dout)
+    for name, g_, w in zip(("dq", "dk", "dv"), got, want):
+        err = (g_.float() - w.float()).abs().max().item()
+        assert err <= BF16_SHORTK_BWD_TOL * w.float().abs().max().item(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [-0.125, 0.0])
+def test_shortk_kernel_rejects_nonpositive_scale_on_card(cuda, scale):
+    """Kernel H takes its row max on the raw scores, the max of the scaled
+    ones only for scale > 0: anything else raises, launching nothing."""
+    q, k, v, _ = _shortk_inputs(cuda, 1, 2, 64, 77, 64)
+    before = flash_attention_shortk.launches
+    with pytest.raises(ValueError, match="scale > 0"):
+        flash_attention_shortk(q, k, v, scale=scale)
+    assert flash_attention_shortk.launches == before
 
 
 @pytest.mark.cuda
@@ -1068,6 +1134,58 @@ def test_group_norm_kernel_matches_plain_on_card(cuda, shape, groups, dtype, act
     tol = BF16_GN_TOL if dtype == torch.bfloat16 else FP32_GN_TOL
     assert _rel_err(got, want) < tol
     assert torch.equal(got, group_norm(x, gamma, beta, groups, 1e-5, act))  # reruns
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", [None, "silu"])
+@pytest.mark.parametrize("shape,groups,dtype,rounds", [
+    ((2, 128, 128, 320), 32, torch.bfloat16, 1),    # the UNet at 1024 px: 21 MB
+    ((4, 128, 128, 320), 32, torch.bfloat16, 1),    # batch 4: 42 MB
+    ((2, 64, 64, 320), 32, torch.float32, 1),
+    ((2, 128, 128, 320), 32, torch.float32, 1),
+    ((2, 16, 16, 128), 32, torch.bfloat16, 1),      # C / G = 4
+    ((1, 32, 32, 2560), 32, torch.bfloat16, 1),     # C / G = 80
+    ((2, 8, 8, 96), 24, torch.float32, 1),          # C 96, C / G = 4
+    ((1, 256, 256, 512), 32, torch.bfloat16, 1),    # the VAE's 256 x 256 stage
+    ((200, 8, 8, 64), 32, torch.bfloat16, 2),       # more batch entries than SMs: rounds
+    ((2, 8, 8, 12), 4, torch.bfloat16, 1),          # 24-byte rows: 8-byte vectors
+    ((2, 8, 8, 6), 3, torch.float32, 1),            # 24-byte rows, fp32
+])
+def test_group_norm_kernel_across_sizes_and_rounds_on_card(cuda, shape, groups, dtype, rounds,
+                                                           act):
+    """Kernel J from a few rows to the VAE's 67 MB, bf16 and fp32, in one
+    round of items or several: one launch, the plain version's values,
+    reruns bit-identical."""
+    x, gamma, beta = _gn_inputs(cuda, shape, dtype, seed=3)
+    b, c = shape[0], shape[-1]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = gn_plan(b, x.numel() // (b * c), c, groups, x.element_size(), sms)
+    assert -(-b * plan.parts // plan.blocks) == rounds
+    before = group_norm.launches
+    got = group_norm(x, gamma, beta, groups, 1e-5, act)
+    assert group_norm.launches == before + 1
+    want = group_norm_reference(x, gamma, beta, groups, 1e-5, act)
+    tol = BF16_GN_TOL if dtype == torch.bfloat16 else FP32_GN_TOL
+    assert _rel_err(got, want) < tol
+    assert torch.equal(got, group_norm(x, gamma, beta, groups, 1e-5, act))  # reruns
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["grid too large", "parts in rounds"])
+def test_group_norm_kernel_raises_on_a_grid_that_cannot_be_resident_on_card(cuda, case):
+    """The cooperative launch refuses a grid larger than the card holds at
+    once, and the C entry a plan that runs a batch entry's parts in
+    separate rounds (a block would combine partials not yet written); the
+    wrapper raises, and nothing falls back."""
+    x, gamma, beta = _gn_inputs(cuda, (2, 8, 8, 64), torch.bfloat16)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = gn_plan(2, 64, 64, 8, 2, sms)
+    assert plan.parts > 1
+    plan = plan._replace(blocks=64 * sms if case == "grid too large" else plan.parts)
+    before = group_norm.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        group_norm_module._launch(x, gamma, beta, 8, 1e-5, None, plan)
+    assert group_norm.launches == before
 
 
 @pytest.mark.cuda

@@ -17,8 +17,8 @@ from vision_ft_tpu.ops.pallas.group_norm import supported as jax_supported
 from vision_ft_tpu_torch.ops.group_norm import (
     group_norm,
     group_norm_backward,
+    gn_plan,
     group_norm_reference,
-    stats_split,
     supported,
 )
 
@@ -138,16 +138,38 @@ def test_plain_version_is_the_wrapper_on_the_cpu():
         group_norm(x, gamma, beta, 8, 1e-5, "gelu")
 
 
-@pytest.mark.parametrize("b,s,c", [(2, 16384, 320), (1, 1024 * 1024, 128), (2, 4096, 640),
-                                   (4, 16384, 320), (2, 1024, 2560), (2, 24, 96)])
-def test_statistics_split_covers_s_and_fills_the_card(b, s, c):
-    """The statistics pass cuts S into parts of whole 32-row steps that
-    depend on the shape alone; at SDXL's and the VAE's widths there are a
-    few hundred programs, never more parts than steps."""
-    rows = stats_split(b, s, c)
-    parts = -(-s // rows)
-    assert rows % 32 == 0 and (parts - 1) * rows < s <= parts * rows
-    assert parts <= -(-s // 32)
-    if s >= 4096:
-        blocks_c = c // 128 if c % 128 == 0 else c // 64
-        assert 256 <= b * blocks_c * parts <= 2048
+GN_PLAN_SMS = 132  # an H100's streaming multiprocessors
+
+
+@pytest.mark.parametrize("b,s,c,itemsize,rounds", [
+    (2, 16384, 320, 2, 1),        # the UNet at 1024 px, batch 2: 21 MB
+    (1, 1024 * 1024, 128, 2, 1),  # the VAE decoder's last stage: 268 MB
+    (2, 4096, 640, 2, 1),
+    (4, 16384, 320, 2, 1),        # batch 4: 42 MB
+    (2, 1024, 2560, 2, 1),        # the up-block concat
+    (2, 24, 96, 2, 1),            # fewer rows than a part of every SM
+    (1, 16384, 512, 2, 1),        # the VAE's 128 x 128 stage
+    (1, 65536, 512, 2, 1),        # its 256 x 256 stage
+    (2, 256, 64, 4, 1),           # fp32
+    (2, 16384, 320, 4, 1),        # fp32 at the UNet's width: 42 MB
+    (200, 64, 64, 2, 2),          # more batch entries than SMs: two rounds
+    (1, 8, 24, 2, 1),             # one part of one 8-row step
+])
+def test_gn_plan_covers_s_and_fills_the_card(b, s, c, itemsize, rounds):
+    """Kernel J's plan cuts each batch entry into parts of whole steps of
+    rows (each part starts 16-byte aligned) that cover S exactly, one block
+    an SM; items run in rounds only where a batch entry is one item, so a
+    block combines no partial of a later round. A function of the shape and
+    the SM count alone."""
+    plan = gn_plan(b, s, c, 32 if c % 32 == 0 else 8, itemsize, GN_PLAN_SMS)
+    assert plan == gn_plan(b, s, c, 32 if c % 32 == 0 else 8, itemsize, GN_PLAN_SMS)
+    assert plan.rows * c * itemsize % 16 == 0
+    assert (plan.parts - 1) * plan.rows < s <= plan.parts * plan.rows
+    assert plan.blocks == min(b * plan.parts, GN_PLAN_SMS)
+    assert -(-b * plan.parts // plan.blocks) == rounds
+    assert rounds == 1 or plan.parts == 1
+    if b <= GN_PLAN_SMS and s >= 8 * GN_PLAN_SMS:
+        # the items fill the SMs once, with at most b - 1 left idle
+        assert GN_PLAN_SMS - b < b * plan.parts <= GN_PLAN_SMS
+    assert plan.chunk_rows * c * itemsize % 16 == 0
+    assert 4 * plan.chunk_rows * c * itemsize <= 4 * 32768  # the ring of 4 chunks

@@ -53,11 +53,10 @@ LUMINA2_MODULES = [
     "modules/loss/flow_match.py", "models/autoencoder/kl.py",
     "ops/flash_attention.py",
 ]
-# the modules of the last three kernels: the GroupNorm and 3x3 conv ops, their
-# sources and the ragged-tile probe
+# the modules of the last three kernels: the GroupNorm and 3x3 conv ops (their
+# kernels are CUDA C++ sources) and the ragged-tile probe
 OPS_SOURCES = [
-    "ops/group_norm.py", "ops/conv3x3.py", "csrc/group_norm.py", "tools/__init__.py",
-    "tools/partial_block_probe.py",
+    "ops/group_norm.py", "ops/conv3x3.py", "tools/__init__.py", "tools/partial_block_probe.py",
 ]
 
 

@@ -27,6 +27,7 @@ from vision_ft_tpu_torch.ops.flash_attention import (
     flash_attention_shortk_bwd,
     flash_attention_shortk_reference,
     set_flash_shortk,
+    shortk_fwd_plan,
 )
 
 # fp32 on the CPU: the interpreted kernel sums over padded key blocks and
@@ -84,6 +85,29 @@ def test_shortk_backward_pieces_agree_on_cpu():
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=GRAD_TOL)
     assert (flash_attention_shortk.launches, flash_attention_shortk_bwd.launches) == before
+
+
+@pytest.mark.parametrize("b,h,sq,sms", [
+    (2, 10, 4096, 132),  # the 1024 px request's first stage: 640 items
+    (2, 20, 1024, 132),  # its second stage: 320 items
+    (2, 10, 3952, 132),  # the ragged bucket: 62 tiles a head, the last of 48 rows
+    (4, 10, 4096, 132),  # the batch-4 train step
+    (1, 2, 1, 132),      # fewer items than SMs
+    (2, 5, 3952, 132),   # 620 items over 132 blocks
+])
+def test_kernel_h_plan_walks_every_item_once(b, h, sq, sms):
+    """Kernel H's persistent blocks take contiguous runs of the (batch, head,
+    64-row tile) items that cover each once, none empty, so a block meets
+    at most ceil(run / tiles) + 1 heads and loads each one's K and V once."""
+    tiles, blocks = shortk_fwd_plan(b, h, sq, sms)
+    items = b * h * tiles
+    assert tiles == -(-sq // 64) and blocks == min(items, sms)
+    runs = [range(i * items // blocks, (i + 1) * items // blocks) for i in range(blocks)]
+    assert [item for run in runs for item in run] == list(range(items))
+    for run in runs:
+        assert len(run) >= 1
+        heads = {item // tiles for item in run}
+        assert len(heads) <= -(-len(run) // tiles) + 1
 
 
 def test_shortk_max_is_the_jax_package_s():

@@ -1,4 +1,4 @@
-// Device helpers of the mma.sync attention kernels H and I
+// Device helpers of the mma.sync attention kernel I
 // (flash_attention_shortk.cu, their one user): tile sizes, the bf16
 // mma.sync wrapper and the shared-memory staging of one head's 64-row tile
 // out of a strided tensor.

@@ -463,8 +463,11 @@ int launch_dq(const Maps& maps, const float* lse, const float* delta, __nv_bfloa
 // loaded by TMA through a 3-D map and read MN-major (wgmma_rs, trans-b; at
 // N = 96 the second box's last 32 columns are TMA's zeros, as kernel G's
 // head dim 96 has them).
-// Otherwise (N = 64): a (64 x 64) and b^T (N x 64) both K-major by TMA, the
-// shared-memory wgmma_m64n64k16 (d = a b^T).
+// Otherwise (N = 64, 80, 96, 128, 160 or 192, kernel H's padded key counts): a
+// (64 x 64) and b^T (N x 64) both K-major by TMA, b^T as one box of N rows,
+// the shared-memory wgmma_ss<N> (d = a b^T).
+constexpr int kProbeBBytes = 192 * 128;  // b: up to 192 rows of 128 bytes
+
 template <int N, bool REGISTER_A>
 __global__ void __launch_bounds__(128)
 hopper_wgmma_forms_probe_kernel(const __grid_constant__ CUtensorMap map_a,
@@ -473,17 +476,22 @@ hopper_wgmma_forms_probe_kernel(const __grid_constant__ CUtensorMap map_a,
   extern __shared__ uint8_t smem_raw[];
   uint8_t* tile_a = align_1024(smem_raw);
   uint8_t* tile_b = tile_a + kBoxBytes;
-  uint64_t* bar = reinterpret_cast<uint64_t*>(tile_b + 2 * kBoxBytes);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(tile_b + kProbeBBytes);
   if (threadIdx.x == 0) {
     mbar_init(bar, 1);
     fence_barrier_init();
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    constexpr int kBoxesB = (N + 63) / 64;
-    mbar_arrive_expect_tx(bar, (REGISTER_A ? 0 : kBoxBytes) + kBoxesB * kBoxBytes);
-    if (!REGISTER_A) tma_load_3d(tile_a, &map_a, bar, 0, 0, 0);
-    for (int box = 0; box < kBoxesB; ++box) tma_load_3d(tile_b + box * kBoxBytes, &map_b, bar, 64 * box, 0, 0);
+    if constexpr (REGISTER_A) {
+      constexpr int kBoxesB = (N + 63) / 64;
+      mbar_arrive_expect_tx(bar, kBoxesB * kBoxBytes);
+      for (int box = 0; box < kBoxesB; ++box) tma_load_3d(tile_b + box * kBoxBytes, &map_b, bar, 64 * box, 0, 0);
+    } else {
+      mbar_arrive_expect_tx(bar, kBoxBytes + N * 128);
+      tma_load_3d(tile_a, &map_a, bar, 0, 0, 0);
+      tma_load_3d(tile_b, &map_b, bar, 0, 0, 0);
+    }
   }
   mbar_wait(bar, 0);
   const int lane = threadIdx.x % 32;
@@ -504,11 +512,10 @@ hopper_wgmma_forms_probe_kernel(const __grid_constant__ CUtensorMap map_a,
     wgmma_fence();
     mma_rs_mn<N, 4>(acc, frag, tile_b, kBoxBytes);
   } else {
-    static_assert(REGISTER_A || N == 64, "the shared-memory form is m64n64k16");
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      wgmma_m64n64k16(acc, desc_sw128(tile_a) + 2 * kk, desc_sw128(tile_b) + 2 * kk, 1);
+      wgmma_ss<N>(acc, desc_sw128(tile_a) + 2 * kk, desc_sw128(tile_b) + 2 * kk, 1);
     }
   }
   wgmma_commit();
@@ -576,22 +583,33 @@ extern "C" int flash_attention_bshd_bwd_dq(
 
 // The probe (a test entry): a (64, 64) and b bf16, contiguous, 16-byte
 // aligned; d (64, n) fp32. register_a: b is (64, n), n = 64, 96 or 128,
-// d = a b; else b is (64, 64) and d = a b^T.
+// d = a b; else b is (n, 64), n = 64, 80, 96, 128, 160 or 192, and d = a b^T.
 extern "C" int hopper_wgmma_forms_probe(const void* a, const void* b, void* d, int n,
                                         int register_a, void* stream) {
-  if (register_a ? (n != 64 && n != 96 && n != 128) : n != 64) {
+  const bool ss_n = n == 64 || n == 80 || n == 96 || n == 128 || n == 160 || n == 192;
+  if (register_a ? (n != 64 && n != 96 && n != 128) : !ss_n) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap map_a, map_b;
   int err = make_map_3d(&map_a, a, 1, 64, 64, 64 * 64, 64, 64);
-  if (!err) err = make_map_3d(&map_b, b, 1, 64, n, 64LL * n, n, 64);
+  if (!err) {
+    err = register_a ? make_map_3d(&map_b, b, 1, 64, n, 64LL * n, n, 64)
+                     : make_map_3d(&map_b, b, 1, n, 64, 64LL * n, 64, n);
+  }
   if (err) return err;
-  const size_t smem = 1024 + 3 * kBoxBytes + sizeof(uint64_t);
+  const size_t smem = 1024 + kBoxBytes + kProbeBBytes + sizeof(uint64_t);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* ab = static_cast<const __nv_bfloat16*>(a);
   auto* df = static_cast<float*>(d);
   if (!register_a) {
-    hopper_wgmma_forms_probe_kernel<64, false><<<1, 128, smem, s>>>(map_a, map_b, ab, df);
+    switch (n) {
+      case 64: hopper_wgmma_forms_probe_kernel<64, false><<<1, 128, smem, s>>>(map_a, map_b, ab, df); break;
+      case 80: hopper_wgmma_forms_probe_kernel<80, false><<<1, 128, smem, s>>>(map_a, map_b, ab, df); break;
+      case 96: hopper_wgmma_forms_probe_kernel<96, false><<<1, 128, smem, s>>>(map_a, map_b, ab, df); break;
+      case 128: hopper_wgmma_forms_probe_kernel<128, false><<<1, 128, smem, s>>>(map_a, map_b, ab, df); break;
+      case 160: hopper_wgmma_forms_probe_kernel<160, false><<<1, 128, smem, s>>>(map_a, map_b, ab, df); break;
+      default: hopper_wgmma_forms_probe_kernel<192, false><<<1, 128, smem, s>>>(map_a, map_b, ab, df); break;
+    }
   } else if (n == 64) {
     hopper_wgmma_forms_probe_kernel<64, true><<<1, 128, smem, s>>>(map_a, map_b, ab, df);
   } else if (n == 96) {

@@ -3,13 +3,16 @@
 // (B, H, S, C) view, 4-D for an NHWC image in boxes of pixels over two
 // spatial axes), mbarriers, TMA loads and stores, wgmma descriptors
 // (K-major, and MN-major for a B operand read through the transpose bit)
-// and instructions (A from shared memory, or A from registers: an fp32
-// accumulator rounded into bf16 A fragments, at N = 64, 96 and 128), and a
-// warp-specialized TN main loop. The attention kernels B, C, E and G
+// and instructions (A from shared memory at N = 64 to 256, or A from
+// registers: an fp32 accumulator rounded into bf16 A fragments, at N = 64,
+// 96 and 128), and a warp-specialized TN main loop. The attention kernels B, C, E and G
 // (csrc/flash_attention_bshd.cu, _bshd_bwd.cu, _masked.cu, _masked_bwd.cu)
 // use the 3-D or 4-D maps, the MN-major descriptor and the register-A forms;
 // the 3x3 conv (csrc/conv3x3.cu) the image maps, the TN main loop's
-// consumer and a 4-D TMA store;
+// consumer and a 4-D TMA store; the short-K forward (kernel H,
+// csrc/flash_attention_shortk.cu) the 4-D maps, the shared-memory forms at
+// N = 64, 80, 96, 128, 160 and 192 (one per padded key count), the
+// register-A forms and a 4-D TMA store;
 // csrc/flash_attention_bshd_bwd.cu holds each of those forms to one 64 x N
 // product on the card (hopper_wgmma_forms_probe); csrc/nf4_matmul.cu uses
 // the shared-memory-A form with an MN-major B (wgmma_m64n128k16_mn, held to
@@ -273,6 +276,20 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
 __device__ __forceinline__ float ex2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// 1 / x and log2(x) by the special function unit (rcp.approx, lg2.approx,
+// denormals flushed).
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float lg2_approx(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
 
@@ -540,6 +557,94 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// d (64 x 80, fp32, wgmma's accumulator layout) = A (64 x 16) B^T (80 x 16) + (scale_d ? d : 0),
+// A and B bf16, K-major in shared memory, read through descriptors.
+__device__ __forceinline__ void wgmma_m64n80k16(float (&d)[40], uint64_t desc_a, uint64_t desc_b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "%40, %41, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 96, fp32, wgmma's accumulator layout) = A (64 x 16) B^T (96 x 16) + (scale_d ? d : 0),
+// A and B bf16, K-major in shared memory, read through descriptors.
+__device__ __forceinline__ void wgmma_m64n96k16(float (&d)[48], uint64_t desc_a, uint64_t desc_b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "%48, %49, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 192, fp32, wgmma's accumulator layout) = A (64 x 16) B^T (192 x 16) + (scale_d ? d : 0),
+// A and B bf16, K-major in shared memory, read through descriptors.
+__device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t desc_a, uint64_t desc_b,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // d (64 x 64, fp32) = A (64 x 16) B (16 x 64) + (scale_d ? d : 0), A bf16 in
 // four registers a thread (an A fragment, see acc_to_a_fragments), B bf16
 // MN-major in shared memory through desc_sw128_mn (the transpose bit set).
@@ -668,15 +773,26 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   }
 }
 
-// wgmma_m64nNk16 (both operands K-major in shared memory) at N = 64 or 128.
+// wgmma_m64nNk16 (both operands K-major in shared memory) at N = 64, 80,
+// 96, 128, 160 or 192 (kernel H's padded key counts: scores over every key
+// at once).
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
                                          int scale_d) {
-  static_assert(N == 64 || N == 128, "shared-memory wgmma widths of the attention kernels: 64, 128");
+  static_assert(N == 64 || N == 80 || N == 96 || N == 128 || N == 160 || N == 192,
+                "shared-memory wgmma widths of the attention kernels: 64, 80, 96, 128, 160, 192");
   if constexpr (N == 64) {
     wgmma_m64n64k16(d, desc_a, desc_b, scale_d);
-  } else {
+  } else if constexpr (N == 80) {
+    wgmma_m64n80k16(d, desc_a, desc_b, scale_d);
+  } else if constexpr (N == 96) {
+    wgmma_m64n96k16(d, desc_a, desc_b, scale_d);
+  } else if constexpr (N == 128) {
     wgmma_m64n128k16(d, desc_a, desc_b, scale_d);
+  } else if constexpr (N == 160) {
+    wgmma_m64n160k16(d, desc_a, desc_b, scale_d);
+  } else {
+    wgmma_m64n192k16(d, desc_a, desc_b, scale_d);
   }
 }
 

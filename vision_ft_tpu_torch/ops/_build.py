@@ -21,6 +21,7 @@ Nothing here runs at import time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import importlib.util
 import os
@@ -117,3 +118,12 @@ def triton_module(name: str) -> ModuleType:
     spec.loader.exec_module(module)
     _triton_modules[name] = module
     return module
+
+
+@functools.cache
+def sm_count(device) -> int:
+    """Streaming multiprocessors of the card ``device`` (a ``torch.device``):
+    what the kernels' persistent grids and launch plans are sized by."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -176,7 +176,7 @@ def conv3x3_forward(x: torch.Tensor, w_packed: torch.Tensor) -> torch.Tensor:
                          f"got {w_packed.dtype} {tuple(w_packed.shape)}")
     y = torch.empty((b, h, width, co), device=x.device, dtype=x.dtype)
     box_w, tile_n, splits = conv_plan(
-        tuple(x.shape), co, torch.cuda.get_device_properties(x.device).multi_processor_count)
+        tuple(x.shape), co, _build.sm_count(x.device))
     partial = (torch.empty((splits, b, h, width, co), device=x.device, dtype=torch.float32)
                if splits > 1 else None)
     with torch.cuda.device(x.device):

@@ -532,7 +532,8 @@ def _aligned(t: torch.Tensor) -> bool:
     """The TMA tensor maps of kernels E and G: unit
     last stride, 8-element batch, head and row strides, a 16-byte aligned
     start."""
-    return t.stride(3) == 1 and not any(t.stride(i) % 8 for i in range(3)) and t.data_ptr() % 16 == 0
+    s = t.stride()
+    return s[3] == 1 and s[0] % 8 == 0 and s[1] % 8 == 0 and s[2] % 8 == 0 and t.data_ptr() % 16 == 0
 
 
 def _check_masked(q, k, v, key_mask, **more) -> None:
@@ -765,6 +766,17 @@ def _shortk_padded(sk: int) -> int:
     return max(32, -(-sk // 32) * 32)
 
 
+def shortk_fwd_plan(b: int, h: int, sq: int, sms: int) -> tuple[int, int]:
+    """(q tiles a head, blocks) of kernel H: its work items are (batch,
+    head, 64-row q tile), B * H * tiles of them, walked in head order by
+    one persistent block an SM (never more blocks than items), each taking
+    the contiguous run ``[i * items // blocks, (i + 1) * items // blocks)``
+    and handing its items to its warpgroups in turn. A function of the
+    shape and the card alone."""
+    tiles = -(-sq // 64)
+    return tiles, max(1, min(b * h * tiles, sms))
+
+
 def _shortk_splits(b: int, h: int, sq: int) -> int:
     """How many blocks share a (batch, head)'s q rows in the backward: about
     two blocks an SM over 132 SMs, at most one per 32-row tile. A function of
@@ -778,7 +790,7 @@ def _shortk_kernels():
     fwd, bwd = lib.flash_attention_shortk_fwd, lib.flash_attention_shortk_bwd
     fwd.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
-        + [ctypes.c_float, ctypes.c_void_p]
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
     bwd.argtypes = (
         [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 21
@@ -803,11 +815,12 @@ def _check_shortk(q, k, v, **more) -> None:
         )
     if not 1 <= sk <= SHORTK_MAX:
         raise ValueError(f"flash_attention_shortk takes 1 to {SHORTK_MAX} keys, got {sk}")
-    if sq < 1 or sq >= 2**31 or b >= 2**16 or h >= 2**16:
-        raise ValueError("shape beyond the kernels' grid or int32 row index")
+    if sq < 1 or b >= 2**16 or h >= 2**16 or b * h * -(-sq // 64) >= 2**31:
+        raise ValueError("shape beyond the kernels' grid or int32 work-item index")
+    device = q.device
     for name, t in (("q", q), ("k", k), ("v", v), *more.items()):
-        if not t.is_cuda or t.device != q.device or t.dtype != torch.bfloat16:
-            raise ValueError(f"{name} must be bf16 on {q.device}, got {t.dtype} on {t.device}")
+        if t.dtype != torch.bfloat16 or t.device != device or not t.is_cuda:
+            raise ValueError(f"{name} must be bf16 on {device}, got {t.dtype} on {t.device}")
         if not _aligned(t):
             raise ValueError(f"{name} needs a contiguous last axis and 16-byte aligned rows")
     if any(t.shape != q.shape for t in more.values()):
@@ -824,15 +837,21 @@ def _shortk_forward(q, k, v, scale, return_lse):
     b, h, sq, d = q.shape
     sk = k.shape[2]
     scale = d**-0.5 if scale is None else scale
+    # kernel H takes its row max on the raw scores, the max of the scaled
+    # scores only where scale > 0
+    if not scale > 0:
+        raise ValueError(f"flash_attention_shortk kernel takes a scale > 0, got {scale}")
+    device = q.device
     out = torch.empty_like(q)  # q's strides where q is dense: (B, S, H, D) memory stays so
-    lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32) if return_lse else None
-    with torch.cuda.device(q.device):
+    lse = q.new_empty((b, h, sq), dtype=torch.float32) if return_lse else None
+    _, blocks = shortk_fwd_plan(b, h, sq, _build.sm_count(device))
+    with torch.cuda.device(device):
         err = _shortk_kernels()[0](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
             b, sq, sk, _shortk_padded(sk), h, d,
-            *(t.stride(i) for t in (q, k, v, out) for i in range(3)),
-            float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            float(scale), blocks, torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention_shortk launch failed: CUDA error {err}")
@@ -921,7 +940,7 @@ def flash_attention_shortk(
     log-sum-exp of the scores, (B, H, Sq). Differentiable in q, k and v: on
     the card the backward is kernel I (:func:`flash_attention_shortk_bwd`).
     Other head dims than ``SHORTK_HEAD_DIMS``, more keys, other dtypes than
-    bf16 and unaligned rows raise ``ValueError`` on the card."""
+    bf16, unaligned rows and a scale <= 0 raise ``ValueError`` on the card."""
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
         out, lse = _shortk_forward(q, k, v, scale, return_lse)
         return (out, lse) if return_lse else out

@@ -182,11 +182,6 @@ def _entry(name: str):
     return fn
 
 
-@functools.cache
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _check(m, c, inner, device, named):
     """Raise unless the kernels take these shapes and every ``(name, tensor,
     shape)`` is a contiguous, 16-byte aligned bf16 tensor on ``device``."""
@@ -234,7 +229,7 @@ def _down_args(a, w_down, b_down):
     m, inner = a.shape
     c = w_down.shape[0]
     _check(m, c, inner, a.device, (("a", a, (m, inner)), ("w_down", w_down, (c, inner))))
-    splits = down_splits(m, c, inner, _sm_count(a.device))
+    splits = down_splits(m, c, inner, _build.sm_count(a.device))
     out = torch.empty(m, c, device=a.device, dtype=torch.bfloat16)
     partial = torch.empty(splits, m, c, device=a.device) if splits > 1 else None
     return [a, m, c, inner, w_down, _bias("b_down", b_down, c, a.device), out, partial, splits]

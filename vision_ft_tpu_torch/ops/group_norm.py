@@ -3,9 +3,11 @@
 Counterpart of ``vision_ft_tpu/ops/pallas/group_norm.py::group_norm_tpu``,
 its custom VJP and its gate ``supported``. As there, the op is available
 and no model path calls it: ``nn.core.GroupNorm`` keeps its own formula.
-The forward kernels are the Triton source ``csrc/group_norm.py`` (a
-statistics pass and a normalize pass); the backward is, as in the JAX
-package, a plain formula outside any kernel.
+The forward is one launch of the CUDA C++ kernel ``csrc/group_norm.cu``
+(statistics, the group combine and the normalize pass in one cooperative
+grid, built for ``sm_90a`` by ``ops/_build.py`` and bound with
+``ctypes``); the backward is, as in the JAX package, a plain formula
+outside any kernel.
 
 - :func:`group_norm_reference` is the plain PyTorch version, the JAX
   ``_gn_fwd_impl`` formula: fp32 per-channel sums and sums of squares over
@@ -15,11 +17,14 @@ package, a plain formula outside any kernel.
 - :func:`group_norm_backward` is the JAX ``_gn_bwd`` formula: fp32, the
   statistics recomputed from x, dgamma and dbeta in their own dtypes.
 - :func:`supported` is the JAX gate, kept as a copy (pure shape logic).
+- :func:`gn_plan` is the kernel's launch plan, a pure function of the
+  shape and the SM count.
 - :func:`group_norm` is the wrapper. For a CPU tensor its forward is the
-  plain version. For a CUDA tensor it launches the two kernels or raises
-  ``ValueError`` (a dtype other than bf16 / fp32, a non-contiguous x, a
-  shape the gate rejects, an unknown ``act``); it counts its calls that
-  launch them in ``group_norm.launches``. When gradients are wanted it goes
+  plain version. For a CUDA tensor it launches the kernel or raises
+  ``ValueError`` (a dtype other than bf16 / fp32 for x, gamma or beta, a
+  non-contiguous or unaligned x, a shape the gate rejects, an unknown
+  ``act``) or ``RuntimeError`` (a launch the card refuses); it counts its
+  launches in ``group_norm.launches``. When gradients are wanted it goes
   through a ``torch.autograd.Function`` that keeps (x, gamma, beta) and
   whose backward is :func:`group_norm_backward`.
 
@@ -29,17 +34,18 @@ middle axes; gamma and beta are (C,).
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import functools
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import _build
 
 _ACTS = (None, "silu")
-# the statistics kernel: rows a step and the programs it aims for (about
-# four a streaming multiprocessor of an H100), from which the number of
-# parts S is split into follows; the normalize kernel's rows a program
-_STATS_ROWS, _STATS_PROGRAMS, _NORM_ROWS = 32, 528, 64
+_THREADS = 512  # kernel J's block
+_SMEM = 232448  # dynamic shared memory a block may use on an H100
 
 
 def _pick_block(rows: int, target: int = 512) -> int:
@@ -128,6 +134,55 @@ def group_norm_backward(x, gamma, beta, dy, num_groups: int, eps: float, act: Op
     return dx.reshape(x.shape).to(x.dtype), dgamma, dbeta
 
 
+class GnPlan(NamedTuple):
+    blocks: int      # blocks of the cooperative grid, one an SM at most
+    parts: int       # parts of S a batch entry is cut into: B * parts work items
+    rows: int        # rows of a part (the last part may be shorter)
+    chunk_rows: int  # rows of one bulk copy into shared memory
+
+
+_STAGES = 4           # the kernel's ring of chunks, a barrier each
+_CHUNK_BYTES = 32768  # about the bytes of one chunk
+
+
+def _vec_bytes(c: int, itemsize: int) -> int:
+    """Bytes of one access: 16, or 8, 4, 2 where a row of C is not a
+    multiple of 16 bytes."""
+    row = c * itemsize
+    return next(n for n in (16, 8, 4, 2) if row % n == 0)
+
+
+def _fixed_smem(c: int, groups: int, itemsize: int) -> int:
+    """Shared memory of a block besides the rows: the per-lane, per-channel
+    table of sums, the group statistics and the barriers (the layout of
+    ``csrc/group_norm.cu``)."""
+    vecs = c // (_vec_bytes(c, itemsize) // itemsize)
+    lanes = 1 if vecs >= _THREADS else _THREADS // vecs
+    return -(-lanes * c * 8 // 16) * 16 + (groups + groups % 2) * 8 + _STAGES * 8
+
+
+def _chunk_rows(c: int, itemsize: int) -> int:
+    step = 16 // math.gcd(16, c * itemsize)  # rows whose bytes are a multiple of 16
+    return max(step, _CHUNK_BYTES // (c * itemsize) // step * step)
+
+
+def gn_plan(b: int, s: int, c: int, groups: int, itemsize: int, sms: int) -> GnPlan:
+    """Kernel J's launch plan: one block an SM, each batch entry cut into
+    parts of whole steps of rows (the fewest rows whose bytes are a multiple
+    of 16, so every part and chunk starts 16-byte aligned) so that the B *
+    parts items fill the SMs once; items past the grid run in rounds (only
+    where B > sms, and then a batch entry is one item). Each pass streams
+    chunks of about 32 KB through a ring of 4. A function of the shape and
+    the card alone, so the partial sums, and their sum in part order, are
+    the same on every run."""
+    step = 16 // math.gcd(16, c * itemsize)
+    steps = -(-s // step)
+    parts = max(1, min(sms // b, steps))
+    rows = -(-steps // parts) * step
+    parts = -(-s // rows)
+    return GnPlan(min(b * parts, sms), parts, rows, _chunk_rows(c, itemsize))
+
+
 def _check(x, gamma, beta, num_groups) -> None:
     if x.dtype not in (torch.bfloat16, torch.float32) or not x.is_contiguous():
         raise ValueError(
@@ -140,29 +195,47 @@ def _check(x, gamma, beta, num_groups) -> None:
             f"S >= 8 with a power-of-two divisor in [8, 512]; got {tuple(x.shape)}, "
             f"{num_groups} groups"
         )
-    c = x.shape[-1]
+    if x.data_ptr() % 16:
+        raise ValueError("group_norm kernels need x 16-byte aligned")
+    c, itemsize = x.shape[-1], x.element_size()
+    ring = _STAGES * _chunk_rows(c, itemsize) * c * itemsize
+    if c // (_vec_bytes(c, itemsize) // itemsize) > 2 * _THREADS or (
+            _fixed_smem(c, num_groups, itemsize) + ring > _SMEM):
+        raise ValueError(f"group_norm kernels take rows of at most {2 * _THREADS} vectors whose "
+                         f"sums and ring of chunks fit shared memory: C = {c} is too wide")
     for name, t in (("gamma", gamma), ("beta", beta)):
         if t.shape != (c,) or not t.is_contiguous() or t.device != x.device:
             raise ValueError(f"group_norm kernels need a contiguous ({c},) {name} on {x.device}")
+        if t.dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"group_norm kernels take a bf16 or fp32 {name}, got {t.dtype}")
 
 
-def _block_c(c: int) -> int:
-    """Channels a program: the largest power of two up to 128 that divides
-    C, or C rounded up to a power of two (masked) when none of 16 and up do."""
-    for block in (128, 64, 32, 16):
-        if c % block == 0:
-            return block
-    return min(128, 1 << (c - 1).bit_length())
+@functools.cache
+def _kernel():
+    fn = _build.cuda_library("group_norm").group_norm_fwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
-def stats_split(b: int, s: int, c: int) -> int:
-    """Rows of one part of S in the statistics pass: a function of the
-    shape alone, so that the partial sums, and their sum in split order,
-    are the same on every run."""
-    row_steps = -(-s // _STATS_ROWS)
-    channel_blocks = -(-c // _block_c(c))
-    parts = min(row_steps, max(1, -(-_STATS_PROGRAMS // (b * channel_blocks))))
-    return -(-row_steps // parts) * _STATS_ROWS
+def _launch(x, gamma, beta, num_groups, eps, act, plan: GnPlan):
+    """y of kernel J under ``plan``: one ``torch.empty`` for y, one for the
+    fp32 partials (B, groups, parts, 2), one launch."""
+    b, s, c = _dims(x)
+    y = torch.empty_like(x)
+    partial = torch.empty((b, num_groups, plan.parts, 2), device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        err = _kernel()(
+            x.data_ptr(), y.data_ptr(), gamma.data_ptr(), beta.data_ptr(), partial.data_ptr(),
+            b, s, c, num_groups, x.element_size(),
+            int(gamma.dtype == torch.bfloat16), int(beta.dtype == torch.bfloat16),
+            plan.blocks, plan.parts, plan.rows, plan.chunk_rows, int(act == "silu"),
+            float(eps), torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"group_norm launch failed: CUDA error {err}")
+    group_norm.launches += 1
+    return y
 
 
 def _forward(x, gamma, beta, num_groups, eps, act):
@@ -171,25 +244,9 @@ def _forward(x, gamma, beta, num_groups, eps, act):
     if not x.is_cuda:
         return group_norm_reference(x, gamma, beta, num_groups, eps, act)
     _check(x, gamma, beta, num_groups)
-    kernels = _build.triton_module("group_norm")
     b, s, c = _dims(x)
-    block_c = _block_c(c)
-    rows_per_part = stats_split(b, s, c)
-    parts = -(-s // rows_per_part)
-    partial = torch.empty((b, parts, 2, c), device=x.device, dtype=torch.float32)
-    kernels.group_norm_stats_kernel[(parts, -(-c // block_c), b)](
-        x, partial, s, c, rows_per_part,
-        BLOCK_S=_STATS_ROWS, BLOCK_C=block_c, num_warps=4,
-    )
-    moments = partial.sum(1)  # (B, 2, C): the parts in order, no atomics
-    mean_c, rstd_c = _group_moments(moments[:, 0], moments[:, 1], s, num_groups, eps)
-    y = torch.empty_like(x)
-    kernels.group_norm_apply_kernel[(-(-s // _NORM_ROWS), -(-c // block_c), b)](
-        x, mean_c, rstd_c, gamma, beta, y, s, c,
-        SILU=act == "silu", BLOCK_S=_NORM_ROWS, BLOCK_C=block_c, num_warps=4,
-    )
-    group_norm.launches += 1
-    return y
+    plan = gn_plan(b, s, c, num_groups, x.element_size(), _build.sm_count(x.device))
+    return _launch(x, gamma, beta, num_groups, eps, act, plan)
 
 
 class _GroupNorm(torch.autograd.Function):

@@ -129,11 +129,6 @@ def _kernels():
             (lib.nf4_matmul_fwd_split, lib.nf4_matmul_dx_split))
 
 
-@functools.cache
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _check(name, a, packed, code, absmax, shape, blocksize, width):
     """Raise on what the kernels do not take; ``a`` is the 2-D bf16 operand
     whose row length must be ``width``."""
@@ -168,7 +163,7 @@ def _launch(which, index, a, packed, code, absmax, shape, split, out):
     over the contraction where :func:`contraction_splits` says."""
     n, k = shape
     m, dx = a.shape[0], index == 1
-    splits = contraction_splits(m, out.shape[1], contraction_stages(k, n, dx), _sm_count(a.device))
+    splits = contraction_splits(m, out.shape[1], contraction_stages(k, n, dx), _build.sm_count(a.device))
     tensors = [a.data_ptr(), packed.data_ptr(), absmax.data_ptr(), code.data_ptr(), out.data_ptr()]
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream

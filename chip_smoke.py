@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (vision_ft_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--profile] [--kernel-d] [--trace-kernels]
+    python3 chip_smoke.py [--profile] [--kernel-d] [--trace-kernels] [--ln-probe-costs]
 
 With --profile, phases 6 and 8 also trace two train steps with
 torch.profiler (device activity only) and print the device time of a step
@@ -13,23 +13,33 @@ device ms on its own line), phase 12 of one Lumina2 denoise step and phase
 lines), phase 16 of the 1024 px request with the short-K kernels (kernel
 H's device ms on its own line). With --kernel-d, only phases 0, 7 and the
 build of kernel D's library run (no ok line). With --trace-kernels, only
-phase 0 and the trace of phase 18 run: 10 calls each of kernels H, J and K
-and of H's and J's library calls under torch.profiler, printed as one JSON
-line (no ok line); phase 18 runs it so, in a process of its own.
+phase 0 and the traces of phases 3 and 18 run: 10 calls each of kernels H,
+J and K, of A at LN_SHAPES, of L's three timed cases and of each one's
+library call under torch.profiler, printed as one JSON line (no ok line);
+phase 3 runs it so, in a process of its own, and phases 3 and 18 print it.
+With --ln-probe-costs, only phase 0 runs and then, for kernel A at
+LN_SHAPES and kernel L's three timed cases and each one's library call,
+one call, a call over 10 back to back, the host's microseconds a call and
+the traced card time a call, printed as one JSON line (no ok line): the
+same measurement for any checkout whose wrappers take these calls, so a
+copy of this script in an older checkout times that checkout's kernels.
 
 Phases, each printing its own lines; any failure exits non-zero:
 
 0. device: needs torch.cuda; prints the card's name and power limit and
    sets fp32 matmuls and convolutions to full fp32 (no TF32).
 1. build: compiles the CUDA kernels with nvcc (sm_90a, one nvcc per source,
-   started together) and the Triton kernel (LayerNorm), from the sources in
-   this checkout.
+   started together), from the sources in this checkout.
 2. kernel B, BSHD flash attention forward, against its plain PyTorch
    version in bf16 at the SDXL self-attention shapes of the requests
    (aligned and ragged, batch 2) and of the train step (batch 4); reruns
    bit-identical; TFLOP/s, share of the bound, the time a call over 10
    calls back to back and the ratio to SDPA beside each time.
-3. kernel A, fused LayerNorm, the same way.
+3. kernel A, fused LayerNorm, the same way at LN_SHAPES and at the edge
+   shapes (C = 8192, C = 136, one row); beside each time the host's
+   microseconds a call (the card held busy, so the calls only queue) and
+   the traced card time a call (the --trace-kernels process), each also
+   for F.layer_norm.
 4. SDXL generate() at full width (default DenoiserConfig, SDXL CLIP and
    VAE configs, bf16, seeded random weights made on the card, a small
    synthetic CLIP vocab): three requests, then checks of the outputs and
@@ -140,8 +150,9 @@ Phases, each printing its own lines; any failure exits non-zero:
     L, the
     ragged-tile probe, as a user runs it (its own process, `partial_blocks:
     true`, with its TMA case: the 128-byte swizzled tensor maps kernel F
-    reads and writes through), and its copy kernels timed against
-    Tensor.copy_. Every model path above launches J, K and L 0 times.
+    reads and writes through), and its three kernels timed against
+    Tensor.copy_ and torch.add as kernel A is in phase 3. Every model path
+    above launches J, K and L 0 times.
 
 Every kernel's record carries its time, its plain version's, the bound
 (the larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s bf16, or
@@ -201,6 +212,9 @@ LN_SHAPES = [  # (rows, C, beta): UNet 640/1280 at batch 2, CLIP-L 768 and bigG 
     (8192, 640, True), (2048, 1280, True), (154, 768, True), (154, 1280, False),
     (16384, 640, True), (4096, 1280, True),
 ]
+# kernel A's edges: the widest C (4 warps a row), a C that is not a multiple of 8 x 32
+# (lanes idle), one row
+LN_EDGE_SHAPES = [(64, 8192, True), (77, 136, False), (1, 1280, True)]
 # the 4-bit matmul kernels and their plain versions dequantize to the same
 # bf16 weight and accumulate in fp32: they differ in the order of the fp32
 # sums and so in the output's one bf16 rounding; relative to the output's
@@ -318,6 +332,9 @@ CONV_SHAPES = [((2, 128, 128, 320), 320), ((2, 64, 64, 640), 640), ((2, 32, 32, 
                ((2, 104, 152, 320), 320), ((2, 52, 76, 640), 640), ((2, 26, 38, 1280), 1280),
                ((1, 128, 128, 16), 512), ((2, 96, 96, 48), 96), ((2, 32, 32, 640), 640)]
 RESNET_SHAPE = (2, 64, 64, 640)  # one SDXL resnet body at the request's second stage
+# kernel L's timed cases, the probe's own: a copy of (S, C) bf16 in blocks of 512 rows,
+# the TMA case's (S, C) bf16, x * 2 + 1 over (R, S) fp32 in blocks of 512 columns
+PROBE_COPY, PROBE_TMA, PROBE_LASTAXIS = (4360, 256, 512), (4360, 256), (8, 4352, 512)
 # kernels J and K against their plain versions: the same fp32 arithmetic
 # summed in another order, the output rounded once to bf16 on both sides:
 # a bf16 ulp or two of the output's largest value, under the JAX conv
@@ -336,6 +353,14 @@ LORA_TARGETS = ["attn1", "attn2", ".ff."]
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
+# torch.cuda._sleep's cycles before host_us issues its calls: 50 ms at 2 GHz, far more
+# than 200 calls take to issue
+SLEEP_CYCLES = 100_000_000
+
+
+# the further times of kernels A and L's records in the kernels line
+COST_KEYS = ("burst_ms", "host_us", "traced_ms", "library_burst_ms", "library_host_us",
+             "library_traced_ms")
 
 
 def phase(name: str) -> None:
@@ -372,6 +397,34 @@ def burst_ms(fn, calls: int = 10, iters: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def host_us(fn, calls: int = 200, repeats: int = 3) -> float:
+    """Median host microseconds ``fn()`` takes to issue, measured with the
+    card held busy by a torch.cuda._sleep queued first, so that the calls
+    only queue behind it: the perf_counter span over ``calls`` calls.
+    Fails if the card finished the sleep before the last call was issued."""
+    fn()
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        asleep = torch.cuda.Event()
+        asleep.record()
+        start = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - start) / calls * 1e6)
+        if asleep.query():
+            raise AssertionError("host_us: the card woke before the calls were issued")
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def call_costs(fn) -> dict:
+    """One call by CUDA events, a call over 10 back to back, and the host's
+    microseconds a call of ``fn``."""
+    return dict(ms=cuda_ms(fn, iters=50), burst_ms=burst_ms(fn), host_us=host_us(fn))
 
 
 def bound(nbytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS):
@@ -606,9 +659,101 @@ def linear_host_cost(device) -> None:
         print(f"  {name + (' ' + route if route else ''):12s} {forward_us:7.1f} us, {both_us:7.1f} us")
 
 
+def ln_inputs(n_rows, c, beta, device, gen):
+    """Kernel A's seeded inputs: x (n_rows, C) bf16 of scale 2 around 0.3,
+    gamma near 1, beta near 0 or None."""
+    x = (torch.randn(n_rows, c, device=device, generator=gen) * 2 + 0.3).bfloat16()
+    w = (1 + 0.2 * torch.randn(c, device=device, generator=gen)).bfloat16()
+    bias = (0.2 * torch.randn(c, device=device, generator=gen)).bfloat16() if beta else None
+    return x, w, bias
+
+
+def probe_cases(device, gen) -> dict:
+    """Kernel L's three timed cases on seeded inputs, each output a
+    sentinel-filled buffer longer than the result: {name: (x, out, wrapper,
+    kernel call, plain call, library name, library call)}, name "copy",
+    "TMA" or "last axis" (its profiler kind is "kernel L <name>"). The
+    library calls write into views made here, outside the timed call."""
+    from vision_ft_tpu_torch.tools import partial_block_probe as probe
+
+    s, c, block = PROBE_COPY
+    copy_x = torch.randn(s, c, device=device, generator=gen).bfloat16()
+    copy_out = torch.full((s + block, c), probe.SENTINEL, device=device, dtype=torch.bfloat16)
+    s, c = PROBE_TMA
+    tma_x = torch.randn(s, c, device=device, generator=gen).bfloat16()
+    tma_out = torch.full((s + probe.TMA_BOX[0], c), probe.SENTINEL, device=device,
+                         dtype=torch.bfloat16)
+    r, s, last_block = PROBE_LASTAXIS
+    last_x = torch.randn(r, s, device=device, generator=gen)
+    last_out = torch.full((r * s + last_block,), probe.SENTINEL, device=device)
+    one = torch.ones((), device=device)
+    return {
+        "copy": (copy_x, copy_out, probe.partial_block_copy,
+                 functools.partial(probe.partial_block_copy, copy_x, block, copy_out),
+                 functools.partial(probe.partial_block_copy_reference, copy_x, block, copy_out),
+                 "Tensor.copy_", functools.partial(copy_out[: copy_x.shape[0]].copy_, copy_x)),
+        "TMA": (tma_x, tma_out, probe.partial_block_tma,
+                functools.partial(probe.partial_block_tma, tma_x, tma_out),
+                functools.partial(probe.partial_block_tma_reference, tma_x, tma_out),
+                "Tensor.copy_", functools.partial(tma_out[: tma_x.shape[0]].copy_, tma_x)),
+        "last axis": (last_x, last_out, probe.partial_block_lastaxis,
+                      functools.partial(probe.partial_block_lastaxis, last_x, last_block, last_out),
+                      functools.partial(probe.partial_block_lastaxis_reference, last_x, last_block,
+                                        last_out),
+                      "torch.add(1, x, alpha=2)",
+                      functools.partial(torch.add, one, last_x, alpha=2,
+                                        out=last_out[: last_x.numel()].view(last_x.shape))),
+    }
+
+
+def a_and_l_cases(device, gen) -> list:
+    """(label, wrapper, profiler kind, call) of kernel A at LN_SHAPES and of
+    kernel L's three timed cases, each followed by its library call's
+    (label, None, None, call): what the traces and --ln-probe-costs time."""
+    from vision_ft_tpu_torch.ops.layer_norm import layer_norm
+
+    cases = []
+    for shape in LN_SHAPES:
+        x, w, bias = ln_inputs(*shape, device, gen)
+        cases += [(f"kernel A {shape}", layer_norm, "kernel A",
+                   functools.partial(layer_norm, x, w, bias)),
+                  (f"F.layer_norm {shape}", None, None,
+                   functools.partial(F.layer_norm, x, x.shape[-1:], w, bias))]
+    for name, (_, _, wrapper, call, _, library, library_call) in probe_cases(device, gen).items():
+        cases += [(f"kernel L {name}", wrapper, f"kernel L {name}", call),
+                  (f"{library} beside kernel L {name}", None, None, library_call)]
+    return cases
+
+
+def window_ms(kinds: dict) -> float:
+    """The card's ms a call in a traced window of 10 calls, all its kernels:
+    over the calls the window saw, the launches of its most launched kind
+    (the profiler may miss a window's first launch)."""
+    return sum(ms for ms, _ in kinds.values()) / max(n for _, n in kinds.values())
+
+
+def traced_ms(traces: dict, label: str) -> float:
+    """The card's ms a call of a --trace-kernels label (``window_ms``)."""
+    return window_ms(traces[label]["kinds"])
+
+
+def ln_probe_costs(device, gen) -> dict:
+    """--ln-probe-costs: {label: one call, a call over 10 back to back, host
+    us a call, and the card's ms a call and launches in 10 calls traced by
+    torch.profiler in this process} for every case of a_and_l_cases."""
+    costs = {}
+    for label, _, _, call in a_and_l_cases(device, gen):
+        costs[label] = call_costs(call)
+        kinds, _ = profile_window(lambda: [call() for _ in range(10)])
+        costs[label]["traced_ms"] = window_ms(kinds)
+        costs[label]["traced_launches"] = sum(n for _, n in kinds.values())
+    return costs
+
+
 def trace_kernels(device, gen) -> dict:
     """10 calls each of kernel H at its record's shape, of J (+ SiLU) and K
-    at theirs, and of SDPA and F.group_norm + F.silu on the same inputs,
+    at theirs, of A at LN_SHAPES and of L's three timed cases, and of SDPA,
+    F.group_norm + F.silu and A's and L's library calls on the same inputs,
     each traced by torch.profiler: {label: {"kinds": {kind: [ms, launches]},
     "kernel": the kind that must show one launch a call, or None, "counted":
     the wrapper's launch count over the 10 calls}}."""
@@ -637,6 +782,7 @@ def trace_kernels(device, gen) -> dict:
         (f"conv3x3 {shape} -> {co} (with the weight repack)", conv3x3,
          lambda: conv3x3(x2, w), "kernel K"),
     ]
+    cases += [(label, wrapper, call, kind) for label, wrapper, kind, call in a_and_l_cases(device, gen)]
     traces = {}
     for label, wrapper, call, kernel in cases:
         call()
@@ -750,6 +896,26 @@ def kernel_d_phase(device, gen) -> dict:
     }
 
 
+def run_trace_kernels(checkout: Path) -> dict:
+    """``chip_smoke.py --trace-kernels`` in a process of its own (late in a
+    long run the profiler has shown nothing at all): its traces, each kernel
+    checked for one launch a call."""
+    proc = subprocess.run([sys.executable, str(checkout / "chip_smoke.py"), "--trace-kernels"],
+                          cwd=checkout, capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"chip_smoke.py --trace-kernels failed (exit {proc.returncode}): "
+                             f"{proc.stderr[-2000:]}")
+    traces = json.loads(lines[-1])["traces"]
+    for label, trace in traces.items():
+        kinds, only = trace["kinds"], trace["kernel"]
+        if only and (not 9 <= kinds.get(only, (0, 0))[1] <= 10 or trace["counted"] != 10):
+            # the profiler may miss the first launch of a window, never more
+            raise AssertionError(f"{label}: {kinds} in 10 calls ({trace['counted']} counted), "
+                                 f"not one launch of {only} a call")
+    return traces
+
+
 def main() -> None:
     args = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     args.add_argument("--profile", action="store_true",
@@ -758,8 +924,12 @@ def main() -> None:
                       help="run phase 7 alone (kernel D vs plain, timed) after building its "
                            "library; prints its records, not the ok line")
     args.add_argument("--trace-kernels", action="store_true",
-                      help="trace 10 calls each of kernels H, J, K and of H's and J's library "
+                      help="trace 10 calls each of kernels H, J, K, A and L and of their library "
                            "calls in this process alone; prints one JSON line, not the ok line")
+    args.add_argument("--ln-probe-costs", action="store_true",
+                      help="time kernels A and L and their library calls (one call, back to "
+                           "back, host us, traced) in this process alone; prints one JSON line, "
+                           "not the ok line")
     options = args.parse_args()
 
     phase("0 device")
@@ -783,6 +953,10 @@ def main() -> None:
     if Path(vision_ft_tpu_torch.__file__).resolve().parent.parent != checkout:
         raise SystemExit(f"chip_smoke: vision_ft_tpu_torch comes from "
                          f"{vision_ft_tpu_torch.__file__}, not from {checkout}")
+    if options.ln_probe_costs:  # wrappers only: an older checkout's take the same calls
+        costs = ln_probe_costs(device, torch.Generator(device=device).manual_seed(0))
+        print(json.dumps({"card": card, "ln_probe_costs": costs}))
+        return
     from vision_ft_tpu_torch.ops import _build
     from vision_ft_tpu_torch.ops.flash_attention import (
         flash_attention_bshd, flash_attention_bshd_backward,
@@ -837,7 +1011,8 @@ def main() -> None:
         return {name: wrapper.launches for name, wrapper in wrappers.items()}
 
     if options.trace_kernels:
-        _build.build_cuda_libraries(["flash_attention_shortk", "group_norm", "conv3x3"])
+        _build.build_cuda_libraries(["flash_attention_shortk", "group_norm", "conv3x3",
+                                     "layer_norm", "partial_block_probe"])
         print(json.dumps({"traces": trace_kernels(device, torch.Generator(device=device).manual_seed(0))}))
         return
 
@@ -853,17 +1028,11 @@ def main() -> None:
     start = time.perf_counter()
     cuda_sources = ["flash_attention_bshd", "flash_attention_bshd_bwd", "nf4_matmul",
                     "flash_attention_masked", "fused_mlp", "flash_attention_masked_bwd",
-                    "flash_attention_shortk", "group_norm", "conv3x3", "partial_block_probe"]
+                    "flash_attention_shortk", "group_norm", "conv3x3", "partial_block_probe",
+                    "layer_norm"]
     _build.build_cuda_libraries(cuda_sources)
     nvcc_s = time.perf_counter() - start
-    start = time.perf_counter()
-    for c, beta in sorted({(c, beta) for _, c, beta in LN_SHAPES}):
-        w = torch.ones(c, device=device, dtype=torch.bfloat16)
-        layer_norm(torch.ones(4, c, device=device, dtype=torch.bfloat16), w, w if beta else None)
-    torch.cuda.synchronize()
-    triton_s = time.perf_counter() - start
-    print(f"nvcc {', '.join(n + '.cu' for n in cuda_sources)} (in parallel): {nvcc_s:.2f} s; "
-          f"triton layer_norm (load + first launches): {triton_s:.2f} s")
+    print(f"nvcc {', '.join(n + '.cu' for n in cuda_sources)} (in parallel): {nvcc_s:.2f} s")
 
     records = {}
     gen = torch.Generator(device=device).manual_seed(0)
@@ -906,33 +1075,50 @@ def main() -> None:
     del q, k, v, heads
 
     phase("3 kernel A: fused LayerNorm vs plain (bf16)")
+    # the card's time a call of A, L, H, J, K and their library calls, traced over 10
+    # calls in a process of its own; printed here for A and in phase 18 for the others
+    traces = run_trace_kernels(checkout)
     errs, rows = [], []
-    for n_rows, c, beta in LN_SHAPES:
-        x = (torch.randn(n_rows, c, device=device, generator=gen) * 2 + 0.3).bfloat16()
-        w = (1 + 0.2 * torch.randn(c, device=device, generator=gen)).bfloat16()
-        bias = (0.2 * torch.randn(c, device=device, generator=gen)).bfloat16() if beta else None
+    for shape in LN_SHAPES + LN_EDGE_SHAPES:
+        n_rows, c, beta = shape
+        x, w, bias = ln_inputs(n_rows, c, beta, device, gen)
         abs_err, rel_err = compare(
-            f"layer_norm {(n_rows, c, beta)}",
+            f"layer_norm {shape}",
             lambda: layer_norm(x, w, bias), lambda: layer_norm_reference(x, w, bias), LN_TOL,
         )
-        ms = cuda_ms(lambda: layer_norm(x, w, bias), iters=50)
+        assert_reruns(f"layer_norm {shape}", lambda: layer_norm(x, w, bias))
+        kernel = call_costs(lambda: layer_norm(x, w, bias))
+        library = call_costs(lambda: torch.nn.functional.layer_norm(x, (c,), w, bias))
         plain_ms = cuda_ms(lambda: layer_norm_reference(x, w, bias), iters=50)
-        library_ms = cuda_ms(lambda: torch.nn.functional.layer_norm(x, (c,), w, bias), iters=50)
         nbytes = 2 * x.numel() * 2 + (2 if beta else 1) * c * 2
         # mean, variance, normalize, affine: about 8 fp32 operations an element
         bound_ms, bound_by = bound(nbytes, 8 * x.numel(), PEAK_FP32_FLOPS)
+        traced = ((traced_ms(traces, f"kernel A {shape}"), traced_ms(traces, f"F.layer_norm {shape}"))
+                  if shape in LN_SHAPES else (None, None))
         print(f"rows={n_rows} C={c} beta={beta}: max abs err {abs_err:.3e} rel {rel_err:.3e} "
-              f"(tol {LN_TOL}); kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s), "
-              f"plain {plain_ms:.4f} ms, F.layer_norm {library_ms:.4f} ms, "
-              f"bound {bound_ms:.5f} ms ({bound_by})")
+              f"(tol {LN_TOL}), reruns bit-identical; kernel {kernel['ms']:.4f} ms one call "
+              f"({nbytes / kernel['ms'] / 1e6:.0f} GB/s, {100 * bound_ms / kernel['ms']:.1f}% of the "
+              f"bound), {kernel['burst_ms']:.4f} a call over 10 back to back "
+              f"({100 * bound_ms / kernel['burst_ms']:.1f}%)"
+              + (f", {traced[0]:.5f} traced on the card ({100 * bound_ms / traced[0]:.1f}%)"
+                 if traced[0] else "")
+              + f", host {kernel['host_us']:.1f} us a call; plain {plain_ms:.4f} ms; F.layer_norm "
+              f"{library['ms']:.4f} ms one call (kernel {kernel['ms'] / library['ms']:.2f}x), "
+              f"{library['burst_ms']:.4f} back to back"
+              + (f", {traced[1]:.5f} traced" if traced[1] else "")
+              + f", host {library['host_us']:.1f} us; bound {bound_ms:.5f} ms ({bound_by})")
         errs.append(abs_err)
-        rows.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=library_ms))
+        rows.append(dict(ms=kernel["ms"], plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=library["ms"], burst_ms=kernel["burst_ms"],
+                         host_us=kernel["host_us"], traced_ms=traced[0],
+                         library_burst_ms=library["burst_ms"], library_host_us=library["host_us"],
+                         library_traced_ms=traced[1]))
     records["layer_norm"] = dict(
-        route="triton", source="vision_ft_tpu_torch/csrc/layer_norm.py",
+        route="cuda", source="vision_ft_tpu_torch/csrc/layer_norm.cu",
         replaces="vision_ft_tpu/ops/pallas/layer_norm.py:22",
         max_abs_err=max(errs), **rows[0],
     )
+    del x, w, bias
 
     phase("4 SDXL generate() at full width, bf16, seeded random weights")
     from vision_ft_tpu_torch.models.sdxl.config import SDXLConfig
@@ -2613,16 +2799,12 @@ def main() -> None:
           f"{core_ms:.3f} ms (measured only: nothing is wired in)")
     del core, leaves, x_leaf, x, w, dy
 
-    # kernels H, J and K traced over 10 calls in a process of their own (the profiler
-    # has shown nothing at all late in a long run): the card's time a call by kernel
-    # beside the CUDA-event times above, which count the host's launches too
-    proc = subprocess.run([sys.executable, str(checkout / "chip_smoke.py"), "--trace-kernels"],
-                          cwd=checkout, capture_output=True, text=True, timeout=600)
-    lines = proc.stdout.strip().splitlines()
-    if proc.returncode != 0 or not lines:
-        raise AssertionError(f"chip_smoke.py --trace-kernels failed (exit {proc.returncode}): "
-                             f"{proc.stderr[-2000:]}")
-    for label, trace in json.loads(lines[-1])["traces"].items():
+    # kernels H, J and K traced over 10 calls in phase 3's process of their own (each
+    # checked there for one launch a call): the card's time a call by kernel beside the
+    # CUDA-event times above, which count the host's launches too
+    for label, trace in traces.items():
+        if label.startswith(("kernel A", "F.layer_norm", "kernel L")) or " beside kernel L" in label:
+            continue  # printed with their kernels' times
         kinds, only = trace["kinds"], trace["kernel"]
         print(f"{label}, 10 calls traced in a fresh process, device time by kind "
               f"(torch.profiler): "
@@ -2630,10 +2812,6 @@ def main() -> None:
                           for kind, (ms, n) in sorted(kinds.items()))
               + f"; {sum(ms for ms, _ in kinds.values()) / 10:.4f} ms a call in all"
               + (f"; counted launches {trace['counted']}" if only else ""))
-        if only and (not 9 <= kinds.get(only, (0, 0))[1] <= 10 or trace["counted"] != 10):
-            # the profiler may miss the first launch of a window, never more
-            raise AssertionError(f"{label}: {kinds} in 10 calls ({trace['counted']} counted), "
-                                 f"not one launch of {only} a call")
 
     # kernel L: the probe tool as a user runs it, in its own process
     proc = subprocess.run([sys.executable, "-m", "vision_ft_tpu_torch.tools.partial_block_probe"],
@@ -2644,71 +2822,45 @@ def main() -> None:
     if proc.returncode != 0 or not lines or not json.loads(lines[-1])["partial_blocks"]:
         raise AssertionError(f"the probe did not pass: {proc.stderr[-2000:]}")
 
-    s, c, block = 4360, 256, 512
-    x = torch.randn(s, c, device=device, generator=gen).bfloat16()
-    out = torch.full((s + block, c), probe.SENTINEL, device=device, dtype=torch.bfloat16)
-    assert_reruns("partial_block_copy", lambda: probe.partial_block_copy(x, block, out))
-    copy_err = (out[:s].float() - x.float()).abs().max().item()
-    if copy_err != 0 or not (out[s:] == probe.SENTINEL).all():
-        raise AssertionError(f"partial_block_copy: max abs err {copy_err}, or a write past S")
-    ms = cuda_ms(lambda: probe.partial_block_copy(x, block, out), iters=50)
-    plain_ms = cuda_ms(lambda: probe.partial_block_copy_reference(x, block, out), iters=20)
-    library_ms = cuda_ms(lambda: out[:s].copy_(x), iters=50)
-    bound_ms, bound_by = bound(2 * x.numel() * 2, 0)
-    print(f"copy ({s}, {c}) bf16 in blocks of {block} rows: exact, nothing past S, reruns "
-          f"bit-identical; kernel L {ms:.4f} ms, plain {plain_ms:.4f} ms, Tensor.copy_ "
-          f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
-    records["partial_block_copy"] = dict(
-        route="cuda", source="vision_ft_tpu_torch/csrc/partial_block_probe.cu",
-        replaces="tools/bench/partial_block_probe.py:25", max_abs_err=copy_err, ms=ms,
-        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
-
-    # the TMA case: (128, 64) boxes of 128-byte swizzled tensor maps, kernel F's mode
-    s, c = 4360, 256
-    x = torch.randn(s, c, device=device, generator=gen).bfloat16()
-    out = torch.full((s + probe.TMA_BOX[0], c), probe.SENTINEL, device=device, dtype=torch.bfloat16)
-    assert_reruns("partial_block_tma", lambda: probe.partial_block_tma(x, out))
-    tma_err = (out[:s].float() - x.float()).abs().max().item()
-    if tma_err != 0 or not (out[s:] == probe.SENTINEL).all():
-        raise AssertionError(f"partial_block_tma: max abs err {tma_err}, or a write past S")
-    ms = cuda_ms(lambda: probe.partial_block_tma(x, out), iters=50)
-    plain_ms = cuda_ms(lambda: probe.partial_block_tma_reference(x, out), iters=20)
-    library_ms = cuda_ms(lambda: out[:s].copy_(x), iters=50)
-    bound_ms, bound_by = bound(2 * x.numel() * 2, 0)
-    print(f"TMA copy ({s}, {c}) bf16 in (128, 64) boxes, 128-byte swizzle: exact, zeros staged "
-          f"past S, every element where the swizzle formula puts it, nothing past S, reruns "
-          f"bit-identical; kernel L {ms:.4f} ms, plain {plain_ms:.4f} ms, Tensor.copy_ "
-          f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
-    records["partial_block_tma"] = dict(
-        route="cuda", source="vision_ft_tpu_torch/csrc/partial_block_probe.cu",
-        replaces="tools/bench/partial_block_probe.py:25", max_abs_err=tma_err, ms=ms,
-        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
-
-    s = 4352
-    x = torch.randn(8, s, device=device, generator=gen)
-    out = torch.full((8 * s + block,), probe.SENTINEL, device=device)
-    assert_reruns("partial_block_lastaxis", lambda: probe.partial_block_lastaxis(x, block, out))
-    last_err = (out[: 8 * s].view(8, s) - (x * 2 + 1)).abs().max().item()
-    if last_err > 1e-6 or not (out[8 * s:] == probe.SENTINEL).all():
-        raise AssertionError(f"partial_block_lastaxis: max abs err {last_err}, or a write past S")
-    ms = cuda_ms(lambda: probe.partial_block_lastaxis(x, block, out), iters=50)
-    plain_ms = cuda_ms(lambda: probe.partial_block_lastaxis_reference(x, block, out), iters=20)
-    # one PyTorch call computes x * 2 + 1 into the same output: one + 2 * x
-    one = torch.ones((), device=device)
-    library_out = out[: 8 * s].view(8, s)
-    library_ms = cuda_ms(lambda: torch.add(one, x, alpha=2, out=library_out), iters=50)
-    if not torch.equal(library_out, x * 2 + 1):
-        raise AssertionError("torch.add(1, x, alpha=2) does not give x * 2 + 1")
-    bound_ms, bound_by = bound(2 * x.numel() * 4, 2 * x.numel(), PEAK_FP32_FLOPS)
-    print(f"x * 2 + 1 over (8, {s}) fp32 in blocks of {block} columns: max abs err "
-          f"{last_err:.3e}, nothing past S, reruns bit-identical; kernel L {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, torch.add(1, x, alpha=2) {library_ms:.4f} ms, bound "
-          f"{bound_ms:.6f} ms ({bound_by})")
-    records["partial_block_lastaxis"] = dict(
-        route="cuda", source="vision_ft_tpu_torch/csrc/partial_block_probe.cu",
-        replaces="tools/bench/partial_block_probe.py:31", max_abs_err=last_err, ms=ms,
-        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
-    del x, out, one, library_out
+    # kernel L's three timed cases: exact, nothing past S, reruns bit-identical, then timed
+    # as kernel A is in phase 3
+    for name, (x, out, _, call, plain_call, library, library_call) in probe_cases(device, gen).items():
+        assert_reruns(f"kernel L {name}", call)
+        want = x * 2 + 1 if name == "last axis" else x
+        got = out.view(-1)[: x.numel()].view(x.shape)
+        err = (got.float() - want.float()).abs().max().item()
+        if err > (1e-6 if name == "last axis" else 0) or not (
+                out.view(-1)[x.numel():] == probe.SENTINEL).all():
+            raise AssertionError(f"kernel L {name}: max abs err {err}, or a write past S")
+        kernel = call_costs(call)
+        library_costs = call_costs(library_call)
+        if name == "last axis" and not torch.equal(got, x * 2 + 1):
+            raise AssertionError("torch.add(1, x, alpha=2) does not give x * 2 + 1")
+        plain_ms = cuda_ms(plain_call, iters=20)
+        if name == "last axis":
+            bound_ms, bound_by = bound(2 * x.numel() * 4, 2 * x.numel(), PEAK_FP32_FLOPS)
+        else:
+            bound_ms, bound_by = bound(2 * x.numel() * 2, 0)
+        traced = (traced_ms(traces, f"kernel L {name}"),
+                  traced_ms(traces, f"{library} beside kernel L {name}"))
+        print(f"kernel L {name} {tuple(x.shape)} {str(x.dtype)[6:]}: max abs err {err:.3e}, nothing "
+              f"past S, reruns bit-identical; kernel {kernel['ms']:.4f} ms one call, "
+              f"{kernel['burst_ms']:.4f} a call over 10 back to back, {traced[0]:.5f} traced on the "
+              f"card ({100 * bound_ms / traced[0]:.1f}% of the bound), host {kernel['host_us']:.1f} "
+              f"us a call; plain {plain_ms:.4f} ms; {library} {library_costs['ms']:.4f} ms one call "
+              f"(kernel {kernel['ms'] / library_costs['ms']:.2f}x), {library_costs['burst_ms']:.4f} "
+              f"back to back, {traced[1]:.5f} traced, host {library_costs['host_us']:.1f} us; bound "
+              f"{bound_ms:.6f} ms ({bound_by})")
+        records[{"copy": "partial_block_copy", "TMA": "partial_block_tma",
+                 "last axis": "partial_block_lastaxis"}[name]] = dict(
+            route="cuda", source="vision_ft_tpu_torch/csrc/partial_block_probe.cu",
+            replaces=f"tools/bench/partial_block_probe.py:{31 if name == 'last axis' else 25}",
+            max_abs_err=err, ms=kernel["ms"], plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=library_costs["ms"], burst_ms=kernel["burst_ms"],
+            host_us=kernel["host_us"], traced_ms=traced[0],
+            library_burst_ms=library_costs["burst_ms"], library_host_us=library_costs["host_us"],
+            library_traced_ms=traced[1])
+    del x, out, got, want
 
     kernels = []
     for name, record in records.items():
@@ -2726,7 +2878,7 @@ def main() -> None:
             "launches": sum(launches.values()), "launches_by_path": launches,
             **{k: record[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                       "library_ms")},
-            **({"parts": record["parts"]} if "parts" in record else {}),
+            **{k: record[k] for k in ("parts", *COST_KEYS) if k in record},
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

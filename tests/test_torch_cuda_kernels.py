@@ -327,20 +327,58 @@ def test_kernels_reject_what_they_cannot_take(cuda):
         layer_norm(q[0].float(), w.float())
     with pytest.raises(ValueError):
         layer_norm(torch.zeros(192, 256, device=cuda, dtype=torch.bfloat16).t(), w)
+    with pytest.raises(ValueError):  # rows 80 apart, then 16: no batch and row axis
+        layer_norm(torch.zeros(4, 9, 5, 192, device=cuda, dtype=torch.bfloat16)[:, :, 1:4], w)
+    with pytest.raises(ValueError):
+        layer_norm(torch.zeros(2, 8200, device=cuda, dtype=torch.bfloat16), torch.ones(8200, device=cuda))
+
+
+# kernel A: the six (rows, C, beta) of chip_smoke.py's LN_SHAPES (the SDXL request's and
+# train step's), then one and 7 rows at C = 8 (one vector), 136 (17 vectors: lanes idle)
+# and 8192 (4 warps a row), with and without beta
+LN_CARD_SHAPES = [(8192, 640, True), (2048, 1280, True), (154, 768, True), (154, 1280, False),
+                  (16384, 640, True), (4096, 1280, True)] + [
+    (rows, c, bias) for rows in (1, 7) for c in (8, 136, 8192) for bias in (True, False)]
+
+
+def _ln_inputs(cuda, rows, c, bias, param_dtype=torch.bfloat16, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = (torch.randn(rows, c, device=cuda, generator=g) * 2 + 0.3).bfloat16()
+    weight = (1 + 0.2 * torch.randn(c, device=cuda, generator=g)).to(param_dtype)
+    beta = (0.2 * torch.randn(c, device=cuda, generator=g)).to(param_dtype) if bias else None
+    return x, weight, beta
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,c,bias", [(8192, 640, True), (154, 768, True), (154, 1280, False)])
+@pytest.mark.parametrize("rows,c,bias", LN_CARD_SHAPES)
 def test_layer_norm_kernel_matches_plain_on_card(cuda, rows, c, bias):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    x = (torch.randn(rows, c, device=cuda, generator=g) * 2 + 0.3).bfloat16()
-    weight = (1 + 0.2 * torch.randn(c, device=cuda, generator=g)).bfloat16()
-    beta = (0.2 * torch.randn(c, device=cuda, generator=g)).bfloat16() if bias else None
+    x, weight, beta = _ln_inputs(cuda, rows, c, bias)
     before = layer_norm.launches
     out = layer_norm(x, weight, beta)
     assert layer_norm.launches == before + 1
     plain = layer_norm_reference(x, weight, beta)
     torch.testing.assert_close(out.float(), plain.float(), atol=BF16_LN_TOL, rtol=BF16_LN_TOL)
+    assert torch.equal(layer_norm(x, weight, beta), out), "a rerun differs"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [640, 1280, 136, 8192])
+@pytest.mark.parametrize("view", ["batch of row slices", "nhwc slice", "one row axis", "unaligned"])
+def test_layer_norm_kernel_takes_strided_leading_axes_on_card(cuda, c, view):
+    """x a view whose leading axes fold into a batch axis and a row axis
+    (the 16-byte path), or whose rows start off 16 bytes (the scalar path):
+    the same values as the plain version on a contiguous copy, y contiguous,
+    fp32 gamma and beta, reruns bit-identical."""
+    base, weight, beta = _ln_inputs(cuda, 4 * 9 * 5, c + 8, True, torch.float32)
+    base = base.view(4, 9, 5, c + 8)
+    x = {"batch of row slices": base[:, 2:7, :, :c], "nhwc slice": base[1:3, 2:5, :, 8:],
+         "one row axis": base[:, 3, 2, :c], "unaligned": base[:, :, :, 1:c + 1]}[view]
+    weight, beta = weight[:c].contiguous(), beta[:c].contiguous()
+    out = layer_norm(x, weight, beta)
+    assert out.is_contiguous() and out.shape == x.shape
+    plain = layer_norm_reference(x.contiguous(), weight, beta)
+    torch.testing.assert_close(out.float(), plain.float(), atol=BF16_LN_TOL, rtol=BF16_LN_TOL)
+    assert torch.equal(layer_norm(x, weight, beta), out), "a rerun differs"
 
 
 def _nf4_weight(cuda, n, k, quant_type, split, seed=0):
@@ -1329,6 +1367,41 @@ def test_partial_block_kernels_mask_ragged_tiles_on_card(cuda, s, block):
     overhang = probe.partial_block_lastaxis(y, block, out)
     assert torch.equal(out[: 3 * s].view(3, s), y * 2 + 1)
     assert (out[3 * s:] == probe.SENTINEL).all() and int(overhang.sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 63, 512, 1219, 4360, 4608])
+@pytest.mark.parametrize("case", ["copy-bf16", "copy-f32", "lastaxis", "tma"])
+def test_partial_block_kernels_at_the_probe_widths_on_card(cuda, s, case):
+    """Kernel L at the probe's widths: a 512-row tile is a cluster of 16
+    CTAs of 32 rows, and the last-axis case's 8 rows a cluster of 8 CTAs, so
+    at S = 1, 63 and 4360 the last cluster has CTAs wholly past S, which
+    still stage zeros and count them; S = 512 and 4608 leave no overhang. The counts equal the plain version's, the copy is exact,
+    nothing lands past S, and a rerun gives the same counts."""
+    g = torch.Generator(device=cuda).manual_seed(s)
+    if case == "lastaxis":
+        x = torch.randn(8, s, device=cuda, generator=g)
+        out = torch.full((8 * s + 512,), probe.SENTINEL, device=cuda)
+        run = lambda o: probe.partial_block_lastaxis(x, 512, o)  # noqa: E731
+        plain = lambda o: probe.partial_block_lastaxis_reference(x, 512, o)  # noqa: E731
+        want = x * 2 + 1
+    else:
+        dtype = torch.float32 if case == "copy-f32" else torch.bfloat16
+        x = torch.randn(s, 256, device=cuda, generator=g).to(dtype)
+        out = torch.full((s + 512, 256), probe.SENTINEL, device=cuda, dtype=dtype)
+        if case == "tma":
+            run, plain = (lambda o: probe.partial_block_tma(x, o)), (
+                lambda o: probe.partial_block_tma_reference(x, o))
+        else:
+            run = lambda o: probe.partial_block_copy(x, 512, o)  # noqa: E731
+            plain = lambda o: probe.partial_block_copy_reference(x, 512, o)  # noqa: E731
+        want = x
+    counts = run(out)
+    torch.cuda.synchronize()
+    assert torch.equal(counts, plain(torch.full_like(out, probe.SENTINEL)))
+    assert torch.equal(out.view(-1)[: x.numel()].view(x.shape), want)
+    assert (out.view(-1)[x.numel():] == probe.SENTINEL).all()
+    assert torch.equal(run(out), counts)
 
 
 @pytest.mark.cuda

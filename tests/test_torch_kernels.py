@@ -35,10 +35,12 @@ from vision_ft_tpu_torch.ops.flash_attention import (
     flash_attention_bshd_backward_reference,
     flash_attention_bshd_reference,
 )
+from vision_ft_tpu_torch.ops import layer_norm as layer_norm_module
 from vision_ft_tpu_torch.ops.layer_norm import (
     layer_norm,
     layer_norm_backward,
     layer_norm_reference,
+    ln_plan,
 )
 
 # fp32 attention on the CPU: the Pallas interpret run takes an online
@@ -260,3 +262,56 @@ def test_layer_norm_backward_skips_a_frozen_affine():
     (auto,) = torch.autograd.grad(layer_norm(x, weight, bias).square().sum(), x)
     (plain,) = torch.autograd.grad(layer_norm_reference(x, weight, bias).square().sum(), x)
     torch.testing.assert_close(auto, plain, atol=FP32_TOL, rtol=FP32_TOL)
+
+
+# (rows, C) of kernel A's plan: the SDXL request's and train step's shapes,
+# one row, C not a multiple of 8 or of 256, and the widest C it takes
+LN_PLAN_SHAPES = [(8192, 640), (2048, 1280), (154, 768), (16384, 640), (1, 8), (7, 136),
+                  (3, 2049), (5, 4100), (1, 8192), (100000, 8192), (10**6, 1)]
+
+
+@pytest.mark.parametrize("rows,c", LN_PLAN_SHAPES)
+def test_ln_plan_covers_every_row_and_element_once(rows, c):
+    """Kernel A's launch plan, walked as ``csrc/layer_norm.cu`` walks it:
+    block b takes groups b, b + blocks, ... of rows_per_block rows; warp w
+    takes row slot w // wpr of a group and vectors (i * wpr + w % wpr) * 32 +
+    lane of it. Every row and every 8-element vector of a row is reached
+    once, and the grid and the registers stay within the card's limits."""
+    sms = 132
+    plan = ln_plan(rows, c, sms)
+    wpr, vpl, per_block, blocks = plan
+    assert wpr in (1, 2, 4) and per_block * wpr == 4 and 1 <= vpl <= 8
+    assert 1 <= blocks <= min(sms * 16, 2**31 - 1)
+    groups = -(-rows // per_block)
+    assert blocks == min(groups, sms * 16)
+    reached = np.zeros(rows, np.int64)
+    for b in range(blocks):
+        for slot in range(per_block):
+            row = np.arange(b, groups, blocks) * per_block + slot
+            np.add.at(reached, row[row < rows], 1)
+    assert (reached == 1).all()
+    vectors = -(-c // 8)
+    cols = np.array([(i * wpr + part) * 32 + lane
+                     for part in range(wpr) for lane in range(32) for i in range(vpl)])
+    assert sorted(cols[cols < vectors]) == list(range(vectors))
+    if wpr > 1:  # the fewest warps a row: one warp fewer would need over 8 vectors a lane
+        assert (wpr // 2) * 32 * 8 < vectors
+
+
+def test_row_layout_reaches_every_row_of_a_strided_view():
+    """The rows the kernel reaches through (inner, batch_stride, row_stride)
+    are x's own rows: a contiguous x, a batch of row slices, an NHWC slice
+    whose spatial axes fold into one, a single batch row; a transposed or
+    unfoldable view has no layout (the wrapper raises)."""
+    base = torch.arange(4 * 9 * 5 * 16, dtype=torch.float32).reshape(4, 9, 5, 16)
+    views = [base, base[:, 2:7], base[1:3, :, :, :], base[:, 3:4, 1:2],
+             base.reshape(36, 80)[::3].unflatten(-1, (5, 16)), base[2, 1:6, 4]]
+    for x in views:
+        inner, batch_stride, row_stride = layer_norm_module._row_layout(x)
+        rows = x.numel() // x.shape[-1]
+        starts = [(r // inner) * batch_stride + (r % inner) * row_stride for r in range(rows)]
+        flat = base.reshape(-1)
+        got = torch.stack([flat[x.storage_offset() + s:][: x.shape[-1]] for s in starts])
+        torch.testing.assert_close(got, x.reshape(rows, x.shape[-1]), rtol=0, atol=0)
+    assert layer_norm_module._row_layout(base.transpose(-1, -2)) is None
+    assert layer_norm_module._row_layout(base[:, :, 1:4]) is None  # rows 80 apart, then 16

@@ -126,3 +126,54 @@ def test_plain_tma_case_writes_nothing_past_s(s, c):
     assert (out[s:] == probe.SENTINEL).all()
     assert counts.shape == (-(-s // 128) * (c // 64), 2) and int(counts.sum()) == 0
     assert probe.partial_block_tma.launches == 0
+
+
+# (S, row bytes, block rows) of the copy: the probe's cases, 16-byte rows at
+# small blocks, blocks that are not powers of two, the widest row, S a
+# multiple of the block (no overhang) and S under one block
+COPY_PLAN_CASES = [(4360, 512, 512), (4360, 1024, 512), (1219, 512, 512), (4608, 512, 512),
+                   (1, 16, 512), (63, 512, 512), (7, 16, 2), (100, 16, 64), (513, 16, 512),
+                   (1000, 32768, 9), (5, 48, 3), (300, 16384, 64)]
+
+
+@pytest.mark.parametrize("s,row_bytes,block", COPY_PLAN_CASES)
+def test_copy_plan_covers_every_row_once(s, row_bytes, block):
+    """Kernel L's copy plan, walked as ``csrc/partial_block_probe.cu`` walks
+    it: tile t is a cluster whose CTA k stages rows [k * cta_rows, (k + 1) *
+    cta_rows) of the tile in chunks of chunk_rows. Every row of every tile,
+    past S included, is staged once; clusters, stages and the grid stay
+    within the card's limits."""
+    plan = probe.copy_plan(s, row_bytes, block)
+    tiles, cluster, cta_rows, chunk_rows = plan
+    assert tiles == -(-s // block) and cluster in (1, 2, 4, 8, 16) and cluster <= block
+    assert 1 <= chunk_rows <= cta_rows and chunk_rows * row_bytes <= 32768
+    assert 4 * chunk_rows * row_bytes <= 227 * 1024 and tiles * cluster < 2**31
+    staged = np.zeros(tiles * block, np.int64)
+    for t in range(tiles):
+        for k in range(cluster):
+            first = min(k * cta_rows, block)
+            n_rows = min(cta_rows, block - first)
+            for chunk in range(-(-n_rows // chunk_rows)):
+                rows = np.arange(chunk * chunk_rows, min((chunk + 1) * chunk_rows, n_rows))
+                np.add.at(staged, t * block + first + rows, 1)
+    assert (staged == 1).all()
+    # 16 CTAs (non-portable) only where a CTA's ring of 4 stages is at most 32 KB
+    assert cluster == min(16 if row_bytes <= 8192 else 8, 1 << (block.bit_length() - 1))
+    assert cluster <= 8 or 4 * chunk_rows * row_bytes <= 32768
+
+
+@pytest.mark.parametrize("rows,cols,block", [(8, 4352, 512), (8, 4360, 512), (3, 1, 512),
+                                             (3, 513, 512), (1, 7, 2), (5, 100, 64)])
+def test_lastaxis_plan_covers_every_column_once(rows, cols, block):
+    """The last-axis plan: tile t (columns [t * block, (t + 1) * block)) is
+    a cluster whose CTA k stages rows [k * cta_rows, (k + 1) * cta_rows);
+    every (row, column) of every tile is staged once and a CTA's tile fits
+    its 48 KB."""
+    tiles, cluster, cta_rows = probe.lastaxis_plan(rows, cols, block)
+    assert tiles == -(-cols // block) and cluster in (1, 2, 4, 8) and cluster <= rows
+    assert cta_rows * block * 4 <= rows * block * 4
+    staged = np.zeros((rows, tiles * block), np.int64)
+    for k in range(cluster):
+        r0 = min(k * cta_rows, rows)
+        staged[r0:r0 + min(cta_rows, rows - r0)] += 1
+    assert (staged == 1).all()

@@ -1,19 +1,14 @@
 """Build and load the port's kernels from ``vision_ft_tpu_torch/csrc``.
 
-Two routes, both at first use and from the package's own sources only:
-
-- CUDA C++ (``csrc/<name>.cu``): ``nvcc`` compiles the file into a shared
-  library with a plain C interface, for ``sm_90a``, and ``ctypes`` loads
-  it. The library lands in ``vision_ft_tpu_torch/_build/`` under a name
-  that carries a hash of the source, the shared ``csrc/*.cuh`` headers and
-  the flags, so an edited source is rebuilt; it is written to a temporary
-  name and renamed, so two processes that build at once never load half a
-  file. ``build_cuda_libraries`` compiles several sources at once.
-- Triton (``csrc/<name>.py``): the module is loaded from its file. It
-  sits outside the package's import graph because it imports ``triton``
-  at the top, and importing the package must work where Triton is
-  absent; Triton compiles its kernels at their first launch, into
-  ``_build/triton/`` unless ``TRITON_CACHE_DIR`` names another place.
+Every kernel is CUDA C++ (``csrc/<name>.cu``), built at first use and from
+the package's own sources only: ``nvcc`` compiles the file into a shared
+library with a plain C interface, for ``sm_90a``, and ``ctypes`` loads it.
+The library lands in ``vision_ft_tpu_torch/_build/`` under a name that
+carries a hash of the source, the shared ``csrc/*.cuh`` headers and the
+flags, so an edited source is rebuilt; it is written to a temporary name
+and renamed, so two processes that build at once never load half a file.
+``build_cuda_libraries`` compiles several sources at once. ``launch`` calls
+a C entry on PyTorch's current stream.
 
 Nothing here runs at import time.
 """
@@ -23,14 +18,13 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
-import importlib.util
 import os
 import shutil
 import subprocess
-import sys
 from pathlib import Path
-from types import ModuleType
 from typing import Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -40,7 +34,6 @@ NVCC_FLAGS = (
 )
 
 _cuda_libs: dict[str, ctypes.CDLL] = {}
-_triton_modules: dict[str, ModuleType] = {}
 
 
 def _nvcc() -> str:
@@ -105,25 +98,21 @@ def cuda_library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def triton_module(name: str) -> ModuleType:
-    """Load ``csrc/<name>.py`` (a module of ``@triton.jit`` kernels)."""
-    if name in _triton_modules:
-        return _triton_modules[name]
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
-    path = CSRC / f"{name}.py"
-    mod_name = f"vision_ft_tpu_torch._kernels.{name}"
-    spec = importlib.util.spec_from_file_location(mod_name, path)
-    module = importlib.util.module_from_spec(spec)
-    sys.modules[mod_name] = module
-    spec.loader.exec_module(module)
-    _triton_modules[name] = module
-    return module
+def launch(fn, index: int, *args) -> int:
+    """``fn(*args, stream)``: a C entry on PyTorch's current stream of card
+    ``index`` (a raw handle, no ``torch.cuda.Stream`` object), with that card
+    made current only where it is not already; returns the entry's error
+    code."""
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch._C._cuda_getDevice():  # torch.cuda.current_device(), 0.3 us less a call
+        return fn(*args, stream)
+    with torch.cuda.device(index):
+        return fn(*args, stream)
 
 
 @functools.cache
 def sm_count(device) -> int:
-    """Streaming multiprocessors of the card ``device`` (a ``torch.device``):
-    what the kernels' persistent grids and launch plans are sized by."""
-    import torch
-
+    """Streaming multiprocessors of the card ``device`` (a ``torch.device``
+    or its index): what the kernels' persistent grids and launch plans are
+    sized by."""
     return torch.cuda.get_device_properties(device).multi_processor_count

@@ -5,10 +5,11 @@ Counterpart of ``tools/bench/partial_block_probe.py``, with its four cases,
 keys and block sizes, and a fifth case of the port's own. There the question was whether the TPU compiler
 takes grid blocks that do not divide the array; on Hopper it is how a
 kernel masks a ragged tile. Kernel L (``csrc/partial_block_probe.cu``)
-copies (S, C) rows in blocks of 512 rows, loading rows past S as zeros
-(cp.async with source size 0) and storing only rows below S; and computes
+copies (S, C) rows in blocks of 512 rows, each block a thread-block
+cluster of 16 CTAs (``copy_plan``), loading rows past S as zeros (cp.async
+with source size 0) and storing only rows below S; and computes
 ``x * 2 + 1`` over (8, S) in blocks of 512 columns (8.5 blocks at
-S = 4352). Each case writes into a buffer longer than its output, filled
+S = 4352), a block's rows spread over a cluster (``lastaxis_plan``). Each case writes into a buffer longer than its output, filled
 with a sentinel, and holds the output against its input, the tail against
 the sentinel and the overhang's staged values against zero. A fifth case
 asks the question for TMA, which kernel F's loads and stores rely on: a
@@ -35,6 +36,7 @@ import ctypes
 import functools
 import json
 import sys
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -42,18 +44,61 @@ import torch
 from ..ops import _build
 
 SENTINEL = 1000.0  # the tail's fill: exact in fp32 and bf16, far from N(0, 1) draws
-_CHUNK_BYTES = 32768  # the copy kernel's shared-memory tile
+_MAX_ROW_BYTES = 32768  # the copy kernel's widest row (and stage)
 TMA_BOX = (128, 64)  # rows, bf16 columns (128 bytes: one swizzle row) of the TMA case's boxes
+_CLUSTER = 8  # CTAs of a cluster at most: the portable size ...
+_WIDE_CLUSTER = 16  # ... or 16 for the copy where its ring is small (non-portable)
+_STAGE_BYTES = 8192  # about the bytes of one stage of the copy kernel's ring of 4
+
+
+class CopyPlan(NamedTuple):
+    tiles: int       # clusters: one a tile of block_rows rows
+    cluster: int     # CTAs of a cluster: 1, 2, 4, 8 or 16
+    cta_rows: int    # rows of a CTA's slice of its tile (the last slices may be short or empty)
+    chunk_rows: int  # rows of one cp.async stage
+
+
+class LastAxisPlan(NamedTuple):
+    tiles: int     # clusters: one a tile of block_cols columns
+    cluster: int   # CTAs of a cluster: 1, 2, 4 or 8
+    cta_rows: int  # rows of the tile a CTA stages (the last CTAs may have fewer or none)
+
+
+def _cluster(n: int, most: int = _CLUSTER) -> int:
+    """The largest power of two up to ``most`` and up to n: CTAs of a cluster."""
+    return min(most, 1 << (max(1, n).bit_length() - 1))
+
+
+@functools.lru_cache(maxsize=256)
+def copy_plan(rows: int, row_bytes: int, block_rows: int) -> CopyPlan:
+    """Kernel L's copy: one cluster a tile of ``block_rows`` rows, its CTAs
+    owning consecutive slices of the tile's rows, each staged through a ring
+    of 4 stages of about 8 KB (at least one row). 16 CTAs a cluster where
+    the ring is at most 32 KB (rows of up to 8 KB: traced on the card at
+    (4360, 256) bf16, 4.21 us a call against 5.03 with 8), else 8, the
+    portable size. A function of the shape alone."""
+    cluster = _cluster(block_rows, _WIDE_CLUSTER if row_bytes <= _STAGE_BYTES else _CLUSTER)
+    cta_rows = -(-block_rows // cluster)
+    return CopyPlan(-(-rows // block_rows), cluster, cta_rows,
+                    max(1, min(cta_rows, _STAGE_BYTES // row_bytes)))
+
+
+@functools.lru_cache(maxsize=256)
+def lastaxis_plan(rows: int, cols: int, block_cols: int) -> LastAxisPlan:
+    """Kernel L's last-axis case: one cluster a tile of ``block_cols``
+    columns, its CTAs owning consecutive rows of the tile."""
+    cluster = _cluster(rows)
+    return LastAxisPlan(-(-cols // block_cols), cluster, -(-rows // cluster))
 
 
 @functools.cache
 def _kernels():
     lib = _build.cuda_library("partial_block_probe")
-    for fn in (lib.partial_block_copy, lib.partial_block_lastaxis):
-        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-        fn.restype = ctypes.c_int
+    lib.partial_block_copy.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+    lib.partial_block_lastaxis.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
     lib.partial_block_tma.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
-    lib.partial_block_tma.restype = ctypes.c_int
+    for fn in (lib.partial_block_copy, lib.partial_block_lastaxis, lib.partial_block_tma):
+        fn.restype = ctypes.c_int
     return lib.partial_block_copy, lib.partial_block_lastaxis, lib.partial_block_tma
 
 
@@ -62,7 +107,7 @@ def _blocks(n: int, block: int) -> int:
 
 
 def _check_out(x: torch.Tensor, out: torch.Tensor) -> None:
-    if (out.dtype != x.dtype or out.device != x.device or not out.is_contiguous()
+    if (out.dtype != x.dtype or out.get_device() != x.get_device() or not out.is_contiguous()
             or out.numel() < x.numel()):
         raise ValueError(f"out must be a contiguous {x.dtype} buffer on {x.device} of at least "
                          f"{x.numel()} elements")
@@ -95,15 +140,15 @@ def partial_block_copy(x: torch.Tensor, block_rows: int, out: torch.Tensor) -> t
     if not x.is_cuda:
         return partial_block_copy_reference(x, block_rows, out)
     _check_out(x, out)
-    row_bytes = x[0].numel() * x.element_size() if x.ndim == 2 else 0
-    if (x.ndim != 2 or not x.is_contiguous() or row_bytes % 16 or not 0 < row_bytes <= _CHUNK_BYTES
-            or block_rows < 1 or x.data_ptr() % 16 or out.data_ptr() % 16):
+    row_bytes = x.shape[1] * x.element_size() if x.ndim == 2 else 0
+    if (x.ndim != 2 or not x.is_contiguous() or row_bytes % 16 or not 0 < row_bytes <= _MAX_ROW_BYTES
+            or x.shape[0] < 1 or block_rows < 1 or x.data_ptr() % 16 or out.data_ptr() % 16):
         raise ValueError(f"partial_block_copy takes a contiguous 16-byte aligned (S, C) tensor "
-                         f"with 16 to {_CHUNK_BYTES} bytes a row, got {tuple(x.shape)} {x.dtype}")
-    overhang = torch.empty(_blocks(x.shape[0], block_rows), dtype=torch.int32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _kernels()[0](x.data_ptr(), out.data_ptr(), x.shape[0], row_bytes, block_rows,
-                            overhang.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+                         f"with 16 to {_MAX_ROW_BYTES} bytes a row, got {tuple(x.shape)} {x.dtype}")
+    plan = copy_plan(x.shape[0], row_bytes, block_rows)
+    overhang = torch.empty(plan.tiles, dtype=torch.int32, device=x.device)
+    err = _build.launch(_kernels()[0], x.get_device(), x.data_ptr(), out.data_ptr(), x.shape[0],
+                        row_bytes, block_rows, *plan[1:], overhang.data_ptr())
     if err != 0:
         raise RuntimeError(f"partial_block_copy launch failed: CUDA error {err}")
     partial_block_copy.launches += 1
@@ -133,10 +178,10 @@ def partial_block_lastaxis(x: torch.Tensor, block_cols: int, out: torch.Tensor) 
             or block_cols < 1 or x.shape[0] * block_cols * 4 > 48 * 1024):
         raise ValueError(f"partial_block_lastaxis takes a contiguous fp32 (R, S) tensor with "
                          f"R * block_cols * 4 <= 48 KB, got {tuple(x.shape)} {x.dtype}")
-    overhang = torch.empty(_blocks(x.shape[1], block_cols), dtype=torch.int32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _kernels()[1](x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], block_cols,
-                            overhang.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+    plan = lastaxis_plan(*x.shape, block_cols)
+    overhang = torch.empty(plan.tiles, dtype=torch.int32, device=x.device)
+    err = _build.launch(_kernels()[1], x.get_device(), x.data_ptr(), out.data_ptr(), *x.shape,
+                        block_cols, *plan[1:], overhang.data_ptr())
     if err != 0:
         raise RuntimeError(f"partial_block_lastaxis launch failed: CUDA error {err}")
     partial_block_lastaxis.launches += 1
@@ -162,9 +207,10 @@ def partial_block_tma(x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """Copy bf16 x (S, C), C % 64 == 0, into the first S rows of ``out``
     through shared memory, in (128, 64) boxes of 2-D tensor maps with
     128-byte swizzle (TMA load, TMA store through a map of S rows). Returns
-    (boxes, 2) int32: per box, the threads that saw a nonzero 16-byte word
-    staged past S, and those that found a valid element off the place the
-    swizzle formula gives."""
+    (boxes, 2) int32: per box, the nonzero 16-byte words staged past S and
+    the valid pairs of elements found off the place the swizzle formula
+    gives. The C entry keeps the tensor maps it encodes in a cache keyed by
+    all they encode."""
     if not x.is_cuda:
         return partial_block_tma_reference(x, out)
     _check_out(x, out)
@@ -175,9 +221,8 @@ def partial_block_tma(x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
                          f"with C % {TMA_BOX[1]} == 0, got {tuple(x.shape)} {x.dtype}")
     boxes = _blocks(x.shape[0], TMA_BOX[0]) * (x.shape[1] // TMA_BOX[1])
     counts = torch.empty(boxes, 2, dtype=torch.int32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _kernels()[2](x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], counts.data_ptr(),
-                            torch.cuda.current_stream(x.device).cuda_stream)
+    err = _build.launch(_kernels()[2], x.get_device(), x.data_ptr(), out.data_ptr(), *x.shape,
+                        counts.data_ptr())
     if err != 0:
         raise RuntimeError(f"partial_block_tma launch failed: CUDA error {err}")
     partial_block_tma.launches += 1

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (vision_ft_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--profile] [--kernel-d] [--trace-kernels] [--ln-probe-costs]
+    python3 chip_smoke.py [--profile] [--kernel-d] [--kernel-i] [--trace-kernels]
+                          [--ln-probe-costs]
 
 With --profile, phases 6 and 8 also trace two train steps with
 torch.profiler (device activity only) and print the device time of a step
@@ -12,11 +13,14 @@ device ms on its own line), phase 12 of one Lumina2 denoise step and phase
 14 of one Lumina2 train step (kernel G's and E's device ms on their own
 lines), phase 16 of the 1024 px request with the short-K kernels (kernel
 H's device ms on its own line). With --kernel-d, only phases 0, 7 and the
-build of kernel D's library run (no ok line). With --trace-kernels, only
-phase 0 and the traces of phases 3 and 18 run: 10 calls each of kernels H,
-J and K, of A at LN_SHAPES, of L's three timed cases and of each one's
-library call under torch.profiler, printed as one JSON line (no ok line);
-phase 3 runs it so, in a process of its own, and phases 3 and 18 print it.
+build of kernel D's library run (no ok line); with --kernel-i, only phases
+0, 15 (with the --trace-kernels process) and the build of kernels H's and
+I's library (no ok line). With --trace-kernels, only phase 0 and the
+traces of phases 3, 15 and 18 run: 10 calls each of kernels H, J and K, of
+I at SHORTK_SHAPES, of A at LN_SHAPES, of L's three timed cases and of
+each one's library call (SDPA's backward alone beside I) under
+torch.profiler, printed as one JSON line (no ok line); phase 3 runs it so,
+in a process of its own, and phases 3, 15 and 18 print it.
 With --ln-probe-costs, only phase 0 runs and then, for kernel A at
 LN_SHAPES and kernel L's three timed cases and each one's library call,
 one call, a call over 10 back to back, the host's microseconds a call and
@@ -117,7 +121,10 @@ Phases, each printing its own lines; any failure exits non-zero:
     train step's shapes (77 and 152 keys), at 192 keys, head dim 128 and
     with a batch entry of zero q rows; reruns bit-identical; SDPA's forward
     and backward beside them, H's and SDPA's time a call over 10 calls back
-    to back, H's TFLOP/s and GB/s and its share of the bound.
+    to back, H's TFLOP/s and GB/s and its share of the bound; I's one call,
+    a call over 10 back to back, the host's microseconds a call and the
+    traced card time a call, each beside SDPA's backward alone, and their
+    shares of I's bound.
 16. SDXL requests with the switches on, the SDXL model made again on the
     card: the 1024 px request with set_flash_shortk(True) (kernel H in
     every cross-attention) and with set_fused_ff("on") (kernel F in every
@@ -421,10 +428,11 @@ def host_us(fn, calls: int = 200, repeats: int = 3) -> float:
     return statistics.median(times)
 
 
-def call_costs(fn) -> dict:
+def call_costs(fn, host_calls: int = 200) -> dict:
     """One call by CUDA events, a call over 10 back to back, and the host's
-    microseconds a call of ``fn``."""
-    return dict(ms=cuda_ms(fn, iters=50), burst_ms=burst_ms(fn), host_us=host_us(fn))
+    microseconds a call of ``fn`` (over ``host_calls`` calls: fewer for a
+    call whose host cost would outlast the card's sleep)."""
+    return dict(ms=cuda_ms(fn, iters=50), burst_ms=burst_ms(fn), host_us=host_us(fn, host_calls))
 
 
 def bound(nbytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS):
@@ -751,14 +759,18 @@ def ln_probe_costs(device, gen) -> dict:
 
 
 def trace_kernels(device, gen) -> dict:
-    """10 calls each of kernel H at its record's shape, of J (+ SiLU) and K
-    at theirs, of A at LN_SHAPES and of L's three timed cases, and of SDPA,
-    F.group_norm + F.silu and A's and L's library calls on the same inputs,
-    each traced by torch.profiler: {label: {"kinds": {kind: [ms, launches]},
-    "kernel": the kind that must show one launch a call, or None, "counted":
-    the wrapper's launch count over the 10 calls}}."""
+    """10 calls each of kernel H at its record's shape, of I at every
+    SHORTK_SHAPES shape, of J (+ SiLU) and K at theirs, of A at LN_SHAPES
+    and of L's three timed cases, and of SDPA's forward, SDPA's backward
+    alone (I's shapes), F.group_norm + F.silu and A's and L's library calls
+    on the same inputs, each traced by torch.profiler: {label: {"kinds":
+    {kind: [ms, launches]}, "kernel": the kind that must show one launch a
+    call, or None, "counted": the wrapper's launch count over the 10
+    calls}}."""
     from vision_ft_tpu_torch.ops.conv3x3 import conv3x3
-    from vision_ft_tpu_torch.ops.flash_attention import flash_attention_shortk
+    from vision_ft_tpu_torch.ops.flash_attention import (
+        flash_attention_masked_delta, flash_attention_shortk, flash_attention_shortk_bwd,
+    )
     from vision_ft_tpu_torch.ops.group_norm import group_norm
 
     b, h, sq, sk, d, _ = SHORTK_SHAPES[0]
@@ -783,11 +795,29 @@ def trace_kernels(device, gen) -> dict:
          lambda: conv3x3(x2, w), "kernel K"),
     ]
     cases += [(label, wrapper, call, kind) for label, wrapper, kind, call in a_and_l_cases(device, gen)]
+    for b, h, sq, sk, d, zero_batch in SHORTK_SHAPES:
+        q, k, v, dout = shortk_inputs(b, h, sq, sk, d, zero_batch, device, gen)
+        out, lse = flash_attention_shortk(q, k, v, return_lse=True)
+        delta = flash_attention_masked_delta(out, dout)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        sdpa_out = torch.nn.functional.scaled_dot_product_attention(*leaves)
+        shape = (b, h, sq, sk, d)
+        cases += [
+            (f"kernel I {shape}", flash_attention_shortk_bwd,
+             functools.partial(flash_attention_shortk_bwd, q, k, v, dout, lse, delta), "kernel I"),
+            (f"SDPA backward {shape}", None,
+             functools.partial(torch.autograd.grad, sdpa_out, leaves, dout, retain_graph=True),
+             None),
+        ]
     traces = {}
     for label, wrapper, call, kernel in cases:
         call()
-        before = wrapper.launches if wrapper else 0
-        kinds, _ = profile_window(lambda: [call() for _ in range(10)])
+        # the profiler has returned an empty window now and then: up to three tries
+        for _ in range(3):
+            before = wrapper.launches if wrapper else 0
+            kinds, _ = profile_window(lambda: [call() for _ in range(10)])
+            if kinds:
+                break
         traces[label] = dict(kinds=kinds, kernel=kernel,
                              counted=wrapper.launches - before if wrapper else None)
     return traces
@@ -896,6 +926,110 @@ def kernel_d_phase(device, gen) -> dict:
     }
 
 
+def kernels_h_i_phase(device, gen, traces) -> dict:
+    """Phase 15: kernels H and I against their plain versions at
+    SHORTK_SHAPES, reruns bit-identical; H timed by one call and back to
+    back beside SDPA's forward, I by one call, back to back, its host us a
+    call and its traced card time (``traces``, the --trace-kernels
+    process) beside SDPA's backward alone. Returns the two kernels' records
+    (H at the request's first shape, I at the train step's)."""
+    from vision_ft_tpu_torch.ops.flash_attention import (
+        _masked_backward_reference, flash_attention_masked_delta as shortk_delta,
+        flash_attention_shortk, flash_attention_shortk_backward_reference,
+        flash_attention_shortk_bwd, flash_attention_shortk_reference,
+    )
+
+    h_errs, i_errs, h_rows, i_rows = [], [], [], []
+    for b, h, sq, sk, d, zero_batch in SHORTK_SHAPES:
+        q, k, v, dout = shortk_inputs(b, h, sq, sk, d, zero_batch, device, gen)
+        out, lse = flash_attention_shortk(q, k, v, return_lse=True)
+        fwd_err = compare(f"short-K forward {(b, h, sq, sk, d)}", lambda: out,
+                          lambda: flash_attention_shortk_reference(q, k, v), SHORTK_TOL)
+        delta = shortk_delta(out, dout)
+        grads = flash_attention_shortk_bwd(q, k, v, dout, lse, delta)
+        again = (flash_attention_shortk(q, k, v), *flash_attention_shortk_bwd(q, k, v, dout, lse, delta))
+        if not all(torch.equal(a, b_) for a, b_ in zip((out, *grads), again)):
+            raise AssertionError(f"short-K {(b, h, sq, sk, d)}: a rerun differs")
+        want = flash_attention_shortk_backward_reference(q, k, v, out, lse, dout)
+        bwd_err = {n: compare(f"short-K backward {(b, h, sq, sk, d)} {n}", lambda: g_,
+                              lambda: w_, SHORTK_BWD_TOL)
+                   for n, g_, w_ in zip(("dq", "dk", "dv"), grads, want)}
+        del want
+        fwd_ms = cuda_ms(lambda: flash_attention_shortk(q, k, v, return_lse=True))
+        kernel_i = call_costs(lambda: flash_attention_shortk_bwd(q, k, v, dout, lse, delta))
+        plain_fwd_ms = cuda_ms(lambda: flash_attention_shortk_reference(q, k, v, return_lse=True),
+                               iters=5)
+        plain_bwd_ms = cuda_ms(
+            lambda: _masked_backward_reference(q, k, v, None, lse, delta, dout, None, False), iters=5)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        sdpa_fwd_ms = cuda_ms(lambda: sdpa(q, k, v))
+        fwd_burst_ms = burst_ms(lambda: flash_attention_shortk(q, k, v, return_lse=True))
+        sdpa_burst_ms = burst_ms(lambda: sdpa(q, k, v))
+        sdpa_out = sdpa(*leaves)
+        sdpa_bwd = call_costs(lambda: torch.autograd.grad(sdpa_out, leaves, dout, retain_graph=True),
+                              host_calls=50)
+        shape = (b, h, sq, sk, d)
+        traced = (traced_ms(traces, f"kernel I {shape}"), traced_ms(traces, f"SDPA backward {shape}"))
+        q_bytes, k_bytes, row_bytes = b * h * sq * d * 2, b * h * sk * d * 2, b * h * sq * 4
+        fwd_bytes, fwd_flops = 2 * q_bytes + 2 * k_bytes + row_bytes, 4 * b * h * sq * sk * d
+        fwd_bound = bound(fwd_bytes, fwd_flops)
+        # S, dP, dV, dK, dQ: 5 products; q, dO, dq, k, v, dk, dv, lse, delta
+        bwd_bound = bound(3 * q_bytes + 4 * k_bytes + 2 * row_bytes, 10 * b * h * sq * sk * d)
+        print(f"B={b} H={h} Sq={sq} Sk={sk} D={d}{' zero q batch' if zero_batch else ''}: forward "
+              f"max abs err {fwd_err[0]:.3e} rel {fwd_err[1]:.3e} (tol {SHORTK_TOL}), "
+              + ", ".join(f"{n} {a:.3e} rel {r:.3e}" for n, (a, r) in bwd_err.items())
+              + f" (tol {SHORTK_BWD_TOL}), reruns bit-identical; kernel H {fwd_ms:.4f} ms "
+              f"({fwd_flops / fwd_ms / 1e9:.1f} TFLOP/s, {fwd_bytes / fwd_ms / 1e6:.0f} GB/s, "
+              f"{100 * fwd_bound[0] / fwd_ms:.1f}% of the bound; {fwd_burst_ms:.4f} ms a call over "
+              f"10 back to back, {100 * fwd_bound[0] / fwd_burst_ms:.1f}%) (plain "
+              f"{plain_fwd_ms:.3f}, bound {fwd_bound[0]:.4f} {fwd_bound[1]}, SDPA {sdpa_fwd_ms:.4f}, "
+              f"{sdpa_burst_ms:.4f} back to back)")
+        print(f"  kernel I {kernel_i['ms']:.4f} ms one call ({100 * bwd_bound[0] / kernel_i['ms']:.1f}% "
+              f"of the bound; {kernel_i['ms'] / sdpa_bwd['ms']:.2f}x SDPA's backward), "
+              f"{kernel_i['burst_ms']:.4f} a call over 10 back to back "
+              f"({kernel_i['burst_ms'] / sdpa_bwd['burst_ms']:.2f}x), {traced[0]:.5f} traced on the "
+              f"card ({100 * bwd_bound[0] / traced[0]:.1f}% of the bound, "
+              f"{traced[0] / traced[1]:.2f}x), host {kernel_i['host_us']:.1f} us a call; plain "
+              f"{plain_bwd_ms:.3f}; SDPA's backward {sdpa_bwd['ms']:.4f} one call, "
+              f"{sdpa_bwd['burst_ms']:.4f} back to back, {traced[1]:.5f} traced, host "
+              f"{sdpa_bwd['host_us']:.1f} us; bound {bwd_bound[0]:.4f} ms ({bwd_bound[1]})")
+        h_errs.append(fwd_err[0])
+        i_errs.append(max(a for a, _ in bwd_err.values()))
+        h_rows.append(dict(ms=fwd_ms, plain_ms=plain_fwd_ms, bound_ms=fwd_bound[0],
+                           bound_by=fwd_bound[1], library_ms=sdpa_fwd_ms))
+        i_rows.append(dict(ms=kernel_i["ms"], plain_ms=plain_bwd_ms, bound_ms=bwd_bound[0],
+                           bound_by=bwd_bound[1], library_ms=sdpa_bwd["ms"],
+                           burst_ms=kernel_i["burst_ms"], host_us=kernel_i["host_us"],
+                           traced_ms=traced[0], library_burst_ms=sdpa_bwd["burst_ms"],
+                           library_host_us=sdpa_bwd["host_us"], library_traced_ms=traced[1]))
+        del q, k, v, dout, out, lse, delta, grads, again, leaves, sdpa_out
+    # kernel H's record at the request's first shape, kernel I's at the train step's
+    return {
+        "flash_attention_shortk": dict(
+            route="cuda", source="vision_ft_tpu_torch/csrc/flash_attention_shortk.cu",
+            replaces="vision_ft_tpu/ops/pallas/flash_attention.py:1226",
+            max_abs_err=max(h_errs), **h_rows[0]),
+        "flash_attention_shortk_bwd": dict(
+            route="cuda", source="vision_ft_tpu_torch/csrc/flash_attention_shortk.cu",
+            replaces="vision_ft_tpu/ops/pallas/flash_attention.py:1256",
+            max_abs_err=max(i_errs), **i_rows[SHORTK_TRAIN_SHAPE]),
+    }
+
+
+def shortk_inputs(b, h, sq, sk, d, zero_batch, device, gen):
+    """Seeded q, k, v, dO in SDXL's layout: (B, H, S, D) views of (B, S,
+    H*D) projections; with ``zero_batch`` the last batch entry's q rows are
+    zeros."""
+    heads = lambda t: t.view(b, t.shape[1], h, d).transpose(1, 2)  # noqa: E731
+    q = torch.randn(b, sq, h * d, device=device, generator=gen).bfloat16()
+    if zero_batch:
+        q[-1] = 0
+    k, v = (torch.randn(b, sk, h * d, device=device, generator=gen).bfloat16() for _ in "kv")
+    dout = torch.randn(b, sq, h * d, device=device, generator=gen).bfloat16()
+    return tuple(heads(t) for t in (q, k, v, dout))
+
+
 def run_trace_kernels(checkout: Path) -> dict:
     """``chip_smoke.py --trace-kernels`` in a process of its own (late in a
     long run the profiler has shown nothing at all): its traces, each kernel
@@ -923,9 +1057,14 @@ def main() -> None:
     args.add_argument("--kernel-d", action="store_true",
                       help="run phase 7 alone (kernel D vs plain, timed) after building its "
                            "library; prints its records, not the ok line")
+    args.add_argument("--kernel-i", action="store_true",
+                      help="run phase 15 alone (kernels H and I vs plain, timed, with the "
+                           "--trace-kernels process) after building their library; prints their "
+                           "records, not the ok line")
     args.add_argument("--trace-kernels", action="store_true",
-                      help="trace 10 calls each of kernels H, J, K, A and L and of their library "
-                           "calls in this process alone; prints one JSON line, not the ok line")
+                      help="trace 10 calls each of kernels H, I, J, K, A and L and of their "
+                           "library calls in this process alone; prints one JSON line, not the "
+                           "ok line")
     args.add_argument("--ln-probe-costs", action="store_true",
                       help="time kernels A and L and their library calls (one call, back to "
                            "back, host us, traced) in this process alone; prints one JSON line, "
@@ -965,8 +1104,7 @@ def main() -> None:
         flash_attention_masked, flash_attention_masked_backward,
         flash_attention_masked_backward_reference, flash_attention_masked_delta,
         flash_attention_masked_dkv, flash_attention_masked_dq, flash_attention_reference,
-        flash_attention_shortk, flash_attention_shortk_backward_reference,
-        flash_attention_shortk_bwd, flash_attention_shortk_reference, set_flash_shortk,
+        flash_attention_shortk, flash_attention_shortk_bwd, set_flash_shortk,
     )
     from vision_ft_tpu_torch.ops.fused_mlp import (
         gated_down, gated_down_reference, gated_mlp, gated_mlp_reference, gated_up,
@@ -1022,6 +1160,15 @@ def main() -> None:
         phase("7 kernel D: packed 4-bit matmul, forward and dx kernels vs plain (bf16)")
         records = kernel_d_phase(device, torch.Generator(device=device).manual_seed(0))
         print(json.dumps({"kernel_d": records}))
+        return
+
+    if options.kernel_i:
+        phase("1 build (kernels H's and I's library only)")
+        _build.build_cuda_libraries(["flash_attention_shortk"])
+        phase("15 kernels H and I: short-K attention forward and backward vs plain (bf16)")
+        records = kernels_h_i_phase(device, torch.Generator(device=device).manual_seed(0),
+                                    run_trace_kernels(checkout))
+        print(json.dumps({"kernels_h_i": records}))
         return
 
     phase("1 build")
@@ -2289,78 +2436,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     phase("15 kernels H and I: short-K attention forward and backward vs plain (bf16)")
-    from vision_ft_tpu_torch.ops.flash_attention import (
-        _masked_backward_reference, flash_attention_masked_delta as shortk_delta,
-    )
-
-    h_errs, i_errs, h_rows, i_rows = [], [], [], []
-    for b, h, sq, sk, d, zero_batch in SHORTK_SHAPES:
-        # SDXL's layout: (B, H, S, D) views of (B, S, H*D) projections
-        heads = lambda t: t.view(b, t.shape[1], h, d).transpose(1, 2)  # noqa: E731
-        q = torch.randn(b, sq, h * d, device=device, generator=gen).bfloat16()
-        if zero_batch:
-            q[-1] = 0
-        k, v = (torch.randn(b, sk, h * d, device=device, generator=gen).bfloat16() for _ in "kv")
-        dout = torch.randn(b, sq, h * d, device=device, generator=gen).bfloat16()
-        q, k, v, dout = (heads(t) for t in (q, k, v, dout))
-        out, lse = flash_attention_shortk(q, k, v, return_lse=True)
-        fwd_err = compare(f"short-K forward {(b, h, sq, sk, d)}", lambda: out,
-                          lambda: flash_attention_shortk_reference(q, k, v), SHORTK_TOL)
-        delta = shortk_delta(out, dout)
-        grads = flash_attention_shortk_bwd(q, k, v, dout, lse, delta)
-        again = (flash_attention_shortk(q, k, v), *flash_attention_shortk_bwd(q, k, v, dout, lse, delta))
-        if not all(torch.equal(a, b_) for a, b_ in zip((out, *grads), again)):
-            raise AssertionError(f"short-K {(b, h, sq, sk, d)}: a rerun differs")
-        want = flash_attention_shortk_backward_reference(q, k, v, out, lse, dout)
-        bwd_err = {n: compare(f"short-K backward {(b, h, sq, sk, d)} {n}", lambda: g_,
-                              lambda: w_, SHORTK_BWD_TOL)
-                   for n, g_, w_ in zip(("dq", "dk", "dv"), grads, want)}
-        del want
-        fwd_ms = cuda_ms(lambda: flash_attention_shortk(q, k, v, return_lse=True))
-        bwd_ms = cuda_ms(lambda: flash_attention_shortk_bwd(q, k, v, dout, lse, delta))
-        plain_fwd_ms = cuda_ms(lambda: flash_attention_shortk_reference(q, k, v, return_lse=True),
-                               iters=5)
-        plain_bwd_ms = cuda_ms(
-            lambda: _masked_backward_reference(q, k, v, None, lse, delta, dout, None, False), iters=5)
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        sdpa_fwd_ms = cuda_ms(lambda: sdpa(q, k, v))
-        fwd_burst_ms = burst_ms(lambda: flash_attention_shortk(q, k, v, return_lse=True))
-        sdpa_burst_ms = burst_ms(lambda: sdpa(q, k, v))
-        sdpa_out = sdpa(*leaves)
-        sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(sdpa_out, leaves, dout, retain_graph=True))
-        q_bytes, k_bytes, row_bytes = b * h * sq * d * 2, b * h * sk * d * 2, b * h * sq * 4
-        fwd_bytes, fwd_flops = 2 * q_bytes + 2 * k_bytes + row_bytes, 4 * b * h * sq * sk * d
-        fwd_bound = bound(fwd_bytes, fwd_flops)
-        # S, dP, dV, dK, dQ: 5 products; q, dO, dq, k, v, dk, dv, lse, delta
-        bwd_bound = bound(3 * q_bytes + 4 * k_bytes + 2 * row_bytes, 10 * b * h * sq * sk * d)
-        print(f"B={b} H={h} Sq={sq} Sk={sk} D={d}{' zero q batch' if zero_batch else ''}: forward "
-              f"max abs err {fwd_err[0]:.3e} rel {fwd_err[1]:.3e} (tol {SHORTK_TOL}), "
-              + ", ".join(f"{n} {a:.3e} rel {r:.3e}" for n, (a, r) in bwd_err.items())
-              + f" (tol {SHORTK_BWD_TOL}), reruns bit-identical; kernel H {fwd_ms:.4f} ms "
-              f"({fwd_flops / fwd_ms / 1e9:.1f} TFLOP/s, {fwd_bytes / fwd_ms / 1e6:.0f} GB/s, "
-              f"{100 * fwd_bound[0] / fwd_ms:.1f}% of the bound; {fwd_burst_ms:.4f} ms a call over "
-              f"10 back to back, {100 * fwd_bound[0] / fwd_burst_ms:.1f}%) (plain "
-              f"{plain_fwd_ms:.3f}, bound {fwd_bound[0]:.4f} {fwd_bound[1]}, SDPA {sdpa_fwd_ms:.4f}, "
-              f"{sdpa_burst_ms:.4f} back to back), "
-              f"kernel I {bwd_ms:.4f} ms (plain {plain_bwd_ms:.3f}, bound {bwd_bound[0]:.4f} "
-              f"{bwd_bound[1]}, SDPA backward {sdpa_bwd_ms:.4f})")
-        h_errs.append(fwd_err[0])
-        i_errs.append(max(a for a, _ in bwd_err.values()))
-        h_rows.append(dict(ms=fwd_ms, plain_ms=plain_fwd_ms, bound_ms=fwd_bound[0],
-                           bound_by=fwd_bound[1], library_ms=sdpa_fwd_ms))
-        i_rows.append(dict(ms=bwd_ms, plain_ms=plain_bwd_ms, bound_ms=bwd_bound[0],
-                           bound_by=bwd_bound[1], library_ms=sdpa_bwd_ms))
-        del q, k, v, dout, out, lse, delta, grads, again, leaves, sdpa_out
-    # kernel H's record at the request's first shape, kernel I's at the train step's
-    records["flash_attention_shortk"] = dict(
-        route="cuda", source="vision_ft_tpu_torch/csrc/flash_attention_shortk.cu",
-        replaces="vision_ft_tpu/ops/pallas/flash_attention.py:1226",
-        max_abs_err=max(h_errs), **h_rows[0])
-    records["flash_attention_shortk_bwd"] = dict(
-        route="cuda", source="vision_ft_tpu_torch/csrc/flash_attention_shortk.cu",
-        replaces="vision_ft_tpu/ops/pallas/flash_attention.py:1256",
-        max_abs_err=max(i_errs), **i_rows[SHORTK_TRAIN_SHAPE])
+    records.update(kernels_h_i_phase(device, gen, traces))
 
     phase("16 SDXL requests with the short-K kernels and the fused feed-forward on")
     from vision_ft_tpu_torch.models.sdxl.denoiser import CrossAttention, FeedForward
@@ -2803,7 +2879,8 @@ def main() -> None:
     # checked there for one launch a call): the card's time a call by kernel beside the
     # CUDA-event times above, which count the host's launches too
     for label, trace in traces.items():
-        if label.startswith(("kernel A", "F.layer_norm", "kernel L")) or " beside kernel L" in label:
+        if (label.startswith(("kernel A", "F.layer_norm", "kernel L", "kernel I", "SDPA backward"))
+                or " beside kernel L" in label):
             continue  # printed with their kernels' times
         kinds, only = trace["kinds"], trace["kernel"]
         print(f"{label}, 10 calls traced in a fresh process, device time by kind "

@@ -236,42 +236,54 @@ def test_bshd_backward_kernels_rerun_bit_identical_on_card(cuda, b, s, h, d):
         assert torch.equal(x, y), name
 
 
-def _wgmma_forms_probe(a, b, n, register_a):
+def _wgmma_forms_probe(a, b, n, form):
     fn = _build.cuda_library("flash_attention_bshd_bwd").hopper_wgmma_forms_probe
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     d = torch.empty(64, n, device=a.device, dtype=torch.float32)
-    err = fn(a.data_ptr(), b.data_ptr(), d.data_ptr(), n, int(register_a),
+    err = fn(a.data_ptr(), b.data_ptr(), d.data_ptr(), n, form,
              torch.cuda.current_stream(a.device).cuda_stream)
     assert err == 0, f"CUDA error {err}"
     torch.cuda.synchronize()
     return d
 
 
+# the probe's forms: shared-memory A and B K-major (d = a b^T), register A
+# with B MN-major (d = a b), shared memory with both MN-major (d = a^T b),
+# shared-memory A K-major with B MN-major (d = a b)
+WGMMA_FORMS = {"ss": 0, "rs": 1, "ss-mn": 2, "ss-b-mn": 3}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "n,register_a",
-    [(64, True), (96, True), (128, True), (64, False), (80, False), (96, False), (128, False),
-     (160, False), (192, False)],
+    "n,form",
+    [(64, "rs"), (96, "rs"), (128, "rs"), (64, "ss"), (80, "ss"), (96, "ss"), (128, "ss"),
+     (160, "ss"), (192, "ss"), (64, "ss-mn"), (80, "ss-mn"), (96, "ss-mn"), (128, "ss-mn"),
+     (160, "ss-mn"), (192, "ss-mn"), (64, "ss-b-mn")],
     ids=["rs-n64-mn-major", "rs-n96-mn-major", "rs-n128-mn-major", "ss-n64-k-major",
          "ss-n80-k-major", "ss-n96-k-major", "ss-n128-k-major", "ss-n160-k-major",
-         "ss-n192-k-major"])
-def test_hopper_wgmma_forms_one_tile_on_card(cuda, n, register_a):
-    """Each wgmma form kernels C, G and H take from hopper_gemm.cuh on one
+         "ss-n192-k-major", "ss-n64-mn-major", "ss-n80-mn-major", "ss-n96-mn-major",
+         "ss-n128-mn-major", "ss-n160-mn-major", "ss-n192-mn-major", "ss-n64-b-mn-major"])
+def test_hopper_wgmma_forms_one_tile_on_card(cuda, n, form):
+    """Each wgmma form kernels C, G, H and I take from hopper_gemm.cuh on one
     64 x n product: a 3-D tensor map's TMA load, A from registers through
     acc_to_a_fragments with B read MN-major (desc_sw128_mn, trans-b; at n =
     128 across two boxes, the leading byte offset; at n = 96, kernel G's
     head dim, the first half of the second box, whose last 32 columns TMA
-    filled with zeros), and the shared-memory m64nNk16 with both operands
+    filled with zeros), the shared-memory m64nNk16 with both operands
     K-major, B one box of n rows (kernel H's scores over 64 to 192 padded
-    keys: 80 for SDXL's 77). Small integers: every product and
-    sum is exact in fp32, so the result must equal the float64 product."""
+    keys: 80 for SDXL's 77), the same with both operands MN-major through
+    the transpose bits, B in 64-column boxes (kernel I's dV^T = dO^T P and
+    dK^T = Q^T dS), and with A K-major and B MN-major at n = 64 (kernel I's
+    dQ = dS K). Small integers: every product and sum is exact in fp32, so
+    the result must equal the float64 product."""
     g = torch.Generator(device=cuda).manual_seed(5)
     a = torch.randint(-3, 4, (64, 64), device=cuda, generator=g).bfloat16()
-    b = torch.randint(-3, 4, (64, n) if register_a else (n, 64), device=cuda, generator=g).bfloat16()
-    got = _wgmma_forms_probe(a, b, n, register_a)
-    want = a.double() @ (b.double() if register_a else b.double().t())
-    assert torch.equal(got.double(), want)
+    b = torch.randint(-3, 4, (n, 64) if form == "ss" else (64, n), device=cuda,
+                      generator=g).bfloat16()
+    got = _wgmma_forms_probe(a, b, n, WGMMA_FORMS[form])
+    want = {"ss": lambda: a.double() @ b.double().t(), "ss-mn": lambda: a.double().t() @ b.double()}
+    assert torch.equal(got.double(), want.get(form, lambda: a.double() @ b.double())())
 
 
 @pytest.mark.cuda
@@ -1010,6 +1022,12 @@ SHORTK_SHAPES = [
     (2, 5, 3952, 160, 64, False),   # 160 keys, no pad; 620 items over the SMs
     (1, 3, 200, 191, 128, False),   # 191 keys at head dim 128
     (2, 8, 1024, 192, 128, False),  # SHORTK_MAX keys at head dim 128: one K/V buffer
+    # the edges of kernel I's plan (shortk_bwd_plan, 132 SMs)
+    (2, 10, 1024, 192, 64, False),  # 2.4 items a block: a unit over about 7 blocks
+    (8, 40, 100, 77, 64, False),    # 4.8 items a block of 2-tile units: a block over 3 units
+    (2, 3, 65, 2, 64, False),       # Sq 65 (one row in the second tile), two keys (one key
+                                    # leaves dq = dk = 0, rounding noise on both sides)
+    (1, 2, 1, 77, 128, False),      # one q row at head dim 128: two units of one item
 ]
 
 

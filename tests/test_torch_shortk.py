@@ -27,6 +27,7 @@ from vision_ft_tpu_torch.ops.flash_attention import (
     flash_attention_shortk_bwd,
     flash_attention_shortk_reference,
     set_flash_shortk,
+    shortk_bwd_plan,
     shortk_fwd_plan,
 )
 
@@ -108,6 +109,55 @@ def test_kernel_h_plan_walks_every_item_once(b, h, sq, sms):
         assert len(run) >= 1
         heads = {item // tiles for item in run}
         assert len(heads) <= -(-len(run) // tiles) + 1
+
+
+@pytest.mark.parametrize("b,h,sq,d,sms", [
+    (2, 10, 1024, 64, 132),  # 192 keys at batch 2: a unit over several blocks
+    (4, 20, 1024, 64, 132),  # the train step's second stage: a block over several units
+    (4, 10, 4096, 64, 132),  # and its first stage
+    (2, 20, 988, 64, 132),   # a ragged sq: 16 tiles, the last of 28 rows
+    (2, 8, 1024, 128, 132),  # head dim 128: two halves a head
+    (1, 1, 1, 64, 132),      # a single item
+    (3, 7, 130, 64, 8),      # few SMs: every unit split, runs not on tile borders
+])
+def test_kernel_i_plan_walks_every_item_once(b, h, sq, d, sms):
+    """Kernel I's persistent blocks cover each (batch, head, half, tile)
+    item once; every unit lists the slots block + unit of exactly the
+    blocks whose runs hold its tiles, in ascending (block) order and inside
+    the blocks + units slots the scratch holds, none shared with another
+    unit; and the plan, reduction order included, is the same on every
+    call, cached or not."""
+    plan = shortk_bwd_plan(b, h, sq, d, sms)
+    tiles, units, blocks = plan.tiles, plan.units, plan.blocks
+    items = units * tiles
+    assert tiles == -(-sq // 64) and units == b * h * (d // 64) and blocks == min(items, sms)
+    runs = [range(i * items // blocks, (i + 1) * items // blocks) for i in range(blocks)]
+    assert [item for run in runs for item in run] == list(range(items))
+    assert all(len(run) >= 1 for run in runs)
+    touched = {}  # unit -> the blocks whose runs hold its tiles
+    for i, run in enumerate(runs):
+        for item in run:
+            touched.setdefault(item // tiles, set()).add(i)
+    want = tuple((u, tuple(i + u for i in sorted(blks))) for u, blks in sorted(touched.items()))
+    assert plan.reduction == want and len(want) == units
+    slots = [slot for _, unit_slots in plan.reduction for slot in unit_slots]
+    assert len(slots) == len(set(slots)) and all(0 <= s < blocks + units for s in slots)
+    shortk_bwd_plan.cache_clear()
+    assert shortk_bwd_plan(b, h, sq, d, sms) == plan == shortk_bwd_plan(b, h, sq, d, sms)
+
+
+def test_kernel_i_parts_tool_guards_every_part():
+    """The measurement tool's guards still find each of their parts of
+    kernel I in the source, and every copy it builds leaves out parts that
+    exist."""
+    from vision_ft_tpu_torch.tools import kernel_i_parts
+
+    source = kernel_i_parts.SOURCE.read_text()
+    guarded = kernel_i_parts.guarded_source(source)
+    added_endifs = guarded.count("#endif\n") - source.count("#endif\n")
+    assert guarded.count("#if !defined(") == added_endifs == len(kernel_i_parts.GUARDS)
+    macros = {macro for macro, _, _ in kernel_i_parts.GUARDS}
+    assert all(set(parts) <= macros for parts in kernel_i_parts.PARTS.values())
 
 
 def test_shortk_max_is_the_jax_package_s():

@@ -457,18 +457,24 @@ int launch_dq(const Maps& maps, const float* lse, const float* delta, __nv_bfloa
   return static_cast<int>(cudaGetLastError());
 }
 
-// The probe: one warpgroup, d (64 x N, fp32) = a b. REGISTER_A: a (64 x 64)
-// read from device memory into accumulator layout, rounded by
-// acc_to_a_fragments into register A fragments, b (64 x N, N contiguous)
-// loaded by TMA through a 3-D map and read MN-major (wgmma_rs, trans-b; at
-// N = 96 the second box's last 32 columns are TMA's zeros, as kernel G's
-// head dim 96 has them).
-// Otherwise (N = 64, 80, 96, 128, 160 or 192, kernel H's padded key counts): a
-// (64 x 64) and b^T (N x 64) both K-major by TMA, b^T as one box of N rows,
-// the shared-memory wgmma_ss<N> (d = a b^T).
-constexpr int kProbeBBytes = 192 * 128;  // b: up to 192 rows of 128 bytes
+// The probe: one warpgroup, d (64 x N, fp32), by FORM:
+//   kFormSS (N = 64, 80, 96, 128, 160 or 192, kernel H's and I's padded key
+//     counts): a (64 x 64) and b^T (N x 64) both K-major by TMA, b^T as one
+//     box of N rows, the shared-memory wgmma_ss<N> (d = a b^T);
+//   kFormRS (N = 64, 96 or 128): a read from device memory into
+//     accumulator layout, rounded by acc_to_a_fragments into register A
+//     fragments, b (64 x N, N contiguous) loaded by TMA through a 3-D map
+//     and read MN-major (wgmma_rs, trans-b; at N = 96 the second box's last
+//     32 columns are TMA's zeros, as kernel G's head dim 96 has them): d = a b;
+//   kFormSSMN (N as kFormSS, kernel I's dV^T and dK^T): a (64 x 64, K rows
+//     x M columns) and b (64 x N) both MN-major through the transpose bits,
+//     b in 64-column boxes (wgmma_ss<N, 1, 1>): d = a^T b;
+//   kFormSSBMN (N = 64, kernel I's dQ): a K-major, b (64 x N) MN-major
+//     (wgmma_ss<N, 0, 1>): d = a b.
+constexpr int kFormSS = 0, kFormRS = 1, kFormSSMN = 2, kFormSSBMN = 3;
+constexpr int kProbeBBytes = 192 * 128;  // b: up to 192 rows, or 3 boxes of 64 rows, of 128 bytes
 
-template <int N, bool REGISTER_A>
+template <int N, int FORM>
 __global__ void __launch_bounds__(128)
 hopper_wgmma_forms_probe_kernel(const __grid_constant__ CUtensorMap map_a,
                                 const __grid_constant__ CUtensorMap map_b,
@@ -482,14 +488,15 @@ hopper_wgmma_forms_probe_kernel(const __grid_constant__ CUtensorMap map_a,
     fence_barrier_init();
   }
   __syncthreads();
+  constexpr bool kMnB = FORM != kFormSS;  // b (64 x N) in boxes of 64 columns
+  constexpr int kBoxesB = (N + 63) / 64;
   if (threadIdx.x == 0) {
-    if constexpr (REGISTER_A) {
-      constexpr int kBoxesB = (N + 63) / 64;
-      mbar_arrive_expect_tx(bar, kBoxesB * kBoxBytes);
+    const int a_bytes = FORM == kFormRS ? 0 : kBoxBytes;
+    mbar_arrive_expect_tx(bar, a_bytes + (kMnB ? kBoxesB * kBoxBytes : N * 128));
+    if (FORM != kFormRS) tma_load_3d(tile_a, &map_a, bar, 0, 0, 0);
+    if (kMnB) {
       for (int box = 0; box < kBoxesB; ++box) tma_load_3d(tile_b + box * kBoxBytes, &map_b, bar, 64 * box, 0, 0);
     } else {
-      mbar_arrive_expect_tx(bar, kBoxBytes + N * 128);
-      tma_load_3d(tile_a, &map_a, bar, 0, 0, 0);
       tma_load_3d(tile_b, &map_b, bar, 0, 0, 0);
     }
   }
@@ -499,7 +506,7 @@ hopper_wgmma_forms_probe_kernel(const __grid_constant__ CUtensorMap map_a,
   float acc[N / 2];
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
-  if constexpr (REGISTER_A) {
+  if constexpr (FORM == kFormRS) {
     float a_acc[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
@@ -515,7 +522,15 @@ hopper_wgmma_forms_probe_kernel(const __grid_constant__ CUtensorMap map_a,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      wgmma_ss<N>(acc, desc_sw128(tile_a) + 2 * kk, desc_sw128(tile_b) + 2 * kk, 1);
+      if constexpr (FORM == kFormSS) {
+        wgmma_ss<N>(acc, desc_sw128(tile_a) + 2 * kk, desc_sw128(tile_b) + 2 * kk, 1);
+      } else if constexpr (FORM == kFormSSMN) {
+        wgmma_ss<N, 1, 1>(acc, desc_sw128_mn(tile_a, kBoxBytes) + 128 * kk,
+                          desc_sw128_mn(tile_b, kBoxBytes) + 128 * kk, 1);
+      } else {
+        wgmma_ss<N, 0, 1>(acc, desc_sw128(tile_a) + 2 * kk,
+                          desc_sw128_mn(tile_b, kBoxBytes) + 128 * kk, 1);
+      }
     }
   }
   wgmma_commit();
@@ -524,6 +539,24 @@ hopper_wgmma_forms_probe_kernel(const __grid_constant__ CUtensorMap map_a,
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) {
     d[(row + 8 * ((i % 4) / 2)) * N + 8 * (i / 4) + 2 * (lane % 4) + (i % 2)] = acc[i];
+  }
+}
+
+template <int FORM>
+void launch_probe(int n, const CUtensorMap& map_a, const CUtensorMap& map_b,
+                  const __nv_bfloat16* a, float* d, size_t smem, cudaStream_t s) {
+  switch (n) {
+    case 64: hopper_wgmma_forms_probe_kernel<64, FORM><<<1, 128, smem, s>>>(map_a, map_b, a, d); break;
+    case 96: hopper_wgmma_forms_probe_kernel<96, FORM><<<1, 128, smem, s>>>(map_a, map_b, a, d); break;
+    case 128: hopper_wgmma_forms_probe_kernel<128, FORM><<<1, 128, smem, s>>>(map_a, map_b, a, d); break;
+    default:
+      if constexpr (FORM == kFormSS || FORM == kFormSSMN) {
+        switch (n) {
+          case 80: hopper_wgmma_forms_probe_kernel<80, FORM><<<1, 128, smem, s>>>(map_a, map_b, a, d); break;
+          case 160: hopper_wgmma_forms_probe_kernel<160, FORM><<<1, 128, smem, s>>>(map_a, map_b, a, d); break;
+          default: hopper_wgmma_forms_probe_kernel<192, FORM><<<1, 128, smem, s>>>(map_a, map_b, a, d); break;
+        }
+      }
   }
 }
 
@@ -582,40 +615,35 @@ extern "C" int flash_attention_bshd_bwd_dq(
 }
 
 // The probe (a test entry): a (64, 64) and b bf16, contiguous, 16-byte
-// aligned; d (64, n) fp32. register_a: b is (64, n), n = 64, 96 or 128,
-// d = a b; else b is (n, 64), n = 64, 80, 96, 128, 160 or 192, and d = a b^T.
-extern "C" int hopper_wgmma_forms_probe(const void* a, const void* b, void* d, int n,
-                                        int register_a, void* stream) {
+// aligned; d (64, n) fp32. form 0 (shared memory, K-major): b is (n, 64),
+// n = 64, 80, 96, 128, 160 or 192, d = a b^T; form 1 (register A): b is
+// (64, n), n = 64, 96 or 128, d = a b; form 2 (shared memory, both
+// MN-major): b is (64, n), n as form 0, d = a^T b; form 3 (shared memory, B
+// MN-major): b is (64, n), n = 64, 96 or 128, d = a b.
+extern "C" int hopper_wgmma_forms_probe(const void* a, const void* b, void* d, int n, int form,
+                                        void* stream) {
   const bool ss_n = n == 64 || n == 80 || n == 96 || n == 128 || n == 160 || n == 192;
-  if (register_a ? (n != 64 && n != 96 && n != 128) : !ss_n) {
+  const bool rs_n = n == 64 || n == 96 || n == 128;
+  if (form < kFormSS || form > kFormSSBMN ||
+      !(form == kFormSS || form == kFormSSMN ? ss_n : rs_n)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap map_a, map_b;
   int err = make_map_3d(&map_a, a, 1, 64, 64, 64 * 64, 64, 64);
   if (!err) {
-    err = register_a ? make_map_3d(&map_b, b, 1, 64, n, 64LL * n, n, 64)
-                     : make_map_3d(&map_b, b, 1, n, 64, 64LL * n, 64, n);
+    err = form != kFormSS ? make_map_3d(&map_b, b, 1, 64, n, 64LL * n, n, 64)
+                          : make_map_3d(&map_b, b, 1, n, 64, 64LL * n, 64, n);
   }
   if (err) return err;
   const size_t smem = 1024 + kBoxBytes + kProbeBBytes + sizeof(uint64_t);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* ab = static_cast<const __nv_bfloat16*>(a);
   auto* df = static_cast<float*>(d);
-  if (!register_a) {
-    switch (n) {
-      case 64: hopper_wgmma_forms_probe_kernel<64, false><<<1, 128, smem, s>>>(map_a, map_b, ab, df); break;
-      case 80: hopper_wgmma_forms_probe_kernel<80, false><<<1, 128, smem, s>>>(map_a, map_b, ab, df); break;
-      case 96: hopper_wgmma_forms_probe_kernel<96, false><<<1, 128, smem, s>>>(map_a, map_b, ab, df); break;
-      case 128: hopper_wgmma_forms_probe_kernel<128, false><<<1, 128, smem, s>>>(map_a, map_b, ab, df); break;
-      case 160: hopper_wgmma_forms_probe_kernel<160, false><<<1, 128, smem, s>>>(map_a, map_b, ab, df); break;
-      default: hopper_wgmma_forms_probe_kernel<192, false><<<1, 128, smem, s>>>(map_a, map_b, ab, df); break;
-    }
-  } else if (n == 64) {
-    hopper_wgmma_forms_probe_kernel<64, true><<<1, 128, smem, s>>>(map_a, map_b, ab, df);
-  } else if (n == 96) {
-    hopper_wgmma_forms_probe_kernel<96, true><<<1, 128, smem, s>>>(map_a, map_b, ab, df);
-  } else {
-    hopper_wgmma_forms_probe_kernel<128, true><<<1, 128, smem, s>>>(map_a, map_b, ab, df);
+  switch (form) {
+    case kFormSS: launch_probe<kFormSS>(n, map_a, map_b, ab, df, smem, s); break;
+    case kFormRS: launch_probe<kFormRS>(n, map_a, map_b, ab, df, smem, s); break;
+    case kFormSSMN: launch_probe<kFormSSMN>(n, map_a, map_b, ab, df, smem, s); break;
+    default: launch_probe<kFormSSBMN>(n, map_a, map_b, ab, df, smem, s); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

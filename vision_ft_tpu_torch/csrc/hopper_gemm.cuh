@@ -2,22 +2,24 @@
 // (host; 2-D, 3-D for a batch of strided matrices, 4-D for a strided
 // (B, H, S, C) view, 4-D for an NHWC image in boxes of pixels over two
 // spatial axes), mbarriers, TMA loads and stores, wgmma descriptors
-// (K-major, and MN-major for a B operand read through the transpose bit)
-// and instructions (A from shared memory at N = 64 to 256, or A from
-// registers: an fp32 accumulator rounded into bf16 A fragments, at N = 64,
-// 96 and 128), and a warp-specialized TN main loop. The attention kernels B, C, E and G
-// (csrc/flash_attention_bshd.cu, _bshd_bwd.cu, _masked.cu, _masked_bwd.cu)
-// use the 3-D or 4-D maps, the MN-major descriptor and the register-A forms;
-// the 3x3 conv (csrc/conv3x3.cu) the image maps, the TN main loop's
-// consumer and a 4-D TMA store; the short-K forward (kernel H,
-// csrc/flash_attention_shortk.cu) the 4-D maps, the shared-memory forms at
-// N = 64, 80, 96, 128, 160 and 192 (one per padded key count), the
-// register-A forms and a 4-D TMA store;
-// csrc/flash_attention_bshd_bwd.cu holds each of those forms to one 64 x N
-// product on the card (hopper_wgmma_forms_probe); csrc/nf4_matmul.cu uses
-// the shared-memory-A form with an MN-major B (wgmma_m64n128k16_mn, held to
-// one product by nf4_wgmma_mn_probe) and sw128_offset for B tiles written
-// with st.shared.
+// (K-major, and MN-major for an operand read through the transpose bit)
+// and instructions (A from shared memory at N = 64 to 256, either operand
+// K-major or MN-major, or A from registers: an fp32 accumulator rounded into
+// bf16 A fragments, at N = 64, 96 and 128), and a warp-specialized TN main
+// loop. The attention kernels B, C, E and G (csrc/flash_attention_bshd.cu,
+// _bshd_bwd.cu, _masked.cu, _masked_bwd.cu) use the 3-D or 4-D maps, the
+// MN-major descriptor and the register-A forms; the 3x3 conv
+// (csrc/conv3x3.cu) the image maps, the TN main loop's consumer and a 4-D
+// TMA store; the short-K kernels (csrc/flash_attention_shortk.cu) the 4-D
+// maps and TMA stores, the forward (kernel H) the shared-memory forms at
+// N = 64, 80, 96, 128, 160 and 192 (one per padded key count) and the
+// register-A forms, the backward (kernel I) the same shared-memory forms
+// with both operands K-major, with both MN-major and, at N = 64, with B
+// MN-major; csrc/flash_attention_bshd_bwd.cu holds each of those forms to
+// one 64 x N product on the card (hopper_wgmma_forms_probe);
+// csrc/nf4_matmul.cu uses the shared-memory-A form with an MN-major B
+// (wgmma_m64n128k16_mn, held to one product by nf4_wgmma_mn_probe) and
+// sw128_offset for B tiles written with st.shared.
 //
 // The main loop's shape (used by csrc/fused_mlp.cu):
 //   - one block of 384 threads: warpgroups 0 and 1 consume (wgmma), one
@@ -354,11 +356,12 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
   return ((addr & 0x3FFFFull) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
 }
 
-// wgmma descriptor of an MN-major B tile (K rows x N columns, N contiguous)
-// written by TMA with 128-byte swizzle as boxes of 64 columns: a swizzle
-// atom is 8 K rows x 64 N columns (1024 bytes). SBO steps 8 K rows (1024
-// bytes); LBO steps 64 N columns, i.e. to the next box, `box_bytes` apart.
-// The K step of 16 rows (2048 bytes) adds 128 to the descriptor.
+// wgmma descriptor of an MN-major tile (K rows x M or N columns, M or N
+// contiguous) written with 128-byte swizzle as boxes of 64 columns, by TMA
+// or by sw128_offset: a swizzle atom is 8 K rows x 64 columns (1024 bytes).
+// SBO steps 8 K rows (1024 bytes); LBO steps 64 columns, i.e. to the next
+// box, `box_bytes` apart (unused by an A operand, whose 64 rows are one
+// box). The K step of 16 rows (2048 bytes) adds 128 to the descriptor.
 __device__ __forceinline__ uint64_t desc_sw128_mn(const void* tile, uint32_t box_bytes) {
   const uint64_t addr = smem_u32(tile);
   return ((addr & 0x3FFFFull) >> 4) | (static_cast<uint64_t>(box_bytes >> 4) << 16) |
@@ -472,7 +475,9 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
 }
 
 // d (64 x 160, fp32, wgmma's accumulator layout) = A (64 x 16) B^T (160 x 16) + (scale_d ? d : 0),
-// A and B bf16, K-major in shared memory, read through descriptors.
+// A and B bf16 in shared memory, read through descriptors: K-major, or
+// MN-major through the transpose bit where TRANS_A / TRANS_B is 1.
+template <int TRANS_A = 0, int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_m64n160k16(float (&d)[80], uint64_t desc_a, uint64_t desc_b,
                                                  int scale_d) {
   asm volatile(
@@ -490,7 +495,7 @@ __device__ __forceinline__ void wgmma_m64n160k16(float (&d)[80], uint64_t desc_a
       " %56, %57, %58, %59, %60, %61, %62, %63,"
       " %64, %65, %66, %67, %68, %69, %70, %71,"
       " %72, %73, %74, %75, %76, %77, %78, %79}, "
-      "%80, %81, p, 1, 1, 0, 0;\n"
+      "%80, %81, p, 1, 1, %83, %84;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -502,11 +507,13 @@ __device__ __forceinline__ void wgmma_m64n160k16(float (&d)[80], uint64_t desc_a
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
         "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
         "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // d (64 x 128, fp32, wgmma's accumulator layout) = A (64 x 16) B^T (128 x 16) + (scale_d ? d : 0),
-// A and B bf16, K-major in shared memory, read through descriptors.
+// A and B bf16 in shared memory, read through descriptors: K-major, or
+// MN-major through the transpose bit where TRANS_A / TRANS_B is 1.
+template <int TRANS_A = 0, int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
                                                  int scale_d) {
   asm volatile(
@@ -522,7 +529,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
       " %40, %41, %42, %43, %44, %45, %46, %47,"
       " %48, %49, %50, %51, %52, %53, %54, %55,"
       " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
+      "%64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -532,11 +539,13 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // d (64 x 64, fp32, wgmma's accumulator layout) = A (64 x 16) B^T (64 x 16) + (scale_d ? d : 0),
-// A and B bf16, K-major in shared memory, read through descriptors.
+// A and B bf16 in shared memory, read through descriptors: K-major, or
+// MN-major through the transpose bit where TRANS_A / TRANS_B is 1.
+template <int TRANS_A = 0, int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
                                                 int scale_d) {
   asm volatile(
@@ -548,17 +557,19 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a,
       " %8, %9, %10, %11, %12, %13, %14, %15,"
       " %16, %17, %18, %19, %20, %21, %22, %23,"
       " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n"
+      "%32, %33, p, 1, 1, %35, %36;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // d (64 x 80, fp32, wgmma's accumulator layout) = A (64 x 16) B^T (80 x 16) + (scale_d ? d : 0),
-// A and B bf16, K-major in shared memory, read through descriptors.
+// A and B bf16 in shared memory, read through descriptors: K-major, or
+// MN-major through the transpose bit where TRANS_A / TRANS_B is 1.
+template <int TRANS_A = 0, int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_m64n80k16(float (&d)[40], uint64_t desc_a, uint64_t desc_b,
                                                 int scale_d) {
   asm volatile(
@@ -571,18 +582,20 @@ __device__ __forceinline__ void wgmma_m64n80k16(float (&d)[40], uint64_t desc_a,
       " %16, %17, %18, %19, %20, %21, %22, %23,"
       " %24, %25, %26, %27, %28, %29, %30, %31,"
       " %32, %33, %34, %35, %36, %37, %38, %39}, "
-      "%40, %41, p, 1, 1, 0, 0;\n"
+      "%40, %41, p, 1, 1, %43, %44;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
         "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // d (64 x 96, fp32, wgmma's accumulator layout) = A (64 x 16) B^T (96 x 16) + (scale_d ? d : 0),
-// A and B bf16, K-major in shared memory, read through descriptors.
+// A and B bf16 in shared memory, read through descriptors: K-major, or
+// MN-major through the transpose bit where TRANS_A / TRANS_B is 1.
+template <int TRANS_A = 0, int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_m64n96k16(float (&d)[48], uint64_t desc_a, uint64_t desc_b,
                                                 int scale_d) {
   asm volatile(
@@ -596,7 +609,7 @@ __device__ __forceinline__ void wgmma_m64n96k16(float (&d)[48], uint64_t desc_a,
       " %24, %25, %26, %27, %28, %29, %30, %31,"
       " %32, %33, %34, %35, %36, %37, %38, %39,"
       " %40, %41, %42, %43, %44, %45, %46, %47}, "
-      "%48, %49, p, 1, 1, 0, 0;\n"
+      "%48, %49, p, 1, 1, %51, %52;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -604,11 +617,13 @@ __device__ __forceinline__ void wgmma_m64n96k16(float (&d)[48], uint64_t desc_a,
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
         "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // d (64 x 192, fp32, wgmma's accumulator layout) = A (64 x 16) B^T (192 x 16) + (scale_d ? d : 0),
-// A and B bf16, K-major in shared memory, read through descriptors.
+// A and B bf16 in shared memory, read through descriptors: K-major, or
+// MN-major through the transpose bit where TRANS_A / TRANS_B is 1.
+template <int TRANS_A = 0, int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t desc_a, uint64_t desc_b,
                                                  int scale_d) {
   asm volatile(
@@ -628,7 +643,7 @@ __device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t desc_a
       " %72, %73, %74, %75, %76, %77, %78, %79,"
       " %80, %81, %82, %83, %84, %85, %86, %87,"
       " %88, %89, %90, %91, %92, %93, %94, %95}, "
-      "%96, %97, p, 1, 1, 0, 0;\n"
+      "%96, %97, p, 1, 1, %99, %100;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -642,7 +657,7 @@ __device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t desc_a
         "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
         "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
         "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // d (64 x 64, fp32) = A (64 x 16) B (16 x 64) + (scale_d ? d : 0), A bf16 in
@@ -773,26 +788,29 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   }
 }
 
-// wgmma_m64nNk16 (both operands K-major in shared memory) at N = 64, 80,
-// 96, 128, 160 or 192 (kernel H's padded key counts: scores over every key
-// at once).
-template <int N>
+// wgmma_m64nNk16 (both operands in shared memory) at N = 64, 80, 96, 128,
+// 160 or 192 (kernels H's and I's padded key counts: scores over every key
+// at once). Both operands K-major by default; TRANS_A / TRANS_B = 1 reads
+// A / B MN-major (desc_sw128_mn): kernel I's dV^T = dO^T P and dK^T = Q^T dS
+// read dO and Q as a transposed A and P and dS as a transposed B, its dQ =
+// dS K reads K as a transposed B.
+template <int N, int TRANS_A = 0, int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
                                          int scale_d) {
   static_assert(N == 64 || N == 80 || N == 96 || N == 128 || N == 160 || N == 192,
                 "shared-memory wgmma widths of the attention kernels: 64, 80, 96, 128, 160, 192");
   if constexpr (N == 64) {
-    wgmma_m64n64k16(d, desc_a, desc_b, scale_d);
+    wgmma_m64n64k16<TRANS_A, TRANS_B>(d, desc_a, desc_b, scale_d);
   } else if constexpr (N == 80) {
-    wgmma_m64n80k16(d, desc_a, desc_b, scale_d);
+    wgmma_m64n80k16<TRANS_A, TRANS_B>(d, desc_a, desc_b, scale_d);
   } else if constexpr (N == 96) {
-    wgmma_m64n96k16(d, desc_a, desc_b, scale_d);
+    wgmma_m64n96k16<TRANS_A, TRANS_B>(d, desc_a, desc_b, scale_d);
   } else if constexpr (N == 128) {
-    wgmma_m64n128k16(d, desc_a, desc_b, scale_d);
+    wgmma_m64n128k16<TRANS_A, TRANS_B>(d, desc_a, desc_b, scale_d);
   } else if constexpr (N == 160) {
-    wgmma_m64n160k16(d, desc_a, desc_b, scale_d);
+    wgmma_m64n160k16<TRANS_A, TRANS_B>(d, desc_a, desc_b, scale_d);
   } else {
-    wgmma_m64n192k16(d, desc_a, desc_b, scale_d);
+    wgmma_m64n192k16<TRANS_A, TRANS_B>(d, desc_a, desc_b, scale_d);
   }
 }
 

@@ -68,7 +68,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+import struct
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -777,11 +778,48 @@ def shortk_fwd_plan(b: int, h: int, sq: int, sms: int) -> tuple[int, int]:
     return tiles, max(1, min(b * h * tiles, sms))
 
 
-def _shortk_splits(b: int, h: int, sq: int) -> int:
-    """How many blocks share a (batch, head)'s q rows in the backward: about
-    two blocks an SM over 132 SMs, at most one per 32-row tile. A function of
-    the shape alone, so reruns sum the partials in the same order."""
-    return max(1, min(-(-sq // 32), -(-264 // (b * h))))
+class ShortkBwdPlan(NamedTuple):
+    """Kernel I's launch plan (see :func:`shortk_bwd_plan`)."""
+
+    tiles: int  # 64-row q tiles a unit
+    units: int  # (batch, head, 64-column half of D): B * H * D / 64
+    blocks: int
+    # per unit: (unit, its partial slots in the order they are summed)
+    reduction: tuple
+
+
+@functools.lru_cache(maxsize=256)
+def shortk_bwd_plan(b: int, h: int, sq: int, d: int, sms: int) -> ShortkBwdPlan:
+    """Kernel I's plan, a function of the shape and the card alone. Its
+    work items are (batch, head, half, 64-row q tile), half the 64 columns
+    of dq, dk and dv an item writes (D / 64 of them), walked in that order
+    by one persistent block an SM (never more blocks than items), each
+    taking the contiguous run ``[i * items // blocks, (i + 1) * items //
+    blocks)`` as kernel H's do. A unit, (batch, head, half), sums dk and dv
+    over its tiles; where those fall to blocks first to last, each block i
+    writes fp32 partials to slot i + unit (distinct for every (block,
+    unit) a run meets, below blocks + units), and after a grid barrier the
+    grid sums each unit's slots in ascending order."""
+    tiles = -(-sq // 64)
+    units = b * h * (d // 64)
+    items = units * tiles
+    blocks = max(1, min(items, sms))
+
+    def block_of(item):  # the block whose run holds the item
+        return ((item + 1) * blocks - 1) // items
+
+    reduction = tuple(
+        (unit, tuple(range(block_of(unit * tiles) + unit, block_of((unit + 1) * tiles - 1) + unit + 1)))
+        for unit in range(units)
+    )
+    return ShortkBwdPlan(tiles, units, blocks, reduction)
+
+
+def _shortk_scratch_bytes(plan: ShortkBwdPlan, sk: int) -> int:
+    """Kernel I's scratch: blocks + units partial slots of 2 x 64 x (its
+    padded keys) fp32."""
+    width = 64 if sk <= 64 else 80 if sk <= 80 else _shortk_padded(sk)
+    return (plan.blocks + plan.units) * 2 * 64 * width * 4
 
 
 @functools.cache
@@ -792,10 +830,8 @@ def _shortk_kernels():
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
-    bwd.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 21
-        + [ctypes.c_float, ctypes.c_void_p]
-    )
+    # pointers, the packed dims and strides (27 int64), scale, stream
+    bwd.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_float, ctypes.c_void_p]
     fwd.restype = bwd.restype = ctypes.c_int
     return fwd, bwd
 
@@ -864,29 +900,31 @@ def flash_attention_shortk_bwd(
     delta: torch.Tensor, scale: Optional[float] = None,
 ):
     """(dq, dk, dv) of :func:`flash_attention_shortk` from q, k, v, the
-    output's gradient, lse and delta (B, H, Sq): kernel I (its main kernel
-    and the reduction of its partial dk and dv) for CUDA tensors, else the
-    plain version. Each output keeps its input's strides where the input
-    is dense."""
+    output's gradient, lse and delta (B, H, Sq): kernel I, one launch (its
+    plan :func:`shortk_bwd_plan`), for CUDA tensors, else the plain
+    version. Each output keeps its input's strides where the input is
+    dense."""
     if not q.is_cuda:
         return _masked_backward_reference(q, k, v, None, lse, delta, dout, scale, False)
     _check_shortk(q, k, v, dout=dout)
     b, h, sq, d = q.shape
     _check_row_stats((b, h, sq), q.device, lse=lse, delta=delta)
-    sk, skp = k.shape[2], _shortk_padded(k.shape[2])
-    splits = _shortk_splits(b, h, sq)
+    if lse.data_ptr() % 16 or delta.data_ptr() % 16 or b * h * sq >= 2**31:
+        raise ValueError("lse and delta must start 16-byte aligned, B * H * Sq below 2**31")
+    sk = k.shape[2]
+    index = q.get_device()
+    plan = shortk_bwd_plan(b, h, sq, d, _build.sm_count(index))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    parts = torch.empty((2, splits, b * h, skp, d), device=q.device, dtype=torch.float32)
-    with torch.cuda.device(q.device):
-        err = _shortk_kernels()[1](
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            parts[0].data_ptr(), parts[1].data_ptr(),
-            b, sq, sk, skp, h, d, splits,
-            *(t.stride(i) for t in (q, k, v, dout, dq, dk, dv) for i in range(3)),
-            float(d**-0.5 if scale is None else scale),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+    scratch = torch.empty(_shortk_scratch_bytes(plan, sk), device=q.device, dtype=torch.uint8)
+    dims = struct.pack("27q", b, h, sq, sk, d, plan.blocks, *q.stride()[:3], *k.stride()[:3],
+                       *v.stride()[:3], *dout.stride()[:3], *dq.stride()[:3], *dk.stride()[:3],
+                       *dv.stride()[:3])
+    err = _build.launch(
+        _shortk_kernels()[1], index, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        scratch.data_ptr(), dims,
+        float(d**-0.5 if scale is None else scale),
+    )
     if err != 0:
         raise RuntimeError(f"flash_attention_shortk backward launch failed: CUDA error {err}")
     flash_attention_shortk_bwd.launches += 1

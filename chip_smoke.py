@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (vision_ft_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--profile] [--kernel-d] [--kernel-i] [--trace-kernels]
-                          [--ln-probe-costs]
+                          [--ln-probe-costs] [--lumina-trainer]
 
 With --profile, phases 6 and 8 also trace two train steps with
 torch.profiler (device activity only) and print the device time of a step
@@ -27,6 +27,9 @@ one call, a call over 10 back to back, the host's microseconds a call and
 the traced card time a call, printed as one JSON line (no ok line): the
 same measurement for any checkout whose wrappers take these calls, so a
 copy of this script in an older checkout times that checkout's kernels.
+With --lumina-trainer, only phases 0 and 19 and the build of kernels E's,
+F's and G's libraries run, printing the phase's launch counts and numbers
+as one JSON line (no ok line); phase 19 runs it so, in a process of its own.
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -160,6 +163,23 @@ Phases, each printing its own lines; any failure exits non-zero:
     reads and writes through), and its three kernels timed against
     Tensor.copy_ and torch.add as kernel A is in phase 3. Every model path
     above launches J, K and L 0 times.
+19. the Lumina2 Trainer path at full width and depth, in a process of its
+    own (--lumina-trainer): a seeded full-width Lumina2 (made as in phase 12)
+    written by state_dict() to a 10.6 GB safetensors file, 8 seeded images
+    (1024x1024 and 832x1216, which config #4's buckets crop to 768x1152)
+    with captions of different lengths, configs/lumina2/text_to_image.yml
+    cut to one epoch of 4 steps at batch 2, with EMA (decay 0.999), state
+    checkpoints every 2 steps and a profiler window over steps 2-3, and a
+    1024 px 8-step CFG preview, all through the train script's
+    build_trainer. Checks the losses (high-res and low-res), the launch
+    counts of kernels E and G a step against the module tree and the
+    dispatch gate in both checkpointing modes, the frozen base against the
+    file, the adapters, the saved LoRA file (the EMA in bf16 under ComfyUI
+    keys), the EMA against the live weights, step_2 and step_4, a second
+    Trainer's resume (trainable, optimizer state, EMA bit-identical), the
+    profiler trace's kernels and a depth-reduced step against the plain
+    versions; prints ms/step, peak GiB, the checkpoint's and the state
+    checkpoint's bytes and seconds and the preview's seconds.
 
 Every kernel's record carries its time, its plain version's, the bound
 (the larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s bf16, or
@@ -482,6 +502,20 @@ def write_vocab(path: Path) -> None:
     merges = ["#version: 0.2", "t h", "th e</w>", "c a", "ca t</w>", "o n</w>", "o f</w>"]
     (path / "vocab.json").write_text(json.dumps(vocab))
     (path / "merges.txt").write_text("\n".join(merges) + "\n")
+
+
+def lumina_vocab() -> bytes:
+    """A small unigram SentencePiece vocab (a ``tokenizer.model``): specials,
+    the byte pieces, a few words and the letters; Gemma's template prepends
+    <bos>."""
+    from vision_ft_tpu_torch.models.text_encoders.sentencepiece import serialize_model
+
+    words = ("a photo of cat sitting on the sofa red car road house in mountains blurry").split()
+    pieces = [("<pad>", 0.0, 3), ("<eos>", 0.0, 3), ("<bos>", 0.0, 3), ("<unk>", 0.0, 2)]
+    pieces += [(f"<0x{i:02X}>", 0.0, 6) for i in range(256)]
+    pieces += [("▁" + w, -1.0 - 0.1 * i, 1) for i, w in enumerate(dict.fromkeys(words))]
+    pieces += [(ch, -5.0, 1) for ch in "abcdefghijklmnopqrstuvwxyz▁"]
+    return serialize_model(pieces, unk_id=3, bos_id=2, eos_id=1, pad_id=0)
 
 
 @contextlib.contextmanager
@@ -1050,6 +1084,363 @@ def run_trace_kernels(checkout: Path) -> dict:
     return traces
 
 
+LUMINA_TRAINER_EMA = 0.999
+# captions of different lengths for the Lumina2 Trainer's 8 images (the synthetic vocab's
+# words and letters)
+LUMINA_TRAINER_CAPTIONS = [
+    "a photo of a cat", "a red car on the road", "a house in the mountains",
+    "a cat sitting on the sofa in a photo of a house in the mountains", "the sofa",
+    "a blurry photo of a red car on the road in the mountains", "a cat", "a house",
+]
+
+
+def lumina_trainer_phase(device, wrappers: dict, checkout: Path) -> dict:
+    """Phase 19, run in a process of its own (``--lumina-trainer``): the
+    Lumina2 Trainer path at full width and depth from a seeded single-file
+    checkpoint, with EMA, state checkpoints and their resume, the profiler
+    window and a preview. Returns the run's launch counts and numbers."""
+    import yaml
+    from safetensors import safe_open
+
+    from vision_ft_tpu_torch.config import TrainConfig
+    from vision_ft_tpu_torch.models.lumina2.config import Lumina2Config
+    from vision_ft_tpu_torch.models.lumina2.pipeline import Lumina2
+    from vision_ft_tpu_torch.models.lumina2.util import convert_to_comfy_key
+    from vision_ft_tpu_torch.nn import set_remat_saves
+    from vision_ft_tpu_torch.train.lumina2.text_to_image import build_trainer
+    from vision_ft_tpu_torch.training.optimizer import global_norm
+    from vision_ft_tpu_torch.training.state_checkpoint import restore_train_state
+    from vision_ft_tpu_torch.utils import safetensors as st
+
+    def reset_launches():
+        for wrapper in wrappers.values():
+            wrapper.launches = 0
+
+    def read_launches():
+        return {name: wrapper.launches for name, wrapper in wrappers.items()}
+
+    def free(model):
+        for part in model._parts().values():
+            part.to("meta")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    numbers = {}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_lumina_trainer_"))
+    try:
+        (work / "tokenizer.model").write_bytes(lumina_vocab())
+        images_dir = work / "images"
+        images_dir.mkdir()
+        img_rng = np.random.default_rng(0)
+        for i, (w, h) in enumerate(TRAINER_IMAGES):
+            smooth = img_rng.integers(0, 255, (h // 32, w // 32, 3), dtype=np.uint8)
+            Image.fromarray(smooth).resize((w, h), Image.BILINEAR).save(images_dir / f"{i}.png")
+            (images_dir / f"{i}.txt").write_text(LUMINA_TRAINER_CAPTIONS[i])
+
+        # the checkpoint: the full-width Lumina2 of phase 12, seeded, written by state_dict()
+        seeded = Lumina2(Lumina2Config(checkpoint_path="", dtype="bfloat16"))
+        seeded.init_params(torch.Generator(device=device).manual_seed(19))
+        ckpt = work / "lumina2.safetensors"
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        st.save_file(seeded.state_dict(), ckpt)
+        numbers["checkpoint_write_s"] = time.perf_counter() - start
+        numbers["checkpoint_bytes"] = ckpt.stat().st_size
+        free(seeded)
+        del seeded
+
+        (work / "preview.yml").write_text(yaml.safe_dump([dict(
+            prompt="a photo of a cat sitting on the sofa", negative_prompt=None, height=1024,
+            width=1024, cfg_scale=4.0, num_steps=STEPS, seed=0)]))
+        raw = yaml.safe_load((checkout / "configs/lumina2/text_to_image.yml").read_text())
+        raw["model"].update(checkpoint_path=str(ckpt), tokenizer_path=str(work))
+        raw["dataset"].update(folder=str(images_dir))
+        raw["num_train_epochs"] = 1
+        raw["saving"]["callbacks"][0]["save_dir"] = str(work / "lora")
+        raw["preview"] = {"strategy": {"per_epochs": 1, "per_steps": None},
+                          "callbacks": [{"type": "local", "save_dir": str(work / "preview")}],
+                          "data": {"path": str(work / "preview.yml")}}
+        raw["trainer"].update(
+            ema_decay=LUMINA_TRAINER_EMA, state_checkpoint_dir=str(work / "state"),
+            state_checkpoint_every_steps=2, profile=True, profile_dir=str(work / "profile"),
+            profile_start_step=2, profile_stop_step=3)
+        config = TrainConfig.model_validate(raw, strict=True)
+        print(f"checkpoint {numbers['checkpoint_bytes']} bytes written by state_dict() in "
+              f"{numbers['checkpoint_write_s']:.2f} s; config #4 cut to one epoch: "
+              f"{config.optimizer.name} {config.optimizer.args}, LoRA rank {config.peft.config.rank} "
+              f"on {config.peft.include_keys}, batch {config.dataset['batch_size']}, buckets from "
+              f"{config.dataset['bucket_base_size']} step {config.dataset['step']}; "
+              f"{config.trainer.model_dump(include={'ema_decay', 'state_checkpoint_every_steps', 'profile_start_step', 'profile_stop_step', 'gradient_checkpointing'})}")
+
+        trainer = build_trainer(config)
+        logs, step_log, load_s, preview_s, save_s = [], [], [], [], []
+        trainer.log_dict = lambda values, step=None: logs.append(dict(values))
+
+        def timed(fn, into):
+            def run(*args, **kwargs):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                into.append(time.perf_counter() - start)
+                return out
+            return run
+
+        trainer.model.setup_model = timed(trainer.model.setup_model, load_s)
+        trainer.model.preview_step = timed(trainer.model.preview_step, preview_s)
+        trainer.save_state_checkpoint = timed(trainer.save_state_checkpoint, save_s)
+        prepare_optimizer = trainer.prepare_optimizer
+
+        def prepare_and_time():
+            prepare_optimizer()
+            inner = trainer._step
+
+            def timed_step(state, batch, generator):
+                torch.cuda.synchronize()
+                before = read_launches()
+                start = time.perf_counter()
+                state, metrics = inner(state, batch, generator)
+                loss = metrics["train/loss"].item()
+                torch.cuda.synchronize()
+                after = read_launches()
+                step_log.append((time.perf_counter() - start, loss,
+                                 {k: after[k] - before[k] for k in after}, batch))
+                return state, metrics
+
+            trainer._step = timed_step
+
+        trainer.prepare_optimizer = prepare_and_time
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        start = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - start
+        run_launches = read_launches()
+        numbers.update(
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30, train_s=run_s,
+            checkpoint_load_s=load_s[0], preview_s=preview_s[0],
+            run_step_ms=[t * 1e3 for t, *_ in step_log])
+        losses = [loss for _, loss, _, _ in step_log]
+        step_logs = [v for v in logs if "train/loss" in v]
+        shapes = [tuple(b["pixel_values"].shape) for *_, b in step_log]
+        print(f"trainer.train(): {run_s:.1f} s with the checkpoint load {load_s[0]:.2f} s and the "
+              f"preview {preview_s[0]:.2f} s; {len(step_log)} steps over batches {shapes}; losses "
+              f"{losses}; ms a step {[round(t, 1) for t in numbers['run_step_ms']]} (host clock, "
+              f"synchronized; step 1 cold, steps 2-3 under the profiler), peak "
+              f"{numbers['peak_gib']:.2f} GiB")
+        for i, v in enumerate(step_logs):
+            print(f"  step {i + 1}: " + ", ".join(f"{k} {v[k]:.6f}" for k in sorted(v)))
+        if len(step_log) != len(TRAINER_IMAGES) // 2 or len(step_logs) != len(step_log) or not all(
+                np.isfinite(v[k]) for v in step_logs
+                for k in ("train/loss", "train/highres_loss", "train/lowres_loss", "train/grad_norm")):
+            raise AssertionError(f"Lumina2 trainer steps: {step_logs}")
+
+        model = trainer.model.model
+        den = model.denoiser
+        depth, noise_ref, context_ref = len(den.layers), len(den.noise_refiner), len(den.context_refiner)
+
+        def want_step(shape, saves="kernel"):
+            """Kernel E and G launches of one step at a (B, H, W, 3) batch, from the
+            module tree and the dispatch gate (sk >= 256): the high-res and the low-res
+            pass each run every main block (256 caption + image keys) and the context
+            refiner (256 caption keys), and the noise refiner where its image keys
+            reach 256; with remat saves "none" the backward runs E again."""
+            _, h, w, _ = shape
+            blocks = 0
+            for stride in (8, 32):  # the latents and the 4x-pooled latents, in pixels
+                tokens = (h // stride // den.patch_size) * (w // stride // den.patch_size)
+                blocks += depth + context_ref + (noise_ref if tokens >= 256 else 0)
+            want = {name: 0 for name in wrappers}
+            want.update({"flash_attention_masked": blocks * (2 if saves == "none" else 1),
+                         "flash_attention_masked_dkv": blocks, "flash_attention_masked_dq": blocks})
+            return want
+
+        for i, (_, _, launches, batch) in enumerate(step_log):
+            want = want_step(tuple(batch["pixel_values"].shape))
+            if launches != want:
+                raise AssertionError(f"Lumina2 trainer step {i + 1}: launches {launches} != {want}")
+        preview_blocks = STEPS * (depth + noise_ref) + context_ref  # captions cached after step 1
+        want_run = {name: sum(launches[name] for _, _, launches, _ in step_log) for name in wrappers}
+        want_run["flash_attention_masked"] += preview_blocks
+        print(f"launches a step {[launches for _, _, launches, _ in step_log]} as the module tree "
+              f"gives them ({depth} + {noise_ref} + {context_ref} blocks; the low-res noise refiner "
+              f"of a 768x1152 batch has 216 keys and takes the plain formula); the whole run "
+              f"{run_launches}, expected {want_run} (the preview's {preview_blocks} of kernel E)")
+        if run_launches != want_run:
+            raise AssertionError(f"Lumina2 trainer run launches {run_launches} != {want_run}")
+
+        # the frozen base against the file, tensor for tensor
+        live = model.state_dict()
+        with safe_open(str(ckpt), framework="pt", device="cpu") as f:
+            keys = list(f.keys())
+            changed = [k for k in keys if not torch.equal(live[k].cpu(), f.get_tensor(k))]
+        if changed or len(keys) != len([k for k in live if "lora_" not in k and not k.endswith(".alpha")]):
+            raise AssertionError(f"frozen tensors changed: {changed[:3]} ({len(keys)} in the file)")
+        print(f"{len(keys)} base tensors bit-identical to the checkpoint file")
+        del live
+
+        # state checkpoints, the EMA and the saved LoRA file
+        steps_saved = sorted(int(p.name.split("_")[1]) for p in (work / "state").glob("step_*"))
+        state_bytes = sum(p.stat().st_size for p in (work / "state").rglob("state.pt")) // len(steps_saved)
+        numbers.update(state_checkpoint_bytes=state_bytes, state_checkpoint_save_s=max(save_s))
+        step4, live4, _, ema4 = restore_train_state(str(work / "state"), "cpu", with_ema=True)
+        ema = trainer.ema
+        moved = [k for k, v in live4.items() if "lora_up" in k and bool(v.float().abs().max() > 0)]
+        ema_vs_live = max((e.cpu() - live4[k].float()).abs().max().item() for k, e in ema.items())
+        print(f"state checkpoints {['step_%d' % s for s in steps_saved]}: {state_bytes} bytes each, "
+              f"saved in {', '.join(f'{t:.3f}' for t in save_s)} s; at step {step4} "
+              f"{len(moved)} of {sum('lora_up' in k for k in live4)} lora_up moved off zero; the EMA "
+              f"(decay {LUMINA_TRAINER_EMA}) is fp32 and differs from the live weights by up to "
+              f"{ema_vs_live:.3e}")
+        if steps_saved != [2, 4] or step4 != 4 or not moved or ema_vs_live == 0 or any(
+                e.dtype != torch.float32 or not torch.equal(e.cpu(), ema4[k]) for k, e in ema.items()):
+            raise AssertionError("the state checkpoints, the adapters or the EMA are off")
+
+        saved = sorted((work / "lora").glob("*.safetensors"))
+        lora_state = st.load_file(saved[-1]) if saved else {}
+        params = trainer.model.get_params()
+        alphas = {k: v for k, v in params.named_buffers() if k.endswith(".alpha")}
+        want_keys = {convert_to_comfy_key(k) for k in (*trainer.trainable, *alphas)}
+        not_ema = [k for k, e in ema.items()
+                   if not torch.equal(lora_state.get(convert_to_comfy_key(k)), e.to(torch.bfloat16).cpu())]
+        if (len(saved) != 1 or set(lora_state) != want_keys
+                or not all(k.startswith("diffusion_model.") for k in lora_state) or not_ema):
+            raise AssertionError(f"saved LoRA files {saved}: {len(lora_state)} keys, expected "
+                                 f"{len(want_keys)}; not the EMA: {not_ema[:3]}")
+        print(f"saved {saved[-1].name}: {len(lora_state)} keys (lora_down, lora_up, alpha of "
+              f"{len(alphas)} Linears, ComfyUI names), the adapters' values the EMA cast to bf16, "
+              f"bit for bit")
+
+        previews = sorted((work / "preview").glob("*"))
+        if len(previews) != 1 or Image.open(previews[0]).size != (1024, 1024):
+            raise AssertionError(f"preview images {previews}")
+        print(f"preview {previews[0].name}: {Image.open(previews[0]).size}, {STEPS} steps, CFG 4 "
+              f"with the empty negative prompt, {preview_s[0]:.2f} s")
+
+        # the profiler window: a Chrome trace of steps 2-3 that names kernels E and G
+        trace = json.loads(Path(trainer.profile_trace).read_text())
+        kernel_names = [e.get("name", "") for e in trace["traceEvents"] if e.get("cat") == "kernel"]
+        in_trace = {frag: sum(frag in n for n in kernel_names) for frag in (
+            "flash_fwd_masked", "flash_bwd_dkv_masked", "flash_bwd_dq_masked")}
+        window = {k: sum(step_log[i][2][k] for i in (1, 2)) for k in LUMINA_KERNELS}
+        print(f"profiler trace {Path(trainer.profile_trace).name} ({Path(trainer.profile_trace).stat().st_size} "
+              f"bytes): {len(kernel_names)} kernel events; {in_trace} (steps 2-3 launched {window})")
+        if min(in_trace.values()) == 0:
+            raise AssertionError(f"the profiler trace does not name kernels E and G: {in_trace}")
+        del trace, kernel_names
+
+        # what the resume must find, on the host
+        opt1 = trainer.state.opt_state.state_dict()
+        opt1 = {"param_groups": opt1["param_groups"], "state": {
+            i: {k: v.to("cpu", copy=True) if isinstance(v, torch.Tensor) else v
+                for k, v in entry.items()}
+            for i, entry in opt1["state"].items()}}
+        updates1 = trainer.state.step
+        ema1 = {k: v.to("cpu", copy=True) for k, v in ema.items()}
+
+        # one more step of the last batch with nothing kept by the checkpoints
+        *_, last_batch = step_log[-1]
+        set_remat_saves("none")
+        try:
+            trainer.state, _ = trainer._step(
+                trainer.state, last_batch, torch.Generator(device=device).manual_seed(5))
+        finally:
+            set_remat_saves("kernel")
+        none_launches = step_log[-1][2]
+        want_none = want_step(tuple(last_batch["pixel_values"].shape), "none")
+        print(f"a step with remat saves none: launches {none_launches}, expected {want_none}")
+        if none_launches != want_none:
+            raise AssertionError(f"trainer step (none): launches {none_launches} != {want_none}")
+
+        # warm steps outside the profiler window, one a bucket, twice each
+        warm = {}
+        for i in (0, 1, 0, 1):
+            batch = step_log[i][3]
+            trainer.state, _ = trainer._step(
+                trainer.state, batch, torch.Generator(device=device).manual_seed(6))
+            bucket = "x".join(str(n) for n in batch["pixel_values"].shape[1:3])
+            warm.setdefault(bucket, []).append(step_log[-1][0] * 1e3)
+        numbers["warm_step_ms"] = warm
+        print(f"warm steps (remat saves kernel, unprofiled), ms by bucket (H x W): {warm}, batch 2")
+
+        # a depth-reduced step (the first 4 main blocks and both refiners), kernels
+        # against their plain versions, swapped in by this script's hook
+        full_layers = den.layers
+        den.layers = torch.nn.ModuleDict({str(i): full_layers[str(i)] for i in range(4)})
+        params = [p for k, p in trainer.trainable.items()
+                  if not k.startswith("denoiser.layers.") or int(k.split(".")[2]) < 4]
+
+        def loss_and_grads():
+            loss, _ = trainer.model.loss_fn(last_batch, torch.Generator(device=device).manual_seed(7))
+            return loss.item(), torch.autograd.grad(loss, params)
+
+        try:
+            reset_launches()
+            kernel_loss, kernel_grads = loss_and_grads()
+            used = read_launches()
+            with plain_versions():
+                plain_loss, plain_grads = loss_and_grads()
+        finally:
+            den.layers = full_layers
+        kernel_norm, plain_norm = global_norm(kernel_grads).item(), global_norm(plain_grads).item()
+        loss_rel = abs(kernel_loss - plain_loss) / abs(plain_loss)
+        norm_rel = abs(kernel_norm - plain_norm) / abs(plain_norm)
+        print(f"depth-reduced step (4 main blocks, the last batch), kernels vs plain versions: loss "
+              f"{kernel_loss:.6f} vs {plain_loss:.6f} (rel {loss_rel:.3e}, tol {STEP_LOSS_TOL}); "
+              f"grad_norm {kernel_norm:.6f} vs {plain_norm:.6f} (rel {norm_rel:.3e}, tol "
+              f"{STEP_GRAD_NORM_TOL}); kernel launches {used}")
+        if read_launches() != used or min(used[n] for n in LUMINA_KERNELS if n != "gated_mlp") == 0:
+            raise AssertionError(f"the plain step launched a kernel, or the kernel step none: {used}")
+        if not (loss_rel <= STEP_LOSS_TOL and norm_rel <= STEP_GRAD_NORM_TOL):
+            raise AssertionError("the Lumina2 trainer's kernel step and the plain step disagree")
+        del kernel_grads, plain_grads, params, last_batch, step_log
+        free(model)
+        del model, den, trainer, ema
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # a second Trainer on the same config and file resumes from step_4
+        second = build_trainer(config)
+        second.model.setup_model = timed(second.model.setup_model, load_s)
+        second.before_train()
+        resumed = second.restore_state_checkpoint()
+        opt2 = second.state.opt_state.state_dict()
+        same_opt = opt2["param_groups"] == opt1["param_groups"] and opt2["state"].keys() == opt1[
+            "state"].keys() and all(
+            torch.equal(opt2["state"][i][k].cpu(), v) if isinstance(v, torch.Tensor)
+            else opt2["state"][i][k] == v
+            for i, entry in opt1["state"].items() for k, v in entry.items())
+        same_trainable = all(torch.equal(p.detach().cpu(), live4[k]) for k, p in second.trainable.items())
+        same_ema = all(torch.equal(e.cpu(), ema1[k]) for k, e in second.ema.items())
+        print(f"a second Trainer (checkpoint load {load_s[-1]:.2f} s) resumed at step {resumed}, "
+              f"update {second.state.step}: trainable {same_trainable}, optimizer state {same_opt}, "
+              f"EMA {same_ema} bit-identical to step_4")
+        if resumed != 4 or second.state.step != updates1 or not (same_trainable and same_opt and same_ema):
+            raise AssertionError("the resumed Trainer's state differs from what was saved")
+        free(second.model.model)
+        del second
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": run_launches, "numbers": numbers}
+
+
+def run_lumina_trainer(checkout: Path) -> dict:
+    """``chip_smoke.py --lumina-trainer`` in a process of its own (a fresh
+    card and a profiler window early in its process): its lines, then its
+    launch counts and numbers."""
+    proc = subprocess.run([sys.executable, str(checkout / "chip_smoke.py"), "--lumina-trainer"],
+                          cwd=checkout, capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]))
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"chip_smoke.py --lumina-trainer failed (exit {proc.returncode}): "
+                             f"{proc.stderr[-4000:]}")
+    return json.loads(lines[-1])["lumina_trainer"]
+
+
 def main() -> None:
     args = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     args.add_argument("--profile", action="store_true",
@@ -1065,6 +1456,10 @@ def main() -> None:
                       help="trace 10 calls each of kernels H, I, J, K, A and L and of their "
                            "library calls in this process alone; prints one JSON line, not the "
                            "ok line")
+    args.add_argument("--lumina-trainer", action="store_true",
+                      help="run phase 19 alone (the Lumina2 Trainer path) after building its "
+                           "libraries; prints its launch counts and numbers as one JSON line, not "
+                           "the ok line")
     args.add_argument("--ln-probe-costs", action="store_true",
                       help="time kernels A and L and their library calls (one call, back to "
                            "back, host us, traced) in this process alone; prints one JSON line, "
@@ -1152,6 +1547,16 @@ def main() -> None:
         _build.build_cuda_libraries(["flash_attention_shortk", "group_norm", "conv3x3",
                                      "layer_norm", "partial_block_probe"])
         print(json.dumps({"traces": trace_kernels(device, torch.Generator(device=device).manual_seed(0))}))
+        return
+
+    if options.lumina_trainer:
+        phase("1 build (kernels E's, F's and G's libraries only)")
+        _build.build_cuda_libraries(["flash_attention_masked", "fused_mlp",
+                                     "flash_attention_masked_bwd"])
+        phase("19 the Lumina2 Trainer at full width and depth: checkpoint, EMA, state "
+              "checkpoints, profiler window, preview")
+        result = lumina_trainer_phase(device, wrappers, checkout)
+        print(json.dumps({"lumina_trainer": result}))
         return
 
     if options.kernel_d:
@@ -1975,7 +2380,7 @@ def main() -> None:
     from vision_ft_tpu_torch.models.lumina2.config import Lumina2Config
     from vision_ft_tpu_torch.models.lumina2.pipeline import Lumina2
     from vision_ft_tpu_torch.models.text_encoders.sentencepiece import (
-        SentencePieceModel, SentencePieceTokenizer, serialize_model,
+        SentencePieceModel, SentencePieceTokenizer,
     )
 
     class LuminaModel(Lumina2):
@@ -1985,15 +2390,7 @@ def main() -> None:
             self.last_latents = latents.clone()
             return super().decode_image(latents)
 
-    # a small unigram SentencePiece vocab: specials, the byte pieces, a few
-    # words and the letters; Gemma's template prepends <bos>
-    words = ("a photo of cat sitting on the sofa red car road house in mountains blurry").split()
-    pieces = [("<pad>", 0.0, 3), ("<eos>", 0.0, 3), ("<bos>", 0.0, 3), ("<unk>", 0.0, 2)]
-    pieces += [(f"<0x{i:02X}>", 0.0, 6) for i in range(256)]
-    pieces += [("▁" + w, -1.0 - 0.1 * i, 1) for i, w in enumerate(dict.fromkeys(words))]
-    pieces += [(ch, -5.0, 1) for ch in "abcdefghijklmnopqrstuvwxyz▁"]
-    vocab = serialize_model(pieces, unk_id=3, bos_id=2, eos_id=1, pad_id=0)
-    tokenizer = SentencePieceTokenizer(SentencePieceModel.from_bytes(vocab), template="bos")
+    tokenizer = SentencePieceTokenizer(SentencePieceModel.from_bytes(lumina_vocab()), template="bos")
 
     torch.cuda.reset_peak_memory_stats()
     lumina = LuminaModel(Lumina2Config(checkpoint_path="", dtype="bfloat16"), tokenizer=tokenizer)
@@ -2939,6 +3336,12 @@ def main() -> None:
             library_traced_ms=traced[1])
     del x, out, got, want
 
+    phase("19 the Lumina2 Trainer at full width and depth: checkpoint, EMA, state checkpoints, "
+          "profiler window, preview (a process of its own)")
+    lumina_trainer = run_lumina_trainer(checkout)
+    card_numbers = ", ".join(f"{k} {v}" for k, v in lumina_trainer["numbers"].items())
+    print(f"phase 19 on {card}: {card_numbers}")
+
     kernels = []
     for name, record in records.items():
         launches = {"generate": generate_launches[name], "train": train_launches[name],
@@ -2948,6 +3351,7 @@ def main() -> None:
                     "sdxl_shortk_generate": route_launches["flash_attention_shortk"][name],
                     "sdxl_fused_ff_generate": route_launches["gated_mlp"][name],
                     "trainer": trainer_launches[name],
+                    "lumina2_trainer": lumina_trainer["launches"][name],
                     "ops_resnet_body_and_probe": ops_launches[name]}
         kernels.append({
             "name": name,

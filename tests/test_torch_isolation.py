@@ -51,7 +51,8 @@ LUMINA2_MODULES = [
     "models/lumina2/util.py", "models/lumina2/text_encoder.py", "models/lumina2/denoiser.py",
     "models/lumina2/pipeline.py", "models/lumina2/train_text_to_image.py",
     "modules/loss/flow_match.py", "models/autoencoder/kl.py",
-    "ops/flash_attention.py",
+    "ops/flash_attention.py", "train/lumina2/text_to_image.py", "trainer/common.py",
+    "training/state_checkpoint.py",
 ]
 # the modules of the last three kernels: the GroupNorm and 3x3 conv ops (their
 # kernels are CUDA C++ sources) and the ragged-tile probe

@@ -273,17 +273,17 @@ def test_trainer_run_matches_jax(tmp_path, checkpoint, data_folder, monkeypatch,
 
 
 def test_trainer_raises_on_unported_options(tmp_path, checkpoint, data_folder):
+    """A mesh of more than one device is the one trainer option left
+    unported (EMA, state checkpoints, the profiler and the debug modes run:
+    tests/test_torch_trainer_lumina2.py)."""
     base = _config(tmp_path, checkpoint, data_folder, "x")
-    for trainer_cfg, what in [
-        ({"mesh": {"data": 2}}, "mesh"),
-        ({"ema_decay": 0.99}, "EMA"),
-        ({"state_checkpoint_dir": str(tmp_path)}, "state checkpoints"),
-        ({"profile": True}, "profiler"),
-        ({"debug_mode": "1step"}, "debug modes"),
-    ]:
-        config = TrainConfig.model_validate({**base, "trainer": trainer_cfg})
-        with pytest.raises(NotImplementedError, match=what):
+    for mesh in ({"data": 2}, {"fsdp": 2}, {"data": 1, "tensor": 2}):
+        config = TrainConfig.model_validate({**base, "trainer": {"mesh": mesh}})
+        with pytest.raises(NotImplementedError, match="mesh"):
             Trainer(config, device="cpu")
+    for trainer_cfg in ({"ema_decay": 0.99}, {"state_checkpoint_dir": str(tmp_path)},
+                        {"profile": True}, {"debug_mode": "1step", "debug_nans": True}):
+        Trainer(TrainConfig.model_validate({**base, "trainer": trainer_cfg}), device="cpu")
 
 
 def test_train_script_builds_the_registered_trainer(tmp_path, checkpoint, data_folder):

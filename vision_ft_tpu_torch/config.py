@@ -4,10 +4,9 @@ The same pydantic tree as the JAX package, so one YAML file drives both:
 ``model`` and ``dataset`` stay dicts for two-stage validation by the
 workload class; discriminated unions for saving, preview and PEFT; the
 ``trainer`` section keeps every field of the JAX package's, and the
-Trainer raises ``NotImplementedError`` on the ones whose subsystems are
-not ported (a mesh of more than one device, EMA, state checkpoints, the
-profiler, the debug modes). YAML is read with PyYAML, imported where a
-file is read.
+Trainer raises ``NotImplementedError`` on a mesh of more than one device,
+which is not ported. YAML is read with PyYAML, imported where a file is
+read.
 """
 
 from __future__ import annotations

@@ -9,11 +9,15 @@ decodes the latents with the 16-channel KL-VAE into PIL images.
 
 The modules are built on the meta device and materialized by
 ``init_params`` (seeded random weights, on the device, in the target
-dtype) or ``load_state_dict`` (the JAX package's flat parameters).
+dtype), ``load_state_dict`` (the JAX package's flat parameters) or
+``from_checkpoint`` (a single-file safetensors checkpoint in the original
+key layout, ``model.diffusion_model.*``,
+``text_encoders.gemma2_2b.transformer.*`` and ``vae.*``, the JAX
+package's ``state_dict()`` layout; prequantized bnb/quanto weights are
+grouped into quantized leaves). ``state_dict()`` writes that layout back.
 
 ``encode_image`` is the VAE encode of the train step's latents. Not ported
-yet: single-file checkpoint I/O (``_from_checkpoint``, ``state_dict``),
-offloading, the continuous-batching slot step.
+yet: offloading, the continuous-batching slot step.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from .config import Lumina2Config
 from .denoiser import Denoiser
 from .scheduler import Scheduler
 from .text_encoder import DEFAULT_MAX_TOKEN_LENGTH, TextEncoder
+from .util import convert_from_original_key, convert_to_original_key
 from .vae import DEFAULT_VAE_CONFIG
 
 _PARTS = ("denoiser", "vae", "text_encoder")
@@ -66,6 +71,12 @@ class Lumina2:
 
     def _parts(self) -> dict[str, nn.Module]:
         return {name: getattr(self, name) for name in _PARTS}
+
+    def as_module(self) -> nn.ModuleDict:
+        """The three parts as one module (the same modules, not copies),
+        keyed ``denoiser.*``, ``vae.*``, ``text_encoder.*`` as the JAX
+        package's flattened params."""
+        return nn.ModuleDict(self._parts())
 
     @property
     def device(self) -> torch.device:
@@ -113,6 +124,51 @@ class Lumina2:
             )
             part.to(device)
             part.eval()
+
+    # -- checkpoint I/O ------------------------------------------------------------
+
+    def _from_checkpoint(self, device: Optional[torch.device] = None) -> None:
+        """Load ``config.checkpoint_path`` in this model's dtype onto
+        ``device`` (default: the card), one part at a time and each tensor
+        on its own from the file to the device, so the host never holds a
+        whole copy of the file. Keys outside the three parts are skipped,
+        as the JAX package skips them; within a part the load is strict."""
+        from safetensors import safe_open
+
+        from ...modules.quant import convert_prequantized_state_dict
+
+        device = torch.device("cuda" if device is None else device)
+        with safe_open(str(self.config.checkpoint_path), framework="pt", device="cpu") as f:
+            names = {convert_from_original_key(k): k for k in f.keys()}
+            for name, part in self._parts().items():
+                prefix = name + "."
+                flat = {}
+                for key, original in names.items():
+                    if key.startswith(prefix):
+                        value = f.get_tensor(original)
+                        dtype = self.dtype if value.is_floating_point() else value.dtype
+                        flat[key[len(prefix):]] = value.to(device=device, dtype=dtype)
+                part.to(dtype=self.dtype)
+                load_flat_params(part, convert_prequantized_state_dict(flat), meta_device=device)
+                del flat
+                part.to(device)
+                part.eval()
+
+    @classmethod
+    def from_checkpoint(
+        cls, config: Lumina2Config, tokenizer=None, device: Optional[torch.device] = None
+    ) -> "Lumina2":
+        model = cls(config, tokenizer=tokenizer)
+        model._from_checkpoint(device)
+        return model
+
+    def state_dict(self) -> dict[str, torch.Tensor]:
+        """Flat dict in the original single-file key layout, the tensors as
+        the modules hold them (on their device)."""
+        return {
+            convert_to_original_key(f"{name}.{k}"): v
+            for name, part in self._parts().items() for k, v in part.state_dict().items()
+        }
 
     # -- latents / images --------------------------------------------------------
 

@@ -9,22 +9,32 @@ noising uses 1 - t and the predicted velocity is negated), timesteps
 velocity. Gemma-2 and the VAE are frozen and run under ``no_grad`` every
 step. Draws come from one ``torch.Generator`` in a fixed order: the VAE
 sample, the timesteps, the noise, the low-res noise. ``loss_with_draws``
-takes them explicitly. The ``ModelForTraining`` subclass (trainer hooks,
-``preprocess_batch``, ``preview_step``, ``get_state_dict_to_save``) waits
-for the ``Trainer``, as for SDXL.
+takes them explicitly.
+
+:class:`Lumina2ForTextToImageTraining` adds what the Trainer calls: the
+model from ``checkpoint_path`` when that file exists (seeded random weights
+otherwise), gradient checkpointing, the sanity check, Gemma tokenizing in
+``preprocess_batch``, previews through ``generate()`` and the saved state:
+the whole model, or under PEFT the adapters in ComfyUI keys.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Literal, Mapping, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from PIL.Image import Image
 
 from ...modules.loss.flow_match import loss_with_predicted_velocity, prepare_noised_latents
+from ...modules.peft import get_adapter_parameters
 from ...modules.timestep.sampling import shift_fraction_uniform_rand, uniform_rand
+from ..for_training import ModelForTraining
 from .config import Lumina2Config
 from .pipeline import Lumina2
+from .util import convert_to_comfy_key
 
 
 class Lumina2ForTextToImageTrainingConfig(Lumina2Config):
@@ -148,3 +158,87 @@ def loss_fn(model: Lumina2, batch: Mapping[str, torch.Tensor], generator: torch.
     noise = randn(latents.shape)
     lowres_noise = randn(_avg_pool_4x(latents).shape) if config.use_lowres_loss else None
     return _loss(model, config, latents, hidden, caption_mask, timesteps, noise, lowres_noise)
+
+
+class Lumina2ForTextToImageTraining(ModelForTraining):
+    model: Lumina2
+    model_config: Lumina2ForTextToImageTrainingConfig
+    model_config_class = Lumina2ForTextToImageTrainingConfig
+
+    def __init__(self, trainer, config, tokenizer=None) -> None:
+        self.tokenizer = tokenizer
+        super().__init__(trainer, config)
+
+    @property
+    def device(self) -> torch.device:
+        return self.trainer.device
+
+    def before_setup_model(self) -> None:
+        pass
+
+    def setup_model(self) -> None:
+        if os.path.exists(self.model_config.checkpoint_path):
+            self.model = Lumina2.from_checkpoint(
+                self.model_config, tokenizer=self.tokenizer, device=self.device
+            )
+        else:
+            # no checkpoint (tests / from scratch): seeded random weights
+            self.model = Lumina2(self.model_config, tokenizer=self.tokenizer)
+            self.model.init_params(
+                torch.Generator(device=self.device).manual_seed(self.config.seed)
+            )
+
+    def after_setup_model(self) -> None:
+        if self.config.trainer.gradient_checkpointing:
+            self.model.denoiser.set_gradient_checkpointing(True)
+
+    def sanity_check(self) -> None:
+        denoiser = self.model.denoiser
+        dtype, device = self.model.dtype, self.device
+        latent = torch.zeros((1, 8, 8, denoiser.config.in_channels), dtype=dtype, device=device)
+        captions = torch.zeros((1, 16, denoiser.config.caption_dim), dtype=dtype, device=device)
+        mask = torch.ones((1, 16), dtype=torch.bool, device=device)
+        with torch.no_grad():
+            velocity, _, _ = denoiser(latent, captions, torch.full((1,), 0.1, dtype=dtype,
+                                                                    device=device), mask)
+        if velocity.shape != latent.shape:
+            raise RuntimeError(f"denoiser gave {tuple(velocity.shape)} for {tuple(latent.shape)}")
+
+    def preprocess_batch(self, batch: dict) -> dict:
+        ids, mask = self.model.text_encoder.tokenize(
+            list(batch["caption"]), self.model_config.max_token_length
+        )
+        out = {
+            "pixel_values": np.asarray(batch["image"], np.float32),
+            "input_ids": ids,
+            "attention_mask": mask,
+        }
+        return {k: torch.from_numpy(v).to(self.device) for k, v in out.items()}
+
+    def loss_fn(self, batch, generator):
+        return loss_fn(self.model, batch, generator)
+
+    def eval_step(self, batch):
+        raise NotImplementedError
+
+    def preview_step(self, batch: dict, preview_index: int) -> list[Image]:
+        negative_prompt = batch["negative_prompt"]
+        if negative_prompt is None and batch["cfg_scale"] > 0:
+            negative_prompt = ""
+        image = self.model.generate(
+            prompt=batch["prompt"],
+            negative_prompt=negative_prompt,
+            height=batch["height"],
+            width=batch["width"],
+            cfg_scale=batch["cfg_scale"],
+            num_inference_steps=batch["num_steps"],
+            seed=batch["seed"],
+            max_token_length=self.model_config.max_token_length,
+        )[0]
+        return [image]
+
+    def get_state_dict_to_save(self):
+        if not self._is_peft:
+            return self.model.state_dict()
+        state_dict = get_adapter_parameters(self.get_params())
+        return {convert_to_comfy_key(k): v for k, v in state_dict.items()}

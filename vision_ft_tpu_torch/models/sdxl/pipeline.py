@@ -12,7 +12,11 @@ dtype), ``load_state_dict`` (the JAX package's flat parameters) or
 package's ``state_dict()`` layout: its keys converted, the OpenCLIP
 tower's fused qkv split, the VAE's 1x1-conv attention weights reshaped to
 linears and prequantized bnb/quanto weights grouped into quantized
-leaves). ``state_dict()`` writes that layout back.
+leaves). ``state_dict()`` writes that layout back. Without a tokenizer
+passed in, one comes from ``maybe_auto_tokenizer(config, family="clip")``:
+``tokenizer_path``, else a ``checkpoint_path`` directory that holds the
+assets (``vocab.json`` + ``merges.txt``, ``tokenizer.json`` or a
+SentencePiece model), as in the JAX package.
 
 The JAX ``lax.scan`` loop is a Python loop here (``_denoise_loop``), which
 takes its initial latents and per-step ancestral noise as tensors;
@@ -43,7 +47,6 @@ from ...utils.state_dict import (
 )
 from ..autoencoder import AutoencoderKL
 from ..autoencoder.kl import SDXL_VAE_CONFIG
-from ..text_encoders import CLIPTokenizer
 from .config import SDXLConfig
 from .denoiser import Denoiser
 from .scheduler import Scheduler
@@ -65,8 +68,10 @@ class SDXLModel:
     ):
         self.config = config
         self.dtype = str_to_dtype(config.dtype)
-        if tokenizer is None and config.tokenizer_path:
-            tokenizer = CLIPTokenizer.from_pretrained_dir(config.tokenizer_path)
+        if tokenizer is None:
+            from ..text_encoders.auto_tokenizer import maybe_auto_tokenizer
+
+            tokenizer = maybe_auto_tokenizer(config, family="clip")
         with torch.device("meta"):
             self.denoiser = Denoiser(config.denoiser)
             self.vae = AutoencoderKL(vae_config or SDXL_VAE_CONFIG)

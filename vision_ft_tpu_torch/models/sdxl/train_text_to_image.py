@@ -10,7 +10,8 @@ batch's ``pixel_values``. Optional Min-SNR weighting.
 
 :class:`SDXLForTextToImageTraining` adds what the Trainer calls: the model
 from ``checkpoint_path`` when that file exists (seeded random weights
-otherwise), gradient checkpointing, the sanity check, tokenizing in
+otherwise; the tokenizer passed in, else the one in ``CLIP_VOCAB_DIR``,
+else the pipeline's lookup), gradient checkpointing, the sanity check, tokenizing in
 ``preprocess_batch``, the content-hash caches of latents (the VAE's mode)
 and of text embeddings, previews through ``generate()`` and the saved
 state: the whole model, or under PEFT the adapters in ComfyUI keys.
@@ -145,6 +146,17 @@ def loss_fn(
     return loss, {}
 
 
+def _default_tokenizer():
+    """The CLIP BPE tokenizer of ``CLIP_VOCAB_DIR`` (``vocab.json`` +
+    ``merges.txt``) where that variable names a directory, else None."""
+    vocab_dir = os.environ.get("CLIP_VOCAB_DIR")
+    if vocab_dir and os.path.isdir(vocab_dir):
+        from ..text_encoders.tokenizer import CLIPTokenizer
+
+        return CLIPTokenizer.from_pretrained_dir(vocab_dir)
+    return None
+
+
 class SDXLForTextToImageTraining(ModelForTraining):
     model: SDXLModel
     model_config: SDXLForTextToImageTrainingConfig
@@ -164,13 +176,14 @@ class SDXLForTextToImageTraining(ModelForTraining):
         pass
 
     def setup_model(self) -> None:
+        tokenizer = self.tokenizer or _default_tokenizer()
         if os.path.exists(self.model_config.checkpoint_path):
             self.model = SDXLModel.from_checkpoint(
-                self.model_config, tokenizer=self.tokenizer, device=self.device
+                self.model_config, tokenizer=tokenizer, device=self.device
             )
         else:
             # no checkpoint (tests / from scratch): seeded random weights
-            self.model = SDXLModel(self.model_config, tokenizer=self.tokenizer)
+            self.model = SDXLModel(self.model_config, tokenizer=tokenizer)
             self.model.init_params(
                 torch.Generator(device=self.device).manual_seed(self.config.seed)
             )

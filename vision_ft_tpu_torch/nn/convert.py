@@ -53,10 +53,13 @@ def _to_tensor(value) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def _install_quantized_weights(module: nn.Module, flat: Mapping[str, torch.Tensor]) -> set[str]:
+def _install_quantized_weights(
+    module: nn.Module, flat: Mapping[str, torch.Tensor], meta_device: torch.device | str
+) -> set[str]:
     """Give every ``Linear`` that ``flat`` holds quantized leaves or an fp8
-    weight for a quantized weight made of them, on the layer's device (the
-    CPU for a layer on the meta device). Returns the keys it took."""
+    weight for a quantized weight made of them, on the layer's device
+    (``meta_device`` for a layer on the meta device). Returns the keys it
+    took."""
     layers = dict(module.named_modules())
     grouped: dict[str, dict[str, torch.Tensor]] = {}
     for key, value in flat.items():
@@ -71,7 +74,7 @@ def _install_quantized_weights(module: nn.Module, flat: Mapping[str, torch.Tenso
         if not isinstance(layer, Linear):
             raise KeyError(f"quantized weight of {root!r} has no Linear to go on")
         device = weight_device(layer)
-        device = "cpu" if device.type == "meta" else device
+        device = meta_device if device.type == "meta" else device
         shape = (layer.out_features, layer.in_features)
         numel = shape[0] * shape[1]
         if isinstance(quantized, torch.Tensor):
@@ -108,21 +111,22 @@ def _install_quantized_weights(module: nn.Module, flat: Mapping[str, torch.Tenso
 
 @torch.no_grad()
 def load_flat_params(
-    module: nn.Module, flat: Mapping[str, np.ndarray], strict: bool = True
+    module: nn.Module, flat: Mapping[str, np.ndarray], strict: bool = True,
+    meta_device: torch.device | str = "cpu",
 ) -> nn.Module:
     """Load ``flat`` into ``module`` in place and return it.
 
     Raises ``KeyError`` on a missing or unexpected key (``strict``) and
     ``ValueError`` on a shape mismatch. Each tensor lands on the device of
-    the parameter it replaces, or on the CPU where that parameter is on
-    the meta device.
+    the parameter it replaces, or on ``meta_device`` where that parameter
+    is on the meta device.
     """
     flat = {k: _to_tensor(v) for k, v in flat.items()}
     own = module.state_dict(keep_vars=True)
     adapters = {k: v for k, v in flat.items() if is_adapter_key(k) and k not in own}
     if adapters:
         attach_adapters_from_state(module, adapters)
-    quantized = _install_quantized_weights(module, flat)
+    quantized = _install_quantized_weights(module, flat, meta_device)
     if adapters or quantized:
         own = module.state_dict(keep_vars=True)
     missing = sorted(set(own) - set(flat))
@@ -140,7 +144,7 @@ def load_flat_params(
             raise ValueError(
                 f"{key}: shape {tuple(value.shape)} does not match {tuple(target.shape)}"
             )
-        device = "cpu" if target.is_meta else target.device
+        device = meta_device if target.is_meta else target.device
         # a new adapter and a quantized leaf keep the dtype they come in;
         # everything else takes the dtype of the parameter it replaces
         dtype = value.dtype if key in adapters or key in quantized else target.dtype

@@ -10,27 +10,42 @@ optimizer step, and a remainder carries over into the next epoch, as in
 the JAX package. The base model is frozen by ``requires_grad``: only the
 trainable split (the adapters under PEFT) gets gradients.
 
-Schedule-free optimizers train the interpolation y and evaluate at the
-average x: saving and previews see x, and the live parameters go back to
-y afterwards; after the last step the model keeps x.
+Evaluation weights: with ``trainer.ema_decay`` d an fp32 EMA of the
+trainable parameters (``ema * d + x * (1 - d)`` after every optimizer
+step; for a schedule-free optimizer x is its evaluation point), else for a
+schedule-free optimizer its average x in place of the trained y. Saving
+and previews see them, cast to each parameter's dtype, and the live
+parameters come back bit for bit afterwards; after the last step the
+model keeps them.
+
+``trainer.state_checkpoint_dir``: {step, trainable, optimizer state, EMA}
+every ``state_checkpoint_every_steps`` loader steps
+(``training/state_checkpoint.py``); with ``resume_from_state_checkpoint``
+the newest is restored before the first epoch. As in the JAX package only
+the state is recovered: the data stream and the generator restart from the
+seed. ``trainer.profile``: ``torch.profiler`` from ``profile_start_step``
+to ``profile_stop_step`` (synchronized at the stop), a Chrome trace under
+``profile_dir``. ``trainer.debug_mode``: "dataset" prints the loader's
+batch shapes and returns, "sanity_check" returns after the model's sanity
+check, "1step" stops after one loader step; ``trainer.debug_nans`` runs the
+steps under ``torch.autograd.detect_anomaly(check_nan=True)`` and raises
+``FloatingPointError`` at the first non-finite loss or gradient.
 
 The run is on the card unless the caller names another device
-(``device="cpu"``, as the tests do). Not ported, each raising
-``NotImplementedError`` by name when configured: a mesh of more than one
-device, EMA (``trainer.ema_decay``), state checkpoints
-(``trainer.state_checkpoint_dir``), the profiler (``trainer.profile``) and
-the debug modes (``trainer.debug_mode``, ``trainer.debug_nans``).
+(``device="cpu"``, as the tests do). A mesh of more than one device is not
+ported and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import warnings
 from typing import Optional
 
 import torch
 
-from ..config import TrainConfig
+from ..config import DEBUG_MODE_TYPE, TrainConfig
 from ..dataloader import DataLoader, get_dataloader_for_bucketing, get_dataloader_for_preview
 from ..dataset.util import DatasetConfig
 from ..models.for_training import ModelForTraining
@@ -40,27 +55,21 @@ from ..preview import PreviewStrategy, get_preview_callback
 from ..saving import ModelSavingStrategy, get_saving_callback
 from ..training import Microbatches, get_optimizer, get_schedule, init_train_state, make_train_step
 from ..training.optimizer import eval_params, is_schedule_free
+from ..training.state_checkpoint import restore_train_state, save_train_state
 from ..utils.logging import Trackers, get_trackers
 
 
 def _check_ported(config: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` on the trainer options whose subsystems
-    are not ported."""
-    tcfg = config.trainer
-    mesh = tcfg.mesh
+    """Raise ``NotImplementedError`` on a mesh of more than one device."""
+    mesh = config.trainer.mesh
     if mesh.data not in (-1, 1) or (mesh.fsdp, mesh.tensor, mesh.pipe) != (1, 1, 1):
         raise NotImplementedError(f"a mesh of more than one device ({mesh}) is not ported")
-    if tcfg.ema_decay is not None:
-        raise NotImplementedError("EMA of the trainable parameters (trainer.ema_decay) is not ported")
-    if tcfg.state_checkpoint_dir is not None:
-        raise NotImplementedError("state checkpoints (trainer.state_checkpoint_dir) are not ported")
-    if tcfg.profile:
-        raise NotImplementedError("the profiler (trainer.profile) is not ported")
-    if tcfg.debug_mode is not False or tcfg.debug_nans:
-        raise NotImplementedError(
-            f"the debug modes (trainer.debug_mode={tcfg.debug_mode!r}, "
-            f"trainer.debug_nans={tcfg.debug_nans}) are not ported"
-        )
+
+
+def _fp32_copies(params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    # x.float() of an fp32 tensor is x itself: an EMA made so would track
+    # the live weights, so copy explicitly
+    return {k: p.detach().to(torch.float32, copy=True) for k, p in params.items()}
 
 
 class Trainer:
@@ -75,6 +84,7 @@ class Trainer:
         self.peft_config = config.peft
         self.seed = seed if seed is not None else config.seed
         self.device = torch.device("cuda" if device is None else device)
+        self.debug_mode: DEBUG_MODE_TYPE = config.trainer.debug_mode
         self.gradient_accumulation_steps = config.trainer.gradient_accumulation_steps
 
         set_remat_saves(config.trainer.remat_saves)
@@ -87,6 +97,8 @@ class Trainer:
 
         self.preview_dataset_config = None
         self.preview_dataloader: Optional[DataLoader] = None
+        self.ema: Optional[dict[str, torch.Tensor]] = None  # set by prepare_optimizer
+        self.profile_trace: Optional[str] = None  # the last trace the profiler wrote
 
     # -- registration ------------------------------------------------------------
 
@@ -232,14 +244,19 @@ class Trainer:
         )
         self.trainable, self.frozen = self.split_trainable()
         self.state = init_train_state(self.optimizer, self.trainable)
+        if self.config.trainer.ema_decay is not None:
+            self.ema = _fp32_copies(self.trainable)
         self._step = make_train_step(
-            self.model.loss_fn, self.optimizer, grad_accum=self.gradient_accumulation_steps
+            self.model.loss_fn, self.optimizer, grad_accum=self.gradient_accumulation_steps,
+            check_finite=self.config.trainer.debug_nans,
         )
 
     # -- lifecycle -------------------------------------------------------------------
 
     def before_train(self) -> None:
         self.torch_configuration()
+        if self.debug_mode is not False:
+            self.print(f"Debug mode is enabled: {self.debug_mode}")
         self.print("before_train()")
         self.print(f"Seed: {self.seed}")
         self.print("Setting up dataloaders")
@@ -248,6 +265,12 @@ class Trainer:
         self.prepare_saving_strategy()
         self.print("Setting up preview strategy")
         self.prepare_preview_strategy()
+
+        if self.debug_mode == "dataset":
+            self.debug_dataset()
+            self.print("Dataset check done. Exiting...")
+            return
+
         self.print("Setting up model")
         self.prepare_model()
         self.print("Setting up optimizer")
@@ -258,53 +281,172 @@ class Trainer:
 
     def training_loop(self) -> None:
         self.print("training_loop()")
+        tcfg = self.config.trainer
         current_step = 0
+        if tcfg.state_checkpoint_dir and tcfg.resume_from_state_checkpoint:
+            current_step = self.restore_state_checkpoint() or 0
         accum = self.gradient_accumulation_steps
         generator = torch.Generator(device=self.device).manual_seed(self.seed)
         pending: list[dict] = []
+        profiler = None
 
-        for epoch in range(1, self.config.num_train_epochs + 1):
-            self.model.before_train_epoch()
-            self.train_dataloader.set_epoch(epoch - 1)
+        try:
+            for epoch in range(1, self.config.num_train_epochs + 1):
+                self.model.before_train_epoch()
+                self.train_dataloader.set_epoch(epoch - 1)
 
-            for batch in self.train_dataloader:
-                current_step += 1
-                self.model.before_train_step()
-                pending.append(self.model.preprocess_batch(batch))
+                for batch in self.train_dataloader:
+                    current_step += 1
+                    if tcfg.profile and current_step == tcfg.profile_start_step:
+                        profiler = self._start_profiler()
+                    self.model.before_train_step()
+                    pending.append(self.model.preprocess_batch(batch))
 
-                self.model.before_backward()
-                if len(pending) == accum:
-                    step_batch = pending[0] if accum == 1 else Microbatches(pending)
-                    self.state, metrics = self._step(self.state, step_batch, generator)
-                    pending = []
-                    self.model.log("train/loss", float(metrics.pop("train/loss")),
-                                   on_step=True, on_epoch=True)
-                    for name, value in metrics.items():
-                        self.model.log(name, value, on_step=True)
-                self.model.after_backward()
-                self._log_metadata(current_step)
+                    self.model.before_backward()
+                    if len(pending) == accum:
+                        step_batch = pending[0] if accum == 1 else Microbatches(pending)
+                        with self._nan_checks():
+                            self.state, metrics = self._step(self.state, step_batch, generator)
+                        pending = []
+                        if self.ema is not None:
+                            self._update_ema()
+                        self.model.log("train/loss", float(metrics.pop("train/loss")),
+                                       on_step=True, on_epoch=True)
+                        for name, value in metrics.items():
+                            self.model.log(name, value, on_step=True)
+                    self.model.after_backward()
+                    self._log_metadata(current_step)
 
-                self.call_saving_callbacks(epoch, current_step)
-                self.call_preview_callbacks(epoch, current_step)
-                self.model.after_train_step()
+                    self.call_saving_callbacks(epoch, current_step)
+                    self.call_preview_callbacks(epoch, current_step)
+                    self.model.after_train_step()
 
-            self.model.after_train_epoch()
-            self.model.log("epoch", epoch)
+                    if profiler is not None and current_step == tcfg.profile_stop_step:
+                        self._stop_profiler(profiler)
+                        profiler = None
+                    if (tcfg.state_checkpoint_dir
+                            and current_step % tcfg.state_checkpoint_every_steps == 0):
+                        self.save_state_checkpoint(current_step)
+
+                    if self.debug_mode == "1step":
+                        break
+
+                self.model.after_train_epoch()
+                self.model.log("epoch", epoch)
+                if self.debug_mode == "1step":
+                    break
+        finally:
+            if profiler is not None:  # the run ended inside the window
+                self._stop_profiler(profiler)
+
+    # -- EMA, state checkpoints, profiler, NaN checks --------------------------------
+
+    @torch.no_grad()
+    def _update_ema(self) -> None:
+        """ema = ema * d + x * (1 - d) in fp32, x the parameters or, for a
+        schedule-free optimizer, its evaluation point."""
+        decay = self.config.trainer.ema_decay
+        target = self.trainable
+        if is_schedule_free(self.optimizer_name):
+            target = eval_params(self.optimizer_name, self.state.opt_state, target)
+        ema = list(self.ema.values())
+        torch._foreach_mul_(ema, decay)
+        torch._foreach_add_(ema, [target[k].float() for k in self.ema], alpha=1.0 - decay)
+
+    def save_state_checkpoint(self, step: int) -> str:
+        """Write {step, trainable, optimizer state, EMA} for loader step
+        ``step`` under ``trainer.state_checkpoint_dir``."""
+        opt_state = {"optimizer": self.state.opt_state.state_dict(), "updates": self.state.step}
+        return save_train_state(self.config.trainer.state_checkpoint_dir, step, self.trainable,
+                                opt_state, ema=self.ema)
+
+    def restore_state_checkpoint(self) -> Optional[int]:
+        """Restore the newest state checkpoint into the trainable
+        parameters, the optimizer and the EMA, in place; returns its loader
+        step, or None when there is none."""
+        restored = restore_train_state(self.config.trainer.state_checkpoint_dir, self.device,
+                                       with_ema=self.ema is not None)
+        if restored is None:
+            return None
+        step, trainable, opt_state = restored[:3]
+        if set(trainable) != set(self.trainable):
+            raise KeyError(f"the state checkpoint's trainable keys differ from the model's: "
+                           f"{sorted(set(trainable) ^ set(self.trainable))[:5]}")
+        with torch.no_grad():
+            for key, param in self.trainable.items():
+                param.copy_(trainable[key])
+            if self.ema is not None:
+                for key, value in self.ema.items():
+                    value.copy_(restored[3][key])
+        self.state.opt_state.load_state_dict(opt_state["optimizer"])
+        self.state = self.state._replace(step=opt_state["updates"])
+        self.print(f"Resumed train state from step {step}")
+        return step
+
+    def _start_profiler(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        profiler = profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profiler(self, profiler) -> None:
+        tcfg = self.config.trainer
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        os.makedirs(tcfg.profile_dir, exist_ok=True)
+        path = os.path.join(
+            tcfg.profile_dir, f"trace_steps_{tcfg.profile_start_step}-{tcfg.profile_stop_step}.json"
+        )
+        profiler.export_chrome_trace(path)
+        self.profile_trace = path
+        self.print(f"Profiler trace written to {path}")
+
+    @contextlib.contextmanager
+    def _nan_checks(self):
+        """With ``trainer.debug_nans``, anomaly mode over the step: a
+        non-finite gradient raises ``FloatingPointError`` naming the
+        backward function that made it (the step itself checks the loss
+        and the gradients' norm)."""
+        if not self.config.trainer.debug_nans:
+            yield
+            return
+        try:
+            with torch.autograd.detect_anomaly(check_nan=True):
+                yield
+        except RuntimeError as error:
+            if "nan values" not in str(error):
+                raise
+            raise FloatingPointError(str(error)) from error
 
     # -- callbacks -----------------------------------------------------------------
 
+    def _evaluation_values(self) -> Optional[dict[str, torch.Tensor]]:
+        """The trainable parameters' values as saving, previews and the
+        model after training see them: the EMA cast to each parameter's
+        dtype, else for a schedule-free optimizer its average x; None where
+        they are the live parameters."""
+        if self.ema is not None:
+            return {k: e.to(self.trainable[k].dtype) for k, e in self.ema.items()}
+        if is_schedule_free(self.optimizer_name):
+            return eval_params(self.optimizer_name, self.state.opt_state, self.trainable)
+        return None
+
     @contextlib.contextmanager
     def _evaluation_weights(self):
-        """The trainable parameters as saving and previews see them: for a
-        schedule-free optimizer its average x in place of the live y, which
-        comes back afterwards bit for bit."""
-        if not is_schedule_free(self.optimizer_name):
+        """The evaluation weights in place of the live ones, which come back
+        afterwards bit for bit."""
+        values = self._evaluation_values()
+        if values is None:
             yield
             return
         with torch.no_grad():
             live = {k: p.detach().clone() for k, p in self.trainable.items()}
-            for key, value in eval_params(self.optimizer_name, self.state.opt_state,
-                                          self.trainable).items():
+            for key, value in values.items():
                 self.trainable[key].copy_(value)
         try:
             yield
@@ -319,8 +461,10 @@ class Trainer:
         self.model.before_save_model()
         if len(self.saving_callbacks) > 0:
             with self._evaluation_weights():
+                # copies: on the CPU .to("cpu") would hand out the parameters'
+                # own storage, which the live weights refill on the way out
                 state_dict = {
-                    k: v.detach().to("cpu").contiguous()
+                    k: v.detach().to("cpu", copy=True).contiguous()
                     for k, v in self.model.get_state_dict_to_save().items()
                 }
             metadata = self.model.get_metadata_to_save()
@@ -348,6 +492,11 @@ class Trainer:
             self.print("Preview done.")
         self.model.after_preview()
 
+    def debug_dataset(self) -> None:
+        self.print("debugging train_dataloader...")
+        for batch in self.train_dataloader:
+            self.print({k: getattr(v, "shape", v) for k, v in batch.items()})
+
     def torch_configuration(self) -> None:
         precision = self.config.trainer.fp32_matmul_precision
         if precision is not None:
@@ -357,17 +506,24 @@ class Trainer:
 
     def train(self) -> None:
         self.before_train()
+        if self.debug_mode == "dataset":
+            return
+
         self.model.sanity_check()
+        if self.debug_mode == "sanity_check":
+            self.print("Sanity check done. Exiting...")
+            return
+
         try:
             self.training_loop()
         finally:
             if self.trackers is not None:
                 self.trackers.finish()
-        if is_schedule_free(self.optimizer_name):
+        values = self._evaluation_values()
+        if values is not None:
             # training is over: the model keeps the evaluation weights
             with torch.no_grad():
-                for key, value in eval_params(self.optimizer_name, self.state.opt_state,
-                                              self.trainable).items():
+                for key, value in values.items():
                     self.trainable[key].copy_(value)
         self.after_train()
 

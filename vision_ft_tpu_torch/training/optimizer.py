@@ -140,6 +140,23 @@ class ScheduleFreeAdamW(torch.optim.Optimizer):
                 state["nu"].copy_(nu)
         self.count += 1
 
+    def state_dict(self) -> dict:
+        """``torch.optim.Optimizer.state_dict()`` with the update count and
+        the averaging weights beside it."""
+        state = super().state_dict()
+        state["schedule_free"] = {
+            "count": self.count, "weight_sum": self.weight_sum, "max_lr": self.max_lr,
+        }
+        return state
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        state_dict = dict(state_dict)
+        extra = state_dict.pop("schedule_free")
+        super().load_state_dict(state_dict)
+        self.count, self.weight_sum, self.max_lr = (
+            extra["count"], extra["weight_sum"], extra["max_lr"]
+        )
+
     @torch.no_grad()
     def eval_param(self, p: torch.Tensor) -> torch.Tensor:
         """x = (y - (1 - b1) z) / b1 of one parameter (y itself before the

@@ -58,23 +58,34 @@ def _microbatch(batch: Any, index: int) -> Any:
     return batch[index] if isinstance(batch, torch.Tensor) and batch.ndim else batch
 
 
+def _check_finite(what: str, value: torch.Tensor) -> None:
+    if not bool(torch.isfinite(value).all()):
+        raise FloatingPointError(f"non-finite {what}: {value.detach().float().cpu().tolist()}")
+
+
 def make_train_step(
     loss_fn: LossFn,
     optimizer: Optimizer,
     mesh=None,
     grad_accum: int = 1,
+    check_finite: bool = False,
 ):
     """Build the train step.
 
     Returns ``step(state, batch, generator) -> (state, metrics)``; metrics
     hold ``train/loss`` and ``train/grad_norm`` (the global norm before
-    clipping) as 0-dim tensors, besides what ``loss_fn`` reports.
+    clipping) as 0-dim tensors, besides what ``loss_fn`` reports. With
+    ``check_finite`` each microbatch's loss and then the gradients' norm
+    are read on the host, and a non-finite one raises
+    ``FloatingPointError`` before the optimizer touches the parameters.
     """
     if mesh is not None:
         raise NotImplementedError("make_train_step(mesh=...) (the sharded step) is not ported")
 
     def grads_of(params, batch, generator):
         loss, metrics = loss_fn(batch, generator)
+        if check_finite:
+            _check_finite("loss", loss)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         return loss.detach(), metrics, grads
@@ -97,6 +108,8 @@ def make_train_step(
         metrics = dict(metrics)
         metrics["train/loss"] = loss
         norm = metrics["train/grad_norm"] = global_norm(grads)
+        if check_finite:
+            _check_finite("gradient norm", norm)
         optimizer.update_(state.opt_state, params, grads, state.step, norm)
         return TrainState(state.trainable, state.opt_state, state.step + 1), metrics
 

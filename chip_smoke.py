@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (vision_ft_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--profile] [--kernel-d] [--kernel-i] [--trace-kernels]
-                          [--ln-probe-costs] [--lumina-trainer]
+                          [--ln-probe-costs] [--lumina-trainer] [--auraflow]
 
 With --profile, phases 6 and 8 also trace two train steps with
 torch.profiler (device activity only) and print the device time of a step
@@ -30,6 +30,10 @@ copy of this script in an older checkout times that checkout's kernels.
 With --lumina-trainer, only phases 0 and 19 and the build of kernels E's,
 F's and G's libraries run, printing the phase's launch counts and numbers
 as one JSON line (no ok line); phase 19 runs it so, in a process of its own.
+With --auraflow, only phases 0, 20 and 21 and the build of kernels B's and
+F's libraries run, printing their launch counts, kernel records and numbers
+as one JSON line (no ok line); the main run runs it so, in a process of its
+own, after phase 19 (with --profile, phase 21 also traces one denoise step).
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -180,6 +184,24 @@ Phases, each printing its own lines; any failure exits non-zero:
     profiler trace's kernels and a depth-reduced step against the plain
     versions; prints ms/step, peak GiB, the checkpoint's and the state
     checkpoint's bytes and seconds and the preview's seconds.
+20. kernel B at head dim 256 (two passes over O's columns) and kernel F at
+    C = 3072, AuraFlow's shapes, in a process of its own (--auraflow): B at
+    the 1024 px request's joint sequence (4360 tokens, with and without CFG),
+    an aligned 4096 and a ragged Sq 1000 / Sk 1300, out and lse against the
+    plain version, reruns bit-identical, one call and a call over 10 back to
+    back beside SDPA's, TFLOP/s and the bound; each instantiation's tiles,
+    stages, passes and shared memory; F, F-up and F-down at the single
+    layers' 8720 rows and the double layers' 8192 and 528, as in phase 11.
+21. AuraFlow generate() at full width and depth in the same process (the
+    default MMDiT: 4 double + 32 single layers, 3072 wide, 12 heads of 256;
+    the default UMT5; the SDXL VAE; bf16, seeded random weights made on the
+    card, the zero-init leaves drawn anew; the synthetic SentencePiece vocab
+    with the T5 template): three 1024 px CFG requests of 20 steps (the third
+    the first again, bit-identical), one with deep_cache_interval=2, one with
+    set_fused_ff("off"); launch counts of kernels B and F against the module
+    tree; one denoise step against the same step on the plain versions;
+    the single-file checkpoint at full width and reduced depth written by
+    state_dict() and read by from_original_checkpoint, bit-identical.
 
 Every kernel's record carries its time, its plain version's, the bound
 (the larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s bf16, or
@@ -196,6 +218,7 @@ import contextlib
 import functools
 import gc
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -516,6 +539,67 @@ def lumina_vocab() -> bytes:
     pieces += [("▁" + w, -1.0 - 0.1 * i, 1) for i, w in enumerate(dict.fromkeys(words))]
     pieces += [(ch, -5.0, 1) for ch in "abcdefghijklmnopqrstuvwxyz▁"]
     return serialize_model(pieces, unk_id=3, bos_id=2, eos_id=1, pad_id=0)
+
+
+MLP_ACTIVATIONS = {"silu": F.silu, "gelu": F.gelu,
+                   "gelu_tanh": lambda t: F.gelu(t, approximate="tanh")}
+
+
+def mlp_case(what, kernel, plain, library, flops, nbytes, library_name):
+    """Errors, reruns and times of one kernel F call (or part) against its
+    plain version, with the one library call that computes the same."""
+    abs_err, rel_err = compare(what, kernel, plain, FUSED_MLP_TOL)
+    if not torch.equal(kernel(), kernel()):
+        raise AssertionError(f"{what}: two launches differ")
+    ms = cuda_ms(kernel, warmup=2, iters=10)
+    plain_ms = cuda_ms(plain, warmup=1, iters=3)
+    library_ms = cuda_ms(library, iters=10)
+    bound_ms, bound_by = bound(nbytes, flops)
+    print(f"{what}: max abs err {abs_err:.3e} rel {rel_err:.3e} (tol {FUSED_MLP_TOL}), reruns "
+          f"bit-identical; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+          f"{plain_ms:.3f} ms, {library_name} {library_ms:.4f} ms (kernel / library "
+          f"{ms / library_ms:.2f}), bound {bound_ms:.4f} ms ({bound_by})")
+    return abs_err, dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=library_ms, tflops=flops / ms / 1e9)
+
+
+def mlp_parts(label, x, wa, wg, wd, ba, bg, bd, act, whole):
+    """F-up, F-down on F-up's own output, then the whole call: (errors, rows)."""
+    from vision_ft_tpu_torch.ops.fused_mlp import (
+        gated_down, gated_down_reference, gated_mlp_reference, gated_up, gated_up_reference,
+    )
+
+    m, c, inner = x.shape[0], x.shape[1], wd.shape[1]
+    act_fn = MLP_ACTIVATIONS[act]
+    nb = lambda *ts: sum(0 if t is None else 2 * t.numel() for t in ts)  # noqa: E731
+    a = gated_up(x, wa, wg, ba, bg, act)
+    up = mlp_case(
+        f"F-up {label}", lambda: gated_up(x, wa, wg, ba, bg, act),
+        lambda: gated_up_reference(x, wa, wg, ba, bg, act),
+        lambda: act_fn(F.linear(x, wa, ba)) * F.linear(x, wg, bg), 4 * m * c * inner,
+        2 * (m * c + 2 * c * inner + m * inner) + nb(ba, bg), "two F.linear + gate")
+    down = mlp_case(
+        f"F-down {label}", lambda: gated_down(a, wd, bd),
+        lambda: gated_down_reference(a, wd, bd), lambda: F.linear(a, wd, bd),
+        2 * m * c * inner, 2 * (m * inner + c * inner + m * c) + nb(bd), "one F.linear")
+    full = mlp_case(
+        f"kernel F {label}", whole,
+        lambda: gated_mlp_reference(x, wa, wg, wd, ba, bg, bd, act),
+        lambda: F.linear(act_fn(F.linear(x, wa, ba)) * F.linear(x, wg, bg), wd, bd),
+        6 * m * c * inner, 2 * (2 * m * c + 3 * c * inner) + nb(ba, bg, bd),
+        "three F.linear + gate")
+    return up, down, full
+
+
+def mlp_tensors(m, c, inner, with_biases, device, gen, fused=False):
+    x = torch.randn(m, c, device=device, generator=gen).bfloat16()
+    up = torch.randn((2 if fused else 1) * inner, c, device=device, generator=gen)
+    wa = (up * c**-0.5).bfloat16()
+    wg = wa if fused else (torch.randn(inner, c, device=device, generator=gen) * c**-0.5).bfloat16()
+    wd = (torch.randn(c, inner, device=device, generator=gen) * inner**-0.5).bfloat16()
+    biases = [(0.1 * torch.randn(n, device=device, generator=gen)).bfloat16() if with_biases
+              else None for n in (wa.shape[0], inner, c)]
+    return x, wa, wg, wd, biases
 
 
 @contextlib.contextmanager
@@ -846,11 +930,13 @@ def trace_kernels(device, gen) -> dict:
     traces = {}
     for label, wrapper, call, kernel in cases:
         call()
-        # the profiler has returned an empty window now and then: up to three tries
+        # the profiler has returned an empty window now and then, and once a window
+        # with one of a kernel's 10 launches (the wrapper counted 10): up to three
+        # tries; run_trace_kernels checks the window kept
         for _ in range(3):
             before = wrapper.launches if wrapper else 0
             kinds, _ = profile_window(lambda: [call() for _ in range(10)])
-            if kinds:
+            if kinds and (kernel is None or 9 <= kinds.get(kernel, (0, 0))[1] <= 10):
                 break
         traces[label] = dict(kinds=kinds, kernel=kernel,
                              counted=wrapper.launches - before if wrapper else None)
@@ -1441,6 +1527,352 @@ def run_lumina_trainer(checkout: Path) -> dict:
     return json.loads(lines[-1])["lumina_trainer"]
 
 
+# AuraFlow (tracked config #3): the joint sequence at 1024 px is 8 register + 256 text +
+# 4096 image tokens. Kernel B's (B, Sq, Sk, H*D, H): the CFG request's (both halves in
+# one call), a request's without CFG, an aligned one, and a ragged one with Sq != Sk
+AURA_ATTN_SHAPES = [(2, 4360, 4360, 3072, 12), (1, 4360, 4360, 3072, 12),
+                    (2, 4096, 4096, 3072, 12), (2, 1000, 1300, 3072, 12)]
+# kernel F's (M, C, inner, act, biases) at 1024 px with CFG: the single layers' 2 x 4360
+# joint tokens, the double layers' latent MLP (2 x 4096) and context MLP (2 x 264)
+AURA_MLP_SHAPES = [(8720, 3072, 8192, "silu", False), (8192, 3072, 8192, "silu", False),
+                   (528, 3072, 8192, "silu", False)]
+AURA_STEPS = 20
+# one full-depth AuraFlow CFG denoise step (4 double + 32 single layers), kernels B and F
+# against their plain versions, bf16, random weights: every layer's few-ulp differences
+# are carried on through both residual streams; relative to the largest value of the
+# guided velocity (and, for the step's latents, to theirs)
+AURA_STEP_TOL = 5e-2
+# the single-file checkpoint's depth: full width, 1 double + 2 single layers, 2 UMT5
+# layers, so that the file stays small
+AURA_CKPT_DEPTH = dict(num_double_layers=1, num_single_layers=2)
+AURA_CKPT_TEXT_LAYERS = 2
+
+
+def auraflow_phase(device, wrappers: dict, profile: bool) -> dict:
+    """Phases 20 and 21, run in a process of its own (``--auraflow``):
+    kernel B at head dim 256 and kernel F at AuraFlow's widths against their
+    plain versions, then AuraFlow generate() at full width and depth, its
+    launch counts, one denoise step against the plain versions and the
+    single-file checkpoint. Returns the launch counts of the requests, the
+    kernels' records at these shapes and the numbers."""
+    from vision_ft_tpu_torch.models.auraflow.config import AuraFlowConig, DenoiserConfig
+    from vision_ft_tpu_torch.models.auraflow.pipeline import AuraFlowModel
+    from vision_ft_tpu_torch.models.text_encoders.sentencepiece import (
+        SentencePieceModel, SentencePieceTokenizer,
+    )
+    from vision_ft_tpu_torch.models.text_encoders.umt5 import UMT5Config
+    from vision_ft_tpu_torch.ops.flash_attention import (
+        flash_attention_bshd, flash_attention_bshd_reference, forward_config,
+    )
+    from vision_ft_tpu_torch.ops.fused_mlp import gated_mlp, set_fused_ff
+    from vision_ft_tpu_torch.utils import safetensors as st
+
+    def reset_launches():
+        for wrapper in wrappers.values():
+            wrapper.launches = 0
+
+    def read_launches():
+        return {name: wrapper.launches for name, wrapper in wrappers.items()}
+
+    def free(model):
+        for part in model._parts().values():
+            part.to("meta")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=device).manual_seed(20)
+    numbers, records = {}, {"flash_attention_bshd": [], "gated_mlp": []}
+
+    phase("20 kernel B at head dim 256 and kernel F at C = 3072, AuraFlow's shapes, vs plain (bf16)")
+    for d in (64, 128, 256):
+        config = forward_config(d)
+        print(f"kernel B at D = {d}: {config['keys']}-key tiles, {config['stages']} stages, "
+              f"{config['passes']} pass(es) over O's columns, Smem::kBytes = {config['smem_bytes']} "
+              "(a block may have 232448)")
+    numbers["kernel_b_d256"] = forward_config(256)
+    # what ptxas made of each instantiation (nvcc -Xptxas -v with the build's flags)
+    from vision_ft_tpu_torch.tools.ptxas_report import ptxas_report
+
+    numbers["kernel_b_ptxas"] = {}
+    for kernel, info in sorted(ptxas_report("flash_attention_bshd").items()):
+        found = re.search(r"flash_fwd_bshd_kernelILi(\d+)E", kernel)
+        if found:
+            numbers["kernel_b_ptxas"][found.group(1)] = info
+            print(f"kernel B at D = {found.group(1)}, ptxas: {info.get('registers')} registers a "
+                  f"thread, {info.get('spill_stores')} bytes of spill stores, "
+                  f"{info.get('spill_loads')} of spill loads, notes {info.get('notes')}")
+    if set(numbers["kernel_b_ptxas"]) != {"64", "128", "256"}:
+        raise AssertionError(f"ptxas reported no kernel B at some head dim: {numbers['kernel_b_ptxas']}")
+    for b, sq, sk, inner, h in AURA_ATTN_SHAPES:
+        q = torch.randn(b, sq, inner, device=device, generator=gen).bfloat16()
+        k, v = (torch.randn(b, sk, inner, device=device, generator=gen).bfloat16() for _ in "kv")
+        what = f"attention B={b} Sq={sq} Sk={sk} H={h} D={inner // h}"
+        out, lse = flash_attention_bshd(q, k, v, h, return_lse=True)
+        ref, ref_lse = flash_attention_bshd_reference(q, k, v, h, return_lse=True)
+        abs_err, rel_err = compare(what, lambda: out, lambda: ref, ATTN_TOL)
+        lse_abs, lse_rel = compare(f"{what} lse", lambda: lse, lambda: ref_lse, ATTN_TOL)
+        assert_reruns(what, lambda: flash_attention_bshd(q, k, v, h, return_lse=True))
+        del out, lse, ref, ref_lse
+        ms = cuda_ms(lambda: flash_attention_bshd(q, k, v, h))
+        back_to_back_ms = burst_ms(lambda: flash_attention_bshd(q, k, v, h))
+        plain_ms = cuda_ms(lambda: flash_attention_bshd_reference(q, k, v, h), warmup=1, iters=3)
+        heads = [sdpa_heads(t, h) for t in (q, k, v)]
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*heads))
+        library_burst_ms = burst_ms(lambda: F.scaled_dot_product_attention(*heads))
+        flops = 4 * b * sq * sk * inner
+        bound_ms, bound_by = bound(2 * (2 * b * sq * inner + 2 * b * sk * inner), flops)
+        print(f"{what}: out max abs err {abs_err:.3e} rel {rel_err:.3e}, lse max abs err "
+              f"{lse_abs:.3e} rel {lse_rel:.3e} (tol {ATTN_TOL}), reruns bit-identical; kernel "
+              f"{ms:.4f} ms one call ({flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of "
+              f"the bound), {back_to_back_ms:.4f} ms a call over 10 back to back "
+              f"({flops / back_to_back_ms / 1e9:.1f} TFLOP/s); plain {plain_ms:.3f} ms; SDPA "
+              f"{library_ms:.4f} ms one call (kernel {ms / library_ms:.2f}x), {library_burst_ms:.4f} "
+              f"back to back; bound {bound_ms:.4f} ms ({bound_by})")
+        records["flash_attention_bshd"].append(dict(
+            shape=[b, sq, sk, inner, h], max_abs_err=abs_err, lse_max_abs_err=lse_abs, ms=ms,
+            burst_ms=back_to_back_ms, tflops=flops / ms / 1e9, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+            library_burst_ms=library_burst_ms))
+        del q, k, v, heads
+    for m, c, inner, act, with_biases in AURA_MLP_SHAPES:
+        x, wa, wg, wd, (ba, bg, bd) = mlp_tensors(m, c, inner, with_biases, device, gen)
+        up, down, full = mlp_parts(
+            f"M={m} C={c} inner={inner} {act}", x, wa, wg, wd, ba, bg, bd, act,
+            lambda: gated_mlp(x, wa, wg, wd, ba, bg, bd, act=act))
+        records["gated_mlp"].append(dict(
+            shape=[m, c, inner], max_abs_err=full[0], **full[1], up_ms=up[1]["ms"],
+            up_max_abs_err=up[0], up_library_ms=up[1]["library_ms"], down_ms=down[1]["ms"],
+            down_max_abs_err=down[0], down_library_ms=down[1]["library_ms"]))
+        del x, wa, wg, wd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("21 AuraFlow generate() at full width and depth, bf16, seeded random weights")
+    tokenizer = SentencePieceTokenizer(SentencePieceModel.from_bytes(lumina_vocab()), template="eos")
+
+    class Model(AuraFlowModel):
+        """Keeps the last latents generate() decoded, for the checks."""
+
+        def decode_image(self, latents):
+            self.last_latents = latents.clone()
+            return super().decode_image(latents)
+
+    def fill_zero_init(model, seed) -> int:
+        """Seeded N(0, 0.02) where the init put zeros (the adaLN projections,
+        final_linear, cond_seq_linear), so that every layer does work."""
+        g = torch.Generator(device=device).manual_seed(seed)
+        filled = 0
+        with torch.no_grad():
+            for p in model.denoiser.parameters():
+                if not p.any():
+                    p.normal_(0.0, 0.02, generator=g)
+                    filled += 1
+        return filled
+
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(AuraFlowConig(checkpoint_path="", dtype="bfloat16"), tokenizer=tokenizer)
+    start = time.perf_counter()
+    model.init_params(torch.Generator(device=device).manual_seed(0))
+    filled = fill_zero_init(model, 1)
+    torch.cuda.synchronize()
+    den = model.denoiser
+    counts = [sum(p.numel() for p in part.parameters())
+              for part in (den, model.text_encoder, model.vae)]
+    n_double, n_single = len(den.double_layers), len(den.single_layers)
+    inner_mlp = den.single_layers["0"]["mlp"]["c_proj"].in_features
+    print(f"init on the card: {time.perf_counter() - start:.1f} s ({filled} zero-init tensors drawn "
+          f"anew); MMDiT {counts[0] / 1e9:.3f} B, UMT5 {counts[1] / 1e9:.3f} B, VAE "
+          f"{counts[2] / 1e6:.1f} M parameters; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"allocated. MMDiT: {n_double} double + {n_single} single layers, width {den.inner_dim}, "
+          f"{den.config.num_attention_heads} heads of {den.config.attention_head_dim}, MLP inner "
+          f"{inner_mlp}")
+
+    def expected(steps, interval=None, cache_depth=None, fused=True):
+        """(kernel B, kernel F) launches of one request, from the module tree
+        and generate()'s DeepCache rule: every layer runs one attention
+        (both CFG halves in one call), a double layer two MLPs, a single one."""
+        shallow = cache_depth if cache_depth is not None else max(1, n_single // 4)
+        attention = mlp = 0
+        have_delta = False
+        for i in range(steps):
+            singles = shallow if interval and i % interval != 0 and have_delta else n_single
+            have_delta = have_delta or bool(interval)
+            attention += n_double + singles
+            mlp += 2 * n_double + singles
+        return attention, mlp if fused else 0
+
+    launches_total = {name: 0 for name in wrappers}
+
+    def request(name, want, **kwargs):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        images = model.generate(**kwargs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        latents, arrays = model.last_latents, [np.asarray(im) for im in images]
+        print(f"request {name}: {len(images)} image(s) {images[0].size}, "
+              f"{kwargs['num_inference_steps']} steps, CFG {kwargs['cfg_scale']}, {seconds:.3f} s, "
+              f"peak {peak:.2f} GiB; launches kernel B {launches['flash_attention_bshd']}, kernel F "
+              f"{launches['gated_mlp']} (each one F-up and one F-down launch), expected {want}")
+        if not torch.isfinite(latents).all() or any(a.std() == 0 for a in arrays):
+            raise AssertionError(f"request {name}: latents not finite, or a constant image")
+        if images[0].size != (kwargs["width"], kwargs["height"]) or latents.shape[1:] != (
+                kwargs["height"] // 8, kwargs["width"] // 8, 4):
+            raise AssertionError(f"request {name}: wrong size {images[0].size}, {latents.shape}")
+        counts = {name: 0 for name in wrappers}
+        counts.update(flash_attention_bshd=want[0], gated_mlp=want[1])
+        if launches != counts:
+            raise AssertionError(f"request {name}: launch counts {launches} != {counts}")
+        for kernel, n in launches.items():
+            launches_total[kernel] += n
+        return seconds, latents, arrays, peak
+
+    base = dict(prompt="a photo of a cat sitting on the sofa", negative_prompt="blurry",
+                width=1024, height=1024, cfg_scale=3.5, seed=1234, num_inference_steps=AURA_STEPS)
+    runs = {}
+    for name, kwargs in (("1 (cold)", base),
+                         ("2", dict(base, prompt="a red car on the road in the mountains", seed=99)),
+                         ("3 (= 1, warm)", base)):
+        runs[name] = request(name, expected(AURA_STEPS), **kwargs)
+    if not (torch.equal(runs["1 (cold)"][1], runs["3 (= 1, warm)"][1])
+            and all(np.array_equal(x, y) for x, y in zip(runs["1 (cold)"][2], runs["3 (= 1, warm)"][2]))):
+        raise AssertionError("request 3 (request 1 repeated, same seed) differs from it")
+    seconds = [run[0] for run in runs.values()]
+    numbers.update(first_request_s=seconds[0], warm_request_s=seconds[1:],
+                   peak_gib=max(run[3] for run in runs.values()))
+    print(f"s/request: {seconds[0]:.3f} cold (the first), {seconds[1]:.3f} and {seconds[2]:.3f} warm; "
+          f"peak {numbers['peak_gib']:.2f} GiB; request 3 == request 1, bit for bit")
+    cached = request("4 (deep_cache_interval 2)", expected(AURA_STEPS, interval=2),
+                     **dict(base, deep_cache_interval=2))
+    if torch.equal(cached[1], runs["1 (cold)"][1]):
+        raise AssertionError("the DeepCache request equals request 1: the option did nothing")
+    numbers["deep_cache_request_s"] = cached[0]
+    set_fused_ff("off")
+    try:
+        off = request('5 (= 1, set_fused_ff("off"))', expected(AURA_STEPS, fused=False), **base)
+    finally:
+        set_fused_ff("auto")
+    numbers["fused_ff_off_request_s"] = off[0]
+    scale = runs["1 (cold)"][1].float().abs().max().item()
+    drift = (off[1].float() - runs["1 (cold)"][1].float()).abs().max().item() / scale
+    print(f"DeepCache request {cached[0]:.3f} s; with the fused feed-forward off {off[0]:.3f} s, its "
+          f"latents {drift:.3e} of their largest value from request 1's (tol {ROUTE_REQUEST_TOL})")
+    if drift > ROUTE_REQUEST_TOL:
+        raise AssertionError('the "auto" request and the "off" request disagree')
+
+    # one CFG denoise step at 1024 px, the kernels against their plain versions
+    g21 = torch.Generator(device=device).manual_seed(21)
+    step_latents = torch.randn(1, 128, 128, 4, device=device, generator=g21).bfloat16()
+    _, sigmas = model.scheduler.schedule_tables(AURA_STEPS)
+
+    def encode(m):
+        with torch.inference_mode():
+            out = m.text_encoder.encode_prompts("a photo of a cat", "blurry", use_negative_prompts=True)
+            return torch.cat([out.positive_embeddings, out.negative_embeddings]).to(m.dtype)
+
+    def denoise_step(m, embeddings):
+        with torch.inference_mode():
+            return m._denoise_step(step_latents, sigmas[3], sigmas[4], embeddings, 3.5, do_cfg=True)
+
+    def velocity(m, embeddings):
+        timestep = torch.full((2,), float(np.float32(sigmas[3])), device=device).bfloat16()
+        with torch.inference_mode():
+            v = m.denoiser(torch.cat([step_latents, step_latents]), embeddings, timestep).float()
+        positive, negative = v.chunk(2)
+        return negative + 3.5 * (positive - negative)
+
+    embeddings = encode(model)
+    step_ms = cuda_ms(lambda: denoise_step(model, embeddings), warmup=1, iters=5)
+    reset_launches()
+    kernel_step, kernel_velocity = denoise_step(model, embeddings), velocity(model, embeddings)
+    step_launches = read_launches()
+    with plain_versions():
+        plain_step, plain_velocity = denoise_step(model, embeddings), velocity(model, embeddings)
+    errors = {}
+    for what, got, want in (("velocity", kernel_velocity, plain_velocity),
+                            ("latents", kernel_step, plain_step)):
+        errors[what] = (got.float() - want.float()).abs().max().item() / want.float().abs().max().item()
+    numbers.update(step_ms=step_ms, step_velocity_err=errors["velocity"],
+                   step_latents_err=errors["latents"])
+    print(f"one CFG denoise step at 1024 px (batch 2, 4360 joint tokens): {step_ms:.1f} ms; "
+          f"launches (step + velocity) kernel B {step_launches['flash_attention_bshd']}, kernel F "
+          f"{step_launches['gated_mlp']}; against the plain versions of B and F: guided velocity "
+          f"{errors['velocity']:.3e}, the step's latents {errors['latents']:.3e} of their largest "
+          f"value (tol {AURA_STEP_TOL})")
+    if step_launches["flash_attention_bshd"] != 2 * (n_double + n_single) or (
+            step_launches["gated_mlp"] != 2 * (2 * n_double + n_single)):
+        raise AssertionError(f"the denoise step's launches {step_launches}")
+    if max(errors.values()) > AURA_STEP_TOL:
+        raise AssertionError("the kernels' denoise step and the plain one disagree")
+    del kernel_step, kernel_velocity, plain_step, plain_velocity
+    if profile:
+        kinds = profile_steps(lambda: denoise_step(model, embeddings), step_ms, "AuraFlow denoise step")
+        print_kernel_ms(kinds, ("kernel B", "kernel F up", "kernel F down"), "AuraFlow denoise step")
+        numbers["traced_step"] = {kind: [round(ms, 4), n] for kind, (ms, n) in kinds.items()}
+    free(model)
+    del model, embeddings
+
+    # the single-file checkpoint at full width, reduced depth
+    text_config = UMT5Config(num_layers=AURA_CKPT_TEXT_LAYERS)
+    small = Model(AuraFlowConig(checkpoint_path="", dtype="bfloat16",
+                                denoiser=DenoiserConfig(**AURA_CKPT_DEPTH)),
+                  tokenizer=tokenizer, text_encoder_config=text_config)
+    small.init_params(torch.Generator(device=device).manual_seed(2))
+    fill_zero_init(small, 3)
+    embeddings = encode(small)
+    before = denoise_step(small, embeddings)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_auraflow_"))
+    try:
+        path = work / "auraflow.safetensors"
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        st.save_file(small.state_dict(), path)
+        numbers["checkpoint_write_s"] = time.perf_counter() - start
+        numbers["checkpoint_bytes"] = path.stat().st_size
+        start = time.perf_counter()
+        loaded = Model.from_original_checkpoint(
+            AuraFlowConig(checkpoint_path=str(path), dtype="bfloat16",
+                          denoiser=DenoiserConfig(**AURA_CKPT_DEPTH)),
+            tokenizer=tokenizer, text_encoder_config=text_config)
+        torch.cuda.synchronize()
+        numbers["checkpoint_load_s"] = time.perf_counter() - start
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    written, read = small.state_dict(), loaded.state_dict()
+    if set(written) != set(read) or not all(torch.equal(written[k], read[k]) for k in written):
+        raise AssertionError("the checkpoint loaded back differs from the model written")
+    after = denoise_step(loaded, encode(loaded))
+    if not torch.equal(before, after):
+        raise AssertionError("the loaded checkpoint's denoise step differs from the written model's")
+    print(f"single-file checkpoint (full width; {AURA_CKPT_DEPTH['num_double_layers']} double + "
+          f"{AURA_CKPT_DEPTH['num_single_layers']} single layers, {AURA_CKPT_TEXT_LAYERS} UMT5 "
+          f"layers): {numbers['checkpoint_bytes']} bytes, written by state_dict() in "
+          f"{numbers['checkpoint_write_s']:.2f} s, loaded by from_original_checkpoint in "
+          f"{numbers['checkpoint_load_s']:.2f} s; every tensor and the denoise step bit-identical")
+    free(small)
+    free(loaded)
+    return {"launches": launches_total, "records": records, "numbers": numbers}
+
+
+def run_auraflow(checkout: Path, profile: bool) -> dict:
+    """``chip_smoke.py --auraflow`` in a process of its own (a fresh card):
+    its lines, then its launch counts, records and numbers."""
+    proc = subprocess.run(
+        [sys.executable, str(checkout / "chip_smoke.py"), "--auraflow",
+         *(["--profile"] if profile else [])],
+        cwd=checkout, capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]))
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"chip_smoke.py --auraflow failed (exit {proc.returncode}): "
+                             f"{proc.stderr[-4000:]}")
+    return json.loads(lines[-1])["auraflow"]
+
+
 def main() -> None:
     args = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     args.add_argument("--profile", action="store_true",
@@ -1459,6 +1891,11 @@ def main() -> None:
     args.add_argument("--lumina-trainer", action="store_true",
                       help="run phase 19 alone (the Lumina2 Trainer path) after building its "
                            "libraries; prints its launch counts and numbers as one JSON line, not "
+                           "the ok line")
+    args.add_argument("--auraflow", action="store_true",
+                      help="run phases 20 and 21 alone (kernels B at D 256 and F at AuraFlow's "
+                           "widths, then AuraFlow generate()) after building their libraries; "
+                           "prints their launch counts, records and numbers as one JSON line, not "
                            "the ok line")
     args.add_argument("--ln-probe-costs", action="store_true",
                       help="time kernels A and L and their library calls (one call, back to "
@@ -1557,6 +1994,13 @@ def main() -> None:
               "checkpoints, profiler window, preview")
         result = lumina_trainer_phase(device, wrappers, checkout)
         print(json.dumps({"lumina_trainer": result}))
+        return
+
+    if options.auraflow:
+        phase("1 build (kernels B's and F's libraries only)")
+        _build.build_cuda_libraries(["flash_attention_bshd", "fused_mlp"])
+        result = auraflow_phase(device, wrappers, options.profile)
+        print(json.dumps({"auraflow": result}))
         return
 
     if options.kernel_d:
@@ -2296,67 +2740,14 @@ def main() -> None:
     del q, k, v, out
 
     phase("11 kernel F: fused gated MLP, its parts F-up and F-down, vs plain (bf16)")
-    activations = {"silu": F.silu, "gelu": F.gelu,
-                   "gelu_tanh": lambda t: F.gelu(t, approximate="tanh")}
-
-    def mlp_case(what, kernel, plain, library, flops, nbytes, library_name):
-        """Errors, reruns and times of one kernel F call (or part) against its
-        plain version, with the one library call that computes the same."""
-        abs_err, rel_err = compare(what, kernel, plain, FUSED_MLP_TOL)
-        if not torch.equal(kernel(), kernel()):
-            raise AssertionError(f"{what}: two launches differ")
-        ms = cuda_ms(kernel, warmup=2, iters=10)
-        plain_ms = cuda_ms(plain, warmup=1, iters=3)
-        library_ms = cuda_ms(library, iters=10)
-        bound_ms, bound_by = bound(nbytes, flops)
-        print(f"{what}: max abs err {abs_err:.3e} rel {rel_err:.3e} (tol {FUSED_MLP_TOL}), reruns "
-              f"bit-identical; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
-              f"{plain_ms:.3f} ms, {library_name} {library_ms:.4f} ms (kernel / library "
-              f"{ms / library_ms:.2f}), bound {bound_ms:.4f} ms ({bound_by})")
-        return abs_err, dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                             library_ms=library_ms, tflops=flops / ms / 1e9)
-
-    def mlp_parts(label, x, wa, wg, wd, ba, bg, bd, act, whole):
-        """F-up, F-down on F-up's own output, then the whole call: (errors, rows)."""
-        m, c, inner = x.shape[0], x.shape[1], wd.shape[1]
-        act_fn = activations[act]
-        nb = lambda *ts: sum(0 if t is None else 2 * t.numel() for t in ts)  # noqa: E731
-        a = gated_up(x, wa, wg, ba, bg, act)
-        up = mlp_case(
-            f"F-up {label}", lambda: gated_up(x, wa, wg, ba, bg, act),
-            lambda: gated_up_reference(x, wa, wg, ba, bg, act),
-            lambda: act_fn(F.linear(x, wa, ba)) * F.linear(x, wg, bg), 4 * m * c * inner,
-            2 * (m * c + 2 * c * inner + m * inner) + nb(ba, bg), "two F.linear + gate")
-        down = mlp_case(
-            f"F-down {label}", lambda: gated_down(a, wd, bd),
-            lambda: gated_down_reference(a, wd, bd), lambda: F.linear(a, wd, bd),
-            2 * m * c * inner, 2 * (m * inner + c * inner + m * c) + nb(bd), "one F.linear")
-        full = mlp_case(
-            f"kernel F {label}", whole,
-            lambda: gated_mlp_reference(x, wa, wg, wd, ba, bg, bd, act),
-            lambda: F.linear(act_fn(F.linear(x, wa, ba)) * F.linear(x, wg, bg), wd, bd),
-            6 * m * c * inner, 2 * (2 * m * c + 3 * c * inner) + nb(ba, bg, bd),
-            "three F.linear + gate")
-        return up, down, full
-
-    def mlp_tensors(m, c, inner, with_biases, fused=False):
-        x = torch.randn(m, c, device=device, generator=gen).bfloat16()
-        up = torch.randn((2 if fused else 1) * inner, c, device=device, generator=gen)
-        wa = (up * c**-0.5).bfloat16()
-        wg = wa if fused else (torch.randn(inner, c, device=device, generator=gen) * c**-0.5).bfloat16()
-        wd = (torch.randn(c, inner, device=device, generator=gen) * inner**-0.5).bfloat16()
-        biases = [(0.1 * torch.randn(n, device=device, generator=gen)).bfloat16() if with_biases
-                  else None for n in (wa.shape[0], inner, c)]
-        return x, wa, wg, wd, biases
-
     results = []
     for m, c, inner, act, with_biases in FUSED_MLP_SHAPES:
-        x, wa, wg, wd, (ba, bg, bd) = mlp_tensors(m, c, inner, with_biases)
+        x, wa, wg, wd, (ba, bg, bd) = mlp_tensors(m, c, inner, with_biases, device, gen)
         results.append(mlp_parts(
             f"M={m} C={c} inner={inner} {act} biases={with_biases}", x, wa, wg, wd, ba, bg, bd,
             act, lambda: gated_mlp(x, wa, wg, wd, ba, bg, bd, act=act)))
     m, c, inner = GEGLU_SHAPE
-    x, w1, _, w2, (b1, _, b2) = mlp_tensors(m, c, inner, True, fused=True)
+    x, w1, _, w2, (b1, _, b2) = mlp_tensors(m, c, inner, True, device, gen, fused=True)
     results.append(mlp_parts(
         f"GeGLU M={m} C={c} inner={inner} (one fused up-projection, read by halves)", x,
         w1[inner:], w1[:inner], w2, b1[inner:], b1[:inner], b2, "gelu_tanh",
@@ -3342,6 +3733,12 @@ def main() -> None:
     card_numbers = ", ".join(f"{k} {v}" for k, v in lumina_trainer["numbers"].items())
     print(f"phase 19 on {card}: {card_numbers}")
 
+    phase("20-21 kernels B at head dim 256 and F at AuraFlow's widths; AuraFlow generate() at "
+          "full width and depth (a process of its own)")
+    auraflow = run_auraflow(checkout, options.profile)
+    card_numbers = ", ".join(f"{k} {v}" for k, v in auraflow["numbers"].items())
+    print(f"phases 20-21 on {card}: {card_numbers}")
+
     kernels = []
     for name, record in records.items():
         launches = {"generate": generate_launches[name], "train": train_launches[name],
@@ -3352,7 +3749,8 @@ def main() -> None:
                     "sdxl_fused_ff_generate": route_launches["gated_mlp"][name],
                     "trainer": trainer_launches[name],
                     "lumina2_trainer": lumina_trainer["launches"][name],
-                    "ops_resnet_body_and_probe": ops_launches[name]}
+                    "ops_resnet_body_and_probe": ops_launches[name],
+                    "auraflow_generate": auraflow["launches"][name]}
         kernels.append({
             "name": name,
             **{k: record[k] for k in ("route", "source", "replaces")},
@@ -3360,6 +3758,7 @@ def main() -> None:
             **{k: record[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                       "library_ms")},
             **{k: record[k] for k in ("parts", *COST_KEYS) if k in record},
+            **({"auraflow_shapes": auraflow["records"][name]} if name in auraflow["records"] else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

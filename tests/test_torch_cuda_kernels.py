@@ -105,6 +105,9 @@ BF16_GN_TOL, FP32_GN_TOL, BF16_CONV_TOL = 2e-2, 1e-5, 2e-2
         (2, 333, 200, 3, 64),     # ragged sk < sq: keys past sk in the one 128-key tile
         (2, 520, 1000, 2, 128),   # the other head dim, ragged 64-key tiles
         (1, 129, 129, 2, 64),     # one row in the last 128-row q tile, one key in the last key tile
+        (2, 4360, 4360, 12, 256),  # AuraFlow's joint sequence at 1024 px, CFG: two passes over O
+        (1, 300, 520, 2, 256),    # D 256, ragged, sq != sk
+        (1, 129, 129, 2, 256),
     ],
 )
 def test_bshd_kernel_matches_plain_on_card(cuda, b, s, sk, h, d):
@@ -124,7 +127,7 @@ def test_bshd_kernel_matches_plain_on_card(cuda, b, s, sk, h, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_bshd_kernel_takes_strided_views_on_card(cuda, d):
     """q, k and v as column slices of one wider (B, S, 3 H*D) tensor, its
     batches padded apart: rows 3 H*D apart, read in place through the
@@ -143,7 +146,9 @@ def test_bshd_kernel_takes_strided_views_on_card(cuda, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,sk,h,d", [(2, 4096, 4096, 10, 64), (1, 300, 520, 2, 128)])
+@pytest.mark.parametrize(
+    "b,s,sk,h,d", [(2, 4096, 4096, 10, 64), (1, 300, 520, 2, 128), (2, 1000, 1300, 12, 256)]
+)
 def test_bshd_kernel_reruns_bit_identical_on_card(cuda, b, s, sk, h, d):
     """A fixed order of sums: a rerun gives the same bits, out and lse."""
     g = torch.Generator(device=cuda).manual_seed(7)
@@ -308,6 +313,28 @@ def test_bshd_autograd_runs_the_kernels_on_card(cuda):
     for x, y in zip(got, want):
         err = (x.float() - y.float()).abs().max().item()
         assert err <= BF16_ATTN_BWD_TOL * y.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_bshd_backward_at_head_dim_256_raises_on_card(cuda):
+    """The forward kernel takes D 256 and launches; its backward has no
+    kernel yet and raises, with no plain fallback on the card, whether
+    asked directly or through autograd."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = (torch.randn(1, 300, 512, device=cuda, generator=g).bfloat16().requires_grad_()
+               for _ in range(3))
+    before = flash_attention_bshd.launches, flash_attention_bshd_dkv.launches
+    out = flash_attention_bshd(q, k, v, 2)
+    assert flash_attention_bshd.launches == before[0] + 1
+    with pytest.raises(NotImplementedError, match="queue 2, item 1"):
+        torch.autograd.grad(out.float().sum(), (q, k, v))
+    with torch.no_grad():
+        out, lse = flash_attention_bshd(q, k, v, 2, return_lse=True)
+        with pytest.raises(NotImplementedError, match="head dim 256"):
+            flash_attention_bshd_backward(q, k, v, out, lse, torch.ones_like(out), 2)
+        with pytest.raises(ValueError, match="backward kernels take"):
+            flash_attention_bshd_dkv(q, k, v, out, lse, lse, 2)
+    assert flash_attention_bshd_dkv.launches == before[1]
 
 
 @pytest.mark.cuda

@@ -30,6 +30,7 @@ from vision_ft_tpu_torch.ops.flash_attention import (
     flash_attention_masked,
     flash_attention_reference,
     supports,
+    supports_backward,
 )
 
 # fp32 attention on the CPU: the Pallas interpret run takes an online
@@ -238,8 +239,10 @@ def test_head_dims_per_kernel():
         # a CPU tensor is refused either way: for its head dim first, else for where it lies
         with pytest.raises(ValueError, match="bf16 on" if d in MASKED_HEAD_DIMS else "head dims"):
             _check_masked(q, q, q, None)
-    assert [d for d in (32, 48, 64, 96, 128, 256) if supports(4, d)] == [64, 128]
-    assert flash_module.BSHD_HEAD_DIMS == (64, 128) and MASKED_HEAD_DIMS == (64, 96, 128)
+    assert [d for d in (32, 48, 64, 96, 128, 256) if supports(4, d)] == [64, 128, 256]
+    assert [d for d in (32, 48, 64, 96, 128, 256) if supports_backward(4, d)] == [64, 128]
+    assert flash_module.BSHD_FWD_HEAD_DIMS == (64, 128, 256)
+    assert flash_module.BSHD_BWD_HEAD_DIMS == (64, 128) and MASKED_HEAD_DIMS == (64, 96, 128)
 
 
 @pytest.mark.parametrize(

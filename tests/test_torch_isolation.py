@@ -38,9 +38,9 @@ def test_port_imports_without_jax():
     proc = _run(["-c", IMPORT_ALL], REPO)
     assert proc.returncode == 0, proc.stderr
     # every module of the SDXL generate, train and quantization slices, of the Lumina2
-    # generate and train slices, of the SDXL Trainer slice, and the GroupNorm and 3x3
-    # conv ops with the ragged-tile probe tool
-    assert int(proc.stdout.strip()) >= 95
+    # generate and train slices, of the SDXL Trainer slice, of the AuraFlow generate
+    # slice, and the GroupNorm and 3x3 conv ops with the ragged-tile probe tool
+    assert int(proc.stdout.strip()) >= 111
 
 
 PORT_SOURCES = sorted((REPO / "vision_ft_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -53,6 +53,14 @@ LUMINA2_MODULES = [
     "modules/loss/flow_match.py", "models/autoencoder/kl.py",
     "ops/flash_attention.py", "train/lumina2/text_to_image.py", "trainer/common.py",
     "training/state_checkpoint.py",
+]
+# the AuraFlow generate slice: the MMDiT, UMT5, RoPE, the pipeline and its parts
+AURAFLOW_MODULES = [
+    "models/text_encoders/umt5.py", "modules/positional_encoding/__init__.py",
+    "modules/positional_encoding/rope.py", "models/auraflow/__init__.py",
+    "models/auraflow/config.py", "models/auraflow/util.py", "models/auraflow/vae.py",
+    "models/auraflow/scheduler.py", "models/auraflow/text_encoder.py",
+    "models/auraflow/denoiser.py", "models/auraflow/pipeline.py", "tools/ptxas_report.py",
 ]
 # the modules of the last three kernels: the GroupNorm and 3x3 conv ops (their
 # kernels are CUDA C++ sources) and the ragged-tile probe
@@ -75,13 +83,13 @@ def test_no_source_of_the_port_imports_jax_or_the_jax_package():
     """Every import statement of the port and of chip_smoke.py, also those
     inside functions, which importing the modules would not run."""
     assert all((REPO / "vision_ft_tpu_torch" / name) in PORT_SOURCES
-               for name in LUMINA2_MODULES + OPS_SOURCES)
+               for name in LUMINA2_MODULES + AURAFLOW_MODULES + OPS_SOURCES)
     for path in PORT_SOURCES:
         bad = _imported_roots(path) & {"jax", "jaxlib", "flax", "optax", "vision_ft_tpu"}
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
 
 
-@pytest.mark.parametrize("name", LUMINA2_MODULES + OPS_SOURCES)
+@pytest.mark.parametrize("name", LUMINA2_MODULES + AURAFLOW_MODULES + OPS_SOURCES)
 def test_lumina2_module_reads_no_environment_variable(name):
     """The JAX package's VFT_* levers are setters in the port."""
     text = (REPO / "vision_ft_tpu_torch" / name).read_text()

@@ -62,6 +62,7 @@ def _rand(seed, shape, dtype=np.float32):
         (2, 300, 300, 4, 64),   # ragged self-attention lengths
         (1, 260, 390, 2, 64),   # ragged, sq != sk
         (1, 256, 256, 2, 128),  # the kernel's other head dim
+        (1, 256, 256, 2, 256),  # AuraFlow's head dim (the forward kernel only)
     ],
 )
 def test_bshd_plain_matches_jax_kernel(b, sq, sk, h, d):
@@ -178,6 +179,54 @@ def test_bshd_lse_on_the_cpu():
     torch.testing.assert_close(lse, torch.logsumexp(scores, -1), atol=1e-5, rtol=1e-5)
     dq, dk, dv = flash_attention_bshd_backward(q, k, v, out, lse, torch.ones_like(out), 2)
     assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
+
+
+def test_bshd_head_dim_sets():
+    """The forward kernel takes D 256, the backward kernels do not: on the
+    card such a backward raises NotImplementedError (tests/
+    test_torch_cuda_kernels.py); here the checks refuse D 256 for the
+    backward by its head dim, before the tensors' device, and the CPU's
+    plain backward takes any head dim."""
+    assert flash_module.supports(12, 256) and not flash_module.supports_backward(12, 256)
+    assert all(flash_module.supports_backward(4, d) for d in (64, 128))
+    q = torch.zeros(1, 256, 512)
+    with pytest.raises(ValueError, match="backward kernels take head dims"):
+        flash_module._check(q, q, q, 2, backward=True)
+    with pytest.raises(ValueError, match="bf16 on"):  # the forward takes D 256: refused for the CPU
+        flash_module._check(q, q, q, 2)
+    leaves = [torch.from_numpy(_rand(i, (1, 40, 512))).requires_grad_() for i in range(3)]
+    grads = torch.autograd.grad(flash_attention_bshd(*leaves, 2).sum(), leaves)
+    want = torch.autograd.grad(flash_attention_bshd_reference(*leaves, 2).sum(), leaves)
+    for got, ref in zip(grads, want):
+        torch.testing.assert_close(got, ref, atol=FP32_TOL, rtol=FP32_TOL)
+
+
+PTXAS_SAMPLE = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : (C7520) Potential Performance Loss: wgmma.mma_async instructions are serialized due to program dependence on compiler-inserted WG.AR in divergent path in the function '_Z6kernelILi256EEv'
+ptxas info    : Compiling entry function '_Z6kernelILi256EEv' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelILi256EEv
+    384 bytes stack frame, 852 bytes spill stores, 684 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 384 bytes cumulative stack size
+ptxas info    : Compile time = 286.359 ms
+ptxas info    : Compiling entry function '_Z6kernelILi64EEv' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelILi64EEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+"""
+
+
+def test_ptxas_report_parses_nvcc_output():
+    """The report's parser on nvcc -Xptxas -v's format (an illustrative
+    sample: two kernels, one spilling with a serialization note)."""
+    from vision_ft_tpu_torch.tools.ptxas_report import main, parse
+
+    assert parse(PTXAS_SAMPLE) == {
+        "_Z6kernelILi256EEv": dict(notes=["C7520"], stack=384, spill_stores=852, spill_loads=684,
+                                   registers=168),
+        "_Z6kernelILi64EEv": dict(notes=[], stack=0, spill_stores=0, spill_loads=0, registers=168),
+    }
+    assert main([]) == 2
 
 
 @pytest.mark.parametrize("mode,forwards", [("kernel", 1), ("none", 2)])

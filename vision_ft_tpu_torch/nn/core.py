@@ -619,13 +619,19 @@ _LEAVES = (Linear, Conv2d, LayerNorm, RMSNorm, GroupNorm, Embedding)
 def init_parameters_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random init in place, on the device and in the dtype the module's
     parameters already have. Every parameter of the port belongs to one
-    of the leaf layers above; a parameter that does not is an error.
-    Adapters on a layer and quantized weights are left as they are."""
+    of the leaf layers above, or is held by a module that draws its own
+    (a ``reset_parameters(generator)`` method for the parameters it holds
+    itself, such as a learned positional table); a parameter that does not
+    is an error. Adapters on a layer and quantized weights are left as they
+    are."""
     covered = set()
     for m in module.modules():
         if isinstance(m, _LEAVES):
             m.reset_parameters(generator)
             covered.update(id(p) for p in m.parameters(recurse=True))
+        elif callable(getattr(m, "reset_parameters", None)):
+            m.reset_parameters(generator)
+            covered.update(id(p) for p in m.parameters(recurse=False))
     stray = [n for n, p in module.named_parameters() if id(p) not in covered]
     if stray:
         raise TypeError(f"parameters outside the port's leaf layers: {stray[:5]}")

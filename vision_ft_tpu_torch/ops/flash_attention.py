@@ -5,10 +5,12 @@ kernels' entries) and ``vision_ft_tpu/ops/flash_attention.py`` (the
 routing). The kernels are CUDA C++, built for ``sm_90a`` by
 ``ops/_build.py`` and bound with ``ctypes``:
 
-- ``csrc/flash_attention_bshd.cu`` (forward) and
-  ``csrc/flash_attention_bshd_bwd.cu`` (backward: a dk/dv kernel and a dq
-  kernel) over heads-packed tensors, head dims 64 and 128, no mask: the
-  JAX ``flash_attention_bshd`` and its custom VJP;
+- ``csrc/flash_attention_bshd.cu`` (forward, head dims 64, 128 and 256)
+  and ``csrc/flash_attention_bshd_bwd.cu`` (backward: a dk/dv kernel and a
+  dq kernel, head dims 64 and 128) over heads-packed tensors, no mask: the
+  JAX ``flash_attention_bshd`` and its custom VJP. On the card a backward
+  at a head dim the backward kernels do not take raises
+  ``NotImplementedError``;
 - ``csrc/flash_attention_masked.cu`` (forward) and
   ``csrc/flash_attention_masked_bwd.cu`` (backward: a dk/dv kernel that
   sums over the query heads of each kv head, and a dq kernel) over
@@ -76,7 +78,8 @@ import torch
 from . import _build
 
 # head dims each kernel is built for
-BSHD_HEAD_DIMS = (64, 128)        # forward and backward over heads-packed tensors
+BSHD_FWD_HEAD_DIMS = (64, 128, 256)  # forward over heads-packed tensors
+BSHD_BWD_HEAD_DIMS = (64, 128)       # backward over heads-packed tensors
 MASKED_HEAD_DIMS = (64, 96, 128)  # key-masked forward over (B, H, S, D)
 SHORTK_HEAD_DIMS = (64, 128)      # short-K forward and backward over (B, H, S, D)
 SHORTK_MAX = 192  # the most keys the short-K kernels hold on chip, as in the JAX package
@@ -171,18 +174,40 @@ def _backward_kernels():
 
 
 def supports(num_heads: int, head_dim: int) -> bool:
-    """Whether the BSHD kernels (forward and backward) take this head layout."""
-    return num_heads > 0 and head_dim in BSHD_HEAD_DIMS
+    """Whether the BSHD forward kernel takes this head layout."""
+    return num_heads > 0 and head_dim in BSHD_FWD_HEAD_DIMS
 
 
-def _check(q, k, v, num_heads, **more) -> int:
-    """Raise on what the kernels do not take; ``more`` are further bf16
-    tensors of q's shape (out, dout). Returns the head dim."""
+def supports_backward(num_heads: int, head_dim: int) -> bool:
+    """Whether the BSHD backward kernels take this head layout."""
+    return num_heads > 0 and head_dim in BSHD_BWD_HEAD_DIMS
+
+
+@functools.cache
+def forward_config(head_dim: int) -> dict:
+    """The forward kernel's launch shape at ``head_dim``, as its library
+    reports it: keys a tile, ring stages, passes over the output's columns
+    and dynamic shared-memory bytes."""
+    fn = _build.cuda_library("flash_attention_bshd").flash_attention_bshd_fwd_config
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    err = fn(head_dim, out)
+    if err != 0:
+        raise ValueError(f"flash_attention_bshd kernel has no head dim {head_dim}: CUDA error {err}")
+    return dict(zip(("keys", "stages", "passes", "smem_bytes"), out))
+
+
+def _check(q, k, v, num_heads, backward=False, **more) -> int:
+    """Raise on what the kernels do not take (the backward kernels' head
+    dims where ``backward``); ``more`` are further bf16 tensors of q's
+    shape (out, dout). Returns the head dim."""
     b, sq, inner = q.shape
-    if inner % num_heads or not supports(num_heads, inner // num_heads):
+    dims = BSHD_BWD_HEAD_DIMS if backward else BSHD_FWD_HEAD_DIMS
+    if inner % num_heads or not (supports_backward if backward else supports)(
+            num_heads, inner // num_heads):
         raise ValueError(
-            f"flash_attention_bshd kernel takes head dims {BSHD_HEAD_DIMS}, "
-            f"got {inner} columns over {num_heads} heads"
+            f"flash_attention_bshd {'backward kernels take' if backward else 'kernel takes'} "
+            f"head dims {dims}, got {inner} columns over {num_heads} heads"
         )
     for name, t in (("q", q), ("k", k), ("v", v), *more.items()):
         if not t.is_cuda or t.device != q.device or t.dtype != torch.bfloat16:
@@ -247,7 +272,7 @@ def _check_row_stats(want: tuple, device: torch.device, **stats) -> None:
 
 
 def _check_backward(q, k, v, dout, lse, delta, num_heads) -> int:
-    d = _check(q, k, v, num_heads, dout=dout)
+    d = _check(q, k, v, num_heads, backward=True, dout=dout)
     _check_row_stats((q.shape[0], num_heads, q.shape[1]), q.device, lse=lse, delta=delta)
     return d
 
@@ -307,10 +332,17 @@ def flash_attention_bshd_backward(
 ):
     """(dq, dk, dv) of :func:`flash_attention_bshd` from its inputs, its
     output, its lse and the output's gradient (any layout: it is made
-    contiguous here)."""
+    contiguous here). On the card a head dim the backward kernels do not
+    take (256) raises ``NotImplementedError``: it has no plain fallback."""
     dout = dout.contiguous()
     if q.is_cuda:
-        _check(q, k, v, num_heads, out=out, dout=dout)
+        d = q.shape[-1] // num_heads
+        if d in BSHD_FWD_HEAD_DIMS and d not in BSHD_BWD_HEAD_DIMS:
+            raise NotImplementedError(
+                f"the BSHD flash attention backward at head dim {d} is not ported yet "
+                "(ROADMAP.md queue 2, item 1: TPU kernel #3 at head dim 256)"
+            )
+        _check(q, k, v, num_heads, backward=True, out=out, dout=dout)
     delta = flash_attention_bshd_delta(out, dout, num_heads)
     dk, dv = flash_attention_bshd_dkv(q, k, v, dout, lse, delta, num_heads, scale)
     dq = flash_attention_bshd_dq(q, k, v, dout, lse, delta, num_heads, scale)

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--profile] [--kernel-d] [--kernel-i] [--trace-kernels]
                           [--ln-probe-costs] [--lumina-trainer] [--auraflow]
+                          [--auraflow-trainer]
 
 With --profile, phases 6 and 8 also trace two train steps with
 torch.profiler (device activity only) and print the device time of a step
@@ -34,6 +35,10 @@ With --auraflow, only phases 0, 20 and 21 and the build of kernels B's and
 F's libraries run, printing their launch counts, kernel records and numbers
 as one JSON line (no ok line); the main run runs it so, in a process of its
 own, after phase 19 (with --profile, phase 21 also traces one denoise step).
+With --auraflow-trainer, only phases 0 and 22-24 and the build of kernels
+B's, C's and F's libraries run, printing the Trainer runs' launch counts,
+kernel C's records and the numbers as one JSON line (no ok line); the main
+run runs it so, in a process of its own, after phases 20-21.
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -202,6 +207,36 @@ Phases, each printing its own lines; any failure exits non-zero:
     tree; one denoise step against the same step on the plain versions;
     the single-file checkpoint at full width and reduced depth written by
     state_dict() and read by from_original_checkpoint, bit-identical.
+22. kernel C at head dim 256 (the consumer warpgroups split D's output
+    columns), in a process of its own (--auraflow-trainer): ptxas's
+    registers and spills of both D = 256 kernels; at the config-#3 step's
+    joint sequence (4360 tokens, batch 1), the shortcut step's batch 2, the
+    832x1216 bucket's 4216, ragged Sq 300 / Sk 520, 129 rows, one q row and
+    strided q, k and v views: dq, dk and dv against the plain backward, one
+    launch of each kernel a call, reruns bit-identical; each kernel's one
+    call and a call over 10 back to back, TFLOP/s and bound, the whole
+    backward beside SDPA's backward alone.
+23. the AuraFlow Trainer in the same process: phase 21's full-size model,
+    seeded (zero-init leaves drawn anew), written by state_dict() to a
+    16.5 GB single-file checkpoint; configs/auraflow/text_to_image_lora.yml
+    (config #3: batch 1, LoRA rank 8 on attn., .mlp., modC., modX.,
+    schedule-free RAdam, gradient checkpointing, buckets from 1024 at step
+    128) cut to one epoch over 4 seeded images (three 1024x1024, one
+    832x1216), the 1024 px 20-step CFG preview of configs/auraflow/
+    preview.yml, all through the train script's build_trainer. Checks the
+    losses, kernel B's and C's launches a step and the preview's against
+    the layer count, the frozen base against the file, the adapters, the
+    saved LoRA file's ComfyUI keys, a step with remat saves "none", and a
+    depth-reduced step (1 double + 2 single layers, full width) against the
+    plain versions; prints ms/step (warm), peak GiB, the checkpoint's bytes,
+    write and load seconds and the preview's seconds.
+24. from the same file: the shortcut workload on configs/auraflow/
+    shortcut.yml (batch 2, AdamW, the shortcut embedder trainable under
+    LoRA; two target forwards without gradients a step) for 2 steps, and the
+    RoPE migration workload on text_to_image_lora.yml with use_rope and the
+    workload's fields for 3 steps; launch counts a step, the embedder and
+    the migration scale moved off zero, the base unchanged; ms a step, peak
+    GiB.
 
 Every kernel's record carries its time, its plain version's, the bound
 (the larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s bf16, or
@@ -1548,6 +1583,19 @@ AURA_CKPT_DEPTH = dict(num_double_layers=1, num_single_layers=2)
 AURA_CKPT_TEXT_LAYERS = 2
 
 
+def aura_fill_zero_init(model, device, seed) -> int:
+    """Seeded N(0, 0.02) where the init put zeros (the adaLN projections,
+    final_linear, cond_seq_linear), so that every layer does work."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    filled = 0
+    with torch.no_grad():
+        for p in model.denoiser.parameters():
+            if not p.any():
+                p.normal_(0.0, 0.02, generator=g)
+                filled += 1
+    return filled
+
+
 def auraflow_phase(device, wrappers: dict, profile: bool) -> dict:
     """Phases 20 and 21, run in a process of its own (``--auraflow``):
     kernel B at head dim 256 and kernel F at AuraFlow's widths against their
@@ -1658,16 +1706,7 @@ def auraflow_phase(device, wrappers: dict, profile: bool) -> dict:
             return super().decode_image(latents)
 
     def fill_zero_init(model, seed) -> int:
-        """Seeded N(0, 0.02) where the init put zeros (the adaLN projections,
-        final_linear, cond_seq_linear), so that every layer does work."""
-        g = torch.Generator(device=device).manual_seed(seed)
-        filled = 0
-        with torch.no_grad():
-            for p in model.denoiser.parameters():
-                if not p.any():
-                    p.normal_(0.0, 0.02, generator=g)
-                    filled += 1
-        return filled
+        return aura_fill_zero_init(model, device, seed)
 
     torch.cuda.reset_peak_memory_stats()
     model = Model(AuraFlowConig(checkpoint_path="", dtype="bfloat16"), tokenizer=tokenizer)
@@ -1873,6 +1912,514 @@ def run_auraflow(checkout: Path, profile: bool) -> dict:
     return json.loads(lines[-1])["auraflow"]
 
 
+# Kernel C at AuraFlow's head dim 256 (phase 22), (B, Sq, Sk, H*D, H): the config-#3 step
+# at batch 1 and 1024 px (8 register + 256 text + 4096 image tokens), the shortcut step's
+# batch 2, the 832x1216 bucket (264 + 52 * 76), ragged Sq != Sk, one row and one key past
+# a 64-row tile, a single q row; then the first again on strided q, k and v views
+AURA_BWD_SHAPES = [(1, 4360, 4360, 3072, 12, False), (2, 4360, 4360, 3072, 12, False),
+                   (1, 4216, 4216, 3072, 12, False), (1, 300, 520, 512, 2, False),
+                   (1, 129, 129, 512, 2, False), (1, 1, 256, 512, 2, False),
+                   (1, 4360, 4360, 3072, 12, True)]
+# phase 23's images (width, height): batch 1, so one epoch is 4 steps; three in config #3's
+# 1024x1024 bucket and one its buckets crop to another shape
+AURA_TRAINER_IMAGES = [(1024, 1024)] * 3 + [(832, 1216)]
+AURA_TRAINER_CAPTIONS = [
+    "a photo of a cat, sofa, indoors",
+    "a red car on the road, mountains, evening light, wide shot",
+    "portrait of a woman, blue eyes",
+    "a lighthouse on a cliff above the sea at dawn, waves, clouds, seagulls, film photo",
+]
+# phase 23's depth-reduced step against the plain versions: full width, 1 double + 2
+# single layers of the trained model
+AURA_REDUCED = dict(double_layers=1, single_layers=2)
+
+
+def sdpa_backward_ms(q, k, v, dout, h):
+    """PyTorch's own attention backward alone (dq, dk, dv in one call), the
+    yardstick beside kernel C; None where it refuses the shape."""
+    leaves = [sdpa_heads(t, h).detach().requires_grad_() for t in (q, k, v)]
+    dout_heads = sdpa_heads(dout, h)
+    try:
+        out = F.scaled_dot_product_attention(*leaves)
+        return cuda_ms(lambda: torch.autograd.grad(out, leaves, dout_heads, retain_graph=True))
+    except RuntimeError as exc:
+        print(f"SDPA's backward refused (B, H, S, D) {tuple(leaves[0].shape)}: {exc}")
+        return None
+
+
+def aura_backward_phase(device, wrappers: dict) -> tuple[dict, dict]:
+    """Phase 22: kernel C at head dim 256 against its plain backward.
+    Returns (records by kernel, numbers)."""
+    from vision_ft_tpu_torch.ops.flash_attention import (
+        flash_attention_bshd, flash_attention_bshd_backward,
+        flash_attention_bshd_backward_reference, flash_attention_bshd_delta,
+        flash_attention_bshd_dkv, flash_attention_bshd_dq,
+    )
+    from vision_ft_tpu_torch.tools.ptxas_report import ptxas_report
+
+    phase("22 kernel C at head dim 256 (column halves), AuraFlow's shapes, vs the plain backward")
+    numbers, records = {}, {"flash_attention_bshd_dkv": [], "flash_attention_bshd_dq": []}
+    ptxas = {}
+    for kernel, info in sorted(ptxas_report("flash_attention_bshd_bwd").items()):
+        if "flash_bwd_dkv_bshd_d256_kernel" in kernel:
+            ptxas["dkv"] = info
+        elif "flash_bwd_dq_bshd_kernelILi256E" in kernel:
+            ptxas["dq"] = info
+    for which, info in sorted(ptxas.items()):
+        print(f"kernel C {which} at D = 256, ptxas: {info.get('registers')} registers a thread, "
+              f"{info.get('spill_stores')} bytes of spill stores, {info.get('spill_loads')} of "
+              f"spill loads, notes {info.get('notes')}")
+    if set(ptxas) != {"dkv", "dq"}:
+        raise AssertionError(f"ptxas reported no D = 256 kernel C: {sorted(ptxas)}")
+    numbers["kernel_c_d256_ptxas"] = ptxas
+    gen = torch.Generator(device=device).manual_seed(22)
+    dkv, dq = flash_attention_bshd_dkv, flash_attention_bshd_dq
+    for b, sq, sk, inner, h, strided in AURA_BWD_SHAPES:
+        if strided:  # column slices of one (B, S, 3 H*D) tensor: rows 3 H*D apart
+            q, k, v = torch.randn(b, sq, 3 * inner, device=device, generator=gen).bfloat16().split(
+                inner, dim=-1)
+        else:
+            q = torch.randn(b, sq, inner, device=device, generator=gen).bfloat16()
+            k, v = (torch.randn(b, sk, inner, device=device, generator=gen).bfloat16() for _ in "kv")
+        dout = torch.randn(b, sq, inner, device=device, generator=gen).bfloat16()
+        what = f"backward B={b} Sq={sq} Sk={sk} H={h} D={inner // h}{' strided' if strided else ''}"
+        out, lse = flash_attention_bshd(q, k, v, h, return_lse=True)
+        delta = flash_attention_bshd_delta(out, dout, h)
+        before = (dkv.launches, dq.launches)
+        got = flash_attention_bshd_backward(q, k, v, out, lse, dout, h)
+        torch.cuda.synchronize()
+        if (dkv.launches - before[0], dq.launches - before[1]) != (1, 1):
+            raise AssertionError(f"{what}: {dkv.launches - before[0]} dk/dv and "
+                                 f"{dq.launches - before[1]} dq launches, not one each")
+        want = flash_attention_bshd_backward_reference(q, k, v, out, lse, dout, h)
+        err = {name: compare(f"{what} {name}", lambda: x, lambda: y, ATTN_BWD_TOL)
+               for name, x, y in zip(("dq", "dk", "dv"), got, want)}
+        del got, want
+        assert_reruns(f"{what} dk/dv", lambda: dkv(q, k, v, dout, lse, delta, h))
+        assert_reruns(f"{what} dq", lambda: dq(q, k, v, dout, lse, delta, h))
+        times = {
+            "dkv": (cuda_ms(lambda: dkv(q, k, v, dout, lse, delta, h)),
+                    burst_ms(lambda: dkv(q, k, v, dout, lse, delta, h))),
+            "dq": (cuda_ms(lambda: dq(q, k, v, dout, lse, delta, h)),
+                   burst_ms(lambda: dq(q, k, v, dout, lse, delta, h))),
+        }
+        whole_ms = cuda_ms(lambda: flash_attention_bshd_backward(q, k, v, out, lse, dout, h))
+        plain_ms = cuda_ms(lambda: flash_attention_bshd_backward_reference(q, k, v, out, lse, dout, h),
+                           warmup=1, iters=3)
+        library_ms = sdpa_backward_ms(q, k, v, dout, h)
+        q_bytes, k_bytes, stat_bytes = b * sq * inner * 2, b * sk * inner * 2, 2 * b * h * sq * 4
+        # dk/dv: S^T, dP^T, dV, dK (8 B Sq Sk H D); dq: S, dP, dQ (6 B Sq Sk H D). Bytes:
+        # q, k, v, dO, lse and delta read once, the kernel's gradients written once
+        bounds = {"dkv": bound(2 * q_bytes + 4 * k_bytes + stat_bytes, 8 * b * sq * sk * inner),
+                  "dq": bound(3 * q_bytes + 2 * k_bytes + stat_bytes, 6 * b * sq * sk * inner)}
+        flops = {"dkv": 8 * b * sq * sk * inner, "dq": 6 * b * sq * sk * inner}
+        print(f"{what}: " + ", ".join(f"{n} max abs err {a:.3e} rel {r:.3e}" for n, (a, r) in err.items())
+              + f" (tol {ATTN_BWD_TOL}), one launch each, reruns bit-identical; "
+              + "; ".join(f"{n} kernel {ms:.4f} ms one call ({flops[n] / ms / 1e9:.1f} TFLOP/s, "
+                          f"{100 * bounds[n][0] / ms:.1f}% of its bound {bounds[n][0]:.4f} ms, "
+                          f"{bounds[n][1]}), {burst:.4f} ms a call over 10 back to back"
+                          for n, (ms, burst) in times.items())
+              + f"; whole backward {whole_ms:.4f} ms"
+              + (f" ({whole_ms / library_ms:.2f}x SDPA's backward alone, {library_ms:.4f} ms)"
+                 if library_ms else "")
+              + f"; plain {plain_ms:.3f} ms")
+        for n, name in (("dkv", "flash_attention_bshd_dkv"), ("dq", "flash_attention_bshd_dq")):
+            errors = [err["dq"]] if n == "dq" else [err["dk"], err["dv"]]
+            records[name].append(dict(
+                shape=[b, sq, sk, inner, h], strided=strided,
+                max_abs_err=max(a for a, _ in errors), rel_err=max(r for _, r in errors),
+                ms=times[n][0], burst_ms=times[n][1], tflops=flops[n] / times[n][0] / 1e9,
+                plain_ms=plain_ms, bound_ms=bounds[n][0], bound_by=bounds[n][1],
+                library_ms=library_ms, whole_ms=whole_ms))
+        del q, k, v, dout, out, lse, delta
+    gc.collect()
+    torch.cuda.empty_cache()
+    return records, numbers
+
+
+def auraflow_trainer_phase(device, wrappers: dict, checkout: Path) -> dict:
+    """Phases 22-24, run in a process of its own (``--auraflow-trainer``):
+    kernel C at head dim 256 against its plain backward, then the AuraFlow
+    Trainer on config #3 from a seeded single-file checkpoint at full width
+    and depth, then the shortcut and RoPE migration workloads from the same
+    file. Returns the Trainer runs' launch counts, kernel C's records at
+    these shapes and the numbers."""
+    import yaml
+    from safetensors import safe_open
+
+    from vision_ft_tpu_torch.config import TrainConfig
+    from vision_ft_tpu_torch.models.auraflow.config import AuraFlowConig
+    from vision_ft_tpu_torch.models.auraflow.pipeline import AuraFlowModel
+    from vision_ft_tpu_torch.models.auraflow.util import convert_to_comfy_key
+    from vision_ft_tpu_torch.models.text_encoders.sentencepiece import (
+        SentencePieceModel, SentencePieceTokenizer,
+    )
+    from vision_ft_tpu_torch.nn import set_remat_saves
+    from vision_ft_tpu_torch.train.auraflow import rope_migration, shortcut, text_to_image
+    from vision_ft_tpu_torch.training.optimizer import global_norm
+    from vision_ft_tpu_torch.utils import safetensors as st
+
+    def reset_launches():
+        for wrapper in wrappers.values():
+            wrapper.launches = 0
+
+    def read_launches():
+        return {name: wrapper.launches for name, wrapper in wrappers.items()}
+
+    def free(model):
+        for part in model._parts().values():
+            part.to("meta")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def want(b=0, dkv_dq=0, f=0):
+        counts = {name: 0 for name in wrappers}
+        counts.update(flash_attention_bshd=b, flash_attention_bshd_dkv=dkv_dq,
+                      flash_attention_bshd_dq=dkv_dq, gated_mlp=f)
+        return counts
+
+    def fused_mlps(den):
+        """The gated MLPs kernel F takes ("auto": inner 8192): those with no
+        adapter on any of their three Linears (the JAX package's gate).
+        config #3's ".mlp." reaches the single layers' MLPs, not the double
+        layers' mlpC and mlpX."""
+        return sum(1 for m in den.modules() if type(m).__name__ == "AuraMLP"
+                   and not any("lora_down" in layer._modules for layer in m.values()))
+
+    def timed(fn, into):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            into.append(time.perf_counter() - start)
+            return out
+        return run
+
+    def run_trainer(name, trainer):
+        """trainer.train() with each step's host ms, loss, launches and
+        batch, the checkpoint load's and the previews' seconds, the run's
+        launches and peak memory."""
+        log = dict(steps=[], load_s=[], preview_s=[], preview_launches=[], sanity_launches=[])
+        trainer.model.setup_model = timed(trainer.model.setup_model, log["load_s"])
+
+        def counted(fn, into):
+            def run(*args, **kwargs):
+                before = read_launches()
+                out = fn(*args, **kwargs)
+                after = read_launches()
+                into.append({k: after[k] - before[k] for k in after})
+                return out
+            return run
+
+        trainer.model.preview_step = counted(timed(trainer.model.preview_step, log["preview_s"]),
+                                             log["preview_launches"])
+        trainer.model.sanity_check = counted(trainer.model.sanity_check, log["sanity_launches"])
+        prepare_optimizer = trainer.prepare_optimizer
+
+        def prepare_and_time():
+            prepare_optimizer()
+            inner = trainer._step
+
+            def timed_step(state, batch, generator):
+                torch.cuda.synchronize()
+                before = read_launches()
+                start = time.perf_counter()
+                state, metrics = inner(state, batch, generator)
+                loss = metrics["train/loss"].item()
+                torch.cuda.synchronize()
+                after = read_launches()
+                log["steps"].append((time.perf_counter() - start, loss,
+                                     {k: after[k] - before[k] for k in after}, batch))
+                return state, metrics
+
+            trainer._step = timed_step
+
+        trainer.prepare_optimizer = prepare_and_time
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        start = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        log.update(train_s=time.perf_counter() - start, launches=read_launches(),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        losses = [loss for _, loss, _, _ in log["steps"]]
+        print(f"{name}: trainer.train() {log['train_s']:.1f} s with the checkpoint load "
+              f"{log['load_s'][0]:.2f} s{' and the preview %.2f s' % log['preview_s'][0] if log['preview_s'] else ''}; "
+              f"{len(losses)} steps over batches {[tuple(b['pixel_values'].shape) for *_, b in log['steps']]}; "
+              f"losses {losses}; ms a step {[round(t * 1e3, 1) for t, *_ in log['steps']]} (host "
+              f"clock, synchronized, step 1 cold); peak {log['peak_gib']:.2f} GiB")
+        if not losses or not all(np.isfinite(losses)):
+            raise AssertionError(f"{name}: losses {losses}")
+        return log
+
+    def check_steps(name, log, per_step):
+        for i, (_, _, launches, _) in enumerate(log["steps"]):
+            if launches != per_step:
+                raise AssertionError(f"{name} step {i + 1}: launches {launches} != {per_step}")
+
+    def base_unchanged(name, model, ckpt, skip=()):
+        live = model.state_dict()
+        with safe_open(str(ckpt), framework="pt", device="cpu") as f:
+            keys = [k for k in f.keys() if not k.startswith(skip)]
+            changed = [k for k in keys if not torch.equal(live[k].cpu(), f.get_tensor(k))]
+        if changed:
+            raise AssertionError(f"{name}: frozen tensors changed: {changed[:3]}")
+        return len(keys)
+
+    records, numbers = aura_backward_phase(device, wrappers)
+    tokenizer = SentencePieceTokenizer(SentencePieceModel.from_bytes(lumina_vocab()), template="eos")
+    run_launches = {name: 0 for name in wrappers}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_auraflow_trainer_"))
+    try:
+        phase("23 the AuraFlow Trainer on config #3 at full width and depth: checkpoint, LoRA, "
+              "saving, preview")
+        img_rng = np.random.default_rng(0)
+        folders = {name: work / name for name in ("images", "square", "rope")}
+        for folder in folders.values():
+            folder.mkdir()
+        for i, (w, h) in enumerate(AURA_TRAINER_IMAGES + [(1024, 1024)]):
+            smooth = img_rng.integers(0, 255, (h // 32, w // 32, 3), dtype=np.uint8)
+            image = Image.fromarray(smooth).resize((w, h), Image.BILINEAR)
+            caption = AURA_TRAINER_CAPTIONS[i % len(AURA_TRAINER_CAPTIONS)]
+            targets = ([folders["images"]] if i < len(AURA_TRAINER_IMAGES) else []) + (
+                [folders["square"]] if (w, h) == (1024, 1024) else []) + (
+                [folders["rope"]] if i < 3 else [])
+            for folder in targets:
+                image.save(folder / f"{i}.png")
+                (folder / f"{i}.txt").write_text(caption)
+
+        # the checkpoint: phase 21's full-size AuraFlow, seeded, written by state_dict()
+        seeded = AuraFlowModel(AuraFlowConig(checkpoint_path="", dtype="bfloat16"), tokenizer=tokenizer)
+        seeded.init_params(torch.Generator(device=device).manual_seed(23))
+        aura_fill_zero_init(seeded, device, 24)
+        ckpt = work / "auraflow.safetensors"
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        st.save_file(seeded.state_dict(), ckpt)
+        numbers["checkpoint_write_s"] = time.perf_counter() - start
+        numbers["checkpoint_bytes"] = ckpt.stat().st_size
+        free(seeded)
+        del seeded
+
+        raw = yaml.safe_load((checkout / "configs/auraflow/text_to_image_lora.yml").read_text())
+        raw["model"].update(checkpoint_path=str(ckpt))
+        raw["dataset"].update(folder=str(folders["images"]))
+        raw["num_train_epochs"] = 1
+        raw["saving"]["callbacks"][0]["save_dir"] = str(work / "lora")
+        raw["preview"]["callbacks"][0]["save_dir"] = str(work / "preview")
+        raw["preview"]["data"]["path"] = str(checkout / "configs/auraflow/preview.yml")
+        config = TrainConfig.model_validate(raw, strict=True)
+        print(f"checkpoint {numbers['checkpoint_bytes']} bytes (MMDiT, UMT5, VAE) written by "
+              f"state_dict() in {numbers['checkpoint_write_s']:.2f} s; config #3 cut to one epoch of "
+              f"{len(AURA_TRAINER_IMAGES)} images: {config.optimizer.name} {config.optimizer.args}, "
+              f"LoRA rank {config.peft.config.rank} on {config.peft.include_keys}, batch "
+              f"{config.dataset['batch_size']}, buckets from {config.dataset['bucket_base_size']} "
+              f"step {config.dataset['step']}, gradient checkpointing "
+              f"{config.trainer.gradient_checkpointing}; preview configs/auraflow/preview.yml")
+        trainer = text_to_image.build_trainer(config, tokenizer=tokenizer)
+        log = run_trainer("config #3", trainer)
+        model = trainer.model.model
+        den = model.denoiser
+        layers = len(den.double_layers) + len(den.single_layers)
+        mlps = fused_mlps(den)
+        numbers.update(checkpoint_load_s=log["load_s"][0], preview_s=log["preview_s"][0],
+                       peak_gib=log["peak_gib"], run_step_ms=[t * 1e3 for t, *_ in log["steps"]])
+        if len(log["steps"]) != len(AURA_TRAINER_IMAGES):
+            raise AssertionError(f"config #3: {len(log['steps'])} steps")
+        # remat saves "kernel": the recompute takes the forward's (out, lse) back, so a step
+        # launches B once and C's two kernels once per attention; F runs in the forward
+        # and again in the recompute (its backward is the plain formula)
+        check_steps("config #3", log, want(layers, layers, 2 * mlps))
+        preview_steps = yaml.safe_load(Path(raw["preview"]["data"]["path"]).read_text())[0]["num_steps"]
+        # CFG: both halves in one call per layer
+        preview_want = want(preview_steps * layers, 0, preview_steps * mlps)
+        if log["preview_launches"] != [preview_want]:
+            raise AssertionError(f"preview launches {log['preview_launches']} != {preview_want}")
+        # the sanity check's 8x8 latent: 30 joint tokens take the plain attention (Sk < 256)
+        sanity_want = want(0, 0, mlps)
+        if log["sanity_launches"] != [sanity_want]:
+            raise AssertionError(f"sanity check launches {log['sanity_launches']} != {sanity_want}")
+        step_sum = {k: sum(l[k] for _, _, l, _ in log["steps"]) for k in wrappers}
+        if log["launches"] != {k: step_sum[k] + preview_want[k] + sanity_want[k] for k in wrappers}:
+            raise AssertionError(f"config #3 run launches {log['launches']}")
+        for k in wrappers:
+            run_launches[k] += log["launches"][k]
+        print(f"launches a step {log['steps'][0][2]} ({layers} attentions; kernel F on the "
+              f"{mlps} MLPs without an adapter, forward and recompute), the preview's "
+              f"{log['preview_launches'][0]}, the sanity check's {log['sanity_launches'][0]}; the "
+              f"run {log['launches']}")
+        n_base = base_unchanged("config #3", model, ckpt)
+        moved = [k for k, v in trainer.trainable.items() if "lora_up" in k and bool(v.abs().max() > 0)]
+        n_up = sum("lora_up" in k for k in trainer.trainable)
+        saved = sorted((work / "lora").glob("*.safetensors"))
+        lora_state = st.load_file(saved[-1]) if saved else {}
+        alphas = {k for k, _ in trainer.model.get_params().named_buffers() if k.endswith(".alpha")}
+        want_keys = {convert_to_comfy_key(k) for k in (*trainer.trainable, *alphas)}
+        if len(saved) != 1 or set(lora_state) != want_keys or not all(
+                k.startswith("diffusion_model.") for k in lora_state) or len(moved) != n_up:
+            raise AssertionError(f"saved LoRA {saved}: {len(lora_state)} keys, expected "
+                                 f"{len(want_keys)}; lora_up moved {len(moved)} of {n_up}")
+        previews = sorted((work / "preview").glob("*"))
+        if len(previews) != 1 or Image.open(previews[0]).size != (1024, 1024) or np.asarray(
+                Image.open(previews[0])).std() == 0:
+            raise AssertionError(f"preview images {previews}")
+        print(f"{n_base} base tensors bit-identical to the checkpoint file; {len(moved)} of {n_up} "
+              f"lora_up moved off zero; saved {saved[-1].name}: {len(lora_state)} keys in ComfyUI "
+              f"names (diffusion_model.*); preview {previews[0].name} "
+              f"{Image.open(previews[0]).size}, {log['preview_s'][0]:.2f} s")
+
+        # warm steps on the 1024x1024 batch, then one with nothing kept by the checkpoints
+        square = next(b for *_, b in log["steps"] if tuple(b["pixel_values"].shape[1:3]) == (1024, 1024))
+        warm = []
+        for seed in (5, 6, 7):
+            trainer.state, _ = trainer._step(trainer.state, square,
+                                             torch.Generator(device=device).manual_seed(seed))
+            warm.append(log["steps"][-1][0] * 1e3)
+        numbers["warm_step_ms"] = warm
+        set_remat_saves("none")
+        try:
+            trainer.state, _ = trainer._step(trainer.state, square,
+                                             torch.Generator(device=device).manual_seed(8))
+        finally:
+            set_remat_saves("kernel")
+        if log["steps"][-1][2] != want(2 * layers, layers, 2 * mlps):
+            raise AssertionError(f"a step with remat saves none: {log['steps'][-1][2]}")
+        print(f"warm steps at 1024x1024, batch 1: {[round(t, 1) for t in warm]} ms; a step with "
+              f"remat saves none launches {log['steps'][-1][2]['flash_attention_bshd']} of kernel B "
+              f"(forward and recompute) and {layers} of each of C's")
+
+        # a depth-reduced step (full width) of the trained model, kernels vs plain versions
+        full = den.double_layers, den.single_layers
+        den.double_layers = torch.nn.ModuleDict(
+            {str(i): full[0][str(i)] for i in range(AURA_REDUCED["double_layers"])})
+        den.single_layers = torch.nn.ModuleDict(
+            {str(i): full[1][str(i)] for i in range(AURA_REDUCED["single_layers"])})
+
+        def kept(key):
+            parts = key.split(".")
+            return parts[1] not in AURA_REDUCED or int(parts[2]) < AURA_REDUCED[parts[1]]
+
+        params = [p for k, p in trainer.trainable.items() if kept(k)]
+
+        def loss_and_grads():
+            loss, _ = trainer.model.loss_fn(square, torch.Generator(device=device).manual_seed(9))
+            return loss.item(), torch.autograd.grad(loss, params)
+
+        try:
+            reset_launches()
+            kernel_loss, kernel_grads = loss_and_grads()
+            used = read_launches()
+            with plain_versions():
+                plain_loss, plain_grads = loss_and_grads()
+        finally:
+            den.double_layers, den.single_layers = full
+        kernel_norm, plain_norm = global_norm(kernel_grads).item(), global_norm(plain_grads).item()
+        loss_rel = abs(kernel_loss - plain_loss) / abs(plain_loss)
+        norm_rel = abs(kernel_norm - plain_norm) / abs(plain_norm)
+        reduced = sum(AURA_REDUCED.values())
+        den.double_layers, den.single_layers = (torch.nn.ModuleDict(
+            {str(i): full[j][str(i)] for i in range(AURA_REDUCED[name])})
+            for j, name in enumerate(("double_layers", "single_layers")))
+        reduced_mlps = fused_mlps(den)
+        den.double_layers, den.single_layers = full
+        print(f"depth-reduced step ({AURA_REDUCED}, full width), kernels vs plain versions: loss "
+              f"{kernel_loss:.6f} vs {plain_loss:.6f} (rel {loss_rel:.3e}, tol {STEP_LOSS_TOL}); "
+              f"grad_norm {kernel_norm:.6f} vs {plain_norm:.6f} (rel {norm_rel:.3e}, tol "
+              f"{STEP_GRAD_NORM_TOL}); kernel launches B {used['flash_attention_bshd']}, C "
+              f"{used['flash_attention_bshd_dkv']} + {used['flash_attention_bshd_dq']}, F "
+              f"{used['gated_mlp']}")
+        if read_launches() != used or used != want(reduced, reduced, 2 * reduced_mlps):
+            raise AssertionError(f"the reduced step's launches: {used}, then {read_launches()}")
+        if not (loss_rel <= STEP_LOSS_TOL and norm_rel <= STEP_GRAD_NORM_TOL):
+            raise AssertionError("the AuraFlow trainer's kernel step and the plain step disagree")
+        del kernel_grads, plain_grads, params, square, log
+        free(model)
+        del model, den, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        phase("24 the shortcut and RoPE migration workloads from the same file, full width and depth")
+        raw = yaml.safe_load((checkout / "configs/auraflow/shortcut.yml").read_text())
+        raw["model"].update(checkpoint_path=str(ckpt))
+        raw["dataset"].update(folder=str(folders["square"]))
+        raw["num_train_epochs"] = 1
+        raw["saving"]["callbacks"][0]["save_dir"] = str(work / "shortcut")
+        config = TrainConfig.model_validate(raw, strict=True)
+        trainer = shortcut.build_trainer(config, tokenizer=tokenizer)
+        log = run_trainer(f"shortcut (configs/auraflow/shortcut.yml: batch "
+                          f"{config.dataset['batch_size']}, {config.optimizer.name})", trainer)
+        den = trainer.model.model.denoiser
+        layers = len(den.double_layers) + len(den.single_layers)
+        # two forwards for the self-consistency targets (no gradient), one trained;
+        # shortcut.yml's "mlp" puts adapters on every MLP, so F runs on none
+        mlps = fused_mlps(den)
+        check_steps("shortcut", log, want(3 * layers, layers, 4 * mlps))
+        embedder = {k: v for k, v in trainer.trainable.items() if ".shortcut_embedder." in k}
+        moved = [k for k, v in embedder.items() if bool(v.abs().max() > 0)]
+        if not embedder or not moved:
+            raise AssertionError(f"the shortcut embedder did not train: {sorted(embedder)}")
+        base_unchanged("shortcut", trainer.model.model, ckpt)
+        for k in wrappers:
+            run_launches[k] += log["launches"][k]
+        numbers["shortcut"] = dict(step_ms=[t * 1e3 for t, *_ in log["steps"]],
+                                   peak_gib=log["peak_gib"], load_s=log["load_s"][0])
+        print(f"shortcut: launches a step {log['steps'][0][2]['flash_attention_bshd']} of kernel B "
+              f"(two target forwards and the trained one) and {layers} of each of C's; the shortcut "
+              f"embedder trainable ({len(embedder)} tensors), moved off zero: {moved}")
+        free(trainer.model.model)
+        del trainer, den, log
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        raw = yaml.safe_load((checkout / "configs/auraflow/text_to_image_lora.yml").read_text())
+        raw["model"].update(checkpoint_path=str(ckpt), denoiser={"use_rope": True},
+                            migration_loss=True, noise_prediction_loss=True)
+        raw["dataset"].update(folder=str(folders["rope"]))
+        raw["num_train_epochs"] = 1
+        raw["saving"]["callbacks"][0]["save_dir"] = str(work / "rope")
+        raw.pop("preview")
+        config = TrainConfig.model_validate(raw, strict=True)
+        trainer = rope_migration.build_trainer(config, tokenizer=tokenizer)
+        log = run_trainer("RoPE migration (configs/auraflow/text_to_image_lora.yml with "
+                          "denoiser.use_rope and the workload's fields)", trainer)
+        den = trainer.model.model.denoiser
+        layers = len(den.double_layers) + len(den.single_layers)
+        check_steps("RoPE migration", log, want(layers, layers, 2 * fused_mlps(den)))
+        scale = den.migration_scale.scale.detach().float().cpu()
+        if "denoiser.migration_scale.scale" not in trainer.trainable or not bool(scale.abs().max() > 0):
+            raise AssertionError(f"the migration scale did not train: {scale}")
+        base_unchanged("RoPE migration", trainer.model.model, ckpt)
+        for k in wrappers:
+            run_launches[k] += log["launches"][k]
+        numbers["rope_migration"] = dict(step_ms=[t * 1e3 for t, *_ in log["steps"]],
+                                         peak_gib=log["peak_gib"], load_s=log["load_s"][0],
+                                         scale=scale.tolist())
+        print(f"RoPE migration: launches a step {log['steps'][0][2]['flash_attention_bshd']} of "
+              f"kernel B and of each of C's; the migration scale moved off zero to "
+              f"{scale.tolist()}")
+        free(trainer.model.model)
+        del trainer, den, log
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": run_launches, "records": records, "numbers": numbers}
+
+
+def run_auraflow_trainer(checkout: Path) -> dict:
+    """``chip_smoke.py --auraflow-trainer`` in a process of its own (a
+    fresh card): its lines, then its launch counts, records and numbers."""
+    proc = subprocess.run([sys.executable, str(checkout / "chip_smoke.py"), "--auraflow-trainer"],
+                          cwd=checkout, capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]))
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"chip_smoke.py --auraflow-trainer failed (exit {proc.returncode}): "
+                             f"{proc.stderr[-4000:]}")
+    return json.loads(lines[-1])["auraflow_trainer"]
+
+
 def main() -> None:
     args = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     args.add_argument("--profile", action="store_true",
@@ -1897,6 +2444,11 @@ def main() -> None:
                            "widths, then AuraFlow generate()) after building their libraries; "
                            "prints their launch counts, records and numbers as one JSON line, not "
                            "the ok line")
+    args.add_argument("--auraflow-trainer", action="store_true",
+                      help="run phases 22-24 alone (kernel C at D 256, then the AuraFlow Trainer "
+                           "on config #3 and the shortcut and RoPE migration workloads) after "
+                           "building their libraries; prints their launch counts, records and "
+                           "numbers as one JSON line, not the ok line")
     args.add_argument("--ln-probe-costs", action="store_true",
                       help="time kernels A and L and their library calls (one call, back to "
                            "back, host us, traced) in this process alone; prints one JSON line, "
@@ -2001,6 +2553,13 @@ def main() -> None:
         _build.build_cuda_libraries(["flash_attention_bshd", "fused_mlp"])
         result = auraflow_phase(device, wrappers, options.profile)
         print(json.dumps({"auraflow": result}))
+        return
+
+    if options.auraflow_trainer:
+        phase("1 build (kernels B's, C's and F's libraries only)")
+        _build.build_cuda_libraries(["flash_attention_bshd", "flash_attention_bshd_bwd", "fused_mlp"])
+        result = auraflow_trainer_phase(device, wrappers, checkout)
+        print(json.dumps({"auraflow_trainer": result}))
         return
 
     if options.kernel_d:
@@ -3739,6 +4298,12 @@ def main() -> None:
     card_numbers = ", ".join(f"{k} {v}" for k, v in auraflow["numbers"].items())
     print(f"phases 20-21 on {card}: {card_numbers}")
 
+    phase("22-24 kernel C at head dim 256; the AuraFlow Trainer on config #3, the shortcut and "
+          "RoPE migration workloads at full width and depth (a process of its own)")
+    auraflow_trainer = run_auraflow_trainer(checkout)
+    card_numbers = ", ".join(f"{k} {v}" for k, v in auraflow_trainer["numbers"].items())
+    print(f"phases 22-24 on {card}: {card_numbers}")
+
     kernels = []
     for name, record in records.items():
         launches = {"generate": generate_launches[name], "train": train_launches[name],
@@ -3750,7 +4315,8 @@ def main() -> None:
                     "trainer": trainer_launches[name],
                     "lumina2_trainer": lumina_trainer["launches"][name],
                     "ops_resnet_body_and_probe": ops_launches[name],
-                    "auraflow_generate": auraflow["launches"][name]}
+                    "auraflow_generate": auraflow["launches"][name],
+                    "auraflow_trainer": auraflow_trainer["launches"][name]}
         kernels.append({
             "name": name,
             **{k: record[k] for k in ("route", "source", "replaces")},
@@ -3759,6 +4325,8 @@ def main() -> None:
                                       "library_ms")},
             **{k: record[k] for k in ("parts", *COST_KEYS) if k in record},
             **({"auraflow_shapes": auraflow["records"][name]} if name in auraflow["records"] else {}),
+            **({"auraflow_train_shapes": auraflow_trainer["records"][name]}
+               if name in auraflow_trainer["records"] else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -203,6 +203,12 @@ def _check_bshd_backward(q, k, v, dout, h):
         (2, 127, 190, 2, 64),     # one row short of a 128-row q tile
         (3, 333, 333, 3, 64),     # each batch's last tiles border the next batch's rows
         (2, 120, 333, 2, 128),    # the other head dim at a ragged sk
+        (1, 4360, 4360, 12, 256),  # AuraFlow's joint sequence at 1024 px, batch 1: column halves
+        (2, 4360, 4360, 12, 256),  # the shortcut step's batch 2
+        (1, 4216, 4216, 12, 256),  # the 832x1216 bucket
+        (1, 300, 520, 2, 256),     # D 256, ragged, sq != sk
+        (1, 129, 129, 2, 256),     # one row and one key past a 64-row tile
+        (1, 1, 256, 2, 256),       # a single q row
     ],
 )
 def test_bshd_backward_kernels_match_plain_on_card(cuda, b, s, sk, h, d):
@@ -214,7 +220,7 @@ def test_bshd_backward_kernels_match_plain_on_card(cuda, b, s, sk, h, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_bshd_backward_kernels_take_strided_views_on_card(cuda, d):
     """q, k and v as column slices of one wider (B, S, 3 H*D) tensor: rows
     3 H*D apart, read through the tensor maps' row strides in place."""
@@ -228,7 +234,9 @@ def test_bshd_backward_kernels_take_strided_views_on_card(cuda, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,h,d", [(4, 1024, 20, 64), (2, 333, 2, 128)])
+@pytest.mark.parametrize(
+    "b,s,h,d", [(4, 1024, 20, 64), (2, 333, 2, 128), (1, 4360, 12, 256), (2, 333, 2, 256)]
+)
 def test_bshd_backward_kernels_rerun_bit_identical_on_card(cuda, b, s, h, d):
     """No atomics and a fixed order of sums: a rerun gives the same bits."""
     g = torch.Generator(device=cuda).manual_seed(4)
@@ -316,25 +324,30 @@ def test_bshd_autograd_runs_the_kernels_on_card(cuda):
 
 
 @pytest.mark.cuda
-def test_bshd_backward_at_head_dim_256_raises_on_card(cuda):
-    """The forward kernel takes D 256 and launches; its backward has no
-    kernel yet and raises, with no plain fallback on the card, whether
-    asked directly or through autograd."""
+def test_bshd_backward_at_head_dim_256_launches_on_card(cuda):
+    """At D 256 the backward runs kernel C's two kernels, once each, whether
+    asked directly or through autograd, with no plain fallback on the card,
+    and agrees with autograd through the plain forward."""
     g = torch.Generator(device=cuda).manual_seed(9)
-    q, k, v = (torch.randn(1, 300, 512, device=cuda, generator=g).bfloat16().requires_grad_()
-               for _ in range(3))
-    before = flash_attention_bshd.launches, flash_attention_bshd_dkv.launches
-    out = flash_attention_bshd(q, k, v, 2)
-    assert flash_attention_bshd.launches == before[0] + 1
-    with pytest.raises(NotImplementedError, match="queue 2, item 1"):
-        torch.autograd.grad(out.float().sum(), (q, k, v))
+    leaves = [torch.randn(1, 300, 512, device=cuda, generator=g).bfloat16().requires_grad_()
+              for _ in range(3)]
+    wrappers = (flash_attention_bshd, flash_attention_bshd_dkv, flash_attention_bshd_dq)
+    before = [w.launches for w in wrappers]
+    got = torch.autograd.grad(flash_attention_bshd(*leaves, 2).float().sum(), leaves)
+    assert [w.launches for w in wrappers] == [n + 1 for n in before]
+    want = torch.autograd.grad(flash_attention_bshd_reference(*leaves, 2).float().sum(), leaves)
+    for x, y in zip(got, want):
+        err = (x.float() - y.float()).abs().max().item()
+        assert err <= BF16_ATTN_BWD_TOL * y.float().abs().max().item()
     with torch.no_grad():
+        q, k, v = leaves
         out, lse = flash_attention_bshd(q, k, v, 2, return_lse=True)
-        with pytest.raises(NotImplementedError, match="head dim 256"):
-            flash_attention_bshd_backward(q, k, v, out, lse, torch.ones_like(out), 2)
+        before = [w.launches for w in wrappers[1:]]
+        flash_attention_bshd_backward(q, k, v, out, lse, torch.ones_like(out), 2)
+        assert [w.launches for w in wrappers[1:]] == [n + 1 for n in before]
         with pytest.raises(ValueError, match="backward kernels take"):
-            flash_attention_bshd_dkv(q, k, v, out, lse, lse, 2)
-    assert flash_attention_bshd_dkv.launches == before[1]
+            flash_attention_bshd_dkv(q[..., :480], k[..., :480], v[..., :480], out[..., :480],
+                                     lse, lse, 2)
 
 
 @pytest.mark.cuda
@@ -1463,3 +1476,71 @@ def test_partial_block_kernels_reject_what_they_cannot_take_on_card(cuda):
     ):
         with pytest.raises(ValueError):
             bad()
+
+
+class _WordTokenizer:
+    """A tokenizer's call for the tests: each word an id from its letters
+    (3 and up), then </s> (1), padded with 0 to ``max_length``."""
+
+    def __call__(self, prompts, max_length, padding="max_length", truncation=True):
+        ids, masks = [], []
+        for prompt in prompts:
+            words = [3 + sum(map(ord, w)) % 1000 for w in prompt.split()][: max_length - 1] + [1]
+            ids.append(words + [0] * (max_length - len(words)))
+            masks.append([1] * len(words) + [0] * (max_length - len(words)))
+        return {"input_ids": ids, "attention_mask": masks}
+
+
+@pytest.mark.cuda
+def test_shortcut_generate_at_reduced_depth_matches_plain_on_card(cuda, monkeypatch):
+    """The preview of a shortcut-trained AuraFlow: AuraFlowForShortcut.generate
+    (Euler steps of 1 / n, each with that shortcut duration, CFG) at full
+    width, 1 double + 2 single layers and 2 UMT5 layers, bf16, seeded random
+    weights with the zero-init leaves drawn anew: kernels B (D 256) and F
+    launched as the layers give them, and the final latents against the same
+    request on their plain versions, within 5e-2 of their largest value
+    (bf16 through four guided steps, every layer's few-ulp differences
+    carried on; the tolerance of chip_smoke.py's AuraFlow denoise step)."""
+    import vision_ft_tpu_torch.ops.fused_mlp as mlp_module
+    from vision_ft_tpu_torch.models.auraflow.config import DenoiserConfig
+    from vision_ft_tpu_torch.models.auraflow.train_shortcut import (
+        AuraFlowForShortcut, AuraFlowForShortcutConfig,
+    )
+    from vision_ft_tpu_torch.models.text_encoders.umt5 import UMT5Config
+    from vision_ft_tpu_torch.ops import flash_attention as flash_module
+
+    depth = dict(num_double_layers=1, num_single_layers=2)
+    model = AuraFlowForShortcut(
+        AuraFlowForShortcutConfig(checkpoint_path="", dtype="bfloat16", denoiser=DenoiserConfig(**depth)),
+        tokenizer=_WordTokenizer(), text_encoder_config=UMT5Config(num_layers=2))
+    model.init_params(torch.Generator(device=cuda).manual_seed(0))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    with torch.no_grad():
+        for p in model.denoiser.parameters():
+            if not p.any():
+                p.normal_(0.0, 0.02, generator=g)
+    latents = []
+    monkeypatch.setattr(model, "decode_image", lambda z: latents.append(z.float().clone()) or [])
+    request = dict(prompt="a photo of a cat", negative_prompt="blurry", width=512, height=512,
+                   num_inference_steps=4, cfg_scale=4.0, seed=1)
+    wrappers = (flash_attention_bshd, gated_mlp)
+    before = [w.launches for w in wrappers]
+    model.generate(**request)
+    steps, layers = request["num_inference_steps"], sum(depth.values())
+    assert [w.launches - n for w, n in zip(wrappers, before)] == [
+        steps * layers, steps * (2 * depth["num_double_layers"] + depth["num_single_layers"])]
+
+    def plain_forward(q, k, v, num_heads, scale, return_lse):
+        out = flash_attention_bshd_reference(q, k, v, num_heads, scale, return_lse=return_lse)
+        return out if return_lse else (out, None)
+
+    monkeypatch.setattr(flash_module, "_forward", plain_forward)
+    monkeypatch.setattr(mlp_module, "_forward", lambda x2, wa, ba, wg, bg, wd, bd, act: (
+        gated_mlp_reference(x2, wa, wg, wd, ba, bg, bd, act)))
+    before = [w.launches for w in wrappers]
+    model.generate(**request)
+    assert [w.launches for w in wrappers] == before
+    got, want = latents
+    assert got.shape == (1, 64, 64, 4) and torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    assert err <= 5e-2 * want.abs().max().item(), err

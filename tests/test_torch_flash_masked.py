@@ -240,9 +240,9 @@ def test_head_dims_per_kernel():
         with pytest.raises(ValueError, match="bf16 on" if d in MASKED_HEAD_DIMS else "head dims"):
             _check_masked(q, q, q, None)
     assert [d for d in (32, 48, 64, 96, 128, 256) if supports(4, d)] == [64, 128, 256]
-    assert [d for d in (32, 48, 64, 96, 128, 256) if supports_backward(4, d)] == [64, 128]
+    assert [d for d in (32, 48, 64, 96, 128, 256) if supports_backward(4, d)] == [64, 128, 256]
     assert flash_module.BSHD_FWD_HEAD_DIMS == (64, 128, 256)
-    assert flash_module.BSHD_BWD_HEAD_DIMS == (64, 128) and MASKED_HEAD_DIMS == (64, 96, 128)
+    assert flash_module.BSHD_BWD_HEAD_DIMS == (64, 128, 256) and MASKED_HEAD_DIMS == (64, 96, 128)
 
 
 @pytest.mark.parametrize(

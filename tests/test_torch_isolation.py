@@ -39,8 +39,8 @@ def test_port_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
     # every module of the SDXL generate, train and quantization slices, of the Lumina2
     # generate and train slices, of the SDXL Trainer slice, of the AuraFlow generate
-    # slice, and the GroupNorm and 3x3 conv ops with the ragged-tile probe tool
-    assert int(proc.stdout.strip()) >= 111
+    # and train slices, and the GroupNorm and 3x3 conv ops with the ragged-tile probe tool
+    assert int(proc.stdout.strip()) >= 121
 
 
 PORT_SOURCES = sorted((REPO / "vision_ft_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -61,6 +61,15 @@ AURAFLOW_MODULES = [
     "models/auraflow/config.py", "models/auraflow/util.py", "models/auraflow/vae.py",
     "models/auraflow/scheduler.py", "models/auraflow/text_encoder.py",
     "models/auraflow/denoiser.py", "models/auraflow/pipeline.py", "tools/ptxas_report.py",
+]
+# the AuraFlow train slice: the three workloads, their CLIs and the loss
+# and migration modules they use
+AURAFLOW_TRAIN_MODULES = [
+    "models/auraflow/train_text_to_image.py", "models/auraflow/train_shortcut.py",
+    "models/auraflow/train_rope_migration.py", "modules/loss/shortcut.py",
+    "modules/migration/__init__.py", "modules/migration/scale.py", "train/auraflow/__init__.py",
+    "train/auraflow/text_to_image.py", "train/auraflow/shortcut.py",
+    "train/auraflow/rope_migration.py",
 ]
 # the modules of the last three kernels: the GroupNorm and 3x3 conv ops (their
 # kernels are CUDA C++ sources) and the ragged-tile probe
@@ -83,13 +92,15 @@ def test_no_source_of_the_port_imports_jax_or_the_jax_package():
     """Every import statement of the port and of chip_smoke.py, also those
     inside functions, which importing the modules would not run."""
     assert all((REPO / "vision_ft_tpu_torch" / name) in PORT_SOURCES
-               for name in LUMINA2_MODULES + AURAFLOW_MODULES + OPS_SOURCES)
+               for name in LUMINA2_MODULES + AURAFLOW_MODULES + AURAFLOW_TRAIN_MODULES + OPS_SOURCES)
     for path in PORT_SOURCES:
         bad = _imported_roots(path) & {"jax", "jaxlib", "flax", "optax", "vision_ft_tpu"}
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
 
 
-@pytest.mark.parametrize("name", LUMINA2_MODULES + AURAFLOW_MODULES + OPS_SOURCES)
+@pytest.mark.parametrize(
+    "name", LUMINA2_MODULES + AURAFLOW_MODULES + AURAFLOW_TRAIN_MODULES + OPS_SOURCES
+)
 def test_lumina2_module_reads_no_environment_variable(name):
     """The JAX package's VFT_* levers are setters in the port."""
     text = (REPO / "vision_ft_tpu_torch" / name).read_text()

@@ -125,6 +125,8 @@ def test_layer_norm_plain_matches_jax(rows, c, bias):
         (2, 200, 200, 4, 64),  # ragged self-attention lengths
         (1, 130, 130, 2, 64),
         (1, 200, 300, 2, 64),  # ragged, sq != sk
+        (1, 256, 256, 2, 256),  # AuraFlow's head dim
+        (1, 130, 200, 2, 256),  # head dim 256, ragged, sq != sk
     ],
 )
 def test_bshd_plain_backward_matches_jax_kernel(b, sq, sk, h, d):
@@ -182,18 +184,22 @@ def test_bshd_lse_on_the_cpu():
 
 
 def test_bshd_head_dim_sets():
-    """The forward kernel takes D 256, the backward kernels do not: on the
-    card such a backward raises NotImplementedError (tests/
-    test_torch_cuda_kernels.py); here the checks refuse D 256 for the
-    backward by its head dim, before the tensors' device, and the CPU's
-    plain backward takes any head dim."""
-    assert flash_module.supports(12, 256) and not flash_module.supports_backward(12, 256)
-    assert all(flash_module.supports_backward(4, d) for d in (64, 128))
+    """Both BSHD kernels take D 64, 128 and 256 (AuraFlow's 12 heads of
+    256); other head dims are refused by the forward's and the backward's
+    checks alike, before the tensors' device. D 256 on the CPU is refused
+    for the kernels for where it lies, and the CPU's plain backward takes
+    it (and any head dim)."""
+    for d in (32, 48, 64, 96, 128, 256):
+        want = d in (64, 128, 256)
+        assert flash_module.supports(12, d) is want and flash_module.supports_backward(12, d) is want
+    q = torch.zeros(1, 256, 2 * 96)
+    for backward in (False, True):
+        with pytest.raises(ValueError, match="head dims"):
+            flash_module._check(q, q, q, 2, backward=backward)
     q = torch.zeros(1, 256, 512)
-    with pytest.raises(ValueError, match="backward kernels take head dims"):
-        flash_module._check(q, q, q, 2, backward=True)
-    with pytest.raises(ValueError, match="bf16 on"):  # the forward takes D 256: refused for the CPU
-        flash_module._check(q, q, q, 2)
+    for backward in (False, True):  # D 256: refused for the CPU, not for its head dim
+        with pytest.raises(ValueError, match="bf16 on"):
+            flash_module._check(q, q, q, 2, backward=backward)
     leaves = [torch.from_numpy(_rand(i, (1, 40, 512))).requires_grad_() for i in range(3)]
     grads = torch.autograd.grad(flash_attention_bshd(*leaves, 2).sum(), leaves)
     want = torch.autograd.grad(flash_attention_bshd_reference(*leaves, 2).sum(), leaves)

@@ -30,7 +30,7 @@
 // produces with TMA; setmaxnreg moves registers to the consumers.
 //   - dk/dv kernel: one block per (128-key tile, head, batch); each consumer
 //     warpgroup owns 64 keys. The producer loads the K and V tiles once and
-//     streams a ring of kRingStages stages, each a 64-row Q tile, the same
+//     streams a ring of Cfg<D>::kStages stages, each a 64-row Q tile, the same
 //     rows of dO and those rows' lse (times log2 e) and delta. Per stage a
 //     warpgroup computes the TRANSPOSED tiles S^T = K Q^T and dP^T = V dO^T
 //     (wgmma m64n64k16, both operands K-major in D), P^T = exp2(S^T scale
@@ -59,11 +59,31 @@
 //     the K-major descriptors step to the second box after 4 K steps, and
 //     the MN-major ones span both boxes through their leading byte offset.
 //   - exp runs as ex2.approx with log2(e) folded into the scale and into lse.
+//   - D = 256 (AuraFlow's 12 heads of 256): a consumer thread can hold a
+//     64 x 128 fp32 accumulator (64 registers) beside S and dP, not 64 x 256
+//     (128 registers): a 384-thread block is compiled for 168 registers a
+//     thread whatever setmaxnreg asks. And 128 resident rows of two tensors
+//     (128 KB) beside a ring of 64-row tiles of two (64 KB a stage) pass the
+//     227 KB a block may have. So at D = 256 a block owns 64 rows (Cfg<256>),
+//     its ring has 2 stages (198,696 bytes in all), and the two consumer
+//     warpgroups split D's output columns instead of the rows:
+//       dk/dv: one block per (64-key tile, half of D's columns, head,
+//       batch); warpgroup 0 computes S^T and dP^T over all of D and makes
+//       dK's half (dK += dS^T Q[:, half]), warpgroup 1 computes S^T and
+//       makes dV's half (dV += P^T dO[:, half]). Each accumulator is 64 x
+//       128. S^T is made in both warpgroups and in both halves' blocks,
+//       dP^T in both halves' blocks: 8 B S^2 H D of products become 16.
+//       dq: one block per (64-row q tile, head, batch); warpgroup w makes
+//       dQ's columns [128 w, 128 w + 128) and computes S and dP over all of
+//       D for the same 64 rows: 6 B S^2 H D become 10.
+//     Simple and right first; the products done twice are what a faster
+//     schedule would take away (P^T and dS^T shared through shared memory).
 // Left for later work: persistent blocks, TMA stores of the gradients; at
 // D = 128 the dk/dv consumers need more than the 168 registers a thread of
 // a 384-thread block is compiled for (two 64 x 128 accumulators; ptxas does
 // not grow them for setmaxnreg), so ptxas spills there and serializes the
-// wgmma (kernel G's D > 64 path shows one way round it).
+// wgmma (kernel G's D > 64 path shows one way round it; D = 256's column
+// split is another).
 //
 // hopper_wgmma_forms_probe (a test entry, on no model path) holds each
 // wgmma form this file takes from hopper_gemm.cuh to one 64 x N product.
@@ -77,25 +97,40 @@ namespace {
 using namespace hopper;
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kBlockRows = 128;   // keys (dk/dv) or q rows (dq) a block owns
 constexpr int kStepRows = 64;     // q rows (dk/dv) or keys (dq) of a streamed tile
-constexpr int kRingStages = 3;
 constexpr int kBoxBytes = 64 * 128;  // 64 rows of one 64-column box
 constexpr int kProducerThread = 256;  // lane 0 of the producer warp
 
-// Shared memory of both kernels: two resident tensors of 128 rows x D (K
-// and V, or Q and dO), each D / 64 boxes of 128 rows; the ring, a stage
+// Per head dim: the keys (dk/dv) or q rows (dq) a block owns, the ring's
+// stages, and the parts D's output columns are split into (1: each
+// consumer warpgroup owns 64 of the block's rows and all of D; 2: both
+// warpgroups work on all the block's rows, the dk/dv blocks on one half of
+// D each, see the head of the file).
+template <int D>
+struct Cfg {
+  static constexpr int kRows = 128, kStages = 3, kSplit = 1;
+};
+template <>
+struct Cfg<256> {
+  static constexpr int kRows = 64, kStages = 2, kSplit = 2;
+};
+
+// Shared memory of both kernels: two resident tensors of kRows rows x D (K
+// and V, or Q and dO), each D / 64 boxes of kRows rows; the ring, a stage
 // holding two tensors of 64 rows x D (Q and dO, or K and V), each D / 64
 // boxes of 64 rows; per stage 64 lse and 64 delta values (dk/dv kernel); the
 // barriers.
 template <int D>
 struct Smem {
+  static constexpr int kRows = Cfg<D>::kRows;
+  static constexpr int kStages = Cfg<D>::kStages;
   static constexpr int kBoxes = D / 64;
-  static constexpr int kResidentBytes = kBlockRows * D * 2;
+  static constexpr int kResidentBytes = kRows * D * 2;
   static constexpr int kStreamBytes = kStepRows * D * 2;
   static constexpr int kStageBytes = 2 * kStreamBytes;
-  static constexpr int kBytes = 1024 + 2 * kResidentBytes + kRingStages * kStageBytes +
-                                kRingStages * 2 * kStepRows * 4 + (2 * kRingStages + 1) * 8;
+  static constexpr int kBytes = 1024 + 2 * kResidentBytes + kStages * kStageBytes +
+                                kStages * 2 * kStepRows * 4 + (2 * kStages + 1) * 8;
+  static_assert(kBytes <= 232448, "more shared memory than a block may have");
   uint8_t* resident[2];
   uint8_t* ring;
   float* stats;
@@ -106,10 +141,10 @@ struct Smem {
     resident[0] = align_1024(raw);
     resident[1] = resident[0] + kResidentBytes;
     ring = resident[1] + kResidentBytes;
-    stats = reinterpret_cast<float*>(ring + kRingStages * kStageBytes);
-    full = reinterpret_cast<uint64_t*>(stats + kRingStages * 2 * kStepRows);
-    empty = full + kRingStages;
-    loaded = empty + kRingStages;
+    stats = reinterpret_cast<float*>(ring + kStages * kStageBytes);
+    full = reinterpret_cast<uint64_t*>(stats + kStages * 2 * kStepRows);
+    empty = full + kStages;
+    loaded = empty + kStages;
   }
   __device__ __forceinline__ uint8_t* stage(int s) const { return ring + s * kStageBytes; }
 };
@@ -119,7 +154,7 @@ struct Smem {
 template <int D>
 __device__ __forceinline__ void init_barriers(const Smem<D>& sm, uint32_t full_arrivals) {
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kRingStages; ++s) {
+    for (int s = 0; s < Smem<D>::kStages; ++s) {
       mbar_init(&sm.full[s], full_arrivals);
       mbar_init(&sm.empty[s], kConsumerWarps);
     }
@@ -128,7 +163,7 @@ __device__ __forceinline__ void init_barriers(const Smem<D>& sm, uint32_t full_a
   }
 }
 
-// Producer lane 0: the rows [row0, row0 + 128) of head h, batch b of two
+// Producer lane 0: the rows [row0, row0 + kRows) of head h, batch b of two
 // tensors into the resident buffers.
 template <int D>
 __device__ __forceinline__ void load_resident(const Smem<D>& sm, const CUtensorMap* map0,
@@ -136,8 +171,9 @@ __device__ __forceinline__ void load_resident(const Smem<D>& sm, const CUtensorM
   mbar_arrive_expect_tx(sm.loaded, 2 * Smem<D>::kResidentBytes);
 #pragma unroll
   for (int box = 0; box < Smem<D>::kBoxes; ++box) {
-    tma_load_3d(sm.resident[0] + box * 2 * kBoxBytes, map0, sm.loaded, h * D + 64 * box, row0, b);
-    tma_load_3d(sm.resident[1] + box * 2 * kBoxBytes, map1, sm.loaded, h * D + 64 * box, row0, b);
+    const int offset = box * Smem<D>::kRows * 128;
+    tma_load_3d(sm.resident[0] + offset, map0, sm.loaded, h * D + 64 * box, row0, b);
+    tma_load_3d(sm.resident[1] + offset, map1, sm.loaded, h * D + 64 * box, row0, b);
   }
 }
 
@@ -177,10 +213,78 @@ template <int D>
 __device__ __forceinline__ void scores(float (&x)[32], uint64_t desc_a, uint64_t desc_b) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    wgmma_m64n64k16(x, desc_a + k_major_step<kBlockRows>(kk), desc_b + k_major_step<kStepRows>(kk),
-                    kk > 0);
+    wgmma_m64n64k16(x, desc_a + k_major_step<Smem<D>::kRows>(kk),
+                    desc_b + k_major_step<kStepRows>(kk), kk > 0);
   }
   wgmma_commit();
+}
+
+// P^T = exp2(S^T scale log2 e - lse log2 e) of a dk/dv stage: the columns
+// are q rows, lse per column (cols 8j + 2 (lane % 4) + {0, 1}); +inf past
+// sq, so P^T = 0 there.
+__device__ __forceinline__ void transposed_p(float (&p)[32], const float (&s)[32],
+                                             const float* stats, int lane, float scale_log2) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 l = *reinterpret_cast<const float2*>(stats + 8 * j + 2 * (lane % 4));
+    p[4 * j] = ex2_approx(fmaf(s[4 * j], scale_log2, -l.x));
+    p[4 * j + 1] = ex2_approx(fmaf(s[4 * j + 1], scale_log2, -l.y));
+    p[4 * j + 2] = ex2_approx(fmaf(s[4 * j + 2], scale_log2, -l.x));
+    p[4 * j + 3] = ex2_approx(fmaf(s[4 * j + 3], scale_log2, -l.y));
+  }
+}
+
+// dS^T = P^T (dP^T - delta) scale of a dk/dv stage, delta per column.
+__device__ __forceinline__ void transposed_ds(float (&ds)[32], const float (&p)[32],
+                                              const float (&dp)[32], const float* stats,
+                                              int lane, float scale) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 dl = *reinterpret_cast<const float2*>(stats + kStepRows + 8 * j + 2 * (lane % 4));
+    ds[4 * j] = p[4 * j] * (dp[4 * j] - dl.x) * scale;
+    ds[4 * j + 1] = p[4 * j + 1] * (dp[4 * j + 1] - dl.y) * scale;
+    ds[4 * j + 2] = p[4 * j + 2] * (dp[4 * j + 2] - dl.x) * scale;
+    ds[4 * j + 3] = p[4 * j + 3] * (dp[4 * j + 3] - dl.y) * scale;
+  }
+}
+
+// The dk/dv producer warp: K and V rows [k0, k0 + kRows) once, then every
+// 64-row Q and dO tile of the head into the ring, each stage's lse (times
+// log2 e) and delta written by the warp's 32 lanes one stage ahead, so that
+// their latency passes while the producer waits for a free stage.
+template <int D>
+__device__ __forceinline__ void produce_dkv(const Smem<D>& sm, const CUtensorMap* map_q,
+                                            const CUtensorMap* map_k, const CUtensorMap* map_v,
+                                            const CUtensorMap* map_do, const float* lse,
+                                            const float* delta, int sq, int num_heads, int k0,
+                                            int h, int b) {
+  const int lane = threadIdx.x - kProducerThread;
+  const int num_qt = (sq + kStepRows - 1) / kStepRows;
+  const float* lse_h = lse + ((long long)b * num_heads + h) * sq;
+  const float* delta_h = delta + ((long long)b * num_heads + h) * sq;
+  if (lane == 0) load_resident(sm, map_k, map_v, k0, h, b);
+  float next[4];
+  load_stats(next, lse_h, delta_h, lane, sq);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int qt = 0; qt < num_qt; ++qt) {
+    mbar_wait(&sm.empty[stage], phase ^ 1u);
+    float* stats = sm.stats + stage * 2 * kStepRows;
+    stats[lane] = next[0] * kLog2e;  // +inf past sq: P = 0 there
+    stats[lane + 32] = next[1] * kLog2e;
+    stats[kStepRows + lane] = next[2];
+    stats[kStepRows + lane + 32] = next[3];
+    if (qt + 1 < num_qt) load_stats(next, lse_h, delta_h, (qt + 1) * kStepRows + lane, sq);
+    if (lane == 0) {
+      load_stage(sm, stage, map_q, map_do, qt * kStepRows, h, b);
+    } else {
+      mbar_arrive(&sm.full[stage]);
+    }
+    if (++stage == Smem<D>::kStages) {
+      stage = 0;
+      phase ^= 1u;
+    }
+  }
 }
 
 template <int D>
@@ -195,7 +299,8 @@ flash_bwd_dkv_bshd_kernel(const __grid_constant__ CUtensorMap map_q,
                           long long dv_sb, long long dv_ss, float scale) {
   extern __shared__ uint8_t smem_raw[];
   const Smem<D> sm(smem_raw);
-  const int k0 = blockIdx.x * kBlockRows;
+  static_assert(Cfg<D>::kSplit == 1, "D = 256 has a dk/dv kernel of its own");
+  const int k0 = blockIdx.x * Smem<D>::kRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int num_qt = (sq + kStepRows - 1) / kStepRows;
@@ -207,34 +312,7 @@ flash_bwd_dkv_bshd_kernel(const __grid_constant__ CUtensorMap map_q,
   if (wg == 2) {
     setmaxnreg_dec<40>();
     if (threadIdx.x < kProducerThread + 32) {
-      const int lane = threadIdx.x - kProducerThread;
-      const float* lse_h = lse + ((long long)b * num_heads + h) * sq;
-      const float* delta_h = delta + ((long long)b * num_heads + h) * sq;
-      if (lane == 0) load_resident(sm, &map_k, &map_v, k0, h, b);
-      // a stage's lse and delta are loaded one stage ahead, so that their
-      // latency passes while the producer waits for a free stage
-      float next[4];
-      load_stats(next, lse_h, delta_h, lane, sq);
-      int stage = 0;
-      uint32_t phase = 0;
-      for (int qt = 0; qt < num_qt; ++qt) {
-        mbar_wait(&sm.empty[stage], phase ^ 1u);
-        float* stats = sm.stats + stage * 2 * kStepRows;
-        stats[lane] = next[0] * kLog2e;  // +inf past sq: P = 0 there
-        stats[lane + 32] = next[1] * kLog2e;
-        stats[kStepRows + lane] = next[2];
-        stats[kStepRows + lane + 32] = next[3];
-        if (qt + 1 < num_qt) load_stats(next, lse_h, delta_h, (qt + 1) * kStepRows + lane, sq);
-        if (lane == 0) {
-          load_stage(sm, stage, &map_q, &map_do, qt * kStepRows, h, b);
-        } else {
-          mbar_arrive(&sm.full[stage]);
-        }
-        if (++stage == kRingStages) {
-          stage = 0;
-          phase ^= 1u;
-        }
-      }
+      produce_dkv(sm, &map_q, &map_k, &map_v, &map_do, lse, delta, sq, num_heads, k0, h, b);
     }
   } else {
     setmaxnreg_inc<232>();
@@ -263,26 +341,10 @@ flash_bwd_dkv_bshd_kernel(const __grid_constant__ CUtensorMap map_q,
       scores<D>(dp, desc_v, desc_sw128(tile_do));  // dP^T = V dO^T
       wgmma_wait<1>();  // S^T
       fence_operands(s);
-      // columns are q rows: lse and delta per column, cols 8j + 2 (lane % 4) + {0, 1}
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float2 l = *reinterpret_cast<const float2*>(stats + 8 * j + 2 * (lane % 4));
-        p[4 * j] = ex2_approx(fmaf(s[4 * j], scale_log2, -l.x));
-        p[4 * j + 1] = ex2_approx(fmaf(s[4 * j + 1], scale_log2, -l.y));
-        p[4 * j + 2] = ex2_approx(fmaf(s[4 * j + 2], scale_log2, -l.x));
-        p[4 * j + 3] = ex2_approx(fmaf(s[4 * j + 3], scale_log2, -l.y));
-      }
+      transposed_p(p, s, stats, lane, scale_log2);
       wgmma_wait<0>();
       fence_operands(dp);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float2 dl =
-            *reinterpret_cast<const float2*>(stats + kStepRows + 8 * j + 2 * (lane % 4));
-        ds[4 * j] = p[4 * j] * (dp[4 * j] - dl.x) * scale;
-        ds[4 * j + 1] = p[4 * j + 1] * (dp[4 * j + 1] - dl.y) * scale;
-        ds[4 * j + 2] = p[4 * j + 2] * (dp[4 * j + 2] - dl.x) * scale;
-        ds[4 * j + 3] = p[4 * j + 3] * (dp[4 * j + 3] - dl.y) * scale;
-      }
+      transposed_ds(ds, p, dp, stats, lane, scale);
       uint32_t p_frag[4][4], ds_frag[4][4];
       acc_to_a_fragments<64>(p_frag, p);
       acc_to_a_fragments<64>(ds_frag, ds);
@@ -295,7 +357,7 @@ flash_bwd_dkv_bshd_kernel(const __grid_constant__ CUtensorMap map_q,
       fence_operands(dv_acc);
       fence_operands(dk_acc);
       if (lane == 0) mbar_arrive(&sm.empty[stage]);
-      if (++stage == kRingStages) {
+      if (++stage == Smem<D>::kStages) {
         stage = 0;
         phase ^= 1u;
       }
@@ -305,6 +367,106 @@ flash_bwd_dkv_bshd_kernel(const __grid_constant__ CUtensorMap map_q,
     const int col = h * D + 2 * (lane % 4);
     store_acc_rows<D>(dk + b * dk_sb + col, dk_ss, dk_acc, key, sk);
     store_acc_rows<D>(dv + b * dv_sb + col, dv_ss, dv_acc, key, sk);
+  }
+}
+
+// D = 256: one block per (64-key tile, half of D's output columns, head,
+// batch), blockIdx.x = 2 * tile + half. Warpgroup 0 makes dK's half: S^T
+// and dP^T over all of D, then dK += bf16(dS^T) Q[:, half]; warpgroup 1
+// makes dV's half: S^T, then dV += bf16(P^T) dO[:, half]. Each holds one
+// 64 x 128 fp32 accumulator; the producer is the generic kernel's.
+template <bool DK>
+__device__ __forceinline__ void consume_dkv256(const Smem<256>& sm, __nv_bfloat16* out,
+                                               long long out_ss, int sq, int sk, int k0, int half,
+                                               int h, float scale) {
+  constexpr int D = 256;
+  const int t = threadIdx.x % 128;
+  const int lane = t % 32;
+  const int num_qt = (sq + kStepRows - 1) / kStepRows;
+  const float scale_log2 = scale * kLog2e;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  const uint64_t desc_k = desc_sw128(sm.resident[0]);
+  const uint64_t desc_v = desc_sw128(sm.resident[1]);
+  mbar_wait(sm.loaded, 0);
+
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int qt = 0; qt < num_qt; ++qt) {
+    mbar_wait(&sm.full[stage], phase);
+    const uint8_t* tile_q = sm.stage(stage);
+    const uint8_t* tile_do = tile_q + Smem<D>::kStreamBytes;
+    const float* stats = sm.stats + stage * 2 * kStepRows;
+
+    float s[32], p[32];
+    uint32_t frag[4][4];
+    wgmma_fence();
+    scores<D>(s, desc_k, desc_sw128(tile_q));  // S^T = K Q^T
+    if constexpr (DK) {
+      float dp[32], ds[32];
+      scores<D>(dp, desc_v, desc_sw128(tile_do));  // dP^T = V dO^T
+      wgmma_wait<1>();
+      fence_operands(s);
+      transposed_p(p, s, stats, lane, scale_log2);
+      wgmma_wait<0>();
+      fence_operands(dp);
+      transposed_ds(ds, p, dp, stats, lane, scale);
+      acc_to_a_fragments<64>(frag, ds);
+    } else {
+      wgmma_wait<0>();
+      fence_operands(s);
+      transposed_p(p, s, stats, lane, scale_log2);
+      acc_to_a_fragments<64>(frag, p);
+    }
+    // dK += dS^T Q[:, half] or dV += P^T dO[:, half]: two of the tile's four boxes
+    wgmma_fence();
+    mma_rs_mn<128, 4>(acc, frag, (DK ? tile_q : tile_do) + half * 2 * kBoxBytes, kBoxBytes);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc);
+    if (lane == 0) mbar_arrive(&sm.empty[stage]);
+    if (++stage == Smem<D>::kStages) {
+      stage = 0;
+      phase ^= 1u;
+    }
+  }
+  const int key = k0 + 16 * (t / 32) + lane / 4;
+  store_acc_rows<128>(out + h * D + 128 * half + 2 * (lane % 4), out_ss, acc, key, sk);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_bshd_d256_kernel(const __grid_constant__ CUtensorMap map_q,
+                               const __grid_constant__ CUtensorMap map_k,
+                               const __grid_constant__ CUtensorMap map_v,
+                               const __grid_constant__ CUtensorMap map_do,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                               int sq, int sk, int num_heads, long long dk_sb, long long dk_ss,
+                               long long dv_sb, long long dv_ss, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  const Smem<256> sm(smem_raw);
+  const int k0 = (blockIdx.x >> 1) * Smem<256>::kRows;
+  const int half = blockIdx.x & 1;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+
+  init_barriers(sm, 32);
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x < kProducerThread + 32) {
+      produce_dkv(sm, &map_q, &map_k, &map_v, &map_do, lse, delta, sq, num_heads, k0, h, b);
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    if (wg == 0) {
+      consume_dkv256<true>(sm, dk + b * dk_sb, dk_ss, sq, sk, k0, half, h, scale);
+    } else {
+      consume_dkv256<false>(sm, dv + b * dv_sb, dv_ss, sq, sk, k0, half, h, scale);
+    }
   }
 }
 
@@ -319,7 +481,12 @@ flash_bwd_dq_bshd_kernel(const __grid_constant__ CUtensorMap map_q,
                          long long dq_sb, long long dq_ss, float scale) {
   extern __shared__ uint8_t smem_raw[];
   const Smem<D> sm(smem_raw);
-  const int q0 = blockIdx.x * kBlockRows;
+  // kSplit 1: warpgroup wg owns q rows [64 wg, 64 wg + 64) of the block
+  // and all of dQ's D columns; kSplit 2 (D = 256): both own the block's 64
+  // rows, warpgroup wg dQ's columns [128 wg, 128 wg + 128)
+  constexpr int kSplit = Cfg<D>::kSplit;
+  constexpr int DN = D / kSplit;
+  const int q0 = blockIdx.x * Smem<D>::kRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int num_kt = (sk + kStepRows - 1) / kStepRows;
@@ -337,7 +504,7 @@ flash_bwd_dq_bshd_kernel(const __grid_constant__ CUtensorMap map_q,
       for (int kt = 0; kt < num_kt; ++kt) {
         mbar_wait(&sm.empty[stage], phase ^ 1u);
         load_stage(sm, stage, &map_k, &map_v, kt * kStepRows, h, b);
-        if (++stage == kRingStages) {
+        if (++stage == Smem<D>::kStages) {
           stage = 0;
           phase ^= 1u;
         }
@@ -349,18 +516,20 @@ flash_bwd_dq_bshd_kernel(const __grid_constant__ CUtensorMap map_q,
     const int lane = t % 32;
     const float scale_log2 = scale * kLog2e;
     // this thread's q rows: row and row + 8; P = 0 past sq (lse = +inf)
-    const int row = q0 + 64 * wg + 16 * (t / 32) + lane / 4;
+    const int row_wg = kSplit == 1 ? 64 * wg : 0;
+    const int col_wg = kSplit == 1 ? 0 : DN * wg;
+    const int row = q0 + row_wg + 16 * (t / 32) + lane / 4;
     const float* lse_h = lse + ((long long)b * num_heads + h) * sq;
     const float* delta_h = delta + ((long long)b * num_heads + h) * sq;
     const float lse_lo = row < sq ? lse_h[row] * kLog2e : INFINITY;
     const float lse_hi = row + 8 < sq ? lse_h[row + 8] * kLog2e : INFINITY;
     const float delta_lo = row < sq ? delta_h[row] : 0.f;
     const float delta_hi = row + 8 < sq ? delta_h[row + 8] : 0.f;
-    float dq_acc[D / 2];
+    float dq_acc[DN / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
-    const uint64_t desc_q = desc_sw128(sm.resident[0] + wg * kBoxBytes);
-    const uint64_t desc_do = desc_sw128(sm.resident[1] + wg * kBoxBytes);
+    for (int i = 0; i < DN / 2; ++i) dq_acc[i] = 0.f;
+    const uint64_t desc_q = desc_sw128(sm.resident[0] + row_wg * 128);
+    const uint64_t desc_do = desc_sw128(sm.resident[1] + row_wg * 128);
     mbar_wait(sm.loaded, 0);
 
     int stage = 0;
@@ -399,18 +568,18 @@ flash_bwd_dq_bshd_kernel(const __grid_constant__ CUtensorMap map_q,
       acc_to_a_fragments<64>(ds_frag, ds);
 
       wgmma_fence();
-      mma_rs_mn<D, 4>(dq_acc, ds_frag, tile_k, kBoxBytes);  // dQ += dS K
+      mma_rs_mn<DN, 4>(dq_acc, ds_frag, tile_k + col_wg / 64 * kBoxBytes, kBoxBytes);  // dQ += dS K
       wgmma_commit();
       wgmma_wait<0>();
       fence_operands(dq_acc);
       if (lane == 0) mbar_arrive(&sm.empty[stage]);
-      if (++stage == kRingStages) {
+      if (++stage == Smem<D>::kStages) {
         stage = 0;
         phase ^= 1u;
       }
     }
 
-    store_acc_rows<D>(dq + b * dq_sb + h * D + 2 * (lane % 4), dq_ss, dq_acc, row, sq);
+    store_acc_rows<DN>(dq + b * dq_sb + h * D + col_wg + 2 * (lane % 4), dq_ss, dq_acc, row, sq);
   }
 }
 
@@ -436,12 +605,22 @@ int launch_dkv(const Maps& maps, const float* lse, const float* delta, __nv_bflo
                __nv_bfloat16* dv, int batch, int sq, int sk, int num_heads, long long dk_sb,
                long long dk_ss, long long dv_sb, long long dv_ss, float scale,
                cudaStream_t stream) {
-  const int err = allow_dynamic_smem<flash_bwd_dkv_bshd_kernel<D>>(Smem<D>::kBytes);
-  if (err) return err;
-  const dim3 grid((sk + kBlockRows - 1) / kBlockRows, num_heads, batch);
-  flash_bwd_dkv_bshd_kernel<D><<<grid, kThreads, Smem<D>::kBytes, stream>>>(
-      maps.q, maps.k, maps.v, maps.dout, lse, delta, dk, dv, sq, sk, num_heads, dk_sb, dk_ss,
-      dv_sb, dv_ss, scale);
+  constexpr int kRows = Smem<D>::kRows;
+  if constexpr (Cfg<D>::kSplit == 1) {
+    const int err = allow_dynamic_smem<flash_bwd_dkv_bshd_kernel<D>>(Smem<D>::kBytes);
+    if (err) return err;
+    const dim3 grid((sk + kRows - 1) / kRows, num_heads, batch);
+    flash_bwd_dkv_bshd_kernel<D><<<grid, kThreads, Smem<D>::kBytes, stream>>>(
+        maps.q, maps.k, maps.v, maps.dout, lse, delta, dk, dv, sq, sk, num_heads, dk_sb, dk_ss,
+        dv_sb, dv_ss, scale);
+  } else {
+    const int err = allow_dynamic_smem<flash_bwd_dkv_bshd_d256_kernel>(Smem<D>::kBytes);
+    if (err) return err;
+    const dim3 grid(2 * ((sk + kRows - 1) / kRows), num_heads, batch);
+    flash_bwd_dkv_bshd_d256_kernel<<<grid, kThreads, Smem<D>::kBytes, stream>>>(
+        maps.q, maps.k, maps.v, maps.dout, lse, delta, dk, dv, sq, sk, num_heads, dk_sb, dk_ss,
+        dv_sb, dv_ss, scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -451,7 +630,7 @@ int launch_dq(const Maps& maps, const float* lse, const float* delta, __nv_bfloa
               float scale, cudaStream_t stream) {
   const int err = allow_dynamic_smem<flash_bwd_dq_bshd_kernel<D>>(Smem<D>::kBytes);
   if (err) return err;
-  const dim3 grid((sq + kBlockRows - 1) / kBlockRows, num_heads, batch);
+  const dim3 grid((sq + Smem<D>::kRows - 1) / Smem<D>::kRows, num_heads, batch);
   flash_bwd_dq_bshd_kernel<D><<<grid, kThreads, Smem<D>::kBytes, stream>>>(
       maps.q, maps.k, maps.v, maps.dout, lse, delta, dq, sq, sk, num_heads, dq_sb, dq_ss, scale);
   return static_cast<int>(cudaGetLastError());
@@ -575,10 +754,14 @@ extern "C" int flash_attention_bshd_bwd_dkv(
     long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb, long long v_ss,
     long long do_sb, long long do_ss, long long dk_sb, long long dk_ss, long long dv_sb,
     long long dv_ss, float scale, void* stream) {
-  if (head_dim != 64 && head_dim != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (head_dim != 64 && head_dim != 128 && head_dim != 256) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // K and V are the resident tensors: boxes of the block's rows
+  const uint32_t rows = head_dim == 256 ? Smem<256>::kRows : Smem<64>::kRows;
   Maps maps;
   const int err = make_maps(&maps, q, k, v, dout, batch, sq, sk, num_heads * head_dim, q_sb,
-                            q_ss, k_sb, k_ss, v_sb, v_ss, do_sb, do_ss, kStepRows, kBlockRows);
+                            q_ss, k_sb, k_ss, v_sb, v_ss, do_sb, do_ss, kStepRows, rows);
   if (err) return err;
   const auto* lb = static_cast<const float*>(lse);
   const auto* db = static_cast<const float*>(delta);
@@ -588,6 +771,10 @@ extern "C" int flash_attention_bshd_bwd_dkv(
   if (head_dim == 64) {
     return launch_dkv<64>(maps, lb, db, dkb, dvb, batch, sq, sk, num_heads, dk_sb, dk_ss, dv_sb,
                           dv_ss, scale, s);
+  }
+  if (head_dim == 256) {
+    return launch_dkv<256>(maps, lb, db, dkb, dvb, batch, sq, sk, num_heads, dk_sb, dk_ss, dv_sb,
+                           dv_ss, scale, s);
   }
   return launch_dkv<128>(maps, lb, db, dkb, dvb, batch, sq, sk, num_heads, dk_sb, dk_ss, dv_sb,
                          dv_ss, scale, s);
@@ -599,10 +786,14 @@ extern "C" int flash_attention_bshd_bwd_dq(
     long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb, long long v_ss,
     long long do_sb, long long do_ss, long long dq_sb, long long dq_ss, float scale,
     void* stream) {
-  if (head_dim != 64 && head_dim != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (head_dim != 64 && head_dim != 128 && head_dim != 256) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // Q and dO are the resident tensors: boxes of the block's rows
+  const uint32_t rows = head_dim == 256 ? Smem<256>::kRows : Smem<64>::kRows;
   Maps maps;
   const int err = make_maps(&maps, q, k, v, dout, batch, sq, sk, num_heads * head_dim, q_sb,
-                            q_ss, k_sb, k_ss, v_sb, v_ss, do_sb, do_ss, kBlockRows, kStepRows);
+                            q_ss, k_sb, k_ss, v_sb, v_ss, do_sb, do_ss, rows, kStepRows);
   if (err) return err;
   const auto* lb = static_cast<const float*>(lse);
   const auto* db = static_cast<const float*>(delta);
@@ -610,6 +801,9 @@ extern "C" int flash_attention_bshd_bwd_dq(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64) {
     return launch_dq<64>(maps, lb, db, dqb, batch, sq, sk, num_heads, dq_sb, dq_ss, scale, s);
+  }
+  if (head_dim == 256) {
+    return launch_dq<256>(maps, lb, db, dqb, batch, sq, sk, num_heads, dq_sb, dq_ss, scale, s);
   }
   return launch_dq<128>(maps, lb, db, dqb, batch, sq, sk, num_heads, dq_sb, dq_ss, scale, s);
 }

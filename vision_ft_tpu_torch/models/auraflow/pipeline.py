@@ -50,6 +50,10 @@ _TIED = ("text_encoder.model.shared.weight", "text_encoder.model.encoder.embed_t
 
 class AuraFlowModel:
     denoiser_class: type[Denoiser] = Denoiser
+    # denoiser leaves a base checkpoint lacks (a workload's own modules: the
+    # shortcut embedder, the migration scale): loaded as zeros where the
+    # file has none; the workload sets them up after the load
+    optional_denoiser_prefixes: tuple[str, ...] = ()
 
     def __init__(
         self,
@@ -72,6 +76,12 @@ class AuraFlowModel:
 
     def _parts(self) -> dict[str, nn.Module]:
         return {name: getattr(self, name) for name in _PARTS}
+
+    def as_module(self) -> nn.ModuleDict:
+        """The three parts as one module (the same modules, not copies),
+        keyed ``denoiser.*``, ``vae.*``, ``text_encoder.*`` as the JAX
+        package's flattened params."""
+        return nn.ModuleDict(self._parts())
 
     @property
     def device(self) -> torch.device:
@@ -155,6 +165,10 @@ class AuraFlowModel:
                         value = f.get_tensor(original)
                         dtype = self.dtype if value.is_floating_point() else value.dtype
                         flat[key[len(prefix):]] = value.to(device=device, dtype=dtype)
+                if name == "denoiser":
+                    for key, leaf in part.state_dict().items():
+                        if key not in flat and key.startswith(self.optional_denoiser_prefixes):
+                            flat[key] = torch.zeros(leaf.shape, dtype=self.dtype, device=device)
                 part.to(dtype=self.dtype)
                 load_flat_params(part, convert_prequantized_state_dict(flat), meta_device=device)
                 del flat

@@ -1,3 +1,3 @@
-from . import diffusion, flow_match
+from . import diffusion, flow_match, shortcut
 
-__all__ = ["diffusion", "flow_match"]
+__all__ = ["diffusion", "flow_match", "shortcut"]

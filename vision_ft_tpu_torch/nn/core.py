@@ -332,12 +332,16 @@ def attach_adapters_from_state(module: nn.Module, flat: Mapping[str, torch.Tenso
         attach_adapter(layers[root], tensors)
 
 
-def _adapter_scale(layer: nn.Module, rank: int, dtype: torch.dtype) -> float:
+def _adapter_scale(layer: nn.Module, rank: int, dtype: torch.dtype) -> float | torch.Tensor:
     """alpha / rank rounded to ``dtype``, as a host number: a 0-dim tensor
     as the factor sends every adapted layer's delta through PyTorch's
     unvectorized broadcasting kernel. The buffer is read once, and again
-    when it has been replaced or written to."""
+    when it has been replaced or written to. An ``alpha`` that trains (a
+    workload's extra-trainable filter reaches it, as the JAX package's
+    does) gives the 0-dim tensor, so that its gradient flows."""
     alpha = layer.alpha
+    if alpha.requires_grad:
+        return (alpha.float() / rank).to(dtype)
     version = 0 if alpha.is_inference() else alpha._version
     cached = layer.__dict__.get("_adapter_scale_cache")
     if cached is None or cached[0] is not alpha or cached[1:3] != (version, dtype):

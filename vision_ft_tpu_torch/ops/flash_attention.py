@@ -5,12 +5,10 @@ kernels' entries) and ``vision_ft_tpu/ops/flash_attention.py`` (the
 routing). The kernels are CUDA C++, built for ``sm_90a`` by
 ``ops/_build.py`` and bound with ``ctypes``:
 
-- ``csrc/flash_attention_bshd.cu`` (forward, head dims 64, 128 and 256)
-  and ``csrc/flash_attention_bshd_bwd.cu`` (backward: a dk/dv kernel and a
-  dq kernel, head dims 64 and 128) over heads-packed tensors, no mask: the
-  JAX ``flash_attention_bshd`` and its custom VJP. On the card a backward
-  at a head dim the backward kernels do not take raises
-  ``NotImplementedError``;
+- ``csrc/flash_attention_bshd.cu`` (forward) and
+  ``csrc/flash_attention_bshd_bwd.cu`` (backward: a dk/dv kernel and a dq
+  kernel) over heads-packed tensors, no mask, head dims 64, 128 and 256:
+  the JAX ``flash_attention_bshd`` and its custom VJP;
 - ``csrc/flash_attention_masked.cu`` (forward) and
   ``csrc/flash_attention_masked_bwd.cu`` (backward: a dk/dv kernel that
   sums over the query heads of each kv head, and a dq kernel) over
@@ -79,7 +77,7 @@ from . import _build
 
 # head dims each kernel is built for
 BSHD_FWD_HEAD_DIMS = (64, 128, 256)  # forward over heads-packed tensors
-BSHD_BWD_HEAD_DIMS = (64, 128)       # backward over heads-packed tensors
+BSHD_BWD_HEAD_DIMS = (64, 128, 256)  # backward over heads-packed tensors
 MASKED_HEAD_DIMS = (64, 96, 128)  # key-masked forward over (B, H, S, D)
 SHORTK_HEAD_DIMS = (64, 128)      # short-K forward and backward over (B, H, S, D)
 SHORTK_MAX = 192  # the most keys the short-K kernels hold on chip, as in the JAX package
@@ -332,16 +330,10 @@ def flash_attention_bshd_backward(
 ):
     """(dq, dk, dv) of :func:`flash_attention_bshd` from its inputs, its
     output, its lse and the output's gradient (any layout: it is made
-    contiguous here). On the card a head dim the backward kernels do not
-    take (256) raises ``NotImplementedError``: it has no plain fallback."""
+    contiguous here). On the card it launches the two backward kernels or
+    raises: it has no plain fallback."""
     dout = dout.contiguous()
     if q.is_cuda:
-        d = q.shape[-1] // num_heads
-        if d in BSHD_FWD_HEAD_DIMS and d not in BSHD_BWD_HEAD_DIMS:
-            raise NotImplementedError(
-                f"the BSHD flash attention backward at head dim {d} is not ported yet "
-                "(ROADMAP.md queue 2, item 1: TPU kernel #3 at head dim 256)"
-            )
         _check(q, k, v, num_heads, backward=True, out=out, dout=dout)
     delta = flash_attention_bshd_delta(out, dout, num_heads)
     dk, dv = flash_attention_bshd_dkv(q, k, v, dout, lse, delta, num_heads, scale)

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile] [--kernel-d] [--kernel-i] [--trace-kernels]
                           [--ln-probe-costs] [--lumina-trainer] [--auraflow]
-                          [--auraflow-trainer]
+                          [--auraflow-trainer] [--serve]
 
 With --profile, phases 6 and 8 also trace two train steps with
 torch.profiler (device activity only) and print the device time of a step
@@ -38,7 +38,11 @@ own, after phase 19 (with --profile, phase 21 also traces one denoise step).
 With --auraflow-trainer, only phases 0 and 22-24 and the build of kernels
 B's, C's and F's libraries run, printing the Trainer runs' launch counts,
 kernel C's records and the numbers as one JSON line (no ok line); the main
-run runs it so, in a process of its own, after phases 20-21.
+run runs it so, in a process of its own, after phases 20-21. With --serve,
+only phases 0 and 25-27 and the build of kernels A's, B's, D's, E's and F's
+libraries run, printing the served paths' launch counts, the kernels'
+records at the pool's shapes and the numbers as one JSON line (no ok line);
+the main run runs it so, in a process of its own, after phases 22-24.
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -237,6 +241,31 @@ Phases, each printing its own lines; any failure exits non-zero:
     workload's fields for 3 steps; launch counts a step, the embedder and
     the migration scale moved off zero, the base unchanged; ms a step, peak
     GiB.
+25. serving SDXL, in a process of its own (--serve): kernels B and A
+    against their plain versions at a 4-slot pool's batch-8 UNet shapes;
+    a seeded full-width SDXL written to a single-file checkpoint, served by
+    the port's T2IModel from a YAML that names it, on 127.0.0.1 at an
+    ephemeral port, driven through the port's client. Window scheduler: 4
+    concurrent compatible 1024 px requests make one generate() of batch 4,
+    an 832x1216 one its own; a 6-request staggered trace (8 and 12 steps,
+    seeds, guidance, one cfg_rescale); a 1536 px request through the tiled
+    VAE decode. Continuous scheduler (4 slots at 1024 px): the same trace,
+    each result's latents against the same request through batch-1
+    generate() (POOL_REQUEST_TOL), kernels B and A launched 70 and 210
+    times a tick, the card's ms a tick. DeepCache at interval 2 against 1
+    (kernel B 280 against 560 launches). The CLI on the checkpoint with
+    --quant-type bnb_nf4: kernel D's forward launches against the UNet's
+    Linears it takes. Each reply a webp of the asked size.
+26. serving Lumina2 (config #4) in the same process: kernels E and F
+    against plain at the pool's batch 8; a seeded full-size checkpoint;
+    a continuous pool of 4 slots at 1024 px, 4 concurrent 8-step requests
+    (one truncated at 0.5, renorm 0 and 2.0 beside 1.0), each against
+    batch-1 generate(); E and F 30 launches a tick.
+27. serving AuraFlow (config #3) in the same process: kernels B at head
+    dim 256 and F against plain at the pool's batch 8; a seeded full-size
+    checkpoint; a continuous pool of 4 slots at 1024 px, 3 concurrent
+    8-step requests (one at cfg_scale 1), each against batch-1 generate();
+    B 36 and F 40 launches a tick.
 
 Every kernel's record carries its time, its plain version's, the bound
 (the larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s bf16, or
@@ -252,6 +281,7 @@ import argparse
 import contextlib
 import functools
 import gc
+import io
 import json
 import re
 import shutil
@@ -2420,6 +2450,588 @@ def run_auraflow_trainer(checkout: Path) -> dict:
     return json.loads(lines[-1])["auraflow_trainer"]
 
 
+# the serving phases (25-27, ``--serve``): a pool of 4 CFG slots is batch 8 on a denoiser
+SERVE_SLOTS = 4
+# a pool's request against the same request through batch-1 generate(), both bf16
+# on the card: the same kernels and arithmetic at batch 8 against batch 2, where
+# cuBLAS and cuDNN may pick other algorithms and sum in another order; every step
+# carries those bf16 ulps on, the ancestral steps through random-weight denoisers
+# (measured as each run prints it); relative to the latents' largest value
+POOL_REQUEST_TOL = 5e-2
+# the 6-request staggered SDXL trace: (arrival s, steps, seed, cfg, cfg_rescale)
+SDXL_TRACE = [(0.0, 8, 101, 5.0, 0.0), (0.3, 12, 102, 4.0, 0.0), (0.6, 8, 103, 6.0, 0.7),
+              (0.9, 12, 104, 5.0, 0.0), (1.2, 8, 105, 3.0, 0.0), (1.5, 12, 106, 5.0, 0.0)]
+SERVE_ATTN_SHAPES = [(8, 4096, 640, 10), (8, 1024, 1280, 20)]  # the UNet's stages, pool of 4
+SERVE_LN_SHAPES = [(8 * 4096, 640, True), (8 * 1024, 1280, True)]
+SERVE_MASKED_SHAPE = (8, 24, 8, 4352, 96)  # the NextDiT's main stack, pool of 4
+SERVE_LUMINA_MLP = [(8 * 4352, 2304, 9216)]
+SERVE_AURA_ATTN = (8, 4360, 3072, 12)  # the MMDiT's joint sequence, pool of 4
+SERVE_AURA_MLP = [(8 * 4360, 3072, 8192), (8 * 4096, 3072, 8192), (8 * 264, 3072, 8192)]
+
+
+def serve_phase(device, wrappers: dict) -> dict:
+    """Phases 25-27, run in a process of its own (``--serve``): the port's
+    HTTP server, scheduler and CLI at full width on seeded single-file
+    checkpoints of SDXL, Lumina2 (config #4) and AuraFlow (config #3):
+    kernels B, A, E and F against their plain versions at the pool's batch-8
+    shapes, the window and continuous schedulers through the client, each
+    pool result against the same request through batch-1 generate(), launch
+    counts a tick, SDXL DeepCache, a tiled 1536 px decode and the CLI on an
+    NF4 base. Returns the served paths' launch counts, the kernels' records
+    at these shapes and the numbers."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    import yaml
+
+    from vision_ft_tpu_torch.models.auraflow.config import AuraFlowConig
+    from vision_ft_tpu_torch.models.auraflow.pipeline import AuraFlowModel
+    from vision_ft_tpu_torch.models.lumina2.config import Lumina2Config
+    from vision_ft_tpu_torch.models.lumina2.pipeline import Lumina2
+    from vision_ft_tpu_torch.models.sdxl.config import DenoiserConfig as SDXLDenoiserConfig
+    from vision_ft_tpu_torch.models.sdxl.config import SDXLConfig
+    from vision_ft_tpu_torch.models.sdxl.denoiser import Denoiser as SDXLDenoiser
+    from vision_ft_tpu_torch.models.sdxl.pipeline import SDXLModel
+    from vision_ft_tpu_torch.nn import Linear
+    from vision_ft_tpu_torch.ops import nf4_matmul as nf4_ops
+    from vision_ft_tpu_torch.ops.flash_attention import (
+        flash_attention_bshd, flash_attention_bshd_reference, flash_attention_masked,
+        flash_attention_reference,
+    )
+    from vision_ft_tpu_torch.ops.fused_mlp import gated_mlp
+    from vision_ft_tpu_torch.ops.layer_norm import layer_norm, layer_norm_reference
+    from vision_ft_tpu_torch.tools import inference_cli
+    from vision_ft_tpu_torch.tools import inference_server as srv
+    from vision_ft_tpu_torch.tools.inference_client import predict
+    from vision_ft_tpu_torch.utils import safetensors as st
+
+    gen = torch.Generator(device=device).manual_seed(25)
+    numbers = {}
+    records = {"flash_attention_bshd": [], "layer_norm": [], "flash_attention_masked": [],
+               "gated_mlp": []}
+    path_launches = {name: 0 for name in wrappers}
+
+    def read_launches():
+        return {name: wrapper.launches for name, wrapper in wrappers.items()}
+
+    @contextlib.contextmanager
+    def on_path(into=None):
+        """A served path's launches: added to the process's path counts (and
+        to ``into``); launches to compare kernels with plain run outside."""
+        before = read_launches()
+        yield
+        for name, count in read_launches().items():
+            path_launches[name] += count - before[name]
+            if into is not None:
+                into[name] = into.get(name, 0) + count - before[name]
+
+    def free(model):
+        for part in model._parts().values():
+            part.to("meta")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2**30
+
+    def write_yaml(path, model_config):
+        path.write_text(yaml.safe_dump({
+            "model": model_config, "dataset": {},
+            "optimizer": {"name": "torch.optim.AdamW", "args": {"lr": 1.0e-4}},
+            "seed": 0, "num_train_epochs": 1}))
+
+    def checkpoint(model, path, into):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        st.save_file(model.state_dict(), path)
+        numbers[f"{into}_checkpoint_write_s"] = time.perf_counter() - start
+        numbers[f"{into}_checkpoint_bytes"] = path.stat().st_size
+        free(model)
+
+    def serving(batcher):
+        server = ThreadingHTTPServer(("127.0.0.1", 0), srv.make_handler(batcher))
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        return server, f"http://127.0.0.1:{server.server_address[1]}/predict"
+
+    def post_all(url, bodies, delays=None, gate=None):
+        """Each body from its own thread (after its delay, or once ``gate(i)``
+        holds); returns (replies, seconds from the first post to the last
+        reply). A reply is (webp bytes, seconds)."""
+        replies, errors = [None] * len(bodies), []
+
+        def run(i):
+            try:
+                if delays:
+                    time.sleep(delays[i])
+                if gate is not None:
+                    while not gate(i):
+                        time.sleep(0.005)
+                replies[i] = predict(url, bodies[i], timeout=600)
+            except Exception as exc:  # reported below
+                errors.append(f"request {i}: {exc!r}")
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(bodies))]
+        start = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+        seconds = time.perf_counter() - start
+        if errors or any(r is None for r in replies):
+            raise AssertionError(f"unanswered requests: {errors}")
+        return replies, seconds
+
+    def webp_size(data):
+        image = Image.open(io.BytesIO(data))
+        if image.format != "WEBP":
+            raise AssertionError(f"a reply is {image.format}, not webp")
+        array = np.asarray(image.convert("RGB"))
+        if array.std() == 0:
+            raise AssertionError("a reply is a constant image")
+        return image.size
+
+    def tap_pool(sched):
+        """Each finished request's latents by its seed, and each tick's
+        launches and card time (CUDA events around the slot step)."""
+        engine = sched._engine
+        kept, ticks = {}, []
+        decode, step = engine.adapter.decode, engine.adapter.slot_step
+
+        def tapped_decode(row):
+            j = row.storage_offset() // row.numel()
+            kept[engine._pending_by_slot[j].request.seed] = row.float().clone()
+            return decode(row)
+
+        def tapped_step(*args):
+            before = read_launches()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(*args)
+            end.record()
+            after = read_launches()
+            ticks.append(dict(active=int(engine._active.sum()), events=(start, end),
+                              launches={k: after[k] - before[k] for k in after
+                                        if after[k] != before[k]}))
+            return out
+
+        engine.adapter.decode, engine.adapter.slot_step = tapped_decode, tapped_step
+        return kept, ticks
+
+    def tick_report(label, ticks, want):
+        torch.cuda.synchronize()
+        ms = [s.elapsed_time(e) for s, e in (t["events"] for t in ticks)]
+        bad = [t["launches"] for t in ticks if t["launches"] != want]
+        by_active = {}
+        for t, m in zip(ticks, ms):
+            by_active.setdefault(t["active"], []).append(m)
+        summary = {k: statistics.median(v) for k, v in sorted(by_active.items())}
+        print(f"{label}: {len(ticks)} ticks, each launching {want} (the module tree's count); "
+              f"card ms a tick by active slots (median): "
+              + ", ".join(f"{k} active {v:.1f} ms" for k, v in summary.items()))
+        if bad:
+            raise AssertionError(f"{label}: ticks launched {bad[:3]}, expected {want} each")
+        return dict(ticks=len(ticks), tick_ms_by_active=summary, tick_ms_median=statistics.median(ms))
+
+    def generate_latents(model, **kwargs):
+        """The final latents of batch-1 generate() (as the pool's: fp32 copies)."""
+        kept = {}
+        decode = model.decode_image
+        model.decode_image = lambda z, *a, **kw: kept.setdefault("z", z.float().clone()) is None or \
+            decode(z, *a, **kw)
+        try:
+            model.generate(**kwargs)
+        finally:
+            del model.decode_image
+        return kept["z"][0]
+
+    def hold_pool(label, kept, model, requests):
+        """Each pool result against the same request through batch-1 generate()."""
+        errs = []
+        for kwargs in requests:
+            want = generate_latents(model, **kwargs)
+            got = kept[kwargs["seed"]]
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"{label} seed {kwargs['seed']}: pool latents not finite")
+            err = (got - want).abs().max().item() / want.abs().max().item()
+            errs.append(err)
+            print(f"{label}, seed {kwargs['seed']} ({kwargs['num_inference_steps']} steps): pool vs "
+                  f"batch-1 generate() max abs err / max |latents| {err:.3e} "
+                  f"(tol {POOL_REQUEST_TOL})")
+        if max(errs) > POOL_REQUEST_TOL:
+            raise AssertionError(f"{label}: pool vs batch-1 {max(errs):.3e} > {POOL_REQUEST_TOL}")
+        return errs
+
+    def attention_record(b, s, inner, h):
+        q, k, v = (torch.randn(b, s, inner, device=device, generator=gen).bfloat16() for _ in "qkv")
+        what = f"kernel B at the pool's (B={b}, S={s}, H={h}, D={inner // h})"
+        abs_err, rel_err = compare(what, lambda: flash_attention_bshd(q, k, v, h),
+                                   lambda: flash_attention_bshd_reference(q, k, v, h), ATTN_TOL)
+        assert_reruns(what, lambda: flash_attention_bshd(q, k, v, h))
+        ms = cuda_ms(lambda: flash_attention_bshd(q, k, v, h))
+        plain_ms = cuda_ms(lambda: flash_attention_bshd_reference(q, k, v, h), warmup=1, iters=3)
+        heads = [sdpa_heads(t, h) for t in (q, k, v)]
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*heads))
+        flops = 4 * b * s * s * inner
+        bound_ms, bound_by = bound(2 * 4 * b * s * inner, flops)
+        print(f"{what}: max abs err {abs_err:.3e} rel {rel_err:.3e} (tol {ATTN_TOL}), reruns "
+              f"bit-identical; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+              f"{plain_ms:.3f} ms, SDPA {library_ms:.4f} ms (kernel {ms / library_ms:.2f}x), bound "
+              f"{bound_ms:.4f} ms ({bound_by})")
+        records["flash_attention_bshd"].append(dict(
+            shape=[b, s, s, inner, h], max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
+
+    def mlp_record(m, c, inner):
+        x, wa, wg, wd, (ba, bg, bd) = mlp_tensors(m, c, inner, False, device, gen)
+        _, _, full = mlp_parts(f"at the pool's M={m} C={c} inner={inner} silu", x, wa, wg, wd,
+                               ba, bg, bd, "silu",
+                               lambda: gated_mlp(x, wa, wg, wd, ba, bg, bd, act="silu"))
+        records["gated_mlp"].append(dict(shape=[m, c, inner], max_abs_err=full[0], **full[1]))
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    try:
+        # -- 25: SDXL --------------------------------------------------------------------
+        phase("25 SDXL served at full width: the window and continuous schedulers through the "
+              "client, DeepCache, a tiled 1536 px decode, the CLI on an NF4 base")
+        for b, s, inner, h in SERVE_ATTN_SHAPES:
+            attention_record(b, s, inner, h)
+        for n_rows, c, beta in SERVE_LN_SHAPES:
+            x, w, bias = ln_inputs(n_rows, c, beta, device, gen)
+            what = f"kernel A at the pool's rows={n_rows} C={c}"
+            abs_err, rel_err = compare(what, lambda: layer_norm(x, w, bias),
+                                       lambda: layer_norm_reference(x, w, bias), LN_TOL)
+            assert_reruns(what, lambda: layer_norm(x, w, bias))
+            ms = cuda_ms(lambda: layer_norm(x, w, bias))
+            plain_ms = cuda_ms(lambda: layer_norm_reference(x, w, bias))
+            library_ms = cuda_ms(lambda: F.layer_norm(x, (c,), w, bias))
+            bound_ms, bound_by = bound(2 * x.numel() * 2 + 2 * c * 2, 8 * x.numel(),
+                                       PEAK_FP32_FLOPS)
+            print(f"{what}: max abs err {abs_err:.3e} rel {rel_err:.3e} (tol {LN_TOL}), reruns "
+                  f"bit-identical; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, F.layer_norm "
+                  f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+            records["layer_norm"].append(dict(shape=[n_rows, c], max_abs_err=abs_err, ms=ms,
+                                              plain_ms=plain_ms, bound_ms=bound_ms,
+                                              bound_by=bound_by, library_ms=library_ms))
+            del x, w, bias
+
+        write_vocab(work)
+        seeded = SDXLModel(SDXLConfig(checkpoint_path="", dtype="bfloat16"))
+        seeded.init_params(torch.Generator(device=device).manual_seed(25))
+        unet_attn = sum(type(m).__name__ == "SelfAttention" for m in seeded.denoiser.modules())
+        unet_ln = sum(type(m).__name__ == "LayerNorm" for m in seeded.denoiser.modules())
+        checkpoint(seeded, work / "sdxl.safetensors", "sdxl")
+        del seeded
+        write_yaml(work / "sdxl.yml", {"checkpoint_path": str(work / "sdxl.safetensors"),
+                                       "dtype": "bfloat16"})
+        start = time.perf_counter()
+        served = srv.T2IModel(str(work / "sdxl.yml"), None, str(work), family="sdxl")
+        srv.prepare_kernels("sdxl", device)
+        numbers["sdxl_load_s"] = time.perf_counter() - start
+        model = served.model
+        print(f"checkpoint {numbers['sdxl_checkpoint_bytes']} bytes written in "
+              f"{numbers['sdxl_checkpoint_write_s']:.2f} s; T2IModel from the YAML (load + kernel "
+              f"libraries) {numbers['sdxl_load_s']:.2f} s; {unet_attn} self-attentions and "
+              f"{unet_ln} LayerNorms a UNet forward")
+        per_forward = {"flash_attention_bshd": unet_attn, "layer_norm": unet_ln}
+        with on_path():  # a 1-step warm-up: the process's first convolutions and GEMMs
+            model.generate("a photo of the cat", negative_prompt="blurry", width=1024,
+                           height=1024, num_inference_steps=1, cfg_scale=5.0, seed=0)
+
+        # the window scheduler: 4 concurrent compatible requests, then an incompatible one
+        calls = []
+        generate = model.generate
+        model.generate = lambda **kw: calls.append(
+            (len(kw["prompt"]), kw["width"], kw["height"])) or generate(**kw)
+        batcher = srv.MicroBatcher(served, max_batch=4, window_ms=2000)
+        server, url = serving(batcher)
+        compatible = [dict(prompt=f"a photo of the cat {x}", negative_prompt="blurry", width=1024,
+                           height=1024, inference_steps=STEPS, cfg_scale=5.0) for x in "abcd"]
+        odd = dict(prompt="a red car on the road", negative_prompt="blurry", width=832,
+                   height=1216, inference_steps=STEPS, cfg_scale=5.0, seed=7)
+        window = {}
+        torch.cuda.reset_peak_memory_stats()
+        with on_path(window):
+            replies, seconds = post_all(url, compatible + [odd],
+                                        gate=lambda i: i < 4 or len(calls) >= 1)
+        sizes = [webp_size(data) for data, _ in replies]
+        if calls != [(4, 1024, 1024), (1, 832, 1216)] or sizes != [(1024, 1024)] * 4 + [(832, 1216)]:
+            raise AssertionError(f"window scheduler: generate() calls {calls}, replies {sizes}")
+        numbers["window_group_s"] = seconds
+        print(f"window scheduler: 4 concurrent compatible 1024x1024 requests made one generate() "
+              f"of batch 4 and the 832x1216 one its own (calls {calls}); {seconds:.3f} s for the "
+              f"five, replies {[round(s, 3) for _, s in replies]} s, webp of the asked sizes; peak "
+              f"{peak_gib():.2f} GiB; launches {window}")
+
+        # the 6-request staggered trace under the window scheduler (seeded: each alone)
+        trace = [dict(prompt=f"a photo of the cat {'abcdef'[i]}", negative_prompt="blurry",
+                      width=1024, height=1024, inference_steps=steps, cfg_scale=cfg,
+                      cfg_rescale=rescale, seed=seed)
+                 for i, (_, steps, seed, cfg, rescale) in enumerate(SDXL_TRACE)]
+        delays = [t[0] for t in SDXL_TRACE]
+        calls.clear()
+        with on_path():
+            replies, seconds = post_all(url, trace, delays=delays)
+        numbers["trace_window_s"] = seconds
+        print(f"6-request staggered trace (arrivals {delays} s, steps 8 and 12, one cfg_rescale), "
+              f"window scheduler: {seconds:.3f} s wall, {len(calls)} generate() calls of batch 1 "
+              f"(seeded requests run alone), replies {[round(s, 3) for _, s in replies]} s")
+
+        # a 1536 px request: the tiled VAE decode
+        tiled = []
+        tiled_decode = model.vae.tiled_decode
+        model.vae.tiled_decode = lambda z, *a, **kw: tiled.append(tuple(z.shape)) or \
+            tiled_decode(z, *a, **kw)
+        torch.cuda.reset_peak_memory_stats()
+        with on_path():
+            (reply,), seconds = post_all(url, [dict(
+                prompt="a house in the mountains", negative_prompt="blurry", width=1536,
+                height=1536, inference_steps=STEPS, cfg_scale=5.0, seed=8)])
+        numbers["tiled_1536_s"], numbers["tiled_1536_peak_gib"] = seconds, peak_gib()
+        if webp_size(reply[0]) != (1536, 1536) or tiled != [(1, 192, 192, 4)]:
+            raise AssertionError(f"1536 px request: {webp_size(reply[0])}, tiled decodes {tiled}")
+        print(f"1536x1536 request: {seconds:.3f} s, one tiled decode of {tiled[0]} (16 tiles of 64 "
+              f"latents), peak {numbers['tiled_1536_peak_gib']:.2f} GiB")
+        del model.vae.tiled_decode, model.generate
+        server.shutdown()
+        server.server_close()
+
+        # the continuous scheduler: the same trace through a pool of 4 slots
+        sched = srv.ContinuousScheduler(served, height=1024, width=1024, num_slots=SERVE_SLOTS)
+        kept, ticks = tap_pool(sched)
+        server, url = serving(sched)
+        torch.cuda.reset_peak_memory_stats()
+        with on_path():
+            replies, seconds = post_all(url, trace, delays=delays)
+        numbers["trace_continuous_s"] = seconds
+        numbers["trace_continuous_peak_gib"] = peak_gib()
+        if [webp_size(data) for data, _ in replies] != [(1024, 1024)] * 6:
+            raise AssertionError("continuous scheduler: a reply of another size")
+        print(f"6-request staggered trace, continuous scheduler ({SERVE_SLOTS} slots): {seconds:.3f} s "
+              f"wall (window: {numbers['trace_window_s']:.3f} s), replies "
+              f"{[round(s, 3) for _, s in replies]} s, peak {numbers['trace_continuous_peak_gib']:.2f} "
+              f"GiB")
+        numbers["sdxl_pool"] = tick_report("SDXL pool", ticks, per_forward)
+        server.shutdown()
+        server.server_close()
+        sched.close()
+        numbers["sdxl_pool_errors"] = hold_pool("SDXL pool", kept, model, [dict(
+            prompt=t["prompt"], negative_prompt=t["negative_prompt"], width=1024, height=1024,
+            num_inference_steps=t["inference_steps"], cfg_scale=t["cfg_scale"],
+            cfg_rescale=t["cfg_rescale"], seed=t["seed"]) for t in trace])
+
+        # DeepCache: a full pass every 2 steps against every step
+        deep = {}
+        for interval in (1, 2, 1, 2):
+            counts = {}
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            with on_path(counts):
+                model.generate("a photo of the cat", negative_prompt="blurry", width=1024,
+                               height=1024, num_inference_steps=STEPS, cfg_scale=5.0, seed=9,
+                               deep_cache_interval=interval)
+            torch.cuda.synchronize()
+            deep[interval] = (time.perf_counter() - start, counts)
+        want_b = {1: unet_attn * STEPS, 2: unet_attn * len(range(0, STEPS, 2))}
+        numbers["deepcache_s"] = {k: v[0] for k, v in deep.items()}
+        print(f"DeepCache at {STEPS} steps, 1024 px, warm: interval 1 {deep[1][0]:.3f} s, kernel B "
+              f"{deep[1][1]['flash_attention_bshd']} launches; interval 2 {deep[2][0]:.3f} s "
+              f"({deep[2][0] / deep[1][0]:.2f}x), kernel B {deep[2][1]['flash_attention_bshd']}, "
+              f"kernel A {deep[2][1]['layer_norm']} (expected B {want_b})")
+        if any(deep[k][1]["flash_attention_bshd"] != want_b[k] for k in (1, 2)):
+            raise AssertionError(f"DeepCache launches of kernel B: {deep}, expected {want_b}")
+        free(model)
+        del served, model
+
+        # the CLI on the same checkpoint, the denoiser's Linears in NF4
+        with torch.device("meta"):
+            unet = SDXLDenoiser(SDXLDenoiserConfig())
+        n_q = sum(1 for m in unet.modules() if isinstance(m, Linear)
+                  and nf4_ops.supports(1, m.in_features, m.out_features, 64))
+        del unet
+        cli = {}
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        with on_path(cli):
+            saved = inference_cli.main([
+                "--family", "sdxl", "--checkpoint-path", str(work / "sdxl.safetensors"),
+                "--tokenizer-path", str(work), "--prompt", "a photo of the cat",
+                "--negative-prompt", "blurry", "--width", "1024", "--height", "1024",
+                "--num-inference-steps", str(STEPS), "--cfg-scale", "5.0", "--quant-type",
+                "bnb_nf4", "--save-path", str(work / "cli.webp")])
+        numbers["cli_s"], numbers["cli_peak_gib"] = time.perf_counter() - start, peak_gib()
+        gc.collect()
+        torch.cuda.empty_cache()
+        if saved != [str(work / "cli.webp")] or Image.open(saved[0]).size != (1024, 1024):
+            raise AssertionError(f"the CLI saved {saved}")
+        want_d = n_q * STEPS
+        print(f"CLI --quant-type bnb_nf4 (load, quantize, 1024 px, {STEPS} steps, webp): "
+              f"{numbers['cli_s']:.2f} s, peak {numbers['cli_peak_gib']:.2f} GiB; kernel D forward "
+              f"{cli.get('nf4_matmul_forward', 0)} launches ({n_q} quantized Linears the kernel "
+              f"takes x {STEPS} UNet forwards = {want_d}), kernel B {cli.get('flash_attention_bshd')}")
+        if cli.get("nf4_matmul_forward") != want_d:
+            raise AssertionError(f"the CLI launched kernel D {cli.get('nf4_matmul_forward')} times, "
+                                 f"expected {want_d}")
+        (work / "sdxl.safetensors").unlink()
+
+        # -- 26: Lumina2 ----------------------------------------------------------------
+        phase("26 Lumina2 (config #4) served at full width and depth: a continuous pool of 4 "
+              "slots through the client")
+        b, h, hk, s, d = SERVE_MASKED_SHAPE
+        q = torch.randn(b, s, h, d, device=device, generator=gen).bfloat16().transpose(1, 2)
+        k, v = (torch.randn(b, s, hk, d, device=device, generator=gen).bfloat16().transpose(1, 2)
+                for _ in "kv")
+        mask = torch.ones(b, s, dtype=torch.bool, device=device)
+        for i in range(b):
+            mask[i, 9 + 31 * i:256] = False  # each caption right-padded to its own length
+        what = f"kernel E at the pool's (B={b}, H={h}/{hk}, S={s}, D={d}, captions padded)"
+        abs_err, rel_err = compare(what, lambda: flash_attention_masked(q, k, v, mask),
+                                   lambda: flash_attention_reference(q, k, v, mask),
+                                   MASKED_ATTN_TOL)
+        assert_reruns(what, lambda: flash_attention_masked(q, k, v, mask))
+        ms = cuda_ms(lambda: flash_attention_masked(q, k, v, mask))
+        plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, v, mask), warmup=1, iters=3)
+        kr, vr = (t.repeat_interleave(h // hk, dim=1) for t in (k, v))
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, kr, vr, attn_mask=mask[:, None, None, :]))
+        flops = 4 * h * d * float(mask.sum().item()) * s
+        bound_ms, bound_by = bound(2 * (2 * b * h * s * d + 2 * b * hk * s * d) + b * s, flops)
+        print(f"{what}: max abs err {abs_err:.3e} rel {rel_err:.3e} (tol {MASKED_ATTN_TOL}), reruns "
+              f"bit-identical; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+              f"{plain_ms:.3f} ms, SDPA {library_ms:.4f} ms (kernel {ms / library_ms:.2f}x), bound "
+              f"{bound_ms:.4f} ms ({bound_by})")
+        records["flash_attention_masked"].append(dict(
+            shape=[b, h, hk, s, s, d], max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
+        del q, k, v, kr, vr
+        for m, c, inner in SERVE_LUMINA_MLP:
+            mlp_record(m, c, inner)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        (work / "tokenizer.model").write_bytes(lumina_vocab())
+        seeded = Lumina2(Lumina2Config(checkpoint_path="", dtype="bfloat16"))
+        seeded.init_params(torch.Generator(device=device).manual_seed(26))
+        den = seeded.denoiser
+        blocks = len(den.layers) + len(den.noise_refiner) + len(den.context_refiner)
+        checkpoint(seeded, work / "lumina2.safetensors", "lumina2")
+        del seeded, den
+        write_yaml(work / "lumina2.yml", {"checkpoint_path": str(work / "lumina2.safetensors"),
+                                          "dtype": "bfloat16"})
+        start = time.perf_counter()
+        served = srv.T2IModel(str(work / "lumina2.yml"), None, str(work), family="lumina2")
+        srv.prepare_kernels("lumina2", device)
+        numbers["lumina2_load_s"] = time.perf_counter() - start
+        sched = srv.ContinuousScheduler(served, height=1024, width=1024, num_slots=SERVE_SLOTS)
+        kept, ticks = tap_pool(sched)
+        server, url = serving(sched)
+        lumina = [dict(prompt="a photo of a cat sitting on the sofa", negative_prompt="blurry",
+                       seed=261),
+                  dict(prompt="a red car on the road", negative_prompt="blurry", seed=262,
+                       cfg_trunc_ratio=0.5),
+                  dict(prompt="a house in the mountains", negative_prompt="", seed=263,
+                       renorm_cfg=0.0),
+                  dict(prompt="a cat in the house", negative_prompt="blurry", seed=264,
+                       renorm_cfg=2.0)]
+        lumina = [dict(body, width=1024, height=1024, inference_steps=STEPS, cfg_scale=4.0)
+                  for body in lumina]
+        torch.cuda.reset_peak_memory_stats()
+        with on_path():
+            replies, seconds = post_all(url, lumina)
+        numbers["lumina2_pool_s"], numbers["lumina2_pool_peak_gib"] = seconds, peak_gib()
+        if [webp_size(data) for data, _ in replies] != [(1024, 1024)] * 4:
+            raise AssertionError("Lumina2 pool: a reply of another size")
+        print(f"Lumina2: checkpoint {numbers['lumina2_checkpoint_bytes']} bytes written in "
+              f"{numbers['lumina2_checkpoint_write_s']:.2f} s, T2IModel "
+              f"{numbers['lumina2_load_s']:.2f} s; 4 concurrent {STEPS}-step requests (one "
+              f"truncated at 0.5, renorm 0 and 2.0 beside 1.0) in {seconds:.3f} s, peak "
+              f"{numbers['lumina2_pool_peak_gib']:.2f} GiB")
+        numbers["lumina2_pool"] = tick_report(
+            "Lumina2 pool", ticks, {"flash_attention_masked": blocks, "gated_mlp": blocks})
+        server.shutdown()
+        server.server_close()
+        sched.close()
+        numbers["lumina2_pool_errors"] = hold_pool("Lumina2 pool", kept, served.model, [dict(
+            prompt=r["prompt"], negative_prompt=r["negative_prompt"] or None, width=1024,
+            height=1024, num_inference_steps=STEPS, cfg_scale=4.0, seed=r["seed"],
+            renorm_cfg_scale=r.get("renorm_cfg", 1.0),
+            cfg_truncation_ratio=r.get("cfg_trunc_ratio", 0.0)) for r in lumina])
+        free(served.model)
+        del served
+        (work / "lumina2.safetensors").unlink()
+
+        # -- 27: AuraFlow ----------------------------------------------------------------
+        phase("27 AuraFlow (config #3) served at full width and depth: a continuous pool of 4 "
+              "slots through the client, one request at cfg_scale 1")
+        attention_record(*SERVE_AURA_ATTN)
+        for m, c, inner in SERVE_AURA_MLP:
+            mlp_record(m, c, inner)
+        gc.collect()
+        torch.cuda.empty_cache()
+        seeded = AuraFlowModel(AuraFlowConig(checkpoint_path="", dtype="bfloat16"))
+        seeded.init_params(torch.Generator(device=device).manual_seed(27))
+        aura_fill_zero_init(seeded, device, 28)
+        den = seeded.denoiser
+        n_layers = len(den.double_layers) + len(den.single_layers)
+        n_mlps = 2 * len(den.double_layers) + len(den.single_layers)
+        checkpoint(seeded, work / "auraflow.safetensors", "auraflow")
+        del seeded, den
+        write_yaml(work / "auraflow.yml", {"checkpoint_path": str(work / "auraflow.safetensors"),
+                                           "dtype": "bfloat16"})
+        start = time.perf_counter()
+        served = srv.T2IModel(str(work / "auraflow.yml"), None, str(work), family="auraflow")
+        srv.prepare_kernels("auraflow", device)
+        numbers["auraflow_load_s"] = time.perf_counter() - start
+        sched = srv.ContinuousScheduler(served, height=1024, width=1024, num_slots=SERVE_SLOTS)
+        kept, ticks = tap_pool(sched)
+        server, url = serving(sched)
+        aura = [dict(prompt="a photo of a cat sitting on the sofa", negative_prompt="blurry",
+                     seed=271, cfg_scale=3.5),
+                dict(prompt="a red car on the road", negative_prompt="", seed=272, cfg_scale=1.0),
+                dict(prompt="a house in the mountains", negative_prompt="blurry", seed=273,
+                     cfg_scale=5.0)]
+        aura = [dict(body, width=1024, height=1024, inference_steps=STEPS) for body in aura]
+        torch.cuda.reset_peak_memory_stats()
+        with on_path():
+            replies, seconds = post_all(url, aura)
+        numbers["auraflow_pool_s"], numbers["auraflow_pool_peak_gib"] = seconds, peak_gib()
+        if [webp_size(data) for data, _ in replies] != [(1024, 1024)] * 3:
+            raise AssertionError("AuraFlow pool: a reply of another size")
+        print(f"AuraFlow: checkpoint {numbers['auraflow_checkpoint_bytes']} bytes written in "
+              f"{numbers['auraflow_checkpoint_write_s']:.2f} s, T2IModel "
+              f"{numbers['auraflow_load_s']:.2f} s; 3 concurrent {STEPS}-step requests (CFG 3.5, "
+              f"1.0, 5.0) in a pool of {SERVE_SLOTS} in {seconds:.3f} s, peak "
+              f"{numbers['auraflow_pool_peak_gib']:.2f} GiB")
+        numbers["auraflow_pool"] = tick_report(
+            "AuraFlow pool", ticks, {"flash_attention_bshd": n_layers, "gated_mlp": n_mlps})
+        server.shutdown()
+        server.server_close()
+        sched.close()
+        numbers["auraflow_pool_errors"] = hold_pool("AuraFlow pool", kept, served.model, [dict(
+            prompt=r["prompt"], negative_prompt=r["negative_prompt"] or None, width=1024,
+            height=1024, num_inference_steps=STEPS, cfg_scale=r["cfg_scale"], seed=r["seed"])
+            for r in aura])
+        free(served.model)
+        del served
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": path_launches, "records": records, "numbers": numbers}
+
+
+def run_serve(checkout: Path) -> dict:
+    """``chip_smoke.py --serve`` in a process of its own (a fresh card):
+    its lines, then its launch counts, records and numbers."""
+    proc = subprocess.run([sys.executable, str(checkout / "chip_smoke.py"), "--serve"],
+                          cwd=checkout, capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]))
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"chip_smoke.py --serve failed (exit {proc.returncode}): "
+                             f"{proc.stderr[-4000:]}")
+    return json.loads(lines[-1])["serve"]
+
+
 def main() -> None:
     args = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     args.add_argument("--profile", action="store_true",
@@ -2449,6 +3061,11 @@ def main() -> None:
                            "on config #3 and the shortcut and RoPE migration workloads) after "
                            "building their libraries; prints their launch counts, records and "
                            "numbers as one JSON line, not the ok line")
+    args.add_argument("--serve", action="store_true",
+                      help="run phases 25-27 alone (the port's server, schedulers and CLI on "
+                           "SDXL, Lumina2 and AuraFlow) after building their libraries; prints "
+                           "their launch counts, records and numbers as one JSON line, not the ok "
+                           "line")
     args.add_argument("--ln-probe-costs", action="store_true",
                       help="time kernels A and L and their library calls (one call, back to "
                            "back, host us, traced) in this process alone; prints one JSON line, "
@@ -2560,6 +3177,14 @@ def main() -> None:
         _build.build_cuda_libraries(["flash_attention_bshd", "flash_attention_bshd_bwd", "fused_mlp"])
         result = auraflow_trainer_phase(device, wrappers, checkout)
         print(json.dumps({"auraflow_trainer": result}))
+        return
+
+    if options.serve:
+        phase("1 build (kernels A's, B's, D's, E's and F's libraries only)")
+        _build.build_cuda_libraries(["flash_attention_bshd", "layer_norm", "nf4_matmul",
+                                     "flash_attention_masked", "fused_mlp"])
+        result = serve_phase(device, wrappers)
+        print(json.dumps({"serve": result}))
         return
 
     if options.kernel_d:
@@ -4304,6 +4929,12 @@ def main() -> None:
     card_numbers = ", ".join(f"{k} {v}" for k, v in auraflow_trainer["numbers"].items())
     print(f"phases 22-24 on {card}: {card_numbers}")
 
+    phase("25-27 serving: the port's HTTP server (window and continuous schedulers), client and "
+          "CLI on SDXL, Lumina2 and AuraFlow at full width (a process of its own)")
+    serve = run_serve(checkout)
+    card_numbers = ", ".join(f"{k} {v}" for k, v in serve["numbers"].items())
+    print(f"phases 25-27 on {card}: {card_numbers}")
+
     kernels = []
     for name, record in records.items():
         launches = {"generate": generate_launches[name], "train": train_launches[name],
@@ -4316,7 +4947,8 @@ def main() -> None:
                     "lumina2_trainer": lumina_trainer["launches"][name],
                     "ops_resnet_body_and_probe": ops_launches[name],
                     "auraflow_generate": auraflow["launches"][name],
-                    "auraflow_trainer": auraflow_trainer["launches"][name]}
+                    "auraflow_trainer": auraflow_trainer["launches"][name],
+                    "serve": serve["launches"][name]}
         kernels.append({
             "name": name,
             **{k: record[k] for k in ("route", "source", "replaces")},
@@ -4327,6 +4959,7 @@ def main() -> None:
             **({"auraflow_shapes": auraflow["records"][name]} if name in auraflow["records"] else {}),
             **({"auraflow_train_shapes": auraflow_trainer["records"][name]}
                if name in auraflow_trainer["records"] else {}),
+            **({"serve_shapes": serve["records"][name]} if name in serve["records"] else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -469,7 +469,7 @@ def test_generate_matches_jax(pipelines, monkeypatch, name, kwargs):
 
 def test_generate_options(pipelines, monkeypatch):
     """A request repeats bit for bit; DeepCache refreshing every step is the
-    plain loop and a cached one differs; the parts not ported raise by
+    plain loop and a cached one differs; offloading, not ported, raises by
     name."""
     _, model, _ = pipelines
     noise = torch.from_numpy(np.random.default_rng(8).standard_normal((1, 4, 4, 4)).astype(np.float32))
@@ -483,8 +483,6 @@ def test_generate_options(pipelines, monkeypatch):
     assert (np.asarray(cached[0]) != base).any()
     with pytest.raises(NotImplementedError, match="offloading"):
         model.generate("a cat", width=32, height=32, num_inference_steps=1, do_offloading=True)
-    with pytest.raises(NotImplementedError, match="serving/continuous.py"):
-        model._slot_step()
 
 
 def test_encode_and_decode_image_match_jax(pipelines):

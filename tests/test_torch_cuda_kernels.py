@@ -1544,3 +1544,65 @@ def test_shortcut_generate_at_reduced_depth_matches_plain_on_card(cuda, monkeypa
     assert got.shape == (1, 64, 64, 4) and torch.isfinite(got).all()
     err = (got - want).abs().max().item()
     assert err <= 5e-2 * want.abs().max().item(), err
+
+
+# -- the serving pool's shapes: 4 CFG slots are batch 8 on the denoisers ------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,s,h,d",
+    [(8, 4096, 10, 64), (8, 1024, 20, 64),  # the UNet's two transformer stages at 1024 px
+     (8, 4360, 12, 256)],                   # the MMDiT's joint sequence at 1024 px
+)
+def test_bshd_kernel_at_the_pool_batch_on_card(cuda, b, s, h, d):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(b, s, h * d, device=cuda, generator=g).bfloat16() for _ in "qkv")
+    before = flash_attention_bshd.launches
+    out = flash_attention_bshd(q, k, v, h)
+    assert flash_attention_bshd.launches == before + 1
+    want = flash_attention_bshd_reference(q, k, v, h)
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= BF16_ATTN_TOL * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,c", [(8 * 4096, 640), (8 * 1024, 1280)])
+def test_layer_norm_kernel_at_the_pool_batch_on_card(cuda, rows, c):
+    x, weight, beta = _ln_inputs(cuda, rows, c, True, seed=3)
+    before = layer_norm.launches
+    out = layer_norm(x, weight, beta)
+    assert layer_norm.launches == before + 1
+    want = layer_norm_reference(x, weight, beta)
+    torch.testing.assert_close(out.float(), want.float(), atol=BF16_LN_TOL, rtol=BF16_LN_TOL)
+
+
+@pytest.mark.cuda
+def test_masked_kernel_at_the_pool_batch_on_card(cuda):
+    """The NextDiT's main stack at 1024 px for 4 CFG slots: captions padded
+    to 256 with holes, then 4096 image tokens."""
+    b, h, hk, s, d = 8, 24, 8, 4352, 96
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(b, s, h, d, device=cuda, generator=g).bfloat16().transpose(1, 2)
+    k, v = (torch.randn(b, s, hk, d, device=cuda, generator=g).bfloat16().transpose(1, 2)
+            for _ in "kv")
+    mask = _key_mask(cuda, "hole", b, s)
+    before = flash_attention_masked.launches
+    out = flash_attention_masked(q, k, v, mask, None, False)
+    assert flash_attention_masked.launches == before + 1
+    want = flash_attention_reference(q, k, v, mask, None, False)
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= BF16_MASKED_ATTN_TOL * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c,inner", [(8 * 4352, 2304, 9216),   # the NextDiT's joint tokens
+                                       (8 * 4360, 3072, 8192)])  # the MMDiT's single layers
+def test_fused_mlp_kernel_at_the_pool_batch_on_card(cuda, m, c, inner):
+    x, wa, wg, wd, bs = _mlp_tensors(cuda, m, c, inner, False, seed=3)
+    before = gated_mlp.launches
+    out = gated_mlp(x, wa, wg, wd, *bs, act="silu")
+    assert gated_mlp.launches == before + 1
+    want = gated_mlp_reference(x, wa, wg, wd, *bs, act="silu")
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= BF16_FUSED_MLP_TOL * want.float().abs().max().item()

@@ -1,0 +1,439 @@
+"""The port's inference server, CLI and client (vision_ft_tpu_torch.tools),
+on the CPU: the window micro-batcher's grouping on a stub model, with an
+injected clock instead of wall-clock timing; the HTTP surface on
+127.0.0.1; the request validators and family rules; ``T2IModel`` on a tiny
+seeded SDXL checkpoint and YAML behind both schedulers; the CLI writing a
+webp; the client posting to a running server.
+"""
+
+import io
+import json
+import threading
+import time
+import urllib.error
+import urllib.request
+from http.server import ThreadingHTTPServer
+
+import numpy as np
+import pytest
+import torch
+import yaml
+from PIL import Image
+
+from tests.test_torch_sdxl import _tiny_kwargs
+from vision_ft_tpu_torch.models.sdxl.pipeline import SDXLModel
+from vision_ft_tpu_torch.tools import inference_cli, inference_client
+from vision_ft_tpu_torch.tools import inference_server as srv
+from vision_ft_tpu_torch.tools.inference_server import (
+    ContinuousScheduler,
+    GenerationParams,
+    MicroBatcher,
+    T2IModel,
+    batch_key,
+    make_handler,
+)
+from vision_ft_tpu_torch.utils import safetensors as st
+
+
+class StubModel:
+    def __init__(self):
+        self.batches: list[list[GenerationParams]] = []
+
+    def generate_batch(self, batch):
+        self.batches.append(list(batch))
+        return [Image.new("RGB", (p.width, p.height)) for p in batch]
+
+
+class FakeClock:
+    """A clock the test moves: the batcher's window closes only when it says."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def __call__(self):
+        return self.now
+
+
+def _wait_until(condition, what, timeout=30.0):
+    deadline = time.monotonic() + timeout
+    while not condition():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.001)
+
+
+def _submit_all(batcher, params_list):
+    """Submit each request from its own thread; returns (results, threads)."""
+    results = [None] * len(params_list)
+
+    def run(i):
+        try:
+            results[i] = batcher.submit(params_list[i])
+        except Exception as exc:  # the test inspects it
+            results[i] = exc
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(params_list))]
+    for th in threads:
+        th.start()
+    return results, threads
+
+
+def _join(threads):
+    for th in threads:
+        th.join(timeout=30)
+        assert not th.is_alive()
+
+
+def _close_windows(batcher, clock, queued, done):
+    """Once ``queued`` requests wait, move the clock on, window after window,
+    until ``done()``: the worker may read the clock for its deadline before
+    or after a move, so one move alone could leave its window open."""
+    _wait_until(lambda: batcher.queued() == queued, f"{queued} queued requests")
+    deadline = time.monotonic() + 30.0
+    while not done():
+        if time.monotonic() > deadline:
+            raise AssertionError("the window never closed")
+        clock.now += 10.0
+        batcher.wake()
+        time.sleep(0.001)
+
+
+@pytest.mark.parametrize("pad", [True, False])
+def test_compatible_requests_coalesce_within_the_window(pad):
+    """Three compatible requests queued inside the window become one batch
+    (padded to the bucket of 4, its last request repeated, or not); each
+    gets its own image."""
+    model, clock = StubModel(), FakeClock()
+    batcher = MicroBatcher(model, max_batch=4, window_ms=1000, pad_to_bucket=pad, clock=clock)
+    params = [GenerationParams(prompt=f"p{i}", width=64, height=64) for i in range(3)]
+    results, threads = _submit_all(batcher, params)
+    _close_windows(batcher, clock, 3, lambda: model.batches)
+    _join(threads)
+    assert len(model.batches) == 1
+    batch = model.batches[0]
+    assert sorted(p.prompt for p in batch[:3]) == ["p0", "p1", "p2"]
+    assert len(batch) == (4 if pad else 3) and (not pad or batch[3] is batch[2])
+    assert all(r.size == (64, 64) for r in results)
+
+
+def test_a_full_group_runs_without_waiting_for_the_window():
+    """max_batch compatible requests close their group at once: the
+    clock never moves."""
+    model = StubModel()
+    batcher = MicroBatcher(model, max_batch=2, window_ms=1000, clock=FakeClock())
+    results, threads = _submit_all(
+        batcher, [GenerationParams(prompt=f"p{i}", width=64, height=64) for i in range(4)])
+    _join(threads)
+    assert [len(b) for b in model.batches] == [2, 2]
+
+
+def test_incompatible_requests_never_share_a_batch():
+    model, clock = StubModel(), FakeClock()
+    batcher = MicroBatcher(model, max_batch=8, window_ms=1000, pad_to_bucket=False, clock=clock)
+    params = [GenerationParams(prompt=f"p{i}", width=64 if i % 2 else 128, height=64)
+              for i in range(6)]
+    results, threads = _submit_all(batcher, params)
+    _close_windows(batcher, clock, 6, lambda: len(model.batches) == 2)
+    _join(threads)
+    assert sorted(len(b) for b in model.batches) == [3, 3]
+    for batch in model.batches:
+        assert len({batch_key(p) for p in batch}) == 1
+    assert [r.size for r in results] == [(128, 64), (64, 64)] * 3
+
+
+def test_seeded_requests_run_alone():
+    model = StubModel()
+    batcher = MicroBatcher(model, max_batch=4, window_ms=1000, clock=FakeClock())
+    results, threads = _submit_all(
+        batcher, [GenerationParams(prompt="p", width=64, height=64, seed=1)] * 3)
+    _join(threads)
+    assert [len(b) for b in model.batches] == [1, 1, 1]
+
+
+def test_an_error_reaches_every_request_of_the_group():
+    class Exploding(StubModel):
+        def generate_batch(self, batch):
+            raise RuntimeError("boom")
+
+    clock = FakeClock()
+    batcher = MicroBatcher(Exploding(), max_batch=4, window_ms=1000, clock=clock)
+    results, threads = _submit_all(batcher, [GenerationParams(prompt="x", width=64, height=64)] * 3)
+    _close_windows(batcher, clock, 3, lambda: all(r is not None for r in results))
+    _join(threads)
+    assert all(isinstance(r, RuntimeError) and str(r) == "boom" for r in results)
+
+
+def _post(port, body, path="/predict", timeout=60):
+    request = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"},
+    )
+    with urllib.request.urlopen(request, timeout=timeout) as r:
+        return r.status, r.headers["Content-Type"], r.read()
+
+
+def _serving(batcher):
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(batcher))
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server, server.server_address[1]
+
+
+def test_http_round_trip():
+    """Concurrent posts through the window batcher come back as webp of the
+    asked size; /health answers; a body that does not validate is a 422, an
+    unknown path a 404."""
+    model, clock = StubModel(), FakeClock()
+    batcher = MicroBatcher(model, max_batch=4, window_ms=1000, clock=clock)
+    server, port = _serving(batcher)
+    try:
+        responses = [None] * 3
+
+        def post(i):
+            responses[i] = _post(port, {"prompt": f"hi {i}", "width": 64, "height": 128})
+
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(3)]
+        for th in threads:
+            th.start()
+        _close_windows(batcher, clock, 3, lambda: model.batches)
+        _join(threads)
+        for status, ctype, data in responses:
+            assert status == 200 and ctype == "image/webp"
+            assert Image.open(io.BytesIO(data)).size == (64, 128)
+        assert [len(b) for b in model.batches] == [4]  # 3 requests padded to the bucket
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=10) as r:
+            assert json.loads(r.read())["status"] == "ok"
+        with pytest.raises(urllib.error.HTTPError) as bad:
+            _post(port, {"prompt": "x", "width": 65})
+        assert bad.value.code == 422
+        with pytest.raises(urllib.error.HTTPError) as missing:
+            _post(port, {"prompt": "x"}, path="/nowhere")
+        assert missing.value.code == 404
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
+def test_generation_params_validators():
+    for bad in (dict(width=65), dict(height=100), dict(cfg_rescale=1.5), dict(cfg_trunc_ratio=-0.1),
+                dict(renorm_cfg=-0.1), dict(distilled_guidance=-1.0), dict(frames=0), dict(fps=0)):
+        with pytest.raises(ValueError):
+            GenerationParams(prompt="x", **bad)
+    p = GenerationParams(prompt="x")
+    assert (p.width, p.height, p.inference_steps, p.cfg_scale) == (768, 1024, 25, 6.5)
+    keys = {batch_key(GenerationParams(prompt="a", width=64, height=64, **kw)) for kw in
+            (dict(), dict(renorm_cfg=2.0), dict(cfg_trunc_ratio=0.5), dict(cfg_rescale=0.5),
+             dict(seed=1), dict(inference_steps=8))}
+    assert len(keys) == 6
+
+
+def _stub_t2i(family):
+    model = T2IModel.__new__(T2IModel)
+    model._family, model._extra, model._lock = family, {}, threading.Lock()
+    calls = {}
+
+    class _Pipeline:
+        def generate(self, **kwargs):
+            calls.update(kwargs)
+            return [None] * len(kwargs["prompt"])
+
+    model.model = _Pipeline()
+    return model, calls
+
+
+def test_family_only_generation_knobs():
+    """A knob another family owns is refused before any work; Lumina2's
+    reach its generate() by their names; the seed rides along."""
+    sdxl, calls = _stub_t2i("sdxl")
+    for bad, owner in ((dict(renorm_cfg=2.0), "Lumina2"), (dict(cfg_trunc_ratio=0.25), "Lumina2"),
+                       (dict(distilled_guidance=3.5), "Flux"), (dict(frames=8), "Wan")):
+        with pytest.raises(ValueError, match=f"{owner}-only"):
+            sdxl.generate_batch([GenerationParams(prompt="x", width=64, height=64, **bad)])
+    sdxl.generate_batch([GenerationParams(prompt="x", width=64, height=64, cfg_rescale=0.5,
+                                          seed=3)])
+    assert calls["cfg_rescale"] == 0.5 and calls["seed"] == 3
+    lumina, calls = _stub_t2i("lumina2")
+    with pytest.raises(ValueError, match="SDXL-only"):
+        lumina.generate_batch([GenerationParams(prompt="x", width=64, height=64, cfg_rescale=0.5)])
+    lumina.generate_batch([GenerationParams(prompt="x", width=64, height=64, renorm_cfg=1.5,
+                                            cfg_trunc_ratio=0.25)])
+    assert calls["renorm_cfg_scale"] == 1.5 and calls["cfg_truncation_ratio"] == 0.25
+
+
+def test_t2imodel_refuses_flags_and_families_before_loading(tmp_path):
+    with pytest.raises(ValueError, match="must be >= 1"):
+        T2IModel("does-not-exist.yml", None, None, family="sdxl", deep_cache_interval=0)
+    for family in srv.WAITING_FAMILIES:
+        with pytest.raises(NotImplementedError, match=family):
+            T2IModel("does-not-exist.yml", None, None, family=family)
+    with pytest.raises(ValueError, match="unsupported server family"):
+        T2IModel("does-not-exist.yml", None, None, family="sd3")
+
+
+def test_continuous_scheduler_validation():
+    unsupported = T2IModel.__new__(T2IModel)
+    unsupported._family = "flux"
+    with pytest.raises(ValueError, match="currently serves"):
+        ContinuousScheduler(unsupported, height=64, width=64)
+    sched = ContinuousScheduler.__new__(ContinuousScheduler)
+    sched.height, sched.width, sched._family = 64, 64, "sdxl"
+    with pytest.raises(ValueError, match="fixed at 64x64"):
+        sched.submit(GenerationParams(prompt="x", width=128, height=64))
+    for bad, owner in ((dict(renorm_cfg=2.0), "Lumina2"), (dict(distilled_guidance=3.0), "Flux"),
+                       (dict(frames=8), "Wan")):
+        with pytest.raises(ValueError, match=f"{owner}-only"):
+            sched.submit(GenerationParams(prompt="x", width=64, height=64, **bad))
+    sched._family = "lumina2"
+    with pytest.raises(ValueError, match="SDXL-only"):
+        sched.submit(GenerationParams(prompt="x", width=64, height=64, cfg_rescale=0.5))
+
+
+@pytest.mark.parametrize("module", [srv, inference_cli])
+def test_help_names_exactly_the_served_families(module, capsys):
+    """The help text, the docstring's family list and the served set agree
+    (the JAX tool's help named 3 of the 5 families it served)."""
+    with pytest.raises(SystemExit):
+        module.build_parser().parse_args(["--help"])
+    text = " ".join(capsys.readouterr().out.split())
+    named = {f for f in (*srv.SERVED_FAMILIES, *srv.WAITING_FAMILIES) if f in text}
+    assert named == set(srv.SERVED_FAMILIES) == {"sdxl", "lumina2", "auraflow"}
+    doc = " ".join(module.__doc__.split())
+    assert "sdxl, lumina2 and auraflow" in doc or "sdxl, lumina2, auraflow" in doc
+
+
+# -- a real model, from a single-file checkpoint ------------------------------------------
+
+
+def _clip_vocab(path):
+    """A CLIP BPE vocab inside the tiny towers' 1000 ids (letters, digits,
+    the comma), bos 998, eos 999."""
+    vocab = {}
+    for ch in "abcdefghijklmnopqrstuvwxyz0123456789,":
+        vocab[ch] = len(vocab)
+        vocab[ch + "</w>"] = len(vocab)
+    vocab.update({"ca": len(vocab), "cat</w>": len(vocab) + 1})
+    vocab["<|startoftext|>"], vocab["<|endoftext|>"] = 998, 999
+    (path / "vocab.json").write_text(json.dumps(vocab))
+    (path / "merges.txt").write_text("#version: 0.2\nc a\nca t</w>\n")
+
+
+@pytest.fixture(scope="module")
+def tiny_sdxl(tmp_path_factory):
+    """A tiny SDXL's seeded weights in a single-file checkpoint, a YAML that
+    names it, and a CLIP vocab dir."""
+    work = tmp_path_factory.mktemp("tiny_sdxl")
+    config, kwargs = _tiny_kwargs("torch")
+    model = SDXLModel(config, **kwargs)
+    model.init_params(torch.Generator().manual_seed(0), device="cpu")
+    st.save_file({k: v.contiguous() for k, v in model.state_dict().items()},
+                 work / "sdxl.safetensors")
+    _clip_vocab(work)
+    model_config = config.model_dump(mode="json")
+    model_config.update(checkpoint_path=str(work / "sdxl.safetensors"))
+    (work / "serve.yml").write_text(yaml.safe_dump({
+        "model": model_config, "dataset": {},
+        "optimizer": {"name": "torch.optim.AdamW", "args": {"lr": 1.0e-4}},
+        "seed": 0, "num_train_epochs": 1,
+    }))
+    _, tiny = _tiny_kwargs("torch")
+    tiny.pop("tokenizer")  # the server loads the vocab from its dir
+    return work, tiny
+
+
+@pytest.fixture
+def tiny_constructor(monkeypatch, tiny_sdxl):
+    """SDXLModel built at the checkpoint's tiny widths and in fp32 whatever
+    config it is given (the CLI names only the checkpoint)."""
+    work, tiny = tiny_sdxl
+    config, _ = _tiny_kwargs("torch")
+    build = SDXLModel.__init__
+
+    def tiny_init(self, model_config, tokenizer=None):
+        model_config = model_config.model_copy(update={"denoiser": config.denoiser,
+                                                       "dtype": "float32"})
+        build(self, model_config, tokenizer=tokenizer, **tiny)
+
+    monkeypatch.setattr(SDXLModel, "__init__", tiny_init)
+    return work
+
+
+def _webp(image):
+    buffer = io.BytesIO()
+    image.save(buffer, format="WEBP")
+    return buffer.getvalue()
+
+
+def test_t2imodel_serves_a_tiny_sdxl_checkpoint(tiny_constructor):
+    """T2IModel from the YAML behind both schedulers over HTTP: through the
+    window batcher a seeded request's webp is the pipeline's own image of
+    it, encoded alike; the continuous pool answers staggered requests of
+    other step counts and refuses another size."""
+    work = tiny_constructor
+    served = T2IModel(str(work / "serve.yml"), None, str(work), family="sdxl", device="cpu")
+    assert served.model.device == torch.device("cpu")
+    direct = served.model.generate(["a cat"], negative_prompt=[srv.DEFAULT_NEGATIVE], width=64,
+                                    height=64, num_inference_steps=2, cfg_scale=3.0, seed=5)
+    batcher = MicroBatcher(served, max_batch=2, window_ms=60_000)
+    server, port = _serving(batcher)
+    try:
+        _, ctype, data = _post(port, dict(prompt="a cat", width=64, height=64, inference_steps=2,
+                                          cfg_scale=3.0, seed=5))
+    finally:
+        server.shutdown()
+        server.server_close()
+    assert ctype == "image/webp" and data == _webp(direct[0])
+
+    sched = ContinuousScheduler(served, height=64, width=64, num_slots=2, max_steps=8)
+    server, port = _serving(sched)
+    try:
+        responses = [None] * 2
+
+        def post(i):
+            responses[i] = _post(port, dict(prompt=f"cat {i}", width=64, height=64,
+                                            inference_steps=2 + i, cfg_scale=3.0, seed=i))
+
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(2)]
+        for th in threads:
+            th.start()
+        _join(threads)
+        assert all(r[0] == 200 and r[1] == "image/webp" for r in responses)
+        with pytest.raises(urllib.error.HTTPError) as off_pool:
+            _post(port, {"prompt": "x", "width": 128, "height": 64})
+        assert off_pool.value.code == 500
+    finally:
+        server.shutdown()
+        server.server_close()
+        sched.close()
+
+
+def test_cli_writes_a_webp(tiny_constructor, tmp_path, capsys):
+    """The CLI on the checkpoint with its denoiser's Linears in NF4 (the
+    plain 4-bit matmul on the CPU), and a refused family by name."""
+    work = tiny_constructor
+    out = tmp_path / "out.webp"
+    saved = inference_cli.main([
+        "--family", "sdxl", "--checkpoint-path", str(work / "sdxl.safetensors"),
+        "--tokenizer-path", str(work), "--width", "64", "--height", "64",
+        "--num-inference-steps", "2", "--quant-type", "bnb_nf4", "--cfg-rescale", "0.5",
+        "--save-path", str(out), "--device", "cpu",
+    ])
+    assert saved == [str(out)] and Image.open(out).format == "WEBP"
+    assert Image.open(out).size == (64, 64)
+    assert "Quantizing denoiser with bnb_nf4" in capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match="flux"):
+        inference_cli.main(["--family", "flux", "--checkpoint-path", "x", "--device", "cpu"])
+
+
+def test_client_posts_and_saves(tmp_path, capsys):
+    clock = FakeClock()
+    batcher = MicroBatcher(StubModel(), max_batch=1, window_ms=1000, clock=clock)
+    server, port = _serving(batcher)
+    try:
+        out = tmp_path / "client.webp"
+        seconds = inference_client.main([
+            "--url", f"http://127.0.0.1:{port}/predict", "--prompt", "a cat", "--width", "128",
+            "--height", "64", "--seed", "3", "--save-path", str(out)])
+    finally:
+        server.shutdown()
+        server.server_close()
+    assert seconds > 0 and Image.open(out).size == (128, 64)
+    assert f"Saved {out}" in capsys.readouterr().out

@@ -39,8 +39,9 @@ def test_port_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
     # every module of the SDXL generate, train and quantization slices, of the Lumina2
     # generate and train slices, of the SDXL Trainer slice, of the AuraFlow generate
-    # and train slices, and the GroupNorm and 3x3 conv ops with the ragged-tile probe tool
-    assert int(proc.stdout.strip()) >= 121
+    # and train slices, the GroupNorm and 3x3 conv ops with the ragged-tile probe tool,
+    # and the serving slice (the continuous batcher, the server, the CLI, the client)
+    assert int(proc.stdout.strip()) >= 126
 
 
 PORT_SOURCES = sorted((REPO / "vision_ft_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -77,6 +78,13 @@ OPS_SOURCES = [
     "ops/group_norm.py", "ops/conv3x3.py", "tools/__init__.py", "tools/partial_block_probe.py",
 ]
 
+# the serving slice: the continuous batcher and the server, CLI and client
+SERVING_MODULES = [
+    "serving/__init__.py", "serving/continuous.py", "tools/inference_server.py",
+    "tools/inference_cli.py", "tools/inference_client.py",
+]
+SLICES = LUMINA2_MODULES + AURAFLOW_MODULES + AURAFLOW_TRAIN_MODULES + OPS_SOURCES + SERVING_MODULES
+
 
 def _imported_roots(path: Path) -> set[str]:
     roots = set()
@@ -90,17 +98,15 @@ def _imported_roots(path: Path) -> set[str]:
 
 def test_no_source_of_the_port_imports_jax_or_the_jax_package():
     """Every import statement of the port and of chip_smoke.py, also those
-    inside functions, which importing the modules would not run."""
-    assert all((REPO / "vision_ft_tpu_torch" / name) in PORT_SOURCES
-               for name in LUMINA2_MODULES + AURAFLOW_MODULES + AURAFLOW_TRAIN_MODULES + OPS_SOURCES)
+    inside functions, which importing the modules would not run; the repo
+    root's ``tools`` package is the JAX side's too."""
+    assert all((REPO / "vision_ft_tpu_torch" / name) in PORT_SOURCES for name in SLICES)
     for path in PORT_SOURCES:
-        bad = _imported_roots(path) & {"jax", "jaxlib", "flax", "optax", "vision_ft_tpu"}
+        bad = _imported_roots(path) & {"jax", "jaxlib", "flax", "optax", "vision_ft_tpu", "tools"}
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
 
 
-@pytest.mark.parametrize(
-    "name", LUMINA2_MODULES + AURAFLOW_MODULES + AURAFLOW_TRAIN_MODULES + OPS_SOURCES
-)
+@pytest.mark.parametrize("name", SLICES)
 def test_lumina2_module_reads_no_environment_variable(name):
     """The JAX package's VFT_* levers are setters in the port."""
     text = (REPO / "vision_ft_tpu_torch" / name).read_text()

@@ -321,7 +321,7 @@ def test_generate_runs_and_is_seeded(models):
     np.testing.assert_array_equal(np.asarray(images[1]), np.asarray(again[1]))
 
 
-@pytest.mark.parametrize("option", [{"deep_cache_interval": 2}, {"do_offloading": True}])
+@pytest.mark.parametrize("option", [{"do_offloading": True}])
 def test_generate_rejects_unported_options(models, option):
     with pytest.raises(NotImplementedError):
         models[1].generate("a cat", width=64, height=64, num_inference_steps=2, **option)

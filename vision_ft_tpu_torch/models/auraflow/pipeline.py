@@ -18,8 +18,9 @@ only one of the two, the VAE may come in sgm or diffusers names, and
 prequantized bnb / quanto weights are grouped into quantized leaves).
 ``state_dict()`` writes that layout back.
 
-Not ported yet, each raising by name: offloading (``do_offloading``) and
-the continuous-batching slot step (``_slot_step``).
+``_slot_step`` is the continuous-batching unit (``serving/continuous.py``):
+one flow-match Euler step over a pool of slots with per-slot plain CFG.
+Not ported yet, raising by name: offloading (``do_offloading``).
 """
 
 from __future__ import annotations
@@ -267,11 +268,29 @@ class AuraFlowModel:
         new_latents = new_latents.to(latents.dtype)
         return (new_latents, delta) if deep_cache else new_latents
 
-    def _slot_step(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the continuous-batching slot step waits for serving/continuous.py "
-            "(ROADMAP.md queue 1, item 4)"
-        )
+    def _slot_step(
+        self,
+        latents,     # (S, h, w, c): one row a serving slot
+        timestep,    # (S,) fp32: unused (the model's time is sigma)
+        sigma,       # (S,) fp32
+        next_sigma,  # (S,) fp32
+        embeddings,  # (2S, L, D): [positives; negatives]
+        cfg_scale,   # (S,) fp32
+        active,      # (S,) bool: inactive rows keep their latents
+    ):
+        """One flow-match Euler step over a slot pool with plain CFG, each
+        request's scalars a per-slot vector; a slot with ``cfg_scale <= 1``
+        takes the positive velocity (its negative half still computes, for
+        one shape). The arithmetic is ``_denoise_step``'s."""
+        s = latents.shape[0]
+        expand = lambda v: v.view(-1, 1, 1, 1)
+        t2 = torch.cat([sigma, sigma]).float().to(latents.dtype)
+        velocity = self.denoiser(torch.cat([latents, latents]), embeddings, t2)
+        positive, negative = velocity[:s], velocity[s:]
+        guided = negative.float() + expand(cfg_scale.float()) * (positive - negative).float()
+        velocity = torch.where(expand(cfg_scale > 1.0), guided, positive.float())
+        new_latents = latents.float() + expand((next_sigma - sigma).float()) * velocity
+        return torch.where(expand(active), new_latents.to(latents.dtype), latents)
 
     # -- generate --------------------------------------------------------------------
 

@@ -6,7 +6,8 @@ load with strict keys, with ``encode`` (the Lumina2 train step's, into a
 ``DiagonalGaussian``) and ``decode`` (the generate paths). All tensors are
 NHWC; latents (B, H/8, W/8, C). The mid-block attention is single-head over
 HW tokens and runs the plain formula ("xla" backend, as in the JAX
-package). Not ported yet: ``tiled_decode``.
+package), and ``tiled_decode`` (overlapping tiles with blended seams, the
+SDXL pipeline's decode at 1536 px and up).
 """
 
 from __future__ import annotations
@@ -263,3 +264,53 @@ class AutoencoderKL(nn.Module):
         if self.post_quant_conv is not None:
             z = self.post_quant_conv(z)
         return self.decoder(z)
+
+    def tiled_decode(
+        self, z: torch.Tensor, tile_latent_size: int = 64, tile_overlap_factor: float = 0.25
+    ) -> torch.Tensor:
+        """Decode in overlapping tiles and blend the seams (diffusers'
+        ``AutoencoderKL.tiled_decode``, as the JAX package computes it):
+        each tile blends against its raw upper and left neighbours, then is
+        cropped, so the output has the size of a whole decode. A blended
+        tile is fp32, as the JAX package's (its fp32 ramp promotes it)."""
+        sf = self.config.compression_ratio
+        overlap = int(tile_latent_size * tile_overlap_factor)
+        stride = tile_latent_size - overlap
+        blend = int(tile_latent_size * sf * tile_overlap_factor)
+        _, h, w, _ = z.shape
+        rows = [
+            [
+                self.decode(z[:, i : i + tile_latent_size, j : j + tile_latent_size])
+                for j in range(0, w, stride)
+            ]
+            for i in range(0, h, stride)
+        ]
+
+        def ramp(extent, dim, like):
+            t = torch.arange(extent, dtype=torch.float32, device=like.device) / extent
+            return t.view([-1 if d == dim else 1 for d in range(4)])
+
+        def blend_v(a, b, extent):
+            extent = min(a.shape[1], b.shape[1], extent)
+            t = ramp(extent, 1, b)
+            mixed = a[:, -extent:] * (1 - t) + b[:, :extent] * t
+            return torch.cat([mixed, b[:, extent:]], dim=1)
+
+        def blend_h(a, b, extent):
+            extent = min(a.shape[2], b.shape[2], extent)
+            t = ramp(extent, 2, b)
+            mixed = a[:, :, -extent:] * (1 - t) + b[:, :, :extent] * t
+            return torch.cat([mixed, b[:, :, extent:]], dim=2)
+
+        row_limit = tile_latent_size * sf - blend
+        out_rows = []
+        for i, row in enumerate(rows):
+            result_row = []
+            for j, tile in enumerate(row):
+                if i > 0:
+                    tile = blend_v(rows[i - 1][j], tile, blend)
+                if j > 0:
+                    tile = blend_h(row[j - 1], tile, blend)
+                result_row.append(tile[:, :row_limit, :row_limit])
+            out_rows.append(torch.cat(result_row, dim=2))  # cat promotes a mix to fp32
+        return torch.cat(out_rows, dim=1)

@@ -16,8 +16,10 @@ key layout, ``model.diffusion_model.*``,
 package's ``state_dict()`` layout; prequantized bnb/quanto weights are
 grouped into quantized leaves). ``state_dict()`` writes that layout back.
 
-``encode_image`` is the VAE encode of the train step's latents. Not ported
-yet: offloading, the continuous-batching slot step.
+``encode_image`` is the VAE encode of the train step's latents.
+``_slot_step`` is the continuous-batching unit (``serving/continuous.py``):
+one flow-match Euler step over a pool of slots with per-slot guidance,
+renorm and CFG truncation. Not ported yet: offloading.
 """
 
 from __future__ import annotations
@@ -252,6 +254,51 @@ class Lumina2:
         if deep_cache:
             return new_latents, refined, delta
         return new_latents, refined
+
+    # -- continuous-batching slot step ---------------------------------------------
+
+    def _slot_step(
+        self,
+        latents,           # (S, h, w, c): one row a serving slot
+        timestep,          # (S,) fp32: each slot's denoise position
+        sigma,             # (S,) fp32
+        next_sigma,        # (S,) fp32
+        caption_features,  # (2S, L, D): [positives; negatives]
+        caption_mask,      # (2S, L)
+        cfg_scale,         # (S,) fp32
+        renorm_cfg_scale,  # (S,) fp32
+        cfg_trunc_ratio,   # (S,) fp32
+        step_idx,          # (S,) int
+        total_steps,       # (S,) int
+        active,            # (S,) bool: inactive rows keep their latents
+    ):
+        """One flow-match Euler step over a slot pool: every per-request
+        scalar of ``_denoise_step`` is a per-slot vector, the CFG-truncation
+        gate too (``(i + 1) / n > ratio``): a truncated slot takes the bare
+        positive velocity (its negative half still computes, for one
+        shape). The captions are refined again each step, as in the JAX
+        package (no caption cache in a pool)."""
+        s = latents.shape[0]
+        expand = lambda v: v.view(-1, 1, 1, 1)
+        t2 = torch.cat([timestep, timestep]).float()
+        velocity, _mask, _refined = self.denoiser(
+            torch.cat([latents, latents]), caption_features, t2, caption_mask,
+            cached_caption_features=None,
+        )
+        velocity = velocity.float()
+        positive, negative = velocity[:s], velocity[s:]
+        cfg, renorm = expand(cfg_scale.float()), expand(renorm_cfg_scale.float())
+        guided = negative + cfg * (positive - negative)
+        # renorm CFG: the norm runs over NHWC axis 2 (the W axis)
+        positive_norm = torch.linalg.vector_norm(positive, dim=2, keepdim=True)
+        new_norm = torch.linalg.vector_norm(guided, dim=2, keepdim=True)
+        scale = torch.where(renorm > 0.0, positive_norm * renorm / new_norm.clamp_min(1e-12),
+                            torch.ones_like(new_norm))
+        ratio = (step_idx.float() + 1.0) / total_steps.float()
+        do_cfg_step = (cfg_scale > 1.0) & (ratio > cfg_trunc_ratio)
+        velocity = torch.where(expand(do_cfg_step), guided * scale, positive)
+        new_latents = latents.float() + velocity * expand((sigma - next_sigma).float())
+        return torch.where(expand(active), new_latents.to(latents.dtype), latents)
 
     # -- generate --------------------------------------------------------------------
 

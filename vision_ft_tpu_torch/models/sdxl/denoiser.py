@@ -16,12 +16,16 @@ through the short-K kernels, and with ``ops.fused_mlp.set_fused_ff("on")``
 its 70 dense GeGLU feed-forwards through the fused gated-MLP kernel. With
 ``set_gradient_checkpointing(True)`` every layer list is a checkpointed
 region (``nn.core.remat_layer``). LoRA / LoHa adapters live on the
-``Linear`` / ``Conv2d`` layers (``modules/peft``). Not ported yet:
-DeepCache (``deepcache_forward``) and the positional adapter hooks
+``Linear`` / ``Conv2d`` layers (``modules/peft``). ``deepcache_forward``
+runs a DeepCache step on the forward's block runners (a cached step runs
+the three shallowest input and output blocks only: no transformer block,
+so no kernel launch). Not ported yet: the positional adapter hooks
 (``cross_attention_kwargs``).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -413,20 +417,82 @@ class UNet(nn.Module):
             crop_coords_top_left, latents.dtype,
         )
         context = encoder_hidden_states
-        remat = self.gradient_checkpointing and torch.is_grad_enabled()
-        h = latents
+        h, skips = self._run_input_blocks(latents, context, global_cond)
+        h = self._run_middle(h, context, global_cond)
+        h = self._run_output_blocks(h, skips, context, global_cond)
+        return self._out_head(h)
+
+    # -- forward segments (shared by the plain forward and DeepCache) -------
+
+    def _remat(self) -> bool:
+        return self.gradient_checkpointing and torch.is_grad_enabled()
+
+    def _run_input_blocks(self, h, context, global_cond, upto: Optional[int] = None):
+        """Input blocks [0, upto); returns (h, skips)."""
         skips = []
-        for kinds, modules in zip(self.input_blocks.kinds, self.input_blocks.blocks):
-            h = _run_layer_list(kinds, modules, h, context, global_cond, remat)
+        for kinds, modules in list(zip(self.input_blocks.kinds, self.input_blocks.blocks))[:upto]:
+            h = _run_layer_list(kinds, modules, h, context, global_cond, self._remat())
             skips.append(h)
-        h = _run_layer_list(
-            self.middle_block.kinds, self.middle_block.blocks, h, context, global_cond, remat
+        return h, skips
+
+    def _run_middle(self, h, context, global_cond):
+        return _run_layer_list(
+            self.middle_block.kinds, self.middle_block.blocks, h, context, global_cond,
+            self._remat(),
         )
-        for kinds, modules in zip(self.output_blocks.kinds, self.output_blocks.blocks):
+
+    def _run_output_blocks(self, h, skips, context, global_cond, start: int = 0,
+                           end: Optional[int] = None):
+        """Output blocks [start, end), each taking the last of ``skips``."""
+        skips = list(skips)
+        blocks = list(zip(self.output_blocks.kinds, self.output_blocks.blocks))
+        for kinds, modules in blocks[start:end]:
             h = torch.cat([h, skips.pop()], dim=-1)
-            h = _run_layer_list(kinds, modules, h, context, global_cond, remat)
-        h = F.silu(self.out["0"](h))
-        return self.out["2"](h)
+            h = _run_layer_list(kinds, modules, h, context, global_cond, self._remat())
+        return h
+
+    def _out_head(self, h):
+        return self.out["2"](F.silu(self.out["0"](h)))
+
+    def deepcache_forward(
+        self,
+        latents: torch.Tensor,
+        timestep: torch.Tensor,
+        encoder_hidden_states: torch.Tensor,
+        encoder_pooler_output: torch.Tensor,
+        original_size: torch.Tensor,
+        target_size: torch.Tensor,
+        crop_coords_top_left: torch.Tensor,
+        cached_deep: Optional[torch.Tensor],
+        refresh: bool,
+        cache_depth: int = 3,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """DeepCache step (Ma et al. 2023, arXiv:2312.00858): the deep
+        features change slowly across adjacent denoise steps, so a cached
+        step runs only the ``cache_depth`` shallowest input and output
+        blocks around ``cached_deep`` (the feature entering the shallow
+        output blocks at the last full pass). A full pass runs when
+        ``refresh`` is true or there is no cache yet. Returns (noise_pred,
+        deep feature)."""
+        _, global_cond = self.prepare_global_condition(
+            timestep, encoder_pooler_output, original_size, target_size,
+            crop_coords_top_left, latents.dtype,
+        )
+        context = encoder_hidden_states
+        n_out = len(self.output_blocks.blocks)
+        if not 0 < cache_depth < n_out:
+            raise ValueError(f"cache_depth {cache_depth} outside (0, {n_out})")
+        start = n_out - cache_depth  # the first shallow output block
+        if cached_deep is None or refresh:
+            h, skips = self._run_input_blocks(latents, context, global_cond)
+            h = self._run_middle(h, context, global_cond)
+            # the deep output blocks [0, start) take the deep skips
+            deep = self._run_output_blocks(h, skips[cache_depth:], context, global_cond, end=start)
+            h = self._run_output_blocks(deep, skips[:cache_depth], context, global_cond, start=start)
+            return self._out_head(h), deep
+        _, skips = self._run_input_blocks(latents, context, global_cond, upto=cache_depth)
+        h = self._run_output_blocks(cached_deep, skips, context, global_cond, start=start)
+        return self._out_head(h), cached_deep
 
     def set_gradient_checkpointing(self, enabled: bool) -> None:
         """Checkpoint every layer list (``nn.core.remat_layer``) whenever a

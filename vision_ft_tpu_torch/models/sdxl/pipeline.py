@@ -21,10 +21,19 @@ SentencePiece model), as in the JAX package.
 The JAX ``lax.scan`` loop is a Python loop here (``_denoise_loop``), which
 takes its initial latents and per-step ancestral noise as tensors;
 ``generate()`` draws them from generators seeded as the JAX package seeds
-its own (step i: ``seed + 7919 * (i + 1)``, sample j: ``+ j``).
+its own (step i: ``seed + 7919 * (i + 1)``, sample j: ``+ j``). With
+``deep_cache_interval=N`` the loop runs DeepCache (``UNet.deepcache_forward``):
+a full pass on steps ``i % N == 0``, the shallow blocks around the cached
+deep feature between them (the JAX ``lax.cond`` is a Python branch). At
+1536 px and up the VAE decodes in tiles (``AutoencoderKL.tiled_decode``).
 
-Not ported yet: DeepCache, offloading, tiled decode (>= 1536 px), the
-continuous-batching slot step.
+``_slot_step`` is the continuous-batching unit (``serving/continuous.py``):
+one CFG Euler-ancestral step over a pool of slots, each request's scalars a
+per-slot vector, slot j's step-i noise drawn from its own generator seeded
+``(seed_j + 7919 * (i + 1)) & 0x7FFFFFFF`` (``slot_noise``), the stream of
+batch-1 ``generate()``.
+
+Not ported yet: offloading.
 """
 
 from __future__ import annotations
@@ -214,9 +223,8 @@ class SDXLModel:
         return noise * max_noise_sigma
 
     def decode_image(self, latents: torch.Tensor, use_tiling: bool = False) -> list[Image.Image]:
-        if use_tiling:
-            raise NotImplementedError("tiled VAE decode is not ported yet")
-        image = self.vae.decode(latents / self.vae.scaling_factor)
+        z = latents / self.vae.scaling_factor
+        image = self.vae.tiled_decode(z) if use_tiling else self.vae.decode(z)
         return tensor_utils.tensor_to_images(image)
 
     # -- denoise loop ------------------------------------------------------------
@@ -224,31 +232,30 @@ class SDXLModel:
     def _denoise_step(
         self, latents, timestep, sigma, next_sigma, noise, embeddings, pooled,
         original_size, target_size, crop_coords, cfg_scale, cfg_rescale, do_cfg: bool,
+        cached_deep=None, refresh: Optional[bool] = None,
     ):
         """One Euler-ancestral CFG step; ``noise`` is this step's fp32
-        ancestral noise, shaped like ``latents``."""
+        ancestral noise, shaped like ``latents``. With ``refresh`` set
+        (True or False) it is a DeepCache step and returns (latents, deep
+        feature)."""
         model_input = torch.cat([latents, latents]) if do_cfg else latents
         model_input = self.scheduler.scale_model_input(model_input.float(), sigma)
         model_input = model_input.to(latents.dtype)
         t = torch.full((model_input.shape[0],), float(timestep), device=latents.device)
-        noise_pred = self.denoiser(
-            model_input, t, embeddings, pooled, original_size, target_size, crop_coords
-        )
+        unet_args = (model_input, t, embeddings, pooled, original_size, target_size, crop_coords)
+        if refresh is not None:
+            noise_pred, deep = self.denoiser.deepcache_forward(
+                *unet_args, cached_deep=cached_deep, refresh=refresh
+            )
+        else:
+            noise_pred = self.denoiser(*unet_args)
         if do_cfg:
             positive, negative = noise_pred.float().chunk(2)
-            noise_pred = negative + cfg_scale * (positive - negative)
-            # CFG rescale (Lin et al. 2023, arXiv:2305.08891 sec. 3.4):
-            # re-match the guided prediction's per-sample std to the
-            # positive branch's, blended by cfg_rescale (0 = off)
-            dims = tuple(range(1, noise_pred.ndim))
-            std_pos = positive.std(dim=dims, keepdim=True, correction=0)
-            std_cfg = noise_pred.std(dim=dims, keepdim=True, correction=0)
-            rescaled = noise_pred * (std_pos / std_cfg.clamp_min(1e-6))
-            noise_pred = cfg_rescale * rescaled + (1.0 - cfg_rescale) * noise_pred
+            noise_pred = _guidance(positive, negative, cfg_scale, cfg_rescale)
         new_latents = self.scheduler.ancestral_step(
             latents.float(), noise_pred.float(), sigma, next_sigma, noise
-        )
-        return new_latents.to(latents.dtype)
+        ).to(latents.dtype)
+        return new_latents if refresh is None else (new_latents, deep)
 
     def _denoise_loop(
         self,
@@ -264,17 +271,84 @@ class SDXLModel:
         cfg_scale: float,
         cfg_rescale: float,
         do_cfg: bool,
+        deep_cache_interval: Optional[int] = None,
     ) -> torch.Tensor:
         """The sampling loop: ``len(timesteps)`` steps from ``latents``,
-        step i adding ``step_noises[i]`` as its ancestral noise."""
+        step i adding ``step_noises[i]`` as its ancestral noise; with
+        ``deep_cache_interval=N``, DeepCache refreshing on ``i % N == 0``."""
         if len(step_noises) != len(timesteps):
             raise ValueError(f"{len(step_noises)} noises for {len(timesteps)} steps")
+        deep = None
         for i, t in enumerate(timesteps):
-            latents = self._denoise_step(
-                latents, t, sigmas[i], sigmas[i + 1], step_noises[i], embeddings, pooled,
-                original_size, target_size, crop_coords, cfg_scale, cfg_rescale, do_cfg,
-            )
+            args = (latents, t, sigmas[i], sigmas[i + 1], step_noises[i], embeddings, pooled,
+                    original_size, target_size, crop_coords, cfg_scale, cfg_rescale, do_cfg)
+            if deep_cache_interval:
+                latents, deep = self._denoise_step(
+                    *args, cached_deep=deep, refresh=i % deep_cache_interval == 0
+                )
+            else:
+                latents = self._denoise_step(*args)
         return latents
+
+    # -- continuous-batching slot step -------------------------------------------
+
+    @staticmethod
+    def slot_noise(seeds, step_idx, shape, device) -> torch.Tensor:
+        """The fp32 ancestral noise of a slot pool's step: slot j's from a
+        generator seeded ``(seeds[j] + 7919 * (step_idx[j] + 1)) &
+        0x7FFFFFFF`` (batch-1 ``generate()``'s stream for its step). The
+        seeds and indices are host integers (a sequence, array or CPU
+        tensor)."""
+        rows = []
+        for seed, i in zip(np.asarray(seeds).tolist(), np.asarray(step_idx).tolist()):
+            generator = torch.Generator(device=device).manual_seed(
+                (int(seed) + 7919 * (int(i) + 1)) & 0x7FFFFFFF
+            )
+            rows.append(torch.randn(shape, generator=generator, device=device))
+        return torch.stack(rows)
+
+    def _slot_step(
+        self,
+        latents,        # (S, h, w, c): one row a serving slot
+        timestep,       # (S,) fp32: each slot's denoise position
+        sigma,          # (S,) fp32
+        next_sigma,     # (S,) fp32
+        embeddings,     # (2S, L, D): [positives; negatives]
+        pooled,         # (2S, P)
+        original_size,  # (2S, 2)
+        target_size,    # (2S, 2)
+        crop_coords,    # (2S, 2)
+        cfg_scale,      # (S,) fp32: each request's guidance
+        cfg_rescale,    # (S,) fp32
+        seeds,          # (S,) host ints: each slot's base noise seed
+        step_idx,       # (S,) host ints: each slot's step index
+        active,         # (S,) bool: inactive rows keep their latents
+        noise: Optional[torch.Tensor] = None,
+    ):
+        """One CFG Euler-ancestral step over a slot pool: every
+        per-request scalar of ``_denoise_step`` is a per-slot vector, so
+        requests at different steps (and with different guidance and step
+        counts) share one batch. ``noise`` (S, h, w, c) fp32 replaces the
+        draw of ``slot_noise(seeds, step_idx)``. Inactive rows compute and
+        keep their latents."""
+        expand = lambda v: v.view(-1, 1, 1, 1)
+        if noise is None:
+            noise = self.slot_noise(seeds, step_idx, latents.shape[1:], latents.device)
+        sig2 = expand(torch.cat([sigma, sigma]).float())
+        model_input = torch.cat([latents, latents]).float() / torch.sqrt(sig2 ** 2 + 1)
+        model_input = model_input.to(latents.dtype)
+        noise_pred = self.denoiser(
+            model_input, torch.cat([timestep, timestep]).float(), embeddings, pooled,
+            original_size, target_size, crop_coords,
+        )
+        positive, negative = noise_pred.float().chunk(2)
+        noise_pred = _guidance(positive, negative, expand(cfg_scale.float()),
+                               expand(cfg_rescale.float()))
+        s, ns = expand(sigma.float()), expand(next_sigma.float())
+        sigma_up = torch.sqrt(ns ** 2 * (s ** 2 - ns ** 2) / s ** 2)
+        sigma_down = torch.sqrt(ns ** 2 - sigma_up ** 2)
+        new_latents = latents.float() + noise_pred * (sigma_down - s) + noise.float() * sigma_up
+        return torch.where(expand(active), new_latents.to(latents.dtype), latents)
 
     # -- generate --------------------------------------------------------------------
 
@@ -296,8 +370,6 @@ class SDXLModel:
         deep_cache_interval: Optional[int] = None,
         do_offloading: bool = False,
     ) -> list[Image.Image]:
-        if deep_cache_interval:
-            raise NotImplementedError("DeepCache is not ported yet")
         if do_offloading:
             raise NotImplementedError("offloading is not ported yet")
         do_cfg = cfg_scale > 1.0
@@ -334,7 +406,7 @@ class SDXLModel:
         latents = self._denoise_loop(
             latents, step_noises, timesteps, sigmas, embeddings, pooled,
             sizes(original_size), sizes(target_size), sizes(crop_coords_top_left),
-            cfg_scale, cfg_rescale, do_cfg,
+            cfg_scale, cfg_rescale, do_cfg, deep_cache_interval,
         )
         return self.decode_image(latents, use_tiling=max(height, width) >= 1536)
 
@@ -351,3 +423,16 @@ class SDXLModel:
             [te2.pooled_positive_embeddings, te2.pooled_negative_embeddings], dim=0
         )
         return embeddings, pooled
+
+
+def _guidance(positive, negative, cfg_scale, cfg_rescale):
+    """CFG with rescale (Lin et al. 2023, arXiv:2305.08891 sec. 3.4): the
+    guided prediction's per-sample std re-matched to the positive branch's,
+    blended by ``cfg_rescale`` (0 = off). fp32; scalars or per-sample
+    (B, 1, 1, 1) tensors."""
+    guided = negative + cfg_scale * (positive - negative)
+    dims = tuple(range(1, guided.ndim))
+    std_pos = positive.std(dim=dims, keepdim=True, correction=0)
+    std_cfg = guided.std(dim=dims, keepdim=True, correction=0)
+    rescaled = guided * (std_pos / std_cfg.clamp_min(1e-6))
+    return cfg_rescale * rescaled + (1.0 - cfg_rescale) * guided

@@ -1,0 +1,24 @@
+"""Serving runtime (``vision_ft_tpu/serving`` counterpart).
+
+``continuous`` is step-level continuous batching for diffusion sampling:
+a fixed pool of latent slots that requests join and leave at denoise-step
+boundaries, behind the HTTP server's ``--scheduler continuous``
+(``tools/inference_server.py``). The CogView4 and Flux adapters wait for
+their families.
+"""
+
+from .continuous import (
+    AuraFlowSlotAdapter,
+    ContinuousBatcher,
+    Lumina2SlotAdapter,
+    SDXLSlotAdapter,
+    SlotRequest,
+)
+
+__all__ = [
+    "AuraFlowSlotAdapter",
+    "ContinuousBatcher",
+    "Lumina2SlotAdapter",
+    "SDXLSlotAdapter",
+    "SlotRequest",
+]

@@ -1,0 +1,110 @@
+"""Single-file inference CLI of the port (``tools/inference_cli.py``
+counterpart): loads a family's single-file checkpoint, optionally quantizes
+the denoiser's Linears (``--quant-type``, e.g. ``bnb_nf4``: on SDXL the
+4-bit matmul kernels), generates and saves webp, on the card:
+
+    python3 -m vision_ft_tpu_torch.tools.inference_cli --family sdxl \\
+        --checkpoint-path sdxl.safetensors --tokenizer-path /path/to/clip_vocab \\
+        --width 1024 --height 1024 --quant-type bnb_nf4 --save-path out.webp
+
+Families: sdxl, lumina2, auraflow (the JAX package's cogview4, flux and wan
+raise ``NotImplementedError``). Tokenizers load from a local directory
+(``--tokenizer-path``: CLIP's vocab.json + merges.txt, or a SentencePiece
+``tokenizer.model``).
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import Optional, Sequence
+
+from .inference_server import SERVED_FAMILIES, check_family, load_model, prepare_kernels
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--checkpoint-path", type=str, required=True)
+    parser.add_argument("--family", type=str, default="auraflow",
+                        help=f"the model family: one of {', '.join(SERVED_FAMILIES)}")
+    parser.add_argument("--tokenizer-path", type=str, default=None)
+    parser.add_argument("--prompt", type=str, default="photo of a cat")
+    parser.add_argument("--negative-prompt", type=str, default="blurry, ugly, low quality")
+    parser.add_argument("--width", type=int, default=768)
+    parser.add_argument("--height", type=int, default=768)
+    parser.add_argument("--batch-size", type=int, default=1)
+    parser.add_argument("--num-inference-steps", type=int, default=20)
+    parser.add_argument("--cfg-scale", type=float, default=5.0)
+    parser.add_argument("--seed", type=int, default=42)
+    parser.add_argument("--save-path", type=str, default="output.webp")
+    parser.add_argument("--quant-type", type=str, default=None,
+                        help="quantize the denoiser's Linears (modules.quant), e.g. bnb_nf4")
+    parser.add_argument("--deep-cache-interval", type=int, default=None,
+                        help="a full denoiser pass every N steps, shallow cached passes between")
+    parser.add_argument("--cfg-rescale", type=float, default=None,
+                        help="SDXL only: std-matching CFG rescale blend in [0, 1]")
+    parser.add_argument("--do-offloading", action="store_true",
+                        help="stage submodules on and off the card (not ported yet: raises)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="where the model runs (cuda; cpu for tests)")
+    return parser
+
+
+def build_model(family: str, checkpoint_path: str, tokenizer_path: Optional[str],
+                quant_type: Optional[str], device=None):
+    """The family's pipeline from ``checkpoint_path``, its denoiser's
+    Linears quantized to ``quant_type`` where given (as the JAX tool: all
+    but ``t_embedder``, ``final_linear`` and ``modF``)."""
+    model = load_model(family, {"checkpoint_path": checkpoint_path}, tokenizer_path,
+                       device=device)
+    if quant_type is not None:
+        from ..modules.quant import quantize_params
+
+        print(f"Quantizing denoiser with {quant_type}...")
+        quantize_params(model.denoiser, quant_type, include_keys=[""],
+                        exclude_keys=["t_embedder", "final_linear", "modF"])
+    return model
+
+
+def main(argv: Optional[Sequence[str]] = None) -> list[str]:
+    """Runs the CLI; returns the paths it saved."""
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    check_family(args.family)
+    if args.tokenizer_path is None:
+        parser.error("--tokenizer-path (a local tokenizer directory or file) is required")
+    extra = {}
+    if args.do_offloading:
+        extra["do_offloading"] = True
+    if args.deep_cache_interval is not None:
+        extra["deep_cache_interval"] = args.deep_cache_interval
+    if args.cfg_rescale is not None:
+        if args.family != "sdxl":
+            parser.error("--cfg-rescale is SDXL-only")
+        extra["cfg_rescale"] = args.cfg_rescale
+
+    print("Loading model...")
+    model = build_model(args.family, args.checkpoint_path, args.tokenizer_path,
+                        args.quant_type, device=args.device)
+    prepare_kernels(args.family, args.device)
+    print(f"Prompt: {args.prompt}")
+    images = model.generate(
+        prompt=[args.prompt] * args.batch_size,
+        negative_prompt=args.negative_prompt,
+        width=args.width,
+        height=args.height,
+        num_inference_steps=args.num_inference_steps,
+        cfg_scale=args.cfg_scale,
+        seed=args.seed,
+        **extra,
+    )
+    saved = []
+    for i, image in enumerate(images):
+        path = args.save_path if len(images) == 1 else args.save_path.replace(".", f"_{i}.", 1)
+        image.save(path)
+        print(f"Saved {path}")
+        saved.append(path)
+    return saved
+
+
+if __name__ == "__main__":
+    main()

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile] [--kernel-d] [--kernel-i] [--trace-kernels]
                           [--ln-probe-costs] [--lumina-trainer] [--auraflow]
-                          [--auraflow-trainer] [--serve]
+                          [--auraflow-trainer] [--serve] [--flux]
 
 With --profile, phases 6 and 8 also trace two train steps with
 torch.profiler (device activity only) and print the device time of a step
@@ -42,7 +42,12 @@ run runs it so, in a process of its own, after phases 20-21. With --serve,
 only phases 0 and 25-27 and the build of kernels A's, B's, D's, E's and F's
 libraries run, printing the served paths' launch counts, the kernels'
 records at the pool's shapes and the numbers as one JSON line (no ok line);
-the main run runs it so, in a process of its own, after phases 22-24.
+the main run runs it so, in a process of its own, after phases 22-24. With
+--flux, only phases 0 and 28-30 and the build of kernels A's and B's
+libraries run, printing the Flux paths' launch counts, kernel B's records at
+Flux's shapes and the numbers as one JSON line (no ok line); the main run
+runs it so, in a process of its own, after phases 25-27 (with --profile,
+phase 29 also traces one CFG denoise step).
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -266,6 +271,40 @@ Phases, each printing its own lines; any failure exits non-zero:
     checkpoint; a continuous pool of 4 slots at 1024 px, 3 concurrent
     8-step requests (one at cfg_scale 1), each against batch-1 generate();
     B 36 and F 40 launches a tick.
+28. kernel B at head dim 128, Flux's shapes, in a process of its own
+    (--flux): the 1024 px request's joint sequence (512 T5 tokens + 4096
+    patches = 4608), under CFG (batch 2), a pool of 4 slots (batch 8),
+    768 px (2816), the ragged 832x1216 bucket (4464) and 300 keys (past the
+    256-key gate); out and lse against the plain version, reruns
+    bit-identical, one call and a call over 10 back to back beside SDPA's,
+    TFLOP/s and the bound; forward_config(128).
+29. FluxModel.generate() on flux1-dev at full width and depth in the same
+    process (19 double + 38 single blocks, hidden 3072, 24 heads of 128,
+    use_flash_attention: true; T5-XXL, CLIP-L and the 16-channel VAE; bf16
+    seeded random weights made on the card; the synthetic SentencePiece
+    vocab with the T5 template and a CLIP BPE vocab): 1024 px requests of
+    20 steps at distilled guidance 3.5 (cold, another prompt, the first
+    again bit-identical, CFG 2 with a negative prompt, deep_cache_interval
+    2), one with every block's attention on the plain formula (the
+    use_flash_attention: false route) held to the kernel route's latents
+    (FLUX_ROUTE_TOL); kernel B's launches (57 a step, fewer on a cached
+    step) and A's (CLIP-L's 25 LayerNorms a prompt encoding) against the
+    module tree; one CFG denoise step against the plain version; seconds a
+    request and peak GiB; flux1-schnell and flex1-alpha at full width, 1
+    double + 2 single blocks, 4 steps against the plain versions.
+30. in the same process: the single-file checkpoint at full width and
+    reduced depth (1 double + 2 single blocks, 2 T5 layers) written by
+    state_dict() in the original and in ComfyUI keys and read by
+    from_checkpoint, bit-identical; the server on a YAML naming it (the
+    model built at the file's depth; the CLIP tokenizer from the vocab
+    dir's clip/ subfolder): the window scheduler (2 compatible requests, one
+    generate() of batch 2) and a continuous pool of 4 slots at 1024 px (4
+    staggered requests of 4 and 8 steps, distilled guidance 0, 2.5 and 3.5,
+    one with CFG 2), each result against batch-1 generate()
+    (POOL_REQUEST_TOL), kernel B 3 launches a tick; the CLI on --family
+    flux; the AuraFlow VAE-encode migration through the port's Trainer for
+    3 steps on seeded 1024 px images (both VAEs at full width): finite
+    losses, only migration_scale moved, the saved ComfyUI keys.
 
 Every kernel's record carries its time, its plain version's, the bound
 (the larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s bf16, or
@@ -2450,6 +2489,151 @@ def run_auraflow_trainer(checkout: Path) -> dict:
     return json.loads(lines[-1])["auraflow_trainer"]
 
 
+def write_yaml(path, model_config):
+    """A TrainConfig YAML whose model section is ``model_config``."""
+    import yaml
+
+    path.write_text(yaml.safe_dump({
+        "model": model_config, "dataset": {},
+        "optimizer": {"name": "torch.optim.AdamW", "args": {"lr": 1.0e-4}},
+        "seed": 0, "num_train_epochs": 1}))
+
+
+def serving(batcher):
+    """The port's HTTP handler on 127.0.0.1 at an ephemeral port: (server, url)."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from vision_ft_tpu_torch.tools import inference_server as srv
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), srv.make_handler(batcher))
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server, f"http://127.0.0.1:{server.server_address[1]}/predict"
+
+
+def post_all(url, bodies, delays=None, gate=None):
+    """Each body from its own thread (after its delay, or once ``gate(i)``
+    holds); returns (replies, seconds from the first post to the last
+    reply). A reply is (webp bytes, seconds)."""
+    import threading
+
+    from vision_ft_tpu_torch.tools.inference_client import predict
+
+    replies, errors = [None] * len(bodies), []
+
+    def run(i):
+        try:
+            if delays:
+                time.sleep(delays[i])
+            if gate is not None:
+                while not gate(i):
+                    time.sleep(0.005)
+            replies[i] = predict(url, bodies[i], timeout=600)
+        except Exception as exc:  # reported below
+            errors.append(f"request {i}: {exc!r}")
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(bodies))]
+    start = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    seconds = time.perf_counter() - start
+    if errors or any(r is None for r in replies):
+        raise AssertionError(f"unanswered requests: {errors}")
+    return replies, seconds
+
+
+def webp_size(data):
+    """A reply's (width, height); fails unless it is a webp of some contrast."""
+    image = Image.open(io.BytesIO(data))
+    if image.format != "WEBP":
+        raise AssertionError(f"a reply is {image.format}, not webp")
+    array = np.asarray(image.convert("RGB"))
+    if array.std() == 0:
+        raise AssertionError("a reply is a constant image")
+    return image.size
+
+
+def tap_pool(sched, wrappers: dict):
+    """Each finished request's latents by its seed, and each tick's
+    launches and card time (CUDA events around the slot step)."""
+    def read_launches():
+        return {name: wrapper.launches for name, wrapper in wrappers.items()}
+
+    engine = sched._engine
+    kept, ticks = {}, []
+    decode, step = engine.adapter.decode, engine.adapter.slot_step
+
+    def tapped_decode(row):
+        j = row.storage_offset() // row.numel()
+        kept[engine._pending_by_slot[j].request.seed] = row.float().clone()
+        return decode(row)
+
+    def tapped_step(*args):
+        before = read_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(*args)
+        end.record()
+        after = read_launches()
+        ticks.append(dict(active=int(engine._active.sum()), events=(start, end),
+                          launches={k: after[k] - before[k] for k in after
+                                    if after[k] != before[k]}))
+        return out
+
+    engine.adapter.decode, engine.adapter.slot_step = tapped_decode, tapped_step
+    return kept, ticks
+
+
+def tick_report(label, ticks, want):
+    """Fails unless every tick launched ``want``; the card's ms a tick."""
+    torch.cuda.synchronize()
+    ms = [s.elapsed_time(e) for s, e in (t["events"] for t in ticks)]
+    bad = [t["launches"] for t in ticks if t["launches"] != want]
+    by_active = {}
+    for t, m in zip(ticks, ms):
+        by_active.setdefault(t["active"], []).append(m)
+    summary = {k: statistics.median(v) for k, v in sorted(by_active.items())}
+    print(f"{label}: {len(ticks)} ticks, each launching {want} (the module tree's count); "
+          f"card ms a tick by active slots (median): "
+          + ", ".join(f"{k} active {v:.1f} ms" for k, v in summary.items()))
+    if bad:
+        raise AssertionError(f"{label}: ticks launched {bad[:3]}, expected {want} each")
+    return dict(ticks=len(ticks), tick_ms_by_active=summary, tick_ms_median=statistics.median(ms))
+
+
+def generate_latents(model, **kwargs):
+    """The final latents of batch-1 generate() (as the pool's: fp32 copies)."""
+    kept = {}
+    decode = model.decode_image
+    model.decode_image = lambda z, *a, **kw: kept.setdefault("z", z.float().clone()) is None or \
+        decode(z, *a, **kw)
+    try:
+        model.generate(**kwargs)
+    finally:
+        del model.decode_image
+    return kept["z"][0]
+
+
+def hold_pool(label, kept, model, requests):
+    """Each pool result against the same request through batch-1 generate()."""
+    errs = []
+    for kwargs in requests:
+        want = generate_latents(model, **kwargs)
+        got = kept[kwargs["seed"]]
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{label} seed {kwargs['seed']}: pool latents not finite")
+        err = (got - want).abs().max().item() / want.abs().max().item()
+        errs.append(err)
+        print(f"{label}, seed {kwargs['seed']} ({kwargs['num_inference_steps']} steps): pool vs "
+              f"batch-1 generate() max abs err / max |latents| {err:.3e} "
+              f"(tol {POOL_REQUEST_TOL})")
+    if max(errs) > POOL_REQUEST_TOL:
+        raise AssertionError(f"{label}: pool vs batch-1 {max(errs):.3e} > {POOL_REQUEST_TOL}")
+    return errs
+
+
 # the serving phases (25-27, ``--serve``): a pool of 4 CFG slots is batch 8 on a denoiser
 SERVE_SLOTS = 4
 # a pool's request against the same request through batch-1 generate(), both bf16
@@ -2479,11 +2663,6 @@ def serve_phase(device, wrappers: dict) -> dict:
     counts a tick, SDXL DeepCache, a tiled 1536 px decode and the CLI on an
     NF4 base. Returns the served paths' launch counts, the kernels' records
     at these shapes and the numbers."""
-    import threading
-    from http.server import ThreadingHTTPServer
-
-    import yaml
-
     from vision_ft_tpu_torch.models.auraflow.config import AuraFlowConig
     from vision_ft_tpu_torch.models.auraflow.pipeline import AuraFlowModel
     from vision_ft_tpu_torch.models.lumina2.config import Lumina2Config
@@ -2502,7 +2681,6 @@ def serve_phase(device, wrappers: dict) -> dict:
     from vision_ft_tpu_torch.ops.layer_norm import layer_norm, layer_norm_reference
     from vision_ft_tpu_torch.tools import inference_cli
     from vision_ft_tpu_torch.tools import inference_server as srv
-    from vision_ft_tpu_torch.tools.inference_client import predict
     from vision_ft_tpu_torch.utils import safetensors as st
 
     gen = torch.Generator(device=device).manual_seed(25)
@@ -2534,12 +2712,6 @@ def serve_phase(device, wrappers: dict) -> dict:
     def peak_gib():
         return torch.cuda.max_memory_allocated() / 2**30
 
-    def write_yaml(path, model_config):
-        path.write_text(yaml.safe_dump({
-            "model": model_config, "dataset": {},
-            "optimizer": {"name": "torch.optim.AdamW", "args": {"lr": 1.0e-4}},
-            "seed": 0, "num_train_epochs": 1}))
-
     def checkpoint(model, path, into):
         torch.cuda.synchronize()
         start = time.perf_counter()
@@ -2547,119 +2719,6 @@ def serve_phase(device, wrappers: dict) -> dict:
         numbers[f"{into}_checkpoint_write_s"] = time.perf_counter() - start
         numbers[f"{into}_checkpoint_bytes"] = path.stat().st_size
         free(model)
-
-    def serving(batcher):
-        server = ThreadingHTTPServer(("127.0.0.1", 0), srv.make_handler(batcher))
-        threading.Thread(target=server.serve_forever, daemon=True).start()
-        return server, f"http://127.0.0.1:{server.server_address[1]}/predict"
-
-    def post_all(url, bodies, delays=None, gate=None):
-        """Each body from its own thread (after its delay, or once ``gate(i)``
-        holds); returns (replies, seconds from the first post to the last
-        reply). A reply is (webp bytes, seconds)."""
-        replies, errors = [None] * len(bodies), []
-
-        def run(i):
-            try:
-                if delays:
-                    time.sleep(delays[i])
-                if gate is not None:
-                    while not gate(i):
-                        time.sleep(0.005)
-                replies[i] = predict(url, bodies[i], timeout=600)
-            except Exception as exc:  # reported below
-                errors.append(f"request {i}: {exc!r}")
-
-        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(bodies))]
-        start = time.perf_counter()
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=900)
-        seconds = time.perf_counter() - start
-        if errors or any(r is None for r in replies):
-            raise AssertionError(f"unanswered requests: {errors}")
-        return replies, seconds
-
-    def webp_size(data):
-        image = Image.open(io.BytesIO(data))
-        if image.format != "WEBP":
-            raise AssertionError(f"a reply is {image.format}, not webp")
-        array = np.asarray(image.convert("RGB"))
-        if array.std() == 0:
-            raise AssertionError("a reply is a constant image")
-        return image.size
-
-    def tap_pool(sched):
-        """Each finished request's latents by its seed, and each tick's
-        launches and card time (CUDA events around the slot step)."""
-        engine = sched._engine
-        kept, ticks = {}, []
-        decode, step = engine.adapter.decode, engine.adapter.slot_step
-
-        def tapped_decode(row):
-            j = row.storage_offset() // row.numel()
-            kept[engine._pending_by_slot[j].request.seed] = row.float().clone()
-            return decode(row)
-
-        def tapped_step(*args):
-            before = read_launches()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = step(*args)
-            end.record()
-            after = read_launches()
-            ticks.append(dict(active=int(engine._active.sum()), events=(start, end),
-                              launches={k: after[k] - before[k] for k in after
-                                        if after[k] != before[k]}))
-            return out
-
-        engine.adapter.decode, engine.adapter.slot_step = tapped_decode, tapped_step
-        return kept, ticks
-
-    def tick_report(label, ticks, want):
-        torch.cuda.synchronize()
-        ms = [s.elapsed_time(e) for s, e in (t["events"] for t in ticks)]
-        bad = [t["launches"] for t in ticks if t["launches"] != want]
-        by_active = {}
-        for t, m in zip(ticks, ms):
-            by_active.setdefault(t["active"], []).append(m)
-        summary = {k: statistics.median(v) for k, v in sorted(by_active.items())}
-        print(f"{label}: {len(ticks)} ticks, each launching {want} (the module tree's count); "
-              f"card ms a tick by active slots (median): "
-              + ", ".join(f"{k} active {v:.1f} ms" for k, v in summary.items()))
-        if bad:
-            raise AssertionError(f"{label}: ticks launched {bad[:3]}, expected {want} each")
-        return dict(ticks=len(ticks), tick_ms_by_active=summary, tick_ms_median=statistics.median(ms))
-
-    def generate_latents(model, **kwargs):
-        """The final latents of batch-1 generate() (as the pool's: fp32 copies)."""
-        kept = {}
-        decode = model.decode_image
-        model.decode_image = lambda z, *a, **kw: kept.setdefault("z", z.float().clone()) is None or \
-            decode(z, *a, **kw)
-        try:
-            model.generate(**kwargs)
-        finally:
-            del model.decode_image
-        return kept["z"][0]
-
-    def hold_pool(label, kept, model, requests):
-        """Each pool result against the same request through batch-1 generate()."""
-        errs = []
-        for kwargs in requests:
-            want = generate_latents(model, **kwargs)
-            got = kept[kwargs["seed"]]
-            if not torch.isfinite(got).all():
-                raise AssertionError(f"{label} seed {kwargs['seed']}: pool latents not finite")
-            err = (got - want).abs().max().item() / want.abs().max().item()
-            errs.append(err)
-            print(f"{label}, seed {kwargs['seed']} ({kwargs['num_inference_steps']} steps): pool vs "
-                  f"batch-1 generate() max abs err / max |latents| {err:.3e} "
-                  f"(tol {POOL_REQUEST_TOL})")
-        if max(errs) > POOL_REQUEST_TOL:
-            raise AssertionError(f"{label}: pool vs batch-1 {max(errs):.3e} > {POOL_REQUEST_TOL}")
-        return errs
 
     def attention_record(b, s, inner, h):
         q, k, v = (torch.randn(b, s, inner, device=device, generator=gen).bfloat16() for _ in "qkv")
@@ -2797,7 +2856,7 @@ def serve_phase(device, wrappers: dict) -> dict:
 
         # the continuous scheduler: the same trace through a pool of 4 slots
         sched = srv.ContinuousScheduler(served, height=1024, width=1024, num_slots=SERVE_SLOTS)
-        kept, ticks = tap_pool(sched)
+        kept, ticks = tap_pool(sched, wrappers)
         server, url = serving(sched)
         torch.cuda.reset_peak_memory_stats()
         with on_path():
@@ -2922,7 +2981,7 @@ def serve_phase(device, wrappers: dict) -> dict:
         srv.prepare_kernels("lumina2", device)
         numbers["lumina2_load_s"] = time.perf_counter() - start
         sched = srv.ContinuousScheduler(served, height=1024, width=1024, num_slots=SERVE_SLOTS)
-        kept, ticks = tap_pool(sched)
+        kept, ticks = tap_pool(sched, wrappers)
         server, url = serving(sched)
         lumina = [dict(prompt="a photo of a cat sitting on the sofa", negative_prompt="blurry",
                        seed=261),
@@ -2982,7 +3041,7 @@ def serve_phase(device, wrappers: dict) -> dict:
         srv.prepare_kernels("auraflow", device)
         numbers["auraflow_load_s"] = time.perf_counter() - start
         sched = srv.ContinuousScheduler(served, height=1024, width=1024, num_slots=SERVE_SLOTS)
-        kept, ticks = tap_pool(sched)
+        kept, ticks = tap_pool(sched, wrappers)
         server, url = serving(sched)
         aura = [dict(prompt="a photo of a cat sitting on the sofa", negative_prompt="blurry",
                      seed=271, cfg_scale=3.5),
@@ -3032,6 +3091,539 @@ def run_serve(checkout: Path) -> dict:
     return json.loads(lines[-1])["serve"]
 
 
+# the Flux phases (28-30, ``--flux``): kernel B at head dim 128, Flux's shapes (B, Sq, Sk,
+# H*D, H): 512 T5 tokens before the image's 2x2 patches
+FLUX_ATTN_SHAPES = [
+    (1, 4608, 4608, 3072, 24),  # a 1024 px request: 512 + 64 * 64
+    (2, 4608, 4608, 3072, 24),  # the same under CFG
+    (8, 4608, 4608, 3072, 24),  # a pool of 4 slots (both CFG halves of each)
+    (1, 2816, 2816, 3072, 24),  # 768 px: 512 + 48 * 48
+    (1, 4464, 4464, 3072, 24),  # the 832x1216 bucket: 512 + 52 * 76, ragged tiles
+    (1, 300, 300, 3072, 24),    # just past the 256-key gate
+]
+FLUX_STEPS = 20
+FLUX_GUIDANCE = 3.5
+# one full-depth flux1-dev step (19 double + 38 single blocks) and whole requests, kernel B
+# against its plain version, bf16, random weights: each block's few-ulp differences carried
+# on through both streams; relative to the largest value of the velocity or the latents
+FLUX_STEP_TOL = 5e-2
+# the use_flash_attention: false request (the plain formula in every block) against the
+# kernel route's, 20 steps: as above, compounded over the steps
+FLUX_ROUTE_TOL = 5e-2
+FLUX_REDUCED = dict(depth=1, depth_single_blocks=2)  # full width, for checkpoints and pools
+FLUX_REDUCED_T5_LAYERS = 2
+FLUX_POOL_STEPS = (4, 8)
+MIGRATION_STEPS = 3
+
+
+def flux_phase(device, wrappers: dict, profile: bool) -> dict:
+    """Phases 28-30, run in a process of its own (``--flux``): kernel B at
+    head dim 128 at Flux's shapes against its plain version; FluxModel
+    generate() on flux1-dev at full width and depth (launch counts, the
+    plain attention route, DeepCache, one denoise step against the plain
+    versions), flux1-schnell and flex1-alpha at reduced depth against the
+    plain versions; the single-file checkpoint in both key layouts, the
+    server's two schedulers, the CLI and the AuraFlow VAE-encode migration
+    Trainer. Returns the Flux paths' launch counts, kernel B's records at
+    these shapes and the numbers."""
+    import dataclasses
+
+    from vision_ft_tpu_torch.config import TrainConfig
+    from vision_ft_tpu_torch.models.flux import config as flux_config
+    from vision_ft_tpu_torch.models.flux.pipeline import FluxModel
+    from vision_ft_tpu_torch.models.flux.text_encoder import FLUX_T5_CONFIG
+    from vision_ft_tpu_torch.models.text_encoders.sentencepiece import (
+        SentencePieceModel, SentencePieceTokenizer,
+    )
+    from vision_ft_tpu_torch.models.text_encoders.tokenizer import CLIPTokenizer
+    from vision_ft_tpu_torch.nn import LayerNorm
+    from vision_ft_tpu_torch.ops.flash_attention import (
+        flash_attention_bshd, flash_attention_bshd_reference, forward_config,
+    )
+    from vision_ft_tpu_torch.tools import inference_cli
+    from vision_ft_tpu_torch.tools import inference_server as srv
+    from vision_ft_tpu_torch.train.auraflow import vae_encode_migration
+    from vision_ft_tpu_torch.utils import safetensors as st
+
+    gen = torch.Generator(device=device).manual_seed(28)
+    numbers, records = {}, {"flash_attention_bshd": []}
+    path_launches = {name: 0 for name in wrappers}
+
+    def read_launches():
+        return {name: wrapper.launches for name, wrapper in wrappers.items()}
+
+    @contextlib.contextmanager
+    def on_path():
+        """A Flux path's launches, added to the process's path counts;
+        launches made to compare kernels with plain run outside."""
+        before = read_launches()
+        yield
+        for name, count in read_launches().items():
+            path_launches[name] += count - before[name]
+
+    def free(model):
+        for part in model._parts().values():
+            part.to("meta")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2**30
+
+    # -- 28: kernel B at head dim 128 -------------------------------------------------------
+    phase("28 kernel B at head dim 128 (Flux's 24 heads of 128) vs plain (bf16)")
+    config_128 = forward_config(128)
+    numbers["kernel_b_d128"] = config_128
+    print(f"kernel B at D = 128: {config_128['keys']}-key tiles, {config_128['stages']} stages, "
+          f"{config_128['passes']} pass(es) over O's columns, Smem::kBytes = "
+          f"{config_128['smem_bytes']} (a block may have 232448)")
+    for b, sq, sk, inner, h in FLUX_ATTN_SHAPES:
+        q = torch.randn(b, sq, inner, device=device, generator=gen).bfloat16()
+        k, v = (torch.randn(b, sk, inner, device=device, generator=gen).bfloat16() for _ in "kv")
+        what = f"attention B={b} Sq={sq} Sk={sk} H={h} D={inner // h}"
+        out, lse = flash_attention_bshd(q, k, v, h, return_lse=True)
+        ref, ref_lse = flash_attention_bshd_reference(q, k, v, h, return_lse=True)
+        abs_err, rel_err = compare(what, lambda: out, lambda: ref, ATTN_TOL)
+        lse_abs, lse_rel = compare(f"{what} lse", lambda: lse, lambda: ref_lse, ATTN_TOL)
+        assert_reruns(what, lambda: flash_attention_bshd(q, k, v, h, return_lse=True))
+        del out, lse, ref, ref_lse
+        ms = cuda_ms(lambda: flash_attention_bshd(q, k, v, h))
+        back_to_back_ms = burst_ms(lambda: flash_attention_bshd(q, k, v, h))
+        plain_ms = cuda_ms(lambda: flash_attention_bshd_reference(q, k, v, h), warmup=1, iters=3)
+        heads = [sdpa_heads(t, h) for t in (q, k, v)]
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*heads))
+        library_burst_ms = burst_ms(lambda: F.scaled_dot_product_attention(*heads))
+        flops = 4 * b * sq * sk * inner
+        bound_ms, bound_by = bound(2 * (2 * b * sq * inner + 2 * b * sk * inner), flops)
+        print(f"{what}: out max abs err {abs_err:.3e} rel {rel_err:.3e}, lse max abs err "
+              f"{lse_abs:.3e} rel {lse_rel:.3e} (tol {ATTN_TOL}), reruns bit-identical; kernel "
+              f"{ms:.4f} ms one call ({flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of "
+              f"the bound), {back_to_back_ms:.4f} ms a call over 10 back to back "
+              f"({flops / back_to_back_ms / 1e9:.1f} TFLOP/s); plain {plain_ms:.3f} ms; SDPA "
+              f"{library_ms:.4f} ms one call (kernel {ms / library_ms:.2f}x), {library_burst_ms:.4f} "
+              f"back to back; bound {bound_ms:.4f} ms ({bound_by})")
+        records["flash_attention_bshd"].append(dict(
+            shape=[b, sq, sk, inner, h], max_abs_err=abs_err, lse_max_abs_err=lse_abs, ms=ms,
+            burst_ms=back_to_back_ms, tflops=flops / ms / 1e9, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+            library_burst_ms=library_burst_ms))
+        del q, k, v, heads
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- 29: flux1-dev generate() at full width and depth ----------------------------------
+    phase("29 Flux generate() at full width and depth (flux1-dev), bf16, seeded random weights")
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_flux_"))
+    (work / "tokenizer.model").write_bytes(lumina_vocab())
+    (work / "clip").mkdir()
+    write_vocab(work / "clip")
+    t5_tokenizer = SentencePieceTokenizer(SentencePieceModel.from_bytes(lumina_vocab()),
+                                          template="eos")
+    clip_tokenizer = CLIPTokenizer.from_pretrained_dir(str(work / "clip"))
+    tokenizers = dict(clip_tokenizer=clip_tokenizer, t5_tokenizer=t5_tokenizer)
+
+    class Model(FluxModel):
+        """Keeps the last latents generate() decoded, for the checks."""
+
+        def decode_image(self, latents):
+            self.last_latents = latents.clone()
+            return super().decode_image(latents)
+
+    def set_backend(model, backend):
+        """Every block's attention backend, as ``use_flash_attention`` sets
+        it at construction ("flash" or "xla")."""
+        for block in (*model.denoiser.double_blocks.values(),
+                      *model.denoiser.single_blocks.values()):
+            block.backend = backend
+
+    def clip_layer_norms(model):
+        """CLIP-L's LayerNorms that take kernel A (affine, C % 128 == 0)."""
+        return sum(isinstance(m, LayerNorm) and m.weight is not None and m.dim % 128 == 0
+                   for m in model.text_encoder.clip.modules())
+
+    def dev_config(**fields):
+        return flux_config.FluxConfig(checkpoint_path="", dtype="bfloat16",
+                                      denoiser=flux_config.Flux1DevDenoiserConfig(
+                                          use_flash_attention=True, **fields))
+
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(dev_config(), **tokenizers)
+    start = time.perf_counter()
+    model.init_params(torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    den = model.denoiser
+    counts = [sum(p.numel() for p in part.parameters()) for part in model._parts().values()]
+    weight_gb = sum(p.numel() * p.element_size() for part in model._parts().values()
+                    for p in part.parameters()) / 1e9
+    n_double, n_single = len(den.double_blocks), len(den.single_blocks)
+    n_ln = clip_layer_norms(model)
+    numbers.update(init_s=time.perf_counter() - start, weight_gb=weight_gb,
+                   denoiser_params=counts[0], vae_params=counts[1], text_encoder_params=counts[2])
+    print(f"init on the card: {numbers['init_s']:.1f} s; denoiser {counts[0] / 1e9:.3f} B, VAE "
+          f"{counts[1] / 1e6:.1f} M, CLIP-L + T5-XXL {counts[2] / 1e9:.3f} B parameters, "
+          f"{weight_gb:.1f} GB of bf16 weights; denoiser: {n_double} double + {n_single} single "
+          f"blocks, hidden {den.hidden_size}, {den.num_heads} heads of "
+          f"{den.hidden_size // den.num_heads}, MLP {den.single_blocks['0'].mlp_hidden_dim}; "
+          f"T5: {model.text_encoder.t5.config.num_layers} layers, d_model "
+          f"{model.text_encoder.t5.config.d_model}; CLIP-L LayerNorms on kernel A: {n_ln}")
+
+    def expected(steps, interval=None, cache_depth=None, flash=True):
+        """(kernel B, kernel A) launches of one request from the module tree
+        and generate()'s DeepCache rule: each block one attention call (both
+        CFG halves in one batch), the prompts one CLIP-L pass."""
+        shallow = cache_depth if cache_depth is not None else max(1, n_single // 4)
+        attention, have_delta = 0, False
+        for i in range(steps):
+            singles = shallow if interval and i % interval != 0 and have_delta else n_single
+            have_delta = have_delta or bool(interval)
+            attention += n_double + singles
+        return attention if flash else 0, n_ln
+
+    def request(name, want, **kwargs):
+        torch.cuda.reset_peak_memory_stats()
+        before = read_launches()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        with on_path():
+            images = model.generate(**kwargs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = {k: v - before[k] for k, v in read_launches().items() if v != before[k]}
+        peak = peak_gib()
+        latents, arrays = model.last_latents, [np.asarray(im) for im in images]
+        print(f"request {name}: {len(images)} image(s) {images[0].size}, "
+              f"{kwargs['num_inference_steps']} steps, CFG {kwargs.get('cfg_scale', 1.0)}, distilled "
+              f"guidance {kwargs.get('distilled_guidance_scale')}, {seconds:.3f} s, peak "
+              f"{peak:.2f} GiB; launches {launches}, expected kernel B {want[0]}, kernel A {want[1]}")
+        if not torch.isfinite(latents).all() or any(a.std() == 0 for a in arrays):
+            raise AssertionError(f"request {name}: latents not finite, or a constant image")
+        if images[0].size != (kwargs["width"], kwargs["height"]) or latents.shape[1:] != (
+                kwargs["height"] // 8, kwargs["width"] // 8, 16):
+            raise AssertionError(f"request {name}: wrong size {images[0].size}, {latents.shape}")
+        counts = {k: n for k, n in (("flash_attention_bshd", want[0]), ("layer_norm", want[1])) if n}
+        if launches != counts:
+            raise AssertionError(f"request {name}: launch counts {launches} != {counts}")
+        return seconds, latents, arrays, peak
+
+    base = dict(prompt="a photo of a cat sitting on the sofa", width=1024, height=1024,
+                num_inference_steps=FLUX_STEPS, cfg_scale=1.0,
+                distilled_guidance_scale=FLUX_GUIDANCE, seed=1234)
+    runs = {}
+    for name, kwargs in (("1 (cold)", base),
+                         ("2", dict(base, prompt="a red car on the road in the mountains", seed=99)),
+                         ("3 (= 1, warm)", base)):
+        runs[name] = request(name, expected(FLUX_STEPS), **kwargs)
+    first, again = runs["1 (cold)"], runs["3 (= 1, warm)"]
+    if not (torch.equal(first[1], again[1])
+            and all(np.array_equal(x, y) for x, y in zip(first[2], again[2]))):
+        raise AssertionError("request 3 (request 1 repeated, same seed) differs from it")
+    seconds = [run[0] for run in runs.values()]
+    numbers.update(first_request_s=seconds[0], warm_request_s=seconds[1:],
+                   peak_gib=max(run[3] for run in runs.values()))
+    print(f"s/request: {seconds[0]:.3f} cold (the first), {seconds[1]:.3f} and {seconds[2]:.3f} "
+          f"warm; peak {numbers['peak_gib']:.2f} GiB; request 3 == request 1, bit for bit")
+    cfg = request("4 (CFG 2, negative prompt)", expected(FLUX_STEPS),
+                  **dict(base, cfg_scale=2.0, negative_prompt="blurry"))
+    cached = request("5 (deep_cache_interval 2)", expected(FLUX_STEPS, interval=2),
+                     **dict(base, deep_cache_interval=2))
+    if torch.equal(cached[1], first[1]) or torch.equal(cfg[1], first[1]):
+        raise AssertionError("the CFG or the DeepCache request equals request 1: an option did nothing")
+    set_backend(model, "xla")
+    try:
+        plain = request("6 (= 1, use_flash_attention: false)", expected(FLUX_STEPS, flash=False),
+                        **base)
+    finally:
+        set_backend(model, "flash")
+    scale = first[1].float().abs().max().item()
+    drift = (plain[1].float() - first[1].float()).abs().max().item() / scale
+    numbers.update(cfg_request_s=cfg[0], cfg_peak_gib=cfg[3], deep_cache_request_s=cached[0],
+                   plain_attention_request_s=plain[0], plain_attention_drift=drift)
+    print(f"CFG request {cfg[0]:.3f} s (peak {cfg[3]:.2f} GiB), DeepCache request {cached[0]:.3f} s; "
+          f"the plain attention route {plain[0]:.3f} s, its latents {drift:.3e} of their largest "
+          f"value from request 1's (tol {FLUX_ROUTE_TOL})")
+    if drift > FLUX_ROUTE_TOL:
+        raise AssertionError("the kernel route and the use_flash_attention: false route disagree")
+
+    # one CFG denoise step at 1024 px, kernel B against its plain version
+    g29 = torch.Generator(device=device).manual_seed(29)
+    step_latents = torch.randn(1, 128, 128, 16, device=device, generator=g29).bfloat16()
+
+    def encode(m):
+        with torch.inference_mode():
+            out = m.text_encoder.encode_prompts("a photo of a cat", "blurry", use_negative_prompts=True)
+            return (torch.cat([out.t5.positive_embeddings, out.t5.negative_embeddings]).to(m.dtype),
+                    torch.cat([out.clip.positive_embeddings, out.clip.negative_embeddings]).to(m.dtype))
+
+    def denoise_step(m, emb, latents=step_latents):
+        with torch.inference_mode():
+            return m._denoise_step(latents, 0.8, 1.0 / FLUX_STEPS, *emb, FLUX_GUIDANCE, 2.0,
+                                   do_cfg=True)
+
+    emb = encode(model)
+    step_ms = cuda_ms(lambda: denoise_step(model, emb), warmup=1, iters=5)
+    before = read_launches()["flash_attention_bshd"]
+    kernel_step = denoise_step(model, emb)
+    step_launches = read_launches()["flash_attention_bshd"] - before
+    with plain_versions():
+        plain_step = denoise_step(model, emb)
+    step_err = (kernel_step.float() - plain_step.float()).abs().max().item() / \
+        plain_step.float().abs().max().item()
+    numbers.update(step_ms=step_ms, step_latents_err=step_err)
+    print(f"one CFG denoise step at 1024 px (batch 2, 4608 joint tokens): {step_ms:.1f} ms; kernel "
+          f"B launches {step_launches} (the module tree: {n_double + n_single}); against the plain "
+          f"version of B: the step's latents {step_err:.3e} of their largest value "
+          f"(tol {FLUX_STEP_TOL})")
+    if step_launches != n_double + n_single:
+        raise AssertionError(f"the denoise step launched kernel B {step_launches} times")
+    if step_err > FLUX_STEP_TOL:
+        raise AssertionError("the kernel's denoise step and the plain one disagree")
+    if profile:
+        kinds = profile_steps(lambda: denoise_step(model, emb), step_ms, "Flux CFG denoise step")
+        print_kernel_ms(kinds, ("kernel B",), "Flux CFG denoise step")
+        numbers["traced_step"] = {kind: [round(ms, 4), n] for kind, (ms, n) in kinds.items()}
+    free(model)
+    del model, emb, kernel_step, plain_step
+
+    # flux1-schnell and flex1-alpha at full width, reduced depth, against the plain version
+    t5_reduced = dataclasses.replace(FLUX_T5_CONFIG, num_layers=FLUX_REDUCED_T5_LAYERS)
+    for kind, cls in (("flux1-schnell", flux_config.Flux1SchnellDenoiserConfig),
+                      ("flex1-alpha", flux_config.Flex1AlphaDenoiserConfig)):
+        small = Model(flux_config.FluxConfig(
+            checkpoint_path="", dtype="bfloat16",
+            denoiser=cls(use_flash_attention=True, **FLUX_REDUCED)), t5_config=t5_reduced,
+            **tokenizers)
+        small.init_params(torch.Generator(device=device).manual_seed(30))
+        req = dict(prompt="a photo of a cat", width=1024, height=1024, num_inference_steps=4,
+                   cfg_scale=1.0, distilled_guidance_scale=FLUX_GUIDANCE, seed=7)
+        before = read_launches()
+        with on_path():
+            small.generate(**req)
+        got = small.last_latents.float()
+        launched = read_launches()["flash_attention_bshd"] - before["flash_attention_bshd"]
+        with plain_versions():
+            small.generate(**req)
+        want = small.last_latents.float()
+        err = (got - want).abs().max().item() / want.abs().max().item()
+        numbers[f"{kind}_reduced_err"] = err
+        print(f"{kind} (guidance_in: {small.denoiser.guidance_in is not None}; 1 double + 2 single "
+              f"blocks at full width, 4 steps at 1024 px): kernel B launches {launched} (expected "
+              f"{4 * 3}), latents against the plain version {err:.3e} of their largest value "
+              f"(tol {FLUX_STEP_TOL})")
+        if launched != 12 or err > FLUX_STEP_TOL or not torch.isfinite(got).all():
+            raise AssertionError(f"{kind} at reduced depth: {launched} launches, error {err:.3e}")
+        free(small)
+        del small
+
+    # -- 30: checkpoint, serving, CLI, the VAE-encode migration ------------------------------
+    phase("30 the Flux single-file checkpoint, server, CLI; the AuraFlow VAE-encode migration")
+    try:
+        reduced = dev_config(**FLUX_REDUCED)
+        small = Model(reduced, t5_config=t5_reduced, **tokenizers)
+        small.init_params(torch.Generator(device=device).manual_seed(31))
+        emb = encode(small)
+        step_before = denoise_step(small, emb)
+        written = small.state_dict()
+        paths = {"original": work / "flux.safetensors", "comfy": work / "flux_comfy.safetensors"}
+        layouts = {"original": written, "comfy": {
+            k.replace("model.diffusion_model.", "diffusion_model.", 1): v for k, v in written.items()}}
+        for layout, path in paths.items():
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            st.save_file(layouts[layout], path)
+            numbers[f"checkpoint_{layout}_write_s"] = time.perf_counter() - start
+            numbers[f"checkpoint_{layout}_bytes"] = path.stat().st_size
+            start = time.perf_counter()
+            loaded = Model.from_checkpoint(reduced.model_copy(update={"checkpoint_path": str(path)}),
+                                           t5_config=t5_reduced, **tokenizers)
+            torch.cuda.synchronize()
+            numbers[f"checkpoint_{layout}_load_s"] = time.perf_counter() - start
+            read = loaded.state_dict()
+            if set(read) != set(written) or not all(torch.equal(written[k], read[k]) for k in read):
+                raise AssertionError(f"the {layout} checkpoint loaded back differs from the model")
+            if not torch.equal(step_before, denoise_step(loaded, encode(loaded))):
+                raise AssertionError(f"the {layout} checkpoint's denoise step differs")
+            print(f"single-file checkpoint, {layout} keys (full width; 1 double + 2 single blocks, "
+                  f"{FLUX_REDUCED_T5_LAYERS} T5 layers): {numbers[f'checkpoint_{layout}_bytes']} "
+                  f"bytes, written in {numbers[f'checkpoint_{layout}_write_s']:.2f} s, loaded by "
+                  f"from_checkpoint in {numbers[f'checkpoint_{layout}_load_s']:.2f} s; every "
+                  f"tensor and the denoise step bit-identical")
+            free(loaded)
+            del loaded
+        free(small)
+        del small, written, layouts
+        paths["comfy"].unlink()
+
+        # the server's model and the CLI's are built at the file's depth (a YAML names the
+        # denoiser's; neither names T5's, and the CLI names only the file)
+        build = FluxModel.__init__
+
+        def at_file_depth(self, config, clip_tokenizer=None, t5_tokenizer=None):
+            build(self, config.model_copy(update={"denoiser": reduced.denoiser}),
+                  clip_tokenizer=clip_tokenizer, t5_tokenizer=t5_tokenizer, t5_config=t5_reduced)
+
+        FluxModel.__init__ = at_file_depth
+        try:
+            write_yaml(work / "flux.yml", {"checkpoint_path": str(paths["original"]),
+                                           "dtype": "bfloat16",
+                                           "denoiser": reduced.denoiser.model_dump()})
+            start = time.perf_counter()
+            served = srv.T2IModel(str(work / "flux.yml"), None, str(work), family="flux")
+            srv.prepare_kernels("flux", device)
+            numbers["serve_load_s"] = time.perf_counter() - start
+            if served.model.text_encoder.clip_tokenizer is None:
+                raise AssertionError("the server found no CLIP tokenizer in the clip/ subfolder")
+            n_blocks = len(served.model.denoiser.double_blocks) + len(served.model.denoiser.single_blocks)
+
+            batcher = srv.MicroBatcher(served, max_batch=4, window_ms=2000)
+            server, url = serving(batcher)
+            window = [dict(prompt=p, negative_prompt="", width=1024, height=1024,
+                           inference_steps=FLUX_POOL_STEPS[0], cfg_scale=1.0,
+                           distilled_guidance=FLUX_GUIDANCE)
+                      for p in ("a photo of a cat", "a red car on the road")]
+            before = read_launches()
+            with on_path():
+                replies, seconds = post_all(url, window)
+            launched = read_launches()["flash_attention_bshd"] - before["flash_attention_bshd"]
+            server.shutdown()
+            server.server_close()
+            numbers["window_s"] = seconds
+            if [webp_size(data) for data, _ in replies] != [(1024, 1024)] * 2 or \
+                    launched != FLUX_POOL_STEPS[0] * n_blocks:
+                raise AssertionError(f"window scheduler: replies {len(replies)}, B launched {launched}")
+            print(f"window scheduler: 2 concurrent compatible requests in one generate() of batch 2 "
+                  f"in {seconds:.3f} s, kernel B {launched} launches "
+                  f"({FLUX_POOL_STEPS[0]} steps x {n_blocks} blocks)")
+
+            sched = srv.ContinuousScheduler(served, height=1024, width=1024, num_slots=SERVE_SLOTS,
+                                            max_steps=max(FLUX_POOL_STEPS))
+            kept, ticks = tap_pool(sched, wrappers)
+            server, url = serving(sched)
+            pool = [dict(prompt="a photo of a cat sitting on the sofa", negative_prompt="", seed=301,
+                         inference_steps=FLUX_POOL_STEPS[0], cfg_scale=1.0, distilled_guidance=0.0),
+                    dict(prompt="a red car on the road", negative_prompt="", seed=302,
+                         inference_steps=FLUX_POOL_STEPS[1], cfg_scale=1.0, distilled_guidance=2.5),
+                    dict(prompt="a house in the mountains", negative_prompt="blurry", seed=303,
+                         inference_steps=FLUX_POOL_STEPS[0], cfg_scale=2.0,
+                         distilled_guidance=FLUX_GUIDANCE),
+                    dict(prompt="a cat in the house", negative_prompt="", seed=304,
+                         inference_steps=FLUX_POOL_STEPS[1], cfg_scale=1.0,
+                         distilled_guidance=FLUX_GUIDANCE)]
+            pool = [dict(body, width=1024, height=1024) for body in pool]
+            torch.cuda.reset_peak_memory_stats()
+            with on_path():
+                replies, seconds = post_all(url, pool, delays=[0.0, 0.3, 0.6, 0.9])
+            numbers["pool_s"], numbers["pool_peak_gib"] = seconds, peak_gib()
+            if [webp_size(data) for data, _ in replies] != [(1024, 1024)] * 4:
+                raise AssertionError("Flux pool: a reply of another size")
+            print(f"continuous scheduler: 4 staggered requests ({FLUX_POOL_STEPS} steps, distilled "
+                  f"guidance 0, 2.5, 3.5, one with CFG 2) in a pool of {SERVE_SLOTS} in "
+                  f"{seconds:.3f} s, peak {numbers['pool_peak_gib']:.2f} GiB")
+            numbers["pool"] = tick_report("Flux pool", ticks, {"flash_attention_bshd": n_blocks})
+            server.shutdown()
+            server.server_close()
+            sched.close()
+            numbers["pool_errors"] = hold_pool("Flux pool", kept, served.model, [dict(
+                prompt=r["prompt"], negative_prompt=r["negative_prompt"] or None, width=1024,
+                height=1024, num_inference_steps=r["inference_steps"], cfg_scale=r["cfg_scale"],
+                distilled_guidance_scale=r["distilled_guidance"], seed=r["seed"]) for r in pool])
+            free(served.model)
+            del served
+
+            cli = {}
+            torch.cuda.reset_peak_memory_stats()
+            start = time.perf_counter()
+            with on_path():
+                before = read_launches()
+                saved = inference_cli.main([
+                    "--family", "flux", "--checkpoint-path", str(paths["original"]),
+                    "--tokenizer-path", str(work), "--width", "1024", "--height", "1024",
+                    "--num-inference-steps", str(FLUX_POOL_STEPS[0]), "--cfg-scale", "1.0",
+                    "--save-path", str(work / "cli.webp")])
+                cli = {k: v - before[k] for k, v in read_launches().items() if v != before[k]}
+            numbers["cli_s"], numbers["cli_peak_gib"] = time.perf_counter() - start, peak_gib()
+        finally:
+            FluxModel.__init__ = build
+        gc.collect()
+        torch.cuda.empty_cache()
+        if saved != [str(work / "cli.webp")] or Image.open(saved[0]).size != (1024, 1024):
+            raise AssertionError(f"the CLI saved {saved}")
+        want_b = FLUX_POOL_STEPS[0] * n_blocks
+        print(f"CLI --family flux (load, 1024 px, {FLUX_POOL_STEPS[0]} steps, CFG 1, webp): "
+              f"{numbers['cli_s']:.2f} s, peak "
+              f"{numbers['cli_peak_gib']:.2f} GiB; launches {cli} (kernel B expected {want_b})")
+        if cli.get("flash_attention_bshd") != want_b:
+            raise AssertionError(f"the CLI launched kernel B {cli.get('flash_attention_bshd')} times")
+        paths["original"].unlink()
+
+        # the AuraFlow VAE-encode migration through the port's Trainer
+        folder = work / "images"
+        folder.mkdir()
+        g30 = np.random.default_rng(30)
+        for i in range(MIGRATION_STEPS):
+            Image.fromarray(g30.integers(0, 255, (1024, 1024, 3), dtype=np.uint8)).save(
+                folder / f"{i}.png")
+            (folder / f"{i}.txt").write_text("a photo of a cat")
+        config = TrainConfig.model_validate({
+            "model": {"checkpoint_path": str(work / "absent.safetensors"), "dtype": "bfloat16"},
+            "dataset": {"folder": str(folder), "batch_size": 1, "bucket_base_size": 1024,
+                        "step": 128, "min_size": 512, "num_repeats": 1, "num_workers": 0},
+            "optimizer": {"name": "torch.optim.AdamW", "args": {"lr": 1e-3}},
+            "saving": {"strategy": {"per_epochs": 1, "per_steps": None},
+                       "callbacks": [{"type": "safetensors", "name": "migration",
+                                      "save_dir": str(work / "migration")}]},
+            "seed": 0, "num_train_epochs": 1,
+        })
+        trainer = vae_encode_migration.build_trainer(config)
+        losses = []
+        log_dict = trainer.log_dict
+        trainer.log_dict = lambda values, step=None: (
+            losses.append(values["train/loss"]) if "train/loss" in values else None,
+            log_dict(values, step))
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        with on_path():
+            trainer.train()
+        torch.cuda.synchronize()
+        numbers.update(migration_s=time.perf_counter() - start, migration_peak_gib=peak_gib(),
+                       migration_losses=losses)
+        fresh = vae_encode_migration.build_trainer(config).model
+        fresh.setup_model()
+        after, start_values = trainer.model.get_params().state_dict(), fresh.get_params().state_dict()
+        moved = sorted(k for k in after if not torch.equal(after[k], start_values[k]))
+        saved_keys = sorted(st.load_file(next((work / "migration").glob("*.safetensors"))))
+        print(f"VAE-encode migration (both VAEs at full width, fp32, 1024 px images, batch 1): "
+              f"{len(losses)} steps in {numbers['migration_s']:.2f} s, peak "
+              f"{numbers['migration_peak_gib']:.2f} GiB, losses {[round(v, 5) for v in losses]}; "
+              f"moved {moved}; saved keys {saved_keys}")
+        if len(losses) != MIGRATION_STEPS or not all(np.isfinite(losses)):
+            raise AssertionError(f"the migration Trainer's losses {losses}")
+        if moved != ["migration_scale.scale"] or saved_keys != [
+                "diffusion_model.init_x_linear.bias", "diffusion_model.init_x_linear.weight",
+                "migration_scale.scale"]:
+            raise AssertionError(f"the migration moved {moved} and saved {saved_keys}")
+        del trainer, fresh, after, start_values
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": path_launches, "records": records, "numbers": numbers}
+
+
+def run_flux(checkout: Path, profile: bool) -> dict:
+    """``chip_smoke.py --flux`` in a process of its own (a fresh card): its
+    lines, then its launch counts, records and numbers."""
+    proc = subprocess.run(
+        [sys.executable, str(checkout / "chip_smoke.py"), "--flux",
+         *(["--profile"] if profile else [])],
+        cwd=checkout, capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]))
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"chip_smoke.py --flux failed (exit {proc.returncode}): "
+                             f"{proc.stderr[-4000:]}")
+    return json.loads(lines[-1])["flux"]
+
+
 def main() -> None:
     args = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     args.add_argument("--profile", action="store_true",
@@ -3066,6 +3658,11 @@ def main() -> None:
                            "SDXL, Lumina2 and AuraFlow) after building their libraries; prints "
                            "their launch counts, records and numbers as one JSON line, not the ok "
                            "line")
+    args.add_argument("--flux", action="store_true",
+                      help="run phases 28-30 alone (kernel B at D 128, Flux generate() at full "
+                           "width, the Flux checkpoint, server and CLI, the AuraFlow VAE-encode "
+                           "migration) after building their libraries; prints their launch "
+                           "counts, records and numbers as one JSON line, not the ok line")
     args.add_argument("--ln-probe-costs", action="store_true",
                       help="time kernels A and L and their library calls (one call, back to "
                            "back, host us, traced) in this process alone; prints one JSON line, "
@@ -3185,6 +3782,13 @@ def main() -> None:
                                      "flash_attention_masked", "fused_mlp"])
         result = serve_phase(device, wrappers)
         print(json.dumps({"serve": result}))
+        return
+
+    if options.flux:
+        phase("1 build (kernels A's and B's libraries only)")
+        _build.build_cuda_libraries(["flash_attention_bshd", "layer_norm"])
+        result = flux_phase(device, wrappers, options.profile)
+        print(json.dumps({"flux": result}))
         return
 
     if options.kernel_d:
@@ -4935,6 +5539,12 @@ def main() -> None:
     card_numbers = ", ".join(f"{k} {v}" for k, v in serve["numbers"].items())
     print(f"phases 25-27 on {card}: {card_numbers}")
 
+    phase("28-30 kernel B at head dim 128; Flux generate() at full width and depth, its "
+          "checkpoint, server and CLI; the AuraFlow VAE-encode migration (a process of its own)")
+    flux = run_flux(checkout, options.profile)
+    card_numbers = ", ".join(f"{k} {v}" for k, v in flux["numbers"].items())
+    print(f"phases 28-30 on {card}: {card_numbers}")
+
     kernels = []
     for name, record in records.items():
         launches = {"generate": generate_launches[name], "train": train_launches[name],
@@ -4948,7 +5558,8 @@ def main() -> None:
                     "ops_resnet_body_and_probe": ops_launches[name],
                     "auraflow_generate": auraflow["launches"][name],
                     "auraflow_trainer": auraflow_trainer["launches"][name],
-                    "serve": serve["launches"][name]}
+                    "serve": serve["launches"][name],
+                    "flux": flux["launches"][name]}
         kernels.append({
             "name": name,
             **{k: record[k] for k in ("route", "source", "replaces")},
@@ -4960,6 +5571,7 @@ def main() -> None:
             **({"auraflow_train_shapes": auraflow_trainer["records"][name]}
                if name in auraflow_trainer["records"] else {}),
             **({"serve_shapes": serve["records"][name]} if name in serve["records"] else {}),
+            **({"flux_shapes": flux["records"][name]} if name in flux["records"] else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -45,6 +45,7 @@ from vision_ft_tpu_torch.models.text_encoders import auto_tokenizer, sentencepie
 from vision_ft_tpu_torch.modules.positional_encoding import rope
 from vision_ft_tpu_torch.ops.flash_attention import flash_attention_bshd
 from vision_ft_tpu_torch.ops.fused_mlp import gated_mlp
+from test_torch_nn import one_torch_thread  # noqa: F401 (autouse)
 
 # fp32 on the CPU: a few transformer blocks of O(1) activations, summed in
 # other orders by the two packages

@@ -64,6 +64,7 @@ from vision_ft_tpu_torch.utils import safetensors as st
 
 from test_torch_auraflow import TEXT, TINY, VAE, _vocab_bytes
 from test_torch_lumina2_train import _random_tree
+from test_torch_nn import one_torch_thread  # noqa: F401 (autouse)
 
 # fp32 on the CPU through UMT5, the VAE encoder and a few MMDiT blocks
 # forward and backward, sums in other orders: the AuraFlow slice's limit
@@ -206,7 +207,8 @@ def _jax_loss_and_grads(workload, trainable, frozen, batch):
     def loss(tr):
         return workload.loss_fn(tr, frozen, batch, jax.random.PRNGKey(0))
 
-    (value, logs), grads = jax.value_and_grad(loss, has_aux=True)(trainable)
+    # jitted: op-by-op dispatch of the tiny model compiles each op on its own
+    (value, logs), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(trainable)
     return float(value), {k: float(v) for k, v in logs.items()}, {
         k: np.asarray(v) for k, v in flatten_params(grads).items()}
 
@@ -626,6 +628,11 @@ def _latent_draws(batch, seed):
 
 
 class JaxTiny(jax_t2i.AuraFlowForTextToImageTraining):
+    def sanity_check(self):
+        # the JAX workload's own check under one jit: run op by op, the CPU
+        # backend compiles every op of the denoiser on its own
+        jax.jit(super().sanity_check)()
+
     def setup_model(self):
         self.model = JaxAuraFlowModel(self.model_config, tokenizer=self.tokenizer,
                                       vae_config=JaxVAEConfig(**VAE),

@@ -26,6 +26,7 @@ from vision_ft_tpu_torch.ops.conv3x3 import (
     pixel_box,
     repack_weight,
 )
+from test_torch_nn import one_torch_thread  # noqa: F401 (autouse)
 
 # fp32 on the CPU: 9 * C products summed in other orders (nine tap
 # matmuls on the JAX side, one convolution here), relative to the

@@ -1606,3 +1606,94 @@ def test_fused_mlp_kernel_at_the_pool_batch_on_card(cuda, m, c, inner):
     want = gated_mlp_reference(x, wa, wg, wd, *bs, act="silu")
     err = (out.float() - want.float()).abs().max().item()
     assert err <= BF16_FUSED_MLP_TOL * want.float().abs().max().item()
+
+
+# -- Flux: kernel B at head dim 128 on its first model path ------------------------------
+
+FLUX_ATTN_SHAPES = [  # (B, S, H, D): 512 T5 tokens before the image's 2x2 patches
+    (1, 4608, 24, 128),  # 1024 px
+    (2, 4608, 24, 128),  # 1024 px under CFG
+    (8, 4608, 24, 128),  # a pool of 4 slots
+    (1, 2816, 24, 128),  # 768 px
+    (1, 4464, 24, 128),  # the 832x1216 bucket: ragged tiles
+    (1, 300, 24, 128),   # just past the 256-key gate
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d", FLUX_ATTN_SHAPES)
+def test_bshd_kernel_at_flux_shapes_on_card(cuda, b, s, h, d):
+    """One launch a call, out and lse against the plain version, a rerun
+    bit-identical."""
+    g = torch.Generator(device=cuda).manual_seed(28)
+    q, k, v = (torch.randn(b, s, h * d, device=cuda, generator=g).bfloat16() for _ in "qkv")
+    before = flash_attention_bshd.launches
+    out, lse = flash_attention_bshd(q, k, v, h, return_lse=True)
+    assert flash_attention_bshd.launches == before + 1
+    want, want_lse = flash_attention_bshd_reference(q, k, v, h, return_lse=True)
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= BF16_ATTN_TOL * want.float().abs().max().item(), err
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-4)
+    again, again_lse = flash_attention_bshd(q, k, v, h, return_lse=True)
+    assert torch.equal(out, again) and torch.equal(lse, again_lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [4608, 300])
+def test_bshd_kernel_takes_flux_single_block_views_on_card(cuda, s):
+    """A single block's v is a view of its fused linear1 output (B, S, 3 H*D
+    + MLP): rows 3 * 3072 + 12288 = 21504 apart, read in place."""
+    g = torch.Generator(device=cuda).manual_seed(29)
+    b, h, d, mlp = 2, 24, 128, 12288
+    fused = torch.randn(b, s, 3 * h * d + mlp, device=cuda, generator=g).bfloat16()
+    q, k, v = (fused[..., i * h * d:(i + 1) * h * d] for i in range(3))
+    assert v.stride(1) == 3 * h * d + mlp
+    before = flash_attention_bshd.launches
+    out = flash_attention_bshd(q, k, v, h)
+    assert flash_attention_bshd.launches == before + 1
+    want = flash_attention_bshd_reference(q.contiguous(), k.contiguous(), v.contiguous(), h)
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= BF16_ATTN_TOL * want.float().abs().max().item(), err
+    assert torch.equal(out, flash_attention_bshd(q.contiguous(), k.contiguous(), v.contiguous(), h))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["flux1-dev", "flux1-schnell", "flex1-alpha"])
+def test_flux_forward_at_reduced_depth_matches_plain_on_card(cuda, monkeypatch, kind):
+    """The Flux denoiser at full width (hidden 3072, 24 heads of 128, MLP
+    12288), 1 double + 2 single blocks, bf16, seeded random weights, at
+    1024 px under CFG (batch 2, 512 + 4096 tokens): kernel B once a block,
+    and the velocity against the same forward on B's plain version within
+    5e-2 of its largest value (chip_smoke.py's FLUX_STEP_TOL)."""
+    from vision_ft_tpu_torch.models.flux import config as flux_config
+    from vision_ft_tpu_torch.models.flux.denoiser import Denoiser as FluxDenoiser
+    from vision_ft_tpu_torch.nn import init_parameters_
+    from vision_ft_tpu_torch.ops import flash_attention as flash_module
+
+    cls = {"flux1-dev": flux_config.Flux1DevDenoiserConfig,
+           "flux1-schnell": flux_config.Flux1SchnellDenoiserConfig,
+           "flex1-alpha": flux_config.Flex1AlphaDenoiserConfig}[kind]
+    with torch.device("meta"):
+        model = FluxDenoiser(cls(depth=1, depth_single_blocks=2, use_flash_attention=True))
+    model.to(dtype=torch.bfloat16).to_empty(device=cuda)
+    init_parameters_(model, torch.Generator(device=cuda).manual_seed(0))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    latent = torch.randn(2, 128, 128, 16, device=cuda, generator=g).bfloat16()
+    t5 = torch.randn(2, 512, 4096, device=cuda, generator=g).bfloat16()
+    clip = torch.randn(2, 768, device=cuda, generator=g).bfloat16()
+    t = torch.tensor([0.7, 0.7], device=cuda).bfloat16()
+    guidance = torch.full((2,), 3.5, device=cuda).bfloat16()
+    with torch.inference_mode():
+        before = flash_attention_bshd.launches
+        got = model(latent, t5, t, clip, guidance=guidance).float()
+        assert flash_attention_bshd.launches == before + 3
+
+        def plain_forward(q, k, v, num_heads, scale, return_lse):
+            out = flash_attention_bshd_reference(q, k, v, num_heads, scale, return_lse=return_lse)
+            return out if return_lse else (out, None)
+
+        monkeypatch.setattr(flash_module, "_forward", plain_forward)
+        want = model(latent, t5, t, clip, guidance=guidance).float()
+    assert got.shape == latent.shape and torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    assert err <= 5e-2 * want.abs().max().item(), err

@@ -26,6 +26,7 @@ from vision_ft_tpu_torch.dataset import caption
 from vision_ft_tpu_torch.dataset import tags
 from vision_ft_tpu_torch.dataset.preview import TextToImagePreviewConfig
 from vision_ft_tpu_torch.dataset.text_to_image import TextToImageDatasetConfig
+from test_torch_nn import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("base,step,min_size", [(1024, 128, 384), (1024, 64, 384), (64, 32, 32)])

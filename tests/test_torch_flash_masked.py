@@ -32,6 +32,7 @@ from vision_ft_tpu_torch.ops.flash_attention import (
     supports,
     supports_backward,
 )
+from test_torch_nn import one_torch_thread  # noqa: F401 (autouse)
 
 # fp32 attention on the CPU: the Pallas interpret run takes an online
 # softmax over key blocks, the plain version one softmax over all keys; the

@@ -29,6 +29,7 @@ from vision_ft_tpu_torch.ops.flash_attention import (
     flash_attention_masked_dq,
     flash_attention_reference,
 )
+from test_torch_nn import one_torch_thread  # noqa: F401 (autouse)
 
 # fp32 on the CPU: the Pallas interpret run sums over key and query blocks,
 # the plain backward over whole rows, and the grouped heads' dk and dv sum

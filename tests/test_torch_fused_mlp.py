@@ -37,6 +37,7 @@ from vision_ft_tpu_torch.ops.fused_mlp import (
     set_fused_ff,
     supported,
 )
+from test_torch_nn import one_torch_thread  # noqa: F401 (autouse)
 
 # fp32 on the CPU: both sides sum 128 to 512 products of O(1) terms in fp32,
 # in another order (the Pallas kernel by inner chunks); relative to the

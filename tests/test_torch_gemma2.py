@@ -15,6 +15,7 @@ from vision_ft_tpu.nn import flatten_params, unflatten_params
 
 import vision_ft_tpu_torch.nn as tnn
 from vision_ft_tpu_torch.models.text_encoders import gemma2
+from test_torch_nn import one_torch_thread  # noqa: F401 (autouse)
 
 # fp32 on the CPU, three layers of O(1) activations: the two packages sum
 # the same products in other orders

@@ -21,6 +21,7 @@ from vision_ft_tpu_torch.ops.group_norm import (
     group_norm_reference,
     supported,
 )
+from test_torch_nn import one_torch_thread  # noqa: F401 (autouse)
 
 # fp32 on the CPU: the JAX test's own limits (forward 1e-5, gradients
 # 1e-4); both sides sum the same fp32 values in other orders.

@@ -33,6 +33,7 @@ from vision_ft_tpu_torch.tools.inference_server import (
     make_handler,
 )
 from vision_ft_tpu_torch.utils import safetensors as st
+from test_torch_nn import one_torch_thread  # noqa: F401 (autouse)
 
 
 class StubModel:
@@ -271,7 +272,7 @@ def test_t2imodel_refuses_flags_and_families_before_loading(tmp_path):
 
 def test_continuous_scheduler_validation():
     unsupported = T2IModel.__new__(T2IModel)
-    unsupported._family = "flux"
+    unsupported._family = "cogview4"
     with pytest.raises(ValueError, match="currently serves"):
         ContinuousScheduler(unsupported, height=64, width=64)
     sched = ContinuousScheduler.__new__(ContinuousScheduler)
@@ -295,9 +296,9 @@ def test_help_names_exactly_the_served_families(module, capsys):
         module.build_parser().parse_args(["--help"])
     text = " ".join(capsys.readouterr().out.split())
     named = {f for f in (*srv.SERVED_FAMILIES, *srv.WAITING_FAMILIES) if f in text}
-    assert named == set(srv.SERVED_FAMILIES) == {"sdxl", "lumina2", "auraflow"}
+    assert named == set(srv.SERVED_FAMILIES) == {"sdxl", "lumina2", "auraflow", "flux"}
     doc = " ".join(module.__doc__.split())
-    assert "sdxl, lumina2 and auraflow" in doc or "sdxl, lumina2, auraflow" in doc
+    assert "sdxl, lumina2, auraflow and flux" in doc or "sdxl, lumina2, auraflow, flux" in doc
 
 
 # -- a real model, from a single-file checkpoint ------------------------------------------
@@ -419,8 +420,8 @@ def test_cli_writes_a_webp(tiny_constructor, tmp_path, capsys):
     assert saved == [str(out)] and Image.open(out).format == "WEBP"
     assert Image.open(out).size == (64, 64)
     assert "Quantizing denoiser with bnb_nf4" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="flux"):
-        inference_cli.main(["--family", "flux", "--checkpoint-path", "x", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="wan"):
+        inference_cli.main(["--family", "wan", "--checkpoint-path", "x", "--device", "cpu"])
 
 
 def test_client_posts_and_saves(tmp_path, capsys):

@@ -40,8 +40,9 @@ def test_port_imports_without_jax():
     # every module of the SDXL generate, train and quantization slices, of the Lumina2
     # generate and train slices, of the SDXL Trainer slice, of the AuraFlow generate
     # and train slices, the GroupNorm and 3x3 conv ops with the ragged-tile probe tool,
-    # and the serving slice (the continuous batcher, the server, the CLI, the client)
-    assert int(proc.stdout.strip()) >= 126
+    # the serving slice (the continuous batcher, the server, the CLI, the client),
+    # and the Flux slice (the family, the schedules, the VAE-encode migration)
+    assert int(proc.stdout.strip()) >= 136
 
 
 PORT_SOURCES = sorted((REPO / "vision_ft_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -83,7 +84,15 @@ SERVING_MODULES = [
     "serving/__init__.py", "serving/continuous.py", "tools/inference_server.py",
     "tools/inference_cli.py", "tools/inference_client.py",
 ]
-SLICES = LUMINA2_MODULES + AURAFLOW_MODULES + AURAFLOW_TRAIN_MODULES + OPS_SOURCES + SERVING_MODULES
+# the Flux slice: the family, the schedules, the VAE-encode migration and its script
+FLUX_MODULES = [
+    "models/flux/__init__.py", "models/flux/config.py", "models/flux/vae.py",
+    "models/flux/text_encoder.py", "models/flux/denoiser.py", "models/flux/util.py",
+    "models/flux/pipeline.py", "modules/timestep/scheduler.py",
+    "models/auraflow/train_vae_encode_migration.py", "train/auraflow/vae_encode_migration.py",
+]
+SLICES = (LUMINA2_MODULES + AURAFLOW_MODULES + AURAFLOW_TRAIN_MODULES + OPS_SOURCES
+          + SERVING_MODULES + FLUX_MODULES)
 
 
 def _imported_roots(path: Path) -> set[str]:

@@ -42,6 +42,7 @@ from vision_ft_tpu_torch.ops.layer_norm import (
     layer_norm_reference,
     ln_plan,
 )
+from test_torch_nn import one_torch_thread  # noqa: F401 (autouse)
 
 # fp32 attention on the CPU: the Pallas interpret run takes an online
 # softmax over 128-key blocks, the plain version one softmax over all

@@ -38,6 +38,7 @@ from vision_ft_tpu_torch.models.text_encoders.gemma2 import Gemma2Config
 from vision_ft_tpu_torch.modules import patch
 from vision_ft_tpu_torch.ops.flash_attention import flash_attention_masked
 from vision_ft_tpu_torch.ops.fused_mlp import gated_mlp
+from test_torch_nn import one_torch_thread  # noqa: F401 (autouse)
 
 # fp32 on the CPU: a few transformer blocks of O(1) activations, summed in
 # other orders by the two packages

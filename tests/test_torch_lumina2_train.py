@@ -48,6 +48,7 @@ from vision_ft_tpu_torch.modules.timestep import sampling
 from vision_ft_tpu_torch.training import get_optimizer, get_schedule, init_train_state, make_train_step
 
 from test_torch_lumina2 import TEXT, TINY, VAE
+from test_torch_nn import one_torch_thread  # noqa: F401 (autouse)
 
 TrainConfig = train_text_to_image.Lumina2ForTextToImageTrainingConfig
 DENOISER = dict(TINY, caption_dim=TEXT["hidden_size"])

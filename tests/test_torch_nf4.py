@@ -19,6 +19,7 @@ from vision_ft_tpu.ops.pallas import nf4_matmul as jax_fused
 from vision_ft_tpu_torch.modules.quant import nf4
 from vision_ft_tpu_torch.ops import nf4_matmul as fused
 from vision_ft_tpu_torch.ops import nf4_stream as stream
+from test_torch_nn import one_torch_thread  # noqa: F401 (autouse)
 
 # bf16 kernels against plain dequantization: the output's bf16 rounding and
 # fp32 sums in another order, relative to the output's largest value (the

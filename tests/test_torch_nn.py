@@ -28,6 +28,19 @@ from vision_ft_tpu_torch.models.sdxl.denoiser import Denoiser
 from vision_ft_tpu_torch.models.sdxl.text_encoder import TextEncoder
 from vision_ft_tpu_torch.modules.timestep.embedding import get_timestep_embedding
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the port's CPU ops while a test module runs
+    (the other test_torch_* modules import this fixture): the suite runs
+    in several worker processes at once, and PyTorch's default of a thread
+    a core in each of them, and in each serving thread, oversubscribes the
+    cores many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 # fp32 on the CPU in both packages: the same products, summed in another
 # order by XLA and by PyTorch's CPU kernels, so agreement to a few fp32
 # ulps of the output magnitude (all O(1) here)

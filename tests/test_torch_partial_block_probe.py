@@ -20,6 +20,7 @@ from jax.experimental.pallas import tpu as pltpu
 from tools.bench import partial_block_probe as jax_probe
 
 from vision_ft_tpu_torch.tools import partial_block_probe as probe
+from test_torch_nn import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

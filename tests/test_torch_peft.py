@@ -20,6 +20,7 @@ import vision_ft_tpu_torch.nn as tnn
 from vision_ft_tpu_torch.models.sdxl.config import DenoiserConfig
 from vision_ft_tpu_torch.models.sdxl.denoiser import Denoiser
 from vision_ft_tpu_torch.modules import peft
+from test_torch_nn import one_torch_thread  # noqa: F401 (autouse)
 
 # fp32 on the CPU in both packages: the same products summed in other orders
 TOL = 1e-5

@@ -21,6 +21,7 @@ from vision_ft_tpu.modules import quant as jax_quant
 import vision_ft_tpu_torch.nn as tnn
 from vision_ft_tpu_torch.modules import peft, quant
 from vision_ft_tpu_torch.nn.core import _w8a8_linear
+from test_torch_nn import one_torch_thread  # noqa: F401 (autouse)
 
 QUANT_TYPES = ["fp8_e4m3fn", "bnb_int8", "bnb_fp4", "bnb_nf4", "quanto_int4", "quanto_int8",
                "ao_nf4", "ao_fp8", "int8_w8a8"]

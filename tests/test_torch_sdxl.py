@@ -37,6 +37,7 @@ from vision_ft_tpu_torch.models.sdxl.pipeline import SDXLModel
 from vision_ft_tpu_torch.models.text_encoders import CLIPTextConfig, CLIPTokenizer
 from vision_ft_tpu_torch.models.text_encoders.clip import CLIPTextModelWithProjection
 from vision_ft_tpu_torch.utils.tensor import incremental_seed_randn
+from test_torch_nn import one_torch_thread  # noqa: F401 (autouse)
 
 # fp32 on the CPU in both packages: the same arithmetic, summed in other
 # orders. Measured: <= 1e-5 abs on the modules' O(1) outputs, 9e-5 abs on

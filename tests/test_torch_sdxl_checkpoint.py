@@ -23,6 +23,7 @@ from vision_ft_tpu_torch.utils import safetensors as st
 from vision_ft_tpu_torch.utils import state_dict
 
 from test_torch_sdxl import _random_params, _tiny_kwargs
+from test_torch_nn import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -25,6 +25,7 @@ from vision_ft_tpu_torch.models.sdxl.pipeline import SDXLModel
 from vision_ft_tpu_torch.modules import peft, quant
 from vision_ft_tpu_torch.ops import nf4_matmul, nf4_stream
 from vision_ft_tpu_torch.training import get_optimizer, get_schedule, init_train_state, make_train_step
+from test_torch_nn import one_torch_thread  # noqa: F401 (autouse)
 
 TARGETS = ["attn1", "attn2", ".ff."]
 WIDE = dict(

@@ -38,6 +38,7 @@ from vision_ft_tpu_torch.training import (
     init_train_state,
     make_train_step,
 )
+from test_torch_nn import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = dict(
     hidden_dim=32, num_head_channels=8, context_dim=64 + 48,

@@ -51,6 +51,7 @@ from vision_ft_tpu_torch.serving import (
     SlotRequest,
 )
 from vision_ft_tpu_torch.utils.tensor import incremental_seed_randn
+from test_torch_nn import one_torch_thread  # noqa: F401 (autouse)
 
 # fp32 on the CPU in both packages, the same arithmetic summed in other
 # orders: one UNet / NextDiT / MMDiT forward and one Euler update agree to

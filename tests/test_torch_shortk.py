@@ -30,6 +30,7 @@ from vision_ft_tpu_torch.ops.flash_attention import (
     shortk_bwd_plan,
     shortk_fwd_plan,
 )
+from test_torch_nn import one_torch_thread  # noqa: F401 (autouse)
 
 # fp32 on the CPU: the interpreted kernel sums over padded key blocks and
 # takes its row sum through a ones column of V at head dim 64; the plain

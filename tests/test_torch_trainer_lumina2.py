@@ -60,6 +60,7 @@ from vision_ft_tpu_torch.utils import safetensors as st
 
 from test_torch_lumina2 import TEXT, VAE, _model_bytes
 from test_torch_lumina2_train import DENOISER, _random_tree
+from test_torch_nn import one_torch_thread  # noqa: F401 (autouse)
 
 TEXT_CONFIG = dict(TEXT, vocab_size=512)  # the synthetic vocab's ids reach 300
 PEFT = {
@@ -94,6 +95,11 @@ def _latent_shape(batch):
 
 
 class JaxTiny(jax_train.Lumina2ForTextToImageTraining):
+    def sanity_check(self):
+        # the JAX workload's own check under one jit: run op by op, the CPU
+        # backend compiles every op of the denoiser on its own
+        jax.jit(super().sanity_check)()
+
     def setup_model(self):
         self.model = JaxLumina2(self.model_config, vae_config=JaxVAEConfig(**VAE),
                                 text_encoder_config=JaxGemma2Config(**TEXT_CONFIG))

@@ -43,6 +43,7 @@ from vision_ft_tpu_torch.train.sdxl.text_to_image import build_trainer
 from vision_ft_tpu_torch.utils import safetensors as st
 
 from test_torch_sdxl import _random_params, _tiny_kwargs
+from test_torch_nn import one_torch_thread  # noqa: F401 (autouse)
 
 PEFT = {
     "include_keys": ["attn1", "attn2", ".ff."],

@@ -26,6 +26,7 @@ from vision_ft_tpu_torch.training import (
     make_train_step,
 )
 from vision_ft_tpu_torch.training.optimizer import eval_params, is_schedule_free
+from test_torch_nn import one_torch_thread  # noqa: F401 (autouse)
 
 SCHEDULES = [
     (None, {}),

@@ -5,8 +5,9 @@ interoperate:
   patchify:   feature dim ordered (c, ph, pw)
   unpatchify: feature dim read as (ph, pw, c)
 
-``unpatchify_cmajor`` and ``ImagePatcher`` (Flux, CogView4) have no caller
-in the port yet and are not ported.
+``unpatchify_cmajor`` reads the (c, ph, pw) order back (Flux's final
+layer). ``ImagePatcher`` (CogView4) has no caller in the port yet and is
+not ported.
 """
 
 from __future__ import annotations
@@ -31,4 +32,15 @@ def unpatchify(
     b = patches.shape[0]
     p = patch_size
     x = patches.reshape(b, height, width, p, p, out_channels).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, height * p, width * p, out_channels)
+
+
+def unpatchify_cmajor(
+    patches: torch.Tensor, height: int, width: int, patch_size: int, out_channels: int
+) -> torch.Tensor:
+    """(B, h*w, c*p*p) with (c, ph, pw) feature order -> (B, h*p, w*p, C).
+    ``height`` / ``width`` are in patches."""
+    b = patches.shape[0]
+    p = patch_size
+    x = patches.reshape(b, height, width, out_channels, p, p).permute(0, 1, 4, 2, 5, 3)
     return x.reshape(b, height * p, width * p, out_channels)

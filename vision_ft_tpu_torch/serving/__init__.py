@@ -3,13 +3,13 @@
 ``continuous`` is step-level continuous batching for diffusion sampling:
 a fixed pool of latent slots that requests join and leave at denoise-step
 boundaries, behind the HTTP server's ``--scheduler continuous``
-(``tools/inference_server.py``). The CogView4 and Flux adapters wait for
-their families.
+(``tools/inference_server.py``). The CogView4 adapter waits for its family.
 """
 
 from .continuous import (
     AuraFlowSlotAdapter,
     ContinuousBatcher,
+    FluxSlotAdapter,
     Lumina2SlotAdapter,
     SDXLSlotAdapter,
     SlotRequest,
@@ -18,6 +18,7 @@ from .continuous import (
 __all__ = [
     "AuraFlowSlotAdapter",
     "ContinuousBatcher",
+    "FluxSlotAdapter",
     "Lumina2SlotAdapter",
     "SDXLSlotAdapter",
     "SlotRequest",

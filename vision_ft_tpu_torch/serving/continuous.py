@@ -58,7 +58,7 @@ class SlotRequest:
     of the families' knobs: an adapter reads the fields it owns
     (``cfg_rescale``: SDXL's std-matching rescale; ``renorm_cfg`` /
     ``cfg_trunc_ratio``: Lumina2's norm-matching renorm and early CFG skip;
-    ``distilled_guidance``: Flux's, which waits for its family)."""
+    ``distilled_guidance``: Flux's)."""
 
     prompt: str
     negative_prompt: str = ""
@@ -314,6 +314,89 @@ class AuraFlowSlotAdapter:
     def slot_step(self, latents, ctx, t, sigma, next_sigma, idx, total, scalars, active, host):
         return self.model._slot_step(
             latents, t, sigma, next_sigma, ctx["emb"], scalars["cfg_scale"], active
+        )
+
+    def decode(self, latent_row: torch.Tensor):
+        return self.model.decode_image(latent_row[None])[0]
+
+
+class FluxSlotAdapter:
+    """Binds the engine to a Flux pipeline: flow matching whose Euler delta
+    is the constant 1/n of ``generate()`` (from the engine's per-slot
+    ``total``, not a sigma difference), the distilled guidance a per-slot
+    vector into the denoiser's guidance embedding (gated per row, so a slot
+    of guidance 0 beside others equals its batch-1 ``generate()``), plain
+    CFG per slot. The context is the pair of encoders: T5's padded sequence
+    and CLIP's pooled vector."""
+
+    def __init__(self, model, height: int, width: int, max_token_length: Optional[int] = None):
+        from ..models.flux.text_encoder import DEFAULT_T5_MAX_TOKEN_LENGTH
+
+        self.model = model
+        self.height, self.width = height, width
+        self.max_token_length = max_token_length or DEFAULT_T5_MAX_TOKEN_LENGTH
+        ratio = int(model.vae.compression_ratio)
+        self.latent_shape = (height // ratio, width // ratio, model.vae.config.latent_channels)
+        self.dtype = model.dtype
+        self.device = model.device
+        with torch.inference_mode():
+            out = self._encode(["x"], ["y"])
+        self.t5_shape = tuple(out.t5.positive_embeddings.shape[1:])
+        self.clip_shape = tuple(out.clip.positive_embeddings.shape[1:])
+
+    def _encode(self, prompts, negatives):
+        return self.model.text_encoder.encode_prompts(
+            prompts, negatives, use_negative_prompts=True,
+            t5_max_token_length=self.max_token_length,
+        )
+
+    def schedule(self, request: SlotRequest):
+        from ..modules.timestep.scheduler import get_linear_schedule
+
+        timesteps = get_linear_schedule(request.num_inference_steps)
+        # the slot step takes its delta from the total; the sigma table is
+        # bookkeeping (the engine wants n + 1 rows)
+        sigmas = np.concatenate([timesteps, [0.0]]).astype(np.float32)
+        return np.asarray(timesteps, np.float32), sigmas
+
+    def scalar_fields(self):
+        return {"cfg_scale": (1.0, np.float32), "distilled_guidance": (1.0, np.float32)}
+
+    def request_scalars(self, request: SlotRequest):
+        return {"cfg_scale": request.cfg_scale, "distilled_guidance": request.distilled_guidance}
+
+    def encode(self, requests: list[SlotRequest]):
+        """(t5_pos, t5_neg, clip_pos, clip_neg) a request, one encode for the
+        whole admission group."""
+        out = self._encode([r.prompt for r in requests], [r.negative_prompt or "" for r in requests])
+        t5 = _encode_rows(out.t5, len(requests), self.dtype, with_masks=False)
+        clip = _encode_rows(out.clip, len(requests), self.dtype, with_masks=False)
+        return [t + c for t, c in zip(t5, clip)]
+
+    def blank_context(self, num_slots: int):
+        s = num_slots
+        return {
+            "t5": torch.zeros((2 * s, *self.t5_shape), dtype=self.dtype, device=self.device),
+            "clip": torch.zeros((2 * s, *self.clip_shape), dtype=self.dtype, device=self.device),
+        }
+
+    def write_slot(self, ctx, j: int, row):
+        t5_pos, t5_neg, clip_pos, clip_neg = row
+        _write_pair(ctx["t5"], j, t5_pos, t5_neg)
+        _write_pair(ctx["clip"], j, clip_pos, clip_neg)
+        return ctx
+
+    def init_latents(self, request: SlotRequest, seed: int, sigmas: np.ndarray) -> torch.Tensor:
+        """Batch-1 ``prepare_latents``' row (pure noise: the flow starts at
+        t = 1)."""
+        return tensor_utils.incremental_seed_randn(
+            (1, *self.latent_shape), seed, self.dtype, self.device
+        )[0]
+
+    def slot_step(self, latents, ctx, t, sigma, next_sigma, idx, total, scalars, active, host):
+        return self.model._slot_step(
+            latents, t, total, ctx["t5"], ctx["clip"], scalars["distilled_guidance"],
+            scalars["cfg_scale"], active,
         )
 
     def decode(self, latent_row: torch.Tensor):

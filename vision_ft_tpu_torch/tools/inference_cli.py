@@ -7,10 +7,11 @@ the denoiser's Linears (``--quant-type``, e.g. ``bnb_nf4``: on SDXL the
         --checkpoint-path sdxl.safetensors --tokenizer-path /path/to/clip_vocab \\
         --width 1024 --height 1024 --quant-type bnb_nf4 --save-path out.webp
 
-Families: sdxl, lumina2, auraflow (the JAX package's cogview4, flux and wan
+Families: sdxl, lumina2, auraflow, flux (the JAX package's cogview4 and wan
 raise ``NotImplementedError``). Tokenizers load from a local directory
 (``--tokenizer-path``: CLIP's vocab.json + merges.txt, or a SentencePiece
-``tokenizer.model``).
+``tokenizer.model``; for flux the T5 one, with CLIP's in a ``clip/``
+subfolder).
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Batched inference HTTP server of the port (``tools/inference_server.py``
 counterpart): POST /predict with a JSON ``GenerationParams`` body returns
 image/webp bytes; GET /health answers ``{"status": "ok"}``. It serves the
-sdxl, lumina2 and auraflow families from a TrainConfig YAML (its ``model``
-section) and optional PEFT safetensors, on the card:
+sdxl, lumina2, auraflow and flux families from a TrainConfig YAML (its
+``model`` section) and optional PEFT safetensors, on the card:
 
     python3 -m vision_ft_tpu_torch.tools.inference_server -C configs/sdxl/x.yml \\
         --family sdxl --tokenizer-path /path/to/clip_vocab --port 8123 \\
@@ -18,8 +18,10 @@ slots at denoise-step boundaries, so staggered traffic with mixed step
 counts, seeds and guidance shares the card with no window and no lockstep.
 
 The kernels of the family's path are built before the worker thread
-starts, so no build races a request. The cogview4, flux and wan families
-of the JAX package are not ported yet and raise ``NotImplementedError``.
+starts, so no build races a request. Flux takes the T5 tokenizer of
+``--tokenizer-path`` and a CLIP tokenizer from its ``clip/`` subfolder. The
+cogview4 and wan families of the JAX package are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,16 +36,17 @@ from typing import Optional, Sequence
 
 from pydantic import BaseModel, field_validator
 
-SERVED_FAMILIES = ("sdxl", "lumina2", "auraflow")
+SERVED_FAMILIES = ("sdxl", "lumina2", "auraflow", "flux")
 # the JAX package's other families, each waiting for its port
-WAITING_FAMILIES = ("cogview4", "flux", "wan")
-TOKENIZER_FAMILY = {"sdxl": "clip", "lumina2": "gemma", "auraflow": "t5"}
+WAITING_FAMILIES = ("cogview4", "wan")
+TOKENIZER_FAMILY = {"sdxl": "clip", "lumina2": "gemma", "auraflow": "t5", "flux": "t5"}
 # the CUDA libraries each family's path launches (SDXL's 4-bit kernels with a
 # quantized base)
 FAMILY_KERNELS = {
     "sdxl": ("flash_attention_bshd", "layer_norm", "nf4_matmul"),
     "lumina2": ("flash_attention_masked", "fused_mlp"),
     "auraflow": ("flash_attention_bshd", "fused_mlp"),
+    "flux": ("flash_attention_bshd", "layer_norm"),
 }
 
 DEFAULT_NEGATIVE = (
@@ -82,7 +85,7 @@ class GenerationParams(BaseModel):
     cfg_rescale: float = 0.0  # SDXL only (std-matching CFG rescale)
     renorm_cfg: float = 1.0  # Lumina2 only (norm-matching renorm CFG)
     cfg_trunc_ratio: float = 0.0  # Lumina2 only (CFG skipped early in the schedule)
-    distilled_guidance: float = 1.0  # Flux only (not served by the port yet)
+    distilled_guidance: float = 1.0  # Flux only
     frames: Optional[int] = None  # Wan only (not served by the port yet)
     fps: int = 24  # Wan only
     width: int = 768
@@ -125,6 +128,18 @@ class GenerationParams(BaseModel):
         return value
 
 
+def flux_clip_tokenizer(tokenizer_path: Optional[str]):
+    """Flux's CLIP tokenizer: the ``clip/`` subfolder of the T5 tokenizer's
+    directory where there is one (as the JAX tools look for it), else None."""
+    import os
+
+    if tokenizer_path is None or not os.path.isdir(os.path.join(tokenizer_path, "clip")):
+        return None
+    from ..models.text_encoders.tokenizer import CLIPTokenizer
+
+    return CLIPTokenizer.from_pretrained_dir(os.path.join(tokenizer_path, "clip"))
+
+
 def load_model(family: str, model_config: dict, tokenizer_path: Optional[str] = None,
                peft_path: Optional[str] = None, device=None):
     """The family's pipeline from its single-file checkpoint (the config's
@@ -152,12 +167,20 @@ def load_model(family: str, model_config: dict, tokenizer_path: Optional[str] = 
         model = Lumina2.from_checkpoint(
             Lumina2Config.model_validate(model_config), tokenizer=tokenizer, device=device
         )
-    else:
+    elif family == "auraflow":
         from ..models.auraflow import AuraFlowConig, AuraFlowModel
         from ..models.auraflow.util import convert_from_original_key
 
         model = AuraFlowModel.from_original_checkpoint(
             AuraFlowConig.model_validate(model_config), tokenizer=tokenizer, device=device
+        )
+    else:
+        from ..models.flux import FluxConfig, FluxModel
+        from ..models.flux.util import convert_from_original_key
+
+        model = FluxModel.from_checkpoint(
+            FluxConfig.model_validate(model_config), device=device, t5_tokenizer=tokenizer,
+            clip_tokenizer=flux_clip_tokenizer(tokenizer_path),
         )
     if peft_path is not None:
         from ..modules.peft import load_peft_weight
@@ -208,7 +231,9 @@ class T2IModel:
                     raise ValueError("renorm_cfg is Lumina2-only")
                 if head.cfg_trunc_ratio != 0.0:
                     raise ValueError("cfg_trunc_ratio is Lumina2-only")
-            if head.distilled_guidance != 1.0:
+            if self._family == "flux":
+                extra["distilled_guidance_scale"] = head.distilled_guidance
+            elif head.distilled_guidance != 1.0:
                 raise ValueError("distilled_guidance is Flux-only")
             if head.frames is not None:
                 raise ValueError("frames is Wan-only (video)")
@@ -348,6 +373,7 @@ class ContinuousScheduler:
         from ..serving import (
             AuraFlowSlotAdapter,
             ContinuousBatcher,
+            FluxSlotAdapter,
             Lumina2SlotAdapter,
             SDXLSlotAdapter,
         )
@@ -356,6 +382,7 @@ class ContinuousScheduler:
             "sdxl": SDXLSlotAdapter,
             "lumina2": Lumina2SlotAdapter,
             "auraflow": AuraFlowSlotAdapter,
+            "flux": FluxSlotAdapter,
         }
         if model._family not in adapters:
             raise ValueError(

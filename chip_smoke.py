@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile] [--kernel-d] [--kernel-i] [--trace-kernels]
                           [--ln-probe-costs] [--lumina-trainer] [--auraflow]
-                          [--auraflow-trainer] [--serve] [--flux]
+                          [--auraflow-trainer] [--serve] [--flux] [--cogview4]
 
 With --profile, phases 6 and 8 also trace two train steps with
 torch.profiler (device activity only) and print the device time of a step
@@ -47,7 +47,13 @@ the main run runs it so, in a process of its own, after phases 22-24. With
 libraries run, printing the Flux paths' launch counts, kernel B's records at
 Flux's shapes and the numbers as one JSON line (no ok line); the main run
 runs it so, in a process of its own, after phases 25-27 (with --profile,
-phase 29 also traces one CFG denoise step).
+phase 29 also traces one CFG denoise step). With --cogview4, only phases 0
+and 31-33 and the build of kernels B's, C's and D's libraries run, printing
+the CogView4 paths' launch counts, kernels B's and C's records at
+CogView4's shapes and the numbers as one JSON line (no ok line); the main
+run runs it so, in a process of its own, after phases 28-30 (with
+--profile, phase 32 also traces one CFG denoise step). Each phase's header
+gives the seconds since its process started.
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -210,7 +216,7 @@ Phases, each printing its own lines; any failure exits non-zero:
     default MMDiT: 4 double + 32 single layers, 3072 wide, 12 heads of 256;
     the default UMT5; the SDXL VAE; bf16, seeded random weights made on the
     card, the zero-init leaves drawn anew; the synthetic SentencePiece vocab
-    with the T5 template): three 1024 px CFG requests of 20 steps (the third
+    with the T5 template): three 1024 px CFG requests of 8 steps (the third
     the first again, bit-identical), one with deep_cache_interval=2, one with
     set_fused_ff("off"); launch counts of kernels B and F against the module
     tree; one denoise step against the same step on the plain versions;
@@ -283,7 +289,7 @@ Phases, each printing its own lines; any failure exits non-zero:
     use_flash_attention: true; T5-XXL, CLIP-L and the 16-channel VAE; bf16
     seeded random weights made on the card; the synthetic SentencePiece
     vocab with the T5 template and a CLIP BPE vocab): 1024 px requests of
-    20 steps at distilled guidance 3.5 (cold, another prompt, the first
+    8 steps at distilled guidance 3.5 (cold, another prompt, the first
     again bit-identical, CFG 2 with a negative prompt, deep_cache_interval
     2), one with every block's attention on the plain formula (the
     use_flash_attention: false route) held to the kernel route's latents
@@ -305,6 +311,38 @@ Phases, each printing its own lines; any failure exits non-zero:
     flux; the AuraFlow VAE-encode migration through the port's Trainer for
     3 steps on seeded 1024 px images (both VAEs at full width): finite
     losses, only migration_scale moved, the saved ComfyUI keys.
+31. kernels B and C at head dim 128, CogView4's shapes, in a process of
+    its own (--cogview4): B at the 1024 px joint sequence (16 caption
+    tokens + 4096 patches = 4112, not a multiple of 64) under CFG (batch
+    2), a pool of 4 slots (batch 8), 768 px (2320) and a 48-token caption
+    (4144), as in phase 28; C at the Trainer step's (2, 4112) and at batch
+    1 and on strided views, as in phase 22 (each kernel one launch, reruns
+    bit-identical, one call and 10 back to back, TFLOP/s, the bounds, the
+    whole backward with the plain delta beside SDPA's backward alone), and
+    ptxas's registers and spill bytes of C's D 128 instance.
+32. CogView4Model.generate() at full width and depth in the same process
+    (28 blocks, 4096 wide, 32 heads of 128; GLM-4 with 40 layers; the
+    16-channel VAE; bf16 seeded random weights made on the card; the
+    synthetic SentencePiece vocab with GLM's template): 1024 px requests of
+    8 steps at CFG 3.5 (cold, another prompt, the first again
+    bit-identical, deep_cache_interval 2); kernel B's launches (28 a step,
+    7 on a cached step) against the module tree; one CFG denoise step
+    against the plain version; seconds a request and peak GiB; a pool of 4
+    slots through the server's continuous scheduler (4 staggered requests
+    of 4 and 8 steps, CFG 3.5, 5 and 1), each result against batch-1
+    generate() (POOL_REQUEST_TOL), kernel B 28 launches a tick.
+33. in the same process, at full width and reduced depth (2 blocks, 2 GLM
+    layers): the single-file checkpoint written by state_dict() and read by
+    from_checkpoint, bit-identical; the server on a YAML naming it (window
+    and continuous schedulers); the CLI with --quant-type bnb_nf4 (kernel
+    D's launches on every denoiser Linear it takes); the quant-compare tool
+    with GLM's and the DiT's groups in NF4 (D's launches). Then the Trainer
+    on configs/cogview4/text_to_image.yml at full width and depth from
+    seeded weights: one epoch of 8 seeded 1024 px images at batch 2 (LoRA
+    rank 8 on attn / ff, AdamW, checkpointing), launches of B and of C's
+    two kernels a step (28 each), a 4-step preview, warm steps, the saved
+    LoRA's keys, bytes and write / load seconds, and a depth-reduced step
+    against the plain versions.
 
 Every kernel's record carries its time, its plain version's, the bound
 (the larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s bf16, or
@@ -517,8 +555,12 @@ COST_KEYS = ("burst_ms", "host_us", "traced_ms", "library_burst_ms", "library_ho
              "library_traced_ms")
 
 
+_START = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    """A phase's header, with the seconds since this process started."""
+    print(f"== {name} (t = {time.perf_counter() - _START:.1f} s)", flush=True)
 
 
 def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
@@ -556,21 +598,29 @@ def burst_ms(fn, calls: int = 10, iters: int = 10) -> float:
 def host_us(fn, calls: int = 200, repeats: int = 3) -> float:
     """Median host microseconds ``fn()`` takes to issue, measured with the
     card held busy by a torch.cuda._sleep queued first, so that the calls
-    only queue behind it: the perf_counter span over ``calls`` calls.
-    Fails if the card finished the sleep before the last call was issued."""
+    only queue behind it: the perf_counter span over ``calls`` calls. A
+    span in which the card finished the sleep before the last call was
+    issued (a stall of the shared host) is measured again behind a sleep
+    twice as long; the run fails if that happens behind 8x the sleep."""
     fn()
     times = []
     for _ in range(repeats):
-        torch.cuda.synchronize()
-        torch.cuda._sleep(SLEEP_CYCLES)
-        asleep = torch.cuda.Event()
-        asleep.record()
-        start = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        times.append((time.perf_counter() - start) / calls * 1e6)
-        if asleep.query():
-            raise AssertionError("host_us: the card woke before the calls were issued")
+        cycles = SLEEP_CYCLES
+        while True:
+            torch.cuda.synchronize()
+            torch.cuda._sleep(cycles)
+            asleep = torch.cuda.Event()
+            asleep.record()
+            start = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            span = (time.perf_counter() - start) / calls * 1e6
+            if not asleep.query():
+                times.append(span)
+                break
+            if cycles >= 8 * SLEEP_CYCLES:
+                raise AssertionError("host_us: the card woke before the calls were issued")
+            cycles *= 2
     torch.cuda.synchronize()
     return statistics.median(times)
 
@@ -1640,7 +1690,7 @@ AURA_ATTN_SHAPES = [(2, 4360, 4360, 3072, 12), (1, 4360, 4360, 3072, 12),
 # joint tokens, the double layers' latent MLP (2 x 4096) and context MLP (2 x 264)
 AURA_MLP_SHAPES = [(8720, 3072, 8192, "silu", False), (8192, 3072, 8192, "silu", False),
                    (528, 3072, 8192, "silu", False)]
-AURA_STEPS = 20
+AURA_STEPS = 8  # 20 before the CogView4 phases joined the run
 # one full-depth AuraFlow CFG denoise step (4 double + 32 single layers), kernels B and F
 # against their plain versions, bf16, random weights: every layer's few-ulp differences
 # are carried on through both residual streams; relative to the largest value of the
@@ -1665,6 +1715,51 @@ def aura_fill_zero_init(model, device, seed) -> int:
     return filled
 
 
+def bshd_forward_record(device, gen, b, sq, sk, inner, h) -> dict:
+    """Kernel B on seeded (B, Sq, H*D) q and (B, Sk, H*D) k, v: one launch,
+    out and lse against the plain version, a rerun bit-identical, one call
+    and a call over 10 back to back beside SDPA's, TFLOP/s and the bound.
+    Prints its line and returns its record."""
+    from vision_ft_tpu_torch.ops.flash_attention import (
+        flash_attention_bshd, flash_attention_bshd_reference,
+    )
+
+    q = torch.randn(b, sq, inner, device=device, generator=gen).bfloat16()
+    k, v = (torch.randn(b, sk, inner, device=device, generator=gen).bfloat16() for _ in "kv")
+    what = f"attention B={b} Sq={sq} Sk={sk} H={h} D={inner // h}"
+    before = flash_attention_bshd.launches
+    out, lse = flash_attention_bshd(q, k, v, h, return_lse=True)
+    if flash_attention_bshd.launches != before + 1:
+        raise AssertionError(f"{what}: kernel B launched {flash_attention_bshd.launches - before} times")
+    ref, ref_lse = flash_attention_bshd_reference(q, k, v, h, return_lse=True)
+    abs_err, rel_err = compare(what, lambda: out, lambda: ref, ATTN_TOL)
+    lse_abs, lse_rel = compare(f"{what} lse", lambda: lse, lambda: ref_lse, ATTN_TOL)
+    assert_reruns(what, lambda: flash_attention_bshd(q, k, v, h, return_lse=True))
+    del out, lse, ref, ref_lse
+    ms = cuda_ms(lambda: flash_attention_bshd(q, k, v, h))
+    back_to_back_ms = burst_ms(lambda: flash_attention_bshd(q, k, v, h))
+    plain_ms = cuda_ms(lambda: flash_attention_bshd_reference(q, k, v, h), warmup=1, iters=3)
+    heads = [sdpa_heads(t, h) for t in (q, k, v)]
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*heads))
+    library_burst_ms = burst_ms(lambda: F.scaled_dot_product_attention(*heads))
+    flops = 4 * b * sq * sk * inner
+    bound_ms, bound_by = bound(2 * (2 * b * sq * inner + 2 * b * sk * inner), flops)
+    print(f"{what}: out max abs err {abs_err:.3e} rel {rel_err:.3e}, lse max abs err "
+          f"{lse_abs:.3e} rel {lse_rel:.3e} (tol {ATTN_TOL}), one launch, reruns bit-identical; "
+          f"kernel {ms:.4f} ms one call ({flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% "
+          f"of the bound), {back_to_back_ms:.4f} ms a call over 10 back to back "
+          f"({flops / back_to_back_ms / 1e9:.1f} TFLOP/s); plain {plain_ms:.3f} ms; SDPA "
+          f"{library_ms:.4f} ms one call (kernel {ms / library_ms:.2f}x), {library_burst_ms:.4f} "
+          f"back to back; bound {bound_ms:.4f} ms ({bound_by})")
+    del q, k, v, heads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(shape=[b, sq, sk, inner, h], max_abs_err=abs_err, lse_max_abs_err=lse_abs, ms=ms,
+                burst_ms=back_to_back_ms, tflops=flops / ms / 1e9, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                library_burst_ms=library_burst_ms)
+
+
 def auraflow_phase(device, wrappers: dict, profile: bool) -> dict:
     """Phases 20 and 21, run in a process of its own (``--auraflow``):
     kernel B at head dim 256 and kernel F at AuraFlow's widths against their
@@ -1678,9 +1773,7 @@ def auraflow_phase(device, wrappers: dict, profile: bool) -> dict:
         SentencePieceModel, SentencePieceTokenizer,
     )
     from vision_ft_tpu_torch.models.text_encoders.umt5 import UMT5Config
-    from vision_ft_tpu_torch.ops.flash_attention import (
-        flash_attention_bshd, flash_attention_bshd_reference, forward_config,
-    )
+    from vision_ft_tpu_torch.ops.flash_attention import forward_config
     from vision_ft_tpu_torch.ops.fused_mlp import gated_mlp, set_fused_ff
     from vision_ft_tpu_torch.utils import safetensors as st
 
@@ -1720,37 +1813,8 @@ def auraflow_phase(device, wrappers: dict, profile: bool) -> dict:
                   f"{info.get('spill_loads')} of spill loads, notes {info.get('notes')}")
     if set(numbers["kernel_b_ptxas"]) != {"64", "128", "256"}:
         raise AssertionError(f"ptxas reported no kernel B at some head dim: {numbers['kernel_b_ptxas']}")
-    for b, sq, sk, inner, h in AURA_ATTN_SHAPES:
-        q = torch.randn(b, sq, inner, device=device, generator=gen).bfloat16()
-        k, v = (torch.randn(b, sk, inner, device=device, generator=gen).bfloat16() for _ in "kv")
-        what = f"attention B={b} Sq={sq} Sk={sk} H={h} D={inner // h}"
-        out, lse = flash_attention_bshd(q, k, v, h, return_lse=True)
-        ref, ref_lse = flash_attention_bshd_reference(q, k, v, h, return_lse=True)
-        abs_err, rel_err = compare(what, lambda: out, lambda: ref, ATTN_TOL)
-        lse_abs, lse_rel = compare(f"{what} lse", lambda: lse, lambda: ref_lse, ATTN_TOL)
-        assert_reruns(what, lambda: flash_attention_bshd(q, k, v, h, return_lse=True))
-        del out, lse, ref, ref_lse
-        ms = cuda_ms(lambda: flash_attention_bshd(q, k, v, h))
-        back_to_back_ms = burst_ms(lambda: flash_attention_bshd(q, k, v, h))
-        plain_ms = cuda_ms(lambda: flash_attention_bshd_reference(q, k, v, h), warmup=1, iters=3)
-        heads = [sdpa_heads(t, h) for t in (q, k, v)]
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*heads))
-        library_burst_ms = burst_ms(lambda: F.scaled_dot_product_attention(*heads))
-        flops = 4 * b * sq * sk * inner
-        bound_ms, bound_by = bound(2 * (2 * b * sq * inner + 2 * b * sk * inner), flops)
-        print(f"{what}: out max abs err {abs_err:.3e} rel {rel_err:.3e}, lse max abs err "
-              f"{lse_abs:.3e} rel {lse_rel:.3e} (tol {ATTN_TOL}), reruns bit-identical; kernel "
-              f"{ms:.4f} ms one call ({flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of "
-              f"the bound), {back_to_back_ms:.4f} ms a call over 10 back to back "
-              f"({flops / back_to_back_ms / 1e9:.1f} TFLOP/s); plain {plain_ms:.3f} ms; SDPA "
-              f"{library_ms:.4f} ms one call (kernel {ms / library_ms:.2f}x), {library_burst_ms:.4f} "
-              f"back to back; bound {bound_ms:.4f} ms ({bound_by})")
-        records["flash_attention_bshd"].append(dict(
-            shape=[b, sq, sk, inner, h], max_abs_err=abs_err, lse_max_abs_err=lse_abs, ms=ms,
-            burst_ms=back_to_back_ms, tflops=flops / ms / 1e9, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-            library_burst_ms=library_burst_ms))
-        del q, k, v, heads
+    for shape in AURA_ATTN_SHAPES:
+        records["flash_attention_bshd"].append(bshd_forward_record(device, gen, *shape))
     for m, c, inner, act, with_biases in AURA_MLP_SHAPES:
         x, wa, wg, wd, (ba, bg, bd) = mlp_tensors(m, c, inner, with_biases, device, gen)
         up, down, full = mlp_parts(
@@ -2016,14 +2080,84 @@ def sdpa_backward_ms(q, k, v, dout, h):
         return None
 
 
-def aura_backward_phase(device, wrappers: dict) -> tuple[dict, dict]:
-    """Phase 22: kernel C at head dim 256 against its plain backward.
-    Returns (records by kernel, numbers)."""
+def bshd_backward_records(device, gen, b, sq, sk, inner, h, strided) -> list:
+    """Kernel C on seeded inputs (q, k and v column slices of one (B, S,
+    3 H*D) tensor where ``strided``): one launch of each kernel, dq, dk
+    and dv against the plain backward, reruns bit-identical, each kernel's
+    time, TFLOP/s and bound, the whole backward with the plain delta
+    beside SDPA's backward alone. Prints its line and returns the (dk/dv,
+    dq) records."""
     from vision_ft_tpu_torch.ops.flash_attention import (
         flash_attention_bshd, flash_attention_bshd_backward,
         flash_attention_bshd_backward_reference, flash_attention_bshd_delta,
         flash_attention_bshd_dkv, flash_attention_bshd_dq,
     )
+
+    dkv, dq = flash_attention_bshd_dkv, flash_attention_bshd_dq
+    if strided:  # column slices of one (B, S, 3 H*D) tensor: rows 3 H*D apart
+        q, k, v = torch.randn(b, sq, 3 * inner, device=device, generator=gen).bfloat16().split(
+            inner, dim=-1)
+    else:
+        q = torch.randn(b, sq, inner, device=device, generator=gen).bfloat16()
+        k, v = (torch.randn(b, sk, inner, device=device, generator=gen).bfloat16() for _ in "kv")
+    dout = torch.randn(b, sq, inner, device=device, generator=gen).bfloat16()
+    what = f"backward B={b} Sq={sq} Sk={sk} H={h} D={inner // h}{' strided' if strided else ''}"
+    out, lse = flash_attention_bshd(q, k, v, h, return_lse=True)
+    delta = flash_attention_bshd_delta(out, dout, h)
+    before = (dkv.launches, dq.launches)
+    got = flash_attention_bshd_backward(q, k, v, out, lse, dout, h)
+    torch.cuda.synchronize()
+    if (dkv.launches - before[0], dq.launches - before[1]) != (1, 1):
+        raise AssertionError(f"{what}: {dkv.launches - before[0]} dk/dv and "
+                             f"{dq.launches - before[1]} dq launches, not one each")
+    want = flash_attention_bshd_backward_reference(q, k, v, out, lse, dout, h)
+    err = {name: compare(f"{what} {name}", lambda: x, lambda: y, ATTN_BWD_TOL)
+           for name, x, y in zip(("dq", "dk", "dv"), got, want)}
+    del got, want
+    assert_reruns(f"{what} dk/dv", lambda: dkv(q, k, v, dout, lse, delta, h))
+    assert_reruns(f"{what} dq", lambda: dq(q, k, v, dout, lse, delta, h))
+    times = {
+        "dkv": (cuda_ms(lambda: dkv(q, k, v, dout, lse, delta, h)),
+                burst_ms(lambda: dkv(q, k, v, dout, lse, delta, h))),
+        "dq": (cuda_ms(lambda: dq(q, k, v, dout, lse, delta, h)),
+               burst_ms(lambda: dq(q, k, v, dout, lse, delta, h))),
+    }
+    whole_ms = cuda_ms(lambda: flash_attention_bshd_backward(q, k, v, out, lse, dout, h))
+    plain_ms = cuda_ms(lambda: flash_attention_bshd_backward_reference(q, k, v, out, lse, dout, h),
+                       warmup=1, iters=3)
+    library_ms = sdpa_backward_ms(q, k, v, dout, h)
+    q_bytes, k_bytes, stat_bytes = b * sq * inner * 2, b * sk * inner * 2, 2 * b * h * sq * 4
+    # dk/dv: S^T, dP^T, dV, dK (8 B Sq Sk H D); dq: S, dP, dQ (6 B Sq Sk H D). Bytes:
+    # q, k, v, dO, lse and delta read once, the kernel's gradients written once
+    bounds = {"dkv": bound(2 * q_bytes + 4 * k_bytes + stat_bytes, 8 * b * sq * sk * inner),
+              "dq": bound(3 * q_bytes + 2 * k_bytes + stat_bytes, 6 * b * sq * sk * inner)}
+    flops = {"dkv": 8 * b * sq * sk * inner, "dq": 6 * b * sq * sk * inner}
+    print(f"{what}: " + ", ".join(f"{n} max abs err {a:.3e} rel {r:.3e}" for n, (a, r) in err.items())
+          + f" (tol {ATTN_BWD_TOL}), one launch each, reruns bit-identical; "
+          + "; ".join(f"{n} kernel {ms:.4f} ms one call ({flops[n] / ms / 1e9:.1f} TFLOP/s, "
+                      f"{100 * bounds[n][0] / ms:.1f}% of its bound {bounds[n][0]:.4f} ms, "
+                      f"{bounds[n][1]}), {burst:.4f} ms a call over 10 back to back"
+                      for n, (ms, burst) in times.items())
+          + f"; whole backward with the plain delta {whole_ms:.4f} ms"
+          + (f" ({whole_ms / library_ms:.2f}x SDPA's backward alone, {library_ms:.4f} ms)"
+             if library_ms else "")
+          + f"; plain {plain_ms:.3f} ms")
+    out_records = []
+    for n in ("dkv", "dq"):
+        errors = [err["dq"]] if n == "dq" else [err["dk"], err["dv"]]
+        out_records.append(dict(
+            shape=[b, sq, sk, inner, h], strided=strided,
+            max_abs_err=max(a for a, _ in errors), rel_err=max(r for _, r in errors),
+            ms=times[n][0], burst_ms=times[n][1], tflops=flops[n] / times[n][0] / 1e9,
+            plain_ms=plain_ms, bound_ms=bounds[n][0], bound_by=bounds[n][1],
+            library_ms=library_ms, whole_ms=whole_ms))
+    del q, k, v, dout, out, lse, delta
+    return out_records
+
+
+def aura_backward_phase(device, wrappers: dict) -> tuple[dict, dict]:
+    """Phase 22: kernel C at head dim 256 against its plain backward.
+    Returns (records by kernel, numbers)."""
     from vision_ft_tpu_torch.tools.ptxas_report import ptxas_report
 
     phase("22 kernel C at head dim 256 (column halves), AuraFlow's shapes, vs the plain backward")
@@ -2042,65 +2176,10 @@ def aura_backward_phase(device, wrappers: dict) -> tuple[dict, dict]:
         raise AssertionError(f"ptxas reported no D = 256 kernel C: {sorted(ptxas)}")
     numbers["kernel_c_d256_ptxas"] = ptxas
     gen = torch.Generator(device=device).manual_seed(22)
-    dkv, dq = flash_attention_bshd_dkv, flash_attention_bshd_dq
-    for b, sq, sk, inner, h, strided in AURA_BWD_SHAPES:
-        if strided:  # column slices of one (B, S, 3 H*D) tensor: rows 3 H*D apart
-            q, k, v = torch.randn(b, sq, 3 * inner, device=device, generator=gen).bfloat16().split(
-                inner, dim=-1)
-        else:
-            q = torch.randn(b, sq, inner, device=device, generator=gen).bfloat16()
-            k, v = (torch.randn(b, sk, inner, device=device, generator=gen).bfloat16() for _ in "kv")
-        dout = torch.randn(b, sq, inner, device=device, generator=gen).bfloat16()
-        what = f"backward B={b} Sq={sq} Sk={sk} H={h} D={inner // h}{' strided' if strided else ''}"
-        out, lse = flash_attention_bshd(q, k, v, h, return_lse=True)
-        delta = flash_attention_bshd_delta(out, dout, h)
-        before = (dkv.launches, dq.launches)
-        got = flash_attention_bshd_backward(q, k, v, out, lse, dout, h)
-        torch.cuda.synchronize()
-        if (dkv.launches - before[0], dq.launches - before[1]) != (1, 1):
-            raise AssertionError(f"{what}: {dkv.launches - before[0]} dk/dv and "
-                                 f"{dq.launches - before[1]} dq launches, not one each")
-        want = flash_attention_bshd_backward_reference(q, k, v, out, lse, dout, h)
-        err = {name: compare(f"{what} {name}", lambda: x, lambda: y, ATTN_BWD_TOL)
-               for name, x, y in zip(("dq", "dk", "dv"), got, want)}
-        del got, want
-        assert_reruns(f"{what} dk/dv", lambda: dkv(q, k, v, dout, lse, delta, h))
-        assert_reruns(f"{what} dq", lambda: dq(q, k, v, dout, lse, delta, h))
-        times = {
-            "dkv": (cuda_ms(lambda: dkv(q, k, v, dout, lse, delta, h)),
-                    burst_ms(lambda: dkv(q, k, v, dout, lse, delta, h))),
-            "dq": (cuda_ms(lambda: dq(q, k, v, dout, lse, delta, h)),
-                   burst_ms(lambda: dq(q, k, v, dout, lse, delta, h))),
-        }
-        whole_ms = cuda_ms(lambda: flash_attention_bshd_backward(q, k, v, out, lse, dout, h))
-        plain_ms = cuda_ms(lambda: flash_attention_bshd_backward_reference(q, k, v, out, lse, dout, h),
-                           warmup=1, iters=3)
-        library_ms = sdpa_backward_ms(q, k, v, dout, h)
-        q_bytes, k_bytes, stat_bytes = b * sq * inner * 2, b * sk * inner * 2, 2 * b * h * sq * 4
-        # dk/dv: S^T, dP^T, dV, dK (8 B Sq Sk H D); dq: S, dP, dQ (6 B Sq Sk H D). Bytes:
-        # q, k, v, dO, lse and delta read once, the kernel's gradients written once
-        bounds = {"dkv": bound(2 * q_bytes + 4 * k_bytes + stat_bytes, 8 * b * sq * sk * inner),
-                  "dq": bound(3 * q_bytes + 2 * k_bytes + stat_bytes, 6 * b * sq * sk * inner)}
-        flops = {"dkv": 8 * b * sq * sk * inner, "dq": 6 * b * sq * sk * inner}
-        print(f"{what}: " + ", ".join(f"{n} max abs err {a:.3e} rel {r:.3e}" for n, (a, r) in err.items())
-              + f" (tol {ATTN_BWD_TOL}), one launch each, reruns bit-identical; "
-              + "; ".join(f"{n} kernel {ms:.4f} ms one call ({flops[n] / ms / 1e9:.1f} TFLOP/s, "
-                          f"{100 * bounds[n][0] / ms:.1f}% of its bound {bounds[n][0]:.4f} ms, "
-                          f"{bounds[n][1]}), {burst:.4f} ms a call over 10 back to back"
-                          for n, (ms, burst) in times.items())
-              + f"; whole backward {whole_ms:.4f} ms"
-              + (f" ({whole_ms / library_ms:.2f}x SDPA's backward alone, {library_ms:.4f} ms)"
-                 if library_ms else "")
-              + f"; plain {plain_ms:.3f} ms")
-        for n, name in (("dkv", "flash_attention_bshd_dkv"), ("dq", "flash_attention_bshd_dq")):
-            errors = [err["dq"]] if n == "dq" else [err["dk"], err["dv"]]
-            records[name].append(dict(
-                shape=[b, sq, sk, inner, h], strided=strided,
-                max_abs_err=max(a for a, _ in errors), rel_err=max(r for _, r in errors),
-                ms=times[n][0], burst_ms=times[n][1], tflops=flops[n] / times[n][0] / 1e9,
-                plain_ms=plain_ms, bound_ms=bounds[n][0], bound_by=bounds[n][1],
-                library_ms=library_ms, whole_ms=whole_ms))
-        del q, k, v, dout, out, lse, delta
+    for shape in AURA_BWD_SHAPES:
+        dkv_record, dq_record = bshd_backward_records(device, gen, *shape)
+        records["flash_attention_bshd_dkv"].append(dkv_record)
+        records["flash_attention_bshd_dq"].append(dq_record)
     gc.collect()
     torch.cuda.empty_cache()
     return records, numbers
@@ -3101,7 +3180,7 @@ FLUX_ATTN_SHAPES = [
     (1, 4464, 4464, 3072, 24),  # the 832x1216 bucket: 512 + 52 * 76, ragged tiles
     (1, 300, 300, 3072, 24),    # just past the 256-key gate
 ]
-FLUX_STEPS = 20
+FLUX_STEPS = 8  # 20 before the CogView4 phases joined the run
 FLUX_GUIDANCE = 3.5
 # one full-depth flux1-dev step (19 double + 38 single blocks) and whole requests, kernel B
 # against its plain version, bf16, random weights: each block's few-ulp differences carried
@@ -3137,9 +3216,7 @@ def flux_phase(device, wrappers: dict, profile: bool) -> dict:
     )
     from vision_ft_tpu_torch.models.text_encoders.tokenizer import CLIPTokenizer
     from vision_ft_tpu_torch.nn import LayerNorm
-    from vision_ft_tpu_torch.ops.flash_attention import (
-        flash_attention_bshd, flash_attention_bshd_reference, forward_config,
-    )
+    from vision_ft_tpu_torch.ops.flash_attention import forward_config
     from vision_ft_tpu_torch.tools import inference_cli
     from vision_ft_tpu_torch.tools import inference_server as srv
     from vision_ft_tpu_torch.train.auraflow import vae_encode_migration
@@ -3177,39 +3254,8 @@ def flux_phase(device, wrappers: dict, profile: bool) -> dict:
     print(f"kernel B at D = 128: {config_128['keys']}-key tiles, {config_128['stages']} stages, "
           f"{config_128['passes']} pass(es) over O's columns, Smem::kBytes = "
           f"{config_128['smem_bytes']} (a block may have 232448)")
-    for b, sq, sk, inner, h in FLUX_ATTN_SHAPES:
-        q = torch.randn(b, sq, inner, device=device, generator=gen).bfloat16()
-        k, v = (torch.randn(b, sk, inner, device=device, generator=gen).bfloat16() for _ in "kv")
-        what = f"attention B={b} Sq={sq} Sk={sk} H={h} D={inner // h}"
-        out, lse = flash_attention_bshd(q, k, v, h, return_lse=True)
-        ref, ref_lse = flash_attention_bshd_reference(q, k, v, h, return_lse=True)
-        abs_err, rel_err = compare(what, lambda: out, lambda: ref, ATTN_TOL)
-        lse_abs, lse_rel = compare(f"{what} lse", lambda: lse, lambda: ref_lse, ATTN_TOL)
-        assert_reruns(what, lambda: flash_attention_bshd(q, k, v, h, return_lse=True))
-        del out, lse, ref, ref_lse
-        ms = cuda_ms(lambda: flash_attention_bshd(q, k, v, h))
-        back_to_back_ms = burst_ms(lambda: flash_attention_bshd(q, k, v, h))
-        plain_ms = cuda_ms(lambda: flash_attention_bshd_reference(q, k, v, h), warmup=1, iters=3)
-        heads = [sdpa_heads(t, h) for t in (q, k, v)]
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*heads))
-        library_burst_ms = burst_ms(lambda: F.scaled_dot_product_attention(*heads))
-        flops = 4 * b * sq * sk * inner
-        bound_ms, bound_by = bound(2 * (2 * b * sq * inner + 2 * b * sk * inner), flops)
-        print(f"{what}: out max abs err {abs_err:.3e} rel {rel_err:.3e}, lse max abs err "
-              f"{lse_abs:.3e} rel {lse_rel:.3e} (tol {ATTN_TOL}), reruns bit-identical; kernel "
-              f"{ms:.4f} ms one call ({flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of "
-              f"the bound), {back_to_back_ms:.4f} ms a call over 10 back to back "
-              f"({flops / back_to_back_ms / 1e9:.1f} TFLOP/s); plain {plain_ms:.3f} ms; SDPA "
-              f"{library_ms:.4f} ms one call (kernel {ms / library_ms:.2f}x), {library_burst_ms:.4f} "
-              f"back to back; bound {bound_ms:.4f} ms ({bound_by})")
-        records["flash_attention_bshd"].append(dict(
-            shape=[b, sq, sk, inner, h], max_abs_err=abs_err, lse_max_abs_err=lse_abs, ms=ms,
-            burst_ms=back_to_back_ms, tflops=flops / ms / 1e9, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-            library_burst_ms=library_burst_ms))
-        del q, k, v, heads
-        gc.collect()
-        torch.cuda.empty_cache()
+    for shape in FLUX_ATTN_SHAPES:
+        records["flash_attention_bshd"].append(bshd_forward_record(device, gen, *shape))
 
     # -- 29: flux1-dev generate() at full width and depth ----------------------------------
     phase("29 Flux generate() at full width and depth (flux1-dev), bf16, seeded random weights")
@@ -3624,6 +3670,712 @@ def run_flux(checkout: Path, profile: bool) -> dict:
     return json.loads(lines[-1])["flux"]
 
 
+# the CogView4 phases (31-33, ``--cogview4``): kernel B at head dim 128 with 32 heads and
+# kernel C at head dim 128, CogView4's shapes (B, Sq, Sk, H*D, H): the caption, padded to a
+# multiple of 16 (16 tokens for a short prompt), before the image's 2x2 patches
+COGVIEW4_ATTN_SHAPES = [
+    (2, 4112, 4112, 4096, 32),  # a 1024 px request under CFG: 16 + 64 * 64, not a multiple of 64
+    (8, 4112, 4112, 4096, 32),  # a pool of 4 slots (both CFG halves of each)
+    (2, 2320, 2320, 4096, 32),  # 768 px under CFG: 16 + 48 * 48
+    (1, 4144, 4144, 4096, 32),  # a 48-token caption at 1024 px
+]
+COGVIEW4_BWD_SHAPES = [  # (B, Sq, Sk, H*D, H, strided): the config's step (batch 2), batch 1,
+    (2, 4112, 4112, 4096, 32, False),  # then the step's shape on column slices of one
+    (1, 4112, 4112, 4096, 32, False),  # (B, S, 3 H*D) tensor (rows 3 H*D apart)
+    (2, 4112, 4112, 4096, 32, True),
+]
+# kernel D's forward at the quant-compare tool's Linears (M, N, K): GLM's at two 16-token
+# prompts, the DiT's at 1024 px under CFG: the attention projections on the joint stream
+# (2 x 4112 rows), the feed-forward on the image (2 x 4096) and the text (2 x 16) streams
+COGVIEW4_NF4_SHAPES = [
+    (32, 4096, 4096),     # GLM q_proj, o_proj
+    (32, 256, 4096),      # GLM k_proj, v_proj: 2 kv heads of 128
+    (32, 27392, 4096),    # GLM gate_up_proj
+    (32, 4096, 13696),    # GLM down_proj
+    (8224, 4096, 4096),   # the DiT's to_q / to_k / to_v / to_out.0
+    (8192, 16384, 4096),  # ff.net.0.proj, image stream
+    (8192, 4096, 16384),  # ff.net.2, image stream
+    (32, 16384, 4096),    # ff.net.0.proj, text stream
+    (32, 4096, 16384),    # ff.net.2, text stream
+]
+COGVIEW4_STEPS = 8  # the requests' steps (the pipeline's default is 20)
+COGVIEW4_CFG = 3.5
+# one full-depth CFG denoise step (28 blocks) and whole requests, kernel B against its plain
+# version, bf16, random weights: each block's few-ulp differences carried on through both
+# streams; relative to the largest value of the latents (FLUX_STEP_TOL)
+COGVIEW4_STEP_TOL = 5e-2
+COGVIEW4_REDUCED = dict(num_layers=2)  # full width, for the checkpoint, server, CLI and tool
+COGVIEW4_REDUCED_GLM_LAYERS = 2
+COGVIEW4_POOL_STEPS = (4, 8)
+COGVIEW4_TRAINER_IMAGES = 8  # 1024x1024, batch 2: one epoch is 4 steps
+COGVIEW4_TRAINER_CAPTIONS = [
+    "a photo of a cat sitting on the sofa",
+    "a red car on the road in the mountains",
+    "a house in the mountains",
+    "a cat on the road",
+]
+COGVIEW4_PREVIEW_STEPS = 4
+
+
+def cogview4_phase(device, wrappers: dict, profile: bool, checkout: Path) -> dict:
+    """Phases 31-33, run in a process of its own (``--cogview4``): kernels
+    B and C at head dim 128 at CogView4's shapes against their plain
+    versions (C's registers and spills as ptxas reports them, its times
+    beside SDPA's backward); CogView4Model generate() at full width and
+    depth (launch counts, DeepCache, one CFG denoise step against the plain
+    versions, a pool of 4 slots against batch-1 generate()); at full width
+    and reduced depth the single-file checkpoint, the server's two
+    schedulers, the CLI with an NF4 denoiser and the quant-compare tool
+    with both groups in NF4 (kernel D); the Trainer on
+    configs/cogview4/text_to_image.yml. Returns the CogView4 paths' launch
+    counts, the kernels' records at these shapes and the numbers."""
+    import concurrent.futures
+    import dataclasses
+
+    import yaml
+
+    from vision_ft_tpu_torch.config import TrainConfig
+    from vision_ft_tpu_torch.models.cogview4 import config as cv_config
+    from vision_ft_tpu_torch.models.cogview4.pipeline import (
+        CogView4Model, convert_from_original_key,
+    )
+    from vision_ft_tpu_torch.models.text_encoders.glm import COGVIEW4_GLM_CONFIG
+    from vision_ft_tpu_torch.models.text_encoders.sentencepiece import (
+        SentencePieceModel, SentencePieceTokenizer,
+    )
+    from vision_ft_tpu_torch.modules.peft import load_peft_weight
+    from vision_ft_tpu_torch.modules.quant.nf4 import dequantize_4bit, quantize_4bit
+    from vision_ft_tpu_torch.ops.nf4_matmul import (
+        nf4_matmul_forward, nf4_matmul_reference, to_split_layout,
+    )
+    from vision_ft_tpu_torch.tools import cogview4_quant_compare, inference_cli
+    from vision_ft_tpu_torch.tools import inference_server as srv
+    from vision_ft_tpu_torch.tools.ptxas_report import ptxas_report
+    from vision_ft_tpu_torch.train.cogview4 import text_to_image
+    from vision_ft_tpu_torch.training.optimizer import global_norm
+    from vision_ft_tpu_torch.utils import safetensors as st
+
+    # ptxas's view of kernel C runs on the host while the card works
+    ptxas_job = concurrent.futures.ThreadPoolExecutor(1).submit(
+        ptxas_report, "flash_attention_bshd_bwd")
+    gen = torch.Generator(device=device).manual_seed(31)
+    numbers = {}
+    records = {"flash_attention_bshd": [], "flash_attention_bshd_dkv": [],
+               "flash_attention_bshd_dq": [], "nf4_matmul_forward": []}
+    path_launches = {name: 0 for name in wrappers}
+
+    def read_launches():
+        return {name: wrapper.launches for name, wrapper in wrappers.items()}
+
+    @contextlib.contextmanager
+    def on_path():
+        """A CogView4 path's launches, added to the process's path counts;
+        launches made to compare kernels with plain run outside."""
+        before = read_launches()
+        yield
+        for name, count in read_launches().items():
+            path_launches[name] += count - before[name]
+
+    def free(model):
+        for part in model._parts().values():
+            part.to("meta")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2**30
+
+    # -- 31: kernels B and C at head dim 128 ---------------------------------------------
+    phase("31 kernels B and C at head dim 128 (CogView4's 32 heads of 128) and kernel D at GLM's "
+          "and the DiT's widths vs plain (bf16)")
+    for shape in COGVIEW4_ATTN_SHAPES:
+        records["flash_attention_bshd"].append(bshd_forward_record(device, gen, *shape))
+    for shape in COGVIEW4_BWD_SHAPES:
+        dkv_record, dq_record = bshd_backward_records(device, gen, *shape)
+        records["flash_attention_bshd_dkv"].append(dkv_record)
+        records["flash_attention_bshd_dq"].append(dq_record)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # kernel D's forward on the split layout a quantized Linear holds on the card
+    for m, n, k in COGVIEW4_NF4_SHAPES:
+        w = torch.randn(n, k, device=device, generator=gen) * 0.02
+        packed, state = quantize_4bit(w, "nf4")
+        code, absmax = state["quant_map"], state["absmax"]
+        args = (to_split_layout(packed, (n, k)), code, absmax, (n, k), 64, True)
+        x = torch.randn(m, k, device=device, generator=gen).bfloat16()
+        what = f"4-bit matmul forward nf4 split (M={m}, N={n}, K={k})"
+        before = nf4_matmul_forward.launches
+        y = nf4_matmul_forward(x, *args)
+        if nf4_matmul_forward.launches != before + 1:
+            raise AssertionError(f"{what}: {nf4_matmul_forward.launches - before} launches")
+        abs_err, rel_err = compare(what, lambda: y, lambda: nf4_matmul_reference(x, *args),
+                                   NF4_FWD_TOL)
+        assert_reruns(what, lambda: nf4_matmul_forward(x, *args))
+        ms = cuda_ms(lambda: nf4_matmul_forward(x, *args))
+        plain_ms = cuda_ms(lambda: nf4_matmul_reference(x, *args), warmup=1, iters=5)
+        dense = dequantize_4bit(args[0], code, absmax, (n, k), 64, torch.bfloat16, True)
+        library_ms = cuda_ms(lambda: F.linear(x, dense))
+        flops = 2 * m * n * k
+        weight_bytes = args[0].numel() + absmax.numel() * 4 + code.numel() * 4
+        bound_ms, bound_by = bound(x.numel() * 2 + weight_bytes + m * n * 2, flops)
+        print(f"{what}: max abs err {abs_err:.3e} rel {rel_err:.3e} (tol {NF4_FWD_TOL}), one launch, "
+              f"reruns bit-identical; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+              f"{ms / library_ms:.2f}x cuBLAS), plain {plain_ms:.3f} ms, F.linear on a bf16 weight "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        records["nf4_matmul_forward"].append(dict(
+            shape=[m, n, k], max_abs_err=abs_err, rel_err=rel_err, ms=ms,
+            tflops=flops / ms / 1e9, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library_ms))
+        del w, packed, args, x, y, dense
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ptxas = {}
+    for kernel, info in sorted(ptxas_job.result(timeout=600).items()):
+        if "flash_bwd_dkv_bshd_kernelILi128E" in kernel:
+            ptxas["dkv"] = info
+        elif "flash_bwd_dq_bshd_kernelILi128E" in kernel:
+            ptxas["dq"] = info
+    for which, info in sorted(ptxas.items()):
+        print(f"kernel C {which} at D = 128, ptxas: {info.get('registers')} registers a thread, "
+              f"{info.get('stack')} bytes of stack, {info.get('spill_stores')} bytes of spill "
+              f"stores, {info.get('spill_loads')} of spill loads, notes {info.get('notes')}")
+    if set(ptxas) != {"dkv", "dq"}:
+        raise AssertionError(f"ptxas reported no D = 128 kernel C: {sorted(ptxas)}")
+    numbers["kernel_c_d128_ptxas"] = ptxas
+
+    # -- 32: generate() at full width and depth -------------------------------------------
+    phase("32 CogView4 generate() at full width and depth, bf16, seeded random weights")
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_cogview4_"))
+    try:
+        (work / "tokenizer.model").write_bytes(lumina_vocab())
+        tokenizer = SentencePieceTokenizer(SentencePieceModel.from_bytes(lumina_vocab()),
+                                           template="none")
+
+        class Model(CogView4Model):
+            """Keeps the last latents generate() decoded, for the checks."""
+
+            def decode_image(self, latents):
+                self.last_latents = latents.clone()
+                return super().decode_image(latents)
+
+        torch.cuda.reset_peak_memory_stats()
+        model = Model(cv_config.CogView4Config(checkpoint_path="", dtype="bfloat16"),
+                      tokenizer=tokenizer)
+        start = time.perf_counter()
+        model.init_params(torch.Generator(device=device).manual_seed(0))
+        torch.cuda.synchronize()
+        den = model.denoiser
+        counts = [sum(p.numel() for p in part.parameters()) for part in model._parts().values()]
+        weight_gb = sum(p.numel() * p.element_size() for part in model._parts().values()
+                        for p in part.parameters()) / 1e9
+        n_blocks = len(den.transformer_blocks)
+        glm = model.text_encoder.model.config
+        numbers.update(init_s=time.perf_counter() - start, weight_gb=weight_gb,
+                       denoiser_params=counts[0], vae_params=counts[1],
+                       text_encoder_params=counts[2])
+        print(f"init on the card: {numbers['init_s']:.1f} s; DiT {counts[0] / 1e9:.3f} B, VAE "
+              f"{counts[1] / 1e6:.1f} M, GLM-4 {counts[2] / 1e9:.3f} B parameters, {weight_gb:.1f} GB "
+              f"of bf16 weights; DiT: {n_blocks} blocks, {den.inner_dim} wide, "
+              f"{den.config.num_attention_heads} heads of {den.config.attention_head_dim}; GLM: "
+              f"{glm.num_hidden_layers} layers, hidden {glm.hidden_size}, "
+              f"{glm.num_attention_heads} heads over {glm.num_key_value_heads} kv heads")
+
+        def expected(steps, interval=None, cache_depth=None):
+            """Kernel B's launches of one request from the module tree and
+            generate()'s DeepCache rule: each block one attention call
+            (both CFG halves in one batch); GLM's attention is the plain
+            formula."""
+            shallow = cache_depth if cache_depth is not None else max(1, n_blocks // 4)
+            launches, have_delta = 0, False
+            for i in range(steps):
+                launches += shallow if interval and i % interval != 0 and have_delta else n_blocks
+                have_delta = have_delta or bool(interval)
+            return launches
+
+        def request(name, want, **kwargs):
+            torch.cuda.reset_peak_memory_stats()
+            before = read_launches()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            with on_path():
+                images = model.generate(**kwargs)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+            launches = {k: v - before[k] for k, v in read_launches().items() if v != before[k]}
+            peak = peak_gib()
+            latents, arrays = model.last_latents, [np.asarray(im) for im in images]
+            print(f"request {name}: {len(images)} image(s) {images[0].size}, "
+                  f"{kwargs['num_inference_steps']} steps, CFG {kwargs['cfg_scale']}, "
+                  f"{seconds:.3f} s, peak {peak:.2f} GiB; launches {launches}, expected kernel B "
+                  f"{want}")
+            if not torch.isfinite(latents).all() or any(a.std() == 0 for a in arrays):
+                raise AssertionError(f"request {name}: latents not finite, or a constant image")
+            if images[0].size != (kwargs["width"], kwargs["height"]) or latents.shape[1:] != (
+                    kwargs["height"] // 8, kwargs["width"] // 8, 16):
+                raise AssertionError(f"request {name}: wrong size {images[0].size}, {latents.shape}")
+            if launches != {"flash_attention_bshd": want}:
+                raise AssertionError(f"request {name}: launch counts {launches} != B {want}")
+            return seconds, latents, arrays, peak
+
+        base = dict(prompt="a photo of a cat sitting on the sofa", negative_prompt="blurry",
+                    width=1024, height=1024, num_inference_steps=COGVIEW4_STEPS,
+                    cfg_scale=COGVIEW4_CFG, seed=1234)
+        runs = {}
+        for name, kwargs in (("1 (cold)", base),
+                             ("2", dict(base, prompt="a red car on the road in the mountains",
+                                        seed=99)),
+                             ("3 (= 1, warm)", base)):
+            runs[name] = request(name, expected(COGVIEW4_STEPS), **kwargs)
+        first, again = runs["1 (cold)"], runs["3 (= 1, warm)"]
+        if not (torch.equal(first[1], again[1])
+                and all(np.array_equal(x, y) for x, y in zip(first[2], again[2]))):
+            raise AssertionError("request 3 (request 1 repeated, same seed) differs from it")
+        seconds = [run[0] for run in runs.values()]
+        numbers.update(first_request_s=seconds[0], warm_request_s=seconds[1:],
+                       peak_gib=max(run[3] for run in runs.values()),
+                       request_launches=expected(COGVIEW4_STEPS))
+        print(f"s/request at 1024x1024, {COGVIEW4_STEPS} steps, CFG {COGVIEW4_CFG}: {seconds[0]:.3f} "
+              f"cold (the first), {seconds[1]:.3f} and {seconds[2]:.3f} warm; peak "
+              f"{numbers['peak_gib']:.2f} GiB; kernel B {expected(COGVIEW4_STEPS)} launches a request; "
+              f"request 3 == request 1, bit for bit")
+        cached = request("4 (deep_cache_interval 2)", expected(COGVIEW4_STEPS, interval=2),
+                         **dict(base, deep_cache_interval=2))
+        if torch.equal(cached[1], first[1]):
+            raise AssertionError("the DeepCache request equals request 1: the option did nothing")
+        numbers.update(deep_cache_request_s=cached[0],
+                       deep_cache_launches=expected(COGVIEW4_STEPS, interval=2))
+        print(f"DeepCache request {cached[0]:.3f} s, kernel B {numbers['deep_cache_launches']} launches")
+
+        # one CFG denoise step at 1024 px, kernel B against its plain version
+        g32 = torch.Generator(device=device).manual_seed(32)
+        step_latents = torch.randn(1, 128, 128, 16, device=device, generator=g32).bfloat16()
+        sizes = [torch.full((2, 2), 1024.0, device=device)] * 2 + [torch.zeros(2, 2, device=device)]
+
+        def encode(m):
+            with torch.inference_mode():
+                out = m.text_encoder.encode_prompts("a photo of a cat", "blurry",
+                                                    use_negative_prompts=True)
+                return torch.cat([out.positive_embeddings, out.negative_embeddings]).to(m.dtype)
+
+        def denoise_step(m, emb, latents=step_latents):
+            with torch.inference_mode():
+                return m._denoise_step(latents, 800.0, 0.8, 0.75, emb, *sizes, COGVIEW4_CFG,
+                                       do_cfg=True)
+
+        def velocity(m, emb):
+            # the step's guided velocity, as _denoise_step takes it
+            t = torch.full((2,), float(np.float32(800.0)), device=device).bfloat16()
+            with torch.inference_mode():
+                v = m.denoiser(torch.cat([step_latents, step_latents]), emb, t, *sizes)
+            positive, negative = v.chunk(2)
+            return negative.float() + COGVIEW4_CFG * (positive - negative).float()
+
+        emb = encode(model)
+        step_ms = cuda_ms(lambda: denoise_step(model, emb), warmup=1, iters=5)
+        before = read_launches()["flash_attention_bshd"]
+        kernel_step = denoise_step(model, emb)
+        step_launches = read_launches()["flash_attention_bshd"] - before
+        kernel_velocity = velocity(model, emb)
+        with plain_versions():
+            plain_step, plain_velocity = denoise_step(model, emb), velocity(model, emb)
+        errors = {}
+        for what, got, want in (("velocity", kernel_velocity, plain_velocity),
+                                ("latents", kernel_step, plain_step)):
+            errors[what] = (got.float() - want.float()).abs().max().item() / \
+                want.float().abs().max().item()
+        numbers.update(step_ms=step_ms, step_velocity_err=errors["velocity"],
+                       step_latents_err=errors["latents"], text_tokens=emb.shape[1])
+        print(f"one CFG denoise step at 1024 px (batch 2, {emb.shape[1]} + 4096 joint tokens): "
+              f"{step_ms:.1f} ms; kernel B launches {step_launches} (the module tree: {n_blocks}); "
+              f"against the plain version of B: guided velocity {errors['velocity']:.3e}, the "
+              f"step's latents {errors['latents']:.3e} of their largest value "
+              f"(tol {COGVIEW4_STEP_TOL})")
+        if step_launches != n_blocks:
+            raise AssertionError(f"the denoise step launched kernel B {step_launches} times")
+        if max(errors.values()) > COGVIEW4_STEP_TOL:
+            raise AssertionError("the kernel's denoise step and the plain one disagree")
+        if profile:
+            kinds = profile_steps(lambda: denoise_step(model, emb), step_ms,
+                                  "CogView4 CFG denoise step")
+            print_kernel_ms(kinds, ("kernel B",), "CogView4 CFG denoise step")
+            numbers["traced_step"] = {kind: [round(ms, 4), n] for kind, (ms, n) in kinds.items()}
+        del emb, kernel_step, plain_step, kernel_velocity, plain_velocity
+
+        # a pool of 4 slots at full depth through the server's continuous scheduler
+        served = type("Served", (), {"model": model, "_family": "cogview4"})()
+        sched = srv.ContinuousScheduler(served, height=1024, width=1024, num_slots=SERVE_SLOTS,
+                                        max_steps=max(COGVIEW4_POOL_STEPS))
+        kept, ticks = tap_pool(sched, wrappers)
+        server, url = serving(sched)
+        pool = [dict(prompt="a photo of a cat sitting on the sofa", negative_prompt="", seed=301,
+                     inference_steps=COGVIEW4_POOL_STEPS[0], cfg_scale=COGVIEW4_CFG),
+                dict(prompt="a red car on the road", negative_prompt="blurry", seed=302,
+                     inference_steps=COGVIEW4_POOL_STEPS[1], cfg_scale=5.0),
+                dict(prompt="a house in the mountains", negative_prompt="", seed=303,
+                     inference_steps=COGVIEW4_POOL_STEPS[0], cfg_scale=1.0),
+                dict(prompt="a cat in the house", negative_prompt="blurry", seed=304,
+                     inference_steps=COGVIEW4_POOL_STEPS[1], cfg_scale=COGVIEW4_CFG)]
+        pool = [dict(body, width=1024, height=1024) for body in pool]
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with on_path():
+                replies, seconds = post_all(url, pool, delays=[0.0, 0.3, 0.6, 0.9])
+        finally:
+            server.shutdown()
+            server.server_close()
+            sched.close()
+        numbers["pool_s"], numbers["pool_peak_gib"] = seconds, peak_gib()
+        if [webp_size(data) for data, _ in replies] != [(1024, 1024)] * 4:
+            raise AssertionError("CogView4 pool: a reply of another size")
+        print(f"continuous scheduler at full depth: 4 staggered requests ({COGVIEW4_POOL_STEPS} "
+              f"steps, CFG 3.5, 5, 1, 3.5) in a pool of {SERVE_SLOTS} in {seconds:.3f} s, peak "
+              f"{numbers['pool_peak_gib']:.2f} GiB")
+        numbers["pool"] = tick_report("CogView4 pool", ticks, {"flash_attention_bshd": n_blocks})
+        with on_path():
+            numbers["pool_errors"] = hold_pool("CogView4 pool", kept, model, [dict(
+                prompt=r["prompt"], negative_prompt=r["negative_prompt"], width=1024, height=1024,
+                num_inference_steps=r["inference_steps"], cfg_scale=r["cfg_scale"],
+                seed=r["seed"]) for r in pool])
+        free(model)
+        del model, den, served, sched, kept, ticks
+
+        # -- 33: checkpoint, server, CLI and quant tool at reduced depth; the Trainer ----------
+        phase("33 the CogView4 single-file checkpoint, server, CLI (NF4) and quant-compare tool "
+              "at full width and reduced depth; the Trainer on configs/cogview4/text_to_image.yml")
+        glm_reduced = dataclasses.replace(COGVIEW4_GLM_CONFIG,
+                                          num_hidden_layers=COGVIEW4_REDUCED_GLM_LAYERS)
+        reduced = cv_config.CogView4Config(checkpoint_path="", dtype="bfloat16",
+                                           denoiser=cv_config.DenoiserConfig(**COGVIEW4_REDUCED))
+        small = Model(reduced, tokenizer=tokenizer, text_encoder_config=glm_reduced)
+        small.init_params(torch.Generator(device=device).manual_seed(33))
+        step_before = denoise_step(small, encode(small))
+        written = small.state_dict()
+        path = work / "cogview4.safetensors"
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        st.save_file(written, path)
+        numbers["checkpoint_write_s"] = time.perf_counter() - start
+        numbers["checkpoint_bytes"] = path.stat().st_size
+        start = time.perf_counter()
+        loaded = Model.from_checkpoint(reduced.model_copy(update={"checkpoint_path": str(path)}),
+                                       tokenizer=tokenizer, text_encoder_config=glm_reduced)
+        torch.cuda.synchronize()
+        numbers["checkpoint_load_s"] = time.perf_counter() - start
+        read = loaded.state_dict()
+        if set(read) != set(written) or not all(torch.equal(written[k], read[k]) for k in read):
+            raise AssertionError("the checkpoint loaded back differs from the model")
+        if not torch.equal(step_before, denoise_step(loaded, encode(loaded))):
+            raise AssertionError("the checkpoint's denoise step differs")
+        print(f"single-file checkpoint (full width; {COGVIEW4_REDUCED['num_layers']} blocks, "
+              f"{COGVIEW4_REDUCED_GLM_LAYERS} GLM layers): {numbers['checkpoint_bytes']} bytes in "
+              f"the original keys (diffusion_model., text_encoder., vae.), written in "
+              f"{numbers['checkpoint_write_s']:.2f} s, loaded by from_checkpoint in "
+              f"{numbers['checkpoint_load_s']:.2f} s; every tensor and the denoise step bit-identical")
+        free(loaded)
+        free(small)
+        del loaded, small, written, read, step_before
+
+        # the server's, the CLI's and the tool's model at the file's depth (a YAML names the
+        # DiT's; none names GLM's, and the CLI and the tool name only the file)
+        build = CogView4Model.__init__
+
+        def at_file_depth(self, config, tokenizer=None, **kwargs):
+            build(self, config.model_copy(update={"denoiser": reduced.denoiser}),
+                  tokenizer=tokenizer, text_encoder_config=glm_reduced)
+
+        CogView4Model.__init__ = at_file_depth
+        try:
+            write_yaml(work / "cogview4.yml", {"checkpoint_path": str(path), "dtype": "bfloat16",
+                                               "denoiser": reduced.denoiser.model_dump()})
+            start = time.perf_counter()
+            served = srv.T2IModel(str(work / "cogview4.yml"), None, str(work), family="cogview4")
+            srv.prepare_kernels("cogview4", device)
+            numbers["serve_load_s"] = time.perf_counter() - start
+            blocks = COGVIEW4_REDUCED["num_layers"]
+            batcher = srv.MicroBatcher(served, max_batch=4, window_ms=2000)
+            server, url = serving(batcher)
+            window = [dict(prompt=p, negative_prompt="", width=1024, height=1024,
+                           inference_steps=COGVIEW4_POOL_STEPS[0], cfg_scale=COGVIEW4_CFG)
+                      for p in ("a photo of a cat", "a red car on the road")]
+            before = read_launches()
+            try:
+                with on_path():
+                    replies, seconds = post_all(url, window)
+            finally:
+                server.shutdown()
+                server.server_close()
+            launched = read_launches()["flash_attention_bshd"] - before["flash_attention_bshd"]
+            numbers["window_s"] = seconds
+            if [webp_size(data) for data, _ in replies] != [(1024, 1024)] * 2 or \
+                    launched != COGVIEW4_POOL_STEPS[0] * blocks:
+                raise AssertionError(f"window scheduler: replies {len(replies)}, B launched {launched}")
+            print(f"server from {path.name} via a YAML (load {numbers['serve_load_s']:.2f} s): window "
+                  f"scheduler, 2 concurrent compatible requests in one generate() of batch 2 in "
+                  f"{seconds:.3f} s, kernel B {launched} launches ({COGVIEW4_POOL_STEPS[0]} steps x "
+                  f"{blocks} blocks)")
+            sched = srv.ContinuousScheduler(served, height=1024, width=1024, num_slots=2,
+                                            max_steps=max(COGVIEW4_POOL_STEPS))
+            server, url = serving(sched)
+            try:
+                with on_path():
+                    replies, seconds = post_all(url, [dict(body, inference_steps=n) for body, n in
+                                                      zip(window, COGVIEW4_POOL_STEPS)],
+                                                delays=[0.0, 0.3])
+            finally:
+                server.shutdown()
+                server.server_close()
+                sched.close()
+            if [webp_size(data) for data, _ in replies] != [(1024, 1024)] * 2:
+                raise AssertionError("the continuous scheduler's replies")
+            numbers["continuous_s"] = seconds
+            print(f"continuous scheduler (2 slots): 2 staggered requests of "
+                  f"{COGVIEW4_POOL_STEPS} steps in {seconds:.3f} s")
+            free(served.model)
+            del served, sched
+
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            start = time.perf_counter()
+            with on_path():
+                before = read_launches()
+                saved = inference_cli.main([
+                    "--family", "cogview4", "--checkpoint-path", str(path), "--tokenizer-path",
+                    str(work), "--width", "1024", "--height", "1024", "--num-inference-steps",
+                    str(COGVIEW4_POOL_STEPS[0]), "--cfg-scale", str(COGVIEW4_CFG), "--quant-type",
+                    "bnb_nf4", "--save-path", str(work / "cli.webp")])
+                cli = {k: v - before[k] for k, v in read_launches().items() if v != before[k]}
+            numbers["cli_s"], numbers["cli_peak_gib"] = time.perf_counter() - start, peak_gib()
+            if saved != [str(work / "cli.webp")] or Image.open(saved[0]).size != (1024, 1024):
+                raise AssertionError(f"the CLI saved {saved}")
+            # the denoiser's Linears kernel D takes, a forward: text_proj, the time and size
+            # embedders' 4, a block's adaLN, 4 attention projections and 2 FF Linears on
+            # both streams, the final adaLN; patch_embed.proj (K = 64) and proj_out (N = 64)
+            # are left unquantized by the CLI (kernel D does not take them)
+            d_per_forward = 1 + 4 + 9 * blocks + 1
+            want_cli = {"flash_attention_bshd": COGVIEW4_POOL_STEPS[0] * blocks,
+                        "nf4_matmul_forward": COGVIEW4_POOL_STEPS[0] * d_per_forward}
+            print(f"CLI --family cogview4 --quant-type bnb_nf4 (load, quantize, 1024 px, "
+                  f"{COGVIEW4_POOL_STEPS[0]} steps, CFG {COGVIEW4_CFG}, webp): {numbers['cli_s']:.2f} s, "
+                  f"peak {numbers['cli_peak_gib']:.2f} GiB; launches {cli} (expected {want_cli})")
+            if cli != want_cli:
+                raise AssertionError(f"the CLI launched {cli}, expected {want_cli}")
+
+            torch.cuda.reset_peak_memory_stats()
+            with on_path():
+                before = read_launches()
+                report = cogview4_quant_compare.main([
+                    "--model_path", str(path), "--tokenizer_path", str(work), "--text_encoder",
+                    "bnb_nf4", "--denoiser", "bnb_nf4", "--height", "1024", "--width", "1024",
+                    "--num_inference_steps", str(COGVIEW4_POOL_STEPS[0]), "--output_dir",
+                    str(work / "quant")])
+                tool = {k: v - before[k] for k, v in read_launches().items() if v != before[k]}
+            # GLM: one encode of the prompt and the negative, 6 Linears a layer; the DiT: a
+            # block's 4 projections and its 2 FF Linears on both streams, one CFG forward a step
+            want_tool = {"flash_attention_bshd": COGVIEW4_POOL_STEPS[0] * blocks,
+                         "nf4_matmul_forward": 6 * COGVIEW4_REDUCED_GLM_LAYERS
+                         + COGVIEW4_POOL_STEPS[0] * 8 * blocks}
+            numbers["quant_compare"] = report
+            print(f"quant-compare tool (GLM and DiT groups in NF4): {report}; launches {tool} "
+                  f"(expected {want_tool})")
+            if tool != want_tool or report["nf4_launches"] != want_tool["nf4_matmul_forward"]:
+                raise AssertionError(f"the quant-compare tool launched {tool}, expected {want_tool}")
+            if not (work / "quant" / f"{report['run']}.webp").exists():
+                raise AssertionError("the quant-compare tool wrote no image")
+        finally:
+            CogView4Model.__init__ = build
+        gc.collect()
+        torch.cuda.empty_cache()
+        path.unlink()
+
+        # the Trainer on configs/cogview4/text_to_image.yml at full width and depth
+        folder = work / "images"
+        folder.mkdir()
+        img_rng = np.random.default_rng(33)
+        for i in range(COGVIEW4_TRAINER_IMAGES):
+            smooth = img_rng.integers(0, 255, (32, 32, 3), dtype=np.uint8)
+            Image.fromarray(smooth).resize((1024, 1024), Image.BILINEAR).save(folder / f"{i}.png")
+            (folder / f"{i}.txt").write_text(COGVIEW4_TRAINER_CAPTIONS[i % len(COGVIEW4_TRAINER_CAPTIONS)])
+        (work / "preview.yml").write_text(yaml.safe_dump([dict(
+            prompt="a photo of a cat", negative_prompt="blurry", height=1024, width=1024,
+            cfg_scale=COGVIEW4_CFG, num_steps=COGVIEW4_PREVIEW_STEPS, seed=0)]))
+        raw = yaml.safe_load((checkout / "configs/cogview4/text_to_image.yml").read_text())
+        raw["model"].update(checkpoint_path=str(work / "absent.safetensors"))
+        raw["dataset"].update(folder=str(folder), num_workers=0)
+        raw["num_train_epochs"] = 1
+        raw["saving"]["callbacks"][0]["save_dir"] = str(work / "lora")
+        raw["preview"] = {"strategy": {"per_epochs": 1, "per_steps": None},
+                          "callbacks": [{"type": "local", "save_dir": str(work / "preview")}],
+                          "data": {"path": str(work / "preview.yml")}}
+        config = TrainConfig.model_validate(raw, strict=True)
+        trainer = text_to_image.build_trainer(config, tokenizer=tokenizer)
+        steps, preview_launches = [], []
+        preview_step = trainer.model.preview_step
+
+        def counted_preview(*args, **kwargs):
+            before = read_launches()
+            out = preview_step(*args, **kwargs)
+            preview_launches.append({k: v - before[k] for k, v in read_launches().items()
+                                     if v != before[k]})
+            return out
+
+        trainer.model.preview_step = counted_preview
+        prepare_optimizer = trainer.prepare_optimizer
+
+        def prepare_and_time():
+            prepare_optimizer()
+            inner = trainer._step
+
+            def timed_step(state, batch, generator):
+                torch.cuda.synchronize()
+                before = read_launches()
+                start = time.perf_counter()
+                state, metrics = inner(state, batch, generator)
+                loss = metrics["train/loss"].item()
+                torch.cuda.synchronize()
+                steps.append((time.perf_counter() - start, loss,
+                              {k: v - before[k] for k, v in read_launches().items()
+                               if v != before[k]}, batch))
+                return state, metrics
+
+            trainer._step = timed_step
+
+        trainer.prepare_optimizer = prepare_and_time
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        with on_path():
+            trainer.train()
+        torch.cuda.synchronize()
+        numbers.update(train_s=time.perf_counter() - start, train_peak_gib=peak_gib(),
+                       losses=[loss for _, loss, _, _ in steps],
+                       run_step_ms=[t * 1e3 for t, *_ in steps])
+        n_blocks = len(trainer.model.model.denoiser.transformer_blocks)
+        per_step = {"flash_attention_bshd": n_blocks, "flash_attention_bshd_dkv": n_blocks,
+                    "flash_attention_bshd_dq": n_blocks}
+        print(f"Trainer on configs/cogview4/text_to_image.yml ({config.optimizer.name} "
+              f"{config.optimizer.args}, LoRA rank {config.peft.config.rank} on "
+              f"{config.peft.include_keys}, batch {config.dataset['batch_size']}, gradient "
+              f"checkpointing {config.trainer.gradient_checkpointing}; seeded weights, one epoch "
+              f"of {COGVIEW4_TRAINER_IMAGES} 1024x1024 images): {numbers['train_s']:.1f} s; "
+              f"{len(steps)} steps over batches {[tuple(b['pixel_values'].shape) for *_, b in steps]}, "
+              f"text lengths {[b['input_ids'].shape[1] for *_, b in steps]}; losses "
+              f"{numbers['losses']}; ms a step {[round(t * 1e3, 1) for t, *_ in steps]} (host clock, "
+              f"synchronized, step 1 cold); peak {numbers['train_peak_gib']:.2f} GiB; launches a "
+              f"step {steps[0][2]} (expected {per_step}); the preview's {preview_launches}")
+        if len(steps) != COGVIEW4_TRAINER_IMAGES // 2 or not all(np.isfinite(numbers["losses"])):
+            raise AssertionError(f"the Trainer took {len(steps)} steps, losses {numbers['losses']}")
+        bad = [launches for _, _, launches, _ in steps if launches != per_step]
+        if bad:
+            raise AssertionError(f"Trainer steps launched {bad[:2]}, expected {per_step} each")
+        if preview_launches != [{"flash_attention_bshd": COGVIEW4_PREVIEW_STEPS * n_blocks}]:
+            raise AssertionError(f"the preview launched {preview_launches}")
+        previews = sorted((work / "preview").glob("*"))
+        if len(previews) != 1 or Image.open(previews[0]).size != (1024, 1024):
+            raise AssertionError(f"preview images {previews}")
+
+        # warm steps on one batch (traced under --profile)
+        batch = steps[-1][3]
+        warm = []
+        for seed in (5, 6, 7):
+            trainer.state, _ = trainer._step(trainer.state, batch,
+                                             torch.Generator(device=device).manual_seed(seed))
+            warm.append(steps[-1][0] * 1e3)
+        numbers["warm_step_ms"] = warm
+        if profile:
+            def train_step():
+                trainer.state, _ = trainer._step(trainer.state, batch,
+                                                 torch.Generator(device=device).manual_seed(8))
+
+            kinds = profile_steps(train_step, statistics.median(warm), "CogView4 Trainer step")
+            print_kernel_ms(kinds, ("kernel B", "kernel C dk/dv", "kernel C dq"),
+                            "CogView4 Trainer step")
+            numbers["traced_train_step"] = {kind: [round(ms, 4), n] for kind, (ms, n) in kinds.items()}
+
+        # a depth-reduced step (full width) of the trained model, kernels vs plain versions
+        den = trainer.model.model.denoiser
+        full = den.transformer_blocks
+        den.transformer_blocks = torch.nn.ModuleDict(
+            {str(i): full[str(i)] for i in range(COGVIEW4_REDUCED["num_layers"])})
+        params = [p for k, p in trainer.trainable.items()
+                  if int(k.split(".")[2]) < COGVIEW4_REDUCED["num_layers"]]
+
+        def loss_and_grads():
+            loss, _ = trainer.model.loss_fn(batch, torch.Generator(device=device).manual_seed(9))
+            return loss.item(), torch.autograd.grad(loss, params)
+
+        try:
+            before = read_launches()
+            kernel_loss, kernel_grads = loss_and_grads()
+            used = {k: v - before[k] for k, v in read_launches().items() if v != before[k]}
+            with plain_versions():
+                plain_loss, plain_grads = loss_and_grads()
+        finally:
+            den.transformer_blocks = full
+        kernel_norm, plain_norm = global_norm(kernel_grads).item(), global_norm(plain_grads).item()
+        loss_rel = abs(kernel_loss - plain_loss) / abs(plain_loss)
+        norm_rel = abs(kernel_norm - plain_norm) / abs(plain_norm)
+        blocks = COGVIEW4_REDUCED["num_layers"]
+        print(f"depth-reduced step ({blocks} blocks, full width), kernels vs plain versions: loss "
+              f"{kernel_loss:.6f} vs {plain_loss:.6f} (rel {loss_rel:.3e}, tol {STEP_LOSS_TOL}); "
+              f"grad_norm {kernel_norm:.6f} vs {plain_norm:.6f} (rel {norm_rel:.3e}, tol "
+              f"{STEP_GRAD_NORM_TOL}); launches {used}")
+        if used != {k: blocks for k in per_step}:
+            raise AssertionError(f"the reduced step's launches: {used}")
+        if not (loss_rel <= STEP_LOSS_TOL and norm_rel <= STEP_GRAD_NORM_TOL):
+            raise AssertionError("the CogView4 trainer's kernel step and the plain step disagree")
+        numbers.update(reduced_loss_rel=loss_rel, reduced_grad_norm_rel=norm_rel)
+        saved = sorted((work / "lora").glob("*.safetensors"))
+        lora_state = st.load_file(saved[-1]) if saved else {}
+        # the saved LoRA (last: loading it replaces the adapters the Trainer's state holds)
+        adapters = trainer.model.get_state_dict_to_save()
+        if len(saved) != 1 or set(lora_state) != set(adapters) or not all(
+                k.startswith("diffusion_model.") for k in lora_state):
+            raise AssertionError(f"saved LoRA {saved}: {len(lora_state)} keys")
+        lora_path = work / "lora_again.safetensors"
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        st.save_file(adapters, lora_path)
+        numbers["lora_write_s"] = time.perf_counter() - start
+        numbers["lora_bytes"] = lora_path.stat().st_size
+        start = time.perf_counter()
+        load_peft_weight(trainer.model.get_params(), {
+            convert_from_original_key(k): v for k, v in st.load_file(lora_path).items()})
+        torch.cuda.synchronize()
+        numbers["lora_load_s"] = time.perf_counter() - start
+        back = trainer.model.get_state_dict_to_save()
+        if set(back) != set(adapters) or not all(torch.equal(back[k], adapters[k]) for k in back):
+            raise AssertionError("the LoRA file loaded back differs from the adapters saved")
+        print(f"warm steps {[round(t, 1) for t in warm]} ms at batch 2, 1024 px; the Trainer saved "
+              f"{saved[-1].name}: {len(lora_state)} keys in ComfyUI names; the adapters again: "
+              f"{numbers['lora_bytes']} bytes written in {numbers['lora_write_s']:.3f} s, loaded "
+              f"into the model in {numbers['lora_load_s']:.3f} s, bit-identical")
+
+        free(trainer.model.model)
+        del trainer, den, full, params, kernel_grads, plain_grads, batch, steps
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": path_launches, "records": records, "numbers": numbers}
+
+
+def run_cogview4(checkout: Path, profile: bool) -> dict:
+    """``chip_smoke.py --cogview4`` in a process of its own (a fresh card):
+    its lines, then its launch counts, records and numbers."""
+    proc = subprocess.run(
+        [sys.executable, str(checkout / "chip_smoke.py"), "--cogview4",
+         *(["--profile"] if profile else [])],
+        cwd=checkout, capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]))
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"chip_smoke.py --cogview4 failed (exit {proc.returncode}): "
+                             f"{proc.stderr[-4000:]}")
+    return json.loads(lines[-1])["cogview4"]
+
+
 def main() -> None:
     args = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     args.add_argument("--profile", action="store_true",
@@ -3663,6 +4415,12 @@ def main() -> None:
                            "width, the Flux checkpoint, server and CLI, the AuraFlow VAE-encode "
                            "migration) after building their libraries; prints their launch "
                            "counts, records and numbers as one JSON line, not the ok line")
+    args.add_argument("--cogview4", action="store_true",
+                      help="run phases 31-33 alone (kernels B and C at D 128 at CogView4's shapes, "
+                           "CogView4 generate() at full width, its checkpoint, server, CLI, "
+                           "quant-compare tool and Trainer) after building their libraries; "
+                           "prints their launch counts, records and numbers as one JSON line, not "
+                           "the ok line")
     args.add_argument("--ln-probe-costs", action="store_true",
                       help="time kernels A and L and their library calls (one call, back to "
                            "back, host us, traced) in this process alone; prints one JSON line, "
@@ -3789,6 +4547,14 @@ def main() -> None:
         _build.build_cuda_libraries(["flash_attention_bshd", "layer_norm"])
         result = flux_phase(device, wrappers, options.profile)
         print(json.dumps({"flux": result}))
+        return
+
+    if options.cogview4:
+        phase("1 build (kernels B's, C's and D's libraries only)")
+        _build.build_cuda_libraries(["flash_attention_bshd", "flash_attention_bshd_bwd",
+                                     "nf4_matmul"])
+        result = cogview4_phase(device, wrappers, options.profile, checkout)
+        print(json.dumps({"cogview4": result}))
         return
 
     if options.kernel_d:
@@ -5545,6 +6311,13 @@ def main() -> None:
     card_numbers = ", ".join(f"{k} {v}" for k, v in flux["numbers"].items())
     print(f"phases 28-30 on {card}: {card_numbers}")
 
+    phase("31-33 kernels B and C at head dim 128, CogView4's shapes; CogView4 generate() at full "
+          "width and depth, its pool, checkpoint, server, CLI, quant-compare tool and Trainer (a "
+          "process of its own)")
+    cogview4 = run_cogview4(checkout, options.profile)
+    card_numbers = ", ".join(f"{k} {v}" for k, v in cogview4["numbers"].items())
+    print(f"phases 31-33 on {card}: {card_numbers}")
+
     kernels = []
     for name, record in records.items():
         launches = {"generate": generate_launches[name], "train": train_launches[name],
@@ -5559,7 +6332,8 @@ def main() -> None:
                     "auraflow_generate": auraflow["launches"][name],
                     "auraflow_trainer": auraflow_trainer["launches"][name],
                     "serve": serve["launches"][name],
-                    "flux": flux["launches"][name]}
+                    "flux": flux["launches"][name],
+                    "cogview4": cogview4["launches"][name]}
         kernels.append({
             "name": name,
             **{k: record[k] for k in ("route", "source", "replaces")},
@@ -5572,6 +6346,8 @@ def main() -> None:
                if name in auraflow_trainer["records"] else {}),
             **({"serve_shapes": serve["records"][name]} if name in serve["records"] else {}),
             **({"flux_shapes": flux["records"][name]} if name in flux["records"] else {}),
+            **({"cogview4_shapes": cogview4["records"][name]} if name in cogview4["records"]
+               else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1697,3 +1697,205 @@ def test_flux_forward_at_reduced_depth_matches_plain_on_card(cuda, monkeypatch, 
     assert got.shape == latent.shape and torch.isfinite(got).all()
     err = (got - want).abs().max().item()
     assert err <= 5e-2 * want.abs().max().item(), err
+
+
+# -- CogView4: kernel B at head dim 128 with 32 heads, kernel C at D 128 on a model path ----
+
+COGVIEW4_ATTN_SHAPES = [  # (B, S, H, D): the caption (16 tokens a multiple) before the patches
+    (2, 4112, 32, 128),  # 1024 px under CFG: 16 + 64 * 64, not a multiple of 64
+    (8, 4112, 32, 128),  # a pool of 4 slots
+    (2, 2320, 32, 128),  # 768 px under CFG: 16 + 48 * 48
+    (1, 4144, 32, 128),  # a 48-token caption
+]
+COGVIEW4_BWD_SHAPES = [(2, 4112, 32, 128), (1, 4112, 32, 128), (1, 4144, 32, 128)]
+# (M, K, N) of the quant tool's Linears: GLM's at two 16-token prompts, the DiT's at 1024 px
+# under CFG (2 x 4112 rows on the joint stream, the feed-forward on each stream alone)
+COGVIEW4_NF4_SHAPES = [
+    (32, 4096, 4096),     # GLM q_proj, o_proj
+    (32, 4096, 256),      # GLM k_proj, v_proj: 2 kv heads of 128
+    (32, 4096, 27392),    # GLM gate_up_proj
+    (32, 13696, 4096),    # GLM down_proj
+    (8224, 4096, 4096),   # the DiT's to_q / to_k / to_v / to_out.0, joint stream
+    (8192, 4096, 16384),  # ff.net.0.proj, image stream
+    (8192, 16384, 4096),  # ff.net.2, image stream
+    (32, 4096, 16384),    # ff.net.0.proj, text stream
+    (32, 16384, 4096),    # ff.net.2, text stream
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d", COGVIEW4_ATTN_SHAPES)
+def test_bshd_kernel_at_cogview4_shapes_on_card(cuda, b, s, h, d):
+    """One launch a call, out and lse against the plain version, a rerun
+    bit-identical."""
+    g = torch.Generator(device=cuda).manual_seed(31)
+    q, k, v = (torch.randn(b, s, h * d, device=cuda, generator=g).bfloat16() for _ in "qkv")
+    before = flash_attention_bshd.launches
+    out, lse = flash_attention_bshd(q, k, v, h, return_lse=True)
+    assert flash_attention_bshd.launches == before + 1
+    want, want_lse = flash_attention_bshd_reference(q, k, v, h, return_lse=True)
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= BF16_ATTN_TOL * want.float().abs().max().item(), err
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-4)
+    again, again_lse = flash_attention_bshd(q, k, v, h, return_lse=True)
+    assert torch.equal(out, again) and torch.equal(lse, again_lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d", COGVIEW4_BWD_SHAPES)
+def test_bshd_backward_at_cogview4_shapes_on_card(cuda, b, s, h, d):
+    """Kernel C at D 128 at the CogView4 train step's shape: each kernel
+    once, against the plain backward; a rerun bit-identical."""
+    g = torch.Generator(device=cuda).manual_seed(32)
+    q, k, v, dout = (torch.randn(b, s, h * d, device=cuda, generator=g).bfloat16() for _ in range(4))
+    _check_bshd_backward(q, k, v, dout, h)
+    out, lse = flash_attention_bshd(q, k, v, h, return_lse=True)
+    args = (q, k, v, dout, lse, flash_attention_bshd_delta(out, dout, h), h)
+    first, again = ((*flash_attention_bshd_dkv(*args), flash_attention_bshd_dq(*args))
+                    for _ in range(2))
+    for name, x, y in zip(("dk", "dv", "dq"), first, again):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+def test_bshd_backward_takes_cogview4_strided_views_on_card(cuda):
+    """q, k and v as column slices of one (B, S, 3 * 4096) tensor, the
+    layout a fused qkv projection gives: rows 12288 apart, read in place."""
+    g = torch.Generator(device=cuda).manual_seed(33)
+    b, s, h, d = 1, 4112, 32, 128
+    qkv = torch.randn(b, s, 3 * h * d, device=cuda, generator=g).bfloat16()
+    q, k, v = qkv.split(h * d, dim=-1)
+    assert q.stride(1) == 3 * h * d
+    dout = torch.randn(b, s, h * d, device=cuda, generator=g).bfloat16()
+    _check_bshd_backward(q, k, v, dout, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", COGVIEW4_NF4_SHAPES)
+def test_nf4_forward_at_cogview4_shapes_on_card(cuda, m, k, n):
+    """Kernel D's forward on the split layout (a quantized Linear's on the
+    card) at GLM's and the DiT's widths: one launch a call, against the
+    plain version, a rerun bit-identical."""
+    assert nf4.supports(m, k, n, 64)
+    packed, code, absmax = _nf4_weight(cuda, n, k, "nf4", True)
+    x = torch.randn(m, k, device=cuda, generator=torch.Generator(device=cuda).manual_seed(1))
+    x = x.bfloat16()
+    before = nf4.nf4_matmul_forward.launches
+    y = nf4.nf4_matmul_forward(x, packed, code, absmax, (n, k), 64, True)
+    assert nf4.nf4_matmul_forward.launches == before + 1
+    want = nf4.nf4_matmul_reference(x, packed, code, absmax, (n, k), 64, True)
+    err = (y.float() - want.float()).abs().max().item()
+    assert err <= NF4_FWD_TOL * want.float().abs().max().item(), err
+    assert torch.equal(y, nf4.nf4_matmul_forward(x, packed, code, absmax, (n, k), 64, True))
+
+
+@pytest.mark.cuda
+def test_nf4_linear_outside_kernel_d_raises_by_name_on_card(cuda):
+    """A packed 4-bit Linear kernel D does not take (CogView4's patch-in
+    projection, K = 64) raises naming the layer on the "fused" route with
+    a bf16 input on the card, and runs on the "dequant" route."""
+    import vision_ft_tpu_torch.nn as tnn
+    from vision_ft_tpu_torch.modules import quant
+
+    g = torch.Generator(device=cuda).manual_seed(2)
+    holder = torch.nn.ModuleDict({"proj": tnn.Linear(64, 4096)})
+    tnn.init_parameters_(holder.to_empty(device=cuda).to(torch.bfloat16), g)
+    quant.quantize_params(holder, "bnb_nf4", ["proj"])
+    x = torch.randn(2, 4096, 64, device=cuda, generator=g).bfloat16()
+    before = nf4.nf4_matmul_forward.launches
+    with pytest.raises(ValueError, match="'proj' \\(64 -> 4096"):
+        holder["proj"](x)
+    tnn.set_nf4_route("dequant")
+    try:
+        assert holder["proj"](x).shape == (2, 4096, 4096)
+    finally:
+        tnn.set_nf4_route("fused")
+    assert nf4.nf4_matmul_forward.launches == before
+
+
+def _cogview4_reduced(cuda, layers=2):
+    from vision_ft_tpu_torch.models.cogview4.config import DenoiserConfig
+    from vision_ft_tpu_torch.models.cogview4.denoiser import Denoiser
+    from vision_ft_tpu_torch.nn import init_parameters_
+
+    with torch.device("meta"):
+        model = Denoiser(DenoiserConfig(num_layers=layers))
+    model.to(dtype=torch.bfloat16).to_empty(device=cuda)
+    init_parameters_(model, torch.Generator(device=cuda).manual_seed(0))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    inputs = (torch.randn(2, 128, 128, 16, device=cuda, generator=g).bfloat16(),
+              torch.randn(2, 16, 4096, device=cuda, generator=g).bfloat16(),
+              torch.tensor([700.0, 300.0], device=cuda).bfloat16(),
+              torch.full((2, 2), 1024.0, device=cuda), torch.full((2, 2), 1024.0, device=cuda),
+              torch.zeros(2, 2, device=cuda))
+    return model, inputs
+
+
+def _plain_attention(monkeypatch):
+    from vision_ft_tpu_torch.ops import flash_attention as flash_module
+
+    def plain_forward(q, k, v, num_heads, scale, return_lse):
+        out = flash_attention_bshd_reference(q, k, v, num_heads, scale, return_lse=return_lse)
+        return out if return_lse else (out, None)
+
+    monkeypatch.setattr(flash_module, "_forward", plain_forward)
+    monkeypatch.setattr(flash_module, "flash_attention_bshd_backward",
+                        flash_attention_bshd_backward_reference)
+
+
+@pytest.mark.cuda
+def test_cogview4_forward_at_reduced_depth_matches_plain_on_card(cuda, monkeypatch):
+    """The CogView4 DiT at full width (4096, 32 heads of 128, FF 16384), 2
+    blocks, bf16, seeded random weights, at 1024 px under CFG (batch 2, 16 +
+    4096 tokens): kernel B once a block, and the velocity against the same
+    forward on B's plain version within 5e-2 of its largest value
+    (chip_smoke.py's COGVIEW4_STEP_TOL)."""
+    model, inputs = _cogview4_reduced(cuda)
+    with torch.inference_mode():
+        before = flash_attention_bshd.launches
+        got = model(*inputs).float()
+        assert flash_attention_bshd.launches == before + 2
+        _plain_attention(monkeypatch)
+        want = model(*inputs).float()
+    assert got.shape == inputs[0].shape and torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    assert err <= 5e-2 * want.abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_cogview4_lora_backward_at_reduced_depth_matches_plain_on_card(cuda, monkeypatch):
+    """LoRA rank 8 on attn / ff (configs/cogview4/text_to_image.yml's
+    targets, lora_up drawn non-zero) over the 2-block full-width DiT with
+    gradient checkpointing: one forward kernel and one launch each of C's
+    kernels a block ("kernel" saves: the recomputation reuses the forward's
+    out and lse), and the adapters' gradients against the plain forward and
+    backward within 5e-2 of their largest value."""
+    from vision_ft_tpu_torch.modules.peft import LoRAConfig, replace_to_peft_layer, split_peft_params
+
+    model, inputs = _cogview4_reduced(cuda)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    replace_to_peft_layer(model, ["attn", "ff"], [], LoRAConfig(rank=8, alpha=4.0), g)
+    trainable, _ = split_peft_params(model)
+    with torch.no_grad():
+        for key, value in trainable.items():
+            if key.endswith("lora_up.weight"):
+                value.normal_(0.0, 0.02, generator=g)
+    model.set_gradient_checkpointing(True)
+    target = torch.randn(inputs[0].shape, device=cuda, generator=g).bfloat16()
+
+    def grads():
+        for value in trainable.values():
+            value.grad = None
+        loss = (model(*inputs).float() - target.float()).square().mean()
+        loss.backward()
+        return torch.cat([v.grad.float().flatten() for v in trainable.values()])
+
+    wrappers = (flash_attention_bshd, flash_attention_bshd_dkv, flash_attention_bshd_dq)
+    before = [w.launches for w in wrappers]
+    got = grads()
+    assert [w.launches - n for w, n in zip(wrappers, before)] == [2, 2, 2]
+    _plain_attention(monkeypatch)
+    want = grads()
+    assert torch.isfinite(got).all() and want.abs().max() > 0
+    err = (got - want).abs().max().item()
+    assert err <= 5e-2 * want.abs().max().item(), err

@@ -3,7 +3,9 @@ on the CPU: the window micro-batcher's grouping on a stub model, with an
 injected clock instead of wall-clock timing; the HTTP surface on
 127.0.0.1; the request validators and family rules; ``T2IModel`` on a tiny
 seeded SDXL checkpoint and YAML behind both schedulers; the CLI writing a
-webp; the client posting to a running server.
+webp; a tiny seeded CogView4 behind the server, the CLI with its denoiser
+in NF4 and the CogView4 quantization tool; the client posting to a running
+server.
 """
 
 import io
@@ -20,9 +22,15 @@ import torch
 import yaml
 from PIL import Image
 
+from tests import test_torch_cogview4 as cogview4_tests
 from tests.test_torch_sdxl import _tiny_kwargs
+from vision_ft_tpu_torch.models.autoencoder import AutoencoderKLConfig
+from vision_ft_tpu_torch.models.cogview4.config import DenoiserConfig as CogView4DenoiserConfig
+from vision_ft_tpu_torch.models.cogview4.pipeline import CogView4Model
 from vision_ft_tpu_torch.models.sdxl.pipeline import SDXLModel
-from vision_ft_tpu_torch.tools import inference_cli, inference_client
+from vision_ft_tpu_torch.models.text_encoders import glm, sentencepiece
+from vision_ft_tpu_torch.ops.nf4_matmul import nf4_matmul_forward
+from vision_ft_tpu_torch.tools import cogview4_quant_compare, inference_cli, inference_client
 from vision_ft_tpu_torch.tools import inference_server as srv
 from vision_ft_tpu_torch.tools.inference_server import (
     ContinuousScheduler,
@@ -272,7 +280,7 @@ def test_t2imodel_refuses_flags_and_families_before_loading(tmp_path):
 
 def test_continuous_scheduler_validation():
     unsupported = T2IModel.__new__(T2IModel)
-    unsupported._family = "cogview4"
+    unsupported._family = "wan"
     with pytest.raises(ValueError, match="currently serves"):
         ContinuousScheduler(unsupported, height=64, width=64)
     sched = ContinuousScheduler.__new__(ContinuousScheduler)
@@ -296,9 +304,11 @@ def test_help_names_exactly_the_served_families(module, capsys):
         module.build_parser().parse_args(["--help"])
     text = " ".join(capsys.readouterr().out.split())
     named = {f for f in (*srv.SERVED_FAMILIES, *srv.WAITING_FAMILIES) if f in text}
-    assert named == set(srv.SERVED_FAMILIES) == {"sdxl", "lumina2", "auraflow", "flux"}
+    assert named == set(srv.SERVED_FAMILIES) == {"sdxl", "lumina2", "auraflow", "cogview4", "flux"}
+    assert srv.WAITING_FAMILIES == ("wan",)
     doc = " ".join(module.__doc__.split())
-    assert "sdxl, lumina2, auraflow and flux" in doc or "sdxl, lumina2, auraflow, flux" in doc
+    assert ("sdxl, lumina2, auraflow, cogview4 and flux" in doc
+            or "sdxl, lumina2, auraflow, cogview4, flux" in doc)
 
 
 # -- a real model, from a single-file checkpoint ------------------------------------------
@@ -422,6 +432,165 @@ def test_cli_writes_a_webp(tiny_constructor, tmp_path, capsys):
     assert "Quantizing denoiser with bnb_nf4" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="wan"):
         inference_cli.main(["--family", "wan", "--checkpoint-path", "x", "--device", "cpu"])
+
+
+# -- CogView4 ------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def tiny_cogview4_file(tmp_path_factory):
+    """A tiny CogView4's seeded weights in a single-file checkpoint, a YAML
+    naming it and a SentencePiece vocab inside the tiny GLM's 256 ids."""
+    work = tmp_path_factory.mktemp("tiny_cogview4")
+    model = cogview4_tests.port_pipeline()
+    model.init_params(torch.Generator().manual_seed(0), device="cpu")
+    st.save_file({k: v.contiguous() for k, v in model.state_dict().items()},
+                 work / "cogview4.safetensors")
+    pieces = [("<pad>", 0.0, 3), ("</s>", 0.0, 3), ("<unk>", 0.0, 2)]
+    pieces += [("\u2581" + w, -1.0 - 0.1 * i, 1) for i, w in enumerate(["a", "cat", "photo", "of"])]
+    pieces += [(ch, -5.0, 1) for ch in "abcdefghijklmnopqrstuvwxyz\u2581"]
+    (work / "tokenizer.model").write_bytes(
+        sentencepiece.serialize_model(pieces, unk_id=2, bos_id=-1, eos_id=1, pad_id=0))
+    (work / "serve.yml").write_text(yaml.safe_dump({
+        "model": {"checkpoint_path": str(work / "cogview4.safetensors"),
+                  "denoiser": cogview4_tests.TINY},
+        "dataset": {}, "optimizer": {"name": "torch.optim.AdamW", "args": {"lr": 1.0e-4}},
+        "seed": 0, "num_train_epochs": 1,
+    }))
+    return work
+
+
+@pytest.fixture
+def tiny_cogview4(monkeypatch, tiny_cogview4_file):
+    """CogView4Model built at the checkpoint's tiny widths and in fp32
+    whatever config it is given (the CLI and the tool name only the file)."""
+    build = CogView4Model.__init__
+
+    def tiny_init(self, config, tokenizer=None, **kwargs):
+        config = config.model_copy(update={
+            "dtype": "float32", "denoiser": CogView4DenoiserConfig(**cogview4_tests.TINY)})
+        build(self, config, tokenizer=tokenizer,
+              vae_config=AutoencoderKLConfig(**cogview4_tests.VAE),
+              text_encoder_config=glm.GlmConfig(**cogview4_tests.GLM))
+
+    monkeypatch.setattr(CogView4Model, "__init__", tiny_init)
+    return tiny_cogview4_file
+
+
+def test_t2imodel_serves_cogview4(tiny_cogview4):
+    """T2IModel loads the checkpoint with the GLM tokenizer of its dir; a
+    seeded window request is the pipeline's own image; the continuous
+    scheduler takes a CogView4 pool."""
+    work = tiny_cogview4
+    served = T2IModel(str(work / "serve.yml"), None, str(work), family="cogview4", device="cpu")
+    assert served.model.device == torch.device("cpu")
+    assert served.model.text_encoder.tokenizer is not None
+    params = GenerationParams(prompt="a photo of a cat", negative_prompt="", width=64, height=64,
+                              inference_steps=2, cfg_scale=3.5, seed=5)
+    got = served.generate_batch([params])
+    want = served.model.generate(["a photo of a cat"], negative_prompt=[""], width=64, height=64,
+                                 num_inference_steps=2, cfg_scale=3.5, seed=5)
+    np.testing.assert_array_equal(np.asarray(got[0]), np.asarray(want[0]))
+    with pytest.raises(ValueError, match="Flux-only"):
+        served.generate_batch([params.model_copy(update={"distilled_guidance": 2.0})])
+    sched = ContinuousScheduler(served, height=64, width=64, num_slots=2, max_steps=4)
+    try:
+        image = sched.submit(params.model_copy(update={"inference_steps": 3}))
+    finally:
+        sched.close()
+    assert image.size == (64, 64)
+
+
+def test_cli_on_cogview4_in_nf4(tiny_cogview4, tmp_path, capsys):
+    """The CLI quantizes the denoiser's Linears as the JAX tool does, but
+    for CogView4's patch-in and patch-out projections, which the 4-bit
+    kernel does not take; on the CPU the 4-bit matmul's plain version
+    runs."""
+    out = tmp_path / "out.webp"
+    saved = inference_cli.main([
+        "--family", "cogview4", "--checkpoint-path", str(tiny_cogview4 / "cogview4.safetensors"),
+        "--tokenizer-path", str(tiny_cogview4), "--width", "32", "--height", "32",
+        "--num-inference-steps", "2", "--cfg-scale", "3.5", "--quant-type", "bnb_nf4",
+        "--save-path", str(out), "--device", "cpu",
+    ])
+    assert saved == [str(out)] and Image.open(out).size == (32, 32)
+    assert "Quantizing denoiser with bnb_nf4" in capsys.readouterr().out
+    model = inference_cli.build_model("cogview4", str(tiny_cogview4 / "cogview4.safetensors"),
+                                      str(tiny_cogview4), "bnb_nf4", device="cpu")
+    layers = {n: m for n, m in model.denoiser.named_modules() if hasattr(m, "in_features")}
+    unquantized = {n for n, m in layers.items() if not m.is_quantized}
+    assert unquantized == {"patch_embed.proj", "proj_out"}
+    assert all(m.quantized_name == n for n, m in layers.items() if m.is_quantized)
+
+
+def _full_size_linears(family):
+    """The Linears, by name, of the family's published-size denoiser (for
+    "cogview4_tool": the whole CogView4 pipeline, GLM included), on meta."""
+    import importlib
+
+    if family == "cogview4_tool":
+        model = CogView4Model(cogview4_tests.cv_config.CogView4Config(checkpoint_path=""),
+                              tokenizer=cogview4_tests.GlmTok())
+        module = model.as_module()
+    else:
+        config = importlib.import_module(f"vision_ft_tpu_torch.models.{family}.config")
+        denoiser = importlib.import_module(f"vision_ft_tpu_torch.models.{family}.denoiser")
+        kwargs = {"type": "flux1-dev"} if family == "flux" else {}
+        with torch.device("meta"):
+            module = denoiser.Denoiser(config.DenoiserConfig(**kwargs))
+    return {n: m for n, m in module.named_modules() if hasattr(m, "in_features")}
+
+
+@pytest.mark.parametrize("family", [*inference_cli.UNQUANTIZED, "cogview4_tool"])
+def test_quantized_layers_are_the_4bit_kernels_shapes(family):
+    """At published widths every Linear the CLI (or the CogView4 quant
+    tool, both groups) quantizes is one the 4-bit kernel takes, so none
+    raises on the card's "fused" route; and the CLI leaves out no more."""
+    from vision_ft_tpu_torch.ops import nf4_matmul
+    from vision_ft_tpu_torch.utils.state_dict import get_target_keys
+
+    layers = _full_size_linears(family)
+    if family == "cogview4_tool":
+        quantized = set()
+        for include, exclude in (cogview4_quant_compare.TEXT_ENCODER_KEYS,
+                                 cogview4_quant_compare.DENOISER_KEYS):
+            quantized.update(get_target_keys(include, exclude, list(layers)))
+        assert len(quantized) == 40 * 6 + 28 * 6  # GLM's 40 layers, the DiT's 28 blocks
+    else:
+        quantized = set(get_target_keys(
+            [""], [*inference_cli.EXCLUDE_KEYS, *inference_cli.UNQUANTIZED[family]], list(layers)))
+        jax_tool = set(get_target_keys([""], inference_cli.EXCLUDE_KEYS, list(layers)))
+        assert all(not nf4_matmul.supports(1, layers[n].in_features, layers[n].out_features, 64)
+                   for n in jax_tool - quantized)
+    assert quantized and all(
+        nf4_matmul.supports(1, layers[n].in_features, layers[n].out_features, 64)
+        for n in quantized)
+
+
+def test_cogview4_quant_compare_tool(tiny_cogview4, tmp_path, capsys):
+    """The port's quant-compare tool: the JAX tool's groups (GLM's
+    projections and MLP, the DiT's attention and feed-forward), the webp and
+    the JSON report."""
+    common = ["--model_path", str(tiny_cogview4 / "cogview4.safetensors"), "--tokenizer_path",
+              str(tiny_cogview4), "--height", "32", "--width", "32", "--num_inference_steps", "2",
+              "--output_dir", str(tmp_path), "--device", "cpu"]
+    before = nf4_matmul_forward.launches
+    report = cogview4_quant_compare.main([*common, "--text_encoder", "bnb_nf4",
+                                          "--denoiser", "bnb_nf4"])
+    assert nf4_matmul_forward.launches == before  # the CPU takes the plain version
+    run = "text-encoder-bnb_nf4_denoiser-bnb_nf4"
+    assert report["run"] == run and report["peak_bytes_in_use"] is None
+    # GLM: 2 layers x (4 projections + 2 MLP); the DiT: 2 blocks x 6
+    assert report["quantized_layers"] == 2 * 6 + 2 * 6
+    assert json.loads((tmp_path / f"{run}.json").read_text()) == report
+    assert Image.open(tmp_path / f"{run}.webp").size == (32, 32)
+    plain = cogview4_quant_compare.main(common)
+    assert plain["quantized_layers"] == 0 and plain["run"] == "text-encoder-bf16_denoiser-bf16"
+
+    model = cogview4_tests.port_pipeline()
+    model.init_params(torch.Generator().manual_seed(0), device="cpu")
+    names = cogview4_quant_compare.quantize_model(model, "bnb_nf4", "bf16")
+    assert all(n.startswith("text_encoder.") for n in names) and len(names) == 12
 
 
 def test_client_posts_and_saves(tmp_path, capsys):

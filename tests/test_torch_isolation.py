@@ -41,8 +41,9 @@ def test_port_imports_without_jax():
     # generate and train slices, of the SDXL Trainer slice, of the AuraFlow generate
     # and train slices, the GroupNorm and 3x3 conv ops with the ragged-tile probe tool,
     # the serving slice (the continuous batcher, the server, the CLI, the client),
-    # and the Flux slice (the family, the schedules, the VAE-encode migration)
-    assert int(proc.stdout.strip()) >= 136
+    # the Flux slice (the family, the schedules, the VAE-encode migration), and the
+    # CogView4 slice (GLM, the family, its train workload and script, the quant tool)
+    assert int(proc.stdout.strip()) >= 148
 
 
 PORT_SOURCES = sorted((REPO / "vision_ft_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -91,8 +92,16 @@ FLUX_MODULES = [
     "models/flux/pipeline.py", "modules/timestep/scheduler.py",
     "models/auraflow/train_vae_encode_migration.py", "train/auraflow/vae_encode_migration.py",
 ]
+# the CogView4 slice: GLM, the family, its train workload and script, the quant tool
+COGVIEW4_MODULES = [
+    "models/text_encoders/glm.py", "models/cogview4/__init__.py", "models/cogview4/config.py",
+    "models/cogview4/scheduler.py", "models/cogview4/vae.py", "models/cogview4/text_encoder.py",
+    "models/cogview4/denoiser.py", "models/cogview4/pipeline.py",
+    "models/cogview4/train_text_to_image.py", "train/cogview4/__init__.py",
+    "train/cogview4/text_to_image.py", "tools/cogview4_quant_compare.py",
+]
 SLICES = (LUMINA2_MODULES + AURAFLOW_MODULES + AURAFLOW_TRAIN_MODULES + OPS_SOURCES
-          + SERVING_MODULES + FLUX_MODULES)
+          + SERVING_MODULES + FLUX_MODULES + COGVIEW4_MODULES)
 
 
 def _imported_roots(path: Path) -> set[str]:

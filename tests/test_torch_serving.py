@@ -1,8 +1,9 @@
 """The port's serving slice against the JAX package (CPU, fp32, tiny
 configs): each family's ``_slot_step`` with 3 slots at mixed steps and
-guidance and an inactive row, SDXL's ``deepcache_forward`` and DeepCache
+guidance and an inactive row (CogView4's also against its own
+``_denoise_step``), SDXL's ``deepcache_forward`` and DeepCache
 loop, the VAE's ``tiled_decode``; then ``serving.ContinuousBatcher``
-against the port's own batch-1 ``generate()`` for the three families
+against the port's own batch-1 ``generate()`` for four families
 (staggered admission, more requests than slots, the step and schedule
 checks, submit after close, a weight swap), and the scheduler's host logic
 pinned exactly by a model-free adapter that records every tick.
@@ -25,11 +26,14 @@ import torch
 import vision_ft_tpu.nn as jnn
 from vision_ft_tpu.models.auraflow import config as jax_aura_config
 from vision_ft_tpu.models.auraflow.pipeline import AuraFlowModel as JaxAuraFlowModel
+from vision_ft_tpu.models.cogview4 import config as jax_cogview4_config
+from vision_ft_tpu.models.cogview4.pipeline import CogView4Model as JaxCogView4Model
 from vision_ft_tpu.models.lumina2 import config as jax_lumina_config
 from vision_ft_tpu.models.lumina2.pipeline import Lumina2 as JaxLumina2
 from vision_ft_tpu.models.sdxl.pipeline import SDXLModel as JaxSDXLModel
 
 from tests import test_torch_auraflow as aura_tests
+from tests import test_torch_cogview4 as cogview4_tests
 from tests import test_torch_lumina2 as lumina_tests
 from tests.test_torch_sdxl import _random_params, _tiny_kwargs
 import vision_ft_tpu_torch.nn as tnn
@@ -37,14 +41,18 @@ from vision_ft_tpu_torch.models.auraflow.config import AuraFlowConig
 from vision_ft_tpu_torch.models.auraflow.config import DenoiserConfig as AuraDenoiserConfig
 from vision_ft_tpu_torch.models.auraflow.pipeline import AuraFlowModel
 from vision_ft_tpu_torch.models.autoencoder import AutoencoderKLConfig
+from vision_ft_tpu_torch.models.cogview4.config import CogView4Config
+from vision_ft_tpu_torch.models.cogview4.config import DenoiserConfig as CogView4DenoiserConfig
+from vision_ft_tpu_torch.models.cogview4.pipeline import CogView4Model
 from vision_ft_tpu_torch.models.lumina2.config import DenoiserConfig as LuminaDenoiserConfig
 from vision_ft_tpu_torch.models.lumina2.config import Lumina2Config
 from vision_ft_tpu_torch.models.lumina2.pipeline import Lumina2
 from vision_ft_tpu_torch.models.sdxl.pipeline import SDXLModel
-from vision_ft_tpu_torch.models.text_encoders import auto_tokenizer, umt5
+from vision_ft_tpu_torch.models.text_encoders import auto_tokenizer, glm, umt5
 from vision_ft_tpu_torch.models.text_encoders.gemma2 import Gemma2Config
 from vision_ft_tpu_torch.serving import (
     AuraFlowSlotAdapter,
+    CogView4SlotAdapter,
     ContinuousBatcher,
     Lumina2SlotAdapter,
     SDXLSlotAdapter,
@@ -148,6 +156,24 @@ def aura(tmp_path_factory):
     )
 
 
+@pytest.fixture(scope="module")
+def cogview4():
+    """The tiny CogView4 of tests/test_torch_cogview4.py."""
+    return _pipelines(
+        JaxCogView4Model,
+        jax_cogview4_config.CogView4Config(
+            checkpoint_path="unused", dtype="float32",
+            denoiser=jax_cogview4_config.DenoiserConfig(**cogview4_tests.TINY,
+                                                        attention_backend="eager")),
+        CogView4Model,
+        CogView4Config(checkpoint_path="", dtype="float32",
+                       denoiser=CogView4DenoiserConfig(**cogview4_tests.TINY)),
+        cogview4_tests.GlmTok(),
+        dict(vae_config=AutoencoderKLConfig(**cogview4_tests.VAE),
+             text_encoder_config=glm.GlmConfig(**cogview4_tests.GLM)),
+    )
+
+
 # -- the slot steps against the JAX package's ---------------------------------------
 
 # three slots: two active at other steps, guidance and rescale; slot 1 inactive
@@ -242,6 +268,57 @@ def test_auraflow_slot_step_matches_jax(aura):
         got = model._slot_step(*map(torch.from_numpy, args))
     _close(got, want, STEP_TOL, "auraflow slot step")
     np.testing.assert_array_equal(got[1].numpy(), latents[1])
+
+
+def _cogview4_slot_args(rng, s=3):
+    latents = rng.standard_normal((s, 4, 6, 4)).astype(np.float32)
+    sigma = np.array([0.95, 0.0, 0.4], np.float32)
+    next_sigma = np.array([0.8, 0.0, 0.0], np.float32)  # slot 2 takes the last step
+    emb = _pool_rows(rng, s, 16, cogview4_tests.GLM["hidden_size"])
+    sizes = np.tile(np.array([[32.0, 48.0]], np.float32), (2 * s, 1))
+    crops = np.tile(np.array([[0.0, 16.0]], np.float32), (2 * s, 1))
+    cfg = np.array([3.5, 2.0, 1.0], np.float32)  # slot 2: the positive velocity alone
+    return (latents, np.array([999.0, 1.0, 400.0], np.float32), sigma, next_sigma, emb, sizes,
+            sizes, crops, cfg)
+
+
+def test_cogview4_slot_step_matches_jax(cogview4):
+    """Per-slot timesteps (each slot its own row of the time embedding),
+    size rows, CFG 3.5 / 2 / 1; the inactive row keeps its latents."""
+    jax_model, model = cogview4
+    args = (*_cogview4_slot_args(np.random.default_rng(3)), ACTIVE)
+    want = jax_model._get_jit_slot_step()(jax_model.params["denoiser"], *map(jnp.asarray, args))
+    with torch.inference_mode():
+        got = model._slot_step(*map(torch.from_numpy, args))
+    _close(got, want, STEP_TOL, "cogview4 slot step")
+    np.testing.assert_array_equal(got[1].numpy(), args[0][1])
+
+
+def test_cogview4_slot_step_is_the_denoise_step(cogview4):
+    """Two active slots at one timestep and one CFG scale are one CFG
+    ``_denoise_step`` of batch 2, bit for bit; a slot with CFG <= 1 is the
+    step without CFG on its own row."""
+    _, model = cogview4
+    latents, _, _, _, emb, sizes, _, crops, _ = _cogview4_slot_args(np.random.default_rng(4), 2)
+    t, sigma, next_sigma = 700.0, np.float32(0.7), np.float32(0.55)
+    x = torch.from_numpy(latents)
+    with torch.inference_mode():
+        pooled = model._slot_step(
+            x, torch.full((2,), t), torch.full((2,), float(sigma)),
+            torch.full((2,), float(next_sigma)), torch.from_numpy(emb), *map(
+                torch.from_numpy, (sizes, sizes, crops)), torch.full((2,), 3.5),
+            torch.ones(2, dtype=torch.bool))
+        step = model._denoise_step(x, t, sigma, next_sigma, torch.from_numpy(emb),
+                                   *map(torch.from_numpy, (sizes, sizes, crops)), 3.5, do_cfg=True)
+        alone = model._denoise_step(x[:1], t, sigma, next_sigma, torch.from_numpy(emb[:1]),
+                                    *(torch.from_numpy(a[:1]) for a in (sizes, sizes, crops)), 1.0)
+        no_cfg = model._slot_step(
+            x, torch.full((2,), t), torch.full((2,), float(sigma)),
+            torch.full((2,), float(next_sigma)), torch.from_numpy(emb), *map(
+                torch.from_numpy, (sizes, sizes, crops)), torch.tensor([1.0, 3.5]),
+            torch.ones(2, dtype=torch.bool))
+    torch.testing.assert_close(pooled, step, rtol=0, atol=0)
+    _close(no_cfg[0], alone[0], STEP_TOL, "a slot without CFG")
 
 
 # -- SDXL DeepCache and the tiled decode ----------------------------------------------
@@ -387,6 +464,10 @@ class AuraFlowLatents(_LatentsOut, AuraFlowSlotAdapter):
     pass
 
 
+class CogView4Latents(_LatentsOut, CogView4SlotAdapter):
+    pass
+
+
 def _generate_latents(model, request, size, **kwargs):
     """The final latents of the port's batch-1 generate() of ``request``."""
     captured = {}
@@ -439,15 +520,19 @@ FAMILY_REQUESTS = {
     "auraflow": [SlotRequest("a cat sitting", "blurry", 3, cfg_scale=4.0, seed=1),
                  SlotRequest("a red car", "", 5, cfg_scale=1.0, seed=9),
                  SlotRequest("a photo of the sofa", "blurry", 4, cfg_scale=2.5, seed=77)],
+    "cogview4": [SlotRequest("a cat sitting on the sofa", "blurry", 3, cfg_scale=3.5, seed=1),
+                 SlotRequest("a red car", "", 5, cfg_scale=1.0, seed=9),
+                 SlotRequest("a photo of the sofa", "blurry photo", 4, cfg_scale=2.0, seed=77)],
 }
 
 
-@pytest.mark.parametrize("family", ["sdxl", "lumina2", "auraflow"])
+@pytest.mark.parametrize("family", ["sdxl", "lumina2", "auraflow", "cogview4"])
 def test_pool_matches_batch1_generate(request, family):
     """Three requests with other step counts, seeds and guidance through a
     pool of 2 slots (the third waits for a free slot) each give the latents
     of their own batch-1 generate()."""
-    fixture = {"sdxl": "sdxl", "lumina2": "lumina", "auraflow": "aura"}[family]
+    fixture = {"sdxl": "sdxl", "lumina2": "lumina", "auraflow": "aura",
+               "cogview4": "cogview4"}[family]
     model = request.getfixturevalue(fixture)[1]
     size, adapter_kwargs = (64, {}) if family == "sdxl" else (32, {"max_token_length": 8})
     requests = FAMILY_REQUESTS[family]
@@ -462,7 +547,7 @@ def test_pool_matches_batch1_generate(request, family):
 
     wants = [_generate_latents(model, r, size, **generate_kwargs(r)) for r in requests]
     adapter_class = {"sdxl": SDXLLatents, "lumina2": Lumina2Latents,
-                     "auraflow": AuraFlowLatents}[family]
+                     "auraflow": AuraFlowLatents, "cogview4": CogView4Latents}[family]
     engine = ContinuousBatcher(adapter_class(model, size, size, **adapter_kwargs), num_slots=2,
                                max_steps=8)
     try:

@@ -1,5 +1,6 @@
 from .clip import CLIPTextConfig, CLIPTextModel, CLIPTextModelWithProjection
 from .gemma2 import Gemma2Config, Gemma2Model
+from .glm import GlmConfig, GlmModel
 from .tokenizer import CLIPTokenizer
 
 __all__ = [
@@ -9,4 +10,6 @@ __all__ = [
     "CLIPTokenizer",
     "Gemma2Config",
     "Gemma2Model",
+    "GlmConfig",
+    "GlmModel",
 ]

@@ -242,7 +242,7 @@ def quantize_params(
         layer = layers[name]
         if layer.weight.is_meta:
             raise ValueError(f"{name}: cannot quantize a weight on the meta device")
-        layer.set_quantized_weight(quantize_weight(layer.weight, quant_type))
+        layer.set_quantized_weight(quantize_weight(layer.weight, quant_type), name)
     return module
 
 

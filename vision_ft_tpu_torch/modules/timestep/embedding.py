@@ -1,5 +1,6 @@
 """Sinusoidal timestep embeddings (diffusers-compatible), as the JAX
-``modules/timestep/embedding.py`` computes them, in fp32."""
+``modules/timestep/embedding.py`` computes them, in fp32, and the MLP
+over them (``TimestepEmbedding``)."""
 
 from __future__ import annotations
 
@@ -7,6 +8,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from ...nn import Linear
 
 
 def get_timestep_embedding(
@@ -33,3 +36,15 @@ def get_timestep_embedding(
     if embedding_dim % 2 == 1:
         emb = F.pad(emb, (0, 1))
     return emb
+
+
+class TimestepEmbedding(torch.nn.Module):
+    """linear_1 -> silu -> linear_2 MLP over a sinusoid embedding."""
+
+    def __init__(self, in_channels: int, time_embed_dim: int, bias: bool = True):
+        super().__init__()
+        self.linear_1 = Linear(in_channels, time_embed_dim, bias=bias)
+        self.linear_2 = Linear(time_embed_dim, time_embed_dim, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear_2(F.silu(self.linear_1(x)))

@@ -101,10 +101,10 @@ def _install_quantized_weights(
         if not sized:
             raise ValueError(f"{root}: quantized weight does not match the layer's shape {shape}")
         if isinstance(quantized, torch.Tensor):
-            layer.set_quantized_weight(quantized.to(device))
+            layer.set_quantized_weight(quantized.to(device), root)
             taken.add(f"{root}.weight" if root else "weight")
         else:
-            layer.set_quantized_weight({k: v.to(device) for k, v in quantized.items()})
+            layer.set_quantized_weight({k: v.to(device) for k, v in quantized.items()}, root)
             taken.update(f"{root}.weight.{k}" if root else f"weight.{k}" for k in quantized)
     return taken
 

@@ -174,7 +174,9 @@ def set_nf4_route(route: str) -> None:
 
     A route takes a layer only where its shape contract holds (and, for
     the kernels on the card, only bf16 inputs); every other case takes
-    "dequant". Results agree within rounding; time and memory differ."""
+    "dequant", except a bf16 input on the card to a layer outside the
+    "fused" kernels' shapes, which raises naming the layer. Results agree
+    within rounding; time and memory differ."""
     global _nf4_route
     if route not in NF4_ROUTES:
         raise ValueError(f"unknown nf4 route: {route!r}")
@@ -386,6 +388,8 @@ def _conv_adapter_delta(layer: "Conv2d", x_nchw: torch.Tensor) -> Optional[torch
 
 
 class Linear(nn.Module):
+    quantized_name = ""  # the layer's path, given with a quantized weight
+
     def __init__(self, in_features: int, out_features: int, bias: bool = True):
         super().__init__()
         self.in_features = in_features
@@ -407,9 +411,11 @@ class Linear(nn.Module):
         weight = self.weight
         return isinstance(weight, QuantizedWeight) or weight.dtype in FP8_DTYPES
 
-    def set_quantized_weight(self, quantized) -> None:
+    def set_quantized_weight(self, quantized, name: str = "") -> None:
         """Replace the weight by quantized leaves (a mapping of tensors, as
-        ``modules.quant.quantize_weight`` returns it) or an fp8 tensor."""
+        ``modules.quant.quantize_weight`` returns it) or an fp8 tensor.
+        ``name``, the layer's path in its model, names it in errors."""
+        self.quantized_name = name
         if isinstance(quantized, Mapping):
             self._parameters.pop("weight", None)
             self._modules.pop("weight", None)
@@ -454,11 +460,15 @@ class Linear(nn.Module):
             kernel_input = not x.is_cuda or x.dtype == torch.bfloat16
             if _nf4_route == "stream" and "split" in leaves and nf4_stream.supports(n, k, blocksize):
                 return nf4_stream.nf4_stream_matmul(*args)
-            if (
-                _nf4_route == "fused" and kernel_input
-                and nf4_matmul.supports(x.numel() // k, k, n, blocksize)
-            ):
-                return nf4_matmul.nf4_matmul(*args, split="split" in leaves)
+            if _nf4_route == "fused" and kernel_input:
+                if nf4_matmul.supports(x.numel() // k, k, n, blocksize):
+                    return nf4_matmul.nf4_matmul(*args, split="split" in leaves)
+                if x.is_cuda:
+                    raise ValueError(
+                        f"the 4-bit matmul kernel does not take the Linear "
+                        f"{self.quantized_name!r} ({k} -> {n}, blocksize "
+                        f"{blocksize}): leave it unquantized or set_nf4_route('dequant')"
+                    )
 
         def dequantize(dtype):
             return dequantize_weight(w, dtype=dtype, shape=shape)

@@ -3,11 +3,12 @@
 ``continuous`` is step-level continuous batching for diffusion sampling:
 a fixed pool of latent slots that requests join and leave at denoise-step
 boundaries, behind the HTTP server's ``--scheduler continuous``
-(``tools/inference_server.py``). The CogView4 adapter waits for its family.
+(``tools/inference_server.py``).
 """
 
 from .continuous import (
     AuraFlowSlotAdapter,
+    CogView4SlotAdapter,
     ContinuousBatcher,
     FluxSlotAdapter,
     Lumina2SlotAdapter,
@@ -17,6 +18,7 @@ from .continuous import (
 
 __all__ = [
     "AuraFlowSlotAdapter",
+    "CogView4SlotAdapter",
     "ContinuousBatcher",
     "FluxSlotAdapter",
     "Lumina2SlotAdapter",

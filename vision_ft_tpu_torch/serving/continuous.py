@@ -403,6 +403,50 @@ class FluxSlotAdapter:
         return self.model.decode_image(latent_row[None])[0]
 
 
+class CogView4SlotAdapter(AuraFlowSlotAdapter):
+    """Binds the engine to a CogView4 (DiT) pipeline: AuraFlow's flow
+    matching with plain CFG, each slot's timestep its own row of the time
+    embedding, and the size conditioning, whose original / target / crop
+    rows (the pool's image size, no crop) ride the context beside the GLM
+    features. The schedule is the pipeline's ``prepare_timesteps``, shifted
+    by the pool's fixed image size. GLM's features are as long as the
+    pool's probe encoding (prompts padded to the longest, then to a
+    multiple of 16); a longer request raises."""
+
+    def __init__(self, model, height: int, width: int, max_token_length: Optional[int] = None):
+        from ..models.cogview4.text_encoder import DEFAULT_MAX_TOKEN_LENGTH
+
+        super().__init__(model, height, width, max_token_length or DEFAULT_MAX_TOKEN_LENGTH)
+
+    def schedule(self, request: SlotRequest):
+        timesteps, sigmas = self.model.prepare_timesteps(
+            request.num_inference_steps, self.height, self.width
+        )
+        return np.asarray(timesteps, np.float32), np.asarray(sigmas, np.float32)
+
+    def encode(self, requests: list[SlotRequest]):
+        rows = super().encode(requests)
+        if tuple(rows[0][0].shape) != self.emb_shape:
+            raise ValueError(f"CogView4 pool: prompt features {tuple(rows[0][0].shape)} do not "
+                             f"fit the pool's {self.emb_shape}")
+        return rows
+
+    def blank_context(self, num_slots: int):
+        size = torch.tensor([self.height, self.width], dtype=torch.float32, device=self.device)
+        return {
+            **super().blank_context(num_slots),
+            "original_size": size.expand(2 * num_slots, 2).contiguous(),
+            "target_size": size.expand(2 * num_slots, 2).contiguous(),
+            "crop_coords": torch.zeros((2 * num_slots, 2), dtype=torch.float32, device=self.device),
+        }
+
+    def slot_step(self, latents, ctx, t, sigma, next_sigma, idx, total, scalars, active, host):
+        return self.model._slot_step(
+            latents, t, sigma, next_sigma, ctx["emb"], ctx["original_size"], ctx["target_size"],
+            ctx["crop_coords"], scalars["cfg_scale"], active,
+        )
+
+
 class ContinuousBatcher:
     """Fixed-slot step-level scheduler.
 

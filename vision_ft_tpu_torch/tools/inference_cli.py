@@ -1,14 +1,14 @@
 """Single-file inference CLI of the port (``tools/inference_cli.py``
 counterpart): loads a family's single-file checkpoint, optionally quantizes
-the denoiser's Linears (``--quant-type``, e.g. ``bnb_nf4``: on SDXL the
-4-bit matmul kernels), generates and saves webp, on the card:
+the denoiser's Linears (``--quant-type``, e.g. ``bnb_nf4``: the 4-bit
+matmul kernels), generates and saves webp, on the card:
 
     python3 -m vision_ft_tpu_torch.tools.inference_cli --family sdxl \\
         --checkpoint-path sdxl.safetensors --tokenizer-path /path/to/clip_vocab \\
         --width 1024 --height 1024 --quant-type bnb_nf4 --save-path out.webp
 
-Families: sdxl, lumina2, auraflow, flux (the JAX package's cogview4 and wan
-raise ``NotImplementedError``). Tokenizers load from a local directory
+Families: sdxl, lumina2, auraflow, cogview4, flux (the JAX package's wan
+raises ``NotImplementedError``). Tokenizers load from a local directory
 (``--tokenizer-path``: CLIP's vocab.json + merges.txt, or a SentencePiece
 ``tokenizer.model``; for flux the T5 one, with CLIP's in a ``clip/``
 subfolder).
@@ -50,11 +50,28 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+# the denoiser's Linears the JAX tool leaves unquantized
+EXCLUDE_KEYS = ["t_embedder", "final_linear", "modF"]
+# and those each family leaves unquantized besides: the patch-in and
+# patch-out projections (64 or 16 latent channels wide) and SDXL's 320-wide
+# timestep projections, whose widths the 4-bit kernel does not take (such a
+# 4-bit layer raises on the card's "fused" route, ``nn.set_nf4_route``)
+UNQUANTIZED = {
+    "sdxl": ["time_embed.0", "input_blocks.blocks.1.0.emb_layers",
+             "input_blocks.blocks.2.0.emb_layers", "output_blocks.blocks.6.0.emb_layers",
+             "output_blocks.blocks.7.0.emb_layers", "output_blocks.blocks.8.0.emb_layers"],
+    "lumina2": ["x_embedder", "final_layer.linear"],
+    "auraflow": ["init_x_linear"],
+    "cogview4": ["patch_embed.proj", "proj_out"],
+    "flux": ["img_in", "final_layer.linear"],
+}
+
+
 def build_model(family: str, checkpoint_path: str, tokenizer_path: Optional[str],
                 quant_type: Optional[str], device=None):
     """The family's pipeline from ``checkpoint_path``, its denoiser's
-    Linears quantized to ``quant_type`` where given (as the JAX tool: all
-    but ``t_embedder``, ``final_linear`` and ``modF``)."""
+    Linears quantized to ``quant_type`` where given: all but those of
+    ``EXCLUDE_KEYS`` and the family's ``UNQUANTIZED``."""
     model = load_model(family, {"checkpoint_path": checkpoint_path}, tokenizer_path,
                        device=device)
     if quant_type is not None:
@@ -62,7 +79,7 @@ def build_model(family: str, checkpoint_path: str, tokenizer_path: Optional[str]
 
         print(f"Quantizing denoiser with {quant_type}...")
         quantize_params(model.denoiser, quant_type, include_keys=[""],
-                        exclude_keys=["t_embedder", "final_linear", "modF"])
+                        exclude_keys=[*EXCLUDE_KEYS, *UNQUANTIZED[family]])
     return model
 
 

@@ -1,7 +1,7 @@
 """Batched inference HTTP server of the port (``tools/inference_server.py``
 counterpart): POST /predict with a JSON ``GenerationParams`` body returns
 image/webp bytes; GET /health answers ``{"status": "ok"}``. It serves the
-sdxl, lumina2, auraflow and flux families from a TrainConfig YAML (its
+sdxl, lumina2, auraflow, cogview4 and flux families from a TrainConfig YAML (its
 ``model`` section) and optional PEFT safetensors, on the card:
 
     python3 -m vision_ft_tpu_torch.tools.inference_server -C configs/sdxl/x.yml \\
@@ -20,7 +20,7 @@ counts, seeds and guidance shares the card with no window and no lockstep.
 The kernels of the family's path are built before the worker thread
 starts, so no build races a request. Flux takes the T5 tokenizer of
 ``--tokenizer-path`` and a CLIP tokenizer from its ``clip/`` subfolder. The
-cogview4 and wan families of the JAX package are not ported yet and raise
+wan family of the JAX package is not ported yet and raises
 ``NotImplementedError``.
 """
 
@@ -36,16 +36,19 @@ from typing import Optional, Sequence
 
 from pydantic import BaseModel, field_validator
 
-SERVED_FAMILIES = ("sdxl", "lumina2", "auraflow", "flux")
+SERVED_FAMILIES = ("sdxl", "lumina2", "auraflow", "cogview4", "flux")
 # the JAX package's other families, each waiting for its port
-WAITING_FAMILIES = ("cogview4", "wan")
-TOKENIZER_FAMILY = {"sdxl": "clip", "lumina2": "gemma", "auraflow": "t5", "flux": "t5"}
-# the CUDA libraries each family's path launches (SDXL's 4-bit kernels with a
-# quantized base)
+WAITING_FAMILIES = ("wan",)
+TOKENIZER_FAMILY = {
+    "sdxl": "clip", "lumina2": "gemma", "auraflow": "t5", "cogview4": "glm", "flux": "t5",
+}
+# the CUDA libraries each family's path launches (SDXL's and CogView4's 4-bit
+# kernels with a quantized base)
 FAMILY_KERNELS = {
     "sdxl": ("flash_attention_bshd", "layer_norm", "nf4_matmul"),
     "lumina2": ("flash_attention_masked", "fused_mlp"),
     "auraflow": ("flash_attention_bshd", "fused_mlp"),
+    "cogview4": ("flash_attention_bshd", "nf4_matmul"),
     "flux": ("flash_attention_bshd", "layer_norm"),
 }
 
@@ -173,6 +176,12 @@ def load_model(family: str, model_config: dict, tokenizer_path: Optional[str] = 
 
         model = AuraFlowModel.from_original_checkpoint(
             AuraFlowConig.model_validate(model_config), tokenizer=tokenizer, device=device
+        )
+    elif family == "cogview4":
+        from ..models.cogview4 import CogView4Config, CogView4Model, convert_from_original_key
+
+        model = CogView4Model.from_checkpoint(
+            CogView4Config.model_validate(model_config), tokenizer=tokenizer, device=device
         )
     else:
         from ..models.flux import FluxConfig, FluxModel
@@ -372,6 +381,7 @@ class ContinuousScheduler:
                  num_slots: int = 4, max_steps: int = 50):
         from ..serving import (
             AuraFlowSlotAdapter,
+            CogView4SlotAdapter,
             ContinuousBatcher,
             FluxSlotAdapter,
             Lumina2SlotAdapter,
@@ -382,6 +392,7 @@ class ContinuousScheduler:
             "sdxl": SDXLSlotAdapter,
             "lumina2": Lumina2SlotAdapter,
             "auraflow": AuraFlowSlotAdapter,
+            "cogview4": CogView4SlotAdapter,
             "flux": FluxSlotAdapter,
         }
         if model._family not in adapters:

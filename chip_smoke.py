@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile] [--kernel-d] [--kernel-i] [--trace-kernels]
                           [--ln-probe-costs] [--lumina-trainer] [--auraflow]
-                          [--auraflow-trainer] [--serve] [--flux] [--cogview4]
+                          [--auraflow-trainer] [--serve] [--flux] [--cogview4] [--wan]
 
 With --profile, phases 6 and 8 also trace two train steps with
 torch.profiler (device activity only) and print the device time of a step
@@ -52,8 +52,13 @@ and 31-33 and the build of kernels B's, C's and D's libraries run, printing
 the CogView4 paths' launch counts, kernels B's and C's records at
 CogView4's shapes and the numbers as one JSON line (no ok line); the main
 run runs it so, in a process of its own, after phases 28-30 (with
---profile, phase 32 also traces one CFG denoise step). Each phase's header
-gives the seconds since its process started.
+--profile, phase 32 also traces one CFG denoise step). With --wan, only
+phases 0 and 34-36 and the build of kernels A's, B's and D's libraries run,
+printing the Wan paths' launch counts, kernels B's, A's and D's records at
+Wan's shapes and the numbers as one JSON line (no ok line); the main run
+runs it so, in a process of its own, after phases 31-33 (with --profile,
+phase 35 also traces one CFG denoise step and one VAE decode). Each phase's
+header gives the seconds since its process started.
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -187,9 +192,10 @@ Phases, each printing its own lines; any failure exits non-zero:
     reads and writes through), and its three kernels timed against
     Tensor.copy_ and torch.add as kernel A is in phase 3. Every model path
     above launches J, K and L 0 times.
-19. the Lumina2 Trainer path at full width and depth, in a process of its
-    own (--lumina-trainer): a seeded full-width Lumina2 (made as in phase 12)
-    written by state_dict() to a 10.6 GB safetensors file, 8 seeded images
+19. the Lumina2 Trainer path at full width, in a process of its own
+    (--lumina-trainer): a seeded full-width Lumina2 with 8 of the NextDiT's
+    26 layers (LUMINA_CUT_DEPTH; full depth, a 10.6 GB file, before the Wan
+    phases joined the run) written by state_dict() to a safetensors file, 8 seeded images
     (1024x1024 and 832x1216, which config #4's buckets crop to 768x1152)
     with captions of different lengths, configs/lumina2/text_to_image.yml
     cut to one epoch of 4 steps at batch 2, with EMA (decay 0.999), state
@@ -268,15 +274,17 @@ Phases, each printing its own lines; any failure exits non-zero:
     --quant-type bnb_nf4: kernel D's forward launches against the UNet's
     Linears it takes. Each reply a webp of the asked size.
 26. serving Lumina2 (config #4) in the same process: kernels E and F
-    against plain at the pool's batch 8; a seeded full-size checkpoint;
-    a continuous pool of 4 slots at 1024 px, 4 concurrent 8-step requests
-    (one truncated at 0.5, renorm 0 and 2.0 beside 1.0), each against
-    batch-1 generate(); E and F 30 launches a tick.
+    against plain at the pool's batch 8; a seeded checkpoint at full width
+    with 8 of the NextDiT's 26 layers (LUMINA_CUT_DEPTH); a continuous
+    pool of 4 slots at 1024 px, 4 concurrent 8-step requests (one truncated
+    at 0.5, renorm 0 and 2.0 beside 1.0), each against batch-1 generate();
+    E and F 12 launches a tick (30 at full depth).
 27. serving AuraFlow (config #3) in the same process: kernels B at head
-    dim 256 and F against plain at the pool's batch 8; a seeded full-size
-    checkpoint; a continuous pool of 4 slots at 1024 px, 3 concurrent
-    8-step requests (one at cfg_scale 1), each against batch-1 generate();
-    B 36 and F 40 launches a tick.
+    dim 256 and F against plain at the pool's batch 8; a seeded checkpoint
+    at full width with the 4 double and 8 of the 32 single layers
+    (AURA_CUT_DEPTH); a continuous pool of 4 slots at 1024 px, 3
+    concurrent 8-step requests (one at cfg_scale 1), each against batch-1
+    generate(); B 12 and F 16 launches a tick (36 and 40 at full depth).
 28. kernel B at head dim 128, Flux's shapes, in a process of its own
     (--flux): the 1024 px request's joint sequence (512 T5 tokens + 4096
     patches = 4608), under CFG (batch 2), a pool of 4 slots (batch 8),
@@ -343,6 +351,35 @@ Phases, each printing its own lines; any failure exits non-zero:
     two kernels a step (28 each), a 4-step preview, warm steps, the saved
     LoRA's keys, bytes and write / load seconds, and a depth-reduced step
     against the plain versions.
+34. kernels B, A and D at Wan 2.2's shapes, in a process of its own
+    (--wan): B at 24 heads of 128 over the video tokens of a 704 px,
+    49-frame request (12 x 22 x 22 = 5808, past a multiple of 128) under CFG
+    and at the window's batch 4, self-attention and cross-attention to the
+    512 text positions, and at the published 720p setting's 26,400 tokens
+    (its plain version 2 heads at a time); A without beta at UMT5's C 4096
+    over the prompt encoding's rows and over 2 x 512; D at the DiT's Linears
+    (each one launch, reruns bit-identical, one call and 10 back to back
+    beside SDPA's forward, F.layer_norm or cuBLAS, TFLOP/s, the bounds).
+35. Wan22.generate() at full width and depth in the same process (the DiT's
+    30 blocks 3072 wide; UMT5 with 24 layers, dim 4096, vocab 256384; the
+    causal 3-D VAE at its default config in fp32; bf16 seeded random
+    weights made on the card; the synthetic SentencePiece vocab with T5's
+    template): 704 x 704, 49 frames, 8 steps, CFG 5 (cold, another prompt,
+    the first again: its latents bit-identical, its frames within
+    WAN_FRAME_TOL levels, deep_cache_interval 2); kernel B's
+    launches (60 a step, 14 on a cached step) and A's (49 a prompt encoding)
+    against the module tree; one CFG denoise step against the plain
+    version; seconds a request, the VAE decode's, peak GiB. The requests
+    of phases 35-36 run with cuDNN's TF32 on, PyTorch's default (the VAE's
+    fp32 convolutions); phase 0's setting holds for every comparison.
+36. in the same process, at full width and reduced depth (2 blocks, 2 UMT5
+    layers): the three files written by the state dicts and read by
+    from_checkpoint, bit-identical (the VAE fp32 from its bf16 file); the
+    server on a YAML naming them: the window scheduler's 2 compatible
+    requests with frames in one generate() of batch 2, mp4 replies read back
+    by OpenCV, each row against batch-1 generate() (POOL_REQUEST_TOL); the
+    CLI on --family wan writing an mp4, in bf16 and with --quant-type
+    bnb_nf4 (kernel D's launches on every DiT Linear it takes).
 
 Every kernel's record carries its time, its plain version's, the bound
 (the larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s bf16, or
@@ -1336,13 +1373,14 @@ LUMINA_TRAINER_CAPTIONS = [
 
 def lumina_trainer_phase(device, wrappers: dict, checkout: Path) -> dict:
     """Phase 19, run in a process of its own (``--lumina-trainer``): the
-    Lumina2 Trainer path at full width and depth from a seeded single-file
+    Lumina2 Trainer path at full width and reduced depth from a seeded single-file
     checkpoint, with EMA, state checkpoints and their resume, the profiler
     window and a preview. Returns the run's launch counts and numbers."""
     import yaml
     from safetensors import safe_open
 
     from vision_ft_tpu_torch.config import TrainConfig
+    from vision_ft_tpu_torch.models.lumina2.config import DenoiserConfig as LuminaDenoiserConfig
     from vision_ft_tpu_torch.models.lumina2.config import Lumina2Config
     from vision_ft_tpu_torch.models.lumina2.pipeline import Lumina2
     from vision_ft_tpu_torch.models.lumina2.util import convert_to_comfy_key
@@ -1377,8 +1415,10 @@ def lumina_trainer_phase(device, wrappers: dict, checkout: Path) -> dict:
             Image.fromarray(smooth).resize((w, h), Image.BILINEAR).save(images_dir / f"{i}.png")
             (images_dir / f"{i}.txt").write_text(LUMINA_TRAINER_CAPTIONS[i])
 
-        # the checkpoint: the full-width Lumina2 of phase 12, seeded, written by state_dict()
-        seeded = Lumina2(Lumina2Config(checkpoint_path="", dtype="bfloat16"))
+        # the checkpoint: the full-width Lumina2 of phase 12 at reduced depth, seeded, written
+        # by state_dict()
+        seeded = Lumina2(Lumina2Config(checkpoint_path="", dtype="bfloat16",
+                                       denoiser=LuminaDenoiserConfig(**LUMINA_CUT_DEPTH)))
         seeded.init_params(torch.Generator(device=device).manual_seed(19))
         ckpt = work / "lumina2.safetensors"
         torch.cuda.synchronize()
@@ -1393,7 +1433,8 @@ def lumina_trainer_phase(device, wrappers: dict, checkout: Path) -> dict:
             prompt="a photo of a cat sitting on the sofa", negative_prompt=None, height=1024,
             width=1024, cfg_scale=4.0, num_steps=STEPS, seed=0)]))
         raw = yaml.safe_load((checkout / "configs/lumina2/text_to_image.yml").read_text())
-        raw["model"].update(checkpoint_path=str(ckpt), tokenizer_path=str(work))
+        raw["model"].update(checkpoint_path=str(ckpt), tokenizer_path=str(work),
+                            denoiser=dict(LUMINA_CUT_DEPTH))
         raw["dataset"].update(folder=str(images_dir))
         raw["num_train_epochs"] = 1
         raw["saving"]["callbacks"][0]["save_dir"] = str(work / "lora")
@@ -1715,18 +1756,52 @@ def aura_fill_zero_init(model, device, seed) -> int:
     return filled
 
 
+# kernel B's plain version runs PLAIN_HEADS heads at a time where the fp32 scores of all heads
+# at once (B x H x Sq x Sk x 4 bytes) pass PLAIN_SCORE_BYTES: CogView4's pool (8, 4112, H32),
+# 17.3 GB of scores, runs whole on the 80 GB card; Wan's 720p (1, 26400, H24), 66.9 GB, cannot
+PLAIN_HEADS = 2
+PLAIN_SCORE_BYTES = 20e9
+
+
+def bshd_reference_by_heads(q, k, v, h, group, return_lse=False):
+    """Kernel B's plain version computed ``group`` heads at a time (column
+    slices of the heads-packed tensors), for shapes whose scores for all
+    heads at once would not fit on the card."""
+    from vision_ft_tpu_torch.ops.flash_attention import flash_attention_bshd_reference
+
+    d = q.shape[-1] // h
+    outs, lses = [], []
+    for first in range(0, h, group):
+        cols = slice(first * d, (first + group) * d)
+        out = flash_attention_bshd_reference(q[..., cols], k[..., cols], v[..., cols], group,
+                                             return_lse=return_lse)
+        if return_lse:
+            out, lse = out
+            lses.append(lse)
+        outs.append(out)
+    out = torch.cat(outs, dim=-1)
+    return (out, torch.cat(lses, dim=1)) if return_lse else out
+
+
 def bshd_forward_record(device, gen, b, sq, sk, inner, h) -> dict:
     """Kernel B on seeded (B, Sq, H*D) q and (B, Sk, H*D) k, v: one launch,
-    out and lse against the plain version, a rerun bit-identical, one call
-    and a call over 10 back to back beside SDPA's, TFLOP/s and the bound.
-    Prints its line and returns its record."""
-    from vision_ft_tpu_torch.ops.flash_attention import (
-        flash_attention_bshd, flash_attention_bshd_reference,
-    )
+    out and lse against the plain version (PLAIN_HEADS heads at a time where
+    all heads' fp32 scores pass PLAIN_SCORE_BYTES), a rerun bit-identical,
+    one call and a call over 10 back to back beside SDPA's, TFLOP/s and the
+    bound. Prints its line and returns its record."""
+    from vision_ft_tpu_torch.ops.flash_attention import flash_attention_bshd
+
+    plain_heads = PLAIN_HEADS if b * h * sq * sk * 4 > PLAIN_SCORE_BYTES else None
+    if plain_heads:
+        def flash_attention_bshd_reference(q, k, v, h, return_lse=False):
+            return bshd_reference_by_heads(q, k, v, h, plain_heads, return_lse)
+    else:
+        from vision_ft_tpu_torch.ops.flash_attention import flash_attention_bshd_reference
 
     q = torch.randn(b, sq, inner, device=device, generator=gen).bfloat16()
     k, v = (torch.randn(b, sk, inner, device=device, generator=gen).bfloat16() for _ in "kv")
-    what = f"attention B={b} Sq={sq} Sk={sk} H={h} D={inner // h}"
+    what = f"attention B={b} Sq={sq} Sk={sk} H={h} D={inner // h}" + (
+        f" (plain version {plain_heads} heads at a time)" if plain_heads else "")
     before = flash_attention_bshd.launches
     out, lse = flash_attention_bshd(q, k, v, h, return_lse=True)
     if flash_attention_bshd.launches != before + 1:
@@ -2730,6 +2805,12 @@ SERVE_MASKED_SHAPE = (8, 24, 8, 4352, 96)  # the NextDiT's main stack, pool of 4
 SERVE_LUMINA_MLP = [(8 * 4352, 2304, 9216)]
 SERVE_AURA_ATTN = (8, 4360, 3072, 12)  # the MMDiT's joint sequence, pool of 4
 SERVE_AURA_MLP = [(8 * 4360, 3072, 8192), (8 * 4096, 3072, 8192), (8 * 264, 3072, 8192)]
+# the Lumina2 Trainer's and server's denoisers (phases 19 and 26) and the AuraFlow server's
+# (phase 27) at full width and reduced depth (full depth before the Wan phases joined the
+# run; phases 14 and 23-24 train at full depth): the NextDiT's 8 of 26 layers with both
+# refiners; the MMDiT's 4 double layers and 8 of its 32 single ones
+LUMINA_CUT_DEPTH = dict(depth=8)
+AURA_CUT_DEPTH = dict(num_double_layers=4, num_single_layers=8)
 
 
 def serve_phase(device, wrappers: dict) -> dict:
@@ -2743,8 +2824,10 @@ def serve_phase(device, wrappers: dict) -> dict:
     NF4 base. Returns the served paths' launch counts, the kernels' records
     at these shapes and the numbers."""
     from vision_ft_tpu_torch.models.auraflow.config import AuraFlowConig
+    from vision_ft_tpu_torch.models.auraflow.config import DenoiserConfig as AuraDenoiserConfig
     from vision_ft_tpu_torch.models.auraflow.pipeline import AuraFlowModel
     from vision_ft_tpu_torch.models.lumina2.config import Lumina2Config
+    from vision_ft_tpu_torch.models.lumina2.config import DenoiserConfig as LuminaDenoiserConfig
     from vision_ft_tpu_torch.models.lumina2.pipeline import Lumina2
     from vision_ft_tpu_torch.models.sdxl.config import DenoiserConfig as SDXLDenoiserConfig
     from vision_ft_tpu_torch.models.sdxl.config import SDXLConfig
@@ -3012,8 +3095,8 @@ def serve_phase(device, wrappers: dict) -> dict:
         (work / "sdxl.safetensors").unlink()
 
         # -- 26: Lumina2 ----------------------------------------------------------------
-        phase("26 Lumina2 (config #4) served at full width and depth: a continuous pool of 4 "
-              "slots through the client")
+        phase("26 Lumina2 (config #4) served at full width, 8 of its 26 layers: a continuous "
+              "pool of 4 slots through the client")
         b, h, hk, s, d = SERVE_MASKED_SHAPE
         q = torch.randn(b, s, h, d, device=device, generator=gen).bfloat16().transpose(1, 2)
         k, v = (torch.randn(b, s, hk, d, device=device, generator=gen).bfloat16().transpose(1, 2)
@@ -3047,14 +3130,17 @@ def serve_phase(device, wrappers: dict) -> dict:
         torch.cuda.empty_cache()
 
         (work / "tokenizer.model").write_bytes(lumina_vocab())
-        seeded = Lumina2(Lumina2Config(checkpoint_path="", dtype="bfloat16"))
+        lumina_config = Lumina2Config(checkpoint_path="", dtype="bfloat16",
+                                      denoiser=LuminaDenoiserConfig(**LUMINA_CUT_DEPTH))
+        seeded = Lumina2(lumina_config)
         seeded.init_params(torch.Generator(device=device).manual_seed(26))
         den = seeded.denoiser
         blocks = len(den.layers) + len(den.noise_refiner) + len(den.context_refiner)
         checkpoint(seeded, work / "lumina2.safetensors", "lumina2")
         del seeded, den
         write_yaml(work / "lumina2.yml", {"checkpoint_path": str(work / "lumina2.safetensors"),
-                                          "dtype": "bfloat16"})
+                                          "dtype": "bfloat16",
+                                          "denoiser": lumina_config.denoiser.model_dump()})
         start = time.perf_counter()
         served = srv.T2IModel(str(work / "lumina2.yml"), None, str(work), family="lumina2")
         srv.prepare_kernels("lumina2", device)
@@ -3098,14 +3184,16 @@ def serve_phase(device, wrappers: dict) -> dict:
         (work / "lumina2.safetensors").unlink()
 
         # -- 27: AuraFlow ----------------------------------------------------------------
-        phase("27 AuraFlow (config #3) served at full width and depth: a continuous pool of 4 "
-              "slots through the client, one request at cfg_scale 1")
+        phase("27 AuraFlow (config #3) served at full width, 4 double and 8 single layers: a "
+              "continuous pool of 4 slots through the client, one request at cfg_scale 1")
         attention_record(*SERVE_AURA_ATTN)
         for m, c, inner in SERVE_AURA_MLP:
             mlp_record(m, c, inner)
         gc.collect()
         torch.cuda.empty_cache()
-        seeded = AuraFlowModel(AuraFlowConig(checkpoint_path="", dtype="bfloat16"))
+        aura_config = AuraFlowConig(checkpoint_path="", dtype="bfloat16",
+                                    denoiser=AuraDenoiserConfig(**AURA_CUT_DEPTH))
+        seeded = AuraFlowModel(aura_config)
         seeded.init_params(torch.Generator(device=device).manual_seed(27))
         aura_fill_zero_init(seeded, device, 28)
         den = seeded.denoiser
@@ -3114,7 +3202,8 @@ def serve_phase(device, wrappers: dict) -> dict:
         checkpoint(seeded, work / "auraflow.safetensors", "auraflow")
         del seeded, den
         write_yaml(work / "auraflow.yml", {"checkpoint_path": str(work / "auraflow.safetensors"),
-                                           "dtype": "bfloat16"})
+                                           "dtype": "bfloat16",
+                                           "denoiser": aura_config.denoiser.model_dump()})
         start = time.perf_counter()
         served = srv.T2IModel(str(work / "auraflow.yml"), None, str(work), family="auraflow")
         srv.prepare_kernels("auraflow", device)
@@ -3717,6 +3806,46 @@ COGVIEW4_TRAINER_CAPTIONS = [
 COGVIEW4_PREVIEW_STEPS = 4
 
 
+def nf4_forward_record(device, gen, m, n, k) -> dict:
+    """Kernel D's forward on the split layout a quantized Linear holds on
+    the card, (M, K) bf16 rows by a seeded (N, K) NF4 weight: one launch,
+    against its plain version, a rerun bit-identical, timed beside cuBLAS on
+    the dequantized bf16 weight, TFLOP/s and the bound. Prints its line and
+    returns its record."""
+    from vision_ft_tpu_torch.modules.quant.nf4 import dequantize_4bit, quantize_4bit
+    from vision_ft_tpu_torch.ops.nf4_matmul import (
+        nf4_matmul_forward, nf4_matmul_reference, to_split_layout,
+    )
+
+    w = torch.randn(n, k, device=device, generator=gen) * 0.02
+    packed, state = quantize_4bit(w, "nf4")
+    code, absmax = state["quant_map"], state["absmax"]
+    args = (to_split_layout(packed, (n, k)), code, absmax, (n, k), 64, True)
+    x = torch.randn(m, k, device=device, generator=gen).bfloat16()
+    what = f"4-bit matmul forward nf4 split (M={m}, N={n}, K={k})"
+    before = nf4_matmul_forward.launches
+    y = nf4_matmul_forward(x, *args)
+    if nf4_matmul_forward.launches != before + 1:
+        raise AssertionError(f"{what}: {nf4_matmul_forward.launches - before} launches")
+    abs_err, rel_err = compare(what, lambda: y, lambda: nf4_matmul_reference(x, *args),
+                               NF4_FWD_TOL)
+    assert_reruns(what, lambda: nf4_matmul_forward(x, *args))
+    ms = cuda_ms(lambda: nf4_matmul_forward(x, *args))
+    plain_ms = cuda_ms(lambda: nf4_matmul_reference(x, *args), warmup=1, iters=5)
+    dense = dequantize_4bit(args[0], code, absmax, (n, k), 64, torch.bfloat16, True)
+    library_ms = cuda_ms(lambda: F.linear(x, dense))
+    flops = 2 * m * n * k
+    weight_bytes = args[0].numel() + absmax.numel() * 4 + code.numel() * 4
+    bound_ms, bound_by = bound(x.numel() * 2 + weight_bytes + m * n * 2, flops)
+    print(f"{what}: max abs err {abs_err:.3e} rel {rel_err:.3e} (tol {NF4_FWD_TOL}), one launch, "
+          f"reruns bit-identical; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+          f"{ms / library_ms:.2f}x cuBLAS), plain {plain_ms:.3f} ms, F.linear on a bf16 weight "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return dict(shape=[m, n, k], max_abs_err=abs_err, rel_err=rel_err, ms=ms,
+                tflops=flops / ms / 1e9, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
+
+
 def cogview4_phase(device, wrappers: dict, profile: bool, checkout: Path) -> dict:
     """Phases 31-33, run in a process of its own (``--cogview4``): kernels
     B and C at head dim 128 at CogView4's shapes against their plain
@@ -3744,10 +3873,6 @@ def cogview4_phase(device, wrappers: dict, profile: bool, checkout: Path) -> dic
         SentencePieceModel, SentencePieceTokenizer,
     )
     from vision_ft_tpu_torch.modules.peft import load_peft_weight
-    from vision_ft_tpu_torch.modules.quant.nf4 import dequantize_4bit, quantize_4bit
-    from vision_ft_tpu_torch.ops.nf4_matmul import (
-        nf4_matmul_forward, nf4_matmul_reference, to_split_layout,
-    )
     from vision_ft_tpu_torch.tools import cogview4_quant_compare, inference_cli
     from vision_ft_tpu_torch.tools import inference_server as srv
     from vision_ft_tpu_torch.tools.ptxas_report import ptxas_report
@@ -3797,37 +3922,8 @@ def cogview4_phase(device, wrappers: dict, profile: bool, checkout: Path) -> dic
     gc.collect()
     torch.cuda.empty_cache()
 
-    # kernel D's forward on the split layout a quantized Linear holds on the card
     for m, n, k in COGVIEW4_NF4_SHAPES:
-        w = torch.randn(n, k, device=device, generator=gen) * 0.02
-        packed, state = quantize_4bit(w, "nf4")
-        code, absmax = state["quant_map"], state["absmax"]
-        args = (to_split_layout(packed, (n, k)), code, absmax, (n, k), 64, True)
-        x = torch.randn(m, k, device=device, generator=gen).bfloat16()
-        what = f"4-bit matmul forward nf4 split (M={m}, N={n}, K={k})"
-        before = nf4_matmul_forward.launches
-        y = nf4_matmul_forward(x, *args)
-        if nf4_matmul_forward.launches != before + 1:
-            raise AssertionError(f"{what}: {nf4_matmul_forward.launches - before} launches")
-        abs_err, rel_err = compare(what, lambda: y, lambda: nf4_matmul_reference(x, *args),
-                                   NF4_FWD_TOL)
-        assert_reruns(what, lambda: nf4_matmul_forward(x, *args))
-        ms = cuda_ms(lambda: nf4_matmul_forward(x, *args))
-        plain_ms = cuda_ms(lambda: nf4_matmul_reference(x, *args), warmup=1, iters=5)
-        dense = dequantize_4bit(args[0], code, absmax, (n, k), 64, torch.bfloat16, True)
-        library_ms = cuda_ms(lambda: F.linear(x, dense))
-        flops = 2 * m * n * k
-        weight_bytes = args[0].numel() + absmax.numel() * 4 + code.numel() * 4
-        bound_ms, bound_by = bound(x.numel() * 2 + weight_bytes + m * n * 2, flops)
-        print(f"{what}: max abs err {abs_err:.3e} rel {rel_err:.3e} (tol {NF4_FWD_TOL}), one launch, "
-              f"reruns bit-identical; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
-              f"{ms / library_ms:.2f}x cuBLAS), plain {plain_ms:.3f} ms, F.linear on a bf16 weight "
-              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        records["nf4_matmul_forward"].append(dict(
-            shape=[m, n, k], max_abs_err=abs_err, rel_err=rel_err, ms=ms,
-            tflops=flops / ms / 1e9, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=library_ms))
-        del w, packed, args, x, y, dense
+        records["nf4_matmul_forward"].append(nf4_forward_record(device, gen, m, n, k))
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4376,6 +4472,543 @@ def run_cogview4(checkout: Path, profile: bool) -> dict:
     return json.loads(lines[-1])["cogview4"]
 
 
+# the Wan phases (34-36, ``--wan``): kernel B at head dim 128 with 24 heads, Wan's shapes
+# (B, Sq, Sk, H*D, H): self-attention over the video tokens and cross-attention from them to
+# the 512 text positions; 49 frames at 704 x 704 are 12 latent frames of 22 x 22 patches
+WAN_ATTN_SHAPES = [
+    (2, 5808, 5808, 3072, 24),    # a 704 px, 49-frame request under CFG: 12 * 22 * 22 tokens
+    (2, 5808, 512, 3072, 24),     # its cross-attention: Sq past a multiple of 128, 512 keys
+    (4, 5808, 5808, 3072, 24),    # the window scheduler's batch of 2 requests under CFG
+    (4, 5808, 512, 3072, 24),
+    (1, 26400, 26400, 3072, 24),  # the published 720p setting, 121 frames: 30 * 22 * 40
+]
+# kernel D's forward at the DiT's Linears (M, N, K) in the CLI's --quant-type run at the
+# request's size: q / k / v / o and the feed-forward on the video tokens under CFG (2 x 5808
+# rows), cross k / v and the text embedding on 2 x 512, the time MLP on 2 rows
+WAN_NF4_SHAPES = [
+    (11616, 3072, 3072),   # self_attn / cross_attn q, o; self_attn k, v
+    (11616, 14336, 3072),  # ffn.0
+    (11616, 3072, 14336),  # ffn.2
+    (1024, 3072, 3072),    # cross_attn k, v; text_embedding.2
+    (1024, 3072, 4096),    # text_embedding.0
+    (2, 18432, 3072),      # time_projection.1
+    (2, 3072, 256),        # time_embedding.0
+]
+WAN_STEPS = 8  # the requests' steps (the pipeline's default is 25)
+WAN_CFG = 5.0
+WAN_FRAMES, WAN_SIZE = 49, 704
+# one full-depth CFG denoise step (30 blocks), kernel B against its plain version, bf16,
+# random weights: each block's few-ulp differences carried on; relative to the largest value
+# of the velocity or the latents (FLUX_STEP_TOL)
+WAN_STEP_TOL = 5e-2
+# request 3 (request 1 again) against request 1: the latents bit for bit (no convolution on
+# their path); the decoded frames within this many of 255 levels, since cuDNN picks its 3-D
+# convolution algorithms by the memory free beside it and another algorithm sums in another
+# order (fp32 accumulation; rounding to uint8 can move a value by a level)
+WAN_FRAME_TOL = 2
+WAN_REDUCED_LAYERS = 2  # DiT blocks and UMT5 layers, full width, for the files, server, CLI
+WAN_SERVE = dict(frames=17, size=512, steps=4)  # 4 latent frames of 16 x 16 patches
+WAN_WINDOW_SEED = 4242  # the seed the window's unseeded batch is given, to hold it to batch 1
+
+
+def mp4_frames(data: bytes, work: Path) -> tuple[float, list]:
+    """An mp4's frame rate and frames (OpenCV), from its bytes."""
+    import cv2
+
+    path = work / "reply.mp4"
+    path.write_bytes(data)
+    capture = cv2.VideoCapture(str(path))
+    fps, frames = capture.get(cv2.CAP_PROP_FPS), []
+    while True:
+        ok, frame = capture.read()
+        if not ok:
+            break
+        frames.append(frame)
+    capture.release()
+    path.unlink()
+    return fps, frames
+
+
+def wan_phase(device, wrappers: dict, profile: bool) -> dict:
+    """Phases 34-36, run in a process of its own (``--wan``): kernel B at
+    Wan's self- and cross-attention shapes and kernel A without beta at
+    UMT5's C 4096 against their plain versions, kernel D at the DiT's
+    widths; Wan22 generate() at full width and depth with cuDNN's TF32 on,
+    as PyTorch has it by default (704 x 704, 49 frames:
+    launch counts, a repeat bit-identical, DeepCache, one CFG denoise step
+    against the plain versions); at full width and reduced depth the
+    three-file checkpoint, the server's window scheduler (mp4 replies, each
+    row against batch-1 generate()) and the CLI with and without NF4.
+    Returns the Wan paths' launch counts, the kernels' records at these
+    shapes and the numbers."""
+    import cv2
+
+    from vision_ft_tpu_torch.models.text_encoders.sentencepiece import (
+        SentencePieceModel, SentencePieceTokenizer,
+    )
+    from vision_ft_tpu_torch.models.wan import Wan22, WanConfig
+    from vision_ft_tpu_torch.models.wan.config import Wan22TI2V5BDenoiserConfig
+    from vision_ft_tpu_torch.models.wan.text_encoder import TextEncoderConfig
+    from vision_ft_tpu_torch.ops.layer_norm import layer_norm, layer_norm_reference
+    from vision_ft_tpu_torch.tools import inference_cli
+    from vision_ft_tpu_torch.tools import inference_server as srv
+    from vision_ft_tpu_torch.utils import safetensors as st
+
+    gen = torch.Generator(device=device).manual_seed(34)
+    numbers = {"cv2": cv2.__version__}
+    records = {"flash_attention_bshd": [], "layer_norm": [], "nf4_matmul_forward": []}
+    path_launches = {name: 0 for name in wrappers}
+
+    def read_launches():
+        return {name: wrapper.launches for name, wrapper in wrappers.items()}
+
+    def launched_since(before):
+        return {k: v - before[k] for k, v in read_launches().items() if v != before[k]}
+
+    @contextlib.contextmanager
+    def on_path():
+        """A Wan path's launches, added to the process's path counts;
+        launches made to compare kernels with plain run outside."""
+        before = read_launches()
+        yield
+        for name, count in read_launches().items():
+            path_launches[name] += count - before[name]
+
+    def free(model):
+        for part in (model.denoiser, model.text_encoder, model.vae):
+            part.to("meta")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2**30
+
+    tokenizer = SentencePieceTokenizer(SentencePieceModel.from_bytes(lumina_vocab()),
+                                       template="eos")
+    prompt, negative = "a photo of a cat sitting on the sofa", "blurry"
+    text_len = max(len(tokenizer.encode(t)) for t in (prompt, negative))
+
+    # -- 34: kernels B, A and D at Wan's shapes ---------------------------------------------
+    phase("34 kernel B at Wan's self- and cross-attention shapes, kernel A without beta at "
+          "UMT5's C 4096 and kernel D at the DiT's widths vs plain (bf16)")
+    for b, sq, sk, inner, h in WAN_ATTN_SHAPES:
+        records["flash_attention_bshd"].append(bshd_forward_record(device, gen, b, sq, sk, inner, h))
+    # UMT5's LayerNorms: the prompt and the negative (padded to the longer) as one batch, and
+    # two prompts of the full 512 tokens
+    for n_rows in (2 * text_len, 2 * 512):
+        x, w, _ = ln_inputs(n_rows, 4096, False, device, gen)
+        what = f"kernel A without beta at rows={n_rows} C=4096"
+        before = layer_norm.launches
+        layer_norm(x, w, None)
+        if layer_norm.launches != before + 1:
+            raise AssertionError(f"{what}: {layer_norm.launches - before} launches")
+        abs_err, rel_err = compare(what, lambda: layer_norm(x, w, None),
+                                   lambda: layer_norm_reference(x, w, None), LN_TOL)
+        assert_reruns(what, lambda: layer_norm(x, w, None))
+        kernel = call_costs(lambda: layer_norm(x, w, None))
+        library = call_costs(lambda: F.layer_norm(x, (4096,), w, None))
+        plain_ms = cuda_ms(lambda: layer_norm_reference(x, w, None))
+        bound_ms, bound_by = bound(2 * x.numel() * 2 + 4096 * 2, 8 * x.numel(), PEAK_FP32_FLOPS)
+        print(f"{what}: max abs err {abs_err:.3e} rel {rel_err:.3e} (tol {LN_TOL}), one launch, "
+              f"reruns bit-identical; kernel {kernel['ms']:.4f} ms one call, "
+              f"{kernel['burst_ms']:.4f} a call over 10 back to back, host {kernel['host_us']:.1f} "
+              f"us; plain {plain_ms:.4f} ms; F.layer_norm {library['ms']:.4f} ms one call, "
+              f"{library['burst_ms']:.4f} back to back, host {library['host_us']:.1f} us; bound "
+              f"{bound_ms:.5f} ms ({bound_by})")
+        records["layer_norm"].append(dict(
+            shape=[n_rows, 4096], max_abs_err=abs_err, rel_err=rel_err, ms=kernel["ms"],
+            burst_ms=kernel["burst_ms"], host_us=kernel["host_us"], plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library["ms"],
+            library_burst_ms=library["burst_ms"], library_host_us=library["host_us"]))
+        del x, w
+    for m, n, k in WAN_NF4_SHAPES:
+        records["nf4_matmul_forward"].append(nf4_forward_record(device, gen, m, n, k))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 35: generate() at full width and depth -----------------------------------------
+    phase(f"35 Wan 2.2 TI2V-5B generate() at full width and depth, {WAN_SIZE} x {WAN_SIZE}, "
+          f"{WAN_FRAMES} frames, bf16, seeded random weights")
+    # the requests run as a user's process runs them: PyTorch's default cuDNN setting, TF32 on
+    # (the VAE's fp32 convolutions); phase 0's full fp32 stays for matmuls
+    torch.backends.cudnn.allow_tf32 = True
+    print(f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} (PyTorch's default) for the "
+          f"requests; matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_wan_"))
+    try:
+        (work / "tokenizer.model").write_bytes(lumina_vocab())
+
+        class Model(Wan22):
+            """Keeps the last latents generate() decoded and times the decode."""
+
+            def decode_videos(self, latents):
+                self.last_latents = latents.clone()
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                videos = super().decode_videos(latents)
+                self.decode_s = time.perf_counter() - start
+                return videos
+
+        paths = dict(denoiser_path=str(work / "denoiser.safetensors"),
+                     text_encoder_path=str(work / "text_encoder.safetensors"),
+                     vae_path=str(work / "vae.safetensors"))
+        torch.cuda.reset_peak_memory_stats()
+        model = Model(WanConfig(**paths, dtype="bfloat16"), tokenizer=tokenizer)
+        start = time.perf_counter()
+        model.init_params(torch.Generator(device=device).manual_seed(0))
+        model.vae.init_random(torch.Generator(device=device).manual_seed(1))
+        torch.cuda.synchronize()
+        den, t5 = model.denoiser, model.text_encoder.model
+        counts = [sum(p.numel() for p in part.parameters())
+                  for part in (den, model.text_encoder, model.vae)]
+        weight_gb = sum(p.numel() * p.element_size() for part in (den, model.text_encoder, model.vae)
+                        for p in part.parameters()) / 1e9
+        n_blocks, n_layers = len(den.blocks), len(t5.blocks)
+        per_encoding = 2 * n_layers + 1  # norm1, norm2 a layer and the final norm
+        numbers.update(init_s=time.perf_counter() - start, weight_gb=weight_gb,
+                       denoiser_params=counts[0], text_encoder_params=counts[1],
+                       vae_params=counts[2])
+        print(f"init on the card: {numbers['init_s']:.1f} s; DiT {counts[0] / 1e9:.3f} B, UMT5 "
+              f"{counts[1] / 1e9:.3f} B, VAE {counts[2] / 1e6:.1f} M parameters (VAE fp32), "
+              f"{weight_gb:.1f} GB of weights; DiT: {n_blocks} blocks, {den.dim} wide, "
+              f"{den.num_heads} heads of {den.dim // den.num_heads}, text_len {den.text_len}; "
+              f"UMT5: {n_layers} layers, dim {t5.config.dim}, {t5.config.num_heads} heads, vocab "
+              f"{t5.config.vocab_size}; kernel A {per_encoding} launches a prompt encoding")
+
+        def expected(steps, interval=None, cache_depth=None):
+            """Kernel B's launches of one request from the module tree and
+            generate()'s DeepCache rule: each block a self- and a
+            cross-attention call (both CFG halves in one batch)."""
+            shallow = cache_depth if cache_depth is not None else max(1, n_blocks // 4)
+            launches, have_delta = 0, False
+            for i in range(steps):
+                blocks = shallow if interval and i % interval != 0 and have_delta else n_blocks
+                launches += 2 * blocks
+                have_delta = have_delta or bool(interval)
+            return launches
+
+        latent_shape = (1, (WAN_FRAMES // 4 * 4 - 1) // 4 + 1, WAN_SIZE // 16, WAN_SIZE // 16, 48)
+
+        def request(name, want_b, **kwargs):
+            torch.cuda.reset_peak_memory_stats()
+            before = read_launches()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            with on_path():
+                videos = model.generate(**kwargs)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+            launches, peak = launched_since(before), peak_gib()
+            latents = model.last_latents
+            frames = np.stack([np.asarray(im) for im in videos[0]])
+            want = {"flash_attention_bshd": want_b, "layer_norm": per_encoding}
+            print(f"request {name}: {len(videos[0])} frames {videos[0][0].size}, "
+                  f"{kwargs['num_inference_steps']} steps, CFG {kwargs['cfg_scale']}, "
+                  f"{seconds:.3f} s (the VAE decode {model.decode_s:.3f} s), peak {peak:.2f} GiB; "
+                  f"launches {launches}, expected {want}")
+            if not torch.isfinite(latents).all() or frames.std() == 0:
+                raise AssertionError(f"request {name}: latents not finite, or a constant video")
+            if tuple(latents.shape) != latent_shape or frames.shape != (
+                    4 * (latent_shape[1] - 1) + 1, WAN_SIZE, WAN_SIZE, 3):
+                raise AssertionError(f"request {name}: latents {tuple(latents.shape)}, frames "
+                                     f"{frames.shape}")
+            if launches != want:
+                raise AssertionError(f"request {name}: launch counts {launches} != {want}")
+            return seconds, latents, frames, peak, model.decode_s
+
+        base = dict(prompt=prompt, negative_prompt=negative, frames=WAN_FRAMES, width=WAN_SIZE,
+                    height=WAN_SIZE, num_inference_steps=WAN_STEPS, cfg_scale=WAN_CFG, seed=1234)
+        runs = {}
+        for name, kwargs in (("1 (cold)", base),
+                             ("2", dict(base, prompt="a red car on the road in the mountains",
+                                        seed=99)),
+                             ("3 (= 1, warm)", base)):
+            runs[name] = request(name, expected(WAN_STEPS), **kwargs)
+        first, again = runs["1 (cold)"], runs["3 (= 1, warm)"]
+        latents_equal = torch.equal(first[1], again[1])
+        frame_diff = np.abs(first[2].astype(np.int16) - again[2].astype(np.int16))
+        frames_note = ("frames bit-identical" if not frame_diff.any() else
+                       f"frames within {frame_diff.max()} of {WAN_FRAME_TOL} levels "
+                       f"({np.count_nonzero(frame_diff)} values differ)")
+        if not latents_equal or frame_diff.max() > WAN_FRAME_TOL:
+            raise AssertionError(f"request 3 (request 1 repeated, same seed) differs from it: "
+                                 f"latents bit-identical {latents_equal}; {frames_note}")
+        seconds = [run[0] for run in runs.values()]
+        numbers.update(first_request_s=seconds[0], warm_request_s=seconds[1:],
+                       decode_s=[run[4] for run in runs.values()],
+                       peak_gib=max(run[3] for run in runs.values()),
+                       request_launches=expected(WAN_STEPS), video_tokens=int(np.prod(
+                           latent_shape[1:4])) // 4)
+        print(f"s/request at {WAN_SIZE} x {WAN_SIZE}, {WAN_FRAMES} frames ({latent_shape[1]} latent "
+              f"frames, {numbers['video_tokens']} tokens), {WAN_STEPS} steps, CFG {WAN_CFG}: "
+              f"{seconds[0]:.3f} cold (the first), {seconds[1]:.3f} and {seconds[2]:.3f} warm; peak "
+              f"{numbers['peak_gib']:.2f} GiB; kernel B {expected(WAN_STEPS)} and kernel A "
+              f"{per_encoding} launches a request; request 3's latents == request 1's, bit for "
+              f"bit, {frames_note}")
+        cached = request("4 (deep_cache_interval 2)", expected(WAN_STEPS, interval=2),
+                         **dict(base, deep_cache_interval=2))
+        if torch.equal(cached[1], first[1]):
+            raise AssertionError("the DeepCache request equals request 1: the option did nothing")
+        numbers.update(deep_cache_request_s=cached[0],
+                       deep_cache_launches=expected(WAN_STEPS, interval=2))
+        print(f"DeepCache request {cached[0]:.3f} s, kernel B {numbers['deep_cache_launches']} "
+              f"launches ({2 * max(1, n_blocks // 4)} on a cached step)")
+        del runs, first, again, cached
+
+        # one CFG denoise step at the request's size, kernel B against its plain version
+        g35 = torch.Generator(device=device).manual_seed(35)
+        step_latents = torch.randn(*latent_shape, device=device, generator=g35).bfloat16()
+
+        def encode(m):
+            with torch.inference_mode():
+                out = m.text_encoder.encode_prompts(prompt, negative, use_negative_prompts=True)
+                emb = torch.cat([out.positive_embeddings, out.negative_embeddings])
+                mask = torch.cat([out.positive_attention_mask, out.negative_attention_mask])
+                return (emb * mask[:, :, None].to(emb.dtype)).to(m.dtype)
+
+        def denoise_step(m, ctx, latents=step_latents):
+            with torch.inference_mode():
+                return m._denoise_step(latents, 800.0, 0.8, 0.75, ctx, WAN_CFG, do_cfg=True)
+
+        def velocity(m, ctx):
+            t = torch.full((2,), 800.0, device=device)
+            with torch.inference_mode():
+                v = m.denoiser(torch.cat([step_latents, step_latents]), t, ctx)
+            positive, negative_v = v.float().chunk(2)
+            return negative_v + (positive - negative_v) * WAN_CFG
+
+        before = read_launches()
+        ctx = encode(model)
+        encode_launches = launched_since(before)
+        encode_ms = cuda_ms(lambda: encode(model), warmup=1, iters=5)
+        step_ms = cuda_ms(lambda: denoise_step(model, ctx), warmup=1, iters=3)
+        before = read_launches()
+        kernel_step = denoise_step(model, ctx)
+        step_launches = launched_since(before)
+        kernel_velocity = velocity(model, ctx)
+        with plain_versions():
+            plain_step, plain_velocity = denoise_step(model, ctx), velocity(model, ctx)
+        errors = {}
+        for what, got, want in (("velocity", kernel_velocity, plain_velocity),
+                                ("latents", kernel_step, plain_step)):
+            errors[what] = (got.float() - want.float()).abs().max().item() / \
+                want.float().abs().max().item()
+        numbers.update(step_ms=step_ms, encode_ms=encode_ms, step_velocity_err=errors["velocity"],
+                       step_latents_err=errors["latents"], text_tokens=ctx.shape[1])
+        print(f"one prompt encoding (UMT5, prompt and negative, {ctx.shape[1]} tokens): "
+              f"{encode_ms:.2f} ms, launches {encode_launches}; one CFG denoise step (batch 2, "
+              f"{numbers['video_tokens']} video tokens, 512 text keys): {step_ms:.1f} ms, launches "
+              f"{step_launches} (the module tree: B {2 * n_blocks}); against the plain version of "
+              f"B: guided velocity {errors['velocity']:.3e}, the step's latents "
+              f"{errors['latents']:.3e} of their largest value (tol {WAN_STEP_TOL})")
+        if encode_launches != {"layer_norm": per_encoding}:
+            raise AssertionError(f"the prompt encoding launched {encode_launches}")
+        if step_launches != {"flash_attention_bshd": 2 * n_blocks}:
+            raise AssertionError(f"the denoise step launched {step_launches}")
+        if max(errors.values()) > WAN_STEP_TOL:
+            raise AssertionError("the kernel's denoise step and the plain one disagree")
+        if profile:
+            kinds = profile_steps(lambda: denoise_step(model, ctx), step_ms, "Wan CFG denoise step")
+            print_kernel_ms(kinds, ("kernel B",), "Wan CFG denoise step")
+            numbers["traced_step"] = {kind: [round(ms, 4), n] for kind, (ms, n) in kinds.items()}
+            latents = torch.randn(*latent_shape, device=device, generator=g35)
+            kinds = profile_steps(lambda: model.vae.decode(latents), numbers["decode_s"][-1] * 1e3,
+                                  "Wan VAE decode")
+            numbers["traced_decode"] = {kind: [round(ms, 4), n] for kind, (ms, n) in kinds.items()}
+            del latents
+        del ctx, kernel_step, plain_step, kernel_velocity, plain_velocity
+        free(model)
+        del model, den, t5
+
+        # -- 36: the three files, the server and the CLI at reduced depth ---------------------
+        phase(f"36 the Wan three-file checkpoint, the server (window scheduler) and the CLI (bf16 "
+              f"and NF4) at full width, {WAN_REDUCED_LAYERS} blocks and {WAN_REDUCED_LAYERS} UMT5 "
+              f"layers")
+        reduced_den = Wan22TI2V5BDenoiserConfig(num_layers=WAN_REDUCED_LAYERS)
+        reduced_t5 = TextEncoderConfig(num_layers=WAN_REDUCED_LAYERS)
+        reduced = WanConfig(**paths, dtype="bfloat16", denoiser=reduced_den)
+        small = Model(reduced, tokenizer=tokenizer, text_encoder_config=reduced_t5)
+        small.init_params(torch.Generator(device=device).manual_seed(36))
+        small.vae.init_random(torch.Generator(device=device).manual_seed(37))
+        with torch.no_grad():  # the published VAE file is bf16
+            for p in small.vae.parameters():
+                p.copy_(p.bfloat16())
+        serve = WAN_SERVE
+        serve_latents = torch.randn(1, (serve["frames"] // 4 * 4 - 1) // 4 + 1, serve["size"] // 16,
+                                    serve["size"] // 16, 48, device=device, generator=g35).bfloat16()
+        step_before = denoise_step(small, encode(small), serve_latents)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        st.save_file(small.denoiser_state_dict(), paths["denoiser_path"])
+        st.save_file(small.text_encoder_state_dict(), paths["text_encoder_path"])
+        st.save_file({k: v.bfloat16() for k, v in small.vae.state_dict().items()}, paths["vae_path"])
+        numbers["checkpoint_write_s"] = time.perf_counter() - start
+        numbers["checkpoint_bytes"] = {k: Path(p).stat().st_size for k, p in paths.items()}
+        start = time.perf_counter()
+        loaded = Model.from_checkpoint(reduced, tokenizer=tokenizer, text_encoder_config=reduced_t5)
+        torch.cuda.synchronize()
+        numbers["checkpoint_load_s"] = time.perf_counter() - start
+        for part in ("denoiser", "text_encoder", "vae"):
+            written, read = getattr(small, part).state_dict(), getattr(loaded, part).state_dict()
+            if set(read) != set(written) or not all(torch.equal(written[k], read[k]) for k in read):
+                raise AssertionError(f"the {part} loaded back differs from the model")
+        if loaded.vae.decoder.conv_in.weight.dtype != torch.float32:
+            raise AssertionError("the VAE read from its bf16 file is not fp32")
+        if not torch.equal(step_before, denoise_step(loaded, encode(loaded), serve_latents)):
+            raise AssertionError("the checkpoint's denoise step differs")
+        if not all(k.startswith("model.") for k in st.read_keys(paths["denoiser_path"])):
+            raise AssertionError("the denoiser file's keys are not under model.")
+        print(f"three-file checkpoint (full width; {WAN_REDUCED_LAYERS} blocks, "
+              f"{WAN_REDUCED_LAYERS} UMT5 layers; the VAE at its default config): "
+              f"{numbers['checkpoint_bytes']} bytes, written in {numbers['checkpoint_write_s']:.2f} "
+              f"s, loaded by from_checkpoint in {numbers['checkpoint_load_s']:.2f} s; every tensor "
+              f"of the three parts and the denoise step bit-identical, the VAE fp32 from a bf16 file")
+        free(loaded)
+        free(small)
+        del loaded, small, step_before
+
+        # the server's and the CLI's model at the files' depth (the YAML names the DiT's; none
+        # names UMT5's, and the CLI names only the denoiser's file)
+        build = Wan22.__init__
+
+        def at_file_depth(self, config, tokenizer=None, **kwargs):
+            build(self, config.model_copy(update={"denoiser": reduced_den}), tokenizer=tokenizer,
+                  text_encoder_config=reduced_t5)
+
+        Wan22.__init__ = at_file_depth
+        try:
+            write_yaml(work / "wan.yml", {**paths, "dtype": "bfloat16",
+                                          "denoiser": reduced_den.model_dump()})
+            start = time.perf_counter()
+            served = srv.T2IModel(str(work / "wan.yml"), None, str(work), family="wan")
+            srv.prepare_kernels("wan", device)
+            numbers["serve_load_s"] = time.perf_counter() - start
+            model = served.model
+            kept, prompts, prepare, generate = [], [], model.prepare_latents, model.generate
+
+            def seeded_prepare(*args, seed=None):
+                return prepare(*args, seed=WAN_WINDOW_SEED if seed is None else seed)
+
+            def keep_latents(latents):
+                kept.append(latents.float().clone())
+                return Wan22.decode_videos(model, latents)
+
+            def keep_prompts(prompt, **kwargs):  # the batch's rows in the order it took them
+                prompts.append(list(prompt) if isinstance(prompt, (list, tuple)) else [prompt])
+                return generate(prompt, **kwargs)
+
+            model.prepare_latents, model.decode_videos = seeded_prepare, keep_latents
+            model.generate = keep_prompts
+            batcher = srv.MicroBatcher(served, max_batch=4, window_ms=2000)
+            server, url = serving(batcher)
+            window = [dict(prompt=p, negative_prompt="", width=serve["size"], height=serve["size"],
+                           frames=serve["frames"], fps=8, inference_steps=serve["steps"],
+                           cfg_scale=WAN_CFG)
+                      for p in ("a photo of a cat", "a red car on the road")]
+            before = read_launches()
+            try:
+                with on_path():
+                    replies, seconds = post_all(url, window)
+            finally:
+                server.shutdown()
+                server.server_close()
+            launched = launched_since(before)
+            numbers["window_s"] = seconds
+            want_window = {"flash_attention_bshd": serve["steps"] * 2 * WAN_REDUCED_LAYERS,
+                           "layer_norm": 2 * WAN_REDUCED_LAYERS + 1}
+            out_frames = 4 * ((serve["frames"] // 4 * 4 - 1) // 4) + 1
+            for data, _ in replies:
+                fps, frames = mp4_frames(data, work)
+                if fps != 8 or len(frames) != out_frames or frames[0].shape != (
+                        serve["size"], serve["size"], 3) or np.std(frames) == 0:
+                    raise AssertionError(f"a window reply: {fps} fps, {len(frames)} frames")
+            if len(kept) != 1 or kept[0].shape[0] != 2 or launched != want_window or sorted(
+                    prompts[0]) != sorted(body["prompt"] for body in window):
+                raise AssertionError(f"window scheduler: {len(kept)} generate() calls, launched "
+                                     f"{launched} (expected {want_window})")
+            print(f"server from the three files via a YAML (load {numbers['serve_load_s']:.2f} s): "
+                  f"window scheduler, 2 concurrent compatible requests ({serve['size']} px, "
+                  f"{serve['frames']} frames, {serve['steps']} steps, fps 8) in one generate() of "
+                  f"batch 2 in {seconds:.3f} s; launches {launched}; each reply an mp4 of "
+                  f"{out_frames} frames read back by OpenCV {cv2.__version__}")
+            errs = []
+            for row, row_prompt in enumerate(prompts[0]):
+                with on_path():
+                    model.generate(row_prompt, negative_prompt=[""], frames=serve["frames"],
+                                   width=serve["size"], height=serve["size"],
+                                   num_inference_steps=serve["steps"], cfg_scale=WAN_CFG,
+                                   seed=WAN_WINDOW_SEED + row)
+                want = kept[-1][0]
+                errs.append((kept[0][row] - want).abs().max().item() / want.abs().max().item())
+            numbers["window_errors"] = errs
+            print(f"the window's rows against batch-1 generate() (row i from seed "
+                  f"{WAN_WINDOW_SEED} + i): max abs err / max |latents| {errs} "
+                  f"(tol {POOL_REQUEST_TOL})")
+            if max(errs) > POOL_REQUEST_TOL:
+                raise AssertionError("the window's batch and batch-1 generate() disagree")
+            free(model)
+            del served, model, kept
+
+            cli = {}
+            for quant in (None, "bnb_nf4"):
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                out = work / f"cli_{quant or 'bf16'}.mp4"
+                start = time.perf_counter()
+                with on_path():
+                    before = read_launches()
+                    saved = inference_cli.main([
+                        "--family", "wan", "--checkpoint-path", paths["denoiser_path"],
+                        "--tokenizer-path", str(work), "--width", str(serve["size"]), "--height",
+                        str(serve["size"]), "--num-inference-steps", str(serve["steps"]),
+                        "--frames", str(serve["frames"]), "--fps", "8", "--cfg-scale",
+                        str(WAN_CFG), "--save-path", str(out),
+                        *(["--quant-type", quant] if quant else [])])
+                    launched = launched_since(before)
+                seconds = time.perf_counter() - start
+                fps, frames = mp4_frames(out.read_bytes(), work)
+                # kernel D a forward: the text MLP's 2 Linears, the time MLP's 2 and its
+                # projection, and a block's 4 + 4 attention projections and 2 FF Linears; the
+                # 192-wide head is left unquantized (D does not take it)
+                want_cli = dict(want_window)
+                if quant:
+                    want_cli["nf4_matmul_forward"] = serve["steps"] * (5 + 10 * WAN_REDUCED_LAYERS)
+                cli[quant or "bf16"] = dict(s=seconds, peak_gib=peak_gib(), launches=launched)
+                print(f"CLI --family wan{' --quant-type ' + quant if quant else ''} (load"
+                      f"{', quantize' if quant else ''}, {serve['size']} px, {serve['frames']} "
+                      f"frames, {serve['steps']} steps, CFG {WAN_CFG}, mp4): {seconds:.2f} s, peak "
+                      f"{peak_gib():.2f} GiB; {len(frames)} frames at {fps} fps; launches "
+                      f"{launched} (expected {want_cli})")
+                if saved != [str(out)] or len(frames) != out_frames or fps != 8:
+                    raise AssertionError(f"the CLI saved {saved}: {len(frames)} frames")
+                if launched != want_cli:
+                    raise AssertionError(f"the CLI launched {launched}, expected {want_cli}")
+            numbers["cli"] = cli
+        finally:
+            Wan22.__init__ = build
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": path_launches, "records": records, "numbers": numbers}
+
+
+def run_wan(checkout: Path, profile: bool) -> dict:
+    """``chip_smoke.py --wan`` in a process of its own (a fresh card): its
+    lines, then its launch counts, records and numbers."""
+    proc = subprocess.run(
+        [sys.executable, str(checkout / "chip_smoke.py"), "--wan",
+         *(["--profile"] if profile else [])],
+        cwd=checkout, capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    print("\n".join(lines[:-1] if proc.returncode == 0 else lines))
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"chip_smoke.py --wan failed (exit {proc.returncode}): "
+                             f"{proc.stderr[-4000:]}")
+    return json.loads(lines[-1])["wan"]
+
+
 def main() -> None:
     args = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     args.add_argument("--profile", action="store_true",
@@ -4421,6 +5054,11 @@ def main() -> None:
                            "quant-compare tool and Trainer) after building their libraries; "
                            "prints their launch counts, records and numbers as one JSON line, not "
                            "the ok line")
+    args.add_argument("--wan", action="store_true",
+                      help="run phases 34-36 alone (kernels B, A and D at Wan's shapes, Wan 2.2 "
+                           "generate() at full width and depth, its three-file checkpoint, server "
+                           "and CLI) after building their libraries; prints their launch counts, "
+                           "records and numbers as one JSON line, not the ok line")
     args.add_argument("--ln-probe-costs", action="store_true",
                       help="time kernels A and L and their library calls (one call, back to "
                            "back, host us, traced) in this process alone; prints one JSON line, "
@@ -4514,8 +5152,8 @@ def main() -> None:
         phase("1 build (kernels E's, F's and G's libraries only)")
         _build.build_cuda_libraries(["flash_attention_masked", "fused_mlp",
                                      "flash_attention_masked_bwd"])
-        phase("19 the Lumina2 Trainer at full width and depth: checkpoint, EMA, state "
-              "checkpoints, profiler window, preview")
+        phase("19 the Lumina2 Trainer at full width, 8 of the NextDiT's 26 layers: checkpoint, "
+              "EMA, state checkpoints, profiler window, preview")
         result = lumina_trainer_phase(device, wrappers, checkout)
         print(json.dumps({"lumina_trainer": result}))
         return
@@ -4555,6 +5193,13 @@ def main() -> None:
                                      "nf4_matmul"])
         result = cogview4_phase(device, wrappers, options.profile, checkout)
         print(json.dumps({"cogview4": result}))
+        return
+
+    if options.wan:
+        phase("1 build (kernels A's, B's and D's libraries only)")
+        _build.build_cuda_libraries(["flash_attention_bshd", "layer_norm", "nf4_matmul"])
+        result = wan_phase(device, wrappers, options.profile)
+        print(json.dumps({"wan": result}))
         return
 
     if options.kernel_d:
@@ -6281,8 +6926,14 @@ def main() -> None:
             library_traced_ms=traced[1])
     del x, out, got, want
 
-    phase("19 the Lumina2 Trainer at full width and depth: checkpoint, EMA, state checkpoints, "
-          "profiler window, preview (a process of its own)")
+    # the children share the card with this process: it keeps only what is still referenced
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"this process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved while its children run")
+
+    phase("19 the Lumina2 Trainer at full width, 8 of the NextDiT's 26 layers: checkpoint, "
+          "EMA, state checkpoints, profiler window, preview (a process of its own)")
     lumina_trainer = run_lumina_trainer(checkout)
     card_numbers = ", ".join(f"{k} {v}" for k, v in lumina_trainer["numbers"].items())
     print(f"phase 19 on {card}: {card_numbers}")
@@ -6318,6 +6969,12 @@ def main() -> None:
     card_numbers = ", ".join(f"{k} {v}" for k, v in cogview4["numbers"].items())
     print(f"phases 31-33 on {card}: {card_numbers}")
 
+    phase("34-36 kernels B, A and D at Wan's shapes; Wan 2.2 generate() at full width and depth, "
+          "its three-file checkpoint, server and CLI (a process of its own)")
+    wan = run_wan(checkout, options.profile)
+    card_numbers = ", ".join(f"{k} {v}" for k, v in wan["numbers"].items())
+    print(f"phases 34-36 on {card}: {card_numbers}")
+
     kernels = []
     for name, record in records.items():
         launches = {"generate": generate_launches[name], "train": train_launches[name],
@@ -6333,7 +6990,8 @@ def main() -> None:
                     "auraflow_trainer": auraflow_trainer["launches"][name],
                     "serve": serve["launches"][name],
                     "flux": flux["launches"][name],
-                    "cogview4": cogview4["launches"][name]}
+                    "cogview4": cogview4["launches"][name],
+                    "wan": wan["launches"][name]}
         kernels.append({
             "name": name,
             **{k: record[k] for k in ("route", "source", "replaces")},
@@ -6348,6 +7006,7 @@ def main() -> None:
             **({"flux_shapes": flux["records"][name]} if name in flux["records"] else {}),
             **({"cogview4_shapes": cogview4["records"][name]} if name in cogview4["records"]
                else {}),
+            **({"wan_shapes": wan["records"][name]} if name in wan["records"] else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

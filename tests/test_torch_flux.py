@@ -694,7 +694,7 @@ def test_server_serves_flux(tiny_flux):
     """The server takes flux and its distilled guidance: T2IModel loads the
     checkpoint with both tokenizers; a window batch reaches generate() with
     the guidance; the continuous scheduler takes a Flux pool."""
-    assert "flux" in srv.SERVED_FAMILIES and "flux" not in srv.WAITING_FAMILIES
+    assert "flux" in srv.SERVED_FAMILIES
     assert srv.FAMILY_KERNELS["flux"] == ("flash_attention_bshd", "layer_norm")
     served = srv.T2IModel(str(tiny_flux / "serve.yml"), None, str(tiny_flux), family="flux",
                           device="cpu")

@@ -23,12 +23,17 @@ import yaml
 from PIL import Image
 
 from tests import test_torch_cogview4 as cogview4_tests
+from tests import test_torch_wan as wan_tests
 from tests.test_torch_sdxl import _tiny_kwargs
 from vision_ft_tpu_torch.models.autoencoder import AutoencoderKLConfig
 from vision_ft_tpu_torch.models.cogview4.config import DenoiserConfig as CogView4DenoiserConfig
 from vision_ft_tpu_torch.models.cogview4.pipeline import CogView4Model
 from vision_ft_tpu_torch.models.sdxl.pipeline import SDXLModel
 from vision_ft_tpu_torch.models.text_encoders import glm, sentencepiece
+from vision_ft_tpu_torch.models.wan import Wan22
+from vision_ft_tpu_torch.models.wan.config import DenoiserConfig as WanDenoiserConfig
+from vision_ft_tpu_torch.models.wan.text_encoder import TextEncoderConfig as WanT5Config
+from vision_ft_tpu_torch.models.wan.vae3d import CausalVAE, WanVAEConfig
 from vision_ft_tpu_torch.ops.nf4_matmul import nf4_matmul_forward
 from vision_ft_tpu_torch.tools import cogview4_quant_compare, inference_cli, inference_client
 from vision_ft_tpu_torch.tools import inference_server as srv
@@ -271,9 +276,6 @@ def test_family_only_generation_knobs():
 def test_t2imodel_refuses_flags_and_families_before_loading(tmp_path):
     with pytest.raises(ValueError, match="must be >= 1"):
         T2IModel("does-not-exist.yml", None, None, family="sdxl", deep_cache_interval=0)
-    for family in srv.WAITING_FAMILIES:
-        with pytest.raises(NotImplementedError, match=family):
-            T2IModel("does-not-exist.yml", None, None, family=family)
     with pytest.raises(ValueError, match="unsupported server family"):
         T2IModel("does-not-exist.yml", None, None, family="sd3")
 
@@ -303,12 +305,12 @@ def test_help_names_exactly_the_served_families(module, capsys):
     with pytest.raises(SystemExit):
         module.build_parser().parse_args(["--help"])
     text = " ".join(capsys.readouterr().out.split())
-    named = {f for f in (*srv.SERVED_FAMILIES, *srv.WAITING_FAMILIES) if f in text}
-    assert named == set(srv.SERVED_FAMILIES) == {"sdxl", "lumina2", "auraflow", "cogview4", "flux"}
-    assert srv.WAITING_FAMILIES == ("wan",)
+    named = {f for f in srv.SERVED_FAMILIES if f in text}
+    assert named == set(srv.SERVED_FAMILIES) == {
+        "sdxl", "lumina2", "auraflow", "cogview4", "flux", "wan"}
     doc = " ".join(module.__doc__.split())
-    assert ("sdxl, lumina2, auraflow, cogview4 and flux" in doc
-            or "sdxl, lumina2, auraflow, cogview4, flux" in doc)
+    assert ("sdxl, lumina2, auraflow, cogview4, flux and wan" in doc
+            or "sdxl, lumina2, auraflow, cogview4, flux, wan" in doc)
 
 
 # -- a real model, from a single-file checkpoint ------------------------------------------
@@ -430,8 +432,8 @@ def test_cli_writes_a_webp(tiny_constructor, tmp_path, capsys):
     assert saved == [str(out)] and Image.open(out).format == "WEBP"
     assert Image.open(out).size == (64, 64)
     assert "Quantizing denoiser with bnb_nf4" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="wan"):
-        inference_cli.main(["--family", "wan", "--checkpoint-path", "x", "--device", "cpu"])
+    with pytest.raises(ValueError, match="unsupported server family: 'sd3'"):
+        inference_cli.main(["--family", "sd3", "--checkpoint-path", "x", "--device", "cpu"])
 
 
 # -- CogView4 ------------------------------------------------------------------------
@@ -607,3 +609,227 @@ def test_client_posts_and_saves(tmp_path, capsys):
         server.server_close()
     assert seconds > 0 and Image.open(out).size == (128, 64)
     assert f"Saved {out}" in capsys.readouterr().out
+
+
+# -- wan: frames, video replies, a tiny three-file checkpoint ---------------------------
+
+
+def test_wan_frames_reach_generate_with_a_default():
+    """A wan request's ``frames`` reaches generate(), 16 where it names
+    none; the image families refuse it."""
+    wan, calls = _stub_t2i("wan")
+    wan.generate_batch([GenerationParams(prompt="x", width=64, height=64)])
+    assert calls["frames"] == srv.WAN_DEFAULT_FRAMES == 16
+    wan.generate_batch([GenerationParams(prompt="x", width=64, height=64, frames=9, seed=2)])
+    assert calls["frames"] == 9 and calls["seed"] == 2
+    for family in ("sdxl", "lumina2", "auraflow", "cogview4", "flux"):
+        model, _ = _stub_t2i(family)
+        with pytest.raises(ValueError, match="Wan-only"):
+            model.generate_batch([GenerationParams(prompt="x", width=64, height=64, frames=8)])
+    assert batch_key(GenerationParams(prompt="a", frames=8)) != batch_key(
+        GenerationParams(prompt="a", frames=16))
+
+
+def test_continuous_scheduler_refuses_wan():
+    """As in the JAX package, wan runs on the window scheduler only."""
+    wan, _ = _stub_t2i("wan")
+    with pytest.raises(ValueError, match="currently serves"):
+        ContinuousScheduler(wan, height=64, width=64)
+
+
+class StubVideoModel:
+    """Replies with one list of frames a request."""
+
+    def generate_batch(self, batch):
+        return [[Image.new("RGB", (p.width, p.height), (40 * i, 0, 0)) for i in range(p.frames)]
+                for p in batch]
+
+
+def _mp4_frames(data, tmp_path):
+    import cv2
+
+    path = tmp_path / "reply.mp4"
+    path.write_bytes(data)
+    capture = cv2.VideoCapture(str(path))
+    fps, frames = capture.get(cv2.CAP_PROP_FPS), []
+    while True:
+        ok, frame = capture.read()
+        if not ok:
+            break
+        frames.append(frame)
+    capture.release()
+    return fps, frames
+
+
+def test_handler_answers_video_mp4_for_frames(tmp_path):
+    """A list of frames goes back as an mp4 at the request's fps."""
+    batcher = MicroBatcher(StubVideoModel(), max_batch=1, window_ms=0)
+    server, port = _serving(batcher)
+    try:
+        status, ctype, data = _post(port, {"prompt": "x", "width": 64, "height": 128,
+                                           "frames": 5, "fps": 8})
+    finally:
+        server.shutdown()
+        server.server_close()
+    assert status == 200 and ctype == "video/mp4"
+    fps, frames = _mp4_frames(data, tmp_path)
+    assert fps == 8 and len(frames) == 5 and frames[0].shape == (128, 64, 3)
+
+
+@pytest.fixture(scope="module")
+def tiny_wan_files(tmp_path_factory):
+    """A tiny Wan's seeded weights in its three files, a YAML naming them
+    and a SentencePiece vocab inside the tiny UMT5's 64 ids."""
+    work = tmp_path_factory.mktemp("tiny_wan")
+    model = _tiny_wan(work)
+    model.init_params(torch.Generator().manual_seed(0), device="cpu")
+    model.vae.init_random(torch.Generator().manual_seed(1), "cpu")
+    st.save_file(model.denoiser_state_dict(), work / "denoiser.safetensors")
+    st.save_file(model.text_encoder_state_dict(), work / "text_encoder.safetensors")
+    st.save_file(model.vae.state_dict(), work / "vae.safetensors")
+    pieces = [("<pad>", 0.0, 3), ("</s>", 0.0, 3), ("<unk>", 0.0, 2)]
+    pieces += [("\u2581" + w, -1.0 - 0.1 * i, 1) for i, w in enumerate(["a", "cat", "photo", "of"])]
+    pieces += [(ch, -5.0, 1) for ch in "abcdefghijklmnopqrstuvwxyz\u2581"]
+    (work / "tokenizer.model").write_bytes(
+        sentencepiece.serialize_model(pieces, unk_id=2, bos_id=-1, eos_id=1, pad_id=0))
+    (work / "serve.yml").write_text(yaml.safe_dump({
+        "model": {"denoiser_path": str(work / "denoiser.safetensors"),
+                  "text_encoder_path": str(work / "text_encoder.safetensors"),
+                  "vae_path": str(work / "vae.safetensors"), "dtype": "float32"},
+        "dataset": {}, "optimizer": {"name": "torch.optim.AdamW", "args": {"lr": 1.0e-4}},
+        "seed": 0, "num_train_epochs": 1,
+    }))
+    return work
+
+
+def _tiny_wan(work):
+    from vision_ft_tpu_torch.models.wan import WanConfig
+
+    return Wan22(WanConfig(denoiser_path=str(work / "denoiser.safetensors"),
+                           text_encoder_path=str(work / "text_encoder.safetensors"),
+                           vae_path=str(work / "vae.safetensors"), dtype="float32",
+                           denoiser=_TINY_WAN_DENOISER),
+                 tokenizer=wan_tests.Tok(), text_encoder_config=WanT5Config(**wan_tests.TINY_T5),
+                 vae=_tiny_wan_vae())
+
+
+_TINY_WAN_DENOISER = WanDenoiserConfig(**dict(wan_tests.TINY, in_channels=4, out_channels=4,
+                                              text_dim=32))
+
+
+def _tiny_wan_vae():
+    with torch.device("meta"):
+        return CausalVAE(WanVAEConfig(**wan_tests.TINY_VAE))
+
+
+@pytest.fixture
+def tiny_wan(monkeypatch, tiny_wan_files):
+    """Wan22 built at the files' tiny widths and in fp32 whatever config it
+    is given (the CLI names only the denoiser's file)."""
+    build = Wan22.__init__
+
+    def tiny_init(self, config, tokenizer=None, **kwargs):
+        config = config.model_copy(update={"dtype": "float32", "denoiser": _TINY_WAN_DENOISER})
+        build(self, config, tokenizer=tokenizer,
+              text_encoder_config=WanT5Config(**wan_tests.TINY_T5), vae=_tiny_wan_vae())
+
+    monkeypatch.setattr(Wan22, "__init__", tiny_init)
+    return tiny_wan_files
+
+
+def test_t2imodel_serves_wan(tiny_wan, tmp_path):
+    """T2IModel loads the three files named by the YAML with the T5
+    tokenizer of its dir; two compatible requests with ``frames`` share one
+    generate() of batch 2, each its batch-1 result; the reply is an mp4."""
+    work = tiny_wan
+    served = T2IModel(str(work / "serve.yml"), None, str(work), family="wan", device="cpu")
+    assert served.model.device == torch.device("cpu")
+    assert served.model.text_encoder.tokenizer is not None
+    calls = []
+    generate = served.model.generate
+
+    def counted(**kwargs):
+        calls.append(len(kwargs["prompt"]))
+        return generate(**kwargs)
+
+    served.model.generate = counted
+    batcher = MicroBatcher(served, max_batch=2, window_ms=5000, pad_to_bucket=False)
+    server, port = _serving(batcher)
+    bodies = [dict(prompt=p, negative_prompt="", width=64, height=64, frames=8, fps=4,
+                   inference_steps=2, cfg_scale=5.0) for p in ("a photo of a cat", "a cat")]
+    replies = [None, None]
+
+    def post(i):
+        replies[i] = _post(port, bodies[i])
+
+    threads = [threading.Thread(target=post, args=(i,)) for i in range(2)]
+    try:
+        for th in threads:
+            th.start()
+        _join(threads)
+    finally:
+        server.shutdown()
+        server.server_close()
+    assert calls == [2]
+    for (status, ctype, data), body in zip(replies, bodies):
+        assert status == 200 and ctype == "video/mp4"
+        fps, frames = _mp4_frames(data, tmp_path)
+        assert fps == 4 and len(frames) == 5 and frames[0].shape == (64, 64, 3)
+    group = [GenerationParams(**body, seed=7) for body in bodies]
+    together = served.generate_batch(group)
+    for row, (params, video) in enumerate(zip(group, together)):
+        # row i of a batch draws its noise from seed + i
+        alone = generate(params.prompt, negative_prompt=[""], frames=8, width=64, height=64,
+                         num_inference_steps=2, cfg_scale=5.0, seed=7 + row)
+        got = np.stack([np.asarray(im, np.int16) for im in video])
+        want = np.stack([np.asarray(im, np.int16) for im in alone[0]])
+        assert got.shape == (5, 64, 64, 3) and np.abs(got - want).max() <= 1
+
+
+@pytest.mark.parametrize("quant", [None, "bnb_nf4"])
+def test_cli_on_wan_writes_an_mp4(tiny_wan, tmp_path, capsys, quant):
+    """The CLI reads the denoiser's file and its two siblings and writes an
+    mp4 of --frames frames at --fps; with --quant-type every denoiser
+    Linear but the 192-wide head is quantized (the CPU takes the 4-bit
+    matmul's plain version)."""
+    import cv2
+
+    out = tmp_path / "out.mp4"
+    args = ["--family", "wan", "--checkpoint-path", str(tiny_wan / "denoiser.safetensors"),
+            "--tokenizer-path", str(tiny_wan), "--width", "32", "--height", "32",
+            "--num-inference-steps", "2", "--frames", "8", "--fps", "6", "--save-path", str(out),
+            "--device", "cpu"]
+    before = nf4_matmul_forward.launches
+    saved = inference_cli.main(args + (["--quant-type", quant] if quant else []))
+    assert nf4_matmul_forward.launches == before
+    assert saved == [str(out)]
+    capture = cv2.VideoCapture(str(out))
+    assert capture.get(cv2.CAP_PROP_FRAME_COUNT) == 5 and capture.get(cv2.CAP_PROP_FPS) == 6
+    capture.release()
+    if quant:
+        assert "Quantizing denoiser with bnb_nf4" in capsys.readouterr().out
+        model = inference_cli.build_model("wan", str(tiny_wan / "denoiser.safetensors"),
+                                          str(tiny_wan), quant, device="cpu")
+        layers = {n: m for n, m in model.denoiser.named_modules() if hasattr(m, "in_features")}
+        assert {n for n, m in layers.items() if not m.is_quantized} == {"head.head"}
+    assert inference_cli.model_config("wan", "/x/denoiser.safetensors") == {
+        "denoiser_path": "/x/denoiser.safetensors",
+        "text_encoder_path": "/x/text_encoder.safetensors", "vae_path": "/x/vae.safetensors"}
+
+
+def test_t2imodel_loads_a_wan_lora_into_the_denoiser(tiny_wan, tmp_path):
+    """A LoRA file in the denoiser file's keys (``model.`` first) goes onto
+    the DiT's Linears, as the JAX server converts it."""
+    rng = np.random.default_rng(0)
+    lora = {"model.blocks.0.self_attn.q.lora_down.weight": rng.standard_normal((4, 64)),
+            "model.blocks.0.self_attn.q.lora_up.weight": rng.standard_normal((64, 4)),
+            "model.blocks.0.self_attn.q.alpha": np.array(4.0)}
+    path = tmp_path / "lora.safetensors"
+    st.save_file({k: torch.tensor(v, dtype=torch.float32) for k, v in lora.items()}, path)
+    served = T2IModel(str(tiny_wan / "serve.yml"), str(path), str(tiny_wan), family="wan",
+                      device="cpu")
+    q = served.model.denoiser.blocks[0].self_attn.q
+    np.testing.assert_array_equal(q.lora_down.weight.detach().numpy(),
+                                  lora["model.blocks.0.self_attn.q.lora_down.weight"]
+                                  .astype(np.float32))
+    assert float(q.alpha) == 4.0

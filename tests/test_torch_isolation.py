@@ -41,9 +41,10 @@ def test_port_imports_without_jax():
     # generate and train slices, of the SDXL Trainer slice, of the AuraFlow generate
     # and train slices, the GroupNorm and 3x3 conv ops with the ragged-tile probe tool,
     # the serving slice (the continuous batcher, the server, the CLI, the client),
-    # the Flux slice (the family, the schedules, the VAE-encode migration), and the
-    # CogView4 slice (GLM, the family, its train workload and script, the quant tool)
-    assert int(proc.stdout.strip()) >= 148
+    # the Flux slice (the family, the schedules, the VAE-encode migration), the
+    # CogView4 slice (GLM, the family, its train workload and script, the quant tool),
+    # and the Wan slice (UMT5, the DiT, the 3-D VAE, the pipeline, the video writer)
+    assert int(proc.stdout.strip()) >= 158
 
 
 PORT_SOURCES = sorted((REPO / "vision_ft_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -100,8 +101,14 @@ COGVIEW4_MODULES = [
     "models/cogview4/train_text_to_image.py", "train/cogview4/__init__.py",
     "train/cogview4/text_to_image.py", "tools/cogview4_quant_compare.py",
 ]
+# the Wan slice: the family and the video writer
+WAN_MODULES = [
+    "models/wan/__init__.py", "models/wan/config.py", "models/wan/util.py",
+    "models/wan/scheduler.py", "models/wan/vae.py", "models/wan/text_encoder.py",
+    "models/wan/denoiser.py", "models/wan/vae3d.py", "models/wan/pipeline.py", "utils/video.py",
+]
 SLICES = (LUMINA2_MODULES + AURAFLOW_MODULES + AURAFLOW_TRAIN_MODULES + OPS_SOURCES
-          + SERVING_MODULES + FLUX_MODULES + COGVIEW4_MODULES)
+          + SERVING_MODULES + FLUX_MODULES + COGVIEW4_MODULES + WAN_MODULES)
 
 
 def _imported_roots(path: Path) -> set[str]:

@@ -1,8 +1,10 @@
 """Batched inference HTTP server of the port (``tools/inference_server.py``
 counterpart): POST /predict with a JSON ``GenerationParams`` body returns
-image/webp bytes; GET /health answers ``{"status": "ok"}``. It serves the
-sdxl, lumina2, auraflow, cogview4 and flux families from a TrainConfig YAML (its
-``model`` section) and optional PEFT safetensors, on the card:
+image/webp bytes (video/mp4 for wan); GET /health answers ``{"status":
+"ok"}``. It serves the sdxl, lumina2, auraflow, cogview4, flux and wan
+families from a TrainConfig YAML (its ``model`` section: for wan the
+``denoiser_path``, ``text_encoder_path`` and ``vae_path`` of its three
+files) and optional PEFT safetensors, on the card:
 
     python3 -m vision_ft_tpu_torch.tools.inference_server -C configs/sdxl/x.yml \\
         --family sdxl --tokenizer-path /path/to/clip_vocab --port 8123 \\
@@ -15,13 +17,13 @@ to a power-of-two batch unless ``--no-batch-buckets``; a seeded request runs
 alone. ``continuous``: step-level continuous batching
 (``vision_ft_tpu_torch.serving``): requests join a fixed pool of latent
 slots at denoise-step boundaries, so staggered traffic with mixed step
-counts, seeds and guidance shares the card with no window and no lockstep.
+counts, seeds and guidance shares the card with no window and no lockstep;
+it serves the image families (wan runs on the window scheduler, where a
+request's ``frames`` defaults to 16).
 
 The kernels of the family's path are built before the worker thread
 starts, so no build races a request. Flux takes the T5 tokenizer of
-``--tokenizer-path`` and a CLIP tokenizer from its ``clip/`` subfolder. The
-wan family of the JAX package is not ported yet and raises
-``NotImplementedError``.
+``--tokenizer-path`` and a CLIP tokenizer from its ``clip/`` subfolder.
 """
 
 from __future__ import annotations
@@ -36,11 +38,10 @@ from typing import Optional, Sequence
 
 from pydantic import BaseModel, field_validator
 
-SERVED_FAMILIES = ("sdxl", "lumina2", "auraflow", "cogview4", "flux")
-# the JAX package's other families, each waiting for its port
-WAITING_FAMILIES = ("wan",)
+SERVED_FAMILIES = ("sdxl", "lumina2", "auraflow", "cogview4", "flux", "wan")
 TOKENIZER_FAMILY = {
     "sdxl": "clip", "lumina2": "gemma", "auraflow": "t5", "cogview4": "glm", "flux": "t5",
+    "wan": "t5",
 }
 # the CUDA libraries each family's path launches (SDXL's and CogView4's 4-bit
 # kernels with a quantized base)
@@ -50,7 +51,9 @@ FAMILY_KERNELS = {
     "auraflow": ("flash_attention_bshd", "fused_mlp"),
     "cogview4": ("flash_attention_bshd", "nf4_matmul"),
     "flux": ("flash_attention_bshd", "layer_norm"),
+    "wan": ("flash_attention_bshd", "layer_norm"),
 }
+WAN_DEFAULT_FRAMES = 16
 
 DEFAULT_NEGATIVE = (
     "bad quality, worst quality, lowres, bad anatomy, sketch, jpeg artifacts, "
@@ -61,8 +64,6 @@ DEFAULT_NEGATIVE = (
 
 def check_family(family: str) -> None:
     """Raise by name unless the port serves ``family``."""
-    if family in WAITING_FAMILIES:
-        raise NotImplementedError(f"the {family} family is not ported yet")
     if family not in SERVED_FAMILIES:
         raise ValueError(f"unsupported server family: {family!r}")
 
@@ -89,8 +90,8 @@ class GenerationParams(BaseModel):
     renorm_cfg: float = 1.0  # Lumina2 only (norm-matching renorm CFG)
     cfg_trunc_ratio: float = 0.0  # Lumina2 only (CFG skipped early in the schedule)
     distilled_guidance: float = 1.0  # Flux only
-    frames: Optional[int] = None  # Wan only (not served by the port yet)
-    fps: int = 24  # Wan only
+    frames: Optional[int] = None  # Wan only (default 16)
+    fps: int = 24  # Wan only: the mp4 reply's frame rate
     width: int = 768
     height: int = 1024
     seed: Optional[int] = None  # deterministic generation (all families)
@@ -146,8 +147,9 @@ def flux_clip_tokenizer(tokenizer_path: Optional[str]):
 def load_model(family: str, model_config: dict, tokenizer_path: Optional[str] = None,
                peft_path: Optional[str] = None, device=None):
     """The family's pipeline from its single-file checkpoint (the config's
-    ``checkpoint_path``) on ``device`` (default: the card), with the PEFT
-    adapters of ``peft_path`` attached."""
+    ``checkpoint_path``; for wan its three files) on ``device`` (default:
+    the card), with the PEFT adapters of ``peft_path`` attached (for wan,
+    in the denoiser file's keys, to the denoiser)."""
     check_family(family)
     tokenizer = None
     if tokenizer_path is not None:
@@ -183,7 +185,7 @@ def load_model(family: str, model_config: dict, tokenizer_path: Optional[str] = 
         model = CogView4Model.from_checkpoint(
             CogView4Config.model_validate(model_config), tokenizer=tokenizer, device=device
         )
-    else:
+    elif family == "flux":
         from ..models.flux import FluxConfig, FluxModel
         from ..models.flux.util import convert_from_original_key
 
@@ -191,6 +193,12 @@ def load_model(family: str, model_config: dict, tokenizer_path: Optional[str] = 
             FluxConfig.model_validate(model_config), device=device, t5_tokenizer=tokenizer,
             clip_tokenizer=flux_clip_tokenizer(tokenizer_path),
         )
+    else:
+        from ..models.wan import Wan22, WanConfig
+        from ..models.wan.util import peft_convert_from_original_key as convert_from_original_key
+
+        model = Wan22.from_checkpoint(WanConfig.model_validate(model_config), tokenizer=tokenizer,
+                                      device=device)
     if peft_path is not None:
         from ..modules.peft import load_peft_weight
         from ..utils import safetensors as st
@@ -224,7 +232,8 @@ class T2IModel:
 
     def generate_batch(self, batch: "list[GenerationParams]"):
         """One ``generate()`` over a compatible group (same size, steps and
-        guidance); one image a request, in order."""
+        guidance); one image (for wan, one list of frames) a request, in
+        order."""
         with self._lock:  # one generate() at a time on the card
             head = batch[0]
             extra = dict(self._extra)
@@ -244,7 +253,9 @@ class T2IModel:
                 extra["distilled_guidance_scale"] = head.distilled_guidance
             elif head.distilled_guidance != 1.0:
                 raise ValueError("distilled_guidance is Flux-only")
-            if head.frames is not None:
+            if self._family == "wan":
+                extra["frames"] = head.frames if head.frames is not None else WAN_DEFAULT_FRAMES
+            elif head.frames is not None:
                 raise ValueError("frames is Wan-only (video)")
             if head.seed is not None:  # the seed is in batch_key: the group shares it
                 extra["seed"] = head.seed
@@ -442,6 +453,20 @@ class ContinuousScheduler:
         self._engine.close()
 
 
+def mp4_bytes(frames, fps: int) -> bytes:
+    """The frames as the bytes of an mp4 file (OpenCV's mp4v writer)."""
+    import os
+
+    from ..utils.video import write_images_as_temp_video
+
+    path = write_images_as_temp_video(frames, fps=fps)
+    try:
+        with open(path, "rb") as f:
+            return f.read()
+    finally:
+        os.unlink(path)
+
+
 def make_handler(batcher):
     class Handler(BaseHTTPRequestHandler):
         def do_POST(self):
@@ -460,11 +485,14 @@ def make_handler(batcher):
             except Exception as e:
                 self.send_error(500, str(e))
                 return
-            buffered = BytesIO()
-            image.save(buffered, format="WEBP")
-            data = buffered.getvalue()
+            if isinstance(image, list):  # wan: a video, one image a frame
+                ctype, data = "video/mp4", mp4_bytes(image, params.fps)
+            else:
+                buffered = BytesIO()
+                image.save(buffered, format="WEBP")
+                ctype, data = "image/webp", buffered.getvalue()
             self.send_response(200)
-            self.send_header("Content-Type", "image/webp")
+            self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(data)))
             self.end_headers()
             self.wfile.write(data)

@@ -55,3 +55,13 @@ def tensor_to_images(tensor: torch.Tensor) -> list[Image.Image]:
     arr = np.nan_to_num(arr)  # NaN-safe (random-init weights)
     arr = ((arr + 1.0) / 2.0 * 255.0).astype(np.uint8)
     return [Image.fromarray(im) for im in arr]
+
+
+def videos_to_tensor(videos: list[list[Image.Image]], dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Lists of frames -> (B, F, H, W, C) float in [-1, 1]."""
+    return torch.stack([images_to_tensor(frames, dtype) for frames in videos])
+
+
+def tensor_to_videos(tensor: torch.Tensor) -> list[list[Image.Image]]:
+    """(B, F, H, W, C) float in [-1, 1] -> one list of frames a sample."""
+    return [tensor_to_images(video) for video in tensor]

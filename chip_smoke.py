@@ -1384,7 +1384,7 @@ def lumina_trainer_phase(device, wrappers: dict, checkout: Path) -> dict:
     from vision_ft_tpu_torch.models.lumina2.config import Lumina2Config
     from vision_ft_tpu_torch.models.lumina2.pipeline import Lumina2
     from vision_ft_tpu_torch.models.lumina2.util import convert_to_comfy_key
-    from vision_ft_tpu_torch.nn import set_remat_saves
+    from vision_ft_tpu_torch.nn import remat_saves, set_remat_saves
     from vision_ft_tpu_torch.train.lumina2.text_to_image import build_trainer
     from vision_ft_tpu_torch.training.optimizer import global_norm
     from vision_ft_tpu_torch.training.state_checkpoint import restore_train_state
@@ -1622,12 +1622,13 @@ def lumina_trainer_phase(device, wrappers: dict, checkout: Path) -> dict:
 
         # one more step of the last batch with nothing kept by the checkpoints
         *_, last_batch = step_log[-1]
+        trainer_saves = remat_saves()
         set_remat_saves("none")
         try:
             trainer.state, _ = trainer._step(
                 trainer.state, last_batch, torch.Generator(device=device).manual_seed(5))
         finally:
-            set_remat_saves("kernel")
+            set_remat_saves(trainer_saves)
         none_launches = step_log[-1][2]
         want_none = want_step(tuple(last_batch["pixel_values"].shape), "none")
         print(f"a step with remat saves none: launches {none_launches}, expected {want_none}")
@@ -2277,7 +2278,7 @@ def auraflow_trainer_phase(device, wrappers: dict, checkout: Path) -> dict:
     from vision_ft_tpu_torch.models.text_encoders.sentencepiece import (
         SentencePieceModel, SentencePieceTokenizer,
     )
-    from vision_ft_tpu_torch.nn import set_remat_saves
+    from vision_ft_tpu_torch.nn import remat_saves, set_remat_saves
     from vision_ft_tpu_torch.train.auraflow import rope_migration, shortcut, text_to_image
     from vision_ft_tpu_torch.training.optimizer import global_norm
     from vision_ft_tpu_torch.utils import safetensors as st
@@ -2450,10 +2451,12 @@ def auraflow_trainer_phase(device, wrappers: dict, checkout: Path) -> dict:
                        peak_gib=log["peak_gib"], run_step_ms=[t * 1e3 for t, *_ in log["steps"]])
         if len(log["steps"]) != len(AURA_TRAINER_IMAGES):
             raise AssertionError(f"config #3: {len(log['steps'])} steps")
-        # remat saves "kernel": the recompute takes the forward's (out, lse) back, so a step
-        # launches B once and C's two kernels once per attention; F runs in the forward
-        # and again in the recompute (its backward is the plain formula)
-        check_steps("config #3", log, want(layers, layers, 2 * mlps))
+        # the Trainer's remat saves ("activations", the default): the recompute takes
+        # the forward's (out, lse) back, so a step launches B once and C's two kernels
+        # once per attention; F's output is kept too, so it runs in the forward only
+        # (with "kernel" it runs again in the recompute; its backward is the plain formula)
+        recompute_f = 0 if remat_saves() == "activations" else 1
+        check_steps("config #3", log, want(layers, layers, (1 + recompute_f) * mlps))
         preview_steps = yaml.safe_load(Path(raw["preview"]["data"]["path"]).read_text())[0]["num_steps"]
         # CFG: both halves in one call per layer
         preview_want = want(preview_steps * layers, 0, preview_steps * mlps)
@@ -2500,12 +2503,13 @@ def auraflow_trainer_phase(device, wrappers: dict, checkout: Path) -> dict:
                                              torch.Generator(device=device).manual_seed(seed))
             warm.append(log["steps"][-1][0] * 1e3)
         numbers["warm_step_ms"] = warm
+        trainer_saves = remat_saves()
         set_remat_saves("none")
         try:
             trainer.state, _ = trainer._step(trainer.state, square,
                                              torch.Generator(device=device).manual_seed(8))
         finally:
-            set_remat_saves("kernel")
+            set_remat_saves(trainer_saves)
         if log["steps"][-1][2] != want(2 * layers, layers, 2 * mlps):
             raise AssertionError(f"a step with remat saves none: {log['steps'][-1][2]}")
         print(f"warm steps at 1024x1024, batch 1: {[round(t, 1) for t in warm]} ms; a step with "
@@ -2552,7 +2556,8 @@ def auraflow_trainer_phase(device, wrappers: dict, checkout: Path) -> dict:
               f"{STEP_GRAD_NORM_TOL}); kernel launches B {used['flash_attention_bshd']}, C "
               f"{used['flash_attention_bshd_dkv']} + {used['flash_attention_bshd_dq']}, F "
               f"{used['gated_mlp']}")
-        if read_launches() != used or used != want(reduced, reduced, 2 * reduced_mlps):
+        if read_launches() != used or used != want(reduced, reduced,
+                                                   (1 + recompute_f) * reduced_mlps):
             raise AssertionError(f"the reduced step's launches: {used}, then {read_launches()}")
         if not (loss_rel <= STEP_LOSS_TOL and norm_rel <= STEP_GRAD_NORM_TOL):
             raise AssertionError("the AuraFlow trainer's kernel step and the plain step disagree")
@@ -2577,7 +2582,7 @@ def auraflow_trainer_phase(device, wrappers: dict, checkout: Path) -> dict:
         # two forwards for the self-consistency targets (no gradient), one trained;
         # shortcut.yml's "mlp" puts adapters on every MLP, so F runs on none
         mlps = fused_mlps(den)
-        check_steps("shortcut", log, want(3 * layers, layers, 4 * mlps))
+        check_steps("shortcut", log, want(3 * layers, layers, (3 + recompute_f) * mlps))
         embedder = {k: v for k, v in trainer.trainable.items() if ".shortcut_embedder." in k}
         moved = [k for k, v in embedder.items() if bool(v.abs().max() > 0)]
         if not embedder or not moved:
@@ -2608,7 +2613,7 @@ def auraflow_trainer_phase(device, wrappers: dict, checkout: Path) -> dict:
                           "denoiser.use_rope and the workload's fields)", trainer)
         den = trainer.model.model.denoiser
         layers = len(den.double_layers) + len(den.single_layers)
-        check_steps("RoPE migration", log, want(layers, layers, 2 * fused_mlps(den)))
+        check_steps("RoPE migration", log, want(layers, layers, (1 + recompute_f) * fused_mlps(den)))
         scale = den.migration_scale.scale.detach().float().cpu()
         if "denoiser.migration_scale.scale" not in trainer.trainable or not bool(scale.abs().max() > 0):
             raise AssertionError(f"the migration scale did not train: {scale}")
@@ -5009,6 +5014,504 @@ def run_wan(checkout: Path, profile: bool) -> dict:
     return json.loads(lines[-1])["wan"]
 
 
+# the SDXL adapter phases (37-39, ``--sdxl-adapters``): the RoPE student's rotated
+# self-attention takes kernels E and G, unmasked at head dim 64 with H == Hkv, at
+# SDXL's two attention widths at 1024 px (CFG batch 2); SigLIP-384's blocks take
+# kernel B at 12 heads of 64 over 576 tokens (a reference image and CFG's negative)
+ADAPTER_ATTN_SHAPES = [(2, 10, 4096, 64), (2, 20, 1024, 64)]  # (B, H, S, D)
+SIGLIP_B_SHAPE = (2, 576, 768, 12)  # (B, S, H*D, H)
+ADAPTER_IMAGES = 4  # seeded 1024 px images: an epoch of two steps at batch 2
+REMAT_MODES = ("activations", "kernel", "none")
+REMAT_TIMED = 2
+# cuBLAS's (nvjet_*, *gemm*, cutlass) and cuDNN's GEMM and convolution kernels (the port's
+# own kernels are named flash_*, layer_norm_*, nf4_*, gated_*, gn_*, conv3x3_* and partial_block_*)
+LIBRARY_GEMM = re.compile(r"nvjet|gemm|xmma|cutlass|cudnn|conv|fprop|dgrad|wgrad", re.IGNORECASE)
+
+
+def rope_attention_records(device, gen, b, h, s, d) -> tuple:
+    """Kernels E and G as the RoPE student calls them: q and k (B, H, S, D)
+    contiguous (the rotation's output), v and dout views of (B, S, H*D) (the
+    projection's layout), no mask, H == Hkv. E's output and lse against
+    the plain version, G's dq, dk and dv against the plain backward, reruns
+    bit-identical, one call each beside SDPA's forward and backward, the
+    bounds. Returns the (E, G dk/dv, G dq) records."""
+    from vision_ft_tpu_torch.ops.flash_attention import (
+        flash_attention_masked, flash_attention_masked_backward,
+        flash_attention_masked_backward_reference, flash_attention_masked_delta,
+        flash_attention_masked_dkv, flash_attention_masked_dq, flash_attention_reference,
+    )
+
+    q, k = (torch.randn(b, h, s, d, device=device, generator=gen).bfloat16() for _ in "qk")
+    v, dout = (torch.randn(b, s, h * d, device=device, generator=gen).bfloat16()
+               .unflatten(-1, (h, d)).transpose(1, 2) for _ in "vo")
+    what = f"attention B={b} H={h} S={s} D={d}, unmasked (the RoPE student's)"
+    before = flash_attention_masked.launches
+    out, lse = flash_attention_masked(q, k, v, return_lse=True)
+    if flash_attention_masked.launches != before + 1:
+        raise AssertionError(f"{what}: kernel E launched {flash_attention_masked.launches - before} times")
+    ref, ref_lse = flash_attention_reference(q, k, v, return_lse=True)
+    abs_err, rel_err = compare(what + " out", lambda: out, lambda: ref, MASKED_ATTN_TOL)
+    lse_err = compare(what + " lse", lambda: lse, lambda: ref_lse, MASKED_LSE_TOL)
+    del ref, ref_lse
+    assert_reruns(what, lambda: flash_attention_masked(q, k, v, return_lse=True))
+    sdpa = F.scaled_dot_product_attention
+    ms = cuda_ms(lambda: flash_attention_masked(q, k, v))
+    back_to_back_ms = burst_ms(lambda: flash_attention_masked(q, k, v))
+    plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, v), warmup=1, iters=3)
+    library_ms = cuda_ms(lambda: sdpa(q, k, v))
+    pairs = float(b * s * s)
+    flops = 4 * h * d * pairs
+    bound_ms, bound_by = bound(2 * 4 * b * h * s * d, flops)
+    print(f"{what}: kernel E max abs err {abs_err:.3e} rel {rel_err:.3e} (tol {MASKED_ATTN_TOL}), "
+          f"lse rel {lse_err[1]:.3e} (tol {MASKED_LSE_TOL}), one launch, reruns bit-identical; "
+          f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of the bound; "
+          f"{back_to_back_ms:.4f} ms a call over 10 back to back), plain {plain_ms:.3f} ms, SDPA "
+          f"{library_ms:.4f} ms (kernel {ms / library_ms:.2f}x), bound {bound_ms:.4f} ms ({bound_by})")
+    forward = dict(shape=[b, h, s, d], max_abs_err=abs_err, lse_max_abs_err=lse_err[0], ms=ms,
+                   burst_ms=back_to_back_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=library_ms)
+
+    delta = flash_attention_masked_delta(out, dout)
+    dk, dv = flash_attention_masked_dkv(q, k, v, None, dout, lse, delta)
+    dq = flash_attention_masked_dq(q, k, v, None, dout, lse, delta)
+    rerun = flash_attention_masked_backward(q, k, v, None, out, lse, dout)
+    if not all(torch.equal(x, y) for x, y in zip((dq, dk, dv), rerun)):
+        raise AssertionError(f"{what}: two backward launches differ")
+    refs = flash_attention_masked_backward_reference(q, k, v, None, out, lse, dout)
+    err = {name: compare(f"{what} {name}", lambda: got, lambda: want, MASKED_BWD_TOL)
+           for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), refs)}
+    del refs, rerun, dq, dk, dv
+    dkv_ms = cuda_ms(lambda: flash_attention_masked_dkv(q, k, v, None, dout, lse, delta))
+    dq_ms = cuda_ms(lambda: flash_attention_masked_dq(q, k, v, None, dout, lse, delta))
+    plain_bwd_ms = cuda_ms(
+        lambda: flash_attention_masked_backward_reference(q, k, v, None, out, lse, dout),
+        warmup=1, iters=3)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    sdpa_out = sdpa(*leaves)
+    library_bwd_ms = cuda_ms(lambda: torch.autograd.grad(sdpa_out, leaves, dout, retain_graph=True))
+    del sdpa_out, leaves
+    side = 2 * b * h * s * d  # bytes of one bf16 (B, H, S, D) tensor
+    read = 2 * side + 2 * side + 2 * 4 * b * h * s
+    dkv_bound = bound(read + 2 * side, 8 * h * d * pairs)
+    dq_bound = bound(read + side, 6 * h * d * pairs)
+    print(f"{what} backward: " + ", ".join(f"{n} max abs err {a:.3e} rel {r:.3e}"
+                                           for n, (a, r) in err.items())
+          + f" (tol {MASKED_BWD_TOL}), reruns bit-identical; kernel G dk/dv {dkv_ms:.4f} ms "
+          f"({100 * dkv_bound[0] / dkv_ms:.1f}% of its bound), dq {dq_ms:.4f} ms "
+          f"({100 * dq_bound[0] / dq_ms:.1f}% of its bound); plain backward {plain_bwd_ms:.3f} ms, "
+          f"SDPA's backward {library_bwd_ms:.4f} ms; bounds dk/dv {dkv_bound[0]:.4f} ms "
+          f"({dkv_bound[1]}), dq {dq_bound[0]:.4f} ms ({dq_bound[1]})")
+    dkv = dict(shape=[b, h, s, d], max_abs_err=max(err["dk"][0], err["dv"][0]), ms=dkv_ms,
+               plain_ms=plain_bwd_ms, bound_ms=dkv_bound[0], bound_by=dkv_bound[1],
+               library_ms=library_bwd_ms)
+    dq = dict(shape=[b, h, s, d], max_abs_err=err["dq"][0], ms=dq_ms, plain_ms=plain_bwd_ms,
+              bound_ms=dq_bound[0], bound_by=dq_bound[1], library_ms=library_bwd_ms)
+    del q, k, v, dout, out, lse, delta
+    gc.collect()
+    torch.cuda.empty_cache()
+    return forward, dkv, dq
+
+
+def library_gemm_launches(make_loss, params) -> int:
+    """cuBLAS / cuDNN GEMM and convolution launches of the backward of
+    ``make_loss()`` (its forward untraced) traced by torch.profiler (device
+    activity); two forwards, two traced backwards, the counts must agree."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = []
+    for _ in range(2):
+        value = make_loss()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.autograd.grad(value, params)
+            torch.cuda.synchronize()
+        del value
+        counts.append(sum(e.count for e in prof.key_averages()
+                          if LIBRARY_GEMM.search(e.key) and "conv3x3" not in e.key))
+    if counts[0] != counts[1] or counts[0] == 0:
+        raise AssertionError(f"torch.profiler: GEMM launch counts {counts} (lost events?)")
+    return counts[0]
+
+
+def sdxl_remat_phase(device, model, numbers: dict) -> None:
+    """The SDXL LoRA train step (rank 16 on attn1 / attn2 / ff, batch
+    REMAT_BATCH... at 1024 px, cached latents and text) under each remat mode:
+    the gradients bit-identical, ms/step, peak GiB; and, traced at batch 1,
+    the library GEMMs of the backward less those of a step without
+    checkpointing: the forward GEMMs the recomputation runs."""
+    from vision_ft_tpu_torch.models.sdxl import train_text_to_image as t2i
+    from vision_ft_tpu_torch.modules import peft
+    from vision_ft_tpu_torch.nn import remat_saves, set_remat_saves
+
+    gen = torch.Generator(device=device).manual_seed(38)
+    peft.replace_to_peft_layer(model.denoiser, LORA_TARGETS, [],
+                               peft.LoRAConfig(rank=16, alpha=8.0, dtype="bfloat16"), gen)
+    trainable, _ = peft.split_peft_params(model.denoiser)
+    with torch.no_grad():
+        for key, p in trainable.items():
+            if key.endswith("lora_up.weight"):
+                p.normal_(0.0, 1e-3, generator=gen)
+    params = list(trainable.values())
+
+    def batch(b):
+        g = torch.Generator(device=device).manual_seed(39)
+        return {
+            "cached_latents": torch.randn(b, 128, 128, 4, device=device, generator=g).bfloat16(),
+            "cached_context": torch.randn(b, 77, 2048, device=device, generator=g).bfloat16(),
+            "cached_pooled": torch.randn(b, 1280, device=device, generator=g).bfloat16(),
+            "original_size": torch.full((b, 2), 1024.0, device=device),
+            "target_size": torch.full((b, 2), 1024.0, device=device),
+            "crop_coords_top_left": torch.zeros(b, 2, device=device),
+            "timesteps": torch.randint(0, 1000, (b,), device=device, generator=g),
+            "noise": torch.randn(b, 128, 128, 4, device=device, generator=g),
+        }
+
+    def loss(bt):
+        return t2i.loss_with_draws(model, bt, bt["timesteps"], bt["noise"])
+
+    model.denoiser.set_gradient_checkpointing(True)
+    big, small = batch(TRAIN_BATCH), batch(1)
+    previous = remat_saves()
+    runs = {}
+    try:
+        for mode in REMAT_MODES:
+            set_remat_saves(mode)
+            torch.autograd.grad(loss(big), params)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(REMAT_TIMED):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                grads = torch.autograd.grad(loss(big), params)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - start) * 1e3)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            gemms = library_gemm_launches(lambda: loss(small), params)
+            runs[mode] = dict(step_ms=times, peak_gib=peak, backward_gemms=gemms, grads=grads)
+        model.denoiser.set_gradient_checkpointing(False)
+        plain_gemms = library_gemm_launches(lambda: loss(small), params)
+    finally:
+        set_remat_saves(previous)
+        model.denoiser.set_gradient_checkpointing(True)
+    want = runs["none"]["grads"]
+    for mode in ("activations", "kernel"):
+        if not all(torch.equal(g, w) for g, w in zip(runs[mode]["grads"], want)):
+            raise AssertionError(f"the gradients with remat saves {mode} differ from none's")
+    if not any(bool(g.abs().max() > 0) for g in want):
+        raise AssertionError("every LoRA gradient is zero")
+    remat = {}
+    for mode, run in runs.items():
+        recomputed = run["backward_gemms"] - plain_gemms
+        remat[mode] = dict(step_ms=run["step_ms"], peak_gib=run["peak_gib"],
+                           recomputed_gemms=recomputed)
+        print(f"remat saves {mode}: {min(run['step_ms']):.1f} ms/step (batch {TRAIN_BATCH}, 1024 px, "
+              f"LoRA rank 16, fwd + bwd, min of {run['step_ms']}), peak {run['peak_gib']:.2f} GiB; "
+              f"backward at batch 1: {run['backward_gemms']} cuBLAS / cuDNN launches, "
+              f"{recomputed} of them the recomputation's forward GEMMs and convolutions")
+    print(f"a step without checkpointing: {plain_gemms} library GEMM launches in its backward; the "
+          f"gradients of the three modes bit-identical")
+    if not remat["activations"]["recomputed_gemms"] < remat["kernel"]["recomputed_gemms"]:
+        raise AssertionError(f"remat saves activations recompute no fewer GEMMs: {remat}")
+    numbers["remat"] = remat
+    del runs, want, params, trainable, big, small
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def sdxl_adapters_phase(device, wrappers: dict, checkout: Path) -> dict:
+    """Phases 37-39, run in a process of its own (``--sdxl-adapters``)."""
+    import yaml
+
+    from vision_ft_tpu_torch.config import TrainConfig
+    from vision_ft_tpu_torch.models.sdxl.config import SDXLConfig
+    from vision_ft_tpu_torch.models.sdxl.text_encoder import CHUNK_LENGTH
+    from vision_ft_tpu_torch.modules.long_prompt import tokenize_long_prompt
+    from vision_ft_tpu_torch.models.sdxl.pipeline import SDXLModel
+    from vision_ft_tpu_torch.models.text_encoders.tokenizer import CLIPTokenizer
+    from vision_ft_tpu_torch.models.vision_encoders.siglip import _Block as SigLIPBlock
+    from vision_ft_tpu_torch.nn import LayerNorm
+    from vision_ft_tpu_torch.ops.flash_attention import flash_attention_bshd
+    from vision_ft_tpu_torch.train.sdxl import flow_match as fm_cli
+    from vision_ft_tpu_torch.train.sdxl import ip_adapter_self
+    from vision_ft_tpu_torch.train.sdxl import rope_distill as rd_cli
+    from vision_ft_tpu_torch.utils import safetensors as st
+
+    def reset_launches():
+        for wrapper in wrappers.values():
+            wrapper.launches = 0
+
+    def read_launches():
+        return {name: wrapper.launches for name, wrapper in wrappers.items()}
+
+    numbers = {}
+    records = {name: [] for name in ("flash_attention_masked", "flash_attention_masked_dkv",
+                                     "flash_attention_masked_dq", "flash_attention_bshd")}
+    run_launches = {name: 0 for name in wrappers}
+    gen = torch.Generator(device=device).manual_seed(37)
+
+    phase("37 kernels E and G at the RoPE student's shapes (D 64, unmasked, H == Hkv); kernel B "
+          "at SigLIP-384's (12 heads of 64 over 576 tokens)")
+    for b, h, s, d in ADAPTER_ATTN_SHAPES:
+        for name, record in zip(("flash_attention_masked", "flash_attention_masked_dkv",
+                                 "flash_attention_masked_dq"),
+                                rope_attention_records(device, gen, b, h, s, d)):
+            records[name].append(record)
+    b, s, inner, h = SIGLIP_B_SHAPE
+    records["flash_attention_bshd"].append(bshd_forward_record(device, gen, b, s, s, inner, h))
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_adapters_"))
+    try:
+        write_vocab(work)
+        tokenizer = CLIPTokenizer.from_pretrained_dir(str(work))
+        images_dir = work / "images"
+        images_dir.mkdir()
+        img_rng = np.random.default_rng(3)
+        for i in range(ADAPTER_IMAGES):
+            smooth = img_rng.integers(0, 255, (32, 32, 3), dtype=np.uint8)
+            Image.fromarray(smooth).resize((1024, 1024), Image.BILINEAR).save(images_dir / f"{i}.png")
+            (images_dir / f"{i}.txt").write_text(f"a photo of the cat, {'abcd'[i] * 3}, on the sofa")
+
+        phase("38 the SDXL LoRA train step in the three remat modes at full width and depth "
+              f"(batch {TRAIN_BATCH}, 1024 px)")
+        start = time.perf_counter()
+        model = SDXLModel(SDXLConfig(checkpoint_path="", dtype="bfloat16"), tokenizer=tokenizer)
+        model.init_params(torch.Generator(device=device).manual_seed(0))
+        unet = model.denoiser
+        unet_attn = sum(type(m).__name__ == "SelfAttention" for m in unet.modules())
+        unet_ln = sum(isinstance(m, LayerNorm) for m in unet.modules())
+        ckpt = work / "sdxl.safetensors"
+        st.save_file(model.state_dict(), ckpt)
+        numbers["checkpoint_write_s"] = time.perf_counter() - start
+        print(f"seeded SDXL (bf16) made on the card and written to {ckpt.stat().st_size / 1e9:.3f} GB "
+              f"in {numbers['checkpoint_write_s']:.1f} s; the UNet's {unet_attn} self-attentions and "
+              f"{unet_ln} LayerNorms")
+        # one text encoding's kernel A launches (the workloads below encode every step)
+        ids, _ = tokenize_long_prompt(tokenizer, ["a photo of the cat"] * 2, max_length=75,
+                                      chunk_length=CHUNK_LENGTH)
+        ids = torch.from_numpy(np.asarray(ids)).to(device)
+        reset_launches()
+        with torch.no_grad():
+            model.text_encoder.encode_tokens(ids, ids, 2)
+        encode_ln = read_launches()["layer_norm"]
+        print(f"one text encoding (both CLIP towers): {encode_ln} launches of kernel A")
+        sdxl_remat_phase(device, model, numbers)
+        for part in model._parts().values():
+            part.to("meta")
+        del model, unet
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def run_trainer(label, trainer):
+            """trainer.train() with each step's launches (and the batch
+            preprocessing's, where the image encoder runs), host ms, loss."""
+            log = dict(steps=[], preprocess=[])
+            preprocess = trainer.model.preprocess_batch
+
+            def counted_preprocess(batch):
+                before = read_launches()
+                out = preprocess(batch)
+                after = read_launches()
+                log["preprocess"].append({k: after[k] - before[k] for k in after})
+                return out
+
+            trainer.model.preprocess_batch = counted_preprocess
+            prepare_optimizer = trainer.prepare_optimizer
+
+            def prepare_and_time():
+                prepare_optimizer()
+                inner = trainer._step
+
+                def timed(state, batch, generator):
+                    torch.cuda.synchronize()
+                    before = read_launches()
+                    start = time.perf_counter()
+                    state, metrics = inner(state, batch, generator)
+                    loss = metrics["train/loss"].item()
+                    torch.cuda.synchronize()
+                    after = read_launches()
+                    log["steps"].append((time.perf_counter() - start, loss,
+                                         {k: after[k] - before[k] for k in after}))
+                    return state, metrics
+
+                trainer._step = timed
+
+            trainer.prepare_optimizer = prepare_and_time
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            start = time.perf_counter()
+            trainer.train()
+            torch.cuda.synchronize()
+            log["run_s"] = time.perf_counter() - start
+            log["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            for k, v in read_launches().items():
+                run_launches[k] += v
+            losses = [loss for _, loss, _ in log["steps"]]
+            print(f"{label}: trainer.train() {log['run_s']:.1f} s (checkpoint load included); "
+                  f"{len(losses)} steps, losses {[round(x, 6) for x in losses]}, "
+                  f"{[round(t * 1e3, 1) for t, _, _ in log['steps']]} ms, peak {log['peak_gib']:.2f} GiB")
+            if len(losses) != ADAPTER_IMAGES // 2 or not all(np.isfinite(losses)):
+                raise AssertionError(f"{label}: steps {losses}")
+            return log
+
+        def want(**counts):
+            out = {name: 0 for name in wrappers}
+            out.update(counts)
+            return out
+
+        def check_request(label, model, expected, **kwargs):
+            reset_launches()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            images = model.generate(**kwargs)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+            launches = read_launches()
+            for k, v in launches.items():
+                run_launches[k] += v
+            arrays = [np.asarray(im) for im in images]
+            print(f"{label}: {len(images)} image(s) {images[0].size}, {kwargs['num_inference_steps']} "
+                  f"steps, {seconds:.2f} s; launches {({k: v for k, v in launches.items() if v})}")
+            if images[0].size != (kwargs["width"], kwargs["height"]) or any(a.std() == 0 for a in arrays):
+                raise AssertionError(f"{label}: wrong size or a constant image")
+            for name, count in expected.items():
+                if launches[name] != count:
+                    raise AssertionError(f"{label}: {launches[name]} launches of {name}, expected {count}")
+            return seconds
+
+        def yaml_config(name, save_dir, edit=None):
+            raw = yaml.safe_load((checkout / "configs/sdxl" / name).read_text())
+            raw["model"].update(checkpoint_path=str(ckpt), tokenizer_path=str(work),
+                                max_token_length=75)
+            if edit is not None:
+                edit(raw)
+            raw["dataset"].update(folder=str(images_dir), num_repeats=1, batch_size=2,
+                                  num_workers=0)
+            raw["num_train_epochs"] = 1
+            raw["saving"]["callbacks"][0]["save_dir"] = str(work / save_dir)
+            raw.pop("preview", None)
+            raw["trainer"]["mesh"] = {"data": 1, "fsdp": 1, "tensor": 1}
+            return TrainConfig.model_validate(raw, strict=True)
+
+        request = dict(prompt="a photo of the cat on the sofa", negative_prompt="blurry",
+                       width=1024, height=1024, num_inference_steps=STEPS, seed=0)
+
+        phase("39 the adapter workloads through the Trainer from their YAMLs at full width and "
+              "depth: flow match, RoPE distillation, the IP-Adapter in self-reference mode")
+        trainer = fm_cli.build_trainer(yaml_config("flow_match.yml", "fm"), tokenizer=tokenizer)
+        log = run_trainer("flow match (configs/sdxl/flow_match.yml)", trainer)
+        step_want = want(flash_attention_bshd=unet_attn, flash_attention_bshd_dkv=unet_attn,
+                         flash_attention_bshd_dq=unet_attn, layer_norm=2 * unet_ln + encode_ln)
+        for i, (_, _, launches) in enumerate(log["steps"]):
+            if launches != step_want:
+                raise AssertionError(f"flow match step {i + 1}: launches {launches} != {step_want}")
+        numbers["flow_match"] = dict(step_ms=[t * 1e3 for t, _, _ in log["steps"]],
+                                     peak_gib=log["peak_gib"], run_s=log["run_s"])
+        numbers["flow_match"]["generate_s"] = check_request(
+            "flow-match generate() (velocity, Euler, CFG 3.5)", trainer.model.model,
+            {"flash_attention_bshd": STEPS * unet_attn, "flash_attention_masked": 0}, cfg_scale=3.5,
+            **request)
+        print(f"flow match: launches a step {step_want} (kernel B once, C's two kernels once per "
+              f"self-attention; A in the forward and the recomputation and in the text encoding)")
+        for part in trainer.model.model._parts().values():
+            part.to("meta")
+        del trainer, log
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        trainer = rd_cli.build_trainer(yaml_config("rope_distill.yml", "rope"), tokenizer=tokenizer)
+        log = run_trainer("RoPE distillation (configs/sdxl/rope_distill.yml)", trainer)
+        # the teacher (RoPE and PEFT off, no gradient) at 1024 and 512 px: kernel B; the
+        # student at both sizes: kernel E forward (4096 / 1024 and 1024 / 256 tokens, all
+        # >= 256 keys) and kernel G backward; A in each forward, the students' twice
+        step_want = want(flash_attention_bshd=2 * unet_attn, flash_attention_masked=2 * unet_attn,
+                         flash_attention_masked_dkv=2 * unet_attn,
+                         flash_attention_masked_dq=2 * unet_attn,
+                         layer_norm=2 * unet_ln + 2 * 2 * unet_ln + encode_ln)
+        for i, (_, _, launches) in enumerate(log["steps"]):
+            if launches != step_want:
+                raise AssertionError(f"RoPE distill step {i + 1}: launches {launches} != {step_want}")
+        print(f"RoPE distillation: launches a step {step_want}: kernel E and G on the rotated "
+              f"self-attention at head dim 64")
+        numbers["rope_distill"] = dict(step_ms=[t * 1e3 for t, _, _ in log["steps"]],
+                                       peak_gib=log["peak_gib"], run_s=log["run_s"],
+                                       launches_per_step=step_want)
+        for part in trainer.model.model._parts().values():
+            part.to("meta")
+        del trainer, log
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the YAML's mlp projector takes one pooled vector a sample: SigLIP's pooled
+        # output (its "hidden_state" default is a token sequence, ROADMAP section 3)
+        def self_mode(raw):
+            raw["model"]["adapter"]["image_encoder"]["feature_type"] = "pooler_output"
+            raw["dataset"].pop("metadata_parquet")
+
+        config = yaml_config("ip_adapter.yml", "ip", self_mode)
+        trainer = ip_adapter_self.build_trainer(config, tokenizer=tokenizer)
+        log = run_trainer("IP-Adapter, self-reference mode (configs/sdxl/ip_adapter.yml)", trainer)
+        ip_model = trainer.model.model
+        siglip = ip_model.encoder.model
+        siglip_attn = sum(isinstance(m, SigLIPBlock) for m in siglip.modules())
+        siglip_ln = sum(isinstance(m, LayerNorm) and m.weight is not None and m.dim % 128 == 0
+                        for m in siglip.modules())
+        encode_want = want(flash_attention_bshd=siglip_attn, layer_norm=siglip_ln)
+        for i, launches in enumerate(log["preprocess"]):
+            if launches != encode_want:
+                raise AssertionError(f"IP-Adapter batch {i + 1}: the image encoder's launches "
+                                     f"{launches} != {encode_want}")
+        print(f"SigLIP-384 (seeded, bf16, {siglip_attn} blocks over "
+              f"{siglip.config.num_patches} tokens): launches a batch {encode_want}")
+        for i, (_, _, launches) in enumerate(log["steps"]):
+            c = launches["flash_attention_bshd_dkv"]
+            if (launches["flash_attention_bshd"] < unet_attn or c != launches["flash_attention_bshd_dq"]
+                    or c < unet_attn - 1 or launches["layer_norm"] < unet_ln
+                    or any(launches[k] for k in launches if k not in (
+                        "flash_attention_bshd", "flash_attention_bshd_dkv",
+                        "flash_attention_bshd_dq", "layer_norm"))):
+                raise AssertionError(f"IP-Adapter step {i + 1}: launches {launches}")
+        moved = [k for k, v in trainer.trainable.items() if "_ip." in k or k.startswith("image_proj.")]
+        if not moved or len(moved) != len(trainer.trainable):
+            raise AssertionError(f"IP-Adapter trainable tensors: {sorted(trainer.trainable)[:4]}")
+        saved = sorted((work / "ip").glob("*.safetensors"))
+        adapter_keys = set(st.load_file(saved[-1])) if saved else set()
+        if len(saved) != 1 or not any(k.startswith("ip_adapter.1.") for k in adapter_keys) or not any(
+                k.startswith("image_proj.") for k in adapter_keys):
+            raise AssertionError(f"IP-Adapter saved files {saved}: {sorted(adapter_keys)[:4]}")
+        print(f"IP-Adapter: {len(trainer.trainable)} trainable tensors (the attn2 ip projections "
+              f"and the projector); launches a step {[l for _, _, l in log['steps']]}; saved "
+              f"{saved[-1].name} with {len(adapter_keys)} keys")
+        reference = Image.fromarray(np.random.default_rng(5).integers(0, 255, (300, 420, 3), np.uint8))
+        numbers["ip_adapter"] = dict(step_ms=[t * 1e3 for t, _, _ in log["steps"]],
+                                     peak_gib=log["peak_gib"], run_s=log["run_s"],
+                                     encoder_launches=encode_want)
+        numbers["ip_adapter"]["generate_s"] = check_request(
+            "IP-Adapter generate() with a reference image (CFG 5)", ip_model,
+            {"flash_attention_bshd": siglip_attn + STEPS * unet_attn}, reference_image=reference,
+            cfg_scale=5.0, **request)
+        del trainer, log, ip_model, siglip
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(launches=run_launches, records=records, numbers=numbers)
+
+
+def run_sdxl_adapters(checkout: Path) -> dict:
+    """``chip_smoke.py --sdxl-adapters`` in a process of its own (a fresh
+    card): its lines, then its launch counts, records and numbers."""
+    proc = subprocess.run(
+        [sys.executable, str(checkout / "chip_smoke.py"), "--sdxl-adapters"],
+        cwd=checkout, capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    print("\n".join(lines[:-1] if proc.returncode == 0 else lines))
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"chip_smoke.py --sdxl-adapters failed (exit {proc.returncode}): "
+                             f"{proc.stderr[-4000:]}")
+    return json.loads(lines[-1])["sdxl_adapters"]
+
+
 def main() -> None:
     args = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     args.add_argument("--profile", action="store_true",
@@ -5059,6 +5562,12 @@ def main() -> None:
                            "generate() at full width and depth, its three-file checkpoint, server "
                            "and CLI) after building their libraries; prints their launch counts, "
                            "records and numbers as one JSON line, not the ok line")
+    args.add_argument("--sdxl-adapters", action="store_true",
+                      help="run phases 37-39 alone (kernels E and G at the RoPE student's shapes, "
+                           "B at SigLIP-384's, the SDXL train step in the three remat modes, the "
+                           "flow-match, RoPE-distillation and IP-Adapter workloads through the "
+                           "Trainer with generate()) after building their libraries; prints their "
+                           "launch counts, records and numbers as one JSON line, not the ok line")
     args.add_argument("--ln-probe-costs", action="store_true",
                       help="time kernels A and L and their library calls (one call, back to "
                            "back, host us, traced) in this process alone; prints one JSON line, "
@@ -5193,6 +5702,14 @@ def main() -> None:
                                      "nf4_matmul"])
         result = cogview4_phase(device, wrappers, options.profile, checkout)
         print(json.dumps({"cogview4": result}))
+        return
+
+    if options.sdxl_adapters:
+        phase("1 build (kernels A's, B's, C's, E's and G's libraries only)")
+        _build.build_cuda_libraries(["flash_attention_bshd", "flash_attention_bshd_bwd", "layer_norm",
+                                     "flash_attention_masked", "flash_attention_masked_bwd"])
+        result = sdxl_adapters_phase(device, wrappers, checkout)
+        print(json.dumps({"sdxl_adapters": result}))
         return
 
     if options.wan:
@@ -6975,6 +7492,13 @@ def main() -> None:
     card_numbers = ", ".join(f"{k} {v}" for k, v in wan["numbers"].items())
     print(f"phases 34-36 on {card}: {card_numbers}")
 
+    phase("37-39 kernels E and G at the RoPE student's shapes, B at SigLIP-384's; the SDXL train "
+          "step in the three remat modes; the flow-match, RoPE-distillation and IP-Adapter "
+          "workloads through the Trainer with generate() (a process of its own)")
+    adapters = run_sdxl_adapters(checkout)
+    card_numbers = ", ".join(f"{k} {v}" for k, v in adapters["numbers"].items())
+    print(f"phases 37-39 on {card}: {card_numbers}")
+
     kernels = []
     for name, record in records.items():
         launches = {"generate": generate_launches[name], "train": train_launches[name],
@@ -6991,7 +7515,8 @@ def main() -> None:
                     "serve": serve["launches"][name],
                     "flux": flux["launches"][name],
                     "cogview4": cogview4["launches"][name],
-                    "wan": wan["launches"][name]}
+                    "wan": wan["launches"][name],
+                    "sdxl_adapters": adapters["launches"][name]}
         kernels.append({
             "name": name,
             **{k: record[k] for k in ("route", "source", "replaces")},
@@ -7007,6 +7532,8 @@ def main() -> None:
             **({"cogview4_shapes": cogview4["records"][name]} if name in cogview4["records"]
                else {}),
             **({"wan_shapes": wan["records"][name]} if name in wan["records"] else {}),
+            **({"sdxl_adapters_shapes": adapters["records"][name]} if name in adapters["records"]
+               else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

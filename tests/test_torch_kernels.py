@@ -236,7 +236,7 @@ def test_ptxas_report_parses_nvcc_output():
     assert main([]) == 2
 
 
-@pytest.mark.parametrize("mode,forwards", [("kernel", 1), ("none", 2)])
+@pytest.mark.parametrize("mode,forwards", [("activations", 1), ("kernel", 1), ("none", 2)])
 def test_remat_keeps_or_reruns_the_flash_forward(monkeypatch, mode, forwards):
     """A checkpointed region runs the attention forward once with the
     "kernel" saves and twice with none; the gradients do not change."""
@@ -260,7 +260,7 @@ def test_remat_keeps_or_reruns_the_flash_forward(monkeypatch, mode, forwards):
         assert len(calls) == 2 * forwards
         again = torch.autograd.grad(loss, leaves)  # a second walk recomputes again
     finally:
-        set_remat_saves("kernel")
+        set_remat_saves("activations")
     assert len(calls) == 2 * forwards + 2 * (forwards - 1)
     for g, a, w in zip(got, again, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
@@ -268,12 +268,16 @@ def test_remat_keeps_or_reruns_the_flash_forward(monkeypatch, mode, forwards):
 
 
 def test_remat_activations_mode_is_not_ported():
-    """"activations" stays unported; the remat groups are ported (held
-    against the JAX package in tests/test_torch_lumina2_train.py)."""
-    from vision_ft_tpu_torch.nn.core import remat_group, run_remat_stack, set_remat_group
+    """"activations" is ported now and is the default, as in the JAX
+    package (its gradients are held in tests/test_torch_remat.py); the
+    remat groups are ported (held against the JAX package in
+    tests/test_torch_lumina2_train.py)."""
+    from vision_ft_tpu_torch.config import TrainerConfig
+    from vision_ft_tpu_torch.nn.core import remat_group, remat_saves, run_remat_stack, set_remat_group
 
-    with pytest.raises(NotImplementedError):
-        set_remat_saves("activations")
+    assert TrainerConfig().remat_saves == "activations" == remat_saves()
+    set_remat_saves("activations")
+    assert remat_saves() == "activations"
     with pytest.raises(ValueError):
         set_remat_group(0)
     assert remat_group() == 1

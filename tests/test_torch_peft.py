@@ -300,6 +300,10 @@ def test_unported_peft_and_quant_paths_raise_by_name(monkeypatch):
     flat = {k: np.asarray(v, np.float32) for k, v in _adapter("lora", np.random.default_rng(0), 8, 8).items()}
     flat.update(weight=np.zeros((8, 8), np.float32), bias=np.zeros(8, np.float32))
     tnn.load_flat_params(layer, flat)
+    # VFT_LORA_CONCAT=1 is ported: the folded matmul gives the separate route's output
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 8)).astype(np.float32))
+    layer.weight.requires_grad_(False)  # the route takes a frozen base
+    want = layer(x)
     monkeypatch.setenv("VFT_LORA_CONCAT", "1")
-    with pytest.raises(NotImplementedError, match="VFT_LORA_CONCAT"):
-        layer(torch.zeros(2, 8))
+    assert tnn.core._lora_concat_applies(layer)
+    torch.testing.assert_close(layer(x), want, rtol=1e-5, atol=1e-6)

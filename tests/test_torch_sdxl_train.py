@@ -200,7 +200,7 @@ def test_gradients_do_not_depend_on_the_remat_mode():
         try:
             got = grads()
         finally:
-            tnn.set_remat_saves("kernel")
+            tnn.set_remat_saves("activations")
         for key, g, w in zip(trainable, got, want):
             torch.testing.assert_close(g, w, rtol=0, atol=0, msg=f"{mode} {key}")
     # checkpointing is a training-time thing: no region under no_grad

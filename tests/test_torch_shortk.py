@@ -229,7 +229,7 @@ def test_autograd_function_inside_a_remat_layer(monkeypatch, mode):
     try:
         got = torch.autograd.grad(remat_layer(region)(*leaves).square().sum(), leaves)
     finally:
-        set_remat_saves("kernel")
+        set_remat_saves("activations")
     assert len(calls) == (2 if mode == "kernel" else 4)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)

@@ -76,11 +76,11 @@ class TrainerConfig(BaseModel):
 
     gradient_checkpointing: bool = False
     # what gradient checkpointing keeps across the forward/backward
-    # boundary (nn.core.set_remat_saves): "kernel" keeps the flash kernels'
-    # (out, lse), "none" recomputes everything; "activations", the JAX
-    # package's default, is not ported and raises, so the default here is
-    # "kernel" (the gradients are the same in every mode)
-    remat_saves: Literal["activations", "kernel", "none"] = "kernel"
+    # boundary (nn.core.set_remat_saves): "activations" (the JAX package's
+    # default) keeps the kernels' outputs and every Linear / Conv2d
+    # product, "kernel" the flash kernels' (out, lse) only, "none" nothing
+    # (the gradients are the same in every mode)
+    remat_saves: Literal["activations", "kernel", "none"] = "activations"
     remat_group: int = 1
     gradient_accumulation_steps: int = 1
 

@@ -39,7 +39,7 @@ from torch import nn
 
 from ...modules.patch import patchify, unpatchify
 from ...modules.positional_encoding.rope import RoPEFrequency, apply_rope_qk
-from ...nn import LayerNorm, Linear, run_remat_stack, save_name
+from ...nn import LayerNorm, Linear, run_remat_stack, save_name, saved_products
 from ...ops.attention import attention_heads_packed
 from ...ops.fused_mlp import fused_ff_enabled, gated_mlp, supported
 from .config import DenoiserConfig
@@ -140,6 +140,7 @@ class SingleAttention(nn.ModuleDict):
         self.backend = "flash" if use_flash_attn else "xla"
         self.use_rope = use_rope
 
+    @saved_products()
     def forward(self, condition, rope_freqs=None):
         b, s, _ = condition.shape
         h, d = self.n_heads, self.head_dim
@@ -171,6 +172,7 @@ class DoubleAttention(nn.ModuleDict):
         self.backend = "flash" if use_flash_attn else "xla"
         self.use_rope = use_rope
 
+    @saved_products()
     def forward(self, condition, latent, rope_freqs=None):
         b, cs, _ = condition.shape
         ls = latent.shape[1]

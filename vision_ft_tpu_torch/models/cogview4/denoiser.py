@@ -38,7 +38,7 @@ from torch import nn
 
 from ...modules.patch import patchify, unpatchify_cmajor
 from ...modules.timestep.embedding import TimestepEmbedding, get_timestep_embedding
-from ...nn import LayerNorm, Linear, run_remat_stack, save_name
+from ...nn import LayerNorm, Linear, run_remat_stack, save_name, saved_products
 from ...ops.attention import attention_heads_packed
 from ..auraflow.denoiser import _qk_norm  # the per-head fp32 LayerNorm without affine
 from .config import DenoiserConfig
@@ -100,6 +100,7 @@ class SelfAttention(nn.ModuleDict):
         self.head_dim = hidden_dim // num_heads
         self.backend = attention_backend
 
+    @saved_products()
     def forward(self, hidden_states, encoder_hidden_states, rope_freqs):
         text_len = encoder_hidden_states.shape[1]
         x = torch.cat([encoder_hidden_states, hidden_states], dim=1)

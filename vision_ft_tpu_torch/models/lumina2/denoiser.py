@@ -41,7 +41,7 @@ from torch import nn
 
 from ...modules.patch import unpatchify
 from ...modules.timestep.embedding import get_timestep_embedding
-from ...nn import LayerNorm, Linear, RMSNorm, remat_layer, run_remat_stack, save_name
+from ...nn import LayerNorm, Linear, RMSNorm, remat_layer, run_remat_stack, save_name, saved_products
 from ...ops.attention import scaled_dot_product_attention
 from ...ops.fused_mlp import fused_ff_enabled, gated_mlp, supported
 from .config import DenoiserConfig
@@ -104,6 +104,7 @@ class SelfAttention(nn.ModuleDict):
         self.num_kv_heads = num_kv_heads
         self.head_dim = head_dim
 
+    @saved_products()
     def forward(self, x, freqs, mask=None):
         b, s, _ = x.shape
         h, kv, d = self.num_heads, self.num_kv_heads, self.head_dim

@@ -19,8 +19,12 @@ region (``nn.core.remat_layer``). LoRA / LoHa adapters live on the
 ``Linear`` / ``Conv2d`` layers (``modules/peft``). ``deepcache_forward``
 runs a DeepCache step on the forward's block runners (a cached step runs
 the three shallowest input and output blocks only: no transformer block,
-so no kernel launch). Not ported yet: the positional adapter hooks
-(``cross_attention_kwargs``).
+so no kernel launch). The adapter hooks are the JAX package's: a UNet
+subclass sets ``cross_attention_class`` / ``cross_attention_extra`` (the
+IP-Adapter's attn2) or ``transformer_block_class`` /
+``transformer_block_extra`` (the RoPE retrofit), and
+``cross_attention_kwargs`` (with the raw ``time_embedding`` added) reach
+every attn2; each transformer block gets its feature map's ``hw``.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...modules.timestep.embedding import get_timestep_embedding
-from ...nn import Conv2d, GroupNorm, LayerNorm, Linear, remat_layer, save_name
+from ...nn import Conv2d, GroupNorm, LayerNorm, Linear, remat_layer, save_name, saved_products
 from ...ops.attention import AttentionImplementation, attention_heads_packed
 from ...ops.fused_mlp import fused_ff_enabled, geglu_mlp, supported
 from .config import DenoiserConfig
@@ -71,9 +75,11 @@ class CrossAttention(nn.ModuleDict):
             }
         )
         self.num_heads = num_heads
+        self.head_dim = head_dim
         self.backend = backend
 
-    def forward(self, x, context):
+    @saved_products()
+    def forward(self, x, context, **kwargs):
         q = self["to_q"](x)
         k = self["to_k"](context)
         v = self["to_v"](context)
@@ -126,7 +132,9 @@ class FeedForward(nn.ModuleDict):
 
 
 class TransformerBlock(nn.ModuleDict):
-    """pre-LN self-attn -> cross-attn -> GeGLU FF, each with a residual."""
+    """pre-LN self-attn -> cross-attn -> GeGLU FF, each with a residual.
+    ``cross_attention_class`` (with ``cross_attention_extra`` keyword
+    arguments) replaces attn2, as adapters do."""
 
     def __init__(
         self,
@@ -135,11 +143,15 @@ class TransformerBlock(nn.ModuleDict):
         head_dim: int,
         context_dim: int,
         backend: AttentionImplementation,
+        cross_attention_class: Optional[type] = None,
+        cross_attention_extra: Optional[dict] = None,
     ):
+        cross_cls = cross_attention_class or CrossAttention
+        extra = cross_attention_extra or {}
         super().__init__(
             {
                 "attn1": SelfAttention(num_heads, head_dim, backend),
-                "attn2": CrossAttention(hidden_dim, context_dim, num_heads, head_dim, backend),
+                "attn2": cross_cls(hidden_dim, context_dim, num_heads, head_dim, backend, **extra),
                 "ff": FeedForward(hidden_dim),
                 "norm1": LayerNorm(hidden_dim),
                 "norm2": LayerNorm(hidden_dim),
@@ -147,9 +159,14 @@ class TransformerBlock(nn.ModuleDict):
             }
         )
 
-    def forward(self, x, context):
+    def forward(self, x, context, cross_attention_kwargs=None, hw=None):
+        # hw, the (height, width) of the feature map, is for positional
+        # adapters (the RoPE retrofit); the base block does not read it
         x = save_name(x + self["attn1"](self["norm1"](x)), "res_stream")
-        x = save_name(x + self["attn2"](self["norm2"](x), context), "res_stream")
+        x = save_name(
+            x + self["attn2"](self["norm2"](x), context, **(cross_attention_kwargs or {})),
+            "res_stream",
+        )
         return x + self["ff"](self["norm3"](x))
 
 
@@ -165,15 +182,24 @@ class SpatialTransformer(nn.ModuleDict):
         num_blocks: int,
         context_dim: int,
         backend: AttentionImplementation,
+        cross_attention_class: Optional[type] = None,
+        cross_attention_extra: Optional[dict] = None,
+        transformer_block_class: Optional[type] = None,
+        transformer_block_extra: Optional[dict] = None,
     ):
         inner = num_heads * head_dim
+        block_cls = transformer_block_class or TransformerBlock
+        block_extra = transformer_block_extra or {}
         super().__init__(
             {
                 "norm": GroupNorm(32, in_channels, eps=1e-6),
                 "proj_in": Linear(in_channels, inner),
                 "transformer_blocks": nn.ModuleDict(
                     {
-                        str(i): TransformerBlock(inner, num_heads, head_dim, context_dim, backend)
+                        str(i): block_cls(
+                            inner, num_heads, head_dim, context_dim, backend,
+                            cross_attention_class, cross_attention_extra, **block_extra,
+                        )
                         for i in range(num_blocks)
                     }
                 ),
@@ -181,11 +207,11 @@ class SpatialTransformer(nn.ModuleDict):
             }
         )
 
-    def forward(self, x, context):
+    def forward(self, x, context, cross_attention_kwargs=None):
         b, hh, ww, c = x.shape
         h = self["proj_in"](self["norm"](x).reshape(b, hh * ww, c))
         for block in self["transformer_blocks"].values():
-            h = block(h, context)
+            h = block(h, context, cross_attention_kwargs, hw=(hh, ww))
         return self["proj_out"](h).reshape(b, hh, ww, c) + x
 
 
@@ -213,7 +239,8 @@ class ResidualBlock(nn.ModuleDict):
         super().__init__(children)
 
     def forward(self, x, emb):
-        h = self["in_layers"]["2"](F.silu(self["in_layers"]["0"](x)))
+        with saved_products():
+            h = self["in_layers"]["2"](F.silu(self["in_layers"]["0"](x)))
         h = save_name(h + self["emb_layers"]["1"](F.silu(emb))[:, None, None, :], "conv_out")
         h = self["out_layers"]["3"](F.silu(self["out_layers"]["0"](h)))
         if "skip_connection" in self:
@@ -242,7 +269,7 @@ class Upsample(nn.ModuleDict):
         return self["conv"](x.permute(0, 2, 3, 1))
 
 
-def _spatial_transformer(config: DenoiserConfig, channels: int, num_blocks: int):
+def _spatial_transformer(config: DenoiserConfig, channels: int, num_blocks: int, hooks: dict):
     return SpatialTransformer(
         channels,
         channels // config.num_head_channels,
@@ -250,10 +277,11 @@ def _spatial_transformer(config: DenoiserConfig, channels: int, num_blocks: int)
         num_blocks,
         config.context_dim,
         config.attention_backend,
+        **hooks,
     )
 
 
-def _build_down_blocks(config: DenoiserConfig, time_embed_dim: int):
+def _build_down_blocks(config: DenoiserConfig, time_embed_dim: int, hooks: dict):
     """Layer-lists of the down path: conv stem, resblocks (+ transformers),
     downsamples between stages."""
     lists: list[list[tuple[str, nn.Module]]] = []
@@ -271,7 +299,7 @@ def _build_down_blocks(config: DenoiserConfig, time_embed_dim: int):
             for _ in range(config.layers_per_block):
                 layer = [("res", ResidualBlock(current, time_embed_dim, out_ch))]
                 current = out_ch
-                layer.append(("st", _spatial_transformer(config, out_ch, n_tf)))
+                layer.append(("st", _spatial_transformer(config, out_ch, n_tf, hooks)))
                 lists.append(layer)
         else:
             raise ValueError(f"Invalid down block: {block}")
@@ -280,7 +308,7 @@ def _build_down_blocks(config: DenoiserConfig, time_embed_dim: int):
     return lists
 
 
-def _build_up_blocks(config: DenoiserConfig, time_embed_dim: int):
+def _build_up_blocks(config: DenoiserConfig, time_embed_dim: int, hooks: dict):
     """Layer-lists of the up path: reversed channels, layers_per_block + 1
     resblocks per stage, skip-channel pops, a trailing Upsample on the
     stage's last layer-list."""
@@ -299,20 +327,20 @@ def _build_up_blocks(config: DenoiserConfig, time_embed_dim: int):
             layer = [("res", ResidualBlock(current + skips.pop(), time_embed_dim, out_ch))]
             current = out_ch
             if block == "TransformerUpBlock2D":
-                layer.append(("st", _spatial_transformer(config, out_ch, n_tf)))
+                layer.append(("st", _spatial_transformer(config, out_ch, n_tf, hooks)))
             lists.append(layer)
         if i != len(config.up_blocks) - 1:
             lists[-1].append(("up", Upsample(out_ch, out_ch)))
     return lists
 
 
-def _run_layer_list(kinds, modules, x, context, global_cond, checkpointed=False):
+def _run_layer_list(kinds, modules, x, context, global_cond, cakw=None, checkpointed=False):
     def run(x, context, global_cond):
         for kind, module in zip(kinds, modules):
             if kind == "res":
                 x = module(x, global_cond)
             elif kind == "st":
-                x = module(x, context)
+                x = module(x, context, cakw)
             else:  # conv / down / up
                 x = module(x)
         return x
@@ -345,7 +373,14 @@ class _LayerList(nn.Module):
 class UNet(nn.Module):
     """The SDXL UNet. ``forward(latents, timestep, encoder_hidden_states,
     encoder_pooler_output, original_size, target_size,
-    crop_coords_top_left)`` with NHWC latents (B, H, W, C)."""
+    crop_coords_top_left, cross_attention_kwargs=None)`` with NHWC latents
+    (B, H, W, C)."""
+
+    # pluggable attn2 / transformer block: adapters set these on a subclass
+    cross_attention_class: Optional[type] = None
+    cross_attention_extra: Optional[dict] = None
+    transformer_block_class: Optional[type] = None
+    transformer_block_extra: Optional[dict] = None
 
     def __init__(self, config: DenoiserConfig):
         super().__init__()
@@ -359,16 +394,24 @@ class UNet(nn.Module):
         self.label_emb = nn.ModuleDict(
             {"0": MLPEmbedder(config.global_cond_dim, self.time_embed_dim)}
         )
-        self.input_blocks = _BlockStack(_build_down_blocks(config, self.time_embed_dim))
+        hooks = dict(
+            cross_attention_class=self.cross_attention_class,
+            cross_attention_extra=self.cross_attention_extra,
+            transformer_block_class=self.transformer_block_class,
+            transformer_block_extra=self.transformer_block_extra,
+        )
+        self.input_blocks = _BlockStack(_build_down_blocks(config, self.time_embed_dim, hooks))
         mid_ch = config.block_out_channels[-1]
         self.middle_block = _LayerList(
             [
                 ("res", ResidualBlock(mid_ch, self.time_embed_dim, mid_ch)),
-                ("st", _spatial_transformer(config, mid_ch, config.num_transformers_per_block[-1])),
+                ("st", _spatial_transformer(
+                    config, mid_ch, config.num_transformers_per_block[-1], hooks
+                )),
                 ("res", ResidualBlock(mid_ch, self.time_embed_dim, mid_ch)),
             ]
         )
-        self.output_blocks = _BlockStack(_build_up_blocks(config, self.time_embed_dim))
+        self.output_blocks = _BlockStack(_build_up_blocks(config, self.time_embed_dim, hooks))
         self.out = nn.ModuleDict(
             {
                 "0": GroupNorm(32, config.hidden_dim, eps=1e-5),
@@ -411,15 +454,19 @@ class UNet(nn.Module):
         original_size: torch.Tensor,
         target_size: torch.Tensor,
         crop_coords_top_left: torch.Tensor,
+        cross_attention_kwargs: Optional[dict] = None,
     ) -> torch.Tensor:
-        _, global_cond = self.prepare_global_condition(
+        time_embed, global_cond = self.prepare_global_condition(
             timestep, encoder_pooler_output, original_size, target_size,
             crop_coords_top_left, latents.dtype,
         )
         context = encoder_hidden_states
-        h, skips = self._run_input_blocks(latents, context, global_cond)
-        h = self._run_middle(h, context, global_cond)
-        h = self._run_output_blocks(h, skips, context, global_cond)
+        # adapters get the raw time embedding (the adaln_zero / time_gate
+        # IP-Adapter variants gate on it); the base attn2 ignores it
+        cakw = {"time_embedding": time_embed, **(cross_attention_kwargs or {})}
+        h, skips = self._run_input_blocks(latents, context, global_cond, cakw)
+        h = self._run_middle(h, context, global_cond, cakw)
+        h = self._run_output_blocks(h, skips, context, global_cond, cakw)
         return self._out_head(h)
 
     # -- forward segments (shared by the plain forward and DeepCache) -------
@@ -427,28 +474,28 @@ class UNet(nn.Module):
     def _remat(self) -> bool:
         return self.gradient_checkpointing and torch.is_grad_enabled()
 
-    def _run_input_blocks(self, h, context, global_cond, upto: Optional[int] = None):
+    def _run_input_blocks(self, h, context, global_cond, cakw, upto: Optional[int] = None):
         """Input blocks [0, upto); returns (h, skips)."""
         skips = []
         for kinds, modules in list(zip(self.input_blocks.kinds, self.input_blocks.blocks))[:upto]:
-            h = _run_layer_list(kinds, modules, h, context, global_cond, self._remat())
+            h = _run_layer_list(kinds, modules, h, context, global_cond, cakw, self._remat())
             skips.append(h)
         return h, skips
 
-    def _run_middle(self, h, context, global_cond):
+    def _run_middle(self, h, context, global_cond, cakw):
         return _run_layer_list(
-            self.middle_block.kinds, self.middle_block.blocks, h, context, global_cond,
+            self.middle_block.kinds, self.middle_block.blocks, h, context, global_cond, cakw,
             self._remat(),
         )
 
-    def _run_output_blocks(self, h, skips, context, global_cond, start: int = 0,
+    def _run_output_blocks(self, h, skips, context, global_cond, cakw, start: int = 0,
                            end: Optional[int] = None):
         """Output blocks [start, end), each taking the last of ``skips``."""
         skips = list(skips)
         blocks = list(zip(self.output_blocks.kinds, self.output_blocks.blocks))
         for kinds, modules in blocks[start:end]:
             h = torch.cat([h, skips.pop()], dim=-1)
-            h = _run_layer_list(kinds, modules, h, context, global_cond, self._remat())
+            h = _run_layer_list(kinds, modules, h, context, global_cond, cakw, self._remat())
         return h
 
     def _out_head(self, h):
@@ -466,6 +513,7 @@ class UNet(nn.Module):
         cached_deep: Optional[torch.Tensor],
         refresh: bool,
         cache_depth: int = 3,
+        cross_attention_kwargs: Optional[dict] = None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """DeepCache step (Ma et al. 2023, arXiv:2312.00858): the deep
         features change slowly across adjacent denoise steps, so a cached
@@ -474,24 +522,29 @@ class UNet(nn.Module):
         output blocks at the last full pass). A full pass runs when
         ``refresh`` is true or there is no cache yet. Returns (noise_pred,
         deep feature)."""
-        _, global_cond = self.prepare_global_condition(
+        time_embed, global_cond = self.prepare_global_condition(
             timestep, encoder_pooler_output, original_size, target_size,
             crop_coords_top_left, latents.dtype,
         )
         context = encoder_hidden_states
+        cakw = {"time_embedding": time_embed, **(cross_attention_kwargs or {})}
         n_out = len(self.output_blocks.blocks)
         if not 0 < cache_depth < n_out:
             raise ValueError(f"cache_depth {cache_depth} outside (0, {n_out})")
         start = n_out - cache_depth  # the first shallow output block
         if cached_deep is None or refresh:
-            h, skips = self._run_input_blocks(latents, context, global_cond)
-            h = self._run_middle(h, context, global_cond)
+            h, skips = self._run_input_blocks(latents, context, global_cond, cakw)
+            h = self._run_middle(h, context, global_cond, cakw)
             # the deep output blocks [0, start) take the deep skips
-            deep = self._run_output_blocks(h, skips[cache_depth:], context, global_cond, end=start)
-            h = self._run_output_blocks(deep, skips[:cache_depth], context, global_cond, start=start)
+            deep = self._run_output_blocks(
+                h, skips[cache_depth:], context, global_cond, cakw, end=start
+            )
+            h = self._run_output_blocks(
+                deep, skips[:cache_depth], context, global_cond, cakw, start=start
+            )
             return self._out_head(h), deep
-        _, skips = self._run_input_blocks(latents, context, global_cond, upto=cache_depth)
-        h = self._run_output_blocks(cached_deep, skips, context, global_cond, start=start)
+        _, skips = self._run_input_blocks(latents, context, global_cond, cakw, upto=cache_depth)
+        h = self._run_output_blocks(cached_deep, skips, context, global_cond, cakw, start=start)
         return self._out_head(h), cached_deep
 
     def set_gradient_checkpointing(self, enabled: bool) -> None:

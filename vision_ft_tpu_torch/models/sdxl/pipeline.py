@@ -67,6 +67,10 @@ _VAE_ATTN_WEIGHT = re.compile(r"vae\..*\.to_(q|k|v|out)\.(\d+\.)?weight$")
 
 
 class SDXLModel:
+    # the UNet class: adapter models (the RoPE retrofit, the IP-Adapter)
+    # build a subclass with their own attention or transformer block
+    denoiser_class: type = Denoiser
+
     def __init__(
         self,
         config: SDXLConfig,
@@ -82,7 +86,7 @@ class SDXLModel:
 
             tokenizer = maybe_auto_tokenizer(config, family="clip")
         with torch.device("meta"):
-            self.denoiser = Denoiser(config.denoiser)
+            self.denoiser = self.denoiser_class(config.denoiser)
             self.vae = AutoencoderKL(vae_config or SDXL_VAE_CONFIG)
             self.text_encoder = TextEncoder(
                 backend=config.denoiser.attention_backend,
@@ -232,12 +236,12 @@ class SDXLModel:
     def _denoise_step(
         self, latents, timestep, sigma, next_sigma, noise, embeddings, pooled,
         original_size, target_size, crop_coords, cfg_scale, cfg_rescale, do_cfg: bool,
-        cached_deep=None, refresh: Optional[bool] = None,
+        cached_deep=None, refresh: Optional[bool] = None, cross_attention_kwargs=None,
     ):
         """One Euler-ancestral CFG step; ``noise`` is this step's fp32
         ancestral noise, shaped like ``latents``. With ``refresh`` set
         (True or False) it is a DeepCache step and returns (latents, deep
-        feature)."""
+        feature). ``cross_attention_kwargs`` reach every attn2 (adapters)."""
         model_input = torch.cat([latents, latents]) if do_cfg else latents
         model_input = self.scheduler.scale_model_input(model_input.float(), sigma)
         model_input = model_input.to(latents.dtype)
@@ -245,10 +249,11 @@ class SDXLModel:
         unet_args = (model_input, t, embeddings, pooled, original_size, target_size, crop_coords)
         if refresh is not None:
             noise_pred, deep = self.denoiser.deepcache_forward(
-                *unet_args, cached_deep=cached_deep, refresh=refresh
+                *unet_args, cached_deep=cached_deep, refresh=refresh,
+                cross_attention_kwargs=cross_attention_kwargs,
             )
         else:
-            noise_pred = self.denoiser(*unet_args)
+            noise_pred = self.denoiser(*unet_args, cross_attention_kwargs=cross_attention_kwargs)
         if do_cfg:
             positive, negative = noise_pred.float().chunk(2)
             noise_pred = _guidance(positive, negative, cfg_scale, cfg_rescale)
@@ -272,6 +277,7 @@ class SDXLModel:
         cfg_rescale: float,
         do_cfg: bool,
         deep_cache_interval: Optional[int] = None,
+        cross_attention_kwargs: Optional[dict] = None,
     ) -> torch.Tensor:
         """The sampling loop: ``len(timesteps)`` steps from ``latents``,
         step i adding ``step_noises[i]`` as its ancestral noise; with
@@ -284,10 +290,11 @@ class SDXLModel:
                     original_size, target_size, crop_coords, cfg_scale, cfg_rescale, do_cfg)
             if deep_cache_interval:
                 latents, deep = self._denoise_step(
-                    *args, cached_deep=deep, refresh=i % deep_cache_interval == 0
+                    *args, cached_deep=deep, refresh=i % deep_cache_interval == 0,
+                    cross_attention_kwargs=cross_attention_kwargs,
                 )
             else:
-                latents = self._denoise_step(*args)
+                latents = self._denoise_step(*args, cross_attention_kwargs=cross_attention_kwargs)
         return latents
 
     # -- continuous-batching slot step -------------------------------------------

@@ -257,11 +257,12 @@ class SDXLForTextToImageTraining(ModelForTraining):
             "target_size": np.asarray(batch["target_size"], np.float32),
             "crop_coords_top_left": np.asarray(batch["crop_coords_top_left"], np.float32),
         }
-        if cfg.cache_latents:
+        # workloads whose config has no caches (flow match, RoPE distillation)
+        if getattr(cfg, "cache_latents", False):
             out["cached_latents"] = self._cached_latents(pixel_values)
         else:
             out["pixel_values"] = pixel_values
-        if cfg.cache_text_embeddings:
+        if getattr(cfg, "cache_text_embeddings", False):
             out["cached_context"], out["cached_pooled"] = self._cached_text_embeddings(captions, ids)
         else:
             out["input_ids"] = ids

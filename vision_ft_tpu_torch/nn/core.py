@@ -32,6 +32,8 @@ distributions are the JAX package's.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 import os
 from typing import Callable, Mapping, Optional
@@ -39,6 +41,7 @@ from typing import Callable, Mapping, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from ..ops import flash_attention
@@ -58,51 +61,124 @@ _HADA_NAMES = ADAPTER_LEAF_NAMES[3:]
 # -- gradient checkpointing ---------------------------------------------------
 
 REMAT_SAVE_MODES = ("activations", "kernel", "none")
-_remat_saves = "kernel"
+_remat_saves = "activations"
+
+# the products the "activations" mode keeps: the base matmul or convolution
+# of a Linear or Conv2d (F.linear reaches mm or addmm, F.conv2d convolution)
+# called inside saved_products(), the producers of the JAX mode's tags
+_SAVED_PRODUCTS = frozenset((
+    torch.ops.aten.mm.default,
+    torch.ops.aten.addmm.default,
+    torch.ops.aten.convolution.default,
+))
+_product_scopes = 0  # saved_products() depth
 
 
 def set_remat_saves(mode: str) -> None:
     """What :func:`remat_layer` keeps across the forward/backward boundary
-    besides a region's inputs: "kernel" keeps the flash attention forward's
-    (out, lse), so the recomputation does not launch that kernel again;
-    "none" keeps nothing (full recomputation). Results are the same in
-    every mode; memory and launches differ.
+    besides a region's inputs (the JAX package's ``remat_saves``):
 
-    The JAX package's third mode, "activations" (also keep q/k/v and the
-    tensors tagged by :func:`save_name`), is not ported: eager PyTorch
-    cannot skip the producers of a kept tensor during recomputation without
-    a copy of it or a hand-written backward for each producer."""
+    - "activations" (default, as in the JAX package): the flash, fused and
+      4-bit kernels' outputs, and the base products of the Linear and
+      Conv2d layers that run inside :func:`saved_products`: the attention
+      modules' q/k/v and out-projections (the JAX mode's ``flash_qkv``
+      and the producers of ``res_stream``) and the resnet's first conv
+      (``conv_out``'s), so the recomputation before the backward runs
+      those GEMMs no more. Eager PyTorch cannot drop a producer from the
+      recomputation, so the port keeps products, not the tagged tensors;
+      the feed-forward (``ff_inner``) and the adapters' products are
+      recomputed.
+    - "kernel": the flash attention forward's (out, lse) only, so the
+      recomputation does not launch that kernel again.
+    - "none": nothing (full recomputation).
+
+    The gradients are the same, bit for bit, in every mode; memory and
+    launches differ."""
     global _remat_saves
     if mode not in REMAT_SAVE_MODES:
         raise ValueError(f"unknown remat_saves mode: {mode!r}")
-    if mode == "activations":
-        raise NotImplementedError(
-            'remat_saves="activations" (keeping q/k/v, ff_inner, res_stream and '
-            'conv_out) is not ported; use "kernel" or "none"'
-        )
     _remat_saves = mode
 
 
+def remat_saves() -> str:
+    return _remat_saves
+
+
 def save_name(x: torch.Tensor, name: str) -> torch.Tensor:
-    """Tag ``x`` as a tensor that a :func:`remat_layer` policy may keep
-    (the JAX ``checkpoint_name``). It returns ``x`` itself, never a copy.
-    The tags mark the JAX package's save points ("ff_inner", "res_stream",
-    "conv_out"); the ported modes "kernel" and "none" keep none of them."""
+    """Tag ``x`` as a tensor the JAX package's "activations" policy keeps
+    (its ``checkpoint_name``: "ff_inner", "res_stream", "conv_out"). It
+    returns ``x`` itself, never a copy: the port's "activations" mode keeps
+    the producers' products instead (:func:`saved_products`)."""
     return x
+
+
+@contextlib.contextmanager
+def saved_products():
+    """Inside, the base product of every Linear and Conv2d is kept by a
+    checkpointed region in the "activations" mode (a context and a
+    decorator: the attention modules' forwards, the resnet's first conv)."""
+    global _product_scopes
+    _product_scopes += 1
+    try:
+        yield
+    finally:
+        _product_scopes -= 1
+
+
+class _ProductTape(TorchDispatchMode):
+    """While a marked layer computes its base product in a checkpointed
+    region of the "activations" mode: in the first forward, each product's
+    output is recorded (a detached alias); in the recomputation the same
+    products, met in the same order, return the recorded outputs without
+    running. Autograd above still records the product's own backward, so
+    the gradients are those of the other modes, bit for bit. The
+    recordings live on the region (``ops.flash_attention.kernel_saves``)."""
+
+    def __init__(self, region):
+        super().__init__()
+        self.region = region
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func not in _SAVED_PRODUCTS:
+            return func(*args, **(kwargs or {}))
+        region = self.region
+        if region.mode == "record":
+            out = func(*args, **(kwargs or {}))
+            # an alias that shares the version counter, as checkpointing's own saves do
+            with torch._C._SetExcludeDispatchKeyGuard(torch._C.DispatchKey.ADInplaceOrView, False):
+                region.products.append((out.detach(), out._version))
+            return out
+        saved, version = region.products[region.product_position]
+        region.product_position += 1
+        if saved._version != version:
+            raise RuntimeError("a product kept by remat_saves='activations' was changed in place")
+        return saved
+
+
+def _base_product(run):
+    """``run()``, a layer's base product: kept by the "activations" mode
+    when inside :func:`saved_products` and a checkpointed region."""
+    region = flash_attention.current_region()
+    if not _product_scopes or region is None or not region.outputs:
+        return run()
+    with _ProductTape(region):
+        return run()
 
 
 def remat_layer(fn: Callable) -> Callable:
     """Gradient-checkpoint ``fn``: its intermediates are dropped after the
-    forward and recomputed before the backward. In the "kernel" mode the
-    flash attention (out, lse) of the region are kept, so the forward
-    attention kernel runs once; the recomputed q, k and v feed its
-    backward. ``fn`` takes and returns tensors (or None)."""
+    forward and recomputed before the backward, except what the mode of
+    :func:`set_remat_saves` keeps. In the "kernel" mode the flash
+    attention (out, lse) of the region are kept, so the forward attention
+    kernel runs once; the recomputed q, k and v feed its backward. In the
+    "activations" mode the marked products and the kernels' outputs are
+    kept as well. ``fn`` takes and returns tensors (or None)."""
 
     def run(*args):
-        context_fn = (
-            flash_attention.kernel_saves if _remat_saves == "kernel"
-            else noop_context_fn
-        )
+        context_fn = {
+            "activations": functools.partial(flash_attention.kernel_saves, outputs=True),
+            "kernel": flash_attention.kernel_saves,
+        }.get(_remat_saves, noop_context_fn)
         # no dropout or other random op inside the port's layers: the RNG
         # state need not be carried to the recomputation
         return checkpoint(
@@ -357,10 +433,6 @@ def _linear_adapter_delta(layer: "Linear", x: torch.Tensor) -> Optional[torch.Te
     if not _peft_enabled:
         return None
     if "lora_down" in layer._modules:
-        if os.environ.get("VFT_LORA_CONCAT", "0") == "1":
-            raise NotImplementedError(
-                "VFT_LORA_CONCAT=1 (_lora_concat_dot, LoRA folded into the base matmul) is not ported"
-            )
         down_w, up = layer.lora_down.weight, layer.lora_up
         h = F.linear(F.linear(x, down_w.to(x.dtype)), up.weight.to(x.dtype))
         if up.bias is not None:
@@ -372,6 +444,66 @@ def _linear_adapter_delta(layer: "Linear", x: torch.Tensor) -> Optional[torch.Te
         weight = (w1 * w2).to(x.dtype)  # (in, out)
         return (x @ weight) * _adapter_scale(layer, layer.hada_w1_a.shape[1], x.dtype)
     return None
+
+
+class _LoRAConcatDot(torch.autograd.Function):
+    """``x2 @ w^T + ((x2 @ down^T) * scale) @ up^T`` as one matmul (the JAX
+    ``_lora_concat_dot``): the rank-r hidden is concatenated onto x and
+    ``up`` onto ``w``, so one (M, K+r) @ (K+r, N) product writes the output
+    once. The backward forms no (N, K+r) weight gradient: the base weight
+    is frozen (a caller whose base trains takes the separate route). A
+    ``scale`` that is a tensor (a trainable alpha) gets its gradient, where
+    the JAX custom VJP returns a zero."""
+
+    @staticmethod
+    def forward(ctx, x2, w, down_w, up_w, scale):
+        hs = x2 @ down_w.t()  # (M, r), unscaled
+        h = hs * scale
+        y = torch.cat([x2, h], dim=1) @ torch.cat([w, up_w], dim=1).t()
+        ctx.save_for_backward(x2, w, down_w, up_w, hs, scale if torch.is_tensor(scale) else None)
+        ctx.scale = scale if not torch.is_tensor(scale) else None
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, w, down_w, up_w, hs, scale_t = ctx.saved_tensors
+        scale = scale_t if scale_t is not None else ctx.scale
+        dy = dy.to(x2.dtype)
+        dh = dy @ up_w  # (M, r)
+        dhs = dh * scale
+        dx = dy @ w + dhs @ down_w
+        d_down = dhs.t() @ x2  # (r, K)
+        d_up = dy.t() @ (hs * scale)  # (N, r)
+        d_scale = None
+        if scale_t is not None and ctx.needs_input_grad[4]:
+            d_scale = (dh.float() * hs.float()).sum().to(scale_t.dtype).reshape(scale_t.shape)
+        return dx, None, d_down, d_up, d_scale
+
+
+def _lora_concat_applies(layer: "Linear") -> bool:
+    """``VFT_LORA_CONCAT=1`` folds a dense Linear's LoRA into its base
+    matmul, where the JAX package does (LoRA without an up bias), and
+    where the base weight is frozen."""
+    return (
+        _peft_enabled
+        and "lora_down" in layer._modules
+        and layer.lora_up.bias is None
+        and not layer.is_quantized
+        and not layer.weight.requires_grad
+        and os.environ.get("VFT_LORA_CONCAT", "0") == "1"
+    )
+
+
+def _lora_concat_linear(layer: "Linear", x: torch.Tensor) -> torch.Tensor:
+    down_w = layer.lora_down.weight
+    scale = _adapter_scale(layer, down_w.shape[0], x.dtype)
+    x2 = x.reshape(-1, layer.in_features)
+    y = _LoRAConcatDot.apply(
+        x2, layer.weight.to(x.dtype), down_w.to(x.dtype), layer.lora_up.weight.to(x.dtype), scale
+    ).reshape(*x.shape[:-1], layer.out_features)
+    if layer.bias is not None:
+        y = y + layer.bias.to(y.dtype)
+    return y
 
 
 def _conv_adapter_delta(layer: "Conv2d", x_nchw: torch.Tensor) -> Optional[torch.Tensor]:
@@ -478,12 +610,15 @@ class Linear(nn.Module):
         return F.linear(x, dequantize(x.dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _lora_concat_applies(self):
+            return _base_product(lambda: _lora_concat_linear(self, x))
         if self.is_quantized:
+            # kernel D keeps its own output (ops.flash_attention.saved_output)
             y = self._quantized_matmul(x)
             if self.bias is not None:
                 y = y + self.bias.to(y.dtype)
         else:
-            y = F.linear(x, self.weight, self.bias)
+            y = _base_product(lambda: F.linear(x, self.weight, self.bias))
         delta = _linear_adapter_delta(self, x)
         return y if delta is None else y + delta
 
@@ -520,7 +655,9 @@ class Conv2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # (B, H, W, C) -> NCHW view with channels-last strides -> NHWC
         x = x.permute(0, 3, 1, 2)
-        y = F.conv2d(x, self.weight, self.bias, stride=self.stride, padding=self.padding)
+        y = _base_product(
+            lambda: F.conv2d(x, self.weight, self.bias, stride=self.stride, padding=self.padding)
+        )
         delta = _conv_adapter_delta(self, x)
         if delta is not None:
             y = y + delta

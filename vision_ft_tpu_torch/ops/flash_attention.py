@@ -342,19 +342,22 @@ def flash_attention_bshd_backward(
 
 
 class _KernelSaves:
-    """What gradient checkpointing keeps of the forward kernel in one
+    """What gradient checkpointing keeps of the forward kernels in one
     region: a context manager that is the current one while the region
     runs, in mode "record" (the first forward appends each call's
-    (out, lse)) or "replay" (the recomputation reads them back in order).
-    It can be entered again: a graph walked twice is recomputed twice."""
+    (out, lse), and with ``outputs`` each fused or 4-bit kernel call's
+    output and the marked layers' products, ``nn.core.saved_products``)
+    or "replay" (the recomputation reads them back in order). It can be
+    entered again: a graph walked twice is recomputed twice."""
 
     current: Optional["_KernelSaves"] = None
 
-    def __init__(self, mode: str, saves: list):
-        self.mode, self.saves, self.position = mode, saves, 0
+    def __init__(self, mode: str, saves: list, outputs: bool = False, products=None):
+        self.mode, self.saves, self.outputs, self.position = mode, saves, outputs, 0
+        self.products, self.product_position = products, 0
 
     def __enter__(self):
-        self.previous, self.position = _KernelSaves.current, 0
+        self.previous, self.position, self.product_position = _KernelSaves.current, 0, 0
         _KernelSaves.current = self
         return self
 
@@ -363,27 +366,54 @@ class _KernelSaves:
         return False
 
 
-def kernel_saves():
+def kernel_saves(outputs: bool = False):
     """Two context managers for one checkpointed region, ``(forward,
     recompute)``. Under ``forward`` every differentiable
     :func:`flash_attention_bshd`, :func:`flash_attention_masked` and
     :func:`flash_attention_shortk` call records its (out, lse), detached;
     under ``recompute`` the calls, made again in the same order, take them
     back instead of launching the forward kernel, while the backward still
-    sees the recomputed q, k and v."""
+    sees the recomputed q, k and v. With ``outputs`` the differentiable
+    calls of the fused gated-MLP kernel (``ops.fused_mlp``) and of the
+    4-bit matmul kernel (``ops.nf4_matmul``) are recorded and replayed
+    likewise, and so are the products ``nn.core.saved_products`` marks (the
+    "activations" mode of ``nn.core.set_remat_saves``)."""
     saves: list = []
-    return _KernelSaves("record", saves), _KernelSaves("replay", saves)
+    products: list = []
+    return (_KernelSaves("record", saves, outputs, products),
+            _KernelSaves("replay", saves, outputs, products))
 
 
-def _replayed_saves():
-    """(region, saved (out, lse) or None) of the checkpointed region that
-    is current, for a differentiable flash attention call."""
+def current_region() -> Optional[_KernelSaves]:
+    """The checkpointed region whose forward or recomputation runs, if any."""
+    return _KernelSaves.current
+
+
+def _replayed_saves(output: bool = False):
+    """(region, what it saved for this call or None) of the checkpointed
+    region that is current, for a differentiable kernel call: a flash
+    attention call, or with ``output`` a fused or 4-bit kernel call, which
+    only a region that keeps outputs takes part in."""
     region = _KernelSaves.current
-    if region is None or region.mode != "replay":
+    if region is None or (output and not region.outputs):
+        return None, None
+    if region.mode != "replay":
         return region, None
     saved = region.saves[region.position]
     region.position += 1
     return region, saved
+
+
+def saved_output(run):
+    """``run(saved)`` for a differentiable fused or 4-bit kernel call:
+    ``saved`` is the output recorded by the first forward of the current
+    region when this is its recomputation (the call then launches
+    nothing), else None; the output of a first forward is recorded."""
+    region, saved = _replayed_saves(output=True)
+    out = run(saved)
+    if region is not None and region.mode == "record":
+        region.saves.append(out.detach())
+    return out
 
 
 class _FlashAttentionBSHD(torch.autograd.Function):

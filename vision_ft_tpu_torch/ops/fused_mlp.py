@@ -55,6 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .flash_attention import saved_output
 
 ACTS = ("silu", "gelu_tanh", "gelu")
 FUSED_FF_MODES = ("auto", "on", "off")
@@ -290,9 +291,11 @@ class _GatedMLP(torch.autograd.Function):
     saved inputs."""
 
     @staticmethod
-    def forward(ctx, x2, w_act, b_act, w_gate, b_gate, w_down, b_down, act):
+    def forward(ctx, x2, w_act, b_act, w_gate, b_gate, w_down, b_down, act, saved):
         ctx.save_for_backward(x2, w_act, b_act, w_gate, b_gate, w_down, b_down)
         ctx.act = act
+        if saved is not None:  # a checkpointed region's recomputation
+            return saved.detach()
         return _forward(x2, w_act, b_act, w_gate, b_gate, w_down, b_down, act)
 
     @staticmethod
@@ -312,6 +315,7 @@ class _GatedMLP(torch.autograd.Function):
         return (
             *(next(grads) if t is not None and t.requires_grad else None for t in leaves),
             None,
+            None,
         )
 
 
@@ -320,7 +324,7 @@ def _apply(x, w_act, b_act, w_gate, b_gate, w_down, b_down, act):
     x2 = x.reshape(-1, c)
     tensors = (x2, w_act, b_act, w_gate, b_gate, w_down, b_down)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        out = _GatedMLP.apply(*tensors, act)
+        out = saved_output(lambda saved: _GatedMLP.apply(*tensors, act, saved))
     else:
         out = _forward(*tensors, act)
     return out.reshape(*x.shape[:-1], c)

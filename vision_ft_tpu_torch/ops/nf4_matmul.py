@@ -37,6 +37,7 @@ import torch
 
 from ..modules.quant.nf4 import dequantize_4bit
 from . import _build
+from .flash_attention import saved_output
 
 
 def to_split_layout(packed, shape: tuple[int, int]) -> torch.Tensor:
@@ -207,9 +208,11 @@ nf4_matmul_dx.launches = 0
 
 class _NF4Matmul(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x2d, packed, code, absmax, shape, blocksize, split):
+    def forward(ctx, x2d, packed, code, absmax, shape, blocksize, split, saved):
         ctx.save_for_backward(packed, code, absmax)
         ctx.meta = (shape, blocksize, split, x2d.dtype)
+        if saved is not None:  # a checkpointed region's recomputation
+            return saved.detach()
         return nf4_matmul_forward(x2d, packed, code, absmax, shape, blocksize, split)
 
     @staticmethod
@@ -220,7 +223,7 @@ class _NF4Matmul(torch.autograd.Function):
             dy.to(dtype).contiguous(), packed, code, absmax, shape, blocksize, split
         )
         # the quantized base is frozen: no gradient for packed, code, absmax
-        return dx, None, None, None, None, None, None
+        return dx, None, None, None, None, None, None, None
 
 
 def nf4_matmul(
@@ -245,7 +248,9 @@ def nf4_matmul(
     x2d = x.reshape(-1, k).contiguous()
     packed, code, absmax = packed.reshape(n, k // 2), code.float(), absmax.float()
     if torch.is_grad_enabled() and x.requires_grad:
-        y = _NF4Matmul.apply(x2d, packed, code, absmax, (n, k), blocksize, bool(split))
+        y = saved_output(lambda saved: _NF4Matmul.apply(
+            x2d, packed, code, absmax, (n, k), blocksize, bool(split), saved
+        ))
     else:
         y = nf4_matmul_forward(x2d, packed, code, absmax, (n, k), blocksize, bool(split))
     return y.reshape(*x.shape[:-1], n)

@@ -65,3 +65,41 @@ def videos_to_tensor(videos: list[list[Image.Image]], dtype: torch.dtype = torch
 def tensor_to_videos(tensor: torch.Tensor) -> list[list[Image.Image]]:
     """(B, F, H, W, C) float in [-1, 1] -> one list of frames a sample."""
     return [tensor_to_images(video) for video in tensor]
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """Keys' cubic convolution kernel, a = -0.5."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return np.where(x >= 2.0, 0.0, out)
+
+
+def _cubic_weights(in_size: int, out_size: int, antialias: bool) -> np.ndarray:
+    """(in_size, out_size) fp32 weights of one axis, as ``jax.image.resize``
+    computes them: half-pixel sample centres, the kernel widened by the
+    downscale factor when ``antialias``, each column normalized, samples
+    outside the input zero."""
+    f32 = np.float32
+    inv_scale = f32(1.0) / (f32(out_size) / f32(in_size))
+    kernel_scale = max(inv_scale, f32(1.0)) if antialias else f32(1.0)
+    sample = (np.arange(out_size, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(in_size, dtype=f32)[:, None]) / kernel_scale
+    weights = _keys_cubic(x).astype(f32)
+    total = weights.sum(axis=0, keepdims=True)
+    weights = np.where(
+        np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+        weights / np.where(total != 0, total, 1), 0,
+    )
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return np.where(inside[None, :], weights, 0).astype(f32)
+
+
+def resize_cubic(images: torch.Tensor, height: int, width: int, antialias: bool = True) -> torch.Tensor:
+    """Bicubic resize of NHWC images to (height, width) in fp32 (the
+    ``jax.image.resize(..., method="cubic")`` arithmetic: Keys' kernel,
+    antialiased when downscaling); differentiable in the images."""
+    _, h, w, _ = images.shape
+    x = images.float()
+    wh = torch.from_numpy(_cubic_weights(h, height, antialias)).to(x.device)
+    ww = torch.from_numpy(_cubic_weights(w, width, antialias)).to(x.device)
+    return torch.einsum("bhwc,hH,wW->bHWc", x, wh, ww)

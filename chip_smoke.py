@@ -380,6 +380,19 @@ Phases, each printing its own lines; any failure exits non-zero:
     by OpenCV, each row against batch-1 generate() (POOL_REQUEST_TOL); the
     CLI on --family wan writing an mp4, in bf16 and with --quant-type
     bnb_nf4 (kernel D's launches on every DiT Linear it takes).
+37-39. (a process of its own, --sdxl-adapters) kernels E and G at the
+    RoPE student's shapes and B at SigLIP-384's; the SDXL train step in the
+    three remat modes; flow match, RoPE distillation and the IP-Adapter
+    through the Trainer from their YAMLs, each with a generate().
+40-42. in the same process, on the same seeded SDXL file: prompt-free
+    generation (reference and self modes), the style tokenizer (a CLIP-size
+    vocabulary, SigLIP-512, kernel B at its shape) and DRaFT+ (LoRA, 25
+    sampling steps, a full-width PickScore on seeded weights) through the
+    Trainer from their YAMLs, the injected encoder the port's SigLIP;
+    each with its launches under a path of its own, its saved file read
+    back, a generate() and a depth-reduced step (one transformer layer in
+    each SpatialTransformer) against the plain versions: DRaFT+'s at 3
+    sampling steps and 2 PickScore layers a tower, its decoded image too.
 
 Every kernel's record carries its time, its plain version's, the bound
 (the larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s bf16, or
@@ -5014,7 +5027,7 @@ def run_wan(checkout: Path, profile: bool) -> dict:
     return json.loads(lines[-1])["wan"]
 
 
-# the SDXL adapter phases (37-39, ``--sdxl-adapters``): the RoPE student's rotated
+# the SDXL adapter phases (37-42, ``--sdxl-adapters``): the RoPE student's rotated
 # self-attention takes kernels E and G, unmasked at head dim 64 with H == Hkv, at
 # SDXL's two attention widths at 1024 px (CFG batch 2); SigLIP-384's blocks take
 # kernel B at 12 heads of 64 over 576 tokens (a reference image and CFG's negative)
@@ -5219,22 +5232,162 @@ def sdxl_remat_phase(device, model, numbers: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# phases 40-42 (in the ``--sdxl-adapters`` process): prompt-free generation, the style
+# tokenizer and DRaFT+, each workload group a path of its own in launches_by_path
+CONTEXT_ADAPTER_PATHS = ("sdxl_prompt_free", "sdxl_style_tokenizer", "sdxl_draft_plus")
+SIGLIP512_B_SHAPE = (2, 1024, 768, 12)  # (B, S, H*D, H): SigLIP at 512 px, the style tokenizer's
+DRAFT_REDUCED_STEPS = 3  # sampling steps of the depth-reduced DRaFT+ comparison
+# PickScore's layers a tower in that comparison (24 and 32 at full depth, where on seeded
+# bf16 weights kernel A's and the plain LayerNorm's roundings move its score on one image)
+PICKSCORE_REDUCED_LAYERS = 2
+# that comparison's limits: its loss is -100 x the cosine of PickScore's text and image
+# embeddings, nearly orthogonal on seeded weights, so the bf16 roundings of the UNet's steps,
+# the decode and PickScore move it relatively more than the other workloads' losses (twice
+# STEP_LOSS_TOL); the decoded image carries its CFG steps' bf16 differences as a pool's latents
+# do (POOL_REQUEST_TOL), relative to its largest value
+DRAFT_LOSS_TOL = 2e-2
+DRAFT_IMAGE_TOL = 5e-2
+
+
+class NCHWSigLIP:
+    """The workloads' encoder contract (a normalized NCHW batch -> features
+    on the card) on the port's SigLIP, which takes NHWC in [-1, 1]: the
+    configs' 0.5 / 0.5 normalization already gives that range. Seeded
+    weights, bf16, the pooled output (the mlp projectors take one vector
+    a sample)."""
+
+    def __init__(self, image_size: int, device, seed: int):
+        from vision_ft_tpu_torch.models.vision_encoders.siglip import ImageEncoder, SigLIPVisionConfig
+
+        self.encoder = ImageEncoder(SigLIPVisionConfig(image_size=image_size),
+                                    feature_type="pooler_output", dtype=torch.bfloat16,
+                                    device=device, seed=seed)
+        self.device = device
+
+    def __call__(self, pixels):
+        pixels = torch.as_tensor(pixels).to(self.device)
+        return self.encoder(pixels.permute(0, 2, 3, 1).contiguous())
+
+
+@contextlib.contextmanager
+def one_transformer_layer_each(unet):
+    """Inside, each of the UNet's SpatialTransformers runs only its first
+    transformer layer (11 of 70 at SDXL's depth): the depth-reduced step."""
+    from torch import nn
+
+    from vision_ft_tpu_torch.models.sdxl.denoiser import SpatialTransformer
+
+    saved = [(m, m["transformer_blocks"]) for m in unet.modules() if isinstance(m, SpatialTransformer)]
+    for m, full in saved:
+        m["transformer_blocks"] = nn.ModuleDict({"0": full["0"]})
+    try:
+        yield len(saved)
+    finally:
+        for m, full in saved:
+            m["transformer_blocks"] = full
+
+
+@contextlib.contextmanager
+def first_layers_each(reward, n: int):
+    """Inside, PickScore's text and vision towers run their first ``n``
+    encoder layers (the depth-reduced DRaFT+ step)."""
+    from torch import nn
+
+    towers = [reward.text_model["encoder"], reward.vision_model.encoder]
+    saved = [tower.layers for tower in towers]
+    for tower, full in zip(towers, saved):
+        tower.layers = nn.ModuleDict({str(i): full[str(i)] for i in range(n)})
+    try:
+        yield
+    finally:
+        for tower, full in zip(towers, saved):
+            tower.layers = full
+
+
+def reduced_step_against_plain(label, unet, trainable, loss_fn, read_launches,
+                               loss_tol=STEP_LOSS_TOL) -> dict:
+    """One step's loss and the gradient of the trainable tensors the
+    depth-reduced UNet uses, with the kernels and on their plain versions
+    (swapped in by ``plain_versions``); the loss's relative error against
+    ``loss_tol`` and the gradient norm's against STEP_GRAD_NORM_TOL."""
+    from vision_ft_tpu_torch.training.optimizer import global_norm
+
+    params = [p for k, p in trainable.items()
+              if ".transformer_blocks." not in k or ".transformer_blocks.0." in k]
+
+    def loss_and_grads():
+        loss = loss_fn()
+        return loss.item(), torch.autograd.grad(loss, params)
+
+    with one_transformer_layer_each(unet) as layers:
+        before = read_launches()
+        kernel_loss, kernel_grads = loss_and_grads()
+        after = read_launches()
+        with plain_versions():
+            plain_loss, plain_grads = loss_and_grads()
+        if read_launches() != after:
+            raise AssertionError(f"{label}: the plain step launched a kernel")
+    used = {k: v - before[k] for k, v in after.items() if v != before[k]}
+    kernel_norm, plain_norm = global_norm(kernel_grads).item(), global_norm(plain_grads).item()
+    loss_rel = abs(kernel_loss - plain_loss) / abs(plain_loss)
+    norm_rel = abs(kernel_norm - plain_norm) / abs(plain_norm)
+    print(f"{label}, depth-reduced step ({layers} transformer layers, full width), kernels vs plain "
+          f"versions: loss {kernel_loss:.6f} vs {plain_loss:.6f} (rel {loss_rel:.3e}, tol "
+          f"{loss_tol}); grad_norm {kernel_norm:.6f} vs {plain_norm:.6f} (rel {norm_rel:.3e}, "
+          f"tol {STEP_GRAD_NORM_TOL}); kernel launches {used}")
+    if not all(used.get(k, 0) > 0 for k in ("flash_attention_bshd", "flash_attention_bshd_dkv",
+                                            "flash_attention_bshd_dq", "layer_norm")):
+        raise AssertionError(f"{label}: the kernel step launched {used}")
+    if not (loss_rel <= loss_tol and norm_rel <= STEP_GRAD_NORM_TOL and plain_norm > 0):
+        raise AssertionError(f"{label}: the kernel step and the plain step disagree")
+    return dict(reduced_loss_rel=loss_rel, reduced_grad_norm_rel=norm_rel)
+
+
+def check_step_launches(label, log, unet_attn, unet_ln, forwards=1):
+    """Every step ran kernel B on each UNet self-attention of its
+    ``forwards`` forwards, both of C's kernels on (nearly) every one in the
+    backward, A, and no other kernel."""
+    ours = ("flash_attention_bshd", "flash_attention_bshd_dkv", "flash_attention_bshd_dq",
+            "layer_norm")
+    for i, (_, _, launches) in enumerate(log["steps"]):
+        c = launches["flash_attention_bshd_dkv"]
+        if (launches["flash_attention_bshd"] < forwards * unet_attn
+                or c != launches["flash_attention_bshd_dq"] or c < unet_attn - 1
+                or launches["layer_norm"] < forwards * unet_ln
+                or any(v for k, v in launches.items() if k not in ours)):
+            raise AssertionError(f"{label} step {i + 1}: launches {launches}")
+    return {k: v for k, v in log["steps"][-1][2].items() if v}
+
+
+def free_pipeline(model) -> None:
+    for part in model.as_module().values():
+        part.to("meta")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def sdxl_adapters_phase(device, wrappers: dict, checkout: Path) -> dict:
-    """Phases 37-39, run in a process of its own (``--sdxl-adapters``)."""
+    """Phases 37-42, run in a process of its own (``--sdxl-adapters``)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
     import yaml
 
     from vision_ft_tpu_torch.config import TrainConfig
+    from vision_ft_tpu_torch.models.sdxl import train_draft_plus
     from vision_ft_tpu_torch.models.sdxl.config import SDXLConfig
     from vision_ft_tpu_torch.models.sdxl.text_encoder import CHUNK_LENGTH
     from vision_ft_tpu_torch.modules.long_prompt import tokenize_long_prompt
+    from vision_ft_tpu_torch.modules.reward import PickScoreRewardModel
     from vision_ft_tpu_torch.models.sdxl.pipeline import SDXLModel
     from vision_ft_tpu_torch.models.text_encoders.tokenizer import CLIPTokenizer
     from vision_ft_tpu_torch.models.vision_encoders.siglip import _Block as SigLIPBlock
     from vision_ft_tpu_torch.nn import LayerNorm
     from vision_ft_tpu_torch.ops.flash_attention import flash_attention_bshd
+    from vision_ft_tpu_torch.train.sdxl import draft_plus as draft_cli
     from vision_ft_tpu_torch.train.sdxl import flow_match as fm_cli
-    from vision_ft_tpu_torch.train.sdxl import ip_adapter_self
+    from vision_ft_tpu_torch.train.sdxl import ip_adapter_self, prompt_free_ref, prompt_free_self
     from vision_ft_tpu_torch.train.sdxl import rope_distill as rd_cli
+    from vision_ft_tpu_torch.train.sdxl import style_tokenizer as style_cli
     from vision_ft_tpu_torch.utils import safetensors as st
 
     def reset_launches():
@@ -5248,6 +5401,8 @@ def sdxl_adapters_phase(device, wrappers: dict, checkout: Path) -> dict:
     records = {name: [] for name in ("flash_attention_masked", "flash_attention_masked_dkv",
                                      "flash_attention_masked_dq", "flash_attention_bshd")}
     run_launches = {name: 0 for name in wrappers}
+    # phases 40-42: each workload group's launches, a path of its own
+    groups = {path: {name: 0 for name in wrappers} for path in CONTEXT_ADAPTER_PATHS}
     gen = torch.Generator(device=device).manual_seed(37)
 
     phase("37 kernels E and G at the RoPE student's shapes (D 64, unmasked, H == Hkv); kernel B "
@@ -5302,10 +5457,13 @@ def sdxl_adapters_phase(device, wrappers: dict, checkout: Path) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
 
-        def run_trainer(label, trainer):
+        def run_trainer(label, trainer, into=None):
             """trainer.train() with each step's launches (and the batch
-            preprocessing's, where the image encoder runs), host ms, loss."""
-            log = dict(steps=[], preprocess=[])
+            preprocessing's, where the image encoder runs), host ms, loss,
+            and its other metrics; the launches are added to ``into`` (the
+            phases' own count by default); the last batch is kept."""
+            into = run_launches if into is None else into
+            log = dict(steps=[], preprocess=[], metrics=[])
             preprocess = trainer.model.preprocess_batch
 
             def counted_preprocess(batch):
@@ -5313,6 +5471,7 @@ def sdxl_adapters_phase(device, wrappers: dict, checkout: Path) -> dict:
                 out = preprocess(batch)
                 after = read_launches()
                 log["preprocess"].append({k: after[k] - before[k] for k in after})
+                log["batch"] = out
                 return out
 
             trainer.model.preprocess_batch = counted_preprocess
@@ -5332,6 +5491,8 @@ def sdxl_adapters_phase(device, wrappers: dict, checkout: Path) -> dict:
                     after = read_launches()
                     log["steps"].append((time.perf_counter() - start, loss,
                                          {k: after[k] - before[k] for k in after}))
+                    log["metrics"].append({k: float(v) for k, v in metrics.items()
+                                           if k in ("reward", "kl")})
                     return state, metrics
 
                 trainer._step = timed
@@ -5345,7 +5506,7 @@ def sdxl_adapters_phase(device, wrappers: dict, checkout: Path) -> dict:
             log["run_s"] = time.perf_counter() - start
             log["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
             for k, v in read_launches().items():
-                run_launches[k] += v
+                into[k] += v
             losses = [loss for _, loss, _ in log["steps"]]
             print(f"{label}: trainer.train() {log['run_s']:.1f} s (checkpoint load included); "
                   f"{len(losses)} steps, losses {[round(x, 6) for x in losses]}, "
@@ -5359,7 +5520,8 @@ def sdxl_adapters_phase(device, wrappers: dict, checkout: Path) -> dict:
             out.update(counts)
             return out
 
-        def check_request(label, model, expected, **kwargs):
+        def check_request(label, model, expected, into=None, **kwargs):
+            into = run_launches if into is None else into
             reset_launches()
             torch.cuda.synchronize()
             start = time.perf_counter()
@@ -5368,7 +5530,7 @@ def sdxl_adapters_phase(device, wrappers: dict, checkout: Path) -> dict:
             seconds = time.perf_counter() - start
             launches = read_launches()
             for k, v in launches.items():
-                run_launches[k] += v
+                into[k] += v
             arrays = [np.asarray(im) for im in images]
             print(f"{label}: {len(images)} image(s) {images[0].size}, {kwargs['num_inference_steps']} "
                   f"steps, {seconds:.2f} s; launches {({k: v for k, v in launches.items() if v})}")
@@ -5379,14 +5541,14 @@ def sdxl_adapters_phase(device, wrappers: dict, checkout: Path) -> dict:
                     raise AssertionError(f"{label}: {launches[name]} launches of {name}, expected {count}")
             return seconds
 
-        def yaml_config(name, save_dir, edit=None):
+        def yaml_config(name, save_dir, edit=None, folder=None, batch_size=2):
             raw = yaml.safe_load((checkout / "configs/sdxl" / name).read_text())
             raw["model"].update(checkpoint_path=str(ckpt), tokenizer_path=str(work),
                                 max_token_length=75)
             if edit is not None:
                 edit(raw)
-            raw["dataset"].update(folder=str(images_dir), num_repeats=1, batch_size=2,
-                                  num_workers=0)
+            raw["dataset"].update(folder=str(folder or images_dir), num_repeats=1,
+                                  batch_size=batch_size, num_workers=0)
             raw["num_train_epochs"] = 1
             raw["saving"]["callbacks"][0]["save_dir"] = str(work / save_dir)
             raw.pop("preview", None)
@@ -5493,9 +5655,236 @@ def sdxl_adapters_phase(device, wrappers: dict, checkout: Path) -> dict:
         del trainer, log, ip_model, siglip
         gc.collect()
         torch.cuda.empty_cache()
+
+        # reference pairs: webp images named by id and a metadata parquet
+        ref_dir = work / "ref_images"
+        ref_dir.mkdir()
+        ids = [f"r{i}" for i in range(ADAPTER_IMAGES)]
+        for id_ in ids:
+            smooth = img_rng.integers(0, 255, (32, 32, 3), dtype=np.uint8)
+            Image.fromarray(smooth).resize((1024, 1024), Image.BILINEAR).save(ref_dir / f"{id_}.webp")
+        pq.write_table(pa.table({
+            "id": ids, "another_id": [[j for j in ids if j != i] for i in ids],
+            "copyright": [["sofa"]] * len(ids), "character": [["cat"]] * len(ids),
+            "general": [["photo", "red"]] * len(ids), "meta": [["the"]] * len(ids),
+            "people": [["girl"]] * len(ids),
+        }), str(work / "pairs.parquet"))
+        reference = Image.fromarray(np.random.default_rng(40).integers(0, 255, (300, 420, 3), np.uint8))
+
+        def referenced(raw, prefix=None):
+            raw["dataset"]["metadata_parquet"] = str(work / "pairs.parquet")
+            if prefix is not None:
+                raw["dataset"]["caption_processors"] = [{"type": "prefix", "prefix": prefix}]
+
+        def encoder_launches(encoder):
+            model = encoder.encoder.model
+            n_blocks = sum(isinstance(m, SigLIPBlock) for m in model.modules())
+            n_ln = sum(isinstance(m, LayerNorm) and m.weight is not None and m.dim % 128 == 0
+                       for m in model.modules())
+            out = {name: 0 for name in read_launches()}
+            out.update(flash_attention_bshd=n_blocks, layer_norm=n_ln)
+            return out
+
+        def check_saved(label, save_dir, state_now):
+            saved = sorted((work / save_dir).glob("*.safetensors"))
+            if len(saved) != 1:
+                raise AssertionError(f"{label}: saved files {saved}")
+            state = st.load_file(saved[0])
+            if set(state) != set(state_now) or not all(
+                    torch.equal(state[k].to(device), v.to(device)) for k, v in state_now.items()):
+                raise AssertionError(f"{label}: the saved file {sorted(state)[:4]} does not reload to "
+                                     f"the trained tensors {sorted(state_now)[:4]}")
+            print(f"{label}: saved {saved[0].name}, {len(state)} tensors, reloads bit-identical")
+            return saved[0]
+
+        # -- 40 ------------------------------------------------------------------------------
+        phase("40 prompt-free generation (PFG) through the Trainer from configs/sdxl/prompt_free.ref.yml "
+              "and prompt_free.self.yml at full width and depth (the injected SigLIP-384); generate() "
+              "with a reference image")
+        path = groups["sdxl_prompt_free"]
+        for mode, cli, yaml_name, edit, folder in (
+                ("ref", prompt_free_ref, "prompt_free.ref.yml", referenced, ref_dir),
+                ("self", prompt_free_self, "prompt_free.self.yml", None, images_dir)):
+            label = f"PFG, {mode} mode (configs/sdxl/{yaml_name})"
+            encoder = NCHWSigLIP(384, device, seed=40)
+            config = yaml_config(yaml_name, f"pfg_{mode}", edit, folder=folder)
+            trainer = cli.build_trainer(config, tokenizer=tokenizer, image_encoder=encoder)
+            log = run_trainer(label, trainer, into=path)
+            model = trainer.model.model
+            if any(launches != encoder_launches(encoder) for launches in log["preprocess"]):
+                raise AssertionError(f"{label}: the encoder's launches {log['preprocess']}")
+            per_step = check_step_launches(label, log, unet_attn, unet_ln)
+            if not trainer.trainable or not all(k.startswith("projector.") for k in trainer.trainable):
+                raise AssertionError(f"{label}: trainable {sorted(trainer.trainable)[:4]}")
+            check_saved(label, f"pfg_{mode}", model.adapter_state_dict())
+            result = dict(step_ms=[t * 1e3 for t, _, _ in log["steps"]], peak_gib=log["peak_gib"],
+                          run_s=log["run_s"], launches_per_step=per_step,
+                          encoder_launches={k: v for k, v in encoder_launches(encoder).items() if v})
+            batch = log["batch"]
+            result.update(reduced_step_against_plain(
+                label, model.denoiser, trainer.trainable,
+                lambda: trainer.model.loss_fn(batch, torch.Generator(device=device).manual_seed(9))[0],
+                read_launches))
+            print(f"{label}: launches a step {per_step}, the encoder's a batch {result['encoder_launches']}")
+            if mode == "ref":
+                tokens = model.encode_reference_image(model.preprocess_reference_image(reference))
+                if tokens.shape != (1, 4, 2048) or tokens.dtype != torch.float32:
+                    raise AssertionError(f"PFG image tokens {tuple(tokens.shape)} {tokens.dtype}")
+                result["generate_s"] = check_request(
+                    "PFG generate() with a reference image (CFG 5, max_token_length 225: 231 + 4 "
+                    "context keys)", model,
+                    {"flash_attention_bshd": encoder_launches(encoder)["flash_attention_bshd"]
+                     + STEPS * unet_attn}, into=path, reference_image=reference, cfg_scale=5.0,
+                    **{**request, "max_token_length": 225})
+            numbers[f"pfg_{mode}"] = result
+            free_pipeline(model)
+            del trainer, log, model, batch, encoder
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # -- 41 ------------------------------------------------------------------------------
+        phase("41 the style tokenizer through the Trainer from configs/sdxl/style_tokenizer.yml at full "
+              "width and depth (the injected SigLIP-512, a CLIP-size vocabulary); kernel B at "
+              "SigLIP-512's shape; generate() with a reference image")
+        b, s_len, inner, h = SIGLIP512_B_SHAPE
+        records["flash_attention_bshd"].append(bshd_forward_record(device, torch.Generator(
+            device=device).manual_seed(41), b, s_len, s_len, inner, h))
+        # the written vocabulary filled to CLIP's 49408 entries: <|style|> takes id 49408
+        style_vocab = work / "style_vocab"
+        style_vocab.mkdir()
+        write_vocab(style_vocab)
+        vocab = json.loads((style_vocab / "vocab.json").read_text())
+        used = set(vocab.values())
+        vocab.update({f"<filler{i}>": i for i in range(49406) if i not in used})
+        if len(vocab) != 49408:
+            raise AssertionError(f"the filled vocabulary has {len(vocab)} entries")
+        (style_vocab / "vocab.json").write_text(json.dumps(vocab))
+        style_tokenizer = CLIPTokenizer.from_pretrained_dir(str(style_vocab))
+        path = groups["sdxl_style_tokenizer"]
+        label = "style tokenizer (configs/sdxl/style_tokenizer.yml)"
+        encoder = NCHWSigLIP(512, device, seed=41)
+        config = yaml_config("style_tokenizer.yml", "style",
+                             functools.partial(referenced, prefix="<|style|>, "), folder=ref_dir)
+        trainer = style_cli.build_trainer(config, tokenizer=style_tokenizer, image_encoder=encoder)
+        log = run_trainer(label, trainer, into=path)
+        model = trainer.model.model
+        te = model.text_encoder
+        rows = [t.text_model["embeddings"]["token_embedding"].weight.shape[0]
+                for t in (te.text_encoder_1, te.text_encoder_2)]
+        if (te.style_token_id != 49408 or rows != [49409, 49409]
+                or te.text_encoder_2.config.vocab_size != 49408):
+            raise AssertionError(f"{label}: style id {te.style_token_id}, embedding rows {rows}")
+        if any(launches != encoder_launches(encoder) for launches in log["preprocess"]):
+            raise AssertionError(f"{label}: the encoder's launches {log['preprocess']}")
+        if encoder.encoder.model.pos_embed.shape[1] != s_len:
+            raise AssertionError(f"{label}: SigLIP-512 has {encoder.encoder.model.pos_embed.shape[1]} tokens")
+        per_step = check_step_launches(label, log, unet_attn, unet_ln)
+        if not trainer.trainable or not all(k.startswith(("projector_1.", "projector_2."))
+                                            for k in trainer.trainable):
+            raise AssertionError(f"{label}: trainable {sorted(trainer.trainable)[:4]}")
+        check_saved(label, "style", model.adapter_state_dict())
+        result = dict(step_ms=[t * 1e3 for t, _, _ in log["steps"]], peak_gib=log["peak_gib"],
+                      run_s=log["run_s"], launches_per_step=per_step,
+                      encoder_launches={k: v for k, v in encoder_launches(encoder).items() if v})
+        batch = log["batch"]
+        result.update(reduced_step_against_plain(
+            label, model.denoiser, trainer.trainable,
+            lambda: trainer.model.loss_fn(batch, torch.Generator(device=device).manual_seed(9))[0],
+            read_launches))
+        print(f"{label}: <|style|> id 49408, both token embeddings grown to 49409 rows; launches a step "
+              f"{per_step}, the encoder's a batch {result['encoder_launches']}")
+        result["generate_s"] = check_request(
+            "style generate() with a reference image (CFG 5)", model,
+            {"flash_attention_bshd": encoder_launches(encoder)["flash_attention_bshd"]
+             + STEPS * unet_attn}, into=path, reference_image=reference, cfg_scale=5.0,
+            **{**request, "prompt": "a <|style|> photo of the cat on the sofa"})
+        numbers["style_tokenizer"] = result
+        free_pipeline(model)
+        del trainer, log, model, batch, encoder, te
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- 42 ------------------------------------------------------------------------------
+        phase("42 DRaFT+ through the Trainer from configs/sdxl/draft_plus.yml at full width and depth: "
+              "LoRA rank 8 on attn1 / attn2, PickScore's CLIP-H at full width (seeded, bf16), 25 "
+              "sampling steps with the last one's gradient, batch 1 at 1024 px")
+        path = groups["sdxl_draft_plus"]
+        label = "DRaFT+ (configs/sdxl/draft_plus.yml)"
+        start = time.perf_counter()
+        reward = PickScoreRewardModel(tokenizer=tokenizer).init_params(
+            torch.Generator(device=device).manual_seed(42), dtype=torch.bfloat16)
+        reward_ln = sum(isinstance(m, LayerNorm) and m.dim % 128 == 0 for m in reward.modules())
+        print(f"seeded PickScore (CLIP-H, bf16, {sum(p.numel() for p in reward.parameters()) / 1e9:.3f} "
+              f"B parameters, {reward_ln} LayerNorms) in {time.perf_counter() - start:.1f} s")
+        draft_dir = work / "draft_images"
+        draft_dir.mkdir()
+        for i in range(2):
+            shutil.copy(images_dir / f"{i}.png", draft_dir / f"{i}.png")
+            shutil.copy(images_dir / f"{i}.txt", draft_dir / f"{i}.txt")
+        config = yaml_config("draft_plus.yml", "draft", folder=draft_dir, batch_size=1)
+        trainer = draft_cli.build_trainer(config, tokenizer=tokenizer, reward_models=[reward])
+        log = run_trainer(label, trainer, into=path)
+        model = trainer.model.model
+        total = trainer.model.model_config.total_steps
+        per_step = check_step_launches(label, log, unet_attn, unet_ln, forwards=total + 1)
+        if log["steps"][-1][2]["layer_norm"] < (total + 1) * unet_ln + reward_ln:
+            raise AssertionError(f"{label}: PickScore's LayerNorms missing from {per_step}")
+        if not trainer.trainable or not all("lora_" in k for k in trainer.trainable):
+            raise AssertionError(f"{label}: trainable {sorted(trainer.trainable)[:4]}")
+        saved = sorted((work / "draft").glob("*.safetensors"))
+        if len(saved) != 1 or set(st.load_file(saved[0])) != set(trainer.model.get_state_dict_to_save()):
+            raise AssertionError(f"{label}: saved {saved}")
+        rewards = [m["reward"] for m in log["metrics"]]
+        kls = [m["kl"] for m in log["metrics"]]
+        if not (np.isfinite(rewards).all() and np.isfinite(kls).all() and kls[-1] > 0):
+            raise AssertionError(f"{label}: reward {rewards}, KL {kls}")
+        print(f"{label}: reward {rewards}, KL {kls}; launches a step {per_step} ({total} CFG steps and "
+              f"the adapter-off reference through kernel B, C on the truncated step's backward, A in "
+              f"the UNet, both CLIP towers and PickScore's); saved {saved[0].name}")
+        result = dict(step_ms=[t * 1e3 for t, _, _ in log["steps"]], peak_gib=log["peak_gib"],
+                      run_s=log["run_s"], launches_per_step=per_step, reward=rewards, kl=kls)
+        batch = log["batch"]
+        short = trainer.model.model_config.model_copy(update={"total_steps": DRAFT_REDUCED_STEPS})
+        noises = [torch.randn(batch["initial_noise"].shape, device=device,
+                              generator=torch.Generator(device=device).manual_seed(i))
+                  for i in range(DRAFT_REDUCED_STEPS)]
+        # each path's decoded image, kept for a comparison of the output itself
+        decoded, decode = [], model.vae.decode
+
+        def kept_decode(latents):
+            image = decode(latents)
+            decoded.append(image.detach().float())
+            return image
+
+        model.vae.decode = kept_decode
+        try:
+            with first_layers_each(reward, PICKSCORE_REDUCED_LAYERS):
+                result.update(reduced_step_against_plain(
+                    f"{label}, {DRAFT_REDUCED_STEPS} sampling steps, PickScore's towers at "
+                    f"{PICKSCORE_REDUCED_LAYERS} layers each", model.denoiser, trainer.trainable,
+                    lambda: train_draft_plus.loss_with_draws(model, short, [reward], batch, noises)[0],
+                    read_launches, loss_tol=DRAFT_LOSS_TOL))
+        finally:
+            model.vae.decode = decode
+        kernel_image, plain_image = decoded
+        image_rel = ((kernel_image - plain_image).abs().max() / plain_image.abs().max()).item()
+        print(f"{label}: the decoded {tuple(plain_image.shape)} image, kernels vs plain versions: "
+              f"max abs err / max |image| {image_rel:.3e} (tol {DRAFT_IMAGE_TOL})")
+        if not (torch.isfinite(kernel_image).all() and image_rel <= DRAFT_IMAGE_TOL):
+            raise AssertionError(f"{label}: the kernel step's image and the plain step's disagree")
+        result["reduced_image_rel"] = image_rel
+        result["generate_s"] = check_request(
+            "DRaFT+ generate() with the trained LoRA (CFG 5)", model,
+            {"flash_attention_bshd": STEPS * unet_attn}, into=path, cfg_scale=5.0, **request)
+        numbers["draft_plus"] = result
+        free_pipeline(model)
+        reward.to("meta")
+        del trainer, log, model, batch, reward
+        gc.collect()
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return dict(launches=run_launches, records=records, numbers=numbers)
+    return dict(launches=run_launches, records=records, numbers=numbers, groups=groups)
 
 
 def run_sdxl_adapters(checkout: Path) -> dict:
@@ -5563,11 +5952,12 @@ def main() -> None:
                            "and CLI) after building their libraries; prints their launch counts, "
                            "records and numbers as one JSON line, not the ok line")
     args.add_argument("--sdxl-adapters", action="store_true",
-                      help="run phases 37-39 alone (kernels E and G at the RoPE student's shapes, "
-                           "B at SigLIP-384's, the SDXL train step in the three remat modes, the "
-                           "flow-match, RoPE-distillation and IP-Adapter workloads through the "
-                           "Trainer with generate()) after building their libraries; prints their "
-                           "launch counts, records and numbers as one JSON line, not the ok line")
+                      help="run phases 37-42 alone (kernels E and G at the RoPE student's shapes, "
+                           "B at SigLIP-384's and SigLIP-512's, the SDXL train step in the three "
+                           "remat modes, the flow-match, RoPE-distillation, IP-Adapter, "
+                           "prompt-free, style-tokenizer and DRaFT+ workloads through the Trainer "
+                           "with generate()) after building their libraries; prints their launch "
+                           "counts, records and numbers as one JSON line, not the ok line")
     args.add_argument("--ln-probe-costs", action="store_true",
                       help="time kernels A and L and their library calls (one call, back to "
                            "back, host us, traced) in this process alone; prints one JSON line, "
@@ -7492,12 +7882,13 @@ def main() -> None:
     card_numbers = ", ".join(f"{k} {v}" for k, v in wan["numbers"].items())
     print(f"phases 34-36 on {card}: {card_numbers}")
 
-    phase("37-39 kernels E and G at the RoPE student's shapes, B at SigLIP-384's; the SDXL train "
-          "step in the three remat modes; the flow-match, RoPE-distillation and IP-Adapter "
-          "workloads through the Trainer with generate() (a process of its own)")
+    phase("37-42 kernels E and G at the RoPE student's shapes, B at SigLIP-384's and SigLIP-512's; "
+          "the SDXL train step in the three remat modes; the flow-match, RoPE-distillation, "
+          "IP-Adapter, prompt-free, style-tokenizer and DRaFT+ workloads through the Trainer with "
+          "generate() (a process of its own)")
     adapters = run_sdxl_adapters(checkout)
     card_numbers = ", ".join(f"{k} {v}" for k, v in adapters["numbers"].items())
-    print(f"phases 37-39 on {card}: {card_numbers}")
+    print(f"phases 37-42 on {card}: {card_numbers}")
 
     kernels = []
     for name, record in records.items():
@@ -7516,7 +7907,8 @@ def main() -> None:
                     "flux": flux["launches"][name],
                     "cogview4": cogview4["launches"][name],
                     "wan": wan["launches"][name],
-                    "sdxl_adapters": adapters["launches"][name]}
+                    "sdxl_adapters": adapters["launches"][name],
+                    **{path: adapters["groups"][path][name] for path in CONTEXT_ADAPTER_PATHS}}
         kernels.append({
             "name": name,
             **{k: record[k] for k in ("route", "source", "replaces")},

@@ -136,3 +136,32 @@ def test_safetensors_helpers(tmp_path):
     assert torch.equal(renamed["x.weight"], tensors["a.weight"])
     # the JAX package reads what the port writes
     assert np.array_equal(np.asarray(jax_st.load_file(path)["a.weight"]), tensors["a.weight"].numpy())
+
+
+@pytest.mark.parametrize("metadata", [None, {"format": "pt"}])
+def test_save_file_writes_the_librarys_bytes(tmp_path, metadata):
+    """The streaming writer against ``safetensors.torch.save_file``: the
+    same file byte for byte over every dtype the port writes, a strided
+    view, a 0-d tensor, an empty one and a non-ASCII name."""
+    from safetensors.torch import save_file as library_save_file
+
+    gen = torch.Generator().manual_seed(0)
+    tensors = {
+        "z.weight": torch.randn(3, 5, generator=gen).bfloat16(),
+        "a.weight": torch.randn(4, 2, generator=gen),
+        "m.half": torch.randn(7, generator=gen).half(),
+        "c.idx": torch.arange(5, dtype=torch.int64),
+        "b.idx": torch.arange(3, dtype=torch.int32),
+        "mask": torch.tensor([True, False, True]),
+        "u8": torch.arange(9, dtype=torch.uint8).reshape(3, 3),
+        "strided": torch.randn(6, 4, generator=gen)[:, 1],
+        "scalar": torch.tensor(2.5),
+        "empty": torch.zeros(0, 3),
+        "é.bias": torch.ones(2),
+    }
+    ours, theirs = tmp_path / "ours.safetensors", tmp_path / "theirs.safetensors"
+    st.save_file(tensors, ours, metadata=metadata)
+    library_save_file({k: v.contiguous() for k, v in tensors.items()}, str(theirs), metadata=metadata)
+    assert ours.read_bytes() == theirs.read_bytes()
+    loaded = st.load_file(ours)
+    assert all(torch.equal(loaded[k], v) for k, v in tensors.items())

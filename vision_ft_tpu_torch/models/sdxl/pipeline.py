@@ -70,6 +70,9 @@ class SDXLModel:
     # the UNet class: adapter models (the RoPE retrofit, the IP-Adapter)
     # build a subclass with their own attention or transformer block
     denoiser_class: type = Denoiser
+    # the text encoder class: the style tokenizer builds one that scatters
+    # style vectors into both towers
+    text_encoder_class: type = TextEncoder
 
     def __init__(
         self,
@@ -88,7 +91,7 @@ class SDXLModel:
         with torch.device("meta"):
             self.denoiser = self.denoiser_class(config.denoiser)
             self.vae = AutoencoderKL(vae_config or SDXL_VAE_CONFIG)
-            self.text_encoder = TextEncoder(
+            self.text_encoder = self.text_encoder_class(
                 backend=config.denoiser.attention_backend,
                 tokenizer=tokenizer,
                 config_1=text_encoder_config_1,
@@ -391,9 +394,22 @@ class SDXLModel:
             max_token_length=max_token_length,
         )
         embeddings, pooled = self.prepare_encoder_hidden_states(encoder_output, do_cfg)
+        return self._generate_core(
+            embeddings, pooled, batch_size, height, width, original_size, target_size,
+            crop_coords_top_left, timesteps, sigmas, cfg_scale, cfg_rescale, do_cfg, seed,
+            deep_cache_interval,
+        )
+
+    def _generate_core(
+        self, embeddings, pooled, batch_size, height, width, original_size, target_size,
+        crop_coords_top_left, timesteps, sigmas, cfg_scale, cfg_rescale, do_cfg, seed,
+        deep_cache_interval=None,
+    ) -> list[Image.Image]:
+        """The seeded denoise loop and the decode, shared by ``generate()``
+        and the context-level adapters (PFG, the style tokenizer), which
+        differ only in how they make ``embeddings``."""
         embeddings = embeddings.to(self.dtype)
         pooled = pooled.to(self.dtype)
-
         latents = self.prepare_latents(
             batch_size, height, width, self.scheduler.get_max_noise_sigma(sigmas), seed
         )

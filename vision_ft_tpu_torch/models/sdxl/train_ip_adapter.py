@@ -25,6 +25,7 @@ host from numpy's global generator, as in the JAX package.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Literal, Mapping, Optional
 
@@ -71,6 +72,43 @@ def sample_timesteps(cfg, generator: torch.Generator, shape) -> torch.Tensor:
     if cfg.timestep_sampling == "uniform":
         return uniform_randint(generator, shape, lo, hi)
     return gaussian_randint(generator, shape, lo, hi, args.get("mean", 100), args.get("std", 100))
+
+
+def draw_and_call(workload, batch, generator, loss_with_draws):
+    """Draw the VAE sample's noise, the timesteps and the noise from
+    ``generator``, in that order, and call ``loss_with_draws`` with them."""
+    model = workload.model
+    b, h, w, _ = batch["pixel_values"].shape
+    ratio = int(model.vae.compression_ratio)
+    shape = (b, h // ratio, w // ratio, model.vae.config.latent_channels)
+    device = batch["pixel_values"].device
+
+    def randn():
+        return torch.randn(shape, generator=generator, dtype=torch.float32,
+                           device=generator.device).to(device)
+
+    vae_noise = randn()
+    timesteps = sample_timesteps(workload.model_config, generator, shape).to(device)
+    noise = randn()
+    return loss_with_draws(model, batch, vae_noise, timesteps, noise)
+
+
+def preview_with_reference(workload, batch: dict) -> list[PILImage]:
+    """A preview through ``generate()``, with the preview item's
+    ``reference_image_path`` as the reference where it names one."""
+    negative_prompt = batch["negative_prompt"]
+    if negative_prompt is None and batch["cfg_scale"] > 0:
+        negative_prompt = ""
+    reference = None
+    if path := (batch.get("extra") or {}).get("reference_image_path"):
+        reference = Image.open(path).convert("RGB")
+    image = workload.model.generate(
+        prompt=batch["prompt"], negative_prompt=negative_prompt, reference_image=reference,
+        height=batch["height"], width=batch["width"], cfg_scale=batch["cfg_scale"],
+        num_inference_steps=batch["num_steps"], seed=batch["seed"],
+        max_token_length=workload.model_config.max_token_length,
+    )[0]
+    return [image]
 
 
 def loss_with_draws(
@@ -242,43 +280,15 @@ class SDXLIPAdapterTraining(ModelForTraining):
     # -- loss -------------------------------------------------------------------------
 
     def loss_fn(self, batch, generator):
-        model = self.model
-        b, h, w, _ = batch["pixel_values"].shape
-        ratio = int(model.vae.compression_ratio)
-        shape = (b, h // ratio, w // ratio, model.vae.config.latent_channels)
-        device = batch["pixel_values"].device
-
-        def randn():
-            return torch.randn(
-                shape, generator=generator, dtype=torch.float32, device=generator.device
-            ).to(device)
-
-        vae_noise = randn()
-        timesteps = sample_timesteps(self.model_config, generator, shape).to(device)
-        noise = randn()
-        loss = loss_with_draws(
-            model, batch, vae_noise, timesteps, noise, self.tokens_via_cross_attention,
-            self._tokens_to_keep,
-        )
-        return loss, {}
+        loss = functools.partial(loss_with_draws,
+                                 tokens_via_cross_attention=self.tokens_via_cross_attention,
+                                 tokens_to_keep=self._tokens_to_keep)
+        return draw_and_call(self, batch, generator, loss), {}
 
     # -- preview / saving ----------------------------------------------------------------
 
     def preview_step(self, batch: dict, preview_index: int) -> list[PILImage]:
-        negative_prompt = batch["negative_prompt"]
-        if negative_prompt is None and batch["cfg_scale"] > 0:
-            negative_prompt = ""
-        reference = None
-        extra = batch.get("extra") or {}
-        if path := extra.get("reference_image_path"):
-            reference = Image.open(path).convert("RGB")
-        image = self.model.generate(
-            prompt=batch["prompt"], negative_prompt=negative_prompt,
-            reference_image=reference, height=batch["height"], width=batch["width"],
-            cfg_scale=batch["cfg_scale"], num_inference_steps=batch["num_steps"],
-            seed=batch["seed"], max_token_length=self.model_config.max_token_length,
-        )[0]
-        return [image]
+        return preview_with_reference(self, batch)
 
     def get_state_dict_to_save(self):
         return self.model.get_adapter_state_dict()

@@ -6,12 +6,18 @@ Inputs are (B, S) int token ids. The causal mask is an additive fp32
 bias; attention is the plain formula (S = 77 < 256, as in the JAX
 package). Its LayerNorms (C 768 or 1280) take the fused LayerNorm
 kernel for bf16 CUDA tensors.
+
+``style_embeddings`` / ``style_token_id`` (the style tokenizer adapter):
+the k-th position of ``style_token_id`` in the flattened (batch, sequence)
+order takes the k-th style vector, a gather clipped to the vectors given
+(the JAX package's form: more style positions than vectors repeat the
+last one, where ``Tensor.masked_scatter`` would raise).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Literal
+from typing import Literal, Optional
 
 import torch
 import torch.nn.functional as F
@@ -63,6 +69,19 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
     if name == "quick_gelu":
         return x * torch.sigmoid(1.702 * x)
     return F.gelu(x)
+
+
+def scatter_style_embeddings(
+    x: torch.Tensor, input_ids: torch.Tensor, style_embeddings: torch.Tensor, style_token_id: int
+) -> torch.Tensor:
+    """``x`` (B, S, D) with its ``style_token_id`` positions replaced, in
+    row-major order, by the rows of ``style_embeddings`` (..., D): index
+    ``cumsum(mask) - 1`` clipped to the rows given, then ``where``."""
+    mask = input_ids == style_token_id
+    source = style_embeddings.reshape(-1, x.shape[-1]).to(x.dtype)
+    index = (mask.reshape(-1).long().cumsum(0) - 1).clamp(0, source.shape[0] - 1)
+    gathered = source[index].reshape(x.shape)
+    return torch.where(mask[..., None], gathered, x)
 
 
 class CLIPAttention(nn.ModuleDict):
@@ -148,11 +167,18 @@ class CLIPTextModel(nn.Module):
             }
         )
 
-    def forward(self, input_ids: torch.Tensor):
+    def forward(
+        self,
+        input_ids: torch.Tensor,
+        style_embeddings: Optional[torch.Tensor] = None,
+        style_token_id: Optional[int] = None,
+    ):
         tm = self.text_model
         s = input_ids.shape[-1]
         positions = torch.arange(s, device=input_ids.device)
         x = tm["embeddings"]["token_embedding"](input_ids)
+        if style_embeddings is not None:
+            x = scatter_style_embeddings(x, input_ids, style_embeddings, style_token_id)
         x = x + tm["embeddings"]["position_embedding"](positions)
 
         # additive causal bias (finfo.min, as HF: -inf risks NaN rows)
@@ -180,6 +206,11 @@ class CLIPTextModelWithProjection(CLIPTextModel):
         super().__init__(config)
         self.text_projection = Linear(config.hidden_size, config.projection_dim, bias=False)
 
-    def forward(self, input_ids: torch.Tensor):
-        last, penultimate, pooled = super().forward(input_ids)
+    def forward(
+        self,
+        input_ids: torch.Tensor,
+        style_embeddings: Optional[torch.Tensor] = None,
+        style_token_id: Optional[int] = None,
+    ):
+        last, penultimate, pooled = super().forward(input_ids, style_embeddings, style_token_id)
         return last, penultimate, self.text_projection(pooled)

@@ -5,8 +5,9 @@ module cannot be imported without importing jax).
 ``CLIPTokenizer.from_files(vocab.json, merges.txt)`` implements the
 byte-level BPE with the CLIP-specific ``</w>`` word suffix, lowercasing
 and whitespace cleanup. Output is numpy int32 (batch, max_length).
-Added special tokens and ``decode`` (used by the JAX package's style
-adapter) are not ported yet.
+``add_tokens`` registers added special tokens (the style tokenizer's
+``<|style|>``): they take the ids after the vocabulary, and ``encode``
+splits the lower-cased text on them before BPE.
 """
 
 from __future__ import annotations
@@ -57,12 +58,16 @@ class CLIPTokenizer:
 
     def __init__(self, encoder: dict[str, int], bpe_merges: list[tuple[str, str]]):
         self.encoder = encoder
+        self.decoder = {v: k for k, v in encoder.items()}
         self.byte_encoder = _bytes_to_unicode()
+        self.byte_decoder = {v: k for k, v in self.byte_encoder.items()}
         self.bpe_ranks = dict(zip(bpe_merges, range(len(bpe_merges))))
         self.cache: dict[str, str] = {}
         self.bos_token_id = encoder.get("<|startoftext|>", 49406)
         self.eos_token_id = encoder.get("<|endoftext|>", 49407)
         self.pad_token_id = self.eos_token_id  # CLIP pads with eos
+        # added special tokens (HF add_tokens analogue)
+        self.added_tokens: dict[str, int] = {}
 
     # -- constructors -------------------------------------------------------
 
@@ -122,13 +127,49 @@ class CLIPTokenizer:
         self.cache[token] = out
         return out
 
-    def encode(self, text: str) -> list[int]:
-        text = _whitespace_clean(html.unescape(html.unescape(text))).lower()
+    def __len__(self) -> int:
+        return len(self.encoder) + len(self.added_tokens)
+
+    def add_tokens(self, token: str, special_tokens: bool = True) -> int:
+        """Register an added special token at the next id after the
+        vocabulary and the tokens added before it. Returns the number of
+        tokens added (0 if it is known already)."""
+        if token in self.added_tokens or token in self.encoder:
+            return 0
+        self.added_tokens[token] = len(self.encoder) + len(self.added_tokens)
+        return 1
+
+    def convert_tokens_to_ids(self, token: str) -> int:
+        if token in self.added_tokens:
+            return self.added_tokens[token]
+        return self.encoder[token]
+
+    def _encode_bpe(self, text: str) -> list[int]:
         ids: list[int] = []
         for token in _TOKEN_PATTERN.findall(text):
             token = "".join(self.byte_encoder[b] for b in token.encode("utf-8"))
             ids.extend(self.encoder[t] for t in self._bpe(token).split(" "))
         return ids
+
+    def encode(self, text: str) -> list[int]:
+        text = _whitespace_clean(html.unescape(html.unescape(text))).lower()
+        if not self.added_tokens:
+            return self._encode_bpe(text)
+        # added tokens bypass BPE: split the lower-cased text on them first
+        lowered = {t.lower(): i for t, i in self.added_tokens.items()}
+        pattern = "(" + "|".join(re.escape(t) for t in lowered) + ")"
+        ids: list[int] = []
+        for piece in re.split(pattern, text):
+            if piece in lowered:
+                ids.append(lowered[piece])
+            elif piece:
+                ids.extend(self._encode_bpe(piece))
+        return ids
+
+    def decode(self, ids: Sequence[int]) -> str:
+        text = "".join(self.decoder.get(i, "") for i in ids)
+        data = bytearray(self.byte_decoder[c] for c in text if c in self.byte_decoder)
+        return data.decode("utf-8", errors="replace").replace("</w>", " ").strip()
 
     # -- batch API (the protocol long_prompt.py consumes) --------------------
 

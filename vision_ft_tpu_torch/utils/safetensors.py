@@ -1,6 +1,7 @@
 """Safetensors I/O for torch tensors (``vision_ft_tpu/utils/safetensors.py``
-counterpart), through the ``safetensors`` package: the interchange format
-of both packages, with the same keys."""
+counterpart): the interchange format of both packages, with the same keys,
+read through the ``safetensors`` package and written by a streaming writer
+of the package's own layout."""
 
 from __future__ import annotations
 
@@ -34,15 +35,53 @@ def read_keys(path: str | os.PathLike) -> list[str]:
     return [k for k in header.keys() if k != "__metadata__"]
 
 
+# the format's dtype names, in the order of its dtype enum: the safetensors
+# library lays tensors out by that order, last first, then by name
+_DTYPE_NAMES = {
+    torch.bool: "BOOL", torch.uint8: "U8", torch.int8: "I8", torch.float8_e5m2: "F8_E5M2",
+    torch.float8_e4m3fn: "F8_E4M3", torch.int16: "I16", torch.uint16: "U16",
+    torch.float16: "F16", torch.bfloat16: "BF16", torch.int32: "I32", torch.uint32: "U32",
+    torch.float32: "F32", torch.float64: "F64", torch.int64: "I64", torch.uint64: "U64",
+}
+_DTYPE_RANK = {dtype: i for i, dtype in enumerate(_DTYPE_NAMES)}
+_STAGING_BYTES = 256 * 2**20
+
+
 def save_file(
     tensors: dict[str, torch.Tensor], path: str | os.PathLike,
     metadata: Optional[dict[str, str]] = None,
 ) -> None:
-    """Write ``tensors`` (moved to the host, made contiguous) to ``path``."""
-    from safetensors.torch import save_file as _save_file
-
-    tensors = {k: torch.as_tensor(v).detach().to("cpu").contiguous() for k, v in tensors.items()}
-    _save_file(tensors, str(path), metadata=metadata)
+    """Write ``tensors`` to ``path``: the bytes ``safetensors.torch.save_file``
+    writes for their host copies, streamed. A device tensor reaches the file
+    through one pinned host buffer and a host tensor from its own memory,
+    so the host never holds a copy of the whole state."""
+    items = sorted(((k, torch.as_tensor(v).detach()) for k, v in tensors.items()),
+                   key=lambda kv: (-_DTYPE_RANK[kv[1].dtype], kv[0]))
+    header, offset = {}, 0
+    if metadata is not None:
+        header["__metadata__"] = metadata
+    for k, v in items:
+        n = v.numel() * v.element_size()
+        header[k] = {"dtype": _DTYPE_NAMES[v.dtype], "shape": list(v.shape),
+                     "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header, separators=(",", ":"), ensure_ascii=False).encode()
+    raw += b" " * (-len(raw) % 8)
+    staging = None
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for _, v in items:
+            flat = v.contiguous().reshape(-1).view(torch.uint8)
+            if flat.device.type == "cpu":
+                f.write(memoryview(flat.numpy()))
+                continue
+            if staging is None:
+                staging = torch.empty(_STAGING_BYTES, dtype=torch.uint8, pin_memory=True)
+            for i in range(0, flat.numel(), _STAGING_BYTES):
+                part = staging[:min(_STAGING_BYTES, flat.numel() - i)]
+                part.copy_(flat[i:i + part.numel()])
+                f.write(memoryview(part.numpy()))
 
 
 def load_file_with_rename_key_map(

@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--profile] [--kernel-d] [--kernel-i] [--trace-kernels]
                           [--ln-probe-costs] [--lumina-trainer] [--auraflow]
                           [--auraflow-trainer] [--serve] [--flux] [--cogview4] [--wan]
+                          [--sdxl-adapters] [--remainder] [--fractal] [--wait-for-go]
 
 With --profile, phases 6 and 8 also trace two train steps with
 torch.profiler (device activity only) and print the device time of a step
@@ -57,8 +58,17 @@ phases 0 and 34-36 and the build of kernels A's, B's and D's libraries run,
 printing the Wan paths' launch counts, kernels B's, A's and D's records at
 Wan's shapes and the numbers as one JSON line (no ok line); the main run
 runs it so, in a process of its own, after phases 31-33 (with --profile,
-phase 35 also traces one CFG denoise step and one VAE decode). Each phase's
-header gives the seconds since its process started.
+phase 35 also traces one CFG denoise step and one VAE decode). With
+--remainder, only phases 0 and 43-45 run, on a seeded SDXL file of their
+own, after the build of kernels A's, B's, C's and D's libraries (one JSON
+line, no ok line); the main run runs it so, in a process of its own, after
+phases 37-42. With --fractal, only phases 0 and 46 and the build of kernels
+A's and E's libraries run (one JSON line, no ok line); the main run runs it
+so, in a process of its own, after phases 43-45. The main run starts each
+of these processes (and phase 3's tracing one) ahead of its turn with
+--wait-for-go: it imports while the phases before it run, then waits for
+a line on its stdin before it touches the card. Each phase's header gives
+the seconds since its process started, or since its turn came.
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -119,7 +129,8 @@ Phases, each printing its own lines; any failure exits non-zero:
     NextDiT's (rows, 2304, 9216) SwiGLU shapes, a ragged row count, biases
     with both gelus, C = 4096 at 64 rows, and SDXL's GeGLU (16384, 640,
     2560).
-12. Lumina2 generate() at full width and depth (NextDiT 2B, Gemma-2-2B,
+12. Lumina2 generate() at full width, 8 of the NextDiT's 26 main layers
+    (LUMINA_CUT_DEPTH; full depth before phases 43-46 joined the run; Gemma-2-2B,
     the 16-channel VAE; bf16, seeded random weights made on the card, a
     synthetic SentencePiece vocab): a 1024 px CFG request cold and warm
     (bit-identical), two prompts of different lengths at 832x1216, a request
@@ -135,9 +146,10 @@ Phases, each printing its own lines; any failure exits non-zero:
     context refiner's 256, the low-res main stack's 512), causal, head dims
     64 and 128, Sq != Sk; reruns bit-identical; each kernel's TFLOP/s and
     share of its bound, and the whole backward against SDPA's backward.
-14. Lumina2 LoRA train steps at full width and depth on the same model:
-    rank-16 LoRA on qkv, out, w1, w2, w3, gradient checkpointing, AdamW
-    with clipping, batch 4 of 1024 px images and four captions of different
+14. Lumina2 LoRA train steps at full width on the same model (8 of the 26
+    main layers, full depth before phases 43-46 joined the run): rank-16
+    LoRA on qkv, out, w1, w2, w3, gradient checkpointing, AdamW with
+    clipping, batch 4 of 1024 px images and four captions of different
     lengths through the whole loss_fn (Gemma-2 and VAE encode every step,
     uniform timesteps, the low-res loss). Checks the losses, the launch
     counts in both checkpointing modes, the adapters, the frozen base, a
@@ -218,8 +230,9 @@ Phases, each printing its own lines; any failure exits non-zero:
     back beside SDPA's, TFLOP/s and the bound; each instantiation's tiles,
     stages, passes and shared memory; F, F-up and F-down at the single
     layers' 8720 rows and the double layers' 8192 and 528, as in phase 11.
-21. AuraFlow generate() at full width and depth in the same process (the
-    default MMDiT: 4 double + 32 single layers, 3072 wide, 12 heads of 256;
+21. AuraFlow generate() at full width in the same process (the default
+    MMDiT cut to 4 double + 8 of its 32 single layers (AURA_CUT_DEPTH; full
+    depth before phases 43-46), 3072 wide, 12 heads of 256;
     the default UMT5; the SDXL VAE; bf16, seeded random weights made on the
     card, the zero-init leaves drawn anew; the synthetic SentencePiece vocab
     with the T5 template): three 1024 px CFG requests of 8 steps (the third
@@ -237,9 +250,10 @@ Phases, each printing its own lines; any failure exits non-zero:
     launch of each kernel a call, reruns bit-identical; each kernel's one
     call and a call over 10 back to back, TFLOP/s and bound, the whole
     backward beside SDPA's backward alone.
-23. the AuraFlow Trainer in the same process: phase 21's full-size model,
-    seeded (zero-init leaves drawn anew), written by state_dict() to a
-    16.5 GB single-file checkpoint; configs/auraflow/text_to_image_lora.yml
+23. the AuraFlow Trainer in the same process: phase 21's model (4 + 8
+    layers; 32 + 4 and a 16.5 GB file before phases 43-46), seeded (zero-init
+    leaves drawn anew), written by state_dict() to a single-file
+    checkpoint; configs/auraflow/text_to_image_lora.yml
     (config #3: batch 1, LoRA rank 8 on attn., .mlp., modC., modX.,
     schedule-free RAdam, gradient checkpointing, buckets from 1024 at step
     128) cut to one epoch over 4 seeded images (three 1024x1024, one
@@ -264,7 +278,7 @@ Phases, each printing its own lines; any failure exits non-zero:
     the port's T2IModel from a YAML that names it, on 127.0.0.1 at an
     ephemeral port, driven through the port's client. Window scheduler: 4
     concurrent compatible 1024 px requests make one generate() of batch 4,
-    an 832x1216 one its own; a 6-request staggered trace (8 and 12 steps,
+    an 832x1216 one its own; a 6-request staggered trace (4 and 6 steps,
     seeds, guidance, one cfg_rescale); a 1536 px request through the tiled
     VAE decode. Continuous scheduler (4 slots at 1024 px): the same trace,
     each result's latents against the same request through batch-1
@@ -292,8 +306,9 @@ Phases, each printing its own lines; any failure exits non-zero:
     256-key gate); out and lse against the plain version, reruns
     bit-identical, one call and a call over 10 back to back beside SDPA's,
     TFLOP/s and the bound; forward_config(128).
-29. FluxModel.generate() on flux1-dev at full width and depth in the same
-    process (19 double + 38 single blocks, hidden 3072, 24 heads of 128,
+29. FluxModel.generate() on flux1-dev at full width in the same process
+    (4 of the 19 double and 8 of the 38 single blocks, FLUX_CUT_DEPTH; full
+    depth before phases 43-46; hidden 3072, 24 heads of 128,
     use_flash_attention: true; T5-XXL, CLIP-L and the 16-channel VAE; bf16
     seeded random weights made on the card; the synthetic SentencePiece
     vocab with the T5 template and a CLIP BPE vocab): 1024 px requests of
@@ -301,7 +316,7 @@ Phases, each printing its own lines; any failure exits non-zero:
     again bit-identical, CFG 2 with a negative prompt, deep_cache_interval
     2), one with every block's attention on the plain formula (the
     use_flash_attention: false route) held to the kernel route's latents
-    (FLUX_ROUTE_TOL); kernel B's launches (57 a step, fewer on a cached
+    (FLUX_ROUTE_TOL); kernel B's launches (12 a step, fewer on a cached
     step) and A's (CLIP-L's 25 LayerNorms a prompt encoding) against the
     module tree; one CFG denoise step against the plain version; seconds a
     request and peak GiB; flux1-schnell and flex1-alpha at full width, 1
@@ -328,27 +343,31 @@ Phases, each printing its own lines; any failure exits non-zero:
     bit-identical, one call and 10 back to back, TFLOP/s, the bounds, the
     whole backward with the plain delta beside SDPA's backward alone), and
     ptxas's registers and spill bytes of C's D 128 instance.
-32. CogView4Model.generate() at full width and depth in the same process
-    (28 blocks, 4096 wide, 32 heads of 128; GLM-4 with 40 layers; the
+32. CogView4Model.generate() at full width in the same process (8 of the
+    DiT's 28 blocks, COGVIEW4_CUT_DEPTH, full depth before phases 43-46
+    joined the run; 4096 wide,
+    32 heads of 128; GLM-4 whole, 40 layers; the
     16-channel VAE; bf16 seeded random weights made on the card; the
     synthetic SentencePiece vocab with GLM's template): 1024 px requests of
     8 steps at CFG 3.5 (cold, another prompt, the first again
-    bit-identical, deep_cache_interval 2); kernel B's launches (28 a step,
-    7 on a cached step) against the module tree; one CFG denoise step
+    bit-identical, deep_cache_interval 2); two plain and three offloaded
+    requests (the first parks the parts; offloaded_requests), their seconds
+    and peaks, latents bit-identical; kernel B's launches (8 a step, 2 on a
+    cached step) against the module tree; one CFG denoise step
     against the plain version; seconds a request and peak GiB; a pool of 4
     slots through the server's continuous scheduler (4 staggered requests
     of 4 and 8 steps, CFG 3.5, 5 and 1), each result against batch-1
-    generate() (POOL_REQUEST_TOL), kernel B 28 launches a tick.
+    generate() (POOL_REQUEST_TOL), kernel B 8 launches a tick.
 33. in the same process, at full width and reduced depth (2 blocks, 2 GLM
     layers): the single-file checkpoint written by state_dict() and read by
     from_checkpoint, bit-identical; the server on a YAML naming it (window
     and continuous schedulers); the CLI with --quant-type bnb_nf4 (kernel
     D's launches on every denoiser Linear it takes); the quant-compare tool
     with GLM's and the DiT's groups in NF4 (D's launches). Then the Trainer
-    on configs/cogview4/text_to_image.yml at full width and depth from
+    on configs/cogview4/text_to_image.yml at full width, 8 DiT blocks, from
     seeded weights: one epoch of 8 seeded 1024 px images at batch 2 (LoRA
     rank 8 on attn / ff, AdamW, checkpointing), launches of B and of C's
-    two kernels a step (28 each), a 4-step preview, warm steps, the saved
+    two kernels a step (8 each), a 4-step preview, warm steps, the saved
     LoRA's keys, bytes and write / load seconds, and a depth-reduced step
     against the plain versions.
 34. kernels B, A and D at Wan 2.2's shapes, in a process of its own
@@ -360,14 +379,16 @@ Phases, each printing its own lines; any failure exits non-zero:
     over the prompt encoding's rows and over 2 x 512; D at the DiT's Linears
     (each one launch, reruns bit-identical, one call and 10 back to back
     beside SDPA's forward, F.layer_norm or cuBLAS, TFLOP/s, the bounds).
-35. Wan22.generate() at full width and depth in the same process (the DiT's
-    30 blocks 3072 wide; UMT5 with 24 layers, dim 4096, vocab 256384; the
+35. Wan22.generate() at full width in the same process (8 of the DiT's 30
+    blocks, WAN_CUT_LAYERS, full depth before phases 43-46 joined the run;
+    3072 wide; UMT5 with 24
+    layers, dim 4096, vocab 256384; the
     causal 3-D VAE at its default config in fp32; bf16 seeded random
     weights made on the card; the synthetic SentencePiece vocab with T5's
     template): 704 x 704, 49 frames, 8 steps, CFG 5 (cold, another prompt,
     the first again: its latents bit-identical, its frames within
     WAN_FRAME_TOL levels, deep_cache_interval 2); kernel B's
-    launches (60 a step, 14 on a cached step) and A's (49 a prompt encoding)
+    launches (16 a step, 4 on a cached step) and A's (49 a prompt encoding)
     against the module tree; one CFG denoise step against the plain
     version; seconds a request, the VAE decode's, peak GiB. The requests
     of phases 35-36 run with cuDNN's TF32 on, PyTorch's default (the VAE's
@@ -386,13 +407,41 @@ Phases, each printing its own lines; any failure exits non-zero:
     through the Trainer from their YAMLs, each with a generate().
 40-42. in the same process, on the same seeded SDXL file: prompt-free
     generation (reference and self modes), the style tokenizer (a CLIP-size
-    vocabulary, SigLIP-512, kernel B at its shape) and DRaFT+ (LoRA, 25
-    sampling steps, a full-width PickScore on seeded weights) through the
+    vocabulary, SigLIP-512, kernel B at its shape) and DRaFT+ (LoRA,
+    DRAFT_STEPS sampling steps, 25 before phases 43-46, a full-width PickScore on
+    seeded weights) through the
     Trainer from their YAMLs, the injected encoder the port's SigLIP;
     each with its launches under a path of its own, its saved file read
     back, a generate() and a depth-reduced step (one transformer layer in
     each SpatialTransformer) against the plain versions: DRaFT+'s at 3
     sampling steps and 2 PickScore layers a tower, its decoded image too.
+43. (a process of its own, --remainder, on a seeded 6.9 GB SDXL file it
+    writes) the SDXL Trainer on configs/sdxl/text_to_image_lora.yml at full width and depth
+    under each of REST_OPTIMIZERS (the 8-bit AdamW, optax.adamw, Adafactor,
+    the schedule-free SGD), one epoch of 4 seeded 1024 px images at batch 2,
+    each run with a Discord preview posted to a local HTTP server (the
+    multipart form parsed, its webp read back), the Hub saving callback
+    with a recording api (one upload_file of the saved file) and the
+    tensorboard tracker (its train/loss scalars and event file); launches a
+    step; the 8-bit run's state checkpoint resumed against the unbroken
+    run (the next step's loss and the parameters after it bit-identical);
+    ms a step, peak GiB and the optimizer state's bytes of each.
+44. the checkpoint tools: quantize_model on the card (NF4 on attn1, attn2,
+    .ff.), NF4_TOOL_PROBES' tensors byte for byte against a CPU run; the
+    written file through SDXLModel.from_checkpoint into one QLoRA step
+    (kernel D's forward and dx launches against the quantized layers);
+    convert_dtype bf16 -> fp32 -> bf16 and to_safetensors of a pickled
+    state_dict on the VAE's tensors, each back to the same tensors.
+45. SDXL from the file, 1024 px requests with and without do_offloading
+    (offloaded_requests: two plain, the first offloaded, two from the
+    host; the peak reset before each; latents bit-identical).
+46. (a process of its own, --fractal) FractalGen's masked transformer at
+    full width (FRACTAL: 64 px in 4 px patches, hidden 1024, 16 heads of 64,
+    32 blocks; seeded bf16 weights): a forward on kernels A (one launch a
+    LayerNorm) and E (one a block), and at FRACTAL_REDUCED blocks (full
+    width) against the plain versions (FRACTAL_TOL), ms a forward; kernel E
+    alone at its 257-token shape, the ragged last tile's row held apart
+    (MASKED_ATTN_TOL), beside SDPA and the bound.
 
 Every kernel's record carries its time, its plain version's, the bound
 (the larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s bf16, or
@@ -405,6 +454,7 @@ There is no CPU path.
 """
 
 import argparse
+import concurrent.futures
 import contextlib
 import functools
 import gc
@@ -469,7 +519,7 @@ NF4_SHAPES = [  # (M, N, K) of the quantized Linears: the train step's batch 4 a
     (16384, 640, 640), (16384, 5120, 640), (16384, 640, 2560), (908, 640, 2048),
     (2048, 1280, 1280), (154, 1280, 2048),
 ]
-NF4_WARMUP, NF4_TIMED, NF4_ROUTE_STEPS = 1, 3, 3
+NF4_WARMUP, NF4_TIMED, NF4_ROUTE_STEPS = 1, 2, 2  # 3, 3 before phases 43-46
 # NF4 rounds a weight to one of 16 levels of its block's absmax: the widest
 # gap (0.723 to 1.0) bounds the error by 0.139 absmax
 NF4_MAX_ERR = 0.17
@@ -506,7 +556,7 @@ MASKED_BWD_SHAPES = [  # (B, H, Hkv, Sq, Sk, D, mask, causal); the first is the 
     (1, 24, 8, 300, 1000, 96, "hole", False),   # ragged, Sq != Sk
 ]
 LUMINA_LORA_TARGETS = ["qkv", ".out", "w1", "w2", "w3"]
-LUMINA_TRAIN_WARMUP, LUMINA_TRAIN_TIMED = 2, 5
+LUMINA_TRAIN_WARMUP, LUMINA_TRAIN_TIMED = 2, 3  # 5 timed before phases 43-46
 MASKED_ATTN_SHAPES = [  # (B, H, Hkv, Sq, Sk, D, mask, causal); the first is the main stack's
     (2, 24, 8, 4352, 4352, 96, "hole", False),  # 1024 px, CFG: [caption 256 | image 4096]
     (2, 24, 8, 4096, 4096, 96, "ones", False),  # noise refiner
@@ -588,7 +638,7 @@ GN_TOL = CONV_TOL = GN_GRAD_TOL = CONV_GRAD_TOL = 2e-2
 # on; relative to the largest value, the limits of a whole step
 RESNET_TOL, RESNET_GRAD_TOL = 3e-2, 5e-2
 STEPS = 8
-TRAIN_BATCH, TRAIN_RES, TRAIN_WARMUP, TRAIN_TIMED = 4, 1024, 2, 3
+TRAIN_BATCH, TRAIN_RES, TRAIN_WARMUP, TRAIN_TIMED = 4, 1024, 2, 2  # 3 timed before phases 43-46
 LORA_TARGETS = ["attn1", "attn2", ".ff."]
 
 # NVIDIA H100 SXM data sheet, dense rates
@@ -1354,17 +1404,90 @@ def shortk_inputs(b, h, sq, sk, d, zero_batch, device, gen):
     return tuple(heads(t) for t in (q, k, v, dout))
 
 
-def run_trace_kernels(checkout: Path) -> dict:
-    """``chip_smoke.py --trace-kernels`` in a process of its own (late in a
-    long run the profiler has shown nothing at all): its traces, each kernel
-    checked for one launch a call."""
-    proc = subprocess.run([sys.executable, str(checkout / "chip_smoke.py"), "--trace-kernels"],
-                          cwd=checkout, capture_output=True, text=True, timeout=600)
-    lines = proc.stdout.strip().splitlines()
-    if proc.returncode != 0 or not lines:
-        raise AssertionError(f"chip_smoke.py --trace-kernels failed (exit {proc.returncode}): "
-                             f"{proc.stderr[-2000:]}")
-    traces = json.loads(lines[-1])["traces"]
+class Child:
+    """``chip_smoke.py <flag>`` in a process of its own (a fresh card),
+    started ahead of its turn: it imports while the phases before it run,
+    then waits for a line on its stdin before it touches the card. A child
+    whose stdin closes first (this process ended) exits."""
+
+    def __init__(self, checkout: Path, flag: str, *extra: str, timeout: float = 900):
+        self.flag, self.timeout = flag, timeout
+        self.proc = subprocess.Popen(
+            [sys.executable, str(checkout / "chip_smoke.py"), flag, *extra, "--wait-for-go"],
+            cwd=checkout, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+
+    def result(self, key: str, echo: bool = True):
+        """Let the child run to its end; print its lines but the last (all
+        of them if it failed) and return ``key`` of its last line, one JSON
+        object."""
+        try:
+            out, err = self.proc.communicate("go\n", timeout=self.timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.communicate()
+            raise
+        lines = out.strip().splitlines()
+        if echo:
+            print("\n".join(lines[:-1] if self.proc.returncode == 0 else lines))
+        if self.proc.returncode != 0 or not lines:
+            raise AssertionError(f"chip_smoke.py {self.flag} failed (exit {self.proc.returncode}): "
+                                 f"{err[-4000:]}")
+        return json.loads(lines[-1])[key]
+
+
+# the main run's children in their order: (phases, flag, key of their JSON line, what they
+# run, seconds they may take)
+CHILDREN = (
+    ("19", "--lumina-trainer", "lumina_trainer",
+     "the Lumina2 Trainer at full width, 8 of the NextDiT's 26 layers: checkpoint, EMA, state "
+     "checkpoints, profiler window, preview", 900),
+    ("20-21", "--auraflow", "auraflow",
+     "kernels B at head dim 256 and F at AuraFlow's widths; AuraFlow generate() at full width, "
+     "4 + 8 layers", 900),
+    ("22-24", "--auraflow-trainer", "auraflow_trainer",
+     "kernel C at head dim 256; the AuraFlow Trainer on config #3, the shortcut and RoPE "
+     "migration workloads at full width, 4 + 8 layers", 900),
+    ("25-27", "--serve", "serve",
+     "serving: the port's HTTP server (window and continuous schedulers), client and CLI on "
+     "SDXL, Lumina2 and AuraFlow at full width", 900),
+    ("28-30", "--flux", "flux",
+     "kernel B at head dim 128; Flux generate() at full width, 4 + 8 blocks, its checkpoint, "
+     "server and CLI; the AuraFlow VAE-encode migration", 900),
+    ("31-33", "--cogview4", "cogview4",
+     "kernels B and C at head dim 128, CogView4's shapes; CogView4 generate() at full width, 8 "
+     "DiT blocks, with offloading, its pool, checkpoint, server, CLI, quant-compare tool and "
+     "Trainer", 900),
+    ("34-36", "--wan", "wan",
+     "kernels B, A and D at Wan's shapes; Wan 2.2 generate() at full width, 8 DiT blocks, its "
+     "three-file checkpoint, server and CLI", 900),
+    ("37-42", "--sdxl-adapters", "sdxl_adapters",
+     "kernels E and G at the RoPE student's shapes, B at SigLIP-384's and SigLIP-512's; the "
+     "SDXL train step in the three remat modes; the flow-match, RoPE-distillation, IP-Adapter, "
+     "prompt-free, style-tokenizer and DRaFT+ workloads through the Trainer with generate()", 600),
+    ("43-45", "--remainder", "remainder",
+     "the rest of the Trainer (the 8-bit AdamW with a resumed state checkpoint, optax.adamw, "
+     "Adafactor, the schedule-free SGD; the Discord, Hub and tensorboard callbacks), the "
+     "checkpoint tools (quantize_model, its file through kernel D), SDXL requests with and "
+     "without do_offloading", 600),
+    ("46", "--fractal", "fractal",
+     "FractalGen's masked transformer at full width on kernels A and E", 600),
+)
+# the children that take --profile
+PROFILED_CHILDREN = ("--auraflow", "--flux", "--cogview4", "--wan")
+
+
+def start_child(checkout: Path, spec: tuple, profile: bool) -> Child:
+    _, flag, _, _, timeout = spec
+    extra = ["--profile"] if profile and flag in PROFILED_CHILDREN else []
+    return Child(checkout, flag, *extra, timeout=timeout)
+
+
+def run_trace_kernels(child: Child) -> dict:
+    """The ``--trace-kernels`` child's traces (a process of its own: late in
+    a long run the profiler has shown nothing at all), each kernel checked
+    for one launch a call."""
+    traces = child.result("traces", echo=False)
     for label, trace in traces.items():
         kinds, only = trace["kinds"], trace["kernel"]
         if only and (not 9 <= kinds.get(only, (0, 0))[1] <= 10 or trace["counted"] != 10):
@@ -1722,20 +1845,6 @@ def lumina_trainer_phase(device, wrappers: dict, checkout: Path) -> dict:
     return {"launches": run_launches, "numbers": numbers}
 
 
-def run_lumina_trainer(checkout: Path) -> dict:
-    """``chip_smoke.py --lumina-trainer`` in a process of its own (a fresh
-    card and a profiler window early in its process): its lines, then its
-    launch counts and numbers."""
-    proc = subprocess.run([sys.executable, str(checkout / "chip_smoke.py"), "--lumina-trainer"],
-                          cwd=checkout, capture_output=True, text=True, timeout=900)
-    lines = proc.stdout.strip().splitlines()
-    print("\n".join(lines[:-1]))
-    if proc.returncode != 0 or not lines:
-        raise AssertionError(f"chip_smoke.py --lumina-trainer failed (exit {proc.returncode}): "
-                             f"{proc.stderr[-4000:]}")
-    return json.loads(lines[-1])["lumina_trainer"]
-
-
 # AuraFlow (tracked config #3): the joint sequence at 1024 px is 8 register + 256 text +
 # 4096 image tokens. Kernel B's (B, Sq, Sk, H*D, H): the CFG request's (both halves in
 # one call), a request's without CFG, an aligned one, and a ragged one with Sq != Sk
@@ -1889,19 +1998,11 @@ def auraflow_phase(device, wrappers: dict, profile: bool) -> dict:
               f"{config['passes']} pass(es) over O's columns, Smem::kBytes = {config['smem_bytes']} "
               "(a block may have 232448)")
     numbers["kernel_b_d256"] = forward_config(256)
-    # what ptxas made of each instantiation (nvcc -Xptxas -v with the build's flags)
+    # what ptxas made of each instantiation (nvcc -Xptxas -v with the build's flags), on the
+    # host while the card works
     from vision_ft_tpu_torch.tools.ptxas_report import ptxas_report
 
-    numbers["kernel_b_ptxas"] = {}
-    for kernel, info in sorted(ptxas_report("flash_attention_bshd").items()):
-        found = re.search(r"flash_fwd_bshd_kernelILi(\d+)E", kernel)
-        if found:
-            numbers["kernel_b_ptxas"][found.group(1)] = info
-            print(f"kernel B at D = {found.group(1)}, ptxas: {info.get('registers')} registers a "
-                  f"thread, {info.get('spill_stores')} bytes of spill stores, "
-                  f"{info.get('spill_loads')} of spill loads, notes {info.get('notes')}")
-    if set(numbers["kernel_b_ptxas"]) != {"64", "128", "256"}:
-        raise AssertionError(f"ptxas reported no kernel B at some head dim: {numbers['kernel_b_ptxas']}")
+    ptxas_job = concurrent.futures.ThreadPoolExecutor(1).submit(ptxas_report, "flash_attention_bshd")
     for shape in AURA_ATTN_SHAPES:
         records["flash_attention_bshd"].append(bshd_forward_record(device, gen, *shape))
     for m, c, inner, act, with_biases in AURA_MLP_SHAPES:
@@ -1916,8 +2017,19 @@ def auraflow_phase(device, wrappers: dict, profile: bool) -> dict:
         del x, wa, wg, wd
     gc.collect()
     torch.cuda.empty_cache()
+    numbers["kernel_b_ptxas"] = {}
+    for kernel, info in sorted(ptxas_job.result(timeout=600).items()):
+        found = re.search(r"flash_fwd_bshd_kernelILi(\d+)E", kernel)
+        if found:
+            numbers["kernel_b_ptxas"][found.group(1)] = info
+            print(f"kernel B at D = {found.group(1)}, ptxas: {info.get('registers')} registers a "
+                  f"thread, {info.get('spill_stores')} bytes of spill stores, "
+                  f"{info.get('spill_loads')} of spill loads, notes {info.get('notes')}")
+    if set(numbers["kernel_b_ptxas"]) != {"64", "128", "256"}:
+        raise AssertionError(f"ptxas reported no kernel B at some head dim: {numbers['kernel_b_ptxas']}")
 
-    phase("21 AuraFlow generate() at full width and depth, bf16, seeded random weights")
+    phase("21 AuraFlow generate() at full width, 4 double and 8 single of its 4 + 32 layers, bf16, "
+          "seeded random weights")
     tokenizer = SentencePieceTokenizer(SentencePieceModel.from_bytes(lumina_vocab()), template="eos")
 
     class Model(AuraFlowModel):
@@ -1931,7 +2043,8 @@ def auraflow_phase(device, wrappers: dict, profile: bool) -> dict:
         return aura_fill_zero_init(model, device, seed)
 
     torch.cuda.reset_peak_memory_stats()
-    model = Model(AuraFlowConig(checkpoint_path="", dtype="bfloat16"), tokenizer=tokenizer)
+    model = Model(AuraFlowConig(checkpoint_path="", dtype="bfloat16",
+                                denoiser=DenoiserConfig(**AURA_CUT_DEPTH)), tokenizer=tokenizer)
     start = time.perf_counter()
     model.init_params(torch.Generator(device=device).manual_seed(0))
     filled = fill_zero_init(model, 1)
@@ -2119,21 +2232,6 @@ def auraflow_phase(device, wrappers: dict, profile: bool) -> dict:
     return {"launches": launches_total, "records": records, "numbers": numbers}
 
 
-def run_auraflow(checkout: Path, profile: bool) -> dict:
-    """``chip_smoke.py --auraflow`` in a process of its own (a fresh card):
-    its lines, then its launch counts, records and numbers."""
-    proc = subprocess.run(
-        [sys.executable, str(checkout / "chip_smoke.py"), "--auraflow",
-         *(["--profile"] if profile else [])],
-        cwd=checkout, capture_output=True, text=True, timeout=900)
-    lines = proc.stdout.strip().splitlines()
-    print("\n".join(lines[:-1]))
-    if proc.returncode != 0 or not lines:
-        raise AssertionError(f"chip_smoke.py --auraflow failed (exit {proc.returncode}): "
-                             f"{proc.stderr[-4000:]}")
-    return json.loads(lines[-1])["auraflow"]
-
-
 # Kernel C at AuraFlow's head dim 256 (phase 22), (B, Sq, Sk, H*D, H): the config-#3 step
 # at batch 1 and 1024 px (8 register + 256 text + 4096 image tokens), the shortcut step's
 # batch 2, the 832x1216 bucket (264 + 52 * 76), ragged Sq != Sk, one row and one key past
@@ -2251,8 +2349,18 @@ def aura_backward_phase(device, wrappers: dict) -> tuple[dict, dict]:
 
     phase("22 kernel C at head dim 256 (column halves), AuraFlow's shapes, vs the plain backward")
     numbers, records = {}, {"flash_attention_bshd_dkv": [], "flash_attention_bshd_dq": []}
+    # ptxas's view of kernel C runs on the host while the card works
+    ptxas_job = concurrent.futures.ThreadPoolExecutor(1).submit(
+        ptxas_report, "flash_attention_bshd_bwd")
+    gen = torch.Generator(device=device).manual_seed(22)
+    for shape in AURA_BWD_SHAPES:
+        dkv_record, dq_record = bshd_backward_records(device, gen, *shape)
+        records["flash_attention_bshd_dkv"].append(dkv_record)
+        records["flash_attention_bshd_dq"].append(dq_record)
+    gc.collect()
+    torch.cuda.empty_cache()
     ptxas = {}
-    for kernel, info in sorted(ptxas_report("flash_attention_bshd_bwd").items()):
+    for kernel, info in sorted(ptxas_job.result(timeout=600).items()):
         if "flash_bwd_dkv_bshd_d256_kernel" in kernel:
             ptxas["dkv"] = info
         elif "flash_bwd_dq_bshd_kernelILi256E" in kernel:
@@ -2264,13 +2372,6 @@ def aura_backward_phase(device, wrappers: dict) -> tuple[dict, dict]:
     if set(ptxas) != {"dkv", "dq"}:
         raise AssertionError(f"ptxas reported no D = 256 kernel C: {sorted(ptxas)}")
     numbers["kernel_c_d256_ptxas"] = ptxas
-    gen = torch.Generator(device=device).manual_seed(22)
-    for shape in AURA_BWD_SHAPES:
-        dkv_record, dq_record = bshd_backward_records(device, gen, *shape)
-        records["flash_attention_bshd_dkv"].append(dkv_record)
-        records["flash_attention_bshd_dq"].append(dq_record)
-    gc.collect()
-    torch.cuda.empty_cache()
     return records, numbers
 
 
@@ -2285,7 +2386,7 @@ def auraflow_trainer_phase(device, wrappers: dict, checkout: Path) -> dict:
     from safetensors import safe_open
 
     from vision_ft_tpu_torch.config import TrainConfig
-    from vision_ft_tpu_torch.models.auraflow.config import AuraFlowConig
+    from vision_ft_tpu_torch.models.auraflow.config import AuraFlowConig, DenoiserConfig
     from vision_ft_tpu_torch.models.auraflow.pipeline import AuraFlowModel
     from vision_ft_tpu_torch.models.auraflow.util import convert_to_comfy_key
     from vision_ft_tpu_torch.models.text_encoders.sentencepiece import (
@@ -2409,8 +2510,8 @@ def auraflow_trainer_phase(device, wrappers: dict, checkout: Path) -> dict:
     run_launches = {name: 0 for name in wrappers}
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_auraflow_trainer_"))
     try:
-        phase("23 the AuraFlow Trainer on config #3 at full width and depth: checkpoint, LoRA, "
-              "saving, preview")
+        phase("23 the AuraFlow Trainer on config #3 at full width, 4 double and 8 single of its "
+              "4 + 32 layers: checkpoint, LoRA, saving, preview")
         img_rng = np.random.default_rng(0)
         folders = {name: work / name for name in ("images", "square", "rope")}
         for folder in folders.values():
@@ -2426,8 +2527,10 @@ def auraflow_trainer_phase(device, wrappers: dict, checkout: Path) -> dict:
                 image.save(folder / f"{i}.png")
                 (folder / f"{i}.txt").write_text(caption)
 
-        # the checkpoint: phase 21's full-size AuraFlow, seeded, written by state_dict()
-        seeded = AuraFlowModel(AuraFlowConig(checkpoint_path="", dtype="bfloat16"), tokenizer=tokenizer)
+        # the checkpoint: phase 21's AuraFlow, seeded, written by state_dict()
+        seeded = AuraFlowModel(AuraFlowConig(checkpoint_path="", dtype="bfloat16",
+                                             denoiser=DenoiserConfig(**AURA_CUT_DEPTH)),
+                               tokenizer=tokenizer)
         seeded.init_params(torch.Generator(device=device).manual_seed(23))
         aura_fill_zero_init(seeded, device, 24)
         ckpt = work / "auraflow.safetensors"
@@ -2440,7 +2543,7 @@ def auraflow_trainer_phase(device, wrappers: dict, checkout: Path) -> dict:
         del seeded
 
         raw = yaml.safe_load((checkout / "configs/auraflow/text_to_image_lora.yml").read_text())
-        raw["model"].update(checkpoint_path=str(ckpt))
+        raw["model"].update(checkpoint_path=str(ckpt), denoiser=dict(AURA_CUT_DEPTH))
         raw["dataset"].update(folder=str(folders["images"]))
         raw["num_train_epochs"] = 1
         raw["saving"]["callbacks"][0]["save_dir"] = str(work / "lora")
@@ -2580,9 +2683,10 @@ def auraflow_trainer_phase(device, wrappers: dict, checkout: Path) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
 
-        phase("24 the shortcut and RoPE migration workloads from the same file, full width and depth")
+        phase("24 the shortcut and RoPE migration workloads from the same file, full width, 4 + 8 "
+              "layers")
         raw = yaml.safe_load((checkout / "configs/auraflow/shortcut.yml").read_text())
-        raw["model"].update(checkpoint_path=str(ckpt))
+        raw["model"].update(checkpoint_path=str(ckpt), denoiser=dict(AURA_CUT_DEPTH))
         raw["dataset"].update(folder=str(folders["square"]))
         raw["num_train_epochs"] = 1
         raw["saving"]["callbacks"][0]["save_dir"] = str(work / "shortcut")
@@ -2614,7 +2718,7 @@ def auraflow_trainer_phase(device, wrappers: dict, checkout: Path) -> dict:
         torch.cuda.empty_cache()
 
         raw = yaml.safe_load((checkout / "configs/auraflow/text_to_image_lora.yml").read_text())
-        raw["model"].update(checkpoint_path=str(ckpt), denoiser={"use_rope": True},
+        raw["model"].update(checkpoint_path=str(ckpt), denoiser={"use_rope": True, **AURA_CUT_DEPTH},
                             migration_loss=True, noise_prediction_loss=True)
         raw["dataset"].update(folder=str(folders["rope"]))
         raw["num_train_epochs"] = 1
@@ -2646,19 +2750,6 @@ def auraflow_trainer_phase(device, wrappers: dict, checkout: Path) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": run_launches, "records": records, "numbers": numbers}
-
-
-def run_auraflow_trainer(checkout: Path) -> dict:
-    """``chip_smoke.py --auraflow-trainer`` in a process of its own (a
-    fresh card): its lines, then its launch counts, records and numbers."""
-    proc = subprocess.run([sys.executable, str(checkout / "chip_smoke.py"), "--auraflow-trainer"],
-                          cwd=checkout, capture_output=True, text=True, timeout=900)
-    lines = proc.stdout.strip().splitlines()
-    print("\n".join(lines[:-1]))
-    if proc.returncode != 0 or not lines:
-        raise AssertionError(f"chip_smoke.py --auraflow-trainer failed (exit {proc.returncode}): "
-                             f"{proc.stderr[-4000:]}")
-    return json.loads(lines[-1])["auraflow_trainer"]
 
 
 def write_yaml(path, model_config):
@@ -2814,9 +2905,10 @@ SERVE_SLOTS = 4
 # carries those bf16 ulps on, the ancestral steps through random-weight denoisers
 # (measured as each run prints it); relative to the latents' largest value
 POOL_REQUEST_TOL = 5e-2
-# the 6-request staggered SDXL trace: (arrival s, steps, seed, cfg, cfg_rescale)
-SDXL_TRACE = [(0.0, 8, 101, 5.0, 0.0), (0.3, 12, 102, 4.0, 0.0), (0.6, 8, 103, 6.0, 0.7),
-              (0.9, 12, 104, 5.0, 0.0), (1.2, 8, 105, 3.0, 0.0), (1.5, 12, 106, 5.0, 0.0)]
+# the 6-request staggered SDXL trace: (arrival s, steps, seed, cfg, cfg_rescale); 8 and 12
+# steps before phases 43-46
+SDXL_TRACE = [(0.0, 4, 101, 5.0, 0.0), (0.3, 6, 102, 4.0, 0.0), (0.6, 4, 103, 6.0, 0.7),
+              (0.9, 6, 104, 5.0, 0.0), (1.2, 4, 105, 3.0, 0.0), (1.5, 6, 106, 5.0, 0.0)]
 SERVE_ATTN_SHAPES = [(8, 4096, 640, 10), (8, 1024, 1280, 20)]  # the UNet's stages, pool of 4
 SERVE_LN_SHAPES = [(8 * 4096, 640, True), (8 * 1024, 1280, True)]
 SERVE_MASKED_SHAPE = (8, 24, 8, 4352, 96)  # the NextDiT's main stack, pool of 4
@@ -3011,7 +3103,8 @@ def serve_phase(device, wrappers: dict) -> dict:
         with on_path():
             replies, seconds = post_all(url, trace, delays=delays)
         numbers["trace_window_s"] = seconds
-        print(f"6-request staggered trace (arrivals {delays} s, steps 8 and 12, one cfg_rescale), "
+        print(f"6-request staggered trace (arrivals {delays} s, steps "
+              f"{sorted({t[1] for t in SDXL_TRACE})}, one cfg_rescale), "
               f"window scheduler: {seconds:.3f} s wall, {len(calls)} generate() calls of batch 1 "
               f"(seeded requests run alone), replies {[round(s, 3) for _, s in replies]} s")
 
@@ -3264,19 +3357,6 @@ def serve_phase(device, wrappers: dict) -> dict:
     return {"launches": path_launches, "records": records, "numbers": numbers}
 
 
-def run_serve(checkout: Path) -> dict:
-    """``chip_smoke.py --serve`` in a process of its own (a fresh card):
-    its lines, then its launch counts, records and numbers."""
-    proc = subprocess.run([sys.executable, str(checkout / "chip_smoke.py"), "--serve"],
-                          cwd=checkout, capture_output=True, text=True, timeout=900)
-    lines = proc.stdout.strip().splitlines()
-    print("\n".join(lines[:-1]))
-    if proc.returncode != 0 or not lines:
-        raise AssertionError(f"chip_smoke.py --serve failed (exit {proc.returncode}): "
-                             f"{proc.stderr[-4000:]}")
-    return json.loads(lines[-1])["serve"]
-
-
 # the Flux phases (28-30, ``--flux``): kernel B at head dim 128, Flux's shapes (B, Sq, Sk,
 # H*D, H): 512 T5 tokens before the image's 2x2 patches
 FLUX_ATTN_SHAPES = [
@@ -3297,6 +3377,7 @@ FLUX_STEP_TOL = 5e-2
 # kernel route's, 20 steps: as above, compounded over the steps
 FLUX_ROUTE_TOL = 5e-2
 FLUX_REDUCED = dict(depth=1, depth_single_blocks=2)  # full width, for checkpoints and pools
+FLUX_CUT_DEPTH = dict(depth=4, depth_single_blocks=8)  # phase 29's (of 19 + 38; full before phases 43-46)
 FLUX_REDUCED_T5_LAYERS = 2
 FLUX_POOL_STEPS = (4, 8)
 MIGRATION_STEPS = 3
@@ -3365,7 +3446,8 @@ def flux_phase(device, wrappers: dict, profile: bool) -> dict:
         records["flash_attention_bshd"].append(bshd_forward_record(device, gen, *shape))
 
     # -- 29: flux1-dev generate() at full width and depth ----------------------------------
-    phase("29 Flux generate() at full width and depth (flux1-dev), bf16, seeded random weights")
+    phase("29 Flux generate() at full width (flux1-dev), 4 double and 8 single of its 19 + 38 "
+          "blocks, bf16, seeded random weights")
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_flux_"))
     (work / "tokenizer.model").write_bytes(lumina_vocab())
     (work / "clip").mkdir()
@@ -3400,7 +3482,7 @@ def flux_phase(device, wrappers: dict, profile: bool) -> dict:
                                           use_flash_attention=True, **fields))
 
     torch.cuda.reset_peak_memory_stats()
-    model = Model(dev_config(), **tokenizers)
+    model = Model(dev_config(**FLUX_CUT_DEPTH), **tokenizers)
     start = time.perf_counter()
     model.init_params(torch.Generator(device=device).manual_seed(0))
     torch.cuda.synchronize()
@@ -3762,21 +3844,6 @@ def flux_phase(device, wrappers: dict, profile: bool) -> dict:
     return {"launches": path_launches, "records": records, "numbers": numbers}
 
 
-def run_flux(checkout: Path, profile: bool) -> dict:
-    """``chip_smoke.py --flux`` in a process of its own (a fresh card): its
-    lines, then its launch counts, records and numbers."""
-    proc = subprocess.run(
-        [sys.executable, str(checkout / "chip_smoke.py"), "--flux",
-         *(["--profile"] if profile else [])],
-        cwd=checkout, capture_output=True, text=True, timeout=900)
-    lines = proc.stdout.strip().splitlines()
-    print("\n".join(lines[:-1]))
-    if proc.returncode != 0 or not lines:
-        raise AssertionError(f"chip_smoke.py --flux failed (exit {proc.returncode}): "
-                             f"{proc.stderr[-4000:]}")
-    return json.loads(lines[-1])["flux"]
-
-
 # the CogView4 phases (31-33, ``--cogview4``): kernel B at head dim 128 with 32 heads and
 # kernel C at head dim 128, CogView4's shapes (B, Sq, Sk, H*D, H): the caption, padded to a
 # multiple of 16 (16 tokens for a short prompt), before the image's 2x2 patches
@@ -3812,6 +3879,7 @@ COGVIEW4_CFG = 3.5
 # streams; relative to the largest value of the latents (FLUX_STEP_TOL)
 COGVIEW4_STEP_TOL = 5e-2
 COGVIEW4_REDUCED = dict(num_layers=2)  # full width, for the checkpoint, server, CLI and tool
+COGVIEW4_CUT_DEPTH = dict(num_layers=8)  # phases 32-33's DiT (of 28; full before phases 43-46), GLM whole
 COGVIEW4_REDUCED_GLM_LAYERS = 2
 COGVIEW4_POOL_STEPS = (4, 8)
 COGVIEW4_TRAINER_IMAGES = 8  # 1024x1024, batch 2: one epoch is 4 steps
@@ -3876,7 +3944,6 @@ def cogview4_phase(device, wrappers: dict, profile: bool, checkout: Path) -> dic
     with both groups in NF4 (kernel D); the Trainer on
     configs/cogview4/text_to_image.yml. Returns the CogView4 paths' launch
     counts, the kernels' records at these shapes and the numbers."""
-    import concurrent.futures
     import dataclasses
 
     import yaml
@@ -3959,8 +4026,9 @@ def cogview4_phase(device, wrappers: dict, profile: bool, checkout: Path) -> dic
         raise AssertionError(f"ptxas reported no D = 128 kernel C: {sorted(ptxas)}")
     numbers["kernel_c_d128_ptxas"] = ptxas
 
-    # -- 32: generate() at full width and depth -------------------------------------------
-    phase("32 CogView4 generate() at full width and depth, bf16, seeded random weights")
+    # -- 32: generate() at full width -----------------------------------------------------
+    phase("32 CogView4 generate() at full width, 8 of the DiT's 28 blocks and GLM-4 whole, bf16, "
+          "seeded random weights; requests with do_offloading")
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_cogview4_"))
     try:
         (work / "tokenizer.model").write_bytes(lumina_vocab())
@@ -3975,8 +4043,9 @@ def cogview4_phase(device, wrappers: dict, profile: bool, checkout: Path) -> dic
                 return super().decode_image(latents)
 
         torch.cuda.reset_peak_memory_stats()
-        model = Model(cv_config.CogView4Config(checkpoint_path="", dtype="bfloat16"),
-                      tokenizer=tokenizer)
+        model = Model(cv_config.CogView4Config(
+            checkpoint_path="", dtype="bfloat16",
+            denoiser=cv_config.DenoiserConfig(**COGVIEW4_CUT_DEPTH)), tokenizer=tokenizer)
         start = time.perf_counter()
         model.init_params(torch.Generator(device=device).manual_seed(0))
         torch.cuda.synchronize()
@@ -4058,6 +4127,9 @@ def cogview4_phase(device, wrappers: dict, profile: bool, checkout: Path) -> dic
                          **dict(base, deep_cache_interval=2))
         if torch.equal(cached[1], first[1]):
             raise AssertionError("the DeepCache request equals request 1: the option did nothing")
+        numbers["offloading"] = offloaded_requests(
+            "CogView4", model, lambda name, **kw: (lambda r: (r[0], r[1], r[3]))(
+                request(name, expected(COGVIEW4_STEPS), **kw)), base, first[1])
         numbers.update(deep_cache_request_s=cached[0],
                        deep_cache_launches=expected(COGVIEW4_STEPS, interval=2))
         print(f"DeepCache request {cached[0]:.3f} s, kernel B {numbers['deep_cache_launches']} launches")
@@ -4304,7 +4376,7 @@ def cogview4_phase(device, wrappers: dict, profile: bool, checkout: Path) -> dic
         torch.cuda.empty_cache()
         path.unlink()
 
-        # the Trainer on configs/cogview4/text_to_image.yml at full width and depth
+        # the Trainer on configs/cogview4/text_to_image.yml at full width, 8 of the DiT's blocks
         folder = work / "images"
         folder.mkdir()
         img_rng = np.random.default_rng(33)
@@ -4316,7 +4388,8 @@ def cogview4_phase(device, wrappers: dict, profile: bool, checkout: Path) -> dic
             prompt="a photo of a cat", negative_prompt="blurry", height=1024, width=1024,
             cfg_scale=COGVIEW4_CFG, num_steps=COGVIEW4_PREVIEW_STEPS, seed=0)]))
         raw = yaml.safe_load((checkout / "configs/cogview4/text_to_image.yml").read_text())
-        raw["model"].update(checkpoint_path=str(work / "absent.safetensors"))
+        raw["model"].update(checkpoint_path=str(work / "absent.safetensors"),
+                            denoiser=dict(COGVIEW4_CUT_DEPTH))
         raw["dataset"].update(folder=str(folder), num_workers=0)
         raw["num_train_epochs"] = 1
         raw["saving"]["callbacks"][0]["save_dir"] = str(work / "lora")
@@ -4475,21 +4548,6 @@ def cogview4_phase(device, wrappers: dict, profile: bool, checkout: Path) -> dic
     return {"launches": path_launches, "records": records, "numbers": numbers}
 
 
-def run_cogview4(checkout: Path, profile: bool) -> dict:
-    """``chip_smoke.py --cogview4`` in a process of its own (a fresh card):
-    its lines, then its launch counts, records and numbers."""
-    proc = subprocess.run(
-        [sys.executable, str(checkout / "chip_smoke.py"), "--cogview4",
-         *(["--profile"] if profile else [])],
-        cwd=checkout, capture_output=True, text=True, timeout=900)
-    lines = proc.stdout.strip().splitlines()
-    print("\n".join(lines[:-1]))
-    if proc.returncode != 0 or not lines:
-        raise AssertionError(f"chip_smoke.py --cogview4 failed (exit {proc.returncode}): "
-                             f"{proc.stderr[-4000:]}")
-    return json.loads(lines[-1])["cogview4"]
-
-
 # the Wan phases (34-36, ``--wan``): kernel B at head dim 128 with 24 heads, Wan's shapes
 # (B, Sq, Sk, H*D, H): self-attention over the video tokens and cross-attention from them to
 # the 512 text positions; 49 frames at 704 x 704 are 12 latent frames of 22 x 22 patches
@@ -4525,6 +4583,7 @@ WAN_STEP_TOL = 5e-2
 # order (fp32 accumulation; rounding to uint8 can move a value by a level)
 WAN_FRAME_TOL = 2
 WAN_REDUCED_LAYERS = 2  # DiT blocks and UMT5 layers, full width, for the files, server, CLI
+WAN_CUT_LAYERS = 8  # phase 35's DiT blocks (of 30; full before phases 43-46), UMT5 whole
 WAN_SERVE = dict(frames=17, size=512, steps=4)  # 4 latent frames of 16 x 16 patches
 WAN_WINDOW_SEED = 4242  # the seed the window's unseeded batch is given, to hold it to batch 1
 
@@ -4644,9 +4703,10 @@ def wan_phase(device, wrappers: dict, profile: bool) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 35: generate() at full width and depth -----------------------------------------
-    phase(f"35 Wan 2.2 TI2V-5B generate() at full width and depth, {WAN_SIZE} x {WAN_SIZE}, "
-          f"{WAN_FRAMES} frames, bf16, seeded random weights")
+    # -- 35: generate() at full width ---------------------------------------------------
+    phase(f"35 Wan 2.2 TI2V-5B generate() at full width, {WAN_CUT_LAYERS} of the DiT's 30 blocks "
+          f"and UMT5 whole, {WAN_SIZE} x {WAN_SIZE}, {WAN_FRAMES} frames, "
+          f"bf16, seeded random weights")
     # the requests run as a user's process runs them: PyTorch's default cuDNN setting, TF32 on
     # (the VAE's fp32 convolutions); phase 0's full fp32 stays for matmuls
     torch.backends.cudnn.allow_tf32 = True
@@ -4671,7 +4731,9 @@ def wan_phase(device, wrappers: dict, profile: bool) -> dict:
                      text_encoder_path=str(work / "text_encoder.safetensors"),
                      vae_path=str(work / "vae.safetensors"))
         torch.cuda.reset_peak_memory_stats()
-        model = Model(WanConfig(**paths, dtype="bfloat16"), tokenizer=tokenizer)
+        model = Model(WanConfig(**paths, dtype="bfloat16",
+                                denoiser=Wan22TI2V5BDenoiserConfig(num_layers=WAN_CUT_LAYERS)),
+                      tokenizer=tokenizer)
         start = time.perf_counter()
         model.init_params(torch.Generator(device=device).manual_seed(0))
         model.vae.init_random(torch.Generator(device=device).manual_seed(1))
@@ -5012,21 +5074,6 @@ def wan_phase(device, wrappers: dict, profile: bool) -> dict:
     return {"launches": path_launches, "records": records, "numbers": numbers}
 
 
-def run_wan(checkout: Path, profile: bool) -> dict:
-    """``chip_smoke.py --wan`` in a process of its own (a fresh card): its
-    lines, then its launch counts, records and numbers."""
-    proc = subprocess.run(
-        [sys.executable, str(checkout / "chip_smoke.py"), "--wan",
-         *(["--profile"] if profile else [])],
-        cwd=checkout, capture_output=True, text=True, timeout=900)
-    lines = proc.stdout.strip().splitlines()
-    print("\n".join(lines[:-1] if proc.returncode == 0 else lines))
-    if proc.returncode != 0 or not lines:
-        raise AssertionError(f"chip_smoke.py --wan failed (exit {proc.returncode}): "
-                             f"{proc.stderr[-4000:]}")
-    return json.loads(lines[-1])["wan"]
-
-
 # the SDXL adapter phases (37-42, ``--sdxl-adapters``): the RoPE student's rotated
 # self-attention takes kernels E and G, unmasked at head dim 64 with H == Hkv, at
 # SDXL's two attention widths at 1024 px (CFG batch 2); SigLIP-384's blocks take
@@ -5035,7 +5082,7 @@ ADAPTER_ATTN_SHAPES = [(2, 10, 4096, 64), (2, 20, 1024, 64)]  # (B, H, S, D)
 SIGLIP_B_SHAPE = (2, 576, 768, 12)  # (B, S, H*D, H)
 ADAPTER_IMAGES = 4  # seeded 1024 px images: an epoch of two steps at batch 2
 REMAT_MODES = ("activations", "kernel", "none")
-REMAT_TIMED = 2
+REMAT_TIMED = 1  # 2 before phases 43-46
 # cuBLAS's (nvjet_*, *gemm*, cutlass) and cuDNN's GEMM and convolution kernels (the port's
 # own kernels are named flash_*, layer_norm_*, nf4_*, gated_*, gn_*, conv3x3_* and partial_block_*)
 LIBRARY_GEMM = re.compile(r"nvjet|gemm|xmma|cutlass|cudnn|conv|fprop|dgrad|wgrad", re.IGNORECASE)
@@ -5128,7 +5175,11 @@ def rope_attention_records(device, gen, b, h, s, d) -> tuple:
 def library_gemm_launches(make_loss, params) -> int:
     """cuBLAS / cuDNN GEMM and convolution launches of the backward of
     ``make_loss()`` (its forward untraced) traced by torch.profiler (device
-    activity); two forwards, two traced backwards, the counts must agree."""
+    activity); two forwards, two traced backwards, the counts must agree.
+    The trace's raw device events are counted: ``key_averages()`` would
+    build an event object for each of its ~12,000 events first, seconds a
+    trace."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     counts = []
@@ -5139,8 +5190,9 @@ def library_gemm_launches(make_loss, params) -> int:
             torch.autograd.grad(value, params)
             torch.cuda.synchronize()
         del value
-        counts.append(sum(e.count for e in prof.key_averages()
-                          if LIBRARY_GEMM.search(e.key) and "conv3x3" not in e.key))
+        counts.append(sum(1 for e in prof.profiler.kineto_results.events()
+                          if e.device_type() == DeviceType.CUDA and LIBRARY_GEMM.search(e.name())
+                          and "conv3x3" not in e.name()))
     if counts[0] != counts[1] or counts[0] == 0:
         raise AssertionError(f"torch.profiler: GEMM launch counts {counts} (lost events?)")
     return counts[0]
@@ -5236,6 +5288,7 @@ def sdxl_remat_phase(device, model, numbers: dict) -> None:
 # tokenizer and DRaFT+, each workload group a path of its own in launches_by_path
 CONTEXT_ADAPTER_PATHS = ("sdxl_prompt_free", "sdxl_style_tokenizer", "sdxl_draft_plus")
 SIGLIP512_B_SHAPE = (2, 1024, 768, 12)  # (B, S, H*D, H): SigLIP at 512 px, the style tokenizer's
+DRAFT_STEPS = 10  # DRaFT+'s sampling steps through the Trainer (the YAML's 25 before phases 43-46)
 DRAFT_REDUCED_STEPS = 3  # sampling steps of the depth-reduced DRaFT+ comparison
 # PickScore's layers a tower in that comparison (24 and 32 at full depth, where on seeded
 # bf16 weights kernel A's and the plain LayerNorm's roundings move its score on one image)
@@ -5805,9 +5858,10 @@ def sdxl_adapters_phase(device, wrappers: dict, checkout: Path) -> dict:
         torch.cuda.empty_cache()
 
         # -- 42 ------------------------------------------------------------------------------
-        phase("42 DRaFT+ through the Trainer from configs/sdxl/draft_plus.yml at full width and depth: "
-              "LoRA rank 8 on attn1 / attn2, PickScore's CLIP-H at full width (seeded, bf16), 25 "
-              "sampling steps with the last one's gradient, batch 1 at 1024 px")
+        phase(f"42 DRaFT+ through the Trainer from configs/sdxl/draft_plus.yml at full width and "
+              f"depth: LoRA rank 8 on attn1 / attn2, PickScore's CLIP-H at full width (seeded, "
+              f"bf16), {DRAFT_STEPS} sampling steps with the last one's "
+              f"gradient, batch 1 at 1024 px")
         path = groups["sdxl_draft_plus"]
         label = "DRaFT+ (configs/sdxl/draft_plus.yml)"
         start = time.perf_counter()
@@ -5821,7 +5875,8 @@ def sdxl_adapters_phase(device, wrappers: dict, checkout: Path) -> dict:
         for i in range(2):
             shutil.copy(images_dir / f"{i}.png", draft_dir / f"{i}.png")
             shutil.copy(images_dir / f"{i}.txt", draft_dir / f"{i}.txt")
-        config = yaml_config("draft_plus.yml", "draft", folder=draft_dir, batch_size=1)
+        config = yaml_config("draft_plus.yml", "draft", folder=draft_dir, batch_size=1,
+                             edit=lambda raw: raw["model"].update(total_steps=DRAFT_STEPS))
         trainer = draft_cli.build_trainer(config, tokenizer=tokenizer, reward_models=[reward])
         log = run_trainer(label, trainer, into=path)
         model = trainer.model.model
@@ -5887,21 +5942,655 @@ def sdxl_adapters_phase(device, wrappers: dict, checkout: Path) -> dict:
     return dict(launches=run_launches, records=records, numbers=numbers, groups=groups)
 
 
-def run_sdxl_adapters(checkout: Path) -> dict:
-    """``chip_smoke.py --sdxl-adapters`` in a process of its own (a fresh
-    card): its lines, then its launch counts, records and numbers."""
-    proc = subprocess.run(
-        [sys.executable, str(checkout / "chip_smoke.py"), "--sdxl-adapters"],
-        cwd=checkout, capture_output=True, text=True, timeout=600)
-    lines = proc.stdout.strip().splitlines()
-    print("\n".join(lines[:-1] if proc.returncode == 0 else lines))
-    if proc.returncode != 0 or not lines:
-        raise AssertionError(f"chip_smoke.py --sdxl-adapters failed (exit {proc.returncode}): "
-                             f"{proc.stderr[-4000:]}")
-    return json.loads(lines[-1])["sdxl_adapters"]
+# -- the single-device remainder: the rest of the Trainer, the checkpoint tools, offloading
+# and FractalGen (phases 43-46)
+
+REST_OPTIMIZERS = ("bitsandbytes.optim.AdamW8bit", "optax.adamw", "torch.optim.Adafactor",
+                   "schedulefree.SGDScheduleFree")
+REST_IMAGES = 4  # seeded 1024 px images: an epoch of two steps at batch 2
+REST_PREVIEW = dict(width=512, height=512, steps=4)  # the Discord preview's request
+NF4_TOOL_PROBES = ("input_blocks.4.1.transformer_blocks.0.attn1.to_q.weight",
+                   "middle_block.1.transformer_blocks.5.attn2.to_k.weight",
+                   "output_blocks.2.1.transformer_blocks.9.ff.net.2.weight")
+OFFLOAD_PARTS = ("text_encoder", "denoiser", "vae")
+# phases 43, 44 and 45's paths in launches_by_path
+REMAINDER_PATHS = ("trainer_optimizers", "nf4_tool", "sdxl_offload")
+# FractalGen's first level at full width (FractalMAR, Li et al. 2025, arXiv 2502.17437): a 64 px
+# image in 4 px patches (256), hidden 1024, 16 heads of 64, 32 blocks, mlp_ratio 4, one class
+# token as the condition: 257 tokens, a ragged last 64-key tile. The guiding pixel is off: the
+# JAX forward runs that branch only at hidden width = channels (ROADMAP §3)
+FRACTAL = dict(patch_size=4, condition_embedding_dim=1024, hidden_dim=1024, num_blocks=32,
+               num_heads=16, in_channels=3, out_channels=3, attention_backend="flash",
+               mlp_ratio=4.0)
+FRACTAL_BATCH = 16
+FRACTAL_IMAGE = 64
+FRACTAL_TOL = 3e-2  # the forward's outputs vs the plain versions, of their largest value
+FRACTAL_REDUCED = 4  # blocks of the generator in that comparison
+
+
+class Webhook:
+    """A local HTTP server (127.0.0.1) that records each POST's content
+    type and body and replies 204."""
+
+    def __init__(self):
+        import http.server
+        import threading
+
+        posts = self.posts = []
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers["Content-Length"]))
+                posts.append((self.headers["Content-Type"], body))
+                self.send_response(204)
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self.server = http.server.HTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_port}/webhook"
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join()
+
+
+def parse_multipart(content_type: str, body: bytes) -> dict:
+    """{field: value} of a multipart/form-data body; a file's value is
+    (file name, content type, bytes)."""
+    import email.parser
+
+    message = email.parser.BytesParser().parsebytes(
+        f"Content-Type: {content_type}\r\n\r\n".encode() + body)
+    out = {}
+    for part in message.get_payload():
+        name = part.get_param("name", header="content-disposition")
+        data = part.get_payload(decode=True)
+        out[name] = ((part.get_filename(), part.get_content_type(), data) if part.get_filename()
+                     else data.decode())
+    return out
+
+
+class Recorder:
+    """Records its method calls: the Hub's ``api``."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: self.calls.append((name, args, kwargs))
+
+
+def state_bytes(opt_state) -> int:
+    return sum(v.numel() * v.element_size() for s in opt_state.state.values()
+               for v in s.values() if isinstance(v, torch.Tensor))
+
+
+def trainer_remainder_phase(device, wrappers: dict, ckpt: Path, vocab_dir: Path,
+                            checkout: Path) -> tuple[dict, dict]:
+    """Phase 43: the SDXL Trainer on configs/sdxl/text_to_image_lora.yml from
+    the seeded file under each of ``REST_OPTIMIZERS`` at full width and
+    depth, with a Discord preview posted to a local server, the Hub saving
+    callback with a recording ``api`` and the tensorboard tracker; the
+    8-bit run's state checkpoint resumed against the unbroken run. Returns
+    the runs' launches and the numbers."""
+    import os
+
+    import yaml
+
+    from vision_ft_tpu_torch.config import TrainConfig
+    from vision_ft_tpu_torch.saving import HFHubSavingCallbackConfig, get_saving_callback
+    from vision_ft_tpu_torch.train.sdxl.text_to_image import build_trainer
+    from vision_ft_tpu_torch.utils.logging import Trackers
+
+    def read_launches():
+        return {name: wrapper.launches for name, wrapper in wrappers.items()}
+
+    launches_total = {name: 0 for name in wrappers}
+    numbers = {}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_optimizers_"))
+    hook = Webhook()
+    here = os.getcwd()
+    try:
+        images = work / "images"
+        images.mkdir()
+        rng = np.random.default_rng(43)
+        for i in range(REST_IMAGES):
+            smooth = rng.integers(0, 255, (32, 32, 3), dtype=np.uint8)
+            Image.fromarray(smooth).resize((1024, 1024), Image.BILINEAR).save(images / f"{i}.png")
+            (images / f"{i}.txt").write_text(f"a photo of the cat, {'abcd'[i] * 3}, on the sofa")
+        (work / "preview.yml").write_text(yaml.safe_dump([dict(
+            prompt="a photo of the cat on the sofa", negative_prompt="blurry",
+            height=REST_PREVIEW["height"], width=REST_PREVIEW["width"], cfg_scale=5.0,
+            num_steps=REST_PREVIEW["steps"], seed=0)]))
+        base = yaml.safe_load((checkout / "configs/sdxl/text_to_image_lora.yml").read_text())
+        unet_attn = unet_ln = None
+        for name in REST_OPTIMIZERS:
+            tag = name.rsplit(".", 1)[-1].lower()
+            raw = json.loads(json.dumps(base))
+            raw["model"].update(checkpoint_path=str(ckpt), max_token_length=75,
+                                tokenizer_path=str(vocab_dir))
+            raw["dataset"].update(folder=str(images), num_repeats=1, batch_size=2)
+            raw["num_train_epochs"] = 1
+            raw["optimizer"] = {"name": name, "args": {"lr": 1e-3}}
+            raw["saving"]["callbacks"] = [
+                {"type": "safetensors", "name": tag, "save_dir": str(work / tag / "lora")},
+                {"type": "hf_hub", "name": tag, "save_dir": str(work / tag / "hub"),
+                 "hub_id": "local/sdxl-lora", "dir_in_repo": tag}]
+            raw["preview"]["callbacks"] = [{"type": "discord", "url": hook.url,
+                                            "username": "chip_smoke"}]
+            raw["preview"]["data"]["path"] = str(work / "preview.yml")
+            raw["tracker"] = {"project_name": tag, "loggers": ["tensorboard"]}
+            raw["trainer"]["mesh"] = {"data": 1, "fsdp": 1, "tensor": 1}
+            if tag == "adamw8bit":
+                raw["trainer"].update(state_checkpoint_dir=str(work / "state"),
+                                      state_checkpoint_every_steps=1)
+            config = TrainConfig.model_validate(raw, strict=True)
+            # the tensorboard writer's runs/<project> is relative: the run's directory
+            # is this phase's (every other path in the config is absolute)
+            os.chdir(work)
+            trainer = build_trainer(config)
+            (kind, writer), = trainer.trackers._backends
+            if kind != "tensorboard":
+                raise AssertionError(f"tracker {kind}")
+            scalars = []
+            add_scalar = writer.add_scalar
+            writer.add_scalar = lambda key, value, **kw: (scalars.append((key, value)),
+                                                          add_scalar(key, value, **kw))[1]
+            api = Recorder()
+            trainer.get_saving_callbacks = lambda: [
+                get_saving_callback(cb, api=api) if isinstance(cb, HFHubSavingCallbackConfig)
+                else get_saving_callback(cb) for cb in trainer.config.saving.callbacks]
+            steps = []
+            prepare_optimizer = trainer.prepare_optimizer
+
+            def prepare_and_time():
+                prepare_optimizer()
+                inner = trainer._step
+
+                def timed(state, batch, generator):
+                    torch.cuda.synchronize()
+                    before = read_launches()
+                    start = time.perf_counter()
+                    state, metrics = inner(state, batch, generator)
+                    loss = metrics["train/loss"].item()
+                    torch.cuda.synchronize()
+                    after = read_launches()
+                    steps.append((time.perf_counter() - start, loss,
+                                  {k: after[k] - before[k] for k in after}, batch))
+                    return state, metrics
+
+                trainer._step = timed
+
+            trainer.prepare_optimizer = prepare_and_time
+            posts_before = len(hook.posts)
+            torch.cuda.reset_peak_memory_stats()
+            before = read_launches()
+            start = time.perf_counter()
+            trainer.train()
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - start
+            after = read_launches()
+            for k in after:
+                launches_total[k] += after[k] - before[k]
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            losses = [loss for _, loss, _, _ in steps]
+            if len(steps) != REST_IMAGES // 2 or not all(np.isfinite(losses)):
+                raise AssertionError(f"{name}: steps {losses}")
+            unet = trainer.model.model.denoiser
+            unet_attn = sum(type(m).__name__ == "SelfAttention" for m in unet.modules())
+            unet_ln = sum(type(m).__name__ == "LayerNorm" for m in unet.modules())
+            want_step = {k: 0 for k in wrappers}
+            want_step.update({"flash_attention_bshd": unet_attn, "flash_attention_bshd_dkv": unet_attn,
+                              "flash_attention_bshd_dq": unet_attn, "layer_norm": 2 * unet_ln})
+            for i, (_, _, got, _) in enumerate(steps):
+                if got != want_step:
+                    raise AssertionError(f"{name} step {i + 1}: launches {got} != {want_step}")
+            opt_state = trainer.state.opt_state
+            record = dict(step_ms=[round(t * 1e3, 1) for t, *_ in steps], losses=losses,
+                          peak_gib=peak, state_bytes=state_bytes(opt_state), run_s=run_s,
+                          optimizer=type(opt_state).__name__)
+            # the Hub: the saved file, then one upload_file of it
+            (call, _, kwargs), = api.calls
+            hub_files = sorted((work / tag / "hub").glob("*.safetensors"))
+            if (call != "upload_file" or len(hub_files) != 1
+                    or kwargs != {"path_or_fileobj": hub_files[0],
+                                  "path_in_repo": f"{tag}/{hub_files[0].name}",
+                                  "repo_id": "local/sdxl-lora", "repo_type": "model"}):
+                raise AssertionError(f"{name}: Hub calls {api.calls}, files {hub_files}")
+            # Discord: one multipart POST, its webp read back
+            posts = hook.posts[posts_before:]
+            if len(posts) != 1:
+                raise AssertionError(f"{name}: {len(posts)} webhook posts")
+            form = parse_multipart(*posts[0])
+            file_name, content_type, data = form["file0"]
+            preview = Image.open(io.BytesIO(data))
+            if (file_name != "preview_0.webp" or content_type != "image/webp"
+                    or preview.format != "WEBP"
+                    or preview.size != (REST_PREVIEW["width"], REST_PREVIEW["height"])
+                    or "- Epoch: `" not in form["content"] or form["username"] != "chip_smoke"
+                    or np.asarray(preview).std() == 0):
+                raise AssertionError(f"{name}: the webhook's form {sorted(form)} / {preview.size}")
+            # tensorboard: the losses logged, the event file on disk
+            logged = [v for k, v in scalars if k == "train/loss"]
+            events = list((work / "runs" / tag).glob("events.out.tfevents.*"))
+            if len(logged) != len(steps) or not events or events[0].stat().st_size == 0:
+                raise AssertionError(f"{name}: tensorboard scalars {scalars}, files {events}")
+            print(f"{name} ({record['optimizer']}): steps {record['step_ms']} ms (host clock, "
+                  f"synchronized; the first cold), losses {[round(x, 6) for x in losses]}, peak "
+                  f"{peak:.2f} GiB, optimizer state {record['state_bytes']} bytes; launches a step "
+                  f"as expected; the Hub: {hub_files[0].name} uploaded to {kwargs['path_in_repo']}; "
+                  f"Discord: one POST, {file_name} {preview.size} webp and the message; tensorboard: "
+                  f"{len(logged)} train/loss scalars in {events[0].name}")
+            if tag == "adamw8bit":
+                taken = len(steps)
+                state = opt_state.state[next(iter(trainer.trainable.values()))]
+                if state["mu_q"].dtype != torch.int8 or state["mu_scale"].dtype != torch.float32:
+                    raise AssertionError(f"8-bit state dtypes {state['mu_q'].dtype}")
+                # the state checkpoint of the last step, resumed: the next step's loss and
+                # parameters against the unbroken run, bit for bit
+                *_, batch = steps[-1]
+                trainer.state, metrics = trainer._step(
+                    trainer.state, batch, torch.Generator(device=device).manual_seed(7))
+                unbroken_loss = metrics["train/loss"].item()
+                unbroken = {k: v.detach().clone() for k, v in trainer.trainable.items()}
+                resumed_step = trainer.restore_state_checkpoint()
+                trainer.state, metrics = trainer._step(
+                    trainer.state, batch, torch.Generator(device=device).manual_seed(7))
+                resumed_loss = metrics["train/loss"].item()
+                same = all(torch.equal(unbroken[k], v) for k, v in trainer.trainable.items())
+                print(f"{name}: state checkpoint of step {resumed_step} resumed; the next step's "
+                      f"loss {resumed_loss:.6f} vs {unbroken_loss:.6f} unbroken, parameters after "
+                      f"it bit-identical: {same}")
+                if resumed_step != taken or resumed_loss != unbroken_loss or not same:
+                    raise AssertionError("the resumed 8-bit run differs from the unbroken one")
+                record.update(resumed_step=resumed_step, resumed_loss=resumed_loss)
+            numbers[tag] = record
+            os.chdir(here)
+            # every reference to this run's model, so that the next run's peak is its own
+            del trainer, unet, opt_state, prepare_optimizer, prepare_and_time, writer, add_scalar
+            del steps, api
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        os.chdir(here)
+        hook.close()
+        shutil.rmtree(work, ignore_errors=True)
+    return launches_total, numbers
+
+
+def tools_phase(device, wrappers: dict, ckpt: Path, vocab_dir: Path) -> tuple[dict, dict]:
+    """Phase 44: ``tools.quantize_model`` on the seeded SDXL file on the card
+    (its NF4 tensors of ``NF4_TOOL_PROBES`` against a CPU run, byte for
+    byte), the written file loaded into the NF4 QLoRA path for one train
+    step (kernel D), and round trips through ``tools.checkpoint.convert_dtype``
+    and ``to_safetensors``. Returns the step's launches and the numbers."""
+    from safetensors import safe_open
+
+    from vision_ft_tpu_torch.models.sdxl import train_text_to_image
+    from vision_ft_tpu_torch.models.sdxl.config import SDXLConfig
+    from vision_ft_tpu_torch.models.sdxl.pipeline import SDXLModel
+    from vision_ft_tpu_torch.models.text_encoders import CLIPTokenizer
+    from vision_ft_tpu_torch.modules import peft
+    from vision_ft_tpu_torch.modules.quant import quantize_state_dict
+    from vision_ft_tpu_torch.nn import Linear, set_remat_saves
+    from vision_ft_tpu_torch.tools import quantize_model
+    from vision_ft_tpu_torch.tools.checkpoint import convert_dtype, to_safetensors
+    from vision_ft_tpu_torch.training import (
+        get_optimizer, get_schedule, init_train_state, make_train_step,
+    )
+    from vision_ft_tpu_torch.utils import safetensors as st
+
+    def read_launches():
+        return {name: wrapper.launches for name, wrapper in wrappers.items()}
+
+    numbers = {}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_tools_"))
+    try:
+        nf4_path = work / "sdxl.nf4.safetensors"
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        quantized = quantize_model.main([
+            "--model-path", str(ckpt), "--save-path", str(nf4_path), "--quant-type", "bnb_nf4",
+            *(a for t in LORA_TARGETS for a in ("--include-keys", t))])
+        torch.cuda.synchronize()
+        numbers.update(quantize_s=time.perf_counter() - start, nf4_bytes=nf4_path.stat().st_size,
+                       source_bytes=ckpt.stat().st_size)
+        packed = [k for k, v in quantized.items() if v.dtype == torch.uint8 and k.endswith("weight")]
+        on_card = all(v.is_cuda for v in quantized.values())
+        print(f"quantize_model on the card: {len(packed)} weights to NF4 in "
+              f"{numbers['quantize_s']:.2f} s with the load and the write; "
+              f"{numbers['source_bytes']} -> {numbers['nf4_bytes']} bytes; every tensor on the "
+              f"card: {on_card}")
+        if not on_card or not packed:
+            raise AssertionError("the tool's output is not on the card, or quantized nothing")
+        with safe_open(str(ckpt), framework="pt") as f:
+            for probe in NF4_TOOL_PROBES:
+                key = "model.diffusion_model." + probe
+                cpu = quantize_state_dict({key: f.get_tensor(key)}, "bnb_nf4", [key])
+                leaves = sorted(k for k in quantized if k == key or k.startswith(key + "."))
+                if sorted(cpu) != leaves or not all(
+                        torch.equal(cpu[k], quantized[k].cpu()) for k in leaves):
+                    raise AssertionError(f"{key}: the card's NF4 tensors differ from the CPU's")
+                print(f"  {key}: {len(leaves)} tensors ({', '.join(k[len(key):] or 'codes' for k in leaves)}) "
+                      f"equal to a CPU run's, byte for byte")
+        del quantized
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        start = time.perf_counter()
+        model = SDXLModel.from_checkpoint(
+            SDXLConfig(checkpoint_path=str(nf4_path), dtype="bfloat16"),
+            tokenizer=CLIPTokenizer.from_pretrained_dir(str(vocab_dir)))
+        torch.cuda.synchronize()
+        numbers["nf4_load_s"] = time.perf_counter() - start
+        layers = dict(model.denoiser.named_modules())
+        nf4 = [n for n, m in layers.items() if isinstance(m, Linear) and m.is_quantized]
+        first_block = nf4[0].rsplit(".attn1.", 1)[0]
+        no_dx = [n for n in nf4 if n.endswith(("attn2.to_k", "attn2.to_v"))
+                 or (n.startswith(first_block + ".attn1.") and n.endswith(("to_q", "to_k", "to_v")))]
+        model.denoiser.set_gradient_checkpointing(True)
+        peft.replace_to_peft_layer(model.denoiser, LORA_TARGETS, [],
+                                   peft.LoRAConfig(rank=16, alpha=8.0, dtype="bfloat16"),
+                                   torch.Generator(device=device).manual_seed(1))
+        trainable, _ = peft.split_peft_params(model.denoiser)
+        optimizer = get_optimizer("torch.optim.AdamW", get_schedule("constant", 1e-4, 1000),
+                                  max_grad_norm=1.0)
+        step = make_train_step(functools.partial(train_text_to_image.loss_fn, model), optimizer)
+        g = torch.Generator(device=device).manual_seed(44)
+        side = TRAIN_RES // 8
+        batch = {
+            "cached_latents": torch.randn(1, side, side, 4, device=device, generator=g).bfloat16(),
+            "cached_context": torch.randn(1, 227, 2048, device=device, generator=g).bfloat16(),
+            "cached_pooled": torch.randn(1, 1280, device=device, generator=g).bfloat16(),
+            "original_size": torch.full((1, 2), float(TRAIN_RES), device=device),
+            "target_size": torch.full((1, 2), float(TRAIN_RES), device=device),
+            "crop_coords_top_left": torch.zeros(1, 2, device=device),
+        }
+        set_remat_saves("kernel")
+        try:
+            before = read_launches()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            _, metrics = step(init_train_state(optimizer, trainable), batch, g)
+            loss = metrics["train/loss"].item()
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - start
+        finally:
+            set_remat_saves("activations")
+        step_launches = {k: v - before[k] for k, v in read_launches().items()}
+        want = {"fwd": 2 * len(nf4), "dx": len(nf4) - len(no_dx)}
+        got = {"fwd": step_launches["nf4_matmul_forward"], "dx": step_launches["nf4_matmul_dx"]}
+        print(f"the tool's file through SDXLModel.from_checkpoint ({numbers['nf4_load_s']:.1f} s): "
+              f"{len(nf4)} NF4 Linears; one QLoRA step at batch 1, {TRAIN_RES} px: loss {loss:.6f}, "
+              f"{step_s * 1e3:.1f} ms (cold); kernel D launches {got}, expected {want}")
+        if not np.isfinite(loss) or got != want:
+            raise AssertionError("the QLoRA step on the tool's file: loss or kernel D launches off")
+        numbers.update(nf4_layers=len(nf4), qlora_loss=loss, qlora_step_ms=step_s * 1e3)
+        for part in model._parts().values():
+            part.to("meta")
+        del model, trainable, step, optimizer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # round trips on the VAE's tensors (a few hundred MB)
+        with safe_open(str(ckpt), framework="pt") as f:
+            vae = {k: f.get_tensor(k) for k in f.keys() if k.startswith("first_stage_model.")}
+        st.save_file(vae, work / "vae.safetensors")
+        start = time.perf_counter()
+        convert_dtype.main(["--input-path", str(work / "vae.safetensors"), "--output-path",
+                            str(work / "vae.fp32.safetensors"), "--dtype", "float32"])
+        convert_dtype.main(["--input-path", str(work / "vae.fp32.safetensors"), "--output-path",
+                            str(work / "vae.bf16.safetensors"), "--dtype", "bf16"])
+        wide, back = (st.load_file(work / n) for n in ("vae.fp32.safetensors", "vae.bf16.safetensors"))
+        if not (all(v.dtype == torch.float32 for v in wide.values())
+                and sorted(back) == sorted(vae) and all(torch.equal(back[k], vae[k]) for k in vae)):
+            raise AssertionError("convert_dtype: bf16 -> fp32 -> bf16 is not the file it started from")
+        torch.save({"state_dict": vae, "epoch": 1}, work / "vae.ckpt")
+        to_safetensors.main([str(work / "vae.ckpt"), str(work / "vae.from_ckpt.safetensors")])
+        again = st.load_file(work / "vae.from_ckpt.safetensors")
+        if sorted(again) != sorted(vae) or not all(
+                again[k].dtype == vae[k].dtype and torch.equal(again[k], vae[k]) for k in vae):
+            raise AssertionError("to_safetensors: the pickle's tensors did not come back")
+        numbers["round_trip_s"] = time.perf_counter() - start
+        print(f"convert_dtype bf16 -> fp32 -> bf16 and to_safetensors of a pickled state_dict on "
+              f"the VAE's {len(vae)} tensors: the same tensors back ({numbers['round_trip_s']:.1f} s)")
+        return step_launches, numbers
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def offloaded_requests(label, model, request, kwargs, plain) -> dict:
+    """Two warm requests without offloading, then the first offloaded one
+    (every part on the card: it parks them) and two warm ones from the
+    host, each through ``request(name, **kwargs) -> (seconds, latents,
+    peak GiB)`` with the peak reset before it; each request's latents equal
+    ``plain``'s bit for bit. Puts the parts back on the card after."""
+    from vision_ft_tpu_torch.modules.offload import move_params
+
+    runs = {}
+    for name, offload in (("plain 1", False), ("plain 2", False), ("offloaded, first", True),
+                          ("offloaded 1", True), ("offloaded 2", True)):
+        seconds, latents, peak = request(f"{label} {name}", **dict(kwargs, do_offloading=offload))
+        if not torch.equal(latents, plain):
+            raise AssertionError(f"{label} {name}: the latents differ from the plain request's")
+        runs[name] = (seconds, peak)
+        if offload:
+            where = {part: next(getattr(model, part).parameters()).device.type
+                     for part in OFFLOAD_PARTS if hasattr(model, part)}
+            if set(where.values()) != {"cpu"}:
+                raise AssertionError(f"{label} {name}: parts left on {where}")
+    for part in OFFLOAD_PARTS:
+        move_params(getattr(model, part), "cuda")
+    out = {"plain_s": [runs[n][0] for n in ("plain 1", "plain 2")],
+           "offloaded_s": [runs[n][0] for n in ("offloaded 1", "offloaded 2")],
+           "first_offloaded_s": runs["offloaded, first"][0],
+           "plain_peak_gib": max(runs[n][1] for n in ("plain 1", "plain 2")),
+           "offloaded_peak_gib": max(runs[n][1] for n in ("offloaded 1", "offloaded 2")),
+           "first_offloaded_peak_gib": runs["offloaded, first"][1]}
+    print(f"{label} offloading: s/request plain {out['plain_s']}, offloaded from the host "
+          f"{out['offloaded_s']} (the first offloaded, from the card, {out['first_offloaded_s']:.3f}); "
+          f"peak GiB plain {out['plain_peak_gib']:.2f}, offloaded {out['offloaded_peak_gib']:.2f} "
+          f"(first {out['first_offloaded_peak_gib']:.2f}); latents bit-identical to the plain "
+          f"request's in all five")
+    if not out["offloaded_peak_gib"] < out["plain_peak_gib"]:
+        raise AssertionError(f"{label}: offloading did not lower the peak")
+    return out
+
+
+def sdxl_offload_phase(device, wrappers: dict, ckpt: Path, vocab_dir: Path) -> tuple[dict, dict]:
+    """Phase 45: SDXL from the seeded file, 1024 px requests with and without
+    ``do_offloading`` (``offloaded_requests``). Returns their launches and
+    the numbers."""
+    from vision_ft_tpu_torch.models.sdxl.config import SDXLConfig
+    from vision_ft_tpu_torch.models.sdxl.pipeline import SDXLModel
+    from vision_ft_tpu_torch.models.text_encoders import CLIPTokenizer
+
+    class Model(SDXLModel):
+        def decode_image(self, latents, use_tiling=False):
+            self.last_latents = latents.clone()
+            return super().decode_image(latents, use_tiling)
+
+    def read_launches():
+        return {name: wrapper.launches for name, wrapper in wrappers.items()}
+
+    model = Model.from_checkpoint(SDXLConfig(checkpoint_path=str(ckpt), dtype="bfloat16"),
+                                  tokenizer=CLIPTokenizer.from_pretrained_dir(str(vocab_dir)))
+    before = read_launches()
+
+    def request(name, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        images = model.generate(**kwargs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        if np.asarray(images[0]).std() == 0 or not torch.isfinite(model.last_latents).all():
+            raise AssertionError(f"request {name}: a constant image or latents not finite")
+        return seconds, model.last_latents, torch.cuda.max_memory_allocated() / 2**30
+
+    kwargs = dict(prompt="a photo of the cat", negative_prompt="blurry", width=1024, height=1024,
+                  num_inference_steps=STEPS, cfg_scale=5.0, seed=45)
+    _, plain, _ = request("warm-up", **kwargs)
+    numbers = offloaded_requests("SDXL", model, request, kwargs, plain)
+    launches = {k: v - before[k] for k, v in read_launches().items()}
+    for part in model._parts().values():
+        part.to("meta")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
+def fractal_phase(device, wrappers: dict) -> dict:
+    """Phase 46, in a process of its own (``--fractal``): FractalGen's masked
+    transformer at full width (``FRACTAL``), seeded bf16 weights, a forward
+    on kernels A and E against the plain versions,
+    E alone at its ragged shape, ms per forward. Returns the launches, E's
+    record at this shape and the numbers."""
+    from vision_ft_tpu_torch.models import fractal
+    from vision_ft_tpu_torch.nn import init_parameters_
+    from vision_ft_tpu_torch.ops.flash_attention import flash_attention_masked, flash_attention_reference
+
+    phase("46 FractalGen's masked transformer at full width (64 px, patch 4, hidden 1024, 16 heads "
+          "of 64, 32 blocks), bf16, seeded random weights: kernels A and E")
+    gen = torch.Generator(device=device).manual_seed(46)
+    with torch.device("meta"):
+        model = fractal.FractalMaskedTransformer(**FRACTAL)
+    model.to(dtype=torch.bfloat16).to_empty(device=device)
+    init_parameters_(model, gen)
+    model.eval()
+    params = sum(p.numel() for p in model.parameters())
+    b, side = FRACTAL_BATCH, FRACTAL_IMAGE
+    image = torch.rand(b, side, side, 3, device=device, generator=gen).bfloat16()
+    condition = torch.randn(b, 1, FRACTAL["hidden_dim"], device=device, generator=gen).bfloat16()
+    seq = (side // FRACTAL["patch_size"]) ** 2
+    orders = fractal.sample_order(gen, b, seq)
+    mask = fractal.TruncatedNormalMaskGenerator(0.25)(gen, None, orders)
+    tokens = seq + 1  # patches, the class token
+
+    def forward():
+        with torch.no_grad():
+            return model(image, condition, mask)
+
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    out = forward()
+    launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
+    lns = sum(type(m).__name__ == "LayerNorm" for m in model.modules())
+    want = {name: 0 for name in wrappers}
+    want.update(layer_norm=lns, flash_attention_masked=FRACTAL["num_blocks"])
+    if not all(torch.isfinite(t).all() for t in out):
+        raise AssertionError("FractalGen's forward is not finite")
+    # against the plain versions at reduced depth (the first FRACTAL_REDUCED blocks, full
+    # width), as the other families' steps are: 32 random bf16 blocks amplify a rounding
+    # difference past any fixed limit
+    blocks = model.blocks
+    model.blocks = torch.nn.ModuleList(list(blocks)[:FRACTAL_REDUCED])
+    try:
+        kernel_out = forward()
+        with plain_versions():
+            ref = forward()
+    finally:
+        model.blocks = blocks
+    errors = {}
+    for name in ("mask_prediction", "surrounding_patches"):
+        got, plain = getattr(kernel_out, name), getattr(ref, name)
+        errors[name] = compare(f"FractalGen {name} ({FRACTAL_REDUCED} blocks)", lambda: got,
+                               lambda: plain, FRACTAL_TOL)
+    ms = cuda_ms(forward, warmup=2, iters=10)
+    plain_ms = None
+    with plain_versions():
+        plain_ms = cuda_ms(forward, warmup=1, iters=3)
+    print(f"FractalGen level 0: {params / 1e6:.1f} M parameters, batch {b}, {tokens} tokens "
+          f"({seq} patches + the class token); a forward {ms:.3f} ms (plain "
+          f"versions {plain_ms:.3f} ms); launches {launches}, expected {want}; at "
+          f"{FRACTAL_REDUCED} blocks vs the plain versions: " + ", ".join(f"{k} max abs err {a:.3e} rel {r:.3e}"
+                                     for k, (a, r) in errors.items())
+          + f" (tol {FRACTAL_TOL})")
+    if launches != want or out.mask_prediction.shape != (b, seq, FRACTAL["hidden_dim"]):
+        raise AssertionError(f"FractalGen launches {launches} != {want}, or a wrong shape")
+
+    # kernel E alone at the blocks' shape: 257 rows and keys, a ragged last 64-row tile
+    h, d = FRACTAL["num_heads"], FRACTAL["hidden_dim"] // FRACTAL["num_heads"]
+    q, k, v = (torch.randn(b, tokens, h * d, device=device, generator=gen).bfloat16()
+               .unflatten(-1, (h, d)).transpose(1, 2) for _ in "qkv")
+    before = flash_attention_masked.launches
+    got = flash_attention_masked(q, k, v)
+    if flash_attention_masked.launches != before + 1:
+        raise AssertionError("kernel E did not launch once at FractalGen's shape")
+    want_e = flash_attention_reference(q, k, v)
+    what = f"attention B={b} H={h} S={tokens} D={d}, unmasked (FractalGen's)"
+    abs_err, rel_err = compare(what, lambda: got, lambda: want_e, MASKED_ATTN_TOL)
+    tail = tokens - tokens // 64 * 64
+    tail_err = compare(what + f", the last {tail} rows (the ragged tile)",
+                       lambda: got[:, :, -tail:], lambda: want_e[:, :, -tail:], MASKED_ATTN_TOL)
+    assert_reruns(what, lambda: flash_attention_masked(q, k, v))
+    e_ms = cuda_ms(lambda: flash_attention_masked(q, k, v))
+    e_plain = cuda_ms(lambda: flash_attention_reference(q, k, v), warmup=1, iters=5)
+    e_library = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    e_bound = bound(2 * 4 * b * h * tokens * d, 4 * h * d * float(b * tokens * tokens))
+    print(f"{what}: kernel E max abs err {abs_err:.3e} rel {rel_err:.3e}, the ragged tile's rows "
+          f"{tail_err[0]:.3e} rel {tail_err[1]:.3e} (tol {MASKED_ATTN_TOL}), reruns bit-identical; "
+          f"{e_ms:.4f} ms, plain {e_plain:.4f}, SDPA {e_library:.4f}, bound {e_bound[0]:.5f} ms "
+          f"({e_bound[1]})")
+    record = dict(shape=[b, h, tokens, d], max_abs_err=abs_err, ragged_tile_max_abs_err=tail_err[0],
+                  ms=e_ms, plain_ms=e_plain, bound_ms=e_bound[0], bound_by=e_bound[1],
+                  library_ms=e_library)
+    numbers = dict(params=params, batch=b, tokens=tokens, forward_ms=ms, plain_forward_ms=plain_ms,
+                   errors={k: a for k, (a, _) in errors.items()})
+    return {"launches": launches, "records": {"flash_attention_masked": [record]},
+            "numbers": numbers}
+
+
+def remainder_phases(device, wrappers: dict, checkout: Path) -> dict:
+    """Phases 43-45, in a process of their own (``--remainder``), on a
+    seeded 6.9 GB SDXL file they write: the launches of each of
+    ``REMAINDER_PATHS`` and the numbers."""
+    from vision_ft_tpu_torch.models.sdxl.config import SDXLConfig
+    from vision_ft_tpu_torch.models.sdxl.pipeline import SDXLModel
+    from vision_ft_tpu_torch.models.text_encoders import CLIPTokenizer
+    from vision_ft_tpu_torch.utils import safetensors as st
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_remainder_"))
+    try:
+        write_vocab(work)
+        seeded = SDXLModel(SDXLConfig(checkpoint_path="", dtype="bfloat16"),
+                           tokenizer=CLIPTokenizer.from_pretrained_dir(str(work)))
+        seeded.init_params(torch.Generator(device=device).manual_seed(17))
+        ckpt = work / "sdxl.safetensors"
+        start = time.perf_counter()
+        st.save_file(seeded.state_dict(), ckpt)
+        print(f"seeded SDXL (bf16) made on the card and written to "
+              f"{ckpt.stat().st_size / 1e9:.3f} GB in {time.perf_counter() - start:.1f} s")
+        for part in seeded._parts().values():
+            part.to("meta")
+        del seeded
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches, numbers = {}, {}
+        phase("43 the rest of the Trainer at full SDXL width: the 8-bit AdamW (with a resumed "
+              "state checkpoint), optax.adamw, Adafactor and the schedule-free SGD, with the "
+              "Discord, Hub and tensorboard callbacks")
+        launches["trainer_optimizers"], numbers["optimizers"] = trainer_remainder_phase(
+            device, wrappers, ckpt, work, checkout)
+        phase("44 the checkpoint tools: quantize_model on the card, its file through the NF4 "
+              "QLoRA step (kernel D), convert_dtype and to_safetensors round trips")
+        launches["nf4_tool"], numbers["tools"] = tools_phase(device, wrappers, ckpt, work)
+        phase("45 SDXL requests with and without do_offloading, 1024 px")
+        launches["sdxl_offload"], numbers["sdxl_offloading"] = sdxl_offload_phase(
+            device, wrappers, ckpt, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"launches": launches, "numbers": numbers}
 
 
 def main() -> None:
+    global _START
     args = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     args.add_argument("--profile", action="store_true",
                       help="also trace two train steps and print device time by kind of kernel")
@@ -5958,11 +6647,27 @@ def main() -> None:
                            "prompt-free, style-tokenizer and DRaFT+ workloads through the Trainer "
                            "with generate()) after building their libraries; prints their launch "
                            "counts, records and numbers as one JSON line, not the ok line")
+    args.add_argument("--remainder", action="store_true",
+                      help="run phases 43-45 alone (the rest of the Trainer, the checkpoint tools, "
+                           "SDXL offloading) on a seeded SDXL file it writes, after building their "
+                           "libraries; prints their launch counts and numbers as one JSON line, not "
+                           "the ok line")
+    args.add_argument("--fractal", action="store_true",
+                      help="run phase 46 alone (FractalGen's masked transformer at full width on "
+                           "kernels A and E) after building their libraries; prints its launch "
+                           "counts, records and numbers as one JSON line, not the ok line")
     args.add_argument("--ln-probe-costs", action="store_true",
                       help="time kernels A and L and their library calls (one call, back to "
                            "back, host us, traced) in this process alone; prints one JSON line, "
                            "not the ok line")
+    args.add_argument("--wait-for-go", action="store_true",
+                      help="after the imports, wait for a line on stdin before touching the card "
+                           "(the main run starts each child so, ahead of its turn)")
     options = args.parse_args()
+    if options.wait_for_go:
+        if sys.stdin.readline().strip() != "go":
+            raise SystemExit("chip_smoke: the parent process ended before this child's turn")
+        _START = time.perf_counter()
 
     phase("0 device")
     if not torch.cuda.is_available():
@@ -6102,6 +6807,21 @@ def main() -> None:
         print(json.dumps({"sdxl_adapters": result}))
         return
 
+    if options.remainder:
+        phase("1 build (kernels A's, B's, C's and D's libraries only)")
+        _build.build_cuda_libraries(["flash_attention_bshd", "flash_attention_bshd_bwd",
+                                     "layer_norm", "nf4_matmul"])
+        result = remainder_phases(device, wrappers, checkout)
+        print(json.dumps({"remainder": result}))
+        return
+
+    if options.fractal:
+        phase("1 build (kernels A's and E's libraries only)")
+        _build.build_cuda_libraries(["layer_norm", "flash_attention_masked"])
+        result = fractal_phase(device, wrappers)
+        print(json.dumps({"fractal": result}))
+        return
+
     if options.wan:
         phase("1 build (kernels A's, B's and D's libraries only)")
         _build.build_cuda_libraries(["flash_attention_bshd", "layer_norm", "nf4_matmul"])
@@ -6122,10 +6842,13 @@ def main() -> None:
         _build.build_cuda_libraries(["flash_attention_shortk"])
         phase("15 kernels H and I: short-K attention forward and backward vs plain (bf16)")
         records = kernels_h_i_phase(device, torch.Generator(device=device).manual_seed(0),
-                                    run_trace_kernels(checkout))
+                                    run_trace_kernels(Child(checkout, "--trace-kernels",
+                                                            timeout=600)))
         print(json.dumps({"kernels_h_i": records}))
         return
 
+    # phase 3's tracing process imports while this one builds
+    trace_child = Child(checkout, "--trace-kernels", timeout=600)
     phase("1 build")
     start = time.perf_counter()
     cuda_sources = ["flash_attention_bshd", "flash_attention_bshd_bwd", "nf4_matmul",
@@ -6179,7 +6902,7 @@ def main() -> None:
     phase("3 kernel A: fused LayerNorm vs plain (bf16)")
     # the card's time a call of A, L, H, J, K and their library calls, traced over 10
     # calls in a process of its own; printed here for A and in phase 18 for the others
-    traces = run_trace_kernels(checkout)
+    traces = run_trace_kernels(trace_child)
     errs, rows = [], []
     for shape in LN_SHAPES + LN_EDGE_SHAPES:
         n_rows, c, beta = shape
@@ -6873,7 +7596,9 @@ def main() -> None:
     )
     del x, wa, wg, wd, w1, w2, b1, b2, ba, bg, bd
 
-    phase("12 Lumina2 generate() at full width and depth, bf16, seeded random weights")
+    phase(f"12 Lumina2 generate() at full width, {LUMINA_CUT_DEPTH['depth']} of the NextDiT's 26 "
+          f"main layers, bf16, seeded random weights")
+    from vision_ft_tpu_torch.models.lumina2.config import DenoiserConfig as LuminaDenoiserConfig
     from vision_ft_tpu_torch.models.lumina2.config import Lumina2Config
     from vision_ft_tpu_torch.models.lumina2.pipeline import Lumina2
     from vision_ft_tpu_torch.models.text_encoders.sentencepiece import (
@@ -6890,7 +7615,9 @@ def main() -> None:
     tokenizer = SentencePieceTokenizer(SentencePieceModel.from_bytes(lumina_vocab()), template="bos")
 
     torch.cuda.reset_peak_memory_stats()
-    lumina = LuminaModel(Lumina2Config(checkpoint_path="", dtype="bfloat16"), tokenizer=tokenizer)
+    lumina = LuminaModel(Lumina2Config(checkpoint_path="", dtype="bfloat16",
+                                       denoiser=LuminaDenoiserConfig(**LUMINA_CUT_DEPTH)),
+                         tokenizer=tokenizer)
     start = time.perf_counter()
     lumina.init_params(torch.Generator(device=device).manual_seed(0))
     torch.cuda.synchronize()
@@ -7116,8 +7843,8 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    phase(f"14 Lumina2 LoRA train steps at full width and depth, bf16, batch {TRAIN_BATCH} at "
-          f"{TRAIN_RES} px")
+    phase(f"14 Lumina2 LoRA train steps at full width, {LUMINA_CUT_DEPTH['depth']} of the NextDiT's "
+          f"26 main layers, bf16, batch {TRAIN_BATCH} at {TRAIN_RES} px")
     from vision_ft_tpu_torch.models.lumina2 import train_text_to_image as lumina_train
     from vision_ft_tpu_torch.nn import set_remat_group
 
@@ -7565,6 +8292,8 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # the first child imports while phase 18 runs
+    waiting = start_child(checkout, CHILDREN[0], options.profile)
     phase("18 kernels J, K, L: GroupNorm(+SiLU), 3x3 conv and the ragged-tile probe vs plain (bf16)")
     from vision_ft_tpu_torch.nn import Conv2d, GroupNorm
 
@@ -7839,56 +8568,18 @@ def main() -> None:
     print(f"this process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
           f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved while its children run")
 
-    phase("19 the Lumina2 Trainer at full width, 8 of the NextDiT's 26 layers: checkpoint, "
-          "EMA, state checkpoints, profiler window, preview (a process of its own)")
-    lumina_trainer = run_lumina_trainer(checkout)
-    card_numbers = ", ".join(f"{k} {v}" for k, v in lumina_trainer["numbers"].items())
-    print(f"phase 19 on {card}: {card_numbers}")
-
-    phase("20-21 kernels B at head dim 256 and F at AuraFlow's widths; AuraFlow generate() at "
-          "full width and depth (a process of its own)")
-    auraflow = run_auraflow(checkout, options.profile)
-    card_numbers = ", ".join(f"{k} {v}" for k, v in auraflow["numbers"].items())
-    print(f"phases 20-21 on {card}: {card_numbers}")
-
-    phase("22-24 kernel C at head dim 256; the AuraFlow Trainer on config #3, the shortcut and "
-          "RoPE migration workloads at full width and depth (a process of its own)")
-    auraflow_trainer = run_auraflow_trainer(checkout)
-    card_numbers = ", ".join(f"{k} {v}" for k, v in auraflow_trainer["numbers"].items())
-    print(f"phases 22-24 on {card}: {card_numbers}")
-
-    phase("25-27 serving: the port's HTTP server (window and continuous schedulers), client and "
-          "CLI on SDXL, Lumina2 and AuraFlow at full width (a process of its own)")
-    serve = run_serve(checkout)
-    card_numbers = ", ".join(f"{k} {v}" for k, v in serve["numbers"].items())
-    print(f"phases 25-27 on {card}: {card_numbers}")
-
-    phase("28-30 kernel B at head dim 128; Flux generate() at full width and depth, its "
-          "checkpoint, server and CLI; the AuraFlow VAE-encode migration (a process of its own)")
-    flux = run_flux(checkout, options.profile)
-    card_numbers = ", ".join(f"{k} {v}" for k, v in flux["numbers"].items())
-    print(f"phases 28-30 on {card}: {card_numbers}")
-
-    phase("31-33 kernels B and C at head dim 128, CogView4's shapes; CogView4 generate() at full "
-          "width and depth, its pool, checkpoint, server, CLI, quant-compare tool and Trainer (a "
-          "process of its own)")
-    cogview4 = run_cogview4(checkout, options.profile)
-    card_numbers = ", ".join(f"{k} {v}" for k, v in cogview4["numbers"].items())
-    print(f"phases 31-33 on {card}: {card_numbers}")
-
-    phase("34-36 kernels B, A and D at Wan's shapes; Wan 2.2 generate() at full width and depth, "
-          "its three-file checkpoint, server and CLI (a process of its own)")
-    wan = run_wan(checkout, options.profile)
-    card_numbers = ", ".join(f"{k} {v}" for k, v in wan["numbers"].items())
-    print(f"phases 34-36 on {card}: {card_numbers}")
-
-    phase("37-42 kernels E and G at the RoPE student's shapes, B at SigLIP-384's and SigLIP-512's; "
-          "the SDXL train step in the three remat modes; the flow-match, RoPE-distillation, "
-          "IP-Adapter, prompt-free, style-tokenizer and DRaFT+ workloads through the Trainer with "
-          "generate() (a process of its own)")
-    adapters = run_sdxl_adapters(checkout)
-    card_numbers = ", ".join(f"{k} {v}" for k, v in adapters["numbers"].items())
-    print(f"phases 37-42 on {card}: {card_numbers}")
+    # each child in its turn, the next one importing while it runs
+    results = {}
+    for turn, (phases, flag, key, what, _) in enumerate(CHILDREN):
+        phase(f"{phases} {what} (a process of its own)")
+        child = waiting
+        if turn + 1 < len(CHILDREN):
+            waiting = start_child(checkout, CHILDREN[turn + 1], options.profile)
+        results[key] = child.result(key)
+        card_numbers = ", ".join(f"{k} {v}" for k, v in results[key]["numbers"].items())
+        print(f"phase{'s' if '-' in phases else ''} {phases} on {card}: {card_numbers}")
+    (lumina_trainer, auraflow, auraflow_trainer, serve, flux, cogview4, wan, adapters, remainder,
+     fractal) = (results[key] for _, _, key, _, _ in CHILDREN)
 
     kernels = []
     for name, record in records.items():
@@ -7908,7 +8599,9 @@ def main() -> None:
                     "cogview4": cogview4["launches"][name],
                     "wan": wan["launches"][name],
                     "sdxl_adapters": adapters["launches"][name],
-                    **{path: adapters["groups"][path][name] for path in CONTEXT_ADAPTER_PATHS}}
+                    **{path: adapters["groups"][path][name] for path in CONTEXT_ADAPTER_PATHS},
+                    **{path: remainder["launches"][path][name] for path in REMAINDER_PATHS},
+                    "fractal": fractal["launches"][name]}
         kernels.append({
             "name": name,
             **{k: record[k] for k in ("route", "source", "replaces")},
@@ -7926,6 +8619,7 @@ def main() -> None:
             **({"wan_shapes": wan["records"][name]} if name in wan["records"] else {}),
             **({"sdxl_adapters_shapes": adapters["records"][name]} if name in adapters["records"]
                else {}),
+            **({"fractal_shapes": fractal["records"][name]} if name in fractal["records"] else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

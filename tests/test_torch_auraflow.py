@@ -46,6 +46,7 @@ from vision_ft_tpu_torch.modules.positional_encoding import rope
 from vision_ft_tpu_torch.ops.flash_attention import flash_attention_bshd
 from vision_ft_tpu_torch.ops.fused_mlp import gated_mlp
 from test_torch_nn import one_torch_thread  # noqa: F401 (autouse)
+from test_torch_offload import assert_offloaded_generate_is_plain
 
 # fp32 on the CPU: a few transformer blocks of O(1) activations, summed in
 # other orders by the two packages
@@ -470,8 +471,8 @@ def test_generate_matches_jax(pipelines, monkeypatch, name, kwargs):
 
 def test_generate_options(pipelines, monkeypatch):
     """A request repeats bit for bit; DeepCache refreshing every step is the
-    plain loop and a cached one differs; offloading, not ported, raises by
-    name."""
+    plain loop and a cached one differs; an offloaded request (the first,
+    then one from the host) is the plain one bit for bit."""
     _, model, _ = pipelines
     noise = torch.from_numpy(np.random.default_rng(8).standard_normal((1, 4, 4, 4)).astype(np.float32))
     monkeypatch.setattr(model, "prepare_latents", lambda *a, **kw: noise.clone())
@@ -482,8 +483,8 @@ def test_generate_options(pipelines, monkeypatch):
         base, np.asarray(model.generate("a cat", deep_cache_interval=1, **common)[0]))
     cached = model.generate("a cat", deep_cache_interval=2, deep_cache_depth=1, **common)
     assert (np.asarray(cached[0]) != base).any()
-    with pytest.raises(NotImplementedError, match="offloading"):
-        model.generate("a cat", width=32, height=32, num_inference_steps=1, do_offloading=True)
+    assert_offloaded_generate_is_plain(
+        monkeypatch, model, lambda **kw: model.generate("a cat", **common, **kw), ("text_encoder", "denoiser", "vae"))
 
 
 def test_encode_and_decode_image_match_jax(pipelines):

@@ -442,7 +442,8 @@ def test_zero_shortcut_embedder_is_a_no_op():
 def test_shortcut_generate_matches_jax(monkeypatch, tmp_path):
     """AuraFlowForShortcut.generate (Euler steps of 1 / n with that shortcut
     duration, CFG) against the JAX package's on the same weights, prompts
-    and noise: the final latents."""
+    and noise: the final latents; ``do_offloading`` is accepted and ignored,
+    as in the JAX package."""
     (tmp_path / "tokenizer.model").write_bytes(_vocab_bytes())
     jax_model = _jax_model(jax_shortcut.AuraFlowForShortcut,
                            jax_shortcut.AuraFlowForShortcutConfig, DENOISER)
@@ -463,6 +464,9 @@ def test_shortcut_generate_matches_jax(monkeypatch, tmp_path):
     model.generate(["a cat", "a red car"], **common)
     assert np.isfinite(latents["port"]).all()
     _close(latents["port"], latents["jax"], tol=5e-4)
+    monkeypatch.setattr(model, "decode_image", lambda z: latents.setdefault("staged", z.numpy()))
+    model.generate(["a cat", "a red car"], do_offloading=True, **common)
+    np.testing.assert_array_equal(latents["staged"], latents["port"])
 
 
 @pytest.mark.parametrize("s", [0.0, 1.0], ids=["s0_learned_pe", "s1_rope"])

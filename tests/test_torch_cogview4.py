@@ -41,6 +41,7 @@ from vision_ft_tpu_torch.models.cogview4.text_encoder import pad_token_ids
 from vision_ft_tpu_torch.models.text_encoders import glm
 from vision_ft_tpu_torch.ops.flash_attention import flash_attention_bshd
 from test_torch_nn import one_torch_thread  # noqa: F401 (autouse)
+from test_torch_offload import assert_offloaded_generate_is_plain
 
 # fp32 on the CPU: a few transformer blocks of O(1) activations summed in
 # other orders by the two packages; relative to each tensor's max
@@ -446,10 +447,10 @@ def test_generate_matches_jax(pipelines, monkeypatch, name, kwargs):
     _close(got, want, msg=name)
 
 
-def test_generate_options_and_images(pipelines):
+def test_generate_options_and_images(pipelines, monkeypatch):
     """A request repeats bit for bit and decodes to an image of its size;
-    DeepCache refreshing every step is the plain loop; offloading raises by
-    name; encode_image is the JAX one (the VAE's mode times the scaling
+    DeepCache refreshing every step is the plain loop; an offloaded request
+    (the first, then one from the host) is the plain one bit for bit; encode_image is the JAX one (the VAE's mode times the scaling
     factor); a batch's noise rows are the batch-1 streams."""
     jax_model, model, _ = pipelines
     common = dict(width=32, height=32, num_inference_steps=2, cfg_scale=3.5, seed=3)
@@ -458,8 +459,8 @@ def test_generate_options_and_images(pipelines):
     np.testing.assert_array_equal(base, np.asarray(model.generate("a cat", **common)[0]))
     np.testing.assert_array_equal(
         base, np.asarray(model.generate("a cat", deep_cache_interval=1, **common)[0]))
-    with pytest.raises(NotImplementedError, match="offloading"):
-        model.generate("a cat", width=32, height=32, num_inference_steps=1, do_offloading=True)
+    assert_offloaded_generate_is_plain(
+        monkeypatch, model, lambda **kw: model.generate("a cat", **common, **kw), ("text_encoder", "denoiser", "vae"))
     image = np.random.default_rng(9).uniform(-1, 1, (1, 32, 32, 3)).astype(np.float32)
     with torch.no_grad():
         got = model.encode_image(torch.from_numpy(image))

@@ -55,6 +55,7 @@ from vision_ft_tpu_torch.serving import ContinuousBatcher, FluxSlotAdapter, Slot
 from vision_ft_tpu_torch.tools import inference_cli
 from vision_ft_tpu_torch.tools import inference_server as srv
 from test_torch_nn import one_torch_thread  # noqa: F401 (autouse)
+from test_torch_offload import assert_offloaded_generate_is_plain
 
 # fp32 on the CPU: a few transformer blocks of O(1) activations summed in
 # other orders by the two packages; relative to each tensor's max
@@ -448,9 +449,10 @@ def test_generate_matches_jax(pipelines, monkeypatch, name, kwargs):
         assert diff.max() <= 1  # 8-bit rounding of nearly equal floats
 
 
-def test_generate_options_and_images(pipelines):
+def test_generate_options_and_images(pipelines, monkeypatch):
     """A request repeats bit for bit; DeepCache refreshing every step is the
-    plain loop; offloading raises by name; encode_image is the JAX one (the
+    plain loop; an offloaded request (the first, then one from the host) is
+    the plain one bit for bit; encode_image is the JAX one (the
     VAE's mode times the scaling factor, no shift)."""
     jax_model, model, _ = pipelines
     common = dict(width=32, height=32, num_inference_steps=2, cfg_scale=2.0, seed=3,
@@ -459,8 +461,8 @@ def test_generate_options_and_images(pipelines):
     np.testing.assert_array_equal(base, np.asarray(model.generate("a cat", **common)[0]))
     np.testing.assert_array_equal(
         base, np.asarray(model.generate("a cat", deep_cache_interval=1, **common)[0]))
-    with pytest.raises(NotImplementedError, match="offloading"):
-        model.generate("a cat", width=32, height=32, num_inference_steps=1, do_offloading=True)
+    assert_offloaded_generate_is_plain(
+        monkeypatch, model, lambda **kw: model.generate("a cat", **common, **kw), ("text_encoder", "denoiser", "vae"))
     image = np.random.default_rng(9).uniform(-1, 1, (1, 32, 32, 3)).astype(np.float32)
     with torch.no_grad():
         got = model.encode_image(torch.from_numpy(image))

@@ -436,6 +436,19 @@ def test_cli_writes_a_webp(tiny_constructor, tmp_path, capsys):
         inference_cli.main(["--family", "sd3", "--checkpoint-path", "x", "--device", "cpu"])
 
 
+def test_cli_do_offloading_writes_the_plain_image(tiny_constructor, tmp_path):
+    """``--do-offloading`` (which raised before offloading was ported) runs
+    the staged request and writes the plain request's image."""
+    work = tiny_constructor
+    args = ["--family", "sdxl", "--checkpoint-path", str(work / "sdxl.safetensors"),
+            "--tokenizer-path", str(work), "--width", "64", "--height", "64",
+            "--num-inference-steps", "2", "--seed", "5", "--device", "cpu"]
+    plain, staged = tmp_path / "plain.webp", tmp_path / "staged.webp"
+    inference_cli.main([*args, "--save-path", str(plain)])
+    inference_cli.main([*args, "--do-offloading", "--save-path", str(staged)])
+    np.testing.assert_array_equal(np.asarray(Image.open(staged)), np.asarray(Image.open(plain)))
+
+
 # -- CogView4 ------------------------------------------------------------------------
 
 

@@ -334,7 +334,8 @@ def _tiny_encoder(seed=0):
 def test_generate_with_and_without_a_reference_image():
     """Without a reference the dropped image's all-False mask zeroes the ip
     branch: the images are the base SDXL's, bit for bit. With one, the
-    tokens change them."""
+    tokens change them. ``do_offloading`` is accepted and ignored, as in
+    the JAX package."""
     jax_model = _jax_ip_model("original")
     flat = _ip_weights(jax_model, 13, parts=("denoiser", "vae", "text_encoder", "image_proj"))
     model = _port_ip_model("original", flat, encoder=_tiny_encoder())
@@ -348,6 +349,9 @@ def test_generate_with_and_without_a_reference_image():
     reference = Image.fromarray(np.random.default_rng(0).integers(0, 255, (48, 40, 3), np.uint8))
     with_ref = np.asarray(model.generate(reference_image=reference, **kwargs)[0])
     assert with_ref.shape == plain.shape and not np.array_equal(with_ref, plain)
+    np.testing.assert_array_equal(
+        with_ref, np.asarray(model.generate(reference_image=reference, do_offloading=True,
+                                            **kwargs)[0]))
 
 
 # -- the datasets ------------------------------------------------------------------------

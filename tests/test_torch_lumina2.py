@@ -39,6 +39,7 @@ from vision_ft_tpu_torch.modules import patch
 from vision_ft_tpu_torch.ops.flash_attention import flash_attention_masked
 from vision_ft_tpu_torch.ops.fused_mlp import gated_mlp
 from test_torch_nn import one_torch_thread  # noqa: F401 (autouse)
+from test_torch_offload import assert_offloaded_generate_is_plain
 
 # fp32 on the CPU: a few transformer blocks of O(1) activations, summed in
 # other orders by the two packages
@@ -410,9 +411,14 @@ def test_generate_options_change_the_result(pipelines, monkeypatch):
         assert (np.asarray(model.generate("a cat", **common, **extra)[0]) != base).any()
 
 
-def test_generate_rejects_offloading(pipelines):
-    with pytest.raises(NotImplementedError):
-        pipelines[1].generate("a cat", width=32, height=32, num_inference_steps=1, do_offloading=True)
+def test_generate_rejects_offloading(pipelines, monkeypatch):
+    """Offloading, which raised before it was ported, now runs: an offloaded
+    request (the first, then one from the host) is the plain one bit for
+    bit."""
+    model = pipelines[1]
+    common = dict(width=32, height=32, num_inference_steps=2, cfg_scale=4.0, seed=3)
+    assert_offloaded_generate_is_plain(
+        monkeypatch, model, lambda **kw: model.generate("a cat", **common, **kw), ("text_encoder", "denoiser", "vae"))
 
 
 def test_pipeline_keys_match_jax_and_load_is_strict(pipelines):

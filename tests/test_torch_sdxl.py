@@ -38,6 +38,7 @@ from vision_ft_tpu_torch.models.text_encoders import CLIPTextConfig, CLIPTokeniz
 from vision_ft_tpu_torch.models.text_encoders.clip import CLIPTextModelWithProjection
 from vision_ft_tpu_torch.utils.tensor import incremental_seed_randn
 from test_torch_nn import one_torch_thread  # noqa: F401 (autouse)
+from test_torch_offload import assert_offloaded_generate_is_plain
 
 # fp32 on the CPU in both packages: the same arithmetic, summed in other
 # orders. Measured: <= 1e-5 abs on the modules' O(1) outputs, 9e-5 abs on
@@ -323,9 +324,15 @@ def test_generate_runs_and_is_seeded(models):
 
 
 @pytest.mark.parametrize("option", [{"do_offloading": True}])
-def test_generate_rejects_unported_options(models, option):
-    with pytest.raises(NotImplementedError):
-        models[1].generate("a cat", width=64, height=64, num_inference_steps=2, **option)
+def test_generate_rejects_unported_options(models, option, monkeypatch):
+    """Offloading, which raised before it was ported, now runs: an offloaded
+    request (the first, then one from the host) is the plain one bit for
+    bit."""
+    model = models[1]
+    common = dict(width=64, height=64, num_inference_steps=2, cfg_scale=3.0, seed=7)
+    assert_offloaded_generate_is_plain(
+        monkeypatch, model, lambda **kw: model.generate("a cat", **common, **kw), ("text_encoder", "denoiser", "vae"))
+    assert option == {"do_offloading": True}
 
 
 def test_init_params_on_a_generator():

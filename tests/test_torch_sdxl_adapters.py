@@ -272,6 +272,21 @@ def test_flow_match_loss_and_grads_match_jax(monkeypatch):
     _compare(got, want)
 
 
+def test_flow_match_generate_ignores_offloading():
+    """``do_offloading`` is accepted and ignored, as in the JAX package: the
+    request is the plain one bit for bit."""
+    jax_model = _jax_model(jax_fm_model.SDXLFlowMatch, jax_fm.SDXLForFlowMatchingTrainingConfig,
+                           jax_rope.DenoiserConfig, UNET, **_fm_config_fields("image"))
+    model = _port_model(flow_match.SDXLFlowMatch, train_flow_match.SDXLForFlowMatchingTrainingConfig,
+                        rope.DenoiserConfig, UNET, _weights(jax_model, 4),
+                        **_fm_config_fields("image"))
+    kwargs = dict(prompt="a cat", negative_prompt="", width=64, height=64, num_inference_steps=2,
+                  cfg_scale=3.0, seed=3)
+    plain = np.asarray(model.generate(**kwargs)[0])
+    np.testing.assert_array_equal(np.asarray(model.generate(do_offloading=True, **kwargs)[0]),
+                                  plain)
+
+
 @pytest.mark.parametrize("loss_type", ["velocity", "image"])
 def test_flow_match_image_prediction_losses_match_jax(loss_type):
     """The x0 (image) prediction's two losses (through the implied

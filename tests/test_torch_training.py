@@ -124,8 +124,16 @@ def test_optimizers_with_clipping_match_optax(name, args, clip):
      "optax.lion"],
 )
 def test_unported_optimizers_raise_by_name(name):
-    with pytest.raises(NotImplementedError):
-        get_optimizer(name, 1e-3)
+    """The four names that raised before the port took them now resolve,
+    and one update moves every parameter (parity with optax:
+    tests/test_torch_optimizers_rest.py)."""
+    optimizer = get_optimizer(name, 1e-2)
+    tensors = [torch.nn.Parameter(torch.from_numpy(v.copy())) for v in _tree(0).values()]
+    before = [t.detach().clone() for t in tensors]
+    opt_state = optimizer.init(tensors)
+    optimizer.update_(opt_state, tensors, [torch.from_numpy(v.copy()) for v in _tree(1).values()], 0)
+    for b, t in zip(before, tensors):
+        assert not torch.equal(b, t.detach()) and torch.isfinite(t).all()
 
 
 def test_unknown_optimizer_and_schedule_free_helpers():

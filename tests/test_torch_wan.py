@@ -48,6 +48,7 @@ from vision_ft_tpu_torch.utils import safetensors as st
 from vision_ft_tpu_torch.utils import tensor as tensor_utils
 from vision_ft_tpu_torch.utils.video import write_images_as_temp_video, write_images_as_video
 from test_torch_nn import one_torch_thread  # noqa: F401 (autouse)
+from test_torch_offload import assert_offloaded_generate_is_plain
 
 # fp32 on the CPU: a few blocks of O(1) activations summed in other orders by
 # the two packages; relative to each tensor's max
@@ -464,12 +465,15 @@ def _pipelines(tmp_path, in_channels=48, port_vae=None, jax_vae_model=None, seed
     return jax_model, model, real_prepare
 
 
-def test_generate_matches_jax_toy_vae(tmp_path):
+def test_generate_matches_jax_toy_vae(tmp_path, monkeypatch):
     """``generate()`` at 32 x 32, 4 frames (one latent frame), 2 steps,
     CFG 5, two prompts of unequal length against one negative: the final
     latents and the frames match; DeepCache with interval 1 is the plain
     result bit for bit and interval 2 matches JAX's; the frame arithmetic
-    is kept (frames // 4 * 4, then (f - 1) // 4 + 1 latent frames)."""
+    is kept (frames // 4 * 4, then (f - 1) // 4 + 1 latent frames); an
+    offloaded request (the first, then one from the host) is the plain one
+    bit for bit, the text encoder and the denoiser parked (the VAE is not
+    staged, as in the JAX package)."""
     jax_model, model, real_prepare = _pipelines(tmp_path)
     kwargs = dict(prompt=["a cat running", "a red car on the road"], negative_prompt="blurry",
                   frames=4, width=32, height=32, num_inference_steps=2, cfg_scale=5.0, seed=3)
@@ -494,8 +498,8 @@ def test_generate_matches_jax_toy_vae(tmp_path):
             **dict(TINY, in_channels=48, patch_size=(2, 2, 2)))}), tokenizer=Tok(),
             text_encoder_config=TextEncoderConfig(**TINY_T5),
             vae=PortToyVAE()).prepare_latents(1, 4, 32, 32, seed=0)
-    with pytest.raises(NotImplementedError, match="offloading"):
-        model.generate("a cat", do_offloading=True)
+    assert_offloaded_generate_is_plain(
+        monkeypatch, model, lambda **kw: model.generate(**kwargs, **kw), ("text_encoder", "denoiser"))
 
 
 def test_generate_matches_jax_native_vae(tmp_path):

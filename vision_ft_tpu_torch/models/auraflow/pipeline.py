@@ -20,7 +20,8 @@ prequantized bnb / quanto weights are grouped into quantized leaves).
 
 ``_slot_step`` is the continuous-batching unit (``serving/continuous.py``):
 one flow-match Euler step over a pool of slots with per-slot plain CFG.
-Not ported yet, raising by name: offloading (``do_offloading``).
+``generate(do_offloading=True)`` parks the text encoder, denoiser and VAE
+on the host between their stages (``modules/offload.py``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch
 from PIL import Image
 from torch import nn
 
+from ...modules.offload import execution_device, stage_on_device
 from ...nn import init_parameters_, load_flat_params
 from ...utils import tensor as tensor_utils
 from ...utils.dtype import str_to_dtype
@@ -309,31 +311,31 @@ class AuraFlowModel:
         deep_cache_interval: Optional[int] = None,
         deep_cache_depth: Optional[int] = None,
     ) -> list[Image.Image]:
-        if do_offloading:
-            raise NotImplementedError(
-                "offloading (modules/offload.py) is not ported yet (ROADMAP.md queue 1, item 6)"
-            )
         do_cfg = cfg_scale > 1.0
         timesteps, sigmas = self.scheduler.schedule_tables(num_inference_steps)
         batch_size = len(prompt) if isinstance(prompt, (list, tuple)) else 1
 
-        encoder_output = self.text_encoder.encode_prompts(
-            prompt, negative_prompt, use_negative_prompts=do_cfg, max_token_length=max_token_length,
-        )
+        on = execution_device(self) if do_offloading else None
+        with stage_on_device(self.text_encoder, do_offloading, on):
+            encoder_output = self.text_encoder.encode_prompts(
+                prompt, negative_prompt, use_negative_prompts=do_cfg, max_token_length=max_token_length,
+            )
         embeddings = torch.cat(
             [encoder_output.positive_embeddings, encoder_output.negative_embeddings]
         ).to(self.dtype)
-        latents = self.prepare_latents(batch_size, height, width, seed=seed)
+        with stage_on_device(self.denoiser, do_offloading, on):
+            latents = self.prepare_latents(batch_size, height, width, seed=seed)
 
-        cached_delta = None
-        for i in range(len(timesteps)):
-            step_args = (latents, sigmas[i], sigmas[i + 1], embeddings, cfg_scale)
-            if deep_cache_interval:
-                refresh = (i % deep_cache_interval == 0) or cached_delta is None
-                latents, cached_delta = self._denoise_step(
-                    *step_args, None if refresh else cached_delta, do_cfg=do_cfg,
-                    deep_cache=True, refresh=refresh, cache_depth=deep_cache_depth,
-                )
-            else:
-                latents = self._denoise_step(*step_args, do_cfg=do_cfg)
-        return self.decode_image(latents)
+            cached_delta = None
+            for i in range(len(timesteps)):
+                step_args = (latents, sigmas[i], sigmas[i + 1], embeddings, cfg_scale)
+                if deep_cache_interval:
+                    refresh = (i % deep_cache_interval == 0) or cached_delta is None
+                    latents, cached_delta = self._denoise_step(
+                        *step_args, None if refresh else cached_delta, do_cfg=do_cfg,
+                        deep_cache=True, refresh=refresh, cache_depth=deep_cache_depth,
+                    )
+                else:
+                    latents = self._denoise_step(*step_args, do_cfg=do_cfg)
+        with stage_on_device(self.vae, do_offloading, on):
+            return self.decode_image(latents)

@@ -78,10 +78,7 @@ class AuraFlowForShortcut(AuraFlowModel):
         that shortcut duration. As in the port's ``AuraFlowModel``, the
         guidance and the update run in fp32 and the latents stay in the
         model's dtype."""
-        if do_offloading:
-            raise NotImplementedError(
-                "offloading (modules/offload.py) is not ported yet (ROADMAP.md queue 1, item 6)"
-            )
+        del do_offloading  # accepted and ignored, as in the JAX package
         do_cfg = cfg_scale > 1.0
         timesteps = np.arange(1000, 0, -1000 / num_inference_steps)
         delta = 1.0 / num_inference_steps

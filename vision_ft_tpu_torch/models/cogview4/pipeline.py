@@ -12,8 +12,9 @@ key layout: ``diffusion_model.*``, ``text_encoder.*`` for GLM and
 leaves). ``state_dict()`` writes that layout back.
 
 ``_slot_step`` is the continuous-batching unit (``serving/continuous.py``):
-one Euler step over a pool of slots with per-slot plain CFG. Not ported
-yet, raising by name: offloading (``do_offloading``).
+one Euler step over a pool of slots with per-slot plain CFG.
+``generate(do_offloading=True)`` parks the text encoder, denoiser and VAE
+on the host between their stages (``modules/offload.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from PIL import Image
 from torch import nn
 
 from ...modules.timestep.sampling import time_shift_linear
+from ...modules.offload import execution_device, stage_on_device
 from ...nn import init_parameters_, load_flat_params
 from ...utils import tensor as tensor_utils
 from ...utils.dtype import str_to_dtype
@@ -305,39 +307,40 @@ class CogView4Model:
         deep_cache_interval: Optional[int] = None,
         deep_cache_depth: Optional[int] = None,
     ) -> list[Image.Image]:
-        if do_offloading:
-            raise NotImplementedError(
-                "offloading (modules/offload.py) is not ported yet (ROADMAP.md queue 1, item 8)"
-            )
         do_cfg = cfg_scale > 1.0
         timesteps, sigmas = self.prepare_timesteps(num_inference_steps, height, width)
         batch_size = len(prompt) if isinstance(prompt, (list, tuple)) else 1
         original_size = original_size or (height, width)
         target_size = target_size or (height, width)
 
-        encoder_output = self.text_encoder.encode_prompts(
-            prompt, negative_prompt, use_negative_prompts=do_cfg, max_token_length=max_token_length,
-        )
+        on = execution_device(self) if do_offloading else None
+        with stage_on_device(self.text_encoder, do_offloading, on):
+            encoder_output = self.text_encoder.encode_prompts(
+                prompt, negative_prompt, use_negative_prompts=do_cfg, max_token_length=max_token_length,
+            )
         embeddings = torch.cat(
             [encoder_output.positive_embeddings, encoder_output.negative_embeddings]
         ).to(self.dtype)
-        latents = self.prepare_latents(batch_size, height, width, seed=seed)
+        with stage_on_device(self.denoiser, do_offloading, on):
+            latents = self.prepare_latents(batch_size, height, width, seed=seed)
 
-        rows = embeddings.shape[0]
+            rows = embeddings.shape[0]
 
-        def sizes(value):
-            return torch.tensor(value, dtype=torch.float32, device=self.device).expand(rows, 2)
+            def sizes(value):
+                return torch.tensor(value, dtype=torch.float32, device=self.device).expand(rows, 2)
 
-        conditions = (sizes(original_size), sizes(target_size), sizes(crop_coords_top_left))
-        cached_delta = None
-        for i, t in enumerate(timesteps):
-            step_args = (latents, t, sigmas[i], sigmas[i + 1], embeddings, *conditions, cfg_scale)
-            if deep_cache_interval:
-                refresh = (i % deep_cache_interval == 0) or cached_delta is None
-                latents, cached_delta = self._denoise_step(
-                    *step_args, None if refresh else cached_delta, do_cfg=do_cfg,
-                    deep_cache=True, refresh=refresh, cache_depth=deep_cache_depth,
-                )
-            else:
-                latents = self._denoise_step(*step_args, do_cfg=do_cfg)
-        return self.decode_image(latents)
+            conditions = (sizes(original_size), sizes(target_size), sizes(crop_coords_top_left))
+            cached_delta = None
+            for i, t in enumerate(timesteps):
+                step_args = (latents, t, sigmas[i], sigmas[i + 1], embeddings, *conditions,
+                             cfg_scale)
+                if deep_cache_interval:
+                    refresh = (i % deep_cache_interval == 0) or cached_delta is None
+                    latents, cached_delta = self._denoise_step(
+                        *step_args, None if refresh else cached_delta, do_cfg=do_cfg,
+                        deep_cache=True, refresh=refresh, cache_depth=deep_cache_depth,
+                    )
+                else:
+                    latents = self._denoise_step(*step_args, do_cfg=do_cfg)
+        with stage_on_device(self.vae, do_offloading, on):
+            return self.decode_image(latents)

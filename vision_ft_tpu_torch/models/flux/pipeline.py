@@ -18,7 +18,8 @@ layout back.
 ``encode_image`` / ``decode_image`` scale by the VAE's scaling factor and
 skip its shift factor, as the JAX package does (kept for parity).
 ``_slot_step`` is the continuous-batching unit (``serving/continuous.py``).
-Not ported yet, raising by name: offloading (``do_offloading``).
+``generate(do_offloading=True)`` parks the text encoder, denoiser and VAE
+on the host between their stages (``modules/offload.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from PIL import Image
 from torch import nn
 
 from ...modules.timestep.scheduler import get_linear_schedule
+from ...modules.offload import execution_device, stage_on_device
 from ...nn import init_parameters_, load_flat_params
 from ...utils import tensor as tensor_utils
 from ...utils.dtype import str_to_dtype
@@ -291,16 +293,14 @@ class FluxModel:
         deep_cache_interval: Optional[int] = None,
         deep_cache_depth: Optional[int] = None,
     ) -> list[Image.Image]:
-        if do_offloading:
-            raise NotImplementedError(
-                "offloading (modules/offload.py) is not ported yet (ROADMAP.md queue 1, item 6)"
-            )
         do_cfg = cfg_scale > 1.0
         batch_size = len(prompt) if isinstance(prompt, (list, tuple)) else 1
-        encoder_output = self.text_encoder.encode_prompts(
-            prompt, negative_prompt, use_negative_prompts=do_cfg,
-            t5_max_token_length=max_token_length,
-        )
+        on = execution_device(self) if do_offloading else None
+        with stage_on_device(self.text_encoder, do_offloading, on):
+            encoder_output = self.text_encoder.encode_prompts(
+                prompt, negative_prompt, use_negative_prompts=do_cfg,
+                t5_max_token_length=max_token_length,
+            )
         t5_emb = torch.cat(
             [encoder_output.t5.positive_embeddings, encoder_output.t5.negative_embeddings]
         ).to(self.dtype)
@@ -308,19 +308,22 @@ class FluxModel:
             [encoder_output.clip.positive_embeddings, encoder_output.clip.negative_embeddings]
         ).to(self.dtype)
 
-        latents = self.prepare_latents(batch_size, height, width, seed=seed)
-        timesteps = get_linear_schedule(num_inference_steps)
-        delta = 1.0 / num_inference_steps
+        with stage_on_device(self.denoiser, do_offloading, on):
+            latents = self.prepare_latents(batch_size, height, width, seed=seed)
+            timesteps = get_linear_schedule(num_inference_steps)
+            delta = 1.0 / num_inference_steps
 
-        cached_delta = None
-        for i, t in enumerate(timesteps):
-            step_args = (latents, t, delta, t5_emb, clip_emb, distilled_guidance_scale, cfg_scale)
-            if deep_cache_interval:
-                refresh = (i % deep_cache_interval == 0) or cached_delta is None
-                latents, cached_delta = self._denoise_step(
-                    *step_args, None if refresh else cached_delta, do_cfg=do_cfg,
-                    deep_cache=True, refresh=refresh, cache_depth=deep_cache_depth,
-                )
-            else:
-                latents = self._denoise_step(*step_args, do_cfg=do_cfg)
-        return self.decode_image(latents)
+            cached_delta = None
+            for i, t in enumerate(timesteps):
+                step_args = (latents, t, delta, t5_emb, clip_emb, distilled_guidance_scale,
+                             cfg_scale)
+                if deep_cache_interval:
+                    refresh = (i % deep_cache_interval == 0) or cached_delta is None
+                    latents, cached_delta = self._denoise_step(
+                        *step_args, None if refresh else cached_delta, do_cfg=do_cfg,
+                        deep_cache=True, refresh=refresh, cache_depth=deep_cache_depth,
+                    )
+                else:
+                    latents = self._denoise_step(*step_args, do_cfg=do_cfg)
+        with stage_on_device(self.vae, do_offloading, on):
+            return self.decode_image(latents)

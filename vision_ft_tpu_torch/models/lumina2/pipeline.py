@@ -19,7 +19,9 @@ grouped into quantized leaves). ``state_dict()`` writes that layout back.
 ``encode_image`` is the VAE encode of the train step's latents.
 ``_slot_step`` is the continuous-batching unit (``serving/continuous.py``):
 one flow-match Euler step over a pool of slots with per-slot guidance,
-renorm and CFG truncation. Not ported yet: offloading.
+renorm and CFG truncation. ``generate(do_offloading=True)`` parks the text
+encoder, denoiser and VAE on the host between their stages
+(``modules/offload.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 from PIL import Image
 from torch import nn
 
+from ...modules.offload import execution_device, stage_on_device
 from ...nn import init_parameters_, load_flat_params
 from ...utils import tensor as tensor_utils
 from ...utils.dtype import str_to_dtype
@@ -319,59 +322,61 @@ class Lumina2:
         deep_cache_interval: Optional[int] = None,
         deep_cache_depth: Optional[int] = None,
     ) -> list[Image.Image]:
-        if do_offloading:
-            raise NotImplementedError("offloading is not ported yet")
         do_cfg = cfg_scale > 1.0
         timesteps = self.scheduler.get_timesteps(num_inference_steps)
         sigmas = self.scheduler.get_sigmas(num_inference_steps)
         prompts = list(prompt) if isinstance(prompt, (list, tuple)) else [prompt]
 
-        encoder_output = self.text_encoder.encode_prompts(
-            prompts, negative_prompt, use_negative_prompts=do_cfg,
-            max_token_length=max_token_length,
-        )
-        latents = self.prepare_latents(len(prompts), height, width, seed=seed)
-
-        cached_features = None
-        cached_was_cfg = None
-        cached_delta = None
-        for i, t in enumerate(timesteps):
-            current_step_ratio = (i + 1) / num_inference_steps
-            do_cfg_step = do_cfg and current_step_ratio > cfg_truncation_ratio
-
-            if do_cfg_step:
-                caption_features = torch.cat(
-                    [encoder_output.positive_embeddings, encoder_output.negative_embeddings]
-                ).to(self.dtype)
-                caption_mask = torch.cat(
-                    [encoder_output.positive_attention_mask, encoder_output.negative_attention_mask]
-                )
-            else:
-                caption_features = encoder_output.positive_embeddings.to(self.dtype)
-                caption_mask = encoder_output.positive_attention_mask
-
-            # drop the caches when the CFG batch size changes
-            if cached_was_cfg is not None and cached_was_cfg != do_cfg_step:
-                cached_features = None
-                cached_delta = None
-            use_cache = cached_features is not None
-
-            step_args = (
-                latents, t, sigmas[i], sigmas[i + 1], caption_features, caption_mask,
-                cached_features, cfg_scale, renorm_cfg_scale,
+        on = execution_device(self) if do_offloading else None
+        with stage_on_device(self.text_encoder, do_offloading, on):
+            encoder_output = self.text_encoder.encode_prompts(
+                prompts, negative_prompt, use_negative_prompts=do_cfg,
+                max_token_length=max_token_length,
             )
-            if deep_cache_interval:
-                refresh = (i % deep_cache_interval == 0) or cached_delta is None
-                latents, refined, cached_delta = self._denoise_step(
-                    *step_args, None if refresh else cached_delta, do_cfg=do_cfg_step,
-                    use_cache=use_cache, deep_cache=True, refresh=refresh,
-                    cache_depth=deep_cache_depth,
-                )
-            else:
-                latents, refined = self._denoise_step(
-                    *step_args, do_cfg=do_cfg_step, use_cache=use_cache
-                )
-            cached_features = refined
-            cached_was_cfg = do_cfg_step
+        with stage_on_device(self.denoiser, do_offloading, on):
+            latents = self.prepare_latents(len(prompts), height, width, seed=seed)
 
-        return self.decode_image(latents)
+            cached_features = None
+            cached_was_cfg = None
+            cached_delta = None
+            for i, t in enumerate(timesteps):
+                current_step_ratio = (i + 1) / num_inference_steps
+                do_cfg_step = do_cfg and current_step_ratio > cfg_truncation_ratio
+
+                if do_cfg_step:
+                    caption_features = torch.cat(
+                        [encoder_output.positive_embeddings, encoder_output.negative_embeddings]
+                    ).to(self.dtype)
+                    caption_mask = torch.cat(
+                        [encoder_output.positive_attention_mask,
+                         encoder_output.negative_attention_mask]
+                    )
+                else:
+                    caption_features = encoder_output.positive_embeddings.to(self.dtype)
+                    caption_mask = encoder_output.positive_attention_mask
+
+                # drop the caches when the CFG batch size changes
+                if cached_was_cfg is not None and cached_was_cfg != do_cfg_step:
+                    cached_features = None
+                    cached_delta = None
+                use_cache = cached_features is not None
+
+                step_args = (
+                    latents, t, sigmas[i], sigmas[i + 1], caption_features, caption_mask,
+                    cached_features, cfg_scale, renorm_cfg_scale,
+                )
+                if deep_cache_interval:
+                    refresh = (i % deep_cache_interval == 0) or cached_delta is None
+                    latents, refined, cached_delta = self._denoise_step(
+                        *step_args, None if refresh else cached_delta, do_cfg=do_cfg_step,
+                        use_cache=use_cache, deep_cache=True, refresh=refresh,
+                        cache_depth=deep_cache_depth,
+                    )
+                else:
+                    latents, refined = self._denoise_step(
+                        *step_args, do_cfg=do_cfg_step, use_cache=use_cache
+                    )
+                cached_features = refined
+                cached_was_cfg = do_cfg_step
+        with stage_on_device(self.vae, do_offloading, on):
+            return self.decode_image(latents)

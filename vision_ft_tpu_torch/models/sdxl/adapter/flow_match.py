@@ -83,8 +83,7 @@ class SDXLFlowMatch(SDXLModel):
         seed: Optional[int] = None,
         do_offloading: bool = False,
     ) -> list[Image.Image]:
-        if do_offloading:
-            raise NotImplementedError("offloading is not ported yet")
+        del do_offloading  # accepted and ignored, as in the JAX package
         do_cfg = cfg_scale > 1.0
         timesteps, sigmas = self.prepare_timesteps(num_inference_steps)
         batch_size = len(prompt) if isinstance(prompt, (list, tuple)) else 1

@@ -440,8 +440,7 @@ class SDXLModelWithIPAdapter(SDXLModel):
         seed: Optional[int] = None,
         do_offloading: bool = False,
     ) -> list[Image.Image]:
-        if do_offloading:
-            raise NotImplementedError("offloading is not ported yet")
+        del do_offloading  # accepted and ignored, as in the JAX package
         do_cfg = cfg_scale > 1.0
         timesteps = self.scheduler.get_timesteps(num_inference_steps)
         sigmas = self.scheduler.get_sigmas(timesteps)

@@ -33,7 +33,8 @@ per-slot vector, slot j's step-i noise drawn from its own generator seeded
 ``(seed_j + 7919 * (i + 1)) & 0x7FFFFFFF`` (``slot_noise``), the stream of
 batch-1 ``generate()``.
 
-Not ported yet: offloading.
+``generate(do_offloading=True)`` parks the text encoder, denoiser and VAE
+on the host between their stages (``modules/offload.py``).
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ import torch
 from PIL import Image
 from torch import nn
 
+from ...modules.offload import execution_device, stage_on_device
 from ...nn import Conv2d, Linear, init_parameters_, load_flat_params, weight_device
 from ...utils import safetensors as st
 from ...utils import tensor as tensor_utils
@@ -380,8 +382,6 @@ class SDXLModel:
         deep_cache_interval: Optional[int] = None,
         do_offloading: bool = False,
     ) -> list[Image.Image]:
-        if do_offloading:
-            raise NotImplementedError("offloading is not ported yet")
         do_cfg = cfg_scale > 1.0
         timesteps = self.scheduler.get_timesteps(num_inference_steps)
         sigmas = self.scheduler.get_sigmas(timesteps)
@@ -389,49 +389,56 @@ class SDXLModel:
         original_size = original_size or (height, width)
         target_size = target_size or (height, width)
 
-        encoder_output = self.text_encoder.encode_prompts(
-            prompt, negative_prompt, use_negative_prompts=do_cfg,
-            max_token_length=max_token_length,
-        )
+        on = execution_device(self) if do_offloading else None
+        with stage_on_device(self.text_encoder, do_offloading, on):
+            encoder_output = self.text_encoder.encode_prompts(
+                prompt, negative_prompt, use_negative_prompts=do_cfg,
+                max_token_length=max_token_length,
+            )
         embeddings, pooled = self.prepare_encoder_hidden_states(encoder_output, do_cfg)
         return self._generate_core(
             embeddings, pooled, batch_size, height, width, original_size, target_size,
             crop_coords_top_left, timesteps, sigmas, cfg_scale, cfg_rescale, do_cfg, seed,
-            deep_cache_interval,
+            deep_cache_interval, do_offloading,
         )
 
     def _generate_core(
         self, embeddings, pooled, batch_size, height, width, original_size, target_size,
         crop_coords_top_left, timesteps, sigmas, cfg_scale, cfg_rescale, do_cfg, seed,
-        deep_cache_interval=None,
+        deep_cache_interval=None, do_offloading: bool = False,
     ) -> list[Image.Image]:
         """The seeded denoise loop and the decode, shared by ``generate()``
         and the context-level adapters (PFG, the style tokenizer), which
-        differ only in how they make ``embeddings``."""
-        embeddings = embeddings.to(self.dtype)
-        pooled = pooled.to(self.dtype)
-        latents = self.prepare_latents(
-            batch_size, height, width, self.scheduler.get_max_noise_sigma(sigmas), seed
-        )
-        noise_seed = seed if seed is not None else int(np.random.randint(0, 2**31 - 1))
-        step_noises = [
-            tensor_utils.incremental_seed_randn(
-                latents.shape, (noise_seed + 7919 * (i + 1)) & 0x7FFFFFFF,
-                torch.float32, latents.device,
+        differ only in how they make ``embeddings``. With ``do_offloading``
+        the denoiser is on the card for the loop and the VAE for the decode,
+        each parked on the host after it."""
+        on = execution_device(self) if do_offloading else None
+        with stage_on_device(self.denoiser, do_offloading, on):
+            embeddings = embeddings.to(self.dtype)
+            pooled = pooled.to(self.dtype)
+            latents = self.prepare_latents(
+                batch_size, height, width, self.scheduler.get_max_noise_sigma(sigmas), seed
             )
-            for i in range(len(timesteps))
-        ]
+            noise_seed = seed if seed is not None else int(np.random.randint(0, 2**31 - 1))
+            step_noises = [
+                tensor_utils.incremental_seed_randn(
+                    latents.shape, (noise_seed + 7919 * (i + 1)) & 0x7FFFFFFF,
+                    torch.float32, latents.device,
+                )
+                for i in range(len(timesteps))
+            ]
 
-        def sizes(value):
-            t = torch.tensor(value, dtype=torch.float32, device=latents.device)
-            return t.expand(embeddings.shape[0], 2)
+            def sizes(value):
+                t = torch.tensor(value, dtype=torch.float32, device=latents.device)
+                return t.expand(embeddings.shape[0], 2)
 
-        latents = self._denoise_loop(
-            latents, step_noises, timesteps, sigmas, embeddings, pooled,
-            sizes(original_size), sizes(target_size), sizes(crop_coords_top_left),
-            cfg_scale, cfg_rescale, do_cfg, deep_cache_interval,
-        )
-        return self.decode_image(latents, use_tiling=max(height, width) >= 1536)
+            latents = self._denoise_loop(
+                latents, step_noises, timesteps, sigmas, embeddings, pooled,
+                sizes(original_size), sizes(target_size), sizes(crop_coords_top_left),
+                cfg_scale, cfg_rescale, do_cfg, deep_cache_interval,
+            )
+        with stage_on_device(self.vae, do_offloading, on):
+            return self.decode_image(latents, use_tiling=max(height, width) >= 1536)
 
     def prepare_encoder_hidden_states(self, encoder_output, do_cfg: bool):
         """cat(te1 768, te2 1280) -> 2048-d context; CFG doubles the batch as

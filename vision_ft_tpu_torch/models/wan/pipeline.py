@@ -14,8 +14,9 @@ default is the native causal 3-D VAE at its default config, fp32, which
 
 The context is dense (B, Lc, D) with its masked positions zeroed, which
 is what Wan's strip-then-zero-repad gives once the denoiser pads it to
-``text_len``. Not ported yet, raising by name: offloading
-(``do_offloading``).
+``text_len``. ``generate(do_offloading=True)`` parks the text encoder and
+the denoiser on the host between their stages, as the JAX package does
+(``modules/offload.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 from PIL import Image
 
+from ...modules.offload import execution_device, stage_on_device
 from ...nn import init_parameters_, load_flat_params
 from ...utils import tensor as tensor_utils
 from ...utils.dtype import str_to_dtype
@@ -227,19 +229,17 @@ class Wan22:
         deep_cache_depth: Optional[int] = None,
     ) -> list[list[Image.Image]]:
         """One list of frames a prompt."""
-        if do_offloading:
-            raise NotImplementedError(
-                "offloading (modules/offload.py) is not ported yet (ROADMAP.md queue 1, item 8)"
-            )
         do_cfg = cfg_scale > 1.0
         prompts = list(prompt) if isinstance(prompt, (list, tuple)) else [prompt]
         timesteps = self.scheduler.get_timesteps(num_inference_steps)
         sigmas = self.scheduler.get_sigmas(num_inference_steps)
 
-        encoder_output = self.text_encoder.encode_prompts(
-            prompts, negative_prompt, use_negative_prompts=do_cfg,
-            max_token_length=max_token_length,
-        )
+        on = execution_device(self) if do_offloading else None
+        with stage_on_device(self.text_encoder, do_offloading, on):
+            encoder_output = self.text_encoder.encode_prompts(
+                prompts, negative_prompt, use_negative_prompts=do_cfg,
+                max_token_length=max_token_length,
+            )
         if do_cfg:
             embeddings = torch.cat([encoder_output.positive_embeddings,
                                     encoder_output.negative_embeddings])
@@ -252,17 +252,18 @@ class Wan22:
         context = (embeddings * mask[:, :, None].to(embeddings.dtype)).to(self.dtype)
         del encoder_output, embeddings
 
-        latents = self.prepare_latents(len(prompts), frames, height, width, seed=seed)
-        cached_delta = None
-        for i, t in enumerate(timesteps):
-            step_args = (latents, t, sigmas[i], sigmas[i + 1], context, cfg_scale)
-            if deep_cache_interval:
-                refresh = (i % deep_cache_interval == 0) or cached_delta is None
-                latents, cached_delta = self._denoise_step(
-                    *step_args, None if refresh else cached_delta, do_cfg=do_cfg,
-                    deep_cache=True, refresh=refresh, cache_depth=deep_cache_depth,
-                )
-            else:
-                latents = self._denoise_step(*step_args, do_cfg=do_cfg)
-        del context, cached_delta
+        with stage_on_device(self.denoiser, do_offloading, on):
+            latents = self.prepare_latents(len(prompts), frames, height, width, seed=seed)
+            cached_delta = None
+            for i, t in enumerate(timesteps):
+                step_args = (latents, t, sigmas[i], sigmas[i + 1], context, cfg_scale)
+                if deep_cache_interval:
+                    refresh = (i % deep_cache_interval == 0) or cached_delta is None
+                    latents, cached_delta = self._denoise_step(
+                        *step_args, None if refresh else cached_delta, do_cfg=do_cfg,
+                        deep_cache=True, refresh=refresh, cache_depth=deep_cache_depth,
+                    )
+                else:
+                    latents = self._denoise_step(*step_args, do_cfg=do_cfg)
+            del context, cached_delta
         return self.decode_videos(latents)

@@ -1,12 +1,10 @@
-"""Previews: the cadence strategy, the callback registry and the local
-file callback (``vision_ft_tpu/preview`` counterpart). The Discord webhook
-callback is not ported: its config validates, and building the callback
-raises ``NotImplementedError``."""
+"""Previews: the cadence strategy, the callback registry, the local file
+callback and the Discord webhook callback (``vision_ft_tpu/preview``
+counterpart)."""
 
-from typing import Literal, Optional, Union
+from typing import Union
 
-from pydantic import BaseModel, SecretStr
-
+from .discord import DiscordWebhookPreviewCallback, DiscordWebhookPreviewCallbackConfig
 from .local import LocalPreviewCallback, LocalPreviewCallbackConfig
 from .util import (
     PreviewCallback,
@@ -14,20 +12,6 @@ from .util import (
     PreviewStrategy,
     PreviewStrategyConfig,
 )
-
-
-class DiscordWebhookPreviewCallbackConfig(BaseModel):
-    type: Literal["discord"] = "discord"
-    url: SecretStr
-
-    username: Optional[str] = None
-    avatar_url: Optional[str] = None
-
-    message_template: str = """\
-- Epoch: `{epoch}`
-- Steps: `{steps}`
-- Preview ID: `{id}`"""
-
 
 PreviewCallbackConfigAlias = Union[
     LocalPreviewCallbackConfig, DiscordWebhookPreviewCallbackConfig
@@ -38,7 +22,7 @@ def get_preview_callback(config: PreviewCallbackConfigAlias, **kwargs) -> Previe
     if isinstance(config, LocalPreviewCallbackConfig):
         return LocalPreviewCallback.from_config(config, **kwargs)
     if isinstance(config, DiscordWebhookPreviewCallbackConfig):
-        raise NotImplementedError("the Discord webhook preview callback is not ported")
+        return DiscordWebhookPreviewCallback.from_config(config, **kwargs)
     raise ValueError(f"Unknown preview config: {config}")
 
 
@@ -50,6 +34,7 @@ __all__ = [
     "PreviewStrategyConfig",
     "LocalPreviewCallback",
     "LocalPreviewCallbackConfig",
+    "DiscordWebhookPreviewCallback",
     "DiscordWebhookPreviewCallbackConfig",
     "get_preview_callback",
 ]

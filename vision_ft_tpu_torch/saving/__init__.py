@@ -1,10 +1,10 @@
-"""Model saving: the cadence strategy, the callback registry and the
-safetensors callback (``vision_ft_tpu/saving`` counterpart). The Hugging
-Face Hub callback is not ported: its config validates, and building the
-callback raises ``NotImplementedError``."""
+"""Model saving: the cadence strategy, the callback registry, the
+safetensors callback and the Hugging Face Hub callback
+(``vision_ft_tpu/saving`` counterpart)."""
 
 from typing import Union
 
+from .hf_hub import HFHubSavingCallback, HFHubSavingCallbackConfig
 from .safetensors import SafetensorsSavingCallback, SafetensorsSavingCallbackConfig
 from .util import (
     ModelSavingCallback,
@@ -13,15 +13,6 @@ from .util import (
     ModelSavingStrategyConfig,
 )
 
-
-class HFHubSavingCallbackConfig(SafetensorsSavingCallbackConfig):
-    type: str = "hf_hub"
-
-    hub_id: str
-    dir_in_repo: str
-    repo_type: str = "model"
-
-
 ModelSavingCallbackConfgiAlias = Union[  # the name's spelling is the JAX package's
     SafetensorsSavingCallbackConfig, HFHubSavingCallbackConfig
 ]
@@ -29,7 +20,7 @@ ModelSavingCallbackConfgiAlias = Union[  # the name's spelling is the JAX packag
 
 def get_saving_callback(config: ModelSavingCallbackConfgiAlias, **kwargs) -> ModelSavingCallback:
     if isinstance(config, HFHubSavingCallbackConfig):
-        raise NotImplementedError("the Hugging Face Hub saving callback is not ported")
+        return HFHubSavingCallback.from_config(config, **kwargs)
     if isinstance(config, SafetensorsSavingCallbackConfig):
         return SafetensorsSavingCallback.from_config(config, **kwargs)
     raise ValueError(f"Unknown saving config: {config}")
@@ -43,6 +34,7 @@ __all__ = [
     "ModelSavingStrategyConfig",
     "SafetensorsSavingCallback",
     "SafetensorsSavingCallbackConfig",
+    "HFHubSavingCallback",
     "HFHubSavingCallbackConfig",
     "get_saving_callback",
 ]

@@ -54,7 +54,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--cfg-rescale", type=float, default=None,
                         help="SDXL only: std-matching CFG rescale blend in [0, 1]")
     parser.add_argument("--do-offloading", action="store_true",
-                        help="stage submodules on and off the card (not ported yet: raises)")
+                        help="park the text encoder, denoiser and VAE on the host between "
+                             "their stages (modules/offload.py)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="where the model runs (cuda; cpu for tests)")
     return parser

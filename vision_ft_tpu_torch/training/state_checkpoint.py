@@ -7,7 +7,11 @@ every ``trainer.state_checkpoint_every_steps`` under
 ``resume_from_state_checkpoint``, restores the newest one before training.
 The file is written by ``torch.save`` to a temporary name and renamed into
 place, so a step directory holds either a whole state or none; it is read
-back with ``torch.load(weights_only=True)``. Older step directories are
+back with ``torch.load(weights_only=True)``. The optimizers of
+``training/optimizer.py`` that keep state of their own (the 8-bit AdamW's
+int8 codes and fp32 scales, Adafactor's factored moments, the
+schedule-free iterates and counters) restore it in its dtypes, so a resumed
+run continues bit for bit. Older step directories are
 kept (pruning is the operator's call). The two packages' files are not
 interchangeable: the JAX package writes Orbax trees.
 """

@@ -1,29 +1,50 @@
 """Tracker wiring (``vision_ft_tpu/utils/logging.py`` counterpart):
-``TrackerConfig.loggers`` picks the trackers; debug mode disables
-tracking. wandb and tensorboard are not ported: configuring either raises
-``NotImplementedError``. With no tracker configured the Trainer logs to
-nothing, as the JAX package does."""
+``TrackerConfig.loggers`` picks wandb and / or tensorboard; debug mode
+disables tracking. A tracker whose package does not import (or whose run
+cannot start) warns and logs nothing, as in the JAX package."""
 
 from __future__ import annotations
 
-from typing import Optional
+import warnings
+from typing import Any, Optional
 
 
 class Trackers:
     """Multiplexer with an accelerate-tracker-like ``.log(dict, step)``."""
 
     def __init__(self, loggers: list[str], project_name: str, config: dict):
+        self._backends: list[tuple[str, Any]] = []
         for name in loggers:
-            if name in ("wandb", "tensorboard"):
-                raise NotImplementedError(f"the {name} tracker is not ported")
-            raise ValueError(f"Unknown logger: {name}")
-        self.project_name = project_name
+            if name not in ("wandb", "tensorboard"):
+                raise ValueError(f"Unknown logger: {name}")
+            try:
+                if name == "wandb":
+                    import wandb
+
+                    self._backends.append(("wandb", wandb.init(project=project_name, config=config)))
+                else:
+                    from torch.utils.tensorboard import SummaryWriter
+
+                    self._backends.append(
+                        ("tensorboard", SummaryWriter(log_dir=f"runs/{project_name}")))
+            except Exception as e:  # missing package / offline
+                warnings.warn(f"{name} tracker unavailable: {e}")
 
     def log(self, values: dict, step: Optional[int] = None) -> None:
-        pass
+        for kind, backend in self._backends:
+            if kind == "wandb":
+                backend.log(values, step=step)
+            else:
+                for key, value in values.items():
+                    if isinstance(value, (int, float)):
+                        backend.add_scalar(key, value, global_step=step)
 
     def finish(self) -> None:
-        pass
+        for kind, backend in self._backends:
+            if kind == "wandb":
+                backend.finish()
+            else:
+                backend.close()
 
 
 def get_trackers(config) -> list[str]:
@@ -32,3 +53,9 @@ def get_trackers(config) -> list[str]:
     if config.tracker is not None:
         return config.tracker.loggers
     return []
+
+
+def wandb_image(image, caption: Optional[str] = None):
+    import wandb
+
+    return wandb.Image(image, caption=caption)
